@@ -1,0 +1,47 @@
+"""repro_torch.api — the plan/execute solver surface.
+
+    from repro_torch.api import SolverConfig, plan
+
+    p = plan(N, SolverConfig())   # cached per (config key, device)
+    fact = p.execute(A)           # Factorization, on the CUDA card
+    x = fact.solve(b)             # [N] or [N, k]
+    s, ld = fact.slogdet()
+
+Plans run on the card unless the caller passes `device="cpu"`.  This slice
+covers the single-device LU path: strategies "sequential" and "auto", the
+"cuda" (default) and "ref" kernel backends.
+"""
+
+import repro_torch.api.strategies  # noqa: F401  (registers the built-ins)
+from repro_torch.api.config import SolverConfig
+from repro_torch.api.plan import (
+    FactorizationPlan,
+    clear_plan_cache,
+    factor,
+    plan,
+    plan_cache_stats,
+    resolve,
+    set_plan_cache_capacity,
+)
+from repro_torch.api.registry import available_strategies, get_strategy, register_strategy
+from repro_torch.api.result import Factorization
+from repro_torch.core.lu.grid import GridConfig
+from repro_torch.kernels.backend import available_backends
+
+
+__all__ = [
+    "SolverConfig",
+    "GridConfig",
+    "FactorizationPlan",
+    "Factorization",
+    "plan",
+    "factor",
+    "resolve",
+    "plan_cache_stats",
+    "clear_plan_cache",
+    "set_plan_cache_capacity",
+    "available_backends",
+    "register_strategy",
+    "get_strategy",
+    "available_strategies",
+]

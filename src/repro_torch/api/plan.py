@@ -1,0 +1,281 @@
+"""plan/execute core: FactorizationPlans and their LRU cache.
+
+`plan(N, config, device=...)` resolves a `SolverConfig` to a concrete
+strategy + kernel backend, then returns the cached `FactorizationPlan` for
+that key and device — building one only on a cache miss.  `plan.execute(A)`
+factorizes on the plan's device.
+
+Plans run on the CUDA card unless the caller passes `device="cpu"`; a host
+without CUDA raises instead of running on the CPU.
+
+The cache is LRU-bounded (`set_plan_cache_capacity`, default
+REPRO_PLAN_CACHE_CAPACITY or 64).  Evictions only drop the cache's
+reference: plans already held keep working.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import warnings
+from collections import OrderedDict
+
+import torch
+
+from repro_torch.api.config import SolverConfig, dtype_name, resolve_dtype
+from repro_torch.api.registry import get_strategy
+from repro_torch.api.result import Factorization
+from repro_torch.core.lu.grid import GridConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.backend import available_backends, check_hopper_constraints
+
+# Strategies of the JAX package whose slices are not ported yet.
+_UNPORTED_STRATEGIES = {
+    "conflux": "10 (distributed 2.5D schedules)",
+    "baseline2d": "10 (distributed 2.5D schedules)",
+    "cholesky25d": "6 and 10 (Cholesky, distributed schedules)",
+    "sequential_chol": "6 (Cholesky)",
+}
+
+
+class FactorizationPlan:
+    """A reusable factorization program for one (N, config, device).
+
+    Attributes:
+        N, config:     the resolved problem/strategy this plan was built for.
+        device:        where `execute` runs.
+        grid:          processor grid (None on one device).
+        comm:          instrumented per-processor schedule volume (elements).
+        trace_count:   times the plan prepared its program.  PyTorch runs
+                       eagerly, so this is 1 from the first execute on (the
+                       kernels are loaded then) and never grows.
+        execute_count: times `execute` ran.
+    """
+
+    def __init__(self, N: int, config: SolverConfig, device: torch.device, *,
+                 grid: GridConfig | None = None, comm: dict | None = None, run=None,
+                 kind: str = "lu"):
+        self.N = N
+        self.config = config
+        self.device = device
+        self.grid = grid
+        self.comm = dict(comm or {})
+        self.kind = kind
+        self.trace_count = 0
+        self.execute_count = 0
+        # Cached plans are shared across threads, so the counter bumps are
+        # locked: a bare `+= 1` can drop increments under concurrent executes.
+        self._count_lock = threading.Lock()
+        self._run = run  # (A: tensor [N, N] on device) -> (F, rows); set by the builder
+
+    def execute(self, A) -> Factorization:
+        """Factorize A [N, N] (numpy array or tensor) on the plan's device."""
+        A = torch.as_tensor(A)
+        if A.is_complex():
+            raise ValueError(
+                f"complex matrices are not supported (plan computes in "
+                f"{self.config.dtype}); factorize the real and imaginary parts "
+                f"separately or use a real 2N x 2N embedding"
+            )
+        work = resolve_dtype(self.config.dtype)
+        if A.is_floating_point() and A.dtype.itemsize > work.itemsize:
+            warnings.warn(
+                f"plan computes in {self.config.dtype}; input {dtype_name(A.dtype)} "
+                f"will be downcast (set SolverConfig.dtype to keep precision)",
+                stacklevel=2,
+            )
+        if tuple(A.shape) != (self.N, self.N):
+            raise ValueError(
+                f"plan was built for N={self.N} (expects shape {(self.N, self.N)}), "
+                f"got A of shape {tuple(A.shape)}"
+            )
+        A = A.to(device=self.device, dtype=work)
+        F, rows = self._run(A)
+        with self._count_lock:
+            self.trace_count = 1
+            self.execute_count += 1
+        return Factorization(
+            F=F, rows=rows, grid=self.grid, comm=dict(self.comm),
+            strategy=self.config.strategy, backend=self.config.backend,
+            kind=self.kind, A_ref=A, work_dtype=work,
+        )
+
+    def __repr__(self):
+        return (f"FactorizationPlan(N={self.N}, strategy={self.config.strategy!r}, "
+                f"pivot={self.config.pivot!r}, backend={self.config.backend!r}, "
+                f"device={self.device}, grid={self.grid}, "
+                f"traces={self.trace_count}, executes={self.execute_count})")
+
+
+def _capacity_from_env(default: int = 64) -> int:
+    """Parse REPRO_PLAN_CACHE_CAPACITY: a non-integer or negative value falls
+    back to the default with a warning (0 = unbounded)."""
+    raw = os.environ.get("REPRO_PLAN_CACHE_CAPACITY")
+    if raw is None:
+        return default
+    try:
+        cap = int(raw)
+        if cap < 0:
+            raise ValueError
+        return cap
+    except ValueError:
+        warnings.warn(
+            f"ignoring REPRO_PLAN_CACHE_CAPACITY={raw!r} (want an integer >= 0, "
+            f"0 = unbounded); using {default}",
+            stacklevel=2,
+        )
+        return default
+
+
+_PLAN_CACHE: OrderedDict[tuple, FactorizationPlan] = OrderedDict()
+_BUILDING: dict[tuple, threading.Event] = {}
+_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+_CAPACITY = _capacity_from_env()
+_LOCK = threading.Lock()
+
+
+def _reject_unported(config: SolverConfig) -> None:
+    """Refuse the fields whose path is not ported yet, naming its item."""
+    if config.strategy in _UNPORTED_STRATEGIES:
+        raise ValueError(
+            f"strategy {config.strategy!r} is not ported yet: ROADMAP.md module "
+            f"item {_UNPORTED_STRATEGIES[config.strategy]}; use 'sequential' or 'auto'"
+        )
+    if config.B is not None:
+        raise ValueError(
+            f"batched plans (B={config.B}) are not ported yet: ROADMAP.md module "
+            f"item 5 (batched many-small-systems)"
+        )
+    if config.compute_dtype is not None:
+        raise ValueError(
+            f"compute_dtype={config.compute_dtype!r} is not ported yet: ROADMAP.md "
+            f"module item 7 (mixed precision and refinement)"
+        )
+
+
+def _resolve_backend(N: int, config: SolverConfig) -> SolverConfig:
+    """Validate the kernel backend.  Runs after strategy resolution, so the
+    panel width is concrete.  A plan the kernels cannot run raises."""
+    if config.backend == "pallas":
+        raise ValueError(
+            "backend 'pallas' is the JAX package's TPU kernels; the port's "
+            "hand-written kernels are backend 'cuda' (or 'ref' for plain PyTorch)"
+        )
+    if config.backend not in available_backends():
+        raise ValueError(
+            f"unknown kernel backend {config.backend!r}; available: {available_backends()}"
+        )
+    if config.backend == "cuda":
+        v = config.grid.v if config.grid is not None else config.v
+        check_hopper_constraints(config.effective_compute_dtype, v)
+    return config
+
+
+def resolve(N: int, config: SolverConfig) -> SolverConfig:
+    """Resolve "auto"/missing-panel-width/backend configs to concrete choices."""
+    _reject_unported(config)
+    for _ in range(3):
+        builder = get_strategy(config.strategy)
+        resolver = getattr(builder, "resolve", None)
+        resolved = resolver(N, config) if resolver else config
+        if resolved.strategy == config.strategy:
+            return _resolve_backend(N, resolved)
+        config = resolved
+    raise RuntimeError(f"strategy resolution did not converge for {config}")
+
+
+def plan(N: int, config: SolverConfig | None = None, *, device=None,
+         **overrides) -> FactorizationPlan:
+    """Get (or build) the plan for factorizing N x N matrices on `device`.
+
+    `device=None` is the CUDA card (raises when there is none; pass
+    `device="cpu"` for the plain PyTorch versions on the CPU).  `overrides`
+    are SolverConfig fields, so `plan(256, v=16)` works without building a
+    config.
+    """
+    dev = resolve_device(device)
+    config = config or SolverConfig()
+    if overrides:
+        config = config.with_(**overrides)
+    if isinstance(N, tuple):
+        raise ValueError(
+            "batched plans plan((B, N)) are not ported yet: ROADMAP.md module item 5"
+        )
+    resolved = resolve(N, config)
+    builder = get_strategy(resolved.strategy)
+    key = (resolved.cache_key(N), str(dev))
+    while True:
+        with _LOCK:
+            cached = _PLAN_CACHE.get(key)
+            if cached is not None:
+                _STATS["hits"] += 1
+                _PLAN_CACHE.move_to_end(key)  # LRU touch
+                return cached
+            pending = _BUILDING.get(key)
+            if pending is None:
+                # We own the build: others with the same key wait for it.
+                _BUILDING[key] = pending = threading.Event()
+                _STATS["misses"] += 1
+                break
+        pending.wait()  # owner finished (or failed) — re-check the cache
+    try:
+        built = builder(N, resolved, dev)
+        with _LOCK:
+            _PLAN_CACHE[key] = built
+            _evict_lru_locked()
+        return built
+    finally:
+        with _LOCK:
+            _BUILDING.pop(key, None)
+        pending.set()
+
+
+def factor(A, config: SolverConfig | None = None, *, device=None,
+           **overrides) -> Factorization:
+    """One-shot convenience: plan (cached) + execute.
+
+    With no explicit config or dtype, the computation dtype follows A.
+    """
+    A = torch.as_tensor(A)
+    if config is None and "dtype" not in overrides and A.is_floating_point():
+        overrides["dtype"] = dtype_name(A.dtype)
+    if A.ndim == 3:
+        raise ValueError(
+            "batched [B, N, N] stacks are not ported yet: ROADMAP.md module item 5"
+        )
+    return plan(A.shape[0], config, device=device, **overrides).execute(A)
+
+
+def _evict_lru_locked() -> None:
+    """Drop least-recently-used plans until within capacity (lock held)."""
+    if _CAPACITY <= 0:  # 0 = unbounded
+        return
+    while len(_PLAN_CACHE) > _CAPACITY:
+        _PLAN_CACHE.popitem(last=False)
+        _STATS["evictions"] += 1
+
+
+def set_plan_cache_capacity(capacity: int) -> int:
+    """Set the LRU bound (number of cached plans; 0 = unbounded).
+
+    Shrinks the cache immediately if it already exceeds the new bound.
+    Returns the previous capacity so callers can restore it.
+    """
+    global _CAPACITY
+    if capacity < 0:
+        raise ValueError(f"capacity must be >= 0 (0 = unbounded), got {capacity}")
+    with _LOCK:
+        prev, _CAPACITY = _CAPACITY, capacity
+        _evict_lru_locked()
+    return prev
+
+
+def plan_cache_stats() -> dict:
+    with _LOCK:
+        return {**_STATS, "size": len(_PLAN_CACHE), "capacity": _CAPACITY}
+
+
+def clear_plan_cache() -> None:
+    with _LOCK:
+        _PLAN_CACHE.clear()
+        _STATS.update(hits=0, misses=0, evictions=0)

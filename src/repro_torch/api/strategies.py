@@ -1,0 +1,76 @@
+"""Built-in strategies of this slice: sequential and auto.
+
+Each strategy is a plan builder ``(N, config, device) -> FactorizationPlan``
+plus an attached ``resolve(N, config) -> SolverConfig`` hook that pins the
+open choices (panel width, grid) so the plan cache key is concrete.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.api.config import SolverConfig
+from repro_torch.api.plan import FactorizationPlan
+from repro_torch.api.registry import register_strategy
+from repro_torch.core.lu.sequential import lu_masked_sequential
+
+# ---------------------------------------------------------------------------
+# sequential — single-device masked LU.
+# ---------------------------------------------------------------------------
+
+
+def default_panel_width(N: int, start: int = 32) -> int:
+    """Largest v <= min(start, N) dividing N."""
+    v = min(start, N)
+    while N % v:
+        v -= 1
+    return v
+
+
+def _resolve_sequential(N: int, config: SolverConfig) -> SolverConfig:
+    if config.pivot == "none":
+        raise ValueError(
+            "pivot='none' is Cholesky-only (SPD needs no pivoting); LU "
+            "strategies need 'tournament' or 'partial'"
+        )
+    v = config.v
+    if v is None:
+        v = default_panel_width(N)
+    elif not 1 <= v <= N or N % v:
+        raise ValueError(f"sequential strategy needs a panel width dividing N: v={v}, N={N}")
+    return config.with_(v=v, grid=None)
+
+
+@register_strategy("sequential")
+def build_sequential(N: int, config: SolverConfig, device: torch.device) -> FactorizationPlan:
+    def run(A):
+        return lu_masked_sequential(A, v=config.v, backend=config.backend, device=device)
+
+    return FactorizationPlan(N, config, device, run=run)
+
+
+build_sequential.resolve = _resolve_sequential
+
+
+# ---------------------------------------------------------------------------
+# auto — sequential for a plan on one device.  The calibrated cost model
+# (ROADMAP.md item 9) and the multi-device grid ranking (item 10) are not
+# ported yet, so this is the analytic single-device branch.
+# ---------------------------------------------------------------------------
+
+
+def _resolve_auto(N: int, config: SolverConfig) -> SolverConfig:
+    if config.grid is not None:
+        raise ValueError(
+            f"auto: an explicit grid {config.grid} needs the distributed "
+            f"schedules, not ported yet (ROADMAP.md module item 10); drop the grid"
+        )
+    return _resolve_sequential(N, config.with_(strategy="sequential"))
+
+
+@register_strategy("auto")
+def build_auto(N: int, config: SolverConfig, device: torch.device) -> FactorizationPlan:
+    raise RuntimeError("'auto' resolves to a concrete strategy before building")
+
+
+build_auto.resolve = _resolve_auto

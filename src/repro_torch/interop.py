@@ -1,0 +1,57 @@
+"""State carried across from the JAX package.
+
+A solver has no weights: its state is the factorization and the config.
+These functions take what the JAX package produced, as numpy arrays and
+plain field values, and build the port's objects, so both packages can be
+shown to compute the same thing from the same state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.api.config import SolverConfig
+from repro_torch.api.result import Factorization
+from repro_torch.core.lu.grid import GridConfig
+from repro_torch.device import resolve_device
+
+_BACKENDS = {"pallas": "cuda", "ref": "ref"}
+
+
+def factorization_from_numpy(F, rows, *, device, kind: str = "lu",
+                             A_ref=None) -> Factorization:
+    """The port's `Factorization` from packed factors F [N, N] and the pivot
+    order rows [N], as the JAX package's `Factorization.F` / `.rows` hold
+    them.  `device` is where the result lives (None = the CUDA card)."""
+    dev = resolve_device(device)
+    F_t = torch.as_tensor(np.asarray(F), device=dev)
+    A_t = None if A_ref is None else torch.as_tensor(np.asarray(A_ref), device=dev)
+    return Factorization(
+        F=F_t,
+        rows=torch.as_tensor(np.asarray(rows, dtype=np.int64), device=dev),
+        kind=kind,
+        A_ref=A_t,
+        work_dtype=None if A_t is None else A_t.dtype,
+    )
+
+
+def config_from_jax(fields: dict) -> SolverConfig:
+    """The port's `SolverConfig` from a JAX `SolverConfig`'s fields (for
+    example `dataclasses.asdict(cfg)` or `vars(cfg)`).
+
+    The backend maps "pallas" -> "cuda" (the TPU kernels' counterparts) and
+    "ref" -> "ref".  A grid may come as a GridConfig-like object or a dict.
+    """
+    out = dict(fields)
+    backend = out.get("backend", "ref")
+    if backend not in _BACKENDS:
+        raise ValueError(
+            f"JAX backend {backend!r} has no counterpart; known: {sorted(_BACKENDS)}"
+        )
+    out["backend"] = _BACKENDS[backend]
+    grid = out.get("grid")
+    if grid is not None and not isinstance(grid, GridConfig):
+        g = grid if isinstance(grid, dict) else vars(grid)
+        out["grid"] = GridConfig(**{k: int(g[k]) for k in ("Px", "Py", "c", "v", "N")})
+    return SolverConfig(**out)

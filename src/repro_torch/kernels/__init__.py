@@ -1,0 +1,9 @@
+"""Hand-written Hopper kernels for the solver's hot spots.
+
+csrc/*.cu are the CUDA C++ sources, built at first use by `_build.py` into
+shared libraries with a plain C interface and loaded with ctypes.
+lu_panel.py and fused_schur.py are the kernels' wrappers (each counts its
+launches), ref.py holds their plain PyTorch versions, ops.py the public
+wrappers with auto-fit tiles, and backend.py the `KernelBackend` layer
+("cuda" = the kernels, "ref" = plain PyTorch) the factorizations call.
+"""

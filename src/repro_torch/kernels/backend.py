@@ -1,0 +1,205 @@
+"""KernelBackend — pluggable local-compute primitives for the factorizations.
+
+The schedules spend essentially all their FLOPs in a few local primitives
+(paper Algorithm 1): the masked panel LUP, the triangular solves, and the
+rank-v Schur update.  A `KernelBackend` packages one implementation of them,
+and the schedules call the backend instead of inlining tensor math.
+
+Two backends are registered:
+
+- "cuda" (the default): the hand-written Hopper kernels on CUDA tensors, and
+  their plain versions on CPU tensors.  It never falls back: a plan the
+  kernels cannot run is refused at resolve time (`check_hopper_constraints`).
+- "ref": plain PyTorch on any device.
+
+Only the primitives of the single-device LU path are ported so far
+(`panel_lup`, `fused_trsm_schur`); the others raise `NotImplementedError`
+naming the ROADMAP.md item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.kernels import ops, ref
+
+# What the two kernels take: their element types and the panel widths their
+# shared-memory buffers hold.
+KERNEL_DTYPES = ("float32", "float64")
+MAX_PANEL_WIDTH = 128
+
+
+@runtime_checkable
+class KernelBackend(Protocol):
+    """The paper's local compute primitives, one method each, on tensors."""
+
+    name: str
+
+    def panel_lup(self, panel: torch.Tensor, weights: torch.Tensor, v: int):
+        """Masked LUP of an [R, v] panel; rows with weight 0 are untouched.
+
+        Returns (F [R, v] packed factors, order [v] int32 pivot rows,
+        ok [v] bool validity)."""
+        ...
+
+    def panel_chol(self, A: torch.Tensor) -> torch.Tensor:
+        """Lower Cholesky factor of an SPD diagonal block A [v, v] = L L^T."""
+        ...
+
+    def trsm_right_upper(self, B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+        """X U = B  ->  X = B U^-1.  B [R, v], U [v, v] upper (L10, step 4)."""
+        ...
+
+    def trsm_left_lower(self, L: torch.Tensor, B: torch.Tensor, *,
+                        unit: bool = True) -> torch.Tensor:
+        """L X = B  ->  X = L^-1 B.  L [v, v] (unit-)lower, B [v, C] (U01, step 5)."""
+        ...
+
+    def schur_update(self, A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+        """A - L @ U.  A [M, N], L [M, K], U [K, N] (rank-v update, step 6)."""
+        ...
+
+    def fused_trsm_schur(self, A: torch.Tensor, L00: torch.Tensor, R01: torch.Tensor,
+                         L10: torch.Tensor, *, unit: bool = True):
+        """Steps 5+6 fused: U01 = L00^-1 R01, then A - L10 @ U01.
+
+        Returns (A_new, U01), out of place."""
+        ...
+
+    # Batched variants: one leading batch axis, B independent systems.
+
+    def panel_lup_batched(self, panel, weights, v: int):
+        """Masked LUP of B panels [B, R, v]."""
+        ...
+
+    def panel_chol_batched(self, A):
+        """Lower Cholesky factors of B SPD blocks A [B, v, v]."""
+        ...
+
+    def trsm_right_upper_batched(self, B, U):
+        """Per-system X_b U_b = B_b."""
+        ...
+
+    def trsm_left_lower_batched(self, L, B, *, unit: bool = True):
+        """Per-system L_b X_b = B_b."""
+        ...
+
+    def schur_update_batched(self, A, L, U):
+        """Per-system A_b - L_b @ U_b."""
+        ...
+
+    def fused_trsm_schur_batched(self, A, L00, R01, L10, *, unit: bool = True):
+        """Per-system fused steps 5+6."""
+        ...
+
+
+_BACKENDS: dict[str, KernelBackend] = {}
+
+
+def register_backend(name: str, backend: KernelBackend, *, overwrite: bool = False) -> None:
+    if name in _BACKENDS and not overwrite:
+        raise ValueError(f"backend {name!r} already registered (pass overwrite=True)")
+    _BACKENDS[name] = backend
+
+
+def get_backend(name: str) -> KernelBackend:
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown kernel backend {name!r}; available: {available_backends()}"
+        ) from None
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(_BACKENDS))
+
+
+def check_hopper_constraints(dtype: str, v: int | None) -> None:
+    """Raise ValueError unless the "cuda" kernels can run this plan.
+
+    The kernels take float32 and float64 (f64 is native on Hopper), and
+    panel widths up to `MAX_PANEL_WIDTH`.  Anything else is refused, never
+    sent to another backend.
+    """
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(
+            f"backend 'cuda' runs {KERNEL_DTYPES}, not {dtype!r}; bf16/f16 arrive "
+            f"with ROADMAP.md module item 7 (mixed precision) — use "
+            f"dtype='float32' or backend='ref'"
+        )
+    if v is not None and not 1 <= v <= MAX_PANEL_WIDTH:
+        raise ValueError(
+            f"backend 'cuda' takes panel widths 1..{MAX_PANEL_WIDTH}, got v={v}"
+        )
+
+
+class _UnportedPrimitives:
+    """The primitives whose schedules are not ported yet."""
+
+    @staticmethod
+    def _unported(what: str, item: str):
+        raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md module item {item}")
+
+    def panel_chol(self, A):
+        self._unported("panel_chol (Cholesky)", "6")
+
+    def trsm_right_upper(self, B, U):
+        self._unported("trsm_right_upper (Cholesky, distributed schedules)", "6 / 10")
+
+    def trsm_left_lower(self, L, B, *, unit=True):
+        self._unported("trsm_left_lower (flat 2.5D bodies)", "10")
+
+    def schur_update(self, A, L, U):
+        self._unported("schur_update (Cholesky, flat 2.5D bodies)", "6 / 10")
+
+    def panel_lup_batched(self, panel, weights, v):
+        self._unported("panel_lup_batched (batched plans)", "5")
+
+    def panel_chol_batched(self, A):
+        self._unported("panel_chol_batched (batched Cholesky)", "5 / 6")
+
+    def trsm_right_upper_batched(self, B, U):
+        self._unported("trsm_right_upper_batched (batched Cholesky)", "5 / 6")
+
+    def trsm_left_lower_batched(self, L, B, *, unit=True):
+        self._unported("trsm_left_lower_batched (batched plans)", "5")
+
+    def schur_update_batched(self, A, L, U):
+        self._unported("schur_update_batched (batched Cholesky)", "5 / 6")
+
+    def fused_trsm_schur_batched(self, A, L00, R01, L10, *, unit=True):
+        self._unported("fused_trsm_schur_batched (batched plans)", "5")
+
+
+class RefBackend(_UnportedPrimitives):
+    """Plain PyTorch primitives on any device (`repro_torch.kernels.ref`).
+    Sub-4-byte inputs are upcast to f32 per primitive and rounded back on
+    the way out."""
+
+    name = "ref"
+
+    def panel_lup(self, panel, weights, v):
+        return ref.lu_panel(panel, weights)
+
+    def fused_trsm_schur(self, A, L00, R01, L10, *, unit=True):
+        return ref.fused_trsm_schur(A, L00, R01, L10, unit=unit)
+
+
+class CudaBackend(_UnportedPrimitives):
+    """The hand-written Hopper kernels (`repro_torch.kernels.ops`).  CPU
+    tensors run the kernels' plain versions."""
+
+    name = "cuda"
+
+    def panel_lup(self, panel, weights, v):
+        return ops.lu_panel(panel, weights)
+
+    def fused_trsm_schur(self, A, L00, R01, L10, *, unit=True):
+        return ops.fused_trsm_schur(A, L00, R01, L10, unit=unit)
+
+
+register_backend("ref", RefBackend())
+register_backend("cuda", CudaBackend())

@@ -1,0 +1,33 @@
+"""Public wrappers of the port's kernels.
+
+Tile sizes are auto-fit before the launch: each requested tile (`bm`/`bc`)
+shrinks to the largest divisor of its array dimension that does not exceed
+it, so the grid covers the matrix exactly for any shape.  The defaults are
+Hopper's, not the TPU's: `bc` = 128 columns is one thread per column of a
+block, and `bm` = 1024 rows keeps the per-block redo of the small triangular
+solve near 3% of the update at v = 32 (see `csrc/fused_schur.cu`).
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import fused_schur as _fs
+from repro_torch.kernels.lu_panel import lu_panel
+
+__all__ = ["fused_trsm_schur", "lu_panel"]
+
+
+def _fit(block: int, dim: int) -> int:
+    """Largest tile <= min(block, dim) dividing dim (grids need exact cover)."""
+    for d in range(min(block, dim), 0, -1):
+        if dim % d == 0:
+            return d
+    return 1
+
+
+def fused_trsm_schur(A, L00, R01, L10, bm: int = 1024, bc: int = 128, unit: bool = True):
+    """U01 = L00^-1 R01 and A - L10 @ U01 in one launch.
+
+    Returns (A_new, U01) — see `repro_torch.kernels.fused_schur`.
+    """
+    M, C = A.shape
+    return _fs.fused_trsm_schur(A, L00, R01, L10, bm=_fit(bm, M), bc=_fit(bc, C), unit=unit)

@@ -1,0 +1,135 @@
+"""The port's kernels (plain versions, as run for CPU tensors) against the JAX
+package's Pallas kernels (interpret mode) and their jnp references.
+
+Inputs are made from a seed with numpy and fed to both packages.  F, A_new
+and U01 agree within rtol = atol = 2e-4 in f32: the sums run in another
+order than XLA's.  Pivot orders and validity flags must be equal.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core.lu  # noqa: F401  (must precede repro.kernels: import cycle)
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import fused_schur as fs_mod
+from repro_torch.kernels import lu_panel as lp_mod
+from repro_torch.kernels import ops, ref
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _panel(R, v, seed):
+    rng = np.random.default_rng(seed)
+    panel = rng.standard_normal((R, v)).astype(np.float32)
+    w = (rng.random(R) > 0.2).astype(np.float32)
+    return panel, w
+
+
+@pytest.mark.parametrize("R,v", [(64, 8), (256, 16), (128, 32)])
+def test_lu_panel_matches_jax(R, v):
+    panel, w = _panel(R, v, seed=R + v)
+    F, order, ok = ops.lu_panel(torch.from_numpy(panel), torch.from_numpy(w))
+    assert order.dtype == torch.int32 and ok.dtype == torch.bool
+    for jF, jorder, jok in (jops.lu_panel(jnp.asarray(panel), jnp.asarray(w)),
+                            jref.lu_panel(jnp.asarray(panel), jnp.asarray(w))):
+        np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(jok) != 0)
+        np.testing.assert_allclose(F.numpy(), np.asarray(jF), **TOL)
+
+
+def test_lu_panel_weight0_rows_untouched_and_exhausted():
+    panel, _ = _panel(32, 8, seed=3)
+    w = np.zeros(32, np.float32)
+    w[[1, 4, 9]] = 1.0  # three candidates for eight pivots
+    F, order, ok = ops.lu_panel(torch.from_numpy(panel), torch.from_numpy(w))
+    untouched = np.setdiff1d(np.arange(32), [1, 4, 9])
+    np.testing.assert_array_equal(F.numpy()[untouched], panel[untouched])
+    assert ok.tolist() == [True] * 3 + [False] * 5
+    jF, jorder, jok = jops.lu_panel(jnp.asarray(panel), jnp.asarray(w))
+    np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok) != 0)
+    np.testing.assert_allclose(F.numpy(), np.asarray(jF), **TOL)
+
+
+def test_lu_panel_ties_pick_lowest_index():
+    panel, _ = _panel(16, 4, seed=7)
+    panel[:, 0] *= 0.1
+    panel[[2, 5, 11], 0] = [-2.0, 2.0, 2.0]  # |.| ties in the first round
+    F, order, _ = ops.lu_panel(torch.from_numpy(panel), torch.ones(16))
+    _, jorder, _ = jops.lu_panel(jnp.asarray(panel), jnp.ones(16, jnp.float32))
+    np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
+    assert order[0] == 2
+
+
+def _fused_inputs(M, C, v, unit, seed):
+    rng = np.random.default_rng(seed)
+    # 0.3x off-diagonal keeps the forward substitution well-conditioned
+    L00 = (0.3 * np.tril(rng.standard_normal((v, v)), -1)
+           + (1.0 if unit else 2.0) * np.eye(v)).astype(np.float32)
+    A = rng.standard_normal((M, C)).astype(np.float32)
+    R01 = rng.standard_normal((v, C)).astype(np.float32)
+    L10 = rng.standard_normal((M, v)).astype(np.float32)
+    return A, L00, R01, L10
+
+
+@pytest.mark.parametrize("unit", [True, False])
+@pytest.mark.parametrize("M,C,v", [(128, 128, 8), (256, 128, 16), (256, 256, 32)])
+def test_fused_trsm_schur_matches_jax(M, C, v, unit):
+    A, L00, R01, L10 = _fused_inputs(M, C, v, unit, seed=M + C + v)
+    out, U01 = ops.fused_trsm_schur(*map(torch.from_numpy, (A, L00, R01, L10)), unit=unit)
+    args = tuple(map(jnp.asarray, (A, L00, R01, L10)))
+    for jout, jU in (jops.fused_trsm_schur(*args, unit=unit),
+                     jref.fused_trsm_schur(*args, unit=unit)):
+        np.testing.assert_allclose(U01.numpy(), np.asarray(jU), **TOL)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
+
+
+def test_fused_trsm_schur_is_out_of_place():
+    A, L00, R01, L10 = map(torch.from_numpy, _fused_inputs(64, 64, 8, True, seed=5))
+    before = A.clone()
+    ops.fused_trsm_schur(A, L00, R01, L10)
+    assert torch.equal(A, before)
+
+
+def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
+    panel, w = _panel(64, 8, seed=11)
+    A, L00, R01, L10 = map(torch.from_numpy, _fused_inputs(64, 64, 8, True, seed=11))
+    n_panel, n_fused = lp_mod.lu_panel.launches, fs_mod.fused_trsm_schur.launches
+    got = lp_mod.lu_panel(torch.from_numpy(panel), torch.from_numpy(w))
+    want = ref.lu_panel(torch.from_numpy(panel), torch.from_numpy(w))
+    assert all(torch.equal(g, h) for g, h in zip(got, want))
+    got = fs_mod.fused_trsm_schur(A, L00, R01, L10, bm=64, bc=64)
+    want = ref.fused_trsm_schur(A, L00, R01, L10)
+    assert all(torch.equal(g, h) for g, h in zip(got, want))
+    assert (lp_mod.lu_panel.launches, fs_mod.fused_trsm_schur.launches) == (n_panel, n_fused)
+
+
+def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
+    panel = torch.empty((64, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        lp_mod.lu_panel(panel, torch.empty(64, device="meta"))
+    A = torch.empty((64, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fs_mod.fused_trsm_schur(A, torch.empty((8, 8), device="meta"),
+                                torch.empty((8, 64), device="meta"),
+                                torch.empty((64, 8), device="meta"), bm=64, bc=64)
+
+
+@pytest.mark.parametrize("block,dim", [(128, 96), (128, 100), (1024, 16384), (64, 7), (8, 3)])
+def test_fit_matches_jax(block, dim):
+    assert ops._fit(block, dim) == jops._fit(block, dim)
+
+
+def test_bf16_plain_version_rounds_in_f32():
+    panel, w = _panel(64, 8, seed=13)
+    F16, order16, _ = ref.lu_panel(torch.from_numpy(panel).bfloat16(), torch.from_numpy(w))
+    F32, order32, _ = ref.lu_panel(torch.from_numpy(panel).bfloat16().float(),
+                                   torch.from_numpy(w))
+    assert F16.dtype == torch.bfloat16
+    assert torch.equal(order16, order32)
+    assert torch.equal(F16, F32.bfloat16())
