@@ -2,11 +2,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, `plan(N).execute(A).solve(b)` at N = 16384 in
-float32, through its hand-written CUDA kernels, and holds each kernel against
-its plain PyTorch version on the card.  Phases print JSON lines; any failure
-raises, so the exit code is not 0.  The second-to-last line lists the kernels
-with their launches, errors and times; the last line is
+Drives the port's paths through their hand-written CUDA kernels and holds
+each kernel against its plain PyTorch version on the card:
+
+- the main path, `plan(N).execute(A).solve(b)` at N = 16384 in float32
+  (kernels `lu_panel`, `fused_trsm_schur`);
+- the batched path, `plan((256, 512)).execute(A).solve(b)` (kernels
+  `lu_panel_batched`, `fused_trsm_schur_batched`);
+- the serving tier on top of both: `SolveEngine(512)` and
+  `AsyncSolveEngine(512)` answering ragged requests of 64..512.
+
+Phases print JSON lines; any failure raises, so the exit code is not 0.  The
+second-to-last line lists the kernels with their launches, errors and times;
+the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -41,6 +49,11 @@ FUSED_REL_TOL = 1e-5
 # the bound.
 LU_F_TOL_FACTOR = 4.0
 HPL_RESIDUAL_MAX = 16.0
+# The batched path and the serving tier (module items 5 and 8).
+BATCH, BATCH_N = 256, 512
+PLAIN_BATCH, PLAIN_BATCH_N = 64, 256
+SERVE_N, SERVE_REQUESTS, SERVE_MIN_N = 512, 384, 64
+ASYNC_TENANTS, ASYNC_PER_TENANT, ASYNC_MAX_BATCH, ASYNC_DELAY_MS = 4, 64, 64, 2.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -62,14 +75,337 @@ def time_ms(fn, reps: int = 7) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def hpl_residual(A, x, b) -> float:
-    """HPL's scaled residual ||Ax - b||_inf / (eps (||A||_inf ||x||_inf + ||b||_inf) N)."""
+def hpl_residuals(A, x, b) -> torch.Tensor:
+    """HPL's scaled residual ||Ax - b||_inf / (eps (||A||_inf ||x||_inf + ||b||_inf) N)
+    of each system: A [..., N, N], x and b [..., N]."""
     A64, x64, b64 = A.double(), x.double(), b.double()
-    r = (A64 @ x64 - b64).abs().max()
-    norm_a = A64.abs().sum(dim=1).max()
+    r = ((A64 @ x64[..., None])[..., 0] - b64).abs().amax(-1)
+    norm_a = A64.abs().sum(dim=-1).amax(-1)
     eps = torch.finfo(A.dtype).eps
-    scale = eps * (norm_a * x64.abs().max() + b64.abs().max()) * A.shape[0]
-    return float(r / scale)
+    scale = eps * (norm_a * x64.abs().amax(-1) + b64.abs().amax(-1)) * A.shape[-1]
+    return r / scale
+
+
+def hpl_residual(A, x, b) -> float:
+    """The largest HPL scaled residual over the systems of A."""
+    return float(hpl_residuals(A, x, b).max())
+
+
+def profile_once(fn) -> dict:
+    """Wall time, device busy time, idle share and top kernels of one call
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0][:60]
+            entry = by_kernel.setdefault(name, [0.0, 0])
+            entry[0] += ev.time_range.elapsed_us() / 1e3
+            entry[1] += 1
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "top": [{"kernel": k, "ms": ms, "count": n} for k, (ms, n) in top]}
+
+
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def panel_ops(R: int, v: int, n_active: int) -> int:
+    """Operations of one masked panel LUP with n_active rows of weight 1: per
+    round the R candidate products, then a division and v-k-1 products and
+    differences on each row still active."""
+    return sum(R + max(n_active - k - 1, 0) * (1 + 2 * (v - k - 1)) for k in range(v))
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels import fused_schur, lu_panel
+
+    return {"lu_panel": lu_panel.lu_panel, "fused_trsm_schur": fused_schur.fused_trsm_schur,
+            "lu_panel_batched": lu_panel.lu_panel_batched,
+            "fused_trsm_schur_batched": fused_schur.fused_trsm_schur_batched}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0 (just before a path is driven)."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def batched_kernel_rows(dev, gen) -> list[dict]:
+    """Each batched kernel against its plain version, and lanes against the
+    single-system kernel, at the batched path's shapes and beyond."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lu_panel import lu_panel, lu_panel_batched
+
+    rows = []
+    # lu_panel_batched: the path's shape; the over-budget branch (panel kept
+    # in device memory); f64.  Strided panels, as the path passes them.
+    for B, R, v, dt in ((BATCH, BATCH_N, 32, torch.float32), (4, 8192, 32, torch.float32),
+                        (64, BATCH_N, 32, torch.float64)):
+        X = torch.randn(B, R, 3 * v, generator=gen, device=dev, dtype=dt)
+        panel = X[:, :, v:2 * v]
+        weights = (torch.rand(B, R, generator=gen, device=dev) > 0.1).to(dt)
+        F_k, order_k, ok_k = lu_panel_batched(panel, weights)
+        F_p, order_p, ok_p = ref.lu_panel_batched(panel, weights)
+        torch.cuda.synchronize()
+        masked = weights == 0
+        check = {"order_equal": torch.equal(order_k, order_p), "ok_equal": torch.equal(ok_k, ok_p),
+                 "F_bit_identical": torch.equal(F_k, F_p),
+                 "masked_rows_untouched": torch.equal(F_k[masked], panel[masked])}
+        for b in (0, B - 1):
+            F1, o1, k1 = lu_panel(panel[b], weights[b])
+            check[f"lane{b}_equals_single"] = (torch.equal(F1, F_k[b])
+                                               and torch.equal(o1, order_k[b])
+                                               and torch.equal(k1, ok_k[b]))
+        err = float((F_k - F_p).abs().max())
+        ms = time_ms(lambda: lu_panel_batched(panel, weights))
+        emit("kernel_lu_panel_batched", shape=[B, R, v], dtype=str(dt),
+             weight0_rows=int(masked.sum()), max_abs_err=err, ms=ms, **check)
+        if not all(check.values()):
+            raise AssertionError(f"lu_panel_batched [{B}, {R}, {v}] {dt} disagrees: {check}")
+        if (B, R, dt) != (BATCH, BATCH_N, torch.float32):
+            continue
+        n_active = (weights > 0).sum(1).tolist()
+        rows.append({
+            "name": "lu_panel_batched", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lu_panel.cu",
+            "replaces": "src/repro/kernels/lu_panel.py:98",
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(lambda: ref.lu_panel_batched(panel, weights), reps=3),
+            **bound(4 * B * (2 * R * v + R) + 5 * B * v,
+                    sum(panel_ops(R, v, n) for n in n_active)),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes a masked LUP with row weights",
+        })
+
+    for B, M, C, v, unit in ((BATCH, BATCH_N, BATCH_N, 32, True), (8, 2048, 1536, 16, False)):
+        A = torch.randn(B, M, C, generator=gen, device=dev)
+        L00 = (0.3 * torch.tril(torch.randn(B, v, v, generator=gen, device=dev), -1)
+               + (1.0 if unit else 2.0) * torch.eye(v, device=dev))
+        R01 = torch.randn(B, v, C, generator=gen, device=dev)
+        L10 = torch.randn(B, M, v, generator=gen, device=dev)
+        out_k, U_k = ops.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
+        out_p, U_p = ref.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
+        torch.cuda.synchronize()
+        err = max(float((out_k - out_p).abs().max()), float((U_k - U_p).abs().max()))
+        scale = max(float(out_p.abs().max()), float(U_p.abs().max()))
+        lanes = {}
+        for b in (0, B - 1):
+            o1, u1 = ops.fused_trsm_schur(A[b], L00[b], R01[b], L10[b], unit=unit)
+            lanes[f"lane{b}_equals_single"] = torch.equal(o1, out_k[b]) and torch.equal(u1, U_k[b])
+        emit("kernel_fused_trsm_schur_batched", shape=[B, M, C, v], unit=unit, max_abs_err=err,
+             rel_err=err / scale, tol_rel=FUSED_REL_TOL, **lanes)
+        if not (err <= FUSED_REL_TOL * scale and all(lanes.values())):
+            raise AssertionError(f"fused_trsm_schur_batched [{B}, {M}, {C}, {v}]: error {err} "
+                                 f"(scale {scale}), lanes {lanes}")
+        if B != BATCH:
+            continue
+
+        def library():
+            U = torch.linalg.solve_triangular(L00, R01, upper=False, unitriangular=True)
+            return torch.baddbmm(A, L10, U, alpha=-1.0)
+
+        rows.append({
+            "name": "fused_trsm_schur_batched", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_schur.cu",
+            "replaces": "src/repro/kernels/fused_schur.py:117",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ops.fused_trsm_schur_batched(A, L00, R01, L10)),
+            "plain_ms": time_ms(lambda: ref.fused_trsm_schur_batched(A, L00, R01, L10)),
+            **bound(4 * B * (2 * M * C + v * v + 2 * v * C + M * v),
+                    B * (2 * M * C * v + v * v * C)),
+            "library_ms": time_ms(library),
+            "library": "batched torch.linalg.solve_triangular + torch.baddbmm (two calls)",
+        })
+    return rows
+
+
+def batched_path(dev, gen) -> dict:
+    """plan((256, 512)).execute(A).solve(b) through the entry points, the
+    loop of single plans it replaces, its profile and the library yardstick.
+    Returns the launches of the counted run."""
+    from repro_torch.api import SolverConfig, plan
+
+    A = torch.randn(BATCH, BATCH_N, BATCH_N, generator=gen, device=dev)
+    b = torch.randn(BATCH, BATCH_N, generator=gen, device=dev)
+    p = plan((BATCH, BATCH_N))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fact = p.execute(A)
+    torch.cuda.synchronize()
+    execute_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    x = fact.solve(b)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    resid = hpl_residuals(A, x, b)
+    single = plan(BATCH_N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(BATCH):
+        single.execute(A[i])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    steps = BATCH_N // p.config.v
+    emit("batched_path", B=BATCH, N=BATCH_N, v=p.config.v, strategy=fact.strategy,
+         backend=fact.backend, launches=launches, execute_s=execute_s, solve_s=solve_s,
+         hpl_residual_max=float(resid.max()), x_finite=bool(torch.isfinite(x).all()),
+         x_shape=list(x.shape), loop_of_single_plans_s=loop_s,
+         loop_over_batched=loop_s / execute_s)
+    if fact.backend != "cuda":
+        raise AssertionError(f"batched path ran backend {fact.backend!r}, not 'cuda'")
+    if launches != {"lu_panel": 0, "fused_trsm_schur": 0,
+                    "lu_panel_batched": steps, "fused_trsm_schur_batched": steps}:
+        raise AssertionError(f"expected {steps} launches of each batched kernel, got {launches}")
+    if not (torch.isfinite(x).all() and bool((resid < HPL_RESIDUAL_MAX).all())):
+        raise AssertionError(f"batched HPL scaled residual {float(resid.max())} "
+                             f">= {HPL_RESIDUAL_MAX}")
+    # The plain path on the same stack: how many systems pick the same
+    # pivots (reported, not held: the update rounds differently).
+    rows_plain = plan((BATCH, BATCH_N), SolverConfig(backend="ref")).execute(A).rows
+    emit("plain_batched_path_full", B=BATCH, N=BATCH_N,
+         rows_equal_systems=int((rows_plain == fact.rows).all(1).sum()))
+    del fact, x, rows_plain
+    emit("profile_batched_execute", **profile_once(lambda: p.execute(A)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    LU, piv = torch.linalg.lu_factor(A)
+    torch.cuda.synchronize()
+    lib_factor_s = time.perf_counter() - t0
+    x_lib = torch.linalg.lu_solve(LU, piv, b[..., None])[..., 0]
+    emit("yardstick_torch_lu_batched", factor_s=lib_factor_s,
+         hpl_residual_max=hpl_residual(A, x_lib, b),
+         note="torch.linalg.lu_factor + lu_solve on the stack; the port never calls them")
+    return launches
+
+
+def plain_batched_path(dev, gen) -> None:
+    """The batched kernel path against the plain path (backend "ref")."""
+    from repro_torch.api import SolverConfig, plan
+
+    B, n = PLAIN_BATCH, PLAIN_BATCH_N
+    A = torch.randn(B, n, n, generator=gen, device=dev)
+    f_k = plan((B, n)).execute(A)
+    f_p = plan((B, n), SolverConfig(backend="ref")).execute(A)
+    lanes_equal = (f_k.rows == f_p.rows).all(1)
+    err = (f_k.F - f_p.F).abs().amax((1, 2))
+    tol = LU_F_TOL_FACTOR * n * torch.finfo(torch.float32).eps * f_p.F.abs().amax((1, 2))
+    emit("plain_batched_path", B=B, N=n, rows_equal_systems=int(lanes_equal.sum()),
+         F_max_abs_err=float(err.max()), F_err_over_tol_max=float((err / tol).max()))
+    if not (bool(lanes_equal.all()) and bool((err <= tol).all())):
+        raise AssertionError(f"kernel and plain batched paths differ: "
+                             f"{int((~lanes_equal).sum())} systems with other pivots, "
+                             f"F error / tol up to {float((err / tol).max())}")
+
+
+def _requests(rng, count: int):
+    """Ragged requests: n uniform in SERVE_MIN_N..SERVE_N, standard normal
+    A and b, from a seeded numpy generator."""
+    import numpy as np
+
+    out = []
+    for n in rng.integers(SERVE_MIN_N, SERVE_N + 1, size=count):
+        out.append((rng.standard_normal((n, n)).astype(np.float32),
+                    rng.standard_normal(n).astype(np.float32)))
+    return out
+
+
+def _check_answers(requests, answers, phase: str) -> float:
+    resid = [hpl_residual(torch.from_numpy(A), x.cpu(), torch.from_numpy(b))
+             for (A, b), x in zip(requests, answers)]
+    if not all(r < HPL_RESIDUAL_MAX for r in resid):
+        raise AssertionError(f"{phase}: HPL scaled residual {max(resid)} >= {HPL_RESIDUAL_MAX}")
+    return max(resid)
+
+
+def serving_sync() -> None:
+    """SolveEngine(512): 384 ragged requests, submit_system then one flush."""
+    import numpy as np
+    from repro_torch.serving import SolveEngine
+
+    requests = _requests(np.random.default_rng(1), SERVE_REQUESTS)
+    eng = SolveEngine(SERVE_N)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [eng.submit_system(A, b) for A, b in requests]
+    slots = sorted({p.slotN for p in eng._pending_systems})
+    buckets = {s: sum(p.slotN == s for p in eng._pending_systems) for s in slots}
+    xs = eng.flush_systems()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    answers = [xs[t] for t in tickets]
+    st = eng.stats()
+    emit("serving_sync", N=SERVE_N, requests=len(requests),
+         buckets={str(s): {"systems": k, "batch_slot": eng._slot(k)} for s, k in buckets.items()},
+         batched_factorizations=st["batched_factorizations"],
+         batch_pad_waste=st["batch_pad_waste"], wall_s=wall_s,
+         requests_per_s=len(requests) / wall_s, flush_s=st["batch_s_total"],
+         launches=launches, hpl_residual_max=_check_answers(requests, answers, "serving_sync"))
+    if launches["lu_panel_batched"] == 0 or launches["fused_trsm_schur_batched"] == 0:
+        raise AssertionError(f"serving_sync launched no batched kernel: {launches}")
+
+
+def serving_async() -> None:
+    """AsyncSolveEngine(512): 4 tenant threads submitting 64 requests each."""
+    import threading
+
+    import numpy as np
+    from repro_torch.serving import AsyncSolveEngine
+
+    per_tenant = [_requests(np.random.default_rng(10 + t), ASYNC_PER_TENANT)
+                  for t in range(ASYNC_TENANTS)]
+    futures: list[list] = [[] for _ in range(ASYNC_TENANTS)]
+    eng = AsyncSolveEngine(SERVE_N, max_batch=ASYNC_MAX_BATCH, max_delay_ms=ASYNC_DELAY_MS)
+    reset_launches()
+
+    def tenant(t: int) -> None:
+        for A, b in per_tenant[t]:
+            futures[t].append(eng.submit(A, b, tenant=f"tenant{t}"))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=tenant, args=(t,)) for t in range(ASYNC_TENANTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    answers = [[f.result(timeout=300) for f in futs] for futs in futures]
+    wall_s = time.perf_counter() - t0
+    eng.close()
+    launches = read_launches()
+    st = eng.stats()["async"]
+    resid = max(_check_answers(reqs, ans, "serving_async")
+                for reqs, ans in zip(per_tenant, answers))
+    total = ASYNC_TENANTS * ASYNC_PER_TENANT
+    emit("serving_async", N=SERVE_N, tenants=ASYNC_TENANTS, requests=total,
+         max_batch=ASYNC_MAX_BATCH, max_delay_ms=ASYNC_DELAY_MS, wall_s=wall_s,
+         requests_per_s=total / wall_s, latency_ms=st["latency_ms"], flushes=st["flushes"],
+         batch_fill=st["batch_fill"], served=st["served"], failed=st["failed"],
+         shed=st["shed"], spilled=st["spilled"], launches=launches, hpl_residual_max=resid)
+    if st["served"] + st["spilled"] != total or st["failed"]:
+        raise AssertionError(f"serving_async served {st['served']} + spilled {st['spilled']} "
+                             f"of {total}, failed {st['failed']}")
 
 
 def main() -> int:
@@ -79,7 +415,6 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.api import SolverConfig, plan
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels import fused_schur as fs_mod
     from repro_torch.kernels import lu_panel as lp_mod
 
     dev = torch.device("cuda", 0)
@@ -127,7 +462,6 @@ def main() -> int:
         raise AssertionError(f"lu_panel disagrees with its plain version: {panel_check}")
     n_w1 = int((weights > 0).sum())
     panel_bytes = 4 * (2 * N * v + N) + 5 * v
-    panel_ops = sum(N + max(n_w1 - k - 1, 0) * (1 + 2 * (v - k - 1)) for k in range(v))
     panel_row = {
         "name": "lu_panel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lu_panel.cu",
@@ -135,9 +469,7 @@ def main() -> int:
         "max_abs_err": panel_check["max_abs_err"],
         "ms": time_ms(lambda: lp_mod.lu_panel(panel, weights)),
         "plain_ms": time_ms(lambda: ref.lu_panel(panel, weights), reps=3),
-        "bound_ms": 1e3 * max(panel_bytes / HBM_BYTES_PER_S, panel_ops / FP32_FLOPS),
-        "bound_by": ("bytes" if panel_bytes / HBM_BYTES_PER_S >= panel_ops / FP32_FLOPS
-                     else "operations"),
+        **bound(panel_bytes, panel_ops(N, v, n_w1)),
         "library_ms": None,
         "library": "none: no single PyTorch call computes a masked LUP with row weights",
     }
@@ -176,9 +508,7 @@ def main() -> int:
             "max_abs_err": err,
             "ms": time_ms(lambda: ops.fused_trsm_schur(Am, L00, R01, L10)),
             "plain_ms": time_ms(lambda: ref.fused_trsm_schur(Am, L00, R01, L10)),
-            "bound_ms": 1e3 * max(fused_bytes / HBM_BYTES_PER_S, fused_ops / FP32_FLOPS),
-            "bound_by": ("bytes" if fused_bytes / HBM_BYTES_PER_S >= fused_ops / FP32_FLOPS
-                         else "operations"),
+            **bound(fused_bytes, fused_ops),
             "library_ms": time_ms(library),
             "library": "torch.linalg.solve_triangular + torch.addmm (two calls)",
         })
@@ -187,15 +517,13 @@ def main() -> int:
     A_main = torch.randn(N, N, generator=gen, device=dev)
     b_main = torch.randn(N, generator=gen, device=dev)
     p = plan(N)
-    lp_mod.lu_panel.launches = 0
-    fs_mod.fused_trsm_schur.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fact = p.execute(A_main)
     torch.cuda.synchronize()
     execute_s = time.perf_counter() - t0
-    launches = {"lu_panel": lp_mod.lu_panel.launches,
-                "fused_trsm_schur": fs_mod.fused_trsm_schur.launches}
+    launches = read_launches()
     t0 = time.perf_counter()
     x = fact.solve(b_main)
     torch.cuda.synchronize()
@@ -206,7 +534,8 @@ def main() -> int:
          x_finite=bool(torch.isfinite(x).all()), x_shape=list(x.shape))
     if fact.backend != "cuda":
         raise AssertionError(f"main path ran backend {fact.backend!r}, not 'cuda'")
-    if launches != {"lu_panel": N // v, "fused_trsm_schur": N // v}:
+    if launches != {"lu_panel": N // v, "fused_trsm_schur": N // v,
+                    "lu_panel_batched": 0, "fused_trsm_schur_batched": 0}:
         raise AssertionError(f"expected {N // v} launches of each kernel, got {launches}")
     if not (torch.isfinite(x).all() and resid < HPL_RESIDUAL_MAX):
         raise AssertionError(f"HPL scaled residual {resid} >= {HPL_RESIDUAL_MAX}")
@@ -214,26 +543,7 @@ def main() -> int:
     del fact, x
 
     # Where the time goes: one more execute, under the profiler.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        p.execute(A_main)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_kernel: dict[str, list] = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "")
-            name = name.split("(")[0][:60]
-            entry = by_kernel.setdefault(name, [0.0, 0])
-            entry[0] += ev.time_range.elapsed_us() / 1e3
-            entry[1] += 1
-    busy_ms = sum(ms for ms, _ in by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
-    emit("profile_execute", wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=1.0 - busy_ms / wall_ms,
-         top=[{"kernel": k, "ms": ms, "count": n} for k, (ms, n) in top])
+    emit("profile_execute", **profile_once(lambda: p.execute(A_main)))
 
     # The library's LU at the same N, as a yardstick only.
     torch.cuda.synchronize()
@@ -271,13 +581,25 @@ def main() -> int:
          hpl_residual_plain=hpl_residual(A_main, f_ref.solve(b_main), b_main),
          hpl_residual_kernels=resid)
 
+    del f_ref, A_main, b_main, rows_main, A
+    torch.cuda.empty_cache()
+
+    # 6. The batched path's kernels, its end-to-end run, and the serving tier.
+    batched_rows = batched_kernel_rows(dev, gen)
+    batched_launches = batched_path(dev, gen)
+    plain_batched_path(dev, gen)
+    serving_sync()
+    serving_async()
+
     panel_row["launches"] = launches["lu_panel"]
     for row in fused_rows:
         row["launches"] = launches["fused_trsm_schur"]
-    for row in (panel_row, *fused_rows):
+    for row in batched_rows:
+        row["launches"] = batched_launches[row["name"]]
+    rows = [panel_row, *fused_rows, *batched_rows]
+    for row in rows:
         row["kernel_ms"] = row["ms"]
-    print(json.dumps({"kernels": [panel_row, *fused_rows],
-                      "card": smi}), flush=True)
+    print(json.dumps({"kernels": rows, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -10,10 +10,11 @@ by hand in CUDA C++.  It imports nothing of JAX or of `repro`.
 Entry points run on the card unless the caller passes `device="cpu"`, where
 the kernels' plain PyTorch versions run instead.
 
-    repro_torch.api              — plan/execute solver surface
-    repro_torch.core.lu          — masked sequential LU
+    repro_torch.api              — plan/execute solver surface (plan(N), plan((B, N)))
+    repro_torch.core.lu          — masked sequential LU, single and batched
     repro_torch.core.solve       — lu_solve over raw packed factors
     repro_torch.kernels          — CUDA kernels, wrappers, plain versions, backends
+    repro_torch.serving          — SolveEngine, AsyncSolveEngine
     repro_torch.interop          — factors and configs from the JAX package
 """
 

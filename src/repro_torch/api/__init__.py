@@ -7,9 +7,12 @@
     x = fact.solve(b)             # [N] or [N, k]
     s, ld = fact.slogdet()
 
-Plans run on the card unless the caller passes `device="cpu"`.  This slice
-covers the single-device LU path: strategies "sequential" and "auto", the
-"cuda" (default) and "ref" kernel backends.
+    bp = plan((B, N))             # batched: B independent systems at once
+    facts = bp.execute(As)        # As [B, N, N]; facts.solve(bs [B, N])
+
+Plans run on the card unless the caller passes `device="cpu"`.  Ported so
+far: the single-device and batched LU paths, strategies "sequential" and
+"auto", the "cuda" (default) and "ref" kernel backends.
 """
 
 import repro_torch.api.strategies  # noqa: F401  (registers the built-ins)

@@ -61,8 +61,9 @@ class SolverConfig:
               kernels; the default) or "ref" (plain PyTorch).  A plan the
               kernels cannot run is refused, never moved to another backend.
     hotloop:  step-body variant of the 2.5D schedules ("windowed"/"flat").
-    B:        batch size for the many-small-systems path, or None.  Not
-              ported yet (ROADMAP.md item 5).
+    B:        batch size for the many-small-systems path, or None.  A plan
+              with B factorizes a [B, N, N] stack of independent systems in
+              one run (`plan((B, N))`); strategies "sequential" and "auto".
     calibration: version tag of the cost-model calibration that resolved
               this config; callers leave it None.
     """

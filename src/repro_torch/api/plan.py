@@ -3,7 +3,8 @@
 `plan(N, config, device=...)` resolves a `SolverConfig` to a concrete
 strategy + kernel backend, then returns the cached `FactorizationPlan` for
 that key and device — building one only on a cache miss.  `plan.execute(A)`
-factorizes on the plan's device.
+factorizes on the plan's device.  `plan((B, N))` builds a batched plan that
+factorizes a [B, N, N] stack of independent systems in one run.
 
 Plans run on the CUDA card unless the caller passes `device="cpu"`; a host
 without CUDA raises instead of running on the CPU.
@@ -43,6 +44,7 @@ class FactorizationPlan:
 
     Attributes:
         N, config:     the resolved problem/strategy this plan was built for.
+        B:             batch size of a batched plan ([B, N, N] stacks), or None.
         device:        where `execute` runs.
         grid:          processor grid (None on one device).
         comm:          instrumented per-processor schedule volume (elements).
@@ -56,6 +58,7 @@ class FactorizationPlan:
                  grid: GridConfig | None = None, comm: dict | None = None, run=None,
                  kind: str = "lu"):
         self.N = N
+        self.B = config.B
         self.config = config
         self.device = device
         self.grid = grid
@@ -66,10 +69,12 @@ class FactorizationPlan:
         # Cached plans are shared across threads, so the counter bumps are
         # locked: a bare `+= 1` can drop increments under concurrent executes.
         self._count_lock = threading.Lock()
-        self._run = run  # (A: tensor [N, N] on device) -> (F, rows); set by the builder
+        # (A: tensor [N, N] or [B, N, N] on device) -> (F, rows); set by the strategy
+        self._run = run
 
     def execute(self, A) -> Factorization:
-        """Factorize A [N, N] (numpy array or tensor) on the plan's device."""
+        """Factorize A [N, N], or [B, N, N] on a batched plan (numpy array or
+        tensor), on the plan's device."""
         A = torch.as_tensor(A)
         if A.is_complex():
             raise ValueError(
@@ -84,9 +89,11 @@ class FactorizationPlan:
                 f"will be downcast (set SolverConfig.dtype to keep precision)",
                 stacklevel=2,
             )
-        if tuple(A.shape) != (self.N, self.N):
+        want = (self.N, self.N) if self.B is None else (self.B, self.N, self.N)
+        if tuple(A.shape) != want:
+            what = f"N={self.N}" if self.B is None else f"B={self.B}, N={self.N}"
             raise ValueError(
-                f"plan was built for N={self.N} (expects shape {(self.N, self.N)}), "
+                f"plan was built for {what} (expects shape {want}), "
                 f"got A of shape {tuple(A.shape)}"
             )
         A = A.to(device=self.device, dtype=work)
@@ -101,7 +108,8 @@ class FactorizationPlan:
         )
 
     def __repr__(self):
-        return (f"FactorizationPlan(N={self.N}, strategy={self.config.strategy!r}, "
+        batch = "" if self.B is None else f"B={self.B}, "
+        return (f"FactorizationPlan({batch}N={self.N}, strategy={self.config.strategy!r}, "
                 f"pivot={self.config.pivot!r}, backend={self.config.backend!r}, "
                 f"device={self.device}, grid={self.grid}, "
                 f"traces={self.trace_count}, executes={self.execute_count})")
@@ -136,15 +144,16 @@ _LOCK = threading.Lock()
 
 def _reject_unported(config: SolverConfig) -> None:
     """Refuse the fields whose path is not ported yet, naming its item."""
+    if config.strategy == "sequential_chol" and config.B is not None:
+        raise ValueError(
+            f"batched Cholesky plans (B={config.B}) are not ported yet: ROADMAP.md "
+            f"module item 6 (Cholesky), the rest of item 5 (many small systems); "
+            f"use 'sequential' or 'auto'"
+        )
     if config.strategy in _UNPORTED_STRATEGIES:
         raise ValueError(
             f"strategy {config.strategy!r} is not ported yet: ROADMAP.md module "
             f"item {_UNPORTED_STRATEGIES[config.strategy]}; use 'sequential' or 'auto'"
-        )
-    if config.B is not None:
-        raise ValueError(
-            f"batched plans (B={config.B}) are not ported yet: ROADMAP.md module "
-            f"item 5 (batched many-small-systems)"
         )
     if config.compute_dtype is not None:
         raise ValueError(
@@ -167,7 +176,7 @@ def _resolve_backend(N: int, config: SolverConfig) -> SolverConfig:
         )
     if config.backend == "cuda":
         v = config.grid.v if config.grid is not None else config.v
-        check_hopper_constraints(config.effective_compute_dtype, v)
+        check_hopper_constraints(config.effective_compute_dtype, v, config.B)
     return config
 
 
@@ -188,19 +197,26 @@ def plan(N: int, config: SolverConfig | None = None, *, device=None,
          **overrides) -> FactorizationPlan:
     """Get (or build) the plan for factorizing N x N matrices on `device`.
 
-    `device=None` is the CUDA card (raises when there is none; pass
-    `device="cpu"` for the plain PyTorch versions on the CPU).  `overrides`
-    are SolverConfig fields, so `plan(256, v=16)` works without building a
-    config.
+    `N` may be a `(B, N)` tuple, which builds a *batched* plan factorizing a
+    [B, N, N] stack of independent systems in one run (the
+    many-small-systems path; the same as `plan(N, B=B)`).  `device=None` is
+    the CUDA card (raises when there is none; pass `device="cpu"` for the
+    plain PyTorch versions on the CPU).  `overrides` are SolverConfig
+    fields, so `plan(256, v=16)` works without building a config.
     """
     dev = resolve_device(device)
     config = config or SolverConfig()
     if overrides:
         config = config.with_(**overrides)
     if isinstance(N, tuple):
-        raise ValueError(
-            "batched plans plan((B, N)) are not ported yet: ROADMAP.md module item 5"
-        )
+        if len(N) != 2:
+            raise ValueError(
+                f"plan() shape must be N or (B, N), got tuple of length {len(N)}"
+            )
+        B, N = N
+        if config.B is not None and config.B != B:
+            raise ValueError(f"plan((B={B}, N)) conflicts with SolverConfig.B={config.B}")
+        config = config.with_(B=int(B))
     resolved = resolve(N, config)
     builder = get_strategy(resolved.strategy)
     key = (resolved.cache_key(N), str(dev))
@@ -234,15 +250,15 @@ def factor(A, config: SolverConfig | None = None, *, device=None,
            **overrides) -> Factorization:
     """One-shot convenience: plan (cached) + execute.
 
-    With no explicit config or dtype, the computation dtype follows A.
+    A 2-D A factorizes one system; a 3-D [B, N, N] stack gets a batched
+    plan (`plan((B, N))`) factorizing all B systems in one run.  With no
+    explicit config or dtype, the computation dtype follows A.
     """
     A = torch.as_tensor(A)
     if config is None and "dtype" not in overrides and A.is_floating_point():
         overrides["dtype"] = dtype_name(A.dtype)
     if A.ndim == 3:
-        raise ValueError(
-            "batched [B, N, N] stacks are not ported yet: ROADMAP.md module item 5"
-        )
+        return plan((A.shape[0], A.shape[1]), config, device=device, **overrides).execute(A)
     return plan(A.shape[0], config, device=device, **overrides).execute(A)
 
 

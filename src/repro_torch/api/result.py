@@ -5,6 +5,9 @@ grid the factorization ran on, and the instrumented per-processor
 communication volume of the schedule.  Solves, determinants and
 reconstruction are methods.  Everything stays on the factors' device.
 
+A batched plan's result holds B factorizations, F [B, N, N] and rows
+[B, N]; every method then works per system along the leading axis.
+
 This slice carries `kind="lu"`; Cholesky results and refined solves raise
 until their slices land (ROADMAP.md module items 6 and 7).
 """
@@ -17,7 +20,12 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.core.lu.grid import GridConfig
-from repro_torch.core.lu.sequential import permutation_sign, reconstruct, unpack_factors
+from repro_torch.core.lu.sequential import (
+    gather_rows,
+    permutation_signs,
+    reconstruct,
+    unpack_factors,
+)
 from repro_torch.core.solve import lu_solve
 
 
@@ -25,8 +33,8 @@ from repro_torch.core.solve import lu_solve
 class Factorization:
     """Packed masked LU factors plus everything needed to consume them."""
 
-    F: torch.Tensor  # packed factors, original row positions [N, N]
-    rows: torch.Tensor  # pivot order (global row ids) [N], int64
+    F: torch.Tensor  # packed factors, original row positions [N, N] or [B, N, N]
+    rows: torch.Tensor  # pivot order (global row ids) [N] or [B, N], int64
     grid: GridConfig | None = None
     comm: dict = field(default_factory=dict)
     strategy: str = ""
@@ -44,14 +52,20 @@ class Factorization:
                 f"Factorization kind={self.kind!r} is not ported yet: Cholesky "
                 f"arrives with ROADMAP.md module item 6"
             )
-        if self.F.ndim != 2:
-            raise NotImplementedError(
-                "batched factorizations are not ported yet: ROADMAP.md module item 5"
-            )
 
     @property
     def N(self) -> int:
         return int(self.F.shape[-1])
+
+    @property
+    def batched(self) -> bool:
+        """True when this holds B independent factorizations ([B, N, N])."""
+        return self.F.ndim == 3
+
+    @property
+    def B(self) -> int | None:
+        """Batch size, or None for a single-system factorization."""
+        return int(self.F.shape[0]) if self.batched else None
 
     @property
     def device(self) -> torch.device:
@@ -63,6 +77,9 @@ class Factorization:
 
     def solve(self, b, *, refine_tol=None, max_refine_iters: int = 25) -> torch.Tensor:
         """Solve A x = b.  b: [N] single RHS or [N, k] multi-RHS batch.
+
+        On a batched factorization b is [B, N] (one RHS per system) or
+        [B, N, k], and each system solves against its own factors.
 
         Returns x on the factors' device, in the factors' dtype.
         `refine_tol` (iterative refinement) is not ported yet.
@@ -85,26 +102,36 @@ class Factorization:
                 stacklevel=2,
             )
         b = b.to(device=self.device, dtype=self.dtype)
-        if b.ndim not in (1, 2) or b.shape[0] != self.N:
+        if self.batched:
+            if b.ndim not in (2, 3) or tuple(b.shape[:2]) != (self.B, self.N):
+                raise ValueError(
+                    f"batched factorization: b must be [B, N] or [B, N, k] with "
+                    f"B={self.B}, N={self.N}, got shape {tuple(b.shape)}"
+                )
+        elif b.ndim not in (1, 2) or b.shape[0] != self.N:
             raise ValueError(f"b must be [N] or [N, k] with N={self.N}, got shape {tuple(b.shape)}")
         return lu_solve(self.F, self.rows, b)
 
     def slogdet(self):
-        """(sign, log|det|) as 0-d tensors — overflow-safe."""
-        d = self.F[self.rows, torch.arange(self.N, device=self.device)]
-        sign = permutation_sign(self.rows) * torch.prod(torch.sign(d))
-        return sign, torch.sum(torch.log(torch.abs(d)))
+        """(sign, log|det|) — overflow-safe; 0-d tensors, or [B] per system
+        on a batched factorization.  The permutation signs are computed on
+        the factors' device, so a batch costs no host copy."""
+        d = torch.diagonal(gather_rows(self.F, self.rows), dim1=-2, dim2=-1)
+        sign = permutation_signs(self.rows).to(d.dtype) * torch.prod(torch.sign(d), dim=-1)
+        return sign, torch.sum(torch.log(torch.abs(d)), dim=-1)
 
     def det(self):
         s, ld = self.slogdet()
         return s * torch.exp(ld)
 
     def reconstruct(self) -> torch.Tensor:
-        """Rebuild A (original row order) from the factors."""
+        """Rebuild A (original row order) from the factors, per system when
+        batched."""
         return reconstruct(self.F, self.rows)
 
     def unpack(self):
-        """(P, L, U) with P @ A = L @ U."""
+        """(P, L, U) with P @ A = L @ U; batched factorizations unpack per
+        system (leading B axis)."""
         return unpack_factors(self.F, self.rows)
 
     def comm_report(self) -> str:
@@ -112,7 +139,8 @@ class Factorization:
         wd = self.work_dtype or self.dtype
         prec = f"dtype={self.dtype}" + (f" (working {wd})" if wd != self.dtype else "")
         head = (f"strategy={self.strategy or '?'} backend={self.backend or '?'} "
-                f"kind={self.kind} grid={self.grid} N={self.N} {prec} "
+                f"kind={self.kind} grid={self.grid} "
+                f"{'' if self.B is None else f'B={self.B} '}N={self.N} {prec} "
                 f"device={self.device}")
         if not self.comm:
             return f"{head}\n  single-device: no inter-processor communication"

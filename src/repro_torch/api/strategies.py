@@ -12,7 +12,7 @@ import torch
 from repro_torch.api.config import SolverConfig
 from repro_torch.api.plan import FactorizationPlan
 from repro_torch.api.registry import register_strategy
-from repro_torch.core.lu.sequential import lu_masked_sequential
+from repro_torch.core.lu.sequential import lu_masked_sequential, lu_masked_sequential_batched
 
 # ---------------------------------------------------------------------------
 # sequential — single-device masked LU.
@@ -43,8 +43,12 @@ def _resolve_sequential(N: int, config: SolverConfig) -> SolverConfig:
 
 @register_strategy("sequential")
 def build_sequential(N: int, config: SolverConfig, device: torch.device) -> FactorizationPlan:
+    """The masked LU of one system, or of B systems at once when `config.B`
+    is set (the many-small-systems path)."""
+    lu = lu_masked_sequential if config.B is None else lu_masked_sequential_batched
+
     def run(A):
-        return lu_masked_sequential(A, v=config.v, backend=config.backend, device=device)
+        return lu(A, v=config.v, backend=config.backend, device=device)
 
     return FactorizationPlan(N, config, device, run=run)
 
@@ -60,6 +64,12 @@ build_sequential.resolve = _resolve_sequential
 
 
 def _resolve_auto(N: int, config: SolverConfig) -> SolverConfig:
+    if config.B is not None and config.grid is not None:
+        # Batched = many small independent systems; a grid shards one large one.
+        raise ValueError(
+            f"auto: batched plans (B={config.B}) are sequential-only; an "
+            f"explicit grid {config.grid} cannot be honored"
+        )
     if config.grid is not None:
         raise ValueError(
             f"auto: an explicit grid {config.grid} needs the distributed "

@@ -3,8 +3,11 @@
 from repro_torch.core.lu.grid import GridConfig
 from repro_torch.core.lu.sequential import (
     lu_masked_sequential,
+    lu_masked_sequential_batched,
     masked_lup,
+    masked_lup_batched,
     permutation_sign,
+    permutation_signs,
     reconstruct,
     unpack_factors,
 )
@@ -12,8 +15,11 @@ from repro_torch.core.lu.sequential import (
 __all__ = [
     "GridConfig",
     "lu_masked_sequential",
+    "lu_masked_sequential_batched",
     "masked_lup",
+    "masked_lup_batched",
     "permutation_sign",
+    "permutation_signs",
     "reconstruct",
     "unpack_factors",
 ]

@@ -23,7 +23,8 @@ def factorization_from_numpy(F, rows, *, device, kind: str = "lu",
                              A_ref=None) -> Factorization:
     """The port's `Factorization` from packed factors F [N, N] and the pivot
     order rows [N], as the JAX package's `Factorization.F` / `.rows` hold
-    them.  `device` is where the result lives (None = the CUDA card)."""
+    them, or from a batch F [B, N, N] and rows [B, N] (a batched JAX plan's
+    result).  `device` is where the result lives (None = the CUDA card)."""
     dev = resolve_device(device)
     F_t = torch.as_tensor(np.asarray(F), device=dev)
     A_t = None if A_ref is None else torch.as_tensor(np.asarray(A_ref), device=dev)

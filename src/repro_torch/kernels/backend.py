@@ -12,9 +12,9 @@ Two backends are registered:
   kernels cannot run is refused at resolve time (`check_hopper_constraints`).
 - "ref": plain PyTorch on any device.
 
-Only the primitives of the single-device LU path are ported so far
-(`panel_lup`, `fused_trsm_schur`); the others raise `NotImplementedError`
-naming the ROADMAP.md item that ports them.
+Only the primitives of the single-device and batched LU paths are ported so
+far (`panel_lup`, `fused_trsm_schur` and their `_batched` forms); the others
+raise `NotImplementedError` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -25,10 +25,12 @@ import torch
 
 from repro_torch.kernels import ops, ref
 
-# What the two kernels take: their element types and the panel widths their
-# shared-memory buffers hold.
+# What the kernels take: their element types, the panel widths their
+# shared-memory buffers hold, and the systems one batched launch covers (the
+# fused kernel puts them on gridDim.z).
 KERNEL_DTYPES = ("float32", "float64")
 MAX_PANEL_WIDTH = 128
+MAX_BATCH = 65535
 
 
 @runtime_checkable
@@ -117,12 +119,12 @@ def available_backends() -> tuple[str, ...]:
     return tuple(sorted(_BACKENDS))
 
 
-def check_hopper_constraints(dtype: str, v: int | None) -> None:
+def check_hopper_constraints(dtype: str, v: int | None, B: int | None = None) -> None:
     """Raise ValueError unless the "cuda" kernels can run this plan.
 
-    The kernels take float32 and float64 (f64 is native on Hopper), and
-    panel widths up to `MAX_PANEL_WIDTH`.  Anything else is refused, never
-    sent to another backend.
+    The kernels take float32 and float64 (f64 is native on Hopper), panel
+    widths up to `MAX_PANEL_WIDTH` and batches of up to `MAX_BATCH` systems.
+    Anything else is refused, never sent to another backend.
     """
     if dtype not in KERNEL_DTYPES:
         raise ValueError(
@@ -133,6 +135,11 @@ def check_hopper_constraints(dtype: str, v: int | None) -> None:
     if v is not None and not 1 <= v <= MAX_PANEL_WIDTH:
         raise ValueError(
             f"backend 'cuda' takes panel widths 1..{MAX_PANEL_WIDTH}, got v={v}"
+        )
+    if B is not None and B > MAX_BATCH:
+        raise ValueError(
+            f"backend 'cuda' factorizes at most {MAX_BATCH} systems per batched plan, "
+            f"got B={B}; split the stack"
         )
 
 
@@ -155,23 +162,17 @@ class _UnportedPrimitives:
     def schur_update(self, A, L, U):
         self._unported("schur_update (Cholesky, flat 2.5D bodies)", "6 / 10")
 
-    def panel_lup_batched(self, panel, weights, v):
-        self._unported("panel_lup_batched (batched plans)", "5")
-
     def panel_chol_batched(self, A):
-        self._unported("panel_chol_batched (batched Cholesky)", "5 / 6")
+        self._unported("panel_chol_batched (batched Cholesky)", "6")
 
     def trsm_right_upper_batched(self, B, U):
-        self._unported("trsm_right_upper_batched (batched Cholesky)", "5 / 6")
+        self._unported("trsm_right_upper_batched (batched Cholesky)", "6")
 
     def trsm_left_lower_batched(self, L, B, *, unit=True):
-        self._unported("trsm_left_lower_batched (batched plans)", "5")
+        self._unported("trsm_left_lower_batched (the kernel lint)", "11")
 
     def schur_update_batched(self, A, L, U):
-        self._unported("schur_update_batched (batched Cholesky)", "5 / 6")
-
-    def fused_trsm_schur_batched(self, A, L00, R01, L10, *, unit=True):
-        self._unported("fused_trsm_schur_batched (batched plans)", "5")
+        self._unported("schur_update_batched (batched Cholesky)", "6")
 
 
 class RefBackend(_UnportedPrimitives):
@@ -187,6 +188,14 @@ class RefBackend(_UnportedPrimitives):
     def fused_trsm_schur(self, A, L00, R01, L10, *, unit=True):
         return ref.fused_trsm_schur(A, L00, R01, L10, unit=unit)
 
+    # Batched: the batch axis written out; a lane equals the single call.
+
+    def panel_lup_batched(self, panel, weights, v):
+        return ref.lu_panel_batched(panel, weights)
+
+    def fused_trsm_schur_batched(self, A, L00, R01, L10, *, unit=True):
+        return ref.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
+
 
 class CudaBackend(_UnportedPrimitives):
     """The hand-written Hopper kernels (`repro_torch.kernels.ops`).  CPU
@@ -199,6 +208,14 @@ class CudaBackend(_UnportedPrimitives):
 
     def fused_trsm_schur(self, A, L00, R01, L10, *, unit=True):
         return ops.fused_trsm_schur(A, L00, R01, L10, unit=unit)
+
+    # Batched: one launch per step covers all B systems.
+
+    def panel_lup_batched(self, panel, weights, v):
+        return ops.lu_panel_batched(panel, weights)
+
+    def fused_trsm_schur_batched(self, A, L00, R01, L10, *, unit=True):
+        return ops.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
 
 
 register_backend("ref", RefBackend())

@@ -1,7 +1,13 @@
-// Fused TRSM -> Schur update:  U01 = L00^-1 R01,  out = A - L10 @ U01.
+// Fused TRSM -> Schur update:  U01 = L00^-1 R01,  out = A - L10 @ U01, for
+// one system or a batch of B independent ones.
 //
 // Replaces: src/repro/kernels/fused_schur.py::fused_trsm_schur (bodies
-// `_forward_solve` and `_kernel`).
+// `_forward_solve` and `_kernel`) and ::fused_trsm_schur_batched (body
+// `_batched_kernel`).  One kernel serves both: the batch index is blockIdx.z
+// and every operand has an int64 batch stride, and a single system is the
+// B = 1 case.  The contraction order of each output element does not depend
+// on the batch or the tiles, so a batched lane equals the single call bit for
+// bit.
 //
 // What bounds it on an H100: bytes.  On the main path A is [16384, 16384]
 // and v = 32, so one call does 2*N*N*v = 17.2 GFLOP while it must read A and
@@ -18,7 +24,10 @@
 // shape, too few warps in flight to cover device-memory latency; redoing the
 // v x v solve costs an extra v / bm of the update's work (32 / 1024 = 3% at
 // the default bm) and needs no second pass.  Only the blocks of grid row 0
-// write U01, so each U01 tile is written exactly once.
+// write U01, so each U01 tile is written exactly once.  Batched, the grid is
+// (C / bc) x (M / bm) x B: at the serving tier's (B, M, C, v) =
+// (256, 512, 512, 32) with bm = 512 that is 4 x 1 x 256 = 1024 blocks, and
+// the redone solve costs v / bm = 6% extra.
 //
 // Each block has 256 threads: 128 column threads (one per column of the
 // tile; bc <= 128) times 2 row groups.  The update walks the block's rows in
@@ -48,19 +57,29 @@ constexpr int kRowsPerThread = 16;
 constexpr int kChunk = kRowGroups * kRowsPerThread;  // rows per pass
 constexpr int kLStride = kChunk + 1;          // padded stride of staged L10
 constexpr int kThreads = kColThreads * kRowGroups;
+constexpr int kMaxV = 128;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_trsm_schur_kernel(const T* __restrict__ A, int64_t lda,
-                        const T* __restrict__ L00, int64_t ldl,
-                        const T* __restrict__ R01, int64_t ldr,
-                        const T* __restrict__ L10, int64_t ld10,
-                        T* __restrict__ out, int64_t ldo,
-                        T* __restrict__ U01, int64_t ldu,
+fused_trsm_schur_kernel(const T* __restrict__ A, int64_t lda, int64_t bsa,
+                        const T* __restrict__ L00, int64_t ldl, int64_t bsl,
+                        const T* __restrict__ R01, int64_t ldr, int64_t bsr,
+                        const T* __restrict__ L10, int64_t ld10, int64_t bs10,
+                        T* __restrict__ out, int64_t ldo, int64_t bso,
+                        T* __restrict__ U01, int64_t ldu, int64_t bsu,
                         int M, int v, int bm, int bc, int unit) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Us = reinterpret_cast<T*>(smem_raw);  // [v][kColThreads]: this tile's U01
   T* Ls = Us + v * kColThreads;            // [v][kLStride]: staged L10 chunk
+
+  // This block's system.
+  const int64_t z = blockIdx.z;
+  A += z * bsa;
+  L00 += z * bsl;
+  R01 += z * bsr;
+  L10 += z * bs10;
+  out += z * bso;
+  U01 += z * bsu;
 
   const int tx = threadIdx.x % kColThreads;
   const int ty = threadIdx.x / kColThreads;
@@ -118,46 +137,54 @@ fused_trsm_schur_kernel(const T* __restrict__ A, int64_t lda,
 }
 
 template <typename T>
-int launch(const void* A, long long lda, const void* L00, long long ldl,
-           const void* R01, long long ldr, const void* L10, long long ld10,
-           void* out, long long ldo, void* U01, long long ldu, int M, int C,
-           int v, int bm, int bc, int unit, void* stream) {
-  const size_t smem = static_cast<size_t>(v) * (kColThreads + kLStride) * sizeof(T);
+int launch(const void* A, long long lda, long long bsa, const void* L00, long long ldl,
+           long long bsl, const void* R01, long long ldr, long long bsr, const void* L10,
+           long long ld10, long long bs10, void* out, long long ldo, long long bso, void* U01,
+           long long ldu, long long bsu, int B, int M, int C, int v, int bm, int bc, int unit,
+           void* stream) {
+  // The limit is set for the widest panel, always to the same value, so
+  // launches from several host threads never race on the attribute.
+  const size_t smem_max = static_cast<size_t>(kMaxV) * (kColThreads + kLStride) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(fused_trsm_schur_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         static_cast<int>(smem_max));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(C / bc, M / bm);
+  const size_t smem = static_cast<size_t>(v) * (kColThreads + kLStride) * sizeof(T);
+  const dim3 grid(C / bc, M / bm, B);
   fused_trsm_schur_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), lda, static_cast<const T*>(L00), ldl,
-      static_cast<const T*>(R01), ldr, static_cast<const T*>(L10), ld10,
-      static_cast<T*>(out), ldo, static_cast<T*>(U01), ldu, M, v, bm, bc, unit);
+      static_cast<const T*>(A), lda, bsa, static_cast<const T*>(L00), ldl, bsl,
+      static_cast<const T*>(R01), ldr, bsr, static_cast<const T*>(L10), ld10, bs10,
+      static_cast<T*>(out), ldo, bso, static_cast<T*>(U01), ldu, bsu, M, v, bm, bc, unit);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// A [M, C], L00 [v, v], R01 [v, C], L10 [M, v], out [M, C], U01 [v, C], each
-// with the given row stride and unit column stride.  Needs bc <= 128,
-// C % bc == 0, M % bm == 0 and v <= 128.  Returns the cudaError_t.
-extern "C" int fused_trsm_schur_f32(const void* A, long long lda, const void* L00,
-                                    long long ldl, const void* R01, long long ldr,
-                                    const void* L10, long long ld10, void* out,
-                                    long long ldo, void* U01, long long ldu, int M,
-                                    int C, int v, int bm, int bc, int unit,
-                                    void* stream) {
-  return launch<float>(A, lda, L00, ldl, R01, ldr, L10, ld10, out, ldo, U01, ldu,
-                       M, C, v, bm, bc, unit, stream);
+// B systems: A [M, C], L00 [v, v], R01 [v, C], L10 [M, v], out [M, C],
+// U01 [v, C], each with the given row stride, batch stride and unit column
+// stride (a single system is B = 1).  Needs bc <= 128, C % bc == 0,
+// M % bm == 0, v <= 128, M / bm <= 65535 and B <= 65535.  Returns the
+// cudaError_t.
+extern "C" int fused_trsm_schur_f32(const void* A, long long lda, long long bsa,
+                                    const void* L00, long long ldl, long long bsl,
+                                    const void* R01, long long ldr, long long bsr,
+                                    const void* L10, long long ld10, long long bs10, void* out,
+                                    long long ldo, long long bso, void* U01, long long ldu,
+                                    long long bsu, int B, int M, int C, int v, int bm, int bc,
+                                    int unit, void* stream) {
+  return launch<float>(A, lda, bsa, L00, ldl, bsl, R01, ldr, bsr, L10, ld10, bs10, out, ldo,
+                       bso, U01, ldu, bsu, B, M, C, v, bm, bc, unit, stream);
 }
 
-extern "C" int fused_trsm_schur_f64(const void* A, long long lda, const void* L00,
-                                    long long ldl, const void* R01, long long ldr,
-                                    const void* L10, long long ld10, void* out,
-                                    long long ldo, void* U01, long long ldu, int M,
-                                    int C, int v, int bm, int bc, int unit,
-                                    void* stream) {
-  return launch<double>(A, lda, L00, ldl, R01, ldr, L10, ld10, out, ldo, U01, ldu,
-                        M, C, v, bm, bc, unit, stream);
+extern "C" int fused_trsm_schur_f64(const void* A, long long lda, long long bsa,
+                                    const void* L00, long long ldl, long long bsl,
+                                    const void* R01, long long ldr, long long bsr,
+                                    const void* L10, long long ld10, long long bs10, void* out,
+                                    long long ldo, long long bso, void* U01, long long ldu,
+                                    long long bsu, int B, int M, int C, int v, int bm, int bc,
+                                    int unit, void* stream) {
+  return launch<double>(A, lda, bsa, L00, ldl, bsl, R01, ldr, bsr, L10, ld10, bs10, out, ldo,
+                        bso, U01, ldu, bsu, B, M, C, v, bm, bc, unit, stream);
 }
 
 extern "C" const char* fused_schur_error_string(int err) {

@@ -1,7 +1,11 @@
 // Masked panel LUP: the v pivot / scale / rank-1 update rounds of COnfLUX's
 // panel factorization, with rows masked instead of swapped (paper §7.3).
+// Two kernels share the round arithmetic below: `lu_panel_kernel` spreads one
+// panel over a cooperative grid, `lu_panel_batched_kernel` gives each of B
+// panels a block of its own.
 //
-// Replaces: src/repro/kernels/lu_panel.py::lu_panel (body `_panel_rounds`).
+// Replaces: src/repro/kernels/lu_panel.py::lu_panel (body `_panel_rounds`)
+// and ::lu_panel_batched (body `_batched_kernel`, the same rounds).
 //
 // What bounds it on an H100: not bytes.  On the main path the panel is
 // [16384, 32] (2 MiB in f32), read and written once, a ~1.3 us floor at
@@ -9,12 +13,12 @@
 // panel-wide argmax before the next can start, so the kernel is bound by the
 // latency of v global reductions and of the row updates between them.
 //
-// Design: the TPU kernel holds the whole panel in VMEM; a Hopper block has at
-// most 227 KB of shared memory and one SM's share of the L2 bandwidth, so a
-// single block would spend milliseconds per panel.  Here the rows are split
-// into contiguous slabs, one per block of a cooperative grid of up to one
-// block per SM, and the panel stays in device memory (2 MiB stays resident in
-// the 50 MB L2).  Each round k:
+// Design of the single-panel kernel: the TPU kernel holds the whole panel in
+// VMEM; a Hopper block has at most 227 KB of shared memory and one SM's share
+// of the L2 bandwidth, so a single block would spend milliseconds per panel.
+// Here the rows are split into contiguous slabs, one per block of a
+// cooperative grid of up to one block per SM, and the panel stays in device
+// memory (2 MiB stays resident in the 50 MB L2).  Each round k:
 //   1. every block holds its best candidate for column k, the (value, index)
 //      pair maximising |F[i, k]| * w[i] over its rows, in a double-buffered
 //      partials array; a grid-wide barrier publishes them;
@@ -31,11 +35,23 @@
 // barrier is an arrival counter and a generation word in device memory; a
 // waiter that spins for seconds traps instead of hanging the card.
 //
+// Design of the batched kernel: the TPU runs one grid program per system
+// with the panel in VMEM, and so does this one, one block per system.  Its
+// panel and weights live in dynamic shared memory when R * (v + 1) elements
+// fit a block's budget (R <= ~1700 rows in f32 at v = 32), and otherwise in
+// the output buffer in device memory; the launcher picks by shape and the
+// same code runs on either (generic pointers).  Each round is a block-wide
+// argmax (warp shuffles, then per-warp partials), the pivot row read into
+// shared memory, and the same one-warp-per-row update as above, with
+// __syncthreads() in place of the grid barrier.  A small batch leaves most
+// SMs idle; that is the price of needing no grid barrier.
+//
 // Bit-exactness: every product, difference and quotient uses the
 // round-to-nearest intrinsics (__fmul_rn, __fsub_rn, __fdiv_rn and their
 // double forms), which nvcc never contracts into an FMA.  The plain PyTorch
-// version (repro_torch/kernels/ref.py::lu_panel) rounds the same operations
-// in the same order, so the two agree bit for bit on the card.
+// versions (repro_torch/kernels/ref.py::lu_panel and ::lu_panel_batched)
+// round the same operations in the same order, so both kernels agree with
+// them, and a batched lane with the single kernel, bit for bit on the card.
 
 #include <climits>
 #include <cstdint>
@@ -261,6 +277,127 @@ int launch(const void* in, long long ld_in, void* F, void* w, int R, int v, void
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lu_panel_batched_kernel(const T* __restrict__ in, int64_t ld_in, int64_t bs_in, T* F, T* w,
+                        int R, int v, int* order, unsigned char* ok, int in_shared) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red_val[kWarps];
+  __shared__ int red_idx[kWarps];
+  __shared__ T prow[kMaxV];
+  __shared__ int s_p;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int64_t b = blockIdx.x;
+  const T* src_b = in + b * bs_in;
+  T* Fg = F + b * R * v;
+  T* wg = w + b * R;
+  // The working panel and weights: shared memory, or the outputs themselves.
+  T* Fw = in_shared ? reinterpret_cast<T*>(smem_raw) : Fg;
+  T* ww = in_shared ? reinterpret_cast<T*>(smem_raw) + static_cast<int64_t>(R) * v : wg;
+  int* order_b = order + b * v;
+  unsigned char* ok_b = ok + b * v;
+
+  if (in_shared) {
+    for (int i = tid; i < R; i += kThreads) ww[i] = wg[i];
+    __syncthreads();
+  }
+  // Copy the rows and form the candidates for column 0.  Row i is always
+  // handled by warp i % kWarps, each lane on its own columns.
+  T best = T(-1);
+  int bi = INT_MAX;
+  for (int i = warp; i < R; i += kWarps) {
+    const T* src = src_b + static_cast<int64_t>(i) * ld_in;
+    T* row = Fw + static_cast<int64_t>(i) * v;
+    for (int j = lane; j < v; j += 32) row[j] = src[j];
+    const T c = mul_rn(fabs(src[0]), ww[i]);
+    if (c > best) {  // rows ascend, so strict > keeps the lowest index
+      best = c;
+      bi = i;
+    }
+  }
+
+  for (int k = 0; k < v; ++k) {
+    // The pivot: a block-wide argmax of the candidates.
+    block_argmax(best, bi, red_val, red_idx);
+    if (tid == 0) {
+      const int pk = bi < R ? bi : 0;  // only a NaN panel leaves no candidate
+      s_p = pk;
+      order_b[k] = pk;
+      ok_b[k] = best > T(0) ? 1 : 0;
+      ww[pk] = T(0);
+    }
+    __syncthreads();
+    const int p = s_p;
+    if (tid < v) prow[tid] = Fw[static_cast<int64_t>(p) * v + tid];
+    __syncthreads();
+
+    // Scale and update the active rows; form the next round's candidates.
+    const T piv = prow[k];
+    const T safe = fabs(piv) > T(0) ? piv : T(1);
+    best = T(-1);
+    bi = INT_MAX;
+    for (int i = warp; i < R; i += kWarps) {
+      T* row = Fw + static_cast<int64_t>(i) * v;
+      const T wi = ww[i];
+      if (wi > T(0)) {
+        const T m = div_rn(row[k], safe);
+        __syncwarp();
+        for (int j = lane; j < v; j += 32) {
+          if (j == k) {
+            row[j] = m;
+          } else if (j > k) {
+            row[j] = sub_rn(row[j], mul_rn(m, prow[j]));
+          }
+        }
+        __syncwarp();
+      }
+      if (k + 1 < v) {
+        const T c = mul_rn(fabs(row[k + 1]), wi);
+        if (c > best) {
+          best = c;
+          bi = i;
+        }
+      }
+    }
+  }
+
+  if (in_shared) {
+    __syncthreads();
+    const int64_t n = static_cast<int64_t>(R) * v;
+    for (int64_t idx = tid; idx < n; idx += kThreads) Fg[idx] = Fw[idx];
+  }
+}
+
+template <typename T>
+int launch_batched(const void* in, long long ld_in, long long bs_in, void* F, void* w, int B,
+                   int R, int v, void* order, void* ok, void* stream) {
+  int dev = 0;
+  int optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, lu_panel_batched_kernel<T>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Always the same limit, so launches from several host threads never race
+  // on the attribute.
+  const size_t budget = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(lu_panel_batched_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(budget));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t need = (static_cast<size_t>(R) * v + R) * sizeof(T);
+  const int in_shared = need <= budget ? 1 : 0;
+  lu_panel_batched_kernel<T><<<B, kThreads, in_shared ? need : 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), ld_in, bs_in, static_cast<T*>(F), static_cast<T*>(w), R, v,
+      static_cast<int*>(order), static_cast<unsigned char*>(ok), in_shared);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Bytes of zero-filled scratch each launch needs.
@@ -278,6 +415,22 @@ extern "C" int lu_panel_f32(const void* in, long long ld_in, void* F, void* w, i
 extern "C" int lu_panel_f64(const void* in, long long ld_in, void* F, void* w, int R, int v,
                             void* order, void* ok, void* scratch, void* stream) {
   return launch<double>(in, ld_in, F, w, R, v, order, ok, scratch, stream);
+}
+
+// in: B panels [R, v], row stride ld_in and batch stride bs_in (unit column
+// stride); F: [B, R, v] contiguous output; w: [B, R] contiguous weights,
+// overwritten; order: [B, v] int32; ok: [B, v] bool.  v <= 128, B >= 1.
+// Returns the cudaError_t of the launch.
+extern "C" int lu_panel_batched_f32(const void* in, long long ld_in, long long bs_in, void* F,
+                                    void* w, int B, int R, int v, void* order, void* ok,
+                                    void* stream) {
+  return launch_batched<float>(in, ld_in, bs_in, F, w, B, R, v, order, ok, stream);
+}
+
+extern "C" int lu_panel_batched_f64(const void* in, long long ld_in, long long bs_in, void* F,
+                                    void* w, int B, int R, int v, void* order, void* ok,
+                                    void* stream) {
+  return launch_batched<double>(in, ld_in, bs_in, F, w, B, R, v, order, ok, stream);
 }
 
 extern "C" const char* lu_panel_error_string(int err) {

@@ -1,10 +1,12 @@
-"""Fused TRSM -> Schur update: the wrapper of the CUDA kernel in
+"""Fused TRSM -> Schur update: the wrappers of the CUDA kernel in
 `csrc/fused_schur.cu`.
 
-Port of `repro/kernels/fused_schur.py::fused_trsm_schur`.  A CPU tensor goes
-to the plain version (`repro_torch.kernels.ref.fused_trsm_schur`); a CUDA
-tensor launches the kernel or raises.  `fused_trsm_schur.launches` counts the
-kernel's launches.
+Ports of `repro/kernels/fused_schur.py::fused_trsm_schur` and
+`::fused_trsm_schur_batched`.  Both launch the same kernel, a single system
+as a batch of one, so a batched lane equals the single call bit for bit.  A
+CPU tensor goes to the plain version (`repro_torch.kernels.ref`); a CUDA
+tensor launches the kernel or raises.  `fused_trsm_schur.launches` and
+`fused_trsm_schur_batched.launches` count the launches.
 """
 
 from __future__ import annotations
@@ -17,48 +19,69 @@ from repro_torch.kernels import _build, ref
 
 MAX_V = 128  # keeps the shared U01 tile and L10 chunk within one block's budget
 MAX_BC = 128  # column threads per block
+MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y (row tiles) and gridDim.z (systems)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ARGTYPES = (
-    *(ctypes.c_void_p, ctypes.c_longlong) * 6,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    *(ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) * 6,
+    *(ctypes.c_int,) * 7,
     ctypes.c_void_p,
 )
 
 
-def _check(A, L00, R01, L10, bm: int, bc: int) -> None:
-    if A.device.type != "cuda":
-        raise ValueError(f"fused_trsm_schur: the kernel needs CUDA tensors, got {A.device}")
-    if A.dtype not in _SUFFIX:
-        raise TypeError(
-            f"fused_trsm_schur: the kernel takes float32 or float64, got {A.dtype} "
-            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
-        )
-    for name, t in (("L00", L00), ("R01", R01), ("L10", L10)):
-        if t.device != A.device or t.dtype != A.dtype:
-            raise ValueError(
-                f"fused_trsm_schur: {name} is {t.dtype} on {t.device}, "
-                f"A is {A.dtype} on {A.device}"
-            )
-    if any(t.ndim != 2 for t in (A, L00, R01, L10)):
-        raise ValueError("fused_trsm_schur: every operand must be 2-D")
-    M, C = A.shape
-    v = L00.shape[0]
-    want = {"L00": (v, v), "R01": (v, C), "L10": (M, v)}
+def _check(name: str, A, L00, R01, L10, bm: int, bc: int) -> None:
+    ndim = A.ndim
+    if ndim not in (2, 3) or any(t.ndim != ndim for t in (L00, R01, L10)):
+        raise ValueError(f"{name}: the operands must all be 2-D, or all 3-D with a batch axis")
+    lead = tuple(A.shape[:-2])
+    M, C = A.shape[-2:]
+    v = L00.shape[-1]
+    want = {"L00": lead + (v, v), "R01": lead + (v, C), "L10": lead + (M, v)}
     got = {"L00": L00.shape, "R01": R01.shape, "L10": L10.shape}
     if any(tuple(got[k]) != want[k] for k in want) or not 1 <= v <= MAX_V:
+        pre = "B, " if lead else ""
         raise ValueError(
-            f"fused_trsm_schur: need A [M, C], L00 [v, v], R01 [v, C], L10 [M, v] "
-            f"with 1 <= v <= {MAX_V}; got A {tuple(A.shape)}, "
+            f"{name}: need A [{pre}M, C], L00 [{pre}v, v], R01 [{pre}v, C], "
+            f"L10 [{pre}M, v] with 1 <= v <= {MAX_V}; got A {tuple(A.shape)}, "
             + ", ".join(f"{k} {tuple(s)}" for k, s in got.items())
         )
-    if any(t.stride(1) != 1 for t in (A, L00, R01, L10)):
-        raise ValueError("fused_trsm_schur: every operand needs unit column stride")
+    if any(t.stride(-1) != 1 for t in (A, L00, R01, L10)):
+        raise ValueError(f"{name}: every operand needs unit column stride")
+    if lead and lead[0] > MAX_GRID_YZ:
+        raise ValueError(f"{name}: at most {MAX_GRID_YZ} systems per launch, got B={lead[0]}")
     if not (1 <= bc <= MAX_BC and C % bc == 0 and bm >= 1 and M % bm == 0
-            and M // bm <= 65535):
+            and M // bm <= MAX_GRID_YZ):
         raise ValueError(
-            f"fused_trsm_schur: tiles must cover A exactly: bc={bc} (<= {MAX_BC}) "
-            f"must divide C={C}, bm={bm} must divide M={M} with M / bm <= 65535"
+            f"{name}: tiles must cover A exactly: bc={bc} (<= {MAX_BC}) must divide "
+            f"C={C}, bm={bm} must divide M={M} with M / bm <= {MAX_GRID_YZ}"
         )
+    if A.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {A.device}")
+    if A.dtype not in _SUFFIX:
+        raise TypeError(
+            f"{name}: the kernel takes float32 or float64, got {A.dtype} "
+            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+        )
+    for arg, t in (("L00", L00), ("R01", R01), ("L10", L10)):
+        if t.device != A.device or t.dtype != A.dtype:
+            raise ValueError(
+                f"{name}: {arg} is {t.dtype} on {t.device}, A is {A.dtype} on {A.device}"
+            )
+
+
+def _launch(A, L00, R01, L10, bm: int, bc: int, unit: bool):
+    """Launch the kernel on B systems given as 3-D tensors [B, ...]."""
+    B, M, C = A.shape
+    v = L00.shape[-1]
+    out = torch.empty((B, M, C), dtype=A.dtype, device=A.device)
+    U01 = torch.empty((B, v, C), dtype=A.dtype, device=A.device)
+    fn = _build.function("fused_schur", f"fused_trsm_schur_{_SUFFIX[A.dtype]}", _ARGTYPES)
+    operands = (A, L00, R01, L10, out, U01)
+    with torch.cuda.device(A.device):
+        err = fn(*(x for t in operands for x in (t.data_ptr(), t.stride(1), t.stride(0))),
+                 B, M, C, v, bm, bc, int(unit),
+                 torch.cuda.current_stream(A.device).cuda_stream)
+    _build.check("fused_schur", err)
+    return out, U01
 
 
 def fused_trsm_schur(A, L00, R01, L10, *, bm: int, bc: int, unit: bool = True):
@@ -71,21 +94,28 @@ def fused_trsm_schur(A, L00, R01, L10, *, bm: int, bc: int, unit: bool = True):
     """
     if A.device.type == "cpu":
         return ref.fused_trsm_schur(A, L00, R01, L10, unit=unit)
-    _check(A, L00, R01, L10, bm, bc)
-    M, C = A.shape
-    v = L00.shape[0]
-    out = torch.empty((M, C), dtype=A.dtype, device=A.device)
-    U01 = torch.empty((v, C), dtype=A.dtype, device=A.device)
-    fn = _build.function("fused_schur", f"fused_trsm_schur_{_SUFFIX[A.dtype]}", _ARGTYPES)
-    with torch.cuda.device(A.device):
-        err = fn(A.data_ptr(), A.stride(0), L00.data_ptr(), L00.stride(0),
-                 R01.data_ptr(), R01.stride(0), L10.data_ptr(), L10.stride(0),
-                 out.data_ptr(), out.stride(0), U01.data_ptr(), U01.stride(0),
-                 M, C, v, bm, bc, int(unit),
-                 torch.cuda.current_stream(A.device).cuda_stream)
-    _build.check("fused_schur", err)
+    _check("fused_trsm_schur", A, L00, R01, L10, bm, bc)
+    out, U01 = _launch(A[None], L00[None], R01[None], L10[None], bm, bc, unit)
     fused_trsm_schur.launches += 1
+    return out[0], U01[0]
+
+
+def fused_trsm_schur_batched(A, L00, R01, L10, *, bm: int, bc: int, unit: bool = True):
+    """Per-system (A_b - L10_b @ U01_b, U01_b) with U01_b = L00_b^-1 R01_b.
+
+    A [B, M, C], L00 [B, v, v], R01 [B, v, C], L10 [B, M, v], any row and
+    batch strides; tiles as in `fused_trsm_schur`, with B <= 65535.  Returns
+    (A_new [B, M, C], U01 [B, v, C]), both contiguous.
+    """
+    if A.device.type == "cpu":
+        return ref.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
+    _check("fused_trsm_schur_batched", A, L00, R01, L10, bm, bc)
+    if A.shape[0] == 0:
+        return torch.empty_like(A), torch.empty_like(R01)
+    out, U01 = _launch(A, L00, R01, L10, bm, bc, unit)
+    fused_trsm_schur_batched.launches += 1
     return out, U01
 
 
 fused_trsm_schur.launches = 0
+fused_trsm_schur_batched.launches = 0

@@ -1,8 +1,9 @@
-"""Masked panel LUP: the wrapper of the CUDA kernel in `csrc/lu_panel.cu`.
+"""Masked panel LUP: the wrappers of the CUDA kernels in `csrc/lu_panel.cu`.
 
-Port of `repro/kernels/lu_panel.py::lu_panel`.  A CPU tensor goes to the
-plain version (`repro_torch.kernels.ref.lu_panel`); a CUDA tensor launches
-the kernel or raises.  `lu_panel.launches` counts the kernel's launches.
+Ports of `repro/kernels/lu_panel.py::lu_panel` and `::lu_panel_batched`.  A
+CPU tensor goes to the plain version (`repro_torch.kernels.ref.lu_panel` /
+`.lu_panel_batched`); a CUDA tensor launches the kernel or raises.
+`lu_panel.launches` and `lu_panel_batched.launches` count the launches.
 """
 
 from __future__ import annotations
@@ -21,27 +22,34 @@ _ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p,
 )
+_BATCHED_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p,
+)
 
 
-def _check(panel: torch.Tensor, weights: torch.Tensor) -> None:
-    if panel.device.type != "cuda":
-        raise ValueError(f"lu_panel: the kernel needs a CUDA tensor, got {panel.device}")
-    if panel.dtype not in _SUFFIX:
-        raise TypeError(
-            f"lu_panel: the kernel takes float32 or float64, got {panel.dtype} "
-            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
-        )
-    if panel.ndim != 2 or not 1 <= panel.shape[1] <= MAX_V or not 1 <= panel.shape[0] <= MAX_ROWS:
+def _check(name: str, panel: torch.Tensor, weights: torch.Tensor, ndim: int) -> None:
+    shape, wshape = ("[R, v]", "[R]") if ndim == 2 else ("[B, R, v]", "[B, R]")
+    if (panel.ndim != ndim or not 1 <= panel.shape[-1] <= MAX_V
+            or not 1 <= panel.shape[-2] <= MAX_ROWS):
         raise ValueError(
-            f"lu_panel: panel must be [R, v] with 1 <= R < 2^31 and 1 <= v <= {MAX_V}, "
+            f"{name}: panel must be {shape} with 1 <= R < 2^31 and 1 <= v <= {MAX_V}, "
             f"got {tuple(panel.shape)}"
         )
-    if panel.stride(1) != 1:
-        raise ValueError("lu_panel: the panel's columns must have unit stride")
-    if weights.shape != (panel.shape[0],) or weights.device != panel.device:
+    if panel.stride(-1) != 1:
+        raise ValueError(f"{name}: the panel's columns must have unit stride")
+    if weights.shape != panel.shape[:-1] or weights.device != panel.device:
         raise ValueError(
-            f"lu_panel: weights must be [R] on {panel.device}, got "
+            f"{name}: weights must be {wshape} on {panel.device}, got "
             f"{tuple(weights.shape)} on {weights.device}"
+        )
+    if panel.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {panel.device}")
+    if panel.dtype not in _SUFFIX:
+        raise TypeError(
+            f"{name}: the kernel takes float32 or float64, got {panel.dtype} "
+            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
         )
 
 
@@ -53,7 +61,7 @@ def lu_panel(panel: torch.Tensor, weights: torch.Tensor):
     """
     if panel.device.type == "cpu":
         return ref.lu_panel(panel, weights)
-    _check(panel, weights)
+    _check("lu_panel", panel, weights, 2)
     R, v = panel.shape
     F = torch.empty((R, v), dtype=panel.dtype, device=panel.device)
     w = torch.empty(R, dtype=panel.dtype, device=panel.device)
@@ -74,3 +82,35 @@ def lu_panel(panel: torch.Tensor, weights: torch.Tensor):
 
 
 lu_panel.launches = 0
+
+
+def lu_panel_batched(panel: torch.Tensor, weights: torch.Tensor):
+    """Masked LUP of B panels [B, R, v] (any row and batch strides) with
+    weights [B, R] of 0/1, one block of the kernel per panel.
+
+    Returns (F [B, R, v] contiguous, order [B, v] int32, ok [B, v] bool);
+    rows of weight 0 come back unchanged.
+    """
+    if panel.device.type == "cpu":
+        return ref.lu_panel_batched(panel, weights)
+    _check("lu_panel_batched", panel, weights, 3)
+    B, R, v = panel.shape
+    F = torch.empty((B, R, v), dtype=panel.dtype, device=panel.device)
+    w = torch.empty((B, R), dtype=panel.dtype, device=panel.device)
+    w.copy_(weights)  # the kernel masks pivots in this copy
+    order = torch.empty((B, v), dtype=torch.int32, device=panel.device)
+    ok = torch.empty((B, v), dtype=torch.bool, device=panel.device)
+    if B == 0:
+        return F, order, ok
+    fn = _build.function("lu_panel", f"lu_panel_batched_{_SUFFIX[panel.dtype]}",
+                         _BATCHED_ARGTYPES)
+    with torch.cuda.device(panel.device):
+        err = fn(panel.data_ptr(), panel.stride(1), panel.stride(0), F.data_ptr(),
+                 w.data_ptr(), B, R, v, order.data_ptr(), ok.data_ptr(),
+                 torch.cuda.current_stream(panel.device).cuda_stream)
+    _build.check("lu_panel", err)
+    lu_panel_batched.launches += 1
+    return F, order, ok
+
+
+lu_panel_batched.launches = 0

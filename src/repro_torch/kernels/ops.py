@@ -5,15 +5,16 @@ shrinks to the largest divisor of its array dimension that does not exceed
 it, so the grid covers the matrix exactly for any shape.  The defaults are
 Hopper's, not the TPU's: `bc` = 128 columns is one thread per column of a
 block, and `bm` = 1024 rows keeps the per-block redo of the small triangular
-solve near 3% of the update at v = 32 (see `csrc/fused_schur.cu`).
+solve near 3% of the update at v = 32 (see `csrc/fused_schur.cu`).  The
+batched wrappers fit the same tiles to each system's [M, C].
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels import fused_schur as _fs
-from repro_torch.kernels.lu_panel import lu_panel
+from repro_torch.kernels.lu_panel import lu_panel, lu_panel_batched
 
-__all__ = ["fused_trsm_schur", "lu_panel"]
+__all__ = ["fused_trsm_schur", "fused_trsm_schur_batched", "lu_panel", "lu_panel_batched"]
 
 
 def _fit(block: int, dim: int) -> int:
@@ -31,3 +32,15 @@ def fused_trsm_schur(A, L00, R01, L10, bm: int = 1024, bc: int = 128, unit: bool
     """
     M, C = A.shape
     return _fs.fused_trsm_schur(A, L00, R01, L10, bm=_fit(bm, M), bc=_fit(bc, C), unit=unit)
+
+
+def fused_trsm_schur_batched(A, L00, R01, L10, bm: int = 1024, bc: int = 128,
+                             unit: bool = True):
+    """Per-system U01 = L00^-1 R01 and A - L10 @ U01 for B systems in one launch.
+
+    Returns (A_new, U01) with leading batch axes — see
+    `repro_torch.kernels.fused_schur`.
+    """
+    _, M, C = A.shape
+    return _fs.fused_trsm_schur_batched(A, L00, R01, L10, bm=_fit(bm, M), bc=_fit(bc, C),
+                                        unit=unit)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.lu.sequential import masked_lup
+from repro_torch.core.lu.sequential import masked_lup, masked_lup_batched
 
 
 def _work_dtype(t: torch.Tensor) -> torch.dtype:
@@ -28,6 +28,17 @@ def lu_panel(panel: torch.Tensor, weights: torch.Tensor):
     return F.to(panel.dtype), order, ok
 
 
+def lu_panel_batched(panel: torch.Tensor, weights: torch.Tensor):
+    """Masked LUP of B panels [B, R, v] with weights [B, R].
+
+    Returns (F [B, R, v], order [B, v] int32, ok [B, v] bool); lane b equals
+    `lu_panel(panel[b], weights[b])` bit for bit.
+    """
+    wd = _work_dtype(panel)
+    F, order, ok = masked_lup_batched(panel.to(wd), weights.to(wd), panel.shape[-1])
+    return F.to(panel.dtype), order, ok
+
+
 def fused_trsm_schur(A, L00, R01, L10, unit: bool = True):
     """(A - L10 @ U01, U01) with U01 = L00^-1 R01 (L00 unit-lower if `unit`).
 
@@ -38,3 +49,8 @@ def fused_trsm_schur(A, L00, R01, L10, unit: bool = True):
         L00.to(wd), R01.to(wd), upper=False, unitriangular=unit
     )
     return (A.to(wd) - L10.to(wd) @ U01).to(A.dtype), U01.to(R01.dtype)
+
+
+# The batched form [B, M, C], [B, v, v], [B, v, C], [B, M, v] is the same
+# code: `solve_triangular` and `@` broadcast over the leading batch axis.
+fused_trsm_schur_batched = fused_trsm_schur

@@ -122,7 +122,7 @@ def test_plan_without_device_targets_cuda():
 @pytest.mark.parametrize("fields,match", [
     (dict(backend="pallas"), "'cuda'"),
     (dict(strategy="conflux"), "item 10"),
-    (dict(B=4), "item 5"),
+    (dict(B=4, strategy="sequential_chol"), "item 5"),
     (dict(compute_dtype="bfloat16"), "item 7"),
     (dict(dtype="float16"), "module item 7"),
     (dict(v=256), "panel widths"),
@@ -143,8 +143,10 @@ def test_unported_results_and_primitives_raise():
     for bk in (CudaBackend(), RefBackend()):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             bk.panel_chol(torch.eye(8))
-        with pytest.raises(NotImplementedError, match="item 5"):
-            bk.fused_trsm_schur_batched(None, None, None, None)
+        with pytest.raises(NotImplementedError, match="item 6"):
+            bk.panel_chol_batched(torch.eye(8)[None])
+        with pytest.raises(NotImplementedError, match="item 11"):
+            bk.trsm_left_lower_batched(None, None)
 
 
 def test_config_validation_and_cache_key():
