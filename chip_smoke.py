@@ -10,7 +10,11 @@ each kernel against its plain PyTorch version on the card:
 - the batched path, `plan((256, 512)).execute(A).solve(b)` (kernels
   `lu_panel_batched`, `fused_trsm_schur_batched`);
 - the serving tier on top of both: `SolveEngine(512)` and
-  `AsyncSolveEngine(512)` answering ragged requests of 64..512.
+  `AsyncSolveEngine(512)` answering ragged requests of 64..512;
+- the SPD Cholesky paths: `plan(N, strategy="sequential_chol")` at
+  N = 16384 (kernels `chol_panel`, `trsm_right_upper`, `schur_update`),
+  `plan((256, 512), strategy="sequential_chol")` (their `_batched` forms),
+  and both engines with `strategy="sequential_chol"` on ragged SPD requests.
 
 Phases print JSON lines; any failure raises, so the exit code is not 0.  The
 second-to-last line lists the kernels with their launches, errors and times;
@@ -54,6 +58,18 @@ BATCH, BATCH_N = 256, 512
 PLAIN_BATCH, PLAIN_BATCH_N = 64, 256
 SERVE_N, SERVE_REQUESTS, SERVE_MIN_N = 512, 384, 64
 ASYNC_TENANTS, ASYNC_PER_TENANT, ASYNC_MAX_BATCH, ASYNC_DELAY_MS = 4, 64, 64, 2.0
+# The Cholesky paths (module items 5, 6 and 8): the same shapes as the LU's,
+# fewer serving requests.
+CHOL = "sequential_chol"
+CHOL_V = 32
+CHOL_SERVE_REQUESTS, CHOL_ASYNC_PER_TENANT = 256, 32
+# trsm_right_upper and schur_update against their plain versions: as for the
+# fused kernel, a v-term sum in another order, so FUSED_REL_TOL of the
+# result's scale.  chol_panel is held bit for bit.  The Cholesky factor of the
+# kernel path against the plain path at N = 1024: each drifts from the exact
+# factor by up to about N * eps_f32 * max|L|, so CHOL_L_TOL_FACTOR * N * eps *
+# max|L| bounds their difference, as LU_F_TOL_FACTOR does for F.
+CHOL_L_TOL_FACTOR = 4.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -133,11 +149,22 @@ def panel_ops(R: int, v: int, n_active: int) -> int:
 
 
 def _wrappers() -> dict:
-    from repro_torch.kernels import fused_schur, lu_panel
+    from repro_torch.kernels import chol_panel, fused_schur, lu_panel, schur_update, trsm
 
     return {"lu_panel": lu_panel.lu_panel, "fused_trsm_schur": fused_schur.fused_trsm_schur,
             "lu_panel_batched": lu_panel.lu_panel_batched,
-            "fused_trsm_schur_batched": fused_schur.fused_trsm_schur_batched}
+            "fused_trsm_schur_batched": fused_schur.fused_trsm_schur_batched,
+            "chol_panel": chol_panel.chol_panel,
+            "trsm_right_upper": trsm.trsm_right_upper,
+            "schur_update": schur_update.schur_update,
+            "chol_panel_batched": chol_panel.chol_panel_batched,
+            "trsm_right_upper_batched": trsm.trsm_right_upper_batched,
+            "schur_update_batched": schur_update.schur_update_batched}
+
+
+def expected_launches(**counts) -> dict:
+    """Every kernel's count for a path: the given ones, 0 for the others."""
+    return {name: counts.get(name, 0) for name in _wrappers()}
 
 
 def reset_launches() -> None:
@@ -275,8 +302,7 @@ def batched_path(dev, gen) -> dict:
          loop_over_batched=loop_s / execute_s)
     if fact.backend != "cuda":
         raise AssertionError(f"batched path ran backend {fact.backend!r}, not 'cuda'")
-    if launches != {"lu_panel": 0, "fused_trsm_schur": 0,
-                    "lu_panel_batched": steps, "fused_trsm_schur_batched": steps}:
+    if launches != expected_launches(lu_panel_batched=steps, fused_trsm_schur_batched=steps):
         raise AssertionError(f"expected {steps} launches of each batched kernel, got {launches}")
     if not (torch.isfinite(x).all() and bool((resid < HPL_RESIDUAL_MAX).all())):
         raise AssertionError(f"batched HPL scaled residual {float(resid.max())} "
@@ -339,13 +365,17 @@ def _check_answers(requests, answers, phase: str) -> float:
     return max(resid)
 
 
-def serving_sync() -> None:
-    """SolveEngine(512): 384 ragged requests, submit_system then one flush."""
+def serving_sync(phase: str = "serving_sync", strategy: str = "auto",
+                 make=_requests, count: int = SERVE_REQUESTS,
+                 kernels=("lu_panel_batched", "fused_trsm_schur_batched")) -> None:
+    """SolveEngine(512): `count` ragged requests, submit_system then one
+    flush; every kernel of `kernels` must have been launched."""
     import numpy as np
+    from repro_torch.api import SolverConfig
     from repro_torch.serving import SolveEngine
 
-    requests = _requests(np.random.default_rng(1), SERVE_REQUESTS)
-    eng = SolveEngine(SERVE_N)
+    requests = make(np.random.default_rng(1), count)
+    eng = SolveEngine(SERVE_N, SolverConfig(strategy=strategy))
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -357,27 +387,31 @@ def serving_sync() -> None:
     launches = read_launches()
     answers = [xs[t] for t in tickets]
     st = eng.stats()
-    emit("serving_sync", N=SERVE_N, requests=len(requests),
+    emit(phase, N=SERVE_N, strategy=st["strategy"], requests=len(requests),
          buckets={str(s): {"systems": k, "batch_slot": eng._slot(k)} for s, k in buckets.items()},
          batched_factorizations=st["batched_factorizations"],
          batch_pad_waste=st["batch_pad_waste"], wall_s=wall_s,
          requests_per_s=len(requests) / wall_s, flush_s=st["batch_s_total"],
-         launches=launches, hpl_residual_max=_check_answers(requests, answers, "serving_sync"))
-    if launches["lu_panel_batched"] == 0 or launches["fused_trsm_schur_batched"] == 0:
-        raise AssertionError(f"serving_sync launched no batched kernel: {launches}")
+         launches=launches, hpl_residual_max=_check_answers(requests, answers, phase))
+    if any(launches[k] == 0 for k in kernels):
+        raise AssertionError(f"{phase} launched no batched kernel: {launches}")
 
 
-def serving_async() -> None:
-    """AsyncSolveEngine(512): 4 tenant threads submitting 64 requests each."""
+def serving_async(phase: str = "serving_async", strategy: str = "auto", make=_requests,
+                  per_tenant_count: int = ASYNC_PER_TENANT, kernels=()) -> None:
+    """AsyncSolveEngine(512): 4 tenant threads submitting `per_tenant_count`
+    requests each; every kernel of `kernels` must have been launched."""
     import threading
 
     import numpy as np
+    from repro_torch.api import SolverConfig
     from repro_torch.serving import AsyncSolveEngine
 
-    per_tenant = [_requests(np.random.default_rng(10 + t), ASYNC_PER_TENANT)
+    per_tenant = [make(np.random.default_rng(10 + t), per_tenant_count)
                   for t in range(ASYNC_TENANTS)]
     futures: list[list] = [[] for _ in range(ASYNC_TENANTS)]
-    eng = AsyncSolveEngine(SERVE_N, max_batch=ASYNC_MAX_BATCH, max_delay_ms=ASYNC_DELAY_MS)
+    eng = AsyncSolveEngine(SERVE_N, SolverConfig(strategy=strategy), max_batch=ASYNC_MAX_BATCH,
+                           max_delay_ms=ASYNC_DELAY_MS)
     reset_launches()
 
     def tenant(t: int) -> None:
@@ -395,17 +429,340 @@ def serving_async() -> None:
     eng.close()
     launches = read_launches()
     st = eng.stats()["async"]
-    resid = max(_check_answers(reqs, ans, "serving_async")
-                for reqs, ans in zip(per_tenant, answers))
-    total = ASYNC_TENANTS * ASYNC_PER_TENANT
-    emit("serving_async", N=SERVE_N, tenants=ASYNC_TENANTS, requests=total,
+    resid = max(_check_answers(reqs, ans, phase) for reqs, ans in zip(per_tenant, answers))
+    total = ASYNC_TENANTS * per_tenant_count
+    emit(phase, N=SERVE_N, strategy=strategy, tenants=ASYNC_TENANTS, requests=total,
          max_batch=ASYNC_MAX_BATCH, max_delay_ms=ASYNC_DELAY_MS, wall_s=wall_s,
          requests_per_s=total / wall_s, latency_ms=st["latency_ms"], flushes=st["flushes"],
          batch_fill=st["batch_fill"], served=st["served"], failed=st["failed"],
          shed=st["shed"], spilled=st["spilled"], launches=launches, hpl_residual_max=resid)
     if st["served"] + st["spilled"] != total or st["failed"]:
-        raise AssertionError(f"serving_async served {st['served']} + spilled {st['spilled']} "
+        raise AssertionError(f"{phase} served {st['served']} + spilled {st['spilled']} "
                              f"of {total}, failed {st['failed']}")
+    if any(launches[k] == 0 for k in kernels):
+        raise AssertionError(f"{phase} launched no batched kernel: {launches}")
+
+
+def spd(shape, gen, dev, dtype=torch.float32) -> torch.Tensor:
+    """G G^T / n + I for a standard normal G of shape [..., n, n], made on the
+    card: SPD with eigenvalues in about [1, 5]."""
+    n = shape[-1]
+    G = torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+    A = G @ G.mT
+    del G
+    A /= n
+    A.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    return A
+
+
+def chol_ops(v: int) -> int:
+    """Operations of one v x v Cholesky: per round a root, v-k-1 divisions
+    and the (v-k-1)(v-k)/2 multiply-subtracts of the trailing lower triangle."""
+    return sum(1 + (v - k - 1) + (v - k - 1) * (v - k) for k in range(v))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """NaN at the same places and bit-for-bit equal everywhere else."""
+    nan = a.isnan()
+    if not torch.equal(nan, b.isnan()):
+        return False
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return torch.equal(a.contiguous().view(ints)[~nan], b.contiguous().view(ints)[~nan])
+
+
+def chol_kernel_rows(dev, gen) -> list[dict]:
+    """The Cholesky kernels against their plain versions, and batched lanes
+    against the single call, at the Cholesky paths' shapes and beyond.
+    Returns the six rows of the kernels line (launches filled in later)."""
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    # chol_panel[_batched]: the batched path's stack (lane 0 is the single
+    # path's block), f64, and v = 128 in f64, the largest shared-memory
+    # block.  Strided blocks, as the paths pass a diagonal block of A.
+    for B, v, dt in ((BATCH, CHOL_V, torch.float32), (64, CHOL_V, torch.float64),
+                     (4, 128, torch.float64)):
+        buf = torch.zeros(B, v, 2 * v, device=dev, dtype=dt)
+        buf[:, :, v:] = spd((B, v, v), gen, dev, dt)
+        blocks = buf[:, :, v:]
+        L_k = ops.chol_panel_batched(blocks)
+        L_p = ref.chol_panel_batched(blocks)
+        bad = blocks.clone()
+        bad[:, 5, 5] = -1.0  # not SPD: the pivot of round 5 is negative
+        bad_k = ops.chol_panel_batched(bad)
+        bad_p = ref.chol_panel_batched(bad)
+        torch.cuda.synchronize()
+        eps = torch.finfo(dt).eps
+        recon = float((L_k @ L_k.mT - blocks).abs().max()) / float(blocks.abs().max())
+        check = {"bit_identical": same_bits(L_k, L_p),
+                 "reconstruct_ok": recon <= 4 * v * eps,
+                 "not_spd_nonfinite": (not bool(torch.isfinite(bad_k).all())
+                                       and not bool(torch.isfinite(bad_p).all())),
+                 "not_spd_bit_identical": same_bits(bad_k, bad_p)}
+        for b in (0, B - 1):
+            check[f"lane{b}_equals_single"] = same_bits(ops.chol_panel(blocks[b]), L_k[b])
+        check["not_spd_single_equals_lane0"] = same_bits(ops.chol_panel(bad[0]), bad_k[0])
+        err = float((L_k - L_p).abs().max())
+        emit("kernel_chol_panel_batched", shape=[B, v, v], dtype=str(dt), max_abs_err=err,
+             reconstruct_rel_err=recon, **check)
+        if not all(check.values()):
+            raise AssertionError(f"chol_panel [{B}, {v}, {v}] {dt} disagrees: {check}")
+        if (B, v, dt) != (BATCH, CHOL_V, torch.float32):
+            continue
+        one = blocks[0]
+        one_err = float((ops.chol_panel(one) - ref.chol_panel(one)).abs().max())
+        rows.append({
+            "name": "chol_panel", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chol_panel.cu",
+            "replaces": "src/repro/kernels/chol_panel.py:50",
+            "max_abs_err": one_err, "ms": time_ms(lambda: ops.chol_panel(one)),
+            "plain_ms": time_ms(lambda: ref.chol_panel(one), reps=3),
+            **bound(4 * 2 * v * v, chol_ops(v)),
+            "library_ms": time_ms(lambda: torch.linalg.cholesky_ex(one)),
+            "library": "torch.linalg.cholesky_ex on the [v, v] block",
+        })
+        rows.append({
+            "name": "chol_panel_batched", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chol_panel.cu",
+            "replaces": "src/repro/kernels/chol_panel.py:66",
+            "max_abs_err": err, "ms": time_ms(lambda: ops.chol_panel_batched(blocks)),
+            "plain_ms": time_ms(lambda: ref.chol_panel_batched(blocks), reps=3),
+            **bound(4 * 2 * B * v * v, B * chol_ops(v)),
+            "library_ms": time_ms(lambda: torch.linalg.cholesky_ex(blocks)),
+            "library": "torch.linalg.cholesky_ex on the [B, v, v] stack",
+        })
+
+    # trsm_right_upper[_batched]: U = L00^T, a transposed view of a lower
+    # factor, and B with its top quarter of rows zero, as the paths pass
+    # them; the single path's shape, the batched path's, a ragged one
+    # (R % 64 != 0, v = 24) and v = 128 in f64.
+    for Bb, R, v, dt in ((None, N, CHOL_V, torch.float32), (BATCH, BATCH_N, CHOL_V, torch.float32),
+                         (8, 2000, 24, torch.float32), (4, 1000, 128, torch.float64)):
+        nb = 1 if Bb is None else Bb
+        U = ref.chol_panel_batched(spd((nb, v, v), gen, dev, dt)).mT
+        Bm = torch.randn(nb, R, v, generator=gen, device=dev, dtype=dt)
+        Bm[:, :R // 4] = 0.0
+        if Bb is None:
+            U, Bm = U[0], Bm[0]
+            X_k = ops.trsm_right_upper(Bm, U)
+            X_p = ref.trsm_right_upper(Bm, U)
+        else:
+            X_k = ops.trsm_right_upper_batched(Bm, U)
+            X_p = ref.trsm_right_upper_batched(Bm, U)
+        torch.cuda.synchronize()
+        err = float((X_k - X_p).abs().max())
+        scale = float(X_p.abs().max())
+        check = {"within_tol": err <= FUSED_REL_TOL * scale,
+                 "zero_rows_zero": bool((X_k[..., :R // 4, :] == 0).all())}
+        if Bb is not None:
+            for b in (0, Bb - 1):
+                check[f"lane{b}_equals_single"] = torch.equal(ops.trsm_right_upper(Bm[b], U[b]),
+                                                              X_k[b])
+        emit("kernel_trsm_right_upper" + ("" if Bb is None else "_batched"),
+             shape=[nb, R, v], dtype=str(dt), max_abs_err=err, rel_err=err / scale,
+             tol_rel=FUSED_REL_TOL, **check)
+        if not all(check.values()):
+            raise AssertionError(f"trsm_right_upper [{nb}, {R}, {v}] {dt}: {check}")
+        if dt != torch.float32 or R not in (N, BATCH_N):
+            continue
+        single = Bb is None
+        kernel = ops.trsm_right_upper if single else ops.trsm_right_upper_batched
+        plain = ref.trsm_right_upper if single else ref.trsm_right_upper_batched
+        rows.append({
+            "name": "trsm_right_upper" + ("" if single else "_batched"), "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/trsm.cu",
+            "replaces": "src/repro/kernels/trsm.py:" + ("78" if single else "96"),
+            "max_abs_err": err, "ms": time_ms(lambda: kernel(Bm, U)),
+            "plain_ms": time_ms(lambda: plain(Bm, U)),
+            **bound(4 * nb * (2 * R * v + v * v), nb * R * v * v),
+            "library_ms": time_ms(
+                lambda: torch.linalg.solve_triangular(U, Bm, upper=True, left=False)),
+            "library": "torch.linalg.solve_triangular(U, B, upper=True, left=False)",
+        })
+
+    # schur_update[_batched]: the single path's [N, N] with K = 32, a ragged
+    # one (M, N not multiples of the 64 x 128 tile, K = 40: two chunks), the
+    # batched path's (256, 512, 512, 32), (8, 2048, 1536, 16) and an f64 one.
+    for Bb, M, C, K, dt in ((None, N, N, CHOL_V, torch.float32),
+                            (None, 2000, 1000, 40, torch.float32),
+                            (BATCH, BATCH_N, BATCH_N, CHOL_V, torch.float32),
+                            (8, 2048, 1536, 16, torch.float32),
+                            (4, 1000, 700, 40, torch.float64)):
+        lead = () if Bb is None else (Bb,)
+        A = torch.randn(*lead, M, C, generator=gen, device=dev, dtype=dt)
+        Lm = torch.randn(*lead, M, K, generator=gen, device=dev, dtype=dt)
+        Um = torch.randn(*lead, K, C, generator=gen, device=dev, dtype=dt)
+        kernel = ops.schur_update if Bb is None else ops.schur_update_batched
+        plain = ref.schur_update if Bb is None else ref.schur_update_batched
+        out_k = kernel(A, Lm, Um)
+        out_p = plain(A, Lm, Um)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        scale = float(out_p.abs().max())
+        check = {"within_tol": err <= FUSED_REL_TOL * scale}
+        if Bb is not None:
+            for b in (0, Bb - 1):
+                check[f"lane{b}_equals_single"] = torch.equal(ops.schur_update(A[b], Lm[b], Um[b]),
+                                                              out_k[b])
+        emit("kernel_schur_update" + ("" if Bb is None else "_batched"),
+             shape=[*lead, M, C, K], dtype=str(dt), max_abs_err=err, rel_err=err / scale,
+             tol_rel=FUSED_REL_TOL, **check)
+        if not all(check.values()):
+            raise AssertionError(f"schur_update {[*lead, M, C, K]} {dt}: {check}")
+        del out_k, out_p
+        if dt != torch.float32 or (M, C, K) not in ((N, N, CHOL_V), (BATCH_N, BATCH_N, CHOL_V)):
+            continue
+        nb = 1 if Bb is None else Bb
+        library = torch.addmm if Bb is None else torch.baddbmm
+        rows.append({
+            "name": "schur_update" + ("" if Bb is None else "_batched"), "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/schur_update.cu",
+            "replaces": "src/repro/kernels/schur_update.py:" + ("52" if Bb is None else "75"),
+            "max_abs_err": err, "ms": time_ms(lambda: kernel(A, Lm, Um)),
+            "plain_ms": time_ms(lambda: plain(A, Lm, Um)),
+            **bound(4 * nb * (2 * M * C + M * K + K * C), 2 * nb * M * C * K),
+            "library_ms": time_ms(lambda: library(A, Lm, Um, alpha=-1.0)),
+            "library": ("torch.addmm" if Bb is None else "torch.baddbmm") + "(A, L, U, alpha=-1)",
+        })
+        del A, Lm, Um
+    torch.cuda.empty_cache()
+    return rows
+
+
+def chol_main_path(dev, gen) -> dict:
+    """plan(16384, strategy="sequential_chol").execute(A).solve(b) through the
+    entry points, its profile, the library yardstick and the plain path at
+    N = 1024.  Returns the launches of the counted run."""
+    from repro_torch.api import SolverConfig, plan
+
+    A = spd((N, N), gen, dev)
+    b = torch.randn(N, generator=gen, device=dev)
+    p = plan(N, SolverConfig(strategy=CHOL))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fact = p.execute(A)
+    torch.cuda.synchronize()
+    execute_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    x = fact.solve(b)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    resid = hpl_residual(A, x, b)
+    steps = N // p.config.v
+    emit("chol_main_path", N=N, v=p.config.v, strategy=fact.strategy, backend=fact.backend,
+         kind=fact.kind, launches=launches, execute_s=execute_s, solve_s=solve_s,
+         hpl_residual=resid, x_finite=bool(torch.isfinite(x).all()), x_shape=list(x.shape))
+    if fact.backend != "cuda" or fact.kind != "cholesky":
+        raise AssertionError(f"Cholesky path ran backend {fact.backend!r}, kind {fact.kind!r}")
+    if launches != expected_launches(chol_panel=steps, trsm_right_upper=steps,
+                                     schur_update=steps):
+        raise AssertionError(f"expected {steps} launches of each Cholesky kernel, got {launches}")
+    if not (torch.isfinite(x).all() and resid < HPL_RESIDUAL_MAX):
+        raise AssertionError(f"Cholesky HPL scaled residual {resid} >= {HPL_RESIDUAL_MAX}")
+    del fact, x
+
+    emit("profile_chol_execute", **profile_once(lambda: p.execute(A)))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L_lib, info = torch.linalg.cholesky_ex(A)
+    torch.cuda.synchronize()
+    lib_factor_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_lib = torch.cholesky_solve(b[:, None], L_lib)[:, 0]
+    torch.cuda.synchronize()
+    emit("yardstick_torch_cholesky", factor_s=lib_factor_s, solve_s=time.perf_counter() - t0,
+         info=int(info), hpl_residual=hpl_residual(A, x_lib, b),
+         note="torch.linalg.cholesky_ex + cholesky_solve; the port never calls them")
+    del L_lib, x_lib, A, b
+
+    n = 1024
+    A_small = spd((n, n), gen, dev)
+    L_k = plan(n, SolverConfig(strategy=CHOL)).execute(A_small).F
+    L_p = plan(n, SolverConfig(strategy=CHOL, backend="ref")).execute(A_small).F
+    err = float((L_k - L_p).abs().max())
+    tol = CHOL_L_TOL_FACTOR * n * torch.finfo(torch.float32).eps * float(L_p.abs().max())
+    emit("plain_chol_path_1024", L_max_abs_err=err, tol=tol, L_max_abs=float(L_p.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"kernel and plain Cholesky paths differ at N={n}: {err} > {tol}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def chol_batched_path(dev, gen) -> dict:
+    """plan((256, 512), strategy="sequential_chol") through the entry points,
+    the loop of single plans it replaces, its profile and the library
+    yardstick.  Returns the launches of the counted run."""
+    from repro_torch.api import SolverConfig, plan
+
+    A = spd((BATCH, BATCH_N, BATCH_N), gen, dev)
+    b = torch.randn(BATCH, BATCH_N, generator=gen, device=dev)
+    p = plan((BATCH, BATCH_N), SolverConfig(strategy=CHOL))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fact = p.execute(A)
+    torch.cuda.synchronize()
+    execute_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    x = fact.solve(b)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    resid = hpl_residuals(A, x, b)
+    single = plan(BATCH_N, SolverConfig(strategy=CHOL))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(BATCH):
+        single.execute(A[i])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    steps = BATCH_N // p.config.v
+    emit("chol_batched_path", B=BATCH, N=BATCH_N, v=p.config.v, strategy=fact.strategy,
+         backend=fact.backend, kind=fact.kind, launches=launches, execute_s=execute_s,
+         solve_s=solve_s, hpl_residual_max=float(resid.max()),
+         x_finite=bool(torch.isfinite(x).all()), x_shape=list(x.shape),
+         loop_of_single_plans_s=loop_s, loop_over_batched=loop_s / execute_s)
+    if fact.backend != "cuda" or fact.kind != "cholesky":
+        raise AssertionError(f"batched Cholesky ran backend {fact.backend!r}, kind {fact.kind!r}")
+    if launches != expected_launches(chol_panel_batched=steps, trsm_right_upper_batched=steps,
+                                     schur_update_batched=steps):
+        raise AssertionError(f"expected {steps} launches of each batched Cholesky kernel, "
+                             f"got {launches}")
+    if not (torch.isfinite(x).all() and bool((resid < HPL_RESIDUAL_MAX).all())):
+        raise AssertionError(f"batched Cholesky HPL scaled residual {float(resid.max())} "
+                             f">= {HPL_RESIDUAL_MAX}")
+    del fact, x
+    emit("profile_chol_batched_execute", **profile_once(lambda: p.execute(A)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L_lib, info = torch.linalg.cholesky_ex(A)
+    torch.cuda.synchronize()
+    lib_factor_s = time.perf_counter() - t0
+    x_lib = torch.cholesky_solve(b[..., None], L_lib)[..., 0]
+    emit("yardstick_torch_cholesky_batched", factor_s=lib_factor_s,
+         info_max=int(info.max()), hpl_residual_max=hpl_residual(A, x_lib, b),
+         note="torch.linalg.cholesky_ex + cholesky_solve on the stack; the port never calls them")
+    return launches
+
+
+def _spd_requests(rng, count: int):
+    """Ragged SPD requests: n uniform in SERVE_MIN_N..SERVE_N, A = G^T G / n + I
+    for a standard normal G, and a standard normal b, from a seeded numpy
+    generator."""
+    import numpy as np
+
+    out = []
+    for n in rng.integers(SERVE_MIN_N, SERVE_N + 1, size=count):
+        G = rng.standard_normal((n, n)).astype(np.float32)
+        A = G.T @ G / np.float32(n) + np.eye(n, dtype=np.float32)
+        out.append((A, rng.standard_normal(n).astype(np.float32)))
+    return out
+
+
+CHOL_BATCHED_KERNELS = ("chol_panel_batched", "trsm_right_upper_batched", "schur_update_batched")
 
 
 def main() -> int:
@@ -534,8 +891,7 @@ def main() -> int:
          x_finite=bool(torch.isfinite(x).all()), x_shape=list(x.shape))
     if fact.backend != "cuda":
         raise AssertionError(f"main path ran backend {fact.backend!r}, not 'cuda'")
-    if launches != {"lu_panel": N // v, "fused_trsm_schur": N // v,
-                    "lu_panel_batched": 0, "fused_trsm_schur_batched": 0}:
+    if launches != expected_launches(lu_panel=N // v, fused_trsm_schur=N // v):
         raise AssertionError(f"expected {N // v} launches of each kernel, got {launches}")
     if not (torch.isfinite(x).all() and resid < HPL_RESIDUAL_MAX):
         raise AssertionError(f"HPL scaled residual {resid} >= {HPL_RESIDUAL_MAX}")
@@ -591,12 +947,24 @@ def main() -> int:
     serving_sync()
     serving_async()
 
+    # 7. The Cholesky paths: kernels, single and batched paths, serving.
+    chol_rows = chol_kernel_rows(dev, gen)
+    chol_launches = chol_main_path(dev, gen)
+    chol_batched_launches = chol_batched_path(dev, gen)
+    serving_sync("serving_chol_sync", CHOL, _spd_requests, CHOL_SERVE_REQUESTS,
+                 CHOL_BATCHED_KERNELS)
+    serving_async("serving_chol_async", CHOL, _spd_requests, CHOL_ASYNC_PER_TENANT,
+                  CHOL_BATCHED_KERNELS)
+
     panel_row["launches"] = launches["lu_panel"]
     for row in fused_rows:
         row["launches"] = launches["fused_trsm_schur"]
     for row in batched_rows:
         row["launches"] = batched_launches[row["name"]]
-    rows = [panel_row, *fused_rows, *batched_rows]
+    for row in chol_rows:
+        counts = chol_batched_launches if row["name"].endswith("_batched") else chol_launches
+        row["launches"] = counts[row["name"]]
+    rows = [panel_row, *fused_rows, *batched_rows, *chol_rows]
     for row in rows:
         row["kernel_ms"] = row["ms"]
     print(json.dumps({"kernels": rows, "card": smi}), flush=True)

@@ -10,9 +10,13 @@
     bp = plan((B, N))             # batched: B independent systems at once
     facts = bp.execute(As)        # As [B, N, N]; facts.solve(bs [B, N])
 
+    cp = plan(N, strategy="sequential_chol")   # SPD: blocked Cholesky
+    L = cp.execute(A_spd).unpack()             # A_spd = L @ L.T
+
 Plans run on the card unless the caller passes `device="cpu"`.  Ported so
-far: the single-device and batched LU paths, strategies "sequential" and
-"auto", the "cuda" (default) and "ref" kernel backends.
+far: the single-device and batched LU and Cholesky paths, strategies
+"sequential", "sequential_chol" and "auto", the "cuda" (default) and "ref"
+kernel backends.
 """
 
 import repro_torch.api.strategies  # noqa: F401  (registers the built-ins)

@@ -34,8 +34,7 @@ from repro_torch.kernels.backend import available_backends, check_hopper_constra
 _UNPORTED_STRATEGIES = {
     "conflux": "10 (distributed 2.5D schedules)",
     "baseline2d": "10 (distributed 2.5D schedules)",
-    "cholesky25d": "6 and 10 (Cholesky, distributed schedules)",
-    "sequential_chol": "6 (Cholesky)",
+    "cholesky25d": "10 (distributed 2.5D schedules)",
 }
 
 
@@ -144,16 +143,11 @@ _LOCK = threading.Lock()
 
 def _reject_unported(config: SolverConfig) -> None:
     """Refuse the fields whose path is not ported yet, naming its item."""
-    if config.strategy == "sequential_chol" and config.B is not None:
-        raise ValueError(
-            f"batched Cholesky plans (B={config.B}) are not ported yet: ROADMAP.md "
-            f"module item 6 (Cholesky), the rest of item 5 (many small systems); "
-            f"use 'sequential' or 'auto'"
-        )
     if config.strategy in _UNPORTED_STRATEGIES:
         raise ValueError(
             f"strategy {config.strategy!r} is not ported yet: ROADMAP.md module "
-            f"item {_UNPORTED_STRATEGIES[config.strategy]}; use 'sequential' or 'auto'"
+            f"item {_UNPORTED_STRATEGIES[config.strategy]}; use 'sequential', "
+            f"'sequential_chol' or 'auto'"
         )
     if config.compute_dtype is not None:
         raise ValueError(

@@ -1,15 +1,16 @@
 """Factorization — the result type every strategy returns.
 
-Packed masked factors (rows never move, paper §7.3), the pivot order, the
-grid the factorization ran on, and the instrumented per-processor
-communication volume of the schedule.  Solves, determinants and
-reconstruction are methods.  Everything stays on the factors' device.
+`kind="lu"`: packed masked factors (rows never move, paper §7.3) and the
+pivot order.  `kind="cholesky"`: F holds the lower factor L with
+A = L L^T, and rows is the identity order.  Besides, the grid the
+factorization ran on and the instrumented per-processor communication
+volume of the schedule.  Solves, determinants and reconstruction are
+methods.  Everything stays on the factors' device.
 
 A batched plan's result holds B factorizations, F [B, N, N] and rows
 [B, N]; every method then works per system along the leading axis.
 
-This slice carries `kind="lu"`; Cholesky results and refined solves raise
-until their slices land (ROADMAP.md module items 6 and 7).
+Refined solves raise until their slice lands (ROADMAP.md module item 7).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.core.cholesky.sequential import chol_reconstruct, chol_solve
 from repro_torch.core.lu.grid import GridConfig
 from repro_torch.core.lu.sequential import (
     gather_rows,
@@ -31,15 +33,17 @@ from repro_torch.core.solve import lu_solve
 
 @dataclass
 class Factorization:
-    """Packed masked LU factors plus everything needed to consume them."""
+    """Factors (packed masked LU, or a lower Cholesky factor) plus everything
+    needed to consume them."""
 
-    F: torch.Tensor  # packed factors, original row positions [N, N] or [B, N, N]
+    # LU: packed factors in original row positions; Cholesky: L.  [N, N] or [B, N, N]
+    F: torch.Tensor
     rows: torch.Tensor  # pivot order (global row ids) [N] or [B, N], int64
     grid: GridConfig | None = None
     comm: dict = field(default_factory=dict)
     strategy: str = ""
     backend: str = ""  # KernelBackend that ran the local compute ("cuda"/"ref")
-    kind: str = "lu"
+    kind: str = "lu"  # "lu" or "cholesky"
     # the working-precision input matrix, retained by plan.execute (None on
     # hand-built results)
     A_ref: torch.Tensor | None = None
@@ -47,11 +51,8 @@ class Factorization:
     work_dtype: torch.dtype | None = None
 
     def __post_init__(self):
-        if self.kind != "lu":
-            raise NotImplementedError(
-                f"Factorization kind={self.kind!r} is not ported yet: Cholesky "
-                f"arrives with ROADMAP.md module item 6"
-            )
+        if self.kind not in ("lu", "cholesky"):
+            raise ValueError(f"Factorization kind must be 'lu' or 'cholesky', got {self.kind!r}")
 
     @property
     def N(self) -> int:
@@ -110,12 +111,18 @@ class Factorization:
                 )
         elif b.ndim not in (1, 2) or b.shape[0] != self.N:
             raise ValueError(f"b must be [N] or [N, k] with N={self.N}, got shape {tuple(b.shape)}")
+        if self.kind == "cholesky":
+            return chol_solve(self.F, b)
         return lu_solve(self.F, self.rows, b)
 
     def slogdet(self):
         """(sign, log|det|) — overflow-safe; 0-d tensors, or [B] per system
         on a batched factorization.  The permutation signs are computed on
-        the factors' device, so a batch costs no host copy."""
+        the factors' device, so a batch costs no host copy.  Cholesky:
+        det(A) = prod(diag L)^2 > 0, so (1, 2 sum log diag L)."""
+        if self.kind == "cholesky":
+            d = torch.diagonal(self.F, dim1=-2, dim2=-1)
+            return torch.ones_like(d[..., 0]), 2.0 * torch.sum(torch.log(d), dim=-1)
         d = torch.diagonal(gather_rows(self.F, self.rows), dim1=-2, dim2=-1)
         sign = permutation_signs(self.rows).to(d.dtype) * torch.prod(torch.sign(d), dim=-1)
         return sign, torch.sum(torch.log(torch.abs(d)), dim=-1)
@@ -127,11 +134,15 @@ class Factorization:
     def reconstruct(self) -> torch.Tensor:
         """Rebuild A (original row order) from the factors, per system when
         batched."""
+        if self.kind == "cholesky":
+            return chol_reconstruct(self.F)
         return reconstruct(self.F, self.rows)
 
     def unpack(self):
-        """(P, L, U) with P @ A = L @ U; batched factorizations unpack per
-        system (leading B axis)."""
+        """LU: (P, L, U) with P @ A = L @ U.  Cholesky: the lower factor L.
+        Batched factorizations unpack per system (leading B axis)."""
+        if self.kind == "cholesky":
+            return self.F
         return unpack_factors(self.F, self.rows)
 
     def comm_report(self) -> str:

@@ -1,4 +1,4 @@
-"""Built-in strategies of this slice: sequential and auto.
+"""Built-in strategies of the port: sequential, sequential_chol and auto.
 
 Each strategy is a plan builder ``(N, config, device) -> FactorizationPlan``
 plus an attached ``resolve(N, config) -> SolverConfig`` hook that pins the
@@ -12,6 +12,10 @@ import torch
 from repro_torch.api.config import SolverConfig
 from repro_torch.api.plan import FactorizationPlan
 from repro_torch.api.registry import register_strategy
+from repro_torch.core.cholesky.sequential import (
+    chol_blocked_sequential,
+    chol_blocked_sequential_batched,
+)
 from repro_torch.core.lu.sequential import lu_masked_sequential, lu_masked_sequential_batched
 
 # ---------------------------------------------------------------------------
@@ -54,6 +58,46 @@ def build_sequential(N: int, config: SolverConfig, device: torch.device) -> Fact
 
 
 build_sequential.resolve = _resolve_sequential
+
+
+# ---------------------------------------------------------------------------
+# sequential_chol — the SPD family (arXiv:2108.09337) on the same kernel
+# backend: no pivoting, symmetric rank-v Schur update.
+# ---------------------------------------------------------------------------
+
+
+def _resolve_sequential_chol(N: int, config: SolverConfig) -> SolverConfig:
+    v = config.v
+    if v is None:
+        v = default_panel_width(N)
+    elif not 1 <= v <= N or N % v:
+        raise ValueError(
+            f"sequential_chol strategy needs a panel width dividing N: v={v}, N={N}"
+        )
+    # Pivoting is meaningless for SPD: normalize so every requested pivot
+    # resolves to (and cache-shares) the same plan.
+    return config.with_(v=v, grid=None, pivot="none")
+
+
+@register_strategy("sequential_chol")
+def build_sequential_chol(N: int, config: SolverConfig,
+                          device: torch.device) -> FactorizationPlan:
+    """The blocked Cholesky of one SPD system, or of B at once when
+    `config.B` is set.  The result's `rows` is the identity order."""
+    batched = config.B is not None
+    chol = chol_blocked_sequential_batched if batched else chol_blocked_sequential
+
+    def run(A):
+        L = chol(A, v=config.v, backend=config.backend, device=device)
+        rows = torch.arange(N, dtype=torch.int64, device=device)
+        if batched:
+            rows = rows.expand(config.B, N).contiguous()
+        return L, rows
+
+    return FactorizationPlan(N, config, device, run=run, kind="cholesky")
+
+
+build_sequential_chol.resolve = _resolve_sequential_chol
 
 
 # ---------------------------------------------------------------------------

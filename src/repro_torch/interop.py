@@ -24,7 +24,9 @@ def factorization_from_numpy(F, rows, *, device, kind: str = "lu",
     """The port's `Factorization` from packed factors F [N, N] and the pivot
     order rows [N], as the JAX package's `Factorization.F` / `.rows` hold
     them, or from a batch F [B, N, N] and rows [B, N] (a batched JAX plan's
-    result).  `device` is where the result lives (None = the CUDA card)."""
+    result).  With `kind="cholesky"`, F is the lower factor L and rows the
+    identity order, as a JAX Cholesky `Factorization` holds them.  `device`
+    is where the result lives (None = the CUDA card)."""
     dev = resolve_device(device)
     F_t = torch.as_tensor(np.asarray(F), device=dev)
     A_t = None if A_ref is None else torch.as_tensor(np.asarray(A_ref), device=dev)

@@ -2,8 +2,9 @@
 
 csrc/*.cu are the CUDA C++ sources, built at first use by `_build.py` into
 shared libraries with a plain C interface and loaded with ctypes.
-lu_panel.py and fused_schur.py are the kernels' wrappers (each counts its
-launches), ref.py holds their plain PyTorch versions, ops.py the public
-wrappers with auto-fit tiles, and backend.py the `KernelBackend` layer
+lu_panel.py, fused_schur.py, chol_panel.py, trsm.py and schur_update.py are
+the kernels' wrappers (each counts its launches), ref.py holds their plain
+PyTorch versions, ops.py the public wrappers (auto-fit tiles where a kernel
+has them), and backend.py the `KernelBackend` layer
 ("cuda" = the kernels, "ref" = plain PyTorch) the factorizations call.
 """

@@ -12,8 +12,9 @@ Two backends are registered:
   kernels cannot run is refused at resolve time (`check_hopper_constraints`).
 - "ref": plain PyTorch on any device.
 
-Only the primitives of the single-device and batched LU paths are ported so
-far (`panel_lup`, `fused_trsm_schur` and their `_batched` forms); the others
+The primitives of the single-device and batched LU and Cholesky paths are
+ported (`panel_lup`, `fused_trsm_schur`, `panel_chol`, `trsm_right_upper`,
+`schur_update` and their `_batched` forms); `trsm_left_lower[_batched]`
 raise `NotImplementedError` naming the ROADMAP.md item that ports them.
 """
 
@@ -150,29 +151,11 @@ class _UnportedPrimitives:
     def _unported(what: str, item: str):
         raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md module item {item}")
 
-    def panel_chol(self, A):
-        self._unported("panel_chol (Cholesky)", "6")
-
-    def trsm_right_upper(self, B, U):
-        self._unported("trsm_right_upper (Cholesky, distributed schedules)", "6 / 10")
-
     def trsm_left_lower(self, L, B, *, unit=True):
         self._unported("trsm_left_lower (flat 2.5D bodies)", "10")
 
-    def schur_update(self, A, L, U):
-        self._unported("schur_update (Cholesky, flat 2.5D bodies)", "6 / 10")
-
-    def panel_chol_batched(self, A):
-        self._unported("panel_chol_batched (batched Cholesky)", "6")
-
-    def trsm_right_upper_batched(self, B, U):
-        self._unported("trsm_right_upper_batched (batched Cholesky)", "6")
-
     def trsm_left_lower_batched(self, L, B, *, unit=True):
         self._unported("trsm_left_lower_batched (the kernel lint)", "11")
-
-    def schur_update_batched(self, A, L, U):
-        self._unported("schur_update_batched (batched Cholesky)", "6")
 
 
 class RefBackend(_UnportedPrimitives):
@@ -185,6 +168,15 @@ class RefBackend(_UnportedPrimitives):
     def panel_lup(self, panel, weights, v):
         return ref.lu_panel(panel, weights)
 
+    def panel_chol(self, A):
+        return ref.chol_panel(A)
+
+    def trsm_right_upper(self, B, U):
+        return ref.trsm_right_upper(B, U)
+
+    def schur_update(self, A, L, U):
+        return ref.schur_update(A, L, U)
+
     def fused_trsm_schur(self, A, L00, R01, L10, *, unit=True):
         return ref.fused_trsm_schur(A, L00, R01, L10, unit=unit)
 
@@ -192,6 +184,15 @@ class RefBackend(_UnportedPrimitives):
 
     def panel_lup_batched(self, panel, weights, v):
         return ref.lu_panel_batched(panel, weights)
+
+    def panel_chol_batched(self, A):
+        return ref.chol_panel_batched(A)
+
+    def trsm_right_upper_batched(self, B, U):
+        return ref.trsm_right_upper_batched(B, U)
+
+    def schur_update_batched(self, A, L, U):
+        return ref.schur_update_batched(A, L, U)
 
     def fused_trsm_schur_batched(self, A, L00, R01, L10, *, unit=True):
         return ref.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
@@ -206,6 +207,15 @@ class CudaBackend(_UnportedPrimitives):
     def panel_lup(self, panel, weights, v):
         return ops.lu_panel(panel, weights)
 
+    def panel_chol(self, A):
+        return ops.chol_panel(A)
+
+    def trsm_right_upper(self, B, U):
+        return ops.trsm_right_upper(B, U)
+
+    def schur_update(self, A, L, U):
+        return ops.schur_update(A, L, U)
+
     def fused_trsm_schur(self, A, L00, R01, L10, *, unit=True):
         return ops.fused_trsm_schur(A, L00, R01, L10, unit=unit)
 
@@ -213,6 +223,15 @@ class CudaBackend(_UnportedPrimitives):
 
     def panel_lup_batched(self, panel, weights, v):
         return ops.lu_panel_batched(panel, weights)
+
+    def panel_chol_batched(self, A):
+        return ops.chol_panel_batched(A)
+
+    def trsm_right_upper_batched(self, B, U):
+        return ops.trsm_right_upper_batched(B, U)
+
+    def schur_update_batched(self, A, L, U):
+        return ops.schur_update_batched(A, L, U)
 
     def fused_trsm_schur_batched(self, A, L00, R01, L10, *, unit=True):
         return ops.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)

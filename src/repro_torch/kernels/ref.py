@@ -54,3 +54,57 @@ def fused_trsm_schur(A, L00, R01, L10, unit: bool = True):
 # The batched form [B, M, C], [B, v, v], [B, v, C], [B, M, v] is the same
 # code: `solve_triangular` and `@` broadcast over the leading batch axis.
 fused_trsm_schur_batched = fused_trsm_schur
+
+
+def chol_panel_batched(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of B SPD blocks A [B, v, v], upper triangles zeroed.
+
+    The v rounds of the TPU kernel (`_chol_rounds`) with the batch axis
+    written out: d = sqrt(A[k, k]); l = A[:, k] / d below the diagonal, 0
+    elsewhere; column k becomes l + d e_k; then the whole block takes
+    A - l l^T.  The divisor stays a device tensor (CUDA divides by a host
+    scalar through its reciprocal, which rounds differently), and every
+    operation runs on the full block, so a NaN pivot spreads exactly as in
+    the kernel.  A block that is not SPD gives non-finite values and never
+    raises (no `torch.linalg.cholesky`, whose error check syncs the host).
+    The kernel rounds the same operations in the same order, so the two
+    agree bit for bit.
+    """
+    wd = _work_dtype(A)
+    F = A.to(wd).clone()
+    v = F.shape[-1]
+    ridx = torch.arange(v, device=F.device)
+    for k in range(v):
+        d = torch.sqrt(F[:, k, k])[:, None]
+        col = F[:, :, k] / d
+        l = torch.where(ridx > k, col, torch.zeros_like(col))
+        F[:, :, k] = l + d * (ridx == k).to(wd)
+        F = F - l[:, :, None] * l[:, None, :]
+    return torch.tril(F).to(A.dtype)
+
+
+def chol_panel(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of one SPD block A [v, v]: the batch of one of
+    `chol_panel_batched`."""
+    return chol_panel_batched(A[None])[0]
+
+
+def trsm_right_upper(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """X = B U^-1 for B [R, v] and U [v, v] upper (non-unit), or per system
+    for B [Bb, R, v] and U [Bb, v, v]."""
+    wd = _work_dtype(B)
+    X = torch.linalg.solve_triangular(U.to(wd), B.to(wd), upper=True, left=False)
+    return X.to(B.dtype)
+
+
+trsm_right_upper_batched = trsm_right_upper
+
+
+def schur_update(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """A - L @ U for A [M, N], L [M, K], U [K, N], or per system for
+    [B, M, N], [B, M, K], [B, K, N]; f32 accumulation for sub-4-byte inputs."""
+    wd = _work_dtype(A)
+    return (A.to(wd) - L.to(wd) @ U.to(wd)).to(A.dtype)
+
+
+schur_update_batched = schur_update

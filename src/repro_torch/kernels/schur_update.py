@@ -1,0 +1,101 @@
+"""Schur-complement update A - L @ U: the wrappers of the CUDA kernel in
+`csrc/schur_update.cu`.
+
+Ports of `repro/kernels/schur_update.py::schur_update` and
+`::schur_update_batched`.  Both launch the same kernel, a single system as
+a batch of one, so a batched lane equals the single call bit for bit.  A
+CPU tensor goes to the plain version (`repro_torch.kernels.ref`); a CUDA
+tensor launches the kernel or raises.  `schur_update.launches` and
+`schur_update_batched.launches` count the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+TILE_M = 64  # output rows per block (csrc/schur_update.cu kBM)
+MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y (row tiles) and gridDim.z (systems)
+MAX_DIM = 2**31 - 1
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ARGTYPES = (
+    *(ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) * 4,
+    *(ctypes.c_int,) * 4,
+    ctypes.c_void_p,
+)
+
+
+def _check(name: str, A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> None:
+    ndim = A.ndim
+    if ndim not in (2, 3) or L.ndim != ndim or U.ndim != ndim:
+        raise ValueError(f"{name}: the operands must all be 2-D, or all 3-D with a batch axis")
+    lead = tuple(A.shape[:-2])
+    M, N = A.shape[-2:]
+    K = L.shape[-1]
+    if (tuple(L.shape) != lead + (M, K) or tuple(U.shape) != lead + (K, N)
+            or max(M, N, K) > MAX_DIM or -(-M // TILE_M) > MAX_GRID_YZ):
+        pre = "B, " if lead else ""
+        raise ValueError(
+            f"{name}: need A [{pre}M, N], L [{pre}M, K], U [{pre}K, N] with "
+            f"M <= {TILE_M * MAX_GRID_YZ}; got A {tuple(A.shape)}, L {tuple(L.shape)}, "
+            f"U {tuple(U.shape)}"
+        )
+    if any(t.stride(-1) != 1 for t in (A, L, U)):
+        raise ValueError(f"{name}: every operand needs unit column stride")
+    if lead and lead[0] > MAX_GRID_YZ:
+        raise ValueError(f"{name}: at most {MAX_GRID_YZ} systems per launch, got B={lead[0]}")
+    if A.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {A.device}")
+    if A.dtype not in _SUFFIX:
+        raise TypeError(
+            f"{name}: the kernel takes float32 or float64, got {A.dtype} "
+            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+        )
+    for arg, t in (("L", L), ("U", U)):
+        if t.device != A.device or t.dtype != A.dtype:
+            raise ValueError(
+                f"{name}: {arg} is {t.dtype} on {t.device}, A is {A.dtype} on {A.device}"
+            )
+
+
+def _launch(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on B systems given as 3-D tensors [B, ...]."""
+    B, M, N = A.shape
+    out = torch.empty((B, M, N), dtype=A.dtype, device=A.device)
+    fn = _build.function("schur_update", f"schur_update_{_SUFFIX[A.dtype]}", _ARGTYPES)
+    with torch.cuda.device(A.device):
+        err = fn(*(x for t in (A, L, U, out) for x in (t.data_ptr(), t.stride(1), t.stride(0))),
+                 B, M, N, L.shape[-1], torch.cuda.current_stream(A.device).cuda_stream)
+    _build.check("schur_update", err)
+    return out
+
+
+def schur_update(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """A - L @ U for A [M, N], L [M, K], U [K, N] (any row strides, unit
+    column strides), out of place.  Returns [M, N] contiguous."""
+    if A.device.type == "cpu":
+        return ref.schur_update(A, L, U)
+    _check("schur_update", A, L, U)
+    out = _launch(A[None], L[None], U[None])
+    schur_update.launches += 1
+    return out[0]
+
+
+def schur_update_batched(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """Per-system A_b - L_b @ U_b for A [B, M, N], L [B, M, K], U [B, K, N]
+    (any row and batch strides, B <= 65535).  Returns [B, M, N] contiguous."""
+    if A.device.type == "cpu":
+        return ref.schur_update_batched(A, L, U)
+    _check("schur_update_batched", A, L, U)
+    if A.shape[0] == 0:
+        return torch.empty_like(A)
+    out = _launch(A, L, U)
+    schur_update_batched.launches += 1
+    return out
+
+
+schur_update.launches = 0
+schur_update_batched.launches = 0

@@ -1,0 +1,99 @@
+"""Right upper triangular solve X = B U^-1: the wrappers of the CUDA kernel in
+`csrc/trsm.cu`.
+
+Ports of `repro/kernels/trsm.py::trsm_right_upper` and
+`::trsm_right_upper_batched`; the `trsm_left_lower` twins are not ported
+yet (ROADMAP.md module items 10 and 11).  Both wrappers launch the same
+kernel, a single system as a batch of one, so a batched lane equals the
+single call bit for bit.  A CPU tensor goes to the plain version
+(`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or raises.
+`trsm_right_upper.launches` and `trsm_right_upper_batched.launches` count
+the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+MAX_V = 128  # U and the row tile live in one block's shared memory
+MAX_BATCH = 65535  # systems on gridDim.z
+MAX_ROWS = 2**31 - 1
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+)
+
+
+def _check(name: str, B: torch.Tensor, U: torch.Tensor, ndim: int) -> None:
+    lead = tuple(B.shape[:-2])
+    if (B.ndim != ndim or U.ndim != ndim or not 1 <= B.shape[-1] <= MAX_V
+            or tuple(U.shape) != lead + (B.shape[-1], B.shape[-1])
+            or not 1 <= B.shape[-2] <= MAX_ROWS):
+        pre = "Bb, " if ndim == 3 else ""
+        raise ValueError(
+            f"{name}: need B [{pre}R, v] and U [{pre}v, v] with 1 <= v <= {MAX_V}; "
+            f"got B {tuple(B.shape)}, U {tuple(U.shape)}"
+        )
+    if B.stride(-1) != 1:
+        raise ValueError(f"{name}: B's columns must have unit stride")
+    if lead and lead[0] > MAX_BATCH:
+        raise ValueError(f"{name}: at most {MAX_BATCH} systems per launch, got Bb={lead[0]}")
+    if B.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {B.device}")
+    if B.dtype not in _SUFFIX:
+        raise TypeError(
+            f"{name}: the kernel takes float32 or float64, got {B.dtype} "
+            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+        )
+    if U.device != B.device or U.dtype != B.dtype:
+        raise ValueError(f"{name}: U is {U.dtype} on {U.device}, B is {B.dtype} on {B.device}")
+
+
+def _launch(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on Bb systems given as 3-D tensors [Bb, ...]."""
+    Bb, R, v = B.shape
+    X = torch.empty((Bb, R, v), dtype=B.dtype, device=B.device)
+    fn = _build.function("trsm", f"trsm_right_upper_{_SUFFIX[B.dtype]}", _ARGTYPES)
+    with torch.cuda.device(B.device):
+        err = fn(B.data_ptr(), B.stride(1), B.stride(0),
+                 U.data_ptr(), U.stride(1), U.stride(2), U.stride(0),
+                 X.data_ptr(), Bb, R, v, torch.cuda.current_stream(B.device).cuda_stream)
+    _build.check("trsm", err)
+    return X
+
+
+def trsm_right_upper(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """X = B U^-1 for B [R, v] (any row stride) and U [v, v] upper with a
+    non-unit diagonal (any strides, e.g. a transposed lower factor).
+
+    Returns X [R, v] contiguous; rows that are zero in B come out zero.
+    """
+    if B.device.type == "cpu":
+        return ref.trsm_right_upper(B, U)
+    _check("trsm_right_upper", B, U, 2)
+    X = _launch(B[None], U[None])
+    trsm_right_upper.launches += 1
+    return X[0]
+
+
+def trsm_right_upper_batched(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """Per-system X_b = B_b U_b^-1 for B [Bb, R, v] and U [Bb, v, v] (any row
+    and batch strides, Bb <= 65535).  Returns X [Bb, R, v] contiguous."""
+    if B.device.type == "cpu":
+        return ref.trsm_right_upper_batched(B, U)
+    _check("trsm_right_upper_batched", B, U, 3)
+    if B.shape[0] == 0:
+        return torch.empty_like(B)
+    X = _launch(B, U)
+    trsm_right_upper_batched.launches += 1
+    return X
+
+
+trsm_right_upper.launches = 0
+trsm_right_upper_batched.launches = 0

@@ -262,9 +262,11 @@ class AsyncSolveEngine:
 
     def _spill(self, prep) -> torch.Tensor:
         """Overload escape hatch: solve one system synchronously in the
-        caller's thread on the single-system sequential plan at the
-        request's N slot (cached, so sustained overload builds no plans)."""
-        cfg = self._engine.config.with_(strategy="sequential", grid=None, B=None)
+        caller's thread on the single-system sequential plan of the
+        engine's kind at the request's N slot (cached, so sustained
+        overload builds no plans)."""
+        cfg = self._engine.config.with_(strategy=self._engine._sequential_strategy(),
+                                        grid=None, B=None)
         fact = plan(prep.slotN, cfg, device=self._engine.device).execute(prep.A)
         x = fact.solve(prep.b)
         self._engine._sync()

@@ -43,9 +43,13 @@ double-use tickets, or tear the stats.  `flush`/`flush_systems` hold the
 lock through the solve: a submit landing mid-flush simply waits and joins
 the *next* batch, which is exactly the backpressure a serving loop wants.
 
+SPD traffic runs on a Cholesky engine: `SolveEngine(N,
+strategy="sequential_chol")` factors every bucket with the batched blocked
+Cholesky (identity padding keeps each padded system SPD).
+
 Not ported yet: per-request iterative refinement (`refine_tol`, ROADMAP.md
-module item 7), which raises at submit, and Cholesky engines (item 6),
-which raise at construction.
+module item 7), which raises at submit, and engines on the distributed
+strategies (item 10), which raise at construction.
 """
 
 from __future__ import annotations
@@ -107,7 +111,7 @@ class SolveEngine:
     `device=None` is the CUDA card (raises when there is none); pass
     `device="cpu"` for the plain PyTorch versions on the CPU.  `overrides`
     are SolverConfig fields.  The plan is resolved here, so a config the
-    port cannot run yet (a Cholesky strategy, `compute_dtype`) raises at
+    port cannot run yet (a distributed strategy, `compute_dtype`) raises at
     construction, naming its ROADMAP.md item.
     """
 
@@ -323,14 +327,20 @@ class SolveEngine:
     def _batched_plan(self, slot: int, N: int | None = None):
         """The cached batched plan matching this engine's config at size slot.
 
-        Batched plans are sequential-only; N overrides the system size for
-        ragged-N buckets (default: the engine's N).
+        Batched plans are sequential-only, so the engine's plan maps to the
+        sequential strategy of its kind ("sequential_chol" for a Cholesky
+        engine).  N overrides the system size for ragged-N buckets (default:
+        the engine's N).
         """
         return plan(
             (slot, self.N if N is None else N),
-            self.config.with_(strategy="sequential", grid=None, B=None),
+            self.config.with_(strategy=self._sequential_strategy(), grid=None, B=None),
             device=self.device,
         )
+
+    def _sequential_strategy(self) -> str:
+        """The in-core strategy of the engine's kind, for batched and spill plans."""
+        return "sequential_chol" if self.plan.kind == "cholesky" else "sequential"
 
     def warm_slots(self, sizes=(None,), max_batch: int = 1) -> int:
         """Prepare the batched slot plans cold-start traffic would hit.

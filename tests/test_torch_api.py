@@ -122,7 +122,7 @@ def test_plan_without_device_targets_cuda():
 @pytest.mark.parametrize("fields,match", [
     (dict(backend="pallas"), "'cuda'"),
     (dict(strategy="conflux"), "item 10"),
-    (dict(B=4, strategy="sequential_chol"), "item 5"),
+    (dict(B=4, strategy="cholesky25d"), "item 10"),
     (dict(compute_dtype="bfloat16"), "item 7"),
     (dict(dtype="float16"), "module item 7"),
     (dict(v=256), "panel widths"),
@@ -138,15 +138,29 @@ def test_unported_results_and_primitives_raise():
     fact = factor(A, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         fact.solve(b, refine_tol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Factorization(F=fact.F, rows=fact.rows, kind="cholesky")
+    with pytest.raises(ValueError, match="'lu' or 'cholesky'"):
+        Factorization(F=fact.F, rows=fact.rows, kind="qr")
+    chol = Factorization(F=torch.eye(8), rows=torch.arange(8), kind="cholesky")
+    assert torch.equal(chol.solve(torch.ones(8)), torch.ones(8))
+    eye = torch.eye(8)
     for bk in (CudaBackend(), RefBackend()):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            bk.panel_chol(torch.eye(8))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            bk.panel_chol_batched(torch.eye(8)[None])
+        with pytest.raises(NotImplementedError, match="item 10"):
+            bk.trsm_left_lower(eye, eye)
         with pytest.raises(NotImplementedError, match="item 11"):
             bk.trsm_left_lower_batched(None, None)
+        # the Cholesky primitives are ported
+        assert torch.equal(bk.panel_chol(4 * eye), 2 * eye)
+        assert torch.equal(bk.panel_chol_batched(4 * eye[None]), 2 * eye[None])
+        assert torch.equal(bk.trsm_right_upper(eye, 2 * eye), eye / 2)
+        assert torch.equal(bk.trsm_right_upper_batched(eye[None], 2 * eye[None]), eye[None] / 2)
+        assert torch.equal(bk.schur_update(eye, eye, eye), 0 * eye)
+        assert torch.equal(bk.schur_update_batched(eye[None], eye[None], eye[None]),
+                           0 * eye[None])
+
+
+def test_batched_sequential_chol_resolves():
+    cfg = resolve(64, SolverConfig(B=4, strategy="sequential_chol", pivot="partial"))
+    assert (cfg.strategy, cfg.pivot, cfg.v, cfg.B) == ("sequential_chol", "none", 32, 4)
 
 
 def test_config_validation_and_cache_key():

@@ -6,7 +6,10 @@ the port's engines with `device="cpu"`, where the kernels' plain versions
 run.  `repro.serving` does not import on this jax, so the JAX side of the
 parity test is the engine's factorization core,
 `repro.core.lu.sequential.lu_masked_sequential_batched`, fed the padded
-bucket the engine actually flushed.  Deadline behaviour runs on a fake clock
+bucket the engine actually flushed.  SPD requests on Cholesky engines
+(`strategy="sequential_chol"`) are held against `scipy.linalg.cho_solve` and
+`repro.core.cholesky.sequential.chol_blocked_sequential_batched` within
+1e-4 of the solution's scale.  Deadline behaviour runs on a fake clock
 through `pump()`; one class drives the real background thread.  Residuals
 are held to 5e-3 on diagonally dominant f32 systems, as in the JAX tests.
 """
@@ -18,10 +21,13 @@ import threading
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg
 import torch
 
+import repro.core.cholesky.sequential as jchol
 import repro.core.lu.sequential as jseq
 from repro_torch.api import SolverConfig, clear_plan_cache
+from repro_torch.core.cholesky import chol_blocked_sequential_batched
 from repro_torch.serving import AsyncSolveEngine, Overloaded, Ring, SolveEngine, TenantQueues
 
 RNG = np.random.default_rng(7)
@@ -250,6 +256,81 @@ class TestRaggedBatchSlots:
         assert st["batched_factorizations"] == 0 and st["batch_s_total"] == 0.0
 
 
+# --------------------------------------------------------------------------
+# SPD traffic on Cholesky engines (tests/test_cholesky.py's SPD SolveEngine)
+# --------------------------------------------------------------------------
+
+CHOL_CFG = SolverConfig(strategy="sequential_chol", v=8)
+
+
+def _spd_sys(n, rng=RNG):
+    """An SPD system: A = G^T G / n + I."""
+    G = rng.standard_normal((n, n)).astype(np.float32)
+    A = G.T @ G / np.float32(n) + np.eye(n, dtype=np.float32)
+    return A, rng.standard_normal(n).astype(np.float32)
+
+
+class TestCholeskyEngines:
+    def test_sync_flush_of_ragged_spd_requests_matches_cho_solve(self):
+        eng = SolveEngine(32, CHOL_CFG, device="cpu")
+        systems = [_spd_sys(n) for n in (5, 8, 12, 17, 24, 32, 32, 9)]
+        tickets = [eng.submit_system(A, b) for A, b in systems]
+        assert [p.slotN for p in eng._pending_systems] == [8, 8, 16, 32, 32, 32, 32, 16]
+        xs = eng.flush_systems()
+        for (A, b), t in zip(systems, tickets):
+            x = xs[t]
+            assert tuple(x.shape) == (A.shape[0],)
+            want = scipy.linalg.cho_solve(scipy.linalg.cho_factor(A.astype(np.float64)),
+                                          b.astype(np.float64))
+            assert np.abs(x.numpy() - want).max() < 1e-4 * max(1.0, np.abs(want).max())
+        st = eng.stats()
+        assert st["strategy"] == "sequential_chol" and st["batched_factorizations"] == 3
+        bp = eng._batched_plan(4, 32)
+        assert bp.kind == "cholesky" and bp.config.strategy == "sequential_chol"
+
+    def test_flushed_bucket_factors_match_jax(self):
+        eng = SolveEngine(16, CHOL_CFG, device="cpu")
+        systems = [_spd_sys(n) for n in (16, 11, 16)]
+        for A, b in systems:
+            eng.submit_system(A, b)
+        stack = torch.stack([p.A for p in eng._pending_systems]).numpy()
+        eng.flush_systems()
+        L = chol_blocked_sequential_batched(torch.from_numpy(stack), 8, device="cpu").numpy()
+        jL = np.asarray(jchol.chol_blocked_sequential_batched(jnp.asarray(stack), v=8))
+        np.testing.assert_allclose(L, jL, rtol=0, atol=1e-5 * np.abs(jL).max())
+
+    def test_single_system_solve_and_resolve(self):
+        eng = SolveEngine(32, CHOL_CFG, device="cpu")
+        A, b = _spd_sys(32)
+        assert _residual(A, b, eng.solve(A, b)) < 1e-4
+        b2 = RNG.standard_normal(32).astype(np.float32)
+        assert _residual(A, b2, eng.resolve(b2)) < 1e-4
+        assert eng._last.kind == "cholesky"
+
+    def test_async_engine_on_fake_clock_solves_spd_requests(self):
+        eng, clock = _fake_engine(strategy="sequential_chol", max_batch=4, max_delay_ms=5.0)
+        systems = [_spd_sys(n) for n in (32, 20, 7)]
+        futs = [eng.submit(A, b, tenant=f"t{i}") for i, (A, b) in enumerate(systems)]
+        assert eng.pump(now=0.0) == 0 and not futs[0].done()
+        clock.t = 0.006
+        assert eng.pump(now=clock.t) == 3
+        for (A, b), fut in zip(systems, futs):
+            assert _residual(A, b, fut.result(timeout=0)) < 1e-4
+        assert eng.engine.stats()["strategy"] == "sequential_chol"
+        eng.close()
+
+    def test_async_spill_uses_the_cholesky_plan(self):
+        clear_plan_cache()
+        eng, _ = _fake_engine(strategy="sequential_chol", max_queue=1, overload="spill")
+        A, b = _spd_sys(32)
+        eng.submit(A, b)
+        fut = eng.submit(A, b)  # over the tenant's bound: solved inline
+        assert fut.done() and _residual(A, b, fut.result()) < 1e-4
+        # the spill ran the engine's own cached Cholesky plan (slot 32 = N)
+        assert eng.engine.plan.kind == "cholesky" and eng.engine.plan.execute_count == 1
+        eng.close()
+
+
 class TestUnportedRaise:
     def test_refine_tol_raises_at_submit_naming_item_7(self):
         eng = _engine()
@@ -263,9 +344,16 @@ class TestUnportedRaise:
 
     @pytest.mark.parametrize("strategy", ["sequential_chol", "cholesky25d"])
     def test_cholesky_engines_raise_naming_item_6(self, strategy):
-        with pytest.raises(ValueError, match="item 6"):
+        """"sequential_chol" engines run; "cholesky25d" ones raise naming item 10."""
+        if strategy == "sequential_chol":
+            eng = SolveEngine(32, SolverConfig(strategy=strategy), device="cpu")
+            assert eng.plan.kind == "cholesky"
+            a = AsyncSolveEngine(32, strategy=strategy, device="cpu", start=False)
+            assert a.engine.plan.kind == "cholesky"
+            return
+        with pytest.raises(ValueError, match="item 10"):
             SolveEngine(32, SolverConfig(strategy=strategy), device="cpu")
-        with pytest.raises(ValueError, match="item 6"):
+        with pytest.raises(ValueError, match="item 10"):
             AsyncSolveEngine(32, strategy=strategy, device="cpu", start=False)
 
     def test_engine_without_device_targets_cuda(self):
