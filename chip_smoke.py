@@ -14,7 +14,14 @@ each kernel against its plain PyTorch version on the card:
 - the SPD Cholesky paths: `plan(N, strategy="sequential_chol")` at
   N = 16384 (kernels `chol_panel`, `trsm_right_upper`, `schur_update`),
   `plan((256, 512), strategy="sequential_chol")` (their `_batched` forms),
-  and both engines with `strategy="sequential_chol"` on ragged SPD requests.
+  and both engines with `strategy="sequential_chol"` on ragged SPD requests;
+- the distributed 2.5D schedules: `plan(N, strategy="conflux",
+  grid=GridConfig(1, 1, 1, 32, N))` in-process at N = 16384 with both hot
+  loops (the windowed one through `lu_panel`, `trsm_right_upper` and
+  `fused_trsm_schur`, the flat one through `trsm_left_lower` and
+  `schur_update` instead of the fused kernel), and eight ranks sharing the
+  card through a gloo process group on a 2x2x2 grid: conflux, baseline2d and
+  cholesky25d, both hot loops, every rank returning the same factors.
 
 Phases print JSON lines; any failure raises, so the exit code is not 0.  The
 second-to-last line lists the kernels with their launches, errors and times;
@@ -29,6 +36,7 @@ kernels from `src/repro_torch/kernels/csrc/` at first use.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -159,7 +167,9 @@ def _wrappers() -> dict:
             "schur_update": schur_update.schur_update,
             "chol_panel_batched": chol_panel.chol_panel_batched,
             "trsm_right_upper_batched": trsm.trsm_right_upper_batched,
-            "schur_update_batched": schur_update.schur_update_batched}
+            "schur_update_batched": schur_update.schur_update_batched,
+            "trsm_left_lower": trsm.trsm_left_lower,
+            "trsm_left_lower_batched": trsm.trsm_left_lower_batched}
 
 
 def expected_launches(**counts) -> dict:
@@ -764,6 +774,311 @@ def _spd_requests(rng, count: int):
 
 CHOL_BATCHED_KERNELS = ("chol_panel_batched", "trsm_right_upper_batched", "schur_update_batched")
 
+# The distributed schedules (module item 10).  One card holds one rank at
+# the full N (a 1x1x1 grid, as the JAX package's own hot-loop tests use);
+# eight ranks share it through gloo to exercise every collective, at sizes
+# that keep the run short (correctness runs, not speed).  The first conflux
+# case took 9.4 s at N = 8192 and runs at 4096, to keep the script near its
+# earlier run time; baseline2d at N = 2048 is the longest case (22 s), since
+# partial pivoting makes one collective per column.
+CONFLUX_V = 32
+GRID_WORLD = 8
+GRID_CASES = (  # (name, strategy, N, hotloop, backend)
+    ("conflux_windowed", "conflux", 4096, "windowed", "cuda"),
+    ("conflux_flat", "conflux", 2048, "flat", "cuda"),
+    ("baseline2d", "baseline2d", 2048, "windowed", "cuda"),
+    ("cholesky25d_windowed", "cholesky25d", 2048, "windowed", "cuda"),
+    ("cholesky25d_flat", "cholesky25d", 2048, "flat", "cuda"),
+    ("conflux_windowed_1024", "conflux", 1024, "windowed", "cuda"),
+    ("conflux_windowed_1024_plain", "conflux", 1024, "windowed", "ref"),
+    ("conflux_flat_1024", "conflux", 1024, "flat", "cuda"),
+    ("conflux_flat_1024_plain", "conflux", 1024, "flat", "ref"),
+)
+GRID_TIMEOUT_S = 420  # all ranks together, from spawn to exit
+
+
+def trsm_left_lower_rows(dev, gen) -> list[dict]:
+    """trsm_left_lower[_batched] against their plain version, and batched
+    lanes against the single call.  Returns the two rows of the kernels line
+    (launches filled in later)."""
+    from repro_torch.kernels import ops, ref
+
+    def lower(lead, v, unit, dt):
+        L = 0.3 * torch.tril(torch.randn(*lead, v, v, generator=gen, device=dev, dtype=dt), -1)
+        return L + (1.0 if unit else 2.0) * torch.eye(v, device=dev, dtype=dt)
+
+    rows = []
+    # The P = 1 flat path's shape (unit, f32), an f64 non-unit one, a ragged
+    # one (C % 64 != 0, v = 24) read through a strided view of B, and v = 128
+    # in f64 (the largest shared-memory tile).
+    for v, C, unit, dt, strided in ((CONFLUX_V, N, True, torch.float32, False),
+                                    (CONFLUX_V, 4096, False, torch.float64, False),
+                                    (24, 777, True, torch.float32, True),
+                                    (128, 1000, False, torch.float64, False)):
+        L = lower((), v, unit, dt)
+        buf = torch.randn(v, 2 * C if strided else C, generator=gen, device=dev, dtype=dt)
+        Bm = buf[:, C:] if strided else buf
+        X_k = ops.trsm_left_lower(L, Bm, unit=unit)
+        X_p = ref.trsm_left_lower(L, Bm, unit=unit)
+        torch.cuda.synchronize()
+        err = float((X_k - X_p).abs().max())
+        scale = float(X_p.abs().max())
+        emit("kernel_trsm_left_lower", shape=[v, C], dtype=str(dt), unit=unit, strided=strided,
+             max_abs_err=err, rel_err=err / scale, tol_rel=FUSED_REL_TOL)
+        if not err <= FUSED_REL_TOL * scale:
+            raise AssertionError(f"trsm_left_lower [{v}, {C}] {dt} off by {err} (scale {scale})")
+        if (v, C) != (CONFLUX_V, N):
+            continue
+        rows.append({
+            "name": "trsm_left_lower", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/trsm.cu",
+            "replaces": "src/repro/kernels/trsm.py:115",
+            "max_abs_err": err, "ms": time_ms(lambda: ops.trsm_left_lower(L, Bm)),
+            "plain_ms": time_ms(lambda: ref.trsm_left_lower(L, Bm)),
+            **bound(4 * (v * v + 2 * v * C), v * (v - 1) * C),
+            "library_ms": time_ms(lambda: torch.linalg.solve_triangular(
+                L, Bm, upper=False, unitriangular=True)),
+            "library": "torch.linalg.solve_triangular(L, B, upper=False, unitriangular=True)",
+        })
+
+    Bb, v, C = 256, CONFLUX_V, 512
+    for unit in (True, False):
+        L = lower((Bb,), v, unit, torch.float32)
+        Bm = torch.randn(Bb, v, C, generator=gen, device=dev)
+        X_k = ops.trsm_left_lower_batched(L, Bm, unit=unit)
+        X_p = ref.trsm_left_lower_batched(L, Bm, unit=unit)
+        torch.cuda.synchronize()
+        err = float((X_k - X_p).abs().max())
+        scale = float(X_p.abs().max())
+        lanes_equal = sum(torch.equal(ops.trsm_left_lower(L[b], Bm[b], unit=unit), X_k[b])
+                          for b in range(Bb))
+        emit("kernel_trsm_left_lower_batched", shape=[Bb, v, C], unit=unit, max_abs_err=err,
+             rel_err=err / scale, tol_rel=FUSED_REL_TOL, lanes_equal_single=lanes_equal)
+        if not (err <= FUSED_REL_TOL * scale and lanes_equal == Bb):
+            raise AssertionError(f"trsm_left_lower_batched: error {err} (scale {scale}), "
+                                 f"{lanes_equal} of {Bb} lanes equal the single call")
+    rows.append({
+        "name": "trsm_left_lower_batched", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/trsm.cu",
+        "replaces": "src/repro/kernels/trsm.py:133",
+        "max_abs_err": err, "ms": time_ms(lambda: ops.trsm_left_lower_batched(L, Bm, unit=False)),
+        "plain_ms": time_ms(lambda: ref.trsm_left_lower_batched(L, Bm, unit=False)),
+        **bound(4 * Bb * (v * v + 2 * v * C), Bb * (v * (v - 1) + v) * C),
+        "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bm, upper=False)),
+        "library": "batched torch.linalg.solve_triangular(L, B, upper=False)",
+        "note": "on no path: only the JAX package's kernel lint calls it",
+    })
+    return rows
+
+
+def conflux_p1_path(dev, gen, sequential_execute_s: float) -> dict:
+    """plan(N, strategy="conflux", grid=GridConfig(1, 1, 1, 32, N)) through
+    the entry points, in-process, with both hot loops.  Returns the flat
+    run's launches (the path of trsm_left_lower)."""
+    from repro_torch.api import GridConfig, SolverConfig, plan
+
+    A = torch.randn(N, N, generator=gen, device=dev)
+    b = torch.randn(N, generator=gen, device=dev)
+    steps = N // CONFLUX_V
+    grid = GridConfig(1, 1, 1, CONFLUX_V, N)
+    # At Px = 1 the tournament factors each panel twice: the local panel,
+    # then its v winners (`_local_lu::tournament`).
+    want = {"windowed": expected_launches(lu_panel=2 * steps, trsm_right_upper=steps,
+                                          fused_trsm_schur=steps),
+            "flat": expected_launches(lu_panel=2 * steps, trsm_right_upper=steps,
+                                      trsm_left_lower=steps, schur_update=steps)}
+    launches = {}
+    rows = {}
+    for hotloop in ("windowed", "flat"):
+        p = plan(N, SolverConfig(strategy="conflux", grid=grid, hotloop=hotloop))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fact = p.execute(A)
+        torch.cuda.synchronize()
+        execute_s = time.perf_counter() - t0
+        launches[hotloop] = read_launches()
+        t0 = time.perf_counter()
+        x = fact.solve(b)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        resid = hpl_residual(A, x, b)
+        rows[hotloop] = fact.rows
+        emit("conflux_p1_path", N=N, hotloop=hotloop, grid=str(fact.grid),
+             strategy=fact.strategy, backend=fact.backend, launches=launches[hotloop],
+             execute_s=execute_s, solve_s=solve_s, hpl_residual=resid,
+             comm_total=fact.comm["total"], x_finite=bool(torch.isfinite(x).all()),
+             sequential_execute_s=sequential_execute_s)
+        if fact.backend != "cuda" or fact.strategy != "conflux":
+            raise AssertionError(f"conflux path ran {fact.strategy!r} on {fact.backend!r}")
+        if launches[hotloop] != want[hotloop]:
+            raise AssertionError(f"conflux {hotloop}: expected launches {want[hotloop]}, "
+                                 f"got {launches[hotloop]}")
+        if not (torch.isfinite(x).all() and resid < HPL_RESIDUAL_MAX):
+            raise AssertionError(f"conflux {hotloop} HPL scaled residual {resid}")
+        del fact, x
+        emit("profile_conflux_p1_execute", hotloop=hotloop, **profile_once(lambda: p.execute(A)))
+        del p
+        torch.cuda.empty_cache()
+    diff = (rows["windowed"] != rows["flat"]).nonzero()
+    emit("conflux_p1_windowed_vs_flat", N=N,
+         first_pivot_difference=int(diff[0]) if len(diff) else None)
+    del A, b
+    torch.cuda.empty_cache()
+    return launches["flat"]
+
+
+def conflux_p1_plain_1024(dev, gen) -> None:
+    """The 1x1x1 conflux kernel path against the plain path (backend "ref")
+    at N = 1024, both hot loops; windowed and flat must pick the same pivots."""
+    from repro_torch.api import GridConfig, SolverConfig, plan
+
+    n = 1024
+    A = torch.randn(n, n, generator=gen, device=dev)
+    grid = GridConfig(1, 1, 1, CONFLUX_V, n)
+    facts = {(hl, bk): plan(n, SolverConfig(strategy="conflux", grid=grid, hotloop=hl,
+                                            backend=bk)).execute(A)
+             for hl in ("windowed", "flat") for bk in ("cuda", "ref")}
+    eps = torch.finfo(torch.float32).eps
+    check = {}
+    for hl in ("windowed", "flat"):
+        k, p_ = facts[hl, "cuda"], facts[hl, "ref"]
+        err = float((k.F - p_.F).abs().max())
+        tol = LU_F_TOL_FACTOR * n * eps * float(p_.F.abs().max())
+        check[f"{hl}_rows_equal_plain"] = torch.equal(k.rows, p_.rows)
+        check[f"{hl}_F_within_tol"] = err <= tol
+        emit("conflux_p1_plain_1024", hotloop=hl, F_max_abs_err=err, tol=tol,
+             rows_equal=check[f"{hl}_rows_equal_plain"])
+    w, f = facts["windowed", "cuda"], facts["flat", "cuda"]
+    check["windowed_rows_equal_flat"] = torch.equal(w.rows, f.rows)
+    emit("conflux_p1_windowed_vs_flat_1024", rows_equal=check["windowed_rows_equal_flat"],
+         F_bit_identical=torch.equal(w.F, f.F), F_max_abs_diff=float((w.F - f.F).abs().max()),
+         plain_F_bit_identical=torch.equal(facts["windowed", "ref"].F, facts["flat", "ref"].F))
+    if not all(check.values()):
+        raise AssertionError(f"conflux at N={n}: {check}")
+
+
+def _grid_rank(rank: int, out_dir: str, device: str) -> None:
+    """One of GRID_WORLD ranks, all on one device: runs GRID_CASES through the
+    entry points and writes what it saw to out_dir/rank<r>.json.  The ranks
+    share one mesh per grid shape, passed to `plan(..., mesh=...)`."""
+    import hashlib
+
+    import torch.distributed as dist
+    from repro_torch.api import GridConfig, SolverConfig, plan
+    from repro_torch.core.lu.baseline2d import scalapack2d_grid
+    from repro_torch.core.lu.conflux import make_lu_mesh
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: loopback
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    # NCCL refuses two ranks on one device ("Duplicate GPU detected"); gloo
+    # takes CUDA tensors for all_reduce and broadcast, staging through the
+    # host, and the schedules use no other collective.
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=GRID_WORLD)
+    out, meshes = {}, {}
+    try:
+        for name, strategy, n, hotloop, backend in GRID_CASES:
+            gen = torch.Generator(device=dev).manual_seed(n)  # alike on every rank
+            if strategy == "cholesky25d":
+                A = spd((n, n), gen, dev)
+            else:
+                A = torch.randn(n, n, generator=gen, device=dev)
+            b = torch.randn(n, generator=gen, device=dev)
+            grid = (scalapack2d_grid(n, GRID_WORLD, v=CONFLUX_V) if strategy == "baseline2d"
+                    else GridConfig(2, 2, 2, CONFLUX_V, n))
+            shape = (grid.Px, grid.Py, grid.c)
+            if shape not in meshes:
+                meshes[shape] = make_lu_mesh(grid)
+            p = plan(n, SolverConfig(strategy=strategy, grid=grid, hotloop=hotloop,
+                                     backend=backend), device=dev, mesh=meshes[shape])
+            dist.barrier()
+            reset_launches()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fact = p.execute(A)
+            if cuda:
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {k: c for k, c in read_launches().items() if c}
+            x = fact.solve(b)
+            out[name] = {
+                "wall_s": wall_s, "hpl_residual": hpl_residual(A, x, b),
+                "F": hashlib.sha256(fact.F.cpu().numpy().tobytes()).hexdigest(),
+                "rows": hashlib.sha256(fact.rows.cpu().numpy().tobytes()).hexdigest(),
+                "rows_list": fact.rows.tolist() if n == 1024 else None,
+                "launches": launches, "comm_total": fact.comm["total"],
+                "grid": str(fact.grid), "kind": fact.kind,
+            }
+            del p, fact, x, A
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def grid_8ranks(device: str = "cuda:0") -> None:
+    """GRID_WORLD ranks share cuda:0 through gloo and run GRID_CASES; every
+    rank must return the same F and rows with HPL < 16, and the kernel path
+    must pick the plain path's pivots at N = 1024.  A rank that fails or
+    outlives GRID_TIMEOUT_S fails the phase."""
+    import multiprocessing as mp
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_grid_rank, args=(r, out_dir, device))
+                 for r in range(GRID_WORLD)]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + GRID_TIMEOUT_S
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.0))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if hung or failed:
+            raise AssertionError(f"grid_8ranks: ranks {failed} failed (of which {hung} "
+                                 f"outlived {GRID_TIMEOUT_S} s)")
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(GRID_WORLD)]
+    problems = []
+    for name, strategy, n, hotloop, backend in GRID_CASES:
+        per = [r[name] for r in ranks]
+        same = len({(x["F"], x["rows"]) for x in per}) == 1
+        hpl = max(x["hpl_residual"] for x in per)
+        emit("grid_8ranks", case=name, strategy=strategy, N=n, hotloop=hotloop,
+             backend=backend, grid=per[0]["grid"], wall_s=max(x["wall_s"] for x in per),
+             hpl_residual_max=hpl, ranks_bit_identical=same,
+             comm_total=per[0]["comm_total"], launches_per_rank=[x["launches"] for x in per])
+        if not (same and hpl < HPL_RESIDUAL_MAX):
+            problems.append(f"{name}: ranks identical {same}, HPL {hpl}")
+        if backend == "cuda" and hotloop == "flat":
+            steps = n // CONFLUX_V
+            if any(x["launches"].get("trsm_left_lower") != steps for x in per):
+                problems.append(f"{name}: trsm_left_lower launches per rank "
+                                f"{[x['launches'].get('trsm_left_lower') for x in per]} != {steps}")
+    for hotloop in ("windowed", "flat"):
+        k = ranks[0][f"conflux_{hotloop}_1024"]["rows_list"]
+        p_ = ranks[0][f"conflux_{hotloop}_1024_plain"]["rows_list"]
+        emit("grid_8ranks_plain_1024", hotloop=hotloop, rows_equal=k == p_)
+        if k != p_:
+            problems.append(f"conflux {hotloop} at N=1024: pivots differ from the plain path")
+    emit("grid_8ranks_total", ranks=GRID_WORLD, seconds=spawn_s)
+    if problems:
+        raise AssertionError("grid_8ranks: " + "; ".join(problems))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -956,6 +1271,13 @@ def main() -> int:
     serving_async("serving_chol_async", CHOL, _spd_requests, CHOL_ASYNC_PER_TENANT,
                   CHOL_BATCHED_KERNELS)
 
+    # 8. The distributed schedules: the new kernel, the 1x1x1 grid at the full
+    #    N with both hot loops, its plain path at N = 1024, eight gloo ranks.
+    trsm_rows = trsm_left_lower_rows(dev, gen)
+    conflux_flat_launches = conflux_p1_path(dev, gen, execute_s)
+    conflux_p1_plain_1024(dev, gen)
+    grid_8ranks()
+
     panel_row["launches"] = launches["lu_panel"]
     for row in fused_rows:
         row["launches"] = launches["fused_trsm_schur"]
@@ -964,7 +1286,9 @@ def main() -> int:
     for row in chol_rows:
         counts = chol_batched_launches if row["name"].endswith("_batched") else chol_launches
         row["launches"] = counts[row["name"]]
-    rows = [panel_row, *fused_rows, *batched_rows, *chol_rows]
+    for row in trsm_rows:
+        row["launches"] = conflux_flat_launches[row["name"]]
+    rows = [panel_row, *fused_rows, *batched_rows, *chol_rows, *trsm_rows]
     for row in rows:
         row["kernel_ms"] = row["ms"]
     print(json.dumps({"kernels": rows, "card": smi}), flush=True)

@@ -11,7 +11,11 @@ Entry points run on the card unless the caller passes `device="cpu"`, where
 the kernels' plain PyTorch versions run instead.
 
     repro_torch.api              — plan/execute solver surface (plan(N), plan((B, N)))
-    repro_torch.core.lu          — masked sequential LU, single and batched
+    repro_torch.core.lu          — masked sequential LU, single and batched; the
+                                   2.5D COnfLUX schedule, the 2D baseline, the
+                                   grid optimizer and the comm-volume counters
+    repro_torch.core.cholesky    — blocked Cholesky, sequential and 2.5D
+    repro_torch.core.collectives — the process mesh (px, py, pz) on torch.distributed
     repro_torch.core.solve       — lu_solve over raw packed factors
     repro_torch.kernels          — CUDA kernels, wrappers, plain versions, backends
     repro_torch.serving          — SolveEngine, AsyncSolveEngine

@@ -13,10 +13,17 @@
     cp = plan(N, strategy="sequential_chol")   # SPD: blocked Cholesky
     L = cp.execute(A_spd).unpack()             # A_spd = L @ L.T
 
+    # on every rank of a torch.distributed process group, with the same A:
+    dp = plan(N, strategy="conflux", grid=GridConfig(2, 2, 2, 32, N))
+    fact = dp.execute(A)          # the whole F and rows on every rank
+    print(fact.comm_report())     # the schedule's volume per collective
+
 Plans run on the card unless the caller passes `device="cpu"`.  Ported so
-far: the single-device and batched LU and Cholesky paths, strategies
-"sequential", "sequential_chol" and "auto", the "cuda" (default) and "ref"
-kernel backends.
+far: the single-device and batched LU and Cholesky paths, the distributed
+2.5D schedules, strategies "sequential", "sequential_chol", "conflux",
+"baseline2d", "cholesky25d" and "auto" (analytic: conflux on the
+comm-volume argmin grid with more than one rank, sequential otherwise), the
+"cuda" (default) and "ref" kernel backends.
 """
 
 import repro_torch.api.strategies  # noqa: F401  (registers the built-ins)

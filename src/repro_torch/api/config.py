@@ -45,8 +45,10 @@ def dtype_name(dt: torch.dtype) -> str:
 class SolverConfig:
     """Declarative solver selection.
 
-    strategy: a registered strategy name.  This slice has "sequential" and
-        "auto", which resolves to "sequential" for a plan on one device.
+    strategy: a registered strategy name: "sequential", "sequential_chol",
+        "conflux", "baseline2d", "cholesky25d", or "auto", which resolves
+        to "conflux" on the comm-volume argmin grid when the default
+        process group has more than one rank, else to "sequential".
     pivot:    "tournament" or "partial"; "none" is Cholesky-only and the LU
               strategies reject it.
     grid:     explicit GridConfig; None lets the strategy choose one.
@@ -55,7 +57,8 @@ class SolverConfig:
               `dtype` (`compute_dtype == dtype` normalizes to None).  Must
               not be wider than `dtype`.  Not ported yet (ROADMAP.md item 7).
     M:        fast-memory budget per processor, in elements (grid choice).
-    P_target: processor budget for grid selection; None = all devices.
+    P_target: processor budget for grid selection; None = the ranks of the
+              default process group (1 without one).
     v:        panel width override; None lets the strategy choose.
     backend:  registered KernelBackend name — "cuda" (the hand-written Hopper
               kernels; the default) or "ref" (plain PyTorch).  A plan the

@@ -1,10 +1,17 @@
 """plan/execute core: FactorizationPlans and their LRU cache.
 
 `plan(N, config, device=...)` resolves a `SolverConfig` to a concrete
-strategy + kernel backend, then returns the cached `FactorizationPlan` for
-that key and device — building one only on a cache miss.  `plan.execute(A)`
-factorizes on the plan's device.  `plan((B, N))` builds a batched plan that
-factorizes a [B, N, N] stack of independent systems in one run.
+strategy + grid + kernel backend, then returns the cached
+`FactorizationPlan` for that key and device — building one only on a cache
+miss.  `plan.execute(A)` factorizes on the plan's device.  `plan((B, N))`
+builds a batched plan that factorizes a [B, N, N] stack of independent
+systems in one run.
+
+The distributed strategies ("conflux", "baseline2d", "cholesky25d") run on
+the default `torch.distributed` process group: every rank calls `plan` and
+`execute` with the same arguments, and every rank gets the whole result.
+The plan owns its `LuMesh` (the process groups of the grid's axes); a
+caller-built mesh (`plan(..., mesh=...)`) bypasses the cache.
 
 Plans run on the CUDA card unless the caller passes `device="cpu"`; a host
 without CUDA raises instead of running on the CPU.
@@ -26,16 +33,10 @@ import torch
 from repro_torch.api.config import SolverConfig, dtype_name, resolve_dtype
 from repro_torch.api.registry import get_strategy
 from repro_torch.api.result import Factorization
+from repro_torch.core.collectives import group_key
 from repro_torch.core.lu.grid import GridConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.backend import available_backends, check_hopper_constraints
-
-# Strategies of the JAX package whose slices are not ported yet.
-_UNPORTED_STRATEGIES = {
-    "conflux": "10 (distributed 2.5D schedules)",
-    "baseline2d": "10 (distributed 2.5D schedules)",
-    "cholesky25d": "10 (distributed 2.5D schedules)",
-}
 
 
 class FactorizationPlan:
@@ -45,7 +46,8 @@ class FactorizationPlan:
         N, config:     the resolved problem/strategy this plan was built for.
         B:             batch size of a batched plan ([B, N, N] stacks), or None.
         device:        where `execute` runs.
-        grid:          processor grid (None on one device).
+        grid, mesh:    processor grid and this rank's `LuMesh` (None on one
+                       device).
         comm:          instrumented per-processor schedule volume (elements).
         trace_count:   times the plan prepared its program.  PyTorch runs
                        eagerly, so this is 1 from the first execute on (the
@@ -54,13 +56,14 @@ class FactorizationPlan:
     """
 
     def __init__(self, N: int, config: SolverConfig, device: torch.device, *,
-                 grid: GridConfig | None = None, comm: dict | None = None, run=None,
-                 kind: str = "lu"):
+                 grid: GridConfig | None = None, mesh=None, comm: dict | None = None,
+                 run=None, kind: str = "lu"):
         self.N = N
         self.B = config.B
         self.config = config
         self.device = device
         self.grid = grid
+        self.mesh = mesh
         self.comm = dict(comm or {})
         self.kind = kind
         self.trace_count = 0
@@ -143,12 +146,6 @@ _LOCK = threading.Lock()
 
 def _reject_unported(config: SolverConfig) -> None:
     """Refuse the fields whose path is not ported yet, naming its item."""
-    if config.strategy in _UNPORTED_STRATEGIES:
-        raise ValueError(
-            f"strategy {config.strategy!r} is not ported yet: ROADMAP.md module "
-            f"item {_UNPORTED_STRATEGIES[config.strategy]}; use 'sequential', "
-            f"'sequential_chol' or 'auto'"
-        )
     if config.compute_dtype is not None:
         raise ValueError(
             f"compute_dtype={config.compute_dtype!r} is not ported yet: ROADMAP.md "
@@ -175,7 +172,7 @@ def _resolve_backend(N: int, config: SolverConfig) -> SolverConfig:
 
 
 def resolve(N: int, config: SolverConfig) -> SolverConfig:
-    """Resolve "auto"/missing-panel-width/backend configs to concrete choices."""
+    """Resolve "auto"/missing-grid/panel-width/backend configs to concrete choices."""
     _reject_unported(config)
     for _ in range(3):
         builder = get_strategy(config.strategy)
@@ -187,7 +184,7 @@ def resolve(N: int, config: SolverConfig) -> SolverConfig:
     raise RuntimeError(f"strategy resolution did not converge for {config}")
 
 
-def plan(N: int, config: SolverConfig | None = None, *, device=None,
+def plan(N: int, config: SolverConfig | None = None, *, device=None, mesh=None,
          **overrides) -> FactorizationPlan:
     """Get (or build) the plan for factorizing N x N matrices on `device`.
 
@@ -197,6 +194,10 @@ def plan(N: int, config: SolverConfig | None = None, *, device=None,
     the CUDA card (raises when there is none; pass `device="cpu"` for the
     plain PyTorch versions on the CPU).  `overrides` are SolverConfig
     fields, so `plan(256, v=16)` works without building a config.
+
+    A distributed strategy builds `make_lu_mesh(grid)` over the default
+    process group; passing an explicit `mesh` (an `LuMesh` of the same
+    [Px, Py, c]) uses that one and bypasses the cache.
     """
     dev = resolve_device(device)
     config = config or SolverConfig()
@@ -213,7 +214,11 @@ def plan(N: int, config: SolverConfig | None = None, *, device=None,
         config = config.with_(B=int(B))
     resolved = resolve(N, config)
     builder = get_strategy(resolved.strategy)
-    key = (resolved.cache_key(N), str(dev))
+    if mesh is not None:
+        return builder(N, resolved, dev, mesh=mesh)
+    # A distributed plan holds process groups: it serves only the group it
+    # was built over.
+    key = (resolved.cache_key(N), str(dev), group_key() if resolved.grid else None)
     while True:
         with _LOCK:
             cached = _PLAN_CACHE.get(key)

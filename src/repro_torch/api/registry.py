@@ -1,13 +1,13 @@
 """Decorator-based strategy registry.
 
 A *strategy* is a plan builder:
-``(N, SolverConfig, device) -> FactorizationPlan``.
+``(N, SolverConfig, device, mesh=None) -> FactorizationPlan``.
 Registering one makes it addressable by name from `SolverConfig.strategy`
-without touching any call site — a future Cholesky/QR or a new backend drops
-in with a single decorated function:
+without touching any call site — a future QR or a new backend drops in with
+a single decorated function:
 
-    @register_strategy("cholesky25d")
-    def _build(N, config, device):
+    @register_strategy("qr25d")
+    def _build(N, config, device, mesh=None):
         ...
         return FactorizationPlan(...)
 """

@@ -19,24 +19,40 @@ from repro_torch.device import resolve_device
 _BACKENDS = {"pallas": "cuda", "ref": "ref"}
 
 
-def factorization_from_numpy(F, rows, *, device, kind: str = "lu",
-                             A_ref=None) -> Factorization:
+def factorization_from_numpy(F, rows, *, device, kind: str = "lu", A_ref=None,
+                             grid=None, comm: dict | None = None,
+                             strategy: str = "") -> Factorization:
     """The port's `Factorization` from packed factors F [N, N] and the pivot
     order rows [N], as the JAX package's `Factorization.F` / `.rows` hold
     them, or from a batch F [B, N, N] and rows [B, N] (a batched JAX plan's
     result).  With `kind="cholesky"`, F is the lower factor L and rows the
     identity order, as a JAX Cholesky `Factorization` holds them.  `device`
-    is where the result lives (None = the CUDA card)."""
+    is where the result lives (None = the CUDA card).
+
+    A distributed run's gathered factors carry the grid they ran on (a
+    GridConfig-like object or a dict of its fields) and the schedule's
+    volume (`comm`, elements per processor), as its `Factorization.grid`
+    and `.comm` hold them."""
     dev = resolve_device(device)
     F_t = torch.as_tensor(np.asarray(F), device=dev)
     A_t = None if A_ref is None else torch.as_tensor(np.asarray(A_ref), device=dev)
     return Factorization(
         F=F_t,
         rows=torch.as_tensor(np.asarray(rows, dtype=np.int64), device=dev),
+        grid=None if grid is None else _grid(grid),
+        comm={k: float(x) for k, x in (comm or {}).items()},
+        strategy=strategy,
         kind=kind,
         A_ref=A_t,
         work_dtype=None if A_t is None else A_t.dtype,
     )
+
+
+def _grid(grid) -> GridConfig:
+    if isinstance(grid, GridConfig):
+        return grid
+    g = grid if isinstance(grid, dict) else vars(grid)
+    return GridConfig(**{k: int(g[k]) for k in ("Px", "Py", "c", "v", "N")})
 
 
 def config_from_jax(fields: dict) -> SolverConfig:
@@ -53,8 +69,6 @@ def config_from_jax(fields: dict) -> SolverConfig:
             f"JAX backend {backend!r} has no counterpart; known: {sorted(_BACKENDS)}"
         )
     out["backend"] = _BACKENDS[backend]
-    grid = out.get("grid")
-    if grid is not None and not isinstance(grid, GridConfig):
-        g = grid if isinstance(grid, dict) else vars(grid)
-        out["grid"] = GridConfig(**{k: int(g[k]) for k in ("Px", "Py", "c", "v", "N")})
+    if out.get("grid") is not None:
+        out["grid"] = _grid(out["grid"])
     return SolverConfig(**out)

@@ -12,10 +12,7 @@ Two backends are registered:
   kernels cannot run is refused at resolve time (`check_hopper_constraints`).
 - "ref": plain PyTorch on any device.
 
-The primitives of the single-device and batched LU and Cholesky paths are
-ported (`panel_lup`, `fused_trsm_schur`, `panel_chol`, `trsm_right_upper`,
-`schur_update` and their `_batched` forms); `trsm_left_lower[_batched]`
-raise `NotImplementedError` naming the ROADMAP.md item that ports them.
+Every primitive of the protocol is ported, single and batched.
 """
 
 from __future__ import annotations
@@ -144,21 +141,7 @@ def check_hopper_constraints(dtype: str, v: int | None, B: int | None = None) ->
         )
 
 
-class _UnportedPrimitives:
-    """The primitives whose schedules are not ported yet."""
-
-    @staticmethod
-    def _unported(what: str, item: str):
-        raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md module item {item}")
-
-    def trsm_left_lower(self, L, B, *, unit=True):
-        self._unported("trsm_left_lower (flat 2.5D bodies)", "10")
-
-    def trsm_left_lower_batched(self, L, B, *, unit=True):
-        self._unported("trsm_left_lower_batched (the kernel lint)", "11")
-
-
-class RefBackend(_UnportedPrimitives):
+class RefBackend:
     """Plain PyTorch primitives on any device (`repro_torch.kernels.ref`).
     Sub-4-byte inputs are upcast to f32 per primitive and rounded back on
     the way out."""
@@ -173,6 +156,9 @@ class RefBackend(_UnportedPrimitives):
 
     def trsm_right_upper(self, B, U):
         return ref.trsm_right_upper(B, U)
+
+    def trsm_left_lower(self, L, B, *, unit=True):
+        return ref.trsm_left_lower(L, B, unit=unit)
 
     def schur_update(self, A, L, U):
         return ref.schur_update(A, L, U)
@@ -191,6 +177,9 @@ class RefBackend(_UnportedPrimitives):
     def trsm_right_upper_batched(self, B, U):
         return ref.trsm_right_upper_batched(B, U)
 
+    def trsm_left_lower_batched(self, L, B, *, unit=True):
+        return ref.trsm_left_lower_batched(L, B, unit=unit)
+
     def schur_update_batched(self, A, L, U):
         return ref.schur_update_batched(A, L, U)
 
@@ -198,7 +187,7 @@ class RefBackend(_UnportedPrimitives):
         return ref.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
 
 
-class CudaBackend(_UnportedPrimitives):
+class CudaBackend:
     """The hand-written Hopper kernels (`repro_torch.kernels.ops`).  CPU
     tensors run the kernels' plain versions."""
 
@@ -212,6 +201,9 @@ class CudaBackend(_UnportedPrimitives):
 
     def trsm_right_upper(self, B, U):
         return ops.trsm_right_upper(B, U)
+
+    def trsm_left_lower(self, L, B, *, unit=True):
+        return ops.trsm_left_lower(L, B, unit=unit)
 
     def schur_update(self, A, L, U):
         return ops.schur_update(A, L, U)
@@ -229,6 +221,9 @@ class CudaBackend(_UnportedPrimitives):
 
     def trsm_right_upper_batched(self, B, U):
         return ops.trsm_right_upper_batched(B, U)
+
+    def trsm_left_lower_batched(self, L, B, *, unit=True):
+        return ops.trsm_left_lower_batched(L, B, unit=unit)
 
     def schur_update_batched(self, A, L, U):
         return ops.schur_update_batched(A, L, U)

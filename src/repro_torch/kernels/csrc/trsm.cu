@@ -1,34 +1,59 @@
-// Right upper triangular solve:  X = B U^-1  (X U = B), U [v, v] upper with
-// a non-unit diagonal, B [R, v], for one system or a batch of Bb.
+// Triangular solves of the factorizations, for one system or a batch of Bb:
+//
+//   trsm_right_upper:  X = B U^-1  (X U = B), U [v, v] upper with a non-unit
+//                      diagonal, B [R, v]  (L10 of the Cholesky step);
+//   trsm_left_lower:   X = L^-1 B  (L X = B), L [v, v] lower, unit or not,
+//                      B [v, C]  (U01 of the flat 2.5D step bodies).
 //
 // Replaces: src/repro/kernels/trsm.py::trsm_right_upper (body
 // `_right_upper_kernel`) and ::trsm_right_upper_batched (body
 // `_right_upper_batched_kernel`), both the column sweep of
-// `_right_upper_solve`.  One kernel serves both: the system index is
-// blockIdx.z with an int64 batch stride per operand, and a single system is
-// Bb = 1.  A row's arithmetic does not depend on the batch or the tile, so a
-// batched lane equals the single call bit for bit.
+// `_right_upper_solve`; and ::trsm_left_lower (body `_left_lower_kernel`)
+// and ::trsm_left_lower_batched (body `_left_lower_batched_kernel`), both
+// the row sweep of `_left_lower_solve`.  Each solve is one kernel that serves
+// its single and batched entry points: the system index is blockIdx.z with an
+// int64 batch stride per operand, and a single system is Bb = 1.  A row's (or
+// column's) arithmetic does not depend on the batch or the tile, so a batched
+// lane equals the single call bit for bit.
 //
-// What bounds it on an H100: bytes.  On the Cholesky path B is [16384, 32]
-// (single) or [256, 512, 32] (batched): each element of B is read once and
-// of X written once, with v^2 operations per row, so about v / 4 = 8 flop
-// per byte in f32, below the card's ratio.  The floor is ~1.3 us single and
-// ~10 us batched at 3.35 TB/s.
+// What bounds them on an H100: bytes.  trsm_right_upper: on the Cholesky
+// path B is [16384, 32] (single) or [256, 512, 32] (batched): each element of
+// B is read once and of X written once, with v^2 operations per row, so about
+// v / 4 = 8 flop per byte in f32, below the card's ratio.  The floor is
+// ~1.3 us single and ~10 us batched at 3.35 TB/s.  trsm_left_lower: on the
+// flat bodies B is [32, C] with C up to 16384 (one rank's columns), the same
+// v / 4 flop per byte; the floor is ~1.3 us at C = 16384.
 //
-// Design: the TPU kernel tiles the long axis over the grid and keeps U and a
-// [br, v] tile in VMEM.  Here each block owns kRows rows of one system, one
-// thread per row.  U is staged in shared memory once per block, read with
-// any row and column strides (the Cholesky path passes L00^T, a transposed
-// view), and every thread reads the same U element at the same time, a
-// broadcast.  The block's B tile is copied into shared memory with
-// coalesced loads and a padded row stride (v + 1) so that the threads'
-// row-wise reads hit distinct banks; each thread then sweeps its row column
-// by column,
+// Design of trsm_right_upper: the TPU kernel tiles the long axis over the
+// grid and keeps U and a [br, v] tile in VMEM.  Here each block owns kRows
+// rows of one system, one thread per row.  U is staged in shared memory once
+// per block, read with any row and column strides (the Cholesky path passes
+// L00^T, a transposed view), and every thread reads the same U element at
+// the same time, a broadcast.  The block's B tile is copied into shared
+// memory with coalesced loads and a padded row stride (v + 1) so that the
+// threads' row-wise reads hit distinct banks; each thread then sweeps its row
+// column by column,
 //   X[r, j] = (B[r, j] - sum_{i<j} X[r, i] U[i, j]) / U[j, j],
 // in place, and the tile goes back out with coalesced stores.  Rows that are
 // zero in B (the path masks every row above the trailing block) stay zero.
-// The sum runs in another order than a library solve's, so results agree
-// with the plain version within a stated tolerance, not bitwise.
+//
+// Design of trsm_left_lower: columns of B are independent, so each block owns
+// kCols columns of one system, one thread per column; the TPU kernel's column
+// tiles of bc = 256 become the grid's x axis.  L is staged in shared memory
+// once per block (any strides), and each thread keeps its column's v solved
+// values in a [v][kCols] shared-memory tile, so the reads of earlier values
+// are conflict-free and the reads of L are broadcasts.  The loads of B and
+// the stores of X walk a row at a time, neighbouring threads on neighbouring
+// columns, so they coalesce.  The substitution is the one that
+// `fused_schur.cu` repeats per block, written the same way,
+//   X[r, c] = B[r, c] - sum_{q<r} L[r, q] X[q, c],  then / L[r, r] unless unit,
+// so the flat step bodies (this kernel) and the windowed ones (the fused
+// kernel) solve U01 alike.  The ragged column edge is masked; C need not be a
+// multiple of the tile.  At v = 128 in f64 the block holds L (128 KB) and its
+// column tile (64 KB) in dynamic shared memory.
+//
+// Both sums run in another order than a library solve's, so results agree
+// with the plain versions within a stated tolerance, not bitwise.
 
 #include <cstdint>
 
@@ -85,6 +110,43 @@ trsm_right_upper_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
   }
 }
 
+constexpr int kCols = 64;  // columns (threads) per block of trsm_left_lower
+
+template <typename T>
+__global__ void __launch_bounds__(kCols)
+trsm_left_lower_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c, int64_t bsl,
+                       const T* __restrict__ B, int64_t ldb, int64_t bsb,
+                       T* __restrict__ X, int C, int v, int unit) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ls = reinterpret_cast<T*>(smem_raw);  // [v][v]
+  T* Xs = Ls + v * v;                      // [v][kCols]: this block's columns
+
+  const int64_t z = blockIdx.z;
+  L += z * bsl;
+  B += z * bsb;
+  X += z * static_cast<int64_t>(v) * C;
+  const int tx = threadIdx.x;
+  const int col = blockIdx.x * kCols + tx;
+
+  for (int idx = tx; idx < v * v; idx += kCols) {
+    const int i = idx / v;
+    const int j = idx - i * v;
+    Ls[idx] = L[i * ldl_r + j * ldl_c];
+  }
+  __syncthreads();
+
+  if (col < C) {
+    for (int r = 0; r < v; ++r) {
+      T partial = T(0);
+      for (int q = 0; q < r; ++q) partial += Ls[r * v + q] * Xs[q * kCols + tx];
+      T x = B[r * ldb + col] - partial;
+      if (!unit) x = x / Ls[r * v + r];
+      Xs[r * kCols + tx] = x;
+      X[static_cast<int64_t>(r) * C + col] = x;
+    }
+  }
+}
+
 template <typename T>
 int launch(const void* B, long long ldb, long long bsb, const void* U, long long ldu_r,
            long long ldu_c, long long bsu, void* X, int Bb, int R, int v, void* stream) {
@@ -105,6 +167,24 @@ int launch(const void* B, long long ldb, long long bsb, const void* U, long long
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_left_lower(const void* L, long long ldl_r, long long ldl_c, long long bsl,
+                      const void* B, long long ldb, long long bsb, void* X, int Bb, int v, int C,
+                      int unit, void* stream) {
+  // As above: the limit is set once, for the widest panel.
+  const size_t smem_max = static_cast<size_t>(kMaxV) * (kMaxV + kCols) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(trsm_left_lower_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_max));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(v) * (v + kCols) * sizeof(T);
+  const dim3 grid((C + kCols - 1) / kCols, 1, Bb);
+  trsm_left_lower_kernel<T><<<grid, kCols, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(L), ldl_r, ldl_c, bsl, static_cast<const T*>(B), ldb, bsb,
+      static_cast<T*>(X), C, v, unit);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Bb systems: B [R, v] with row stride ldb and batch stride bsb (unit column
@@ -121,6 +201,23 @@ extern "C" int trsm_right_upper_f64(const void* B, long long ldb, long long bsb,
                                     long long ldu_r, long long ldu_c, long long bsu, void* X,
                                     int Bb, int R, int v, void* stream) {
   return launch<double>(B, ldb, bsb, U, ldu_r, ldu_c, bsu, X, Bb, R, v, stream);
+}
+
+// Bb systems: L [v, v] with row stride ldl_r, column stride ldl_c and batch
+// stride bsl (only its lower triangle is read, and its diagonal only when
+// unit == 0); B [v, C] with row stride ldb and batch stride bsb (unit column
+// stride); X: [Bb, v, C] contiguous output.  1 <= v <= 128, C >= 1,
+// 1 <= Bb <= 65535.  Returns the cudaError_t of the launch.
+extern "C" int trsm_left_lower_f32(const void* L, long long ldl_r, long long ldl_c,
+                                   long long bsl, const void* B, long long ldb, long long bsb,
+                                   void* X, int Bb, int v, int C, int unit, void* stream) {
+  return launch_left_lower<float>(L, ldl_r, ldl_c, bsl, B, ldb, bsb, X, Bb, v, C, unit, stream);
+}
+
+extern "C" int trsm_left_lower_f64(const void* L, long long ldl_r, long long ldl_c,
+                                   long long bsl, const void* B, long long ldb, long long bsb,
+                                   void* X, int Bb, int v, int C, int unit, void* stream) {
+  return launch_left_lower<double>(L, ldl_r, ldl_c, bsl, B, ldb, bsb, X, Bb, v, C, unit, stream);
 }
 
 extern "C" const char* trsm_error_string(int err) {

@@ -8,10 +8,10 @@ block, and `bm` = 1024 rows keeps the per-block redo of the small triangular
 solve near 3% of the update at v = 32 (see `csrc/fused_schur.cu`).  The
 batched wrappers fit the same tiles to each system's [M, C].
 
-The Cholesky kernels (`chol_panel`, `trsm_right_upper`, `schur_update` and
-their `_batched` forms) take any shape: their tiles are fixed in the CUDA
-source and the ragged edges are masked there, so nothing needs fitting and
-ops exports their wrappers as they are.
+The other kernels (`chol_panel`, `trsm_right_upper`, `trsm_left_lower`,
+`schur_update` and their `_batched` forms) take any shape: their tiles are
+fixed in the CUDA source and the ragged edges are masked there, so nothing
+needs fitting and ops exports their wrappers as they are.
 """
 
 from __future__ import annotations
@@ -20,12 +20,18 @@ from repro_torch.kernels import fused_schur as _fs
 from repro_torch.kernels.chol_panel import chol_panel, chol_panel_batched
 from repro_torch.kernels.lu_panel import lu_panel, lu_panel_batched
 from repro_torch.kernels.schur_update import schur_update, schur_update_batched
-from repro_torch.kernels.trsm import trsm_right_upper, trsm_right_upper_batched
+from repro_torch.kernels.trsm import (
+    trsm_left_lower,
+    trsm_left_lower_batched,
+    trsm_right_upper,
+    trsm_right_upper_batched,
+)
 
 __all__ = [
     "chol_panel", "chol_panel_batched", "fused_trsm_schur", "fused_trsm_schur_batched",
     "lu_panel", "lu_panel_batched", "schur_update", "schur_update_batched",
-    "trsm_right_upper", "trsm_right_upper_batched",
+    "trsm_left_lower", "trsm_left_lower_batched", "trsm_right_upper",
+    "trsm_right_upper_batched",
 ]
 
 

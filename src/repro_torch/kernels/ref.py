@@ -100,6 +100,17 @@ def trsm_right_upper(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
 trsm_right_upper_batched = trsm_right_upper
 
 
+def trsm_left_lower(L: torch.Tensor, B: torch.Tensor, unit: bool = True) -> torch.Tensor:
+    """X = L^-1 B for L [v, v] lower (unit diagonal if `unit`) and B [v, C],
+    or per system for L [Bb, v, v] and B [Bb, v, C]."""
+    wd = _work_dtype(B)
+    X = torch.linalg.solve_triangular(L.to(wd), B.to(wd), upper=False, unitriangular=unit)
+    return X.to(B.dtype)
+
+
+trsm_left_lower_batched = trsm_left_lower
+
+
 def schur_update(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     """A - L @ U for A [M, N], L [M, K], U [K, N], or per system for
     [B, M, N], [B, M, K], [B, K, N]; f32 accumulation for sub-4-byte inputs."""

@@ -1,14 +1,13 @@
-"""Right upper triangular solve X = B U^-1: the wrappers of the CUDA kernel in
-`csrc/trsm.cu`.
+"""Triangular solves X = B U^-1 and X = L^-1 B: the wrappers of the CUDA
+kernels in `csrc/trsm.cu`.
 
-Ports of `repro/kernels/trsm.py::trsm_right_upper` and
-`::trsm_right_upper_batched`; the `trsm_left_lower` twins are not ported
-yet (ROADMAP.md module items 10 and 11).  Both wrappers launch the same
-kernel, a single system as a batch of one, so a batched lane equals the
-single call bit for bit.  A CPU tensor goes to the plain version
+Ports of `repro/kernels/trsm.py::trsm_right_upper`,
+`::trsm_right_upper_batched`, `::trsm_left_lower` and
+`::trsm_left_lower_batched`.  The single and batched wrappers of each solve
+launch the same kernel, a single system as a batch of one, so a batched lane
+equals the single call bit for bit.  A CPU tensor goes to the plain version
 (`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or raises.
-`trsm_right_upper.launches` and `trsm_right_upper_batched.launches` count
-the launches.
+Each wrapper counts its launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -19,15 +18,37 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_V = 128  # U and the row tile live in one block's shared memory
+MAX_V = 128  # the triangle and a row (column) tile share one block's shared memory
 MAX_BATCH = 65535  # systems on gridDim.z
-MAX_ROWS = 2**31 - 1
+MAX_ROWS = 2**31 - 1  # rows of B (right solve), columns of B (left solve)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
+_LEFT_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+)
+
+
+def _check_common(name: str, B: torch.Tensor, T: torch.Tensor, lead: tuple) -> None:
+    if B.stride(-1) != 1:
+        raise ValueError(f"{name}: B's columns must have unit stride")
+    if lead and lead[0] > MAX_BATCH:
+        raise ValueError(f"{name}: at most {MAX_BATCH} systems per launch, got Bb={lead[0]}")
+    if B.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {B.device}")
+    if B.dtype not in _SUFFIX:
+        raise TypeError(
+            f"{name}: the kernel takes float32 or float64, got {B.dtype} "
+            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+        )
+    if T.device != B.device or T.dtype != B.dtype:
+        raise ValueError(f"{name}: the triangle is {T.dtype} on {T.device}, "
+                         f"B is {B.dtype} on {B.device}")
 
 
 def _check(name: str, B: torch.Tensor, U: torch.Tensor, ndim: int) -> None:
@@ -40,19 +61,20 @@ def _check(name: str, B: torch.Tensor, U: torch.Tensor, ndim: int) -> None:
             f"{name}: need B [{pre}R, v] and U [{pre}v, v] with 1 <= v <= {MAX_V}; "
             f"got B {tuple(B.shape)}, U {tuple(U.shape)}"
         )
-    if B.stride(-1) != 1:
-        raise ValueError(f"{name}: B's columns must have unit stride")
-    if lead and lead[0] > MAX_BATCH:
-        raise ValueError(f"{name}: at most {MAX_BATCH} systems per launch, got Bb={lead[0]}")
-    if B.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {B.device}")
-    if B.dtype not in _SUFFIX:
-        raise TypeError(
-            f"{name}: the kernel takes float32 or float64, got {B.dtype} "
-            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+    _check_common(name, B, U, lead)
+
+
+def _check_left(name: str, L: torch.Tensor, B: torch.Tensor, ndim: int) -> None:
+    lead = tuple(B.shape[:-2])
+    if (B.ndim != ndim or L.ndim != ndim or not 1 <= B.shape[-2] <= MAX_V
+            or tuple(L.shape) != lead + (B.shape[-2], B.shape[-2])
+            or not 1 <= B.shape[-1] <= MAX_ROWS):
+        pre = "Bb, " if ndim == 3 else ""
+        raise ValueError(
+            f"{name}: need L [{pre}v, v] and B [{pre}v, C] with 1 <= v <= {MAX_V}; "
+            f"got L {tuple(L.shape)}, B {tuple(B.shape)}"
         )
-    if U.device != B.device or U.dtype != B.dtype:
-        raise ValueError(f"{name}: U is {U.dtype} on {U.device}, B is {B.dtype} on {B.device}")
+    _check_common(name, B, L, lead)
 
 
 def _launch(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
@@ -64,6 +86,20 @@ def _launch(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
         err = fn(B.data_ptr(), B.stride(1), B.stride(0),
                  U.data_ptr(), U.stride(1), U.stride(2), U.stride(0),
                  X.data_ptr(), Bb, R, v, torch.cuda.current_stream(B.device).cuda_stream)
+    _build.check("trsm", err)
+    return X
+
+
+def _launch_left(L: torch.Tensor, B: torch.Tensor, unit: bool) -> torch.Tensor:
+    """Launch the left-lower kernel on Bb systems given as 3-D tensors."""
+    Bb, v, C = B.shape
+    X = torch.empty((Bb, v, C), dtype=B.dtype, device=B.device)
+    fn = _build.function("trsm", f"trsm_left_lower_{_SUFFIX[B.dtype]}", _LEFT_ARGTYPES)
+    with torch.cuda.device(B.device):
+        err = fn(L.data_ptr(), L.stride(1), L.stride(2), L.stride(0),
+                 B.data_ptr(), B.stride(1), B.stride(0),
+                 X.data_ptr(), Bb, v, C, int(unit),
+                 torch.cuda.current_stream(B.device).cuda_stream)
     _build.check("trsm", err)
     return X
 
@@ -95,5 +131,35 @@ def trsm_right_upper_batched(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     return X
 
 
+def trsm_left_lower(L: torch.Tensor, B: torch.Tensor, *, unit: bool = True) -> torch.Tensor:
+    """X = L^-1 B for L [v, v] lower (any strides; unit diagonal if `unit`,
+    so only its strictly lower part is read) and B [v, C] (any row stride).
+
+    Returns X [v, C] contiguous.
+    """
+    if B.device.type == "cpu":
+        return ref.trsm_left_lower(L, B, unit=unit)
+    _check_left("trsm_left_lower", L, B, 2)
+    X = _launch_left(L[None], B[None], unit)
+    trsm_left_lower.launches += 1
+    return X[0]
+
+
+def trsm_left_lower_batched(L: torch.Tensor, B: torch.Tensor, *,
+                            unit: bool = True) -> torch.Tensor:
+    """Per-system X_b = L_b^-1 B_b for L [Bb, v, v] and B [Bb, v, C] (any row
+    and batch strides, Bb <= 65535).  Returns X [Bb, v, C] contiguous."""
+    if B.device.type == "cpu":
+        return ref.trsm_left_lower_batched(L, B, unit=unit)
+    _check_left("trsm_left_lower_batched", L, B, 3)
+    if B.shape[0] == 0:
+        return torch.empty_like(B)
+    X = _launch_left(L, B, unit)
+    trsm_left_lower_batched.launches += 1
+    return X
+
+
 trsm_right_upper.launches = 0
 trsm_right_upper_batched.launches = 0
+trsm_left_lower.launches = 0
+trsm_left_lower_batched.launches = 0

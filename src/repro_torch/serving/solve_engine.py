@@ -49,7 +49,8 @@ Cholesky (identity padding keeps each padded system SPD).
 
 Not ported yet: per-request iterative refinement (`refine_tol`, ROADMAP.md
 module item 7), which raises at submit, and engines on the distributed
-strategies (item 10), which raise at construction.
+strategies (item 8, serving on distributed strategies), which raise at
+construction.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.api import Factorization, SolverConfig, plan, plan_cache_stats
+from repro_torch.api import Factorization, SolverConfig, plan, plan_cache_stats, resolve
 from repro_torch.api.config import dtype_name, resolve_dtype
 from repro_torch.device import resolve_device
 
@@ -111,7 +112,7 @@ class SolveEngine:
     `device=None` is the CUDA card (raises when there is none); pass
     `device="cpu"` for the plain PyTorch versions on the CPU.  `overrides`
     are SolverConfig fields.  The plan is resolved here, so a config the
-    port cannot run yet (a distributed strategy, `compute_dtype`) raises at
+    port cannot serve yet (a distributed strategy, `compute_dtype`) raises at
     construction, naming its ROADMAP.md item.
     """
 
@@ -119,6 +120,14 @@ class SolveEngine:
                  **overrides):
         self.config = (config or SolverConfig()).with_(**overrides)
         self.device = resolve_device(device)
+        resolved = resolve(N, self.config)
+        if resolved.grid is not None:
+            raise ValueError(
+                f"engines on the distributed strategy {resolved.strategy!r} (grid "
+                f"{resolved.grid}) are not ported yet: ROADMAP.md module item 8 "
+                f"(serving on distributed strategies); use 'sequential' or "
+                f"'sequential_chol'"
+            )
         self.plan = plan(N, self.config, device=self.device)
         self.N = N
         self._dtype = resolve_dtype(self.config.dtype)

@@ -121,12 +121,12 @@ def test_plan_without_device_targets_cuda():
 
 @pytest.mark.parametrize("fields,match", [
     (dict(backend="pallas"), "'cuda'"),
-    (dict(strategy="conflux"), "item 10"),
-    (dict(B=4, strategy="cholesky25d"), "item 10"),
+    (dict(strategy="conflux", pivot="none"), "Cholesky-only"),
+    (dict(B=4, strategy="cholesky25d"), "does not support batched plans"),
     (dict(compute_dtype="bfloat16"), "item 7"),
     (dict(dtype="float16"), "module item 7"),
     (dict(v=256), "panel widths"),
-    (dict(grid=GridConfig(2, 2, 1, 8, 64)), "item 10"),
+    (dict(grid=GridConfig(2, 2, 1, 8, 64)), "needs 4 ranks but the process group has 1"),
 ])
 def test_unported_or_unsupported_configs_raise(fields, match):
     with pytest.raises(ValueError, match=match):
@@ -144,10 +144,11 @@ def test_unported_results_and_primitives_raise():
     assert torch.equal(chol.solve(torch.ones(8)), torch.ones(8))
     eye = torch.eye(8)
     for bk in (CudaBackend(), RefBackend()):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            bk.trsm_left_lower(eye, eye)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            bk.trsm_left_lower_batched(None, None)
+        # the left-lower solves are ported: a unit solve ignores the diagonal
+        assert torch.equal(bk.trsm_left_lower(3 * eye, 2 * eye), 2 * eye)
+        assert torch.equal(bk.trsm_left_lower(2 * eye, 2 * eye, unit=False), eye)
+        assert torch.equal(bk.trsm_left_lower_batched(2 * eye[None], 2 * eye[None], unit=False),
+                           eye[None])
         # the Cholesky primitives are ported
         assert torch.equal(bk.panel_chol(4 * eye), 2 * eye)
         assert torch.equal(bk.panel_chol_batched(4 * eye[None]), 2 * eye[None])

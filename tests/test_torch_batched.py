@@ -270,7 +270,7 @@ def test_auto_with_batch_resolves_to_sequential_and_rejects_a_grid():
     assert r.strategy == "sequential" and r.B == 4 and r.v == 32
     with pytest.raises(ValueError, match="sequential-only"):
         resolve(32, SolverConfig(B=4, grid=GridConfig(2, 2, 1, 8, 32)))
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="does not support batched plans"):
         resolve(32, SolverConfig(strategy="conflux", B=4))
     with pytest.raises(ValueError, match="65535"):
         resolve(32, SolverConfig(B=65536))

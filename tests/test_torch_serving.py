@@ -344,16 +344,17 @@ class TestUnportedRaise:
 
     @pytest.mark.parametrize("strategy", ["sequential_chol", "cholesky25d"])
     def test_cholesky_engines_raise_naming_item_6(self, strategy):
-        """"sequential_chol" engines run; "cholesky25d" ones raise naming item 10."""
+        """"sequential_chol" engines run; "cholesky25d" ones raise naming item 8
+        (serving on distributed strategies)."""
         if strategy == "sequential_chol":
             eng = SolveEngine(32, SolverConfig(strategy=strategy), device="cpu")
             assert eng.plan.kind == "cholesky"
             a = AsyncSolveEngine(32, strategy=strategy, device="cpu", start=False)
             assert a.engine.plan.kind == "cholesky"
             return
-        with pytest.raises(ValueError, match="item 10"):
+        with pytest.raises(ValueError, match="item 8"):
             SolveEngine(32, SolverConfig(strategy=strategy), device="cpu")
-        with pytest.raises(ValueError, match="item 10"):
+        with pytest.raises(ValueError, match="item 8"):
             AsyncSolveEngine(32, strategy=strategy, device="cpu", start=False)
 
     def test_engine_without_device_targets_cuda(self):
