@@ -21,7 +21,13 @@ each kernel against its plain PyTorch version on the card:
   `fused_trsm_schur`, the flat one through `trsm_left_lower` and
   `schur_update` instead of the fused kernel), and eight ranks sharing the
   card through a gloo process group on a 2x2x2 grid: conflux, baseline2d and
-  cholesky25d, both hot loops, every rank returning the same factors.
+  cholesky25d, both hot loops, every rank returning the same factors;
+- the LM serving path at full width and depth, bf16, random weights from a
+  seeded `torch.Generator` on the card: `ServeEngine` on qwen3-8b (36
+  layers, kernel `flash_attention` once per layer of each prefill) and on
+  falcon-mamba-7b (64 layers, kernel `mamba_scan` likewise), 2048-token
+  prompts and 32 greedy tokens; and the first four groups of each with
+  `backend="cuda"` against `backend="ref"`.
 
 Phases print JSON lines; any failure raises, so the exit code is not 0.  The
 second-to-last line lists the kernels with their launches, errors and times;
@@ -48,6 +54,7 @@ N = 16384
 # Published H100 SXM rates (NVIDIA data sheet, at the full 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense, tensor cores
 # fused_trsm_schur against its plain version: the two sum the v-term
 # contraction in different orders, each term rounding by up to eps_f32 =
 # 6e-8 of its size, so v = 32 terms drift by ~2e-6 of the result's scale.
@@ -78,6 +85,32 @@ CHOL_SERVE_REQUESTS, CHOL_ASYNC_PER_TENANT = 256, 32
 # factor by up to about N * eps_f32 * max|L|, so CHOL_L_TOL_FACTOR * N * eps *
 # max|L| bounds their difference, as LU_F_TOL_FACTOR does for F.
 CHOL_L_TOL_FACTOR = 4.0
+# The LM serving path: qwen3-8b and falcon-mamba-7b at full width and depth
+# in bf16, 2048-token prompts, 32 new tokens; the first four groups at
+# S = 1024 for the kernel path against the plain path.
+LM_SERVE = (("qwen3-8b", 4), ("falcon-mamba-7b", 2))
+LM_PROMPT, LM_NEW = 2048, 32
+LM_PLAIN_GROUPS, LM_PLAIN_S, LM_PLAIN_B, LM_PLAIN_NEW = 4, 1024, 2, 8
+# flash_attention against its plain version (dense softmax): in f32 the two
+# sum the same terms in other orders, so 2e-4 (rtol and atol), the CPU
+# tests' f32 tolerance.  In bf16 2e-2, the tolerance of
+# tests/test_kernels.py::_tol: the plain version rounds the scores to bf16
+# where the kernel keeps them in f32 (0.4% of a score), and both round the
+# output to bf16 once more.
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# mamba_scan's y against the plain recurrence: each y_t sums N = 16 products
+# in another order (each rounding by up to eps_f32 = 6e-8 of the largest),
+# so 1e-5 of max|y| bounds it with a tenfold margin.  The final state rounds
+# the same two operations per step as the plain version: held bit for bit.
+MAMBA_Y_REL_TOL = 1e-5
+# The four-group full-width models, kernel path against plain path, bf16:
+# the paths round the attention scores (bf16 in the plain blocked path, f32
+# in the kernel) and the attention outputs at other places, 0.4% per
+# rounding, and each group carries such differences into the residual
+# stream, where later products and norms spread them; over four groups they
+# stay within a few percent of the largest logit.  5% of max|logits| is the
+# bound.  The scan path rounds nothing differently before its bf16 output.
+LM_LOGIT_REL_TOL = 5e-2
 
 
 def emit(phase: str, **fields) -> None:
@@ -141,10 +174,11 @@ def profile_once(fn) -> dict:
             "top": [{"kernel": k, "ms": ms, "count": n} for k, (ms, n) in top]}
 
 
-def bound(nbytes: float, nops: float) -> dict:
+def bound(nbytes: float, nops: float, flops: float = FP32_FLOPS) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_FLOPS
+    operations over the rate for their type (f32 unless given), whichever is
+    larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / flops
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -157,7 +191,8 @@ def panel_ops(R: int, v: int, n_active: int) -> int:
 
 
 def _wrappers() -> dict:
-    from repro_torch.kernels import chol_panel, fused_schur, lu_panel, schur_update, trsm
+    from repro_torch.kernels import (chol_panel, flash_attention, fused_schur, lu_panel,
+                                     mamba_scan, schur_update, trsm)
 
     return {"lu_panel": lu_panel.lu_panel, "fused_trsm_schur": fused_schur.fused_trsm_schur,
             "lu_panel_batched": lu_panel.lu_panel_batched,
@@ -169,7 +204,9 @@ def _wrappers() -> dict:
             "trsm_right_upper_batched": trsm.trsm_right_upper_batched,
             "schur_update_batched": schur_update.schur_update_batched,
             "trsm_left_lower": trsm.trsm_left_lower,
-            "trsm_left_lower_batched": trsm.trsm_left_lower_batched}
+            "trsm_left_lower_batched": trsm.trsm_left_lower_batched,
+            "flash_attention": flash_attention.flash_attention,
+            "mamba_scan": mamba_scan.mamba_scan}
 
 
 def expected_launches(**counts) -> dict:
@@ -1080,6 +1117,240 @@ def grid_8ranks(device: str = "cuda:0") -> None:
         raise AssertionError("grid_8ranks: " + "; ".join(problems))
 
 
+# --------------------------------------------------------------------------
+# The LM serving path (module item 13): flash_attention and mamba_scan.
+# --------------------------------------------------------------------------
+
+def attention_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs that the mask keeps, over one head."""
+    if not causal:
+        return S * S
+    if window is None:
+        return S * (S + 1) // 2
+    return sum(min(q + 1, window) for q in range(S))
+
+
+def lm_kernel_rows(dev, gen) -> list[dict]:
+    """flash_attention and mamba_scan against their plain versions on the
+    card, at the LM path's shapes and beyond.  Returns the two rows of the
+    kernels line (launches filled in later)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    # (B, S, H, KV, hd, dtype, causal, window, softcap): qwen3-8b's prefill
+    # (the row), f32, gemma2-9b's local layer (hd = 256, window, softcap),
+    # and a ragged S, bidirectional.
+    cases = ((4, LM_PROMPT, 32, 8, 128, torch.bfloat16, True, None, None),
+             (1, 1024, 32, 8, 128, torch.float32, True, None, None),
+             (1, LM_PROMPT, 16, 8, 256, torch.bfloat16, True, 512, 50.0),
+             (2, 1000, 8, 2, 64, torch.bfloat16, False, None, None))
+    for B, S, H, KV, hd, dt, causal, window, softcap in cases:
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev, dtype=dt)
+        k = torch.randn(B, S, KV, hd, generator=gen, device=dev, dtype=dt)
+        v = torch.randn(B, S, KV, hd, generator=gen, device=dev, dtype=dt)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out_k = ops.flash_attention(q, k, v, **kw)
+        out_p = ref.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        diff = (out_k.float() - out_p.float()).abs()
+        err = float(diff.max())
+        tol = FLASH_TOL[dt]
+        within = bool((diff <= tol + tol * out_p.float().abs()).all())
+        finite = bool(torch.isfinite(out_k).all())
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        elem = q.element_size()
+        nbytes = elem * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        nops = 4 * B * H * hd * attention_pairs(S, causal, window)
+        b = bound(nbytes, nops, BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
+        emit("kernel_flash_attention", shape=[B, S, H, KV, hd], dtype=str(dt), causal=causal,
+             window=window, softcap=softcap, max_abs_err=err, tol=tol, within_tol=within,
+             finite=finite, ms=ms, **b)
+        if not (within and finite):
+            raise AssertionError(f"flash_attention {[B, S, H, KV, hd]} {dt} {kw}: error {err} "
+                                 f"beyond {tol} (rtol and atol), finite {finite}")
+        if len(rows) == 0:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rows.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:64",
+                "max_abs_err": err, "ms": ms,
+                "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v, **kw), reps=3),
+                **b,
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+                           "on [B, H, S, hd] views",
+            })
+        del q, k, v, out_k, out_p, diff
+
+    # mamba_scan at falcon-mamba-7b's prefill shape.
+    B, S, di, N = 2, LM_PROMPT, 8192, 16
+    a = torch.rand(B, S, di, N, generator=gen, device=dev).mul_(0.399).add_(0.6)
+    bb = torch.randn(B, S, di, N, generator=gen, device=dev)
+    C = torch.randn(B, S, N, generator=gen, device=dev)
+    y_k, h_k = ops.mamba_scan(a, bb, C, return_state=True)
+    y_p, h_p = ref.mamba_scan(a, bb, C, return_state=True)
+    torch.cuda.synchronize()
+    err = float((y_k - y_p).abs().max())
+    scale = float(y_p.abs().max())
+    check = {"y_within_tol": err <= MAMBA_Y_REL_TOL * scale,
+             "state_bit_identical": torch.equal(h_k, h_p),
+             "finite": bool(torch.isfinite(y_k).all() and torch.isfinite(h_k).all())}
+    ms = time_ms(lambda: ops.mamba_scan(a, bb, C, return_state=True))
+    b = bound(4 * (2 * B * S * di * N + B * S * N + B * S * di + B * di * N), 4 * B * S * di * N)
+    emit("kernel_mamba_scan", shape=[B, S, di, N], max_abs_err=err, y_scale=scale,
+         tol_rel=MAMBA_Y_REL_TOL, state_max_abs_err=float((h_k - h_p).abs().max()), ms=ms,
+         **b, **check)
+    if not all(check.values()):
+        raise AssertionError(f"mamba_scan disagrees with its plain version: {check}, "
+                             f"y error {err} (scale {scale})")
+    rows.append({
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:46",
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": time_ms(lambda: ref.mamba_scan(a, bb, C, return_state=True), reps=3),
+        **b,
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes a selective scan",
+    })
+    del a, bb, C, y_k, y_p, h_k, h_p
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _mixer_layers(cfg, kind: str) -> int:
+    return cfg.n_groups * sum(1 for s in cfg.pattern if s.mixer.startswith(kind))
+
+
+def lm_serve(arch: str, batch: int) -> dict:
+    """`ServeEngine.generate` on the full model through the entry points:
+    B seeded 2048-token prompts, 32 greedy tokens.  The counted run must
+    launch each mixer's kernel once per layer of the prefill and nothing in
+    the decode steps.  Returns the launches of the counted run."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import SamplerConfig, ServeEngine
+
+    phase = "lm_serve_" + arch.split("-")[0].replace("falcon", "falcon_mamba")
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    max_len = LM_PROMPT + LM_NEW
+    engine = ServeEngine(model, max_len=max_len, batch_size=batch,
+                         sampler=SamplerConfig(max_new_tokens=LM_NEW))
+    prompt_gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (batch, LM_PROMPT), generator=prompt_gen)
+    # Warm-up: cuBLAS handles and the first launch of each kernel, on a short prompt.
+    model.prefill({"tokens": prompts[:, :64].to(model.device)}, max_len=128)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outs = engine.generate(prompts.tolist())
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    stats = engine.stats
+    n_attn, n_mamba = _mixer_layers(cfg, "attn"), _mixer_layers(cfg, "mamba")
+    expected = expected_launches(flash_attention=n_attn, mamba_scan=n_mamba)
+    tokens_ok = (len(outs) == batch and all(len(o) == LM_NEW for o in outs)
+                 and all(0 <= t < cfg.vocab for o in outs for t in o))
+    emit(phase, arch=arch, layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+         param_gib=sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30,
+         dtype=str(model.dtype), backend=model.backend, build_s=build_s, batch=batch,
+         prompt_len=LM_PROMPT, new_tokens=LM_NEW, prefill_s=stats["prefill_s"],
+         decode_s=stats["decode_s"], decode_steps=stats["decode_steps"],
+         decode_tokens_per_s=batch * stats["decode_steps"] / stats["decode_s"],
+         ms_per_decode_step=1e3 * stats["decode_s"] / stats["decode_steps"],
+         peak_gib=peak_gib, launches={k: c for k, c in launches.items() if c},
+         launches_per_prefill={"flash_attention": n_attn, "mamba_scan": n_mamba},
+         launches_per_decode_step=0, tokens_ok=tokens_ok, first_tokens=[o[:8] for o in outs])
+    if launches != expected:
+        raise AssertionError(f"{arch}: expected one prefill's launches {expected} and none in "
+                             f"{stats['decode_steps']} decode steps, got {launches}")
+    if not tokens_ok:
+        raise AssertionError(f"{arch}: generate returned {[len(o) for o in outs]} tokens")
+
+    # Where the time goes: one more prefill and one decode step after it,
+    # each under the profiler; the decode step must launch no kernel.
+    toks = prompts.to(model.device)
+    name = phase.removeprefix("lm_serve_")
+    result = []
+    emit(f"profile_{name}_prefill",
+         **profile_once(lambda: result.append(model.prefill({"tokens": toks}, max_len=max_len))))
+    logits, caches = result.pop()
+    if not (logits.shape == (batch, cfg.vocab) and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{arch}: prefill logits {tuple(logits.shape)} not finite")
+    nxt = logits.argmax(-1)
+    reset_launches()
+    emit(f"profile_{name}_decode_step",
+         **profile_once(lambda: result.append(model.decode_step(caches, nxt, LM_PROMPT))))
+    step_launches = {k: c for k, c in read_launches().items() if c}
+    if step_launches or not bool(torch.isfinite(result[0][0]).all()):
+        raise AssertionError(f"{arch}: a decode step launched {step_launches}, or its logits "
+                             f"are not finite")
+    del engine, model, result, logits, caches, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_plain_check(arch: str) -> None:
+    """The first LM_PLAIN_GROUPS groups of the full-width model, kernel path
+    against plain path (backend "ref") on the card, same weights: prefill
+    logits within LM_LOGIT_REL_TOL of max|logits|; the first greedy token
+    at which the two paths part is reported, not held."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=LM_PLAIN_GROUPS * len(cfg.pattern))
+    prompt_gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (LM_PLAIN_B, LM_PLAIN_S), generator=prompt_gen)
+    results = {}
+    for backend in ("cuda", "ref"):
+        model = build_model(cfg, backend=backend, seed=3)
+        t = toks.to(model.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill({"tokens": t}, max_len=LM_PLAIN_S + LM_PLAIN_NEW)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        first = logits.float()
+        seq = []
+        nxt = logits.argmax(-1)
+        for i in range(LM_PLAIN_NEW):
+            seq.append(nxt.tolist())
+            logits, caches = model.decode_step(caches, nxt, LM_PLAIN_S + i)
+            nxt = logits.argmax(-1)
+        results[backend] = (first, seq, prefill_s)
+        del model, caches, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lk, sk, tk), (lp, sp, tp) = results["cuda"], results["ref"]
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    diverge = next((i for i, (a, b) in enumerate(zip(sk, sp)) if a != b), None)
+    emit("lm_plain_check", arch=arch, groups=LM_PLAIN_GROUPS, batch=LM_PLAIN_B, S=LM_PLAIN_S,
+         logits_max_abs_err=err, logits_max_abs=scale, tol_rel=LM_LOGIT_REL_TOL,
+         prefill_s_kernels=tk, prefill_s_plain=tp, first_greedy_divergence=diverge,
+         greedy_steps=LM_PLAIN_NEW)
+    if not err <= LM_LOGIT_REL_TOL * scale:
+        raise AssertionError(f"{arch}: kernel and plain paths' logits differ by {err} "
+                             f"(max |logits| {scale}, tolerance {LM_LOGIT_REL_TOL} of it)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1278,6 +1549,16 @@ def main() -> int:
     conflux_p1_plain_1024(dev, gen)
     grid_8ranks()
 
+    # 9. The LM serving path: the two kernels, each model served at full
+    #    width and depth (one after the other, each freed before the next),
+    #    and four groups of each on the kernel path against the plain path.
+    lm_rows = lm_kernel_rows(dev, gen)
+    lm_launches = {}
+    for arch, batch in LM_SERVE:
+        lm_launches.update({k: c for k, c in lm_serve(arch, batch).items() if c})
+    for arch, _ in LM_SERVE:
+        lm_plain_check(arch)
+
     panel_row["launches"] = launches["lu_panel"]
     for row in fused_rows:
         row["launches"] = launches["fused_trsm_schur"]
@@ -1288,7 +1569,9 @@ def main() -> int:
         row["launches"] = counts[row["name"]]
     for row in trsm_rows:
         row["launches"] = conflux_flat_launches[row["name"]]
-    rows = [panel_row, *fused_rows, *batched_rows, *chol_rows, *trsm_rows]
+    for row in lm_rows:
+        row["launches"] = lm_launches[row["name"]]
+    rows = [panel_row, *fused_rows, *batched_rows, *chol_rows, *trsm_rows, *lm_rows]
     for row in rows:
         row["kernel_ms"] = row["ms"]
     print(json.dumps({"kernels": rows, "card": smi}), flush=True)

@@ -1,9 +1,10 @@
 """State carried across from the JAX package.
 
-A solver has no weights: its state is the factorization and the config.
-These functions take what the JAX package produced, as numpy arrays and
-plain field values, and build the port's objects, so both packages can be
-shown to compute the same thing from the same state.
+A solver has no weights: its state is the factorization and the config.  An
+LM's state is its parameters.  These functions take what the JAX package
+produced, as numpy arrays and plain field values, and build the port's
+objects, so both packages can be shown to compute the same thing from the
+same state.
 """
 
 from __future__ import annotations
@@ -72,3 +73,39 @@ def config_from_jax(fields: dict) -> SolverConfig:
     if out.get("grid") is not None:
         out["grid"] = _grid(out["grid"])
     return SolverConfig(**out)
+
+
+def _tensor(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: torch takes it through f32
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=not a.flags.writeable, order="C"))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def lm_params_from_numpy(cfg, params: dict, *, device, dtype=None) -> dict:
+    """The port's model state (a `state_dict` for `Transformer.load_state_dict`)
+    from the JAX package's parameter pytree as numpy arrays:
+    `{"embed", "head" (unless tied), "blocks": {"pos{i}": {...}}, "final_norm"}`
+    with every leaf of "blocks" stacked over the cfg.n_groups groups.
+
+    Group g's leaf `blocks[pos][sub][name][g]` becomes
+    `groups.{g}.{pos}.{sub}.{name}`.  `dtype` casts every leaf (None keeps
+    each leaf's own); `load_state_dict` casts into the model's parameter
+    dtypes in any case.  `device` None is the CUDA card."""
+    dev = resolve_device(device)
+    state = {"embed": _tensor(params["embed"], dev, dtype),
+             "final_norm.scale": _tensor(params["final_norm"]["scale"], dev, dtype)}
+    if "head" in params:
+        state["head"] = _tensor(params["head"], dev, dtype)
+    for pos, layer in params["blocks"].items():
+        for sub, leaves in layer.items():
+            for name, stacked in leaves.items():
+                stacked = np.asarray(stacked)
+                if stacked.shape[0] != cfg.n_groups:
+                    raise ValueError(f"blocks.{pos}.{sub}.{name}: leading axis "
+                                     f"{stacked.shape[0]} != n_groups {cfg.n_groups}")
+                for g in range(cfg.n_groups):
+                    state[f"groups.{g}.{pos}.{sub}.{name}"] = _tensor(stacked[g], dev, dtype)
+    return state

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("lu_panel", "fused_schur", "chol_panel", "trsm", "schur_update")
+SOURCES = ("lu_panel", "fused_schur", "chol_panel", "trsm", "schur_update",
+           "flash_attention", "mamba_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -9,16 +9,19 @@ solve near 3% of the update at v = 32 (see `csrc/fused_schur.cu`).  The
 batched wrappers fit the same tiles to each system's [M, C].
 
 The other kernels (`chol_panel`, `trsm_right_upper`, `trsm_left_lower`,
-`schur_update` and their `_batched` forms) take any shape: their tiles are
-fixed in the CUDA source and the ragged edges are masked there, so nothing
-needs fitting and ops exports their wrappers as they are.
+`schur_update` and their `_batched` forms, and the LM stack's
+`flash_attention` and `mamba_scan`) take any shape: their tiles are fixed in
+the CUDA source and the ragged edges are masked there, so nothing needs
+fitting and ops exports their wrappers as they are.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels import fused_schur as _fs
 from repro_torch.kernels.chol_panel import chol_panel, chol_panel_batched
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lu_panel import lu_panel, lu_panel_batched
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.schur_update import schur_update, schur_update_batched
 from repro_torch.kernels.trsm import (
     trsm_left_lower,
@@ -28,8 +31,9 @@ from repro_torch.kernels.trsm import (
 )
 
 __all__ = [
-    "chol_panel", "chol_panel_batched", "fused_trsm_schur", "fused_trsm_schur_batched",
-    "lu_panel", "lu_panel_batched", "schur_update", "schur_update_batched",
+    "chol_panel", "chol_panel_batched", "flash_attention", "fused_trsm_schur",
+    "fused_trsm_schur_batched", "lu_panel", "lu_panel_batched", "mamba_scan",
+    "schur_update", "schur_update_batched",
     "trsm_left_lower", "trsm_left_lower_batched", "trsm_right_upper",
     "trsm_right_upper_batched",
 ]

@@ -119,3 +119,56 @@ def schur_update(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Ten
 
 
 schur_update_batched = schur_update
+
+
+NEG_INF = -1e30  # the reference's finite mask value (never -inf: exp(-inf - -inf) is NaN)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int | None = None, softcap: float | None = None) -> torch.Tensor:
+    """Dense softmax GQA attention: q [B, S, H, hd], k and v [B, S, KV, hd]
+    (H % KV == 0) -> [B, S, H, hd] in q's dtype.
+
+    As the JAX package's `ref.flash_attention`: the scores come out of the
+    product in the inputs' dtype and are then taken to f32 (bf16 inputs round
+    them, where the kernel keeps them in f32), scaled by hd^-1/2, softcapped
+    as cap * tanh(s / cap), masked with the finite NEG_INF, softmaxed in f32,
+    and the probabilities are rounded to v's dtype before the PV product.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * hd**-0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)
+    q_pos, k_pos = pos[:, None], pos[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    s = s.masked_fill(~ok, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def mamba_scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor, *,
+               return_state: bool = False):
+    """The selective-scan recurrence, one step at a time, in f32:
+
+        h_t = a_t * h_{t-1} + b_t,   y_t[i] = sum_n C_t[n] h_t[i, n],   h_0 = 0,
+
+    for a and b [B, S, di, N] and C [B, S, N].  Returns y [B, S, di], and with
+    `return_state` also the last state h_S [B, di, N].  The product and the
+    sum round separately (two operations, no fused multiply-add), as the
+    kernel rounds them, so the two states agree bit for bit.
+    """
+    B, S, di, N = a.shape
+    h = torch.zeros((B, di, N), dtype=torch.float32, device=a.device)
+    y = torch.empty((B, S, di), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        y[:, t] = (h * C[:, t, None, :]).sum(-1)
+    return (y, h) if return_state else y

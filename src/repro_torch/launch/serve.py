@@ -1,0 +1,56 @@
+"""Serving entry point: builds a model with random parameters from a seed and
+serves batched generation requests with the static-batch engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b [--reduced] \\
+        [--device cpu] [--max-new 16]
+
+Without --device it runs on the CUDA card.  Restoring a checkpoint waits for
+the port of `checkpoint/` (ROADMAP.md module item 13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.data.pipeline import DataConfig, synthetic_batch
+from repro_torch.models.model_zoo import build_model
+from repro_torch.serving import SamplerConfig, ServeEngine
+
+
+def main(argv=None) -> list[list[int]]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--groups", type=int, default=2)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg, groups=args.groups)
+    if not cfg.causal:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode path")
+    model = build_model(cfg, device=args.device)
+    engine = ServeEngine(
+        model, max_len=args.max_len, batch_size=args.batch,
+        sampler=SamplerConfig(temperature=args.temperature, max_new_tokens=args.max_new),
+        device=args.device,
+    )
+    dc = DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len * 2, global_batch=args.batch)
+    prompts = synthetic_batch(dc, 123)["tokens"][:, : args.prompt_len].tolist()
+    outs = engine.generate(prompts)
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        print(f"[{i}] prompt={p[:8]}... -> {o}")
+    print(json.dumps({"arch": cfg.name, "device": str(model.device), **engine.stats}))
+    return outs
+
+
+if __name__ == "__main__":
+    main()

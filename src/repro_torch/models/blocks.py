@@ -1,0 +1,106 @@
+"""One group of the repeating (mixer, ffn) pattern, as an nn.Module.
+
+A model is `cfg.n_groups` groups of `len(cfg.pattern)` layers each; a group
+is a ModuleDict keyed "pos{i}" by the position in the pattern, as the JAX
+package keys its per-group parameters.  The group runs its layers for the
+three passes: the full-sequence forward, the prefill (which also fills this
+group's slot of the decode caches) and the one-token decode step.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers.attention import Attention, attention_forward, decode_attention
+from repro_torch.models.layers.mamba import Mamba, mamba_decode, mamba_forward
+from repro_torch.models.layers.mlp import MLP, mlp_forward
+from repro_torch.models.layers.norms import RMSNorm, rms_norm
+
+
+class Layer(nn.Module):
+    """One (mixer, ffn) position: norm_mixer, attn or mamba, norm_ffn, mlp."""
+
+    def __init__(self, cfg, spec, *, device, dtype):
+        super().__init__()
+        if spec.ffn == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers (qwen3-moe, llama4, jamba) are not ported yet: "
+                f"models/layers/moe.py, ROADMAP.md module item 13")
+        kw = dict(device=device, dtype=dtype)
+        self.spec = spec
+        self.norm_mixer = RMSNorm(cfg.d_model, **kw)
+        self.norm_ffn = RMSNorm(cfg.d_model, **kw)
+        if spec.mixer in ("attn", "attn_local"):
+            self.attn = Attention(cfg, **kw)
+        elif spec.mixer == "mamba":
+            self.mamba = Mamba(cfg, **kw)
+        else:
+            raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")
+        if spec.ffn == "mlp":
+            self.mlp = MLP(cfg, **kw)
+
+    def reset_parameters(self, cfg, gen: torch.Generator) -> None:
+        self.norm_mixer.reset_parameters()
+        self.norm_ffn.reset_parameters()
+        for name in ("attn", "mamba", "mlp"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters(cfg, gen)
+
+    def ffn(self, cfg, x: torch.Tensor) -> torch.Tensor:
+        """x + mlp(norm(x)), or x for a mixer-only layer."""
+        if self.spec.ffn == "none":
+            return x
+        return x + mlp_forward(self.mlp, cfg, rms_norm(x, self.norm_ffn.scale, cfg.norm_eps))
+
+
+class Group(nn.ModuleDict):
+    """The layers of one pattern group, keyed "pos{i}"."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__({f"pos{i}": Layer(cfg, spec, device=device, dtype=dtype)
+                          for i, spec in enumerate(cfg.pattern)})
+
+    def reset_parameters(self, cfg, gen: torch.Generator) -> None:
+        for layer in self.values():
+            layer.reset_parameters(cfg, gen)
+
+    def forward(self, cfg, x, positions, *, backend: str = "cuda", caches=None, g: int = 0):
+        """Full-sequence pass.  With `caches` (the stacked decode caches), the
+        prefill: also writes this group's attention k/v at positions [0, S)
+        and its mamba states into slot `g`."""
+        S = x.shape[1]
+        for key, layer in self.items():
+            h = rms_norm(x, layer.norm_mixer.scale, cfg.norm_eps)
+            mixer = layer.spec.mixer
+            if mixer.startswith("attn"):
+                out, (k, v) = attention_forward(layer.attn, cfg, h, positions,
+                                                local=mixer == "attn_local", backend=backend)
+                if caches is not None:
+                    caches[key]["k"][g, :, :S] = k
+                    caches[key]["v"][g, :, :S] = v
+            elif caches is None:
+                out = mamba_forward(layer.mamba, cfg, h, backend=backend)
+            else:
+                out, (ssm, conv) = mamba_forward(layer.mamba, cfg, h, return_state=True,
+                                                 backend=backend)
+                caches[key]["ssm"][g] = ssm
+                caches[key]["conv"][g] = conv
+            x = layer.ffn(cfg, x + out)
+        return x
+
+    def decode(self, cfg, x, caches, g: int, position: int):
+        """One token through the group, updating slot `g` of the caches in place."""
+        for key, layer in self.items():
+            h = rms_norm(x, layer.norm_mixer.scale, cfg.norm_eps)
+            mixer = layer.spec.mixer
+            c = caches[key]
+            if mixer.startswith("attn"):
+                out, _, _ = decode_attention(layer.attn, cfg, h, c["k"][g], c["v"][g], position,
+                                             local=mixer == "attn_local")
+            else:
+                out, ssm, conv = mamba_decode(layer.mamba, cfg, h, c["ssm"][g], c["conv"][g])
+                c["ssm"][g] = ssm
+                c["conv"][g] = conv
+            x = layer.ffn(cfg, x + out)
+        return x

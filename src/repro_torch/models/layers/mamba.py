@@ -1,0 +1,138 @@
+"""Mamba-1 block (selective SSM) for falcon-mamba.
+
+The full-sequence forward runs the selective scan through the hand-written
+kernel (`repro_torch.kernels.ops.mamba_scan`), which also returns the last
+state for the prefill -> decode handoff; the JAX layer runs the kernel's jnp
+analogue, a chunked associative scan that builds the whole [B, S, di, N]
+state history.  `backend="ref"` runs the kernel's plain version, the
+sequential recurrence.  Decode carries the [B, d_inner, N] state explicitly,
+one token at a time.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import BACKENDS
+
+
+class Mamba(nn.Module):
+    """in_proj [d, 2, di], conv_w [d_conv, di], conv_b [di], x_proj
+    [di, r + 2N], dt_proj [r, di], dt_bias [di], A_log [di, N] (f32),
+    D [di] (f32), out_proj [di, d]."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        d, di = cfg.d_model, cfg.d_inner
+        N, dconv, r = cfg.mamba.d_state, cfg.mamba.d_conv, cfg.dt_rank
+        kw = dict(device=device, dtype=dtype)
+        f32 = dict(device=device, dtype=torch.float32)
+        self.in_proj = nn.Parameter(torch.empty(d, 2, di, **kw))
+        self.conv_w = nn.Parameter(torch.empty(dconv, di, **kw))
+        self.conv_b = nn.Parameter(torch.empty(di, **kw))
+        self.x_proj = nn.Parameter(torch.empty(di, r + 2 * N, **kw))
+        self.dt_proj = nn.Parameter(torch.empty(r, di, **kw))
+        self.dt_bias = nn.Parameter(torch.empty(di, **kw))
+        self.A_log = nn.Parameter(torch.empty(di, N, **f32))
+        self.D = nn.Parameter(torch.empty(di, **f32))
+        self.out_proj = nn.Parameter(torch.empty(di, d, **kw))
+
+    def reset_parameters(self, cfg, gen: torch.Generator) -> None:
+        d, di = cfg.d_model, cfg.d_inner
+        N, dconv, r = cfg.mamba.d_state, cfg.mamba.d_conv, cfg.dt_rank
+        with torch.no_grad():
+            self.in_proj.normal_(generator=gen).mul_(d**-0.5)
+            self.conv_w.normal_(generator=gen).mul_(dconv**-0.5)
+            self.conv_b.zero_()
+            self.x_proj.normal_(generator=gen).mul_(di**-0.5)
+            self.dt_proj.normal_(generator=gen).mul_(r**-0.5)
+            self.dt_bias.fill_(-4.6)  # softplus^-1(0.01)
+            self.A_log.copy_(torch.log(torch.arange(1, N + 1, dtype=torch.float32)).expand(di, N))
+            self.D.fill_(1.0)
+            self.out_proj.normal_(generator=gen).mul_(di**-0.5)
+
+
+def _ssm_inputs(p, cfg, xc: torch.Tensor):
+    """The pre-scan computation.  xc [B, S, di] (after the conv and silu).
+
+    Returns the decay a [B, S, di, N] and drive b [B, S, di, N] in f32, and
+    C [B, S, N] in xc's dtype."""
+    N, r = cfg.mamba.d_state, cfg.dt_rank
+    dbl = xc @ p.x_proj
+    dt, Bc, Cc = torch.split(dbl, [r, N, N], dim=-1)
+    dt = F.softplus((dt @ p.dt_proj).float() + p.dt_bias.float())  # [B, S, di]
+    A = -torch.exp(p.A_log)  # [di, N]
+    a = (dt[..., None] * A).exp_()  # in place: a is [B, S, di, N] f32
+    b = (dt * xc.float())[..., None] * Bc[:, :, None, :].float()
+    return a, b, Cc
+
+
+def _causal_conv(p, cfg, x1: torch.Tensor, conv_state: torch.Tensor | None = None):
+    """Depthwise causal conv1d.  x1 [B, S, di]; conv_state [B, dconv-1, di] or
+    None (zeros).  Returns (out [B, S, di], the new state: the last dconv-1
+    inputs)."""
+    dconv = cfg.mamba.d_conv
+    if conv_state is None:
+        pad = x1.new_zeros((x1.shape[0], dconv - 1, x1.shape[2]))
+    else:
+        pad = conv_state.to(x1.dtype)
+    xp = torch.cat([pad, x1], dim=1)  # [B, S + dconv - 1, di]
+    S = x1.shape[1]
+    out = sum(xp[:, i:i + S, :] * p.conv_w[i] for i in range(dconv))
+    new_state = xp[:, -(dconv - 1):, :] if dconv > 1 else pad
+    return out + p.conv_b, new_state
+
+
+def _gate_out(p, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor, dtype) -> torch.Tensor:
+    """(y + D xc) silu(z), in f32, cast to the model's dtype, then out_proj."""
+    y = y + p.D * xc.float()
+    return (y * F.silu(z.float())).to(dtype) @ p.out_proj
+
+
+def mamba_forward(p, cfg, x: torch.Tensor, return_state: bool = False, *,
+                  backend: str = "cuda"):
+    """x [B, S, d] -> [B, S, d]: the selective scan from h_0 = 0.
+
+    With return_state=True also returns (ssm_state [B, di, N] f32,
+    conv_state [B, dconv-1, di]) after the last step, for the prefill ->
+    decode handoff.  `backend="cuda"` scans with the kernel (its plain version
+    on CPU tensors), `"ref"` with the plain version on any device."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    S = x.shape[1]
+    d, _, di = p.in_proj.shape
+    xz = (x @ p.in_proj.reshape(d, 2 * di)).unflatten(-1, (2, di))
+    x1, z = xz[..., 0, :], xz[..., 1, :]
+    xc, _ = _causal_conv(p, cfg, x1)
+    xc = F.silu(xc)
+    a, b, Cc = _ssm_inputs(p, cfg, xc)
+    scan = ops.mamba_scan if backend == "cuda" else ref.mamba_scan
+    y, h_last = scan(a, b, Cc.float().contiguous(), return_state=True)
+    del a, b
+    out = _gate_out(p, y, xc, z, x.dtype)
+    if not return_state:
+        return out
+    dconv = cfg.mamba.d_conv
+    if S >= dconv - 1:
+        conv_state = x1[:, S - (dconv - 1):, :]
+    else:
+        conv_state = F.pad(x1, (0, 0, dconv - 1 - S, 0))
+    return out, (h_last, conv_state)
+
+
+def mamba_decode(p, cfg, x: torch.Tensor, ssm_state: torch.Tensor, conv_state: torch.Tensor):
+    """One-token step.  x [B, 1, d]; ssm_state [B, di, N]; conv_state
+    [B, dconv-1, di].  Returns (out [B, 1, d], new ssm_state, new conv_state)."""
+    d, _, di = p.in_proj.shape
+    xz = (x @ p.in_proj.reshape(d, 2 * di)).unflatten(-1, (2, di))
+    x1, z = xz[..., 0, :], xz[..., 1, :]
+    xc, new_conv = _causal_conv(p, cfg, x1, conv_state)
+    xc = F.silu(xc)
+    a, b, Cc = _ssm_inputs(p, cfg, xc)  # S = 1
+    h = a[:, 0] * ssm_state + b[:, 0]  # [B, di, N]
+    y = (h * Cc[:, 0, None, :].float()).sum(-1)
+    out = _gate_out(p, y, xc[:, 0], z[:, 0], x.dtype)
+    return out[:, None, :], h, new_conv

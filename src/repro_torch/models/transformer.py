@@ -1,0 +1,114 @@
+"""The model: parameters, the scoring forward, prefill and decode over the
+group stack.
+
+Decode state layout (dict of tensors stacked over the G groups), as the JAX
+package's:
+    caches["pos{i}"] = {"k": [G, B, Smax, KV, hd], "v": ...}          attention mixers
+                     = {"ssm": [G, B, di, N] f32, "conv": [G, B, dc-1, di]}  mamba mixers
+
+The JAX package scans one jitted group body over the stacked parameters; here
+the groups are an `nn.ModuleList` and a Python loop runs them.  Inference
+only: no remat, no loss (training is a later slice).  `decode_step` updates
+the caches in place and returns the same dict.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.blocks import Group
+from repro_torch.models.layers.embeddings import embed_inputs, init_embeddings, logits_out
+from repro_torch.models.layers.norms import RMSNorm, rms_norm
+
+
+def init_caches(cfg, batch_size: int, max_len: int, *, dtype, device) -> dict:
+    """Zeroed decode caches for `batch_size` sequences of up to `max_len`."""
+    G = cfg.n_groups
+    caches = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.mixer.startswith("attn"):
+            shape = (G, batch_size, max_len, cfg.n_kv, cfg.head_dim)
+            caches[f"pos{i}"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        elif spec.mixer == "mamba":
+            di, N, dc = cfg.d_inner, cfg.mamba.d_state, cfg.mamba.d_conv
+            caches[f"pos{i}"] = {
+                "ssm": torch.zeros((G, batch_size, di, N), dtype=torch.float32, device=device),
+                "conv": torch.zeros((G, batch_size, dc - 1, di), dtype=dtype, device=device),
+            }
+    return caches
+
+
+class Transformer(nn.Module):
+    """embed [V, d], head [d, V] (unless tied), `groups` (G x Group),
+    final_norm.  `backend` picks the attention and scan kernels ("cuda") or
+    their plain versions ("ref") for the full-sequence passes."""
+
+    def __init__(self, cfg, *, device, dtype, backend: str = "cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.backend = backend
+        kw = dict(device=device, dtype=dtype)
+        self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, **kw))
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab, **kw))
+        self.groups = nn.ModuleList(Group(cfg, **kw) for _ in range(cfg.n_groups))
+        self.final_norm = RMSNorm(cfg.d_model, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.dtype
+
+    def init_params(self, gen: torch.Generator) -> None:
+        """Random parameters with the JAX package's distributions, drawn from
+        `gen` (a generator on the model's device).  The draws are not JAX's."""
+        init_embeddings(self, self.cfg, gen)
+        for group in self.groups:
+            group.reset_parameters(self.cfg, gen)
+        self.final_norm.reset_parameters()
+
+    def init_caches(self, batch_size: int, max_len: int, dtype=None) -> dict:
+        return init_caches(self.cfg, batch_size, max_len, dtype=dtype or self.dtype,
+                           device=self.device)
+
+    def _final(self, x: torch.Tensor) -> torch.Tensor:
+        return logits_out(self, self.cfg, rms_norm(x, self.final_norm.scale, self.cfg.norm_eps))
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> torch.Tensor:
+        """batch -> logits [B, S, V]."""
+        x = embed_inputs(self, self.cfg, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for group in self.groups:
+            x = group(self.cfg, x, positions, backend=self.backend)
+        return self._final(x)
+
+    @torch.no_grad()
+    def prefill(self, batch: dict, max_len: int):
+        """Run the prompt: (last-position logits [B, V], filled caches).
+
+        The attention caches hold positions [0, S); mamba states carry the
+        last recurrent state."""
+        x = embed_inputs(self, self.cfg, batch)
+        B, S, _ = x.shape
+        if S > max_len:
+            raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
+        positions = torch.arange(S, device=x.device)
+        caches = self.init_caches(B, max_len)
+        for g, group in enumerate(self.groups):
+            x = group(self.cfg, x, positions, backend=self.backend, caches=caches, g=g)
+        return self._final(x[:, -1:, :])[:, 0, :], caches
+
+    @torch.no_grad()
+    def decode_step(self, caches: dict, tokens: torch.Tensor, position: int):
+        """tokens [B] at `position` -> (logits [B, V], caches updated in place)."""
+        position = int(position)
+        x = self.embed[tokens[:, None]]
+        for g, group in enumerate(self.groups):
+            x = group.decode(self.cfg, x, caches, g, position)
+        return self._final(x)[:, 0, :], caches

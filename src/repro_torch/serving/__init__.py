@@ -8,12 +8,14 @@
     `Overloaded`        — raised by `submit` under the "shed" policy.
     `Ring`              — the fixed-window latency / depth / fill samples.
 
-Engines run on the CUDA card unless built with `device="cpu"`.  The JAX
-package's LM engine (`ServeEngine`, `SamplerConfig`) belongs to the LM
-stack, which is not ported yet (ROADMAP.md module item 13).
+LM:
+    `ServeEngine`, `SamplerConfig` — static-batch prefill/decode engine.
+
+Engines run on the CUDA card unless built with `device="cpu"`.
 """
 
 from repro_torch.serving.async_engine import AsyncSolveEngine
+from repro_torch.serving.lm_engine import SamplerConfig, ServeEngine
 from repro_torch.serving.metrics import Ring
 from repro_torch.serving.queues import Overloaded, TenantQueues
 from repro_torch.serving.solve_engine import SolveEngine
@@ -22,16 +24,14 @@ __all__ = [
     "AsyncSolveEngine",
     "Overloaded",
     "Ring",
+    "SamplerConfig",
+    "ServeEngine",
     "SolveEngine",
     "TenantQueues",
 ]
 
 
 def __getattr__(name: str):
-    if name in ("ServeEngine", "SamplerConfig"):
-        raise AttributeError(
-            f"{name} is the LM stack's engine, not ported yet: ROADMAP.md module item 13"
-        )
     raise AttributeError(
         f"module 'repro_torch.serving' has no attribute {name!r}; the public "
         f"surface is {__all__}"

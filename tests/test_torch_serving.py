@@ -365,10 +365,14 @@ class TestUnportedRaise:
                 SolveEngine(32)
 
     def test_lm_engine_names_its_item(self):
+        # The LM engine, a stub naming module item 13 until it was ported,
+        # is now part of the public surface; unknown names still fail loudly.
         import repro_torch.serving as serving
+        from repro_torch.serving import lm_engine
 
-        with pytest.raises(AttributeError, match="item 13"):
-            serving.ServeEngine  # noqa: B018
+        assert serving.ServeEngine is lm_engine.ServeEngine
+        assert serving.SamplerConfig is lm_engine.SamplerConfig
+        assert {"ServeEngine", "SamplerConfig"} <= set(serving.__all__)
         with pytest.raises(AttributeError, match="public"):
             serving.EngineThatNeverWas  # noqa: B018
 
