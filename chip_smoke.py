@@ -1130,6 +1130,36 @@ def attention_pairs(S: int, causal: bool, window) -> int:
     return sum(min(q + 1, window) for q in range(S))
 
 
+def flash_build_report() -> list[dict]:
+    """ptxas's registers and spills for each instantiation of
+    `csrc/flash_attention.cu`, from this process's build, with the dynamic
+    shared memory each bf16 instantiation asks for at launch."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+
+    smem = _build.function("flash_attention", "flash_attention_bf16_smem", (ctypes.c_int,))
+    report = []
+    lines = _build.build_log.get("flash_attention", "").splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*flash_fwd_(bf16|f32)_kernelILi(\d+)E", line)
+        if not m:
+            continue
+        text = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+        dtype, width = m.group(1), int(m.group(2))
+        entry = {"kernel": f"{dtype}<{width}>",
+                 "registers": int(regs.group(1)) if regs else None,
+                 "spill_stores": int(spill.group(1)) if spill else None,
+                 "spill_loads": int(spill.group(2)) if spill else None}
+        if dtype == "bf16":  # the template argument is hd padded to 64
+            entry["dynamic_smem_bytes"] = smem(width)
+        report.append(entry)
+    return report
+
+
 def lm_kernel_rows(dev, gen) -> list[dict]:
     """flash_attention and mamba_scan against their plain versions on the
     card, at the LM path's shapes and beyond.  Returns the two rows of the
@@ -1138,14 +1168,22 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
 
     from repro_torch.kernels import ops, ref
 
+    emit("flash_ptxas", instantiations=flash_build_report())
     rows = []
     # (B, S, H, KV, hd, dtype, causal, window, softcap): qwen3-8b's prefill
-    # (the row), f32, gemma2-9b's local layer (hd = 256, window, softcap),
-    # and a ragged S, bidirectional.
+    # (the row), f32, gemma2-9b's local layer (hd = 256, window, softcap), a
+    # ragged S, bidirectional, and the attention shapes of four more configs
+    # in configs/ at S = 2048: hubert-xlarge (hd = 80, bidirectional),
+    # phi3-mini (hd = 96), starcoder2-15b (48 / 4 heads: gq = 12) and
+    # llama4-maverick (40 / 8: gq = 5; neither divides a 128-row tile).
     cases = ((4, LM_PROMPT, 32, 8, 128, torch.bfloat16, True, None, None),
              (1, 1024, 32, 8, 128, torch.float32, True, None, None),
              (1, LM_PROMPT, 16, 8, 256, torch.bfloat16, True, 512, 50.0),
-             (2, 1000, 8, 2, 64, torch.bfloat16, False, None, None))
+             (2, 1000, 8, 2, 64, torch.bfloat16, False, None, None),
+             (1, LM_PROMPT, 16, 16, 80, torch.bfloat16, False, None, None),
+             (1, LM_PROMPT, 32, 32, 96, torch.bfloat16, True, None, None),
+             (1, LM_PROMPT, 48, 4, 128, torch.bfloat16, True, None, None),
+             (1, LM_PROMPT, 40, 8, 128, torch.bfloat16, True, None, None))
     for B, S, H, KV, hd, dt, causal, window, softcap in cases:
         q = torch.randn(B, S, H, hd, generator=gen, device=dev, dtype=dt)
         k = torch.randn(B, S, KV, hd, generator=gen, device=dev, dtype=dt)

@@ -9,9 +9,14 @@ must be contiguous: the model's q, k (rotary output) and v (a view of one
 product) already are, and the wrapper raises rather than copy.  The launch
 count is in `flash_attention.launches`.
 
-What bounds it on the card, and what the design does about that: see the
-note at the top of `csrc/flash_attention.cu` (operations; this first kernel
-does both products as f32 FMAs on the CUDA cores, not on the tensor cores).
+What bounds it on the card: operations (1.37e11 at qwen3-8b's prefill
+shape, 0.139 ms at the tensor cores' bf16 rate).  The bf16 kernel runs both
+products on the tensor cores (`wgmma`), with K and V brought by TMA into a
+three-stage ring that the consumer warps themselves refill; two warpgroups
+of 64 packed rows take turns on the tensor cores, and each runs its softmax
+under its previous PV product.  The f32 kernel keeps f32 FMAs on the CUDA
+cores, since a tensor-core f32 product is TF32 (about three digits).  The
+note at the top of `csrc/flash_attention.cu` has the details.
 """
 
 from __future__ import annotations
@@ -57,6 +62,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap) -
                             f"{name} is {t.dtype}, q is {q.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous [B, S, heads, hd]")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: bf16 {name} must start on a 16-byte boundary "
+                             f"(the kernel reads it through TMA and 16-byte loads)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,

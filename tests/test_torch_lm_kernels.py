@@ -26,6 +26,7 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import mamba_scan as ms_mod
 from repro_torch.kernels import ops, ref
 
+NEG_INF = -1e30  # the kernels' finite mask value
 F32_TOL = dict(rtol=2e-4, atol=2e-4)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 DTYPES = {"float32": (torch.float32, jnp.float32, F32_TOL),
@@ -119,6 +120,95 @@ def test_flash_wrapper_refuses_cpu_tensors_at_the_launch_check():
         fa_mod._check(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous(), None, None)
     with pytest.raises(ValueError, match="window"):
         fa_mod._check(q, q, q, 0, None)
+
+
+def _kernel_schedule_bf16(q, k, v, *, causal=True, window=None, softcap=None):
+    """The bf16 CUDA kernel's block schedule, emulated with torch on the CPU.
+
+    Blocks of 128 packed rows (r = s * gq + g), as two warpgroups of 64;
+    kv tiles of 128 keys for hd <= 128, else 64; each block walks its skip
+    range [j_first, kv_end) and masks a tile only where the block's test
+    says the tile needs it.  q, k and v are padded with zeros to
+    ceil(hd / 64) * 64 columns and k, v to whole kv tiles past S, as the
+    kernel's Q staging and TMA boxes pad them.  Scores, m, l and acc are f32,
+    p is rounded to bf16 before the PV product and l sums the unrounded p.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    gq = H // KV
+    hdp = -(-hd // 64) * 64
+    keys = 128 if hdp <= 128 else 64
+    rows_total = S * gq
+    n_qt = -(-rows_total // 128)
+    s_pad = -(-S // keys) * keys + keys
+    qf = torch.nn.functional.pad(q.float(), (0, hdp - hd))
+    kf = torch.nn.functional.pad(k.float(), (0, hdp - hd, 0, 0, 0, s_pad - S))
+    vf = torch.nn.functional.pad(v.float(), (0, hdp - hd, 0, 0, 0, s_pad - S))
+    scale = torch.tensor(hd**-0.5, dtype=torch.float32)
+    out = torch.zeros(B, S, H, hd)
+    for b in range(B):
+        for kvh in range(KV):
+            packed = qf[b, :, kvh * gq:(kvh + 1) * gq].reshape(rows_total, hdp)
+            packed = torch.nn.functional.pad(packed, (0, 0, 0, n_qt * 128 - rows_total))
+            res = torch.zeros(n_qt * 128, hdp)
+            for qt in reversed(range(n_qt)):
+                r0 = qt * 128
+                q_lo = r0 // gq
+                q_hi = (min(r0 + 128, rows_total) - 1) // gq
+                kv_end = min(S, q_hi + 1) if causal else S
+                kv_begin = max(0, q_lo - window + 1) if window else 0
+                j_first = kv_begin // keys * keys
+                n_tiles = -(-(kv_end - j_first) // keys)
+                for w0 in (r0, r0 + 64):
+                    qw = packed[w0:w0 + 64]
+                    pos = (torch.arange(w0, w0 + 64) // gq)[:, None]
+                    m = torch.full((64, 1), NEG_INF)
+                    l = torch.zeros(64, 1)
+                    acc = torch.zeros(64, hdp)
+                    for t in range(n_tiles):
+                        j0 = j_first + t * keys
+                        s = (qw @ kf[b, j0:j0 + keys, kvh].T) * scale
+                        if softcap is not None:
+                            s = softcap * torch.tanh(s / softcap)
+                        if ((causal and j0 + keys - 1 > q_lo)
+                                or (window and j0 <= q_hi - window) or j0 + keys > S):
+                            j = torch.arange(j0, j0 + keys)[None, :]
+                            ok = torch.ones(64, keys, dtype=torch.bool)
+                            if causal:
+                                ok &= j <= pos
+                            if window:
+                                ok &= j > pos - window
+                            s = torch.where(ok, s, torch.tensor(NEG_INF))
+                            s = torch.where(j >= S, torch.tensor(-float("inf")), s)
+                        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new)
+                        l = l * alpha + p.sum(-1, keepdim=True)
+                        acc = acc * alpha + p.bfloat16().float() @ vf[b, j0:j0 + keys, kvh]
+                        m = m_new
+                    res[w0:w0 + 64] = acc / torch.clamp(l, min=1e-30)
+            out[b, :, kvh * gq:(kvh + 1) * gq] = res[:rows_total, :hd].reshape(S, gq, hd)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("gq,hd,S", [(1, 64, 1000), (2, 80, 300), (4, 128, 300),
+                                     (5, 256, 300), (12, 96, 77)])
+def test_flash_bf16_kernel_schedule_matches_ref(gq, hd, S, mask, softcap):
+    """The bf16 kernel's tile schedule (skip range, packing, per-block mask
+    test, hd padding, p rounded before PV) against the dense
+    references: a wrong skip range or packing is off by O(1).  gq = 5 with
+    64-key tiles puts q tiles across kv tile boundaries."""
+    kw = {"causal": dict(), "window": dict(window=100),
+          "bidirectional": dict(causal=False)}[mask]
+    KV = 2 if gq < 12 else 1
+    (q, k, v), (jq, jk, jv) = _both(_qkv(1, S, gq * KV, KV, hd, seed=gq * hd + S), "bfloat16")
+    out = _kernel_schedule_bf16(q, k, v, softcap=softcap, **kw)
+    np.testing.assert_allclose(_np(out), _np(jref.flash_attention(jq, jk, jv, softcap=softcap,
+                                                                  **kw)), **BF16_TOL)
+    np.testing.assert_allclose(_np(out), _np(ref.flash_attention(q, k, v, softcap=softcap, **kw)),
+                               **BF16_TOL)
 
 
 # --------------------------------------------------------------------------
