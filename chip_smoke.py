@@ -30,7 +30,9 @@ each kernel against its plain PyTorch version on the card:
   `backend="cuda"` against `backend="ref"`.
 
 Phases print JSON lines; any failure raises, so the exit code is not 0.  The
-second-to-last line lists the kernels with their launches, errors and times;
+second-to-last line lists the kernels with their launches, errors and times
+(`ms` of one call between CUDA events, `device_ms` from torch.profiler,
+`host_ms` the difference, each beside its bound and its library call's);
 the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -132,6 +134,62 @@ def time_ms(fn, reps: int = 7) -> float:
     return sorted(times)[len(times) // 2]
 
 
+DEVICE_CALLS = 20  # calls under the profiler for `device_ms`
+
+
+TAIL_KERNEL = "spin_kernel"  # what torch.cuda._sleep launches
+# Profiler windows of every `device_ms` call: how many were profiled, how many
+# kept no device record of the calls, and the most one call needed.
+WINDOWS = {"calls": 0, "profiled": 0, "empty": 0, "most_in_one_call": 0}
+
+
+def device_ms(fn, calls: int = DEVICE_CALLS, tries: int = 5) -> float:
+    """Device time of one call: the device's records (kernels, copies,
+    fills) of `calls` calls under torch.profiler, summed by name as the
+    median duration of a record times the records one call makes.  With
+    `time_ms` (one call between CUDA events, so the host's time to reach the
+    launch as well), `ms - device_ms` is the host's share of a call.
+
+    The profiler on the card loses the last records of a window (often one
+    of 20, up to 9 of 20 after long kernels, once all), so a tail of short
+    sleep kernels, left out of the sum, follows the calls; one slow record
+    would move a mean, so each name takes the median of its records; and a
+    window that kept no record of the calls is profiled again."""
+    from collections import defaultdict
+    from statistics import median
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    WINDOWS["calls"] += 1
+    for window in range(1, tries + 1):
+        WINDOWS["profiled"] += 1
+        WINDOWS["most_in_one_call"] = max(WINDOWS["most_in_one_call"], window)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        us = defaultdict(list)
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA and TAIL_KERNEL not in ev.name:
+                us[ev.name].append(ev.time_range.elapsed_us())
+        if us:
+            return sum(median(t) * max(1, round(len(t) / calls)) for t in us.values()) / 1e3
+        WINDOWS["empty"] += 1
+    raise AssertionError(f"torch.profiler kept no device record of the calls in {tries} windows")
+
+
+def device_fields(kernel, library=None) -> dict:
+    """A kernels-line row's `device_ms`, and its library call's
+    `library_device_ms` (None where no single call computes the function)."""
+    return {"device_ms": device_ms(kernel),
+            "library_device_ms": None if library is None else device_ms(library)}
+
+
 def hpl_residuals(A, x, b) -> torch.Tensor:
     """HPL's scaled residual ||Ax - b||_inf / (eps (||A||_inf ||x||_inf + ||b||_inf) N)
     of each system: A [..., N, N], x and b [..., N]."""
@@ -148,9 +206,14 @@ def hpl_residual(A, x, b) -> float:
     return float(hpl_residuals(A, x, b).max())
 
 
+# Name prefixes of the port's kernels in csrc/, as the profiler names them.
+PORT_KERNELS = ("lu_panel_", "fused_trsm_schur_", "chol_panel_", "trsm_", "schur_update_",
+                "flash_fwd_", "mamba_scan_")
+
+
 def profile_once(fn) -> dict:
-    """Wall time, device busy time, idle share and top kernels of one call
-    under torch.profiler."""
+    """Wall time, device busy time, idle share, top kernels and every kernel
+    of the port of one call under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -171,7 +234,9 @@ def profile_once(fn) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "top": [{"kernel": k, "ms": ms, "count": n} for k, (ms, n) in top]}
+            "top": [{"kernel": k, "ms": ms, "count": n} for k, (ms, n) in top],
+            "port_kernels": [{"kernel": k, "ms": ms, "count": n}
+                             for k, (ms, n) in by_kernel.items() if k.startswith(PORT_KERNELS)]}
 
 
 def bound(nbytes: float, nops: float, flops: float = FP32_FLOPS) -> dict:
@@ -268,6 +333,7 @@ def batched_kernel_rows(dev, gen) -> list[dict]:
             **bound(4 * B * (2 * R * v + R) + 5 * B * v,
                     sum(panel_ops(R, v, n) for n in n_active)),
             "library_ms": None,
+            **device_fields(lambda: lu_panel_batched(panel, weights)),
             "library": "none: no single PyTorch call computes a masked LUP with row weights",
         })
 
@@ -308,6 +374,7 @@ def batched_kernel_rows(dev, gen) -> list[dict]:
             **bound(4 * B * (2 * M * C + v * v + 2 * v * C + M * v),
                     B * (2 * M * C * v + v * v * C)),
             "library_ms": time_ms(library),
+            **device_fields(lambda: ops.fused_trsm_schur_batched(A, L00, R01, L10), library),
             "library": "batched torch.linalg.solve_triangular + torch.baddbmm (two calls)",
         })
     return rows
@@ -525,19 +592,30 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
 
     rows = []
     # chol_panel[_batched]: the batched path's stack (lane 0 is the single
-    # path's block), f64, and v = 128 in f64, the largest shared-memory
-    # block.  Strided blocks, as the paths pass a diagonal block of A.
+    # path's block), f64, v = 128 in f64 (the largest shared-memory block),
+    # and the edges of the two bodies: v = 1 and 31 (the register body) and
+    # v = 33 (the shared-memory one).  Strided blocks, as the paths pass a
+    # diagonal block of A.
     for B, v, dt in ((BATCH, CHOL_V, torch.float32), (64, CHOL_V, torch.float64),
-                     (4, 128, torch.float64)):
+                     (4, 128, torch.float64), (64, 1, torch.float32), (64, 31, torch.float32),
+                     (64, 33, torch.float32)):
         buf = torch.zeros(B, v, 2 * v, device=dev, dtype=dt)
         buf[:, :, v:] = spd((B, v, v), gen, dev, dt)
         blocks = buf[:, :, v:]
         L_k = ops.chol_panel_batched(blocks)
         L_p = ref.chol_panel_batched(blocks)
         bad = blocks.clone()
-        bad[:, 5, 5] = -1.0  # not SPD: the pivot of round 5 is negative
+        p = min(5, v - 1)
+        bad[:, p, p] = -1.0  # not SPD: the pivot of round p is negative
         bad_k = ops.chol_panel_batched(bad)
         bad_p = ref.chol_panel_batched(bad)
+        # Not SPD through a non-finite entry: an inf below the diagonal makes
+        # an l infinite in round (v - 1) // 2 (no entry below it at v = 1).
+        inf = blocks.clone()
+        if v > 1:
+            inf[:, v - 1, (v - 1) // 2] = float("inf")
+        inf_k = ops.chol_panel_batched(inf)
+        inf_p = ref.chol_panel_batched(inf)
         torch.cuda.synchronize()
         eps = torch.finfo(dt).eps
         recon = float((L_k @ L_k.mT - blocks).abs().max()) / float(blocks.abs().max())
@@ -545,10 +623,15 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
                  "reconstruct_ok": recon <= 4 * v * eps,
                  "not_spd_nonfinite": (not bool(torch.isfinite(bad_k).all())
                                        and not bool(torch.isfinite(bad_p).all())),
-                 "not_spd_bit_identical": same_bits(bad_k, bad_p)}
+                 "not_spd_bit_identical": same_bits(bad_k, bad_p),
+                 "inf_entry_bit_identical": same_bits(inf_k, inf_p)}
+        if v > 1:
+            check["inf_entry_nonfinite"] = (not bool(torch.isfinite(inf_k).all())
+                                            and not bool(torch.isfinite(inf_p).all()))
         for b in (0, B - 1):
             check[f"lane{b}_equals_single"] = same_bits(ops.chol_panel(blocks[b]), L_k[b])
         check["not_spd_single_equals_lane0"] = same_bits(ops.chol_panel(bad[0]), bad_k[0])
+        check["inf_entry_single_equals_lane0"] = same_bits(ops.chol_panel(inf[0]), inf_k[0])
         err = float((L_k - L_p).abs().max())
         emit("kernel_chol_panel_batched", shape=[B, v, v], dtype=str(dt), max_abs_err=err,
              reconstruct_rel_err=recon, **check)
@@ -566,6 +649,7 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
             "plain_ms": time_ms(lambda: ref.chol_panel(one), reps=3),
             **bound(4 * 2 * v * v, chol_ops(v)),
             "library_ms": time_ms(lambda: torch.linalg.cholesky_ex(one)),
+            **device_fields(lambda: ops.chol_panel(one), lambda: torch.linalg.cholesky_ex(one)),
             "library": "torch.linalg.cholesky_ex on the [v, v] block",
         })
         rows.append({
@@ -576,6 +660,8 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
             "plain_ms": time_ms(lambda: ref.chol_panel_batched(blocks), reps=3),
             **bound(4 * 2 * B * v * v, B * chol_ops(v)),
             "library_ms": time_ms(lambda: torch.linalg.cholesky_ex(blocks)),
+            **device_fields(lambda: ops.chol_panel_batched(blocks),
+                            lambda: torch.linalg.cholesky_ex(blocks)),
             "library": "torch.linalg.cholesky_ex on the [B, v, v] stack",
         })
 
@@ -624,6 +710,8 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
             **bound(4 * nb * (2 * R * v + v * v), nb * R * v * v),
             "library_ms": time_ms(
                 lambda: torch.linalg.solve_triangular(U, Bm, upper=True, left=False)),
+            **device_fields(lambda: kernel(Bm, U), lambda: torch.linalg.solve_triangular(
+                U, Bm, upper=True, left=False)),
             "library": "torch.linalg.solve_triangular(U, B, upper=True, left=False)",
         })
 
@@ -669,6 +757,7 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
             "plain_ms": time_ms(lambda: plain(A, Lm, Um)),
             **bound(4 * nb * (2 * M * C + M * K + K * C), 2 * nb * M * C * K),
             "library_ms": time_ms(lambda: library(A, Lm, Um, alpha=-1.0)),
+            **device_fields(lambda: kernel(A, Lm, Um), lambda: library(A, Lm, Um, alpha=-1.0)),
             "library": ("torch.addmm" if Bb is None else "torch.baddbmm") + "(A, L, U, alpha=-1)",
         })
         del A, Lm, Um
@@ -846,12 +935,16 @@ def trsm_left_lower_rows(dev, gen) -> list[dict]:
 
     rows = []
     # The P = 1 flat path's shape (unit, f32), an f64 non-unit one, a ragged
-    # one (C % 64 != 0, v = 24) read through a strided view of B, and v = 128
-    # in f64 (the largest shared-memory tile).
+    # one (C % 64 != 0, v = 24) read through a strided view of B, v = 128 in
+    # f64 (the largest shared-memory tile), and the edges of the two bodies
+    # with ragged C: v = 1 (the register body) and v = 33 (the shared-memory
+    # one).
     for v, C, unit, dt, strided in ((CONFLUX_V, N, True, torch.float32, False),
                                     (CONFLUX_V, 4096, False, torch.float64, False),
                                     (24, 777, True, torch.float32, True),
-                                    (128, 1000, False, torch.float64, False)):
+                                    (128, 1000, False, torch.float64, False),
+                                    (1, 63, True, torch.float32, False),
+                                    (33, 65, False, torch.float32, True)):
         L = lower((), v, unit, dt)
         buf = torch.randn(v, 2 * C if strided else C, generator=gen, device=dev, dtype=dt)
         Bm = buf[:, C:] if strided else buf
@@ -875,6 +968,9 @@ def trsm_left_lower_rows(dev, gen) -> list[dict]:
             **bound(4 * (v * v + 2 * v * C), v * (v - 1) * C),
             "library_ms": time_ms(lambda: torch.linalg.solve_triangular(
                 L, Bm, upper=False, unitriangular=True)),
+            **device_fields(lambda: ops.trsm_left_lower(L, Bm),
+                            lambda: torch.linalg.solve_triangular(
+                                L, Bm, upper=False, unitriangular=True)),
             "library": "torch.linalg.solve_triangular(L, B, upper=False, unitriangular=True)",
         })
 
@@ -902,6 +998,8 @@ def trsm_left_lower_rows(dev, gen) -> list[dict]:
         "plain_ms": time_ms(lambda: ref.trsm_left_lower_batched(L, Bm, unit=False)),
         **bound(4 * Bb * (v * v + 2 * v * C), Bb * (v * (v - 1) + v) * C),
         "library_ms": time_ms(lambda: torch.linalg.solve_triangular(L, Bm, upper=False)),
+        **device_fields(lambda: ops.trsm_left_lower_batched(L, Bm, unit=False),
+                        lambda: torch.linalg.solve_triangular(L, Bm, upper=False)),
         "library": "batched torch.linalg.solve_triangular(L, B, upper=False)",
         "note": "on no path: only the JAX package's kernel lint calls it",
     })
@@ -965,13 +1063,33 @@ def conflux_p1_path(dev, gen, sequential_execute_s: float) -> dict:
     return launches["flat"]
 
 
-def conflux_p1_plain_1024(dev, gen) -> None:
+def min_pivot_gap(A: torch.Tensor) -> float:
+    """The smallest relative gap between the two largest candidates of a
+    column under partial pivoting, in f64.  Where it is near f32's rounding,
+    two f32 paths that round differently may both rightly pick either row."""
+    F = A.double().clone()
+    gaps = []
+    for k in range(F.shape[0] - 1):
+        vals, idx = F[k:, k].abs().topk(2)
+        gaps.append((vals[0] - vals[1]) / vals[0])
+        rows = torch.stack((torch.tensor(k, device=F.device), idx[0] + k))
+        F[rows] = F[rows.flip(0)]
+        F[k + 1:, k] /= F[k, k]
+        F[k + 1:, k + 1:] -= F[k + 1:, k, None] * F[k, None, k + 1:]
+    return float(torch.stack(gaps).min())
+
+
+def conflux_p1_plain_1024(dev) -> None:
     """The 1x1x1 conflux kernel path against the plain path (backend "ref")
-    at N = 1024, both hot loops; windowed and flat must pick the same pivots."""
+    at N = 1024, both hot loops; windowed and flat must pick the same pivots.
+    The matrix has a generator of its own, so that it does not change when
+    an earlier phase draws more or fewer numbers; its `min_pivot_gap` is
+    reported beside the check."""
     from repro_torch.api import GridConfig, SolverConfig, plan
 
     n = 1024
-    A = torch.randn(n, n, generator=gen, device=dev)
+    A = torch.randn(n, n, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    gap = min_pivot_gap(A)
     grid = GridConfig(1, 1, 1, CONFLUX_V, n)
     facts = {(hl, bk): plan(n, SolverConfig(strategy="conflux", grid=grid, hotloop=hl,
                                             backend=bk)).execute(A)
@@ -985,7 +1103,7 @@ def conflux_p1_plain_1024(dev, gen) -> None:
         check[f"{hl}_rows_equal_plain"] = torch.equal(k.rows, p_.rows)
         check[f"{hl}_F_within_tol"] = err <= tol
         emit("conflux_p1_plain_1024", hotloop=hl, F_max_abs_err=err, tol=tol,
-             rows_equal=check[f"{hl}_rows_equal_plain"])
+             rows_equal=check[f"{hl}_rows_equal_plain"], min_pivot_gap=gap)
     w, f = facts["windowed", "cuda"], facts["flat", "cuda"]
     check["windowed_rows_equal_flat"] = torch.equal(w.rows, f.rows)
     emit("conflux_p1_windowed_vs_flat_1024", rows_equal=check["windowed_rows_equal_flat"],
@@ -1219,6 +1337,9 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
                 **b,
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)),
+                **device_fields(lambda: ops.flash_attention(q, k, v, **kw),
+                                lambda: F.scaled_dot_product_attention(
+                                    qt, kt, vt, is_causal=True, enable_gqa=True)),
                 "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
                            "on [B, H, S, hd] views",
             })
@@ -1253,6 +1374,7 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
         "plain_ms": time_ms(lambda: ref.mamba_scan(a, bb, C, return_state=True), reps=3),
         **b,
         "library_ms": None,
+        **device_fields(lambda: ops.mamba_scan(a, bb, C, return_state=True)),
         "library": "none: no single PyTorch call computes a selective scan",
     })
     del a, bb, C, y_k, y_p, h_k, h_p
@@ -1452,6 +1574,7 @@ def main() -> int:
         "plain_ms": time_ms(lambda: ref.lu_panel(panel, weights), reps=3),
         **bound(panel_bytes, panel_ops(N, v, n_w1)),
         "library_ms": None,
+        **device_fields(lambda: lp_mod.lu_panel(panel, weights)),
         "library": "none: no single PyTorch call computes a masked LUP with row weights",
     }
     del F_k, F_p
@@ -1491,6 +1614,7 @@ def main() -> int:
             "plain_ms": time_ms(lambda: ref.fused_trsm_schur(Am, L00, R01, L10)),
             **bound(fused_bytes, fused_ops),
             "library_ms": time_ms(library),
+            **device_fields(lambda: ops.fused_trsm_schur(Am, L00, R01, L10), library),
             "library": "torch.linalg.solve_triangular + torch.addmm (two calls)",
         })
 
@@ -1584,7 +1708,7 @@ def main() -> int:
     #    N with both hot loops, its plain path at N = 1024, eight gloo ranks.
     trsm_rows = trsm_left_lower_rows(dev, gen)
     conflux_flat_launches = conflux_p1_path(dev, gen, execute_s)
-    conflux_p1_plain_1024(dev, gen)
+    conflux_p1_plain_1024(dev)
     grid_8ranks()
 
     # 9. The LM serving path: the two kernels, each model served at full
@@ -1610,8 +1734,10 @@ def main() -> int:
     for row in lm_rows:
         row["launches"] = lm_launches[row["name"]]
     rows = [panel_row, *fused_rows, *batched_rows, *chol_rows, *trsm_rows, *lm_rows]
+    emit("device_ms_windows", **WINDOWS)
     for row in rows:
         row["kernel_ms"] = row["ms"]
+        row["host_ms"] = row["ms"] - row["device_ms"]
     print(json.dumps({"kernels": rows, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -3,11 +3,13 @@
 Each source in `csrc/` compiles, with nvcc, into a shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds).  Libraries go to
 `build/repro_torch/` at the root of the checkout, named by a hash of the
-source and the flags, so a build reruns only when either changes.  `build()`
-starts one nvcc for every missing library, all at once, and waits for them.
+source, the shared headers and the flags, so a build reruns only when one of
+them changes.  `build()` starts one nvcc for every missing library, all at
+once, and waits for them.
 
-Every C entry point returns the `cudaError_t` of its launch; `check` raises
-when that is not 0.
+Every C entry point takes PyTorch's current stream last and returns the
+`cudaError_t` of its launch; `launch` passes the stream and raises when that
+is not 0.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -53,8 +57,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from `csrc/<name>.cu` lives."""
+    """Where the library built from `csrc/<name>.cu` (and the shared headers
+    `csrc/*.cuh`) lives."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -106,6 +113,9 @@ def build(names=SOURCES) -> float:
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of `csrc/<name>.cu`, building it if needed."""
     key = (name, symbol)
+    fn = _functions.get(key)  # entries are only ever added, so no lock to read
+    if fn is not None:
+        return fn
     with _lock:
         fn = _functions.get(key)
         if fn is None:
@@ -119,6 +129,34 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
             fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
             _functions[key] = fn
         return fn
+
+
+# PyTorch's current stream on a device as a plain handle, through the
+# private call that PyTorch's own generated code uses: building a
+# `torch.cuda.Stream` only to read `.cuda_stream` is a large share of a small
+# kernel's host time per call.  The public call stands in where the private
+# one is missing.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(index: int) -> int:
+    """PyTorch's current CUDA stream on device `index`, as an integer handle."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(name: str, fn: ctypes._CFuncPtr, device: torch.device, *args) -> None:
+    """Call the C entry point `fn` of `csrc/<name>.cu` with `args` and PyTorch's
+    current stream on `device`, making `device` current only if it is not
+    already, and raise if the launch failed."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, current_stream(index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, current_stream(index))
+    check(name, err)
 
 
 def check(name: str, err: int) -> None:

@@ -11,18 +11,25 @@ launches the kernel or raises.  `chol_panel.launches` and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_V = 128  # the block's shared-memory copy of the [v, v] panel
+MAX_V = 128  # the shared-memory body's copy of the [v, v] panel
 MAX_BATCH = 2**31 - 1  # systems on gridDim.x
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
+
+
+@functools.cache
+def _entry(dtype: torch.dtype):
+    """The C entry point for `dtype`, resolved (and built) at first use."""
+    return _build.function("chol_panel", f"chol_panel_{_SUFFIX[dtype]}", _ARGTYPES)
 
 
 def _check(name: str, A: torch.Tensor, ndim: int) -> None:
@@ -41,15 +48,11 @@ def _check(name: str, A: torch.Tensor, ndim: int) -> None:
         )
 
 
-def _launch(A: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on B blocks given as a 3-D tensor [B, v, v]."""
-    B, v, _ = A.shape
-    L = torch.empty((B, v, v), dtype=A.dtype, device=A.device)
-    fn = _build.function("chol_panel", f"chol_panel_{_SUFFIX[A.dtype]}", _ARGTYPES)
-    with torch.cuda.device(A.device):
-        err = fn(A.data_ptr(), A.stride(1), A.stride(0), L.data_ptr(), B, v,
-                 torch.cuda.current_stream(A.device).cuda_stream)
-    _build.check("chol_panel", err)
+def _launch(A: torch.Tensor, B: int, v: int, lda: int, bsa: int, out_shape) -> torch.Tensor:
+    """Launch the kernel on B blocks [v, v] with row stride lda and batch stride bsa."""
+    L = torch.empty(out_shape, dtype=A.dtype, device=A.device)
+    _build.launch("chol_panel", _entry(A.dtype), A.device, A.data_ptr(), lda, bsa,
+                  L.data_ptr(), B, v)
     return L
 
 
@@ -62,14 +65,16 @@ def chol_panel(A: torch.Tensor) -> torch.Tensor:
     if A.device.type == "cpu":
         return ref.chol_panel(A)
     _check("chol_panel", A, 2)
-    L = _launch(A[None])
+    v = A.shape[0]
+    L = _launch(A, 1, v, A.stride(0), 0, (v, v))
     chol_panel.launches += 1
-    return L[0]
+    return L
 
 
 def chol_panel_batched(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factors of B SPD blocks A [B, v, v] (any row and batch
-    strides), one block of the kernel per system.  Returns L [B, v, v]."""
+    strides), one warp (v <= 32) or one block of the kernel per system.
+    Returns L [B, v, v]."""
     if A.device.type == "cpu":
         return ref.chol_panel_batched(A)
     _check("chol_panel_batched", A, 3)
@@ -77,7 +82,8 @@ def chol_panel_batched(A: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol_panel_batched: at most {MAX_BATCH} systems per launch")
     if A.shape[0] == 0:
         return torch.empty_like(A)
-    L = _launch(A)
+    B, v, _ = A.shape
+    L = _launch(A, B, v, A.stride(1), A.stride(0), (B, v, v))
     chol_panel_batched.launches += 1
     return L
 

@@ -78,6 +78,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "once_per_device.cuh"
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's mask value
@@ -773,9 +774,12 @@ int launch_bf16_hdp(const void* q, const void* k, const void* v, void* out, int 
   if (!kv_map(&tm_k, k, B, S, KV, hd, T::kKeys) || !kv_map(&tm_v, v, B, S, KV, hd, T::kKeys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(T::kSmem));
+  static OncePerDevice<> limit;
+  const cudaError_t err = limit.get([](int, int*) {
+    return cudaFuncSetAttribute(flash_fwd_bf16_kernel<HDP>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(T::kSmem));
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t rows_total = static_cast<int64_t>(S) * (H / KV);
   const dim3 grid(static_cast<unsigned>((rows_total + kRows - 1) / kRows), B * KV);
@@ -1014,11 +1018,14 @@ template <int DPL>
 int launch_f32_dpl(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                    int KV, int hd, int causal, int window, float softcap, float scale,
                    cudaStream_t stream) {
-  // The limit is set for the widest head this instantiation takes, always to
-  // the same value, so launches from several host threads never race on it.
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<DPL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_floats(32 * DPL) * sizeof(float)));
+  // The limit is raised once per device, for the widest head this
+  // instantiation takes.
+  static OncePerDevice<> limit;
+  const cudaError_t err = limit.get([](int, int*) {
+    return cudaFuncSetAttribute(flash_fwd_f32_kernel<DPL>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem_floats(32 * DPL) * sizeof(float)));
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t rows_total = static_cast<int64_t>(S) * (H / KV);
   const dim3 grid(static_cast<unsigned>((rows_total + kF32Rows - 1) / kF32Rows), B * KV);

@@ -49,6 +49,7 @@
 
 #include <cuda_runtime.h>
 
+#include "once_per_device.cuh"
 namespace {
 
 constexpr int kColThreads = 128;              // columns per tile, at most
@@ -142,12 +143,13 @@ int launch(const void* A, long long lda, long long bsa, const void* L00, long lo
            long long ld10, long long bs10, void* out, long long ldo, long long bso, void* U01,
            long long ldu, long long bsu, int B, int M, int C, int v, int bm, int bc, int unit,
            void* stream) {
-  // The limit is set for the widest panel, always to the same value, so
-  // launches from several host threads never race on the attribute.
-  const size_t smem_max = static_cast<size_t>(kMaxV) * (kColThreads + kLStride) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(fused_trsm_schur_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_max));
+  // The limit is raised once per device, for the widest panel.
+  static OncePerDevice<> limit;
+  const cudaError_t err = limit.get([](int, int*) {
+    return cudaFuncSetAttribute(fused_trsm_schur_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(kMaxV * (kColThreads + kLStride) * sizeof(T)));
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(v) * (kColThreads + kLStride) * sizeof(T);
   const dim3 grid(C / bc, M / bm, B);

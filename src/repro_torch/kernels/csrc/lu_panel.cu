@@ -58,6 +58,7 @@
 
 #include <cuda_runtime.h>
 
+#include "once_per_device.cuh"
 namespace {
 
 constexpr int kThreads = 256;
@@ -374,20 +375,20 @@ lu_panel_batched_kernel(const T* __restrict__ in, int64_t ld_in, int64_t bs_in, 
 template <typename T>
 int launch_batched(const void* in, long long ld_in, long long bs_in, void* F, void* w, int B,
                    int R, int v, void* order, void* ok, void* stream) {
-  int dev = 0;
-  int optin = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, lu_panel_batched_kernel<T>);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Always the same limit, so launches from several host threads never race
-  // on the attribute.
-  const size_t budget = static_cast<size_t>(optin) - attr.sharedSizeBytes;
-  err = cudaFuncSetAttribute(lu_panel_batched_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(budget));
+  // The device's whole opt-in budget, raised once per device.
+  static OncePerDevice<size_t> limit;
+  size_t budget = 0;
+  const cudaError_t err = limit.get([](int dev, size_t* out) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, lu_panel_batched_kernel<T>);
+    if (e != cudaSuccess) return e;
+    *out = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+    return cudaFuncSetAttribute(lu_panel_batched_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*out));
+  }, &budget);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t need = (static_cast<size_t>(R) * v + R) * sizeof(T);
   const int in_shared = need <= budget ? 1 : 0;

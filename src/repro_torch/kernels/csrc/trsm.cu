@@ -37,20 +37,32 @@
 // in place, and the tile goes back out with coalesced stores.  Rows that are
 // zero in B (the path masks every row above the trailing block) stay zero.
 //
-// Design of trsm_left_lower: columns of B are independent, so each block owns
-// kCols columns of one system, one thread per column; the TPU kernel's column
-// tiles of bc = 256 become the grid's x axis.  L is staged in shared memory
-// once per block (any strides), and each thread keeps its column's v solved
-// values in a [v][kCols] shared-memory tile, so the reads of earlier values
-// are conflict-free and the reads of L are broadcasts.  The loads of B and
-// the stores of X walk a row at a time, neighbouring threads on neighbouring
-// columns, so they coalesce.  The substitution is the one that
-// `fused_schur.cu` repeats per block, written the same way,
-//   X[r, c] = B[r, c] - sum_{q<r} L[r, q] X[q, c],  then / L[r, r] unless unit,
-// so the flat step bodies (this kernel) and the windowed ones (the fused
-// kernel) solve U01 alike.  The ragged column edge is masked; C need not be a
-// multiple of the tile.  At v = 128 in f64 the block holds L (128 KB) and its
-// column tile (64 KB) in dynamic shared memory.
+// Design of trsm_left_lower: columns of B are independent, so each thread
+// owns one column of one system (blockIdx.z); the TPU kernel's column tiles
+// of bc = 256 become the grid's x axis.  For v <= 32 (every path's v),
+// `trsm_left_lower_reg_kernel`, kRegCols = 128 threads (columns) a block,
+// the fastest of 32, 64, 128 and 256 at [32, 16384] (PERF.md):
+//   - a thread loads all v values of its column into registers before the
+//     first sum, so it waits out one memory latency, where a load placed
+//     behind each row's dependent sum would wait out v of them in turn;
+//   - L is staged once per block, transposed, in shared memory (strictly
+//     lower part, and the diagonal unless unit), every staging load issued
+//     before the first store;
+//   - the solve runs column by column: once x[q] is final, every later row
+//     takes its term L[r][q] x[q], so a step's FMAs are independent of each
+//     other, and the whole warp reads each 16-byte run of L's column q at
+//     once (a broadcast);
+//   - X goes out row by row after the solve, neighbouring threads on
+//     neighbouring columns, so the stores coalesce.
+// For 32 < v <= 128 (off every path), `trsm_left_lower_smem_kernel` keeps
+// the column's solved values in a [v][kCols] shared-memory tile beside L (at
+// v = 128 in f64, 128 KB and 64 KB of dynamic shared memory).  In both
+// bodies each row's sum grows in ascending q as `partial += L * x`, then
+// X[r, c] = B[r, c] - partial, then / L[r, r] unless unit: the order and form
+// that `fused_schur.cu` repeats per block, which nvcc contracts into the same
+// chain of FMAs in both kernels, so the flat step bodies (this kernel) and
+// the windowed ones (the fused kernel) solve U01 alike.  The ragged column
+// edge is masked; C need not be a multiple of the tile.
 //
 // Both sums run in another order than a library solve's, so results agree
 // with the plain versions within a stated tolerance, not bitwise.
@@ -58,6 +70,8 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "once_per_device.cuh"
 
 namespace {
 
@@ -110,13 +124,84 @@ trsm_right_upper_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
   }
 }
 
-constexpr int kCols = 64;  // columns (threads) per block of trsm_left_lower
+constexpr int kCols = 64;         // columns (threads) per block of the shared-memory body
+constexpr int kRegV = 32;         // v up to which a thread keeps its column in registers
+constexpr int kRegCols = 128;     // columns (threads) per block of the register body
+
+// One 16-byte run of a row of staged L: four f32 or two f64 values.
+template <typename T>
+struct alignas(16) Run {
+  T x[16 / sizeof(T)];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRegCols)
+trsm_left_lower_reg_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c, int64_t bsl,
+                           const T* __restrict__ B, int64_t ldb, int64_t bsb,
+                           T* __restrict__ X, int C, int v, int unit) {
+  __shared__ __align__(16) T Lt[kRegV * kRegV];  // Lt[q][r] = L[r][q]; zero where not read
+  constexpr int kRun = 16 / sizeof(T);
+
+  const int64_t z = blockIdx.z;
+  L += z * bsl;
+  B += z * bsb;
+  X += z * static_cast<int64_t>(v) * C;
+  const int col = blockIdx.x * kRegCols + threadIdx.x;
+  const bool has_col = col < C;
+
+  // This thread's column, every row requested before anything waits on one.
+  T x[kRegV];
+#pragma unroll
+  for (int r = 0; r < kRegV; ++r) x[r] = has_col && r < v ? B[r * ldb + col] : T(0);
+
+  // L, transposed into shared memory: this thread's elements idx =
+  // threadIdx.x + i * kRegCols, all loads issued before the first store.
+  constexpr int kStage = kRegV * kRegV / kRegCols;
+  T staged[kStage];
+#pragma unroll
+  for (int i = 0; i < kStage; ++i) {
+    const int idx = threadIdx.x + i * kRegCols;
+    const int q = idx / kRegV;
+    const int r = idx % kRegV;
+    const bool read = r < v && (q < r || (q == r && !unit));
+    staged[i] = read ? L[r * ldl_r + q * ldl_c] : T(0);
+  }
+#pragma unroll
+  for (int i = 0; i < kStage; ++i) Lt[threadIdx.x + i * kRegCols] = staged[i];
+  __syncthreads();
+  if (!has_col) return;
+
+  // Column by column: once x[q] is final, every later row takes its term
+  // L[r][q] x[q].  Each row's partial sum still grows in ascending q, one
+  // FMA at a time, so it is rounded exactly as a row-by-row sweep would
+  // round it; the rows' FMAs of one step are independent of each other.
+  T partial[kRegV];
+#pragma unroll
+  for (int r = 0; r < kRegV; ++r) partial[r] = T(0);
+#pragma unroll
+  for (int q = 0; q < kRegV; ++q) {
+    T xq = x[q] - partial[q];
+    if (!unit) xq = xq / Lt[q * kRegV + q];
+    x[q] = xq;
+#pragma unroll
+    for (int r0 = (q + 1) / kRun * kRun; r0 < kRegV; r0 += kRun) {
+      const Run<T> run = *reinterpret_cast<const Run<T>*>(Lt + q * kRegV + r0);
+#pragma unroll
+      for (int e = 0; e < kRun; ++e)
+        if (r0 + e > q) partial[r0 + e] += run.x[e] * xq;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRegV; ++r)
+    if (r < v) X[static_cast<int64_t>(r) * C + col] = x[r];
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kCols)
-trsm_left_lower_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c, int64_t bsl,
-                       const T* __restrict__ B, int64_t ldb, int64_t bsb,
-                       T* __restrict__ X, int C, int v, int unit) {
+trsm_left_lower_smem_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c, int64_t bsl,
+                            const T* __restrict__ B, int64_t ldb, int64_t bsb,
+                            T* __restrict__ X, int C, int v, int unit) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ls = reinterpret_cast<T*>(smem_raw);  // [v][v]
   T* Xs = Ls + v * v;                      // [v][kCols]: this block's columns
@@ -128,11 +213,8 @@ trsm_left_lower_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c, in
   const int tx = threadIdx.x;
   const int col = blockIdx.x * kCols + tx;
 
-  for (int idx = tx; idx < v * v; idx += kCols) {
-    const int i = idx / v;
-    const int j = idx - i * v;
-    Ls[idx] = L[i * ldl_r + j * ldl_c];
-  }
+  for (int r = 0; r < v; ++r)
+    for (int q = tx; q < v; q += kCols) Ls[r * v + q] = L[r * ldl_r + q * ldl_c];
   __syncthreads();
 
   if (col < C) {
@@ -150,13 +232,13 @@ trsm_left_lower_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c, in
 template <typename T>
 int launch(const void* B, long long ldb, long long bsb, const void* U, long long ldu_r,
            long long ldu_c, long long bsu, void* X, int Bb, int R, int v, void* stream) {
-  // The limit is set for the widest panel, always to the same value, so
-  // launches from several host threads never race on the attribute.
-  const size_t smem_max = static_cast<size_t>(kMaxV) * (kMaxV + kRows) * sizeof(T) +
-                          static_cast<size_t>(kRows) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(trsm_right_upper_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_max));
+  // The limit is raised once per device, for the widest panel.
+  static OncePerDevice<> limit;
+  const cudaError_t err = limit.get([](int, int*) {
+    return cudaFuncSetAttribute(
+        trsm_right_upper_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>((kMaxV * (kMaxV + kRows) + kRows) * sizeof(T)));
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = (static_cast<size_t>(v) * v + static_cast<size_t>(kRows) * (v + 1)) *
                       sizeof(T);
@@ -171,15 +253,26 @@ template <typename T>
 int launch_left_lower(const void* L, long long ldl_r, long long ldl_c, long long bsl,
                       const void* B, long long ldb, long long bsb, void* X, int Bb, int v, int C,
                       int unit, void* stream) {
-  // As above: the limit is set once, for the widest panel.
-  const size_t smem_max = static_cast<size_t>(kMaxV) * (kMaxV + kCols) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(trsm_left_lower_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_max));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (v <= kRegV) {
+    const dim3 grid(
+        static_cast<unsigned>((static_cast<int64_t>(C) + kRegCols - 1) / kRegCols), 1, Bb);
+    trsm_left_lower_reg_kernel<T><<<grid, kRegCols, 0, s>>>(
+        static_cast<const T*>(L), ldl_r, ldl_c, bsl, static_cast<const T*>(B), ldb, bsb,
+        static_cast<T*>(X), C, v, unit);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // As above: the limit is raised once per device, for the widest panel.
+  static OncePerDevice<> limit;
+  const cudaError_t err = limit.get([](int, int*) {
+    return cudaFuncSetAttribute(trsm_left_lower_smem_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(kMaxV * (kMaxV + kCols) * sizeof(T)));
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(v) * (v + kCols) * sizeof(T);
-  const dim3 grid((C + kCols - 1) / kCols, 1, Bb);
-  trsm_left_lower_kernel<T><<<grid, kCols, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>((static_cast<int64_t>(C) + kCols - 1) / kCols), 1, Bb);
+  trsm_left_lower_smem_kernel<T><<<grid, kCols, smem, s>>>(
       static_cast<const T*>(L), ldl_r, ldl_c, bsl, static_cast<const T*>(B), ldb, bsb,
       static_cast<T*>(X), C, v, unit);
   return static_cast<int>(cudaGetLastError());

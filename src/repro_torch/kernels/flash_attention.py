@@ -80,11 +80,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
     fn = _build.function("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, H, k.shape[2], hd, int(causal), window or 0, softcap or 0.0, hd**-0.5,
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_attention", err)
+    _build.launch("flash_attention", fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), B, S, H, k.shape[2], hd, int(causal), window or 0,
+                  softcap or 0.0, hd**-0.5)
     flash_attention.launches += 1
     return out
 

@@ -76,11 +76,9 @@ def _launch(A, L00, R01, L10, bm: int, bc: int, unit: bool):
     U01 = torch.empty((B, v, C), dtype=A.dtype, device=A.device)
     fn = _build.function("fused_schur", f"fused_trsm_schur_{_SUFFIX[A.dtype]}", _ARGTYPES)
     operands = (A, L00, R01, L10, out, U01)
-    with torch.cuda.device(A.device):
-        err = fn(*(x for t in operands for x in (t.data_ptr(), t.stride(1), t.stride(0))),
-                 B, M, C, v, bm, bc, int(unit),
-                 torch.cuda.current_stream(A.device).cuda_stream)
-    _build.check("fused_schur", err)
+    _build.launch("fused_schur", fn, A.device,
+                  *(x for t in operands for x in (t.data_ptr(), t.stride(1), t.stride(0))),
+                  B, M, C, v, bm, bc, int(unit))
     return out, U01
 
 

@@ -72,11 +72,9 @@ def lu_panel(panel: torch.Tensor, weights: torch.Tensor):
     nbytes = _build.function("lu_panel", "lu_panel_scratch_bytes", ())()
     # partial argmaxes and the grid barrier's counters, which start at 0
     scratch = torch.zeros(nbytes, dtype=torch.uint8, device=panel.device)
-    with torch.cuda.device(panel.device):
-        err = fn(panel.data_ptr(), panel.stride(0), F.data_ptr(), w.data_ptr(), R, v,
-                 order.data_ptr(), ok.data_ptr(), scratch.data_ptr(),
-                 torch.cuda.current_stream(panel.device).cuda_stream)
-    _build.check("lu_panel", err)
+    _build.launch("lu_panel", fn, panel.device, panel.data_ptr(), panel.stride(0),
+                  F.data_ptr(), w.data_ptr(), R, v, order.data_ptr(), ok.data_ptr(),
+                  scratch.data_ptr())
     lu_panel.launches += 1
     return F, order, ok
 
@@ -104,11 +102,9 @@ def lu_panel_batched(panel: torch.Tensor, weights: torch.Tensor):
         return F, order, ok
     fn = _build.function("lu_panel", f"lu_panel_batched_{_SUFFIX[panel.dtype]}",
                          _BATCHED_ARGTYPES)
-    with torch.cuda.device(panel.device):
-        err = fn(panel.data_ptr(), panel.stride(1), panel.stride(0), F.data_ptr(),
-                 w.data_ptr(), B, R, v, order.data_ptr(), ok.data_ptr(),
-                 torch.cuda.current_stream(panel.device).cuda_stream)
-    _build.check("lu_panel", err)
+    _build.launch("lu_panel", fn, panel.device, panel.data_ptr(), panel.stride(1),
+                  panel.stride(0), F.data_ptr(), w.data_ptr(), B, R, v, order.data_ptr(),
+                  ok.data_ptr())
     lu_panel_batched.launches += 1
     return F, order, ok
 

@@ -61,10 +61,8 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor, *,
     y = torch.empty((B, S, di), dtype=torch.float32, device=a.device)
     h = torch.empty((B, di, N), dtype=torch.float32, device=a.device)
     fn = _build.function("mamba_scan", "mamba_scan_f32", _ARGTYPES)
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), C.data_ptr(), y.data_ptr(), h.data_ptr(),
-                 B, S, di, N, torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check("mamba_scan", err)
+    _build.launch("mamba_scan", fn, a.device, a.data_ptr(), b.data_ptr(), C.data_ptr(),
+                  y.data_ptr(), h.data_ptr(), B, S, di, N)
     mamba_scan.launches += 1
     return (y, h) if return_state else y
 

@@ -66,10 +66,9 @@ def _launch(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     B, M, N = A.shape
     out = torch.empty((B, M, N), dtype=A.dtype, device=A.device)
     fn = _build.function("schur_update", f"schur_update_{_SUFFIX[A.dtype]}", _ARGTYPES)
-    with torch.cuda.device(A.device):
-        err = fn(*(x for t in (A, L, U, out) for x in (t.data_ptr(), t.stride(1), t.stride(0))),
-                 B, M, N, L.shape[-1], torch.cuda.current_stream(A.device).cuda_stream)
-    _build.check("schur_update", err)
+    _build.launch("schur_update", fn, A.device,
+                  *(x for t in (A, L, U, out) for x in (t.data_ptr(), t.stride(1), t.stride(0))),
+                  B, M, N, L.shape[-1])
     return out
 
 

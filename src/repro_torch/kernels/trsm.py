@@ -13,6 +13,7 @@ Each wrapper counts its launches in `<wrapper>.launches`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,6 +33,13 @@ _LEFT_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
+
+
+@functools.cache
+def _entry(kind: str, dtype: torch.dtype):
+    """The C entry point `trsm_<kind>_<dtype>`, resolved (and built) at first use."""
+    return _build.function("trsm", f"trsm_{kind}_{_SUFFIX[dtype]}",
+                           _ARGTYPES if kind == "right_upper" else _LEFT_ARGTYPES)
 
 
 def _check_common(name: str, B: torch.Tensor, T: torch.Tensor, lead: tuple) -> None:
@@ -77,30 +85,27 @@ def _check_left(name: str, L: torch.Tensor, B: torch.Tensor, ndim: int) -> None:
     _check_common(name, B, L, lead)
 
 
-def _launch(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on Bb systems given as 3-D tensors [Bb, ...]."""
-    Bb, R, v = B.shape
-    X = torch.empty((Bb, R, v), dtype=B.dtype, device=B.device)
-    fn = _build.function("trsm", f"trsm_right_upper_{_SUFFIX[B.dtype]}", _ARGTYPES)
-    with torch.cuda.device(B.device):
-        err = fn(B.data_ptr(), B.stride(1), B.stride(0),
-                 U.data_ptr(), U.stride(1), U.stride(2), U.stride(0),
-                 X.data_ptr(), Bb, R, v, torch.cuda.current_stream(B.device).cuda_stream)
-    _build.check("trsm", err)
+def _launch(B: torch.Tensor, U: torch.Tensor, Bb: int, bsb: int, bsu: int,
+            out_shape) -> torch.Tensor:
+    """Launch the right solve on Bb systems B [R, v], U [v, v] (batch strides
+    bsb and bsu) into a new X of `out_shape`."""
+    R, v = B.shape[-2:]
+    X = torch.empty(out_shape, dtype=B.dtype, device=B.device)
+    _build.launch("trsm", _entry("right_upper", B.dtype), B.device,
+                  B.data_ptr(), B.stride(-2), bsb, U.data_ptr(), U.stride(-2), U.stride(-1), bsu,
+                  X.data_ptr(), Bb, R, v)
     return X
 
 
-def _launch_left(L: torch.Tensor, B: torch.Tensor, unit: bool) -> torch.Tensor:
-    """Launch the left-lower kernel on Bb systems given as 3-D tensors."""
-    Bb, v, C = B.shape
-    X = torch.empty((Bb, v, C), dtype=B.dtype, device=B.device)
-    fn = _build.function("trsm", f"trsm_left_lower_{_SUFFIX[B.dtype]}", _LEFT_ARGTYPES)
-    with torch.cuda.device(B.device):
-        err = fn(L.data_ptr(), L.stride(1), L.stride(2), L.stride(0),
-                 B.data_ptr(), B.stride(1), B.stride(0),
-                 X.data_ptr(), Bb, v, C, int(unit),
-                 torch.cuda.current_stream(B.device).cuda_stream)
-    _build.check("trsm", err)
+def _launch_left(L: torch.Tensor, B: torch.Tensor, unit: bool, Bb: int, bsl: int, bsb: int,
+                 out_shape) -> torch.Tensor:
+    """Launch the left solve on Bb systems L [v, v], B [v, C] (batch strides
+    bsl and bsb) into a new X of `out_shape`."""
+    v, C = B.shape[-2:]
+    X = torch.empty(out_shape, dtype=B.dtype, device=B.device)
+    _build.launch("trsm", _entry("left_lower", B.dtype), B.device,
+                  L.data_ptr(), L.stride(-2), L.stride(-1), bsl, B.data_ptr(), B.stride(-2), bsb,
+                  X.data_ptr(), Bb, v, C, int(unit))
     return X
 
 
@@ -113,9 +118,9 @@ def trsm_right_upper(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     if B.device.type == "cpu":
         return ref.trsm_right_upper(B, U)
     _check("trsm_right_upper", B, U, 2)
-    X = _launch(B[None], U[None])
+    X = _launch(B, U, 1, 0, 0, B.shape)
     trsm_right_upper.launches += 1
-    return X[0]
+    return X
 
 
 def trsm_right_upper_batched(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
@@ -126,7 +131,7 @@ def trsm_right_upper_batched(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     _check("trsm_right_upper_batched", B, U, 3)
     if B.shape[0] == 0:
         return torch.empty_like(B)
-    X = _launch(B, U)
+    X = _launch(B, U, B.shape[0], B.stride(0), U.stride(0), B.shape)
     trsm_right_upper_batched.launches += 1
     return X
 
@@ -140,9 +145,9 @@ def trsm_left_lower(L: torch.Tensor, B: torch.Tensor, *, unit: bool = True) -> t
     if B.device.type == "cpu":
         return ref.trsm_left_lower(L, B, unit=unit)
     _check_left("trsm_left_lower", L, B, 2)
-    X = _launch_left(L[None], B[None], unit)
+    X = _launch_left(L, B, unit, 1, 0, 0, B.shape)
     trsm_left_lower.launches += 1
-    return X[0]
+    return X
 
 
 def trsm_left_lower_batched(L: torch.Tensor, B: torch.Tensor, *,
@@ -154,7 +159,7 @@ def trsm_left_lower_batched(L: torch.Tensor, B: torch.Tensor, *,
     _check_left("trsm_left_lower_batched", L, B, 3)
     if B.shape[0] == 0:
         return torch.empty_like(B)
-    X = _launch_left(L, B, unit)
+    X = _launch_left(L, B, unit, B.shape[0], L.stride(0), B.stride(0), B.shape)
     trsm_left_lower_batched.launches += 1
     return X
 

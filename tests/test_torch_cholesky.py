@@ -13,6 +13,11 @@ port, a batch lane equals the single-system call bit for bit.
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,6 +88,33 @@ def test_chol_panel_batched_matches_jax(B, v):
     for jL in (jops.chol_panel_batched(jnp.asarray(A)),
                jax_backend("ref").panel_chol_batched(jnp.asarray(A))):
         np.testing.assert_allclose(L.numpy(), _np(jL), **TOL)
+
+
+@pytest.mark.parametrize("v", [1, 7, 31, 33, 64])
+def test_chol_panel_edges_of_the_kernel_bodies_match_jax(v):
+    """v = 1, 7 and 31 run the kernel's register body on the card, 33 and 64
+    its shared-memory body.  On the CPU the wrappers give their plain
+    version bit for bit (the version each body is held to bit for bit on the
+    card), a batched lane equals the single call, and both agree with the
+    JAX package's Pallas kernel (interpret mode) and its oracle within TOL;
+    a block that is not SPD gives NaN where the Pallas kernel does."""
+    A = _spd((3, v, v), seed=100 + v)
+    At = torch.from_numpy(A)
+    L = cp_mod.chol_panel(At[0])
+    Lb = cp_mod.chol_panel_batched(At)
+    assert torch.equal(L, ref.chol_panel(At[0]))
+    assert torch.equal(Lb, ref.chol_panel_batched(At))
+    assert torch.equal(Lb[0], L)
+    for jL in (jops.chol_panel(jnp.asarray(A[0])), jref.chol_panel(jnp.asarray(A[0]))):
+        np.testing.assert_allclose(L.numpy(), _np(jL), **TOL)
+    np.testing.assert_allclose(Lb.numpy(), _np(jops.chol_panel_batched(jnp.asarray(A))), **TOL)
+    bad = A.copy()
+    p = min(5, v - 1)
+    bad[:, p, p] = -1.0  # the pivot of round p goes negative
+    Lbad = cp_mod.chol_panel_batched(torch.from_numpy(bad)).numpy()
+    jbad = _np(jops.chol_panel_batched(jnp.asarray(bad)))
+    assert np.isnan(Lbad).any()
+    np.testing.assert_array_equal(np.isnan(Lbad), np.isnan(jbad))
 
 
 @pytest.mark.parametrize("R,v", [(64, 8), (256, 16), (128, 32)])
@@ -181,6 +213,42 @@ def test_cpu_wrappers_run_the_plain_version_and_count_no_launch():
                        ref.schur_update(Bm[0], Bm[0], U[0]))
     assert torch.equal(su_mod.schur_update_batched(Bm, Bm, U), ref.schur_update(Bm, Bm, U))
     assert [w.launches for w in wrappers] == before
+
+
+_NO_BUILD_SCRIPT = """
+from repro_torch.kernels import _build
+
+def refuse(*args, **kwargs):
+    raise AssertionError("a CPU call or an import reached the kernel build")
+
+_build.function = _build.build = refuse
+import torch
+from repro_torch.kernels import chol_panel, trsm
+
+A = 2.0 * torch.eye(8, dtype=torch.float64) + 0.1
+L = torch.tril(torch.ones(8, 8)) + torch.eye(8)
+B = torch.ones(8, 5)
+chol_panel.chol_panel(A)
+chol_panel.chol_panel_batched(A[None])
+trsm.trsm_left_lower(L, B)
+trsm.trsm_left_lower_batched(L[None], B[None], unit=False)
+trsm.trsm_right_upper(B.T, L.T)
+trsm.trsm_right_upper_batched(B.T[None], L.T[None])
+print("no build")
+"""
+
+
+def test_cpu_calls_and_imports_never_reach_the_kernel_build():
+    """The wrappers resolve their CUDA entry points at the first CUDA call:
+    importing chol_panel and trsm and calling them on CPU tensors, in a
+    fresh process with `_build.function` and `_build.build` raising, never
+    builds (this host has no nvcc)."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    done = subprocess.run([sys.executable, "-c", _NO_BUILD_SCRIPT], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert done.stdout.strip() == "no build"
 
 
 def test_wrappers_raise_for_non_cuda_devices_and_bad_shapes():

@@ -216,7 +216,12 @@ def _lower(shape, unit: bool, seed: int, dtype=np.float32):
 
 
 @pytest.mark.parametrize("unit", [True, False])
-@pytest.mark.parametrize("v,C", [(8, 64), (16, 77), (32, 256), (32, 513)])
+@pytest.mark.parametrize("v,C", [
+    (8, 64), (16, 77), (32, 256), (32, 513),
+    # the edges of the kernel's two bodies (registers up to v = 32, shared
+    # memory above), with ragged column tiles
+    *((v, C) for v in (1, 31, 33, 128) for C in (1, 63, 65)),
+])
 def test_trsm_left_lower_matches_jax(v, C, unit):
     L = _lower((v, v), unit, seed=v + C)
     L[np.triu_indices(v, 1)] = 9.0  # the upper triangle is never read
@@ -245,7 +250,8 @@ def test_trsm_left_lower_f64_matches_scipy_and_jax(unit):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("Bb,v,C,unit", [(3, 8, 64, True), (2, 16, 77, False),
-                                         (4, 32, 96, True)])
+                                         (4, 32, 96, True), (2, 1, 63, True),
+                                         (2, 33, 65, False)])
 def test_trsm_left_lower_batched_lanes_equal_single(Bb, v, C, unit, dtype):
     L = _lower((Bb, v, v), unit, seed=Bb + v, dtype=dtype)
     Bm = np.random.default_rng(C).standard_normal((Bb, v, C)).astype(dtype)
