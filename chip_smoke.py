@@ -29,6 +29,11 @@ each kernel against its plain PyTorch version on the card:
   prompts and 32 greedy tokens; and the first four groups of each with
   `backend="cuda"` against `backend="ref"`.
 
+Before the paths, `lu_panel` and `lu_panel_batched` are held bit for bit at
+the edges of their CUDA bodies, in f64 and on panels with NaN and infinite
+entries, each call is checked to make one device record, and the conflux
+tournament's [32, 32] panel is timed.
+
 Phases print JSON lines; any failure raises, so the exit code is not 0.  The
 second-to-last line lists the kernels with their launches, errors and times
 (`ms` of one call between CUDA events, `device_ms` from torch.profiler,
@@ -222,9 +227,12 @@ def profile_once(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        for _ in range(8):  # the profiler loses a window's last records (device_ms)
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     by_kernel: dict[str, list] = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and TAIL_KERNEL not in ev.name:
             name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "")
             name = name.split("(")[0][:60]
             entry = by_kernel.setdefault(name, [0.0, 0])
@@ -289,6 +297,151 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def device_record_names(fn, calls: int = DEVICE_CALLS) -> dict:
+    """The device records (kernels, copies, fills) of `calls` calls under
+    torch.profiler, counted by name; a tail of sleep kernels keeps the
+    profiler from losing the last ones and is left out."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    return dict(Counter(ev.name for ev in prof.events()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA
+                        and TAIL_KERNEL not in ev.name))
+
+
+def special_panel(case: str, panel: torch.Tensor, weights: torch.Tensor):
+    """A copy of (panel [..., R, v], weights [..., R]) with NaN or infinite
+    entries, or a tie between the first and the last row, in every lane.  The
+    plain version lets a NaN candidate |F[i, k]| * w[i] win at the lowest
+    index (inf * 0 = NaN for a row of weight 0) and spreads a non-finite
+    pivot row to every row, weight 0 or not."""
+    P, W = panel.clone(), weights.clone()
+    R, v = P.shape[-2:]
+    if case == "nan_two_rows":
+        P[..., [7 % R, R // 2], 0] = float("nan")
+    elif case == "inf_weight0_row":
+        W[..., 10 % R] = 0
+        P[..., 10 % R, 0] = float("inf")
+    elif case == "nan_column":
+        P[..., :, 0] = float("nan")
+    elif case == "inf_later_column":
+        W[..., 3 % R] = 0
+        P[..., 3 % R, min(2, v - 1)] = float("-inf")
+        P[..., 5 % R, v - 1] = float("inf")
+    elif case == "tie_first_last":
+        W[...] = 1
+        P[..., :, 0] *= 0.1
+        P[..., 0, 0] = -1e3
+        P[..., R - 1, 0] = 1e3
+    return P, W
+
+
+LU_PANEL_SPECIAL = ("nan_two_rows", "inf_weight0_row", "nan_column", "inf_later_column",
+                    "tie_first_last")
+# lu_panel's bodies and the shapes that reach each: the one-block register
+# body (R <= 256 rows in f32 with a row a thread, <= 1024 with two; 128 and
+# 512 in f64), the grid register body (1, 2 or 4 rows a thread, up to
+# 132 * 1024 rows in f32), the generic bodies (v > 32, or more rows).
+LU_PANEL_EDGES = ((1, 32, torch.float32), (31, 32, torch.float32), (32, 32, torch.float32),
+                  (1000, 32, torch.float32), (1025, 32, torch.float32),
+                  (40000, 32, torch.float32), (100000, 32, torch.float32),
+                  (200000, 32, torch.float32), (16384, 32, torch.float64),
+                  (600, 32, torch.float64), (16384, 1, torch.float32),
+                  (16384, 7, torch.float32), (4096, 33, torch.float32),
+                  (2048, 128, torch.float32))
+
+
+def lu_panel_check(got, want, panel, weights) -> dict:
+    """F bit for bit (NaN at the same places), order and ok equal; on a
+    finite panel also the rows of weight 0 unchanged."""
+    F, order, ok = got
+    check = {"order_equal": torch.equal(order, want[1]), "ok_equal": torch.equal(ok, want[2]),
+             "F_bit_identical": same_bits(F, want[0])}
+    if bool(torch.isfinite(panel).all()):
+        masked = weights == 0
+        check["masked_rows_untouched"] = same_bits(F[masked], panel[masked])
+    return check
+
+
+def lu_panel_edges(dev, gen, panel, weights) -> dict:
+    """lu_panel at the edges of its bodies and on NaN / inf panels, bit for
+    bit against the plain version; the conflux tournament's [32, 32] panel
+    timed; the records of a call at the main path's inputs (one kernel, no
+    copy or fill); torch.linalg.lu_factor_ex on the main path's panel as a
+    yardstick.  Returns fields for the kernels line's lu_panel row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lu_panel import lu_panel
+
+    failed = []
+    for R, v, dt in LU_PANEL_EDGES:
+        X = torch.randn(R, 3 * v, generator=gen, device=dev, dtype=dt)
+        P = X[:, v:2 * v]
+        W = (torch.rand(R, generator=gen, device=dev) > 0.1).to(dt)
+        check = lu_panel_check(lu_panel(P, W), ref.lu_panel(P, W), P, W)
+        emit("kernel_lu_panel_edge", shape=[R, v], dtype=str(dt), **check)
+        if not all(check.values()):
+            failed.append(([R, v], str(dt), check))
+        del X, P, W
+    for R, v in ((N, 32), (32, 32), (512, 32), (64, 8), (4096, 33)):
+        X = torch.randn(R, 3 * v, generator=gen, device=dev)
+        W0 = (torch.rand(R, generator=gen, device=dev) > 0.1).float()
+        for case in LU_PANEL_SPECIAL:
+            P, W = special_panel(case, X[:, v:2 * v], W0)
+            got = lu_panel(P, W)
+            check = lu_panel_check(got, ref.lu_panel(P, W), P, W)
+            emit("kernel_lu_panel_special", case=case, shape=[R, v],
+                 order_head=got[1][:4].tolist(), **check)
+            if not all(check.values()):
+                failed.append(([R, v], case, check))
+    if failed:
+        raise AssertionError(f"lu_panel disagrees with its plain version: {failed}")
+
+    # The tournament's panel: the v winners, all of weight 1.
+    P32 = torch.randn(32, 32, generator=gen, device=dev)
+    W32 = torch.ones(32, device=dev)
+    tournament = {"shape": [32, 32], "ms": time_ms(lambda: lu_panel(P32, W32)),
+                  "device_ms": device_ms(lambda: lu_panel(P32, W32)),
+                  "plain_ms": time_ms(lambda: ref.lu_panel(P32, W32), reps=3),
+                  **bound(4 * (2 * 32 * 32 + 32) + 5 * 32, panel_ops(32, 32, 32))}
+    emit("kernel_lu_panel_tournament", **tournament)
+
+    # One launch per call: every device record of calls at the main path's
+    # inputs (a column slice of an [N, N] matrix, its f32 weights) and at the
+    # tournament's is a lu_panel kernel.
+    records = {"path": device_record_names(lambda: lu_panel(panel, weights)),
+               "tournament": device_record_names(lambda: lu_panel(P32, W32))}
+    emit("lu_panel_records_per_call", calls=DEVICE_CALLS, records=records)
+    for name, counts in records.items():
+        if not counts or any("lu_panel" not in k for k in counts) or \
+                sum(counts.values()) > DEVICE_CALLS:
+            raise AssertionError(f"lu_panel at the {name} shape made other device records "
+                                 f"than one kernel a call: {counts}")
+
+    # A yardstick, not the same function: LU with partial pivoting and row
+    # swaps of the main path's panel with every weight 1.
+    A = panel.contiguous()
+    try:
+        torch.linalg.lu_factor_ex(A)
+        yardstick = {"call": "torch.linalg.lu_factor_ex(panel), all weights 1: row swaps, "
+                             "not the masked LUP", "shape": list(A.shape),
+                     "ms": time_ms(lambda: torch.linalg.lu_factor_ex(A)),
+                     "device_ms": device_ms(lambda: torch.linalg.lu_factor_ex(A))}
+    except RuntimeError as e:
+        yardstick = {"call": "torch.linalg.lu_factor_ex(panel)", "refused": str(e)[:200]}
+    emit("yardstick_lu_factor_ex", **yardstick)
+    return {"tournament": tournament, "records_per_call": records, "yardstick": yardstick}
+
+
 def batched_kernel_rows(dev, gen) -> list[dict]:
     """Each batched kernel against its plain version, and lanes against the
     single-system kernel, at the batched path's shapes and beyond."""
@@ -297,31 +450,42 @@ def batched_kernel_rows(dev, gen) -> list[dict]:
 
     rows = []
     # lu_panel_batched: the path's shape; the over-budget branch (panel kept
-    # in device memory); f64.  Strided panels, as the path passes them.
-    for B, R, v, dt in ((BATCH, BATCH_N, 32, torch.float32), (4, 8192, 32, torch.float32),
-                        (64, BATCH_N, 32, torch.float64)):
+    # in device memory); f64; the edges of the one-block register body (two
+    # rows a thread, R < 32, R = 1) and the generic one (v = 128); then the
+    # path's shape with a special panel in each of five lanes.  Strided
+    # panels, as the path passes them.
+    shapes = [(BATCH, BATCH_N, 32, torch.float32, None), (4, 8192, 32, torch.float32, None),
+              (64, BATCH_N, 32, torch.float64, None), (8, 1024, 32, torch.float32, None),
+              (8, 31, 32, torch.float32, None), (5, 1, 32, torch.float32, None),
+              (3, 100, 128, torch.float32, None), (BATCH, BATCH_N, 32, torch.float32, "special")]
+    for B, R, v, dt, special in shapes:
         X = torch.randn(B, R, 3 * v, generator=gen, device=dev, dtype=dt)
         panel = X[:, :, v:2 * v]
         weights = (torch.rand(B, R, generator=gen, device=dev) > 0.1).to(dt)
+        lanes = (0, B - 1)
+        if special:
+            panel, weights = panel.clone(), weights.clone()
+            lanes = tuple(range(len(LU_PANEL_SPECIAL)))
+            for b, case in enumerate(LU_PANEL_SPECIAL):
+                panel[b], weights[b] = special_panel(case, panel[b], weights[b])
         F_k, order_k, ok_k = lu_panel_batched(panel, weights)
         F_p, order_p, ok_p = ref.lu_panel_batched(panel, weights)
         torch.cuda.synchronize()
         masked = weights == 0
-        check = {"order_equal": torch.equal(order_k, order_p), "ok_equal": torch.equal(ok_k, ok_p),
-                 "F_bit_identical": torch.equal(F_k, F_p),
-                 "masked_rows_untouched": torch.equal(F_k[masked], panel[masked])}
-        for b in (0, B - 1):
+        check = lu_panel_check((F_k, order_k, ok_k), (F_p, order_p, ok_p), panel, weights)
+        for b in lanes:
             F1, o1, k1 = lu_panel(panel[b], weights[b])
-            check[f"lane{b}_equals_single"] = (torch.equal(F1, F_k[b])
+            check[f"lane{b}_equals_single"] = (same_bits(F1, F_k[b])
                                                and torch.equal(o1, order_k[b])
                                                and torch.equal(k1, ok_k[b]))
-        err = float((F_k - F_p).abs().max())
+        finite = torch.isfinite(F_p) & torch.isfinite(F_k)
+        err = float((F_k - F_p)[finite].abs().max()) if bool(finite.any()) else 0.0
         ms = time_ms(lambda: lu_panel_batched(panel, weights))
-        emit("kernel_lu_panel_batched", shape=[B, R, v], dtype=str(dt),
+        emit("kernel_lu_panel_batched", shape=[B, R, v], dtype=str(dt), special=special,
              weight0_rows=int(masked.sum()), max_abs_err=err, ms=ms, **check)
         if not all(check.values()):
-            raise AssertionError(f"lu_panel_batched [{B}, {R}, {v}] {dt} disagrees: {check}")
-        if (B, R, dt) != (BATCH, BATCH_N, torch.float32):
+            raise AssertionError(f"lu_panel_batched [{B}, {R}, {v}] {dt} {special}: {check}")
+        if (B, R, dt, special) != (BATCH, BATCH_N, torch.float32, None):
             continue
         n_active = (weights > 0).sum(1).tolist()
         rows.append({
@@ -1555,8 +1719,8 @@ def main() -> int:
     panel_check = {
         "order_equal": torch.equal(order_k, order_p),
         "ok_equal": torch.equal(ok_k, ok_p),
-        "F_bit_identical": torch.equal(F_k, F_p),
-        "masked_rows_untouched": torch.equal(F_k[masked], panel[masked]),
+        "F_bit_identical": same_bits(F_k, F_p),
+        "masked_rows_untouched": same_bits(F_k[masked], panel[masked]),
         "max_abs_err": float((F_k - F_p).abs().max()),
     }
     emit("kernel_lu_panel", shape=[N, v], weight0_rows=int(masked.sum()), **panel_check)
@@ -1576,6 +1740,7 @@ def main() -> int:
         "library_ms": None,
         **device_fields(lambda: lp_mod.lu_panel(panel, weights)),
         "library": "none: no single PyTorch call computes a masked LUP with row weights",
+        **lu_panel_edges(dev, gen, panel, weights),
     }
     del F_k, F_p
 
@@ -1646,8 +1811,16 @@ def main() -> int:
     rows_main = fact.rows
     del fact, x
 
-    # Where the time goes: one more execute, under the profiler.
-    emit("profile_execute", **profile_once(lambda: p.execute(A_main)))
+    # Where the time goes: one more execute, under the profiler; exactly one
+    # lu_panel kernel record per step (its wrapper launches nothing else,
+    # `lu_panel_records_per_call`).
+    prof = profile_once(lambda: p.execute(A_main))
+    emit("profile_execute", **prof)
+    panel_records = sum(k["count"] for k in prof["port_kernels"]
+                        if k["kernel"].startswith("lu_panel_"))
+    if panel_records != N // v:
+        raise AssertionError(f"profile_execute holds {panel_records} lu_panel kernel records, "
+                             f"expected {N // v}")
 
     # The library's LU at the same N, as a yardstick only.
     torch.cuda.synchronize()

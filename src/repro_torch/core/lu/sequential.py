@@ -63,7 +63,9 @@ def masked_lup(panel: torch.Tensor, weights: torch.Tensor, v: int):
     panel:   [R, v] values (rows in original positions).
     weights: [R] candidate weights — 1 for selectable rows, 0 for rows that
              must keep their values (already pivoted, padding, or remote
-             rows).  Rows with weight 0 receive no updates.
+             rows).  Rows with weight 0 receive no updates: only the
+             terms 0 * F[p, j], which change nothing unless the pivot row
+             holds inf or NaN (then NaN spreads to them).
 
     Returns (F, order, ok):
       F:     [R, v] packed factors in original row positions.

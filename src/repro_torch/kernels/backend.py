@@ -38,7 +38,8 @@ class KernelBackend(Protocol):
     name: str
 
     def panel_lup(self, panel: torch.Tensor, weights: torch.Tensor, v: int):
-        """Masked LUP of an [R, v] panel; rows with weight 0 are untouched.
+        """Masked LUP of an [R, v] panel; rows with weight 0 are untouched
+        (unless a pivot row holds inf or NaN, which spreads to every row).
 
         Returns (F [R, v] packed factors, order [v] int32 pivot rows,
         ok [v] bool validity)."""

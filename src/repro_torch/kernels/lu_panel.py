@@ -2,19 +2,23 @@
 
 Ports of `repro/kernels/lu_panel.py::lu_panel` and `::lu_panel_batched`.  A
 CPU tensor goes to the plain version (`repro_torch.kernels.ref.lu_panel` /
-`.lu_panel_batched`); a CUDA tensor launches the kernel or raises.
+`.lu_panel_batched`); a CUDA tensor launches the kernel or raises.  Each call
+is one launch: the kernel reads `weights` as given (converted only when its
+dtype or layout differs from the panel's) and keeps the pivot mask on chip.
 `lu_panel.launches` and `lu_panel_batched.launches` count the launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_V = 128  # the kernel's shared pivot-row buffer
+MAX_V = 128  # the generic bodies' shared pivot-row buffer
 MAX_ROWS = 2**31 - 1  # row indices are int32
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ARGTYPES = (
@@ -27,6 +31,38 @@ _BATCHED_ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p,
 )
+# The single-panel kernel's scratch (its cross-block slots and epoch), one
+# zero-filled buffer per (device, stream): launches on one stream run in
+# turn, and launches that could run at once are on two streams.  The kernel
+# advances the epoch in the buffer itself; the buffer is zero-filled again
+# every REZERO calls, long before a 32-bit epoch could come round.
+REZERO = 2**30
+_scratch: dict[tuple[int, int], list] = {}  # (device, stream) -> [buffer, calls]
+_scratch_lock = threading.Lock()
+
+
+@functools.cache
+def _entry(symbol: str, argtypes):
+    """The C entry point `symbol`, resolved (and built) at first use."""
+    return _build.function("lu_panel", symbol, argtypes)
+
+
+def _scratch_for(device: torch.device) -> torch.Tensor:
+    """The scratch buffer of PyTorch's current stream on `device`."""
+    key = (device.index, _build.current_stream(device.index))
+    entry = _scratch.get(key)
+    if entry is None:
+        with _scratch_lock:
+            entry = _scratch.get(key)
+            if entry is None:
+                nbytes = _entry("lu_panel_scratch_bytes", ())()
+                entry = _scratch[key] = [
+                    torch.zeros(nbytes, dtype=torch.uint8, device=device), 0]
+    entry[1] += 1
+    if entry[1] >= REZERO:
+        entry[0].zero_()
+        entry[1] = 0
+    return entry[0]
 
 
 def _check(name: str, panel: torch.Tensor, weights: torch.Tensor, ndim: int) -> None:
@@ -53,28 +89,31 @@ def _check(name: str, panel: torch.Tensor, weights: torch.Tensor, ndim: int) -> 
         )
 
 
+def _weights(weights: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The weights as the kernel reads them: the panel's dtype, contiguous
+    (no copy, and no launch, when they already are)."""
+    return weights.to(dtype).contiguous()
+
+
 def lu_panel(panel: torch.Tensor, weights: torch.Tensor):
     """Masked LUP of panel [R, v] (any row stride) with weights [R] of 0/1.
 
     Returns (F [R, v] contiguous, order [v] int32, ok [v] bool); rows of
-    weight 0 come back unchanged.
+    weight 0 come back unchanged unless a NaN or infinite entry spreads to
+    them, as in the plain version.
     """
     if panel.device.type == "cpu":
         return ref.lu_panel(panel, weights)
     _check("lu_panel", panel, weights, 2)
     R, v = panel.shape
+    w = _weights(weights, panel.dtype)
     F = torch.empty((R, v), dtype=panel.dtype, device=panel.device)
-    w = torch.empty(R, dtype=panel.dtype, device=panel.device)
-    w.copy_(weights)  # the kernel masks pivots in this copy
     order = torch.empty(v, dtype=torch.int32, device=panel.device)
     ok = torch.empty(v, dtype=torch.bool, device=panel.device)
-    fn = _build.function("lu_panel", f"lu_panel_{_SUFFIX[panel.dtype]}", _ARGTYPES)
-    nbytes = _build.function("lu_panel", "lu_panel_scratch_bytes", ())()
-    # partial argmaxes and the grid barrier's counters, which start at 0
-    scratch = torch.zeros(nbytes, dtype=torch.uint8, device=panel.device)
-    _build.launch("lu_panel", fn, panel.device, panel.data_ptr(), panel.stride(0),
-                  F.data_ptr(), w.data_ptr(), R, v, order.data_ptr(), ok.data_ptr(),
-                  scratch.data_ptr())
+    scratch = _scratch_for(panel.device)
+    _build.launch("lu_panel", _entry(f"lu_panel_{_SUFFIX[panel.dtype]}", _ARGTYPES),
+                  panel.device, panel.data_ptr(), panel.stride(0), w.data_ptr(),
+                  F.data_ptr(), R, v, order.data_ptr(), ok.data_ptr(), scratch.data_ptr())
     lu_panel.launches += 1
     return F, order, ok
 
@@ -87,24 +126,22 @@ def lu_panel_batched(panel: torch.Tensor, weights: torch.Tensor):
     weights [B, R] of 0/1, one block of the kernel per panel.
 
     Returns (F [B, R, v] contiguous, order [B, v] int32, ok [B, v] bool);
-    rows of weight 0 come back unchanged.
+    lane b equals `lu_panel(panel[b], weights[b])` bit for bit.
     """
     if panel.device.type == "cpu":
         return ref.lu_panel_batched(panel, weights)
     _check("lu_panel_batched", panel, weights, 3)
     B, R, v = panel.shape
     F = torch.empty((B, R, v), dtype=panel.dtype, device=panel.device)
-    w = torch.empty((B, R), dtype=panel.dtype, device=panel.device)
-    w.copy_(weights)  # the kernel masks pivots in this copy
     order = torch.empty((B, v), dtype=torch.int32, device=panel.device)
     ok = torch.empty((B, v), dtype=torch.bool, device=panel.device)
     if B == 0:
         return F, order, ok
-    fn = _build.function("lu_panel", f"lu_panel_batched_{_SUFFIX[panel.dtype]}",
-                         _BATCHED_ARGTYPES)
-    _build.launch("lu_panel", fn, panel.device, panel.data_ptr(), panel.stride(1),
-                  panel.stride(0), F.data_ptr(), w.data_ptr(), B, R, v, order.data_ptr(),
-                  ok.data_ptr())
+    w = _weights(weights, panel.dtype)
+    _build.launch("lu_panel",
+                  _entry(f"lu_panel_batched_{_SUFFIX[panel.dtype]}", _BATCHED_ARGTYPES),
+                  panel.device, panel.data_ptr(), panel.stride(1), panel.stride(0),
+                  w.data_ptr(), F.data_ptr(), B, R, v, order.data_ptr(), ok.data_ptr())
     lu_panel_batched.launches += 1
     return F, order, ok
 

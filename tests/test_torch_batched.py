@@ -62,7 +62,10 @@ def _panels(B, R, v, seed):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B,R,v", [(3, 64, 8), (2, 128, 16), (4, 32, 32)])
+# The first three are the original shapes; the rest are the edges on which
+# the CUDA bodies branch (R = 1, R < 32, v = 1, v = 33, R not a multiple of 128).
+@pytest.mark.parametrize("B,R,v", [(3, 64, 8), (2, 128, 16), (4, 32, 32), (2, 1, 8), (3, 20, 1),
+                                   (2, 96, 33), (2, 200, 16)])
 def test_lu_panel_batched_matches_jax(B, R, v):
     panel, w = _panels(B, R, v, seed=B * R + v)
     F, order, ok = ops.lu_panel_batched(torch.from_numpy(panel), torch.from_numpy(w))
@@ -85,6 +88,37 @@ def test_lu_panel_batched_lanes_equal_single_bitwise(dtype):
     for b in range(5):
         F1, o1, k1 = ref.lu_panel(P[b], W[b])
         assert torch.equal(F1, F[b]) and torch.equal(o1, order[b]) and torch.equal(k1, ok[b])
+
+
+def test_lu_panel_batched_special_values_match_jax_and_single():
+    """Lanes with NaN at two rows of a column, inf in a row of weight 0, an
+    all-NaN column and a finite tie: the Pallas kernel's pivots and validity
+    (its F agrees where both are finite; XLA spreads NaN into fewer columns,
+    see test_torch_kernels.py::test_lu_panel_special_values_match_jax), and
+    every lane equal to the single call, NaN at the same places."""
+    B, R, v = 4, 64, 8
+    panel, w = _panels(B, R, v, seed=31)
+    panel[0, [7, 20], 0] = np.nan
+    w[1, 10] = 0.0
+    panel[1, 10, 0] = np.inf
+    panel[2, :, 0] = np.nan
+    w[3] = 1.0
+    panel[3, [0, R - 1], 0] = [-9.0, 9.0]
+    P, W = torch.from_numpy(panel), torch.from_numpy(w)
+    F, order, ok = ops.lu_panel_batched(P, W)
+    jF, jorder, jok = (np.asarray(a) for a in jops.lu_panel_batched(
+        jnp.asarray(panel), jnp.asarray(w), interpret=True))
+    np.testing.assert_array_equal(order.numpy(), jorder)
+    np.testing.assert_array_equal(ok.numpy(), jok != 0)
+    finite = torch.isfinite(F).numpy() & np.isfinite(jF)
+    np.testing.assert_allclose(F.numpy()[finite], jF[finite], **TOL)
+    assert not (np.isnan(jF) & ~F.isnan().numpy()).any()
+    assert order[0, 0] == 7 and order[1, 0] == 10 and order[3, 0] == 0
+    for b in range(B):
+        F1, o1, k1 = ref.lu_panel(P[b], W[b])
+        assert torch.equal(F1.isnan(), F[b].isnan())
+        assert torch.equal(F1.view(torch.int32)[~F1.isnan()], F[b].view(torch.int32)[~F1.isnan()])
+        assert torch.equal(o1, order[b]) and torch.equal(k1, ok[b])
 
 
 def _fused_inputs(B, M, C, v, unit, seed):

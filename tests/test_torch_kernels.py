@@ -30,7 +30,12 @@ def _panel(R, v, seed):
     return panel, w
 
 
-@pytest.mark.parametrize("R,v", [(64, 8), (256, 16), (128, 32)])
+# The first three are the original shapes; the rest are the edges on which
+# the CUDA bodies branch: R = 1, R = v = 32, R < 32, v = 1, v = 33 and 128
+# (the generic bodies), R not a multiple of 128.
+@pytest.mark.parametrize("R,v", [(64, 8), (256, 16), (128, 32), (1, 1), (1, 32), (32, 32),
+                                 (20, 8), (64, 1), (96, 33), (160, 128), (200, 16),
+                                 (300, 32)])
 def test_lu_panel_matches_jax(R, v):
     panel, w = _panel(R, v, seed=R + v)
     F, order, ok = ops.lu_panel(torch.from_numpy(panel), torch.from_numpy(w))
@@ -64,6 +69,90 @@ def test_lu_panel_ties_pick_lowest_index():
     _, jorder, _ = jops.lu_panel(jnp.asarray(panel), jnp.ones(16, jnp.float32))
     np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
     assert order[0] == 2
+
+
+def _special_panel(case, R, v, seed):
+    """A panel with NaN or infinite entries, or a tie between the first and
+    the last row; the plain version and the Pallas kernel both let a NaN
+    candidate |F[i, k]| * w[i] win, at the lowest index (inf * 0 = NaN for
+    a row of weight 0), and spread non-finite pivot rows to every row."""
+    panel, w = _panel(R, v, seed)
+    if case == "nan_two_rows":
+        panel[[7, 20], 0] = np.nan
+    elif case == "inf_in_weight0_row":
+        w[10] = 0.0
+        panel[10, 0] = np.inf
+    elif case == "nan_column":
+        panel[:, 0] = np.nan
+    elif case == "inf_later_column":
+        w[[3, 5]] = [0.0, 1.0]
+        panel[3, 2] = -np.inf
+        panel[5, v - 1] = np.inf
+    elif case == "tie_first_last":
+        w[:] = 1.0
+        panel[:, 0] *= 0.1
+        panel[[0, R - 1], 0] = [-3.0, 3.0]
+    return panel, w
+
+
+def _ieee_masked_lup(panel, w):
+    """The plain version's rounds in numpy float32, term by term as IEEE
+    arithmetic gives them: every row takes F - m * (F[p, :] * colmask), so a
+    non-finite entry of a pivot row reaches every row (0 * inf = NaN), and
+    np.argmax, like torch.argmax, lets the first NaN win."""
+    F = panel.astype(np.float32).copy()
+    w = w.astype(np.float32).copy()
+    R, v = F.shape
+    order = np.zeros(v, np.int32)
+    ok = np.zeros(v, bool)
+    with np.errstate(all="ignore"):
+        for k in range(v):
+            col = np.abs(F[:, k]) * w
+            p = int(np.argmax(col))
+            order[k], ok[k] = p, col[p] > 0
+            w[p] = 0
+            safe = F[p, k] if abs(F[p, k]) > 0 else np.float32(1)
+            active = w > 0
+            mult = np.where(active, F[:, k] / safe, F[:, k])
+            F[:, k] = mult
+            colmask = (np.arange(v) > k).astype(np.float32)
+            F = F - np.where(active, mult, np.float32(0))[:, None] * (F[p, :] * colmask)[None, :]
+    return F, order, ok
+
+
+def _same_bits(a, b):
+    """NaN at the same places and the same bits everywhere else."""
+    nan = np.isnan(a)
+    return (nan == np.isnan(b)).all() and (a.view(np.int32)[~nan] == b.view(np.int32)[~nan]).all()
+
+
+@pytest.mark.parametrize("R,v", [(64, 8), (32, 32)])
+@pytest.mark.parametrize("case", ["nan_two_rows", "inf_in_weight0_row", "nan_column",
+                                  "inf_later_column", "tie_first_last"])
+def test_lu_panel_special_values_match_jax(case, R, v):
+    """Pivots and validity as the Pallas kernel (interpret mode) picks them.
+    XLA evaluates the kernel's F[p, :] * colmask as a select, so a non-finite
+    pivot entry spreads NaN into fewer columns there: the Pallas kernel's NaN
+    are a subset of the port's, and the entries finite in both agree within
+    TOL.  The port's F is the IEEE rounds' bit for bit."""
+    panel, w = _special_panel(case, R, v, seed=R * v + len(case))
+    F, order, ok = ops.lu_panel(torch.from_numpy(panel), torch.from_numpy(w))
+    jF, jorder, jok = (np.asarray(a) for a in
+                       jops.lu_panel(jnp.asarray(panel), jnp.asarray(w), interpret=True))
+    np.testing.assert_array_equal(order.numpy(), jorder)
+    np.testing.assert_array_equal(ok.numpy(), jok != 0)
+    F = F.numpy()
+    finite = np.isfinite(F) & np.isfinite(jF)
+    np.testing.assert_allclose(F[finite], jF[finite], **TOL)
+    assert not (np.isnan(jF) & ~np.isnan(F)).any()
+    iF, iorder, iok = _ieee_masked_lup(panel, w)
+    assert _same_bits(F, iF)
+    np.testing.assert_array_equal(order.numpy(), iorder)
+    np.testing.assert_array_equal(ok.numpy(), iok)
+    if case == "tie_first_last":
+        assert order[0] == 0 and np.isfinite(F).all()
+    if case == "nan_column":
+        assert not ok.any()
 
 
 def _fused_inputs(M, C, v, unit, seed):
