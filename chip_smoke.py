@@ -32,7 +32,11 @@ each kernel against its plain PyTorch version on the card:
 Before the paths, `lu_panel` and `lu_panel_batched` are held bit for bit at
 the edges of their CUDA bodies, in f64 and on panels with NaN and infinite
 entries, each call is checked to make one device record, and the conflux
-tournament's [32, 32] panel is timed.
+tournament's [32, 32] panel is timed.  Before the Cholesky paths,
+`trsm_right_upper` and `schur_update` and their batched forms are held
+against their plain versions at the edges of their bodies (v, R, K, ragged
+shapes, strides that bulk copies cannot take, windows of a wider matrix,
+f64, NaN and inf), batched lanes bit for bit against the single call.
 
 Phases print JSON lines; any failure raises, so the exit code is not 0.  The
 second-to-last line lists the kernels with their launches, errors and times
@@ -830,15 +834,39 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
         })
 
     # trsm_right_upper[_batched]: U = L00^T, a transposed view of a lower
-    # factor, and B with its top quarter of rows zero, as the paths pass
-    # them; the single path's shape, the batched path's, a ragged one
-    # (R % 64 != 0, v = 24) and v = 128 in f64.
-    for Bb, R, v, dt in ((None, N, CHOL_V, torch.float32), (BATCH, BATCH_N, CHOL_V, torch.float32),
-                         (8, 2000, 24, torch.float32), (4, 1000, 128, torch.float64)):
+    # factor, as the Cholesky path passes it, or a plain upper matrix, as the
+    # LU conflux path passes U00; B with its top quarter of rows zero, as the
+    # paths pass it.  The single and batched paths' shapes, a ragged one
+    # (v = 24), v = 128 in f64 (the shared-memory body), the register body's
+    # edges v = 1, 31 and 32 in f64, v = 33 (the shared-memory body), R = 1,
+    # R = 100,000, B with a NaN row and an inf row ("nan_inf": those rows
+    # non-finite where the plain version's are, the rest within tolerance),
+    # and a zero on U's diagonal ("zero_diag": every row non-finite, the zero
+    # rows NaN, as (0 - 0) / 0 is).
+    for Bb, R, v, dt, ukind, special in (
+            (None, N, CHOL_V, torch.float32, "mT", None),
+            (BATCH, BATCH_N, CHOL_V, torch.float32, "mT", None),
+            (8, 2000, 24, torch.float32, "mT", None), (4, 1000, 128, torch.float64, "mT", None),
+            (8, 1000, 1, torch.float32, "mT", None), (8, 1000, 31, torch.float32, "upper", None),
+            (8, 1000, 32, torch.float64, "mT", None), (8, 1000, 33, torch.float32, "mT", None),
+            (None, 1, CHOL_V, torch.float32, "mT", None),
+            (None, 100_000, CHOL_V, torch.float32, "upper", None),
+            (4, 777, CHOL_V, torch.float32, "upper", "nan_inf"),
+            (None, 777, CHOL_V, torch.float32, "mT", "nan_inf"),
+            (4, 777, CHOL_V, torch.float32, "upper", "zero_diag")):
         nb = 1 if Bb is None else Bb
-        U = ref.chol_panel_batched(spd((nb, v, v), gen, dev, dt)).mT
+        if ukind == "mT":
+            U = ref.chol_panel_batched(spd((nb, v, v), gen, dev, dt)).mT
+        else:
+            U = torch.triu(torch.randn(nb, v, v, generator=gen, device=dev, dtype=dt))
+            U.diagonal(dim1=-2, dim2=-1).add_(4.0)
         Bm = torch.randn(nb, R, v, generator=gen, device=dev, dtype=dt)
         Bm[:, :R // 4] = 0.0
+        if special == "nan_inf":
+            Bm[:, R // 2, v // 3] = float("nan")
+            Bm[:, R // 2 + 1, 0] = float("inf")
+        if special == "zero_diag":
+            U[:, 5, 5] = 0.0
         if Bb is None:
             U, Bm = U[0], Bm[0]
             X_k = ops.trsm_right_upper(Bm, U)
@@ -847,20 +875,27 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
             X_k = ops.trsm_right_upper_batched(Bm, U)
             X_p = ref.trsm_right_upper_batched(Bm, U)
         torch.cuda.synchronize()
-        err = float((X_k - X_p).abs().max())
-        scale = float(X_p.abs().max())
-        check = {"within_tol": err <= FUSED_REL_TOL * scale,
-                 "zero_rows_zero": bool((X_k[..., :R // 4, :] == 0).all())}
+        finite_rows = torch.isfinite(X_p).all(-1)
+        check = {"nonfinite_rows_as_plain": torch.equal(torch.isfinite(X_k).all(-1), finite_rows)}
+        if special == "zero_diag":
+            err = rel = None
+            check["zero_rows_nan"] = bool(X_k[..., :R // 4, :].isnan().any(-1).all())
+        else:
+            err = float((X_k - X_p)[finite_rows].abs().max())
+            scale = float(X_p[finite_rows].abs().max())
+            rel = err / scale
+            check["within_tol"] = err <= FUSED_REL_TOL * scale
+            check["zero_rows_zero"] = bool((X_k[..., :R // 4, :] == 0).all())
         if Bb is not None:
             for b in (0, Bb - 1):
-                check[f"lane{b}_equals_single"] = torch.equal(ops.trsm_right_upper(Bm[b], U[b]),
-                                                              X_k[b])
+                check[f"lane{b}_equals_single"] = same_bits(ops.trsm_right_upper(Bm[b], U[b]),
+                                                            X_k[b])
         emit("kernel_trsm_right_upper" + ("" if Bb is None else "_batched"),
-             shape=[nb, R, v], dtype=str(dt), max_abs_err=err, rel_err=err / scale,
-             tol_rel=FUSED_REL_TOL, **check)
+             shape=[nb, R, v], dtype=str(dt), U=ukind, special=special, max_abs_err=err,
+             rel_err=rel, tol_rel=FUSED_REL_TOL, **check)
         if not all(check.values()):
             raise AssertionError(f"trsm_right_upper [{nb}, {R}, {v}] {dt}: {check}")
-        if dt != torch.float32 or R not in (N, BATCH_N):
+        if dt != torch.float32 or special or (R, v) not in ((N, CHOL_V), (BATCH_N, CHOL_V)):
             continue
         single = Bb is None
         kernel = ops.trsm_right_upper if single else ops.trsm_right_upper_batched
@@ -879,37 +914,65 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
             "library": "torch.linalg.solve_triangular(U, B, upper=True, left=False)",
         })
 
-    # schur_update[_batched]: the single path's [N, N] with K = 32, a ragged
-    # one (M, N not multiples of the 64 x 128 tile, K = 40: two chunks), the
-    # batched path's (256, 512, 512, 32), (8, 2048, 1536, 16) and an f64 one.
-    for Bb, M, C, K, dt in ((None, N, N, CHOL_V, torch.float32),
-                            (None, 2000, 1000, 40, torch.float32),
-                            (BATCH, BATCH_N, BATCH_N, CHOL_V, torch.float32),
-                            (8, 2048, 1536, 16, torch.float32),
-                            (4, 1000, 700, 40, torch.float64)):
+    # schur_update[_batched]: the single path's [N, N] with K = 32, the
+    # batched path's (256, 512, 512, 32), a batch of one, K = 1, 16, 33, 40
+    # and 64, ragged M and N on both the bulk-copy branch (N % 4 == 0) and the
+    # plain-load one, f64, an odd row stride of A (the plain-load branch), a
+    # window of a wider matrix as the conflux step passes it (row stride > N,
+    # base 32 rows and 64 columns in), and NaN and inf in A and L ("special":
+    # non-finite where the plain version is, the rest within tolerance).
+    for Bb, M, C, K, dt, kind in ((None, N, N, CHOL_V, torch.float32, None),
+                                  (None, 2000, 1000, 40, torch.float32, None),
+                                  (BATCH, BATCH_N, BATCH_N, CHOL_V, torch.float32, None),
+                                  (8, 2048, 1536, 16, torch.float32, None),
+                                  (4, 1000, 700, 40, torch.float64, None),
+                                  (1, BATCH_N, BATCH_N, CHOL_V, torch.float32, None),
+                                  (8, 300, 500, 1, torch.float32, None),
+                                  (8, 300, 500, 33, torch.float32, None),
+                                  (8, 300, 500, 64, torch.float32, None),
+                                  (8, 777, 1000, CHOL_V, torch.float32, None),
+                                  (8, 777, 1001, CHOL_V, torch.float32, None),
+                                  (None, 1000, 1000, CHOL_V, torch.float32, "odd_lda"),
+                                  (None, 4064, 4064, CHOL_V, torch.float32, "window"),
+                                  (4, 777, 1000, CHOL_V, torch.float32, "special")):
         lead = () if Bb is None else (Bb,)
-        A = torch.randn(*lead, M, C, generator=gen, device=dev, dtype=dt)
+        if kind == "odd_lda":
+            A = torch.randn(*lead, M, C + 1, generator=gen, device=dev, dtype=dt)[..., :C]
+        elif kind == "window":
+            A = torch.randn(*lead, M + 32, C + 64, generator=gen, device=dev,
+                            dtype=dt)[..., 32:, 64:]
+        else:
+            A = torch.randn(*lead, M, C, generator=gen, device=dev, dtype=dt)
         Lm = torch.randn(*lead, M, K, generator=gen, device=dev, dtype=dt)
         Um = torch.randn(*lead, K, C, generator=gen, device=dev, dtype=dt)
+        if kind == "special":
+            A[..., 5, 7] = float("nan")
+            A[..., 9, 100] = float("inf")
+            Lm[..., 11, 0] = float("nan")
+            Lm[..., 13, K - 1] = float("-inf")
         kernel = ops.schur_update if Bb is None else ops.schur_update_batched
         plain = ref.schur_update if Bb is None else ref.schur_update_batched
         out_k = kernel(A, Lm, Um)
         out_p = plain(A, Lm, Um)
         torch.cuda.synchronize()
-        err = float((out_k - out_p).abs().max())
-        scale = float(out_p.abs().max())
-        check = {"within_tol": err <= FUSED_REL_TOL * scale}
+        finite = torch.isfinite(out_p)
+        err = float((out_k - out_p)[finite].abs().max())
+        scale = float(out_p[finite].abs().max())
+        check = {"within_tol": err <= FUSED_REL_TOL * scale,
+                 "nan_as_plain": torch.equal(out_k.isnan(), out_p.isnan()),
+                 "inf_as_plain": torch.equal(out_k.isinf(), out_p.isinf())}
         if Bb is not None:
-            for b in (0, Bb - 1):
-                check[f"lane{b}_equals_single"] = torch.equal(ops.schur_update(A[b], Lm[b], Um[b]),
-                                                              out_k[b])
+            for b in sorted({0, Bb - 1}):
+                check[f"lane{b}_equals_single"] = same_bits(
+                    ops.schur_update(A[b], Lm[b], Um[b]), out_k[b])
         emit("kernel_schur_update" + ("" if Bb is None else "_batched"),
-             shape=[*lead, M, C, K], dtype=str(dt), max_abs_err=err, rel_err=err / scale,
-             tol_rel=FUSED_REL_TOL, **check)
+             shape=[*lead, M, C, K], dtype=str(dt), kind=kind, lda=A.stride(-2),
+             max_abs_err=err, rel_err=err / scale, tol_rel=FUSED_REL_TOL, **check)
         if not all(check.values()):
-            raise AssertionError(f"schur_update {[*lead, M, C, K]} {dt}: {check}")
+            raise AssertionError(f"schur_update {[*lead, M, C, K]} {dt} {kind}: {check}")
         del out_k, out_p
-        if dt != torch.float32 or (M, C, K) not in ((N, N, CHOL_V), (BATCH_N, BATCH_N, CHOL_V)):
+        if (dt != torch.float32 or kind is not None or Bb == 1
+                or (M, C, K) not in ((N, N, CHOL_V), (BATCH_N, BATCH_N, CHOL_V))):
             continue
         nb = 1 if Bb is None else Bb
         library = torch.addmm if Bb is None else torch.baddbmm

@@ -79,6 +79,7 @@
 #include <cuda_runtime.h>
 
 #include "once_per_device.cuh"
+#include "tma.cuh"
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's mask value
@@ -95,9 +96,6 @@ constexpr int kRows = 128;             // packed rows of a block: two warpgroups
 constexpr int kThreads = 256;          // the two warpgroups
 constexpr int kBoxCols = 64;           // hd columns of a TMA box: one 128-byte swizzle row
 constexpr float kLog2e = 1.4426950408889634f;
-// A lost mbarrier phase would hang the card; past this many cycles (~10 s)
-// a wait traps instead, so the launch fails with an error.
-constexpr long long kHangCycles = 1ll << 34;
 
 // The block's tiles for hd padded to HDP = 64 * ceil(hd / 64).  Shared
 // memory, from a 1024-byte boundary (the 128-byte swizzle repeats every 8
@@ -118,35 +116,6 @@ struct Tiles {
   static constexpr size_t kSmem = 1024 + kBarriers + kStages * (8 + 4);
   static_assert(kSmem <= 232448, "a block may use at most 227 KB of shared memory");
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > kHangCycles) __trap();
-  }
-}
 
 // One box of a 4-D tensor map into shared memory; completion is counted in
 // bytes on `bar`.
@@ -718,31 +687,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
           *reinterpret_cast<const uint4*>(base_ptr + off);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so that
-// the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // A 4-D map over k or v [B, S, KV, hd] (innermost first: hd, KV, S, B) whose

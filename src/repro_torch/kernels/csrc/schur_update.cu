@@ -2,11 +2,12 @@
 // for one system or a batch of B independent ones.
 //
 // Replaces: src/repro/kernels/schur_update.py::schur_update (body `_kernel`)
-// and ::schur_update_batched (body `_batched_kernel`).  One kernel serves
-// both: the system index is blockIdx.z with an int64 batch stride per
-// operand, and a single system is B = 1.  An output element's arithmetic
-// does not depend on the batch or its tile's place, so a batched lane equals
-// the single call bit for bit.
+// and ::schur_update_batched (body `_batched_kernel`).  The TPU kernel walks
+// (bm, bn) output tiles with the contraction as the fastest grid axis and
+// carries an f32 accumulator in VMEM across it.  One kernel here serves both
+// entry points, a single system being B = 1.  An output element's arithmetic
+// does not depend on the batch, its tile's place or the block that runs it,
+// so a batched lane equals the single call bit for bit.
 //
 // What bounds it on an H100: bytes.  On the Cholesky path A is
 // [16384, 16384] with K = 32, so one call does 2 M N K = 17.2 GFLOP while it
@@ -14,142 +15,415 @@
 // byte, below the card's ratio of f32 peak to bandwidth (20).  The floor is
 // ~0.64 ms per call at 3.35 TB/s; batched at (256, 512, 512, 32), ~0.17 ms.
 //
-// Design: a plain tiled SIMT product.  The TPU kernel walks (bm, bn) output
-// tiles with the contraction as the fastest grid axis and carries an f32
-// accumulator in VMEM across it.  Hopper blocks share nothing, so here each
-// block owns a kBM x kBN = 64 x 128 output tile and loops over K itself, in
-// chunks of kChunk (32 in f32, 16 in f64): the chunk's L rows are staged in
-// shared memory transposed (padded against bank conflicts) and its U rows as
-// they are, both with coalesced loads.  256 threads = 32 column lanes x 8
-// row groups; each thread owns 8 consecutive rows and 4 columns 32 apart, so
-// a warp's loads and stores of A and the output are 128-byte rows, a
-// shared-memory read of L is a broadcast, and one of U is conflict-free.
-// The accumulator starts from A, as the Pallas kernel's does; each chunk's
-// dot product is summed in registers and then subtracted from it (at
-// K = 32 in f32: out = A - sum of 32 products).  The A loads are issued
-// first so that their latency overlaps the chunk's products.  Ragged edges
-// (M, N, K not multiples of the tiles) are masked, so any shape runs.
+// The first body gave each block one 64 x 128 output tile and ran
+// its phases strictly in turn: A into registers with 4-byte loads, the L and
+// U chunks through shared memory behind barriers, the products, the stores.
+// It took 0.370 ms at the batched shape (46% of its floor) and 1.088 ms at
+// the single one (59%), held back by:
+//   - no overlap: no block overlapped its stores or its products with the
+//     next tile's loads, and a 32-value accumulator beside a 32-value dot
+//     product left room for about two blocks an SM;
+//   - traffic its floor does not count: L was read again by every column
+//     tile and U by every row tile, 24 KB of L2 reads per 64 KB of A;
+//   - waves: the batched shape's 8,192 blocks ran in 31 waves, each ending
+//     with SMs idle.
+// This body is a persistent, pipelined stream:
+//   - a grid of one block an SM; block b walks a contiguous range of
+//     32 x 256 output tiles, ordered (system, 256-column stripe, row tile)
+//     with the row tile fastest, so one system's tiles run close together.
+//     A run of tiles of one (system, stripe) is an item: the stripe's U
+//     chunk [32, 256] is staged once per item (two buffers, so the next
+//     item's U arrives while the last tiles of this one run), a row tile's
+//     L [32, 32] once per tile.  At the batched shape that is 4 KB of L and
+//     2 KB of U per tile against 64 KB of A in and out (9%, from 37%);
+//   - A and L arrive by TMA (`cp.async.bulk.tensor`, tensor maps built per
+//     call through cudaGetDriverEntryPoint, no -lcuda) into a ring of four
+//     stages on mbarriers: thread 0 keeps three tiles' loads in flight
+//     while the block runs the products of the fourth;
+//   - the result is written over the A tile in shared memory and leaves by
+//     a TMA store, which holds no registers; a stage is loaded again only
+//     once its store has been read out (`cp.async.bulk.wait_group.read`);
+//   - the A loads and the stores carry an L2 evict-first policy, since each
+//     byte passes once, so that L and U stay in L2 (slightly faster in
+//     exploratory calls on the card);
+//   - the products stay on the CUDA cores in f32 (f64 for f64): TF32
+//     `wgmma` would round L and U to 10-bit mantissas, another function, and
+//     the 2.15 G FMAs of a batched call (~64 us at 67 TFLOP/s) fit under its
+//     ~170 us of bytes.  Each warp owns a 32 x 32 block, each thread 8 rows
+//     4 apart by 4 adjacent columns; per k a thread reads its 8 values of L
+//     from 128-byte rows swizzled as TMA's 128B mode lays them (conflict
+//     free, 4 values of k a load) and 4 values of U (a broadcast across row
+//     groups): three shared-memory reads per 32 FMAs.
+// In exploratory calls on the card, 64 x 128 tiles ran as fast as 32 x 256
+// ones, which read L half as often, and issuing tile n + 3's loads before
+// tile n's products rather than after them was no faster.  The same pipeline
+// with the products left out ran faster, a little at the batched shape and
+// more at the single one: part of the products is not hidden under the
+// copies, and a producer warp of its own is the next thing to try.
+// Arithmetic, the same in every mode and as the first body's: the
+// accumulator starts from A; each chunk of K (32 in f32, 16 in f64, zero
+// padded) is summed in ascending k in its own FMA chain from 0, then
+// subtracted once, so out = A - sum of the products at K = 32 in f32.
+//
+// Edges: TMA needs 16-byte aligned bases and row and batch strides.  Where
+// an operand misses that (an odd row stride, K < 4), where K is over one
+// chunk, and in f64, the same body takes plain loads: per tile, the block
+// loads A, then each chunk of L and U, into the same shared-memory layout
+// and stores the result itself, without the pipeline, with the same
+// arithmetic.  Ragged M, N and K are zero-filled and clipped (by TMA, or by
+// the plain loads' masks), so any shape runs; the conflux step's windows of
+// a wider matrix (row stride > N, bases 32 columns apart) take the TMA path.
 // The order of the sum differs from a library GEMM's, so results agree with
 // the plain version within a stated tolerance, not bitwise.
-//
-// It does not use the tensor cores: at K = 32 the update is bound by bytes,
-// and wgmma, TMA and a persistent schedule are later work, as is skipping
-// the zero rows and columns of the path's full-shape update.
 
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums only: the driver call is looked up at run time
 #include <cuda_runtime.h>
+
+#include "once_per_device.cuh"
+#include "tma.cuh"
 
 namespace {
 
-constexpr int kBM = 64;
-constexpr int kBN = 128;
-constexpr int kColLanes = 32;
-constexpr int kRowGroups = 8;
-constexpr int kThreads = kColLanes * kRowGroups;
-constexpr int kRowsPerThread = kBM / kRowGroups;  // 8
-constexpr int kColsPerThread = kBN / kColLanes;   // 4
+constexpr int kBM = 32;          // rows of an output tile
+constexpr int kBN = 256;         // columns of an output tile: a stripe
+constexpr int kThreads = kBM * kBN / 32;  // 8 warps, each a 32 x 32 block of the tile
+constexpr int kStages = 4;       // A + L tiles in the ring
+constexpr int kRowBytes = 128;   // a row of an L chunk: 32 f32 or 16 f64
 
 template <typename T>
 struct Chunk {
-  static constexpr int value = sizeof(T) == 4 ? 32 : 16;  // keeps shared memory < 48 KiB
+  static constexpr int value = kRowBytes / sizeof(T);  // 32 in f32, 16 in f64
+};
+
+// One 16-byte run: four f32 or two f64 values.
+template <typename T>
+struct alignas(16) Run {
+  T x[16 / sizeof(T)];
+};
+
+// Shared memory, from a 1024-byte boundary (the 128-byte swizzle repeats
+// every 8 rows): A [kBM][kBN] and L [kBM][128 B] per stage, then U
+// [chunk][kBN] twice, then a "full" mbarrier per stage.  The plain mode uses
+// stage 0 and U buffer 0.
+template <typename T>
+struct Smem {
+  static constexpr uint32_t kA = kBM * kBN * sizeof(T);
+  static constexpr uint32_t kL = kBM * kRowBytes;
+  static constexpr uint32_t kU = Chunk<T>::value * kBN * sizeof(T);
+  static constexpr uint32_t kStage = kA + kL;
+  static constexpr int kRing = sizeof(T) == 4 ? kStages : 1;  // f64 runs the plain mode only
+  static constexpr uint32_t kBars = kRing * kStage + 2 * kU;
+  static constexpr size_t kBytes = 1024 + kBars + kRing * 8;
+  static_assert(kBytes <= 232448, "a block may use at most 227 KB of shared memory");
+};
+
+// An L2 policy that evicts first what it tags: the streamed A tiles and the
+// results, which are read or written once, so that L and U stay in L2.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// One box of a 3-D tensor map into shared memory; completion is counted in
+// bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// The same, tagged with an L2 policy.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+// One box from shared memory into a 3-D tensor map (clipped at its edges),
+// as a bulk group of its own, tagged with an L2 policy.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0, {%2, %3, %4}], [%1], %5;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+// The byte offset of 16-byte run c of row m of an L chunk: TMA's 128B
+// swizzle, which moves the runs of 8 consecutive rows onto distinct banks.
+__device__ __forceinline__ int l_offset(int m, int c) {
+  return m * kRowBytes + ((c ^ (m & 7)) << 4);
+}
+
+// The products of one chunk for this thread's 8 x 4 outputs: rows row + 4 r
+// (r < 8), columns col + c (c < 4); dot[r][c] = sum over ascending k of
+// L[row + 4 r][k] U[k][col + c], one FMA at a time from 0.
+template <typename T>
+__device__ __forceinline__ void chunk_products(const unsigned char* Ls, const T* Us, int row,
+                                               int col, T (&dot)[8][4]) {
+  constexpr int kRun = 16 / sizeof(T);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dot[r][c] = T(0);
+  }
+#pragma unroll 2
+  for (int kk = 0; kk < Chunk<T>::value; kk += kRun) {
+    Run<T> l[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      l[r] = *reinterpret_cast<const Run<T>*>(Ls + l_offset(row + 4 * r, kk / kRun));
+#pragma unroll
+    for (int e = 0; e < kRun; ++e) {
+      T u[4];
+#pragma unroll
+      for (int c0 = 0; c0 < 4; c0 += kRun) {
+        const Run<T> run = *reinterpret_cast<const Run<T>*>(Us + (kk + e) * kBN + col + c0);
+#pragma unroll
+        for (int c = 0; c < kRun; ++c) u[c0 + c] = run.x[c];
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dot[r][c] += l[r].x[e] * u[c];
+      }
+    }
+  }
+}
+
+// acc -= dot on this thread's outputs of the A tile in shared memory.
+template <typename T>
+__device__ __forceinline__ void subtract(T* As, int row, int col, const T (&dot)[8][4]) {
+  constexpr int kRun = 16 / sizeof(T);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    T* a = As + (row + 4 * r) * kBN + col;
+#pragma unroll
+    for (int c0 = 0; c0 < 4; c0 += kRun) {
+      Run<T> run = *reinterpret_cast<const Run<T>*>(a + c0);
+#pragma unroll
+      for (int c = 0; c < kRun; ++c) run.x[c] -= dot[r][c0 + c];
+      *reinterpret_cast<Run<T>*>(a + c0) = run;
+    }
+  }
+}
+
+struct Operand {
+  const void* ptr;
+  int64_t ld;  // row stride, elements
+  int64_t bs;  // batch stride, elements
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-schur_update_kernel(const T* __restrict__ A, int64_t lda, int64_t bsa,
-                    const T* __restrict__ L, int64_t ldl, int64_t bsl,
-                    const T* __restrict__ U, int64_t ldu, int64_t bsu,
-                    T* __restrict__ out, int64_t ldo, int64_t bso, int M, int N, int K) {
-  constexpr int kChunk = Chunk<T>::value;
-  __shared__ T Ls[kChunk][kBM + 1];  // L chunk, transposed: Ls[k][row]
-  __shared__ T Us[kChunk][kBN];      // U chunk: Us[k][col]
+__global__ void __launch_bounds__(kThreads, 1)
+schur_update_kernel(const __grid_constant__ CUtensorMap tm_a,
+                    const __grid_constant__ CUtensorMap tm_l,
+                    const __grid_constant__ CUtensorMap tm_u,
+                    const __grid_constant__ CUtensorMap tm_out, Operand a_op, Operand l_op,
+                    Operand u_op, T* __restrict__ out, int64_t ldo, int64_t bso, int nsys, int M,
+                    int N, int K, int bulk) {
+  using S = Smem<T>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  // Warp w owns the 32 x 32 block (w / (kBN / 32), w % (kBN / 32)) of the
+  // tile; lane l in it the rows l / 8 + 4 r (r < 8) and the 4 columns from
+  // (l % 8) * 4.
+  const int row = tid / 32 / (kBN / 32) * 32 + lane / 8;
+  const int col = tid / 32 % (kBN / 32) * 32 + (lane % 8) * 4;
 
-  const int64_t z = blockIdx.z;
-  A += z * bsa;
-  L += z * bsl;
-  U += z * bsu;
-  out += z * bso;
+  const int nrt = (M + kBM - 1) / kBM;
+  const int nst = (N + kBN - 1) / kBN;
+  const int64_t tiles = static_cast<int64_t>(nsys) * nst * nrt;
+  const int64_t t_begin = tiles * blockIdx.x / gridDim.x;
+  const int64_t count = tiles * (blockIdx.x + 1) / gridDim.x - t_begin;
+  const int64_t key0 = t_begin / nrt;  // (system, stripe) of the first tile
+  T dot[8][4];
 
-  const int tx = threadIdx.x % kColLanes;
-  const int ty = threadIdx.x / kColLanes;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  const int rbase = row0 + ty * kRowsPerThread;
-
-  T acc[kRowsPerThread][kColsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) {
-      const int row = rbase + r;
-      const int col = col0 + tx + c * kColLanes;
-      acc[r][c] = (row < M && col < N) ? A[static_cast<int64_t>(row) * lda + col] : T(0);
-    }
-  }
-
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
-    for (int idx = threadIdx.x; idx < kBM * kChunk; idx += kThreads) {
-      const int m = idx / kChunk;
-      const int k = idx - m * kChunk;
-      const int row = row0 + m;
-      Ls[k][m] = (row < M && k0 + k < K) ? L[static_cast<int64_t>(row) * ldl + k0 + k] : T(0);
-    }
-    for (int idx = threadIdx.x; idx < kChunk * kBN; idx += kThreads) {
-      const int k = idx / kBN;
-      const int n = idx - k * kBN;
-      const int col = col0 + n;
-      Us[k][n] = (col < N && k0 + k < K) ? U[static_cast<int64_t>(k0 + k) * ldu + col] : T(0);
-    }
-    __syncthreads();
-
-    T dot[kRowsPerThread][kColsPerThread];
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) dot[r][c] = T(0);
-    }
-#pragma unroll 4
-    for (int k = 0; k < kChunk; ++k) {
-      T l[kRowsPerThread];
-      T u[kColsPerThread];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) l[r] = Ls[k][ty * kRowsPerThread + r];
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) u[c] = Us[k][tx + c * kColLanes];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-#pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c) dot[r][c] += l[r] * u[c];
+  if constexpr (sizeof(T) == 4) {
+    if (bulk) {
+      const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(base));
+      const uint32_t u0 = smem0 + kStages * S::kStage;
+      const uint32_t full0 = u0 + 2 * S::kU;
+      const uint64_t stream_policy = evict_first_policy();
+      if (tid == 0) {
+        for (int s = 0; s < kStages; ++s) mbar_init(full0 + 8 * s, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       }
+      __syncthreads();
+
+      // Thread 0's loads: tile n into stage n % kStages once the store of
+      // tile n - kStages has been read out, and with the U of a new item q
+      // into buffer q % 2 once every tile of item q - 2 is done.  `done` is
+      // the last tile whose products every thread has finished.
+      int64_t next = 0;
+      auto issue = [&](int64_t done) {
+        for (; next < count && next <= done + kStages - 1; ++next) {
+          const int64_t tau = t_begin + next;
+          const int64_t key = tau / nrt;
+          const bool starts = next == 0 || tau % nrt == 0;
+          if (starts && key - key0 >= 2 && key * nrt - nrt - t_begin > done + 1) break;
+          const uint32_t stage = smem0 + (next % kStages) * S::kStage;
+          const uint32_t bar = full0 + 8 * (next % kStages);
+          const int row0 = static_cast<int>(tau % nrt) * kBM;
+          const int col0 = static_cast<int>(key % nst) * kBN;
+          const int z = static_cast<int>(key / nst);
+          mbar_expect_tx(bar, S::kA + S::kL + (starts ? S::kU : 0));
+          tma_load_3d(stage, &tm_a, bar, col0, row0, z, stream_policy);
+          tma_load_3d(stage + S::kA, &tm_l, bar, 0, row0, z);
+          if (starts) tma_load_3d(u0 + ((key - key0) & 1) * S::kU, &tm_u, bar, col0, 0, z);
+        }
+      };
+      if (tid == 0) issue(-1);
+
+      for (int64_t n = 0; n < count; ++n) {
+        const int64_t tau = t_begin + n;
+        const int64_t key = tau / nrt;
+        unsigned char* stage = base + (n % kStages) * S::kStage;
+        mbar_wait(full0 + 8 * (n % kStages), static_cast<uint32_t>((n / kStages) & 1));
+        chunk_products<T>(stage + S::kA,
+                          reinterpret_cast<const T*>(base + kStages * S::kStage +
+                                                     ((key - key0) & 1) * S::kU),
+                          row, col, dot);
+        subtract<T>(reinterpret_cast<T*>(stage), row, col, dot);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        if (tid == 0) {
+          const int c0 = static_cast<int>(key % nst) * kBN;
+          const int c1 = static_cast<int>(tau % nrt) * kBM;
+          const uint32_t src = smem0 + (n % kStages) * S::kStage;
+          tma_store_3d(&tm_out, src, c0, c1, static_cast<int>(key / nst), stream_policy);
+          asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+          issue(n);
+        }
+      }
+      if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+      return;
     }
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) acc[r][c] -= dot[r][c];
+  }
+
+  // Plain loads: one tile at a time through stage 0 and U buffer 0.
+  constexpr int kChunk = Chunk<T>::value;
+  constexpr int kRun = 16 / sizeof(T);
+  T* As = reinterpret_cast<T*>(base);
+  unsigned char* Ls = base + S::kA;
+  T* Us = reinterpret_cast<T*>(base + S::kRing * S::kStage);
+  for (int64_t n = 0; n < count; ++n) {
+    const int64_t tau = t_begin + n;
+    const int64_t key = tau / nrt;
+    const int row0 = static_cast<int>(tau % nrt) * kBM;
+    const int col0 = static_cast<int>(key % nst) * kBN;
+    const int64_t z = key / nst;
+    const T* A = static_cast<const T*>(a_op.ptr) + z * a_op.bs;
+    const T* L = static_cast<const T*>(l_op.ptr) + z * l_op.bs;
+    const T* U = static_cast<const T*>(u_op.ptr) + z * u_op.bs;
+    for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
+      const int m = idx / kBN;
+      const int c = idx % kBN;
+      const bool in = row0 + m < M && col0 + c < N;
+      As[idx] = in ? A[static_cast<int64_t>(row0 + m) * a_op.ld + col0 + c] : T(0);
+    }
+    for (int k0 = 0; k0 < K; k0 += kChunk) {
+      for (int idx = tid; idx < kBM * kChunk; idx += kThreads) {
+        const int m = idx / kChunk;
+        const int k = idx % kChunk;
+        const bool in = row0 + m < M && k0 + k < K;
+        *reinterpret_cast<T*>(Ls + l_offset(m, k / kRun) + (k % kRun) * sizeof(T)) =
+            in ? L[static_cast<int64_t>(row0 + m) * l_op.ld + k0 + k] : T(0);
+      }
+      for (int idx = tid; idx < kChunk * kBN; idx += kThreads) {
+        const int k = idx / kBN;
+        const int c = idx % kBN;
+        const bool in = k0 + k < K && col0 + c < N;
+        Us[idx] = in ? U[static_cast<int64_t>(k0 + k) * u_op.ld + col0 + c] : T(0);
+      }
+      __syncthreads();
+      chunk_products<T>(Ls, Us, row, col, dot);
+      subtract<T>(As, row, col, dot);
+      __syncthreads();
+    }
+    __syncthreads();  // K = 0: A's loads before the stores below
+    T* o = out + z * bso;
+    for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
+      const int m = idx / kBN;
+      const int c = idx % kBN;
+      if (row0 + m < M && col0 + c < N)
+        o[static_cast<int64_t>(row0 + m) * ldo + col0 + c] = As[idx];
     }
     __syncthreads();
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) {
-      const int row = rbase + r;
-      const int col = col0 + tx + c * kColLanes;
-      if (row < M && col < N) out[static_cast<int64_t>(row) * ldo + col] = acc[r][c];
-    }
+// A 3-D f32 map over [nsys, rows, cols] (innermost first) with row stride ld
+// and batch stride bs (elements), read or written in boxes of box_rows x
+// box_cols of one system.  False where TMA cannot take the operand: a base
+// or stride off a 16-byte boundary, or a map the driver refuses.
+bool f32_map(CUtensorMap* map, const void* ptr, int64_t ld, int64_t bs, int nsys, int rows,
+             int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (nsys == 1) bs = ld * rows;  // any stride will do for a single system
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 || ld % 4 || bs % 4 || bs <= 0 ||
+      cols < 4) {
+    return false;
   }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(nsys)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 4, static_cast<cuuint64_t>(bs) * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>
 int launch(const void* A, long long lda, long long bsa, const void* L, long long ldl,
            long long bsl, const void* U, long long ldu, long long bsu, void* out, long long ldo,
            long long bso, int B, int M, int N, int K, void* stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, B);
-  schur_update_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), lda, bsa, static_cast<const T*>(L), ldl, bsl,
-      static_cast<const T*>(U), ldu, bsu, static_cast<T*>(out), ldo, bso, M, N, K);
+  const int64_t tiles =
+      static_cast<int64_t>(B) * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  if (tiles == 0) return static_cast<int>(cudaSuccess);
+  // The limit is raised, and the SMs counted, once per device.
+  static OncePerDevice<> limit;
+  int sms = 0;
+  const cudaError_t err = limit.get(
+      [](int dev, int* n) {
+        const cudaError_t e = cudaFuncSetAttribute(schur_update_kernel<T>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(Smem<T>::kBytes));
+        return e != cudaSuccess ? e
+                                : cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+      },
+      &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // TMA for f32 with one chunk of K (every path's shape), else plain loads.
+  CUtensorMap tm_a{}, tm_l{}, tm_u{}, tm_out{};
+  const int bulk =
+      sizeof(T) == 4 && K <= Chunk<T>::value &&
+      f32_map(&tm_a, A, lda, bsa, B, M, N, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      f32_map(&tm_l, L, ldl, bsl, B, M, K, kBM, Chunk<T>::value, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      f32_map(&tm_u, U, ldu, bsu, B, K, N, Chunk<T>::value, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      f32_map(&tm_out, out, ldo, bso, B, M, N, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
+  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  schur_update_kernel<T><<<grid, kThreads, Smem<T>::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      tm_a, tm_l, tm_u, tm_out, Operand{A, lda, bsa}, Operand{L, ldl, bsl}, Operand{U, ldu, bsu},
+      static_cast<T*>(out), ldo, bso, B, M, N, K, bulk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,8 +431,7 @@ int launch(const void* A, long long lda, long long bsa, const void* L, long long
 
 // B systems: A [M, N], L [M, K], U [K, N], out [M, N], each with the given
 // row stride, batch stride and unit column stride (a single system is
-// B = 1).  Needs ceil(M / 64) <= 65535 and B <= 65535.  Returns the
-// cudaError_t of the launch.
+// B = 1).  Returns the cudaError_t of the launch.
 extern "C" int schur_update_f32(const void* A, long long lda, long long bsa, const void* L,
                                 long long ldl, long long bsl, const void* U, long long ldu,
                                 long long bsu, void* out, long long ldo, long long bso, int B,

@@ -25,17 +25,54 @@
 // v / 4 flop per byte; the floor is ~1.3 us at C = 16384.
 //
 // Design of trsm_right_upper: the TPU kernel tiles the long axis over the
-// grid and keeps U and a [br, v] tile in VMEM.  Here each block owns kRows
-// rows of one system, one thread per row.  U is staged in shared memory once
-// per block, read with any row and column strides (the Cholesky path passes
-// L00^T, a transposed view), and every thread reads the same U element at
-// the same time, a broadcast.  The block's B tile is copied into shared
-// memory with coalesced loads and a padded row stride (v + 1) so that the
-// threads' row-wise reads hit distinct banks; each thread then sweeps its row
-// column by column,
-//   X[r, j] = (B[r, j] - sum_{i<j} X[r, i] U[i, j]) / U[j, j],
-// in place, and the tile goes back out with coalesced stores.  Rows that are
-// zero in B (the path masks every row above the trailing block) stay zero.
+// grid and keeps U and a [br, v] tile in VMEM.  Here each thread owns one
+// row of one system (blockIdx.z).  The first body (kept below as
+// `trsm_right_upper_smem_kernel`) took 19.7 us at [16384, 32], 16x its
+// floor, for three reasons:
+//   - too little parallel work: 64 threads a block, so about four warps an
+//     SM at [16384, 32], and nothing hid a memory latency;
+//   - a serial chain per row: each column's sum was a dependent FMA chain
+//     fed from shared memory, then a division, about 530 dependent steps;
+//   - a round trip through shared memory: B in and X out through a tile,
+//     with 4-byte accesses, index divisions and two barriers.
+// For v <= 32 (every path's v), `trsm_right_upper_reg_kernel`, the
+// transposed form of trsm_left_lower's register body:
+//   - a thread holds its row in registers for the whole solve.  Where the
+//     row stride and base allow 16-byte loads (the paths' [N, v] panels), a
+//     warp loads its 32 rows together, each load instruction covering whole
+//     128-byte rows, all loads issued before anything waits on one, and the
+//     rows pass to their threads through a swizzled tile in shared memory;
+//     else each thread loads its own row, one value a load;
+//   - U's upper triangle and diagonal go to shared memory once per block,
+//     read with any strides in the order of U's unit stride so that the
+//     loads coalesce (the Cholesky path passes L00^T, the LU conflux path
+//     U00 as it is), every staging load issued before the first store;
+//   - column by column: once x[j] is final, every later column m takes its
+//     term x[j] U[j][m], so a step's FMAs are independent of each other and
+//     the warp reads each 16-byte run of U's row j at once (a broadcast).
+//     Each partial[m] still grows in ascending j, one FMA at a time from 0,
+//     then x[m] = (x[m] - partial[m]) / U[m][m] with IEEE division: the
+//     terms, order and rounding of the first body's row sweep, so X has the
+//     same bits as before (checked on the card against that body);
+//   - X leaves from registers back through the swizzled tile, a warp's
+//     16-byte stores covering whole rows (one value a store where v is not
+//     a multiple of the run).  In exploratory calls on the card this was
+//     faster than each thread storing its own row in 16-byte runs, most at
+//     the batched shape, and the warp's loads were faster than per-thread
+//     ones for the same reason: a per-thread run of a 128-byte row puts 32
+//     rows, 32 cache lines, into every load and store instruction.
+// Rows that are zero in B are solved like any other, so a zero or NaN on
+// U's diagonal gives NaN in them as in the plain version.  Their zero
+// dividends would send every division of their warp down the IEEE
+// division's slow path (the paths' panels are zero above the trailing
+// block, so from none to nearly all of the rows, and the first body paid
+// for that on every call); where the quotient of a zero is exact without
+// the division it is taken by a multiplication, same bits.  kRightRows = 128
+// threads (rows) a block: at [16384, 32] that is 128 blocks, one an SM; it
+// was faster than 64-thread blocks there in exploratory calls on the card
+// and as fast at [256, 512, 32].  f64 at v = 32 runs the same body without
+// spills (ptxas: about 200 registers).  v > 32, off every path, keeps the
+// shared-memory body.
 //
 // Design of trsm_left_lower: columns of B are independent, so each thread
 // owns one column of one system (blockIdx.z); the TPU kernel's column tiles
@@ -67,6 +104,7 @@
 // Both sums run in another order than a library solve's, so results agree
 // with the plain versions within a stated tolerance, not bitwise.
 
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -75,14 +113,177 @@
 
 namespace {
 
-constexpr int kRows = 64;  // rows (threads) per block
+constexpr int kRows = 64;  // rows (threads) per block of the shared-memory body
 constexpr int kMaxV = 128;
+constexpr int kRegV = 32;         // v up to which a thread keeps its row (column) in registers
+constexpr int kRightRows = 128;   // rows (threads) per block of the right solve's register body
+
+// One 16-byte run: four f32 or two f64 values.
+template <typename T>
+struct alignas(16) Run {
+  T x[16 / sizeof(T)];
+};
+
+// v itself, hidden from the optimizer.
+__device__ __forceinline__ float opaque(float v) {
+  asm("" : "+f"(v));
+  return v;
+}
+__device__ __forceinline__ double opaque(double v) {
+  asm("" : "+d"(v));
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRightRows)
+trsm_right_upper_reg_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
+                            const T* __restrict__ U, int64_t ldu_r, int64_t ldu_c, int64_t bsu,
+                            T* __restrict__ X, int R, int v, int vec_in) {
+  constexpr int kRun = 16 / sizeof(T);
+  constexpr int kRowRuns = kRegV / kRun;       // 16-byte runs of a row: 8 in f32, 16 in f64
+  constexpr int kRowsAtOnce = 32 / kRowRuns;   // rows a warp's 16-byte access covers
+  // Us[j][m] = U[j][m] for j <= m < v; 1 on the diagonal past v (the padded
+  // columns then solve to 0); 0 elsewhere.  Each warp's 32 rows pass
+  // through Ws.  Both hold rows of kRegV values whose 16-byte runs are
+  // swizzled (run c of row r at run c ^ (r & 7)), so that 8 lanes reading or
+  // writing one run of 8 rows, or one value of 8 rows, meet distinct banks.
+  __shared__ __align__(16) T Us[kRegV * kRegV];
+  __shared__ __align__(16) T Ws[kRightRows * kRegV];
+  const auto at = [](int r, int m) {
+    return r * kRegV + ((m / kRun) ^ (r & 7)) * kRun + m % kRun;
+  };
+
+  const int64_t z = blockIdx.z;
+  B += z * bsb;
+  U += z * bsu;
+  X += z * static_cast<int64_t>(R) * v;
+  const int lane = threadIdx.x % 32;
+  const int warp_row0 = blockIdx.x * kRightRows + threadIdx.x / 32 * 32;
+  const int row = blockIdx.x * kRightRows + threadIdx.x;
+  T* ws = Ws + threadIdx.x / 32 * 32 * kRegV;
+
+  // The warp's 32 rows, every load issued before anything waits on one:
+  // with 16-byte loads, lane l takes run l % kRowRuns of rows
+  // l / kRowRuns + i kRowsAtOnce, so one load instruction covers whole
+  // 128-byte rows; else one value a load of the thread's own row.
+  Run<T> runs[kRowRuns];
+  T x[kRegV];
+  if (vec_in) {
+#pragma unroll
+    for (int i = 0; i < kRowRuns; ++i) {
+      const int r = lane / kRowRuns + i * kRowsAtOnce;
+      const int c = lane % kRowRuns;
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) runs[i].x[e] = T(0);
+      if (warp_row0 + r < R && c * kRun < v)
+        runs[i] = *reinterpret_cast<const Run<T>*>(
+            B + static_cast<int64_t>(warp_row0 + r) * ldb + c * kRun);
+    }
+  } else {
+    const T* b = B + static_cast<int64_t>(row) * ldb;
+#pragma unroll
+    for (int m = 0; m < kRegV; ++m) x[m] = row < R && m < v ? b[m] : T(0);
+  }
+
+  // U's upper triangle: this thread's elements idx = threadIdx.x + i *
+  // kRightRows, taken in the order of U's unit stride so that a warp's loads
+  // coalesce (the Cholesky path's L00^T has unit row stride), all loads
+  // issued before the first store.
+  constexpr int kStage = kRegV * kRegV / kRightRows;
+  const bool by_rows = ldu_c == 1;
+  T staged[kStage];
+#pragma unroll
+  for (int i = 0; i < kStage; ++i) {
+    const int idx = threadIdx.x + i * kRightRows;
+    const int j = by_rows ? idx / kRegV : idx % kRegV;
+    const int m = by_rows ? idx % kRegV : idx / kRegV;
+    staged[i] = j <= m && m < v ? U[j * ldu_r + m * ldu_c] : T(j == m ? 1 : 0);
+  }
+#pragma unroll
+  for (int i = 0; i < kStage; ++i) {
+    const int idx = threadIdx.x + i * kRightRows;
+    const int j = by_rows ? idx / kRegV : idx % kRegV;
+    const int m = by_rows ? idx % kRegV : idx / kRegV;
+    Us[at(j, m)] = staged[i];
+  }
+  if (vec_in) {
+#pragma unroll
+    for (int i = 0; i < kRowRuns; ++i) {
+      const int r = lane / kRowRuns + i * kRowsAtOnce;
+      *reinterpret_cast<Run<T>*>(ws + at(r, lane % kRowRuns * kRun)) = runs[i];
+    }
+  }
+  __syncthreads();
+  if (vec_in) {
+#pragma unroll
+    for (int c = 0; c < kRowRuns; ++c) {
+      const Run<T> run = *reinterpret_cast<const Run<T>*>(ws + at(lane, c * kRun));
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) x[c * kRun + e] = run.x[e];
+    }
+  }
+
+  T partial[kRegV];
+#pragma unroll
+  for (int m = 0; m < kRegV; ++m) partial[m] = T(0);
+#pragma unroll
+  for (int j = 0; j < kRegV; ++j) {
+    // The IEEE division takes a slow path for a zero dividend, which every
+    // zero row of B meets at every column.  There the quotient needs no
+    // division: +-0 over a finite nonzero divisor is +-0 with the sign of
+    // their product, which is what num * den gives.  So a zero dividend over
+    // such a divisor is multiplied and 1 is divided in its place (`opaque`,
+    // or the compiler, seeing the quotient unused there, divides num after
+    // all); any other divisor (0, inf or NaN) still divides the zero.  Same
+    // bits either way.
+    const T num = x[j] - partial[j];
+    const T den = Us[at(j, j)];
+    const bool zero = num == T(0) && fabs(den) > T(0) && fabs(den) < T(INFINITY);
+    const T quotient = opaque(zero ? T(1) : num) / den;
+    const T xj = zero ? num * den : quotient;
+    x[j] = xj;
+#pragma unroll
+    for (int m0 = (j + 1) / kRun * kRun; m0 < kRegV; m0 += kRun) {
+      const Run<T> run = *reinterpret_cast<const Run<T>*>(Us + at(j, m0));
+#pragma unroll
+      for (int e = 0; e < kRun; ++e)
+        if (m0 + e > j) partial[m0 + e] += xj * run.x[e];
+    }
+  }
+
+  // X out: where v is a whole number of runs (X is contiguous from a
+  // 256-byte boundary), the rows go back through Ws and leave in 16-byte
+  // runs as they came in, a warp's store covering whole rows; else one value
+  // a store.
+  if (v % kRun == 0) {
+#pragma unroll
+    for (int c = 0; c < kRowRuns; ++c) {
+      Run<T> run;
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) run.x[e] = x[c * kRun + e];
+      *reinterpret_cast<Run<T>*>(ws + at(lane, c * kRun)) = run;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kRowRuns; ++i) {
+      const int r = lane / kRowRuns + i * kRowsAtOnce;
+      const int c = lane % kRowRuns;
+      if (warp_row0 + r < R && c * kRun < v)
+        *reinterpret_cast<Run<T>*>(X + static_cast<int64_t>(warp_row0 + r) * v + c * kRun) =
+            *reinterpret_cast<const Run<T>*>(ws + at(r, c * kRun));
+    }
+  } else if (row < R) {
+#pragma unroll
+    for (int m = 0; m < kRegV; ++m)
+      if (m < v) X[static_cast<int64_t>(row) * v + m] = x[m];
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kRows)
-trsm_right_upper_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
-                        const T* __restrict__ U, int64_t ldu_r, int64_t ldu_c, int64_t bsu,
-                        T* __restrict__ X, int R, int v) {
+trsm_right_upper_smem_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
+                             const T* __restrict__ U, int64_t ldu_r, int64_t ldu_c,
+                             int64_t bsu, T* __restrict__ X, int R, int v) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Us = reinterpret_cast<T*>(smem_raw);  // [v][v]
   const int ld = v + 1;
@@ -125,14 +326,7 @@ trsm_right_upper_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
 }
 
 constexpr int kCols = 64;         // columns (threads) per block of the shared-memory body
-constexpr int kRegV = 32;         // v up to which a thread keeps its column in registers
 constexpr int kRegCols = 128;     // columns (threads) per block of the register body
-
-// One 16-byte run of a row of staged L: four f32 or two f64 values.
-template <typename T>
-struct alignas(16) Run {
-  T x[16 / sizeof(T)];
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kRegCols)
@@ -232,18 +426,30 @@ trsm_left_lower_smem_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_
 template <typename T>
 int launch(const void* B, long long ldb, long long bsb, const void* U, long long ldu_r,
            long long ldu_c, long long bsu, void* X, int Bb, int R, int v, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (v <= kRegV) {
+    constexpr int kRun = 16 / sizeof(T);
+    const int vec_in = reinterpret_cast<uintptr_t>(B) % 16 == 0 && ldb % kRun == 0 &&
+                       bsb % kRun == 0 && v % kRun == 0;
+    const dim3 grid(
+        static_cast<unsigned>((static_cast<int64_t>(R) + kRightRows - 1) / kRightRows), 1, Bb);
+    trsm_right_upper_reg_kernel<T><<<grid, kRightRows, 0, s>>>(
+        static_cast<const T*>(B), ldb, bsb, static_cast<const T*>(U), ldu_r, ldu_c, bsu,
+        static_cast<T*>(X), R, v, vec_in);
+    return static_cast<int>(cudaGetLastError());
+  }
   // The limit is raised once per device, for the widest panel.
   static OncePerDevice<> limit;
   const cudaError_t err = limit.get([](int, int*) {
     return cudaFuncSetAttribute(
-        trsm_right_upper_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        trsm_right_upper_smem_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>((kMaxV * (kMaxV + kRows) + kRows) * sizeof(T)));
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = (static_cast<size_t>(v) * v + static_cast<size_t>(kRows) * (v + 1)) *
                       sizeof(T);
   const dim3 grid((R + kRows - 1) / kRows, 1, Bb);
-  trsm_right_upper_kernel<T><<<grid, kRows, smem, static_cast<cudaStream_t>(stream)>>>(
+  trsm_right_upper_smem_kernel<T><<<grid, kRows, smem, s>>>(
       static_cast<const T*>(B), ldb, bsb, static_cast<const T*>(U), ldu_r, ldu_c, bsu,
       static_cast<T*>(X), R, v);
   return static_cast<int>(cudaGetLastError());

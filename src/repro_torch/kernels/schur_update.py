@@ -17,8 +17,12 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-TILE_M = 64  # output rows per block (csrc/schur_update.cu kBM)
-MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y (row tiles) and gridDim.z (systems)
+# The entry points' limits: M <= TILE_M * MAX_GRID_YZ rows and at most
+# MAX_GRID_YZ systems a launch (the first kernel's grid; the persistent one
+# walks any number of tiles, and the limits stay so that what runs is
+# unchanged).
+TILE_M = 64
+MAX_GRID_YZ = 65535
 MAX_DIM = 2**31 - 1
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ARGTYPES = (

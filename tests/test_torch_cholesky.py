@@ -117,7 +117,10 @@ def test_chol_panel_edges_of_the_kernel_bodies_match_jax(v):
     np.testing.assert_array_equal(np.isnan(Lbad), np.isnan(jbad))
 
 
-@pytest.mark.parametrize("R,v", [(64, 8), (256, 16), (128, 32)])
+# R = 1 and R off the register body's 128-row blocks; v = 1, 31 and 32 run
+# the register body on the card, 33 the shared-memory one.
+@pytest.mark.parametrize("R,v", [(64, 8), (256, 16), (128, 32), (1, 32), (130, 32), (97, 31),
+                                 (100, 1), (200, 33)])
 def test_trsm_right_upper_matches_jax(R, v):
     U = _upper((v, v), seed=R + v)
     Bm = np.random.default_rng(R).standard_normal((R, v)).astype(np.float32)
@@ -127,7 +130,8 @@ def test_trsm_right_upper_matches_jax(R, v):
         np.testing.assert_allclose(X.numpy(), _np(jX), **TOL)
 
 
-@pytest.mark.parametrize("Bb,R,v", [(3, 64, 8), (2, 128, 16), (2, 96, 32)])
+@pytest.mark.parametrize("Bb,R,v", [(3, 64, 8), (2, 128, 16), (2, 96, 32), (1, 130, 32),
+                                    (2, 1, 32), (3, 100, 1), (2, 97, 31), (2, 65, 33)])
 def test_trsm_right_upper_batched_matches_jax(Bb, R, v):
     U = _upper((Bb, v, v), seed=Bb * R + v)
     Bm = np.random.default_rng(R).standard_normal((Bb, R, v)).astype(np.float32)
@@ -137,13 +141,72 @@ def test_trsm_right_upper_batched_matches_jax(Bb, R, v):
         np.testing.assert_allclose(X.numpy(), _np(jX), **TOL)
 
 
+@pytest.mark.parametrize("v", [1, 31, 32, 33])
+def test_trsm_right_upper_transposed_view_matches_jax(v):
+    """U as the Cholesky step passes it, L00.mT (a view with strides (1, v)),
+    gives the bits of the same U made contiguous, and agrees with the JAX
+    package's Pallas kernel (interpret mode) and its ref backend within TOL;
+    a batched lane equals the single call."""
+    L = torch.from_numpy(np.linalg.cholesky(_spd((2, v, v), seed=300 + v, dtype=np.float64))
+                         .astype(np.float32))
+    U = L.mT
+    assert U.stride() == (v * v, 1, v)
+    Bm = torch.from_numpy(np.random.default_rng(v).standard_normal((2, 130, v)).astype(np.float32))
+    X = tr_mod.trsm_right_upper(Bm[0], U[0])
+    assert torch.equal(X, tr_mod.trsm_right_upper(Bm[0], U[0].contiguous()))
+    Xb = tr_mod.trsm_right_upper_batched(Bm, U)
+    assert torch.equal(Xb, tr_mod.trsm_right_upper_batched(Bm, U.contiguous()))
+    assert torch.equal(Xb[0], X)
+    jB, jU = jnp.asarray(Bm.numpy()), jnp.asarray(U.contiguous().numpy())
+    for jX in (jops.trsm_right_upper(jB[0], jU[0]),
+               jax_backend("ref").trsm_right_upper(jB[0], jU[0])):
+        np.testing.assert_allclose(X.numpy(), _np(jX), **TOL)
+    np.testing.assert_allclose(Xb.numpy(), _np(jops.trsm_right_upper_batched(jB, jU)), **TOL)
+
+
+def _special_rows(Bm: np.ndarray) -> np.ndarray:
+    """A copy of B [..., R, v] with a NaN, a +inf, a -inf and a zero row."""
+    B = Bm.copy()
+    v = B.shape[-1]
+    B[..., 3, 0] = np.nan
+    B[..., 5, min(2, v - 1)] = np.inf
+    B[..., 7, v - 1] = -np.inf
+    B[..., 9, :] = 0.0
+    return B
+
+
+@pytest.mark.parametrize("v", [1, 31, 32, 33])
+def test_trsm_right_upper_special_values_match_jax(v):
+    """NaN and inf in B: the port's solve has NaN and inf where the JAX ref
+    backend's has them (and the Pallas kernel's, interpret mode), agrees
+    within TOL elsewhere, and solves a zero row to zero; a batched lane
+    equals the single call."""
+    U = _upper((2, v, v), seed=400 + v)
+    B = _special_rows(np.random.default_rng(v).standard_normal((2, 40, v)).astype(np.float32))
+    Xb = tr_mod.trsm_right_upper_batched(torch.from_numpy(B), torch.from_numpy(U)).numpy()
+    X = tr_mod.trsm_right_upper(torch.from_numpy(B[1]), torch.from_numpy(U[1])).numpy()
+    np.testing.assert_array_equal(Xb[1], X)
+    jX = _np(jax_backend("ref").trsm_right_upper_batched(jnp.asarray(B), jnp.asarray(U)))
+    pX = _np(jops.trsm_right_upper_batched(jnp.asarray(B), jnp.asarray(U)))
+    assert np.isnan(Xb).any() and np.isinf(Xb).any()
+    for other in (jX, pX):
+        np.testing.assert_array_equal(np.isnan(Xb), np.isnan(other))
+        np.testing.assert_array_equal(np.isinf(Xb), np.isinf(other))
+        fin = np.isfinite(other)
+        np.testing.assert_allclose(Xb[fin], other[fin], **TOL)
+    assert np.all(Xb[:, 9] == 0)
+
+
 def _schur_inputs(lead, M, N, K, seed):
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal(lead + s).astype(np.float32)
                  for s in ((M, N), (M, K), (K, N)))
 
 
-@pytest.mark.parametrize("M,N,K", [(64, 64, 8), (128, 96, 16), (256, 128, 32)])
+# K = 1, 16 and 33 (one chunk, half of one in f32, two), and M, N off the
+# kernel's 32 x 256 tiles.
+@pytest.mark.parametrize("M,N,K", [(64, 64, 8), (128, 96, 16), (256, 128, 32), (64, 64, 1),
+                                   (96, 300, 33), (33, 258, 16)])
 def test_schur_update_matches_jax(M, N, K):
     A, Lm, Um = _schur_inputs((), M, N, K, seed=M + N + K)
     out = ops.schur_update(*map(torch.from_numpy, (A, Lm, Um)))
@@ -152,7 +215,8 @@ def test_schur_update_matches_jax(M, N, K):
         np.testing.assert_allclose(out.numpy(), _np(jout), **TOL)
 
 
-@pytest.mark.parametrize("B,M,N,K", [(3, 64, 64, 8), (2, 128, 96, 16), (2, 64, 128, 32)])
+@pytest.mark.parametrize("B,M,N,K", [(3, 64, 64, 8), (2, 128, 96, 16), (2, 64, 128, 32),
+                                     (1, 64, 128, 32), (2, 33, 258, 33), (3, 50, 70, 1)])
 def test_schur_update_batched_matches_jax(B, M, N, K):
     A, Lm, Um = _schur_inputs((B,), M, N, K, seed=B + M + N + K)
     out = ops.schur_update_batched(*map(torch.from_numpy, (A, Lm, Um)))
@@ -160,6 +224,47 @@ def test_schur_update_batched_matches_jax(B, M, N, K):
     for jout in (jops.schur_update_batched(*args),
                  jax_backend("ref").schur_update_batched(*args)):
         np.testing.assert_allclose(out.numpy(), _np(jout), **TOL)
+
+
+@pytest.mark.parametrize("K", [16, 32])
+def test_schur_update_on_a_window_of_a_wider_matrix_matches_jax(K):
+    """A as the conflux step passes it: a window of a wider matrix (row
+    stride > N, base 32 columns in), single and batched, against the JAX
+    package's kernel and ref backend on the window's values."""
+    A_big, Lm, Um = _schur_inputs((2,), 96 + 32, 160 + 64, K, seed=500 + K)
+    A = torch.from_numpy(A_big)[:, 32:, 64:]
+    Lm, Um = Lm[:, 32:], Um[:, :, 64:]
+    assert A.stride(1) == 160 + 64
+    out = su_mod.schur_update(A[0], torch.from_numpy(Lm[0]), torch.from_numpy(Um[0]))
+    outb = su_mod.schur_update_batched(A, torch.from_numpy(Lm), torch.from_numpy(Um))
+    assert torch.equal(outb[0], out)
+    args = tuple(map(jnp.asarray, (A.contiguous().numpy(), Lm, Um)))
+    for jout in (jops.schur_update_batched(*args),
+                 jax_backend("ref").schur_update_batched(*args)):
+        np.testing.assert_allclose(outb.numpy(), _np(jout), **TOL)
+
+
+@pytest.mark.parametrize("K", [1, 16, 33])
+def test_schur_update_special_values_match_jax(K):
+    """NaN and inf in A and L: NaN and inf where the JAX ref backend's output
+    (and the Pallas kernel's, interpret mode) has them, the rest within TOL;
+    a batched lane equals the single call."""
+    A, Lm, Um = _schur_inputs((2,), 70, 300, K, seed=600 + K)
+    A[:, 2, 3] = np.nan
+    A[:, 4, 5] = np.inf
+    Lm[:, 6, 0] = np.nan
+    Lm[:, 8, K - 1] = -np.inf
+    out = su_mod.schur_update_batched(*map(torch.from_numpy, (A, Lm, Um))).numpy()
+    one = su_mod.schur_update(*(torch.from_numpy(x[1]) for x in (A, Lm, Um))).numpy()
+    np.testing.assert_array_equal(out[1], one)
+    args = tuple(map(jnp.asarray, (A, Lm, Um)))
+    assert np.isnan(out).any() and np.isinf(out).any()
+    for other in (_np(jax_backend("ref").schur_update_batched(*args)),
+                  _np(jops.schur_update_batched(*args))):
+        np.testing.assert_array_equal(np.isnan(out), np.isnan(other))
+        np.testing.assert_array_equal(np.isinf(out), np.isinf(other))
+        fin = np.isfinite(other)
+        np.testing.assert_allclose(out[fin], other[fin], **TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
