@@ -32,7 +32,13 @@ each kernel against its plain PyTorch version on the card:
 Before the paths, `lu_panel` and `lu_panel_batched` are held bit for bit at
 the edges of their CUDA bodies, in f64 and on panels with NaN and infinite
 entries, each call is checked to make one device record, and the conflux
-tournament's [32, 32] panel is timed.  Before the Cholesky paths,
+tournament's [32, 32] panel is timed; `fused_trsm_schur` and its batched
+form are held against their plain version at the edges of their CUDA body
+(v = 1, 16, 31, 32, 33, 128; M = 1 and ragged; C = 1, 96, 300; items split
+across blocks; an odd row stride, a window of a wider matrix, f64;
+unit=False; zero rows of L10 and NaN / inf in L10 and A), batched lanes bit
+for bit against the single call, with the mode (TMA stream or plain loads)
+each case took.  Before the Cholesky paths,
 `trsm_right_upper` and `schur_update` and their batched forms are held
 against their plain versions at the edges of their bodies (v, R, K, ragged
 shapes, strides that bulk copies cannot take, windows of a wider matrix,
@@ -446,6 +452,48 @@ def lu_panel_edges(dev, gen, panel, weights) -> dict:
     return {"tournament": tournament, "records_per_call": records, "yardstick": yardstick}
 
 
+def fused_inputs(lead: tuple, M: int, C: int, v: int, unit: bool, dt, kind, gen, dev):
+    """Operands of fused_trsm_schur[_batched] for one case of its edges.
+
+    `kind`: "odd_lda", A with an odd row stride (the kernel's plain loads);
+    "window", A a window of a wider matrix as the conflux step passes it (row
+    stride > C, base 32 rows and 64 columns in); "special", R01 zero before
+    C // 3 and L10's top quarter of rows zero, as the LU paths pass them,
+    with NaN and inf in A, an infinite entry in an active row of L10 and NaN
+    in a zero row (a row of weight 0 whose panel entry was infinite)."""
+    if kind == "odd_lda":
+        A = torch.randn(*lead, M, C + 1, generator=gen, device=dev, dtype=dt)[..., :C]
+    elif kind == "window":
+        A = torch.randn(*lead, M + 32, C + 64, generator=gen, device=dev,
+                        dtype=dt)[..., 32:, 64:]
+    else:
+        A = torch.randn(*lead, M, C, generator=gen, device=dev, dtype=dt)
+    L00 = (0.3 * torch.tril(torch.randn(*lead, v, v, generator=gen, device=dev, dtype=dt), -1)
+           + (1.0 if unit else 2.0) * torch.eye(v, device=dev, dtype=dt))
+    R01 = torch.randn(*lead, v, C, generator=gen, device=dev, dtype=dt)
+    L10 = torch.randn(*lead, M, v, generator=gen, device=dev, dtype=dt)
+    if kind == "special":
+        R01[..., :C // 3] = 0.0
+        L10[..., :M // 4, :] = 0.0
+        L10[..., 1, v - 1] = float("nan")
+        L10[..., M // 2, v // 2] = float("inf")
+        A[..., 5, 7] = float("nan")
+        A[..., 9, 100] = float("-inf")
+    return A, L00, R01, L10
+
+
+def fused_check(out_k, U_k, out_p, U_p) -> tuple[float, float, dict]:
+    """(max error over the entries finite in the plain version, their
+    scale, checks): within FUSED_REL_TOL of the scale, NaN and inf at the
+    plain version's places."""
+    finite = torch.isfinite(out_p)
+    err = max(float((out_k - out_p)[finite].abs().max()), float((U_k - U_p).abs().max()))
+    scale = max(float(out_p[finite].abs().max()), float(U_p.abs().max()))
+    return err, scale, {"within_tol": err <= FUSED_REL_TOL * scale,
+                        "nan_as_plain": torch.equal(out_k.isnan(), out_p.isnan()),
+                        "inf_as_plain": torch.equal(out_k.isinf(), out_p.isinf())}
+
+
 def batched_kernel_rows(dev, gen) -> list[dict]:
     """Each batched kernel against its plain version, and lanes against the
     single-system kernel, at the batched path's shapes and beyond."""
@@ -505,27 +553,42 @@ def batched_kernel_rows(dev, gen) -> list[dict]:
             "library": "none: no single PyTorch call computes a masked LUP with row weights",
         })
 
-    for B, M, C, v, unit in ((BATCH, BATCH_N, BATCH_N, 32, True), (8, 2048, 1536, 16, False)):
-        A = torch.randn(B, M, C, generator=gen, device=dev)
-        L00 = (0.3 * torch.tril(torch.randn(B, v, v, generator=gen, device=dev), -1)
-               + (1.0 if unit else 2.0) * torch.eye(v, device=dev))
-        R01 = torch.randn(B, v, C, generator=gen, device=dev)
-        L10 = torch.randn(B, M, v, generator=gen, device=dev)
+    # fused_trsm_schur_batched: the path's shape, then the kernel's edges
+    # (`fused_inputs`): v = 1, 31, 33 and 128, ragged M with C = 96, M = 1
+    # with C = 300, C = 1, items split across blocks (4 systems of 128 row
+    # tiles each over the SMs), f64, a batch of one, NaN / inf with zero rows,
+    # unit=False, an odd row stride, a window.
+    from repro_torch.kernels import fused_schur as fs_mod
+
+    modes = {}
+    f32, f64 = torch.float32, torch.float64
+    for B, M, C, v, unit, dt, kind in (
+            (BATCH, BATCH_N, BATCH_N, 32, True, f32, None), (8, 2048, 1536, 16, False, f32, None),
+            (8, 300, 500, 1, True, f32, None), (8, 300, 500, 31, True, f32, None),
+            (8, 300, 500, 33, True, f32, None), (4, 300, 500, 128, False, f32, None),
+            (8, 777, 96, 32, True, f32, None), (8, 1, 300, 32, True, f32, None),
+            (8, 777, 1, 32, True, f32, None), (4, 4096, 256, 32, True, f32, None),
+            (4, 1000, 700, 32, True, f64, None), (1, BATCH_N, BATCH_N, 32, True, f32, None),
+            (4, 777, 1000, 32, True, f32, "special"), (4, 777, 1000, 32, False, f32, "special"),
+            (8, 1000, 1000, 32, True, f32, "odd_lda"), (4, 1000, 1000, 32, True, f32, "window")):
+        A, L00, R01, L10 = fused_inputs((B,), M, C, v, unit, dt, kind, gen, dev)
         out_k, U_k = ops.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
+        mode = fs_mod.fused_trsm_schur_batched.mode
         out_p, U_p = ref.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
         torch.cuda.synchronize()
-        err = max(float((out_k - out_p).abs().max()), float((U_k - U_p).abs().max()))
-        scale = max(float(out_p.abs().max()), float(U_p.abs().max()))
-        lanes = {}
-        for b in (0, B - 1):
+        err, scale, check = fused_check(out_k, U_k, out_p, U_p)
+        for b in sorted({0, B - 1}):
             o1, u1 = ops.fused_trsm_schur(A[b], L00[b], R01[b], L10[b], unit=unit)
-            lanes[f"lane{b}_equals_single"] = torch.equal(o1, out_k[b]) and torch.equal(u1, U_k[b])
-        emit("kernel_fused_trsm_schur_batched", shape=[B, M, C, v], unit=unit, max_abs_err=err,
-             rel_err=err / scale, tol_rel=FUSED_REL_TOL, **lanes)
-        if not (err <= FUSED_REL_TOL * scale and all(lanes.values())):
-            raise AssertionError(f"fused_trsm_schur_batched [{B}, {M}, {C}, {v}]: error {err} "
-                                 f"(scale {scale}), lanes {lanes}")
-        if B != BATCH:
+            check[f"lane{b}_equals_single"] = same_bits(o1, out_k[b]) and same_bits(u1, U_k[b])
+        case = f"{[B, M, C, v]} {dt} unit={unit} {kind}"
+        modes[case] = mode
+        emit("kernel_fused_trsm_schur_batched", shape=[B, M, C, v], dtype=str(dt), unit=unit,
+             kind=kind, lda=A.stride(-2), mode=mode, max_abs_err=err, rel_err=err / scale,
+             tol_rel=FUSED_REL_TOL, **check)
+        if not all(check.values()):
+            raise AssertionError(f"fused_trsm_schur_batched {case}: error {err} "
+                                 f"(scale {scale}), {check}")
+        if (B, M, C, v, dt, kind) != (BATCH, BATCH_N, BATCH_N, 32, f32, None):
             continue
 
         def library():
@@ -545,6 +608,7 @@ def batched_kernel_rows(dev, gen) -> list[dict]:
             **device_fields(lambda: ops.fused_trsm_schur_batched(A, L00, R01, L10), library),
             "library": "batched torch.linalg.solve_triangular + torch.baddbmm (two calls)",
         })
+    emit("fused_trsm_schur_batched_modes", **modes)
     return rows
 
 
@@ -553,6 +617,7 @@ def batched_path(dev, gen) -> dict:
     loop of single plans it replaces, its profile and the library yardstick.
     Returns the launches of the counted run."""
     from repro_torch.api import SolverConfig, plan
+    from repro_torch.kernels import fused_schur as fs_mod
 
     A = torch.randn(BATCH, BATCH_N, BATCH_N, generator=gen, device=dev)
     b = torch.randn(BATCH, BATCH_N, generator=gen, device=dev)
@@ -564,6 +629,7 @@ def batched_path(dev, gen) -> dict:
     torch.cuda.synchronize()
     execute_s = time.perf_counter() - t0
     launches = read_launches()
+    fused_mode = fs_mod.fused_trsm_schur_batched.mode
     t0 = time.perf_counter()
     x = fact.solve(b)
     torch.cuda.synchronize()
@@ -581,9 +647,11 @@ def batched_path(dev, gen) -> dict:
          backend=fact.backend, launches=launches, execute_s=execute_s, solve_s=solve_s,
          hpl_residual_max=float(resid.max()), x_finite=bool(torch.isfinite(x).all()),
          x_shape=list(x.shape), loop_of_single_plans_s=loop_s,
-         loop_over_batched=loop_s / execute_s)
+         loop_over_batched=loop_s / execute_s, last_fused_mode=fused_mode)
     if fact.backend != "cuda":
         raise AssertionError(f"batched path ran backend {fact.backend!r}, not 'cuda'")
+    if fused_mode != "tma":
+        raise AssertionError(f"the batched path's fused call took {fused_mode!r}")
     if launches != expected_launches(lu_panel_batched=steps, fused_trsm_schur_batched=steps):
         raise AssertionError(f"expected {steps} launches of each batched kernel, got {launches}")
     if not (torch.isfinite(x).all() and bool((resid < HPL_RESIDUAL_MAX).all())):
@@ -1238,6 +1306,7 @@ def conflux_p1_path(dev, gen, sequential_execute_s: float) -> dict:
     the entry points, in-process, with both hot loops.  Returns the flat
     run's launches (the path of trsm_left_lower)."""
     from repro_torch.api import GridConfig, SolverConfig, plan
+    from repro_torch.kernels import fused_schur as fs_mod
 
     A = torch.randn(N, N, generator=gen, device=dev)
     b = torch.randn(N, generator=gen, device=dev)
@@ -1266,13 +1335,18 @@ def conflux_p1_path(dev, gen, sequential_execute_s: float) -> dict:
         solve_s = time.perf_counter() - t0
         resid = hpl_residual(A, x, b)
         rows[hotloop] = fact.rows
+        # The windowed loop's last fused call, on its narrowest window of
+        # the carried matrix (row stride > C), took the TMA stream.
+        fused_mode = fs_mod.fused_trsm_schur.mode if hotloop == "windowed" else None
         emit("conflux_p1_path", N=N, hotloop=hotloop, grid=str(fact.grid),
              strategy=fact.strategy, backend=fact.backend, launches=launches[hotloop],
              execute_s=execute_s, solve_s=solve_s, hpl_residual=resid,
              comm_total=fact.comm["total"], x_finite=bool(torch.isfinite(x).all()),
-             sequential_execute_s=sequential_execute_s)
+             sequential_execute_s=sequential_execute_s, last_fused_mode=fused_mode)
         if fact.backend != "cuda" or fact.strategy != "conflux":
             raise AssertionError(f"conflux path ran {fact.strategy!r} on {fact.backend!r}")
+        if hotloop == "windowed" and fused_mode != "tma":
+            raise AssertionError(f"the windowed conflux step's fused call took {fused_mode!r}")
         if launches[hotloop] != want[hotloop]:
             raise AssertionError(f"conflux {hotloop}: expected launches {want[hotloop]}, "
                                  f"got {launches[hotloop]}")
@@ -1807,22 +1881,43 @@ def main() -> int:
     }
     del F_k, F_p
 
+    # fused_trsm_schur: the path's shape on A itself, a [2048, 1536] corner
+    # of A (row stride N), then the kernel's edges (`fused_inputs`): a
+    # window as the conflux step passes it, an odd row stride, M = 1 with
+    # C = 300, C = 1, one item of 625 row tiles split across every block,
+    # f64 with v = 128, NaN / inf with zero rows.
+    from repro_torch.kernels import fused_schur as fs_mod
+
     fused_rows = []
-    for M, C, vv, unit in ((N, N, v, True), (2048, 1536, 16, False)):
-        Am = A[:M, :C]
-        L00 = (0.3 * torch.tril(torch.randn(vv, vv, generator=gen, device=dev), -1)
-               + (1.0 if unit else 2.0) * torch.eye(vv, device=dev))
-        R01 = torch.randn(vv, C, generator=gen, device=dev)
-        L10 = torch.randn(M, vv, generator=gen, device=dev)
+    modes = {}
+    f32 = torch.float32
+    for M, C, vv, unit, dt, form in ((N, N, v, True, f32, "A"), (2048, 1536, 16, False, f32, "A"),
+                                     (4064, 4064, v, True, f32, "window"),
+                                     (1000, 1000, v, True, f32, "odd_lda"),
+                                     (1, 300, v, True, f32, None), (777, 1, v, True, f32, None),
+                                     (20000, 256, v, True, f32, None),
+                                     (3000, 300, 128, False, torch.float64, None),
+                                     (3000, 1000, v, True, f32, "special")):
+        if form == "A":
+            Am = A[:M, :C]
+            L00 = (0.3 * torch.tril(torch.randn(vv, vv, generator=gen, device=dev), -1)
+                   + (1.0 if unit else 2.0) * torch.eye(vv, device=dev))
+            R01 = torch.randn(vv, C, generator=gen, device=dev)
+            L10 = torch.randn(M, vv, generator=gen, device=dev)
+        else:
+            Am, L00, R01, L10 = fused_inputs((), M, C, vv, unit, dt, form, gen, dev)
         out_k, U_k = ops.fused_trsm_schur(Am, L00, R01, L10, unit=unit)
+        mode = fs_mod.fused_trsm_schur.mode
         out_p, U_p = ref.fused_trsm_schur(Am, L00, R01, L10, unit=unit)
         torch.cuda.synchronize()
-        err = max(float((out_k - out_p).abs().max()), float((U_k - U_p).abs().max()))
-        scale = max(float(out_p.abs().max()), float(U_p.abs().max()))
-        emit("kernel_fused_trsm_schur", shape=[M, C, vv], unit=unit, max_abs_err=err,
-             rel_err=err / scale, tol_rel=FUSED_REL_TOL)
-        if not err <= FUSED_REL_TOL * scale:
-            raise AssertionError(f"fused_trsm_schur [{M}, {C}, {vv}] off by {err} (scale {scale})")
+        err, scale, check = fused_check(out_k, U_k, out_p, U_p)
+        case = f"{[M, C, vv]} {dt} unit={unit} {form}"
+        modes[case] = mode
+        emit("kernel_fused_trsm_schur", shape=[M, C, vv], dtype=str(dt), unit=unit, kind=form,
+             lda=Am.stride(0), mode=mode, max_abs_err=err, rel_err=err / scale,
+             tol_rel=FUSED_REL_TOL, **check)
+        if not all(check.values()):
+            raise AssertionError(f"fused_trsm_schur {case}: error {err} (scale {scale}), {check}")
         del out_k, out_p, U_k, U_p
         if M != N:
             continue
@@ -1845,6 +1940,7 @@ def main() -> int:
             **device_fields(lambda: ops.fused_trsm_schur(Am, L00, R01, L10), library),
             "library": "torch.linalg.solve_triangular + torch.addmm (two calls)",
         })
+    emit("fused_trsm_schur_modes", **modes)
 
     # 4. The main path, through the entry points, on the default config and device.
     A_main = torch.randn(N, N, generator=gen, device=dev)
@@ -1864,9 +1960,12 @@ def main() -> int:
     resid = hpl_residual(A_main, x, b_main)
     emit("main_path", N=N, v=p.config.v, strategy=fact.strategy, backend=fact.backend,
          launches=launches, execute_s=execute_s, solve_s=solve_s, hpl_residual=resid,
-         x_finite=bool(torch.isfinite(x).all()), x_shape=list(x.shape))
+         x_finite=bool(torch.isfinite(x).all()), x_shape=list(x.shape),
+         last_fused_mode=fs_mod.fused_trsm_schur.mode)
     if fact.backend != "cuda":
         raise AssertionError(f"main path ran backend {fact.backend!r}, not 'cuda'")
+    if fs_mod.fused_trsm_schur.mode != "tma":
+        raise AssertionError(f"the main path's fused call took {fs_mod.fused_trsm_schur.mode!r}")
     if launches != expected_launches(lu_panel=N // v, fused_trsm_schur=N // v):
         raise AssertionError(f"expected {N // v} launches of each kernel, got {launches}")
     if not (torch.isfinite(x).all() and resid < HPL_RESIDUAL_MAX):

@@ -6,7 +6,9 @@ Ports of `repro/kernels/fused_schur.py::fused_trsm_schur` and
 as a batch of one, so a batched lane equals the single call bit for bit.  A
 CPU tensor goes to the plain version (`repro_torch.kernels.ref`); a CUDA
 tensor launches the kernel or raises.  `fused_trsm_schur.launches` and
-`fused_trsm_schur_batched.launches` count the launches.
+`fused_trsm_schur_batched.launches` count the launches, and `.mode` says
+whether the last launch took the kernel's TMA stream ("tma") or its plain
+loads ("plain").
 """
 
 from __future__ import annotations
@@ -17,13 +19,17 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_V = 128  # keeps the shared U01 tile and L10 chunk within one block's budget
-MAX_BC = 128  # column threads per block
-MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y (row tiles) and gridDim.z (systems)
+# The entry points' limits.  The kernel picks its own tiles; `bm` and `bc`
+# mirror the JAX API's tiles and must cover A exactly, within these limits,
+# so that the entry points refuse what they always refused.
+MAX_V = 128  # the plain loads' solve keeps a column of U01 in each thread
+MAX_BC = 128
+MAX_GRID_YZ = 65535
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ARGTYPES = (
     *(ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) * 6,
-    *(ctypes.c_int,) * 7,
+    *(ctypes.c_int,) * 5,
+    ctypes.POINTER(ctypes.c_int),
     ctypes.c_void_p,
 )
 
@@ -68,32 +74,35 @@ def _check(name: str, A, L00, R01, L10, bm: int, bc: int) -> None:
             )
 
 
-def _launch(A, L00, R01, L10, bm: int, bc: int, unit: bool):
-    """Launch the kernel on B systems given as 3-D tensors [B, ...]."""
+def _launch(A, L00, R01, L10, unit: bool):
+    """Launch the kernel on B systems given as 3-D tensors [B, ...].
+
+    Returns (out, U01, mode)."""
     B, M, C = A.shape
     v = L00.shape[-1]
     out = torch.empty((B, M, C), dtype=A.dtype, device=A.device)
     U01 = torch.empty((B, v, C), dtype=A.dtype, device=A.device)
     fn = _build.function("fused_schur", f"fused_trsm_schur_{_SUFFIX[A.dtype]}", _ARGTYPES)
     operands = (A, L00, R01, L10, out, U01)
+    bulk = ctypes.c_int(0)
     _build.launch("fused_schur", fn, A.device,
                   *(x for t in operands for x in (t.data_ptr(), t.stride(1), t.stride(0))),
-                  B, M, C, v, bm, bc, int(unit))
-    return out, U01
+                  B, M, C, v, int(unit), ctypes.byref(bulk))
+    return out, U01, "tma" if bulk.value else "plain"
 
 
 def fused_trsm_schur(A, L00, R01, L10, *, bm: int, bc: int, unit: bool = True):
     """(A - L10 @ U01, U01) with U01 = L00^-1 R01, out of place.
 
     A [M, C], L00 [v, v] (unit-)lower, R01 [v, C], L10 [M, v], any row
-    strides.  Each block of the kernel owns a [bm, bc] tile of the output;
-    `bm` must divide M and `bc` (<= 128) must divide C.  Returns
+    strides.  The kernel picks its own tiles; `bm` must divide M and `bc`
+    (<= 128) must divide C, as the JAX API's tiles must.  Returns
     (A_new [M, C], U01 [v, C]), both contiguous.
     """
     if A.device.type == "cpu":
         return ref.fused_trsm_schur(A, L00, R01, L10, unit=unit)
     _check("fused_trsm_schur", A, L00, R01, L10, bm, bc)
-    out, U01 = _launch(A[None], L00[None], R01[None], L10[None], bm, bc, unit)
+    out, U01, fused_trsm_schur.mode = _launch(A[None], L00[None], R01[None], L10[None], unit)
     fused_trsm_schur.launches += 1
     return out[0], U01[0]
 
@@ -110,10 +119,11 @@ def fused_trsm_schur_batched(A, L00, R01, L10, *, bm: int, bc: int, unit: bool =
     _check("fused_trsm_schur_batched", A, L00, R01, L10, bm, bc)
     if A.shape[0] == 0:
         return torch.empty_like(A), torch.empty_like(R01)
-    out, U01 = _launch(A, L00, R01, L10, bm, bc, unit)
+    out, U01, fused_trsm_schur_batched.mode = _launch(A, L00, R01, L10, unit)
     fused_trsm_schur_batched.launches += 1
     return out, U01
 
 
 fused_trsm_schur.launches = 0
 fused_trsm_schur_batched.launches = 0
+fused_trsm_schur.mode = fused_trsm_schur_batched.mode = None

@@ -1,12 +1,11 @@
 """Public wrappers of the port's kernels.
 
-Tile sizes are auto-fit before the launch: each requested tile (`bm`/`bc`)
-shrinks to the largest divisor of its array dimension that does not exceed
-it, so the grid covers the matrix exactly for any shape.  The defaults are
-Hopper's, not the TPU's: `bc` = 128 columns is one thread per column of a
-block, and `bm` = 1024 rows keeps the per-block redo of the small triangular
-solve near 3% of the update at v = 32 (see `csrc/fused_schur.cu`).  The
-batched wrappers fit the same tiles to each system's [M, C].
+`fused_trsm_schur[_batched]` keep the JAX API's tile arguments: each
+requested tile (`bm`/`bc`) shrinks to the largest divisor of its array
+dimension that does not exceed it, as the JAX wrappers' grids need, and the
+kernel wrappers check them.  The CUDA kernel picks its own tiles (a
+persistent stream of 32 x 256 tiles, see `csrc/fused_schur.cu`), so the
+values change nothing of what it computes.
 
 The other kernels (`chol_panel`, `trsm_right_upper`, `trsm_left_lower`,
 `schur_update` and their `_batched` forms, and the LM stack's

@@ -132,8 +132,12 @@ def _fused_inputs(B, M, C, v, unit, seed):
     return A, L00, R01, L10
 
 
+# The first two are the original shapes; the rest are the edges of the CUDA
+# body, as in test_torch_kernels.py: v = 1, 31 and 33, C off its 256-column
+# stripes, M = 1.
 @pytest.mark.parametrize("unit", [True, False])
-@pytest.mark.parametrize("B,M,C,v", [(3, 64, 64, 8), (2, 128, 96, 16)])
+@pytest.mark.parametrize("B,M,C,v", [(3, 64, 64, 8), (2, 128, 96, 16), (2, 64, 300, 1),
+                                     (2, 96, 260, 31), (2, 64, 96, 33), (3, 1, 300, 32)])
 def test_fused_trsm_schur_batched_matches_jax(B, M, C, v, unit):
     A, L00, R01, L10 = _fused_inputs(B, M, C, v, unit, seed=B + M + C + v)
     out, U01 = ops.fused_trsm_schur_batched(*map(torch.from_numpy, (A, L00, R01, L10)),

@@ -166,8 +166,12 @@ def _fused_inputs(M, C, v, unit, seed):
     return A, L00, R01, L10
 
 
+# The first three are the original shapes; the rest are the edges of the
+# CUDA body: v = 1, 31 and 33 (its plain loads: v < 4, an odd row stride,
+# more than one chunk), C off its 256-column stripes, M = 1.
 @pytest.mark.parametrize("unit", [True, False])
-@pytest.mark.parametrize("M,C,v", [(128, 128, 8), (256, 128, 16), (256, 256, 32)])
+@pytest.mark.parametrize("M,C,v", [(128, 128, 8), (256, 128, 16), (256, 256, 32), (64, 300, 1),
+                                   (96, 260, 31), (64, 96, 33), (1, 300, 32)])
 def test_fused_trsm_schur_matches_jax(M, C, v, unit):
     A, L00, R01, L10 = _fused_inputs(M, C, v, unit, seed=M + C + v)
     out, U01 = ops.fused_trsm_schur(*map(torch.from_numpy, (A, L00, R01, L10)), unit=unit)
@@ -176,6 +180,36 @@ def test_fused_trsm_schur_matches_jax(M, C, v, unit):
                      jref.fused_trsm_schur(*args, unit=unit)):
         np.testing.assert_allclose(U01.numpy(), np.asarray(jU), **TOL)
         np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
+
+
+@pytest.mark.parametrize("v", [8, 32, 33])
+def test_fused_trsm_schur_special_values_match_jax(v):
+    """NaN and inf in L10 and A, with R01 zero before a column as the LU
+    paths pass it: an active row with an infinite entry, and a row of weight
+    0 whose panel entry was infinite (L10 = F * 0 gives NaN there).  Every
+    column is updated, so such a row is non-finite across the whole output,
+    the zero columns included (inf * 0 = NaN), as in the JAX package's kernel
+    (interpret mode) and ref backend; the rest agrees within TOL."""
+    M, C = 40, 96
+    A, L00, R01, L10 = _fused_inputs(M, C, v, True, seed=700 + v)
+    R01[:, :C // 3] = 0.0
+    L10[3, v // 2] = np.inf
+    L10[7] = 0.0
+    L10[7, v - 1] = np.nan
+    A[9, 10] = np.nan
+    A[11, 12] = -np.inf
+    out, U01 = fs_mod.fused_trsm_schur(*map(torch.from_numpy, (A, L00, R01, L10)), bm=M, bc=C)
+    out, U01 = out.numpy(), U01.numpy()
+    assert not np.isfinite(out[3]).any() and np.isnan(out[7]).all()
+    assert np.isnan(out[9, 10]) and np.isneginf(out[11, 12])
+    args = tuple(map(jnp.asarray, (A, L00, R01, L10)))
+    for jout, jU in (jops.fused_trsm_schur(*args), jref.fused_trsm_schur(*args)):
+        jout = np.asarray(jout)
+        np.testing.assert_allclose(U01, np.asarray(jU), **TOL)
+        np.testing.assert_array_equal(np.isnan(out), np.isnan(jout))
+        np.testing.assert_array_equal(np.isinf(out), np.isinf(jout))
+        fin = np.isfinite(jout)
+        np.testing.assert_allclose(out[fin], jout[fin], **TOL)
 
 
 def test_fused_trsm_schur_is_out_of_place():
