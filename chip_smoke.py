@@ -22,6 +22,13 @@ each kernel against its plain PyTorch version on the card:
   `schur_update` instead of the fused kernel), and eight ranks sharing the
   card through a gloo process group on a 2x2x2 grid: conflux, baseline2d and
   cholesky25d, both hot loops, every rank returning the same factors;
+- mixed precision (ROADMAP.md module item 7): `plan(N, dtype="float64",
+  compute_dtype="float32").execute(A).solve(b, refine_tol=1e-12)` beside
+  the f64 kernels; the same N in f32 working over bf16 and f16 factors
+  (the new 2-byte entry points of `lu_panel` and `fused_trsm_schur`),
+  refined to 1e-6; `plan((256, 512), compute_dtype=...)` with per-lane
+  tolerances; the kernel path against the plain path at N = 128; both
+  engines on a bf16 plan with half the requests refined;
 - the LM serving path at full width and depth, bf16, random weights from a
   seeded `torch.Generator` on the card: `ServeEngine` on qwen3-8b (36
   layers, kernel `flash_attention` once per layer of each prefill) and on
@@ -816,7 +823,7 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     nan = a.isnan()
     if not torch.equal(nan, b.isnan()):
         return False
-    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
     return torch.equal(a.contiguous().view(ints)[~nan], b.contiguous().view(ints)[~nan])
 
 
@@ -1812,6 +1819,676 @@ def lm_plain_check(arch: str) -> None:
                              f"(max |logits| {scale}, tolerance {LM_LOGIT_REL_TOL} of it)")
 
 
+# Mixed precision (module item 7).  The LU kernels' bf16 and f16 entry
+# points load 2-byte values, compute in f32 and round once where they store.
+# lu_panel[_batched] is held bit for bit against its plain version (which
+# upcasts, runs the same f32 rounds and rounds back).  fused_trsm_schur
+# rounds an f32 result that may differ from the plain version's f32 result
+# by FUSED_REL_TOL of the scale (see above); rounding two such values to a
+# 2-byte type can part them by one more ulp of that type at the value, so
+# each entry is held within that ulp plus FUSED_REL_TOL of the scale.
+MIXED_DTYPES = (torch.bfloat16, torch.float16)
+MIXED_SHORT = {torch.bfloat16: "bf16", torch.float16: "f16"}
+# Refinement targets: f64 working over f32 factors to 1e-12; f32 working
+# over bf16 or f16 factors to 1e-6 on a well-conditioned matrix.
+MIXED_F64_TOL, MIXED_LOW_TOL = 1e-12, 1e-6
+MIXED_BATCH_TOLS = (1e-3, 1e-5, 1e-6)  # per-lane tolerances, in turns
+
+
+def storage_ulp(x: torch.Tensor, dt) -> torch.Tensor:
+    """One ulp of the 2-byte dtype `dt` at |x| (x of any float dtype), in
+    f32; the subnormal spacing at and below the smallest normal."""
+    fi = torch.finfo(dt)
+    mant = {torch.bfloat16: 7, torch.float16: 10}[dt]
+    _, e = torch.frexp(x.float().abs())
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 1 - mant)
+    return ulp.clamp_min(fi.tiny * fi.eps)
+
+
+def mixed_fused_check(out_k, U_k, out_p, U_p, dt) -> tuple[float, float, dict]:
+    """(max error over the entries finite in the plain version, the largest
+    error over its allowance, checks) for a 2-byte fused call: each entry
+    within one ulp of `dt` at the larger of the two values plus
+    FUSED_REL_TOL of the scale, NaN and inf at the plain version's places."""
+    finite_o = torch.isfinite(out_p)
+    scale = max(float(out_p[finite_o].float().abs().max()) if bool(finite_o.any()) else 0.0,
+                float(U_p.float().abs().max()))
+    err, ratio = 0.0, 0.0
+    for k, p in ((out_k, out_p), (U_k, U_p)):
+        fin = torch.isfinite(p)
+        if not bool(fin.any()):
+            continue
+        kf, pf = k.float()[fin], p.float()[fin]
+        diff = (kf - pf).abs()
+        allowed = storage_ulp(torch.maximum(kf.abs(), pf.abs()), dt) + FUSED_REL_TOL * scale
+        err = max(err, float(diff.max()))
+        ratio = max(ratio, float((diff / allowed).max()))
+    return err, ratio, {"within_tol": ratio <= 1.0,
+                        "nan_as_plain": torch.equal(out_k.isnan(), out_p.isnan()),
+                        "inf_as_plain": torch.equal(out_k.isinf(), out_p.isinf()),
+                        "u_nan_as_plain": torch.equal(U_k.isnan(), U_p.isnan())}
+
+
+def kernel_rows_mixed(dev, gen) -> list[dict]:
+    """The bf16 and f16 entry points of lu_panel[_batched] and
+    fused_trsm_schur[_batched] against their plain versions, at the paths'
+    shapes and the bodies' edges; batched lanes against the single call;
+    every fused call must take the plain loads.  Returns the kernels line's
+    eight rows (launches filled in later)."""
+    from repro_torch.kernels import fused_schur as fs_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lu_panel import lu_panel, lu_panel_batched
+
+    rows = []
+    f32 = torch.float32
+    for dt in MIXED_DTYPES:
+        sh = MIXED_SHORT[dt]
+        # lu_panel: the main path's shape (a strided column slice of an
+        # [N, N] matrix), the bodies' edges, five NaN / inf / tie panels.
+        A = torch.randn(N, N, generator=gen, device=dev).to(dt)
+        panel = A[:, 64:96]
+        weights = (torch.rand(N, generator=gen, device=dev) > 0.1).to(dt)
+        failed = []
+        cases = [(N, 32, None)] + [(R, v, None) for R, v, _ in LU_PANEL_EDGES
+                                   if _ is f32 and (R, v) != (N, 32)]
+        cases += [(R, v, case) for R, v in ((N, 32), (512, 32), (4096, 33))
+                  for case in LU_PANEL_SPECIAL]
+        for R, v, case in cases:
+            if (R, v, case) == (N, 32, None):
+                P, W = panel, weights
+            else:
+                X = torch.randn(R, 3 * v, generator=gen, device=dev).to(dt)
+                P = X[:, v:2 * v]
+                W = (torch.rand(R, generator=gen, device=dev) > 0.1).to(dt)
+                if case:
+                    P, W = special_panel(case, P, W)
+            check = lu_panel_check(lu_panel(P, W), ref.lu_panel(P, W), P, W)
+            emit("kernel_lu_panel_mixed", dtype=sh, shape=[R, v], case=case, **check)
+            if not all(check.values()):
+                failed.append(([R, v], case, check))
+        if failed:
+            raise AssertionError(f"lu_panel {sh} disagrees with its plain version: {failed}")
+        F_k, _, _ = lu_panel(panel, weights)
+        F_p, _, _ = ref.lu_panel(panel, weights)
+        n_w1 = int((weights > 0).sum())
+        rows.append({
+            "name": f"lu_panel[{sh}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lu_panel.cu",
+            "replaces": "src/repro/kernels/lu_panel.py:71",
+            "max_abs_err": float((F_k.float() - F_p.float()).abs().max()),
+            "ms": time_ms(lambda: lu_panel(panel, weights)),
+            "plain_ms": time_ms(lambda: ref.lu_panel(panel, weights), reps=3),
+            **bound(2 * 2 * N * 32 + 4 * N + 5 * 32, panel_ops(N, 32, n_w1)),
+            "library_ms": None,
+            **device_fields(lambda: lu_panel(panel, weights)),
+            "library": "none: no single PyTorch call computes a masked LUP with row weights",
+        })
+        del F_k, F_p
+
+        # lu_panel_batched: the batched path's shape, the generic body in
+        # shared memory (v = 128) and in the work buffer (R = 8192), the
+        # one-block body's edges, special panels in five lanes.
+        for B, R, v, special in ((BATCH, BATCH_N, 32, None), (4, 8192, 32, None),
+                                 (8, 1024, 32, None), (8, 31, 32, None), (5, 1, 32, None),
+                                 (3, 100, 128, None), (BATCH, BATCH_N, 32, "special")):
+            X = torch.randn(B, R, 3 * v, generator=gen, device=dev).to(dt)
+            P = X[:, :, v:2 * v]
+            W = (torch.rand(B, R, generator=gen, device=dev) > 0.1).to(dt)
+            lanes = (0, B - 1)
+            if special:
+                P, W = P.clone(), W.clone()
+                lanes = tuple(range(len(LU_PANEL_SPECIAL)))
+                for b, case in enumerate(LU_PANEL_SPECIAL):
+                    P[b], W[b] = special_panel(case, P[b], W[b])
+            got = lu_panel_batched(P, W)
+            check = lu_panel_check(got, ref.lu_panel_batched(P, W), P, W)
+            for b in lanes:
+                F1, o1, k1 = lu_panel(P[b], W[b])
+                check[f"lane{b}_equals_single"] = (same_bits(F1, got[0][b])
+                                                   and torch.equal(o1, got[1][b])
+                                                   and torch.equal(k1, got[2][b]))
+            emit("kernel_lu_panel_batched_mixed", dtype=sh, shape=[B, R, v], special=special,
+                 **check)
+            if not all(check.values()):
+                raise AssertionError(f"lu_panel_batched {sh} [{B}, {R}, {v}] {special}: {check}")
+            if (B, R, v, special) != (BATCH, BATCH_N, 32, None):
+                continue
+            F_p = ref.lu_panel_batched(P, W)[0]
+            n_active = (W > 0).sum(1).tolist()
+            rows.append({
+                "name": f"lu_panel_batched[{sh}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/lu_panel.cu",
+                "replaces": "src/repro/kernels/lu_panel.py:98",
+                "max_abs_err": float((got[0].float() - F_p.float()).abs().max()),
+                "ms": time_ms(lambda: lu_panel_batched(P, W)),
+                "plain_ms": time_ms(lambda: ref.lu_panel_batched(P, W), reps=3),
+                **bound(B * (2 * 2 * R * v + 4 * R) + 5 * B * v,
+                        sum(panel_ops(R, v, n) for n in n_active)),
+                "library_ms": None,
+                **device_fields(lambda: lu_panel_batched(P, W)),
+                "library": "none: no single PyTorch call computes a masked LUP with row weights",
+            })
+
+        # fused_trsm_schur: the main path's shape on A itself, then the
+        # edges (`fused_inputs`), zero rows with NaN / inf, and f16 results
+        # that overflow to inf on store.  Every call takes the plain loads.
+        modes = {}
+        cases = [(N, N, 32, True, "A"), (2048, 1536, 16, False, None),
+                 (300, 500, 1, True, None), (300, 500, 31, True, None),
+                 (300, 500, 33, True, None), (300, 500, 128, False, None),
+                 (777, 96, 32, True, None), (1, 300, 32, True, None), (777, 1, 32, True, None),
+                 (1000, 1000, 32, True, "odd_lda"), (1000, 1000, 32, True, "window"),
+                 (777, 1000, 32, True, "special"), (777, 1000, 32, False, "special"),
+                 (512, 512, 32, True, "overflow")]
+        for M, C, v, unit, form in cases:
+            if form == "A":
+                Am = A
+                L00 = (0.3 * torch.tril(torch.randn(v, v, generator=gen, device=dev), -1)
+                       + torch.eye(v, device=dev)).to(dt)
+                R01 = torch.randn(v, C, generator=gen, device=dev).to(dt)
+                L10 = torch.randn(M, v, generator=gen, device=dev).to(dt)
+            else:
+                kind = None if form == "overflow" else form
+                Am, L00, R01, L10 = (t.to(dt) for t in
+                                     fused_inputs((), M, C, v, unit, f32, kind, gen, dev))
+                if kind == "odd_lda":  # keep the odd row stride after the cast
+                    Am = torch.empty(M, C + 1, device=dev, dtype=dt)[:, :C].copy_(Am)
+                elif kind == "window":
+                    Am = torch.empty(M + 32, C + 64, device=dev, dtype=dt)[32:, 64:].copy_(Am)
+                if form == "overflow":
+                    # One product a result, exact in f32: L10 zero but for
+                    # column 0 in {+-1, +-256}, U01's row 0 = R01's row 0 in
+                    # {+-100, +-300}, so |A - L10 U01| is near 100, 300,
+                    # 25600 or 76800, and f16 (max 65504) rounds the last to
+                    # inf on store, far from the boundary.
+                    pick = torch.tensor([1.0, -1.0, 256.0, -256.0], device=dev)
+                    L10 = torch.zeros(M, v, device=dev, dtype=dt)
+                    L10[:, 0] = pick[torch.randint(4, (M,), generator=gen, device=dev)].to(dt)
+                    R01 = pick[torch.randint(4, (v, C), generator=gen, device=dev)] * 100
+                    R01 = torch.where(R01.abs() > 200, R01.sign() * 300, R01).to(dt)
+            out_k, U_k = ops.fused_trsm_schur(Am, L00, R01, L10, unit=unit)
+            mode = fs_mod.fused_trsm_schur.mode
+            out_p, U_p = ref.fused_trsm_schur(Am, L00, R01, L10, unit=unit)
+            torch.cuda.synchronize()
+            err, ratio, check = mixed_fused_check(out_k, U_k, out_p, U_p, dt)
+            check["plain_loads"] = mode == "plain"
+            case = f"{[M, C, v]} unit={unit} {form}"
+            modes[case] = mode
+            emit("kernel_fused_trsm_schur_mixed", dtype=sh, shape=[M, C, v], unit=unit,
+                 kind=form, lda=Am.stride(0), mode=mode, max_abs_err=err,
+                 err_over_allowance=ratio, inf_count=int(out_k.isinf().sum()), **check)
+            if not all(check.values()):
+                raise AssertionError(f"fused_trsm_schur {sh} {case}: error {err} "
+                                     f"({ratio} of its allowance), {check}")
+            if form == "overflow" and dt == torch.float16 and not bool(out_p.isinf().any()):
+                raise AssertionError("the f16 overflow case made no inf")
+            del out_k, U_k, out_p, U_p
+            if form != "A":
+                continue
+
+            def yardstick():  # bf16 / f16 GEMM on the tensor cores, U01 rounded first
+                return torch.addmm(Am, L10, R01, alpha=-1.0)
+
+            rows.append({
+                "name": f"fused_trsm_schur[{sh}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/fused_schur.cu",
+                "replaces": "src/repro/kernels/fused_schur.py:83",
+                "max_abs_err": err, "mode": mode,
+                "ms": time_ms(lambda: ops.fused_trsm_schur(Am, L00, R01, L10)),
+                "plain_ms": time_ms(lambda: ref.fused_trsm_schur(Am, L00, R01, L10)),
+                **bound(2 * (2 * M * C + v * v + 2 * v * C + M * v), 2 * M * C * v + v * v * C),
+                "library_ms": None,
+                **device_fields(lambda: ops.fused_trsm_schur(Am, L00, R01, L10)),
+                "library": "none: no PyTorch call solves and updates 2-byte operands in f32 "
+                           "(cuBLAS trsm has no bf16 or f16)",
+                "yardstick_addmm_2byte_ms": time_ms(yardstick),
+            })
+        emit("fused_trsm_schur_mixed_modes", dtype=sh, **modes)
+        del A, panel
+
+        # fused_trsm_schur_batched: the batched path's shape, edges, lanes
+        # against the single call.
+        for B, M, C, v, unit, kind in ((BATCH, BATCH_N, BATCH_N, 32, True, None),
+                                       (8, 300, 500, 33, True, None),
+                                       (4, 777, 1000, 32, False, "special"),
+                                       (4, 1000, 1000, 32, True, "window"),
+                                       (1, BATCH_N, BATCH_N, 32, True, None)):
+            A3, L00, R01, L10 = (t.to(dt) for t in
+                                 fused_inputs((B,), M, C, v, unit, f32, kind, gen, dev))
+            if kind == "window":
+                A3 = torch.empty(B, M + 32, C + 64, device=dev, dtype=dt)[:, 32:, 64:].copy_(A3)
+            out_k, U_k = ops.fused_trsm_schur_batched(A3, L00, R01, L10, unit=unit)
+            mode = fs_mod.fused_trsm_schur_batched.mode
+            out_p, U_p = ref.fused_trsm_schur_batched(A3, L00, R01, L10, unit=unit)
+            torch.cuda.synchronize()
+            err, ratio, check = mixed_fused_check(out_k, U_k, out_p, U_p, dt)
+            check["plain_loads"] = mode == "plain"
+            for b in sorted({0, B - 1}):
+                o1, u1 = ops.fused_trsm_schur(A3[b], L00[b], R01[b], L10[b], unit=unit)
+                check[f"lane{b}_equals_single"] = same_bits(o1, out_k[b]) and same_bits(u1, U_k[b])
+            emit("kernel_fused_trsm_schur_batched_mixed", dtype=sh, shape=[B, M, C, v],
+                 unit=unit, kind=kind, mode=mode, max_abs_err=err, err_over_allowance=ratio,
+                 **check)
+            if not all(check.values()):
+                raise AssertionError(f"fused_trsm_schur_batched {sh} {[B, M, C, v]} {kind}: "
+                                     f"error {err} ({ratio} of its allowance), {check}")
+            if (B, M, kind) != (BATCH, BATCH_N, None):
+                continue
+            rows.append({
+                "name": f"fused_trsm_schur_batched[{sh}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/fused_schur.cu",
+                "replaces": "src/repro/kernels/fused_schur.py:117",
+                "max_abs_err": err, "mode": mode,
+                "ms": time_ms(lambda: ops.fused_trsm_schur_batched(A3, L00, R01, L10)),
+                "plain_ms": time_ms(lambda: ref.fused_trsm_schur_batched(A3, L00, R01, L10)),
+                **bound(2 * B * (2 * M * C + v * v + 2 * v * C + M * v),
+                        B * (2 * M * C * v + v * v * C)),
+                "library_ms": None,
+                **device_fields(lambda: ops.fused_trsm_schur_batched(A3, L00, R01, L10)),
+                "library": "none: as fused_trsm_schur[2-byte]",
+            })
+        torch.cuda.empty_cache()
+    return rows
+
+
+
+def well_conditioned(shape, gen, dev) -> torch.Tensor:
+    """G / sqrt(n) + 2 I for a standard normal G [..., n, n], made on the
+    card: G / sqrt(n) has its spectrum in the unit disk (the circular law)
+    and its singular values in [0, 2], so the singular values of the sum lie
+    in about [1, 3] and cond(A) is about 3, far below the 256 = 1 / eps(bf16)
+    past which bf16 factors cannot drive refinement.  Not symmetric, so the
+    LU pivots."""
+    n = shape[-1]
+    A = torch.randn(*shape, generator=gen, device=dev) / n ** 0.5
+    A.diagonal(dim1=-2, dim2=-1).add_(2.0)
+    return A
+
+
+def cond_estimate(A: torch.Tensor, iters: int = 30) -> float:
+    """cond_2(A) of one [n, n] system estimated on the card: sigma_max by
+    power iteration on A^T A, sigma_min by inverse iteration through
+    torch.linalg.lu_factor of A in f64 (a yardstick only: the port never
+    calls it)."""
+    A64 = A.double()
+    x = torch.ones(A.shape[-1], device=A.device, dtype=torch.float64)
+    for _ in range(iters):
+        x = A64.mT @ (A64 @ x)
+        smax2 = x.norm()
+        x = x / smax2
+    LU, piv = torch.linalg.lu_factor(A64)
+    y = torch.ones_like(x)
+    for _ in range(iters):
+        z = torch.linalg.lu_solve(LU, piv, y[:, None], adjoint=True)[:, 0]
+        y = torch.linalg.lu_solve(LU, piv, z[:, None])[:, 0]
+        smin2_inv = y.norm()
+        y = y / smin2_inv
+    return float((smax2 * smin2_inv) ** 0.5)
+
+
+def mixed_f64_main_path(dev, gen) -> dict:
+    """plan(N, dtype="float64", compute_dtype="float32").execute(A).solve(b,
+    refine_tol=1e-12) beside plan(N, dtype="float64").execute(A).solve(b) on
+    the f64 kernels, on one standard normal A.  Returns the launches of the
+    counted (mixed) run."""
+    from repro_torch.api import SolverConfig, plan
+
+    A = torch.randn(N, N, generator=gen, device=dev, dtype=torch.float64)
+    b = torch.randn(N, generator=gen, device=dev, dtype=torch.float64)
+    p = plan(N, SolverConfig(dtype="float64", compute_dtype="float32"))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fact = p.execute(A)
+    torch.cuda.synchronize()
+    execute_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    rs = fact.solve(b, refine_tol=MIXED_F64_TOL)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    resid = hpl_residual(A, rs.x, b)
+    steps = N // p.config.v
+    f32_factors = fact.F.dtype == torch.float32 and fact.A_ref.dtype == torch.float64
+    del fact
+    p64 = plan(N, SolverConfig(dtype="float64"))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f64 = p64.execute(A)
+    torch.cuda.synchronize()
+    execute64_s = time.perf_counter() - t0
+    launches64 = read_launches()
+    t0 = time.perf_counter()
+    x64 = f64.solve(b)
+    torch.cuda.synchronize()
+    solve64_s = time.perf_counter() - t0
+    resid64 = hpl_residual(A, x64, b)
+    rel = float((rs.x - x64).norm() / x64.norm())
+    emit("mixed_f64_main_path", N=N, v=p.config.v, backend=p.config.backend,
+         launches=launches, execute_s=execute_s, refine_s=refine_s,
+         refinement_iters=rs.refinement_iters, final_residual=rs.final_residual,
+         converged=rs.converged, hpl_residual_f64=resid, f64_launches=launches64,
+         f64_execute_s=execute64_s, f64_solve_s=solve64_s, f64_hpl_residual=resid64,
+         x_refined_vs_f64_rel=rel, f32_factors=f32_factors)
+    if launches != expected_launches(lu_panel=steps, fused_trsm_schur=steps) or \
+            launches64 != launches:
+        raise AssertionError(f"expected {steps} launches of each LU kernel: {launches}, "
+                             f"f64 {launches64}")
+    if not (f32_factors and rs.converged and resid < HPL_RESIDUAL_MAX
+            and resid64 < HPL_RESIDUAL_MAX and torch.isfinite(rs.x).all()):
+        raise AssertionError(f"f64 over f32: converged {rs.converged}, HPL {resid} "
+                             f"(f64 plan {resid64}), f32 factors {f32_factors}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mixed_low_main_path(dev, gen, dt) -> dict:
+    """plan(N, compute_dtype=bf16 | f16).execute(A) through the entry points
+    (f32 working): exactly N / v launches of each LU kernel, all in the
+    compute dtype, and the plain loads in every fused call; refinement to
+    1e-6 reported on a standard normal A and held on `well_conditioned`.
+    Returns the launches of the counted run."""
+    from repro_torch.api import SolverConfig, plan
+    from repro_torch.kernels import fused_schur as fs_mod
+
+    sh = MIXED_SHORT[dt]
+    name = str(dt).removeprefix("torch.")
+    p = plan(N, SolverConfig(compute_dtype=name))
+    out = {}
+    for kind in ("gauss", "well_conditioned"):
+        A = (torch.randn(N, N, generator=gen, device=dev) if kind == "gauss"
+             else well_conditioned((N, N), gen, dev))
+        b = torch.randn(N, generator=gen, device=dev)
+        reset_launches()
+        fs_mod.fused_trsm_schur.mode = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fact = p.execute(A)
+        torch.cuda.synchronize()
+        execute_s = time.perf_counter() - t0
+        launches = read_launches()
+        mode = fs_mod.fused_trsm_schur.mode
+        t0 = time.perf_counter()
+        x_plain = fact.solve(b)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rs = fact.solve(b, refine_tol=MIXED_LOW_TOL)
+        torch.cuda.synchronize()
+        refine_s = time.perf_counter() - t0
+        cond = cond_estimate(A) if kind == "well_conditioned" else None
+        steps = N // p.config.v
+        row = {"execute_s": execute_s, "solve_s": solve_s, "refine_s": refine_s,
+               "launches": launches, "factor_dtype": str(fact.F.dtype), "last_fused_mode": mode,
+               "refinement_iters": rs.refinement_iters, "final_residual": rs.final_residual,
+               "converged": rs.converged, "x_finite": bool(torch.isfinite(rs.x).all()),
+               "hpl_residual_refined_f32": hpl_residual(A, rs.x, b),
+               "hpl_residual_plain_f32": hpl_residual(A, x_plain, b), "cond_estimate": cond}
+        emit(f"mixed_{sh}_main_path", N=N, v=p.config.v, matrix=kind, **row)
+        if launches != expected_launches(lu_panel=steps, fused_trsm_schur=steps):
+            raise AssertionError(f"{sh}: expected {steps} launches of each LU kernel, "
+                                 f"got {launches}")
+        if fact.F.dtype != dt or mode != "plain" or not row["x_finite"]:
+            raise AssertionError(f"{sh} main path: {row}")
+        if kind == "well_conditioned" and not rs.converged:
+            raise AssertionError(f"{sh}: refinement did not reach {MIXED_LOW_TOL} on a "
+                                 f"well-conditioned A (cond ~{cond}): {rs.final_residual}")
+        out[kind] = launches
+        del fact, x_plain, rs
+        if kind == "gauss":
+            emit(f"profile_{sh}_execute", **profile_once(lambda: p.execute(A)))
+        del A
+    torch.cuda.empty_cache()
+    return out["gauss"]
+
+
+def mixed_batched_path(dev, gen, dt) -> dict:
+    """plan((256, 512), compute_dtype=bf16 | f16) on well-conditioned systems
+    with per-lane refine_tol: 16 launches of each batched kernel, every lane
+    refined to its own tolerance.  Returns the launches of the counted run."""
+    from repro_torch.api import SolverConfig, plan
+    from repro_torch.kernels import fused_schur as fs_mod
+
+    sh = MIXED_SHORT[dt]
+    A = well_conditioned((BATCH, BATCH_N, BATCH_N), gen, dev)
+    b = torch.randn(BATCH, BATCH_N, generator=gen, device=dev)
+    tols = torch.tensor([MIXED_BATCH_TOLS[i % len(MIXED_BATCH_TOLS)] for i in range(BATCH)],
+                        device=dev)
+    p = plan((BATCH, BATCH_N), SolverConfig(compute_dtype=str(dt).removeprefix("torch.")))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fact = p.execute(A)
+    torch.cuda.synchronize()
+    execute_s = time.perf_counter() - t0
+    launches = read_launches()
+    mode = fs_mod.fused_trsm_schur_batched.mode
+    t0 = time.perf_counter()
+    rs = fact.solve(b, refine_tol=tols)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    steps = BATCH_N // p.config.v
+    iters = {f"tol={t:g}": sorted(set(rs.refinement_iters[tols == torch.tensor(t, device=dev)]
+                                       .tolist()))
+             for t in MIXED_BATCH_TOLS}
+    resid = hpl_residuals(A, rs.x, b)
+    emit(f"mixed_batched_path_{sh}", B=BATCH, N=BATCH_N, v=p.config.v, launches=launches,
+         execute_s=execute_s, refine_s=refine_s, last_fused_mode=mode,
+         iterations_by_tol=iters, converged_lanes=int(rs.converged.sum()),
+         final_residual_max=float(rs.final_residual.max()),
+         hpl_residual_refined_max=float(resid.max()), factor_dtype=str(fact.F.dtype))
+    if launches != expected_launches(lu_panel_batched=steps, fused_trsm_schur_batched=steps):
+        raise AssertionError(f"{sh} batched: expected {steps} launches each, got {launches}")
+    if not (bool(rs.converged.all()) and fact.F.dtype == dt and mode == "plain"
+            and bool((resid < HPL_RESIDUAL_MAX).all())):
+        raise AssertionError(f"{sh} batched: {int(rs.converged.sum())} of {BATCH} converged, "
+                             f"HPL {float(resid.max())}, mode {mode}")
+    emit(f"profile_batched_{sh}_execute", **profile_once(lambda: p.execute(A)))
+    return launches
+
+
+class _RecordingBackend:
+    """A registered backend's primitives, keeping each step's panel input."""
+
+    def __init__(self, inner):
+        self.inner, self.panels = inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def panel_lup(self, panel, weights, v):
+        self.panels.append((panel.clone(), weights.clone()))
+        return self.inner.panel_lup(panel, weights, v)
+
+    def panel_lup_batched(self, panel, weights, v):
+        self.panels.append((panel.clone(), weights.clone()))
+        return self.inner.panel_lup_batched(panel, weights, v)
+
+
+def _round_candidates(panel: torch.Tensor, weights: torch.Tensor, r: int) -> torch.Tensor:
+    """|F[i, r]| * w[i] of every row at round r of the plain panel LUP: the
+    rounds of `masked_lup` in f32 on the widened panel, stopped at r."""
+    F, w = panel.float().clone(), weights.float().clone()
+    cols = torch.arange(F.shape[1], device=F.device)
+    for k in range(r):
+        p = int(torch.argmax(F[:, k].abs() * w))
+        w[p] = 0
+        piv = F[p, k]
+        safe = torch.where(piv.abs() > 0, piv, torch.ones_like(piv))
+        active = w > 0
+        mult = torch.where(active, F[:, k] / safe, F[:, k])
+        F[:, k] = mult
+        F = F - torch.where(active, mult, 0.0)[:, None] * (F[p, :] * (cols > k).float())[None, :]
+    return F[:, r].abs() * w
+
+
+def mixed_plain_128(dev, gen) -> None:
+    """The bf16 and f16 kernel paths against the plain paths (backend "ref")
+    at N = 128, single and batched (64 systems): pivots identical.  Where a
+    system's pivots differ, the first differing pivot is reported with the
+    gap between the two candidates the paths chose, in ulps of the compute
+    dtype, in the kernel path's state at that round, beside the largest
+    difference of any candidate between the two paths' states there.  A gap
+    above one ulp and above that difference is a fault; a near tie within
+    them is how two rightly rounded paths part."""
+    from repro_torch.core.lu.sequential import lu_masked_sequential, lu_masked_sequential_batched
+    from repro_torch.kernels import backend as bk_mod
+
+    n, v, B = 128, 32, 64
+    rec = {name: _RecordingBackend(bk_mod.get_backend(name)) for name in ("cuda", "ref")}
+    for name, r in rec.items():
+        bk_mod.register_backend(f"{name}_recording", r, overwrite=True)
+    faults = []
+    for dt in MIXED_DTYPES:
+        sh = MIXED_SHORT[dt]
+        for batched in (False, True):
+            A = torch.randn(*((B,) if batched else ()), n, n, generator=gen, device=dev).to(dt)
+            out = {}
+            for name, r in rec.items():
+                r.panels.clear()
+                lu = lu_masked_sequential_batched if batched else lu_masked_sequential
+                out[name] = lu(A, v, f"{name}_recording", device=dev)
+            rows_k, rows_p = out["cuda"][1], out["ref"][1]
+            lanes = [None] if not batched else range(B)
+            differing = []
+            for lane in lanes:
+                rk = rows_k if lane is None else rows_k[lane]
+                rp = rows_p if lane is None else rows_p[lane]
+                diff = (rk != rp).nonzero()
+                if not len(diff):
+                    continue
+                k = int(diff[0])
+                step, rr = divmod(k, v)
+                cand = {}
+                for name, r in rec.items():
+                    P, W = r.panels[step]
+                    if lane is not None:
+                        P, W = P[lane], W[lane]
+                    cand[name] = _round_candidates(P, W, rr)
+                ck = cand["cuda"]
+                i, j = int(rk[k]), int(rp[k])
+                ulp = float(storage_ulp(torch.maximum(ck[i], ck[j]), dt))
+                gap = float((ck[i] - ck[j]).abs()) / ulp
+                spread = float((cand["cuda"] - cand["ref"]).abs().max()) / ulp
+                differing.append({"lane": lane, "pivot": k, "kernel_row": i, "plain_row": j,
+                                  "gap_ulps": gap, "state_spread_ulps": spread})
+                if gap > max(1.0, spread):
+                    faults.append((sh, batched, differing[-1]))
+            emit("mixed_plain_128", dtype=sh, batched=batched, N=n, v=v,
+                 systems=B if batched else 1,
+                 rows_equal_systems=(B if batched else 1) - len(differing),
+                 differing=differing[:8])
+    for name in rec:
+        bk_mod._BACKENDS.pop(f"{name}_recording", None)
+    if faults:
+        raise AssertionError(f"pivots part beyond a near tie: {faults}")
+
+
+def _mixed_requests(rng, count: int):
+    """Ragged well-conditioned requests (G / sqrt(n) + 2 I, n uniform in
+    SERVE_MIN_N..SERVE_N) with every other one asking for refinement to
+    MIXED_LOW_TOL, from a seeded numpy generator."""
+    import numpy as np
+
+    out = []
+    for i, n in enumerate(rng.integers(SERVE_MIN_N, SERVE_N + 1, size=count)):
+        A = (rng.standard_normal((n, n)) / np.sqrt(n) + 2 * np.eye(n)).astype(np.float32)
+        out.append((A, rng.standard_normal(n).astype(np.float32),
+                    MIXED_LOW_TOL if i % 2 else None))
+    return out
+
+
+def _check_mixed_answers(requests, answers, phase: str, dt) -> dict:
+    """HPL residuals: refined answers against f32's eps (< 16), plain ones
+    against the compute dtype's eps, as accurate as its factors allow."""
+    out = {"refined": [], "plain": []}
+    for (A, b, tol), x in zip(requests, answers):
+        r = hpl_residuals(torch.from_numpy(A), x.cpu().float(), torch.from_numpy(b))
+        scale = 1.0 if tol else torch.finfo(torch.float32).eps / torch.finfo(dt).eps
+        out["refined" if tol else "plain"].append(float(r) * scale)
+    worst = {k: max(v) for k, v in out.items()}
+    if not all(w < HPL_RESIDUAL_MAX for w in worst.values()):
+        raise AssertionError(f"{phase}: HPL scaled residuals {worst}")
+    return worst
+
+
+def serving_mixed_sync(dt=torch.bfloat16, count: int = 192) -> None:
+    """SolveEngine(512) on a bf16 plan: ragged requests, half of them refined."""
+    import numpy as np
+    from repro_torch.api import SolverConfig
+    from repro_torch.serving import SolveEngine
+
+    requests = _mixed_requests(np.random.default_rng(2), count)
+    eng = SolveEngine(SERVE_N, SolverConfig(compute_dtype=str(dt).removeprefix("torch.")))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [eng.submit_system(A, b, refine_tol=tol) for A, b, tol in requests]
+    xs = eng.flush_systems()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    st = eng.stats()
+    worst = _check_mixed_answers(requests, [xs[t] for t in tickets], "serving_mixed_sync", dt)
+    emit("serving_mixed_sync", dtype=MIXED_SHORT[dt], N=SERVE_N, requests=count,
+         wall_s=wall_s, requests_per_s=count / wall_s, launches=launches,
+         refined_systems=st["refined_systems"], refine_iters_total=st["refine_iters_total"],
+         refine_nonconverged=st["refine_nonconverged"], hpl_residual_max=worst,
+         batched_factorizations=st["batched_factorizations"])
+    if st["refined_systems"] != sum(1 for *_, t in requests if t) or \
+            st["refine_nonconverged"] or launches["lu_panel_batched"] == 0:
+        raise AssertionError(f"serving_mixed_sync: {st}, launches {launches}")
+
+
+def serving_mixed_async(dt=torch.bfloat16, per_tenant: int = 32) -> None:
+    """AsyncSolveEngine(512) on a bf16 plan: four tenant threads, half of the
+    requests refined."""
+    import threading
+
+    import numpy as np
+    from repro_torch.api import SolverConfig
+    from repro_torch.serving import AsyncSolveEngine
+
+    reqs = [_mixed_requests(np.random.default_rng(30 + t), per_tenant)
+            for t in range(ASYNC_TENANTS)]
+    futures: list[list] = [[] for _ in range(ASYNC_TENANTS)]
+    eng = AsyncSolveEngine(SERVE_N, SolverConfig(compute_dtype=str(dt).removeprefix("torch.")),
+                           max_batch=ASYNC_MAX_BATCH, max_delay_ms=ASYNC_DELAY_MS)
+    reset_launches()
+
+    def tenant(t: int) -> None:
+        for A, b, tol in reqs[t]:
+            futures[t].append(eng.submit(A, b, tenant=f"tenant{t}", refine_tol=tol))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=tenant, args=(t,)) for t in range(ASYNC_TENANTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    answers = [[f.result(timeout=300) for f in futs] for futs in futures]
+    wall_s = time.perf_counter() - t0
+    eng.close()
+    launches = read_launches()
+    st = eng.stats()
+    total = ASYNC_TENANTS * per_tenant
+    worst = [_check_mixed_answers(r, a, "serving_mixed_async", dt) for r, a in zip(reqs, answers)]
+    worst = {k: max(w[k] for w in worst) for k in worst[0]}
+    emit("serving_mixed_async", dtype=MIXED_SHORT[dt], N=SERVE_N, requests=total, wall_s=wall_s,
+         requests_per_s=total / wall_s, latency_ms=st["async"]["latency_ms"],
+         served=st["async"]["served"], spilled=st["async"]["spilled"],
+         failed=st["async"]["failed"], refined_systems=st["refined_systems"],
+         refine_iters_total=st["refine_iters_total"],
+         refine_nonconverged=st["refine_nonconverged"], launches=launches,
+         hpl_residual_max=worst)
+    refined = sum(1 for r in reqs for *_, t in r if t)
+    if (st["async"]["served"] + st["async"]["spilled"] != total or st["async"]["failed"]
+            or st["refined_systems"] + st["async"]["spilled"] < refined
+            or st["refine_nonconverged"] or launches["lu_panel_batched"] == 0):
+        raise AssertionError(f"serving_mixed_async: {st['async']}, refined "
+                             f"{st['refined_systems']} of {refined}, launches {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2046,7 +2723,21 @@ def main() -> int:
     conflux_p1_plain_1024(dev)
     grid_8ranks()
 
-    # 9. The LM serving path: the two kernels, each model served at full
+    # 9. Mixed precision (module item 7): the LU kernels' bf16 and f16 entry
+    #    points; f64 over f32 factors with refinement beside the f64 kernels;
+    #    the 2-byte main paths, batched paths with per-lane tolerances, the
+    #    kernel path against the plain path at N = 128; both engines on a
+    #    bf16 plan with some requests refined.
+    mixed_rows = kernel_rows_mixed(dev, gen)
+    mixed_f64_main_path(dev, gen)
+    mixed_launches = {MIXED_SHORT[dt]: mixed_low_main_path(dev, gen, dt) for dt in MIXED_DTYPES}
+    mixed_batched_launches = {MIXED_SHORT[dt]: mixed_batched_path(dev, gen, dt)
+                              for dt in MIXED_DTYPES}
+    mixed_plain_128(dev, gen)
+    serving_mixed_sync()
+    serving_mixed_async()
+
+    # 10. The LM serving path: the two kernels, each model served at full
     #    width and depth (one after the other, each freed before the next),
     #    and four groups of each on the kernel path against the plain path.
     lm_rows = lm_kernel_rows(dev, gen)
@@ -2068,7 +2759,12 @@ def main() -> int:
         row["launches"] = conflux_flat_launches[row["name"]]
     for row in lm_rows:
         row["launches"] = lm_launches[row["name"]]
-    rows = [panel_row, *fused_rows, *batched_rows, *chol_rows, *trsm_rows, *lm_rows]
+    for row in mixed_rows:
+        base, sh = row["name"].rstrip("]").split("[")
+        counts = mixed_batched_launches if base.endswith("_batched") else mixed_launches
+        row["launches"] = counts[sh][base]
+    rows = [panel_row, *fused_rows, *batched_rows, *chol_rows, *trsm_rows, *mixed_rows,
+            *lm_rows]
     emit("device_ms_windows", **WINDOWS)
     for row in rows:
         row["kernel_ms"] = row["ms"]

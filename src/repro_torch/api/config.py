@@ -2,8 +2,9 @@
 
 The same fields, validation and cache key as the JAX package's config.
 `plan()` resolves it against the problem size into a concrete
-`FactorizationPlan`.  Fields whose path is not ported yet are refused at
-resolve time (`repro_torch.api.plan.resolve`), naming their ROADMAP.md item.
+`FactorizationPlan`.  Combinations whose path is not ported yet are
+refused at resolve time (`repro_torch.api.plan.resolve`), naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ class SolverConfig:
     dtype:    *working* dtype (normalized to its name, so configs hash).
     compute_dtype: the dtype the kernels run in, or None to compute in
               `dtype` (`compute_dtype == dtype` normalizes to None).  Must
-              not be wider than `dtype`.  Not ported yet (ROADMAP.md item 7).
+              not be wider than `dtype`.  The plan factors in it and keeps A
+              in `dtype`, so `solve(b, refine_tol=...)` can refine back.
     M:        fast-memory budget per processor, in elements (grid choice).
     P_target: processor budget for grid selection; None = the ranks of the
               default process group (1 without one).
@@ -94,11 +96,16 @@ class SolverConfig:
                 f"complex dtype {dtype_name(dt)!r} is not supported; factorize the "
                 f"real and imaginary parts separately or use a real 2N x 2N embedding"
             )
-        if not dt.is_floating_point:
+        if not dt.is_floating_point or dt == torch.bfloat16:
+            # bfloat16 is a compute dtype only, as in the JAX package (whose
+            # numpy dtype check refuses it): factor in it under an f32
+            # working dtype and refine.
+            hint = (" (bfloat16 is a compute dtype: pass dtype='float32', "
+                    "compute_dtype='bfloat16')" if dt == torch.bfloat16 else "")
             raise ValueError(
                 f"SolverConfig.dtype must be an inexact (floating) dtype — the "
                 f"factorizations divide by pivots, so {dtype_name(dt)!r} cannot "
-                f"work; cast the matrix or pass dtype='float32'/'float64'"
+                f"work; cast the matrix or pass dtype='float32'/'float64'{hint}"
             )
         object.__setattr__(self, "dtype", dtype_name(dt))
         if self.compute_dtype is not None:

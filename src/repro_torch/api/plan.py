@@ -16,6 +16,10 @@ caller-built mesh (`plan(..., mesh=...)`) bypasses the cache.
 Plans run on the CUDA card unless the caller passes `device="cpu"`; a host
 without CUDA raises instead of running on the CPU.
 
+A plan with `SolverConfig(compute_dtype=...)` factors in that dtype and
+keeps the input in the working dtype on the result (`A_ref`), for
+`solve(b, refine_tol=...)`.
+
 The cache is LRU-bounded (`set_plan_cache_capacity`, default
 REPRO_PLAN_CACHE_CAPACITY or 64).  Evictions only drop the cache's
 reference: plans already held keep working.
@@ -36,7 +40,11 @@ from repro_torch.api.result import Factorization
 from repro_torch.core.collectives import group_key
 from repro_torch.core.lu.grid import GridConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.backend import available_backends, check_hopper_constraints
+from repro_torch.kernels.backend import (
+    KERNEL_DTYPES,
+    available_backends,
+    check_hopper_constraints,
+)
 
 
 class FactorizationPlan:
@@ -99,7 +107,10 @@ class FactorizationPlan:
                 f"got A of shape {tuple(A.shape)}"
             )
         A = A.to(device=self.device, dtype=work)
-        F, rows = self._run(A)
+        # Mixed precision: the kernels run in the (lower) compute dtype, while
+        # A_ref keeps the working-precision matrix for refinement residuals.
+        compute = self.config.compute_dtype
+        F, rows = self._run(A if compute is None else A.to(resolve_dtype(compute)))
         with self._count_lock:
             self.trace_count = 1
             self.execute_count += 1
@@ -144,18 +155,13 @@ _CAPACITY = _capacity_from_env()
 _LOCK = threading.Lock()
 
 
-def _reject_unported(config: SolverConfig) -> None:
-    """Refuse the fields whose path is not ported yet, naming its item."""
-    if config.compute_dtype is not None:
-        raise ValueError(
-            f"compute_dtype={config.compute_dtype!r} is not ported yet: ROADMAP.md "
-            f"module item 7 (mixed precision and refinement)"
-        )
-
-
 def _resolve_backend(N: int, config: SolverConfig) -> SolverConfig:
     """Validate the kernel backend.  Runs after strategy resolution, so the
-    panel width is concrete.  A plan the kernels cannot run raises."""
+    panel width is concrete and the strategy names the primitives it calls
+    (its builder's `primitives`; all of them when it names none).  The
+    kernels are checked in the effective compute dtype, so a float64 plan
+    that computes in float32 runs on the f32 kernels.  A plan the kernels
+    cannot run raises."""
     if config.backend == "pallas":
         raise ValueError(
             "backend 'pallas' is the JAX package's TPU kernels; the port's "
@@ -167,13 +173,13 @@ def _resolve_backend(N: int, config: SolverConfig) -> SolverConfig:
         )
     if config.backend == "cuda":
         v = config.grid.v if config.grid is not None else config.v
-        check_hopper_constraints(config.effective_compute_dtype, v, config.B)
+        primitives = getattr(get_strategy(config.strategy), "primitives", tuple(KERNEL_DTYPES))
+        check_hopper_constraints(config.effective_compute_dtype, v, config.B, primitives)
     return config
 
 
 def resolve(N: int, config: SolverConfig) -> SolverConfig:
     """Resolve "auto"/missing-grid/panel-width/backend configs to concrete choices."""
-    _reject_unported(config)
     for _ in range(3):
         builder = get_strategy(config.strategy)
         resolver = getattr(builder, "resolve", None)

@@ -10,7 +10,14 @@ methods.  Everything stays on the factors' device.
 A batched plan's result holds B factorizations, F [B, N, N] and rows
 [B, N]; every method then works per system along the leading axis.
 
-Refined solves raise until their slice lands (ROADMAP.md module item 7).
+Mixed precision: a plan built with `SolverConfig(compute_dtype=...)`
+factors in the compute dtype and keeps the working-precision input on the
+result as `A_ref`.  `solve(b, refine_tol=...)` then runs iterative
+refinement: residuals `r = b - A x` in the working dtype, correction solves
+on the low-precision factors, until the relative residual passes the
+tolerance or the iteration cap.  It returns a `RefinedSolve` with the
+refined x and `refinement_iters` / `final_residual` / `converged`.  f64 is
+native in torch, so a float64 working dtype needs no special mode.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import warnings
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from repro_torch.core.cholesky.sequential import chol_reconstruct, chol_solve
@@ -29,6 +37,106 @@ from repro_torch.core.lu.sequential import (
     unpack_factors,
 )
 from repro_torch.core.solve import lu_solve
+
+
+def _solve_dtype(factor_dtype: torch.dtype) -> torch.dtype:
+    """The dtype the triangular solves run in: f32 over factors narrower
+    than f32 (PyTorch has no bf16 or f16 triangular solve, and such solves
+    would add their own noise to the factors' error), else the factors'."""
+    return torch.float32 if factor_dtype.itemsize < 4 else factor_dtype
+
+
+# ---------------------------------------------------------------------------
+# iterative refinement: low-precision correction solves, working-precision
+# residuals (classic LP-factor IR; converges while cond(A) * eps_factor < 1)
+# ---------------------------------------------------------------------------
+
+
+def _refine_core(F, rows, A, b, tol, max_iters: int, *, chol: bool):
+    """The refine loop of B systems at once, on the factors' device.
+
+    F [B, N, N] low-precision factors and rows [B, N]; A [B, N, N] and
+    b [B, N, k] in the working dtype; tol [B] one tolerance per system.
+    Returns (x [B, N, k], iters [B] int32, final relative residual [B],
+    converged [B] bool).  The relative residual of a system is the maximum
+    over its RHS columns of ||b_j - A x_j||_2 / max(||b_j||_2, tiny).
+    The correction solves run in f32 over factors narrower than f32.  A
+    non-finite first solve restarts that system from x = 0 (residual b,
+    relative residual 1).  A non-finite correction step is rejected (the
+    system keeps its last finite iterate), so a broken low-precision
+    factorization reports `converged=False` with a finite residual instead
+    of NaN.  Each system iterates only while its own residual is above its
+    own tolerance and its count below `max_iters`; the count of a system
+    whose step was rejected still rises.
+
+    The reference runs this as one `lax.while_loop` on the device.  Here the
+    loop is on the host: each iteration makes one host read, "is any system
+    still active?", and nothing else leaves the device.
+    """
+    wd = A.dtype
+    sd = _solve_dtype(F.dtype)
+    Fs = F.to(sd)
+
+    def lowsolve(r):
+        rs = r.to(sd)
+        y = chol_solve(Fs, rs) if chol else lu_solve(Fs, rows, rs)
+        return y.to(wd)
+
+    den = torch.linalg.vector_norm(b, dim=-2).clamp_min(torch.finfo(wd).tiny)  # [B, k]
+
+    def residual(x):
+        r = b - A @ x
+        return r, (torch.linalg.vector_norm(r, dim=-2) / den).amax(-1)
+
+    x = lowsolve(b)
+    finite0 = torch.isfinite(x).flatten(1).all(1)
+    x = torch.where(finite0[:, None, None], x, torch.zeros_like(x))
+    r, res = residual(x)
+    it = torch.zeros(res.shape, dtype=torch.int32, device=res.device)
+    for _ in range(max_iters):  # every active system's count rises each time
+        active = (res > tol) & (it < max_iters)
+        if not bool(active.any()):  # the loop's one host read
+            break
+        xn = x + lowsolve(r)
+        rn, resn = residual(xn)
+        take = active & torch.isfinite(resn)
+        x = torch.where(take[:, None, None], xn, x)
+        r = torch.where(take[:, None, None], rn, r)
+        res = torch.where(take, resn, res)
+        it = it + active.to(it.dtype)
+    return x, it, res, res <= tol
+
+
+@dataclass
+class RefinedSolve:
+    """A refined solve: the working-precision solution and how it converged.
+
+    x:                the refined solution in the working dtype ([N] or
+                      [N, k]; a leading B axis on batched factorizations),
+                      on the factors' device.
+    refinement_iters: correction iterations taken (int; [B] tensor batched).
+    final_residual:   the maximum over columns of ||b - A x|| / ||b|| at
+                      exit (float; [B] tensor batched).
+    converged:        final_residual <= refine_tol (bool; [B] tensor
+                      batched).  False means the cap was hit: x is still the
+                      best finite iterate, never NaN.
+    """
+
+    x: torch.Tensor
+    refinement_iters: int | torch.Tensor
+    final_residual: float | torch.Tensor
+    converged: bool | torch.Tensor
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.x.detach().cpu().numpy(), dtype=dtype)
+
+    @property
+    def shape(self):
+        return self.x.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x.dtype
 
 
 @dataclass
@@ -76,33 +184,7 @@ class Factorization:
     def dtype(self) -> torch.dtype:
         return self.F.dtype
 
-    def solve(self, b, *, refine_tol=None, max_refine_iters: int = 25) -> torch.Tensor:
-        """Solve A x = b.  b: [N] single RHS or [N, k] multi-RHS batch.
-
-        On a batched factorization b is [B, N] (one RHS per system) or
-        [B, N, k], and each system solves against its own factors.
-
-        Returns x on the factors' device, in the factors' dtype.
-        `refine_tol` (iterative refinement) is not ported yet.
-        """
-        if refine_tol is not None:
-            raise NotImplementedError(
-                "refined solves are not ported yet: ROADMAP.md module item 7 "
-                "(mixed precision and refinement)"
-            )
-        b = torch.as_tensor(b)
-        if b.is_complex():
-            raise ValueError(
-                f"complex RHS dtype {b.dtype} is not supported (factors are "
-                f"{self.dtype}); solve against b.real and b.imag separately"
-            )
-        if b.is_floating_point() and b.dtype.itemsize > self.dtype.itemsize:
-            warnings.warn(
-                f"factors are {self.dtype}; RHS {b.dtype} will be downcast "
-                f"(set SolverConfig.dtype to keep precision)",
-                stacklevel=2,
-            )
-        b = b.to(device=self.device, dtype=self.dtype)
+    def _check_rhs(self, b: torch.Tensor) -> None:
         if self.batched:
             if b.ndim not in (2, 3) or tuple(b.shape[:2]) != (self.B, self.N):
                 raise ValueError(
@@ -111,9 +193,87 @@ class Factorization:
                 )
         elif b.ndim not in (1, 2) or b.shape[0] != self.N:
             raise ValueError(f"b must be [N] or [N, k] with N={self.N}, got shape {tuple(b.shape)}")
-        if self.kind == "cholesky":
-            return chol_solve(self.F, b)
-        return lu_solve(self.F, self.rows, b)
+
+    def solve(self, b, *, refine_tol=None, max_refine_iters: int = 25):
+        """Solve A x = b.  b: [N] single RHS or [N, k] multi-RHS batch.
+
+        On a batched factorization b is [B, N] (one RHS per system) or
+        [B, N, k], and each system solves against its own factors.
+
+        With `refine_tol=None` (the default) this is the plain solve on the
+        factors, returning x on their device in their dtype.  Over factors
+        narrower than f32 the solve computes in f32; on a mixed-precision
+        factorization (working dtype wider than the factors) it then returns
+        that f32 result, as the reference does.  An RHS wider than the
+        result warns that it is downcast, with the reference's hint.
+
+        With `refine_tol=<float>` it runs iterative refinement against the
+        retained `A_ref` (see `_refine_core`) and returns a `RefinedSolve`
+        whose x is in the working dtype (f32 at least).  On a batched
+        factorization `refine_tol` may be a [B] array, one tolerance per
+        system; `max_refine_iters` is shared.
+        """
+        b = torch.as_tensor(b)
+        if b.is_complex():
+            raise ValueError(
+                f"complex RHS dtype {b.dtype} is not supported (factors are "
+                f"{self.dtype}); solve against b.real and b.imag separately"
+            )
+        if refine_tol is not None:
+            return self._solve_refined(b, refine_tol, max_refine_iters)
+        wd = self.work_dtype or self.dtype
+        sd = _solve_dtype(self.dtype)
+        out = sd if wd != self.dtype else self.dtype  # a plain narrow plan keeps its dtype
+        if b.is_floating_point() and b.dtype.itemsize > out.itemsize:
+            hint = ("pass solve(..., refine_tol=...) to recover working precision"
+                    if wd.itemsize >= b.dtype.itemsize
+                    else "set SolverConfig.dtype to keep precision")
+            warnings.warn(
+                f"factors are {self.dtype}; RHS {b.dtype} will be downcast ({hint})",
+                stacklevel=2,
+            )
+        F = self.F.to(sd)
+        b = b.to(device=self.device, dtype=sd)
+        self._check_rhs(b)
+        x = chol_solve(F, b) if self.kind == "cholesky" else lu_solve(F, self.rows, b)
+        return x.to(out)
+
+    def _solve_refined(self, b: torch.Tensor, tol, max_iters: int) -> RefinedSolve:
+        """Iterative refinement against the retained working-precision A_ref."""
+        if self.A_ref is None:
+            raise ValueError(
+                "refined solve needs the original matrix for residuals, but "
+                "this Factorization carries no A_ref; execute through "
+                "repro_torch.api.plan (which retains it) or set fact.A_ref"
+            )
+        if (not isinstance(max_iters, (int, np.integer)) or isinstance(max_iters, bool)
+                or max_iters < 0):
+            raise ValueError(f"max_refine_iters must be a non-negative int, got {max_iters!r}")
+        wd = self.work_dtype or self.dtype
+        if wd.itemsize < 4:
+            wd = torch.float32  # the floor of residual accumulation
+        b = b.to(device=self.device, dtype=wd)
+        self._check_rhs(b)
+        lead = 1 if self.batched else 0
+        vec = b.ndim == lead + 1
+        bm = b[..., None] if vec else b
+        A = self.A_ref.to(device=self.device, dtype=wd)
+        F, rows = self.F, self.rows
+        if not self.batched:
+            bm, A, F, rows = bm[None], A[None], F[None], rows[None]
+        B = F.shape[0]
+        tols = torch.as_tensor(tol, dtype=torch.float64).to(device=self.device, dtype=wd)
+        if tols.ndim > 1 or (tols.ndim == 1 and not self.batched):
+            raise ValueError(f"refine_tol must be a number, or [B] on a batched "
+                             f"factorization; got shape {tuple(tols.shape)}")
+        x, it, res, conv = _refine_core(F, rows, A, bm, tols.expand(B), int(max_iters),
+                                        chol=self.kind == "cholesky")
+        if vec:
+            x = x[..., 0]
+        if self.batched:
+            return RefinedSolve(x=x, refinement_iters=it, final_residual=res, converged=conv)
+        return RefinedSolve(x=x[0], refinement_iters=int(it[0]), final_residual=float(res[0]),
+                            converged=bool(conv[0]))
 
     def slogdet(self):
         """(sign, log|det|) — overflow-safe; 0-d tensors, or [B] per system
@@ -124,7 +284,9 @@ class Factorization:
             d = torch.diagonal(self.F, dim1=-2, dim2=-1)
             return torch.ones_like(d[..., 0]), 2.0 * torch.sum(torch.log(d), dim=-1)
         d = torch.diagonal(gather_rows(self.F, self.rows), dim1=-2, dim2=-1)
-        sign = permutation_signs(self.rows).to(d.dtype) * torch.prod(torch.sign(d), dim=-1)
+        # torch.sign(nan) is 0; keep NaN, as jnp.sign and numpy.sign do
+        dsign = torch.where(torch.isnan(d), d, torch.sign(d))
+        sign = permutation_signs(self.rows).to(d.dtype) * torch.prod(dsign, dim=-1)
         return sign, torch.sum(torch.log(torch.abs(d)), dim=-1)
 
     def det(self):

@@ -7,6 +7,13 @@ Each strategy is a plan builder
 (grid, panel width, pivot) so the plan cache key is concrete.  The
 distributed strategies size their grid for the default process group
 (`P_target` defaults to its world size, 1 without one).
+
+A builder's ``primitives`` name the `KernelBackend` primitives its
+strategy calls (either hot loop, for the 2.5D schedules).  Plan resolution
+checks the "cuda" kernels of exactly those in the compute dtype,
+so a bf16 or f16 compute dtype runs on "sequential" (and "auto", which
+resolves to it on one rank) and is refused, naming ROADMAP.md item 7, by
+the strategies whose primitives have no 2-byte kernels yet.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ def build_sequential(N: int, config: SolverConfig, device: torch.device,
 
 
 build_sequential.resolve = _resolve_sequential
+build_sequential.primitives = ("panel_lup", "fused_trsm_schur")
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +116,7 @@ def build_sequential_chol(N: int, config: SolverConfig, device: torch.device,
 
 
 build_sequential_chol.resolve = _resolve_sequential_chol
+build_sequential_chol.primitives = ("panel_chol", "trsm_right_upper", "schur_update")
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +197,8 @@ def build_conflux(N: int, config: SolverConfig, device: torch.device,
 
 
 build_conflux.resolve = _resolve_conflux
+build_conflux.primitives = ("panel_lup", "trsm_right_upper", "fused_trsm_schur",
+                            "trsm_left_lower", "schur_update")
 
 
 def _resolve_baseline2d(N: int, config: SolverConfig) -> SolverConfig:
@@ -209,6 +220,7 @@ def build_baseline2d(N: int, config: SolverConfig, device: torch.device,
 
 
 build_baseline2d.resolve = _resolve_baseline2d
+build_baseline2d.primitives = build_conflux.primitives
 
 
 def _resolve_cholesky25d(N: int, config: SolverConfig) -> SolverConfig:
@@ -228,6 +240,8 @@ def build_cholesky25d(N: int, config: SolverConfig, device: torch.device,
 
 
 build_cholesky25d.resolve = _resolve_cholesky25d
+build_cholesky25d.primitives = ("panel_chol", "trsm_right_upper", "fused_trsm_schur",
+                                "trsm_left_lower", "schur_update")
 
 
 # ---------------------------------------------------------------------------

@@ -33,10 +33,14 @@ def factorization_from_numpy(F, rows, *, device, kind: str = "lu", A_ref=None,
     A distributed run's gathered factors carry the grid they ran on (a
     GridConfig-like object or a dict of its fields) and the schedule's
     volume (`comm`, elements per processor), as its `Factorization.grid`
-    and `.comm` hold them."""
+    and `.comm` hold them.
+
+    F may be the JAX package's bfloat16 factors of a mixed-precision plan
+    (numpy arrays of ml_dtypes' bfloat16), with A_ref in the working dtype;
+    the result then refines as the JAX one does."""
     dev = resolve_device(device)
-    F_t = torch.as_tensor(np.asarray(F), device=dev)
-    A_t = None if A_ref is None else torch.as_tensor(np.asarray(A_ref), device=dev)
+    F_t = _tensor(F, dev, None)
+    A_t = None if A_ref is None else _tensor(A_ref, dev, None)
     return Factorization(
         F=F_t,
         rows=torch.as_tensor(np.asarray(rows, dtype=np.int64), device=dev),
@@ -76,11 +80,16 @@ def config_from_jax(fields: dict) -> SolverConfig:
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
+    """A tensor of the numpy array (or array-like) `a`, on `device`, cast to
+    `dtype` (None keeps a's).  ml_dtypes' bfloat16 (numpy kind 'V', as the
+    JAX package's arrays come) arrives through its bits, a 16-bit integer
+    view, so that neither side needs ml_dtypes."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: torch takes it through f32
-        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    a = np.array(a, copy=None if a.flags.writeable else True, order="C")
+    if a.dtype.kind == "V" and a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.array(a, copy=not a.flags.writeable, order="C"))
+        t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype or t.dtype)
 
 

@@ -12,7 +12,11 @@ Two backends are registered:
   kernels cannot run is refused at resolve time (`check_hopper_constraints`).
 - "ref": plain PyTorch on any device.
 
-Every primitive of the protocol is ported, single and batched.
+Every primitive of the protocol is ported, single and batched.  A
+primitive given sub-4-byte inputs (bf16, f16) computes in f32 and rounds
+its result once on the way out, on both backends, as the TPU kernels did
+with their f32 scratch.  On "cuda" only `panel_lup` and `fused_trsm_schur`
+have bf16 and f16 kernels so far (`KERNEL_DTYPES`).
 """
 
 from __future__ import annotations
@@ -23,10 +27,19 @@ import torch
 
 from repro_torch.kernels import ops, ref
 
-# What the kernels take: their element types, the panel widths their
-# shared-memory buffers hold, and the systems one batched launch covers (the
-# fused kernel puts them on gridDim.z).
-KERNEL_DTYPES = ("float32", "float64")
+# What the kernels take: the element types of each primitive (its batched
+# form takes the same), the panel widths their shared-memory buffers hold,
+# and the systems one batched launch covers (the fused kernel puts them on
+# gridDim.z).
+_WIDE = ("float32", "float64")
+KERNEL_DTYPES = {
+    "panel_lup": (*_WIDE, "bfloat16", "float16"),
+    "fused_trsm_schur": (*_WIDE, "bfloat16", "float16"),
+    "panel_chol": _WIDE,
+    "trsm_right_upper": _WIDE,
+    "trsm_left_lower": _WIDE,
+    "schur_update": _WIDE,
+}
 MAX_PANEL_WIDTH = 128
 MAX_BATCH = 65535
 
@@ -118,18 +131,22 @@ def available_backends() -> tuple[str, ...]:
     return tuple(sorted(_BACKENDS))
 
 
-def check_hopper_constraints(dtype: str, v: int | None, B: int | None = None) -> None:
+def check_hopper_constraints(dtype: str, v: int | None, B: int | None = None,
+                             primitives=tuple(KERNEL_DTYPES)) -> None:
     """Raise ValueError unless the "cuda" kernels can run this plan.
 
-    The kernels take float32 and float64 (f64 is native on Hopper), panel
-    widths up to `MAX_PANEL_WIDTH` and batches of up to `MAX_BATCH` systems.
-    Anything else is refused, never sent to another backend.
+    `primitives` are the ones the plan's strategy calls.  Each takes the
+    dtypes of `KERNEL_DTYPES` (f64 is native on Hopper; bf16 and f16 so far
+    only for the LU primitives), panel widths up to `MAX_PANEL_WIDTH` and
+    batches of up to `MAX_BATCH` systems.  Anything else is refused, never
+    sent to another backend.
     """
-    if dtype not in KERNEL_DTYPES:
+    missing = [p for p in primitives if dtype not in KERNEL_DTYPES[p]]
+    if missing:
         raise ValueError(
-            f"backend 'cuda' runs {KERNEL_DTYPES}, not {dtype!r}; bf16/f16 arrive "
-            f"with ROADMAP.md module item 7 (mixed precision) — use "
-            f"dtype='float32' or backend='ref'"
+            f"backend 'cuda' has no {dtype} kernel for {', '.join(missing)} yet: "
+            f"their bf16/f16 entry points are the next slice of ROADMAP.md module "
+            f"item 7 (mixed precision) — compute in float32 or use backend='ref'"
         )
     if v is not None and not 1 <= v <= MAX_PANEL_WIDTH:
         raise ValueError(

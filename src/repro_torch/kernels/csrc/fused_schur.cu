@@ -82,6 +82,15 @@
 // reference.  The order of the sum differs from a library GEMM's, so
 // results agree with the plain version within a stated tolerance, not
 // bitwise.
+//
+// bf16 and f16 (`storage.cuh`): the kernel is a template on the storage type
+// S of every operand and computes in compute_t<S> (f32 for both), as the
+// Pallas kernel does: U01 is solved in f32 and used in f32 for
+// A - L10 @ U01, and each result is rounded once, to nearest even, where it
+// is stored (`out`, and U01 itself).  The TMA stream is chosen by the
+// storage size (`Smem::kRing`, `bulk`), so 2-byte storage takes the plain
+// loads, which widen every value as they load it into the f32 layout in
+// shared memory; f32 tensor maps are never built over 2-byte data.
 
 #include <cstdint>
 
@@ -89,6 +98,7 @@
 #include <cuda_runtime.h>
 
 #include "once_per_device.cuh"
+#include "storage.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -113,17 +123,20 @@ struct alignas(16) Run {
 };
 
 // Shared memory, from a 1024-byte boundary (the 128-byte swizzle repeats
-// every 8 rows): A [kBM][kBN] and L10 [kBM][128 B] per stage, then U
-// [chunk][kBN] twice, then L00 [chunk][128 B] twice, then a "full" and an
-// "empty" mbarrier per stage.  The plain mode uses stage 0 and U buffer 0.
-template <typename T>
+// every 8 rows), in the compute type T of storage type S: A [kBM][kBN] and
+// L10 [kBM][128 B] per stage, then U [chunk][kBN] twice, then L00 [chunk]
+// [128 B] twice, then a "full" and an "empty" mbarrier per stage.  The plain
+// mode uses stage 0 and U buffer 0.
+template <typename S>
 struct Smem {
+  using T = compute_t<S>;
   static constexpr uint32_t kA = kBM * kBN * sizeof(T);
   static constexpr uint32_t kL = kBM * kRowBytes;
   static constexpr uint32_t kU = Chunk<T>::value * kBN * sizeof(T);
   static constexpr uint32_t kL00 = Chunk<T>::value * kRowBytes;
   static constexpr uint32_t kStage = kA + kL;
-  static constexpr int kRing = sizeof(T) == 4 ? kStages : 1;  // f64 runs the plain mode only
+  // Only f32 storage takes the TMA stream: f64, bf16 and f16 run the plain mode only.
+  static constexpr int kRing = sizeof(S) == 4 ? kStages : 1;
   static constexpr uint32_t kUOff = kRing * kStage;
   static constexpr uint32_t kL00Off = kUOff + 2 * kU;
   static constexpr uint32_t kBars = kL00Off + 2 * kL00;
@@ -281,17 +294,18 @@ struct Operand {
   int64_t bs;  // batch stride, elements
 };
 
-template <typename T>
+template <typename St>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_trsm_schur_kernel(const __grid_constant__ CUtensorMap tm_a,
                         const __grid_constant__ CUtensorMap tm_l00,
                         const __grid_constant__ CUtensorMap tm_r01,
                         const __grid_constant__ CUtensorMap tm_l10,
                         const __grid_constant__ CUtensorMap tm_out, Operand a_op, Operand l00_op,
-                        Operand r01_op, Operand l10_op, T* __restrict__ out, int64_t ldo,
-                        int64_t bso, T* __restrict__ U01, int64_t ldu, int64_t bsu, int nsys,
+                        Operand r01_op, Operand l10_op, St* __restrict__ out, int64_t ldo,
+                        int64_t bso, St* __restrict__ U01, int64_t ldu, int64_t bsu, int nsys,
                         int M, int C, int v, int unit, int bulk) {
-  using S = Smem<T>;
+  using T = compute_t<St>;
+  using S = Smem<St>;
   constexpr int kC = Chunk<T>::value;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -314,7 +328,7 @@ fused_trsm_schur_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int64_t key0 = t_begin / nrt;  // (system, stripe) of the first tile
   T dot[8][4];
 
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(St) == 4) {
     if (bulk) {
       const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(base));
       const uint32_t full0 = smem0 + S::kBars;
@@ -392,10 +406,10 @@ fused_trsm_schur_kernel(const __grid_constant__ CUtensorMap tm_a,
           for (int k = 0; k < kC; ++k) Us[k * kBN + tid] = x[k];
           const int c = static_cast<int>(key % nst) * kBN + tid;
           if (tau % nrt == 0 && c < C) {
-            T* u = U01 + key / nst * bsu + c;
+            St* u = U01 + key / nst * bsu + c;
 #pragma unroll
             for (int r = 0; r < kC; ++r) {
-              if (r < v) u[r * ldu] = x[r];
+              if (r < v) u[r * ldu] = narrow<St>(x[r]);
             }
           }
           math_sync();
@@ -433,26 +447,26 @@ fused_trsm_schur_kernel(const __grid_constant__ CUtensorMap tm_a,
     const int64_t z = key / nst;
     const int c = col0 + tid;
     if ((n == 0 || tau % nrt == 0) && c < C) {
-      const T* L00 = static_cast<const T*>(l00_op.ptr) + z * l00_op.bs;
-      const T* R01 = static_cast<const T*>(r01_op.ptr) + z * r01_op.bs;
+      const St* L00 = static_cast<const St*>(l00_op.ptr) + z * l00_op.bs;
+      const St* R01 = static_cast<const St*>(r01_op.ptr) + z * r01_op.bs;
       for (int r = 0; r < v; ++r) {
         T partial = T(0);
-        for (int q = 0; q < r; ++q) partial += L00[r * l00_op.ld + q] * x[q];
-        T xr = R01[r * r01_op.ld + c] - partial;
-        if (!unit) xr = xr / L00[r * l00_op.ld + r];
+        for (int q = 0; q < r; ++q) partial += widen(L00[r * l00_op.ld + q]) * x[q];
+        T xr = widen(R01[r * r01_op.ld + c]) - partial;
+        if (!unit) xr = xr / widen(L00[r * l00_op.ld + r]);
         x[r] = xr;
       }
       if (tau % nrt == 0) {
-        for (int r = 0; r < v; ++r) U01[z * bsu + r * ldu + c] = x[r];
+        for (int r = 0; r < v; ++r) U01[z * bsu + r * ldu + c] = narrow<St>(x[r]);
       }
     }
-    const T* A = static_cast<const T*>(a_op.ptr) + z * a_op.bs;
-    const T* L10 = static_cast<const T*>(l10_op.ptr) + z * l10_op.bs;
+    const St* A = static_cast<const St*>(a_op.ptr) + z * a_op.bs;
+    const St* L10 = static_cast<const St*>(l10_op.ptr) + z * l10_op.bs;
     for (int idx = tid; idx < kBM * kBN; idx += kMathThreads) {
       const int m = idx / kBN;
       const int cc = idx % kBN;
       const bool in = row0 + m < M && col0 + cc < C;
-      As[idx] = in ? A[static_cast<int64_t>(row0 + m) * a_op.ld + col0 + cc] : T(0);
+      As[idx] = in ? widen(A[static_cast<int64_t>(row0 + m) * a_op.ld + col0 + cc]) : T(0);
     }
     zero(dot);
     for (int k0 = 0; k0 < v; k0 += kC) {
@@ -461,7 +475,7 @@ fused_trsm_schur_kernel(const __grid_constant__ CUtensorMap tm_a,
         const int k = idx % kC;
         const bool in = row0 + m < M && k0 + k < v;
         *reinterpret_cast<T*>(Ls + l_offset(m, k / kRun) + (k % kRun) * sizeof(T)) =
-            in ? L10[static_cast<int64_t>(row0 + m) * l10_op.ld + k0 + k] : T(0);
+            in ? widen(L10[static_cast<int64_t>(row0 + m) * l10_op.ld + k0 + k]) : T(0);
       }
       for (int k = 0; k < kC; ++k) Us[k * kBN + tid] = k0 + k < v && c < C ? x[k0 + k] : T(0);
       math_sync();
@@ -475,12 +489,12 @@ fused_trsm_schur_kernel(const __grid_constant__ CUtensorMap tm_a,
     }
     subtract<T>(As, row, col, dot);
     math_sync();
-    T* o = out + z * bso;
+    St* o = out + z * bso;
     for (int idx = tid; idx < kBM * kBN; idx += kMathThreads) {
       const int m = idx / kBN;
       const int cc = idx % kBN;
       if (row0 + m < M && col0 + cc < C)
-        o[static_cast<int64_t>(row0 + m) * ldo + col0 + cc] = As[idx];
+        o[static_cast<int64_t>(row0 + m) * ldo + col0 + cc] = narrow<St>(As[idx]);
     }
     math_sync();
   }
@@ -510,13 +524,13 @@ bool f32_map(CUtensorMap* map, const void* ptr, int64_t ld, int64_t bs, int nsys
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T>
+template <typename S>
 int launch(const void* A, long long lda, long long bsa, const void* L00, long long ldl,
            long long bsl, const void* R01, long long ldr, long long bsr, const void* L10,
            long long ld10, long long bs10, void* out, long long ldo, long long bso, void* U01,
            long long ldu, long long bsu, int B, int M, int C, int v, int unit, int* mode,
            void* stream) {
-  constexpr int kC = Chunk<T>::value;
+  constexpr int kC = Chunk<compute_t<S>>::value;
   *mode = 0;
   const int64_t tiles =
       static_cast<int64_t>(B) * (M > 0 ? (M + kBM - 1) / kBM : 1) * ((C + kBN - 1) / kBN);
@@ -526,20 +540,20 @@ int launch(const void* A, long long lda, long long bsa, const void* L00, long lo
   int sms = 0;
   const cudaError_t err = limit.get(
       [](int dev, int* n) {
-        const cudaError_t e = cudaFuncSetAttribute(fused_trsm_schur_kernel<T>,
+        const cudaError_t e = cudaFuncSetAttribute(fused_trsm_schur_kernel<S>,
                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   static_cast<int>(Smem<T>::kBytes));
+                                                   static_cast<int>(Smem<S>::kBytes));
         return e != cudaSuccess ? e
                                 : cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
       },
       &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // TMA for f32 with v within one chunk (every path's shape), else plain
-  // loads.
+  // TMA for f32 storage with v within one chunk (every f32 path's shape),
+  // else plain loads: f64, bf16 and f16 storage always.
   CUtensorMap tm_a{}, tm_l00{}, tm_r01{}, tm_l10{}, tm_out{};
   const int bulk =
-      sizeof(T) == 4 && v <= kC && M > 0 &&
+      sizeof(S) == 4 && v <= kC && M > 0 &&
       f32_map(&tm_a, A, lda, bsa, B, M, C, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
       f32_map(&tm_l00, L00, ldl, bsl, B, v, v, kC, kC, CU_TENSOR_MAP_SWIZZLE_NONE) &&
       f32_map(&tm_r01, R01, ldr, bsr, B, v, C, kC, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
@@ -547,42 +561,36 @@ int launch(const void* A, long long lda, long long bsa, const void* L00, long lo
       f32_map(&tm_out, out, ldo, bso, B, M, C, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
   *mode = bulk;
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  fused_trsm_schur_kernel<T><<<grid, kThreads, Smem<T>::kBytes,
+  fused_trsm_schur_kernel<S><<<grid, kThreads, Smem<S>::kBytes,
                                static_cast<cudaStream_t>(stream)>>>(
       tm_a, tm_l00, tm_r01, tm_l10, tm_out, Operand{A, lda, bsa},
       Operand{L00, ldl, bsl}, Operand{R01, ldr, bsr}, Operand{L10, ld10, bs10},
-      static_cast<T*>(out), ldo, bso, static_cast<T*>(U01), ldu, bsu, B, M, C, v, unit, bulk);
+      static_cast<S*>(out), ldo, bso, static_cast<S*>(U01), ldu, bsu, B, M, C, v, unit, bulk);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // B systems: A [M, C], L00 [v, v], R01 [v, C], L10 [M, v], out [M, C],
-// U01 [v, C], each with the given row stride, batch stride and unit column
-// stride (a single system is B = 1), 1 <= v <= 128.  Sets *mode to 1 where
-// the operands took the TMA stream, 0 where they took plain loads.  Returns
-// the cudaError_t of the launch.
-extern "C" int fused_trsm_schur_f32(const void* A, long long lda, long long bsa,
-                                    const void* L00, long long ldl, long long bsl,
-                                    const void* R01, long long ldr, long long bsr,
-                                    const void* L10, long long ld10, long long bs10, void* out,
-                                    long long ldo, long long bso, void* U01, long long ldu,
-                                    long long bsu, int B, int M, int C, int v, int unit,
-                                    int* mode, void* stream) {
-  return launch<float>(A, lda, bsa, L00, ldl, bsl, R01, ldr, bsr, L10, ld10, bs10, out, ldo,
-                       bso, U01, ldu, bsu, B, M, C, v, unit, mode, stream);
-}
-
-extern "C" int fused_trsm_schur_f64(const void* A, long long lda, long long bsa,
-                                    const void* L00, long long ldl, long long bsl,
-                                    const void* R01, long long ldr, long long bsr,
-                                    const void* L10, long long ld10, long long bs10, void* out,
-                                    long long ldo, long long bso, void* U01, long long ldu,
-                                    long long bsu, int B, int M, int C, int v, int unit,
-                                    int* mode, void* stream) {
-  return launch<double>(A, lda, bsa, L00, ldl, bsl, R01, ldr, bsr, L10, ld10, bs10, out, ldo,
-                        bso, U01, ldu, bsu, B, M, C, v, unit, mode, stream);
-}
+// U01 [v, C], all of one element type (the entry's suffix), each with the
+// given row stride, batch stride and unit column stride (a single system is
+// B = 1), 1 <= v <= 128.  Sets *mode to 1 where the operands took the TMA
+// stream, 0 where they took plain loads (always for f64, bf16 and f16).
+// Returns the cudaError_t of the launch.
+#define FUSED_ENTRY(suffix, S)                                                                  \
+  extern "C" int fused_trsm_schur_##suffix(                                                    \
+      const void* A, long long lda, long long bsa, const void* L00, long long ldl,              \
+      long long bsl, const void* R01, long long ldr, long long bsr, const void* L10,           \
+      long long ld10, long long bs10, void* out, long long ldo, long long bso, void* U01,      \
+      long long ldu, long long bsu, int B, int M, int C, int v, int unit, int* mode,           \
+      void* stream) {                                                                          \
+    return launch<S>(A, lda, bsa, L00, ldl, bsl, R01, ldr, bsr, L10, ld10, bs10, out, ldo, bso, \
+                     U01, ldu, bsu, B, M, C, v, unit, mode, stream);                           \
+  }
+FUSED_ENTRY(f32, float)
+FUSED_ENTRY(f64, double)
+FUSED_ENTRY(bf16, __nv_bfloat16)
+FUSED_ENTRY(f16, __half)
 
 extern "C" const char* fused_schur_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

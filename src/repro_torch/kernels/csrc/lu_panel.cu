@@ -103,6 +103,17 @@
 // ::lu_panel_batched) round the same operations in the same order, so every
 // body agrees with them, and a batched lane with the single call, bit for
 // bit on the card (NaN at the same places).
+//
+// Storage and compute types (`storage.cuh`): every body is a template on
+// the panel's storage type S and computes in compute_t<S>, which is f32 for
+// bf16 and f16.  A 2-byte entry widens each value exactly as it loads it
+// (16-byte row loads then carry 8 values), keeps rows, keys, slots and
+// shared memory in f32, and rounds once, to nearest even, as it stores F,
+// which is what the plain version does around its f32 rounds.  So its bits
+// are the f32 body's on the widened panel, rounded.  The weights are read
+// in the compute type.  The generic bodies update their rows in device
+// memory; with 2-byte storage they do so in an f32 work buffer that the
+// wrapper passes, and convert into F at the end.
 
 #include <climits>
 #include <cmath>
@@ -112,6 +123,7 @@
 #include <cuda_runtime.h>
 
 #include "once_per_device.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -231,7 +243,7 @@ __device__ __forceinline__ Key warp_best(Key k) {
   return {hi, lo, static_cast<int>(~nidx)};
 }
 
-// Four f32 or two f64 values: one 16-byte access.
+// Eight bf16 or f16, four f32 or two f64 values: one 16-byte access.
 template <typename T>
 struct alignas(16) Run {
   static constexpr int kN = 16 / sizeof(T);
@@ -250,9 +262,11 @@ struct Rows {
   T w[ROWS];
   Key key[ROWS];  // this round's candidate; idx INT_MAX: no row
 
-  // Row i (if i < R): read once from the strided input, 16 bytes at a time
-  // when v == 32 and the rows are aligned; columns j >= v are 0.
-  __device__ __forceinline__ void load(int q, const T* in, int64_t ld_in, const T* weights,
+  // Row i (if i < R): read once from the strided input of storage type S,
+  // 16 bytes at a time when v == 32 and the rows are aligned, widened to T;
+  // columns j >= v are 0.
+  template <typename S>
+  __device__ __forceinline__ void load(int q, const S* in, int64_t ld_in, const T* weights,
                                        int i, int R, int v, bool vec) {
     if (i >= R) {
       key[q] = no_key();
@@ -262,17 +276,17 @@ struct Rows {
       return;
     }
     w[q] = weights[i];
-    const T* src = in + static_cast<int64_t>(i) * ld_in;
+    const S* src = in + static_cast<int64_t>(i) * ld_in;
     if (vec) {
 #pragma unroll
-      for (int j0 = 0; j0 < kRegV; j0 += Run<T>::kN) {
-        const Run<T> r = *reinterpret_cast<const Run<T>*>(src + j0);
+      for (int j0 = 0; j0 < kRegV; j0 += Run<S>::kN) {
+        const Run<S> r = *reinterpret_cast<const Run<S>*>(src + j0);
 #pragma unroll
-        for (int e = 0; e < Run<T>::kN; ++e) x[q][j0 + e] = r.x[e];
+        for (int e = 0; e < Run<S>::kN; ++e) x[q][j0 + e] = widen(r.x[e]);
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < kRegV; ++j) x[q][j] = j < v ? src[j] : T(0);
+      for (int j = 0; j < kRegV; ++j) x[q][j] = j < v ? widen(src[j]) : T(0);
     }
     key[q] = key_of(mul_rn(fabs(x[q][0]), w[q]), i);
   }
@@ -343,23 +357,25 @@ struct Rows {
     }
   }
 
-  // Row q to F, once, after `shift` register positions of rotation.
-  __device__ __forceinline__ void store(int q, T* F, int v, int shift) const {
+  // Row q to F (storage type S, each value rounded once), after `shift`
+  // register positions of rotation.
+  template <typename S>
+  __device__ __forceinline__ void store(int q, S* F, int v, int shift) const {
     if (key[q].idx == INT_MAX) return;
-    T* dst = F + static_cast<int64_t>(key[q].idx) * v;
+    S* dst = F + static_cast<int64_t>(key[q].idx) * v;
     if (v == kRegV && shift % kRegV == 0) {  // F is a fresh allocation: aligned rows
 #pragma unroll
-      for (int j0 = 0; j0 < kRegV; j0 += Run<T>::kN) {
-        Run<T> run;
+      for (int j0 = 0; j0 < kRegV; j0 += Run<S>::kN) {
+        Run<S> run;
 #pragma unroll
-        for (int e = 0; e < Run<T>::kN; ++e) run.x[e] = x[q][j0 + e];
-        *reinterpret_cast<Run<T>*>(dst + j0) = run;
+        for (int e = 0; e < Run<S>::kN; ++e) run.x[e] = narrow<S>(x[q][j0 + e]);
+        *reinterpret_cast<Run<S>*>(dst + j0) = run;
       }
     } else {
 #pragma unroll
       for (int j = 0; j < kRegV; ++j) {
         const int c = (shift + j) % kRegV;
-        if (c < v) dst[c] = x[q][j];
+        if (c < v) dst[c] = narrow<S>(x[q][j]);
       }
     }
   }
@@ -403,11 +419,12 @@ struct WarpKeys {
 
 // One block per system; blockDim.x = nt (a multiple of 32, at most
 // kBlockThreads<T>) and R <= nt * ROWS.  Thread t holds rows q * nt + t.
-template <typename T, int ROWS>
-__global__ void __launch_bounds__(kBlockThreads<T>)
-lu_panel_block_kernel(const T* __restrict__ in, int64_t ld_in, int64_t bs_in,
-                      const T* __restrict__ weights, T* __restrict__ F, int R, int v,
-                      int* __restrict__ order, unsigned char* __restrict__ ok) {
+template <typename S, int ROWS>
+__global__ void __launch_bounds__(kBlockThreads<compute_t<S>>)
+lu_panel_block_kernel(const S* __restrict__ in, int64_t ld_in, int64_t bs_in,
+                      const compute_t<S>* __restrict__ weights, S* __restrict__ F, int R,
+                      int v, int* __restrict__ order, unsigned char* __restrict__ ok) {
+  using T = compute_t<S>;
   __shared__ __align__(16) T wrow[2][kBlockWarpsMax][kRegV];  // each warp's winner, by turns
   __shared__ __align__(16) T wu[kBlockWarpsMax][kRegV];       // each warp's copy of the terms
   __shared__ WarpKeys wkeys;
@@ -418,7 +435,7 @@ lu_panel_block_kernel(const T* __restrict__ in, int64_t ld_in, int64_t bs_in,
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
   const int64_t b = blockIdx.x;
-  const T* src = in + b * bs_in;
+  const S* src = in + b * bs_in;
   const bool vec = v == kRegV && aligned(src, ld_in);
 
   Rows<T, ROWS> rows;
@@ -459,7 +476,7 @@ lu_panel_block_kernel(const T* __restrict__ in, int64_t ld_in, int64_t bs_in,
     rows.rotate();
   }
 
-  T* Fb = F + b * R * v;
+  S* Fb = F + b * R * v;
   const int shift = final_shift(v);
 #pragma unroll
   for (int q = 0; q < ROWS; ++q) rows.store(q, Fb, v, shift);
@@ -504,11 +521,13 @@ __device__ __forceinline__ uint32_t slot_word(const T* row, int r, int k0, const
 // One panel over a cooperative grid of nblocks <= kGridMaxBlocks blocks of
 // kGridThreads; block b holds rows [b * RPB, (b + 1) * RPB) with RPB =
 // kGridThreads * ROWS, thread t of it rows b * RPB + q * kGridThreads + t.
-template <typename T, int ROWS>
+template <typename St, int ROWS>
 __global__ void __launch_bounds__(kGridThreads, 1)
-lu_panel_grid_kernel(const T* __restrict__ in, int64_t ld_in, const T* __restrict__ weights,
-                     T* __restrict__ F, int R, int v, int* __restrict__ order,
-                     unsigned char* __restrict__ ok, unsigned char* scratch) {
+lu_panel_grid_kernel(const St* __restrict__ in, int64_t ld_in,
+                     const compute_t<St>* __restrict__ weights, St* __restrict__ F, int R, int v,
+                     int* __restrict__ order, unsigned char* __restrict__ ok,
+                     unsigned char* scratch) {
+  using T = compute_t<St>;
   using S = Slot<T>;
   constexpr int kRowsPerBlock = kGridThreads * ROWS;
   __shared__ __align__(16) T wrow[2][kGridWarps][kRegV];
@@ -702,10 +721,14 @@ __device__ __forceinline__ void grid_barrier(unsigned int* bar, unsigned int nbl
   __syncthreads();
 }
 
-template <typename T>
+// W: the rows as they are updated, [R, v] of the compute type: F itself
+// when S is the compute type, else a work buffer converted into F at the end.
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-lu_panel_kernel(const T* __restrict__ in, int64_t ld_in, const T* __restrict__ weights, T* F,
-                int R, int v, int* order, unsigned char* ok, unsigned char* scratch) {
+lu_panel_kernel(const S* __restrict__ in, int64_t ld_in, const compute_t<S>* __restrict__ weights,
+                compute_t<S>* W, S* F, int R, int v, int* order, unsigned char* ok,
+                unsigned char* scratch) {
+  using T = compute_t<S>;
   __shared__ WarpKeys red;
   __shared__ T prow[kMaxV];
   __shared__ int piv[kMaxV];
@@ -734,17 +757,17 @@ lu_panel_kernel(const T* __restrict__ in, int64_t ld_in, const T* __restrict__ w
     }
     if (best.idx != INT_MAX && tid < v)
       part_row[(static_cast<size_t>(nbuf) * kMaxBlocks + blockIdx.x) * kMaxV + tid] =
-          F[static_cast<int64_t>(best.idx) * v + tid];
+          W[static_cast<int64_t>(best.idx) * v + tid];
   };
 
   // Copy this block's rows and form the candidates for column 0.  Row i is
   // always handled by warp (i - r0) % kWarps, each lane on its own columns.
   Key best = no_key();
   for (int i = r0 + warp; i < r1; i += kWarps) {
-    const T* src = in + static_cast<int64_t>(i) * ld_in;
-    T* row = F + static_cast<int64_t>(i) * v;
-    for (int j = lane; j < v; j += kWarp) row[j] = src[j];
-    const Key c = key_of(mul_rn(fabs(src[0]), weights[i]), i);
+    const S* src = in + static_cast<int64_t>(i) * ld_in;
+    T* row = W + static_cast<int64_t>(i) * v;
+    for (int j = lane; j < v; j += kWarp) row[j] = widen(src[j]);
+    const Key c = key_of(mul_rn(fabs(widen(src[0])), weights[i]), i);
     if (key_beats(c, best)) best = c;
   }
   publish(best, 0);
@@ -779,18 +802,29 @@ lu_panel_kernel(const T* __restrict__ in, int64_t ld_in, const T* __restrict__ w
     best = no_key();
     for (int i = r0 + warp; i < r1; i += kWarps) {
       const T wi = is_pivot(piv, k + 1, i, lane) ? T(0) : weights[i];
-      const Key c = literal_round(F + static_cast<int64_t>(i) * v, i, wi, prow, safe, k, v, lane);
+      const Key c = literal_round(W + static_cast<int64_t>(i) * v, i, wi, prow, safe, k, v, lane);
       if (key_beats(c, best)) best = c;
     }
     if (k + 1 < v) publish(best, (k + 1) & 1);
   }
+  if constexpr (sizeof(S) != sizeof(T)) {
+    // The block's own rows, each rounded once into F.
+    __syncthreads();
+    const int64_t n0 = static_cast<int64_t>(r0) * v;
+    const int64_t n1 = static_cast<int64_t>(r1) * v;
+    for (int64_t idx = n0 + tid; idx < n1; idx += kThreads) F[idx] = narrow<S>(W[idx]);
+  }
 }
 
-template <typename T>
+// W: the panels in device memory as they are updated, [B, R, v] of the
+// compute type, when they are not kept in shared memory: F itself when S is
+// the compute type, else a work buffer.
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-lu_panel_batched_kernel(const T* __restrict__ in, int64_t ld_in, int64_t bs_in,
-                        const T* __restrict__ weights, T* F, int R, int v, int* order,
-                        unsigned char* ok, int in_shared) {
+lu_panel_batched_kernel(const S* __restrict__ in, int64_t ld_in, int64_t bs_in,
+                        const compute_t<S>* __restrict__ weights, compute_t<S>* W, S* F, int R,
+                        int v, int* order, unsigned char* ok, int in_shared) {
+  using T = compute_t<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ WarpKeys red;
   __shared__ T prow[kMaxV];
@@ -800,11 +834,11 @@ lu_panel_batched_kernel(const T* __restrict__ in, int64_t ld_in, int64_t bs_in,
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
   const int64_t b = blockIdx.x;
-  const T* src_b = in + b * bs_in;
+  const S* src_b = in + b * bs_in;
   const T* wg = weights + b * R;
-  T* Fg = F + b * R * v;
-  // The working panel: shared memory, or the output itself.
-  T* Fw = in_shared ? reinterpret_cast<T*>(smem_raw) : Fg;
+  S* Fg = F + b * R * v;
+  // The working panel: shared memory, or W.
+  T* Fw = in_shared ? reinterpret_cast<T*>(smem_raw) : W + b * R * v;
   int* order_b = order + b * v;
   unsigned char* ok_b = ok + b * v;
 
@@ -812,10 +846,10 @@ lu_panel_batched_kernel(const T* __restrict__ in, int64_t ld_in, int64_t bs_in,
   // handled by warp i % kWarps, each lane on its own columns.
   Key best = no_key();
   for (int i = warp; i < R; i += kWarps) {
-    const T* src = src_b + static_cast<int64_t>(i) * ld_in;
+    const S* src = src_b + static_cast<int64_t>(i) * ld_in;
     T* row = Fw + static_cast<int64_t>(i) * v;
-    for (int j = lane; j < v; j += kWarp) row[j] = src[j];
-    const Key c = key_of(mul_rn(fabs(src[0]), wg[i]), i);
+    for (int j = lane; j < v; j += kWarp) row[j] = widen(src[j]);
+    const Key c = key_of(mul_rn(fabs(widen(src[0])), wg[i]), i);
     if (key_beats(c, best)) best = c;
   }
 
@@ -843,10 +877,10 @@ lu_panel_batched_kernel(const T* __restrict__ in, int64_t ld_in, int64_t bs_in,
     }
   }
 
-  if (in_shared) {
+  if (in_shared || sizeof(S) != sizeof(T)) {
     __syncthreads();
     const int64_t n = static_cast<int64_t>(R) * v;
-    for (int64_t idx = tid; idx < n; idx += kThreads) Fg[idx] = Fw[idx];
+    for (int64_t idx = tid; idx < n; idx += kThreads) Fg[idx] = narrow<S>(Fw[idx]);
   }
 }
 
@@ -872,53 +906,65 @@ int block_rows(int R) {
   return R <= kBlockThreads<T> / 2 ? 1 : (R <= 2 * kBlockThreads<T> ? 2 : 0);
 }
 
-template <typename T>
+// The generic bodies update rows in device memory of the compute type: F
+// itself, or, for 2-byte storage, the caller's work buffer (refused if
+// missing).
+template <typename S>
+compute_t<S>* work_rows(void* F, void* work) {
+  return sizeof(S) == sizeof(compute_t<S>) ? static_cast<compute_t<S>*>(F)
+                                           : static_cast<compute_t<S>*>(work);
+}
+
+template <typename S>
 int launch_block(const void* in, long long ld_in, long long bs_in, const void* weights,
                  void* F, int B, int R, int v, void* order, void* ok, cudaStream_t s) {
+  using T = compute_t<S>;
   const int rpt = block_rows<T>(R);
   const int nt = ((R + rpt - 1) / rpt + kWarp - 1) / kWarp * kWarp;
-  const auto kernel = rpt == 1 ? lu_panel_block_kernel<T, 1> : lu_panel_block_kernel<T, 2>;
-  kernel<<<B, nt, 0, s>>>(static_cast<const T*>(in), ld_in, bs_in,
-                          static_cast<const T*>(weights), static_cast<T*>(F), R, v,
+  const auto kernel = rpt == 1 ? lu_panel_block_kernel<S, 1> : lu_panel_block_kernel<S, 2>;
+  kernel<<<B, nt, 0, s>>>(static_cast<const S*>(in), ld_in, bs_in,
+                          static_cast<const T*>(weights), static_cast<S*>(F), R, v,
                           static_cast<int*>(order), static_cast<unsigned char*>(ok));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int ROWS>
+template <typename S, int ROWS>
 int launch_grid(const void* in, long long ld_in, const void* weights, void* F, int R, int v,
                 void* order, void* ok, void* scratch, cudaStream_t s) {
-  const T* in_t = static_cast<const T*>(in);
+  const S* in_t = static_cast<const S*>(in);
   int64_t ld = ld_in;
-  const T* w_t = static_cast<const T*>(weights);
-  T* F_t = static_cast<T*>(F);
+  const compute_t<S>* w_t = static_cast<const compute_t<S>*>(weights);
+  S* F_t = static_cast<S*>(F);
   int* order_t = static_cast<int*>(order);
   unsigned char* ok_t = static_cast<unsigned char*>(ok);
   unsigned char* scratch_t = static_cast<unsigned char*>(scratch);
   void* args[] = {&in_t, &ld, &w_t, &F_t, &R, &v, &order_t, &ok_t, &scratch_t};
   const int nblocks = (R + kGridThreads * ROWS - 1) / (kGridThreads * ROWS);
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(lu_panel_grid_kernel<T, ROWS>), dim3(nblocks),
+      reinterpret_cast<void*>(lu_panel_grid_kernel<S, ROWS>), dim3(nblocks),
       dim3(kGridThreads), args, 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_generic(const void* in, long long ld_in, const void* weights, void* F, int R, int v,
-                   void* order, void* ok, void* scratch, int sms, cudaStream_t s) {
+template <typename S>
+int launch_generic(const void* in, long long ld_in, const void* weights, void* work, void* F,
+                   int R, int v, void* order, void* ok, void* scratch, int sms, cudaStream_t s) {
   int nblocks = (R + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
   nblocks = nblocks < sms ? nblocks : sms;
   nblocks = nblocks < kMaxBlocks ? nblocks : kMaxBlocks;
-  const T* in_t = static_cast<const T*>(in);
+  const S* in_t = static_cast<const S*>(in);
   int64_t ld = ld_in;
-  const T* w_t = static_cast<const T*>(weights);
-  T* F_t = static_cast<T*>(F);
+  const compute_t<S>* w_t = static_cast<const compute_t<S>*>(weights);
+  compute_t<S>* W_t = work_rows<S>(F, work);
+  if (W_t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  S* F_t = static_cast<S*>(F);
   int* order_t = static_cast<int*>(order);
   unsigned char* ok_t = static_cast<unsigned char*>(ok);
   unsigned char* scratch_t = static_cast<unsigned char*>(scratch);
-  void* args[] = {&in_t, &ld, &w_t, &F_t, &R, &v, &order_t, &ok_t, &scratch_t};
+  void* args[] = {&in_t, &ld, &w_t, &W_t, &F_t, &R, &v, &order_t, &ok_t, &scratch_t};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(lu_panel_kernel<T>), dim3(nblocks), dim3(kThreads), args, 0, s);
+      reinterpret_cast<void*>(lu_panel_kernel<S>), dim3(nblocks), dim3(kThreads), args, 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -926,33 +972,36 @@ int launch_generic(const void* in, long long ld_in, const void* weights, void* F
 // The single panel: the one-block body while the rows fit it, then the grid
 // body with the fewest rows a thread that fit one block per SM, then the
 // generic body.
-template <typename T>
-int launch(const void* in, long long ld_in, const void* weights, void* F, int R, int v,
-           void* order, void* ok, void* scratch, void* stream) {
+template <typename S>
+int launch(const void* in, long long ld_in, const void* weights, void* work, void* F, int R,
+           int v, void* order, void* ok, void* scratch, void* stream) {
+  using T = compute_t<S>;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (v <= kRegV && block_rows<T>(R) > 0)
-    return launch_block<T>(in, ld_in, 0, weights, F, 1, R, v, order, ok, s);
+    return launch_block<S>(in, ld_in, 0, weights, F, 1, R, v, order, ok, s);
   int sms = 0;
   const int err = sm_count(&sms);
   if (err != 0) return err;
   const int64_t slots = sms < kGridMaxBlocks ? sms : kGridMaxBlocks;
   if (v <= kRegV) {
     if (R <= slots * kGridThreads)
-      return launch_grid<T, 1>(in, ld_in, weights, F, R, v, order, ok, scratch, s);
+      return launch_grid<S, 1>(in, ld_in, weights, F, R, v, order, ok, scratch, s);
     if (R <= slots * kGridThreads * 2)
-      return launch_grid<T, 2>(in, ld_in, weights, F, R, v, order, ok, scratch, s);
+      return launch_grid<S, 2>(in, ld_in, weights, F, R, v, order, ok, scratch, s);
     if (kGridRowsMax<T> == 4 && R <= slots * kGridThreads * 4)
-      return launch_grid<T, kGridRowsMax<T>>(in, ld_in, weights, F, R, v, order, ok, scratch, s);
+      return launch_grid<S, kGridRowsMax<T>>(in, ld_in, weights, F, R, v, order, ok, scratch, s);
   }
-  return launch_generic<T>(in, ld_in, weights, F, R, v, order, ok, scratch, sms, s);
+  return launch_generic<S>(in, ld_in, weights, work, F, R, v, order, ok, scratch, sms, s);
 }
 
-template <typename T>
+template <typename S>
 int launch_batched(const void* in, long long ld_in, long long bs_in, const void* weights,
-                   void* F, int B, int R, int v, void* order, void* ok, void* stream) {
+                   void* work, void* F, int B, int R, int v, void* order, void* ok,
+                   void* stream) {
+  using T = compute_t<S>;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (v <= kRegV && block_rows<T>(R) > 0)
-    return launch_block<T>(in, ld_in, bs_in, weights, F, B, R, v, order, ok, s);
+    return launch_block<S>(in, ld_in, bs_in, weights, F, B, R, v, order, ok, s);
   // The device's whole opt-in budget, raised once per device.
   static OncePerDevice<size_t> limit;
   size_t budget = 0;
@@ -960,19 +1009,21 @@ int launch_batched(const void* in, long long ld_in, long long bs_in, const void*
     int optin = 0;
     cudaFuncAttributes attr;
     cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, lu_panel_batched_kernel<T>);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, lu_panel_batched_kernel<S>);
     if (e != cudaSuccess) return e;
     *out = static_cast<size_t>(optin) - attr.sharedSizeBytes;
-    return cudaFuncSetAttribute(lu_panel_batched_kernel<T>,
+    return cudaFuncSetAttribute(lu_panel_batched_kernel<S>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*out));
   }, &budget);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t need = static_cast<size_t>(R) * v * sizeof(T);
   const int in_shared = need <= budget ? 1 : 0;
-  lu_panel_batched_kernel<T><<<B, kThreads, in_shared ? need : 0, s>>>(
-      static_cast<const T*>(in), ld_in, bs_in, static_cast<const T*>(weights),
-      static_cast<T*>(F), R, v, static_cast<int*>(order), static_cast<unsigned char*>(ok),
+  T* W = work_rows<S>(F, work);
+  if (!in_shared && W == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  lu_panel_batched_kernel<S><<<B, kThreads, in_shared ? need : 0, s>>>(
+      static_cast<const S*>(in), ld_in, bs_in, static_cast<const T*>(weights), W,
+      static_cast<S*>(F), R, v, static_cast<int*>(order), static_cast<unsigned char*>(ok),
       in_shared);
   return static_cast<int>(cudaGetLastError());
 }
@@ -983,35 +1034,41 @@ int launch_batched(const void* in, long long ld_in, long long bs_in, const void*
 extern "C" int lu_panel_scratch_bytes() { return static_cast<int>(kScratchBytes); }
 
 // in: [R, v] panel with row stride ld_in (unit column stride); weights: [R]
-// contiguous, of the panel's type, read only; F: [R, v] contiguous output;
-// order: [v] int32; ok: [v] bool; scratch: lu_panel_scratch_bytes() bytes,
+// contiguous, of the compute type (f32 for a bf16 or f16 panel), read only;
+// work: [R, v] of the compute type for the generic body with a bf16 or f16
+// panel (v > 32 or more rows than the register bodies hold), else unused
+// and may be null; F: [R, v] contiguous output of the panel's type; order:
+// [v] int32; ok: [v] bool; scratch: lu_panel_scratch_bytes() bytes,
 // zero-filled when allocated and used by one stream only.  1 <= v <= 128.
 // Returns the cudaError_t of the launch.
-extern "C" int lu_panel_f32(const void* in, long long ld_in, const void* weights, void* F,
-                            int R, int v, void* order, void* ok, void* scratch, void* stream) {
-  return launch<float>(in, ld_in, weights, F, R, v, order, ok, scratch, stream);
-}
-
-extern "C" int lu_panel_f64(const void* in, long long ld_in, const void* weights, void* F,
-                            int R, int v, void* order, void* ok, void* scratch, void* stream) {
-  return launch<double>(in, ld_in, weights, F, R, v, order, ok, scratch, stream);
-}
+#define LU_PANEL_ENTRY(suffix, S)                                                           \
+  extern "C" int lu_panel_##suffix(const void* in, long long ld_in, const void* weights,    \
+                                   void* work, void* F, int R, int v, void* order, void* ok, \
+                                   void* scratch, void* stream) {                          \
+    return launch<S>(in, ld_in, weights, work, F, R, v, order, ok, scratch, stream);       \
+  }
+LU_PANEL_ENTRY(f32, float)
+LU_PANEL_ENTRY(f64, double)
+LU_PANEL_ENTRY(bf16, __nv_bfloat16)
+LU_PANEL_ENTRY(f16, __half)
 
 // in: B panels [R, v], row stride ld_in and batch stride bs_in (unit column
-// stride); weights: [B, R] contiguous, read only; F: [B, R, v] contiguous
-// output; order: [B, v] int32; ok: [B, v] bool.  1 <= v <= 128, B >= 1.
-// Returns the cudaError_t of the launch.
-extern "C" int lu_panel_batched_f32(const void* in, long long ld_in, long long bs_in,
-                                    const void* weights, void* F, int B, int R, int v,
-                                    void* order, void* ok, void* stream) {
-  return launch_batched<float>(in, ld_in, bs_in, weights, F, B, R, v, order, ok, stream);
-}
-
-extern "C" int lu_panel_batched_f64(const void* in, long long ld_in, long long bs_in,
-                                    const void* weights, void* F, int B, int R, int v,
-                                    void* order, void* ok, void* stream) {
-  return launch_batched<double>(in, ld_in, bs_in, weights, F, B, R, v, order, ok, stream);
-}
+// stride); weights: [B, R] contiguous, of the compute type, read only;
+// work: [B, R, v] of the compute type for the generic body with a bf16 or
+// f16 panel (v > 32 or R > 1024), else unused and may be null; F: [B, R, v]
+// contiguous output; order: [B, v] int32; ok: [B, v] bool.  1 <= v <= 128,
+// B >= 1.  Returns the cudaError_t of the launch.
+#define LU_PANEL_BATCHED_ENTRY(suffix, S)                                                     \
+  extern "C" int lu_panel_batched_##suffix(const void* in, long long ld_in, long long bs_in,  \
+                                           const void* weights, void* work, void* F, int B,   \
+                                           int R, int v, void* order, void* ok,               \
+                                           void* stream) {                                    \
+    return launch_batched<S>(in, ld_in, bs_in, weights, work, F, B, R, v, order, ok, stream); \
+  }
+LU_PANEL_BATCHED_ENTRY(f32, float)
+LU_PANEL_BATCHED_ENTRY(f64, double)
+LU_PANEL_BATCHED_ENTRY(bf16, __nv_bfloat16)
+LU_PANEL_BATCHED_ENTRY(f16, __half)
 
 extern "C" const char* lu_panel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

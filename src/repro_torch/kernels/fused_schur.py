@@ -9,6 +9,11 @@ tensor launches the kernel or raises.  `fused_trsm_schur.launches` and
 `fused_trsm_schur_batched.launches` count the launches, and `.mode` says
 whether the last launch took the kernel's TMA stream ("tma") or its plain
 loads ("plain").
+
+bf16 and f16 operands have entry points of their own, which always take the
+plain loads: they widen every value to f32 as they load it, solve U01 and
+form A - L10 @ U01 in f32, and round each result once where they store it,
+as the plain version does.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from repro_torch.kernels import _build, ref
 MAX_V = 128  # the plain loads' solve keeps a column of U01 in each thread
 MAX_BC = 128
 MAX_GRID_YZ = 65535
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 _ARGTYPES = (
     *(ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) * 6,
     *(ctypes.c_int,) * 5,
@@ -64,8 +70,7 @@ def _check(name: str, A, L00, R01, L10, bm: int, bc: int) -> None:
         raise ValueError(f"{name}: the kernel needs CUDA tensors, got {A.device}")
     if A.dtype not in _SUFFIX:
         raise TypeError(
-            f"{name}: the kernel takes float32 or float64, got {A.dtype} "
-            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+            f"{name}: the kernel takes float32, float64, bfloat16 or float16, got {A.dtype}"
         )
     for arg, t in (("L00", L00), ("R01", R01), ("L10", L10)):
         if t.device != A.device or t.dtype != A.dtype:

@@ -4,8 +4,16 @@ Ports of `repro/kernels/lu_panel.py::lu_panel` and `::lu_panel_batched`.  A
 CPU tensor goes to the plain version (`repro_torch.kernels.ref.lu_panel` /
 `.lu_panel_batched`); a CUDA tensor launches the kernel or raises.  Each call
 is one launch: the kernel reads `weights` as given (converted only when its
-dtype or layout differs from the panel's) and keeps the pivot mask on chip.
+dtype or layout differs from the panel's compute dtype) and keeps the pivot
+mask on chip.
 `lu_panel.launches` and `lu_panel_batched.launches` count the launches.
+
+bf16 and f16 panels have entry points of their own: the kernel widens each
+value to f32 as it loads it, runs the f32 rounds, and rounds F once as it
+stores it, as the plain version does (`ref.lu_panel` upcasts and rounds
+back).  Their weights are read in f32, and the generic bodies (v > 32, or
+more rows than the register bodies hold) update their rows in an f32 work
+buffer that the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -20,16 +28,21 @@ from repro_torch.kernels import _build, ref
 
 MAX_V = 128  # the generic bodies' shared pivot-row buffer
 MAX_ROWS = 2**31 - 1  # row indices are int32
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
+# The register bodies take v <= 32 and up to REG_ROWS rows of one system
+# without a work buffer (and a single panel up to 132 * 1024 rows on an
+# H100); a bf16 or f16 call that may go past them passes one.
+REG_V, REG_ROWS = 32, 1024
 _ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p,
 )
 _BATCHED_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
 )
 # The single-panel kernel's scratch (its cross-block slots and epoch), one
 # zero-filled buffer per (device, stream): launches on one stream run in
@@ -84,15 +97,24 @@ def _check(name: str, panel: torch.Tensor, weights: torch.Tensor, ndim: int) -> 
         raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {panel.device}")
     if panel.dtype not in _SUFFIX:
         raise TypeError(
-            f"{name}: the kernel takes float32 or float64, got {panel.dtype} "
-            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+            f"{name}: the kernel takes float32, float64, bfloat16 or float16, got {panel.dtype}"
         )
 
 
-def _weights(weights: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The weights as the kernel reads them: the panel's dtype, contiguous
-    (no copy, and no launch, when they already are)."""
-    return weights.to(dtype).contiguous()
+def _weights(weights: torch.Tensor, panel: torch.Tensor) -> torch.Tensor:
+    """The weights as the kernel reads them: the panel's compute dtype (f32
+    for a bf16 or f16 panel), contiguous (no copy, and no launch, when they
+    already are)."""
+    return weights.to(ref._work_dtype(panel)).contiguous()
+
+
+def _work(shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor | None:
+    """The f32 work buffer of a bf16 or f16 call that may reach a generic
+    body; None where the kernel needs none."""
+    R, v = shape[-2:]
+    if dtype.itemsize >= 4 or (v <= REG_V and R <= REG_ROWS):
+        return None
+    return torch.empty(shape, dtype=torch.float32, device=device)
 
 
 def lu_panel(panel: torch.Tensor, weights: torch.Tensor):
@@ -106,14 +128,16 @@ def lu_panel(panel: torch.Tensor, weights: torch.Tensor):
         return ref.lu_panel(panel, weights)
     _check("lu_panel", panel, weights, 2)
     R, v = panel.shape
-    w = _weights(weights, panel.dtype)
+    w = _weights(weights, panel)
     F = torch.empty((R, v), dtype=panel.dtype, device=panel.device)
     order = torch.empty(v, dtype=torch.int32, device=panel.device)
     ok = torch.empty(v, dtype=torch.bool, device=panel.device)
+    work = _work((R, v), panel.dtype, panel.device)
     scratch = _scratch_for(panel.device)
     _build.launch("lu_panel", _entry(f"lu_panel_{_SUFFIX[panel.dtype]}", _ARGTYPES),
                   panel.device, panel.data_ptr(), panel.stride(0), w.data_ptr(),
-                  F.data_ptr(), R, v, order.data_ptr(), ok.data_ptr(), scratch.data_ptr())
+                  None if work is None else work.data_ptr(), F.data_ptr(), R, v,
+                  order.data_ptr(), ok.data_ptr(), scratch.data_ptr())
     lu_panel.launches += 1
     return F, order, ok
 
@@ -137,11 +161,13 @@ def lu_panel_batched(panel: torch.Tensor, weights: torch.Tensor):
     ok = torch.empty((B, v), dtype=torch.bool, device=panel.device)
     if B == 0:
         return F, order, ok
-    w = _weights(weights, panel.dtype)
+    w = _weights(weights, panel)
+    work = _work((B, R, v), panel.dtype, panel.device)
     _build.launch("lu_panel",
                   _entry(f"lu_panel_batched_{_SUFFIX[panel.dtype]}", _BATCHED_ARGTYPES),
                   panel.device, panel.data_ptr(), panel.stride(1), panel.stride(0),
-                  w.data_ptr(), F.data_ptr(), B, R, v, order.data_ptr(), ok.data_ptr())
+                  w.data_ptr(), None if work is None else work.data_ptr(), F.data_ptr(), B,
+                  R, v, order.data_ptr(), ok.data_ptr())
     lu_panel_batched.launches += 1
     return F, order, ok
 

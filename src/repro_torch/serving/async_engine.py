@@ -40,8 +40,9 @@ timing-flake-free).
 
 Threads: the executor flushes from its own thread and a spill solves in the
 submitter's thread; both launch on PyTorch's current stream of the engine's
-device.  Per-request refinement (`refine_tol`) is not ported yet
-(ROADMAP.md module item 7) and raises at submit, never inside a batch.
+device.  Per-request refinement (`refine_tol`) rides the request through
+the batch slots (or the spill) and resolves the future to the refined
+solution in the working dtype.
 """
 
 from __future__ import annotations
@@ -199,8 +200,11 @@ class AsyncSolveEngine:
         pending for this tenant the overload policy applies: "shed" raises
         `Overloaded`, "spill" solves inline and returns a completed future.
 
-        `refine_tol` is not ported yet (ROADMAP.md module item 7): it raises
-        here, before the request reaches a queue.
+        `refine_tol` rides the request through the batch slots: the flush
+        runs per-request iterative refinement on the lanes that asked for it
+        (see `SolveEngine.submit_system`), and the future resolves to the
+        refined, working-precision solution.  A bad tolerance raises here,
+        before the request reaches a queue.
         """
         prep = self._engine._prepare_system(  # eager validation
             A, b, refine_tol, max_refine_iters)
@@ -268,7 +272,11 @@ class AsyncSolveEngine:
         cfg = self._engine.config.with_(strategy=self._engine._sequential_strategy(),
                                         grid=None, B=None)
         fact = plan(prep.slotN, cfg, device=self._engine.device).execute(prep.A)
-        x = fact.solve(prep.b)
+        if prep.refine_tol is not None:
+            x = fact.solve(prep.b, refine_tol=prep.refine_tol,
+                           max_refine_iters=prep.max_refine_iters).x
+        else:
+            x = fact.solve(prep.b)
         self._engine._sync()
         return x[:prep.n]
 

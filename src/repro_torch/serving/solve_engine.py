@@ -47,10 +47,15 @@ SPD traffic runs on a Cholesky engine: `SolveEngine(N,
 strategy="sequential_chol")` factors every bucket with the batched blocked
 Cholesky (identity padding keeps each padded system SPD).
 
-Not ported yet: per-request iterative refinement (`refine_tol`, ROADMAP.md
-module item 7), which raises at submit, and engines on the distributed
-strategies (item 8, serving on distributed strategies), which raise at
-construction.
+Mixed precision: an engine on a `compute_dtype` plan factors every bucket
+in the compute dtype, and `submit_system(A, b, refine_tol=...)` asks for
+per-request iterative refinement against the request's working-precision
+system.  The bucket still factorizes and solves as one batch; then the
+lanes that asked run one batched refinement with per-lane tolerances.
+Lanes that did not ask keep the plain solve, bit for bit.
+
+Not ported yet: engines on the distributed strategies (item 8, serving on
+distributed strategies), which raise at construction.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ import torch
 
 from repro_torch.api import Factorization, SolverConfig, plan, plan_cache_stats, resolve
 from repro_torch.api.config import dtype_name, resolve_dtype
+from repro_torch.api.result import _solve_dtype
 from repro_torch.device import resolve_device
 
 # Floor for the ragged-N power-of-two slot: below this the per-request
@@ -98,12 +104,18 @@ class _PreparedSystem(NamedTuple):
     blocks vanish, so padding never perturbs the leading block's factors or
     pivots); b is [slotN] with a zero tail, so the padded solution's tail is
     zero and `x[:n]` is the exact solution of the original system.
+
+    refine_tol is the per-request iterative-refinement tolerance (None =
+    the plain solve); the identity tail keeps refinement exact too, since
+    the padded rows' residuals are identically zero.
     """
 
     A: torch.Tensor
     b: torch.Tensor
     n: int
     slotN: int
+    refine_tol: float | None = None
+    max_refine_iters: int = 25
 
 
 class SolveEngine:
@@ -111,9 +123,11 @@ class SolveEngine:
 
     `device=None` is the CUDA card (raises when there is none); pass
     `device="cpu"` for the plain PyTorch versions on the CPU.  `overrides`
-    are SolverConfig fields.  The plan is resolved here, so a config the
-    port cannot serve yet (a distributed strategy, `compute_dtype`) raises at
-    construction, naming its ROADMAP.md item.
+    are SolverConfig fields; a `compute_dtype` plan is served in that dtype,
+    with per-request refinement on demand.  The plan is resolved here, so a
+    config the port cannot serve yet (a distributed strategy, a compute
+    dtype without kernels for the engine's strategy) raises at construction,
+    naming its ROADMAP.md item.
     """
 
     def __init__(self, N: int, config: SolverConfig | None = None, *, device=None,
@@ -145,6 +159,9 @@ class SolveEngine:
         self._n_batched_factor = 0  # batched factorizations (bucket flushes)
         self._n_batched_systems = 0  # systems that rode a batched factorization
         self._n_batch_pad = 0  # identity systems added to fill batch slots
+        self._n_refined = 0  # systems served with iterative refinement
+        self._n_refine_iters = 0  # refinement iterations across those
+        self._n_refine_nonconverged = 0  # refined systems that hit the cap
         self._cells_useful = 0  # sum of n^2 over real flushed systems
         self._cells_batched = 0  # sum of slotB * slotN^2 over bucket flushes
         self._t_factor = 0.0
@@ -260,17 +277,24 @@ class SolveEngine:
                         max_refine_iters: int = 25) -> _PreparedSystem:
         """Validate an (A, b) request and pad it into its power-of-two N slot.
 
-        Raises on malformed input (the eager-failure contract of
-        `submit_system`), and on `refine_tol`, which is not ported yet;
-        returns the padded CPU tensors plus the real size n, so both the
-        engine queue and the async tier's tenant queues hold ready-to-stack
-        requests.
+        Raises ValueError on malformed input (the eager-failure contract
+        of `submit_system`), a bad `refine_tol` or `max_refine_iters`
+        included; returns the padded CPU tensors plus the real size n, so
+        both the engine queue and the async tier's tenant queues hold
+        ready-to-stack requests.
         """
         if refine_tol is not None:
-            raise NotImplementedError(
-                "per-request refinement (refine_tol) is not ported yet: ROADMAP.md "
-                "module item 7 (mixed precision and refinement)"
-            )
+            refine_tol = float(refine_tol)
+            if not refine_tol > 0:
+                raise ValueError(
+                    f"refine_tol must be a positive relative-residual tolerance, "
+                    f"got {refine_tol!r}"
+                )
+            if (not isinstance(max_refine_iters, int) or isinstance(max_refine_iters, bool)
+                    or max_refine_iters < 0):
+                raise ValueError(
+                    f"max_refine_iters must be a non-negative int, got {max_refine_iters!r}"
+                )
         A = _real_host(A, f"submit_system takes a real matrix (plan computes in "
                           f"{self.config.dtype})")
         b = _real_host(b, f"submit_system takes a real RHS (plan computes in "
@@ -295,15 +319,15 @@ class SolveEngine:
             slotN = max(_next_pow2(n), MIN_N_SLOT, _next_pow2(self.config.v or 1))
             slotN = min(slotN, self.N)  # never exceed the engine's own size
         if slotN == n:
-            return _PreparedSystem(A.to(self._dtype, copy=True),
-                                   b.to(self._dtype, copy=True), n, slotN)
+            return _PreparedSystem(A.to(self._dtype, copy=True), b.to(self._dtype, copy=True),
+                                   n, slotN, refine_tol, max_refine_iters)
         Ap = torch.zeros((slotN, slotN), dtype=self._dtype)
         Ap[:n, :n] = A
         idx = torch.arange(n, slotN)
         Ap[idx, idx] = 1.0  # identity tail: trivially factorizable
         bp = torch.zeros(slotN, dtype=self._dtype)
         bp[:n] = b
-        return _PreparedSystem(Ap, bp, n, slotN)
+        return _PreparedSystem(Ap, bp, n, slotN, refine_tol, max_refine_iters)
 
     def submit_system(self, A, b, *, refine_tol: float | None = None,
                       max_refine_iters: int = 25) -> int:
@@ -314,8 +338,14 @@ class SolveEngine:
         slot, see `_prepare_system`).  Returns the ticket index into the
         list `flush_systems()` returns.  Both the matrix and the RHS are
         validated eagerly so a malformed request fails at submit time, not
-        inside a batch holding other requests hostage.  `refine_tol` is not
-        ported yet and raises here (ROADMAP.md module item 7).
+        inside a batch holding other requests hostage.
+
+        `refine_tol` asks for per-request iterative refinement: the bucket
+        still factorizes and solves as one batch, then the lanes that asked
+        run one batched refinement against their working-precision systems
+        (per-lane tolerances, the largest `max_refine_iters` of them as the
+        shared cap); lanes that did not ask keep the plain solve, bit for
+        bit.
         """
         return self._enqueue_prepared(
             self._prepare_system(A, b, refine_tol, max_refine_iters)
@@ -406,6 +436,7 @@ class SolveEngine:
                 buckets.setdefault(prep.slotN, []).append((i, prep))
             t0 = time.perf_counter()
             flushed = []  # (k, slotB, slotN) per bucket, applied on success
+            refined = []  # (systems, iters, nonconverged) per refining bucket
             for slotN, items in sorted(buckets.items()):
                 k = len(items)
                 slotB = self._slot(k)
@@ -417,9 +448,33 @@ class SolveEngine:
                 A[k:] = torch.eye(slotN, dtype=self._dtype)  # identity pad systems
                 bplan = self._batched_plan(slotB, slotN)
                 fact = bplan.execute(A.to(self.device))
-                X = fact.solve(rhs.to(self.device))
+                rhs = rhs.to(self.device)
+                # On a mixed-precision engine the plain solve returns its f32
+                # arithmetic: hand it the RHS in that dtype, since the
+                # downcast is the engine's contract (refine_tol is the
+                # per-request way back), not a caller's mistake to warn of.
+                mixed = fact.work_dtype != fact.dtype
+                X = fact.solve(rhs.to(_solve_dtype(fact.dtype)) if mixed else rhs)
                 for j, (i, prep) in enumerate(items):
                     results[i] = X[j, :prep.n]
+                # Second pass: refinement of the lanes that asked for it, as
+                # one batched refinement with per-lane tolerances.
+                ridx = [j for j, (_, prep) in enumerate(items) if prep.refine_tol is not None]
+                if ridx:
+                    sel = torch.tensor(ridx, device=self.device)
+                    sub = Factorization(
+                        F=fact.F[sel], rows=fact.rows[sel], strategy=fact.strategy,
+                        backend=fact.backend, kind=fact.kind, A_ref=fact.A_ref[sel],
+                        work_dtype=fact.work_dtype,
+                    )
+                    tols = [items[j][1].refine_tol for j in ridx]
+                    cap = max(items[j][1].max_refine_iters for j in ridx)
+                    rs = sub.solve(rhs[sel], refine_tol=tols, max_refine_iters=cap)
+                    for pos, j in enumerate(ridx):
+                        i, prep = items[j]
+                        results[i] = rs.x[pos, :prep.n]
+                    refined.append((len(ridx), int(rs.refinement_iters.sum()),
+                                    int((~rs.converged).sum())))
                 flushed.append((k, slotB, slotN))
             self._sync()
             self._t_batch += time.perf_counter() - t0
@@ -429,6 +484,10 @@ class SolveEngine:
                 self._n_batched_systems += k
                 self._n_batch_pad += slotB - k
                 self._cells_batched += slotB * slotN * slotN
+            for systems, iters, nonconverged in refined:
+                self._n_refined += systems
+                self._n_refine_iters += iters
+                self._n_refine_nonconverged += nonconverged
             self._cells_useful += sum(p.n * p.n for p in pending)
         return results
 
@@ -469,6 +528,9 @@ class SolveEngine:
                 "batched_factorizations": self._n_batched_factor,
                 "batched_systems": self._n_batched_systems,
                 "batch_pad_systems": self._n_batch_pad,
+                "refined_systems": self._n_refined,
+                "refine_iters_total": self._n_refine_iters,
+                "refine_nonconverged": self._n_refine_nonconverged,
                 # fraction of batched compute cells spent on padding (both
                 # the identity fill systems and the ragged-N identity tails)
                 "batch_pad_waste": round(waste, 6),

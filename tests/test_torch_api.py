@@ -123,8 +123,8 @@ def test_plan_without_device_targets_cuda():
     (dict(backend="pallas"), "'cuda'"),
     (dict(strategy="conflux", pivot="none"), "Cholesky-only"),
     (dict(B=4, strategy="cholesky25d"), "does not support batched plans"),
-    (dict(compute_dtype="bfloat16"), "item 7"),
-    (dict(dtype="float16"), "module item 7"),
+    (dict(strategy="sequential_chol", compute_dtype="bfloat16"), "item 7"),
+    (dict(strategy="sequential_chol", dtype="float16"), "module item 7"),
     (dict(v=256), "panel widths"),
     (dict(grid=GridConfig(2, 2, 1, 8, 64)), "needs 4 ranks but the process group has 1"),
 ])
@@ -136,8 +136,9 @@ def test_unported_or_unsupported_configs_raise(fields, match):
 def test_unported_results_and_primitives_raise():
     A, b = _system(64)
     fact = factor(A, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fact.solve(b, refine_tol=1e-6)
+    # refined solves are ported (ROADMAP.md module item 7); a bad cap raises
+    with pytest.raises(ValueError, match="max_refine_iters"):
+        fact.solve(b, refine_tol=1e-6, max_refine_iters=-1)
     with pytest.raises(ValueError, match="'lu' or 'cholesky'"):
         Factorization(F=fact.F, rows=fact.rows, kind="qr")
     chol = Factorization(F=torch.eye(8), rows=torch.arange(8), kind="cholesky")
@@ -173,6 +174,13 @@ def test_config_validation_and_cache_key():
                 dict(hotloop="x"), dict(B=0), dict(compute_dtype="float64")):
         with pytest.raises(ValueError):
             SolverConfig(**bad)
+    # bfloat16 is a compute dtype only, as in the JAX package (F3); float16
+    # stays a working dtype
+    with pytest.raises(ValueError, match="compute_dtype='bfloat16'"):
+        SolverConfig(dtype="bfloat16")
+    with pytest.raises(ValueError, match="compute_dtype='bfloat16'"):
+        SolverConfig(dtype=torch.bfloat16)
+    assert SolverConfig(dtype="float16").dtype == "float16"
 
 
 def test_interop_factors_solve_to_jax_solution():

@@ -508,8 +508,9 @@ def test_plan_chol_slogdet_det_reconstruct_unpack():
     np.testing.assert_allclose(L.numpy(), np.linalg.cholesky(A.astype(np.float64)),
                                atol=1e-5)
     assert "kind=cholesky" in fact.comm_report()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fact.solve(np.ones(64, np.float32), refine_tol=1e-6)
+    # refined solves are ported (ROADMAP.md module item 7)
+    rs = fact.solve(np.ones(64, np.float32), refine_tol=1e-6)
+    assert rs.converged and rs.final_residual <= 1e-6 and rs.x.dtype == torch.float32
 
 
 @pytest.mark.parametrize("backend", ["cuda", "ref"])

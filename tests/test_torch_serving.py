@@ -333,13 +333,17 @@ class TestCholeskyEngines:
 
 class TestUnportedRaise:
     def test_refine_tol_raises_at_submit_naming_item_7(self):
+        """Per-request refinement is ported (ROADMAP.md module item 7): a bad
+        tolerance or cap still raises at submit, before any queue."""
         eng = _engine()
-        with pytest.raises(NotImplementedError, match="item 7"):
-            eng.submit_system(*_sys(32), refine_tol=1e-6)
+        for bad in (dict(refine_tol=0.0), dict(refine_tol=-1e-6),
+                    dict(refine_tol=1e-6, max_refine_iters=-1)):
+            with pytest.raises(ValueError, match="refine_tol|max_refine_iters"):
+                eng.submit_system(*_sys(32), **bad)
         assert eng.stats()["pending_systems"] == 0
         a, _ = _fake_engine()
-        with pytest.raises(NotImplementedError, match="item 7"):
-            a.submit(*_sys(32), refine_tol=1e-6)
+        with pytest.raises(ValueError, match="refine_tol"):
+            a.submit(*_sys(32), refine_tol=0.0)
         assert a.stats()["async"]["pending"] == 0  # it never reached a batch
 
     @pytest.mark.parametrize("strategy", ["sequential_chol", "cholesky25d"])

@@ -15,9 +15,10 @@ the kept build:
   less the kept body's is the solve's cost).
 
 `--parent DIR` adds the library built from `DIR/fused_schur.cu` and DIR's
-headers, a body with the first ABI (tiles `bm`, `bc` before `unit`, no
-mode), as trees before the persistent body have it: unpack one with
-`git archive <commit> src/repro_torch/kernels/csrc | tar -x -C <dir>`.
+headers, called through the ABI its source declares: the first one (tiles
+`bm`, `bc` before `unit`, no mode) in trees before the persistent body, or
+the current one: unpack one with `git archive <commit>
+src/repro_torch/kernels/csrc | tar -x -C <dir>`.
 
 At each LU path's shape (the batched [256, 512, 512, 32] and the single
 [16384, 16384, 32], f32, unit, R01 zero before C // 3 and L10's top quarter
@@ -155,7 +156,7 @@ def main() -> int:
     calls = {}
     for name, lib in libs.items():
         fn = lib.fused_trsm_schur_f32
-        first_abi = name == "parent"
+        first_abi = name == "parent" and "int* mode" not in sources[name][0]
         fn.argtypes = list(PARENT_ARGTYPES if first_abi else fs._ARGTYPES)
         fn.restype = ctypes.c_int
         calls[name] = caller(fn, first_abi)
