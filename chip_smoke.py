@@ -29,6 +29,16 @@ each kernel against its plain PyTorch version on the card:
   refined to 1e-6; `plan((256, 512), compute_dtype=...)` with per-lane
   tolerances; the kernel path against the plain path at N = 128; both
   engines on a bf16 plan with half the requests refined;
+- mixed precision on the Cholesky kernels and the 2.5D schedules: the bf16
+  and f16 entry points of `chol_panel`, `trsm_right_upper`,
+  `trsm_left_lower` and `schur_update` (single and batched) at the paths'
+  shapes and their bodies' edges; `plan(N, strategy="sequential_chol",
+  compute_dtype=...)` in bf16 and f16 and `plan((256, 512), ...)` with
+  per-lane tolerances, refined to 1e-6; the kernel path against the plain
+  path at N = 128; both Cholesky engines on a bf16 plan; conflux (windowed
+  and flat) and cholesky25d on a 1x1x1 grid at N in bf16 (cholesky25d flat
+  in f16), refined; and bf16 conflux and cholesky25d on the eight gloo
+  ranks at N = 2048, kernel path against plain path;
 - the LM serving path at full width and depth, bf16, random weights from a
   seeded `torch.Generator` on the card: `ServeEngine` on qwen3-8b (36
   layers, kernel `flash_attention` once per layer of each prefill) and on
@@ -1211,16 +1221,24 @@ CHOL_BATCHED_KERNELS = ("chol_panel_batched", "trsm_right_upper_batched", "schur
 # partial pivoting makes one collective per column.
 CONFLUX_V = 32
 GRID_WORLD = 8
-GRID_CASES = (  # (name, strategy, N, hotloop, backend)
-    ("conflux_windowed", "conflux", 4096, "windowed", "cuda"),
-    ("conflux_flat", "conflux", 2048, "flat", "cuda"),
-    ("baseline2d", "baseline2d", 2048, "windowed", "cuda"),
-    ("cholesky25d_windowed", "cholesky25d", 2048, "windowed", "cuda"),
-    ("cholesky25d_flat", "cholesky25d", 2048, "flat", "cuda"),
-    ("conflux_windowed_1024", "conflux", 1024, "windowed", "cuda"),
-    ("conflux_windowed_1024_plain", "conflux", 1024, "windowed", "ref"),
-    ("conflux_flat_1024", "conflux", 1024, "flat", "cuda"),
-    ("conflux_flat_1024_plain", "conflux", 1024, "flat", "ref"),
+GRID_CASES = (  # (name, strategy, N, hotloop, backend, compute dtype)
+    ("conflux_windowed", "conflux", 4096, "windowed", "cuda", None),
+    ("conflux_flat", "conflux", 2048, "flat", "cuda", None),
+    ("baseline2d", "baseline2d", 2048, "windowed", "cuda", None),
+    ("cholesky25d_windowed", "cholesky25d", 2048, "windowed", "cuda", None),
+    ("cholesky25d_flat", "cholesky25d", 2048, "flat", "cuda", None),
+    ("conflux_windowed_1024", "conflux", 1024, "windowed", "cuda", None),
+    ("conflux_windowed_1024_plain", "conflux", 1024, "windowed", "ref", None),
+    ("conflux_flat_1024", "conflux", 1024, "flat", "cuda", None),
+    ("conflux_flat_1024_plain", "conflux", 1024, "flat", "ref", None),
+    # bf16 factors under f32, refined to MIXED_LOW_TOL, on both backends
+    # (each "_plain" case is compared with the kernel case before it); the
+    # LU on `well_conditioned`, whose pivot ids (up to 2047) bf16 cannot
+    # carry exactly (F5).
+    ("conflux_flat_bf16", "conflux", 2048, "flat", "cuda", "bfloat16"),
+    ("conflux_flat_bf16_plain", "conflux", 2048, "flat", "ref", "bfloat16"),
+    ("cholesky25d_flat_bf16", "cholesky25d", 2048, "flat", "cuda", "bfloat16"),
+    ("cholesky25d_flat_bf16_plain", "cholesky25d", 2048, "flat", "ref", "bfloat16"),
 )
 GRID_TIMEOUT_S = 420  # all ranks together, from spawn to exit
 
@@ -1443,12 +1461,14 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
     # host, and the schedules use no other collective.
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
                             world_size=GRID_WORLD)
-    out, meshes = {}, {}
+    out, meshes, kept = {}, {}, {}
     try:
-        for name, strategy, n, hotloop, backend in GRID_CASES:
+        for name, strategy, n, hotloop, backend, compute in GRID_CASES:
             gen = torch.Generator(device=dev).manual_seed(n)  # alike on every rank
             if strategy == "cholesky25d":
                 A = spd((n, n), gen, dev)
+            elif compute:
+                A = well_conditioned((n, n), gen, dev)
             else:
                 A = torch.randn(n, n, generator=gen, device=dev)
             b = torch.randn(n, generator=gen, device=dev)
@@ -1458,7 +1478,8 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
             if shape not in meshes:
                 meshes[shape] = make_lu_mesh(grid)
             p = plan(n, SolverConfig(strategy=strategy, grid=grid, hotloop=hotloop,
-                                     backend=backend), device=dev, mesh=meshes[shape])
+                                     backend=backend, compute_dtype=compute),
+                     device=dev, mesh=meshes[shape])
             dist.barrier()
             reset_launches()
             if cuda:
@@ -1469,15 +1490,30 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
                 torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches = {k: c for k, c in read_launches().items() if c}
-            x = fact.solve(b)
+            refined = fact.solve(b, refine_tol=MIXED_LOW_TOL) if compute else None
+            x = fact.solve(b) if refined is None else refined.x
+            bits = fact.F.cpu()
+            bits = bits.view(torch.int16) if bits.element_size() == 2 else bits
             out[name] = {
                 "wall_s": wall_s, "hpl_residual": hpl_residual(A, x, b),
-                "F": hashlib.sha256(fact.F.cpu().numpy().tobytes()).hexdigest(),
+                "F": hashlib.sha256(bits.numpy().tobytes()).hexdigest(),
                 "rows": hashlib.sha256(fact.rows.cpu().numpy().tobytes()).hexdigest(),
                 "rows_list": fact.rows.tolist() if n == 1024 else None,
                 "launches": launches, "comm_total": fact.comm["total"],
-                "grid": str(fact.grid), "kind": fact.kind,
+                "grid": str(fact.grid), "kind": fact.kind, "factor_dtype": str(fact.F.dtype),
+                "converged": None if refined is None else bool(refined.converged),
+                "refinement_iters": None if refined is None else refined.refinement_iters,
             }
+            if compute and backend == "cuda":
+                kept[name] = fact
+            elif compute:  # the plain path against the kernel path before it
+                k = kept.pop(name.removesuffix("_plain"))
+                diff = (k.rows != fact.rows).nonzero()
+                err = float((k.F.float() - fact.F.float()).abs().max())
+                out[name]["vs_kernel_path"] = {
+                    "first_pivot_difference": int(diff[0]) if len(diff) else None,
+                    "F_max_abs_err": err, "tol": mixed_path_tol(fact.F),
+                }
             del p, fact, x, A
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
@@ -1487,8 +1523,9 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
 def grid_8ranks(device: str = "cuda:0") -> None:
     """GRID_WORLD ranks share cuda:0 through gloo and run GRID_CASES; every
     rank must return the same F and rows with HPL < 16, and the kernel path
-    must pick the plain path's pivots at N = 1024.  A rank that fails or
-    outlives GRID_TIMEOUT_S fails the phase."""
+    must pick the plain path's pivots at N = 1024 and in bf16, where its F
+    must also lie within `mixed_path_tol` of the plain path's.  A rank that
+    fails or outlives GRID_TIMEOUT_S fails the phase."""
     import multiprocessing as mp
     import tempfile
 
@@ -1517,16 +1554,28 @@ def grid_8ranks(device: str = "cuda:0") -> None:
         ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
                  for r in range(GRID_WORLD)]
     problems = []
-    for name, strategy, n, hotloop, backend in GRID_CASES:
+    for name, strategy, n, hotloop, backend, compute in GRID_CASES:
         per = [r[name] for r in ranks]
         same = len({(x["F"], x["rows"]) for x in per}) == 1
         hpl = max(x["hpl_residual"] for x in per)
         emit("grid_8ranks", case=name, strategy=strategy, N=n, hotloop=hotloop,
-             backend=backend, grid=per[0]["grid"], wall_s=max(x["wall_s"] for x in per),
+             backend=backend, compute_dtype=compute, factor_dtype=per[0]["factor_dtype"],
+             grid=per[0]["grid"], wall_s=max(x["wall_s"] for x in per),
              hpl_residual_max=hpl, ranks_bit_identical=same,
+             converged=per[0]["converged"], refinement_iters=per[0]["refinement_iters"],
+             vs_kernel_path=per[0].get("vs_kernel_path"),
              comm_total=per[0]["comm_total"], launches_per_rank=[x["launches"] for x in per])
         if not (same and hpl < HPL_RESIDUAL_MAX):
             problems.append(f"{name}: ranks identical {same}, HPL {hpl}")
+        if compute and not all(x["converged"] for x in per):
+            problems.append(f"{name}: refinement to {MIXED_LOW_TOL} did not converge")
+        vs = per[0].get("vs_kernel_path")
+        if vs and vs["first_pivot_difference"] is not None:
+            problems.append(f"{name}: pivot {vs['first_pivot_difference']} differs from the "
+                            f"kernel path's")
+        if vs and not vs["F_max_abs_err"] <= vs["tol"]:
+            problems.append(f"{name}: the kernel path's F is {vs['F_max_abs_err']} from the "
+                            f"plain path's, over {vs['tol']}")
         if backend == "cuda" and hotloop == "flat":
             steps = n // CONFLUX_V
             if any(x["launches"].get("trsm_left_lower") != steps for x in per):
@@ -1833,6 +1882,11 @@ MIXED_SHORT = {torch.bfloat16: "bf16", torch.float16: "f16"}
 # over bf16 or f16 factors to 1e-6 on a well-conditioned matrix.
 MIXED_F64_TOL, MIXED_LOW_TOL = 1e-12, 1e-6
 MIXED_BATCH_TOLS = (1e-3, 1e-5, 1e-6)  # per-lane tolerances, in turns
+# The kernel and plain paths of a 2-byte factorization with equal pivots
+# part by the odd rounding that a sum in another order tips, carried by later
+# steps: at most half an ulp at max|F| in every reading on the H100 (N = 128
+# Cholesky, eight-rank N = 2048 conflux and cholesky25d, bf16 and f16).
+MIXED_PATH_ULPS = 2
 
 
 def storage_ulp(x: torch.Tensor, dt) -> torch.Tensor:
@@ -1845,28 +1899,42 @@ def storage_ulp(x: torch.Tensor, dt) -> torch.Tensor:
     return ulp.clamp_min(fi.tiny * fi.eps)
 
 
-def mixed_fused_check(out_k, U_k, out_p, U_p, dt) -> tuple[float, float, dict]:
+def mixed_path_tol(F: torch.Tensor) -> float:
+    """How far a 2-byte path's factors F may lie from another path's with
+    the same pivots: MIXED_PATH_ULPS ulps of F's dtype at max|F|."""
+    return MIXED_PATH_ULPS * float(storage_ulp(F.abs().max(), F.dtype))
+
+
+def mixed_kernel_check(out_k, out_p, dt, scale=None) -> tuple[float, float, dict]:
     """(max error over the entries finite in the plain version, the largest
-    error over its allowance, checks) for a 2-byte fused call: each entry
-    within one ulp of `dt` at the larger of the two values plus
-    FUSED_REL_TOL of the scale, NaN and inf at the plain version's places."""
+    error over its allowance, checks) for a 2-byte kernel's result: each
+    entry within one ulp of `dt` at the larger of the two values plus
+    FUSED_REL_TOL of the scale (the result's largest finite magnitude unless
+    given), NaN and inf at the plain version's places."""
+    fin = torch.isfinite(out_p)
+    err, ratio = 0.0, 0.0
+    if bool(fin.any()):
+        kf, pf = out_k.float()[fin], out_p.float()[fin]
+        scale = float(pf.abs().max()) if scale is None else scale
+        diff = (kf - pf).abs()
+        allowed = storage_ulp(torch.maximum(kf.abs(), pf.abs()), dt) + FUSED_REL_TOL * scale
+        err, ratio = float(diff.max()), float((diff / allowed).max())
+    return err, ratio, {"within_tol": ratio <= 1.0,
+                        "nan_as_plain": torch.equal(out_k.isnan(), out_p.isnan()),
+                        "inf_as_plain": torch.equal(out_k.isinf(), out_p.isinf())}
+
+
+def mixed_fused_check(out_k, U_k, out_p, U_p, dt) -> tuple[float, float, dict]:
+    """`mixed_kernel_check` of a 2-byte fused call's two results, on the
+    scale of both, and U01's NaN at the plain version's places."""
     finite_o = torch.isfinite(out_p)
     scale = max(float(out_p[finite_o].float().abs().max()) if bool(finite_o.any()) else 0.0,
                 float(U_p.float().abs().max()))
-    err, ratio = 0.0, 0.0
-    for k, p in ((out_k, out_p), (U_k, U_p)):
-        fin = torch.isfinite(p)
-        if not bool(fin.any()):
-            continue
-        kf, pf = k.float()[fin], p.float()[fin]
-        diff = (kf - pf).abs()
-        allowed = storage_ulp(torch.maximum(kf.abs(), pf.abs()), dt) + FUSED_REL_TOL * scale
-        err = max(err, float(diff.max()))
-        ratio = max(ratio, float((diff / allowed).max()))
-    return err, ratio, {"within_tol": ratio <= 1.0,
-                        "nan_as_plain": torch.equal(out_k.isnan(), out_p.isnan()),
-                        "inf_as_plain": torch.equal(out_k.isinf(), out_p.isinf()),
-                        "u_nan_as_plain": torch.equal(U_k.isnan(), U_p.isnan())}
+    err, ratio, check = mixed_kernel_check(out_k, out_p, dt, scale)
+    err_u, ratio_u, _ = mixed_kernel_check(U_k, U_p, dt, scale)
+    check["within_tol"] = max(ratio, ratio_u) <= 1.0
+    check["u_nan_as_plain"] = torch.equal(U_k.isnan(), U_p.isnan())
+    return max(err, err_u), max(ratio, ratio_u), check
 
 
 def kernel_rows_mixed(dev, gen) -> list[dict]:
@@ -2183,79 +2251,16 @@ def mixed_f64_main_path(dev, gen) -> dict:
     return launches
 
 
-def mixed_low_main_path(dev, gen, dt) -> dict:
-    """plan(N, compute_dtype=bf16 | f16).execute(A) through the entry points
-    (f32 working): exactly N / v launches of each LU kernel, all in the
-    compute dtype, and the plain loads in every fused call; refinement to
-    1e-6 reported on a standard normal A and held on `well_conditioned`.
-    Returns the launches of the counted run."""
-    from repro_torch.api import SolverConfig, plan
-    from repro_torch.kernels import fused_schur as fs_mod
-
-    sh = MIXED_SHORT[dt]
-    name = str(dt).removeprefix("torch.")
-    p = plan(N, SolverConfig(compute_dtype=name))
-    out = {}
-    for kind in ("gauss", "well_conditioned"):
-        A = (torch.randn(N, N, generator=gen, device=dev) if kind == "gauss"
-             else well_conditioned((N, N), gen, dev))
-        b = torch.randn(N, generator=gen, device=dev)
-        reset_launches()
-        fs_mod.fused_trsm_schur.mode = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fact = p.execute(A)
-        torch.cuda.synchronize()
-        execute_s = time.perf_counter() - t0
-        launches = read_launches()
-        mode = fs_mod.fused_trsm_schur.mode
-        t0 = time.perf_counter()
-        x_plain = fact.solve(b)
-        torch.cuda.synchronize()
-        solve_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rs = fact.solve(b, refine_tol=MIXED_LOW_TOL)
-        torch.cuda.synchronize()
-        refine_s = time.perf_counter() - t0
-        cond = cond_estimate(A) if kind == "well_conditioned" else None
-        steps = N // p.config.v
-        row = {"execute_s": execute_s, "solve_s": solve_s, "refine_s": refine_s,
-               "launches": launches, "factor_dtype": str(fact.F.dtype), "last_fused_mode": mode,
-               "refinement_iters": rs.refinement_iters, "final_residual": rs.final_residual,
-               "converged": rs.converged, "x_finite": bool(torch.isfinite(rs.x).all()),
-               "hpl_residual_refined_f32": hpl_residual(A, rs.x, b),
-               "hpl_residual_plain_f32": hpl_residual(A, x_plain, b), "cond_estimate": cond}
-        emit(f"mixed_{sh}_main_path", N=N, v=p.config.v, matrix=kind, **row)
-        if launches != expected_launches(lu_panel=steps, fused_trsm_schur=steps):
-            raise AssertionError(f"{sh}: expected {steps} launches of each LU kernel, "
-                                 f"got {launches}")
-        if fact.F.dtype != dt or mode != "plain" or not row["x_finite"]:
-            raise AssertionError(f"{sh} main path: {row}")
-        if kind == "well_conditioned" and not rs.converged:
-            raise AssertionError(f"{sh}: refinement did not reach {MIXED_LOW_TOL} on a "
-                                 f"well-conditioned A (cond ~{cond}): {rs.final_residual}")
-        out[kind] = launches
-        del fact, x_plain, rs
-        if kind == "gauss":
-            emit(f"profile_{sh}_execute", **profile_once(lambda: p.execute(A)))
-        del A
-    torch.cuda.empty_cache()
-    return out["gauss"]
-
-
-def mixed_batched_path(dev, gen, dt) -> dict:
-    """plan((256, 512), compute_dtype=bf16 | f16) on well-conditioned systems
-    with per-lane refine_tol: 16 launches of each batched kernel, every lane
-    refined to its own tolerance.  Returns the launches of the counted run."""
-    from repro_torch.api import SolverConfig, plan
-    from repro_torch.kernels import fused_schur as fs_mod
-
-    sh = MIXED_SHORT[dt]
-    A = well_conditioned((BATCH, BATCH_N, BATCH_N), gen, dev)
-    b = torch.randn(BATCH, BATCH_N, generator=gen, device=dev)
-    tols = torch.tensor([MIXED_BATCH_TOLS[i % len(MIXED_BATCH_TOLS)] for i in range(BATCH)],
-                        device=dev)
-    p = plan((BATCH, BATCH_N), SolverConfig(compute_dtype=str(dt).removeprefix("torch.")))
+def _refined_run(p, A, b, phase: str, want: dict, dt, update: str,
+                 converge: bool = True, **fields) -> dict:
+    """Execute plan p on A (launches counted from 0), solve b plain and
+    refined to MIXED_LOW_TOL; emits the phase and fails unless the launches
+    are `want`, the factors are in dt, the last call of the `update` kernel
+    took the plain loads and the refined answer is finite; where `converge`,
+    also unless refinement converged and the refined answer's HPL residual
+    (f32) is below 16.  Returns the launches."""
+    upd = _wrappers()[update]
+    upd.mode = None
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2263,7 +2268,90 @@ def mixed_batched_path(dev, gen, dt) -> dict:
     torch.cuda.synchronize()
     execute_s = time.perf_counter() - t0
     launches = read_launches()
-    mode = fs_mod.fused_trsm_schur_batched.mode
+    t0 = time.perf_counter()
+    x_plain = fact.solve(b)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rs = fact.solve(b, refine_tol=MIXED_LOW_TOL)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    conv = torch.as_tensor(rs.converged)
+    row = {"execute_s": execute_s, "solve_s": solve_s, "refine_s": refine_s,
+           "launches": launches, "factor_dtype": str(fact.F.dtype), "kind": fact.kind,
+           "last_update_mode": upd.mode,
+           "refinement_iters": torch.as_tensor(rs.refinement_iters).tolist(),
+           "final_residual_max": float(torch.as_tensor(rs.final_residual).max()),
+           "converged": bool(conv.all()), "x_finite": bool(torch.isfinite(rs.x).all()),
+           "hpl_residual_refined_f32": hpl_residual(A, rs.x, b),
+           "hpl_residual_plain_f32": hpl_residual(A, x_plain, b), **fields}
+    emit(phase, **row)
+    if launches != want:
+        raise AssertionError(f"{phase}: expected launches {want}, got {launches}")
+    if not (fact.F.dtype == dt and row["last_update_mode"] == "plain" and row["x_finite"]):
+        raise AssertionError(f"{phase}: {row}")
+    if converge and not (row["converged"]
+                         and row["hpl_residual_refined_f32"] < HPL_RESIDUAL_MAX):
+        raise AssertionError(f"{phase}: refinement did not reach {MIXED_LOW_TOL}: {row}")
+    return launches
+
+
+def mixed_low_main_path(dev, gen, dt) -> dict:
+    """plan(N, compute_dtype=bf16 | f16).execute(A) through the entry points
+    (f32 working): exactly N / v launches of each LU kernel, all in the
+    compute dtype, and the plain loads in every fused call; refinement to
+    1e-6 reported on a standard normal A and held on `well_conditioned`.
+    Returns the launches of the counted run on the standard normal A."""
+    from repro_torch.api import SolverConfig, plan
+
+    sh = MIXED_SHORT[dt]
+    p = plan(N, SolverConfig(compute_dtype=str(dt).removeprefix("torch.")))
+    steps = N // p.config.v
+    want = expected_launches(lu_panel=steps, fused_trsm_schur=steps)
+    out = {}
+    for kind in ("gauss", "well_conditioned"):
+        A = (torch.randn(N, N, generator=gen, device=dev) if kind == "gauss"
+             else well_conditioned((N, N), gen, dev))
+        b = torch.randn(N, generator=gen, device=dev)
+        cond = cond_estimate(A) if kind == "well_conditioned" else None
+        out[kind] = _refined_run(p, A, b, f"mixed_{sh}_main_path", want, dt,
+                                 "fused_trsm_schur", converge=kind == "well_conditioned",
+                                 N=N, v=p.config.v, matrix=kind, cond_estimate=cond)
+        if kind == "gauss":
+            emit(f"profile_{sh}_execute", **profile_once(lambda: p.execute(A)))
+        del A
+    torch.cuda.empty_cache()
+    return out["gauss"]
+
+
+def mixed_batched_path(dev, gen, dt, strategy: str = "auto",
+                       kernels=("lu_panel_batched", "fused_trsm_schur_batched"),
+                       phase: str = "mixed_batched_path", profile: bool = True) -> dict:
+    """plan((256, 512), strategy, compute_dtype=bf16 | f16) with per-lane
+    refine_tol, on `well_conditioned` systems (LU) or `spd` ones (Cholesky):
+    16 launches of each of `kernels` (the last the update, which must take
+    the plain loads), every lane refined to its own tolerance.  Returns the
+    launches of the counted run."""
+    from repro_torch.api import SolverConfig, plan
+
+    sh = MIXED_SHORT[dt]
+    make = spd if strategy == CHOL else well_conditioned
+    A = make((BATCH, BATCH_N, BATCH_N), gen, dev)
+    b = torch.randn(BATCH, BATCH_N, generator=gen, device=dev)
+    tols = torch.tensor([MIXED_BATCH_TOLS[i % len(MIXED_BATCH_TOLS)] for i in range(BATCH)],
+                        device=dev)
+    p = plan((BATCH, BATCH_N), SolverConfig(strategy=strategy,
+                                            compute_dtype=str(dt).removeprefix("torch.")))
+    update = _wrappers()[kernels[-1]]
+    update.mode = None
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fact = p.execute(A)
+    torch.cuda.synchronize()
+    execute_s = time.perf_counter() - t0
+    launches = read_launches()
+    mode = update.mode
     t0 = time.perf_counter()
     rs = fact.solve(b, refine_tol=tols)
     torch.cuda.synchronize()
@@ -2273,18 +2361,20 @@ def mixed_batched_path(dev, gen, dt) -> dict:
                                        .tolist()))
              for t in MIXED_BATCH_TOLS}
     resid = hpl_residuals(A, rs.x, b)
-    emit(f"mixed_batched_path_{sh}", B=BATCH, N=BATCH_N, v=p.config.v, launches=launches,
-         execute_s=execute_s, refine_s=refine_s, last_fused_mode=mode,
+    emit(f"{phase}_{sh}", B=BATCH, N=BATCH_N, v=p.config.v, launches=launches,
+         execute_s=execute_s, refine_s=refine_s, last_update_mode=mode,
          iterations_by_tol=iters, converged_lanes=int(rs.converged.sum()),
          final_residual_max=float(rs.final_residual.max()),
          hpl_residual_refined_max=float(resid.max()), factor_dtype=str(fact.F.dtype))
-    if launches != expected_launches(lu_panel_batched=steps, fused_trsm_schur_batched=steps):
-        raise AssertionError(f"{sh} batched: expected {steps} launches each, got {launches}")
+    if launches != expected_launches(**{k: steps for k in kernels}):
+        raise AssertionError(f"{phase} {sh}: expected {steps} launches each of {kernels}, "
+                             f"got {launches}")
     if not (bool(rs.converged.all()) and fact.F.dtype == dt and mode == "plain"
             and bool((resid < HPL_RESIDUAL_MAX).all())):
-        raise AssertionError(f"{sh} batched: {int(rs.converged.sum())} of {BATCH} converged, "
+        raise AssertionError(f"{phase} {sh}: {int(rs.converged.sum())} of {BATCH} converged, "
                              f"HPL {float(resid.max())}, mode {mode}")
-    emit(f"profile_batched_{sh}_execute", **profile_once(lambda: p.execute(A)))
+    if profile:
+        emit(f"profile_batched_{sh}_execute", **profile_once(lambda: p.execute(A)))
     return launches
 
 
@@ -2413,14 +2503,18 @@ def _check_mixed_answers(requests, answers, phase: str, dt) -> dict:
     return worst
 
 
-def serving_mixed_sync(dt=torch.bfloat16, count: int = 192) -> None:
-    """SolveEngine(512) on a bf16 plan: ragged requests, half of them refined."""
+def serving_mixed_sync(dt=torch.bfloat16, count: int = 192, phase: str = "serving_mixed_sync",
+                       strategy: str = "auto", make=_mixed_requests,
+                       kernel: str = "lu_panel_batched") -> None:
+    """SolveEngine(512) on a bf16 plan: ragged requests, half of them refined;
+    `kernel` must have been launched."""
     import numpy as np
     from repro_torch.api import SolverConfig
     from repro_torch.serving import SolveEngine
 
-    requests = _mixed_requests(np.random.default_rng(2), count)
-    eng = SolveEngine(SERVE_N, SolverConfig(compute_dtype=str(dt).removeprefix("torch.")))
+    requests = make(np.random.default_rng(2), count)
+    eng = SolveEngine(SERVE_N, SolverConfig(strategy=strategy,
+                                            compute_dtype=str(dt).removeprefix("torch.")))
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2429,30 +2523,32 @@ def serving_mixed_sync(dt=torch.bfloat16, count: int = 192) -> None:
     wall_s = time.perf_counter() - t0
     launches = read_launches()
     st = eng.stats()
-    worst = _check_mixed_answers(requests, [xs[t] for t in tickets], "serving_mixed_sync", dt)
-    emit("serving_mixed_sync", dtype=MIXED_SHORT[dt], N=SERVE_N, requests=count,
+    worst = _check_mixed_answers(requests, [xs[t] for t in tickets], phase, dt)
+    emit(phase, dtype=MIXED_SHORT[dt], N=SERVE_N, strategy=strategy, requests=count,
          wall_s=wall_s, requests_per_s=count / wall_s, launches=launches,
          refined_systems=st["refined_systems"], refine_iters_total=st["refine_iters_total"],
          refine_nonconverged=st["refine_nonconverged"], hpl_residual_max=worst,
          batched_factorizations=st["batched_factorizations"])
     if st["refined_systems"] != sum(1 for *_, t in requests if t) or \
-            st["refine_nonconverged"] or launches["lu_panel_batched"] == 0:
-        raise AssertionError(f"serving_mixed_sync: {st}, launches {launches}")
+            st["refine_nonconverged"] or launches[kernel] == 0:
+        raise AssertionError(f"{phase}: {st}, launches {launches}")
 
 
-def serving_mixed_async(dt=torch.bfloat16, per_tenant: int = 32) -> None:
+def serving_mixed_async(dt=torch.bfloat16, per_tenant: int = 32,
+                        phase: str = "serving_mixed_async", strategy: str = "auto",
+                        make=_mixed_requests, kernel: str = "lu_panel_batched") -> None:
     """AsyncSolveEngine(512) on a bf16 plan: four tenant threads, half of the
-    requests refined."""
+    requests refined; `kernel` must have been launched."""
     import threading
 
     import numpy as np
     from repro_torch.api import SolverConfig
     from repro_torch.serving import AsyncSolveEngine
 
-    reqs = [_mixed_requests(np.random.default_rng(30 + t), per_tenant)
-            for t in range(ASYNC_TENANTS)]
+    reqs = [make(np.random.default_rng(30 + t), per_tenant) for t in range(ASYNC_TENANTS)]
     futures: list[list] = [[] for _ in range(ASYNC_TENANTS)]
-    eng = AsyncSolveEngine(SERVE_N, SolverConfig(compute_dtype=str(dt).removeprefix("torch.")),
+    eng = AsyncSolveEngine(SERVE_N, SolverConfig(strategy=strategy,
+                                                 compute_dtype=str(dt).removeprefix("torch.")),
                            max_batch=ASYNC_MAX_BATCH, max_delay_ms=ASYNC_DELAY_MS)
     reset_launches()
 
@@ -2472,9 +2568,10 @@ def serving_mixed_async(dt=torch.bfloat16, per_tenant: int = 32) -> None:
     launches = read_launches()
     st = eng.stats()
     total = ASYNC_TENANTS * per_tenant
-    worst = [_check_mixed_answers(r, a, "serving_mixed_async", dt) for r, a in zip(reqs, answers)]
+    worst = [_check_mixed_answers(r, a, phase, dt) for r, a in zip(reqs, answers)]
     worst = {k: max(w[k] for w in worst) for k in worst[0]}
-    emit("serving_mixed_async", dtype=MIXED_SHORT[dt], N=SERVE_N, requests=total, wall_s=wall_s,
+    emit(phase, dtype=MIXED_SHORT[dt], N=SERVE_N, strategy=strategy, requests=total,
+         wall_s=wall_s,
          requests_per_s=total / wall_s, latency_ms=st["async"]["latency_ms"],
          served=st["async"]["served"], spilled=st["async"]["spilled"],
          failed=st["async"]["failed"], refined_systems=st["refined_systems"],
@@ -2484,9 +2581,401 @@ def serving_mixed_async(dt=torch.bfloat16, per_tenant: int = 32) -> None:
     refined = sum(1 for r in reqs for *_, t in r if t)
     if (st["async"]["served"] + st["async"]["spilled"] != total or st["async"]["failed"]
             or st["refined_systems"] + st["async"]["spilled"] < refined
-            or st["refine_nonconverged"] or launches["lu_panel_batched"] == 0):
-        raise AssertionError(f"serving_mixed_async: {st['async']}, refined "
+            or st["refine_nonconverged"] or launches[kernel] == 0):
+        raise AssertionError(f"{phase}: {st['async']}, refined "
                              f"{st['refined_systems']} of {refined}, launches {launches}")
+
+
+# --------------------------------------------------------------------------
+# Mixed precision on the Cholesky kernels and the 2.5D schedules: the bf16
+# and f16 entry points of chol_panel, trsm_right_upper, trsm_left_lower and
+# schur_update (rows 5-12 of PERF.md's kernel table) and the paths they
+# open: sequential_chol single and batched, its engines, and conflux,
+# baseline2d and cholesky25d on a 1x1x1 grid and on eight gloo ranks.
+# --------------------------------------------------------------------------
+
+
+def _library_refusal(fn) -> str | None:
+    """None where `fn()` runs, else the first line of its error: whether a
+    PyTorch call takes 2-byte operands on this card."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return None
+    except (RuntimeError, NotImplementedError) as e:
+        return str(e).splitlines()[0][:160]
+
+
+def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
+    """The bf16 and f16 entry points of chol_panel, trsm_right_upper,
+    trsm_left_lower and schur_update (single and batched) against their
+    plain versions, at the paths' shapes and the bodies' edges: chol_panel
+    bit for bit, the solves and the update within one ulp plus
+    FUSED_REL_TOL; batched lanes bit for bit against the single call; every
+    schur_update call on the plain loads.  Returns the kernels line's sixteen
+    rows (launches filled in later)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import schur_update as su_mod
+
+    rows = []
+    for dt in MIXED_DTYPES:
+        sh = MIXED_SHORT[dt]
+        eye = torch.eye(CHOL_V, device=dev, dtype=dt)
+        chol_lib = _library_refusal(lambda: torch.linalg.cholesky_ex(eye))
+        tri_lib = _library_refusal(lambda: torch.linalg.solve_triangular(eye, eye, upper=True))
+
+        # chol_panel[_batched]: the batched path's stack in a strided buffer
+        # (lane 0 the single path's block), the register body's edges v = 1
+        # and 31, the shared-memory body at v = 33 and 128, a block that is
+        # not SPD and one with an inf below the diagonal: bit for bit.
+        for B, v in ((BATCH, CHOL_V), (64, 1), (64, 31), (64, 33), (8, 128)):
+            buf = torch.zeros(B, v, 2 * v, device=dev, dtype=dt)
+            buf[:, :, v:] = spd((B, v, v), gen, dev).to(dt)
+            blocks = buf[:, :, v:]
+            bad = blocks.clone()
+            bad[:, min(5, v - 1), min(5, v - 1)] = -1.0
+            inf = blocks.clone()
+            if v > 1:
+                inf[:, v - 1, (v - 1) // 2] = float("inf")
+            check = {}
+            for case, X in (("spd", blocks), ("not_spd", bad), ("inf_entry", inf)):
+                L_k = ops.chol_panel_batched(X)
+                check[f"{case}_bit_identical"] = same_bits(L_k, ref.chol_panel_batched(X))
+                for b in (0, B - 1):
+                    check[f"{case}_lane{b}_equals_single"] = same_bits(ops.chol_panel(X[b]),
+                                                                       L_k[b])
+            emit("kernel_chol_panel_batched_mixed", dtype=sh, shape=[B, v, v],
+                 body="registers" if v <= 32 else "shared memory", **check)
+            if not all(check.values()):
+                raise AssertionError(f"chol_panel {sh} [{B}, {v}, {v}]: {check}")
+            if (B, v) != (BATCH, CHOL_V):
+                continue
+            one = blocks[0]
+            lib = ("none: torch.linalg.cholesky_ex refuses 2-byte operands on this card "
+                   f"({chol_lib})" if chol_lib else "torch.linalg.cholesky_ex")
+            for single in (True, False):
+                kernel, plain, X = ((ops.chol_panel, ref.chol_panel, one) if single else
+                                    (ops.chol_panel_batched, ref.chol_panel_batched, blocks))
+                nb = 1 if single else B
+                library = None if chol_lib else (lambda X=X: torch.linalg.cholesky_ex(X))
+                rows.append({
+                    "name": ("chol_panel" if single else "chol_panel_batched") + f"[{sh}]",
+                    "route": "cuda", "source": "src/repro_torch/kernels/csrc/chol_panel.cu",
+                    "replaces": "src/repro/kernels/chol_panel.py:" + ("50" if single else "66"),
+                    "max_abs_err": float((kernel(X).float() - plain(X).float()).abs().max()),
+                    "ms": time_ms(lambda k=kernel, X=X: k(X)),
+                    "plain_ms": time_ms(lambda p=plain, X=X: p(X), reps=3),
+                    **bound(2 * 2 * nb * v * v, nb * chol_ops(v)),
+                    "library_ms": None if library is None else time_ms(library),
+                    **device_fields(lambda k=kernel, X=X: k(X), library),
+                    "library": lib,
+                })
+
+        # trsm_right_upper[_batched]: U = L00^T (a transposed view) or a plain
+        # upper U; B with its top quarter zero, as the paths pass it.  The
+        # paths' shapes, v = 1, 24, 31, 33 and 128, R = 1 and 100,000, B a
+        # column window of a wider matrix, NaN / inf rows, a zero on U's
+        # diagonal, and f16 quotients past 65504 ("overflow": U's diagonal
+        # 1/1024, so |X| up to ~4000 x 1024).
+        for Bb, R, v, ukind, special in (
+                (None, N, CHOL_V, "mT", None), (BATCH, BATCH_N, CHOL_V, "mT", None),
+                (8, 2000, 24, "mT", None), (8, 1000, 1, "mT", None),
+                (8, 1000, 31, "upper", None), (8, 1000, 33, "mT", None),
+                (4, 300, 128, "mT", None), (None, 1, CHOL_V, "mT", None),
+                (None, 100_000, CHOL_V, "upper", None), (None, 1000, CHOL_V, "mT", "window"),
+                (4, 777, CHOL_V, "upper", "nan_inf"),
+                (4, 777, CHOL_V, "upper", "zero_diag"), (4, 777, CHOL_V, "upper", "overflow")):
+            nb = 1 if Bb is None else Bb
+            if ukind == "mT":
+                U = ref.chol_panel_batched(spd((nb, v, v), gen, dev)).mT.to(dt)
+            else:
+                U = torch.triu(torch.randn(nb, v, v, generator=gen, device=dev))
+                U.diagonal(dim1=-2, dim2=-1).add_(4.0)
+                if special == "overflow":
+                    U = torch.diag_embed(torch.full((nb, v), 1 / 1024, device=dev))
+                U = U.to(dt)
+            Bm = torch.randn(nb, R, v, generator=gen, device=dev)
+            if special == "overflow":
+                Bm *= 4000.0
+            Bm = Bm.to(dt)
+            if special == "window":
+                Bm = torch.zeros(nb, R, 3 * v, device=dev, dtype=dt)[..., v:2 * v].copy_(Bm)
+            Bm[:, :R // 4] = 0.0
+            if special == "nan_inf":
+                Bm[:, R // 2, v // 3] = float("nan")
+                Bm[:, R // 2 + 1, 0] = float("inf")
+            if special == "zero_diag":
+                U[:, 5, 5] = 0.0
+            if Bb is None:
+                U, Bm = U[0], Bm[0]
+            kernel = ops.trsm_right_upper if Bb is None else ops.trsm_right_upper_batched
+            plain = ref.trsm_right_upper if Bb is None else ref.trsm_right_upper_batched
+            X_k, X_p = kernel(Bm, U), plain(Bm, U)
+            torch.cuda.synchronize()
+            err, ratio, check = mixed_kernel_check(X_k, X_p, dt)
+            check["zero_rows_as_plain"] = same_bits(X_k[..., :R // 4, :], X_p[..., :R // 4, :])
+            if special == "overflow" and dt == torch.float16:
+                check["overflows_to_inf"] = bool(X_p.isinf().any())
+            if Bb is not None:
+                for b in (0, Bb - 1):
+                    check[f"lane{b}_equals_single"] = same_bits(
+                        ops.trsm_right_upper(Bm[b], U[b]), X_k[b])
+            emit("kernel_trsm_right_upper_mixed", dtype=sh, shape=[nb, R, v], U=ukind,
+                 special=special, body="registers" if v <= 32 else "shared memory",
+                 max_abs_err=err, err_over_allowance=ratio, **check)
+            if not all(check.values()):
+                raise AssertionError(f"trsm_right_upper {sh} [{nb}, {R}, {v}] {special}: "
+                                     f"{ratio} of the allowance, {check}")
+            if special or (R, v) not in ((N, CHOL_V), (BATCH_N, CHOL_V)):
+                continue
+            single = Bb is None
+            rows.append({
+                "name": ("trsm_right_upper" if single else "trsm_right_upper_batched") +
+                        f"[{sh}]",
+                "route": "cuda", "source": "src/repro_torch/kernels/csrc/trsm.cu",
+                "replaces": "src/repro/kernels/trsm.py:" + ("78" if single else "96"),
+                "max_abs_err": err, "ms": time_ms(lambda k=kernel: k(Bm, U)),
+                "plain_ms": time_ms(lambda p=plain: p(Bm, U)),
+                **bound(2 * nb * (2 * R * v + v * v), nb * R * v * v),
+                "library_ms": None, **device_fields(lambda k=kernel: k(Bm, U)),
+                "library": "none: torch.linalg.solve_triangular refuses 2-byte operands on "
+                           f"this card ({tri_lib})" if tri_lib else
+                           "none measured: solve_triangular took 2-byte operands",
+            })
+
+        # trsm_left_lower[_batched]: the flat paths' [32, 16384] (unit, as
+        # conflux, and not, as cholesky25d), a ragged strided B (v = 24), the
+        # register body's edge v = 1, the shared-memory body at v = 33 and
+        # 128; the batched form at 256 x [32, 512], lanes against the single
+        # call.
+        def lower(lead, v, unit):
+            L = 0.3 * torch.tril(torch.randn(*lead, v, v, generator=gen, device=dev), -1)
+            return (L + (1.0 if unit else 2.0) * torch.eye(v, device=dev)).to(dt)
+
+        for lead, v, C, unit, strided in (((), CONFLUX_V, N, True, False),
+                                          ((), CONFLUX_V, N, False, False),
+                                          ((), 24, 777, True, True), ((), 1, 63, True, False),
+                                          ((), 33, 65, False, True), ((), 128, 1000, True, False),
+                                          ((BATCH,), CONFLUX_V, BATCH_N, True, False),
+                                          ((BATCH,), CONFLUX_V, BATCH_N, False, False)):
+            L = lower(lead, v, unit)
+            buf = torch.randn(*lead, v, 2 * C if strided else C, generator=gen,
+                              device=dev).to(dt)
+            Bm = buf[..., C:] if strided else buf
+            batched = bool(lead)
+            kernel = ops.trsm_left_lower_batched if batched else ops.trsm_left_lower
+            plain = ref.trsm_left_lower_batched if batched else ref.trsm_left_lower
+            X_k, X_p = kernel(L, Bm, unit=unit), plain(L, Bm, unit=unit)
+            torch.cuda.synchronize()
+            err, ratio, check = mixed_kernel_check(X_k, X_p, dt)
+            if batched:
+                for b in (0, lead[0] - 1):
+                    check[f"lane{b}_equals_single"] = same_bits(
+                        ops.trsm_left_lower(L[b], Bm[b], unit=unit), X_k[b])
+            emit("kernel_trsm_left_lower_mixed", dtype=sh, shape=[*lead, v, C], unit=unit,
+                 strided=strided, max_abs_err=err, err_over_allowance=ratio, **check)
+            if not all(check.values()):
+                raise AssertionError(f"trsm_left_lower {sh} {[*lead, v, C]}: {ratio} of the "
+                                     f"allowance, {check}")
+            if (v, C, unit) not in ((CONFLUX_V, N, True), (CONFLUX_V, BATCH_N, True)):
+                continue
+            nb = lead[0] if batched else 1
+            rows.append({
+                "name": ("trsm_left_lower_batched" if batched else "trsm_left_lower") +
+                        f"[{sh}]",
+                "route": "cuda", "source": "src/repro_torch/kernels/csrc/trsm.cu",
+                "replaces": "src/repro/kernels/trsm.py:" + ("133" if batched else "115"),
+                "max_abs_err": err, "ms": time_ms(lambda k=kernel: k(L, Bm)),
+                "plain_ms": time_ms(lambda p=plain: p(L, Bm)),
+                **bound(2 * nb * (v * v + 2 * v * C), nb * v * (v - 1) * C),
+                "library_ms": None, **device_fields(lambda k=kernel: k(L, Bm)),
+                "library": "none: torch.linalg.solve_triangular refuses 2-byte operands on "
+                           f"this card ({tri_lib})" if tri_lib else
+                           "none measured: solve_triangular took 2-byte operands",
+                **({"note": "on no path: only the JAX package's kernel lint calls it"}
+                   if batched else {}),
+            })
+
+        # schur_update[_batched]: the paths' shapes, K = 1, 33 and 64, ragged
+        # M and N, an odd row stride, a window of a wider matrix, a batch of
+        # one, NaN / inf in A and L, and f16 results past 65504 ("overflow":
+        # one product a result, +-300 x +-300).  Every call takes the plain
+        # loads; the library call is torch.addmm / baddbmm in the same dtype
+        # (cuBLAS accumulates 2-byte products in f32 and rounds once).
+        modes = {}
+        for Bb, M, C, K, kind in ((None, N, N, CHOL_V, None),
+                                  (BATCH, BATCH_N, BATCH_N, CHOL_V, None),
+                                  (8, 300, 500, 1, None), (8, 300, 500, 33, None),
+                                  (8, 300, 500, 64, None), (8, 777, 1001, CHOL_V, None),
+                                  (1, BATCH_N, BATCH_N, CHOL_V, None),
+                                  (None, 1000, 1000, CHOL_V, "odd_lda"),
+                                  (None, 4064, 4064, CHOL_V, "window"),
+                                  (4, 777, 1000, CHOL_V, "special"),
+                                  (None, 512, 512, CHOL_V, "overflow")):
+            lead = () if Bb is None else (Bb,)
+            if kind == "odd_lda":
+                A = torch.randn(*lead, M, C + 1, generator=gen, device=dev).to(dt)[..., :C]
+            elif kind == "window":
+                A = torch.randn(*lead, M + 32, C + 64, generator=gen,
+                                device=dev).to(dt)[..., 32:, 64:]
+            else:
+                A = torch.randn(*lead, M, C, generator=gen, device=dev).to(dt)
+            Lm = torch.randn(*lead, M, K, generator=gen, device=dev).to(dt)
+            Um = torch.randn(*lead, K, C, generator=gen, device=dev).to(dt)
+            if kind == "special":
+                A[..., 5, 7] = float("nan")
+                A[..., 9, 100] = float("inf")
+                Lm[..., 11, 0] = float("nan")
+                Lm[..., 13, K - 1] = float("-inf")
+            if kind == "overflow":
+                pick = torch.tensor([300.0, -300.0], device=dev)
+                Lm.zero_()
+                Um.zero_()
+                Lm[..., 0] = pick[torch.randint(2, (M,), generator=gen, device=dev)].to(dt)
+                Um[..., 0, :] = pick[torch.randint(2, (C,), generator=gen, device=dev)].to(dt)
+            kernel = ops.schur_update if Bb is None else ops.schur_update_batched
+            plain = ref.schur_update if Bb is None else ref.schur_update_batched
+            out_k = kernel(A, Lm, Um)
+            mode = (su_mod.schur_update if Bb is None else su_mod.schur_update_batched).mode
+            out_p = plain(A, Lm, Um)
+            torch.cuda.synchronize()
+            err, ratio, check = mixed_kernel_check(out_k, out_p, dt)
+            check["plain_loads"] = mode == "plain"
+            if kind == "overflow" and dt == torch.float16:
+                check["overflows_to_inf"] = bool(out_p.isinf().any())
+            if Bb is not None:
+                for b in sorted({0, Bb - 1}):
+                    check[f"lane{b}_equals_single"] = same_bits(
+                        ops.schur_update(A[b], Lm[b], Um[b]), out_k[b])
+            case = f"{[*lead, M, C, K]} {kind}"
+            modes[case] = mode
+            emit("kernel_schur_update_mixed", dtype=sh, shape=[*lead, M, C, K], kind=kind,
+                 lda=A.stride(-2), mode=mode, max_abs_err=err, err_over_allowance=ratio,
+                 inf_count=int(out_k.isinf().sum()), **check)
+            if not all(check.values()):
+                raise AssertionError(f"schur_update {sh} {case}: {ratio} of the allowance, "
+                                     f"{check}")
+            del out_k, out_p
+            if kind is not None or Bb == 1 or (M, C) not in ((N, N), (BATCH_N, BATCH_N)):
+                continue
+            nb = 1 if Bb is None else Bb
+            library = torch.addmm if Bb is None else torch.baddbmm
+            rows.append({
+                "name": ("schur_update" if Bb is None else "schur_update_batched") + f"[{sh}]",
+                "route": "cuda", "source": "src/repro_torch/kernels/csrc/schur_update.cu",
+                "replaces": "src/repro/kernels/schur_update.py:" + ("52" if Bb is None else "75"),
+                "max_abs_err": err, "mode": mode,
+                "ms": time_ms(lambda k=kernel: k(A, Lm, Um)),
+                "plain_ms": time_ms(lambda p=plain: p(A, Lm, Um)),
+                **bound(2 * nb * (2 * M * C + M * K + K * C), 2 * nb * M * C * K),
+                "library_ms": time_ms(lambda f=library: f(A, Lm, Um, alpha=-1.0)),
+                **device_fields(lambda k=kernel: k(A, Lm, Um),
+                                lambda f=library: f(A, Lm, Um, alpha=-1.0)),
+                "library": ("torch.addmm" if Bb is None else "torch.baddbmm") +
+                           f"(A, L, U, alpha=-1) in {sh}",
+            })
+            del A, Lm, Um
+        emit("schur_update_mixed_modes", dtype=sh, **modes)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mixed_chol_main_path(dev, gen, dt, profile: bool) -> dict:
+    """plan(N, strategy="sequential_chol", compute_dtype=bf16 | f16) on an SPD
+    A (eigenvalues in about [1, 5]) through the entry points: exactly N / v
+    launches of each Cholesky kernel, the last update on the plain loads,
+    refinement to 1e-6.  Returns the launches of the counted run."""
+    from repro_torch.api import SolverConfig, plan
+
+    sh = MIXED_SHORT[dt]
+    A = spd((N, N), gen, dev)
+    b = torch.randn(N, generator=gen, device=dev)
+    p = plan(N, SolverConfig(strategy=CHOL, compute_dtype=str(dt).removeprefix("torch.")))
+    steps = N // p.config.v
+    launches = _refined_run(p, A, b, f"mixed_chol_{sh}_main_path", expected_launches(
+        chol_panel=steps, trsm_right_upper=steps, schur_update=steps), dt, "schur_update",
+        N=N, v=p.config.v)
+    if profile:
+        emit(f"profile_chol_{sh}_execute", **profile_once(lambda: p.execute(A)))
+    del A
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mixed_plain_chol_128(dev, gen) -> None:
+    """The bf16 and f16 Cholesky kernel path against the plain path at
+    N = 128, single and batched (64 systems): each entry of L within
+    `mixed_path_tol` (a sum in another order lands beside a 2-byte rounding
+    boundary now and then, and later steps carry that ulp)."""
+    from repro_torch.api import SolverConfig, plan
+
+    n, B = 128, 64
+    for dt in MIXED_DTYPES:
+        name = str(dt).removeprefix("torch.")
+        for shape in (n, (B, n)):
+            A = spd((n, n) if shape == n else (B, n, n), gen, dev)
+            cfg = SolverConfig(strategy=CHOL, compute_dtype=name)
+            L_k = plan(shape, cfg).execute(A).F.float()
+            L_p = plan(shape, cfg.with_(backend="ref")).execute(A).F.float()
+            err = float((L_k - L_p).abs().max())
+            tol = mixed_path_tol(L_p.to(dt))
+            emit("mixed_plain_chol_128", dtype=MIXED_SHORT[dt], shape=list(A.shape),
+                 L_max_abs_err=err, tol=tol, bit_identical=torch.equal(L_k, L_p))
+            if not err <= tol:
+                raise AssertionError(f"{name} Cholesky kernel and plain paths differ at "
+                                     f"{list(A.shape)}: {err} > {tol}")
+
+
+# The 2-byte 1x1x1 schedules at the full N: (strategy, hotloop, compute
+# dtype).  bf16 runs every schedule's LU or Cholesky body; f16 the flat
+# cholesky25d, which reaches trsm_left_lower, chol_panel, trsm_right_upper
+# and schur_update.
+MIXED_GRID_P1 = (("conflux", "windowed", torch.bfloat16), ("conflux", "flat", torch.bfloat16),
+                 ("cholesky25d", "windowed", torch.bfloat16),
+                 ("cholesky25d", "flat", torch.float16))
+
+
+def mixed_grid_p1_path(dev, gen) -> dict:
+    """plan(N, strategy=..., grid=GridConfig(1, 1, 1, 32, N), compute_dtype=...)
+    in-process for each of MIXED_GRID_P1, on `well_conditioned` (LU) or
+    `spd` (Cholesky) A: exact launches, refinement to 1e-6, HPL < 16.
+    Returns each dtype's flat launches (the path of trsm_left_lower)."""
+    from repro_torch.api import GridConfig, SolverConfig, plan
+
+    steps = N // CONFLUX_V
+    grid = GridConfig(1, 1, 1, CONFLUX_V, N)
+    body = {"windowed": {"fused_trsm_schur": steps},
+            "flat": {"trsm_left_lower": steps, "schur_update": steps}}
+    # At Px = 1 the tournament factors each panel twice (`conflux_p1_path`).
+    factor = {"conflux": {"lu_panel": 2 * steps, "trsm_right_upper": steps},
+              "cholesky25d": {"chol_panel": steps, "trsm_right_upper": steps}}
+    flat = {}
+    for strategy, hotloop, dt in MIXED_GRID_P1:
+        sh = MIXED_SHORT[dt]
+        A = spd((N, N), gen, dev) if strategy == "cholesky25d" else well_conditioned(
+            (N, N), gen, dev)
+        b = torch.randn(N, generator=gen, device=dev)
+        p = plan(N, SolverConfig(strategy=strategy, grid=grid, hotloop=hotloop,
+                                 compute_dtype=str(dt).removeprefix("torch.")))
+        want = expected_launches(**factor[strategy], **body[hotloop])
+        update = "fused_trsm_schur" if hotloop == "windowed" else "schur_update"
+        launches = _refined_run(p, A, b, f"mixed_grid_p1_{sh}", want, dt, update, N=N,
+                                strategy=strategy, hotloop=hotloop, grid=str(grid))
+        if hotloop == "flat":
+            flat[sh] = launches
+        if (strategy, hotloop) == ("conflux", "windowed"):
+            emit(f"profile_grid_p1_{sh}_execute", strategy=strategy, hotloop=hotloop,
+                 **profile_once(lambda: p.execute(A)))
+        del A, p
+        torch.cuda.empty_cache()
+    return flat
+
+
+def _mixed_spd_requests(rng, count: int):
+    """Ragged SPD requests (`_spd_requests`) with every other one asking for
+    refinement to MIXED_LOW_TOL."""
+    return [(A, b, MIXED_LOW_TOL if i % 2 else None)
+            for i, (A, b) in enumerate(_spd_requests(rng, count))]
 
 
 def main() -> int:
@@ -2737,6 +3226,28 @@ def main() -> int:
     serving_mixed_sync()
     serving_mixed_async()
 
+    # 9b. Mixed precision on the Cholesky kernels and the 2.5D schedules:
+    #    the bf16 and f16 entry points of chol_panel, trsm_right_upper,
+    #    trsm_left_lower and schur_update; the 2-byte Cholesky paths, single
+    #    and batched, refined; both Cholesky engines on a bf16 plan; the
+    #    kernel path against the plain path at N = 128; the 1x1x1 schedules
+    #    at the full N (the eight-rank bf16 cases ran with phase 8).
+    mixed_chol_rows = kernel_rows_mixed_chol(dev, gen)
+    mixed_chol_launches = {MIXED_SHORT[dt]: mixed_chol_main_path(dev, gen, dt,
+                                                                 dt == torch.bfloat16)
+                           for dt in MIXED_DTYPES}
+    mixed_chol_batched_launches = {
+        MIXED_SHORT[dt]: mixed_batched_path(
+            dev, gen, dt, strategy=CHOL, phase="mixed_chol_batched_path", profile=False,
+            kernels=("chol_panel_batched", "trsm_right_upper_batched", "schur_update_batched"))
+        for dt in MIXED_DTYPES}
+    mixed_plain_chol_128(dev, gen)
+    serving_mixed_sync(count=CHOL_SERVE_REQUESTS, phase="serving_mixed_chol_sync",
+                       strategy=CHOL, make=_mixed_spd_requests, kernel="chol_panel_batched")
+    serving_mixed_async(per_tenant=CHOL_ASYNC_PER_TENANT, phase="serving_mixed_chol_async",
+                        strategy=CHOL, make=_mixed_spd_requests, kernel="chol_panel_batched")
+    mixed_flat_launches = mixed_grid_p1_path(dev, gen)
+
     # 10. The LM serving path: the two kernels, each model served at full
     #    width and depth (one after the other, each freed before the next),
     #    and four groups of each on the kernel path against the plain path.
@@ -2763,8 +3274,16 @@ def main() -> int:
         base, sh = row["name"].rstrip("]").split("[")
         counts = mixed_batched_launches if base.endswith("_batched") else mixed_launches
         row["launches"] = counts[sh][base]
+    for row in mixed_chol_rows:
+        base, sh = row["name"].rstrip("]").split("[")
+        if base.startswith("trsm_left_lower"):
+            row["launches"] = mixed_flat_launches[sh][base]
+        else:
+            counts = (mixed_chol_batched_launches if base.endswith("_batched")
+                      else mixed_chol_launches)
+            row["launches"] = counts[sh][base]
     rows = [panel_row, *fused_rows, *batched_rows, *chol_rows, *trsm_rows, *mixed_rows,
-            *lm_rows]
+            *mixed_chol_rows, *lm_rows]
     emit("device_ms_windows", **WINDOWS)
     for row in rows:
         row["kernel_ms"] = row["ms"]

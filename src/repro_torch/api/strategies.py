@@ -10,10 +10,9 @@ distributed strategies size their grid for the default process group
 
 A builder's ``primitives`` name the `KernelBackend` primitives its
 strategy calls (either hot loop, for the 2.5D schedules).  Plan resolution
-checks the "cuda" kernels of exactly those in the compute dtype,
-so a bf16 or f16 compute dtype runs on "sequential" (and "auto", which
-resolves to it on one rank) and is refused, naming ROADMAP.md item 7, by
-the strategies whose primitives have no 2-byte kernels yet.
+checks the "cuda" kernels of exactly those in the compute dtype; every
+primitive has f32, f64, bf16 and f16 kernels, so every strategy takes
+every compute dtype.
 """
 
 from __future__ import annotations

@@ -38,10 +38,13 @@ returns its input.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.lu.grid import GridConfig
+if TYPE_CHECKING:  # importing it would run core/lu/__init__, which imports this module
+    from repro_torch.core.lu.grid import GridConfig
 
 AXIS_SETS = (("px",), ("py",), ("pz",), ("px", "pz"), ("px", "py"))
 

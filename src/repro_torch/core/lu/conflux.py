@@ -160,6 +160,11 @@ def _local_lu(cfg: GridConfig, pivot: str, backend: str, Aloc: torch.Tensor, mes
     px, py, pz = mesh.px, mesh.py, mesh.pz
     R, C = Aloc.shape
     dtype, dev = Aloc.dtype, Aloc.device
+    # Pivot ids ride beside the values in the collectives, as floats of the
+    # panel's dtype widened to at least f32: exact below 2^24 rows, where
+    # bf16 (f16) holds no integer above 256 (2048) exactly.  The values
+    # widen and narrow back exactly.
+    idt = torch.promote_types(dtype, torch.float32)
     nsteps = N // v
     rounds = max(int(math.log2(Px)), 0)
     row_gid, col_gid = global_ids(cfg, mesh, R, C, dev)
@@ -175,17 +180,16 @@ def _local_lu(cfg: GridConfig, pivot: str, backend: str, Aloc: torch.Tensor, mes
         """Local masked LUP -> butterfly merge along px.  Returns packed A00
         factors [v, v] (in elimination order) and winners' global ids [v].
 
-        Ids travel beside the values as a column of the panel's dtype,
-        exact below 2^24 rows."""
+        Ids travel beside the values as a column of `idt`."""
         _, order, ok = bk.panel_lup(panel, weights, v)
         order = order.long()
         cand_vals = panel.index_select(0, order)  # original values of local winners
         valid = ok & (weights[order] > 0)
         cand_gids = torch.where(valid, row_gid[order], -1)
         for r in range(rounds):
-            mine = torch.cat([cand_vals, cand_gids[:, None].to(dtype)], 1)
+            mine = torch.cat([cand_vals.to(idt), cand_gids[:, None].to(idt)], 1)
             other = mesh.gather_px(mine)[px ^ (1 << r)]
-            vals2 = torch.cat([cand_vals, other[:, :v]])  # [2v, v]
+            vals2 = torch.cat([cand_vals, other[:, :v].to(dtype)])  # [2v, v]
             gids2 = torch.cat([cand_gids, other[:, v].long()])
             _, order2, ok2 = bk.panel_lup(vals2, (gids2 >= 0).to(dtype), v)
             order2 = order2.long()
@@ -210,13 +214,14 @@ def _local_lu(cfg: GridConfig, pivot: str, backend: str, Aloc: torch.Tensor, mes
             col = F[:, k].abs() * w
             larg = torch.argmax(col)
             lmax = col[larg]
-            cand = torch.where(lmax > 0, row_gid[larg], -1).to(dtype)
-            slab = mesh.gather_px(torch.cat([lmax[None], cand[None], F[larg]]))  # [Px, v+2]
+            cand = torch.where(lmax > 0, row_gid[larg], -1).to(idt)
+            slab = mesh.gather_px(torch.cat([lmax[None].to(idt), cand[None],
+                                             F[larg].to(idt)]))  # [Px, v+2]
             lm = slab[:, 0]
             cands = torch.where((lm == lm.max()) & (lm > 0), slab[:, 1], -1.0)
             win = torch.argmax(cands)
             g = cands[win].long()
-            prow = torch.where(g >= 0, slab[win, 2:], 0.0)
+            prow = torch.where(g >= 0, slab[win, 2:], 0.0).to(dtype)
             mine = (row_gid == g).to(dtype)  # [R] one-hot (zero if remote)
             pv = prow[k]
             safe = torch.where(pv.abs() > 0, pv, 1.0)
@@ -235,9 +240,9 @@ def _local_lu(cfg: GridConfig, pivot: str, backend: str, Aloc: torch.Tensor, mes
         must keep the pivot order bit-identical).  Returns (A00, gids, owner)."""
         owner = py == t % Py
         A00, gids = (tournament if pivot == "tournament" else partial_pivot)(panel, active)
-        packed = torch.cat([A00, gids[:, None].to(dtype)], 1)
+        packed = torch.cat([A00.to(idt), gids[:, None].to(idt)], 1)
         packed = mesh.psum(packed if owner else torch.zeros_like(packed), "py")
-        return packed[:, :v], packed[:, v].long(), owner
+        return packed[:, :v].to(dtype), packed[:, v].long(), owner
 
     def pivot_local_rows(piv_gids):
         """Local row index + ownership weight of each pivot gid on this px."""

@@ -12,11 +12,10 @@ Two backends are registered:
   kernels cannot run is refused at resolve time (`check_hopper_constraints`).
 - "ref": plain PyTorch on any device.
 
-Every primitive of the protocol is ported, single and batched.  A
-primitive given sub-4-byte inputs (bf16, f16) computes in f32 and rounds
-its result once on the way out, on both backends, as the TPU kernels did
-with their f32 scratch.  On "cuda" only `panel_lup` and `fused_trsm_schur`
-have bf16 and f16 kernels so far (`KERNEL_DTYPES`).
+Every primitive of the protocol is ported, single and batched, in f32,
+f64, bf16 and f16 (`KERNEL_DTYPES`).  A primitive given sub-4-byte inputs
+(bf16, f16) computes in f32 and rounds its result once on the way out, on
+both backends, as the TPU kernels did with their f32 scratch.
 """
 
 from __future__ import annotations
@@ -31,14 +30,14 @@ from repro_torch.kernels import ops, ref
 # form takes the same), the panel widths their shared-memory buffers hold,
 # and the systems one batched launch covers (the fused kernel puts them on
 # gridDim.z).
-_WIDE = ("float32", "float64")
+_ALL = ("float32", "float64", "bfloat16", "float16")
 KERNEL_DTYPES = {
-    "panel_lup": (*_WIDE, "bfloat16", "float16"),
-    "fused_trsm_schur": (*_WIDE, "bfloat16", "float16"),
-    "panel_chol": _WIDE,
-    "trsm_right_upper": _WIDE,
-    "trsm_left_lower": _WIDE,
-    "schur_update": _WIDE,
+    "panel_lup": _ALL,
+    "fused_trsm_schur": _ALL,
+    "panel_chol": _ALL,
+    "trsm_right_upper": _ALL,
+    "trsm_left_lower": _ALL,
+    "schur_update": _ALL,
 }
 MAX_PANEL_WIDTH = 128
 MAX_BATCH = 65535
@@ -136,17 +135,16 @@ def check_hopper_constraints(dtype: str, v: int | None, B: int | None = None,
     """Raise ValueError unless the "cuda" kernels can run this plan.
 
     `primitives` are the ones the plan's strategy calls.  Each takes the
-    dtypes of `KERNEL_DTYPES` (f64 is native on Hopper; bf16 and f16 so far
-    only for the LU primitives), panel widths up to `MAX_PANEL_WIDTH` and
-    batches of up to `MAX_BATCH` systems.  Anything else is refused, never
-    sent to another backend.
+    dtypes of `KERNEL_DTYPES` (f32, f64 native on Hopper, bf16 and f16
+    computed in f32), panel widths up to `MAX_PANEL_WIDTH` and batches of up
+    to `MAX_BATCH` systems.  Anything else is refused, never sent to another
+    backend.
     """
     missing = [p for p in primitives if dtype not in KERNEL_DTYPES[p]]
     if missing:
         raise ValueError(
-            f"backend 'cuda' has no {dtype} kernel for {', '.join(missing)} yet: "
-            f"their bf16/f16 entry points are the next slice of ROADMAP.md module "
-            f"item 7 (mixed precision) — compute in float32 or use backend='ref'"
+            f"backend 'cuda' has no {dtype} kernel for {', '.join(missing)}: "
+            f"it takes {', '.join(KERNEL_DTYPES[missing[0]])}"
         )
     if v is not None and not 1 <= v <= MAX_PANEL_WIDTH:
         raise ValueError(

@@ -6,6 +6,11 @@ batch of one, so a batched lane equals the single call bit for bit.  A CPU
 tensor goes to the plain version (`repro_torch.kernels.ref`); a CUDA tensor
 launches the kernel or raises.  `chol_panel.launches` and
 `chol_panel_batched.launches` count the launches.
+
+bf16 and f16 blocks have entry points of their own: they widen every value
+to f32 as they load it, factor in f32 with the f32 kernel's operations, and
+round each result once where they store it, as the plain version does, so
+they agree with it bit for bit.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from repro_torch.kernels import _build, ref
 
 MAX_V = 128  # the shared-memory body's copy of the [v, v] panel
 MAX_BATCH = 2**31 - 1  # systems on gridDim.x
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -43,8 +49,7 @@ def _check(name: str, A: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {A.device}")
     if A.dtype not in _SUFFIX:
         raise TypeError(
-            f"{name}: the kernel takes float32 or float64, got {A.dtype} "
-            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+            f"{name}: the kernel takes float32, float64, bfloat16 or float16, got {A.dtype}"
         )
 
 

@@ -51,12 +51,23 @@
 // chol_panel_batched) rounds the same elementwise operations in the same
 // order, so the kernel agrees with it bit for bit wherever the block lives,
 // and a batched lane with the single call.
+//
+// bf16 and f16 (`storage.cuh`): both bodies are templates on the storage
+// type St and compute in T = compute_t<St> (f32 for both), as the Pallas
+// kernel does: every value widens exactly as it is loaded, the rows in
+// registers, the round's l and the shared-memory block are in T, and each
+// result is rounded once, to nearest even, as it is stored (the zeros above
+// the diagonal too).  So the 2-byte kernel runs the f32 body's operations in
+// its order and agrees bit for bit with the plain version, which widens,
+// factors in f32 and rounds once.  The register body reads and writes a
+// 2-byte row of v = 32 (64 bytes) in 16-byte runs of eight values as well.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "once_per_device.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -66,7 +77,8 @@ constexpr int kThreads = 256;       // the shared-memory body
 constexpr int kSmemWarps = kThreads / kWarp;
 constexpr int kMaxV = 128;
 
-// One 16-byte run of l: four f32 or two f64 values, read by the whole warp at once.
+// One 16-byte run: four f32, two f64 or eight bf16 / f16 values (l is read
+// by the whole warp at once).
 template <typename T>
 struct alignas(16) Run {
   T x[16 / sizeof(T)];
@@ -89,33 +101,36 @@ __device__ __forceinline__ bool aligned(const T* p, int64_t ld) {
   return (reinterpret_cast<uintptr_t>(p) | static_cast<uintptr_t>(ld * sizeof(T))) % 16 == 0;
 }
 
-// kV32: v == 32, every guard on v known at compile time.
-template <typename T, bool kV32>
+// kV32: v == 32, every guard on v known at compile time.  St is the
+// storage type, T the compute type.
+template <typename St, bool kV32>
 __global__ void __launch_bounds__(kWarp)
-chol_panel_warp_kernel(const T* __restrict__ A, int64_t lda, int64_t bsa, T* __restrict__ L,
+chol_panel_warp_kernel(const St* __restrict__ A, int64_t lda, int64_t bsa, St* __restrict__ L,
                        int v_arg) {
+  using T = compute_t<St>;
   __shared__ __align__(16) T lrow[2 * kWarp];  // [2][32]: the rounds' l, by turns
   const int lane = threadIdx.x;
   const int64_t b = blockIdx.x;
   constexpr int kRun = 16 / sizeof(T);
+  constexpr int kIoRun = 16 / sizeof(St);  // values of a 16-byte run in storage
   const int v = kV32 ? kWarp : v_arg;
-  const T* src = A + b * bsa;
-  T* dst = L + b * static_cast<int64_t>(v) * v;
+  const St* src = A + b * bsa;
+  St* dst = L + b * static_cast<int64_t>(v) * v;
 
   // In: lane i reads row i, every load issued before the first is waited
   // on; a full aligned row in 16-byte runs.
   T s[kWarp];
-  const T* row = src + lane * lda;
+  const St* row = src + lane * lda;
   if (kV32 && aligned(src, lda)) {
 #pragma unroll
-    for (int j0 = 0; j0 < kWarp; j0 += kRun) {
-      const Run<T> run = *reinterpret_cast<const Run<T>*>(row + j0);
+    for (int j0 = 0; j0 < kWarp; j0 += kIoRun) {
+      const Run<St> run = *reinterpret_cast<const Run<St>*>(row + j0);
 #pragma unroll
-      for (int e = 0; e < kRun; ++e) s[j0 + e] = run.x[e];
+      for (int e = 0; e < kIoRun; ++e) s[j0 + e] = widen(run.x[e]);
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < kWarp; ++j) s[j] = lane < v && j < v ? row[j] : T(0);
+    for (int j = 0; j < kWarp; ++j) s[j] = lane < v && j < v ? widen(row[j]) : T(0);
   }
 
   // Round k subtracts z = l * 0 from every column j <= k (l_j = 0 there).
@@ -167,26 +182,27 @@ chol_panel_warp_kernel(const T* __restrict__ A, int64_t lda, int64_t bsa, T* __r
   // Out: lane i writes row i, its upper part zeroed.
 #pragma unroll
   for (int j = 0; j < kWarp; ++j) s[j] = j <= lane ? s[j] : T(0);
-  T* out = dst + lane * v;
+  St* out = dst + lane * v;
   if (kV32) {  // dst is a fresh allocation: aligned
 #pragma unroll
-    for (int j0 = 0; j0 < kWarp; j0 += kRun) {
-      Run<T> run;
+    for (int j0 = 0; j0 < kWarp; j0 += kIoRun) {
+      Run<St> run;
 #pragma unroll
-      for (int e = 0; e < kRun; ++e) run.x[e] = s[j0 + e];
-      *reinterpret_cast<Run<T>*>(out + j0) = run;
+      for (int e = 0; e < kIoRun; ++e) run.x[e] = narrow<St>(s[j0 + e]);
+      *reinterpret_cast<Run<St>*>(out + j0) = run;
     }
   } else {
 #pragma unroll
     for (int j = 0; j < kWarp; ++j)
-      if (lane < v && j < v) out[j] = s[j];
+      if (lane < v && j < v) out[j] = narrow<St>(s[j]);
   }
 }
 
-template <typename T>
+template <typename St>
 __global__ void __launch_bounds__(kThreads)
-chol_panel_smem_kernel(const T* __restrict__ A, int64_t lda, int64_t bsa, T* __restrict__ L,
+chol_panel_smem_kernel(const St* __restrict__ A, int64_t lda, int64_t bsa, St* __restrict__ L,
                        int v) {
+  using T = compute_t<St>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = v + 1;  // padded row stride: column reads hit distinct banks
   T* S = reinterpret_cast<T*>(smem_raw);  // [v][ld]: the working block
@@ -195,11 +211,11 @@ chol_panel_smem_kernel(const T* __restrict__ A, int64_t lda, int64_t bsa, T* __r
   const int warp = threadIdx.x / kWarp;
 
   const int64_t b = blockIdx.x;
-  const T* src = A + b * bsa;
-  T* dst = L + b * static_cast<int64_t>(v) * v;
+  const St* src = A + b * bsa;
+  St* dst = L + b * static_cast<int64_t>(v) * v;
 
   for (int i = warp; i < v; i += kSmemWarps)
-    for (int j = lane; j < v; j += kWarp) S[i * ld + j] = src[i * lda + j];
+    for (int j = lane; j < v; j += kWarp) S[i * ld + j] = widen(src[i * lda + j]);
 
   for (int k = 0; k < v; ++k) {
     __syncthreads();
@@ -219,46 +235,50 @@ chol_panel_smem_kernel(const T* __restrict__ A, int64_t lda, int64_t bsa, T* __r
   __syncthreads();
 
   for (int i = warp; i < v; i += kSmemWarps)
-    for (int j = lane; j < v; j += kWarp) dst[i * v + j] = i >= j ? S[i * ld + j] : T(0);
+    for (int j = lane; j < v; j += kWarp)
+      dst[i * v + j] = narrow<St>(i >= j ? S[i * ld + j] : T(0));
 }
 
-template <typename T>
+// S: the storage type.  The shared-memory body's block is in its compute type.
+template <typename S>
 int launch(const void* A, long long lda, long long bsa, void* L, int B, int v, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (v <= kWarp) {
-    const auto kernel = v == kWarp ? chol_panel_warp_kernel<T, true>
-                                   : chol_panel_warp_kernel<T, false>;
-    kernel<<<B, kWarp, 0, s>>>(static_cast<const T*>(A), lda, bsa, static_cast<T*>(L), v);
+    const auto kernel = v == kWarp ? chol_panel_warp_kernel<S, true>
+                                   : chol_panel_warp_kernel<S, false>;
+    kernel<<<B, kWarp, 0, s>>>(static_cast<const S*>(A), lda, bsa, static_cast<S*>(L), v);
     return static_cast<int>(cudaGetLastError());
   }
   // The limit is raised once per device, for the widest block.
+  using T = compute_t<S>;
   static OncePerDevice<> limit;
   const cudaError_t err = limit.get([](int, int*) {
-    return cudaFuncSetAttribute(chol_panel_smem_kernel<T>,
+    return cudaFuncSetAttribute(chol_panel_smem_kernel<S>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(kMaxV * (kMaxV + 2) * sizeof(T)));
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(v) * (v + 2) * sizeof(T);
-  chol_panel_smem_kernel<T><<<B, kThreads, smem, s>>>(static_cast<const T*>(A), lda, bsa,
-                                                      static_cast<T*>(L), v);
+  chol_panel_smem_kernel<S><<<B, kThreads, smem, s>>>(static_cast<const S*>(A), lda, bsa,
+                                                      static_cast<S*>(L), v);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // B blocks A [v, v] with row stride lda, batch stride bsa and unit column
-// stride; L: [B, v, v] contiguous output.  1 <= v <= 128, 1 <= B < 2^31.
-// Returns the cudaError_t of the launch.
-extern "C" int chol_panel_f32(const void* A, long long lda, long long bsa, void* L, int B,
-                              int v, void* stream) {
-  return launch<float>(A, lda, bsa, L, B, v, stream);
-}
-
-extern "C" int chol_panel_f64(const void* A, long long lda, long long bsa, void* L, int B,
-                              int v, void* stream) {
-  return launch<double>(A, lda, bsa, L, B, v, stream);
-}
+// stride; L: [B, v, v] contiguous output, of A's element type (the entry's
+// suffix).  1 <= v <= 128, 1 <= B < 2^31.  Returns the cudaError_t of the
+// launch.
+#define CHOL_ENTRY(suffix, S)                                                                \
+  extern "C" int chol_panel_##suffix(const void* A, long long lda, long long bsa, void* L,  \
+                                     int B, int v, void* stream) {                           \
+    return launch<S>(A, lda, bsa, L, B, v, stream);                                          \
+  }
+CHOL_ENTRY(f32, float)
+CHOL_ENTRY(f64, double)
+CHOL_ENTRY(bf16, __nv_bfloat16)
+CHOL_ENTRY(f16, __half)
 
 extern "C" const char* chol_panel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

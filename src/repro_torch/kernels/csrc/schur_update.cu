@@ -75,6 +75,16 @@
 // a wider matrix (row stride > N, bases 32 columns apart) take the TMA path.
 // The order of the sum differs from a library GEMM's, so results agree with
 // the plain version within a stated tolerance, not bitwise.
+//
+// bf16 and f16 (`storage.cuh`): the kernel is a template on the storage type
+// St of every operand and computes in T = compute_t<St> (f32 for both), as
+// the Pallas kernel does with its f32 accumulator: the plain loads widen
+// every value of A, L and U as they load it into the f32 layout in shared
+// memory, the products and the subtraction run as in f32, and each result is
+// rounded once, to nearest even, where it is stored.  The TMA stream is
+// chosen by the storage size (`Smem::kRing`, `bulk`), so 2-byte storage
+// always takes the plain loads and f32 tensor maps are never built over
+// 2-byte data.  The launcher reports which way a call went (`*mode`).
 
 #include <cstdint>
 
@@ -82,6 +92,7 @@
 #include <cuda_runtime.h>
 
 #include "once_per_device.cuh"
+#include "storage.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -97,23 +108,25 @@ struct Chunk {
   static constexpr int value = kRowBytes / sizeof(T);  // 32 in f32, 16 in f64
 };
 
-// One 16-byte run: four f32 or two f64 values.
+// One 16-byte run: four f32 or two f64 values (of the compute type).
 template <typename T>
 struct alignas(16) Run {
   T x[16 / sizeof(T)];
 };
 
 // Shared memory, from a 1024-byte boundary (the 128-byte swizzle repeats
-// every 8 rows): A [kBM][kBN] and L [kBM][128 B] per stage, then U
-// [chunk][kBN] twice, then a "full" mbarrier per stage.  The plain mode uses
-// stage 0 and U buffer 0.
-template <typename T>
+// every 8 rows), in the compute type T of storage type S: A [kBM][kBN] and
+// L [kBM][128 B] per stage, then U [chunk][kBN] twice, then a "full"
+// mbarrier per stage.  The plain mode uses stage 0 and U buffer 0.
+template <typename S>
 struct Smem {
+  using T = compute_t<S>;
   static constexpr uint32_t kA = kBM * kBN * sizeof(T);
   static constexpr uint32_t kL = kBM * kRowBytes;
   static constexpr uint32_t kU = Chunk<T>::value * kBN * sizeof(T);
   static constexpr uint32_t kStage = kA + kL;
-  static constexpr int kRing = sizeof(T) == 4 ? kStages : 1;  // f64 runs the plain mode only
+  // Only f32 storage takes the TMA stream: f64, bf16 and f16 run the plain mode only.
+  static constexpr int kRing = sizeof(S) == 4 ? kStages : 1;
   static constexpr uint32_t kBars = kRing * kStage + 2 * kU;
   static constexpr size_t kBytes = 1024 + kBars + kRing * 8;
   static_assert(kBytes <= 232448, "a block may use at most 227 KB of shared memory");
@@ -225,15 +238,16 @@ struct Operand {
   int64_t bs;  // batch stride, elements
 };
 
-template <typename T>
+template <typename St>
 __global__ void __launch_bounds__(kThreads, 1)
 schur_update_kernel(const __grid_constant__ CUtensorMap tm_a,
                     const __grid_constant__ CUtensorMap tm_l,
                     const __grid_constant__ CUtensorMap tm_u,
                     const __grid_constant__ CUtensorMap tm_out, Operand a_op, Operand l_op,
-                    Operand u_op, T* __restrict__ out, int64_t ldo, int64_t bso, int nsys, int M,
-                    int N, int K, int bulk) {
-  using S = Smem<T>;
+                    Operand u_op, St* __restrict__ out, int64_t ldo, int64_t bso, int nsys,
+                    int M, int N, int K, int bulk) {
+  using T = compute_t<St>;
+  using S = Smem<St>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -253,7 +267,7 @@ schur_update_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int64_t key0 = t_begin / nrt;  // (system, stripe) of the first tile
   T dot[8][4];
 
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(St) == 4) {
     if (bulk) {
       const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(base));
       const uint32_t u0 = smem0 + kStages * S::kStage;
@@ -327,14 +341,14 @@ schur_update_kernel(const __grid_constant__ CUtensorMap tm_a,
     const int row0 = static_cast<int>(tau % nrt) * kBM;
     const int col0 = static_cast<int>(key % nst) * kBN;
     const int64_t z = key / nst;
-    const T* A = static_cast<const T*>(a_op.ptr) + z * a_op.bs;
-    const T* L = static_cast<const T*>(l_op.ptr) + z * l_op.bs;
-    const T* U = static_cast<const T*>(u_op.ptr) + z * u_op.bs;
+    const St* A = static_cast<const St*>(a_op.ptr) + z * a_op.bs;
+    const St* L = static_cast<const St*>(l_op.ptr) + z * l_op.bs;
+    const St* U = static_cast<const St*>(u_op.ptr) + z * u_op.bs;
     for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
       const int m = idx / kBN;
       const int c = idx % kBN;
       const bool in = row0 + m < M && col0 + c < N;
-      As[idx] = in ? A[static_cast<int64_t>(row0 + m) * a_op.ld + col0 + c] : T(0);
+      As[idx] = in ? widen(A[static_cast<int64_t>(row0 + m) * a_op.ld + col0 + c]) : T(0);
     }
     for (int k0 = 0; k0 < K; k0 += kChunk) {
       for (int idx = tid; idx < kBM * kChunk; idx += kThreads) {
@@ -342,13 +356,13 @@ schur_update_kernel(const __grid_constant__ CUtensorMap tm_a,
         const int k = idx % kChunk;
         const bool in = row0 + m < M && k0 + k < K;
         *reinterpret_cast<T*>(Ls + l_offset(m, k / kRun) + (k % kRun) * sizeof(T)) =
-            in ? L[static_cast<int64_t>(row0 + m) * l_op.ld + k0 + k] : T(0);
+            in ? widen(L[static_cast<int64_t>(row0 + m) * l_op.ld + k0 + k]) : T(0);
       }
       for (int idx = tid; idx < kChunk * kBN; idx += kThreads) {
         const int k = idx / kBN;
         const int c = idx % kBN;
         const bool in = k0 + k < K && col0 + c < N;
-        Us[idx] = in ? U[static_cast<int64_t>(k0 + k) * u_op.ld + col0 + c] : T(0);
+        Us[idx] = in ? widen(U[static_cast<int64_t>(k0 + k) * u_op.ld + col0 + c]) : T(0);
       }
       __syncthreads();
       chunk_products<T>(Ls, Us, row, col, dot);
@@ -356,12 +370,12 @@ schur_update_kernel(const __grid_constant__ CUtensorMap tm_a,
       __syncthreads();
     }
     __syncthreads();  // K = 0: A's loads before the stores below
-    T* o = out + z * bso;
+    St* o = out + z * bso;
     for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
       const int m = idx / kBN;
       const int c = idx % kBN;
       if (row0 + m < M && col0 + c < N)
-        o[static_cast<int64_t>(row0 + m) * ldo + col0 + c] = As[idx];
+        o[static_cast<int64_t>(row0 + m) * ldo + col0 + c] = narrow<St>(As[idx]);
     }
     __syncthreads();
   }
@@ -391,10 +405,12 @@ bool f32_map(CUtensorMap* map, const void* ptr, int64_t ld, int64_t bs, int nsys
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T>
+template <typename S>
 int launch(const void* A, long long lda, long long bsa, const void* L, long long ldl,
            long long bsl, const void* U, long long ldu, long long bsu, void* out, long long ldo,
-           long long bso, int B, int M, int N, int K, void* stream) {
+           long long bso, int B, int M, int N, int K, int* mode, void* stream) {
+  using T = compute_t<S>;
+  *mode = 0;
   const int64_t tiles =
       static_cast<int64_t>(B) * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   if (tiles == 0) return static_cast<int>(cudaSuccess);
@@ -403,50 +419,52 @@ int launch(const void* A, long long lda, long long bsa, const void* L, long long
   int sms = 0;
   const cudaError_t err = limit.get(
       [](int dev, int* n) {
-        const cudaError_t e = cudaFuncSetAttribute(schur_update_kernel<T>,
+        const cudaError_t e = cudaFuncSetAttribute(schur_update_kernel<S>,
                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   static_cast<int>(Smem<T>::kBytes));
+                                                   static_cast<int>(Smem<S>::kBytes));
         return e != cudaSuccess ? e
                                 : cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
       },
       &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // TMA for f32 with one chunk of K (every path's shape), else plain loads.
+  // TMA for f32 storage with one chunk of K (every f32 path's shape), else
+  // plain loads: f64, bf16 and f16 storage always.
   CUtensorMap tm_a{}, tm_l{}, tm_u{}, tm_out{};
   const int bulk =
-      sizeof(T) == 4 && K <= Chunk<T>::value &&
+      sizeof(S) == 4 && K <= Chunk<T>::value &&
       f32_map(&tm_a, A, lda, bsa, B, M, N, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
       f32_map(&tm_l, L, ldl, bsl, B, M, K, kBM, Chunk<T>::value, CU_TENSOR_MAP_SWIZZLE_128B) &&
       f32_map(&tm_u, U, ldu, bsu, B, K, N, Chunk<T>::value, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
       f32_map(&tm_out, out, ldo, bso, B, M, N, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
+  *mode = bulk;
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  schur_update_kernel<T><<<grid, kThreads, Smem<T>::kBytes, static_cast<cudaStream_t>(stream)>>>(
+  schur_update_kernel<S><<<grid, kThreads, Smem<S>::kBytes, static_cast<cudaStream_t>(stream)>>>(
       tm_a, tm_l, tm_u, tm_out, Operand{A, lda, bsa}, Operand{L, ldl, bsl}, Operand{U, ldu, bsu},
-      static_cast<T*>(out), ldo, bso, B, M, N, K, bulk);
+      static_cast<S*>(out), ldo, bso, B, M, N, K, bulk);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// B systems: A [M, N], L [M, K], U [K, N], out [M, N], each with the given
-// row stride, batch stride and unit column stride (a single system is
-// B = 1).  Returns the cudaError_t of the launch.
-extern "C" int schur_update_f32(const void* A, long long lda, long long bsa, const void* L,
-                                long long ldl, long long bsl, const void* U, long long ldu,
-                                long long bsu, void* out, long long ldo, long long bso, int B,
-                                int M, int N, int K, void* stream) {
-  return launch<float>(A, lda, bsa, L, ldl, bsl, U, ldu, bsu, out, ldo, bso, B, M, N, K,
-                       stream);
-}
-
-extern "C" int schur_update_f64(const void* A, long long lda, long long bsa, const void* L,
-                                long long ldl, long long bsl, const void* U, long long ldu,
-                                long long bsu, void* out, long long ldo, long long bso, int B,
-                                int M, int N, int K, void* stream) {
-  return launch<double>(A, lda, bsa, L, ldl, bsl, U, ldu, bsu, out, ldo, bso, B, M, N, K,
-                        stream);
-}
+// B systems: A [M, N], L [M, K], U [K, N], out [M, N], all of one element
+// type (the entry's suffix), each with the given row stride, batch stride
+// and unit column stride (a single system is B = 1).  Sets *mode to 1 where
+// the operands took the TMA stream, 0 where they took plain loads (always
+// for f64, bf16 and f16).  Returns the cudaError_t of the launch.
+#define SCHUR_ENTRY(suffix, S)                                                                 \
+  extern "C" int schur_update_##suffix(const void* A, long long lda, long long bsa,           \
+                                       const void* L, long long ldl, long long bsl,           \
+                                       const void* U, long long ldu, long long bsu, void* out, \
+                                       long long ldo, long long bso, int B, int M, int N,     \
+                                       int K, int* mode, void* stream) {                      \
+    return launch<S>(A, lda, bsa, L, ldl, bsl, U, ldu, bsu, out, ldo, bso, B, M, N, K, mode,  \
+                     stream);                                                                  \
+  }
+SCHUR_ENTRY(f32, float)
+SCHUR_ENTRY(f64, double)
+SCHUR_ENTRY(bf16, __nv_bfloat16)
+SCHUR_ENTRY(f16, __half)
 
 extern "C" const char* schur_update_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -103,6 +103,17 @@
 //
 // Both sums run in another order than a library solve's, so results agree
 // with the plain versions within a stated tolerance, not bitwise.
+//
+// bf16 and f16 (`storage.cuh`): every body is a template on the storage type
+// St of B, the triangle and X, and computes in T = compute_t<St> (f32 for
+// both), as the Pallas kernels do: each value widens exactly as it is
+// loaded, the rows (columns), the staged triangle, the partial sums and the
+// zero-dividend test are in T, so a solve runs the f32 body's operations in
+// its order, and each result is rounded once, to nearest even, as it is
+// stored.  2-byte storage takes the plain loads and stores of each body:
+// the right solve's warp-wide 16-byte path through the swizzled tile is laid
+// out for 4- and 8-byte values (a 2-byte row of v = 32 is 64 bytes), so a
+// thread loads and stores its own row one value at a time there.
 
 #include <cmath>
 #include <cstdint>
@@ -110,6 +121,7 @@
 #include <cuda_runtime.h>
 
 #include "once_per_device.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -118,7 +130,7 @@ constexpr int kMaxV = 128;
 constexpr int kRegV = 32;         // v up to which a thread keeps its row (column) in registers
 constexpr int kRightRows = 128;   // rows (threads) per block of the right solve's register body
 
-// One 16-byte run: four f32 or two f64 values.
+// One 16-byte run: four f32 or two f64 values (of the compute type).
 template <typename T>
 struct alignas(16) Run {
   T x[16 / sizeof(T)];
@@ -134,11 +146,15 @@ __device__ __forceinline__ double opaque(double v) {
   return v;
 }
 
-template <typename T>
+// St: the storage type.  The 16-byte paths (vec_in, and the stores through
+// Ws) are laid out for rows of the compute type: 2-byte storage skips them.
+template <typename St>
 __global__ void __launch_bounds__(kRightRows)
-trsm_right_upper_reg_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
-                            const T* __restrict__ U, int64_t ldu_r, int64_t ldu_c, int64_t bsu,
-                            T* __restrict__ X, int R, int v, int vec_in) {
+trsm_right_upper_reg_kernel(const St* __restrict__ B, int64_t ldb, int64_t bsb,
+                            const St* __restrict__ U, int64_t ldu_r, int64_t ldu_c, int64_t bsu,
+                            St* __restrict__ X, int R, int v, int vec_in) {
+  using T = compute_t<St>;
+  constexpr bool kWide = sizeof(St) == sizeof(T);  // the 16-byte paths: f32 and f64 storage
   constexpr int kRun = 16 / sizeof(T);
   constexpr int kRowRuns = kRegV / kRun;       // 16-byte runs of a row: 8 in f32, 16 in f64
   constexpr int kRowsAtOnce = 32 / kRowRuns;   // rows a warp's 16-byte access covers
@@ -168,7 +184,7 @@ trsm_right_upper_reg_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
   // 128-byte rows; else one value a load of the thread's own row.
   Run<T> runs[kRowRuns];
   T x[kRegV];
-  if (vec_in) {
+  if (kWide && vec_in) {
 #pragma unroll
     for (int i = 0; i < kRowRuns; ++i) {
       const int r = lane / kRowRuns + i * kRowsAtOnce;
@@ -177,12 +193,13 @@ trsm_right_upper_reg_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
       for (int e = 0; e < kRun; ++e) runs[i].x[e] = T(0);
       if (warp_row0 + r < R && c * kRun < v)
         runs[i] = *reinterpret_cast<const Run<T>*>(
-            B + static_cast<int64_t>(warp_row0 + r) * ldb + c * kRun);
+            reinterpret_cast<const T*>(B) + static_cast<int64_t>(warp_row0 + r) * ldb +
+            c * kRun);
     }
   } else {
-    const T* b = B + static_cast<int64_t>(row) * ldb;
+    const St* b = B + static_cast<int64_t>(row) * ldb;
 #pragma unroll
-    for (int m = 0; m < kRegV; ++m) x[m] = row < R && m < v ? b[m] : T(0);
+    for (int m = 0; m < kRegV; ++m) x[m] = row < R && m < v ? widen(b[m]) : T(0);
   }
 
   // U's upper triangle: this thread's elements idx = threadIdx.x + i *
@@ -197,7 +214,7 @@ trsm_right_upper_reg_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
     const int idx = threadIdx.x + i * kRightRows;
     const int j = by_rows ? idx / kRegV : idx % kRegV;
     const int m = by_rows ? idx % kRegV : idx / kRegV;
-    staged[i] = j <= m && m < v ? U[j * ldu_r + m * ldu_c] : T(j == m ? 1 : 0);
+    staged[i] = j <= m && m < v ? widen(U[j * ldu_r + m * ldu_c]) : T(j == m ? 1 : 0);
   }
 #pragma unroll
   for (int i = 0; i < kStage; ++i) {
@@ -206,7 +223,7 @@ trsm_right_upper_reg_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
     const int m = by_rows ? idx % kRegV : idx / kRegV;
     Us[at(j, m)] = staged[i];
   }
-  if (vec_in) {
+  if (kWide && vec_in) {
 #pragma unroll
     for (int i = 0; i < kRowRuns; ++i) {
       const int r = lane / kRowRuns + i * kRowsAtOnce;
@@ -214,7 +231,7 @@ trsm_right_upper_reg_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
     }
   }
   __syncthreads();
-  if (vec_in) {
+  if (kWide && vec_in) {
 #pragma unroll
     for (int c = 0; c < kRowRuns; ++c) {
       const Run<T> run = *reinterpret_cast<const Run<T>*>(ws + at(lane, c * kRun));
@@ -253,9 +270,9 @@ trsm_right_upper_reg_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
 
   // X out: where v is a whole number of runs (X is contiguous from a
   // 256-byte boundary), the rows go back through Ws and leave in 16-byte
-  // runs as they came in, a warp's store covering whole rows; else one value
-  // a store.
-  if (v % kRun == 0) {
+  // runs as they came in, a warp's store covering whole rows; else, and in
+  // 2-byte storage, one value a store.
+  if (kWide && v % kRun == 0) {
 #pragma unroll
     for (int c = 0; c < kRowRuns; ++c) {
       Run<T> run;
@@ -269,21 +286,23 @@ trsm_right_upper_reg_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
       const int r = lane / kRowRuns + i * kRowsAtOnce;
       const int c = lane % kRowRuns;
       if (warp_row0 + r < R && c * kRun < v)
-        *reinterpret_cast<Run<T>*>(X + static_cast<int64_t>(warp_row0 + r) * v + c * kRun) =
+        *reinterpret_cast<Run<T>*>(reinterpret_cast<T*>(X) +
+                                   static_cast<int64_t>(warp_row0 + r) * v + c * kRun) =
             *reinterpret_cast<const Run<T>*>(ws + at(r, c * kRun));
     }
   } else if (row < R) {
 #pragma unroll
     for (int m = 0; m < kRegV; ++m)
-      if (m < v) X[static_cast<int64_t>(row) * v + m] = x[m];
+      if (m < v) X[static_cast<int64_t>(row) * v + m] = narrow<St>(x[m]);
   }
 }
 
-template <typename T>
+template <typename St>
 __global__ void __launch_bounds__(kRows)
-trsm_right_upper_smem_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
-                             const T* __restrict__ U, int64_t ldu_r, int64_t ldu_c,
-                             int64_t bsu, T* __restrict__ X, int R, int v) {
+trsm_right_upper_smem_kernel(const St* __restrict__ B, int64_t ldb, int64_t bsb,
+                             const St* __restrict__ U, int64_t ldu_r, int64_t ldu_c,
+                             int64_t bsu, St* __restrict__ X, int R, int v) {
+  using T = compute_t<St>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Us = reinterpret_cast<T*>(smem_raw);  // [v][v]
   const int ld = v + 1;
@@ -299,12 +318,12 @@ trsm_right_upper_smem_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
   for (int idx = threadIdx.x; idx < v * v; idx += kRows) {
     const int i = idx / v;
     const int j = idx - i * v;
-    Us[idx] = U[i * ldu_r + j * ldu_c];
+    Us[idx] = widen(U[i * ldu_r + j * ldu_c]);
   }
   for (int idx = threadIdx.x; idx < rows * v; idx += kRows) {
     const int r = idx / v;
     const int c = idx - r * v;
-    Xs[r * ld + c] = B[static_cast<int64_t>(row0 + r) * ldb + c];
+    Xs[r * ld + c] = widen(B[static_cast<int64_t>(row0 + r) * ldb + c]);
   }
   __syncthreads();
 
@@ -321,18 +340,19 @@ trsm_right_upper_smem_kernel(const T* __restrict__ B, int64_t ldb, int64_t bsb,
   for (int idx = threadIdx.x; idx < rows * v; idx += kRows) {
     const int r = idx / v;
     const int c = idx - r * v;
-    X[static_cast<int64_t>(row0 + r) * v + c] = Xs[r * ld + c];
+    X[static_cast<int64_t>(row0 + r) * v + c] = narrow<St>(Xs[r * ld + c]);
   }
 }
 
 constexpr int kCols = 64;         // columns (threads) per block of the shared-memory body
 constexpr int kRegCols = 128;     // columns (threads) per block of the register body
 
-template <typename T>
+template <typename St>
 __global__ void __launch_bounds__(kRegCols)
-trsm_left_lower_reg_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c, int64_t bsl,
-                           const T* __restrict__ B, int64_t ldb, int64_t bsb,
-                           T* __restrict__ X, int C, int v, int unit) {
+trsm_left_lower_reg_kernel(const St* __restrict__ L, int64_t ldl_r, int64_t ldl_c, int64_t bsl,
+                           const St* __restrict__ B, int64_t ldb, int64_t bsb,
+                           St* __restrict__ X, int C, int v, int unit) {
+  using T = compute_t<St>;
   __shared__ __align__(16) T Lt[kRegV * kRegV];  // Lt[q][r] = L[r][q]; zero where not read
   constexpr int kRun = 16 / sizeof(T);
 
@@ -346,7 +366,7 @@ trsm_left_lower_reg_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c
   // This thread's column, every row requested before anything waits on one.
   T x[kRegV];
 #pragma unroll
-  for (int r = 0; r < kRegV; ++r) x[r] = has_col && r < v ? B[r * ldb + col] : T(0);
+  for (int r = 0; r < kRegV; ++r) x[r] = has_col && r < v ? widen(B[r * ldb + col]) : T(0);
 
   // L, transposed into shared memory: this thread's elements idx =
   // threadIdx.x + i * kRegCols, all loads issued before the first store.
@@ -358,7 +378,7 @@ trsm_left_lower_reg_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c
     const int q = idx / kRegV;
     const int r = idx % kRegV;
     const bool read = r < v && (q < r || (q == r && !unit));
-    staged[i] = read ? L[r * ldl_r + q * ldl_c] : T(0);
+    staged[i] = read ? widen(L[r * ldl_r + q * ldl_c]) : T(0);
   }
 #pragma unroll
   for (int i = 0; i < kStage; ++i) Lt[threadIdx.x + i * kRegCols] = staged[i];
@@ -388,14 +408,15 @@ trsm_left_lower_reg_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c
 
 #pragma unroll
   for (int r = 0; r < kRegV; ++r)
-    if (r < v) X[static_cast<int64_t>(r) * C + col] = x[r];
+    if (r < v) X[static_cast<int64_t>(r) * C + col] = narrow<St>(x[r]);
 }
 
-template <typename T>
+template <typename St>
 __global__ void __launch_bounds__(kCols)
-trsm_left_lower_smem_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_c, int64_t bsl,
-                            const T* __restrict__ B, int64_t ldb, int64_t bsb,
-                            T* __restrict__ X, int C, int v, int unit) {
+trsm_left_lower_smem_kernel(const St* __restrict__ L, int64_t ldl_r, int64_t ldl_c, int64_t bsl,
+                            const St* __restrict__ B, int64_t ldb, int64_t bsb,
+                            St* __restrict__ X, int C, int v, int unit) {
+  using T = compute_t<St>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ls = reinterpret_cast<T*>(smem_raw);  // [v][v]
   T* Xs = Ls + v * v;                      // [v][kCols]: this block's columns
@@ -408,24 +429,26 @@ trsm_left_lower_smem_kernel(const T* __restrict__ L, int64_t ldl_r, int64_t ldl_
   const int col = blockIdx.x * kCols + tx;
 
   for (int r = 0; r < v; ++r)
-    for (int q = tx; q < v; q += kCols) Ls[r * v + q] = L[r * ldl_r + q * ldl_c];
+    for (int q = tx; q < v; q += kCols) Ls[r * v + q] = widen(L[r * ldl_r + q * ldl_c]);
   __syncthreads();
 
   if (col < C) {
     for (int r = 0; r < v; ++r) {
       T partial = T(0);
       for (int q = 0; q < r; ++q) partial += Ls[r * v + q] * Xs[q * kCols + tx];
-      T x = B[r * ldb + col] - partial;
+      T x = widen(B[r * ldb + col]) - partial;
       if (!unit) x = x / Ls[r * v + r];
       Xs[r * kCols + tx] = x;
-      X[static_cast<int64_t>(r) * C + col] = x;
+      X[static_cast<int64_t>(r) * C + col] = narrow<St>(x);
     }
   }
 }
 
-template <typename T>
+// S: the storage type; shared memory holds its compute type T.
+template <typename S>
 int launch(const void* B, long long ldb, long long bsb, const void* U, long long ldu_r,
            long long ldu_c, long long bsu, void* X, int Bb, int R, int v, void* stream) {
+  using T = compute_t<S>;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (v <= kRegV) {
     constexpr int kRun = 16 / sizeof(T);
@@ -433,54 +456,55 @@ int launch(const void* B, long long ldb, long long bsb, const void* U, long long
                        bsb % kRun == 0 && v % kRun == 0;
     const dim3 grid(
         static_cast<unsigned>((static_cast<int64_t>(R) + kRightRows - 1) / kRightRows), 1, Bb);
-    trsm_right_upper_reg_kernel<T><<<grid, kRightRows, 0, s>>>(
-        static_cast<const T*>(B), ldb, bsb, static_cast<const T*>(U), ldu_r, ldu_c, bsu,
-        static_cast<T*>(X), R, v, vec_in);
+    trsm_right_upper_reg_kernel<S><<<grid, kRightRows, 0, s>>>(
+        static_cast<const S*>(B), ldb, bsb, static_cast<const S*>(U), ldu_r, ldu_c, bsu,
+        static_cast<S*>(X), R, v, vec_in);
     return static_cast<int>(cudaGetLastError());
   }
   // The limit is raised once per device, for the widest panel.
   static OncePerDevice<> limit;
   const cudaError_t err = limit.get([](int, int*) {
     return cudaFuncSetAttribute(
-        trsm_right_upper_smem_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        trsm_right_upper_smem_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>((kMaxV * (kMaxV + kRows) + kRows) * sizeof(T)));
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = (static_cast<size_t>(v) * v + static_cast<size_t>(kRows) * (v + 1)) *
                       sizeof(T);
   const dim3 grid((R + kRows - 1) / kRows, 1, Bb);
-  trsm_right_upper_smem_kernel<T><<<grid, kRows, smem, s>>>(
-      static_cast<const T*>(B), ldb, bsb, static_cast<const T*>(U), ldu_r, ldu_c, bsu,
-      static_cast<T*>(X), R, v);
+  trsm_right_upper_smem_kernel<S><<<grid, kRows, smem, s>>>(
+      static_cast<const S*>(B), ldb, bsb, static_cast<const S*>(U), ldu_r, ldu_c, bsu,
+      static_cast<S*>(X), R, v);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename S>
 int launch_left_lower(const void* L, long long ldl_r, long long ldl_c, long long bsl,
                       const void* B, long long ldb, long long bsb, void* X, int Bb, int v, int C,
                       int unit, void* stream) {
+  using T = compute_t<S>;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (v <= kRegV) {
     const dim3 grid(
         static_cast<unsigned>((static_cast<int64_t>(C) + kRegCols - 1) / kRegCols), 1, Bb);
-    trsm_left_lower_reg_kernel<T><<<grid, kRegCols, 0, s>>>(
-        static_cast<const T*>(L), ldl_r, ldl_c, bsl, static_cast<const T*>(B), ldb, bsb,
-        static_cast<T*>(X), C, v, unit);
+    trsm_left_lower_reg_kernel<S><<<grid, kRegCols, 0, s>>>(
+        static_cast<const S*>(L), ldl_r, ldl_c, bsl, static_cast<const S*>(B), ldb, bsb,
+        static_cast<S*>(X), C, v, unit);
     return static_cast<int>(cudaGetLastError());
   }
   // As above: the limit is raised once per device, for the widest panel.
   static OncePerDevice<> limit;
   const cudaError_t err = limit.get([](int, int*) {
-    return cudaFuncSetAttribute(trsm_left_lower_smem_kernel<T>,
+    return cudaFuncSetAttribute(trsm_left_lower_smem_kernel<S>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(kMaxV * (kMaxV + kCols) * sizeof(T)));
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(v) * (v + kCols) * sizeof(T);
   const dim3 grid(static_cast<unsigned>((static_cast<int64_t>(C) + kCols - 1) / kCols), 1, Bb);
-  trsm_left_lower_smem_kernel<T><<<grid, kCols, smem, s>>>(
-      static_cast<const T*>(L), ldl_r, ldl_c, bsl, static_cast<const T*>(B), ldb, bsb,
-      static_cast<T*>(X), C, v, unit);
+  trsm_left_lower_smem_kernel<S><<<grid, kCols, smem, s>>>(
+      static_cast<const S*>(L), ldl_r, ldl_c, bsl, static_cast<const S*>(B), ldb, bsb,
+      static_cast<S*>(X), C, v, unit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -489,35 +513,38 @@ int launch_left_lower(const void* L, long long ldl_r, long long ldl_c, long long
 // Bb systems: B [R, v] with row stride ldb and batch stride bsb (unit column
 // stride); U [v, v] with row stride ldu_r, column stride ldu_c and batch
 // stride bsu; X: [Bb, R, v] contiguous output.  1 <= v <= 128, R >= 1,
-// 1 <= Bb <= 65535.  Returns the cudaError_t of the launch.
-extern "C" int trsm_right_upper_f32(const void* B, long long ldb, long long bsb, const void* U,
-                                    long long ldu_r, long long ldu_c, long long bsu, void* X,
-                                    int Bb, int R, int v, void* stream) {
-  return launch<float>(B, ldb, bsb, U, ldu_r, ldu_c, bsu, X, Bb, R, v, stream);
-}
-
-extern "C" int trsm_right_upper_f64(const void* B, long long ldb, long long bsb, const void* U,
-                                    long long ldu_r, long long ldu_c, long long bsu, void* X,
-                                    int Bb, int R, int v, void* stream) {
-  return launch<double>(B, ldb, bsb, U, ldu_r, ldu_c, bsu, X, Bb, R, v, stream);
-}
+// 1 <= Bb <= 65535.  Every operand has the element type of the entry's
+// suffix.  Returns the cudaError_t of the launch.
+#define RIGHT_ENTRY(suffix, S)                                                                 \
+  extern "C" int trsm_right_upper_##suffix(const void* B, long long ldb, long long bsb,       \
+                                           const void* U, long long ldu_r, long long ldu_c,   \
+                                           long long bsu, void* X, int Bb, int R, int v,      \
+                                           void* stream) {                                    \
+    return launch<S>(B, ldb, bsb, U, ldu_r, ldu_c, bsu, X, Bb, R, v, stream);                 \
+  }
+RIGHT_ENTRY(f32, float)
+RIGHT_ENTRY(f64, double)
+RIGHT_ENTRY(bf16, __nv_bfloat16)
+RIGHT_ENTRY(f16, __half)
 
 // Bb systems: L [v, v] with row stride ldl_r, column stride ldl_c and batch
 // stride bsl (only its lower triangle is read, and its diagonal only when
 // unit == 0); B [v, C] with row stride ldb and batch stride bsb (unit column
 // stride); X: [Bb, v, C] contiguous output.  1 <= v <= 128, C >= 1,
-// 1 <= Bb <= 65535.  Returns the cudaError_t of the launch.
-extern "C" int trsm_left_lower_f32(const void* L, long long ldl_r, long long ldl_c,
-                                   long long bsl, const void* B, long long ldb, long long bsb,
-                                   void* X, int Bb, int v, int C, int unit, void* stream) {
-  return launch_left_lower<float>(L, ldl_r, ldl_c, bsl, B, ldb, bsb, X, Bb, v, C, unit, stream);
-}
-
-extern "C" int trsm_left_lower_f64(const void* L, long long ldl_r, long long ldl_c,
-                                   long long bsl, const void* B, long long ldb, long long bsb,
-                                   void* X, int Bb, int v, int C, int unit, void* stream) {
-  return launch_left_lower<double>(L, ldl_r, ldl_c, bsl, B, ldb, bsb, X, Bb, v, C, unit, stream);
-}
+// 1 <= Bb <= 65535.  Every operand has the element type of the entry's
+// suffix.  Returns the cudaError_t of the launch.
+#define LEFT_ENTRY(suffix, S)                                                                  \
+  extern "C" int trsm_left_lower_##suffix(const void* L, long long ldl_r, long long ldl_c,    \
+                                          long long bsl, const void* B, long long ldb,        \
+                                          long long bsb, void* X, int Bb, int v, int C,       \
+                                          int unit, void* stream) {                           \
+    return launch_left_lower<S>(L, ldl_r, ldl_c, bsl, B, ldb, bsb, X, Bb, v, C, unit,         \
+                                stream);                                                      \
+  }
+LEFT_ENTRY(f32, float)
+LEFT_ENTRY(f64, double)
+LEFT_ENTRY(bf16, __nv_bfloat16)
+LEFT_ENTRY(f16, __half)
 
 extern "C" const char* trsm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -6,7 +6,14 @@ Ports of `repro/kernels/schur_update.py::schur_update` and
 a batch of one, so a batched lane equals the single call bit for bit.  A
 CPU tensor goes to the plain version (`repro_torch.kernels.ref`); a CUDA
 tensor launches the kernel or raises.  `schur_update.launches` and
-`schur_update_batched.launches` count the launches.
+`schur_update_batched.launches` count the launches, and `.mode` says whether
+the last launch took the kernel's TMA stream ("tma") or its plain loads
+("plain").
+
+bf16 and f16 operands have entry points of their own, which always take the
+plain loads: they widen every value to f32 as they load it, form A - L @ U
+in f32, and round each result once where they store it, as the plain
+version does.
 """
 
 from __future__ import annotations
@@ -24,10 +31,12 @@ from repro_torch.kernels import _build, ref
 TILE_M = 64
 MAX_GRID_YZ = 65535
 MAX_DIM = 2**31 - 1
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 _ARGTYPES = (
     *(ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) * 4,
     *(ctypes.c_int,) * 4,
+    ctypes.POINTER(ctypes.c_int),
     ctypes.c_void_p,
 )
 
@@ -55,8 +64,7 @@ def _check(name: str, A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> None
         raise ValueError(f"{name}: the kernel needs CUDA tensors, got {A.device}")
     if A.dtype not in _SUFFIX:
         raise TypeError(
-            f"{name}: the kernel takes float32 or float64, got {A.dtype} "
-            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+            f"{name}: the kernel takes float32, float64, bfloat16 or float16, got {A.dtype}"
         )
     for arg, t in (("L", L), ("U", U)):
         if t.device != A.device or t.dtype != A.dtype:
@@ -65,15 +73,18 @@ def _check(name: str, A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> None
             )
 
 
-def _launch(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on B systems given as 3-D tensors [B, ...]."""
+def _launch(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor):
+    """Launch the kernel on B systems given as 3-D tensors [B, ...].
+
+    Returns (out, mode)."""
     B, M, N = A.shape
     out = torch.empty((B, M, N), dtype=A.dtype, device=A.device)
     fn = _build.function("schur_update", f"schur_update_{_SUFFIX[A.dtype]}", _ARGTYPES)
+    bulk = ctypes.c_int(0)
     _build.launch("schur_update", fn, A.device,
                   *(x for t in (A, L, U, out) for x in (t.data_ptr(), t.stride(1), t.stride(0))),
-                  B, M, N, L.shape[-1])
-    return out
+                  B, M, N, L.shape[-1], ctypes.byref(bulk))
+    return out, "tma" if bulk.value else "plain"
 
 
 def schur_update(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
@@ -82,7 +93,7 @@ def schur_update(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Ten
     if A.device.type == "cpu":
         return ref.schur_update(A, L, U)
     _check("schur_update", A, L, U)
-    out = _launch(A[None], L[None], U[None])
+    out, schur_update.mode = _launch(A[None], L[None], U[None])
     schur_update.launches += 1
     return out[0]
 
@@ -95,10 +106,11 @@ def schur_update_batched(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> t
     _check("schur_update_batched", A, L, U)
     if A.shape[0] == 0:
         return torch.empty_like(A)
-    out = _launch(A, L, U)
+    out, schur_update_batched.mode = _launch(A, L, U)
     schur_update_batched.launches += 1
     return out
 
 
 schur_update.launches = 0
 schur_update_batched.launches = 0
+schur_update.mode = schur_update_batched.mode = None

@@ -8,6 +8,10 @@ launch the same kernel, a single system as a batch of one, so a batched lane
 equals the single call bit for bit.  A CPU tensor goes to the plain version
 (`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or raises.
 Each wrapper counts its launches in `<wrapper>.launches`.
+
+bf16 and f16 operands have entry points of their own: they widen every value
+to f32 as they load it, solve in f32 with the f32 kernels' operations, and
+round each result once where they store it, as the plain versions do.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from repro_torch.kernels import _build, ref
 MAX_V = 128  # the triangle and a row (column) tile share one block's shared memory
 MAX_BATCH = 65535  # systems on gridDim.z
 MAX_ROWS = 2**31 - 1  # rows of B (right solve), columns of B (left solve)
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
@@ -51,8 +56,7 @@ def _check_common(name: str, B: torch.Tensor, T: torch.Tensor, lead: tuple) -> N
         raise ValueError(f"{name}: the kernel needs CUDA tensors, got {B.device}")
     if B.dtype not in _SUFFIX:
         raise TypeError(
-            f"{name}: the kernel takes float32 or float64, got {B.dtype} "
-            f"(bf16/f16 arrive with ROADMAP.md module item 7, mixed precision)"
+            f"{name}: the kernel takes float32, float64, bfloat16 or float16, got {B.dtype}"
         )
     if T.device != B.device or T.dtype != B.dtype:
         raise ValueError(f"{name}: the triangle is {T.dtype} on {T.device}, "

@@ -123,11 +123,11 @@ class SolveEngine:
 
     `device=None` is the CUDA card (raises when there is none); pass
     `device="cpu"` for the plain PyTorch versions on the CPU.  `overrides`
-    are SolverConfig fields; a `compute_dtype` plan is served in that dtype,
-    with per-request refinement on demand.  The plan is resolved here, so a
-    config the port cannot serve yet (a distributed strategy, a compute
-    dtype without kernels for the engine's strategy) raises at construction,
-    naming its ROADMAP.md item.
+    are SolverConfig fields; a `compute_dtype` plan (bf16 or f16 under f32,
+    f32 under f64, LU or Cholesky) is served in that dtype, with per-request
+    refinement on demand.  The plan is resolved here, so a config the port
+    cannot serve yet (a distributed strategy) raises at construction, naming
+    its ROADMAP.md item.
     """
 
     def __init__(self, N: int, config: SolverConfig | None = None, *, device=None,

@@ -38,6 +38,20 @@ CASES = {
     "cholesky25d_flat": ("cholesky25d", "none", (2, 2, 2), "flat"),
     "conflux_2x2x1_idle": ("conflux", "tournament", (2, 2, 1), "windowed"),
 }
+# The same, factored in a 2-byte compute dtype (the JAX side casts A to it):
+# name -> (strategy, pivot, (Px, Py, c), hotloop, compute dtype).  The flat
+# hot loop on both sides: the JAX "ref" fused step rounds U01 first.
+LOW_CASES = {
+    "conflux_flat_bf16": ("conflux", "tournament", (2, 2, 2), "flat", "bfloat16"),
+}
+
+
+def _all_cases():
+    """(name, strategy, pivot, (Px, Py, c), hotloop, compute dtype or None)."""
+    for name, case in CASES.items():
+        yield name, *case, None
+    for name, case in LOW_CASES.items():
+        yield name, *case
 
 
 def inputs():
@@ -55,6 +69,7 @@ def run_jax(out: str) -> None:
     os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
                                "--xla_backend_optimization_level=0")
     import jax
+    import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
     import repro.core.lu  # noqa: F401  (before repro.kernels.backend: no import cycle)
@@ -70,7 +85,7 @@ def run_jax(out: str) -> None:
     A, A_spd = inputs()
     spec = P("px", "py", None, None)
     res = {}
-    for name, (strategy, pivot, (Px, Py, c), hotloop) in CASES.items():
+    for name, strategy, pivot, (Px, Py, c), hotloop, compute in _all_cases():
         grid = GridConfig(Px, Py, c, V, N)
         mesh = make_lu_mesh(grid)
         if strategy == "cholesky25d":
@@ -81,14 +96,19 @@ def run_jax(out: str) -> None:
                                _local_lu(g, p, "ref", b, hotloop=h), (spec, P()), A)
         fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=spec, out_specs=outs,
                                    check_vma=False))
-        got = fn(block_cyclic_scatter(Ain, Px, Py, V))
+        Aloc = block_cyclic_scatter(Ain, Px, Py, V)
+        got = fn(Aloc if compute is None else jnp.asarray(Aloc).astype(compute))
         blocks, rows = (got, np.arange(N)) if strategy == "cholesky25d" else got
-        res[f"{name}_F"] = block_cyclic_gather(np.asarray(blocks), N, V)
+        res[f"{name}_F"] = block_cyclic_gather(np.asarray(blocks.astype(jnp.float32)), N, V)
         res[f"{name}_rows"] = np.asarray(rows).astype(np.int64)
     np.savez(out, **res)
 
 
 def _digest(t) -> str:
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)  # its bits: numpy has no bfloat16
     return hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()
 
 
@@ -105,14 +125,14 @@ def _rank_main(rank: int, out_dir: str) -> None:
     try:
         A, A_spd = inputs()
         facts, port = {}, {}
-        for name, (strategy, pivot, (Px, Py, c), hotloop) in CASES.items():
+        for name, strategy, pivot, (Px, Py, c), hotloop, compute in _all_cases():
             cfg = SolverConfig(strategy=strategy, pivot=pivot, hotloop=hotloop,
-                               grid=GridConfig(Px, Py, c, V, N))
+                               grid=GridConfig(Px, Py, c, V, N), compute_dtype=compute)
             fact = plan(N, cfg, device="cpu").execute(A_spd if strategy == "cholesky25d" else A)
             facts[name] = {"F": _digest(fact.F), "rows": _digest(fact.rows),
                            "comm_total": fact.comm["total"], "kind": fact.kind,
                            "grid": [fact.grid.Px, fact.grid.Py, fact.grid.c]}
-            port[f"{name}_F"] = fact.F.numpy()
+            port[f"{name}_F"] = fact.F.float().numpy()
             port[f"{name}_rows"] = fact.rows.numpy()
         auto = resolve(N, SolverConfig())
         base = resolve(N, SolverConfig(strategy="baseline2d", v=V))

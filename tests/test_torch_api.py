@@ -123,8 +123,8 @@ def test_plan_without_device_targets_cuda():
     (dict(backend="pallas"), "'cuda'"),
     (dict(strategy="conflux", pivot="none"), "Cholesky-only"),
     (dict(B=4, strategy="cholesky25d"), "does not support batched plans"),
-    (dict(strategy="sequential_chol", compute_dtype="bfloat16"), "item 7"),
-    (dict(strategy="sequential_chol", dtype="float16"), "module item 7"),
+    (dict(strategy="sequential_chol", dtype="bfloat16"), "compute_dtype='bfloat16'"),
+    (dict(strategy="sequential_chol", compute_dtype="float64"), "wider than the working"),
     (dict(v=256), "panel widths"),
     (dict(grid=GridConfig(2, 2, 1, 8, 64)), "needs 4 ranks but the process group has 1"),
 ])

@@ -367,6 +367,26 @@ def test_eight_ranks_match_reference(eight_ranks, case):
     assert facts[0][case]["grid"] == list(shape)
 
 
+@pytest.mark.parametrize("case", ["conflux_flat_bf16"])
+def test_eight_ranks_2byte_matches_reference(eight_ranks, case):
+    """A 2x2x2 conflux run factored in bf16 on both sides: the pivots equal,
+    F within N / 8 * eps(bf16) * max|F| (`_low_tol` of
+    tests/test_torch_mixed_precision.py: f32 sums in another order that land
+    beside a bf16 rounding boundary, carried by later steps), and every rank
+    returned the same bits."""
+    jres, port, facts = eight_ranks
+    strategy, pivot, shape, _, compute = _cases_module().LOW_CASES[case]
+    np.testing.assert_array_equal(port[f"{case}_rows"], jres[f"{case}_rows"])
+    F_ref = jres[f"{case}_F"]
+    eps = torch.finfo(getattr(torch, compute)).eps
+    assert np.abs(port[f"{case}_F"] - F_ref).max() <= 128 / 8 * eps * np.abs(F_ref).max()
+    assert len({(f[case]["F"], f[case]["rows"]) for f in facts}) == 1
+    assert facts[0][case]["grid"] == list(shape)
+    g = GridConfig(*shape, 16, 128)
+    assert facts[0][case]["comm_total"] == conflux.lu_comm_volume(128, g, pivot=pivot)["total"]
+    assert strategy == "conflux"
+
+
 def test_eight_ranks_windowed_equals_flat(eight_ranks):
     _, port, _ = eight_ranks
     for name in ("conflux", "cholesky25d"):

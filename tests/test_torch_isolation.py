@@ -42,3 +42,33 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
+    for p in (ROOT / "src" / "repro_torch").rglob("*.py")
+)
+
+
+@pytest.fixture(scope="module")
+def fresh_imports():
+    """Import each module of the port first thing in an interpreter of its
+    own (an import cycle shows only for some entry modules), four at a time.
+    Maps each module to (return code, stderr)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run(module):
+        out = subprocess.run([sys.executable, "-c", f"import {module}"], capture_output=True,
+                             text=True, env=env, timeout=300)
+        return out.returncode, out.stderr[-2000:]
+
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip(PORT_MODULES, pool.map(run, PORT_MODULES)))
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_each_port_module_imports_first_in_a_fresh_interpreter(module, fresh_imports):
+    rc, err = fresh_imports[module]
+    assert rc == 0, f"import {module} in a fresh interpreter failed:\n{err}"

@@ -155,29 +155,38 @@ def test_bytes_column_scales_with_compute_dtype():
 
 
 @pytest.mark.parametrize("compute", ["bfloat16", "float16"])
-@pytest.mark.parametrize("strategy,B,runs", [
-    ("sequential", None, True), ("auto", None, True), ("auto", 4, True),
-    ("sequential_chol", None, False), ("sequential_chol", 4, False), ("conflux", None, False),
-    ("baseline2d", None, False), ("cholesky25d", None, False),
+@pytest.mark.parametrize("strategy,B", [
+    ("sequential", None), ("auto", None), ("auto", 4), ("sequential_chol", None),
+    ("sequential_chol", 4), ("conflux", None), ("baseline2d", None), ("cholesky25d", None),
 ])
-def test_cuda_backend_takes_2byte_compute_on_the_lu_strategies(strategy, B, runs, compute):
-    """bf16/f16 kernels exist for lu_panel and fused_trsm_schur only: the
-    other strategies are refused on "cuda", naming ROADMAP.md item 7, and
-    run on "ref"; f32 compute under f64 runs on every strategy."""
+def test_cuda_backend_takes_2byte_compute_on_the_lu_strategies(strategy, B, compute):
+    """Every primitive has bf16/f16 kernels, so every strategy, the LU ones
+    and the Cholesky ones alike, resolves a 2-byte compute dtype on "cuda" as
+    on "ref"; f32 compute under f64 runs on every strategy."""
     cfg = SolverConfig(strategy=strategy, B=B, compute_dtype=compute)
-    if runs:
-        assert resolve(64, cfg).compute_dtype == compute
-    else:
-        with pytest.raises(ValueError, match="module item 7"):
-            resolve(64, cfg)
+    resolved = resolve(64, cfg)
+    assert resolved.compute_dtype == compute and resolved.backend == "cuda"
     assert resolve(64, cfg.with_(backend="ref")).compute_dtype == compute
     assert resolve(64, cfg.with_(dtype="float64", compute_dtype="float32")).backend == "cuda"
 
 
 def test_kernel_dtypes_name_the_2byte_entry_points():
+    """Every primitive lists bf16 and f16, and each of its CUDA sources
+    defines the `_bf16` and `_f16` entry points its wrappers call."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    entries = {"panel_lup": ("lu_panel", "LU_PANEL_ENTRY"),
+               "fused_trsm_schur": ("fused_schur", "FUSED_ENTRY"),
+               "panel_chol": ("chol_panel", "CHOL_ENTRY"),
+               "trsm_right_upper": ("trsm", "RIGHT_ENTRY"),
+               "trsm_left_lower": ("trsm", "LEFT_ENTRY"),
+               "schur_update": ("schur_update", "SCHUR_ENTRY")}
+    assert set(entries) == set(tbackend.KERNEL_DTYPES)
     for prim, dts in tbackend.KERNEL_DTYPES.items():
-        two_byte = {"bfloat16", "float16"} <= set(dts)
-        assert two_byte == (prim in ("panel_lup", "fused_trsm_schur")), prim
+        assert {"bfloat16", "float16"} <= set(dts), prim
+        source, macro = entries[prim]
+        text = (csrc / f"{source}.cu").read_text()
+        for suffix, storage in (("bf16", "__nv_bfloat16"), ("f16", "__half")):
+            assert f"{macro}({suffix}, {storage})" in text, (prim, suffix)
 
 
 @pytest.mark.parametrize("compute", ["bfloat16", "float16"])
