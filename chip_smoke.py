@@ -32,7 +32,9 @@ each kernel against its plain PyTorch version on the card:
 - mixed precision on the Cholesky kernels and the 2.5D schedules: the bf16
   and f16 entry points of `chol_panel`, `trsm_right_upper`,
   `trsm_left_lower` and `schur_update` (single and batched) at the paths'
-  shapes and their bodies' edges; `plan(N, strategy="sequential_chol",
+  shapes and their bodies' edges, each `schur_update` call in the body that
+  `schur_update.stream_mode` predicts (the `wgmma` stream on the paths'
+  shapes, asserted there too); `plan(N, strategy="sequential_chol",
   compute_dtype=...)` in bf16 and f16 and `plan((256, 512), ...)` with
   per-lane tolerances, refined to 1e-6; the kernel path against the plain
   path at N = 128; both Cholesky engines on a bf16 plan; conflux (windowed
@@ -1481,6 +1483,8 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
                                      backend=backend, compute_dtype=compute),
                      device=dev, mesh=meshes[shape])
             dist.barrier()
+            update = _wrappers()["schur_update"]
+            update.mode = None
             reset_launches()
             if cuda:
                 torch.cuda.synchronize()
@@ -1500,6 +1504,7 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
                 "rows": hashlib.sha256(fact.rows.cpu().numpy().tobytes()).hexdigest(),
                 "rows_list": fact.rows.tolist() if n == 1024 else None,
                 "launches": launches, "comm_total": fact.comm["total"],
+                "last_schur_update_mode": update.mode,
                 "grid": str(fact.grid), "kind": fact.kind, "factor_dtype": str(fact.F.dtype),
                 "converged": None if refined is None else bool(refined.converged),
                 "refinement_iters": None if refined is None else refined.refinement_iters,
@@ -1524,7 +1529,8 @@ def grid_8ranks(device: str = "cuda:0") -> None:
     """GRID_WORLD ranks share cuda:0 through gloo and run GRID_CASES; every
     rank must return the same F and rows with HPL < 16, and the kernel path
     must pick the plain path's pivots at N = 1024 and in bf16, where its F
-    must also lie within `mixed_path_tol` of the plain path's.  A rank that
+    must also lie within `mixed_path_tol` of the plain path's and its last
+    schur_update (the flat hot loop's) must take the wgmma stream.  A rank that
     fails or outlives GRID_TIMEOUT_S fails the phase."""
     import multiprocessing as mp
     import tempfile
@@ -1564,11 +1570,16 @@ def grid_8ranks(device: str = "cuda:0") -> None:
              hpl_residual_max=hpl, ranks_bit_identical=same,
              converged=per[0]["converged"], refinement_iters=per[0]["refinement_iters"],
              vs_kernel_path=per[0].get("vs_kernel_path"),
-             comm_total=per[0]["comm_total"], launches_per_rank=[x["launches"] for x in per])
+             comm_total=per[0]["comm_total"], launches_per_rank=[x["launches"] for x in per],
+             last_schur_update_modes=[x["last_schur_update_mode"] for x in per])
         if not (same and hpl < HPL_RESIDUAL_MAX):
             problems.append(f"{name}: ranks identical {same}, HPL {hpl}")
         if compute and not all(x["converged"] for x in per):
             problems.append(f"{name}: refinement to {MIXED_LOW_TOL} did not converge")
+        if compute and backend == "cuda" and any(
+                x["last_schur_update_mode"] != MIXED_UPDATE_MODE["schur_update"] for x in per):
+            problems.append(f"{name}: last schur_update modes "
+                            f"{[x['last_schur_update_mode'] for x in per]}")
         vs = per[0].get("vs_kernel_path")
         if vs and vs["first_pivot_difference"] is not None:
             problems.append(f"{name}: pivot {vs['first_pivot_difference']} differs from the "
@@ -1887,6 +1898,11 @@ MIXED_BATCH_TOLS = (1e-3, 1e-5, 1e-6)  # per-lane tolerances, in turns
 # steps: at most half an ulp at max|F| in every reading on the H100 (N = 128
 # Cholesky, eight-rank N = 2048 conflux and cholesky25d, bf16 and f16).
 MIXED_PATH_ULPS = 2
+# The body that each 2-byte update kernel takes on the paths' shapes: the
+# fused kernel's plain loads, and schur_update's wgmma stream (every operand
+# of a path's update is one TMA takes, `schur_update.stream_mode`).
+MIXED_UPDATE_MODE = {"fused_trsm_schur": "plain", "fused_trsm_schur_batched": "plain",
+                     "schur_update": "wgmma", "schur_update_batched": "wgmma"}
 
 
 def storage_ulp(x: torch.Tensor, dt) -> torch.Tensor:
@@ -2256,7 +2272,8 @@ def _refined_run(p, A, b, phase: str, want: dict, dt, update: str,
     """Execute plan p on A (launches counted from 0), solve b plain and
     refined to MIXED_LOW_TOL; emits the phase and fails unless the launches
     are `want`, the factors are in dt, the last call of the `update` kernel
-    took the plain loads and the refined answer is finite; where `converge`,
+    took the mode that its body takes on the paths' shapes
+    (`MIXED_UPDATE_MODE`) and the refined answer is finite; where `converge`,
     also unless refinement converged and the refined answer's HPL residual
     (f32) is below 16.  Returns the launches."""
     upd = _wrappers()[update]
@@ -2288,7 +2305,8 @@ def _refined_run(p, A, b, phase: str, want: dict, dt, update: str,
     emit(phase, **row)
     if launches != want:
         raise AssertionError(f"{phase}: expected launches {want}, got {launches}")
-    if not (fact.F.dtype == dt and row["last_update_mode"] == "plain" and row["x_finite"]):
+    if not (fact.F.dtype == dt and row["last_update_mode"] == MIXED_UPDATE_MODE[update]
+            and row["x_finite"]):
         raise AssertionError(f"{phase}: {row}")
     if converge and not (row["converged"]
                          and row["hpl_residual_refined_f32"] < HPL_RESIDUAL_MAX):
@@ -2330,8 +2348,8 @@ def mixed_batched_path(dev, gen, dt, strategy: str = "auto",
     """plan((256, 512), strategy, compute_dtype=bf16 | f16) with per-lane
     refine_tol, on `well_conditioned` systems (LU) or `spd` ones (Cholesky):
     16 launches of each of `kernels` (the last the update, which must take
-    the plain loads), every lane refined to its own tolerance.  Returns the
-    launches of the counted run."""
+    its `MIXED_UPDATE_MODE`), every lane refined to its own tolerance.
+    Returns the launches of the counted run."""
     from repro_torch.api import SolverConfig, plan
 
     sh = MIXED_SHORT[dt]
@@ -2369,7 +2387,8 @@ def mixed_batched_path(dev, gen, dt, strategy: str = "auto",
     if launches != expected_launches(**{k: steps for k in kernels}):
         raise AssertionError(f"{phase} {sh}: expected {steps} launches each of {kernels}, "
                              f"got {launches}")
-    if not (bool(rs.converged.all()) and fact.F.dtype == dt and mode == "plain"
+    if not (bool(rs.converged.all()) and fact.F.dtype == dt
+            and mode == MIXED_UPDATE_MODE[kernels[-1]]
             and bool((resid < HPL_RESIDUAL_MAX).all())):
         raise AssertionError(f"{phase} {sh}: {int(rs.converged.sum())} of {BATCH} converged, "
                              f"HPL {float(resid.max())}, mode {mode}")
@@ -2612,7 +2631,8 @@ def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
     plain versions, at the paths' shapes and the bodies' edges: chol_panel
     bit for bit, the solves and the update within one ulp plus
     FUSED_REL_TOL; batched lanes bit for bit against the single call; every
-    schur_update call on the plain loads.  Returns the kernels line's sixteen
+    schur_update call in the body that `stream_mode` predicts, and that
+    body the one reckoned for the case.  Returns the kernels line's sixteen
     rows (launches filled in later)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import schur_update as su_mod
@@ -2799,19 +2819,28 @@ def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
         # schur_update[_batched]: the paths' shapes, K = 1, 33 and 64, ragged
         # M and N, an odd row stride, a window of a wider matrix, a batch of
         # one, NaN / inf in A and L, and f16 results past 65504 ("overflow":
-        # one product a result, +-300 x +-300).  Every call takes the plain
-        # loads; the library call is torch.addmm / baddbmm in the same dtype
-        # (cuBLAS accumulates 2-byte products in f32 and rounds once).
+        # one product a result, +-300 x +-300).  Each case's body, reckoned
+        # from the stream's rule (16-byte aligned bases, row and batch
+        # strides of whole 16-byte runs, K <= 64): the wgmma stream for the
+        # paths' shapes, a full chunk (K = 64 at 512 x 512), the window (64
+        # columns in: 128 B; row stride 4128), the batch of one, "special"
+        # (rows of 2000 B) and "overflow"; the plain loads where a row of A
+        # is 1000 or 2002 B (300 x 500, 777 x 1001, odd_lda) and where L's
+        # rows are 2 or 66 B (K = 1, 33).  The library call is torch.addmm /
+        # baddbmm in the same dtype (cuBLAS accumulates 2-byte products in
+        # f32 and rounds once).
         modes = {}
-        for Bb, M, C, K, kind in ((None, N, N, CHOL_V, None),
-                                  (BATCH, BATCH_N, BATCH_N, CHOL_V, None),
-                                  (8, 300, 500, 1, None), (8, 300, 500, 33, None),
-                                  (8, 300, 500, 64, None), (8, 777, 1001, CHOL_V, None),
-                                  (1, BATCH_N, BATCH_N, CHOL_V, None),
-                                  (None, 1000, 1000, CHOL_V, "odd_lda"),
-                                  (None, 4064, 4064, CHOL_V, "window"),
-                                  (4, 777, 1000, CHOL_V, "special"),
-                                  (None, 512, 512, CHOL_V, "overflow")):
+        for Bb, M, C, K, kind, body in (
+                (None, N, N, CHOL_V, None, "wgmma"),
+                (BATCH, BATCH_N, BATCH_N, CHOL_V, None, "wgmma"),
+                (8, 300, 500, 1, None, "plain"), (8, 300, 500, 33, None, "plain"),
+                (8, 300, 500, 64, None, "plain"), (8, 512, 512, 64, None, "wgmma"),
+                (8, 777, 1001, CHOL_V, None, "plain"),
+                (1, BATCH_N, BATCH_N, CHOL_V, None, "wgmma"),
+                (None, 1000, 1000, CHOL_V, "odd_lda", "plain"),
+                (None, 4064, 4064, CHOL_V, "window", "wgmma"),
+                (4, 777, 1000, CHOL_V, "special", "wgmma"),
+                (None, 512, 512, CHOL_V, "overflow", "wgmma")):
             lead = () if Bb is None else (Bb,)
             if kind == "odd_lda":
                 A = torch.randn(*lead, M, C + 1, generator=gen, device=dev).to(dt)[..., :C]
@@ -2840,7 +2869,8 @@ def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
             out_p = plain(A, Lm, Um)
             torch.cuda.synchronize()
             err, ratio, check = mixed_kernel_check(out_k, out_p, dt)
-            check["plain_loads"] = mode == "plain"
+            check["mode_as_predicted"] = mode == su_mod.stream_mode(A, Lm, Um)
+            check["mode_as_reckoned"] = mode == body
             if kind == "overflow" and dt == torch.float16:
                 check["overflows_to_inf"] = bool(out_p.isinf().any())
             if Bb is not None:
@@ -2856,7 +2886,8 @@ def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
                 raise AssertionError(f"schur_update {sh} {case}: {ratio} of the allowance, "
                                      f"{check}")
             del out_k, out_p
-            if kind is not None or Bb == 1 or (M, C) not in ((N, N), (BATCH_N, BATCH_N)):
+            if kind is not None or (Bb, M, C, K) not in ((None, N, N, CHOL_V),
+                                                         (BATCH, BATCH_N, BATCH_N, CHOL_V)):
                 continue
             nb = 1 if Bb is None else Bb
             library = torch.addmm if Bb is None else torch.baddbmm
@@ -2883,7 +2914,7 @@ def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
 def mixed_chol_main_path(dev, gen, dt, profile: bool) -> dict:
     """plan(N, strategy="sequential_chol", compute_dtype=bf16 | f16) on an SPD
     A (eigenvalues in about [1, 5]) through the entry points: exactly N / v
-    launches of each Cholesky kernel, the last update on the plain loads,
+    launches of each Cholesky kernel, the last update on the wgmma stream,
     refinement to 1e-6.  Returns the launches of the counted run."""
     from repro_torch.api import SolverConfig, plan
 

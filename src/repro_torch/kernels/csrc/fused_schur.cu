@@ -186,10 +186,6 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
       : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
 // A barrier of the math warps only (named barrier 1; the producer warp
 // never takes part).
 __device__ __forceinline__ void math_sync() {

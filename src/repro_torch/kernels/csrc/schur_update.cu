@@ -76,15 +76,49 @@
 // The order of the sum differs from a library GEMM's, so results agree with
 // the plain version within a stated tolerance, not bitwise.
 //
-// bf16 and f16 (`storage.cuh`): the kernel is a template on the storage type
-// St of every operand and computes in T = compute_t<St> (f32 for both), as
-// the Pallas kernel does with its f32 accumulator: the plain loads widen
-// every value of A, L and U as they load it into the f32 layout in shared
-// memory, the products and the subtraction run as in f32, and each result is
-// rounded once, to nearest even, where it is stored.  The TMA stream is
-// chosen by the storage size (`Smem::kRing`, `bulk`), so 2-byte storage
-// always takes the plain loads and f32 tensor maps are never built over
-// 2-byte data.  The launcher reports which way a call went (`*mode`).
+// bf16 and f16 (`storage.cuh`): every value of A, L and U is widened exactly
+// to f32, the products are exact and summed in f32, and each result is
+// rounded once, to nearest even, where it is stored: the Pallas kernel's
+// A.astype(f32) - dot(l, u, preferred_element_type=f32), cast back.  Two
+// bodies compute that:
+//   - `schur_update_wgmma_kernel`, a stream of its own (below), for every
+//     operand that TMA takes in 2 bytes and K <= 64;
+//   - the plain loads of `schur_update_kernel`, a template on the storage
+//     type St computing in T = compute_t<St>, for the rest: they widen each
+//     value as they load it into the f32 layout in shared memory and run the
+//     f32 arithmetic.  (`Smem::kRing` is 1 for 2-byte storage, so that body
+//     never builds f32 tensor maps over 2-byte data.)
+// The launcher reports which way a call went (`*mode`).
+//
+// The 2-byte stream.  On the Cholesky path's [16384, 16384] at K = 32, one
+// call must read A and write the result once, 1.07 GB in bf16, a floor of
+// 0.32 ms at 3.35 TB/s, while it does 17.2 GFLOP: 0.26 ms on the CUDA cores'
+// f32 FMAs, 80% of the floor, but 0.017 ms on the tensor cores.  So the
+// products run on `wgmma` (m64n256k16, f32 accumulators in registers), which
+// computes the same function: the products of two bf16 or two f16 values
+// are exact in f32 and summed in f32.  The stream keeps the f32 design's
+// order and reuse: one block an SM, 64 x 256 output tiles ordered (system,
+// stripe, row tile) with the row tile fastest, U staged once per (system,
+// stripe) item in two buffers, A and L in a ring of four stages, a stage
+// reloaded only once its store has been read out.  A block is one consumer
+// warpgroup and a producer warp:
+//   - the producer issues every TMA copy and store: A in four 128-byte-
+//     swizzled boxes of 64 columns (TMA's limit for that swizzle in 2
+//     bytes), L as one box [64 rows, 64 columns] (zero-filled past K, the
+//     `wgmma` A operand, K-major), U as four boxes [16 ceil(K / 16), 64]
+//     (the B operand, MN-major through the transpose bit, as
+//     `flash_attention.cu` reads V), evict-first on A and the results;
+//   - the consumer waits for a stage, issues ceil(K / 16) products from a
+//     zero accumulator, then widens the A tile, subtracts, narrows and writes
+//     the result over the A tile in place.  Its accumulator layout reads a
+//     row pair of 4 bytes a thread, and the 128-byte swizzle puts the eight
+//     rows a warp reads at once on eight distinct 16-byte runs: no bank
+//     conflicts, and no staging through another layout.  It then tells the
+//     producer (a "done" mbarrier), which stores the tile.
+// An output element's sum depends on nothing but its L row and U column, so
+// a batched lane equals the single call bit for bit.  The order of the sum
+// is the tensor cores', not the plain loads' FMA chain, so the two bodies
+// agree within a 2-byte rounding, not bitwise.
 
 #include <cstdint>
 
@@ -94,6 +128,7 @@
 #include "once_per_device.cuh"
 #include "storage.cuh"
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -125,7 +160,8 @@ struct Smem {
   static constexpr uint32_t kL = kBM * kRowBytes;
   static constexpr uint32_t kU = Chunk<T>::value * kBN * sizeof(T);
   static constexpr uint32_t kStage = kA + kL;
-  // Only f32 storage takes the TMA stream: f64, bf16 and f16 run the plain mode only.
+  // Only f32 storage takes this body's TMA stream: f64 runs the plain mode only, and
+  // bf16 and f16 run it for the operands that their own stream does not take.
   static constexpr int kRing = sizeof(S) == 4 ? kStages : 1;
   static constexpr uint32_t kBars = kRing * kStage + 2 * kU;
   static constexpr size_t kBytes = 1024 + kBars + kRing * 8;
@@ -381,28 +417,266 @@ schur_update_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-// A 3-D f32 map over [nsys, rows, cols] (innermost first) with row stride ld
-// and batch stride bs (elements), read or written in boxes of box_rows x
-// box_cols of one system.  False where TMA cannot take the operand: a base
-// or stride off a 16-byte boundary, or a map the driver refuses.
-bool f32_map(CUtensorMap* map, const void* ptr, int64_t ld, int64_t bs, int nsys, int rows,
-             int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (nsys == 1) bs = ld * rows;  // any stride will do for a single system
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 || ld % 4 || bs % 4 || bs <= 0 ||
-      cols < 4) {
-    return false;
+// --------------------------------------------------------------------------
+// bf16 and f16: a TMA + wgmma stream
+// --------------------------------------------------------------------------
+
+constexpr int kWRows = 64;                 // rows of a 2-byte output tile: one m64 product
+constexpr int kWBox = 64;                  // columns of a box: one 128-byte swizzled row
+constexpr int kWBoxes = kBN / kWBox;       // boxes of a 256-column stripe
+constexpr int kWMaxK = 64;                 // K of one chunk: L rows of 128 bytes
+constexpr int kWStages = 4;                // A + L tiles in the ring
+constexpr int kWMath = 128;                // the consumer warpgroup
+constexpr int kWThreads = kWMath + 32;     // and the producer warp
+
+// Shared memory, from a 1024-byte boundary (the 128-byte swizzle repeats
+// every 8 rows): per stage A [4 boxes][64 rows][128 B] and L [64 rows][128 B],
+// then U [4 boxes][64 rows][128 B] twice, then a "full" and a "done"
+// mbarrier per stage.
+struct WSmem {
+  static constexpr uint32_t kABox = kWRows * 128;
+  static constexpr uint32_t kA = kWBoxes * kABox;
+  static constexpr uint32_t kL = kWRows * 128;
+  static constexpr uint32_t kStage = kA + kL;
+  static constexpr uint32_t kUBox = kWMaxK * 128;
+  static constexpr uint32_t kU = kWBoxes * kUBox;
+  static constexpr uint32_t kUOff = kWStages * kStage;
+  static constexpr uint32_t kBars = kUOff + 2 * kU;
+  static constexpr size_t kBytes = 1024 + kBars + 2 * kWStages * 8;
+  static_assert(kBytes <= 232448, "a block may use at most 227 KB of shared memory");
+};
+
+// Two adjacent 2-byte values of a row, as one 32-bit word (the lower column
+// in the low half): widened exactly, narrowed once to nearest even.
+template <typename St>
+struct Pair;
+template <>
+struct Pair<__nv_bfloat16> {
+  __device__ __forceinline__ static float2 widen(uint32_t w) {
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
   }
+  __device__ __forceinline__ static uint32_t narrow(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+template <>
+struct Pair<__half> {
+  __device__ __forceinline__ static float2 widen(uint32_t w) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  }
+  __device__ __forceinline__ static uint32_t narrow(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+// KS = ceil(K / 16) products of k16 a tile.
+template <typename St, int KS>
+__global__ void __launch_bounds__(kWThreads, 1)
+schur_update_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                          const __grid_constant__ CUtensorMap tm_l,
+                          const __grid_constant__ CUtensorMap tm_u,
+                          const __grid_constant__ CUtensorMap tm_out, int nsys, int M, int N) {
+  using W = WSmem;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t smem0 = (raw + 1023u) & ~1023u;
+  unsigned char* const base = smem_raw + (smem0 - raw);
+  const uint32_t full0 = smem0 + W::kBars;
+  const uint32_t done0 = full0 + 8 * kWStages;
+  const int tid = threadIdx.x;
+
+  const int nrt = (M + kWRows - 1) / kWRows;
+  const int nst = (N + kBN - 1) / kBN;
+  const int64_t tiles = static_cast<int64_t>(nsys) * nst * nrt;
+  const int64_t t_begin = tiles * blockIdx.x / gridDim.x;
+  const int64_t count = tiles * (blockIdx.x + 1) / gridDim.x - t_begin;
+  const int64_t key0 = t_begin / nrt;  // (system, stripe) of the first tile
+
+  if (tid == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(done0 + 8 * s, kWMath / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The role, broadcast from lane 0 so that the compiler sees it uniform
+  // across each warp and keeps the products off any divergent path.
+  if (__shfl_sync(0xffffffffu, tid / kWMath, 0) != 0) {
+    if (tid > kWMath) return;
+    // The producer: tile n into stage n % kWStages once the store of tile
+    // n - kWStages has been read out, and with the U of a new item q into
+    // buffer q % 2 once every tile of item q - 2 is done.  `done` is the
+    // last tile whose result the consumer has written.  Boxes wholly past
+    // N are neither loaded nor stored.
+    const uint64_t stream_policy = evict_first_policy();
+    int64_t next = 0;
+    auto issue = [&](int64_t done) {
+      for (; next < count && next <= done + kWStages; ++next) {
+        const int64_t tau = t_begin + next;
+        const int64_t key = tau / nrt;
+        const bool starts = next == 0 || tau % nrt == 0;
+        if (starts && key - key0 >= 2 && key * nrt - nrt - t_begin > done + 1) break;
+        const uint32_t stage = smem0 + (next % kWStages) * W::kStage;
+        const uint32_t bar = full0 + 8 * (next % kWStages);
+        const int row0 = static_cast<int>(tau % nrt) * kWRows;
+        const int col0 = static_cast<int>(key % nst) * kBN;
+        const int z = static_cast<int>(key / nst);
+        const int boxes = min(kWBoxes, (N - col0 + kWBox - 1) / kWBox);
+        mbar_expect_tx(bar, boxes * W::kABox + W::kL + (starts ? boxes * KS * 16 * 128 : 0));
+        for (int b = 0; b < boxes; ++b)
+          tma_load_3d(stage + b * W::kABox, &tm_a, bar, col0 + b * kWBox, row0, z, stream_policy);
+        tma_load_3d(stage + W::kA, &tm_l, bar, 0, row0, z);
+        if (starts) {
+          const uint32_t u = smem0 + W::kUOff + static_cast<uint32_t>((key - key0) & 1) * W::kU;
+          for (int b = 0; b < boxes; ++b)
+            tma_load_3d(u + b * W::kUBox, &tm_u, bar, col0 + b * kWBox, 0, z);
+        }
+      }
+    };
+    issue(-1);
+    for (int64_t n = 0; n < count; ++n) {
+      const int64_t tau = t_begin + n;
+      const int64_t key = tau / nrt;
+      const int row0 = static_cast<int>(tau % nrt) * kWRows;
+      const int col0 = static_cast<int>(key % nst) * kBN;
+      const int boxes = min(kWBoxes, (N - col0 + kWBox - 1) / kWBox);
+      const uint32_t stage = smem0 + (n % kWStages) * W::kStage;
+      mbar_wait(done0 + 8 * (n % kWStages), static_cast<uint32_t>((n / kWStages) & 1));
+      for (int b = 0; b < boxes; ++b)
+        tma_store_3d(&tm_out, stage + b * W::kABox, col0 + b * kWBox, row0,
+                     static_cast<int>(key / nst), stream_policy);
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      issue(n);
+    }
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    return;
+  }
+
+  // The consumer warpgroup.  Thread t holds accumulator pairs 2j, 2j + 1 at
+  // row 16 (t / 32) + (t % 32) / 4 + 8 (j % 2), columns 8 (j / 2) + 2 (t % 4)
+  // and one more; in the swizzled A tile that pair lies in box j / 16, at
+  // byte 4 (t % 4) of 16-byte run ((j / 2) % 8) ^ ((t % 32) / 4) of its row.
+  const int lane = tid % 32;
+  const uint32_t row_off = (16 * (tid / 32) + lane / 4) * 128 + 4 * (lane % 4);
+  const int swz = lane / 4;
+  float acc[kBN / 2];
+  for (int64_t n = 0; n < count; ++n) {
+    const int64_t key = (t_begin + n) / nrt;
+    const int s = static_cast<int>(n % kWStages);
+    const uint32_t stage = smem0 + s * W::kStage;
+    const uint32_t u = smem0 + W::kUOff + static_cast<uint32_t>((key - key0) & 1) * W::kU;
+    mbar_wait(full0 + 8 * s, static_cast<uint32_t>((n / kWStages) & 1));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      // k16 step kk: 32 bytes into L's 128-byte rows; 16 rows of U's boxes.
+      mma_ss_t<kBN, St>(acc, sw128_desc(stage + W::kA + kk * 32, 16, 1024),
+                        sw128_desc(u + kk * 2048, W::kUBox, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    unsigned char* const a = base + s * W::kStage;
+#pragma unroll
+    for (int j = 0; j < kBN / 4; ++j) {
+      const int cb = j / 2;  // the pair's 8-column block
+      uint32_t* p = reinterpret_cast<uint32_t*>(
+          a + (cb / 8) * W::kABox + row_off + (j % 2) * 8 * 128 + (((cb % 8) ^ swz) << 4));
+      const float2 x = Pair<St>::widen(*p);
+      *p = Pair<St>::narrow(x.x - acc[2 * j], x.y - acc[2 * j + 1]);
+    }
+    // This warp's results before the TMA store that reads them.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(done0 + 8 * s);
+  }
+}
+
+template <typename S>
+struct MapType;
+template <>
+struct MapType<float> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <>
+struct MapType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct MapType<__half> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// Whether TMA takes an operand of element type S over [nsys, rows, cols]
+// with row stride ld and batch stride bs (elements): a 16-byte aligned base,
+// row and batch strides of whole 16-byte runs, and at least 16 bytes of
+// columns.  A single system's batch stride is not read.
+template <typename S>
+bool tma_fits(const void* ptr, int64_t ld, int64_t bs, int nsys, int rows, int cols) {
+  constexpr int64_t kRun = 16 / sizeof(S);
+  if (nsys == 1) bs = ld * rows;
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ld % kRun == 0 && bs % kRun == 0 &&
+         bs > 0 && cols >= kRun;
+}
+
+// A 3-D map of element type S over [nsys, rows, cols] (innermost first)
+// with row stride ld and batch stride bs (elements), read or written in
+// boxes of box_rows x box_cols of one system.  False where TMA cannot take
+// the operand (`tma_fits`) or the driver refuses the map.
+template <typename S>
+bool tensor_map(CUtensorMap* map, const void* ptr, int64_t ld, int64_t bs, int nsys, int rows,
+                int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || !tma_fits<S>(ptr, ld, bs, nsys, rows, cols)) return false;
+  if (nsys == 1) bs = ld * rows;  // any stride will do for a single system
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(nsys)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 4, static_cast<cuuint64_t>(bs) * 4};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * sizeof(S),
+                                 static_cast<cuuint64_t>(bs) * sizeof(S)};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
                              1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  return encode(map, MapType<S>::value, 3, const_cast<void*>(ptr), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The 2-byte stream for operands that `launch` found TMA takes; an error if
+// the driver refuses a map all the same (never the plain loads).
+template <typename S, int KS>
+int launch_wgmma(const void* A, long long lda, long long bsa, const void* L, long long ldl,
+                 long long bsl, const void* U, long long ldu, long long bsu, void* out,
+                 long long ldo, long long bso, int B, int M, int N, int K, int64_t tiles,
+                 cudaStream_t stream) {
+  static OncePerDevice<> limit;
+  int sms = 0;
+  const cudaError_t err = limit.get(
+      [](int dev, int* n) {
+        const cudaError_t e = cudaFuncSetAttribute(schur_update_wgmma_kernel<S, KS>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(WSmem::kBytes));
+        return e != cudaSuccess ? e
+                                : cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+      },
+      &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr auto kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tm_a{}, tm_l{}, tm_u{}, tm_out{};
+  if (!(tensor_map<S>(&tm_a, A, lda, bsa, B, M, N, kWRows, kWBox, kSw) &&
+        tensor_map<S>(&tm_l, L, ldl, bsl, B, M, K, kWRows, kWBox, kSw) &&
+        tensor_map<S>(&tm_u, U, ldu, bsu, B, K, N, 16 * KS, kWBox, kSw) &&
+        tensor_map<S>(&tm_out, out, ldo, bso, B, M, N, kWRows, kWBox, kSw))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  schur_update_wgmma_kernel<S, KS><<<grid, kWThreads, WSmem::kBytes, stream>>>(
+      tm_a, tm_l, tm_u, tm_out, B, M, N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>
@@ -414,6 +688,34 @@ int launch(const void* A, long long lda, long long bsa, const void* L, long long
   const int64_t tiles =
       static_cast<int64_t>(B) * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   if (tiles == 0) return static_cast<int>(cudaSuccess);
+
+  // 2-byte storage: the wgmma stream wherever TMA takes every operand and
+  // K <= 64, decided by that rule alone; else the plain loads.
+  if constexpr (sizeof(S) == 2) {
+    if (K <= kWMaxK && tma_fits<S>(A, lda, bsa, B, M, N) && tma_fits<S>(L, ldl, bsl, B, M, K) &&
+        tma_fits<S>(U, ldu, bsu, B, K, N) && tma_fits<S>(out, ldo, bso, B, M, N)) {
+      *mode = 2;
+      if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+      const int64_t wtiles =
+          static_cast<int64_t>(B) * ((M + kWRows - 1) / kWRows) * ((N + kBN - 1) / kBN);
+      const auto st = static_cast<cudaStream_t>(stream);
+      switch ((K + 15) / 16) {
+        case 1:
+          return launch_wgmma<S, 1>(A, lda, bsa, L, ldl, bsl, U, ldu, bsu, out, ldo, bso, B, M,
+                                    N, K, wtiles, st);
+        case 2:
+          return launch_wgmma<S, 2>(A, lda, bsa, L, ldl, bsl, U, ldu, bsu, out, ldo, bso, B, M,
+                                    N, K, wtiles, st);
+        case 3:
+          return launch_wgmma<S, 3>(A, lda, bsa, L, ldl, bsl, U, ldu, bsu, out, ldo, bso, B, M,
+                                    N, K, wtiles, st);
+        default:
+          return launch_wgmma<S, 4>(A, lda, bsa, L, ldl, bsl, U, ldu, bsu, out, ldo, bso, B, M,
+                                    N, K, wtiles, st);
+      }
+    }
+  }
+
   // The limit is raised, and the SMs counted, once per device.
   static OncePerDevice<> limit;
   int sms = 0;
@@ -429,14 +731,17 @@ int launch(const void* A, long long lda, long long bsa, const void* L, long long
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // TMA for f32 storage with one chunk of K (every f32 path's shape), else
-  // plain loads: f64, bf16 and f16 storage always.
+  // plain loads: f64 always, bf16 and f16 where the stream above does not
+  // take the operands.
   CUtensorMap tm_a{}, tm_l{}, tm_u{}, tm_out{};
   const int bulk =
       sizeof(S) == 4 && K <= Chunk<T>::value &&
-      f32_map(&tm_a, A, lda, bsa, B, M, N, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-      f32_map(&tm_l, L, ldl, bsl, B, M, K, kBM, Chunk<T>::value, CU_TENSOR_MAP_SWIZZLE_128B) &&
-      f32_map(&tm_u, U, ldu, bsu, B, K, N, Chunk<T>::value, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-      f32_map(&tm_out, out, ldo, bso, B, M, N, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
+      tensor_map<float>(&tm_a, A, lda, bsa, B, M, N, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      tensor_map<float>(&tm_l, L, ldl, bsl, B, M, K, kBM, Chunk<T>::value,
+                        CU_TENSOR_MAP_SWIZZLE_128B) &&
+      tensor_map<float>(&tm_u, U, ldu, bsu, B, K, N, Chunk<T>::value, kBN,
+                        CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      tensor_map<float>(&tm_out, out, ldo, bso, B, M, N, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
   *mode = bulk;
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
   schur_update_kernel<S><<<grid, kThreads, Smem<S>::kBytes, static_cast<cudaStream_t>(stream)>>>(
@@ -450,8 +755,9 @@ int launch(const void* A, long long lda, long long bsa, const void* L, long long
 // B systems: A [M, N], L [M, K], U [K, N], out [M, N], all of one element
 // type (the entry's suffix), each with the given row stride, batch stride
 // and unit column stride (a single system is B = 1).  Sets *mode to 1 where
-// the operands took the TMA stream, 0 where they took plain loads (always
-// for f64, bf16 and f16).  Returns the cudaError_t of the launch.
+// f32 operands took the TMA stream, 2 where bf16 or f16 ones took the wgmma
+// stream, 0 where they took plain loads (always for f64).  Returns the
+// cudaError_t of the launch.
 #define SCHUR_ENTRY(suffix, S)                                                                 \
   extern "C" int schur_update_##suffix(const void* A, long long lda, long long bsa,           \
                                        const void* L, long long ldl, long long bsl,           \

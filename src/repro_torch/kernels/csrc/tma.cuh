@@ -24,6 +24,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   asm volatile(

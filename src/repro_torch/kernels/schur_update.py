@@ -6,14 +6,15 @@ Ports of `repro/kernels/schur_update.py::schur_update` and
 a batch of one, so a batched lane equals the single call bit for bit.  A
 CPU tensor goes to the plain version (`repro_torch.kernels.ref`); a CUDA
 tensor launches the kernel or raises.  `schur_update.launches` and
-`schur_update_batched.launches` count the launches, and `.mode` says whether
-the last launch took the kernel's TMA stream ("tma") or its plain loads
-("plain").
+`schur_update_batched.launches` count the launches, and `.mode` says which
+body the last launch took: "tma" (the f32 TMA stream), "wgmma" (the bf16 /
+f16 stream, products on the tensor cores) or "plain" (plain loads).
+`stream_mode(A, L, U)` predicts it from the operands alone.
 
-bf16 and f16 operands have entry points of their own, which always take the
-plain loads: they widen every value to f32 as they load it, form A - L @ U
-in f32, and round each result once where they store it, as the plain
-version does.
+bf16 and f16 operands have entry points of their own.  Both bodies widen
+every value to f32, form A - L @ U with exact products summed in f32, and
+round each result once where they store it, as the plain version does; the
+order of the sum differs, so they agree with it within a 2-byte rounding.
 """
 
 from __future__ import annotations
@@ -39,6 +40,40 @@ _ARGTYPES = (
     ctypes.POINTER(ctypes.c_int),
     ctypes.c_void_p,
 )
+
+
+_MODES = {0: "plain", 1: "tma", 2: "wgmma"}
+# The K of one chunk of each streamed storage size (bytes): 32 f32, 64 bf16 / f16.
+_STREAM_K = {4: 32, 2: 64}
+
+
+def stream_mode(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> str:
+    """The body that the kernel's launcher picks for these operands, by the
+    rule it applies before the launch: "tma" for f32 and "wgmma" for bf16 /
+    f16 where K is at most one chunk (32 resp. 64) and TMA takes every
+    operand (A, L, U and the contiguous result), else "plain" (always for
+    f64 and for an empty result).  TMA takes an operand whose base is
+    16-byte aligned, whose row stride and (in a batch of more than one) batch
+    stride are whole 16-byte runs, and whose rows hold at least 16 bytes.
+
+    Reads shapes, strides, dtype and addresses only; any device."""
+    A3, L3, U3 = (t if t.ndim == 3 else t[None] for t in (A, L, U))
+    B, M, N = A3.shape
+    K = L3.shape[-1]
+    size = A.element_size()
+    if B == 0 or M == 0 or N == 0 or K > _STREAM_K.get(size, -1):
+        return "plain"
+    run = 16 // size
+
+    def fits(ptr: int, ld: int, bs: int, rows: int, cols: int) -> bool:
+        bs = ld * rows if B == 1 else bs
+        return ptr % 16 == 0 and ld % run == 0 and bs % run == 0 and bs > 0 and cols >= run
+
+    ok = (fits(A3.data_ptr(), A3.stride(1), A3.stride(0), M, N)
+          and fits(L3.data_ptr(), L3.stride(1), L3.stride(0), M, K)
+          and fits(U3.data_ptr(), U3.stride(1), U3.stride(0), K, N)
+          and fits(0, N, M * N, M, N))  # the result: contiguous, from an aligned allocation
+    return ("tma" if size == 4 else "wgmma") if ok else "plain"
 
 
 def _check(name: str, A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> None:
@@ -80,11 +115,11 @@ def _launch(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor):
     B, M, N = A.shape
     out = torch.empty((B, M, N), dtype=A.dtype, device=A.device)
     fn = _build.function("schur_update", f"schur_update_{_SUFFIX[A.dtype]}", _ARGTYPES)
-    bulk = ctypes.c_int(0)
+    mode = ctypes.c_int(0)
     _build.launch("schur_update", fn, A.device,
                   *(x for t in (A, L, U, out) for x in (t.data_ptr(), t.stride(1), t.stride(0))),
-                  B, M, N, L.shape[-1], ctypes.byref(bulk))
-    return out, "tma" if bulk.value else "plain"
+                  B, M, N, L.shape[-1], ctypes.byref(mode))
+    return out, _MODES[mode.value]
 
 
 def schur_update(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:

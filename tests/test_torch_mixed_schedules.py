@@ -174,7 +174,8 @@ def test_trsm_left_lower_2byte_matches_jax(dtype, v, C, unit):
                            ops.trsm_left_lower(tL3[b], tB3[b], unit=unit).view(torch.int16))
 
 
-@pytest.mark.parametrize("M,N,K", [(64, 64, 8), (128, 96, 16), (256, 128, 32), (33, 300, 1)])
+@pytest.mark.parametrize("M,N,K", [(64, 64, 8), (128, 96, 16), (256, 128, 32), (33, 300, 1),
+                                   (64, 64, 48), (128, 64, 64), (200, 320, 32)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_schur_update_2byte_matches_jax(dtype, M, N, K):
     rng = np.random.default_rng(M + N + K)
@@ -191,6 +192,94 @@ def test_schur_update_2byte_matches_jax(dtype, M, N, K):
     for b in range(2):
         assert torch.equal(out3[b].view(torch.int16),
                            ops.schur_update(tA3[b], tL3[b], tU3[b]).view(torch.int16))
+
+
+@pytest.mark.parametrize("K", [16, 32, 64])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_schur_update_2byte_on_a_window_of_a_wider_matrix_matches_jax(dtype, K):
+    """A as the conflux step passes it: a window of a wider matrix (row
+    stride > N, base 64 columns in, 128 bytes), single and batched, against
+    the JAX package's kernel and ref oracle on the window's values, within
+    one ulp; the batched lane equals the single call bit for bit."""
+    rng = np.random.default_rng(700 + K)
+    big = rng.standard_normal((2, 96 + 32, 160 + 64)).astype(np.float32)
+    tbig, _ = _to(big, dtype)
+    A = tbig[:, 32:, 64:]
+    assert A.stride(1) == 160 + 64
+    assert A.data_ptr() - tbig.data_ptr() == 2 * (32 * (160 + 64) + 64)
+    jA = jnp.asarray(big[:, 32:, 64:]).astype(LOW[dtype][1])
+    (tL, jL), (tU, jU) = (_to(rng.standard_normal(s).astype(np.float32), dtype)
+                          for s in ((2, 96, K), (2, K, 160)))
+    out = ops.schur_update(A[0], tL[0], tU[0])
+    outb = ops.schur_update_batched(A, tL, tU)
+    assert outb.dtype == A.dtype
+    assert torch.equal(outb[0].view(torch.int16), out.view(torch.int16))
+    for jo in (jops.schur_update_batched(jA, jL, jU), jref.schur_update(jA, jL, jU)):
+        _within_one_ulp(outb, jo, A.dtype)
+
+
+# The body the schur_update kernel takes for operands at each edge, by element
+# size (2, 4, 8 bytes): the wgmma stream for bf16 / f16 and the TMA stream for
+# f32 where every operand has a 16-byte aligned base, row and batch strides
+# of whole 16-byte runs and rows of at least 16 bytes, and K is at most one
+# chunk (64 in 2 bytes, 32 in f32); else, and always in f64, the plain loads.
+_STREAM_EDGES = {
+    "aligned": ("wgmma", "tma", "plain"),
+    "odd_row_stride": ("plain", "plain", "plain"),
+    "base_one_element_in": ("plain", "plain", "plain"),
+    "base_eight_elements_in": ("wgmma", "tma", "plain"),
+    "K=1": ("plain", "plain", "plain"),
+    "K=8": ("wgmma", "tma", "plain"),
+    "K=33": ("plain", "plain", "plain"),
+    "K=64": ("wgmma", "plain", "plain"),
+    "K=65": ("plain", "plain", "plain"),
+    "odd_batch_stride": ("plain", "plain", "plain"),
+    "one_system_odd_batch_stride": ("wgmma", "tma", "plain"),
+    "N=4": ("plain", "tma", "plain"),
+    "N=100": ("plain", "tma", "plain"),
+    "empty": ("plain", "plain", "plain"),
+}
+
+
+def _stream_operands(edge: str, dtype: torch.dtype):
+    B, M, N, K = 2, 96, 256, 32
+    if edge.startswith("K="):
+        K = int(edge[2:])
+    elif edge.startswith("N="):
+        N = int(edge[2:])
+    elif edge == "empty":
+        M = 0
+    elif edge == "one_system_odd_batch_stride":
+        B = 1
+
+    def zeros(*shape):
+        return torch.zeros(*shape, dtype=dtype)
+
+    A, L, U = zeros(B, M, N), zeros(B, M, K), zeros(B, K, N)
+    if edge == "odd_row_stride":
+        A = zeros(B, M, N + 1)[..., :N]
+    elif edge == "base_one_element_in":
+        A = zeros(B, M, N + 8)[..., 1:N + 1]
+    elif edge == "base_eight_elements_in":
+        A = zeros(B, M, N + 8)[..., 8:]
+    elif edge.endswith("odd_batch_stride"):
+        A = zeros(B * (M * N + 1)).as_strided((B, M, N), (M * N + 1, N, 1))
+    return A, L, U
+
+
+@pytest.mark.parametrize("edge", list(_STREAM_EDGES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32, torch.float64])
+def test_schur_update_stream_mode_follows_the_alignment_rule(dtype, edge):
+    """`stream_mode` on CPU tensors: the rule alone (the kernel that follows
+    it is held to its plain version on the card).  A single system predicts
+    as a batch of one."""
+    from repro_torch.kernels.schur_update import stream_mode
+
+    A, L, U = _stream_operands(edge, dtype)
+    want = _STREAM_EDGES[edge][{2: 0, 4: 1, 8: 2}[A.element_size()]]
+    assert stream_mode(A, L, U) == want
+    if A.shape[0] == 1:
+        assert stream_mode(A[0], L[0], U[0]) == want
 
 
 def test_f16_results_past_the_range_overflow_to_inf_as_in_jax():

@@ -99,25 +99,27 @@ def no_solve(src: str) -> str:
 VARIANTS = {"thread0_issues": thread0_issues, "no_solve": no_solve}
 
 
-def build(sources: dict[str, tuple[str, Path]]) -> dict[str, ctypes.CDLL]:
-    """Compile each (source text, headers directory) in parallel."""
+def build(sources: dict[str, tuple[str, Path, str]]) -> dict[str, Path]:
+    """Compile each (source text, headers directory, file stem) in parallel
+    into `variants/<name>/<stem>.so` of the build directory (the stem names
+    the kernels' anonymous namespace); the libraries' paths by name."""
     jobs = {}
-    for name, (text, headers) in sources.items():
+    for name, (text, headers, stem) in sources.items():
         out = _build.BUILD_DIR / "variants" / name
         out.mkdir(parents=True, exist_ok=True)
         for header in headers.glob("*.cuh"):
             shutil.copy(header, out)
-        (out / "fused_schur.cu").write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "fused_schur.so"),
-               str(out / "fused_schur.cu")]
-        jobs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
+        (out / f"{stem}.cu").write_text(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{stem}.so"),
+               str(out / f"{stem}.cu")]
+        jobs[name] = (out / f"{stem}.so", subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (out, proc) in jobs.items():
+    for name, (lib, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        libs[name] = ctypes.CDLL(str(out / "fused_schur.so"))
+        libs[name] = lib
     return libs
 
 
@@ -149,13 +151,15 @@ def main() -> int:
         print("fused_schur_variants: no CUDA device is available", file=sys.stderr)
         return 1
     kept_src = (_build.CSRC / "fused_schur.cu").read_text()
-    sources = {name: (edit(kept_src), _build.CSRC) for name, edit in VARIANTS.items()}
+    sources = {name: (edit(kept_src), _build.CSRC, "fused_schur")
+               for name, edit in VARIANTS.items()}
     if args.parent:
-        sources["parent"] = ((args.parent / "fused_schur.cu").read_text(), args.parent)
+        sources["parent"] = ((args.parent / "fused_schur.cu").read_text(), args.parent,
+                             "fused_schur")
     libs = build(sources)
     calls = {}
-    for name, lib in libs.items():
-        fn = lib.fused_trsm_schur_f32
+    for name, path in libs.items():
+        fn = ctypes.CDLL(str(path)).fused_trsm_schur_f32
         first_abi = name == "parent" and "int* mode" not in sources[name][0]
         fn.argtypes = list(PARENT_ARGTYPES if first_abi else fs._ARGTYPES)
         fn.restype = ctypes.c_int
