@@ -25,10 +25,12 @@ each kernel against its plain PyTorch version on the card:
 - mixed precision (ROADMAP.md module item 7): `plan(N, dtype="float64",
   compute_dtype="float32").execute(A).solve(b, refine_tol=1e-12)` beside
   the f64 kernels; the same N in f32 working over bf16 and f16 factors
-  (the new 2-byte entry points of `lu_panel` and `fused_trsm_schur`),
-  refined to 1e-6; `plan((256, 512), compute_dtype=...)` with per-lane
-  tolerances; the kernel path against the plain path at N = 128; both
-  engines on a bf16 plan with half the requests refined;
+  (the 2-byte entry points of `lu_panel` and `fused_trsm_schur`, each
+  fused call in the body that `fused_schur.stream_mode` predicts: the
+  `wgmma` stream on the paths' shapes, asserted there too), refined to
+  1e-6; `plan((256, 512), compute_dtype=...)` with per-lane tolerances;
+  the kernel path against the plain path at N = 128; both engines on a
+  bf16 plan with half the requests refined;
 - mixed precision on the Cholesky kernels and the 2.5D schedules: the bf16
   and f16 entry points of `chol_panel`, `trsm_right_upper`,
   `trsm_left_lower` and `schur_update` (single and batched) at the paths'
@@ -1899,9 +1901,10 @@ MIXED_BATCH_TOLS = (1e-3, 1e-5, 1e-6)  # per-lane tolerances, in turns
 # Cholesky, eight-rank N = 2048 conflux and cholesky25d, bf16 and f16).
 MIXED_PATH_ULPS = 2
 # The body that each 2-byte update kernel takes on the paths' shapes: the
-# fused kernel's plain loads, and schur_update's wgmma stream (every operand
-# of a path's update is one TMA takes, `schur_update.stream_mode`).
-MIXED_UPDATE_MODE = {"fused_trsm_schur": "plain", "fused_trsm_schur_batched": "plain",
+# wgmma streams of fused_trsm_schur and schur_update (every operand of a
+# path's update is one TMA takes, at v = 32: `fused_schur.stream_mode`,
+# `schur_update.stream_mode`).
+MIXED_UPDATE_MODE = {"fused_trsm_schur": "wgmma", "fused_trsm_schur_batched": "wgmma",
                      "schur_update": "wgmma", "schur_update_batched": "wgmma"}
 
 
@@ -1942,10 +1945,10 @@ def mixed_kernel_check(out_k, out_p, dt, scale=None) -> tuple[float, float, dict
 
 def mixed_fused_check(out_k, U_k, out_p, U_p, dt) -> tuple[float, float, dict]:
     """`mixed_kernel_check` of a 2-byte fused call's two results, on the
-    scale of both, and U01's NaN at the plain version's places."""
-    finite_o = torch.isfinite(out_p)
-    scale = max(float(out_p[finite_o].float().abs().max()) if bool(finite_o.any()) else 0.0,
-                float(U_p.float().abs().max()))
+    scale of both (their finite entries), and U01's NaN at the plain
+    version's places."""
+    scale = max((float(t[torch.isfinite(t)].float().abs().max())
+                 if bool(torch.isfinite(t).any()) else 0.0) for t in (out_p, U_p))
     err, ratio, check = mixed_kernel_check(out_k, out_p, dt, scale)
     err_u, ratio_u, _ = mixed_kernel_check(U_k, U_p, dt, scale)
     check["within_tol"] = max(ratio, ratio_u) <= 1.0
@@ -1957,14 +1960,16 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
     """The bf16 and f16 entry points of lu_panel[_batched] and
     fused_trsm_schur[_batched] against their plain versions, at the paths'
     shapes and the bodies' edges; batched lanes against the single call;
-    every fused call must take the plain loads.  Returns the kernels line's
-    eight rows (launches filled in later)."""
+    every fused call must take the body that `fused_schur.stream_mode`
+    predicts.  Returns the kernels line's eight rows (launches filled in
+    later)."""
     from repro_torch.kernels import fused_schur as fs_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.lu_panel import lu_panel, lu_panel_batched
 
     rows = []
     f32 = torch.float32
+    extra = torch.Generator(device=dev).manual_seed(24)
     for dt in MIXED_DTYPES:
         sh = MIXED_SHORT[dt]
         # lu_panel: the main path's shape (a strided column slice of an
@@ -2054,8 +2059,15 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
             })
 
         # fused_trsm_schur: the main path's shape on A itself, then the
-        # edges (`fused_inputs`), zero rows with NaN / inf, and f16 results
-        # that overflow to inf on store.  Every call takes the plain loads.
+        # edges (`fused_inputs`): the stream at v = 8, 16 and 32, ragged M,
+        # windows; the plain loads at v = 1, 31, 33, 128, rows of 1000 bytes
+        # and an odd row stride; zero rows with NaN / inf, an infinite L10
+        # value against a row of U whose parts past hi are 0
+        # ("inf_l10_col0"), non-finite U ("nonfinite_u"), and f16 results
+        # that overflow to inf on store.  Each call's mode must be
+        # `stream_mode`'s prediction.  The cases after the first fourteen
+        # draw from a generator of their own (`extra`), so that every later
+        # phase draws the same data from `gen` as before they were added.
         modes = {}
         cases = [(N, N, 32, True, "A"), (2048, 1536, 16, False, None),
                  (300, 500, 1, True, None), (300, 500, 31, True, None),
@@ -2063,8 +2075,13 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
                  (777, 96, 32, True, None), (1, 300, 32, True, None), (777, 1, 32, True, None),
                  (1000, 1000, 32, True, "odd_lda"), (1000, 1000, 32, True, "window"),
                  (777, 1000, 32, True, "special"), (777, 1000, 32, False, "special"),
-                 (512, 512, 32, True, "overflow")]
-        for M, C, v, unit, form in cases:
+                 (512, 512, 32, True, "overflow"),
+                 (1024, 1024, 8, True, None), (1024, 1024, 16, False, None),
+                 (777, 1024, 32, True, None), (1000, 1000, 8, True, "window"),
+                 (777, 1000, 32, True, "inf_l10_col0"), (777, 1000, 32, False, "nonfinite_u"),
+                 (777, 1000, 16, True, "nonfinite_u")]
+        for n_case, (M, C, v, unit, form) in enumerate(cases):
+            g = gen if n_case < 14 else extra
             if form == "A":
                 Am = A
                 L00 = (0.3 * torch.tril(torch.randn(v, v, generator=gen, device=dev), -1)
@@ -2072,9 +2089,9 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
                 R01 = torch.randn(v, C, generator=gen, device=dev).to(dt)
                 L10 = torch.randn(M, v, generator=gen, device=dev).to(dt)
             else:
-                kind = None if form == "overflow" else form
+                kind = form if form in ("odd_lda", "window", "special") else None
                 Am, L00, R01, L10 = (t.to(dt) for t in
-                                     fused_inputs((), M, C, v, unit, f32, kind, gen, dev))
+                                     fused_inputs((), M, C, v, unit, f32, kind, g, dev))
                 if kind == "odd_lda":  # keep the odd row stride after the cast
                     Am = torch.empty(M, C + 1, device=dev, dtype=dt)[:, :C].copy_(Am)
                 elif kind == "window":
@@ -2087,15 +2104,25 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
                     # inf on store, far from the boundary.
                     pick = torch.tensor([1.0, -1.0, 256.0, -256.0], device=dev)
                     L10 = torch.zeros(M, v, device=dev, dtype=dt)
-                    L10[:, 0] = pick[torch.randint(4, (M,), generator=gen, device=dev)].to(dt)
-                    R01 = pick[torch.randint(4, (v, C), generator=gen, device=dev)] * 100
+                    L10[:, 0] = pick[torch.randint(4, (M,), generator=g, device=dev)].to(dt)
+                    R01 = pick[torch.randint(4, (v, C), generator=g, device=dev)] * 100
                     R01 = torch.where(R01.abs() > 200, R01.sign() * 300, R01).to(dt)
+                elif form == "inf_l10_col0":
+                    # U's row 0 is R01's row 0 (unit), exact in 2 bytes, so
+                    # its mid and lo parts are 0: inf * 0 in the split sum
+                    # where the whole product is infinite
+                    L10[3, 0] = float("inf")
+                    L10[5, 0] = float("-inf")
+                elif form == "nonfinite_u":
+                    R01[2, 7] = float("inf")
+                    R01[4, 300] = float("nan")
+                    R01[0, 11] = float("-inf")
             out_k, U_k = ops.fused_trsm_schur(Am, L00, R01, L10, unit=unit)
             mode = fs_mod.fused_trsm_schur.mode
             out_p, U_p = ref.fused_trsm_schur(Am, L00, R01, L10, unit=unit)
             torch.cuda.synchronize()
             err, ratio, check = mixed_fused_check(out_k, U_k, out_p, U_p, dt)
-            check["plain_loads"] = mode == "plain"
+            check["mode_as_predicted"] = mode == fs_mod.stream_mode(Am, L00, R01, L10)
             case = f"{[M, C, v]} unit={unit} {form}"
             modes[case] = mode
             emit("kernel_fused_trsm_schur_mixed", dtype=sh, shape=[M, C, v], unit=unit,
@@ -2113,6 +2140,10 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
             def yardstick():  # bf16 / f16 GEMM on the tensor cores, U01 rounded first
                 return torch.addmm(Am, L10, R01, alpha=-1.0)
 
+            # f32 U01 would be another function: the yardstick's third
+            # operand is R01 in the storage dtype, as the JAX "ref" backend
+            # rounds U01 first.
+
             rows.append({
                 "name": f"fused_trsm_schur[{sh}]", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/fused_schur.cu",
@@ -2126,6 +2157,7 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
                 "library": "none: no PyTorch call solves and updates 2-byte operands in f32 "
                            "(cuBLAS trsm has no bf16 or f16)",
                 "yardstick_addmm_2byte_ms": time_ms(yardstick),
+                "yardstick_addmm_2byte_device_ms": device_ms(yardstick),
             })
         emit("fused_trsm_schur_mixed_modes", dtype=sh, **modes)
         del A, panel
@@ -2136,9 +2168,11 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
                                        (8, 300, 500, 33, True, None),
                                        (4, 777, 1000, 32, False, "special"),
                                        (4, 1000, 1000, 32, True, "window"),
-                                       (1, BATCH_N, BATCH_N, 32, True, None)):
+                                       (1, BATCH_N, BATCH_N, 32, True, None),
+                                       (8, 777, 1024, 16, True, None)):
+            g = extra if (B, M, v) == (8, 777, 16) else gen
             A3, L00, R01, L10 = (t.to(dt) for t in
-                                 fused_inputs((B,), M, C, v, unit, f32, kind, gen, dev))
+                                 fused_inputs((B,), M, C, v, unit, f32, kind, g, dev))
             if kind == "window":
                 A3 = torch.empty(B, M + 32, C + 64, device=dev, dtype=dt)[:, 32:, 64:].copy_(A3)
             out_k, U_k = ops.fused_trsm_schur_batched(A3, L00, R01, L10, unit=unit)
@@ -2146,7 +2180,7 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
             out_p, U_p = ref.fused_trsm_schur_batched(A3, L00, R01, L10, unit=unit)
             torch.cuda.synchronize()
             err, ratio, check = mixed_fused_check(out_k, U_k, out_p, U_p, dt)
-            check["plain_loads"] = mode == "plain"
+            check["mode_as_predicted"] = mode == fs_mod.stream_mode(A3, L00, R01, L10)
             for b in sorted({0, B - 1}):
                 o1, u1 = ops.fused_trsm_schur(A3[b], L00[b], R01[b], L10[b], unit=unit)
                 check[f"lane{b}_equals_single"] = same_bits(o1, out_k[b]) and same_bits(u1, U_k[b])
@@ -2158,6 +2192,10 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
                                      f"error {err} ({ratio} of its allowance), {check}")
             if (B, M, kind) != (BATCH, BATCH_N, None):
                 continue
+
+            def yardstick_b():  # as `yardstick` above, batched
+                return torch.baddbmm(A3, L10, R01, alpha=-1.0)
+
             rows.append({
                 "name": f"fused_trsm_schur_batched[{sh}]", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/fused_schur.cu",
@@ -2170,6 +2208,8 @@ def kernel_rows_mixed(dev, gen) -> list[dict]:
                 "library_ms": None,
                 **device_fields(lambda: ops.fused_trsm_schur_batched(A3, L00, R01, L10)),
                 "library": "none: as fused_trsm_schur[2-byte]",
+                "yardstick_baddbmm_2byte_ms": time_ms(yardstick_b),
+                "yardstick_baddbmm_2byte_device_ms": device_ms(yardstick_b),
             })
         torch.cuda.empty_cache()
     return rows
@@ -2317,7 +2357,7 @@ def _refined_run(p, A, b, phase: str, want: dict, dt, update: str,
 def mixed_low_main_path(dev, gen, dt) -> dict:
     """plan(N, compute_dtype=bf16 | f16).execute(A) through the entry points
     (f32 working): exactly N / v launches of each LU kernel, all in the
-    compute dtype, and the plain loads in every fused call; refinement to
+    compute dtype, and the wgmma stream in every fused call; refinement to
     1e-6 reported on a standard normal A and held on `well_conditioned`.
     Returns the launches of the counted run on the standard normal A."""
     from repro_torch.api import SolverConfig, plan
@@ -2524,9 +2564,11 @@ def _check_mixed_answers(requests, answers, phase: str, dt) -> dict:
 
 def serving_mixed_sync(dt=torch.bfloat16, count: int = 192, phase: str = "serving_mixed_sync",
                        strategy: str = "auto", make=_mixed_requests,
-                       kernel: str = "lu_panel_batched") -> None:
+                       kernel: str = "lu_panel_batched",
+                       update: str = "fused_trsm_schur_batched") -> None:
     """SolveEngine(512) on a bf16 plan: ragged requests, half of them refined;
-    `kernel` must have been launched."""
+    `kernel` must have been launched, and the last `update` call must have
+    taken its `MIXED_UPDATE_MODE`."""
     import numpy as np
     from repro_torch.api import SolverConfig
     from repro_torch.serving import SolveEngine
@@ -2534,6 +2576,8 @@ def serving_mixed_sync(dt=torch.bfloat16, count: int = 192, phase: str = "servin
     requests = make(np.random.default_rng(2), count)
     eng = SolveEngine(SERVE_N, SolverConfig(strategy=strategy,
                                             compute_dtype=str(dt).removeprefix("torch.")))
+    upd = _wrappers()[update]
+    upd.mode = None
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2547,17 +2591,20 @@ def serving_mixed_sync(dt=torch.bfloat16, count: int = 192, phase: str = "servin
          wall_s=wall_s, requests_per_s=count / wall_s, launches=launches,
          refined_systems=st["refined_systems"], refine_iters_total=st["refine_iters_total"],
          refine_nonconverged=st["refine_nonconverged"], hpl_residual_max=worst,
-         batched_factorizations=st["batched_factorizations"])
+         batched_factorizations=st["batched_factorizations"], last_update_mode=upd.mode)
     if st["refined_systems"] != sum(1 for *_, t in requests if t) or \
-            st["refine_nonconverged"] or launches[kernel] == 0:
-        raise AssertionError(f"{phase}: {st}, launches {launches}")
+            st["refine_nonconverged"] or launches[kernel] == 0 or \
+            upd.mode != MIXED_UPDATE_MODE[update]:
+        raise AssertionError(f"{phase}: {st}, launches {launches}, {update} took {upd.mode!r}")
 
 
 def serving_mixed_async(dt=torch.bfloat16, per_tenant: int = 32,
                         phase: str = "serving_mixed_async", strategy: str = "auto",
-                        make=_mixed_requests, kernel: str = "lu_panel_batched") -> None:
+                        make=_mixed_requests, kernel: str = "lu_panel_batched",
+                        update: str = "fused_trsm_schur_batched") -> None:
     """AsyncSolveEngine(512) on a bf16 plan: four tenant threads, half of the
-    requests refined; `kernel` must have been launched."""
+    requests refined; `kernel` must have been launched, and the last `update`
+    call must have taken its `MIXED_UPDATE_MODE`."""
     import threading
 
     import numpy as np
@@ -2569,6 +2616,8 @@ def serving_mixed_async(dt=torch.bfloat16, per_tenant: int = 32,
     eng = AsyncSolveEngine(SERVE_N, SolverConfig(strategy=strategy,
                                                  compute_dtype=str(dt).removeprefix("torch.")),
                            max_batch=ASYNC_MAX_BATCH, max_delay_ms=ASYNC_DELAY_MS)
+    upd = _wrappers()[update]
+    upd.mode = None
     reset_launches()
 
     def tenant(t: int) -> None:
@@ -2596,13 +2645,15 @@ def serving_mixed_async(dt=torch.bfloat16, per_tenant: int = 32,
          failed=st["async"]["failed"], refined_systems=st["refined_systems"],
          refine_iters_total=st["refine_iters_total"],
          refine_nonconverged=st["refine_nonconverged"], launches=launches,
-         hpl_residual_max=worst)
+         hpl_residual_max=worst, last_update_mode=upd.mode)
     refined = sum(1 for r in reqs for *_, t in r if t)
     if (st["async"]["served"] + st["async"]["spilled"] != total or st["async"]["failed"]
             or st["refined_systems"] + st["async"]["spilled"] < refined
-            or st["refine_nonconverged"] or launches[kernel] == 0):
+            or st["refine_nonconverged"] or launches[kernel] == 0
+            or upd.mode != MIXED_UPDATE_MODE[update]):
         raise AssertionError(f"{phase}: {st['async']}, refined "
-                             f"{st['refined_systems']} of {refined}, launches {launches}")
+                             f"{st['refined_systems']} of {refined}, launches {launches}, "
+                             f"{update} took {upd.mode!r}")
 
 
 # --------------------------------------------------------------------------
@@ -3274,9 +3325,11 @@ def main() -> int:
         for dt in MIXED_DTYPES}
     mixed_plain_chol_128(dev, gen)
     serving_mixed_sync(count=CHOL_SERVE_REQUESTS, phase="serving_mixed_chol_sync",
-                       strategy=CHOL, make=_mixed_spd_requests, kernel="chol_panel_batched")
+                       strategy=CHOL, make=_mixed_spd_requests, kernel="chol_panel_batched",
+                       update="schur_update_batched")
     serving_mixed_async(per_tenant=CHOL_ASYNC_PER_TENANT, phase="serving_mixed_chol_async",
-                        strategy=CHOL, make=_mixed_spd_requests, kernel="chol_panel_batched")
+                        strategy=CHOL, make=_mixed_spd_requests, kernel="chol_panel_batched",
+                        update="schur_update_batched")
     mixed_flat_launches = mixed_grid_p1_path(dev, gen)
 
     # 10. The LM serving path: the two kernels, each model served at full

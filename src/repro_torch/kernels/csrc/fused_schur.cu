@@ -83,16 +83,61 @@
 // results agree with the plain version within a stated tolerance, not
 // bitwise.
 //
-// bf16 and f16 (`storage.cuh`): the kernel is a template on the storage type
-// S of every operand and computes in compute_t<S> (f32 for both), as the
-// Pallas kernel does: U01 is solved in f32 and used in f32 for
-// A - L10 @ U01, and each result is rounded once, to nearest even, where it
-// is stored (`out`, and U01 itself).  The TMA stream is chosen by the
-// storage size (`Smem::kRing`, `bulk`), so 2-byte storage takes the plain
-// loads, which widen every value as they load it into the f32 layout in
-// shared memory; f32 tensor maps are never built over 2-byte data.
+// bf16 and f16 (`storage.cuh`): the function is the Pallas kernel's: U01
+// is solved in f32 and used in f32 for A - L10 @ U01, with exact products
+// summed in f32, and each result is rounded once, to nearest even, where it
+// is stored (`out`, and U01 itself).  Two bodies compute it:
+//   - `fused_trsm_schur_wgmma_kernel`, a stream of its own (below), for
+//     8 <= v <= 32 (one chunk; TMA's rows of at least 16 bytes), M > 0 and
+//     operands that TMA takes in 2 bytes (16-byte aligned bases, row and
+//     batch strides of whole 16-byte runs): every path's shape, the conflux
+//     step's windows included;
+//   - the plain loads of `fused_trsm_schur_kernel`, a template on the
+//     storage type computing in compute_t<S>, for the rest (v = 1 or 33, an
+//     odd row stride, v = 128): they widen every value as they load it into
+//     the f32 layout in shared memory.  (`Smem::kRing` is 1 for 2-byte
+//     storage, so that body never builds f32 tensor maps over 2-byte data.)
+// The launcher reports which way a call went (`*mode`).
+//
+// The 2-byte stream.  On the LU path's [16384, 16384] at v = 32, one call
+// must read A and write the result once, 1.07 GB in bf16, a floor of
+// 0.32 ms at 3.35 TB/s, while it does 17.2 GFLOP: 0.26 ms on the CUDA
+// cores' f32 FMAs, 80% of the floor, so the products and the copies would
+// pace each other there.  The tensor cores take bf16 only: bf16 L10 times
+// U01 rounded to bf16 is another function (the JAX "ref" backend's), and
+// TF32 another again.  So U is split exactly into three bf16 parts, U = hi
+// + mid + lo (`split3`: 8 + 8 + 8 significant bits cover f32's 24), and
+// the tile takes one product of each part into one f32 accumulator; a
+// product of two bf16 values is exact in f32, so only the order of the f32
+// sum differs from the plain version's.  f16 L10 is split the same way into
+// two bf16 parts (`split2`: f16 has 11 significant bits), hi in k 0-31 and
+// lo in k 32-63 of the stage's L row, and a K = 64 product per part forms
+// (L_hi + L_lo) U_part: 6 products a tile at v = 32 in bf16, 12 in f16,
+// about 768 and 1,536 tensor-core clocks against ~4,500 for the tile's 64
+// KB of copies.  The stream is the 2-byte `schur_update`'s
+// (`schur_update.cu`) with the f32 stream's per-item solve folded in: one
+// block an SM, 64 x 256 output tiles ordered (system, stripe, row tile)
+// with the row tile fastest, a producer warp issuing every TMA copy and
+// store, A in four 128-byte-swizzled boxes of 64 columns, evict-first on A
+// and the results, a stage reloaded only once its store has been read out.
+// Two consumer warpgroups run `wgmma` m64n128k16, each on half the tile's
+// columns, so that one's epilogue runs beside the other's products.  Per
+// item the stripe's R01 [v, 256] and L00 [v, v] arrive by TMA with its
+// first tile (R01 into the lo part of one of two U buffers); the consumers
+// widen them, solve L00 U = R01 in f32 in registers, one column a thread,
+// with `solve_column`'s arithmetic, and write the parts over R01.  A block
+// whose range starts inside an item solves it too; only the block that
+// holds its row tile 0 writes U01.  Shared memory bounds the ring at three
+// stages of 40 KB beside two 48 KB U buffers.  Non-finite values: a part
+// that is 0 times an infinite value (of L10, or of U against f16 L10's lo)
+// gives NaN where the whole values' product is infinite, so a tile whose
+// L10 or U holds a non-finite value forms each NaN of its accumulator
+// again from the whole values (`whole_dot`), and NaN and inf land where the
+// plain version puts them.
 
+#include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>  // CUtensorMap and its enums only: the driver call is looked up at run time
 #include <cuda_runtime.h>
@@ -100,6 +145,7 @@
 #include "once_per_device.cuh"
 #include "storage.cuh"
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -143,48 +189,6 @@ struct Smem {
   static constexpr size_t kBytes = 1024 + kBars + 2 * kRing * 8;
   static_assert(kBytes <= 232448, "a block may use at most 227 KB of shared memory");
 };
-
-// An L2 policy that evicts first what it tags: the streamed A tiles and the
-// results, which are read or written once, so that L10, L00 and R01 stay in
-// L2.
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
-}
-
-// One box of a 3-D tensor map into shared memory; completion is counted in
-// bytes on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// The same, tagged with an L2 policy.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
-      "[%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "l"(policy)
-      : "memory");
-}
-
-// One box from shared memory into a 3-D tensor map (clipped at its edges),
-// as a bulk group of its own, tagged with an L2 policy.
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint "
-      "[%0, {%2, %3, %4}], [%1], %5;\n"
-      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
-      : "memory");
-}
 
 // A barrier of the math warps only (named barrier 1; the producer warp
 // never takes part).
@@ -496,28 +500,466 @@ fused_trsm_schur_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-// A 3-D f32 map over [nsys, rows, cols] (innermost first) with row stride ld
-// and batch stride bs (elements), read or written in boxes of box_rows x
-// box_cols of one system.  False where TMA cannot take the operand: a base
-// or stride off a 16-byte boundary, or a map the driver refuses.
-bool f32_map(CUtensorMap* map, const void* ptr, int64_t ld, int64_t bs, int nsys, int rows,
-             int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (nsys == 1) bs = ld * rows;  // any stride will do for a single system
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 || ld % 4 || bs % 4 || bs <= 0 ||
-      cols < 4) {
-    return false;
+// --------------------------------------------------------------------------
+// bf16 and f16: a TMA + wgmma stream
+// --------------------------------------------------------------------------
+
+constexpr int kWRows = 64;              // rows of a 2-byte output tile: one m64 product
+constexpr int kWBox = 64;               // columns of a box: one 128-byte swizzled row
+constexpr int kWBoxes = kBN / kWBox;    // boxes of a 256-column stripe
+constexpr int kWMinV = 8;               // v of at least 16 bytes, TMA's least row
+constexpr int kWV = 32;                 // v of at most one chunk: U's rows in a buffer
+constexpr int kWStages = 3;             // A + L10 tiles in the ring
+constexpr int kWUBufs = 2;              // items whose U (and L00) are in shared memory
+constexpr int kWGroups = 2;             // consumer warpgroups, each a 64 x kWN half tile
+constexpr int kWN = kBN / kWGroups;     // columns of a warpgroup's products
+constexpr int kWMath = 128 * kWGroups;  // the consumer threads
+constexpr int kWCols = kBN / kWMath;    // columns of U that a consumer thread solves
+constexpr int kWThreads = kWMath + 32;  // and the producer warp
+
+// Shared memory, from a 1024-byte boundary (the 128-byte swizzle repeats
+// every 8 rows): per stage A [4 boxes][64 rows][128 B] and L10 [64 rows]
+// [128 B]; per item buffer U's three parts hi, mid and lo, each [4 boxes]
+// [32 rows][128 B] (R01 lands in lo), then L00 [32][32] per item buffer;
+// then a "full" and a "done" mbarrier per stage.
+struct WSmem {
+  static constexpr uint32_t kABox = kWRows * 128;
+  static constexpr uint32_t kA = kWBoxes * kABox;
+  static constexpr uint32_t kL = kWRows * 128;
+  static constexpr uint32_t kStage = kA + kL;
+  static constexpr uint32_t kPartBox = kWV * 128;
+  static constexpr uint32_t kPart = kWBoxes * kPartBox;
+  static constexpr uint32_t kU = 3 * kPart;
+  static constexpr uint32_t kL00 = kWV * kWV * 2;
+  static constexpr uint32_t kUOff = kWStages * kStage;
+  static constexpr uint32_t kL00Off = kUOff + kWUBufs * kU;
+  static constexpr uint32_t kBars = kL00Off + kWUBufs * kL00;
+  static constexpr size_t kBytes = 1024 + kBars + 2 * kWStages * 8;
+  static_assert(kBytes <= 232448, "a block may use at most 227 KB of shared memory");
+};
+
+// The byte offset of byte b of row m of a 128-byte-swizzled box.
+__device__ __forceinline__ int sw128(int m, int b) {
+  return m * 128 + ((((b >> 4) ^ m) & 7) << 4) + (b & 15);
+}
+
+// The bits of the bf16 value nearest to x (NaN stays NaN).
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// The exact split of an f32 value u into three bf16 parts (their bits, in
+// the low half of each word): hi is u with its low 16 bits cleared, r =
+// u - hi, mid is r with its low 16 bits cleared, lo = r - mid.  Both
+// subtractions are exact; every part that is not zero has u's sign
+// (clearing bits truncates toward zero), and a part that is zero takes it
+// too.  So hi + mid + lo rebuilds u bit for bit wherever |u| >= 2^-110 or
+// u = +-0 (8 + 8 + 8 significant bits cover f32's 24; hi, a truncation,
+// never rounds up past f32's largest value); below 2^-110, lo drops what
+// lies under bf16's smallest subnormal, 2^-133.  Non-finite u goes whole
+// into hi (inf stays inf, NaN stays NaN), with mid = lo = 0.
+__device__ __forceinline__ void split3(float u, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const uint32_t b = __float_as_uint(u);
+  const uint32_t sign = b & 0x80000000u;
+  const float r = u - __uint_as_float(b & 0xffff0000u);
+  const uint32_t rb = __float_as_uint(r) & 0xffff0000u;
+  const float l = r - __uint_as_float(rb);
+  const bool fin = isfinite(u);
+  hi = fin ? b >> 16 : bf16_bits(u);
+  mid = fin ? (rb | sign) >> 16 : 0u;
+  lo = fin ? (__float_as_uint(l) | sign) >> 16 : 0u;
+}
+
+// The same in two parts for an f16 value widened to f32 (11 significant
+// bits): hi, its low 16 bits cleared, and lo = x - hi, exact and of at most
+// 3 bits, so hi + lo rebuilds every finite f16 value, subnormals included.
+__device__ __forceinline__ void split2(float x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t b = __float_as_uint(x);
+  const float l = x - __uint_as_float(b & 0xffff0000u);
+  const bool fin = isfinite(x);
+  hi = fin ? b >> 16 : bf16_bits(x);
+  lo = fin ? (__float_as_uint(l) | (b & 0x80000000u)) >> 16 : 0u;
+}
+
+// This thread's share of a stage's L10 tile [64 rows][32 k]: its 16-byte
+// runs t + i kWMath (row run / 4, k 8 (run % 4) on).  bf16 storage: whether
+// any of its values is not finite.  f16 storage: the same, and each value
+// split into bf16 parts (`split2`), hi over the value (k 0-31) and lo at
+// k + 32, so that one product of K = 64 forms (L_hi + L_lo) U_part.
+template <typename St>
+__device__ __forceinline__ bool prepare_l10(unsigned char* Ls, int tid) {
+  bool bad = false;
+#pragma unroll
+  for (int i = 0; i < kWRows * 4 / kWMath; ++i) {
+    const int run = tid + i * kWMath;
+    const int m = run / 4;
+    uint4* p = reinterpret_cast<uint4*>(Ls + sw128(m, 16 * (run % 4)));
+    uint4 w = *p;
+    uint32_t* x = reinterpret_cast<uint32_t*>(&w);
+    if constexpr (std::is_same<St, __half>::value) {
+      uint4 lo;
+      uint32_t* y = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = Pair<__half>::widen(x[e]);
+        uint32_t h0, l0, h1, l1;
+        split2(f.x, h0, l0);
+        split2(f.y, h1, l1);
+        bad |= !isfinite(f.x) || !isfinite(f.y);
+        x[e] = h0 | (h1 << 16);
+        y[e] = l0 | (l1 << 16);
+      }
+      *p = w;
+      *reinterpret_cast<uint4*>(Ls + sw128(m, 64 + 16 * (run % 4))) = lo;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bad |= (x[e] & 0x7f80u) == 0x7f80u || (x[e] & 0x7f800000u) == 0x7f800000u;
+      }
+    }
   }
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(nsys)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 4, static_cast<cuuint64_t>(bs) * 4};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
-                             1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return bad;
+}
+
+// The per-item solve, in the consumer threads: thread t owns the kWCols
+// columns from kWCols t of the stripe, 2 kWCols bytes of row k of U's box
+// kWCols t / 64.  It widens its columns of R01 (from the lo part, where they
+// landed; zero past C, `in`) and solves L00 U = R01 in f32 in registers
+// with `solve_column`'s arithmetic, splits U into the three parts
+// (`split3`) over R01, and, where `u01` is given, writes U01 rounded once.
+// Returns whether any of its values of U is not finite.
+template <typename St>
+__device__ __forceinline__ bool solve_item(unsigned char* ub, const St* L00, int tid,
+                                           const bool (&in)[kWCols], int v, int unit, St* u01,
+                                           int64_t ldu) {
+  const int box = kWCols * tid / kWBox;
+  const int byte = 2 * (kWCols * tid % kWBox);
+  unsigned char* lo = ub + 2 * WSmem::kPart;
+  float x[kWCols][kWV];
+#pragma unroll
+  for (int k = 0; k < kWV; ++k) {
+    const int o = box * WSmem::kPartBox + sw128(k, byte);
+#pragma unroll
+    for (int j = 0; j < kWCols; ++j)
+      x[j][k] = in[j] ? widen(reinterpret_cast<const St*>(lo + o)[j]) : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < kWV; ++r) {
+    if (r >= v) break;
+    float p[kWCols] = {};
+#pragma unroll
+    for (int q0 = 0; q0 < r; q0 += 8) {
+      const uint4 run = *reinterpret_cast<const uint4*>(L00 + r * kWV + q0);
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(&run);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (q0 + e < r) {
+          const float2 f = Pair<St>::widen(w[e / 2]);
+          const float l = e % 2 ? f.y : f.x;
+#pragma unroll
+          for (int j = 0; j < kWCols; ++j) p[j] += l * x[j][q0 + e];
+        }
+      }
+    }
+    const float d = unit ? 1.f : widen(L00[r * kWV + r]);
+#pragma unroll
+    for (int j = 0; j < kWCols; ++j) {
+      const float y = x[j][r] - p[j];
+      x[j][r] = unit ? y : y / d;
+    }
+  }
+  bool bad = false;
+#pragma unroll
+  for (int k = 0; k < kWV; ++k) {
+    const int o = box * WSmem::kPartBox + sw128(k, byte);
+#pragma unroll
+    for (int j = 0; j < kWCols; ++j) {
+      uint32_t h, m, l;
+      split3(x[j][k], h, m, l);
+      reinterpret_cast<uint16_t*>(ub + o)[j] = static_cast<uint16_t>(h);
+      reinterpret_cast<uint16_t*>(ub + WSmem::kPart + o)[j] = static_cast<uint16_t>(m);
+      reinterpret_cast<uint16_t*>(lo + o)[j] = static_cast<uint16_t>(l);
+      bad |= !isfinite(x[j][k]);
+    }
+  }
+  if (u01 != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kWV; ++r) {
+      if (r >= v) break;
+#pragma unroll
+      for (int j = 0; j < kWCols; ++j) {
+        if (in[j]) u01[r * ldu + j] = narrow<St>(x[j][r]);
+      }
+    }
+  }
+  return bad;
+}
+
+// Row m, column c of the product L10 U with the whole values, rebuilt
+// exactly from the parts in shared memory (L10 = hi + lo in f16, U = hi +
+// mid + lo), summed in an FMA chain over ascending k < v from 0.
+template <typename St>
+__device__ __forceinline__ float whole_dot(const unsigned char* Ls, const unsigned char* ub, int m,
+                                           int c, int v) {
+  const unsigned char* u = ub + (c / kWBox) * WSmem::kPartBox;
+  const int cb = 2 * (c % kWBox);
+  float s = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < v; ++k) {
+    float l = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(Ls + sw128(m, 2 * k)));
+    if constexpr (std::is_same<St, __half>::value) {
+      l += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(Ls + sw128(m, 64 + 2 * k)));
+    } else {
+      static_assert(std::is_same<St, __nv_bfloat16>::value, "2-byte storage only");
+    }
+    const int o = sw128(k, cb);
+    const float hi = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(u + o));
+    const float mid =
+        __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(u + WSmem::kPart + o));
+    const float lo =
+        __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(u + 2 * WSmem::kPart + o));
+    s += l * ((hi + mid) + lo);
+  }
+  return s;
+}
+
+// Whether x is set in any consumer thread: a barrier of the kWMath of them
+// (named barrier 1; the producer warp never takes part).
+__device__ __forceinline__ bool math_any(bool x) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.or.pred q, 1, %2, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(x)), "n"(kWMath)
+      : "memory");
+  return r != 0;
+}
+
+// KS = ceil(v / 16) k16 steps a part.
+template <typename St, int KS>
+__global__ void __launch_bounds__(kWThreads, 1)
+fused_trsm_schur_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                              const __grid_constant__ CUtensorMap tm_l00,
+                              const __grid_constant__ CUtensorMap tm_r01,
+                              const __grid_constant__ CUtensorMap tm_l10,
+                              const __grid_constant__ CUtensorMap tm_out, St* __restrict__ U01,
+                              int64_t ldu, int64_t bsu, int nsys, int M, int C, int v, int unit) {
+  using W = WSmem;
+  // f16 L10 takes two K = 32 halves (hi, lo) of the stage's L row a part.
+  constexpr int kHalves = std::is_same<St, __half>::value ? 2 : 1;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t smem0 = (raw + 1023u) & ~1023u;
+  unsigned char* const base = smem_raw + (smem0 - raw);
+  const uint32_t full0 = smem0 + W::kBars;
+  const uint32_t done0 = full0 + 8 * kWStages;
+  const int tid = threadIdx.x;
+
+  const int nrt = (M + kWRows - 1) / kWRows;
+  const int nst = (C + kBN - 1) / kBN;
+  const int64_t tiles = static_cast<int64_t>(nsys) * nst * nrt;
+  const int64_t t_begin = tiles * blockIdx.x / gridDim.x;
+  const int64_t count = tiles * (blockIdx.x + 1) / gridDim.x - t_begin;
+  const int64_t key0 = t_begin / nrt;  // (system, stripe) of the first tile
+
+  if (tid == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(done0 + 8 * s, kWMath / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The role, broadcast from lane 0 so that the compiler sees it uniform
+  // across each warp and keeps the products off any divergent path.
+  if (__shfl_sync(0xffffffffu, tid / kWMath, 0) != 0) {
+    if (tid > kWMath) return;
+    // The producer: tile n into stage n % kWStages once the store of tile
+    // n - kWStages has been read out, and with the R01 and L00 of a new
+    // item q into buffer q % kWUBufs once every tile of item q - kWUBufs is
+    // done.  `done` is the last tile whose result the consumer has written.
+    // Boxes wholly past C are neither loaded nor stored.
+    const uint64_t stream_policy = evict_first_policy();
+    int64_t next = 0;
+    auto issue = [&](int64_t done) {
+      for (; next < count && next <= done + kWStages; ++next) {
+        const int64_t tau = t_begin + next;
+        const int64_t key = tau / nrt;
+        const bool starts = next == 0 || tau % nrt == 0;
+        if (starts && key - key0 >= kWUBufs && (key - kWUBufs + 1) * nrt - 1 - t_begin > done)
+          break;
+        const uint32_t stage = smem0 + (next % kWStages) * W::kStage;
+        const uint32_t bar = full0 + 8 * (next % kWStages);
+        const int row0 = static_cast<int>(tau % nrt) * kWRows;
+        const int col0 = static_cast<int>(key % nst) * kBN;
+        const int z = static_cast<int>(key / nst);
+        const int boxes = min(kWBoxes, (C - col0 + kWBox - 1) / kWBox);
+        mbar_expect_tx(bar, boxes * W::kABox + W::kL +
+                                (starts ? boxes * W::kPartBox + W::kL00 : 0));
+        for (int b = 0; b < boxes; ++b)
+          tma_load_3d(stage + b * W::kABox, &tm_a, bar, col0 + b * kWBox, row0, z, stream_policy);
+        tma_load_3d(stage + W::kA, &tm_l10, bar, 0, row0, z);
+        if (starts) {
+          const uint32_t q = static_cast<uint32_t>((key - key0) % kWUBufs);
+          const uint32_t lo = smem0 + W::kUOff + q * W::kU + 2 * W::kPart;
+          for (int b = 0; b < boxes; ++b)
+            tma_load_3d(lo + b * W::kPartBox, &tm_r01, bar, col0 + b * kWBox, 0, z);
+          tma_load_3d(smem0 + W::kL00Off + q * W::kL00, &tm_l00, bar, 0, 0, z);
+        }
+      }
+    };
+    issue(-1);
+    for (int64_t n = 0; n < count; ++n) {
+      const int64_t tau = t_begin + n;
+      const int64_t key = tau / nrt;
+      const int row0 = static_cast<int>(tau % nrt) * kWRows;
+      const int col0 = static_cast<int>(key % nst) * kBN;
+      const int boxes = min(kWBoxes, (C - col0 + kWBox - 1) / kWBox);
+      const uint32_t stage = smem0 + (n % kWStages) * W::kStage;
+      mbar_wait(done0 + 8 * (n % kWStages), static_cast<uint32_t>((n / kWStages) & 1));
+      for (int b = 0; b < boxes; ++b)
+        tma_store_3d(&tm_out, stage + b * W::kABox, col0 + b * kWBox, row0,
+                     static_cast<int>(key / nst), stream_policy);
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      issue(n);
+    }
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    return;
+  }
+
+  // The consumers: warpgroup g takes the tile's columns from g kWN on.
+  // Thread t of it holds accumulator pairs 2j, 2j + 1 at row 16 (t / 32) +
+  // (t % 32) / 4 + 8 (j % 2), columns g kWN + 8 (j / 2) + 2 (t % 4) and one
+  // more; in the swizzled A tile that pair lies in box g kWN / 64 + j / 16,
+  // at byte 4 (t % 4) of 16-byte run ((j / 2) % 8) ^ ((t % 32) / 4) of its
+  // row.
+  const int lane = tid % 32;
+  const int group = tid / 128;
+  const int gcol = group * kWN;  // the group's first column
+  const uint32_t row_off = (16 * (tid % 128 / 32) + lane / 4) * 128 + 4 * (lane % 4);
+  const int swz = lane / 4;
+  float acc[kWN / 2];
+  bool item_bad = false;  // a value of the item's U is not finite
+  for (int64_t n = 0; n < count; ++n) {
+    const int64_t tau = t_begin + n;
+    const int64_t key = tau / nrt;
+    const int s = static_cast<int>(n % kWStages);
+    const int q = static_cast<int>((key - key0) % kWUBufs);
+    const uint32_t stage = smem0 + s * W::kStage;
+    const uint32_t u = smem0 + W::kUOff + q * W::kU;
+    unsigned char* const ub = base + W::kUOff + q * W::kU;
+    unsigned char* const Ls = base + s * W::kStage + W::kA;
+    const int row0 = static_cast<int>(tau % nrt) * kWRows;
+    const int col0 = static_cast<int>(key % nst) * kBN;
+    mbar_wait(full0 + 8 * s, static_cast<uint32_t>((n / kWStages) & 1));
+    const bool starts = n == 0 || tau % nrt == 0;
+    if (starts) {
+      // A new item: R01 and L00 have landed with this tile.
+      const int c = col0 + kWCols * tid;
+      St* const u01 = tau % nrt == 0 ? U01 + key / nst * bsu + c : nullptr;
+      bool in[kWCols];
+#pragma unroll
+      for (int j = 0; j < kWCols; ++j) in[j] = c + j < C;
+      item_bad = solve_item<St>(ub, reinterpret_cast<const St*>(base + W::kL00Off + q * W::kL00),
+                                tid, in, v, unit, u01, ldu);
+    }
+    bool bad = prepare_l10<St>(Ls, tid) || item_bad;
+    // The solve's and the split's writes before the products read them.
+    if (starts || kHalves == 2) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bad = math_any(bad);
+    fresh(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          // k16 step kk of half h: 32 bytes into L10's 128-byte rows; 16
+          // rows of part p's boxes from the group's.
+          mma_ss_t<kWN, __nv_bfloat16>(
+              acc, sw128_desc(stage + W::kA + h * 64 + kk * 32, 16, 1024),
+              sw128_desc(u + p * W::kPart + gcol / kWBox * W::kPartBox + kk * 2048, W::kPartBox,
+                         1024),
+              p + h + kk > 0);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    if (bad) {
+      // A part that is 0 times an infinite value of L10 or U gives NaN where
+      // the whole values' product is infinite: form each NaN of the
+      // accumulator again from the whole values (a NaN there is NaN in the
+      // plain version too).  The accumulators pass through a local array,
+      // so that this rare path is a loop and holds no registers elsewhere.
+      float sums[kWN / 2];
+#pragma unroll
+      for (int i = 0; i < kWN / 2; ++i) sums[i] = acc[i];
+#pragma unroll 1
+      for (int i = 0; i < kWN / 2; ++i) {
+        const int m = 16 * (tid % 128 / 32) + lane / 4 + 8 * ((i / 2) % 2);
+        const int c = gcol + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        if (isnan(sums[i]) && row0 + m < M && col0 + c < C)
+          sums[i] = whole_dot<St>(Ls, ub, m, c, v);
+      }
+#pragma unroll
+      for (int i = 0; i < kWN / 2; ++i) acc[i] = sums[i];
+    }
+    unsigned char* const a = base + s * W::kStage + gcol / kWBox * W::kABox;
+#pragma unroll
+    for (int j = 0; j < kWN / 4; ++j) {
+      const int cb = j / 2;  // the pair's 8-column block
+      uint32_t* p = reinterpret_cast<uint32_t*>(
+          a + (cb / 8) * W::kABox + row_off + (j % 2) * 8 * 128 + (((cb % 8) ^ swz) << 4));
+      const float2 x = Pair<St>::widen(*p);
+      *p = Pair<St>::narrow(x.x - acc[2 * j], x.y - acc[2 * j + 1]);
+    }
+    // This warp's results before the TMA store that reads them.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(done0 + 8 * s);
+  }
+}
+
+// The 2-byte stream for operands that `launch` found TMA takes; an error if
+// the driver refuses a map all the same (never the plain loads).
+template <typename S, int KS>
+int launch_wgmma(const void* A, long long lda, long long bsa, const void* L00, long long ldl,
+                 long long bsl, const void* R01, long long ldr, long long bsr, const void* L10,
+                 long long ld10, long long bs10, void* out, long long ldo, long long bso,
+                 void* U01, long long ldu, long long bsu, int B, int M, int C, int v, int unit,
+                 cudaStream_t stream) {
+  static OncePerDevice<> limit;
+  int sms = 0;
+  const cudaError_t err = limit.get(
+      [](int dev, int* n) {
+        const cudaError_t e = cudaFuncSetAttribute(fused_trsm_schur_wgmma_kernel<S, KS>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(WSmem::kBytes));
+        return e != cudaSuccess ? e
+                                : cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+      },
+      &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr auto kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tm_a{}, tm_l00{}, tm_r01{}, tm_l10{}, tm_out{};
+  if (!(tensor_map<S>(&tm_a, A, lda, bsa, B, M, C, kWRows, kWBox, kSw) &&
+        tensor_map<S>(&tm_l00, L00, ldl, bsl, B, v, v, kWV, kWV, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+        tensor_map<S>(&tm_r01, R01, ldr, bsr, B, v, C, kWV, kWBox, kSw) &&
+        tensor_map<S>(&tm_l10, L10, ld10, bs10, B, M, v, kWRows, kWBox, kSw) &&
+        tensor_map<S>(&tm_out, out, ldo, bso, B, M, C, kWRows, kWBox, kSw))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t tiles =
+      static_cast<int64_t>(B) * ((M + kWRows - 1) / kWRows) * ((C + kBN - 1) / kBN);
+  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  fused_trsm_schur_wgmma_kernel<S, KS><<<grid, kWThreads, WSmem::kBytes, stream>>>(
+      tm_a, tm_l00, tm_r01, tm_l10, tm_out, static_cast<S*>(U01), ldu, bsu, B, M, C, v, unit);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>
@@ -531,6 +973,23 @@ int launch(const void* A, long long lda, long long bsa, const void* L00, long lo
   const int64_t tiles =
       static_cast<int64_t>(B) * (M > 0 ? (M + kBM - 1) / kBM : 1) * ((C + kBN - 1) / kBN);
   if (tiles == 0) return static_cast<int>(cudaSuccess);
+
+  // 2-byte storage: the wgmma stream wherever 8 <= v <= 32, M > 0 and TMA
+  // takes every operand, decided by that rule alone; else the plain loads.
+  if constexpr (sizeof(S) == 2) {
+    if (v >= kWMinV && v <= kWV && M > 0 && tma_fits<S>(A, lda, bsa, B, M, C) &&
+        tma_fits<S>(L00, ldl, bsl, B, v, v) && tma_fits<S>(R01, ldr, bsr, B, v, C) &&
+        tma_fits<S>(L10, ld10, bs10, B, M, v) && tma_fits<S>(out, ldo, bso, B, M, C)) {
+      *mode = 2;
+      if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+      const auto st = static_cast<cudaStream_t>(stream);
+      return v <= 16 ? launch_wgmma<S, 1>(A, lda, bsa, L00, ldl, bsl, R01, ldr, bsr, L10, ld10,
+                                          bs10, out, ldo, bso, U01, ldu, bsu, B, M, C, v, unit, st)
+                     : launch_wgmma<S, 2>(A, lda, bsa, L00, ldl, bsl, R01, ldr, bsr, L10, ld10,
+                                          bs10, out, ldo, bso, U01, ldu, bsu, B, M, C, v, unit, st);
+    }
+  }
+
   // The limit is raised, and the SMs counted, once per device.
   static OncePerDevice<> limit;
   int sms = 0;
@@ -546,15 +1005,16 @@ int launch(const void* A, long long lda, long long bsa, const void* L00, long lo
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // TMA for f32 storage with v within one chunk (every f32 path's shape),
-  // else plain loads: f64, bf16 and f16 storage always.
+  // else plain loads: f64 always, bf16 and f16 where the stream above does
+  // not take the operands.
   CUtensorMap tm_a{}, tm_l00{}, tm_r01{}, tm_l10{}, tm_out{};
   const int bulk =
       sizeof(S) == 4 && v <= kC && M > 0 &&
-      f32_map(&tm_a, A, lda, bsa, B, M, C, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-      f32_map(&tm_l00, L00, ldl, bsl, B, v, v, kC, kC, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-      f32_map(&tm_r01, R01, ldr, bsr, B, v, C, kC, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-      f32_map(&tm_l10, L10, ld10, bs10, B, M, v, kBM, kC, CU_TENSOR_MAP_SWIZZLE_128B) &&
-      f32_map(&tm_out, out, ldo, bso, B, M, C, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
+      tensor_map<float>(&tm_a, A, lda, bsa, B, M, C, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      tensor_map<float>(&tm_l00, L00, ldl, bsl, B, v, v, kC, kC, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      tensor_map<float>(&tm_r01, R01, ldr, bsr, B, v, C, kC, kBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+      tensor_map<float>(&tm_l10, L10, ld10, bs10, B, M, v, kBM, kC, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      tensor_map<float>(&tm_out, out, ldo, bso, B, M, C, kBM, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
   *mode = bulk;
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
   fused_trsm_schur_kernel<S><<<grid, kThreads, Smem<S>::kBytes,
@@ -570,9 +1030,9 @@ int launch(const void* A, long long lda, long long bsa, const void* L00, long lo
 // B systems: A [M, C], L00 [v, v], R01 [v, C], L10 [M, v], out [M, C],
 // U01 [v, C], all of one element type (the entry's suffix), each with the
 // given row stride, batch stride and unit column stride (a single system is
-// B = 1), 1 <= v <= 128.  Sets *mode to 1 where the operands took the TMA
-// stream, 0 where they took plain loads (always for f64, bf16 and f16).
-// Returns the cudaError_t of the launch.
+// B = 1), 1 <= v <= 128.  Sets *mode to 1 where f32 operands took the TMA
+// stream, 2 where bf16 or f16 ones took the wgmma stream, 0 where they took
+// plain loads (always for f64).  Returns the cudaError_t of the launch.
 #define FUSED_ENTRY(suffix, S)                                                                  \
   extern "C" int fused_trsm_schur_##suffix(                                                    \
       const void* A, long long lda, long long bsa, const void* L00, long long ldl,              \

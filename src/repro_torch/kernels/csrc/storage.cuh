@@ -7,6 +7,8 @@
 
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
@@ -52,5 +54,30 @@ template <typename S>
 __device__ __forceinline__ S narrow(compute_t<S> x) {
   return Narrow<S>::from(x);
 }
+
+// Two adjacent 2-byte values of a row, as one 32-bit word (the lower column
+// in the low half): widened exactly, narrowed once to nearest even.
+template <typename St>
+struct Pair;
+template <>
+struct Pair<__nv_bfloat16> {
+  __device__ __forceinline__ static float2 widen(uint32_t w) {
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+  }
+  __device__ __forceinline__ static uint32_t narrow(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+template <>
+struct Pair<__half> {
+  __device__ __forceinline__ static float2 widen(uint32_t w) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  }
+  __device__ __forceinline__ static uint32_t narrow(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
 
 }  // namespace

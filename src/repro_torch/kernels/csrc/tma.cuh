@@ -1,12 +1,15 @@
 // What the kernels that take tiles by TMA share: waits on mbarriers that
-// trap instead of hanging, and the driver's cuTensorMapEncodeTiled, looked
-// up at run time.
+// trap instead of hanging, the driver's cuTensorMapEncodeTiled, looked up at
+// run time, the 3-D copies and stores of the update kernels' streams, and
+// the rule by which they decide whether TMA takes an operand.
 
 #pragma once
 
 #include <cstdint>
 
 #include <cuda.h>  // CUtensorMap and its enums only: the driver call is looked up at run time
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {  // each library is one translation unit
@@ -71,6 +74,98 @@ EncodeTiled encode_tiled() {
                : nullptr;
   }();
   return fn;
+}
+
+// An L2 policy that evicts first what it tags: the streamed A tiles and the
+// results, which are read or written once, so that the operands read again
+// (L and U, or L10, L00 and R01) stay in L2.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// One box of a 3-D tensor map into shared memory; completion is counted in
+// bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// The same, tagged with an L2 policy.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+// One box from shared memory into a 3-D tensor map (clipped at its edges),
+// as a bulk group of its own, tagged with an L2 policy.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0, {%2, %3, %4}], [%1], %5;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+template <typename S>
+struct MapType;
+template <>
+struct MapType<float> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <>
+struct MapType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct MapType<__half> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// Whether TMA takes an operand of element type S over [nsys, rows, cols]
+// with row stride ld and batch stride bs (elements): a 16-byte aligned base,
+// row and batch strides of whole 16-byte runs, and at least 16 bytes of
+// columns.  A single system's batch stride is not read.
+template <typename S>
+bool tma_fits(const void* ptr, int64_t ld, int64_t bs, int nsys, int rows, int cols) {
+  constexpr int64_t kRun = 16 / sizeof(S);
+  if (nsys == 1) bs = ld * rows;
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ld % kRun == 0 && bs % kRun == 0 &&
+         bs > 0 && cols >= kRun;
+}
+
+// A 3-D map of element type S over [nsys, rows, cols] (innermost first)
+// with row stride ld and batch stride bs (elements), read or written in
+// boxes of box_rows x box_cols of one system.  False where TMA cannot take
+// the operand (`tma_fits`) or the driver refuses the map.
+template <typename S>
+bool tensor_map(CUtensorMap* map, const void* ptr, int64_t ld, int64_t bs, int nsys, int rows,
+                int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || !tma_fits<S>(ptr, ld, bs, nsys, rows, cols)) return false;
+  if (nsys == 1) bs = ld * rows;  // any stride will do for a single system
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(nsys)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * sizeof(S),
+                                 static_cast<cuuint64_t>(bs) * sizeof(S)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, MapType<S>::value, 3, const_cast<void*>(ptr), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

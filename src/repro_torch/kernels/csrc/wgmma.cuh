@@ -51,6 +51,16 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// Starts the accumulators' live range here without an instruction: their
+// values are undefined until a product with acc = 0 overwrites them, so the
+// registers hold other values before this point (the asm of a product reads
+// them, which would keep them live across a loop).
+template <int N>
+__device__ __forceinline__ void fresh(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i]));
+}
+
 // D[64 x N] (+)= A[64 x 16] B[16 x N]: A and B in shared memory, both
 // K-major; acc = 0 overwrites D.
 template <int N, typename E = __nv_bfloat16>
@@ -116,6 +126,7 @@ __device__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
 #define WGMMA_ALL(E, TY)                                                                  \
   WGMMA_SS(mma_ss, 64, E, TY, "0", WGMMA_R32, WGMMA_D32(0), "%32", "%33", "%34")          \
   WGMMA_SS(mma_ss, 128, E, TY, "0", WGMMA_R64, WGMMA_D64, "%64", "%65", "%66")            \
+  WGMMA_SS(mma_ss_t, 128, E, TY, "1", WGMMA_R64, WGMMA_D64, "%64", "%65", "%66")          \
   WGMMA_SS(mma_ss_t, 256, E, TY, "1", WGMMA_R128, WGMMA_D128, "%128", "%129", "%130")     \
   WGMMA_RS(64, E, TY, WGMMA_R32, WGMMA_D32(0), "{%32, %33, %34, %35}", "%36", "%37")      \
   WGMMA_RS(128, E, TY, WGMMA_R64, WGMMA_D64, "{%64, %65, %66, %67}", "%68", "%69")        \

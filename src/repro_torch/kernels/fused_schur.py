@@ -7,13 +7,16 @@ as a batch of one, so a batched lane equals the single call bit for bit.  A
 CPU tensor goes to the plain version (`repro_torch.kernels.ref`); a CUDA
 tensor launches the kernel or raises.  `fused_trsm_schur.launches` and
 `fused_trsm_schur_batched.launches` count the launches, and `.mode` says
-whether the last launch took the kernel's TMA stream ("tma") or its plain
-loads ("plain").
+which body the last launch took: "tma" (the f32 TMA stream), "wgmma" (the
+bf16 / f16 stream, products on the tensor cores) or "plain" (plain loads).
+`stream_mode(A, L00, R01, L10)` predicts it from the operands alone.
 
-bf16 and f16 operands have entry points of their own, which always take the
-plain loads: they widen every value to f32 as they load it, solve U01 and
-form A - L10 @ U01 in f32, and round each result once where they store it,
-as the plain version does.
+bf16 and f16 operands have entry points of their own.  Both of their
+bodies solve U01 in f32, form A - L10 @ U01 with exact products summed in
+f32 (the stream splits U01 exactly into three bf16 parts, and f16 L10 into
+two, for the tensor cores), and round each result once where they store
+it, as the plain version does; the order of the sum differs, so they agree
+with it within a 2-byte rounding.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.schur_update import tma_fits
 
 # The entry points' limits.  The kernel picks its own tiles; `bm` and `bc`
 # mirror the JAX API's tiles and must cover A exactly, within these limits,
@@ -38,6 +42,40 @@ _ARGTYPES = (
     ctypes.POINTER(ctypes.c_int),
     ctypes.c_void_p,
 )
+
+
+_MODES = {0: "plain", 1: "tma", 2: "wgmma"}
+# The v that each streamed storage size (bytes) takes: rows of L00 and L10
+# of at least 16 bytes, and at most one chunk.
+_STREAM_V = {4: (4, 32), 2: (8, 32)}
+
+
+def stream_mode(A: torch.Tensor, L00: torch.Tensor, R01: torch.Tensor,
+                L10: torch.Tensor) -> str:
+    """The body that the kernel's launcher picks for these operands, by the
+    rule it applies before the launch: "tma" for f32 and "wgmma" for bf16 /
+    f16 where v is within `_STREAM_V` (4..32 resp. 8..32), A has rows, and
+    TMA takes every operand (A, L00, R01, L10 and the contiguous result),
+    else "plain" (always for f64 and for an empty result).  TMA takes an
+    operand whose base is 16-byte aligned, whose row stride and (in a batch
+    of more than one) batch stride are whole 16-byte runs, and whose rows
+    hold at least 16 bytes.
+
+    Reads shapes, strides, dtype and addresses only; any device."""
+    A3, L003, R013, L103 = (t if t.ndim == 3 else t[None] for t in (A, L00, R01, L10))
+    B, M, C = A3.shape
+    v = L003.shape[-1]
+    size = A.element_size()
+    lo, hi = _STREAM_V.get(size, (1, 0))
+    if B == 0 or M == 0 or C == 0 or not lo <= v <= hi:
+        return "plain"
+
+    def fits(t: torch.Tensor, rows: int, cols: int) -> bool:
+        return tma_fits(t.data_ptr(), t.stride(1), t.stride(0), B, rows, cols, size)
+
+    ok = (fits(A3, M, C) and fits(L003, v, v) and fits(R013, v, C) and fits(L103, M, v)
+          and tma_fits(0, C, M * C, B, M, C, size))  # the result: contiguous, aligned
+    return ("tma" if size == 4 else "wgmma") if ok else "plain"
 
 
 def _check(name: str, A, L00, R01, L10, bm: int, bc: int) -> None:
@@ -89,11 +127,11 @@ def _launch(A, L00, R01, L10, unit: bool):
     U01 = torch.empty((B, v, C), dtype=A.dtype, device=A.device)
     fn = _build.function("fused_schur", f"fused_trsm_schur_{_SUFFIX[A.dtype]}", _ARGTYPES)
     operands = (A, L00, R01, L10, out, U01)
-    bulk = ctypes.c_int(0)
+    mode = ctypes.c_int(0)
     _build.launch("fused_schur", fn, A.device,
                   *(x for t in operands for x in (t.data_ptr(), t.stride(1), t.stride(0))),
-                  B, M, C, v, int(unit), ctypes.byref(bulk))
-    return out, U01, "tma" if bulk.value else "plain"
+                  B, M, C, v, int(unit), ctypes.byref(mode))
+    return out, U01, _MODES[mode.value]
 
 
 def fused_trsm_schur(A, L00, R01, L10, *, bm: int, bc: int, unit: bool = True):

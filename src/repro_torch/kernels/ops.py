@@ -3,9 +3,10 @@
 `fused_trsm_schur[_batched]` keep the JAX API's tile arguments: each
 requested tile (`bm`/`bc`) shrinks to the largest divisor of its array
 dimension that does not exceed it, as the JAX wrappers' grids need, and the
-kernel wrappers check them.  The CUDA kernel picks its own tiles (a
-persistent stream of 32 x 256 tiles, see `csrc/fused_schur.cu`), so the
-values change nothing of what it computes.
+kernel wrappers check them.  The CUDA kernel picks its own tiles
+(persistent streams of 32 x 256 tiles in f32 and 64 x 256 in bf16 / f16,
+see `csrc/fused_schur.cu`), so the values change nothing of what it
+computes.
 
 The other kernels (`chol_panel`, `trsm_right_upper`, `trsm_left_lower`,
 `schur_update` and their `_batched` forms, and the LM stack's

@@ -47,6 +47,17 @@ _MODES = {0: "plain", 1: "tma", 2: "wgmma"}
 _STREAM_K = {4: 32, 2: 64}
 
 
+def tma_fits(ptr: int, ld: int, bs: int, B: int, rows: int, cols: int, size: int) -> bool:
+    """Whether TMA takes an operand of `size`-byte elements over [B, rows,
+    cols] at address `ptr` with row stride `ld` and batch stride `bs`
+    (elements), by the rule of `csrc/tma.cuh::tma_fits`: a 16-byte aligned
+    base, row and (in a batch of more than one) batch strides of whole
+    16-byte runs, and rows of at least 16 bytes."""
+    run = 16 // size
+    bs = ld * rows if B == 1 else bs
+    return ptr % 16 == 0 and ld % run == 0 and bs % run == 0 and bs > 0 and cols >= run
+
+
 def stream_mode(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> str:
     """The body that the kernel's launcher picks for these operands, by the
     rule it applies before the launch: "tma" for f32 and "wgmma" for bf16 /
@@ -63,16 +74,12 @@ def stream_mode(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> str:
     size = A.element_size()
     if B == 0 or M == 0 or N == 0 or K > _STREAM_K.get(size, -1):
         return "plain"
-    run = 16 // size
 
-    def fits(ptr: int, ld: int, bs: int, rows: int, cols: int) -> bool:
-        bs = ld * rows if B == 1 else bs
-        return ptr % 16 == 0 and ld % run == 0 and bs % run == 0 and bs > 0 and cols >= run
+    def fits(t: torch.Tensor, rows: int, cols: int) -> bool:
+        return tma_fits(t.data_ptr(), t.stride(1), t.stride(0), B, rows, cols, size)
 
-    ok = (fits(A3.data_ptr(), A3.stride(1), A3.stride(0), M, N)
-          and fits(L3.data_ptr(), L3.stride(1), L3.stride(0), M, K)
-          and fits(U3.data_ptr(), U3.stride(1), U3.stride(0), K, N)
-          and fits(0, N, M * N, M, N))  # the result: contiguous, from an aligned allocation
+    ok = (fits(A3, M, N) and fits(L3, M, K) and fits(U3, K, N)
+          and tma_fits(0, N, M * N, B, M, N, size))  # the result: contiguous, aligned
     return ("tma" if size == 4 else "wgmma") if ok else "plain"
 
 
