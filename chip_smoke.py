@@ -36,7 +36,10 @@ each kernel against its plain PyTorch version on the card:
   `trsm_left_lower` and `schur_update` (single and batched) at the paths'
   shapes and their bodies' edges, each `schur_update` call in the body that
   `schur_update.stream_mode` predicts (the `wgmma` stream on the paths'
-  shapes, asserted there too); `plan(N, strategy="sequential_chol",
+  shapes, asserted there too) and each `trsm_right_upper` call in the one
+  that `trsm.right_mode` predicts (the warp's 16-byte loads, "wide", on the
+  paths' shapes: every right solve of a 2-byte path is held to it);
+  `plan(N, strategy="sequential_chol",
   compute_dtype=...)` in bf16 and f16 and `plan((256, 512), ...)` with
   per-lane tolerances, refined to 1e-6; the kernel path against the plain
   path at N = 128; both Cholesky engines on a bf16 plan; conflux (windowed
@@ -79,6 +82,7 @@ kernels from `src/repro_torch/kernels/csrc/` at first use.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -326,6 +330,36 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+@contextlib.contextmanager
+def right_modes():
+    """While active, count the body (`.mode`) that each CUDA call of
+    trsm_right_upper[_batched] takes, by mode, through `ops`, which the
+    "cuda" backend calls.  The wrappers and their launch counts are
+    untouched."""
+    from collections import Counter
+
+    from repro_torch.kernels import ops
+
+    seen = Counter()
+    saved = {name: getattr(ops, name) for name in ("trsm_right_upper", "trsm_right_upper_batched")}
+
+    def recording(fn):
+        def call(B, U):
+            X = fn(B, U)
+            if B.device.type == "cuda":
+                seen[fn.mode] += 1
+            return X
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, name, recording(fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
 
 
 def device_record_names(fn, calls: int = DEVICE_CALLS) -> dict:
@@ -846,6 +880,7 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
     against the single call, at the Cholesky paths' shapes and beyond.
     Returns the six rows of the kernels line (launches filled in later)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import trsm as trsm_mod
 
     rows = []
     # chol_panel[_batched]: the batched path's stack (lane 0 is the single
@@ -959,13 +994,16 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
         if Bb is None:
             U, Bm = U[0], Bm[0]
             X_k = ops.trsm_right_upper(Bm, U)
+            mode = trsm_mod.trsm_right_upper.mode
             X_p = ref.trsm_right_upper(Bm, U)
         else:
             X_k = ops.trsm_right_upper_batched(Bm, U)
+            mode = trsm_mod.trsm_right_upper_batched.mode
             X_p = ref.trsm_right_upper_batched(Bm, U)
         torch.cuda.synchronize()
         finite_rows = torch.isfinite(X_p).all(-1)
-        check = {"nonfinite_rows_as_plain": torch.equal(torch.isfinite(X_k).all(-1), finite_rows)}
+        check = {"nonfinite_rows_as_plain": torch.equal(torch.isfinite(X_k).all(-1), finite_rows),
+                 "mode_as_predicted": mode == trsm_mod.right_mode(Bm, U)}
         if special == "zero_diag":
             err = rel = None
             check["zero_rows_nan"] = bool(X_k[..., :R // 4, :].isnan().any(-1).all())
@@ -980,8 +1018,8 @@ def chol_kernel_rows(dev, gen) -> list[dict]:
                 check[f"lane{b}_equals_single"] = same_bits(ops.trsm_right_upper(Bm[b], U[b]),
                                                             X_k[b])
         emit("kernel_trsm_right_upper" + ("" if Bb is None else "_batched"),
-             shape=[nb, R, v], dtype=str(dt), U=ukind, special=special, max_abs_err=err,
-             rel_err=rel, tol_rel=FUSED_REL_TOL, **check)
+             shape=[nb, R, v], dtype=str(dt), U=ukind, special=special, mode=mode,
+             max_abs_err=err, rel_err=rel, tol_rel=FUSED_REL_TOL, **check)
         if not all(check.values()):
             raise AssertionError(f"trsm_right_upper [{nb}, {R}, {v}] {dt}: {check}")
         if dt != torch.float32 or special or (R, v) not in ((N, CHOL_V), (BATCH_N, CHOL_V)):
@@ -1906,6 +1944,17 @@ MIXED_PATH_ULPS = 2
 # `schur_update.stream_mode`).
 MIXED_UPDATE_MODE = {"fused_trsm_schur": "wgmma", "fused_trsm_schur_batched": "wgmma",
                      "schur_update": "wgmma", "schur_update_batched": "wgmma"}
+# The body that every 2-byte trsm_right_upper[_batched] call of a path takes:
+# the register body with the warp's 16-byte loads (each path's B is a new
+# contiguous [R, 32] panel: `trsm.right_mode`).
+MIXED_RIGHT_MODE = "wide"
+
+
+def right_modes_ok(seen, launches: dict) -> bool:
+    """Whether every right-solve call that `right_modes` counted in a 2-byte
+    path took MIXED_RIGHT_MODE, one count for each launch."""
+    calls = launches["trsm_right_upper"] + launches["trsm_right_upper_batched"]
+    return set(seen) <= {MIXED_RIGHT_MODE} and sum(seen.values()) == calls
 
 
 def storage_ulp(x: torch.Tensor, dt) -> torch.Tensor:
@@ -2315,15 +2364,17 @@ def _refined_run(p, A, b, phase: str, want: dict, dt, update: str,
     took the mode that its body takes on the paths' shapes
     (`MIXED_UPDATE_MODE`) and the refined answer is finite; where `converge`,
     also unless refinement converged and the refined answer's HPL residual
-    (f32) is below 16.  Returns the launches."""
+    (f32) is below 16; and, in 2-byte compute, unless every right-solve call
+    took MIXED_RIGHT_MODE.  Returns the launches."""
     upd = _wrappers()[update]
     upd.mode = None
     reset_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fact = p.execute(A)
-    torch.cuda.synchronize()
-    execute_s = time.perf_counter() - t0
+    with right_modes() as seen:
+        t0 = time.perf_counter()
+        fact = p.execute(A)
+        torch.cuda.synchronize()
+        execute_s = time.perf_counter() - t0
     launches = read_launches()
     t0 = time.perf_counter()
     x_plain = fact.solve(b)
@@ -2336,7 +2387,7 @@ def _refined_run(p, A, b, phase: str, want: dict, dt, update: str,
     conv = torch.as_tensor(rs.converged)
     row = {"execute_s": execute_s, "solve_s": solve_s, "refine_s": refine_s,
            "launches": launches, "factor_dtype": str(fact.F.dtype), "kind": fact.kind,
-           "last_update_mode": upd.mode,
+           "last_update_mode": upd.mode, "right_modes": dict(seen),
            "refinement_iters": torch.as_tensor(rs.refinement_iters).tolist(),
            "final_residual_max": float(torch.as_tensor(rs.final_residual).max()),
            "converged": bool(conv.all()), "x_finite": bool(torch.isfinite(rs.x).all()),
@@ -2346,7 +2397,7 @@ def _refined_run(p, A, b, phase: str, want: dict, dt, update: str,
     if launches != want:
         raise AssertionError(f"{phase}: expected launches {want}, got {launches}")
     if not (fact.F.dtype == dt and row["last_update_mode"] == MIXED_UPDATE_MODE[update]
-            and row["x_finite"]):
+            and row["x_finite"] and (dt.itemsize != 2 or right_modes_ok(seen, launches))):
         raise AssertionError(f"{phase}: {row}")
     if converge and not (row["converged"]
                          and row["hpl_residual_refined_f32"] < HPL_RESIDUAL_MAX):
@@ -2404,10 +2455,11 @@ def mixed_batched_path(dev, gen, dt, strategy: str = "auto",
     update.mode = None
     reset_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fact = p.execute(A)
-    torch.cuda.synchronize()
-    execute_s = time.perf_counter() - t0
+    with right_modes() as seen:
+        t0 = time.perf_counter()
+        fact = p.execute(A)
+        torch.cuda.synchronize()
+        execute_s = time.perf_counter() - t0
     launches = read_launches()
     mode = update.mode
     t0 = time.perf_counter()
@@ -2421,7 +2473,7 @@ def mixed_batched_path(dev, gen, dt, strategy: str = "auto",
     resid = hpl_residuals(A, rs.x, b)
     emit(f"{phase}_{sh}", B=BATCH, N=BATCH_N, v=p.config.v, launches=launches,
          execute_s=execute_s, refine_s=refine_s, last_update_mode=mode,
-         iterations_by_tol=iters, converged_lanes=int(rs.converged.sum()),
+         right_modes=dict(seen), iterations_by_tol=iters, converged_lanes=int(rs.converged.sum()),
          final_residual_max=float(rs.final_residual.max()),
          hpl_residual_refined_max=float(resid.max()), factor_dtype=str(fact.F.dtype))
     if launches != expected_launches(**{k: steps for k in kernels}):
@@ -2429,9 +2481,9 @@ def mixed_batched_path(dev, gen, dt, strategy: str = "auto",
                              f"got {launches}")
     if not (bool(rs.converged.all()) and fact.F.dtype == dt
             and mode == MIXED_UPDATE_MODE[kernels[-1]]
-            and bool((resid < HPL_RESIDUAL_MAX).all())):
+            and bool((resid < HPL_RESIDUAL_MAX).all()) and right_modes_ok(seen, launches)):
         raise AssertionError(f"{phase} {sh}: {int(rs.converged.sum())} of {BATCH} converged, "
-                             f"HPL {float(resid.max())}, mode {mode}")
+                             f"HPL {float(resid.max())}, mode {mode}, right solves {dict(seen)}")
     if profile:
         emit(f"profile_batched_{sh}_execute", **profile_once(lambda: p.execute(A)))
     return launches
@@ -2676,6 +2728,58 @@ def _library_refusal(fn) -> str | None:
         return str(e).splitlines()[0][:160]
 
 
+# The 2-byte trsm_right_upper cases: (Bb or None for a single system, R, v,
+# U's kind, special input, the body the launcher's rule gives).
+RIGHT_MIXED_CASES = (
+    (None, N, CHOL_V, "mT", None, "wide"), (BATCH, BATCH_N, CHOL_V, "mT", None, "wide"),
+    (8, 2000, 24, "mT", None, "wide"), (None, 2000, 24, "mT", None, "wide"),
+    (8, 1000, 1, "mT", None, "plain"), (8, 1000, 31, "upper", None, "plain"),
+    (8, 1000, 33, "mT", None, "smem"), (4, 300, 128, "mT", None, "smem"),
+    (None, 1, CHOL_V, "mT", None, "wide"), (None, 9, CHOL_V, "mT", None, "wide"),
+    (None, 100_000, CHOL_V, "upper", None, "wide"),
+    (None, 1000, CHOL_V, "mT", "window", "wide"),
+    (None, 1000, CHOL_V, "mT", "window_off1", "plain"),
+    (4, 777, CHOL_V, "upper", "nan_inf", "wide"), (4, 777, CHOL_V, "upper", "zero_diag", "wide"),
+    (4, 777, CHOL_V, "upper", "overflow", "wide"))
+
+
+def right_solve_inputs(Bb, R: int, v: int, ukind: str, special, dt, gen, dev):
+    """(B, U) of a 2-byte trsm_right_upper case: U = L00^T of an SPD block
+    ("mT", a transposed view, as the Cholesky paths pass it) or a plain
+    upper U with its diagonal raised by 4 ("upper", as the LU conflux path
+    passes U00); B standard normal with its top quarter of rows zero, as the
+    paths pass it; [R, v] and [v, v] where Bb is None, else [Bb, R, v] and
+    [Bb, v, v].  `special`: "window" (B the middle v columns of a [R, 3v]
+    buffer), "window_off1" (one column further in), "nan_inf" (a NaN and an
+    inf row), "zero_diag" (U[5, 5] = 0) or "overflow" (U's diagonal 1/1024,
+    B times 4000: f16 quotients past 65504)."""
+    from repro_torch.kernels import ref
+
+    nb = 1 if Bb is None else Bb
+    if ukind == "mT":
+        U = ref.chol_panel_batched(spd((nb, v, v), gen, dev)).mT.to(dt)
+    else:
+        U = torch.triu(torch.randn(nb, v, v, generator=gen, device=dev))
+        U.diagonal(dim1=-2, dim2=-1).add_(4.0)
+        if special == "overflow":
+            U = torch.diag_embed(torch.full((nb, v), 1 / 1024, device=dev))
+        U = U.to(dt)
+    Bm = torch.randn(nb, R, v, generator=gen, device=dev)
+    if special == "overflow":
+        Bm *= 4000.0
+    Bm = Bm.to(dt)
+    if special in ("window", "window_off1"):
+        c0 = v + (special == "window_off1")
+        Bm = torch.zeros(nb, R, 3 * v, device=dev, dtype=dt)[..., c0:c0 + v].copy_(Bm)
+    Bm[:, :R // 4] = 0.0
+    if special == "nan_inf":
+        Bm[:, R // 2, v // 3] = float("nan")
+        Bm[:, R // 2 + 1, 0] = float("inf")
+    if special == "zero_diag":
+        U[:, 5, 5] = 0.0
+    return (Bm, U) if Bb is not None else (Bm[0], U[0])
+
+
 def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
     """The bf16 and f16 entry points of chol_panel, trsm_right_upper,
     trsm_left_lower and schur_update (single and batched) against their
@@ -2687,6 +2791,7 @@ def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
     rows (launches filled in later)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import schur_update as su_mod
+    from repro_torch.kernels import trsm as trsm_mod
 
     rows = []
     for dt in MIXED_DTYPES:
@@ -2742,77 +2847,65 @@ def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
                     "library": lib,
                 })
 
-        # trsm_right_upper[_batched]: U = L00^T (a transposed view) or a plain
-        # upper U; B with its top quarter zero, as the paths pass it.  The
-        # paths' shapes, v = 1, 24, 31, 33 and 128, R = 1 and 100,000, B a
-        # column window of a wider matrix, NaN / inf rows, a zero on U's
-        # diagonal, and f16 quotients past 65504 ("overflow": U's diagonal
-        # 1/1024, so |X| up to ~4000 x 1024).
-        for Bb, R, v, ukind, special in (
-                (None, N, CHOL_V, "mT", None), (BATCH, BATCH_N, CHOL_V, "mT", None),
-                (8, 2000, 24, "mT", None), (8, 1000, 1, "mT", None),
-                (8, 1000, 31, "upper", None), (8, 1000, 33, "mT", None),
-                (4, 300, 128, "mT", None), (None, 1, CHOL_V, "mT", None),
-                (None, 100_000, CHOL_V, "upper", None), (None, 1000, CHOL_V, "mT", "window"),
-                (4, 777, CHOL_V, "upper", "nan_inf"),
-                (4, 777, CHOL_V, "upper", "zero_diag"), (4, 777, CHOL_V, "upper", "overflow")):
+        # trsm_right_upper[_batched] (`right_solve_inputs`): the paths'
+        # shapes, v = 24 (single and batched), 1, 31, 33 and 128, R = 1, 9
+        # and 100,000, B a column window of a wider matrix and one offset by
+        # one column, NaN / inf rows, a zero on U's diagonal, and f16
+        # quotients past 65504.  Each case's body, reckoned from the
+        # launcher's rule (B's base 16-byte aligned, its row and batch
+        # strides and v whole runs of 8 values; v <= 32): "wide" for the
+        # paths' shapes, v = 24 (3 runs a row), R = 1 and 9 (a partial
+        # warp), the window (32 values in: 64 B) and the special inputs;
+        # "plain" for v = 1 and 31 and the window one column further in
+        # (66 B); "smem" for v = 33 and 128.
+        for Bb, R, v, ukind, special, body in RIGHT_MIXED_CASES:
             nb = 1 if Bb is None else Bb
-            if ukind == "mT":
-                U = ref.chol_panel_batched(spd((nb, v, v), gen, dev)).mT.to(dt)
-            else:
-                U = torch.triu(torch.randn(nb, v, v, generator=gen, device=dev))
-                U.diagonal(dim1=-2, dim2=-1).add_(4.0)
-                if special == "overflow":
-                    U = torch.diag_embed(torch.full((nb, v), 1 / 1024, device=dev))
-                U = U.to(dt)
-            Bm = torch.randn(nb, R, v, generator=gen, device=dev)
-            if special == "overflow":
-                Bm *= 4000.0
-            Bm = Bm.to(dt)
-            if special == "window":
-                Bm = torch.zeros(nb, R, 3 * v, device=dev, dtype=dt)[..., v:2 * v].copy_(Bm)
-            Bm[:, :R // 4] = 0.0
-            if special == "nan_inf":
-                Bm[:, R // 2, v // 3] = float("nan")
-                Bm[:, R // 2 + 1, 0] = float("inf")
-            if special == "zero_diag":
-                U[:, 5, 5] = 0.0
-            if Bb is None:
-                U, Bm = U[0], Bm[0]
-            kernel = ops.trsm_right_upper if Bb is None else ops.trsm_right_upper_batched
-            plain = ref.trsm_right_upper if Bb is None else ref.trsm_right_upper_batched
-            X_k, X_p = kernel(Bm, U), plain(Bm, U)
+            Bm, U = right_solve_inputs(Bb, R, v, ukind, special, dt, gen, dev)
+            single = Bb is None
+            kernel = ops.trsm_right_upper if single else ops.trsm_right_upper_batched
+            plain = ref.trsm_right_upper if single else ref.trsm_right_upper_batched
+            X_k = kernel(Bm, U)
+            mode = (trsm_mod.trsm_right_upper if single else
+                    trsm_mod.trsm_right_upper_batched).mode
+            X_p = plain(Bm, U)
             torch.cuda.synchronize()
             err, ratio, check = mixed_kernel_check(X_k, X_p, dt)
             check["zero_rows_as_plain"] = same_bits(X_k[..., :R // 4, :], X_p[..., :R // 4, :])
+            check["mode_as_predicted"] = mode == trsm_mod.right_mode(Bm, U)
+            check["mode_as_reckoned"] = mode == body
             if special == "overflow" and dt == torch.float16:
                 check["overflows_to_inf"] = bool(X_p.isinf().any())
-            if Bb is not None:
+            if not single:
                 for b in (0, Bb - 1):
                     check[f"lane{b}_equals_single"] = same_bits(
                         ops.trsm_right_upper(Bm[b], U[b]), X_k[b])
             emit("kernel_trsm_right_upper_mixed", dtype=sh, shape=[nb, R, v], U=ukind,
-                 special=special, body="registers" if v <= 32 else "shared memory",
+                 special=special, ldb=Bm.stride(-2), mode=mode,
+                 body="registers" if v <= 32 else "shared memory",
                  max_abs_err=err, err_over_allowance=ratio, **check)
             if not all(check.values()):
                 raise AssertionError(f"trsm_right_upper {sh} [{nb}, {R}, {v}] {special}: "
                                      f"{ratio} of the allowance, {check}")
             if special or (R, v) not in ((N, CHOL_V), (BATCH_N, CHOL_V)):
                 continue
-            single = Bb is None
+            out = torch.empty_like(Bm)
             rows.append({
                 "name": ("trsm_right_upper" if single else "trsm_right_upper_batched") +
                         f"[{sh}]",
                 "route": "cuda", "source": "src/repro_torch/kernels/csrc/trsm.cu",
                 "replaces": "src/repro/kernels/trsm.py:" + ("78" if single else "96"),
-                "max_abs_err": err, "ms": time_ms(lambda k=kernel: k(Bm, U)),
+                "max_abs_err": err, "mode": mode, "ms": time_ms(lambda k=kernel: k(Bm, U)),
                 "plain_ms": time_ms(lambda p=plain: p(Bm, U)),
                 **bound(2 * nb * (2 * R * v + v * v), nb * R * v * v),
                 "library_ms": None, **device_fields(lambda k=kernel: k(Bm, U)),
                 "library": "none: torch.linalg.solve_triangular refuses 2-byte operands on "
                            f"this card ({tri_lib})" if tri_lib else
                            "none measured: solve_triangular took 2-byte operands",
+                # A yardstick of the bytes alone: one copy of B into a new
+                # tensor of X's shape (U aside).
+                "copy_device_ms": device_ms(lambda o=out, b=Bm: o.copy_(b)),
             })
+            del out
 
         # trsm_left_lower[_batched]: the flat paths' [32, 16384] (unit, as
         # conflux, and not, as cholesky25d), a ragged strided B (v = 24), the

@@ -40,9 +40,10 @@
 //   - a thread holds its row in registers for the whole solve.  Where the
 //     row stride and base allow 16-byte loads (the paths' [N, v] panels), a
 //     warp loads its 32 rows together, each load instruction covering whole
-//     128-byte rows, all loads issued before anything waits on one, and the
-//     rows pass to their threads through a swizzled tile in shared memory;
-//     else each thread loads its own row, one value a load;
+//     rows (128-byte rows of v = 32 in f32, 64-byte ones in bf16 and f16),
+//     all loads issued before anything waits on one, and the rows pass to
+//     their threads through a swizzled tile in shared memory; else each
+//     thread loads its own row, one value a load;
 //   - U's upper triangle and diagonal go to shared memory once per block,
 //     read with any strides in the order of U's unit stride so that the
 //     loads coalesce (the Cholesky path passes L00^T, the LU conflux path
@@ -54,7 +55,7 @@
 //     then x[m] = (x[m] - partial[m]) / U[m][m] with IEEE division: the
 //     terms, order and rounding of the first body's row sweep, so X has the
 //     same bits as before (checked on the card against that body);
-//   - X leaves from registers back through the swizzled tile, a warp's
+//   - X leaves from registers back through a swizzled tile, a warp's
 //     16-byte stores covering whole rows (one value a store where v is not
 //     a multiple of the run).  In exploratory calls on the card this was
 //     faster than each thread storing its own row in 16-byte runs, most at
@@ -70,9 +71,12 @@
 // the division it is taken by a multiplication, same bits.  kRightRows = 128
 // threads (rows) a block: at [16384, 32] that is 128 blocks, one an SM; it
 // was faster than 64-thread blocks there in exploratory calls on the card
-// and as fast at [256, 512, 32].  f64 at v = 32 runs the same body without
-// spills (ptxas: about 200 registers).  v > 32, off every path, keeps the
-// shared-memory body.
+// and as fast at [256, 512, 32], and in bf16 and f16 faster than 64- and
+// 32-row blocks at both shapes (`tools/trsm_variants.py`).  About two
+// thirds of a call at [16384, 32] is the solve's dependent chain, one warp
+// to a scheduler (the same tool's `no_solve`).  f64 at v = 32 runs the
+// same body without spills (ptxas: about 200 registers).  v > 32, off
+// every path, keeps the shared-memory body.
 //
 // Design of trsm_left_lower: columns of B are independent, so each thread
 // owns one column of one system (blockIdx.z); the TPU kernel's column tiles
@@ -110,10 +114,19 @@
 // loaded, the rows (columns), the staged triangle, the partial sums and the
 // zero-dividend test are in T, so a solve runs the f32 body's operations in
 // its order, and each result is rounded once, to nearest even, as it is
-// stored.  2-byte storage takes the plain loads and stores of each body:
-// the right solve's warp-wide 16-byte path through the swizzled tile is laid
-// out for 4- and 8-byte values (a 2-byte row of v = 32 is 64 bytes), so a
-// thread loads and stores its own row one value at a time there.
+// stored.  The right solve's register body moves 2-byte rows as it moves
+// f32 ones: a warp's 16-byte loads take runs of 8 values, 4 to a row of
+// v = 32, so one load instruction covers 8 whole rows (512 contiguous bytes
+// of the paths' panels), and each run widens exactly into two f32 runs of
+// the swizzled f32 tile Ws, from which each thread reads its row as in f32.
+// On the way out each thread narrows its row once, into runs of 8 values
+// that it writes to its own row of Ws at the slots `slot2` gives (two rows'
+// runs of one instruction meet all eight 16-byte bank groups), and the
+// warp's 16-byte stores cover 8 whole rows of X each.  Only the route of the
+// values through memory differs from one value a load and a store; the
+// conversions and the solve are the same, and so are the bits.  The left
+// solve's bodies load and store one 2-byte value a thread and access, as
+// in f32 (neighbouring threads on neighbouring columns).
 
 #include <cmath>
 #include <cstdint>
@@ -146,18 +159,43 @@ __device__ __forceinline__ double opaque(double v) {
   return v;
 }
 
-// St: the storage type.  The 16-byte paths (vec_in, and the stores through
-// Ws) are laid out for rows of the compute type: 2-byte storage skips them.
+// The 16-byte slot, of the 8 in a 128-byte row of Ws, where the 2-byte
+// body's stores put run c (values 8c..8c+7) of row r: within the row, so a
+// thread writes only where it read; the 8 rows that 8 lanes write of one run
+// take 8 slots, and rows 2k and 2k + 1, which a quarter of the warp's
+// global stores read together, take slots 0-3 and 4-7.
+__device__ __forceinline__ int slot2(int c, int r) { return (c ^ (r >> 1 & 3)) + 4 * (r & 1); }
+
+// The 2-byte value in the low (hi = false) or high half of a 32-bit word.
+template <typename St>
+__device__ __forceinline__ St half_of(uint32_t w, bool hi) {
+  const uint16_t b = static_cast<uint16_t>(hi ? w >> 16 : w);
+  return *reinterpret_cast<const St*>(&b);
+}
+
+// Two 2-byte values as one word, the first in the low half.
+template <typename St>
+__device__ __forceinline__ uint32_t word_of(St lo, St hi) {
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&lo)) |
+         static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&hi)) << 16;
+}
+
+// St: the storage type.  vec_in: B's base, row and batch strides and v are
+// whole 16-byte runs of St (the launcher's rule), and a warp loads its rows
+// together.  The 2-byte paths are compiled for 2-byte storage only.
 template <typename St>
 __global__ void __launch_bounds__(kRightRows)
 trsm_right_upper_reg_kernel(const St* __restrict__ B, int64_t ldb, int64_t bsb,
                             const St* __restrict__ U, int64_t ldu_r, int64_t ldu_c, int64_t bsu,
                             St* __restrict__ X, int R, int v, int vec_in) {
   using T = compute_t<St>;
-  constexpr bool kWide = sizeof(St) == sizeof(T);  // the 16-byte paths: f32 and f64 storage
+  constexpr bool kTwo = sizeof(St) == 2;       // bf16 and f16 rows; else f32 and f64 ones
   constexpr int kRun = 16 / sizeof(T);
   constexpr int kRowRuns = kRegV / kRun;       // 16-byte runs of a row: 8 in f32, 16 in f64
   constexpr int kRowsAtOnce = 32 / kRowRuns;   // rows a warp's 16-byte access covers
+  constexpr int kRun2 = 8;                     // 2-byte values in a 16-byte run
+  constexpr int kRowRuns2 = kRegV / kRun2;     // 16-byte runs of a 2-byte row: 4
+  constexpr int kRowsAtOnce2 = 32 / kRowRuns2; // 2-byte rows a warp's 16-byte access covers: 8
   // Us[j][m] = U[j][m] for j <= m < v; 1 on the diagonal past v (the padded
   // columns then solve to 0); 0 elsewhere.  Each warp's 32 rows pass
   // through Ws.  Both hold rows of kRegV values whose 16-byte runs are
@@ -181,20 +219,35 @@ trsm_right_upper_reg_kernel(const St* __restrict__ B, int64_t ldb, int64_t bsb,
   // The warp's 32 rows, every load issued before anything waits on one:
   // with 16-byte loads, lane l takes run l % kRowRuns of rows
   // l / kRowRuns + i kRowsAtOnce, so one load instruction covers whole
-  // 128-byte rows; else one value a load of the thread's own row.
+  // 128-byte rows (in 2 bytes, run l % 4 of rows l / 4 + 8 i, 8 whole rows
+  // an instruction, the raw bits held in runs[i] until they widen); else
+  // one value a load of the thread's own row.
   Run<T> runs[kRowRuns];
   T x[kRegV];
-  if (kWide && vec_in) {
+  if (vec_in) {
+    if constexpr (kTwo) {
 #pragma unroll
-    for (int i = 0; i < kRowRuns; ++i) {
-      const int r = lane / kRowRuns + i * kRowsAtOnce;
-      const int c = lane % kRowRuns;
+      for (int i = 0; i < kRowRuns2; ++i) {
+        const int r = lane / kRowRuns2 + i * kRowsAtOnce2;
+        const int c = lane % kRowRuns2;
 #pragma unroll
-      for (int e = 0; e < kRun; ++e) runs[i].x[e] = T(0);
-      if (warp_row0 + r < R && c * kRun < v)
-        runs[i] = *reinterpret_cast<const Run<T>*>(
-            reinterpret_cast<const T*>(B) + static_cast<int64_t>(warp_row0 + r) * ldb +
-            c * kRun);
+        for (int e = 0; e < kRun; ++e) runs[i].x[e] = T(0);
+        if (warp_row0 + r < R && c * kRun2 < v)
+          runs[i] = *reinterpret_cast<const Run<T>*>(
+              B + static_cast<int64_t>(warp_row0 + r) * ldb + c * kRun2);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRowRuns; ++i) {
+        const int r = lane / kRowRuns + i * kRowsAtOnce;
+        const int c = lane % kRowRuns;
+#pragma unroll
+        for (int e = 0; e < kRun; ++e) runs[i].x[e] = T(0);
+        if (warp_row0 + r < R && c * kRun < v)
+          runs[i] = *reinterpret_cast<const Run<T>*>(
+              reinterpret_cast<const T*>(B) + static_cast<int64_t>(warp_row0 + r) * ldb +
+              c * kRun);
+      }
     }
   } else {
     const St* b = B + static_cast<int64_t>(row) * ldb;
@@ -223,15 +276,33 @@ trsm_right_upper_reg_kernel(const St* __restrict__ B, int64_t ldb, int64_t bsb,
     const int m = by_rows ? idx % kRegV : idx / kRegV;
     Us[at(j, m)] = staged[i];
   }
-  if (kWide && vec_in) {
+  if (vec_in) {
+    if constexpr (kTwo) {
+      // Each 2-byte run widens exactly (`widen`, as one value a load does)
+      // into the two f32 runs of its values.
 #pragma unroll
-    for (int i = 0; i < kRowRuns; ++i) {
-      const int r = lane / kRowRuns + i * kRowsAtOnce;
-      *reinterpret_cast<Run<T>*>(ws + at(r, lane % kRowRuns * kRun)) = runs[i];
+      for (int i = 0; i < kRowRuns2; ++i) {
+        const int r = lane / kRowRuns2 + i * kRowsAtOnce2;
+        const int m = lane % kRowRuns2 * kRun2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          Run<T> run;
+#pragma unroll
+          for (int e = 0; e < kRun; ++e)
+            run.x[e] = widen(half_of<St>(__float_as_uint(runs[i].x[2 * h + e / 2]), e % 2));
+          *reinterpret_cast<Run<T>*>(ws + at(r, m + h * kRun)) = run;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRowRuns; ++i) {
+        const int r = lane / kRowRuns + i * kRowsAtOnce;
+        *reinterpret_cast<Run<T>*>(ws + at(r, lane % kRowRuns * kRun)) = runs[i];
+      }
     }
   }
   __syncthreads();
-  if (kWide && vec_in) {
+  if (vec_in) {
 #pragma unroll
     for (int c = 0; c < kRowRuns; ++c) {
       const Run<T> run = *reinterpret_cast<const Run<T>*>(ws + at(lane, c * kRun));
@@ -270,25 +341,49 @@ trsm_right_upper_reg_kernel(const St* __restrict__ B, int64_t ldb, int64_t bsb,
 
   // X out: where v is a whole number of runs (X is contiguous from a
   // 256-byte boundary), the rows go back through Ws and leave in 16-byte
-  // runs as they came in, a warp's store covering whole rows; else, and in
-  // 2-byte storage, one value a store.
-  if (kWide && v % kRun == 0) {
+  // runs as they came in, a warp's store covering whole rows; else one
+  // value a store.  In 2 bytes each value is narrowed once, as one value a
+  // store narrows it, and a thread writes its row's runs to its own row of
+  // Ws (`slot2`), where it read, so only the reads of other rows wait on the
+  // warp.
+  if (v % (kTwo ? kRun2 : kRun) == 0) {
+    if constexpr (kTwo) {
 #pragma unroll
-    for (int c = 0; c < kRowRuns; ++c) {
-      Run<T> run;
+      for (int c = 0; c < kRowRuns2; ++c) {
+        uint4 run;
+        run.x = word_of(narrow<St>(x[c * kRun2]), narrow<St>(x[c * kRun2 + 1]));
+        run.y = word_of(narrow<St>(x[c * kRun2 + 2]), narrow<St>(x[c * kRun2 + 3]));
+        run.z = word_of(narrow<St>(x[c * kRun2 + 4]), narrow<St>(x[c * kRun2 + 5]));
+        run.w = word_of(narrow<St>(x[c * kRun2 + 6]), narrow<St>(x[c * kRun2 + 7]));
+        *reinterpret_cast<uint4*>(ws + lane * kRegV + slot2(c, lane) * kRun) = run;
+      }
+      __syncwarp();
 #pragma unroll
-      for (int e = 0; e < kRun; ++e) run.x[e] = x[c * kRun + e];
-      *reinterpret_cast<Run<T>*>(ws + at(lane, c * kRun)) = run;
-    }
-    __syncwarp();
+      for (int i = 0; i < kRowRuns2; ++i) {
+        const int r = lane / kRowRuns2 + i * kRowsAtOnce2;
+        const int c = lane % kRowRuns2;
+        if (warp_row0 + r < R && c * kRun2 < v)
+          *reinterpret_cast<uint4*>(X + static_cast<int64_t>(warp_row0 + r) * v + c * kRun2) =
+              *reinterpret_cast<const uint4*>(ws + r * kRegV + slot2(c, r) * kRun);
+      }
+    } else {
 #pragma unroll
-    for (int i = 0; i < kRowRuns; ++i) {
-      const int r = lane / kRowRuns + i * kRowsAtOnce;
-      const int c = lane % kRowRuns;
-      if (warp_row0 + r < R && c * kRun < v)
-        *reinterpret_cast<Run<T>*>(reinterpret_cast<T*>(X) +
-                                   static_cast<int64_t>(warp_row0 + r) * v + c * kRun) =
-            *reinterpret_cast<const Run<T>*>(ws + at(r, c * kRun));
+      for (int c = 0; c < kRowRuns; ++c) {
+        Run<T> run;
+#pragma unroll
+        for (int e = 0; e < kRun; ++e) run.x[e] = x[c * kRun + e];
+        *reinterpret_cast<Run<T>*>(ws + at(lane, c * kRun)) = run;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kRowRuns; ++i) {
+        const int r = lane / kRowRuns + i * kRowsAtOnce;
+        const int c = lane % kRowRuns;
+        if (warp_row0 + r < R && c * kRun < v)
+          *reinterpret_cast<Run<T>*>(reinterpret_cast<T*>(X) +
+                                     static_cast<int64_t>(warp_row0 + r) * v + c * kRun) =
+              *reinterpret_cast<const Run<T>*>(ws + at(r, c * kRun));
+      }
     }
   } else if (row < R) {
 #pragma unroll
@@ -444,16 +539,23 @@ trsm_left_lower_smem_kernel(const St* __restrict__ L, int64_t ldl_r, int64_t ldl
   }
 }
 
+// The body a launch takes (`*mode`, and `kernels/trsm.py::right_mode`):
+// the register body with the warp's 16-byte loads, or with one value a
+// load, or the shared-memory body.
+enum RightMode { kPlain = 0, kWideLoads = 1, kSmem = 2 };
+
 // S: the storage type; shared memory holds its compute type T.
 template <typename S>
 int launch(const void* B, long long ldb, long long bsb, const void* U, long long ldu_r,
-           long long ldu_c, long long bsu, void* X, int Bb, int R, int v, void* stream) {
+           long long ldu_c, long long bsu, void* X, int Bb, int R, int v, int* mode,
+           void* stream) {
   using T = compute_t<S>;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (v <= kRegV) {
-    constexpr int kRun = 16 / sizeof(T);
+    constexpr int kRun = 16 / sizeof(S);  // values of a 16-byte run of B
     const int vec_in = reinterpret_cast<uintptr_t>(B) % 16 == 0 && ldb % kRun == 0 &&
                        bsb % kRun == 0 && v % kRun == 0;
+    *mode = vec_in ? kWideLoads : kPlain;
     const dim3 grid(
         static_cast<unsigned>((static_cast<int64_t>(R) + kRightRows - 1) / kRightRows), 1, Bb);
     trsm_right_upper_reg_kernel<S><<<grid, kRightRows, 0, s>>>(
@@ -469,6 +571,7 @@ int launch(const void* B, long long ldb, long long bsb, const void* U, long long
         static_cast<int>((kMaxV * (kMaxV + kRows) + kRows) * sizeof(T)));
   });
   if (err != cudaSuccess) return static_cast<int>(err);
+  *mode = kSmem;
   const size_t smem = (static_cast<size_t>(v) * v + static_cast<size_t>(kRows) * (v + 1)) *
                       sizeof(T);
   const dim3 grid((R + kRows - 1) / kRows, 1, Bb);
@@ -514,13 +617,14 @@ int launch_left_lower(const void* L, long long ldl_r, long long ldl_c, long long
 // stride); U [v, v] with row stride ldu_r, column stride ldu_c and batch
 // stride bsu; X: [Bb, R, v] contiguous output.  1 <= v <= 128, R >= 1,
 // 1 <= Bb <= 65535.  Every operand has the element type of the entry's
-// suffix.  Returns the cudaError_t of the launch.
+// suffix.  Sets *mode to the body taken (`RightMode`) and returns the
+// cudaError_t of the launch.
 #define RIGHT_ENTRY(suffix, S)                                                                 \
   extern "C" int trsm_right_upper_##suffix(const void* B, long long ldb, long long bsb,       \
                                            const void* U, long long ldu_r, long long ldu_c,   \
                                            long long bsu, void* X, int Bb, int R, int v,      \
-                                           void* stream) {                                    \
-    return launch<S>(B, ldb, bsb, U, ldu_r, ldu_c, bsu, X, Bb, R, v, stream);                 \
+                                           int* mode, void* stream) {                         \
+    return launch<S>(B, ldb, bsb, U, ldu_r, ldu_c, bsu, X, Bb, R, v, mode, stream);           \
   }
 RIGHT_ENTRY(f32, float)
 RIGHT_ENTRY(f64, double)

@@ -7,7 +7,11 @@ Ports of `repro/kernels/trsm.py::trsm_right_upper`,
 launch the same kernel, a single system as a batch of one, so a batched lane
 equals the single call bit for bit.  A CPU tensor goes to the plain version
 (`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or raises.
-Each wrapper counts its launches in `<wrapper>.launches`.
+Each wrapper counts its launches in `<wrapper>.launches`.  The right solve's
+wrappers also set `.mode` to the body their last launch took: "wide" (the
+register body, a warp loading whole rows in 16-byte runs), "plain" (the
+register body, one value a load) or "smem" (v > 32, the shared-memory body).
+`right_mode(B, U)` predicts it from the operands alone.
 
 bf16 and f16 operands have entry points of their own: they widen every value
 to f32 as they load it, solve in f32 with the f32 kernels' operations, and
@@ -24,6 +28,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 MAX_V = 128  # the triangle and a row (column) tile share one block's shared memory
+REG_V = 32  # v up to which the register bodies hold a row (column)
 MAX_BATCH = 65535  # systems on gridDim.z
 MAX_ROWS = 2**31 - 1  # rows of B (right solve), columns of B (left solve)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
@@ -31,13 +36,35 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+    ctypes.c_void_p,
 )
 _LEFT_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
+
+
+_MODES = {0: "plain", 1: "wide", 2: "smem"}  # `csrc/trsm.cu::RightMode`
+
+
+def right_mode(B: torch.Tensor, U: torch.Tensor) -> str:
+    """The body that the right solve's launcher takes for B [R, v] or
+    [Bb, R, v] (U takes any strides, so the rule reads B alone): "smem" for
+    v > 32; else "wide" where B's base is 16-byte aligned and its row stride,
+    batch stride (0 for a single system) and v are whole 16-byte runs (4
+    values in f32, 2 in f64, 8 in bf16 and f16); else "plain".
+
+    Reads shapes, strides, dtype and the address only; any device."""
+    v = B.shape[-1]
+    if v > REG_V:
+        return "smem"
+    run = 16 // B.element_size()
+    bsb = B.stride(0) if B.ndim == 3 else 0
+    wide = (B.data_ptr() % 16 == 0 and B.stride(-2) % run == 0 and bsb % run == 0
+            and v % run == 0)
+    return "wide" if wide else "plain"
 
 
 @functools.cache
@@ -89,16 +116,16 @@ def _check_left(name: str, L: torch.Tensor, B: torch.Tensor, ndim: int) -> None:
     _check_common(name, B, L, lead)
 
 
-def _launch(B: torch.Tensor, U: torch.Tensor, Bb: int, bsb: int, bsu: int,
-            out_shape) -> torch.Tensor:
+def _launch(B: torch.Tensor, U: torch.Tensor, Bb: int, bsb: int, bsu: int, out_shape):
     """Launch the right solve on Bb systems B [R, v], U [v, v] (batch strides
-    bsb and bsu) into a new X of `out_shape`."""
+    bsb and bsu) into a new X of `out_shape`.  Returns (X, mode)."""
     R, v = B.shape[-2:]
     X = torch.empty(out_shape, dtype=B.dtype, device=B.device)
+    mode = ctypes.c_int(-1)
     _build.launch("trsm", _entry("right_upper", B.dtype), B.device,
                   B.data_ptr(), B.stride(-2), bsb, U.data_ptr(), U.stride(-2), U.stride(-1), bsu,
-                  X.data_ptr(), Bb, R, v)
-    return X
+                  X.data_ptr(), Bb, R, v, ctypes.byref(mode))
+    return X, _MODES[mode.value]
 
 
 def _launch_left(L: torch.Tensor, B: torch.Tensor, unit: bool, Bb: int, bsl: int, bsb: int,
@@ -122,7 +149,7 @@ def trsm_right_upper(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     if B.device.type == "cpu":
         return ref.trsm_right_upper(B, U)
     _check("trsm_right_upper", B, U, 2)
-    X = _launch(B, U, 1, 0, 0, B.shape)
+    X, trsm_right_upper.mode = _launch(B, U, 1, 0, 0, B.shape)
     trsm_right_upper.launches += 1
     return X
 
@@ -135,7 +162,8 @@ def trsm_right_upper_batched(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     _check("trsm_right_upper_batched", B, U, 3)
     if B.shape[0] == 0:
         return torch.empty_like(B)
-    X = _launch(B, U, B.shape[0], B.stride(0), U.stride(0), B.shape)
+    X, trsm_right_upper_batched.mode = _launch(B, U, B.shape[0], B.stride(0), U.stride(0),
+                                               B.shape)
     trsm_right_upper_batched.launches += 1
     return X
 
@@ -172,3 +200,4 @@ trsm_right_upper.launches = 0
 trsm_right_upper_batched.launches = 0
 trsm_left_lower.launches = 0
 trsm_left_lower_batched.launches = 0
+trsm_right_upper.mode = trsm_right_upper_batched.mode = None
