@@ -6,7 +6,17 @@ Drives the port's paths through their hand-written CUDA kernels and holds
 each kernel against its plain PyTorch version on the card:
 
 - the main path, `plan(N).execute(A).solve(b)` at N = 16384 in float32
-  (kernels `lu_panel`, `fused_trsm_schur`);
+  (kernels `lu_panel`, `fused_trsm_schur`), on the (strategy, v, backend)
+  that the calibrated `auto` picks from the committed table, a v that the
+  fused stream takes, N / v launches of each kernel;
+- the calibrated `auto` (module item 9): the committed table is this card's,
+  its picks at N = 1024, 4096 and 16384 (f32) and 16384 (bf16), each pick at
+  N = 16384 against the analytic pick (sequential, v = 32, "cuda") and every
+  other candidate v in turns, at most 1.25x the analytic wall (the
+  calibration tool's guard, the JAX package's AUTOTUNE_TOLERANCE), with the
+  predicted and measured walls and their residual; `profile_hotloop()` of the
+  N = 16384 LU and Cholesky plans, each of their four kernels launched; and
+  `python -m repro_torch.analysis.calibrate --smoke` into a temporary file;
 - the batched path, `plan((256, 512)).execute(A).solve(b)` (kernels
   `lu_panel_batched`, `fused_trsm_schur_batched`);
 - the serving tier on top of both: `SolveEngine(512)` and
@@ -127,6 +137,11 @@ CHOL_SERVE_REQUESTS, CHOL_ASYNC_PER_TENANT = 256, 32
 # factor by up to about N * eps_f32 * max|L|, so CHOL_L_TOL_FACTOR * N * eps *
 # max|L| bounds their difference, as LU_F_TOL_FACTOR does for F.
 CHOL_L_TOL_FACTOR = 4.0
+# The calibrated `auto` (module item 9): its pick's execute against the
+# analytic pick's, best of AUTO_ROUNDS each, in turns; the limit is the
+# calibration tool's guard (`calibrate.AUTOTUNE_TOLERANCE`, the JAX package's).
+AUTO_ROUNDS = 3
+HOTLOOP_REPEATS = 3
 # The LM serving path: qwen3-8b and falcon-mamba-7b at full width and depth
 # in bf16, 2048-token prompts, 32 new tokens; the first four groups at
 # S = 1024 for the kernel path against the plain path.
@@ -315,6 +330,15 @@ def _wrappers() -> dict:
             "trsm_left_lower_batched": trsm.trsm_left_lower_batched,
             "flash_attention": flash_attention.flash_attention,
             "mamba_scan": mamba_scan.mamba_scan}
+
+
+def v32(**fields):
+    """The config of the phases that hold the kernel path against the plain
+    path or count launches at v = 32: sequential at v = 32, pinned, since
+    the calibrated `auto` picks v and the backend."""
+    from repro_torch.api import SolverConfig
+
+    return SolverConfig(strategy="sequential", v=32, **fields)
 
 
 def expected_launches(**counts) -> dict:
@@ -667,6 +691,112 @@ def batched_kernel_rows(dev, gen) -> list[dict]:
     return rows
 
 
+def calibrated_auto(dev, kind: str) -> list[dict]:
+    """`strategy="auto"` on the committed table (which must be the card's):
+    the picks of `plan(N, SolverConfig())` at N = 1024, 4096 and 16384 in
+    f32 and at 16384 in bf16, and `calibrate.auto_against_widths` of each
+    pick's execute against the analytic pick (sequential, v = 32, "cuda")
+    and every other candidate v, in turns, best of AUTO_ROUNDS each: at
+    16384 in f32 and bf16, the calibration tool's guard, where auto /
+    analytic > 1 + AUTOTUNE_TOLERANCE fails; reported only, at 4096 in f32
+    (fault F7) and, against v = 32 alone, at 16384 in f64.  Each row also
+    gives the alpha scales under which the table keeps its pick there
+    (`calibrate.pick_alpha_range`).  Returns the picks."""
+    from repro_torch.analysis import calibrate, costmodel
+    from repro_torch.api import SolverConfig, plan
+
+    table = costmodel.load_calibration(costmodel._DEFAULT_TABLE)
+    if table is None or table.device_kind != kind:
+        raise AssertionError(f"the committed calibration table is for "
+                             f"{table and table.device_kind!r}, not {kind!r}")
+    active = costmodel.active_calibration()
+    if active is None or active.version != table.version:
+        raise AssertionError(f"auto scores with {active and active.version!r}, not the "
+                             f"committed table {table.version!r}")
+    picks = []
+    for n, compute in ((1024, None), (4096, None), (N, None), (N, "bfloat16")):
+        p = plan(n, SolverConfig(compute_dtype=compute))
+        pick = {"N": n, "compute_dtype": compute or "float32", "strategy": p.config.strategy,
+                "v": p.config.v, "backend": p.config.backend, "hotloop": p.config.hotloop,
+                "calibration": p.config.calibration,
+                "predicted_wall_us": (p.autotune or {}).get("predicted_wall_us"),
+                "n_candidates": (p.autotune or {}).get("n_candidates")}
+        emit("calibrated_pick", **pick)
+        if p.config.calibration != table.version or p.config.backend != "cuda":
+            raise AssertionError(f"plan({n}) did not resolve through the table onto the "
+                                 f"kernels: {pick}")
+        picks.append(pick)
+    limit = 1 + calibrate.AUTOTUNE_TOLERANCE
+    guarded = set(calibrate.GUARD)
+    every_v = tuple(costmodel._sequential_v_candidates(N, None))
+    for n, dtype, widths in ((N, "float32", every_v), (N, "bfloat16", every_v),
+                             (N // 4, "float32", every_v), (N, "float64", (32,))):
+        row = calibrate.auto_against_widths(n, dtype, widths, rounds=AUTO_ROUNDS, device=dev)
+        row.update(guarded=(n, dtype) in guarded, limit=limit if (n, dtype) in guarded else None,
+                   alpha_scale_range=calibrate.pick_alpha_range(table, n, dtype, dev))
+        emit("calibrated_auto", **row)
+        if (row["calibration"] != table.version or row["measured_wall_us"] is None
+                or (row["guarded"] and row["auto_over_analytic"] > limit)):
+            raise AssertionError(f"calibrated auto at N = {n}, {dtype}: auto / analytic "
+                                 f"= {row['auto_over_analytic']:.4f} (limit {limit} where "
+                                 f"guarded), or not through the table: {row}")
+    torch.cuda.empty_cache()
+    return picks
+
+
+def profile_hotloop_phase() -> None:
+    """`profile_hotloop()` of the N = 16384 LU plan (the main path's, f32) and
+    of the `sequential_chol` plan: the six primitive times and spreads, and
+    each wrapper's launches during the profile (its four kernels, each once
+    to warm up and once per repeat; 0 of every other)."""
+    from repro_torch.api import SolverConfig, plan
+
+    for name, p, kernels in (
+            ("lu", plan(N), ("lu_panel", "trsm_left_lower", "schur_update",
+                             "fused_trsm_schur")),
+            ("cholesky", plan(N, SolverConfig(strategy=CHOL)),
+             ("chol_panel", "trsm_right_upper", "schur_update", "fused_trsm_schur"))):
+        reset_launches()
+        prof = p.profile_hotloop(repeats=HOTLOOP_REPEATS)
+        launches = read_launches()
+        emit("profile_hotloop", plan=name, v=p.config.v, backend=p.config.backend,
+             shapes=prof["shapes"],
+             us={k[:-3]: prof[k] for k in prof if k.endswith("_us")},
+             spread={k[:-7]: prof[k] for k in prof if k.endswith("_spread")},
+             launches=launches)
+        want = expected_launches(**{k: HOTLOOP_REPEATS + 1 for k in kernels})
+        if launches != want:
+            raise AssertionError(f"profile_hotloop of the {name} plan: launches {launches}, "
+                                 f"expected {want}")
+    torch.cuda.empty_cache()
+
+
+def calibrate_smoke(kind: str) -> None:
+    """`python -m repro_torch.analysis.calibrate --smoke` (one combo,
+    ("cuda", "float32"), a short sweep) into a temporary file: the table
+    loads back, is keyed by this card and covers its combo."""
+    import tempfile
+
+    from repro_torch.analysis import calibrate, costmodel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "calibration_smoke.json")
+        t0 = time.perf_counter()
+        calibrate.main(["--smoke", "--out", out])
+        seconds = time.perf_counter() - t0
+        table = costmodel.load_calibration(out)
+    ok = (table is not None and table.device_kind == kind
+          and table.covers("cuda", "float32")
+          and set(table.fits("cuda", "float32")) == set(costmodel.PRIMITIVES))
+    emit("calibrate_smoke", version=table and table.version, seconds=seconds,
+         device_kind=table and table.device_kind,
+         alpha_scale=table and table.meta.get("alpha_scale"),
+         fits=table and {p: f.to_json() for p, f in table.fits("cuda", "float32").items()},
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"calibrate --smoke wrote no usable table for {kind!r}")
+
+
 def batched_path(dev, gen) -> dict:
     """plan((256, 512)).execute(A).solve(b) through the entry points, the
     loop of single plans it replaces, its profile and the library yardstick.
@@ -690,7 +820,7 @@ def batched_path(dev, gen) -> dict:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     resid = hpl_residuals(A, x, b)
-    single = plan(BATCH_N)
+    single = plan(BATCH_N, SolverConfig(strategy="sequential", v=p.config.v))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(BATCH):
@@ -714,7 +844,7 @@ def batched_path(dev, gen) -> dict:
                              f">= {HPL_RESIDUAL_MAX}")
     # The plain path on the same stack: how many systems pick the same
     # pivots (reported, not held: the update rounds differently).
-    rows_plain = plan((BATCH, BATCH_N), SolverConfig(backend="ref")).execute(A).rows
+    rows_plain = plan((BATCH, BATCH_N), v32(backend="ref")).execute(A).rows
     emit("plain_batched_path_full", B=BATCH, N=BATCH_N,
          rows_equal_systems=int((rows_plain == fact.rows).all(1).sum()))
     del fact, x, rows_plain
@@ -737,8 +867,8 @@ def plain_batched_path(dev, gen) -> None:
 
     B, n = PLAIN_BATCH, PLAIN_BATCH_N
     A = torch.randn(B, n, n, generator=gen, device=dev)
-    f_k = plan((B, n)).execute(A)
-    f_p = plan((B, n), SolverConfig(backend="ref")).execute(A)
+    f_k = plan((B, n), v32()).execute(A)
+    f_p = plan((B, n), v32(backend="ref")).execute(A)
     lanes_equal = (f_k.rows == f_p.rows).all(1)
     err = (f_k.F - f_p.F).abs().amax((1, 2))
     tol = LU_F_TOL_FACTOR * n * torch.finfo(torch.float32).eps * f_p.F.abs().amax((1, 2))
@@ -2308,7 +2438,7 @@ def mixed_f64_main_path(dev, gen) -> dict:
 
     A = torch.randn(N, N, generator=gen, device=dev, dtype=torch.float64)
     b = torch.randn(N, generator=gen, device=dev, dtype=torch.float64)
-    p = plan(N, SolverConfig(dtype="float64", compute_dtype="float32"))
+    p = plan(N, v32(dtype="float64", compute_dtype="float32"))
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2324,7 +2454,7 @@ def mixed_f64_main_path(dev, gen) -> dict:
     steps = N // p.config.v
     f32_factors = fact.F.dtype == torch.float32 and fact.A_ref.dtype == torch.float64
     del fact
-    p64 = plan(N, SolverConfig(dtype="float64"))
+    p64 = plan(N, v32(dtype="float64"))
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2414,7 +2544,7 @@ def mixed_low_main_path(dev, gen, dt) -> dict:
     from repro_torch.api import SolverConfig, plan
 
     sh = MIXED_SHORT[dt]
-    p = plan(N, SolverConfig(compute_dtype=str(dt).removeprefix("torch.")))
+    p = plan(N, v32(compute_dtype=str(dt).removeprefix("torch.")))
     steps = N // p.config.v
     want = expected_launches(lu_panel=steps, fused_trsm_schur=steps)
     out = {}
@@ -3283,10 +3413,20 @@ def main() -> int:
         })
     emit("fused_trsm_schur_modes", **modes)
 
-    # 4. The main path, through the entry points, on the default config and device.
+    # 4. The main path, through the entry points, on the default config and
+    #    device: the calibrated `auto` picks (strategy, v, backend) from the
+    #    committed table, and the launches follow the resolved v, which must
+    #    be one the fused stream takes ("tma"): a pick that leaves the stream
+    #    for the plain bodies fails here.
     A_main = torch.randn(N, N, generator=gen, device=dev)
     b_main = torch.randn(N, generator=gen, device=dev)
     p = plan(N)
+    v_main = p.config.v
+    lo, hi = fs_mod._STREAM_V[4]
+    want_mode = "tma"
+    if not lo <= v_main <= hi:
+        raise AssertionError(f"the main path resolved v = {v_main}, outside the fused "
+                             f"stream's {lo}..{hi}: {p.config}")
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3299,16 +3439,19 @@ def main() -> int:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     resid = hpl_residual(A_main, x, b_main)
-    emit("main_path", N=N, v=p.config.v, strategy=fact.strategy, backend=fact.backend,
+    emit("main_path", N=N, v=v_main, strategy=fact.strategy, backend=fact.backend,
+         hotloop=p.config.hotloop, calibration=p.config.calibration,
+         predicted_wall_us=(p.autotune or {}).get("predicted_wall_us"),
          launches=launches, execute_s=execute_s, solve_s=solve_s, hpl_residual=resid,
          x_finite=bool(torch.isfinite(x).all()), x_shape=list(x.shape),
-         last_fused_mode=fs_mod.fused_trsm_schur.mode)
+         last_fused_mode=fs_mod.fused_trsm_schur.mode, want_fused_mode=want_mode)
     if fact.backend != "cuda":
         raise AssertionError(f"main path ran backend {fact.backend!r}, not 'cuda'")
-    if fs_mod.fused_trsm_schur.mode != "tma":
-        raise AssertionError(f"the main path's fused call took {fs_mod.fused_trsm_schur.mode!r}")
-    if launches != expected_launches(lu_panel=N // v, fused_trsm_schur=N // v):
-        raise AssertionError(f"expected {N // v} launches of each kernel, got {launches}")
+    if fs_mod.fused_trsm_schur.mode != want_mode:
+        raise AssertionError(f"the main path's fused call took {fs_mod.fused_trsm_schur.mode!r}, "
+                             f"not {want_mode!r} at v = {v_main}")
+    if launches != expected_launches(lu_panel=N // v_main, fused_trsm_schur=N // v_main):
+        raise AssertionError(f"expected {N // v_main} launches of each kernel, got {launches}")
     if not (torch.isfinite(x).all() and resid < HPL_RESIDUAL_MAX):
         raise AssertionError(f"HPL scaled residual {resid} >= {HPL_RESIDUAL_MAX}")
     rows_main = fact.rows
@@ -3321,9 +3464,9 @@ def main() -> int:
     emit("profile_execute", **prof)
     panel_records = sum(k["count"] for k in prof["port_kernels"]
                         if k["kernel"].startswith("lu_panel_"))
-    if panel_records != N // v:
+    if panel_records != N // v_main:
         raise AssertionError(f"profile_execute holds {panel_records} lu_panel kernel records, "
-                             f"expected {N // v}")
+                             f"expected {N // v_main}")
 
     # The library's LU at the same N, as a yardstick only.
     torch.cuda.synchronize()
@@ -3339,10 +3482,12 @@ def main() -> int:
          note="torch.linalg.lu_factor + lu_solve; the port never calls them")
     del LU, piv, x_lib
 
-    # 5. The plain path on the card, against the kernel path.
+    # 5. The plain path on the card, against the kernel path, both pinned to
+    #    sequential at v = 32 (the calibrated `auto` would pick v and the
+    #    backend under them).
     A_small = torch.randn(1024, 1024, generator=gen, device=dev)
-    f_k = plan(1024).execute(A_small)
-    f_p = plan(1024, SolverConfig(backend="ref")).execute(A_small)
+    f_k = plan(1024, v32()).execute(A_small)
+    f_p = plan(1024, v32(backend="ref")).execute(A_small)
     f_err = float((f_k.F - f_p.F).abs().max())
     f_tol = LU_F_TOL_FACTOR * 1024 * torch.finfo(torch.float32).eps * float(f_p.F.abs().max())
     rows_equal = torch.equal(f_k.rows, f_p.rows)
@@ -3352,17 +3497,18 @@ def main() -> int:
         raise AssertionError(f"kernel and plain paths differ at N=1024: rows_equal="
                              f"{rows_equal}, F error {f_err}")
     t0 = time.perf_counter()
-    f_ref = plan(N, SolverConfig(backend="ref")).execute(A_main)
+    f_ref = plan(N, v32(backend="ref")).execute(A_main)
     torch.cuda.synchronize()
     ref_execute_s = time.perf_counter() - t0
     diff = (f_ref.rows != rows_main).nonzero()
-    emit("plain_path_16384", execute_s=ref_execute_s,
+    emit("plain_path_16384", execute_s=ref_execute_s, v=32, main_path_v=v_main,
          first_pivot_difference=int(diff[0]) if len(diff) else None,
          hpl_residual_plain=hpl_residual(A_main, f_ref.solve(b_main), b_main),
          hpl_residual_kernels=resid)
 
     del f_ref, A_main, b_main, rows_main, A
     torch.cuda.empty_cache()
+
 
     # 6. The batched path's kernels, its end-to-end run, and the serving tier.
     batched_rows = batched_kernel_rows(dev, gen)
@@ -3434,6 +3580,15 @@ def main() -> int:
         lm_launches.update({k: c for k, c in lm_serve(arch, batch).items() if c})
     for arch, _ in LM_SERVE:
         lm_plain_check(arch)
+
+    # 11. The calibrated `auto` (module item 9): the committed table's picks,
+    #    each pick against the analytic one, the hot-loop profile of the LU
+    #    and Cholesky plans, and the calibration tool's smoke fit.  Last, so
+    #    that the earlier phases' host-clock times are taken as in earlier
+    #    runs, before these phases' large numpy inputs.
+    calibrated_auto(dev, kind)  # its own draws
+    profile_hotloop_phase()
+    calibrate_smoke(kind)
 
     panel_row["launches"] = launches["lu_panel"]
     for row in fused_rows:

@@ -21,9 +21,11 @@
 Plans run on the card unless the caller passes `device="cpu"`.  Ported so
 far: the single-device and batched LU and Cholesky paths, the distributed
 2.5D schedules, strategies "sequential", "sequential_chol", "conflux",
-"baseline2d", "cholesky25d" and "auto" (analytic: conflux on the
-comm-volume argmin grid with more than one rank, sequential otherwise), the
-"cuda" (default) and "ref" kernel backends.
+"baseline2d", "cholesky25d" and "auto" (calibrated: the predicted-wall
+argmin of the cost-model table fitted on the plan's device kind; analytic
+where no table covers it: conflux on the comm-volume argmin grid with more
+than one rank, sequential otherwise), the "cuda" (default) and "ref" kernel
+backends, and `FactorizationPlan.profile_hotloop`.
 """
 
 import repro_torch.api.strategies  # noqa: F401  (registers the built-ins)

@@ -42,14 +42,23 @@ def dtype_name(dt: torch.dtype) -> str:
     return str(dt).removeprefix("torch.")
 
 
+def as_tensor(x) -> torch.Tensor:
+    """A tensor as it is; anything else through `numpy.asarray`, which keeps
+    a Python float's float64 where `torch.as_tensor` would make it float32."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
+
 @dataclass(frozen=True)
 class SolverConfig:
     """Declarative solver selection.
 
     strategy: a registered strategy name: "sequential", "sequential_chol",
-        "conflux", "baseline2d", "cholesky25d", or "auto", which resolves
-        to "conflux" on the comm-volume argmin grid when the default
-        process group has more than one rank, else to "sequential".
+        "conflux", "baseline2d", "cholesky25d", or "auto", which takes the
+        predicted-wall argmin (strategy, grid, v, backend, hotloop) of the
+        cost-model table fitted on the plan's device kind
+        (`repro_torch.analysis.costmodel`), and without such a table
+        resolves to "conflux" on the comm-volume argmin grid when the
+        default process group has more than one rank, else to "sequential".
     pivot:    "tournament" or "partial"; "none" is Cholesky-only and the LU
               strategies reject it.
     grid:     explicit GridConfig; None lets the strategy choose one.

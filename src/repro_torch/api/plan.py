@@ -29,12 +29,13 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 import warnings
 from collections import OrderedDict
 
 import torch
 
-from repro_torch.api.config import SolverConfig, dtype_name, resolve_dtype
+from repro_torch.api.config import SolverConfig, as_tensor, dtype_name, resolve_dtype
 from repro_torch.api.registry import get_strategy
 from repro_torch.api.result import Factorization
 from repro_torch.core.collectives import group_key
@@ -61,6 +62,10 @@ class FactorizationPlan:
                        eagerly, so this is 1 from the first execute on (the
                        kernels are loaded then) and never grows.
         execute_count: times `execute` ran.
+        hotloop:       per-primitive timings of `profile_hotloop` ({} before).
+        autotune:      the calibrated `strategy="auto"` decision that produced
+                       this plan (tuple, predicted wall, calibration version),
+                       or None for a plan from an explicit or analytic config.
     """
 
     def __init__(self, N: int, config: SolverConfig, device: torch.device, *,
@@ -74,6 +79,8 @@ class FactorizationPlan:
         self.mesh = mesh
         self.comm = dict(comm or {})
         self.kind = kind
+        self.hotloop: dict = {}
+        self.autotune: dict | None = None
         self.trace_count = 0
         self.execute_count = 0
         # Cached plans are shared across threads, so the counter bumps are
@@ -82,10 +89,31 @@ class FactorizationPlan:
         # (A: tensor [N, N] or [B, N, N] on device) -> (F, rows); set by the strategy
         self._run = run
 
+    def profile_hotloop(self, repeats: int = 3) -> dict:
+        """Measure per-primitive hot-loop wall times on this plan's shapes.
+
+        Times the backend's panel / TRSM / Schur / gather / fused primitives
+        standalone on the plan's device (see `repro_torch.api.hotloop`) and
+        caches the result on the plan; every later `execute` carries it into
+        `Factorization.hotloop` / `comm_report()`.
+        """
+        from repro_torch.api.hotloop import profile_primitives
+
+        self.hotloop = profile_primitives(self.N, self.config, grid=self.grid,
+                                          repeats=repeats, device=self.device)
+        return self.hotloop
+
     def execute(self, A) -> Factorization:
-        """Factorize A [N, N], or [B, N, N] on a batched plan (numpy array or
-        tensor), on the plan's device."""
-        A = torch.as_tensor(A)
+        """Factorize A [N, N], or [B, N, N] on a batched plan (numpy array,
+        tensor or nested lists, which numpy reads as float64), on the plan's
+        device.
+
+        On a plan from the calibrated `strategy="auto"`, the result's
+        `autotune` carries the decision and this execute's measured wall
+        time (host clock, ending in `torch.cuda.synchronize()` on the card;
+        other executes do not wait for the card).
+        """
+        A = as_tensor(A)
         if A.is_complex():
             raise ValueError(
                 f"complex matrices are not supported (plan computes in "
@@ -110,15 +138,37 @@ class FactorizationPlan:
         # Mixed precision: the kernels run in the (lower) compute dtype, while
         # A_ref keeps the working-precision matrix for refinement residuals.
         compute = self.config.compute_dtype
-        F, rows = self._run(A if compute is None else A.to(resolve_dtype(compute)))
+        A_lo = A if compute is None else A.to(resolve_dtype(compute))
+        stamp = self.autotune is not None
+        if stamp:
+            self._sync()  # the measured wall starts with nothing queued
+        t0 = time.perf_counter()
+        F, rows = self._run(A_lo)
+        autotune = None
+        if stamp:
+            # Close the autotuner's feedback loop: stamp the measured wall
+            # beside the cost model's prediction.
+            self._sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            autotune = {k: v for k, v in self.autotune.items() if k != "grid"}
+            autotune["grid"] = str(self.autotune.get("grid"))
+            autotune["measured_wall_us"] = wall_us
+            pred = self.autotune.get("predicted_wall_us")
+            if pred:
+                autotune["wall_residual"] = (wall_us - pred) / pred
         with self._count_lock:
             self.trace_count = 1
             self.execute_count += 1
         return Factorization(
             F=F, rows=rows, grid=self.grid, comm=dict(self.comm),
             strategy=self.config.strategy, backend=self.config.backend,
-            kind=self.kind, A_ref=A, work_dtype=work,
+            kind=self.kind, hotloop=dict(self.hotloop), A_ref=A, work_dtype=work,
+            autotune=autotune,
         )
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def __repr__(self):
         batch = "" if self.B is None else f"B={self.B}, "
@@ -178,12 +228,18 @@ def _resolve_backend(N: int, config: SolverConfig) -> SolverConfig:
     return config
 
 
-def resolve(N: int, config: SolverConfig) -> SolverConfig:
-    """Resolve "auto"/missing-grid/panel-width/backend configs to concrete choices."""
+def resolve(N: int, config: SolverConfig, device=None) -> SolverConfig:
+    """Resolve "auto"/missing-grid/panel-width/backend configs to concrete choices.
+
+    `device` is the device the plan will run on: the calibrated `auto`
+    prices candidates with the cost-model table fitted on that device kind
+    (None: the port's default device, the current card when CUDA is
+    available, else the CPU; see `analysis.costmodel.device_kind`).
+    """
     for _ in range(3):
         builder = get_strategy(config.strategy)
         resolver = getattr(builder, "resolve", None)
-        resolved = resolver(N, config) if resolver else config
+        resolved = config if resolver is None else resolver(N, config, device=device)
         if resolved.strategy == config.strategy:
             return _resolve_backend(N, resolved)
         config = resolved
@@ -218,10 +274,10 @@ def plan(N: int, config: SolverConfig | None = None, *, device=None, mesh=None,
         if config.B is not None and config.B != B:
             raise ValueError(f"plan((B={B}, N)) conflicts with SolverConfig.B={config.B}")
         config = config.with_(B=int(B))
-    resolved = resolve(N, config)
+    resolved = resolve(N, config, device=dev)
     builder = get_strategy(resolved.strategy)
     if mesh is not None:
-        return builder(N, resolved, dev, mesh=mesh)
+        return _attach_autotune(builder(N, resolved, dev, mesh=mesh), resolved.cache_key(N))
     # A distributed plan holds process groups: it serves only the group it
     # was built over.
     key = (resolved.cache_key(N), str(dev), group_key() if resolved.grid else None)
@@ -231,7 +287,7 @@ def plan(N: int, config: SolverConfig | None = None, *, device=None, mesh=None,
             if cached is not None:
                 _STATS["hits"] += 1
                 _PLAN_CACHE.move_to_end(key)  # LRU touch
-                return cached
+                return _attach_autotune(cached, key[0])
             pending = _BUILDING.get(key)
             if pending is None:
                 # We own the build: others with the same key wait for it.
@@ -244,11 +300,22 @@ def plan(N: int, config: SolverConfig | None = None, *, device=None, mesh=None,
         with _LOCK:
             _PLAN_CACHE[key] = built
             _evict_lru_locked()
-        return built
+        return _attach_autotune(built, key[0])
     finally:
         with _LOCK:
             _BUILDING.pop(key, None)
         pending.set()
+
+
+def _attach_autotune(p: FactorizationPlan, key: tuple) -> FactorizationPlan:
+    """Copy the calibrated-auto decision (tuple + predicted wall) onto the
+    plan so execute() can report the measured-vs-predicted residual.  Plans
+    from explicit configs (calibration is None) never carry one."""
+    if p.autotune is None and p.config.calibration is not None:
+        from repro_torch.analysis import costmodel
+
+        p.autotune = costmodel.get_decision(key)
+    return p
 
 
 def factor(A, config: SolverConfig | None = None, *, device=None,
@@ -257,9 +324,10 @@ def factor(A, config: SolverConfig | None = None, *, device=None,
 
     A 2-D A factorizes one system; a 3-D [B, N, N] stack gets a batched
     plan (`plan((B, N))`) factorizing all B systems in one run.  With no
-    explicit config or dtype, the computation dtype follows A.
+    explicit config or dtype, the computation dtype follows A (float64 for
+    nested lists of Python floats, as numpy reads them).
     """
-    A = torch.as_tensor(A)
+    A = as_tensor(A)
     if config is None and "dtype" not in overrides and A.is_floating_point():
         overrides["dtype"] = dtype_name(A.dtype)
     if A.ndim == 3:

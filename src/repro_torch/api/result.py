@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.api.config import as_tensor
 from repro_torch.core.cholesky.sequential import chol_reconstruct, chol_solve
 from repro_torch.core.lu.grid import GridConfig
 from repro_torch.core.lu.sequential import (
@@ -157,6 +158,13 @@ class Factorization:
     A_ref: torch.Tensor | None = None
     # the working dtype the caller asked for; None = the factors' dtype
     work_dtype: torch.dtype | None = None
+    # per-primitive hot-loop wall times (us), when the plan was profiled
+    # with FactorizationPlan.profile_hotloop()
+    hotloop: dict = field(default_factory=dict)
+    # the calibrated-auto decision and this execute's measured wall
+    # (predicted_wall_us / measured_wall_us / wall_residual); None unless
+    # the plan came from the calibrated `strategy="auto"`
+    autotune: dict | None = None
 
     def __post_init__(self):
         if self.kind not in ("lu", "cholesky"):
@@ -213,7 +221,10 @@ class Factorization:
         factorization `refine_tol` may be a [B] array, one tolerance per
         system; `max_refine_iters` is shared.
         """
-        b = torch.as_tensor(b)
+        # Only a tensor or an array states its dtype: nested lists read as
+        # float64 and keep it, and are not warned about as a downcast.
+        has_dtype = isinstance(b, torch.Tensor) or hasattr(b, "dtype")
+        b = as_tensor(b)
         if b.is_complex():
             raise ValueError(
                 f"complex RHS dtype {b.dtype} is not supported (factors are "
@@ -224,7 +235,7 @@ class Factorization:
         wd = self.work_dtype or self.dtype
         sd = _solve_dtype(self.dtype)
         out = sd if wd != self.dtype else self.dtype  # a plain narrow plan keeps its dtype
-        if b.is_floating_point() and b.dtype.itemsize > out.itemsize:
+        if has_dtype and b.is_floating_point() and b.dtype.itemsize > out.itemsize:
             hint = ("pass solve(..., refine_tol=...) to recover working precision"
                     if wd.itemsize >= b.dtype.itemsize
                     else "set SolverConfig.dtype to keep precision")
@@ -316,10 +327,29 @@ class Factorization:
                 f"{'' if self.B is None else f'B={self.B} '}N={self.N} {prec} "
                 f"device={self.device}")
         if not self.comm:
-            return f"{head}\n  single-device: no inter-processor communication"
-        itemsize = self.dtype.itemsize
-        lines = [head, f"  {'':20s} {'elements/proc':>14s} {'bytes/proc':>16s}"]
-        for k, val in self.comm.items():
-            if isinstance(val, (int, float)):
-                lines.append(f"  {k:20s} {val:14,.0f} {val * itemsize:16,.0f}")
+            lines = [f"{head}\n  single-device: no inter-processor communication"]
+        else:
+            itemsize = self.dtype.itemsize
+            lines = [head, f"  {'':20s} {'elements/proc':>14s} {'bytes/proc':>16s}"]
+            for k, val in self.comm.items():
+                if isinstance(val, (int, float)):
+                    lines.append(f"  {k:20s} {val:14,.0f} {val * itemsize:16,.0f}")
+        if self.hotloop:
+            lines.append("  hot-loop primitives (us, profiled local shapes):")
+            for k, val in self.hotloop.items():
+                if isinstance(val, (int, float)):
+                    lines.append(f"    {k:18s} {val:12,.1f}")
+        if self.autotune:
+            pred = self.autotune.get("predicted_wall_us")
+            meas = self.autotune.get("measured_wall_us")
+            resid = self.autotune.get("wall_residual")
+            lines.append(
+                f"  autotune ({self.autotune.get('source', '?')}, calibration "
+                f"{self.autotune.get('calibration_version', '?')}):"
+            )
+            if pred is not None and meas is not None:
+                line = f"    predicted {pred:12,.1f} us   measured {meas:12,.1f} us"
+                if resid is not None:
+                    line += f"   residual {resid:+.1%}"
+                lines.append(line)
         return "\n".join(lines)

@@ -3,8 +3,10 @@ sequential_chol, cholesky25d (SPD Cholesky on the same kernel backends).
 
 Each strategy is a plan builder
 ``(N, config, device, mesh=None) -> FactorizationPlan`` plus an attached
-``resolve(N, config) -> SolverConfig`` hook that pins the open choices
-(grid, panel width, pivot) so the plan cache key is concrete.  The
+``resolve(N, config, device=None) -> SolverConfig`` hook that pins the
+open choices (grid, panel width, pivot) so the plan cache key is concrete;
+`device` is the device the plan runs on (only `auto` reads it, to price
+candidates with the table fitted on that device kind).  The
 distributed strategies size their grid for the default process group
 (`P_target` defaults to its world size, 1 without one).
 
@@ -46,7 +48,7 @@ def default_panel_width(N: int, start: int = 32) -> int:
     return v
 
 
-def _resolve_sequential(N: int, config: SolverConfig) -> SolverConfig:
+def _resolve_sequential(N: int, config: SolverConfig, device=None) -> SolverConfig:
     if config.pivot == "none":
         raise ValueError(
             "pivot='none' is Cholesky-only (SPD needs no pivoting); LU "
@@ -83,7 +85,7 @@ build_sequential.primitives = ("panel_lup", "fused_trsm_schur")
 # ---------------------------------------------------------------------------
 
 
-def _resolve_sequential_chol(N: int, config: SolverConfig) -> SolverConfig:
+def _resolve_sequential_chol(N: int, config: SolverConfig, device=None) -> SolverConfig:
     v = config.v
     if v is None:
         v = default_panel_width(N)
@@ -133,7 +135,7 @@ def _reject_batched(strategy: str, config: SolverConfig) -> None:
         )
 
 
-def _resolve_conflux(N: int, config: SolverConfig) -> SolverConfig:
+def _resolve_conflux(N: int, config: SolverConfig, device=None) -> SolverConfig:
     _reject_batched("conflux", config)
     if config.pivot == "none":
         raise ValueError(
@@ -200,7 +202,7 @@ build_conflux.primitives = ("panel_lup", "trsm_right_upper", "fused_trsm_schur",
                             "trsm_left_lower", "schur_update")
 
 
-def _resolve_baseline2d(N: int, config: SolverConfig) -> SolverConfig:
+def _resolve_baseline2d(N: int, config: SolverConfig, device=None) -> SolverConfig:
     _reject_batched("baseline2d", config)
     changes: dict = {}
     if config.pivot != "partial":
@@ -222,7 +224,7 @@ build_baseline2d.resolve = _resolve_baseline2d
 build_baseline2d.primitives = build_conflux.primitives
 
 
-def _resolve_cholesky25d(N: int, config: SolverConfig) -> SolverConfig:
+def _resolve_cholesky25d(N: int, config: SolverConfig, device=None) -> SolverConfig:
     _reject_batched("cholesky25d", config)
     changes: dict = {"pivot": "none"} if config.pivot != "none" else {}
     if config.grid is None:
@@ -244,14 +246,14 @@ build_cholesky25d.primitives = ("panel_chol", "trsm_right_upper", "fused_trsm_sc
 
 
 # ---------------------------------------------------------------------------
-# auto — the analytic ranking: the comm-volume argmin grid on more than one
-# rank, sequential otherwise.  The trace-calibrated ranking (ROADMAP.md
-# item 9) is not ported yet.
+# auto — trace-calibrated wall-time argmin, with the analytic comm-volume
+# ranking as fallback.
 # ---------------------------------------------------------------------------
 
 
 def _resolve_auto_analytic(N: int, config: SolverConfig, n_ranks: int) -> SolverConfig:
-    """Comm-volume argmin grid on > 1 rank, sequential otherwise."""
+    """Comm-volume argmin grid on > 1 rank, sequential otherwise.  Used when
+    no calibration covers the combo."""
     if n_ranks > 1:
         try:
             grid = optimize_grid(N, config.P_target or n_ranks, config.M, v=config.v)
@@ -261,7 +263,7 @@ def _resolve_auto_analytic(N: int, config: SolverConfig, n_ranks: int) -> Solver
     return _resolve_sequential(N, config.with_(strategy="sequential", grid=None))
 
 
-def _resolve_auto(N: int, config: SolverConfig) -> SolverConfig:
+def _resolve_auto(N: int, config: SolverConfig, device=None) -> SolverConfig:
     n_ranks = world_size()
     if config.B is not None:
         # Batched = many small independent systems; the distributed schedules
@@ -280,6 +282,26 @@ def _resolve_auto(N: int, config: SolverConfig) -> SolverConfig:
                 f"auto choose, or use strategy='sequential'"
             )
         return config.with_(strategy="conflux")
+    # Score every candidate (strategy, grid, v, backend, hotloop) tuple with
+    # the cost-model table fitted on the plan's device kind and take the
+    # predicted wall-time argmin; on a CPU plan the pick may change the
+    # backend too, on a CUDA plan it keeps `config.backend`.  The
+    # choice is recorded under the resolved cache key so plan() can attach
+    # it and execute() can report the measured-vs-predicted residual; the
+    # calibration version is stamped on the config so the pick never
+    # outlives the table that made it.
+    from repro_torch.analysis import costmodel
+
+    choice = costmodel.autotune_choice(N, config, n_dev=n_ranks, device=device)
+    if choice is not None:
+        resolved = config.with_(
+            strategy=choice["strategy"], grid=choice["grid"], v=choice["v"],
+            backend=choice["backend"], hotloop=choice["hotloop"],
+            calibration=choice["calibration_version"],
+        )
+        costmodel.record_decision(resolved.cache_key(N), choice)
+        return resolved
+    # No table covers (device kind, backend, dtype): the analytic ranking.
     return _resolve_auto_analytic(N, config, n_ranks)
 
 

@@ -134,7 +134,7 @@ class SolveEngine:
                  **overrides):
         self.config = (config or SolverConfig()).with_(**overrides)
         self.device = resolve_device(device)
-        resolved = resolve(N, self.config)
+        resolved = resolve(N, self.config, device=self.device)
         if resolved.grid is not None:
             raise ValueError(
                 f"engines on the distributed strategy {resolved.strategy!r} (grid "

@@ -10,7 +10,9 @@ much in any summation order.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -202,3 +204,96 @@ def test_interop_config_from_jax():
     assert interop.config_from_jax({"backend": "ref"}).backend == "ref"
     with pytest.raises(ValueError, match="no counterpart"):
         interop.config_from_jax({"backend": "tpu"})
+
+
+
+# --------------------------------------------------------------------------
+# F6: input that is not a tensor goes through numpy, as in the reference
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _no_warning():
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        yield
+
+
+def _downcast_warning(dtype):
+    return pytest.warns(UserWarning, match="downcast") if dtype == "float32" else _no_warning()
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_list_input_equals_ndarray_input(backend, dtype):
+    """Nested lists read as float64 (numpy's reading) and are then cast to the
+    plan's working dtype: the same bits as the float64 ndarray, factors,
+    pivots, plain and refined solves."""
+    rng = np.random.default_rng(26)
+    A, b = rng.standard_normal((64, 64)), rng.standard_normal(64)
+    p = plan(64, SolverConfig(dtype=dtype, backend=backend, v=16), device="cpu")
+    with _downcast_warning(dtype):  # the reference warns for both too
+        f_arr = p.execute(A)
+    with _downcast_warning(dtype):
+        f_list = p.execute(A.tolist())
+    assert f_list.A_ref.dtype == f_arr.A_ref.dtype == getattr(torch, dtype)
+    for name in ("A_ref", "F", "rows"):
+        assert torch.equal(getattr(f_list, name), getattr(f_arr, name)), name
+    with _no_warning():  # lists state no dtype: no downcast warning, as in the reference
+        x_list = f_list.solve(b.tolist())
+    with _downcast_warning(dtype):  # an array states its dtype
+        x_arr = f_arr.solve(b)
+    assert x_list.dtype == getattr(torch, dtype)
+    assert torch.equal(x_list, x_arr)
+    r_list = f_list.solve(b.tolist(), refine_tol=1e-12, max_refine_iters=3)
+    r_arr = f_arr.solve(b, refine_tol=1e-12, max_refine_iters=3)
+    assert torch.equal(r_list.x, r_arr.x)
+    assert r_list.refinement_iters == r_arr.refinement_iters
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+def test_factor_of_lists_resolves_float64(backend):
+    A = np.random.default_rng(27).standard_normal((32, 32))
+    fact = factor(A.tolist(), backend=backend, v=8, device="cpu")
+    assert fact.dtype == torch.float64 and fact.A_ref.dtype == torch.float64
+    assert torch.equal(fact.F, factor(A, backend=backend, v=8, device="cpu").F)
+    assert factor(A.astype(np.float32).tolist(), device="cpu").dtype == torch.float64
+    assert factor(torch.from_numpy(A).float(), device="cpu").dtype == torch.float32
+
+
+@pytest.fixture(scope="module")
+def jax_lists(tmp_path_factory):
+    return _jax_costmodel_cases().run(tmp_path_factory.mktemp("lists"))[1]["refined"]
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+@pytest.mark.parametrize("name", ["f64", "f64_over_f32"])
+def test_refined_f64_solve_from_lists_matches_reference(backend, name, jax_lists):
+    """`plan(N, dtype="float64").execute(A.tolist()).solve(b.tolist(),
+    refine_tol=1e-12)` within 1e-12 of the reference's (through the shim);
+    before the repair the lists were rounded to float32 first and the
+    answer was 5e-8 away."""
+    cases = _jax_costmodel_cases()
+    N, compute = cases.REFINED_CASES[name]
+    A, b = cases.refined_inputs(name)
+    cfg = SolverConfig(dtype="float64", compute_dtype=compute, backend=backend, v=16)
+    rs = plan(N, cfg, device="cpu").execute(A.tolist()).solve(b.tolist(), refine_tol=1e-12)
+    want = jax_lists[name]
+    x_ref = np.asarray(want["x"])
+    assert want["x_dtype"] == "float64" and want["converged"]
+    assert rs.x.dtype == torch.float64 and rs.converged
+    assert rs.final_residual <= 1e-12
+    assert np.abs(rs.x.numpy() - x_ref).max() <= 1e-12 * np.abs(x_ref).max()
+
+
+def _jax_costmodel_cases():
+    import sys
+    from pathlib import Path
+
+    path = str(Path(__file__).resolve().parent / "multidev")
+    sys.path.insert(0, path)
+    try:
+        import jax_costmodel_cases
+    finally:
+        sys.path.remove(path)
+    return jax_costmodel_cases
