@@ -56,6 +56,14 @@ each kernel against its plain PyTorch version on the card:
   and flat) and cholesky25d on a 1x1x1 grid at N in bf16 (cholesky25d flat
   in f16), refined; and bf16 conflux and cholesky25d on the eight gloo
   ranks at N = 2048, kernel path against plain path;
+- the plan auditor (module item 11): `analysis.audit.run_audit` on the card,
+  with every kernel instance's registers, shared memory and spills against
+  Hopper's budgets, the twelve solver kernels at the audit's shapes in f32
+  and bf16 against their plain versions (`trsm_left_lower_batched`'s only
+  caller), the 2-byte accumulators, the cache keys and the in-core plans'
+  collectives; and, in the eight-rank run, each rank's traced collective
+  bytes against the port's executed model beside the schedule's volume and
+  the X-partitioning lower bound;
 - the LM serving path at full width and depth, bf16, random weights from a
   seeded `torch.Generator` on the card: `ServeEngine` on qwen3-8b (36
   layers, kernel `flash_attention` once per layer of each prefill) and on
@@ -102,11 +110,15 @@ from pathlib import Path
 
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.analysis.roofline import H100_SXM  # noqa: E402
+
 N = 16384
-# Published H100 SXM rates (NVIDIA data sheet, at the full 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12  # dense, tensor cores
+# Published H100 SXM rates (NVIDIA data sheet, at the full 700 W limit), from
+# the port's roofline model, the one source of them.
+HBM_BYTES_PER_S = H100_SXM.hbm_bw
+FP32_FLOPS = H100_SXM.f32_flops
+BF16_FLOPS = H100_SXM.peak_flops  # dense, tensor cores
 # fused_trsm_schur against its plain version: the two sum the v-term
 # contraction in different orders, each term rounding by up to eps_f32 =
 # 6e-8 of its size, so v = 32 terms drift by ~2e-6 of the result's scale.
@@ -697,11 +709,12 @@ def calibrated_auto(dev, kind: str) -> list[dict]:
     f32 and at 16384 in bf16, and `calibrate.auto_against_widths` of each
     pick's execute against the analytic pick (sequential, v = 32, "cuda")
     and every other candidate v, in turns, best of AUTO_ROUNDS each: at
-    16384 in f32 and bf16, the calibration tool's guard, where auto /
-    analytic > 1 + AUTOTUNE_TOLERANCE fails; reported only, at 4096 in f32
-    (fault F7) and, against v = 32 alone, at 16384 in f64.  Each row also
-    gives the alpha scales under which the table keeps its pick there
-    (`calibrate.pick_alpha_range`).  Returns the picks."""
+    16384 in f32 and bf16 and at 4096 in f32 (fault F7), the calibration
+    tool's guard, where auto over the analytic pick's wall or over the
+    fastest width's (`calibrate.guard_ok`) > 1 + AUTOTUNE_TOLERANCE fails;
+    reported only at 16384 in f64.  Each row also gives the alpha scales
+    under which the table keeps its pick there (`calibrate.pick_alpha_range`).
+    Returns the picks."""
     from repro_torch.analysis import calibrate, costmodel
     from repro_torch.api import SolverConfig, plan
 
@@ -728,18 +741,19 @@ def calibrated_auto(dev, kind: str) -> list[dict]:
         picks.append(pick)
     limit = 1 + calibrate.AUTOTUNE_TOLERANCE
     guarded = set(calibrate.GUARD)
-    every_v = tuple(costmodel._sequential_v_candidates(N, None))
-    for n, dtype, widths in ((N, "float32", every_v), (N, "bfloat16", every_v),
-                             (N // 4, "float32", every_v), (N, "float64", (32,))):
+    for n, dtype in ((N, "float32"), (N, "bfloat16"), (N // 4, "float32"), (N, "float64")):
+        widths = tuple(costmodel._sequential_v_candidates(n, None))
         row = calibrate.auto_against_widths(n, dtype, widths, rounds=AUTO_ROUNDS, device=dev)
         row.update(guarded=(n, dtype) in guarded, limit=limit if (n, dtype) in guarded else None,
                    alpha_scale_range=calibrate.pick_alpha_range(table, n, dtype, dev))
         emit("calibrated_auto", **row)
         if (row["calibration"] != table.version or row["measured_wall_us"] is None
-                or (row["guarded"] and row["auto_over_analytic"] > limit)):
+                or (row["guarded"] and not calibrate.guard_ok(row))):
             raise AssertionError(f"calibrated auto at N = {n}, {dtype}: auto / analytic "
-                                 f"= {row['auto_over_analytic']:.4f} (limit {limit} where "
-                                 f"guarded), or not through the table: {row}")
+                                 f"= {row['auto_over_analytic']:.4f}, auto / fastest "
+                                 f"({row['fastest']}) = {row['auto_over_fastest']:.4f} "
+                                 f"(limit {limit} where guarded), or not through the "
+                                 f"table: {row}")
     torch.cuda.empty_cache()
     return picks
 
@@ -787,7 +801,8 @@ def calibrate_smoke(kind: str) -> None:
         table = costmodel.load_calibration(out)
     ok = (table is not None and table.device_kind == kind
           and table.covers("cuda", "float32")
-          and set(table.fits("cuda", "float32")) == set(costmodel.PRIMITIVES))
+          and {costmodel.split_key(k)[0] for k in table.fits("cuda", "float32")}
+          == set(costmodel.PRIMITIVES))
     emit("calibrate_smoke", version=table and table.version, seconds=seconds,
          device_kind=table and table.device_kind,
          alpha_scale=table and table.meta.get("alpha_scale"),
@@ -795,6 +810,63 @@ def calibrate_smoke(kind: str) -> None:
          ok=ok)
     if not ok:
         raise AssertionError(f"calibrate --smoke wrote no usable table for {kind!r}")
+
+
+AUDIT_KERNEL_DTYPES = ("float32", "bfloat16")  # check_kernels' 24 cases
+
+
+def audit_phase(dev) -> dict:
+    """The plan auditor on the card (module item 11):
+    `audit.run_audit(rules={"comm", "kernels", "cache-key"})` on cuda:0, the
+    distributed combos left to `grid_8ranks`.  Prints a `kernel_resources`
+    line for every kernel instance of every `csrc/*.cu` (registers, static
+    and dynamic shared memory, spills, block), a `kernel_check` line for each
+    of `check_kernels`' 24 cases (the twelve solver kernels in f32 and bf16,
+    each against its plain version), and the `kernel_accum`, cache-key and
+    in-core comm findings.  Any error finding fails the phase, and so does a
+    solver kernel launched no time (`trsm_left_lower_batched` has no other
+    caller).  Returns {dtype: {kernel: launches}} of `check_kernels`."""
+    from repro_torch.analysis import audit
+
+    reset_launches()
+    t0 = time.perf_counter()
+    report = audit.run_audit(rules={"comm", "kernels", "cache-key"}, device=dev, world=0)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    per_dtype: dict = {}
+    for f in report.findings:
+        d = f.data
+        if f.rule == "kernel-resources":
+            emit("kernel_resources", kernel=d.get("kernel"), source=d.get("source"),
+                 dtype=d.get("dtype"), registers=d.get("registers"),
+                 static_smem=d.get("static_smem"), dynamic_smem=d.get("dynamic_smem"),
+                 spill_bytes=d.get("spill_bytes"), block=d.get("block"),
+                 max_threads=d.get("max_threads"), severity=f.severity)
+        elif f.rule == "kernel-check":
+            name, dtype = f.location.rstrip("]").split("[")
+            per_dtype.setdefault(dtype, {})[name] = d.get("launched", 0)
+            emit("kernel_check", kernel=name, dtype=dtype, max_abs_err=d.get("max_abs_err"),
+                 scale=d.get("scale"), tol_rel=d.get("tol"), body=d.get("body"),
+                 predicted_body=d.get("predicted_body"), severity=f.severity)
+        elif f.rule in ("kernel-accum", "kernel-divisibility", "cache-key", "comm-conformance",
+                        "audit"):
+            emit("audit_finding", rule=f.rule, severity=f.severity, location=f.location,
+                 detail=f.detail)
+    counts = report.to_json()["counts"]
+    resources = [f for f in report.findings if f.rule == "kernel-resources"]
+    checks = sum(len(v) for v in per_dtype.values())
+    solver = [name for name, *_ in audit._kernel_cases()]
+    unlaunched = [k for k in solver if launches[k] == 0]
+    emit("audit", seconds=seconds, counts=counts, kernel_instances=len(resources),
+         spilling_instances=sum(1 for f in resources if f.severity == "warning"),
+         kernel_checks=checks, launches=launches)
+    if report.errors or checks != 12 * len(AUDIT_KERNEL_DTYPES) or unlaunched or len(
+            resources) < 14:
+        raise AssertionError(f"audit: {[(f.rule, f.location, f.detail) for f in report.errors]}, "
+                             f"{checks} kernel checks, unlaunched {unlaunched}, "
+                             f"{len(resources)} kernel instances")
+    torch.cuda.empty_cache()
+    return per_dtype
 
 
 def batched_path(dev, gen) -> dict:
@@ -1493,7 +1565,6 @@ def trsm_left_lower_rows(dev, gen) -> list[dict]:
         **device_fields(lambda: ops.trsm_left_lower_batched(L, Bm, unit=False),
                         lambda: torch.linalg.solve_triangular(L, Bm, upper=False)),
         "library": "batched torch.linalg.solve_triangular(L, B, upper=False)",
-        "note": "on no path: only the JAX package's kernel lint calls it",
     })
     return rows
 
@@ -1618,6 +1689,7 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
     import hashlib
 
     import torch.distributed as dist
+    from repro_torch.analysis import audit, trace
     from repro_torch.api import GridConfig, SolverConfig, plan
     from repro_torch.core.lu.baseline2d import scalapack2d_grid
     from repro_torch.core.lu.conflux import make_lu_mesh
@@ -1659,11 +1731,15 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
             if cuda:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fact = p.execute(A)
-            if cuda:
-                torch.cuda.synchronize()
+            with trace.recording() as rec:  # the execute's own trace
+                fact = p.execute(A)
+                if cuda:
+                    torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches = {k: c for k, c in read_launches().items() if c}
+            text = rec.text()
+            (Path(out_dir) / f"trace_{name}_rank{rank}.txt").write_text(text)
+            _, comm = audit.check_comm_conformance(p, text=text)
             refined = fact.solve(b, refine_tol=MIXED_LOW_TOL) if compute else None
             x = fact.solve(b) if refined is None else refined.x
             bits = fact.F.cpu()
@@ -1674,6 +1750,11 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
                 "rows": hashlib.sha256(fact.rows.cpu().numpy().tobytes()).hexdigest(),
                 "rows_list": fact.rows.tolist() if n == 1024 else None,
                 "launches": launches, "comm_total": fact.comm["total"],
+                "comm": {**{k: comm[k] for k in ("extracted_bytes", "predicted_bytes", "rel_err",
+                                                 "schedule_bytes", "lower_bound_bytes",
+                                                 "traced_by_site", "active", "collectives")},
+                         "model_by_site": {k: x for k, x in comm["model"].items()
+                                           if k != "total" and x}},
                 "last_schur_update_mode": update.mode,
                 "grid": str(fact.grid), "kind": fact.kind, "factor_dtype": str(fact.F.dtype),
                 "converged": None if refined is None else bool(refined.converged),
@@ -1700,8 +1781,13 @@ def grid_8ranks(device: str = "cuda:0") -> None:
     rank must return the same F and rows with HPL < 16, and the kernel path
     must pick the plain path's pivots at N = 1024 and in bf16, where its F
     must also lie within `mixed_path_tol` of the plain path's and its last
-    schur_update (the flat hot loop's) must take the wgmma stream.  A rank that
-    fails or outlives GRID_TIMEOUT_S fails the phase."""
+    schur_update (the flat hot loop's) must take the wgmma stream.  Each
+    rank's execute is traced (`analysis.trace.recording`): its collective
+    bytes must equal the port's executed model (`audit.executed_comm_bytes`)
+    exactly, site by site, and every group's ranks must issue the same
+    collectives (`audit.check_mesh_uniformity`); the lines give them beside
+    the schedule's volume and the X-partitioning bound.  A rank that fails
+    or outlives GRID_TIMEOUT_S fails the phase."""
     import multiprocessing as mp
     import tempfile
 
@@ -1729,7 +1815,29 @@ def grid_8ranks(device: str = "cuda:0") -> None:
         spawn_s = time.perf_counter() - t0
         ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
                  for r in range(GRID_WORLD)]
+        traces = {name: [(Path(out_dir) / f"trace_{name}_rank{r}.txt").read_text()
+                         for r in range(GRID_WORLD)] for name, *_ in GRID_CASES}
     problems = []
+    from repro_torch.analysis import audit
+
+    for name, strategy, n, hotloop, backend, compute in GRID_CASES:
+        comm = [r[name]["comm"] for r in ranks]
+        mesh = audit.check_mesh_uniformity(traces[name], name)
+        mesh_errors = [f.detail for f in mesh if f.severity == "error"]
+        exact = all(c["rel_err"] == 0.0 and c["traced_by_site"] == c["model_by_site"]
+                    for c in comm)
+        emit("grid_8ranks_comm", case=name, N=n,
+             traced_bytes=[c["extracted_bytes"] for c in comm],
+             model_bytes=[c["predicted_bytes"] for c in comm],
+             traced_by_site_rank0=comm[0]["traced_by_site"],
+             collectives=[c["collectives"] for c in comm],
+             schedule_bytes=comm[0]["schedule_bytes"],
+             lower_bound_bytes=comm[0]["lower_bound_bytes"],
+             active=[c["active"] for c in comm], traced_equals_model=exact,
+             mesh_uniformity_errors=mesh_errors)
+        if not exact or mesh_errors:
+            problems.append(f"{name}: traced bytes {[c['extracted_bytes'] for c in comm]} vs "
+                            f"model {[c['predicted_bytes'] for c in comm]}, mesh {mesh_errors}")
     for name, strategy, n, hotloop, backend, compute in GRID_CASES:
         per = [r[name] for r in ranks]
         same = len({(x["F"], x["rows"]) for x in per}) == 1
@@ -3086,7 +3194,8 @@ def kernel_rows_mixed_chol(dev, gen) -> list[dict]:
                 "library": "none: torch.linalg.solve_triangular refuses 2-byte operands on "
                            f"this card ({tri_lib})" if tri_lib else
                            "none measured: solve_triangular took 2-byte operands",
-                **({"note": "on no path: only the JAX package's kernel lint calls it"}
+                **({"note": "on no path but the auditor's kernel check (audit phase), "
+                            "which launches it in f32 and bf16"}
                    if batched else {}),
             })
 
@@ -3590,6 +3699,13 @@ def main() -> int:
     profile_hotloop_phase()
     calibrate_smoke(kind)
 
+    # 12. The plan auditor (module item 11): the kernels' resources, the
+    #    twelve solver kernels at the audit's shapes (trsm_left_lower_batched's
+    #    only caller), the 2-byte accumulators, the cache keys and the in-core
+    #    plans' collectives; the distributed plans' traced bytes were held to
+    #    the model in grid_8ranks.
+    audit_launches = audit_phase(dev)
+
     panel_row["launches"] = launches["lu_panel"]
     for row in fused_rows:
         row["launches"] = launches["fused_trsm_schur"]
@@ -3600,6 +3716,9 @@ def main() -> int:
         row["launches"] = counts[row["name"]]
     for row in trsm_rows:
         row["launches"] = conflux_flat_launches[row["name"]]
+        if row["name"] == "trsm_left_lower_batched":  # the auditor's kernel check
+            row["launches"] = audit_launches["float32"][row["name"]]
+            row["note"] = "on no path but the auditor's kernel check (audit phase)"
     for row in lm_rows:
         row["launches"] = lm_launches[row["name"]]
     for row in mixed_rows:
@@ -3608,7 +3727,10 @@ def main() -> int:
         row["launches"] = counts[sh][base]
     for row in mixed_chol_rows:
         base, sh = row["name"].rstrip("]").split("[")
-        if base.startswith("trsm_left_lower"):
+        if base == "trsm_left_lower_batched":  # the auditor's, in bf16 only
+            row["launches"] = audit_launches.get(
+                {"bf16": "bfloat16", "f16": "float16"}[sh], {}).get(base, 0)
+        elif base.startswith("trsm_left_lower"):
             row["launches"] = mixed_flat_launches[sh][base]
         else:
             counts = (mixed_chol_batched_launches if base.endswith("_batched")

@@ -6,8 +6,10 @@ Two stages, from measured timings:
 
 1. **Primitive sweep**: `profile_primitives` (interleaved best-of-k with
    per-primitive spread) over a grid of (N, v) shapes for each (backend,
-   compute dtype) combo, fitted into per-primitive `t = alpha + beta * work`
-   constants by `costmodel.fit_calibration`.
+   compute dtype) combo, each sample tagged with the kernel body its
+   wrapper reports (`.mode`), fitted into per-(primitive, body)
+   `t = alpha + beta * flops + gamma * bytes` constants by
+   `costmodel.fit_calibration`.
 2. **Loop-overhead correction**: standalone timings carry a per-call
    overhead that a step of the hot loop need not pay in full (launches
    queue behind the running kernels), so the fitted alphas misprice
@@ -16,14 +18,13 @@ Two stages, from measured timings:
    beta terms + s * alpha terms) applied to every table.
 
 3. **Guard**: before it writes, the tool times the table's pick at each
-   guarded cell (`GUARD`: the card's main path, N = 16384 in f32 and bf16)
-   against the analytic pick (sequential, v = 32, "cuda") and refuses to
-   write a table whose pick there is slower by more than AUTOTUNE_TOLERANCE
-   (the JAX package's `benchmarks.run --validate` bound).  The probes'
-   walls also give the pick's wall against v = 32's at each probe size
-   (`meta["probe_picks"]`); that is recorded, not enforced: one affine fit
-   per primitive in flop units places the best v near sqrt(alpha / (beta N)),
-   so no alpha scale keeps v = 32 at both N = 4096 and 16384 (fault F7).
+   guarded cell (`GUARD`: the card's main path, N = 16384 in f32 and bf16,
+   and N = 4096 in f32, the cell of fault F7) against every candidate
+   width, in turns, and refuses to write a table whose pick there is slower
+   than the analytic pick (sequential, v = 32, "cuda") or than the fastest
+   width by more than AUTOTUNE_TOLERANCE (the JAX package's `benchmarks.run
+   --validate` bound).  The probes' walls also give the pick's wall against
+   v = 32's at each probe size (`meta["probe_picks"]`), recorded.
 
 The collective term (the JAX package's third stage) needs more than one
 card and is not fitted: the table ships with `"collective": null`, and
@@ -41,6 +42,7 @@ rows and the probe sizes' picks.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -74,7 +76,7 @@ SMOKE_PROBES = ((1024, 8), (1024, 32))
 # table checks the tool and is not one to use, so it has no guard.
 AUTOTUNE_TOLERANCE = 0.25
 ANALYTIC_V = 32
-GUARD = ((16384, "float32"), (16384, "bfloat16"))
+GUARD = ((16384, "float32"), (16384, "bfloat16"), (4096, "float32"))
 SMOKE_GUARD = ()
 
 
@@ -91,9 +93,12 @@ def _config_kw(dtype: str) -> dict:
 
 
 def collect_samples(combos, shapes, repeats: int = 5, device=None) -> dict:
-    """Primitive samples per (backend, compute dtype) across the shapes."""
-    from repro_torch.analysis.costmodel import profile_sample_points
-    from repro_torch.api.config import SolverConfig
+    """Three-term primitive samples (flops, bytes, t_us, spread) per
+    (backend, compute dtype) across the shapes, keyed by (primitive, body):
+    the body each wrapper reported (`.mode`) after its profile, "any" for
+    the "ref" backend and the CPU."""
+    from repro_torch.analysis.costmodel import observed_bodies, profile_cost_points, reset_bodies
+    from repro_torch.api.config import SolverConfig, resolve_dtype
     from repro_torch.api.hotloop import profile_primitives
 
     samples: dict = {}
@@ -101,9 +106,12 @@ def collect_samples(combos, shapes, repeats: int = 5, device=None) -> dict:
         per_prim: dict = {}
         for N, v in shapes:
             cfg = SolverConfig(strategy="sequential", backend=backend, v=v, **_config_kw(dtype))
+            reset_bodies("lu")
             t = profile_primitives(N, cfg, grid=None, repeats=repeats, device=device)
-            for prim, pt in profile_sample_points(t, "lu").items():
-                per_prim.setdefault(prim, []).append(pt)
+            points = profile_cost_points(t, "lu", resolve_dtype(dtype).itemsize,
+                                         observed_bodies("lu"))
+            for key, pt in points.items():
+                per_prim.setdefault(key, []).append(pt)
         samples[(backend, dtype)] = per_prim
     return samples
 
@@ -126,12 +134,11 @@ def _measure_execute(p, A, rounds: int = 3) -> float:
 
 def _beta_only(calib):
     """`calib` with every alpha set to 0."""
-    from repro_torch.analysis.costmodel import Calibration, PrimitiveFit
+    from repro_torch.analysis.costmodel import Calibration
 
     return Calibration(
         version=calib.version + "-beta-only", device_kind=calib.device_kind,
-        tables={k: {p: PrimitiveFit(0.0, f.beta_us, f.n_samples, f.spread)
-                    for p, f in fits.items()}
+        tables={k: {p: dataclasses.replace(f, alpha_us=0.0) for p, f in fits.items()}
                 for k, fits in calib.tables.items()},
         collective=None)
 
@@ -172,9 +179,9 @@ def fit_alpha_scale(calib, probes, device=None, backend: str = "cuda",
 
 
 def _scale_alphas(calib, scale: float):
-    from repro_torch.analysis.costmodel import Calibration, PrimitiveFit, content_version
+    from repro_torch.analysis.costmodel import Calibration, content_version
 
-    tables = {k: {p: PrimitiveFit(f.alpha_us * scale, f.beta_us, f.n_samples, f.spread)
+    tables = {k: {p: dataclasses.replace(f, alpha_us=f.alpha_us * scale)
                   for p, f in fits.items()}
               for k, fits in calib.tables.items()}
     tag = calib.version.rsplit("-", 1)[0]
@@ -193,9 +200,10 @@ def auto_against_widths(n: int, dtype: str = "float32", widths=(ANALYTIC_V,),
     each, then `rounds` in turns, reversed every other round so drift lands
     on all, each timed on the host clock ending in `torch.cuda.synchronize()`
     on the card.  Returns the pick, every wall, the pick's predicted and
-    measured walls and residual (from the `Factorization`), and
+    measured walls and residual (from the `Factorization`),
     `auto_over_analytic`, the best wall of the pick over that of v =
-    ANALYTIC_V."""
+    ANALYTIC_V, and `auto_over_fastest`, over the best wall of the fastest
+    of `widths` (`fastest`)."""
     from repro_torch.api.config import SolverConfig, resolve_dtype
     from repro_torch.api.plan import plan
     from repro_torch.device import resolve_device
@@ -224,6 +232,7 @@ def auto_against_widths(n: int, dtype: str = "float32", widths=(ANALYTIC_V,),
             del f
     cfg = plans["auto"].config
     stamp = (fact.autotune or {}) if fact is not None else {}
+    fastest = min((k for k in walls if k != "auto"), key=lambda k: min(walls[k]))
     return {"N": n, "dtype": cfg.dtype, "compute_dtype": cfg.effective_compute_dtype,
             "pick": {"strategy": cfg.strategy, "v": cfg.v, "backend": cfg.backend,
                      "hotloop": cfg.hotloop},
@@ -232,7 +241,8 @@ def auto_against_widths(n: int, dtype: str = "float32", widths=(ANALYTIC_V,),
             "predicted_wall_us": stamp.get("predicted_wall_us"),
             "measured_wall_us": stamp.get("measured_wall_us"),
             "wall_residual": stamp.get("wall_residual"),
-            "auto_over_analytic": min(walls["auto"]) / min(walls[f"v={ANALYTIC_V}"])}
+            "auto_over_analytic": min(walls["auto"]) / min(walls[f"v={ANALYTIC_V}"]),
+            "fastest": fastest, "auto_over_fastest": min(walls["auto"]) / min(walls[fastest])}
 
 
 def pick_alpha_range(calib, n: int, dtype: str = "float32", device=None) -> dict:
@@ -266,10 +276,17 @@ def pick_alpha_range(calib, n: int, dtype: str = "float32", device=None) -> dict
     return {"v": pick, "alpha_scale": scale, "lo": lo, "hi": hi}
 
 
+def guard_ok(row: dict) -> bool:
+    """A guarded row holds: the pick within 1 + AUTOTUNE_TOLERANCE of the
+    analytic pick's wall and of the fastest width's."""
+    limit = 1 + AUTOTUNE_TOLERANCE
+    return row["auto_over_analytic"] <= limit and row["auto_over_fastest"] <= limit
+
+
 def check_guard(calib, cells, device=None, rounds: int = 3) -> list[dict]:
-    """`auto_against_widths` at each guarded (N, dtype) cell that `calib`
-    covers on "cuda", with `calib` active while it runs.  Each row gains
-    `ok`: the ratio is within 1 + AUTOTUNE_TOLERANCE."""
+    """`auto_against_widths` against every candidate width at each guarded
+    (N, dtype) cell that `calib` covers on "cuda", with `calib` active while
+    it runs.  Each row gains `ok` (`guard_ok`)."""
     from repro_torch.analysis import costmodel
 
     rows = []
@@ -277,8 +294,9 @@ def check_guard(calib, cells, device=None, rounds: int = 3) -> list[dict]:
     try:
         for n, dtype in cells:
             if calib.covers("cuda", dtype):
-                row = auto_against_widths(n, dtype, rounds=rounds, device=device)
-                row["ok"] = row["auto_over_analytic"] <= 1 + AUTOTUNE_TOLERANCE
+                widths = tuple(costmodel._sequential_v_candidates(n, None))
+                row = auto_against_widths(n, dtype, widths, rounds=rounds, device=device)
+                row["ok"] = guard_ok(row)
                 rows.append(row)
     finally:
         if prev is None:
@@ -349,13 +367,14 @@ def calibrate(smoke: bool = False, out_path: str = "calibration_torch.json", com
           f"{calib.meta['probe_picks']}", flush=True)
     rows = check_guard(calib, guard, device=dev)
     calib.meta["guard"] = [{k: r[k] for k in ("N", "compute_dtype", "pick", "best_s",
-                                              "auto_over_analytic", "ok")} for r in rows]
+                                              "auto_over_analytic", "fastest",
+                                              "auto_over_fastest", "ok")} for r in rows]
     for r in calib.meta["guard"]:
         print(f"# calibrate: guard {json.dumps(r)}", flush=True)
     if not all(r["ok"] for r in rows):
         raise CalibrationRefused(
-            f"the table's pick is slower than v = {ANALYTIC_V} by more than "
-            f"{AUTOTUNE_TOLERANCE:.0%} at a guarded cell; {out_path} not written")
+            f"the table's pick is slower than v = {ANALYTIC_V} or than the fastest width by "
+            f"more than {AUTOTUNE_TOLERANCE:.0%} at a guarded cell; {out_path} not written")
     calib.save(out_path)
     print(f"# calibrate: wrote {out_path} (version {calib.version}, device kind "
           f"{calib.device_kind!r}, {time.perf_counter() - t0:.1f} s)", flush=True)

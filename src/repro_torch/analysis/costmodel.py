@@ -8,14 +8,17 @@ latency) that element counts cannot rank.  This module closes the loop that
 `FactorizationPlan.profile_hotloop` opens:
 
   1. **fit**: `fit_calibration` turns measured per-primitive wall times
-     (`profile_primitives` at many shapes) into per-primitive affine costs
-     `t_us = alpha + beta * work`, weighted by each sample's spread so noisy
-     samples count less, plus an alpha-beta collective term (latency per op
-     + cost per wire byte, against `audit.executed_comm_bytes`).
+     (`profile_primitives` at many shapes) into per-primitive costs
+     `t_us = alpha + beta * work (+ gamma * bytes)`, one per (primitive,
+     kernel body), weighted by each sample's spread so noisy samples count
+     less, plus an alpha-beta collective term (latency per op + cost per
+     wire byte, against `audit.executed_comm_bytes`).
   2. **persist**: `Calibration` round-trips through a versioned JSON
-     artifact (schema `repro.calibration.v1`, the JAX package's schema and
-     content hash, so a table's version is the same string in both
-     packages), keyed by (backend, compute dtype) under one device kind.
+     artifact, keyed by (backend, compute dtype) under one device kind.  A
+     table whose fits are the JAX package's kind (no byte term, no body)
+     keeps its schema, `repro.calibration.v1`, and content hash, so its
+     version is the same string in both packages; a table that uses the
+     byte term or bodies is `repro_torch.calibration.v2`.
      The port's default table, fitted on the card, ships with the package
      (`calibration_default.json`; `python -m repro_torch.analysis.calibrate`
      refits it).
@@ -33,7 +36,7 @@ CUDA card's name (`torch.cuda.get_device_name`).  A table fitted on one kind
 never prices a plan on another, so a CPU plan on the card's host never uses
 the card's table.
 
-Two things differ from the JAX package's model, on purpose:
+Three things differ from the JAX package's model, on purpose:
 
 - The in-core (sequential) prediction charges each step two `gather` calls
   (work v*N each) where the JAX package charges two one-hot products
@@ -44,6 +47,19 @@ Two things differ from the JAX package's model, on purpose:
 - Backends are screened with `kernels.backend.check_hopper_constraints`
   (the "cuda" kernels' dtypes and panel widths) where the JAX package
   screens its Pallas kernels.
+- A fit sees bytes and the kernel body.  On the card a primitive's kernels
+  have bodies of their own (`kernel_body`: the byte-bound TMA / `wgmma`
+  streams of `fused_trsm_schur` for v <= 32 against the plain loads above,
+  the register panels against the generic one), and one flop line across
+  bodies picked v = 64 at N = 4096, which runs 1.76x slower than v = 32
+  (fault F7).  So each (primitive, body) has a fit of its own, `t_us =
+  alpha + beta * flops + gamma * bytes` (`primitive_bytes`: what the call
+  reads and writes at the schedule's shapes), fitted by weighted
+  non-negative least squares, and `predict_wall` prices each step with the
+  fit of the body its v takes.  A (primitive, body) with no fit, and no
+  body-agnostic ("any") fit, leaves the candidate unscored: a body never
+  borrows another body's fit.  The "ref" backend and CPU plans have one
+  body, "any"; a fit with `gamma == 0` and body "any" is the reference's.
 
 The chosen tuple and its predicted wall time are recorded on the resolved
 plan (`FactorizationPlan.autotune`), and every execute stamps the measured
@@ -52,16 +68,21 @@ wall beside it, so `Factorization.comm_report()` shows the residual.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import itertools
 import json
 import math
 import os
 import threading
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 CALIB_SCHEMA = "repro.calibration.v1"
+# The schema of a table whose fits use the byte term or kernel bodies.
+CALIB_SCHEMA_V2 = "repro_torch.calibration.v2"
 
 # The fitted primitives.  Work units are per-primitive (flop counts for the
 # compute primitives, moved elements for the gathers): consistency within a
@@ -100,25 +121,50 @@ def device_kind(device=None) -> str:
 
 @dataclass(frozen=True)
 class PrimitiveFit:
-    """Affine cost `t_us = alpha_us + beta_us * work` for one primitive."""
+    """Cost `t_us = alpha_us + beta_us * work + gamma_us * bytes` of one
+    primitive on one kernel body ("any": every body, the reference's fit)."""
 
     alpha_us: float
     beta_us: float
     n_samples: int = 0
     spread: float = 0.0  # mean relative spread of the fitted samples
+    gamma_us: float = 0.0  # per byte read or written
+    body: str = "any"
 
-    def predict(self, work: float) -> float:
-        return self.alpha_us + self.beta_us * work
+    def predict(self, work: float, nbytes: float = 0.0) -> float:
+        return self.alpha_us + self.beta_us * work + self.gamma_us * nbytes
+
+    @property
+    def is_reference(self) -> bool:
+        """No byte term and no body: the JAX package's kind of fit."""
+        return self.gamma_us == 0.0 and self.body == "any"
 
     def to_json(self) -> dict:
-        return {"alpha_us": self.alpha_us, "beta_us": self.beta_us,
-                "n_samples": self.n_samples, "spread": self.spread}
+        out = {"alpha_us": self.alpha_us, "beta_us": self.beta_us,
+               "n_samples": self.n_samples, "spread": self.spread}
+        if self.gamma_us != 0.0:
+            out["gamma_us"] = self.gamma_us
+        if self.body != "any":
+            out["body"] = self.body
+        return out
 
     @classmethod
     def from_json(cls, d: dict) -> "PrimitiveFit":
         return cls(alpha_us=float(d["alpha_us"]), beta_us=float(d["beta_us"]),
                    n_samples=int(d.get("n_samples", 0)),
-                   spread=float(d.get("spread", 0.0)))
+                   spread=float(d.get("spread", 0.0)),
+                   gamma_us=float(d.get("gamma_us", 0.0)), body=str(d.get("body", "any")))
+
+
+def fit_key(prim: str, body: str = "any") -> str:
+    """A fit's key in a table: the primitive, with "@body" unless "any"."""
+    return prim if body == "any" else f"{prim}@{body}"
+
+
+def split_key(key: str) -> tuple[str, str]:
+    """(primitive, body) of a fit key."""
+    prim, _, body = key.partition("@")
+    return prim, body or "any"
 
 
 def fit_affine(samples: list[tuple[float, float, float]]) -> PrimitiveFit:
@@ -158,6 +204,41 @@ def fit_affine(samples: list[tuple[float, float, float]]) -> PrimitiveFit:
     return PrimitiveFit(alpha, beta, len(pts), mean_spread)
 
 
+def fit_cost(samples: list[tuple[float, float, float, float]]) -> PrimitiveFit:
+    """Weighted non-negative least squares of `t = alpha + beta * flops +
+    gamma * bytes`.
+
+    samples: (flops, bytes, t_us, rel_spread) quadruples, each weighted
+    1/(1 + rel_spread) as in `fit_affine`.  Every subset of the three terms
+    is solved (columns scaled to 1), and the feasible solution (all terms
+    >= 0) with the least weighted residual wins: the exact NNLS optimum in
+    three unknowns."""
+    pts = [(float(f), float(b), float(t), max(float(s), 0.0))
+           for f, b, t, s in samples if t > 0 and (f > 0 or b > 0)]
+    if not pts:
+        raise ValueError("fit_cost needs at least one sample with positive time and work")
+    mean_spread = sum(p[3] for p in pts) / len(pts)
+    X = np.array([[1.0, f, b] for f, b, _, _ in pts])
+    t = np.array([p[2] for p in pts])
+    w = np.sqrt(np.array([1.0 / (1.0 + p[3]) for p in pts]))
+    scale = np.maximum(np.abs(X).max(axis=0), 1e-300)
+    Xs = X / scale
+    best, best_res = np.zeros(3), float(np.sum((w * t) ** 2))
+    for k in (1, 2, 3):
+        for cols in itertools.combinations(range(3), k):
+            A = Xs[:, cols] * w[:, None]
+            coef, *_ = np.linalg.lstsq(A, w * t, rcond=None)
+            if np.any(coef < 0):
+                continue
+            res = float(np.sum((A @ coef - w * t) ** 2))
+            if res < best_res * (1 - 1e-12):
+                best = np.zeros(3)
+                best[list(cols)] = coef
+                best_res = res
+    alpha, beta, gamma = (best / scale).tolist()
+    return PrimitiveFit(alpha, beta, len(pts), mean_spread, gamma_us=gamma)
+
+
 @dataclass
 class Calibration:
     """A fitted cost table: (backend, compute dtype) -> primitive fits.
@@ -181,9 +262,15 @@ class Calibration:
     def fits(self, backend: str, dtype: str) -> dict[str, PrimitiveFit] | None:
         return self.tables.get((backend, dtype))
 
+    @property
+    def schema(self) -> str:
+        """v1 while every fit is the reference's kind, else v2."""
+        plain = all(f.is_reference for fits in self.tables.values() for f in fits.values())
+        return CALIB_SCHEMA if plain else CALIB_SCHEMA_V2
+
     def to_json(self) -> dict:
         return {
-            "schema": CALIB_SCHEMA,
+            "schema": self.schema,
             "version": self.version,
             "device_kind": self.device_kind,
             "collective": self.collective.to_json() if self.collective else None,
@@ -197,10 +284,10 @@ class Calibration:
 
     @classmethod
     def from_json(cls, obj: dict) -> "Calibration":
-        if obj.get("schema") != CALIB_SCHEMA:
+        if obj.get("schema") not in (CALIB_SCHEMA, CALIB_SCHEMA_V2):
             raise ValueError(
                 f"calibration schema {obj.get('schema')!r} is not "
-                f"{CALIB_SCHEMA!r}; refit with `python -m "
+                f"{CALIB_SCHEMA!r} or {CALIB_SCHEMA_V2!r}; refit with `python -m "
                 f"repro_torch.analysis.calibrate`")
         tables = {}
         for entry in obj.get("tables", []):
@@ -236,14 +323,18 @@ def fit_calibration(samples: dict[tuple[str, str], dict[str, list]],
                     tag: str = "fit", meta: dict | None = None) -> Calibration:
     """Fit a full calibration from per-(backend, dtype) primitive samples.
 
-    samples: {(backend, dtype): {primitive: [(work, t_us, spread), ...]}}.
+    samples: {(backend, dtype): {fit key: [(work, t_us, spread), ...]}}, the
+    reference's affine fits, or [(flops, bytes, t_us, spread), ...] for a
+    three-term fit (`fit_cost`); a key "prim@body" fits one kernel body
+    (`fit_key`).
     """
     tables: dict[tuple[str, str], dict[str, PrimitiveFit]] = {}
     for key, prim_samples in samples.items():
         fits = {}
         for prim, pts in prim_samples.items():
             if pts:
-                fits[prim] = fit_affine(pts)
+                fit = fit_cost(pts) if len(pts[0]) == 4 else fit_affine(pts)
+                fits[prim] = dataclasses.replace(fit, body=split_key(prim)[1])
         if fits:
             tables[key] = fits
     if not tables:
@@ -362,6 +453,124 @@ def primitive_work(prim: str, kind: str, *, R: int, C: int, v: int,
     raise ValueError(f"unknown primitive {prim!r}")
 
 
+def primitive_bytes(prim: str, kind: str, *, R: int, C: int, v: int, wr: int, wc: int,
+                    itemsize: int) -> float:
+    """Bytes one primitive call reads and writes at the given local shapes
+    (each operand read once, each result written once), the shapes of
+    `primitive_work`; `itemsize` is the compute dtype's."""
+    lu = kind != "cholesky"
+    s = float(itemsize)
+    if prim == "panel":  # panel (+ weights) in, F (+ order, ok) out
+        return s * (2 * R * v + R) if lu else s * 2 * v * v
+    if prim == "trsm":  # the triangle, B in, X out
+        return s * (v * v + 2 * v * wc) if lu else s * (v * v + 2 * wr * v)
+    if prim == "schur":  # A in and out, L, U in
+        return s * (2 * wr * wc + wr * v + v * wc)
+    if prim == "fused":  # A, L00, R01, L10 in; A_new, U01 out
+        return s * (2 * wr * wc + v * v + 2 * v * wc + wr * v)
+    if prim == "gather":  # v rows of the window read and written
+        return s * 2 * v * wc
+    if prim == "gather_dense":  # S [v, R], A [R, C] in; [v, C] out
+        return s * (v * R + R * C + v * C)
+    raise ValueError(f"unknown primitive {prim!r}")
+
+
+# The primitive each fitted primitive's kernels run under, and the wrapper
+# whose `.mode` names the body (per kind: the LU profile's trsm is the left
+# solve, the Cholesky profile's the right one).
+_BODY_WRAPPERS = {
+    ("lu", "panel"): ("lu_panel", "lu_panel"),
+    ("cholesky", "panel"): ("chol_panel", "chol_panel"),
+    ("lu", "trsm"): ("trsm", "trsm_left_lower"),
+    ("cholesky", "trsm"): ("trsm", "trsm_right_upper"),
+    ("lu", "schur"): ("schur_update", "schur_update"),
+    ("cholesky", "schur"): ("schur_update", "schur_update"),
+    ("lu", "fused"): ("fused_schur", "fused_trsm_schur"),
+    ("cholesky", "fused"): ("fused_schur", "fused_trsm_schur"),
+}
+
+
+def _body_wrapper(kind: str, prim: str):
+    import importlib
+
+    entry = _BODY_WRAPPERS.get(("cholesky" if kind == "cholesky" else "lu", prim))
+    if entry is None:
+        return None
+    mod = importlib.import_module(f"repro_torch.kernels.{entry[0]}")
+    return getattr(mod, entry[1])
+
+
+def reset_bodies(kind: str = "lu") -> None:
+    """Forget the body each profiled primitive's wrapper last took."""
+    for prim in PRIMITIVES:
+        fn = _body_wrapper(kind, prim)
+        if fn is not None:
+            fn.mode = None
+
+
+def observed_bodies(kind: str = "lu") -> dict[str, str]:
+    """The body each profiled primitive's wrapper last took (its `.mode`),
+    "any" for one that launched nothing (the "ref" backend, the CPU, the
+    gathers)."""
+    out = {}
+    for prim in PRIMITIVES:
+        fn = _body_wrapper(kind, prim)
+        out[prim] = (getattr(fn, "mode", None) if fn is not None else None) or "any"
+    return out
+
+
+def kernel_body(prim: str, dtype: str, v: int, backend: str, *, rows: int | None = None,
+                kind: str = "lu", batched: bool = False, device=None) -> str:
+    """The body the "cuda" launcher takes for primitive `prim` at the
+    schedule's shapes (panel width v, `rows` rows of the panel, contiguous
+    aligned operands), by the rules of `lu_panel.panel_mode`, `chol_panel.body`,
+    `trsm.left_mode` / `right_mode`, `schur_update.stream_mode` and
+    `fused_schur.stream_mode`.  "any" for the "ref" backend, on the CPU and
+    for the gathers."""
+    if backend != "cuda" or _plan_device(device).type != "cuda":
+        return "any"
+    from repro_torch.api.config import resolve_dtype
+    from repro_torch.kernels import chol_panel, fused_schur, lu_panel, schur_update
+
+    dt = resolve_dtype(dtype)
+    size = dt.itemsize
+    if prim == "panel":
+        if kind == "cholesky":
+            return chol_panel.body(v)
+        return lu_panel.panel_mode(rows or v, v, dt, batched=batched)
+    if prim == "trsm":
+        if kind != "cholesky":
+            return "register" if v <= 32 else "smem"
+        return "smem" if v > 32 else ("wide" if v % (16 // size) == 0 else "plain")
+    # The streams take contiguous [., v] operands whose rows are whole
+    # 16-byte runs (TMA's rule), and v within their chunk.
+    run = 16 // size
+    if prim == "schur":
+        stream = run <= v <= schur_update._STREAM_K.get(size, -1) and v % run == 0
+        return ("tma" if size == 4 else "wgmma") if stream else "plain"
+    if prim == "fused":
+        lo, hi = fused_schur._STREAM_V.get(size, (1, 0))
+        stream = lo <= v <= hi and v % run == 0
+        return ("tma" if size == 4 else "wgmma") if stream else "plain"
+    return "any"
+
+
+def profile_cost_points(timings: dict, kind: str, itemsize: int,
+                        bodies: dict[str, str] | None = None) -> dict[str, tuple]:
+    """Convert one `profile_primitives` result into three-term samples.
+
+    Returns {fit key: (flops, bytes, t_us, rel_spread)}, keyed by the body
+    each primitive took (`bodies`, from `observed_bodies`; "any" when
+    None)."""
+    sh = timings["shapes"]
+    out = {}
+    for prim, (work, t, spread) in profile_sample_points(timings, kind).items():
+        nbytes = primitive_bytes(prim, kind, R=sh["R"], C=sh["C"], v=sh["v"], wr=sh["wr"],
+                                 wc=sh["wc"], itemsize=itemsize)
+        out[fit_key(prim, (bodies or {}).get(prim, "any"))] = (work, nbytes, t, spread)
+    return out
+
+
 def profile_sample_points(timings: dict, kind: str) -> dict[str, tuple]:
     """Convert one `profile_primitives` result into fitter samples.
 
@@ -407,8 +616,9 @@ def _bucket_trips(N: int, v: int, hotloop: str) -> list[tuple[int | None, int]]:
 
 
 def collective_op_count(kind: str, N: int, grid, pivot: str) -> float:
-    """Collective *operations* issued by the 2.5D schedule (the alpha term's
-    multiplier; byte volume is `audit.executed_comm_bytes`)."""
+    """Collective *operations* issued by the JAX package's 2.5D schedule (its
+    alpha term's multiplier).  The port's schedule issues others, which
+    `audit.executed_collective_ops` counts and `predict_wall` prices."""
     Px, Py, c, v = grid.Px, grid.Py, grid.c, grid.v
     nsteps = N // v
     if kind == "cholesky":
@@ -435,15 +645,18 @@ def predict_wall(N: int, cfg=None, grid=None, v: int | None = None,
     `cfg` (a SolverConfig) supplies defaults for grid/v/backend/hotloop/
     pivot and the compute dtype; explicit arguments override it, so the
     autotuner can sweep tuples against one base config.  Composes the
-    fitted per-primitive constants over the windowed schedule's per-bucket
-    trip counts plus the collective alpha-beta term over
-    `audit.executed_comm_bytes`.  `device` is the device the plan runs on
-    (None: the port's default device, see `device_kind`).
+    fitted per-primitive constants, each of the body its step takes
+    (`kernel_body`), over the windowed schedule's per-bucket trip counts
+    plus the collective alpha-beta term over the port's executed schedule
+    (`audit.executed_comm_bytes` and `audit.executed_collective_ops`).
+    `device` is the device the plan runs on (None: the port's default
+    device, see `device_kind`).
 
     Returns {"wall_us", "terms", "version"}, or None when the active (or
     given) calibration does not cover the (backend, dtype) combo on this
-    device kind: the caller's cue to fall back to the analytic comm-volume
-    ranking.
+    device kind, or has no fit of a body a step takes: the caller's cue to
+    fall back to the analytic comm-volume ranking, or to leave the
+    candidate unscored.
     """
     calib = calibration if calibration is not None else active_calibration()
     if calib is None:
@@ -464,27 +677,48 @@ def predict_wall(N: int, cfg=None, grid=None, v: int | None = None,
         return None  # a table fitted on one device kind never prices another
 
     terms = {p: 0.0 for p in ("panel", "fused", "gather", "gather_dense")}
+    from repro_torch.api.config import resolve_dtype
 
-    def cost(prim: str, work: float) -> float:
-        f = fits.get(prim)
-        return f.predict(work) if f else 0.0
+    itemsize = resolve_dtype(dtype).itemsize
 
-    if grid is None:
-        # In-core masked loop: full-extent [N, N] step bodies (rows stay
-        # scattered), one panel + one fused + two indexed gathers per step
-        # (the pivot rows' `index_select` and U01's indexed copy), the calls
-        # `lu_masked_sequential` makes.
-        nsteps = N // v
-        shapes = dict(R=N, C=N, v=v, wr=N, wc=N)
-        terms["panel"] = nsteps * cost(
-            "panel", primitive_work("panel", kind, **shapes))
-        terms["fused"] = nsteps * cost(
-            "fused", primitive_work("fused", kind, **shapes))
-        terms["gather"] = nsteps * 2 * cost(
-            "gather", primitive_work("gather", kind, **shapes))
-        wall = sum(terms.values())
-        return {"wall_us": wall, "terms": terms, "version": calib.version}
+    def cost(prim: str, shapes: dict) -> float:
+        body = kernel_body(prim, dtype, shapes["v"], backend, rows=shapes["R"], kind=kind,
+                           device=device)
+        f = fits.get(fit_key(prim, body))
+        if f is None and body != "any":
+            f = fits.get(prim)  # a body-agnostic fit prices every body
+            if f is None:
+                raise _Unscored(prim, body)  # never another body's fit
+        if f is None:
+            return 0.0
+        return f.predict(primitive_work(prim, kind, **shapes),
+                         primitive_bytes(prim, kind, itemsize=itemsize, **shapes))
 
+    try:
+        if grid is None:
+            # In-core masked loop: full-extent [N, N] step bodies (rows stay
+            # scattered), one panel + one fused + two indexed gathers per
+            # step (the pivot rows' `index_select` and U01's indexed copy),
+            # the calls `lu_masked_sequential` makes.
+            nsteps = N // v
+            shapes = dict(R=N, C=N, v=v, wr=N, wc=N)
+            terms["panel"] = nsteps * cost("panel", shapes)
+            terms["fused"] = nsteps * cost("fused", shapes)
+            terms["gather"] = nsteps * 2 * cost("gather", shapes)
+        else:
+            _grid_terms(N, grid, kind, hotloop, pivot, itemsize, calib, cost, terms)
+    except _Unscored:
+        return None
+    wall = sum(terms.values())
+    return {"wall_us": wall, "terms": terms, "version": calib.version}
+
+
+class _Unscored(Exception):
+    """A step's (primitive, body) has no fit in the table."""
+
+
+def _grid_terms(N, grid, kind, hotloop, pivot, itemsize, calib, cost, terms) -> None:
+    """`predict_wall`'s terms of a distributed candidate, added to `terms`."""
     Px, Py = grid.Px, grid.Py
     nbi = N // grid.v
     R = (nbi // Px) * grid.v
@@ -495,24 +729,17 @@ def predict_wall(N: int, cfg=None, grid=None, v: int | None = None,
         if kind != "cholesky":
             wr = R  # LU keeps full row extent (§7.3)
         shapes = dict(R=R, C=C, v=grid.v, wr=wr, wc=wc)
-        terms["panel"] += trips * cost(
-            "panel", primitive_work("panel", kind, **shapes))
-        terms["fused"] += trips * cost(
-            "fused", primitive_work("fused", kind, **shapes))
-        terms["gather"] += trips * cost(
-            "gather", primitive_work("gather", kind, **shapes))
+        terms["panel"] += trips * cost("panel", shapes)
+        terms["fused"] += trips * cost("fused", shapes)
+        terms["gather"] += trips * cost("gather", shapes)
     coll = calib.collective
     if coll is not None and grid.P_used > 1:
-        from repro_torch.analysis.audit import executed_comm_bytes
-        from repro_torch.api.config import resolve_dtype
+        from repro_torch.analysis.audit import executed_collective_ops, executed_comm_bytes
 
-        itemsize = resolve_dtype(dtype).itemsize
         wire = executed_comm_bytes(kind, N, grid, pivot, hotloop, itemsize)
-        n_ops = collective_op_count(kind, N, grid, pivot)
+        n_ops = executed_collective_ops(kind, N, grid, pivot)
         terms["collective"] = (n_ops * coll.alpha_us
                                + wire["total"] * coll.beta_us)
-    wall = sum(terms.values())
-    return {"wall_us": wall, "terms": terms, "version": calib.version}
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@
     dp = plan(N, strategy="conflux", grid=GridConfig(2, 2, 2, 32, N))
     fact = dp.execute(A)          # the whole F and rows on every rank
     print(fact.comm_report())     # the schedule's volume per collective
+    comm_volume(N, dp.grid)       # the same count, without a plan
 
 Plans run on the card unless the caller passes `device="cpu"`.  Ported so
 far: the single-device and batched LU and Cholesky paths, the distributed
@@ -41,13 +42,32 @@ from repro_torch.api.plan import (
 )
 from repro_torch.api.registry import available_strategies, get_strategy, register_strategy
 from repro_torch.api.result import Factorization
-from repro_torch.core.lu.grid import GridConfig
+from repro_torch.core.lu.grid import GridConfig, optimize_grid, validate_layout
 from repro_torch.kernels.backend import available_backends
+
+
+def comm_volume(N: int, grid: GridConfig, pivot: str = "tournament",
+                kind: str = "lu") -> dict:
+    """Instrumented per-processor communication volume of the schedule.
+
+    kind="lu" counts the COnfLUX schedule (pivot selects tournament/partial
+    accounting); kind="cholesky" counts the SPD 2.5D schedule (no pivoting,
+    symmetric trailing update — roughly half the LU volume at equal grid).
+    """
+    if kind == "cholesky":
+        from repro_torch.core.cholesky.conflux25d import chol_comm_volume
+
+        return chol_comm_volume(N, grid)
+    from repro_torch.core.lu.conflux import lu_comm_volume
+
+    return lu_comm_volume(N, grid, pivot=pivot)
 
 
 __all__ = [
     "SolverConfig",
     "GridConfig",
+    "optimize_grid",
+    "validate_layout",
     "FactorizationPlan",
     "Factorization",
     "plan",
@@ -60,4 +80,5 @@ __all__ = [
     "register_strategy",
     "get_strategy",
     "available_strategies",
+    "comm_volume",
 ]

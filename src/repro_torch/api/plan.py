@@ -66,6 +66,8 @@ class FactorizationPlan:
         autotune:      the calibrated `strategy="auto"` decision that produced
                        this plan (tuple, predicted wall, calibration version),
                        or None for a plan from an explicit or analytic config.
+
+    `lowered_text("trace")` gives the plan's program as text.
     """
 
     def __init__(self, N: int, config: SolverConfig, device: torch.device, *,
@@ -88,6 +90,43 @@ class FactorizationPlan:
         self._count_lock = threading.Lock()
         # (A: tensor [N, N] or [B, N, N] on device) -> (F, rows); set by the strategy
         self._run = run
+        self._trace_text: str | None = None
+
+    def lowered_text(self, stage: str = "trace") -> str:
+        """The plan's program as text: one JSON line per kernel-wrapper call,
+        collective and step boundary (`repro_torch.analysis.trace`).
+
+        Unlike the JAX package, which lowers a plan without running it, the
+        port runs the plan once to trace it: on a deterministic input of its
+        shape (standard normal from `numpy.random.default_rng(0)`, made SPD
+        for a Cholesky plan) on its own device.  The text is cached on the
+        plan.  A distributed plan's ranks must all call this together, as
+        they call `execute`.  The JAX package's stages "stablehlo" and "hlo"
+        have no counterpart (PyTorch emits no StableHLO) and raise."""
+        if stage != "trace":
+            raise ValueError(
+                f"lowered_text: stage {stage!r} is the JAX package's lowered program; "
+                f"PyTorch emits no StableHLO, so the port's program text is stage 'trace'"
+            )
+        if self._trace_text is None:
+            import numpy as np
+
+            from repro_torch.analysis.trace import recording
+
+            n = self.N
+            shape = (n, n) if self.B is None else (self.B, n, n)
+            A = np.random.default_rng(0).standard_normal(shape)
+            if self.kind == "cholesky":
+                A = A @ np.swapaxes(A, -1, -2) / n + np.eye(n)
+            A = torch.from_numpy(A).to(device=self.device, dtype=resolve_dtype(self.config.dtype))
+            compute = self.config.compute_dtype
+            A_lo = A if compute is None else A.to(resolve_dtype(compute))
+            self._sync()
+            with recording() as rec:
+                self._run(A_lo)
+                self._sync()
+            self._trace_text = rec.text()
+        return self._trace_text
 
     def profile_hotloop(self, repeats: int = 3) -> dict:
         """Measure per-primitive hot-loop wall times on this plan's shapes.

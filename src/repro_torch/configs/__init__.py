@@ -1,11 +1,14 @@
 """Architecture registry: --arch <id> -> ModelConfig, plus reduced variants
 for the CPU tests.  The same ten configs as the JAX package's, copied: the
-port imports nothing of `repro`.  Full configs run on the CUDA card."""
+port imports nothing of `repro`.  Full configs run on the CUDA card.  Also
+the paper's own problem sizes (`configs/conflux.py`: `TABLE2`, the paper's
+Table 2 volumes)."""
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.configs.conflux import TABLE2, TABLE2_PAPER_GB, ConfluxBenchConfig
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable_shapes, skipped_shapes
 from repro_torch.models.config import MambaConfig, ModelConfig, MoEConfig
 
@@ -77,4 +80,7 @@ __all__ = [
     "ShapeSpec",
     "applicable_shapes",
     "skipped_shapes",
+    "ConfluxBenchConfig",
+    "TABLE2",
+    "TABLE2_PAPER_GB",
 ]

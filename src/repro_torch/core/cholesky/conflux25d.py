@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.collectives import LuMesh
 from repro_torch.core.lu.conflux import (
     block_cyclic_gather,
@@ -120,6 +121,8 @@ def _local_chol(cfg: GridConfig, backend: str, Aloc: torch.Tensor, mesh: LuMesh,
 
     r_off = c_off = 0
     for t in range(nsteps):
+        if collectives.RECORDER is not None:
+            collectives.RECORDER.step(t)
         if hotloop == "windowed":
             wr = window_width(t, nsteps, Px, R, v)
             wc = window_width(t, nsteps, Py, C, v)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.device import resolve_device
 
 
@@ -53,6 +54,8 @@ def chol_blocked_sequential(A, v: int = 32, backend: str = "cuda", *, device=Non
     L = torch.zeros_like(A)
     idx = torch.arange(N, device=dev)
     for c0 in range(0, N, v):
+        if collectives.RECORDER is not None:
+            collectives.RECORDER.step(c0 // v)
         L00 = bk.panel_chol(A[c0:c0 + v, c0:c0 + v])
         below = (idx >= c0 + v).to(A.dtype)
         panel = A[:, c0:c0 + v] * below[:, None]
@@ -81,6 +84,8 @@ def chol_blocked_sequential_batched(A, v: int = 32, backend: str = "cuda", *, de
     L = torch.zeros_like(A)
     idx = torch.arange(N, device=dev)
     for c0 in range(0, N, v):
+        if collectives.RECORDER is not None:
+            collectives.RECORDER.step(c0 // v)
         L00 = bk.panel_chol_batched(A[:, c0:c0 + v, c0:c0 + v])
         below = (idx >= c0 + v).to(A.dtype)
         panel = A[:, :, c0:c0 + v] * below[:, None]

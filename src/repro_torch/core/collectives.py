@@ -30,6 +30,12 @@ slab all-gather moves Px times an exchange's payload, so the executed volume
 exceeds the schedule's.  The reported volume is the schedule's own count,
 `lu_comm_volume` / `chol_comm_volume`.
 
+Tracing.  While `repro_torch.analysis.trace.recording` is active, each
+collective that a rank issues, and nothing else, is recorded on `RECORDER`:
+its kind, site, axes, the group's ranks and the payload (shape, dtype,
+bytes), and the broadcasts' root.  With no recorder the cost is one
+`is None` test per call.
+
 Ranks beyond the grid's P_used (when `optimize_grid` leaves some idle) join
 the group creation and the final gather, and run nothing else.  A grid of
 one processor with no process group is the trivial mesh: every collective
@@ -47,6 +53,23 @@ if TYPE_CHECKING:  # importing it would run core/lu/__init__, which imports this
     from repro_torch.core.lu.grid import GridConfig
 
 AXIS_SETS = (("px",), ("py",), ("pz",), ("px", "pz"), ("px", "py"))
+
+# The active trace recorder (`repro_torch.analysis.trace.Recorder`), or None.
+# The kernel wrappers and the step loops record on it too.
+RECORDER = None
+
+# The schedules' call site of a reduction, for the trace, by the axes it
+# reduces over; the LU's A00 (with its column of pivot ids) and L10 both
+# reduce over py (`LuMesh._site`).
+_SITES = {("pz",): "panel", ("px", "pz"): "r01", ("px", "py"): "a00"}
+
+
+def record_kernel(name: str, body: str, *operands: torch.Tensor) -> None:
+    """Record a kernel-wrapper call on `RECORDER`: the wrapper's name, the body
+    its launch took (its `.mode`; "kernel" for a wrapper with one body, "cpu"
+    for the plain version on CPU tensors) and its operands' shapes and dtypes."""
+    RECORDER.kernel(name=name, body=body, shapes=[list(t.shape) for t in operands],
+                    dtypes=[str(t.dtype).removeprefix("torch.") for t in operands])
 
 
 def world_size() -> int:
@@ -88,6 +111,7 @@ class LuMesh:
         self.px, self.py, self.pz = ((r // (Py * c), (r // c) % Py, r % c) if self.active
                                      else (None, None, None))
         self._groups: dict[tuple, object] = {}
+        self._ranks: dict[tuple, list[int]] = {}  # this rank's group of each axis set
         if self.size == 1:
             return
         coords = [(q // (Py * c), (q // c) % Py, q % c) for q in range(need)]
@@ -103,10 +127,22 @@ class LuMesh:
                 g = dist.new_group(ranks=ranks)
                 if self.rank in ranks:
                     self._groups[axes] = g
+                    self._ranks[axes] = ranks
 
     def __repr__(self):
         return (f"LuMesh({self.grid}, rank={self.rank}/{self.size}, "
                 f"(px, py, pz)=({self.px}, {self.py}, {self.pz}), active={self.active})")
+
+    def _record(self, kind: str, site: str, axes, ranks, x: torch.Tensor, root=None) -> None:
+        RECORDER.collective(kind=kind, site=site, axes=list(axes), ranks=list(ranks),
+                            shape=list(x.shape), dtype=str(x.dtype).removeprefix("torch."),
+                            nbytes=x.numel() * x.element_size(), root=root)
+
+    def _site(self, axes: tuple, x: torch.Tensor) -> str:
+        """The schedule's call site of a reduction of x over `axes`."""
+        if axes == ("py",):
+            return "a00" if x.shape[-1] == self.grid.v + 1 else "l10"
+        return _SITES.get(axes, "psum")
 
     def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Sum of x over the ranks along `axes` (a name or a tuple of names).
@@ -118,16 +154,21 @@ class LuMesh:
         if g is None:
             return x
         y = x.contiguous().clone()
+        if RECORDER is not None:
+            self._record("all_reduce", self._site(axes, y), axes, self._ranks[axes], y)
         dist.all_reduce(y, group=g)
         return y
 
     def gather_px(self, x: torch.Tensor) -> torch.Tensor:
-        """[Px, *x.shape]: every px rank's x, along this rank's px axis."""
+        """[Px, *x.shape]: every px rank's x, along this rank's px axis (the
+        pivot search's exchange; site "pivot" in a trace)."""
         g = self._groups.get(("px",))
         if g is None:
             return x[None]
         slab = torch.zeros((self.grid.Px, *x.shape), dtype=x.dtype, device=x.device)
         slab[self.px] = x
+        if RECORDER is not None:
+            self._record("all_reduce", "pivot", ("px",), self._ranks[("px",)], slab)
         dist.all_reduce(slab, group=g)
         return slab
 
@@ -145,11 +186,16 @@ class LuMesh:
                 src = (px * Py + py) * c
                 if self.rank == src:
                     out[px, py] = block
+                if RECORDER is not None:
+                    self._record("broadcast", "gather", ("world",), range(self.size),
+                                 out[px, py], root=src)
                 dist.broadcast(out[px, py], src)
         return out
 
     def broadcast_from_first(self, x: torch.Tensor) -> torch.Tensor:
         """Rank 0's x on every rank (idle ranks pass a buffer of its shape)."""
         if self.size > 1:
+            if RECORDER is not None:
+                self._record("broadcast", "gather", ("world",), range(self.size), x, root=0)
             dist.broadcast(x, 0)
         return x

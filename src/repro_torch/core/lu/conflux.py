@@ -45,6 +45,7 @@ import math
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.collectives import LuMesh
 from repro_torch.core.lu.cost_models import conflux_model
 from repro_torch.core.lu.grid import GridConfig
@@ -332,6 +333,8 @@ def _local_lu(cfg: GridConfig, pivot: str, backend: str, Aloc: torch.Tensor, mes
     rows = torch.zeros(N, dtype=torch.int64, device=dev)
     a_off = 0
     for t in range(nsteps):
+        if collectives.RECORDER is not None:
+            collectives.RECORDER.step(t)
         if hotloop == "windowed":
             Aloc, a_off, active = step_windowed(t, Aloc, a_off, Floc, active, rows)
         else:

@@ -66,3 +66,9 @@ COMM_MODELS = {
     "CANDMC": candmc_model,
     "COnfLUX": conflux_model,
 }
+
+
+def model_gigabytes(name: str, N: float, P: int, M: float, element_bytes: int = 8) -> float:
+    """Total communicated volume across all P processors, in GB (Table 2 rows)."""
+    per_proc = COMM_MODELS[name](N, P, M)
+    return per_proc * P * element_bytes / 1e9

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.device import resolve_device
 
 
@@ -113,6 +114,8 @@ def lu_masked_sequential(A, v: int = 32, backend: str = "cuda", *, device=None):
     eye = torch.eye(v, dtype=F.dtype, device=dev)
     cols = torch.arange(N, device=dev)
     for c0 in range(0, N, v):
+        if collectives.RECORDER is not None:
+            collectives.RECORDER.step(c0 // v)
         Fp, order, _ = bk.panel_lup(F[:, c0:c0 + v], active, v)
         order = order.long()
         F[:, c0:c0 + v] = Fp
@@ -162,6 +165,8 @@ def lu_masked_sequential_batched(A, v: int = 32, backend: str = "cuda", *, devic
     cols = torch.arange(N, device=dev)
     lanes = torch.arange(B, device=dev)[:, None]
     for c0 in range(0, N, v):
+        if collectives.RECORDER is not None:
+            collectives.RECORDER.step(c0 // v)
         Fp, order, _ = bk.panel_lup_batched(F[:, :, c0:c0 + v], active, v)
         order = order.long()
         F[:, :, c0:c0 + v] = Fp

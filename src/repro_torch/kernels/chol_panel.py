@@ -5,7 +5,8 @@ Ports of `repro/kernels/chol_panel.py::chol_panel` and
 batch of one, so a batched lane equals the single call bit for bit.  A CPU
 tensor goes to the plain version (`repro_torch.kernels.ref`); a CUDA tensor
 launches the kernel or raises.  `chol_panel.launches` and
-`chol_panel_batched.launches` count the launches.
+`chol_panel_batched.launches` count the launches, and `.mode` names the
+body the last launch took: "warp" (v <= 32) or "smem" (`body(v)`).
 
 bf16 and f16 blocks have entry points of their own: they widen every value
 to f32 as they load it, factor in f32 with the f32 kernel's operations, and
@@ -20,6 +21,7 @@ import functools
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.kernels import _build, ref
 
 MAX_V = 128  # the shared-memory body's copy of the [v, v] panel
@@ -53,6 +55,12 @@ def _check(name: str, A: torch.Tensor, ndim: int) -> None:
         )
 
 
+def body(v: int) -> str:
+    """The body that the launcher takes for a [v, v] block: "warp" (one warp
+    a system) for v <= 32, else "smem".  The wrappers set `.mode` to it."""
+    return "warp" if v <= 32 else "smem"
+
+
 def _launch(A: torch.Tensor, B: int, v: int, lda: int, bsa: int, out_shape) -> torch.Tensor:
     """Launch the kernel on B blocks [v, v] with row stride lda and batch stride bsa."""
     L = torch.empty(out_shape, dtype=A.dtype, device=A.device)
@@ -68,11 +76,16 @@ def chol_panel(A: torch.Tensor) -> torch.Tensor:
     block that is not SPD gives non-finite values, never an exception.
     """
     if A.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("chol_panel", "cpu", A)
         return ref.chol_panel(A)
     _check("chol_panel", A, 2)
     v = A.shape[0]
     L = _launch(A, 1, v, A.stride(0), 0, (v, v))
+    chol_panel.mode = body(v)
     chol_panel.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("chol_panel", chol_panel.mode, A)
     return L
 
 
@@ -81,6 +94,8 @@ def chol_panel_batched(A: torch.Tensor) -> torch.Tensor:
     strides), one warp (v <= 32) or one block of the kernel per system.
     Returns L [B, v, v]."""
     if A.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("chol_panel_batched", "cpu", A)
         return ref.chol_panel_batched(A)
     _check("chol_panel_batched", A, 3)
     if A.shape[0] > MAX_BATCH:
@@ -89,9 +104,13 @@ def chol_panel_batched(A: torch.Tensor) -> torch.Tensor:
         return torch.empty_like(A)
     B, v, _ = A.shape
     L = _launch(A, B, v, A.stride(1), A.stride(0), (B, v, v))
+    chol_panel_batched.mode = body(v)
     chol_panel_batched.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("chol_panel_batched", chol_panel_batched.mode, A)
     return L
 
 
 chol_panel.launches = 0
 chol_panel_batched.launches = 0
+chol_panel.mode = chol_panel_batched.mode = None

@@ -66,6 +66,7 @@
 
 #include <cuda_runtime.h>
 
+#include "attributes.cuh"
 #include "once_per_device.cuh"
 #include "storage.cuh"
 
@@ -264,7 +265,25 @@ int launch(const void* A, long long lda, long long bsa, void* L, int B, int v, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every instance the launchers above can take (`attributes.cuh`).
+const KernelInstance kInstances[] = {
+    {"chol_panel_warp_kernel<f32,v32>", "f32", KI((chol_panel_warp_kernel<float, true>)), kWarp, 0},
+    {"chol_panel_warp_kernel<f32,v<32>", "f32", KI((chol_panel_warp_kernel<float, false>)), kWarp, 0},
+    {"chol_panel_smem_kernel<f32>", "f32", KI(chol_panel_smem_kernel<float>), kThreads, static_cast<long long>(kMaxV * (kMaxV + 2) * sizeof(float))},
+    {"chol_panel_warp_kernel<f64,v32>", "f64", KI((chol_panel_warp_kernel<double, true>)), kWarp, 0},
+    {"chol_panel_warp_kernel<f64,v<32>", "f64", KI((chol_panel_warp_kernel<double, false>)), kWarp, 0},
+    {"chol_panel_smem_kernel<f64>", "f64", KI(chol_panel_smem_kernel<double>), kThreads, static_cast<long long>(kMaxV * (kMaxV + 2) * sizeof(double))},
+    {"chol_panel_warp_kernel<bf16,v32>", "bf16", KI((chol_panel_warp_kernel<__nv_bfloat16, true>)), kWarp, 0},
+    {"chol_panel_warp_kernel<bf16,v<32>", "bf16", KI((chol_panel_warp_kernel<__nv_bfloat16, false>)), kWarp, 0},
+    {"chol_panel_smem_kernel<bf16>", "bf16", KI(chol_panel_smem_kernel<__nv_bfloat16>), kThreads, static_cast<long long>(kMaxV * (kMaxV + 2) * sizeof(float))},
+    {"chol_panel_warp_kernel<f16,v32>", "f16", KI((chol_panel_warp_kernel<__half, true>)), kWarp, 0},
+    {"chol_panel_warp_kernel<f16,v<32>", "f16", KI((chol_panel_warp_kernel<__half, false>)), kWarp, 0},
+    {"chol_panel_smem_kernel<f16>", "f16", KI(chol_panel_smem_kernel<__half>), kThreads, static_cast<long long>(kMaxV * (kMaxV + 2) * sizeof(float))},
+};
+
 }  // namespace
+
+KERNEL_INSTANCE_ENTRIES(chol_panel)
 
 // B blocks A [v, v] with row stride lda, batch stride bsa and unit column
 // stride; L: [B, v, v] contiguous output, of A's element type (the entry's

@@ -78,6 +78,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attributes.cuh"
 #include "once_per_device.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -826,7 +827,25 @@ bool shape_ok(int B, int S, int H, int KV, int hd) {
          B >= 1 && static_cast<int64_t>(B) * KV <= 65535;
 }
 
+// Every instance the launchers above can take (`attributes.cuh`).
+const KernelInstance kInstances[] = {
+    {"flash_fwd_bf16_kernel<64>", "bf16", KI(flash_fwd_bf16_kernel<64>), kThreads, static_cast<long long>(Tiles<64>::kSmem)},
+    {"flash_fwd_bf16_kernel<128>", "bf16", KI(flash_fwd_bf16_kernel<128>), kThreads, static_cast<long long>(Tiles<128>::kSmem)},
+    {"flash_fwd_bf16_kernel<192>", "bf16", KI(flash_fwd_bf16_kernel<192>), kThreads, static_cast<long long>(Tiles<192>::kSmem)},
+    {"flash_fwd_bf16_kernel<256>", "bf16", KI(flash_fwd_bf16_kernel<256>), kThreads, static_cast<long long>(Tiles<256>::kSmem)},
+    {"flash_fwd_f32_kernel<1>", "f32", KI(flash_fwd_f32_kernel<1>), kF32Threads, static_cast<long long>(smem_floats(32 * 1) * sizeof(float))},
+    {"flash_fwd_f32_kernel<2>", "f32", KI(flash_fwd_f32_kernel<2>), kF32Threads, static_cast<long long>(smem_floats(32 * 2) * sizeof(float))},
+    {"flash_fwd_f32_kernel<3>", "f32", KI(flash_fwd_f32_kernel<3>), kF32Threads, static_cast<long long>(smem_floats(32 * 3) * sizeof(float))},
+    {"flash_fwd_f32_kernel<4>", "f32", KI(flash_fwd_f32_kernel<4>), kF32Threads, static_cast<long long>(smem_floats(32 * 4) * sizeof(float))},
+    {"flash_fwd_f32_kernel<5>", "f32", KI(flash_fwd_f32_kernel<5>), kF32Threads, static_cast<long long>(smem_floats(32 * 5) * sizeof(float))},
+    {"flash_fwd_f32_kernel<6>", "f32", KI(flash_fwd_f32_kernel<6>), kF32Threads, static_cast<long long>(smem_floats(32 * 6) * sizeof(float))},
+    {"flash_fwd_f32_kernel<7>", "f32", KI(flash_fwd_f32_kernel<7>), kF32Threads, static_cast<long long>(smem_floats(32 * 7) * sizeof(float))},
+    {"flash_fwd_f32_kernel<8>", "f32", KI(flash_fwd_f32_kernel<8>), kF32Threads, static_cast<long long>(smem_floats(32 * 8) * sizeof(float))},
+};
+
 }  // namespace
+
+KERNEL_INSTANCE_ENTRIES(flash_attention)
 
 // q [B, S, H, hd], k and v [B, S, KV, hd], out [B, S, H, hd], all contiguous
 // and of one dtype.  16 <= hd <= 256 with hd % 16 == 0, H % KV == 0,

@@ -142,6 +142,7 @@
 #include <cuda.h>  // CUtensorMap and its enums only: the driver call is looked up at run time
 #include <cuda_runtime.h>
 
+#include "attributes.cuh"
 #include "once_per_device.cuh"
 #include "storage.cuh"
 #include "tma.cuh"
@@ -1025,7 +1026,21 @@ int launch(const void* A, long long lda, long long bsa, const void* L00, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every instance the launchers above can take (`attributes.cuh`).
+const KernelInstance kInstances[] = {
+    {"fused_trsm_schur_kernel<f32>", "f32", KI(fused_trsm_schur_kernel<float>), kThreads, static_cast<long long>(Smem<float>::kBytes)},
+    {"fused_trsm_schur_kernel<f64>", "f64", KI(fused_trsm_schur_kernel<double>), kThreads, static_cast<long long>(Smem<double>::kBytes)},
+    {"fused_trsm_schur_kernel<bf16>", "bf16", KI(fused_trsm_schur_kernel<__nv_bfloat16>), kThreads, static_cast<long long>(Smem<__nv_bfloat16>::kBytes)},
+    {"fused_trsm_schur_kernel<f16>", "f16", KI(fused_trsm_schur_kernel<__half>), kThreads, static_cast<long long>(Smem<__half>::kBytes)},
+    {"fused_trsm_schur_wgmma_kernel<bf16,1>", "bf16", KI((fused_trsm_schur_wgmma_kernel<__nv_bfloat16, 1>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"fused_trsm_schur_wgmma_kernel<bf16,2>", "bf16", KI((fused_trsm_schur_wgmma_kernel<__nv_bfloat16, 2>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"fused_trsm_schur_wgmma_kernel<f16,1>", "f16", KI((fused_trsm_schur_wgmma_kernel<__half, 1>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"fused_trsm_schur_wgmma_kernel<f16,2>", "f16", KI((fused_trsm_schur_wgmma_kernel<__half, 2>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+};
+
 }  // namespace
+
+KERNEL_INSTANCE_ENTRIES(fused_schur)
 
 // B systems: A [M, C], L00 [v, v], R01 [v, C], L10 [M, v], out [M, C],
 // U01 [v, C], all of one element type (the entry's suffix), each with the

@@ -122,6 +122,7 @@
 
 #include <cuda_runtime.h>
 
+#include "attributes.cuh"
 #include "once_per_device.cuh"
 #include "storage.cuh"
 
@@ -969,20 +970,25 @@ int launch_generic(const void* in, long long ld_in, const void* weights, void* w
   return static_cast<int>(cudaGetLastError());
 }
 
+// The body a launch takes (`*mode`, and `kernels/lu_panel.py`'s `.mode`).
+enum PanelMode { kGeneric = 0, kBlock = 1, kGrid = 2 };
+
 // The single panel: the one-block body while the rows fit it, then the grid
 // body with the fewest rows a thread that fit one block per SM, then the
 // generic body.
 template <typename S>
 int launch(const void* in, long long ld_in, const void* weights, void* work, void* F, int R,
-           int v, void* order, void* ok, void* scratch, void* stream) {
+           int v, void* order, void* ok, void* scratch, int* mode, void* stream) {
   using T = compute_t<S>;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *mode = kBlock;
   if (v <= kRegV && block_rows<T>(R) > 0)
     return launch_block<S>(in, ld_in, 0, weights, F, 1, R, v, order, ok, s);
   int sms = 0;
   const int err = sm_count(&sms);
   if (err != 0) return err;
   const int64_t slots = sms < kGridMaxBlocks ? sms : kGridMaxBlocks;
+  *mode = kGrid;
   if (v <= kRegV) {
     if (R <= slots * kGridThreads)
       return launch_grid<S, 1>(in, ld_in, weights, F, R, v, order, ok, scratch, s);
@@ -991,17 +997,20 @@ int launch(const void* in, long long ld_in, const void* weights, void* work, voi
     if (kGridRowsMax<T> == 4 && R <= slots * kGridThreads * 4)
       return launch_grid<S, kGridRowsMax<T>>(in, ld_in, weights, F, R, v, order, ok, scratch, s);
   }
+  *mode = kGeneric;
   return launch_generic<S>(in, ld_in, weights, work, F, R, v, order, ok, scratch, sms, s);
 }
 
 template <typename S>
 int launch_batched(const void* in, long long ld_in, long long bs_in, const void* weights,
-                   void* work, void* F, int B, int R, int v, void* order, void* ok,
+                   void* work, void* F, int B, int R, int v, void* order, void* ok, int* mode,
                    void* stream) {
   using T = compute_t<S>;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *mode = kBlock;
   if (v <= kRegV && block_rows<T>(R) > 0)
     return launch_block<S>(in, ld_in, bs_in, weights, F, B, R, v, order, ok, s);
+  *mode = kGeneric;
   // The device's whole opt-in budget, raised once per device.
   static OncePerDevice<size_t> limit;
   size_t budget = 0;
@@ -1028,7 +1037,40 @@ int launch_batched(const void* in, long long ld_in, long long bs_in, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every instance the launchers above can take (`attributes.cuh`).
+const KernelInstance kInstances[] = {
+    {"lu_panel_block_kernel<f32,1>", "f32", KI((lu_panel_block_kernel<float, 1>)), kBlockThreads<float> / 2, 0},
+    {"lu_panel_block_kernel<f32,2>", "f32", KI((lu_panel_block_kernel<float, 2>)), kBlockThreads<float>, 0},
+    {"lu_panel_grid_kernel<f32,1>", "f32", KI((lu_panel_grid_kernel<float, 1>)), kGridThreads, 0},
+    {"lu_panel_grid_kernel<f32,2>", "f32", KI((lu_panel_grid_kernel<float, 2>)), kGridThreads, 0},
+    {"lu_panel_grid_kernel<f32,4>", "f32", KI((lu_panel_grid_kernel<float, 4>)), kGridThreads, 0},
+    {"lu_panel_kernel<f32>", "f32", KI(lu_panel_kernel<float>), kThreads, 0},
+    {"lu_panel_batched_kernel<f32>", "f32", KI(lu_panel_batched_kernel<float>), kThreads, kOptinRest},
+    {"lu_panel_block_kernel<f64,1>", "f64", KI((lu_panel_block_kernel<double, 1>)), kBlockThreads<double> / 2, 0},
+    {"lu_panel_block_kernel<f64,2>", "f64", KI((lu_panel_block_kernel<double, 2>)), kBlockThreads<double>, 0},
+    {"lu_panel_grid_kernel<f64,1>", "f64", KI((lu_panel_grid_kernel<double, 1>)), kGridThreads, 0},
+    {"lu_panel_grid_kernel<f64,2>", "f64", KI((lu_panel_grid_kernel<double, 2>)), kGridThreads, 0},
+    {"lu_panel_kernel<f64>", "f64", KI(lu_panel_kernel<double>), kThreads, 0},
+    {"lu_panel_batched_kernel<f64>", "f64", KI(lu_panel_batched_kernel<double>), kThreads, kOptinRest},
+    {"lu_panel_block_kernel<bf16,1>", "bf16", KI((lu_panel_block_kernel<__nv_bfloat16, 1>)), kBlockThreads<float> / 2, 0},
+    {"lu_panel_block_kernel<bf16,2>", "bf16", KI((lu_panel_block_kernel<__nv_bfloat16, 2>)), kBlockThreads<float>, 0},
+    {"lu_panel_grid_kernel<bf16,1>", "bf16", KI((lu_panel_grid_kernel<__nv_bfloat16, 1>)), kGridThreads, 0},
+    {"lu_panel_grid_kernel<bf16,2>", "bf16", KI((lu_panel_grid_kernel<__nv_bfloat16, 2>)), kGridThreads, 0},
+    {"lu_panel_grid_kernel<bf16,4>", "bf16", KI((lu_panel_grid_kernel<__nv_bfloat16, 4>)), kGridThreads, 0},
+    {"lu_panel_kernel<bf16>", "bf16", KI(lu_panel_kernel<__nv_bfloat16>), kThreads, 0},
+    {"lu_panel_batched_kernel<bf16>", "bf16", KI(lu_panel_batched_kernel<__nv_bfloat16>), kThreads, kOptinRest},
+    {"lu_panel_block_kernel<f16,1>", "f16", KI((lu_panel_block_kernel<__half, 1>)), kBlockThreads<float> / 2, 0},
+    {"lu_panel_block_kernel<f16,2>", "f16", KI((lu_panel_block_kernel<__half, 2>)), kBlockThreads<float>, 0},
+    {"lu_panel_grid_kernel<f16,1>", "f16", KI((lu_panel_grid_kernel<__half, 1>)), kGridThreads, 0},
+    {"lu_panel_grid_kernel<f16,2>", "f16", KI((lu_panel_grid_kernel<__half, 2>)), kGridThreads, 0},
+    {"lu_panel_grid_kernel<f16,4>", "f16", KI((lu_panel_grid_kernel<__half, 4>)), kGridThreads, 0},
+    {"lu_panel_kernel<f16>", "f16", KI(lu_panel_kernel<__half>), kThreads, 0},
+    {"lu_panel_batched_kernel<f16>", "f16", KI(lu_panel_batched_kernel<__half>), kThreads, kOptinRest},
+};
+
 }  // namespace
+
+KERNEL_INSTANCE_ENTRIES(lu_panel)
 
 // Bytes of the scratch buffer a stream's launches share; zero-filled once.
 extern "C" int lu_panel_scratch_bytes() { return static_cast<int>(kScratchBytes); }
@@ -1040,12 +1082,13 @@ extern "C" int lu_panel_scratch_bytes() { return static_cast<int>(kScratchBytes)
 // and may be null; F: [R, v] contiguous output of the panel's type; order:
 // [v] int32; ok: [v] bool; scratch: lu_panel_scratch_bytes() bytes,
 // zero-filled when allocated and used by one stream only.  1 <= v <= 128.
-// Returns the cudaError_t of the launch.
+// Sets *mode to the body taken (`PanelMode`) and returns the cudaError_t of
+// the launch.
 #define LU_PANEL_ENTRY(suffix, S)                                                           \
   extern "C" int lu_panel_##suffix(const void* in, long long ld_in, const void* weights,    \
                                    void* work, void* F, int R, int v, void* order, void* ok, \
-                                   void* scratch, void* stream) {                          \
-    return launch<S>(in, ld_in, weights, work, F, R, v, order, ok, scratch, stream);       \
+                                   void* scratch, int* mode, void* stream) {               \
+    return launch<S>(in, ld_in, weights, work, F, R, v, order, ok, scratch, mode, stream); \
   }
 LU_PANEL_ENTRY(f32, float)
 LU_PANEL_ENTRY(f64, double)
@@ -1057,13 +1100,15 @@ LU_PANEL_ENTRY(f16, __half)
 // work: [B, R, v] of the compute type for the generic body with a bf16 or
 // f16 panel (v > 32 or R > 1024), else unused and may be null; F: [B, R, v]
 // contiguous output; order: [B, v] int32; ok: [B, v] bool.  1 <= v <= 128,
-// B >= 1.  Returns the cudaError_t of the launch.
-#define LU_PANEL_BATCHED_ENTRY(suffix, S)                                                     \
-  extern "C" int lu_panel_batched_##suffix(const void* in, long long ld_in, long long bs_in,  \
-                                           const void* weights, void* work, void* F, int B,   \
-                                           int R, int v, void* order, void* ok,               \
-                                           void* stream) {                                    \
-    return launch_batched<S>(in, ld_in, bs_in, weights, work, F, B, R, v, order, ok, stream); \
+// B >= 1.  Sets *mode to the body taken (`PanelMode`: the one-block body or
+// the generic one) and returns the cudaError_t of the launch.
+#define LU_PANEL_BATCHED_ENTRY(suffix, S)                                                  \
+  extern "C" int lu_panel_batched_##suffix(const void* in, long long ld_in, long long bs_in, \
+                                           const void* weights, void* work, void* F, int B,  \
+                                           int R, int v, void* order, void* ok, int* mode,   \
+                                           void* stream) {                                   \
+    return launch_batched<S>(in, ld_in, bs_in, weights, work, F, B, R, v, order, ok, mode,  \
+                             stream);                                                        \
   }
 LU_PANEL_BATCHED_ENTRY(f32, float)
 LU_PANEL_BATCHED_ENTRY(f64, double)

@@ -41,6 +41,8 @@
 
 #include <cuda_runtime.h>
 
+#include "attributes.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -93,7 +95,19 @@ int launch_n(const float* a, const float* b, const float* C, float* y, float* hS
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every instance the launchers above can take (`attributes.cuh`).
+const KernelInstance kInstances[] = {
+    {"mamba_scan_kernel<1>", "f32", KI(mamba_scan_kernel<1>), kThreads, 0},
+    {"mamba_scan_kernel<2>", "f32", KI(mamba_scan_kernel<2>), kThreads, 0},
+    {"mamba_scan_kernel<4>", "f32", KI(mamba_scan_kernel<4>), kThreads, 0},
+    {"mamba_scan_kernel<8>", "f32", KI(mamba_scan_kernel<8>), kThreads, 0},
+    {"mamba_scan_kernel<16>", "f32", KI(mamba_scan_kernel<16>), kThreads, 0},
+    {"mamba_scan_kernel<32>", "f32", KI(mamba_scan_kernel<32>), kThreads, 0},
+};
+
 }  // namespace
+
+KERNEL_INSTANCE_ENTRIES(mamba_scan)
 
 // a, b [B, S, di, N], C [B, S, N], y [B, S, di] and hS [B, di, N], all f32
 // and contiguous.  N in {1, 2, 4, 8, 16, 32}, B, S, di >= 1.  Returns the

@@ -125,6 +125,7 @@
 #include <cuda.h>  // CUtensorMap and its enums only: the driver call is looked up at run time
 #include <cuda_runtime.h>
 
+#include "attributes.cuh"
 #include "once_per_device.cuh"
 #include "storage.cuh"
 #include "tma.cuh"
@@ -634,7 +635,25 @@ int launch(const void* A, long long lda, long long bsa, const void* L, long long
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every instance the launchers above can take (`attributes.cuh`).
+const KernelInstance kInstances[] = {
+    {"schur_update_kernel<f32>", "f32", KI(schur_update_kernel<float>), kThreads, static_cast<long long>(Smem<float>::kBytes)},
+    {"schur_update_kernel<f64>", "f64", KI(schur_update_kernel<double>), kThreads, static_cast<long long>(Smem<double>::kBytes)},
+    {"schur_update_kernel<bf16>", "bf16", KI(schur_update_kernel<__nv_bfloat16>), kThreads, static_cast<long long>(Smem<__nv_bfloat16>::kBytes)},
+    {"schur_update_kernel<f16>", "f16", KI(schur_update_kernel<__half>), kThreads, static_cast<long long>(Smem<__half>::kBytes)},
+    {"schur_update_wgmma_kernel<bf16,1>", "bf16", KI((schur_update_wgmma_kernel<__nv_bfloat16, 1>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"schur_update_wgmma_kernel<bf16,2>", "bf16", KI((schur_update_wgmma_kernel<__nv_bfloat16, 2>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"schur_update_wgmma_kernel<bf16,3>", "bf16", KI((schur_update_wgmma_kernel<__nv_bfloat16, 3>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"schur_update_wgmma_kernel<bf16,4>", "bf16", KI((schur_update_wgmma_kernel<__nv_bfloat16, 4>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"schur_update_wgmma_kernel<f16,1>", "f16", KI((schur_update_wgmma_kernel<__half, 1>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"schur_update_wgmma_kernel<f16,2>", "f16", KI((schur_update_wgmma_kernel<__half, 2>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"schur_update_wgmma_kernel<f16,3>", "f16", KI((schur_update_wgmma_kernel<__half, 3>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+    {"schur_update_wgmma_kernel<f16,4>", "f16", KI((schur_update_wgmma_kernel<__half, 4>)), kWThreads, static_cast<long long>(WSmem::kBytes)},
+};
+
 }  // namespace
+
+KERNEL_INSTANCE_ENTRIES(schur_update)
 
 // B systems: A [M, N], L [M, K], U [K, N], out [M, N], all of one element
 // type (the entry's suffix), each with the given row stride, batch stride

@@ -133,6 +133,7 @@
 
 #include <cuda_runtime.h>
 
+#include "attributes.cuh"
 #include "once_per_device.cuh"
 #include "storage.cuh"
 
@@ -611,7 +612,29 @@ int launch_left_lower(const void* L, long long ldl_r, long long ldl_c, long long
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every instance the launchers above can take (`attributes.cuh`).
+const KernelInstance kInstances[] = {
+    {"trsm_right_upper_reg_kernel<f32>", "f32", KI(trsm_right_upper_reg_kernel<float>), kRightRows, 0},
+    {"trsm_right_upper_smem_kernel<f32>", "f32", KI(trsm_right_upper_smem_kernel<float>), kRows, static_cast<long long>((kMaxV * (kMaxV + kRows) + kRows) * sizeof(float))},
+    {"trsm_left_lower_reg_kernel<f32>", "f32", KI(trsm_left_lower_reg_kernel<float>), kRegCols, 0},
+    {"trsm_left_lower_smem_kernel<f32>", "f32", KI(trsm_left_lower_smem_kernel<float>), kCols, static_cast<long long>(kMaxV * (kMaxV + kCols) * sizeof(float))},
+    {"trsm_right_upper_reg_kernel<f64>", "f64", KI(trsm_right_upper_reg_kernel<double>), kRightRows, 0},
+    {"trsm_right_upper_smem_kernel<f64>", "f64", KI(trsm_right_upper_smem_kernel<double>), kRows, static_cast<long long>((kMaxV * (kMaxV + kRows) + kRows) * sizeof(double))},
+    {"trsm_left_lower_reg_kernel<f64>", "f64", KI(trsm_left_lower_reg_kernel<double>), kRegCols, 0},
+    {"trsm_left_lower_smem_kernel<f64>", "f64", KI(trsm_left_lower_smem_kernel<double>), kCols, static_cast<long long>(kMaxV * (kMaxV + kCols) * sizeof(double))},
+    {"trsm_right_upper_reg_kernel<bf16>", "bf16", KI(trsm_right_upper_reg_kernel<__nv_bfloat16>), kRightRows, 0},
+    {"trsm_right_upper_smem_kernel<bf16>", "bf16", KI(trsm_right_upper_smem_kernel<__nv_bfloat16>), kRows, static_cast<long long>((kMaxV * (kMaxV + kRows) + kRows) * sizeof(float))},
+    {"trsm_left_lower_reg_kernel<bf16>", "bf16", KI(trsm_left_lower_reg_kernel<__nv_bfloat16>), kRegCols, 0},
+    {"trsm_left_lower_smem_kernel<bf16>", "bf16", KI(trsm_left_lower_smem_kernel<__nv_bfloat16>), kCols, static_cast<long long>(kMaxV * (kMaxV + kCols) * sizeof(float))},
+    {"trsm_right_upper_reg_kernel<f16>", "f16", KI(trsm_right_upper_reg_kernel<__half>), kRightRows, 0},
+    {"trsm_right_upper_smem_kernel<f16>", "f16", KI(trsm_right_upper_smem_kernel<__half>), kRows, static_cast<long long>((kMaxV * (kMaxV + kRows) + kRows) * sizeof(float))},
+    {"trsm_left_lower_reg_kernel<f16>", "f16", KI(trsm_left_lower_reg_kernel<__half>), kRegCols, 0},
+    {"trsm_left_lower_smem_kernel<f16>", "f16", KI(trsm_left_lower_smem_kernel<__half>), kCols, static_cast<long long>(kMaxV * (kMaxV + kCols) * sizeof(float))},
+};
+
 }  // namespace
+
+KERNEL_INSTANCE_ENTRIES(trsm)
 
 // Bb systems: B [R, v] with row stride ldb and batch stride bsb (unit column
 // stride); U [v, v] with row stride ldu_r, column stride ldu_c and batch

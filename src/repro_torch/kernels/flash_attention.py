@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.kernels import _build, ref
 
 MAX_BATCH_HEADS = 65535  # B * KV on gridDim.y
@@ -75,6 +76,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     with q - window < j; `softcap` maps each score s to cap * tanh(s / cap).
     """
     if q.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("flash_attention", "cpu", q, k, v)
         return ref.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     _check(q, k, v, window, softcap)
     B, S, H, hd = q.shape
@@ -84,6 +87,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                   out.data_ptr(), B, S, H, k.shape[2], hd, int(causal), window or 0,
                   softcap or 0.0, hd**-0.5)
     flash_attention.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("flash_attention", "kernel", q, k, v)
     return out
 
 

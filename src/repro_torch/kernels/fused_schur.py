@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.schur_update import tma_fits
 
@@ -143,10 +144,14 @@ def fused_trsm_schur(A, L00, R01, L10, *, bm: int, bc: int, unit: bool = True):
     (A_new [M, C], U01 [v, C]), both contiguous.
     """
     if A.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("fused_trsm_schur", "cpu", A, L00, R01, L10)
         return ref.fused_trsm_schur(A, L00, R01, L10, unit=unit)
     _check("fused_trsm_schur", A, L00, R01, L10, bm, bc)
     out, U01, fused_trsm_schur.mode = _launch(A[None], L00[None], R01[None], L10[None], unit)
     fused_trsm_schur.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("fused_trsm_schur", fused_trsm_schur.mode, A, L00, R01, L10)
     return out[0], U01[0]
 
 
@@ -158,12 +163,17 @@ def fused_trsm_schur_batched(A, L00, R01, L10, *, bm: int, bc: int, unit: bool =
     (A_new [B, M, C], U01 [B, v, C]), both contiguous.
     """
     if A.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("fused_trsm_schur_batched", "cpu", A, L00, R01, L10)
         return ref.fused_trsm_schur_batched(A, L00, R01, L10, unit=unit)
     _check("fused_trsm_schur_batched", A, L00, R01, L10, bm, bc)
     if A.shape[0] == 0:
         return torch.empty_like(A), torch.empty_like(R01)
     out, U01, fused_trsm_schur_batched.mode = _launch(A, L00, R01, L10, unit)
     fused_trsm_schur_batched.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("fused_trsm_schur_batched", fused_trsm_schur_batched.mode,
+                                  A, L00, R01, L10)
     return out, U01
 
 

@@ -6,7 +6,11 @@ CPU tensor goes to the plain version (`repro_torch.kernels.ref.lu_panel` /
 is one launch: the kernel reads `weights` as given (converted only when its
 dtype or layout differs from the panel's compute dtype) and keeps the pivot
 mask on chip.
-`lu_panel.launches` and `lu_panel_batched.launches` count the launches.
+`lu_panel.launches` and `lu_panel_batched.launches` count the launches, and
+`.mode` says which body the last launch took, as its launcher reports it:
+"block" (one block a system, v <= 32), "grid" (a single panel over a
+cooperative grid, v <= 32) or "generic" (v > 32, or more rows than the
+register bodies hold).
 
 bf16 and f16 panels have entry points of their own: the kernel widens each
 value to f32 as it loads it, runs the f32 rounds, and rounds F once as it
@@ -24,6 +28,7 @@ import threading
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.kernels import _build, ref
 
 MAX_V = 128  # the generic bodies' shared pivot-row buffer
@@ -37,13 +42,14 @@ REG_V, REG_ROWS = 32, 1024
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p,
+    ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 )
 _BATCHED_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 )
+_MODES = {0: "generic", 1: "block", 2: "grid"}  # `csrc/lu_panel.cu::PanelMode`
 # The single-panel kernel's scratch (its cross-block slots and epoch), one
 # zero-filled buffer per (device, stream): launches on one stream run in
 # turn, and launches that could run at once are on two streams.  The kernel
@@ -76,6 +82,29 @@ def _scratch_for(device: torch.device) -> torch.Tensor:
         entry[0].zero_()
         entry[1] = 0
     return entry[0]
+
+
+GRID_THREADS, GRID_MAX_BLOCKS = 256, 144  # `csrc/lu_panel.cu`: kGridThreads, kGridMaxBlocks
+
+
+def panel_mode(R: int, v: int, dtype: torch.dtype, *, batched: bool = False,
+               sms: int = 132) -> str:
+    """The body that the launcher takes for [R, v] panels of `dtype`, by its
+    rule (`csrc/lu_panel.cu::launch`): "block" for v <= 32 and R up to twice
+    the one-block body's threads (512 for a 4-byte compute type, 256 for
+    f64); for a single panel, "grid" for v <= 32 and R up to the cooperative
+    grid's rows (`sms` blocks of 256 threads, up to 4 rows a thread, 2 for
+    f64); else "generic".  The wrappers' `.mode` reports what the launcher
+    took."""
+    wide = dtype == torch.float64
+    if v > REG_V:
+        return "generic"
+    if R <= 2 * (256 if wide else 512):
+        return "block"
+    if batched:
+        return "generic"
+    rows = min(sms, GRID_MAX_BLOCKS) * GRID_THREADS * (2 if wide else 4)
+    return "grid" if R <= rows else "generic"
 
 
 def _check(name: str, panel: torch.Tensor, weights: torch.Tensor, ndim: int) -> None:
@@ -125,6 +154,8 @@ def lu_panel(panel: torch.Tensor, weights: torch.Tensor):
     them, as in the plain version.
     """
     if panel.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("lu_panel", "cpu", panel, weights)
         return ref.lu_panel(panel, weights)
     _check("lu_panel", panel, weights, 2)
     R, v = panel.shape
@@ -134,15 +165,20 @@ def lu_panel(panel: torch.Tensor, weights: torch.Tensor):
     ok = torch.empty(v, dtype=torch.bool, device=panel.device)
     work = _work((R, v), panel.dtype, panel.device)
     scratch = _scratch_for(panel.device)
+    mode = ctypes.c_int(0)
     _build.launch("lu_panel", _entry(f"lu_panel_{_SUFFIX[panel.dtype]}", _ARGTYPES),
                   panel.device, panel.data_ptr(), panel.stride(0), w.data_ptr(),
                   None if work is None else work.data_ptr(), F.data_ptr(), R, v,
-                  order.data_ptr(), ok.data_ptr(), scratch.data_ptr())
+                  order.data_ptr(), ok.data_ptr(), scratch.data_ptr(), ctypes.byref(mode))
+    lu_panel.mode = _MODES[mode.value]
     lu_panel.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("lu_panel", lu_panel.mode, panel, weights)
     return F, order, ok
 
 
 lu_panel.launches = 0
+lu_panel.mode = None
 
 
 def lu_panel_batched(panel: torch.Tensor, weights: torch.Tensor):
@@ -153,6 +189,8 @@ def lu_panel_batched(panel: torch.Tensor, weights: torch.Tensor):
     lane b equals `lu_panel(panel[b], weights[b])` bit for bit.
     """
     if panel.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("lu_panel_batched", "cpu", panel, weights)
         return ref.lu_panel_batched(panel, weights)
     _check("lu_panel_batched", panel, weights, 3)
     B, R, v = panel.shape
@@ -163,13 +201,18 @@ def lu_panel_batched(panel: torch.Tensor, weights: torch.Tensor):
         return F, order, ok
     w = _weights(weights, panel)
     work = _work((B, R, v), panel.dtype, panel.device)
+    mode = ctypes.c_int(0)
     _build.launch("lu_panel",
                   _entry(f"lu_panel_batched_{_SUFFIX[panel.dtype]}", _BATCHED_ARGTYPES),
                   panel.device, panel.data_ptr(), panel.stride(1), panel.stride(0),
                   w.data_ptr(), None if work is None else work.data_ptr(), F.data_ptr(), B,
-                  R, v, order.data_ptr(), ok.data_ptr())
+                  R, v, order.data_ptr(), ok.data_ptr(), ctypes.byref(mode))
+    lu_panel_batched.mode = _MODES[mode.value]
     lu_panel_batched.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("lu_panel_batched", lu_panel_batched.mode, panel, weights)
     return F, order, ok
 
 
 lu_panel_batched.launches = 0
+lu_panel_batched.mode = None

@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.kernels import _build, ref
 
 STATE_SIZES = (1, 2, 4, 8, 16, 32)  # N: the lanes of one channel's shuffle group
@@ -55,6 +56,8 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor, *,
     `return_state` also (y, h_S [B, di, N]).
     """
     if a.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("mamba_scan", "cpu", a, b, C)
         return ref.mamba_scan(a, b, C, return_state=return_state)
     _check(a, b, C)
     B, S, di, N = a.shape
@@ -64,6 +67,8 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor, *,
     _build.launch("mamba_scan", fn, a.device, a.data_ptr(), b.data_ptr(), C.data_ptr(),
                   y.data_ptr(), h.data_ptr(), B, S, di, N)
     mamba_scan.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("mamba_scan", "kernel", a, b, C)
     return (y, h) if return_state else y
 
 

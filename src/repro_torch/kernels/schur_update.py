@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.kernels import _build, ref
 
 # The entry points' limits: M <= TILE_M * MAX_GRID_YZ rows and at most
@@ -133,10 +134,14 @@ def schur_update(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> torch.Ten
     """A - L @ U for A [M, N], L [M, K], U [K, N] (any row strides, unit
     column strides), out of place.  Returns [M, N] contiguous."""
     if A.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("schur_update", "cpu", A, L, U)
         return ref.schur_update(A, L, U)
     _check("schur_update", A, L, U)
     out, schur_update.mode = _launch(A[None], L[None], U[None])
     schur_update.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("schur_update", schur_update.mode, A, L, U)
     return out[0]
 
 
@@ -144,12 +149,16 @@ def schur_update_batched(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor) -> t
     """Per-system A_b - L_b @ U_b for A [B, M, N], L [B, M, K], U [B, K, N]
     (any row and batch strides, B <= 65535).  Returns [B, M, N] contiguous."""
     if A.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("schur_update_batched", "cpu", A, L, U)
         return ref.schur_update_batched(A, L, U)
     _check("schur_update_batched", A, L, U)
     if A.shape[0] == 0:
         return torch.empty_like(A)
     out, schur_update_batched.mode = _launch(A, L, U)
     schur_update_batched.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("schur_update_batched", schur_update_batched.mode, A, L, U)
     return out
 
 

@@ -11,7 +11,8 @@ Each wrapper counts its launches in `<wrapper>.launches`.  The right solve's
 wrappers also set `.mode` to the body their last launch took: "wide" (the
 register body, a warp loading whole rows in 16-byte runs), "plain" (the
 register body, one value a load) or "smem" (v > 32, the shared-memory body).
-`right_mode(B, U)` predicts it from the operands alone.
+`right_mode(B, U)` predicts it from the operands alone.  The left solve's
+wrappers set `.mode` too: "register" (v <= 32) or "smem" (`left_mode`).
 
 bf16 and f16 operands have entry points of their own: they widen every value
 to f32 as they load it, solve in f32 with the f32 kernels' operations, and
@@ -25,6 +26,7 @@ import functools
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.kernels import _build, ref
 
 MAX_V = 128  # the triangle and a row (column) tile share one block's shared memory
@@ -65,6 +67,13 @@ def right_mode(B: torch.Tensor, U: torch.Tensor) -> str:
     wide = (B.data_ptr() % 16 == 0 and B.stride(-2) % run == 0 and bsb % run == 0
             and v % run == 0)
     return "wide" if wide else "plain"
+
+
+def left_mode(L: torch.Tensor) -> str:
+    """The body that the left solve's launcher takes for L [v, v] or
+    [Bb, v, v]: "register" (a column a thread) for v <= 32, else "smem".
+    The left solve's wrappers set `.mode` to it at each launch."""
+    return "register" if L.shape[-1] <= REG_V else "smem"
 
 
 @functools.cache
@@ -147,10 +156,14 @@ def trsm_right_upper(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     Returns X [R, v] contiguous; rows that are zero in B come out zero.
     """
     if B.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("trsm_right_upper", "cpu", B, U)
         return ref.trsm_right_upper(B, U)
     _check("trsm_right_upper", B, U, 2)
     X, trsm_right_upper.mode = _launch(B, U, 1, 0, 0, B.shape)
     trsm_right_upper.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("trsm_right_upper", trsm_right_upper.mode, B, U)
     return X
 
 
@@ -158,6 +171,8 @@ def trsm_right_upper_batched(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     """Per-system X_b = B_b U_b^-1 for B [Bb, R, v] and U [Bb, v, v] (any row
     and batch strides, Bb <= 65535).  Returns X [Bb, R, v] contiguous."""
     if B.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("trsm_right_upper_batched", "cpu", B, U)
         return ref.trsm_right_upper_batched(B, U)
     _check("trsm_right_upper_batched", B, U, 3)
     if B.shape[0] == 0:
@@ -165,6 +180,8 @@ def trsm_right_upper_batched(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     X, trsm_right_upper_batched.mode = _launch(B, U, B.shape[0], B.stride(0), U.stride(0),
                                                B.shape)
     trsm_right_upper_batched.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("trsm_right_upper_batched", trsm_right_upper_batched.mode, B, U)
     return X
 
 
@@ -175,10 +192,15 @@ def trsm_left_lower(L: torch.Tensor, B: torch.Tensor, *, unit: bool = True) -> t
     Returns X [v, C] contiguous.
     """
     if B.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("trsm_left_lower", "cpu", L, B)
         return ref.trsm_left_lower(L, B, unit=unit)
     _check_left("trsm_left_lower", L, B, 2)
     X = _launch_left(L, B, unit, 1, 0, 0, B.shape)
+    trsm_left_lower.mode = left_mode(L)
     trsm_left_lower.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("trsm_left_lower", trsm_left_lower.mode, L, B)
     return X
 
 
@@ -187,12 +209,17 @@ def trsm_left_lower_batched(L: torch.Tensor, B: torch.Tensor, *,
     """Per-system X_b = L_b^-1 B_b for L [Bb, v, v] and B [Bb, v, C] (any row
     and batch strides, Bb <= 65535).  Returns X [Bb, v, C] contiguous."""
     if B.device.type == "cpu":
+        if collectives.RECORDER is not None:
+            collectives.record_kernel("trsm_left_lower_batched", "cpu", L, B)
         return ref.trsm_left_lower_batched(L, B, unit=unit)
     _check_left("trsm_left_lower_batched", L, B, 3)
     if B.shape[0] == 0:
         return torch.empty_like(B)
     X = _launch_left(L, B, unit, B.shape[0], L.stride(0), B.stride(0), B.shape)
+    trsm_left_lower_batched.mode = left_mode(L)
     trsm_left_lower_batched.launches += 1
+    if collectives.RECORDER is not None:
+        collectives.record_kernel("trsm_left_lower_batched", trsm_left_lower_batched.mode, L, B)
     return X
 
 
@@ -201,3 +228,4 @@ trsm_right_upper_batched.launches = 0
 trsm_left_lower.launches = 0
 trsm_left_lower_batched.launches = 0
 trsm_right_upper.mode = trsm_right_upper_batched.mode = None
+trsm_left_lower.mode = trsm_left_lower_batched.mode = None

@@ -297,3 +297,95 @@ def _jax_costmodel_cases():
     finally:
         sys.path.remove(path)
     return jax_costmodel_cases
+
+
+# --- The API surface of module item 11: comm_volume, optimize_grid,
+# validate_layout, and the paper's Table 2 sizes. ---------------------------
+
+# The inputs of tests/test_grid_optimizer.py: (N, P, M, kwargs).
+GRID_OPTIMIZER_CASES = [
+    (1024, 4, 1000.0, {}), (4096, 64, 1e9, {"v": 48}), (256, 12, 1e9, {"max_waste": 0.5}),
+    (256, 12, 1e9, {"max_waste": 0.0}), (256, 8, 1e9, {"max_waste": 0.0}),
+    (8192, 512, 8192 * 8192 / 512 * 1.01, {}), (8192, 512, 8192 * 8192 / 512 * 16, {}),
+    (512, 16, 1e9, {}), (96, 8, 1e9, {}), (96, 4, 1e9, {}), (96, 8, 1e9, {"v": 8}),
+    (256, 16, 1e9, {}),
+]
+
+
+def _grid_or_error(fn, *args, **kw):
+    try:
+        g = fn(*args, **kw)
+    except ValueError as e:
+        return ("error", str(e))
+    return (g.Px, g.Py, g.c, g.v, g.N, g.P_used)
+
+
+@pytest.mark.parametrize("N,P,M,kw", GRID_OPTIMIZER_CASES)
+def test_optimize_grid_and_comm_volume_equal_jax(N, P, M, kw):
+    import repro.core.lu.conflux as jconflux
+    from repro_torch.api import comm_volume, optimize_grid
+
+    got = _grid_or_error(optimize_grid, N, P, M, **kw)
+    assert got == _grid_or_error(jgrid.optimize_grid, N, P, M, **kw)
+    if got[0] == "error":
+        return
+    tg, jg = optimize_grid(N, P, M, **kw), jgrid.optimize_grid(N, P, M, **kw)
+    for pivot in ("tournament", "partial"):
+        assert comm_volume(N, tg, pivot) == pytest.approx(
+            jconflux.lu_comm_volume(N, jg, pivot=pivot), rel=1e-12)
+
+
+# (N, (Px, Py, c, v), pivot) of tests/test_grid_optimizer.py::TestValidateLayout.
+LAYOUT_CASES = [(128, (2, 2, 2, 16), "tournament"), (96, (3, 1, 1, 16), "partial"),
+                (96, (3, 1, 1, 16), "tournament"), (96, (1, 8, 1, 8), "tournament"),
+                (64, (0, 1, 1, 8), "tournament")]
+
+
+@pytest.mark.parametrize("N,axes,pivot", LAYOUT_CASES)
+def test_validate_layout_equals_jax(N, axes, pivot):
+    from repro_torch.api import validate_layout
+
+    def outcome(fn, grid):
+        try:
+            fn(N, grid, pivot=pivot)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    assert (outcome(validate_layout, GridConfig(*axes, N=N))
+            == outcome(jgrid.validate_layout, jgrid.GridConfig(*axes, N=N)))
+
+
+def test_cholesky_comm_volume_equals_jax():
+    import repro.core.cholesky.conflux25d as jchol
+    from repro_torch.api import comm_volume
+
+    for axes in ((2, 2, 2, 16), (4, 2, 1, 8), (1, 1, 1, 32)):
+        got = comm_volume(256, GridConfig(*axes, N=256), kind="cholesky")
+        want = jchol.chol_comm_volume(256, jgrid.GridConfig(*axes, N=256))
+        assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_the_api_exports_item_11s_names():
+    import repro_torch.api as api
+
+    assert {"comm_volume", "optimize_grid", "validate_layout"} <= set(api.__all__)
+
+
+def test_table2_and_model_gigabytes_equal_the_references():
+    import dataclasses as dc
+
+    import repro.configs.conflux as jconf
+    import repro.core.lu.cost_models as jcost
+    from repro_torch.configs import TABLE2, TABLE2_PAPER_GB, ConfluxBenchConfig
+    from repro_torch.core.lu import cost_models as tcost
+
+    assert [dc.astuple(c) for c in TABLE2] == [dc.astuple(c) for c in jconf.TABLE2]
+    assert [(c.c_max, c.M) for c in TABLE2] == [(c.c_max, c.M) for c in jconf.TABLE2]
+    assert TABLE2_PAPER_GB == jconf.TABLE2_PAPER_GB
+    assert ConfluxBenchConfig(N=4096, P=64).element_bytes == 8
+    assert set(tcost.COMM_MODELS) == set(jcost.COMM_MODELS)
+    for c in TABLE2:
+        for name in tcost.COMM_MODELS:
+            assert tcost.model_gigabytes(name, c.N, c.P, c.M) == pytest.approx(
+                jcost.model_gigabytes(name, c.N, c.P, c.M), rel=1e-12)

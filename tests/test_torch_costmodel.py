@@ -197,13 +197,16 @@ GRIDS = [(1, 1, 1, 8), (2, 2, 1, 16), (2, 2, 2, 16), (4, 2, 1, 8), (2, 4, 2, 8),
 
 @pytest.mark.parametrize("axes", GRIDS, ids=str)
 def test_executed_comm_bytes_and_op_counts_match_jax(axes):
+    """The JAX package's executed model and op count, as the port keeps them
+    (`audit.jax_executed_comm_bytes`); the port's own schedule is priced by
+    `audit.executed_comm_bytes`, held to the trace in test_torch_audit.py."""
     grid = GridConfig(*axes, N=512)
     for kind, pivot in (("lu", "tournament"), ("lu", "partial"), ("cholesky", "none")):
         assert (tcm.collective_op_count(kind, 512, grid, pivot)
                 == jcm.collective_op_count(kind, 512, grid, pivot))
         for hotloop in ("windowed", "flat"):
             for itemsize in (2, 4, 8):
-                assert (taudit.executed_comm_bytes(kind, 512, grid, pivot, hotloop, itemsize)
+                assert (taudit.jax_executed_comm_bytes(kind, 512, grid, pivot, hotloop, itemsize)
                         == jaudit.executed_comm_bytes(kind, 512, grid, pivot, hotloop, itemsize))
     assert taudit._ar(100.0, 1) == 0.0 and taudit._ar(100.0, 4) == jaudit._ar(100.0, 4)
 
@@ -246,10 +249,27 @@ def test_predict_wall_on_grids_matches_jax_through_the_shim(case, table, jax_sid
     want = res["predict"][f"{case}/{table}"]
     assert got["terms"].keys() == want["terms"].keys()
     for term, val in want["terms"].items():
-        assert got["terms"][term] == pytest.approx(val, rel=REL), term
-    assert got["wall_us"] == pytest.approx(want["wall_us"], rel=REL)
+        if term != "collective":
+            assert got["terms"][term] == pytest.approx(val, rel=REL), term
     has_coll = table == "auto" and GridConfig(*axes, N=N).P_used > 1
     assert ("collective" in got["terms"]) == has_coll
+    if has_coll:
+        # A stated difference: the port prices its own collectives.
+        grid = GridConfig(*axes, N=N)
+        coll = tcm.load_calibration(paths[table]).collective
+        itemsize = torch.tensor([], dtype=getattr(torch, cfg.effective_compute_dtype)).itemsize
+        wire = taudit.executed_comm_bytes(kind, N, grid, pivot, hotloop, itemsize)["total"]
+        ops = taudit.executed_collective_ops(kind, N, grid, pivot)
+        port = ops * coll.alpha_us + wire * coll.beta_us
+        assert got["terms"]["collective"] == pytest.approx(port, rel=REL)
+        jwire = taudit.jax_executed_comm_bytes(kind, N, grid, pivot, hotloop, itemsize)["total"]
+        jops = tcm.collective_op_count(kind, N, grid, pivot)
+        assert want["terms"]["collective"] == pytest.approx(
+            jops * coll.alpha_us + jwire * coll.beta_us, rel=REL)
+        assert got["wall_us"] == pytest.approx(
+            want["wall_us"] - want["terms"]["collective"] + port, rel=REL)
+    else:
+        assert got["wall_us"] == pytest.approx(want["wall_us"], rel=REL)
 
 
 @pytest.mark.parametrize("N,v", [(64, 8), (256, 32), (1024, 16), (16384, 64)])
@@ -551,7 +571,11 @@ def test_committed_table_was_fitted_on_the_card():
     assert table.device_kind.startswith("NVIDIA"), table.device_kind
     for combo in tcal.COMBOS:
         assert table.covers(*combo), combo
-        assert set(table.fits(*combo)) == set(tcm.PRIMITIVES)
+        keys = set(table.fits(*combo))
+        assert {tcm.split_key(k)[0] for k in keys} == set(tcm.PRIMITIVES)
+        # The kernels' fits are per body (F7); the plain versions have one.
+        bodies = {tcm.split_key(k)[1] for k in keys}
+        assert (bodies == {"any"}) == (combo[0] == "ref"), (combo, keys)
     assert table.collective is None  # one card: no collective fit
     swept = {tuple(s) for s in table.meta["sweep"]}
     assert {(N, v) for N in (1024, 4096, 16384) for v in (8, 16, 32, 64)} <= swept
@@ -560,8 +584,16 @@ def test_committed_table_was_fitted_on_the_card():
     assert table.meta["alpha_scale"] >= 0
     tables = table.tables
     assert table.version == tcm.content_version(tables, None, table.version.rsplit("-", 1)[0])
-    # the JAX package reads it too, and with the same version
-    assert jcm.load_calibration(tcm._DEFAULT_TABLE).to_json() == table.to_json()
+    # Fits with bytes and bodies: the port's own schema, which the JAX
+    # package refuses (a table of its kind would load in both, see
+    # test_a_reference_kind_table_hashes_and_saves_as_the_jax_packages).
+    assert table.schema == tcm.CALIB_SCHEMA_V2
+    assert jcm.load_calibration(tcm._DEFAULT_TABLE) is None
+    # The guard's rows, timed on the card before the table was written:
+    # every guarded cell within 1.25x of v = 32's wall and the fastest width's.
+    rows = table.meta["guard"]
+    assert {(r["N"], r["compute_dtype"]) for r in rows} == set(tcal.GUARD)
+    assert all(r["ok"] and tcal.guard_ok(r) for r in rows)
 
 
 def test_calibrate_fits_a_table_on_the_cpu(tmp_path):
@@ -591,7 +623,8 @@ def test_calibrate_refuses_a_table_whose_guarded_pick_is_slow(ratio, written, tm
     def fake(n, dtype="float32", widths=(32,), rounds=3, device=None, seed=26):
         seen.append((n, dtype, tcm.active_calibration().version))
         return {"N": n, "compute_dtype": dtype, "pick": {"v": 16}, "best_s": {"auto": ratio,
-                "v=32": 1.0}, "auto_over_analytic": ratio}
+                "v=32": 1.0}, "auto_over_analytic": ratio, "fastest": "v=32",
+                "auto_over_fastest": ratio}
 
     monkeypatch.setattr(tcal, "auto_against_widths", fake)
     out = tmp_path / "table.json"
@@ -662,3 +695,187 @@ def test_scale_alphas_rehashes_the_version():
     assert g.alpha_us == 0.5 * f.alpha_us and g.beta_us == f.beta_us
     assert scaled.version != calib.version and scaled.version.startswith("t-")
     assert scaled.meta["alpha_scale"] == 0.5
+
+
+# --- F7: fits that see bytes and the kernel body each step takes. -----------
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16", "float16"])
+@pytest.mark.parametrize("v", [1, 4, 8, 16, 32, 33, 64, 128])
+def test_kernel_body_follows_each_launchers_rule(dtype, v):
+    from repro_torch.kernels import chol_panel, fused_schur, lu_panel, schur_update, trsm
+
+    dt = getattr(torch, dtype)
+    M = C = 64
+
+    def body(prim, **kw):
+        return tcm.kernel_body(prim, dtype, v, "cuda", device=CARD, **kw)
+
+    A = torch.zeros(M, C, dtype=dt)
+    assert body("fused") == fused_schur.stream_mode(
+        A, torch.zeros(v, v, dtype=dt), torch.zeros(v, C, dtype=dt), torch.zeros(M, v, dtype=dt))
+    assert body("schur") == schur_update.stream_mode(
+        A, torch.zeros(M, v, dtype=dt), torch.zeros(v, C, dtype=dt))
+    assert body("trsm", kind="cholesky") == trsm.right_mode(
+        torch.zeros(M, v, dtype=dt), torch.zeros(v, v, dtype=dt))
+    assert body("trsm") == trsm.left_mode(torch.zeros(v, v, dtype=dt))
+    assert body("panel", kind="cholesky") == chol_panel.body(v)
+    for rows in (256, 1024, 4096, 16384, 10**6):
+        assert body("panel", rows=rows) == lu_panel.panel_mode(rows, v, dt)
+        assert body("panel", rows=rows, batched=True) == lu_panel.panel_mode(
+            rows, v, dt, batched=True)
+    for prim in ("gather", "gather_dense"):
+        assert body(prim) == "any"
+    # The plain versions and CPU plans have one body.
+    assert tcm.kernel_body("fused", dtype, v, "ref", device=CARD) == "any"
+    assert tcm.kernel_body("fused", dtype, v, "cuda", device="cpu") == "any"
+
+
+def test_the_path_bodies_of_fault_f7():
+    """f32 at N = 4096: the stream for v <= 32, the plain loads at v = 64."""
+    assert [tcm.kernel_body("fused", "float32", v, "cuda", device=CARD)
+            for v in (8, 16, 32, 64)] == ["tma", "tma", "tma", "plain"]
+    assert [tcm.kernel_body("panel", "float32", v, "cuda", rows=4096, device=CARD)
+            for v in (8, 16, 32, 64)] == ["grid", "grid", "grid", "generic"]
+    assert tcm.kernel_body("fused", "bfloat16", 64, "cuda", device=CARD) == "plain"
+    assert tcm.kernel_body("fused", "float64", 32, "cuda", device=CARD) == "plain"
+
+
+def test_three_term_fit_recovers_synthetic_constants():
+    rng = np.random.default_rng(27)
+    flops = rng.uniform(1e6, 1e10, 12)
+    nbytes = rng.uniform(1e5, 1e9, 12)
+    t = 7.0 + 2e-7 * flops + 3e-6 * nbytes
+    fit = tcm.fit_cost([(f, b, x, 0.0) for f, b, x in zip(flops, nbytes, t)])
+    assert (fit.alpha_us, fit.beta_us, fit.gamma_us) == pytest.approx((7.0, 2e-7, 3e-6),
+                                                                      rel=1e-6)
+    assert fit.n_samples == 12 and fit.body == "any"
+    # Non-negative: a term that would come out negative is dropped.
+    t2 = 7.0 + 2e-7 * flops - 1e-9 * nbytes
+    fit2 = tcm.fit_cost([(f, b, x, 0.0) for f, b, x in zip(flops, nbytes, t2)])
+    assert min(fit2.alpha_us, fit2.beta_us, fit2.gamma_us) >= 0.0 and fit2.gamma_us == 0.0
+    # Noisy samples weigh less.
+    noisy = [(f, b, x * (3.0 if i == 0 else 1.0), 9.0 if i == 0 else 0.0)
+             for i, (f, b, x) in enumerate(zip(flops, nbytes, t))]
+    assert tcm.fit_cost(noisy).predict(1e9, 1e8) == pytest.approx(
+        7.0 + 2e-7 * 1e9 + 3e-6 * 1e8, rel=0.05)
+    with pytest.raises(ValueError):
+        tcm.fit_cost([(0.0, 0.0, 1.0, 0.0)])
+
+
+def _byte_bound_table():
+    """A card table whose v <= 32 `fused_trsm_schur` bodies are byte-bound
+    streams (3.35 TB/s) and whose v = 64 body, the plain loads, runs its flops
+    at 10 TFLOP/s: what the H100 does, in round numbers."""
+    per_byte, per_flop = 1 / 3.35e6, 1 / 10e6  # us
+    fits = {
+        "panel@block": tcm.PrimitiveFit(20.0, 0.0, 3, gamma_us=per_byte, body="block"),
+        "panel@grid": tcm.PrimitiveFit(20.0, 0.0, 6, gamma_us=per_byte, body="grid"),
+        "panel@generic": tcm.PrimitiveFit(200.0, 0.0, 3, gamma_us=per_byte, body="generic"),
+        "fused@tma": tcm.PrimitiveFit(10.0, 0.0, 9, gamma_us=per_byte, body="tma"),
+        "fused@plain": tcm.PrimitiveFit(10.0, per_flop, 3, body="plain"),
+        "gather": tcm.PrimitiveFit(5.0, 0.0, 12, gamma_us=per_byte),
+    }
+    tables = {("cuda", "float32"): fits}
+    return tcm.Calibration(tcm.content_version(tables, None, "bytes"), H100, tables)
+
+
+@pytest.mark.parametrize("N", [4096, 16384])
+def test_a_byte_bound_table_picks_v32(N, card_kind):
+    table = _byte_bound_table()
+    assert table.schema == tcm.CALIB_SCHEMA_V2
+    walls = {v: tcm.predict_wall(N, SolverConfig(backend="cuda"), v=v, backend="cuda",
+                                 calibration=table, device=CARD)["wall_us"]
+             for v in (8, 16, 32, 64)}
+    choice = tcm.autotune_choice(N, SolverConfig(), n_dev=1, calibration=table, device=CARD)
+    assert choice["v"] == 32 == min(walls, key=walls.get)
+    assert walls[64] > walls[32]
+
+
+def test_a_body_without_a_fit_leaves_the_candidate_unscored(card_kind):
+    table = _byte_bound_table()
+    fits = dict(table.fits("cuda", "float32"))
+    del fits["fused@plain"]  # no fit of the plain loads, and no body-agnostic one
+    tables = {("cuda", "float32"): fits}
+    partial = tcm.Calibration(tcm.content_version(tables, None, "nop"), H100, tables)
+    cfg = SolverConfig(backend="cuda")
+    assert tcm.predict_wall(4096, cfg, v=64, backend="cuda", calibration=partial,
+                            device=CARD) is None
+    assert tcm.predict_wall(4096, cfg, v=32, backend="cuda", calibration=partial,
+                            device=CARD) is not None
+    choice = tcm.autotune_choice(4096, SolverConfig(), n_dev=1, calibration=partial,
+                                 device=CARD)
+    assert choice["n_scored"] == choice["n_candidates"] - 1 and choice["v"] != 64
+    # A body-agnostic fit prices every body (a table fitted without bodies).
+    fits["fused"] = tcm.PrimitiveFit(10.0, 1e-7)
+    agnostic = tcm.Calibration("agnostic-1", H100, {("cuda", "float32"): fits})
+    assert tcm.predict_wall(4096, cfg, v=64, backend="cuda", calibration=agnostic,
+                            device=CARD) is not None
+
+
+def test_a_reference_kind_table_hashes_and_saves_as_the_jax_packages(tmp_path):
+    samples = {("ref", "float32"): {p: _seeded_samples(i, 6)
+                                    for i, p in enumerate(tcm.PRIMITIVES)}}
+    t = tcm.fit_calibration(samples, "cpu", tag="full")
+    j = jcm.fit_calibration(samples, "cpu", tag="full")
+    assert t.version == j.version and t.schema == tcm.CALIB_SCHEMA == jcm.CALIB_SCHEMA
+    assert all(f.gamma_us == 0.0 and f.body == "any" for f in t.fits("ref", "float32").values())
+    assert t.to_json()["tables"] == j.to_json()["tables"]
+    # A fit with a byte term or a body: the port's own schema, and it round-trips.
+    key = tcm.fit_key("fused", "tma")
+    three = {("cuda", "float32"): {key: [(1e9, 1e8, 50.0, 0.1), (2e9, 3e8, 110.0, 0.0),
+                                         (4e9, 2e8, 140.0, 0.2)]}}
+    v2 = tcm.fit_calibration(three, "cpu", tag="full")
+    fit = v2.fits("cuda", "float32")[key]
+    assert fit.body == "tma" and v2.schema == tcm.CALIB_SCHEMA_V2
+    path = tmp_path / "v2.json"
+    v2.save(str(path))
+    back = tcm.load_calibration(str(path))
+    assert back.fits("cuda", "float32")[key] == fit and back.version == v2.version
+
+
+def test_profile_cost_points_are_keyed_by_body():
+    p = plan(64, SolverConfig(strategy="sequential", v=16), device="cpu")
+    t = p.profile_hotloop(repeats=1)
+    bodies = {"panel": "grid", "fused": "tma"}
+    pts = tcm.profile_cost_points(t, "lu", 4, bodies)
+    assert {"panel@grid", "fused@tma", "trsm", "schur", "gather", "gather_dense"} == set(pts)
+    work, nbytes, us, _ = pts["fused@tma"]
+    sh = t["shapes"]
+    assert work == tcm.primitive_work("fused", "lu", **sh)
+    assert nbytes == tcm.primitive_bytes("fused", "lu", itemsize=4, **sh) == 4 * (
+        2 * 64 * 64 + 16 * 16 + 2 * 16 * 64 + 64 * 16)
+    # On the CPU every wrapper reports no body: the samples are "any".
+    tcm.reset_bodies("lu")
+    assert set(tcm.observed_bodies("lu").values()) == {"any"}
+
+
+def test_the_guard_holds_the_pick_to_the_fastest_width(tmp_path, monkeypatch):
+    """The stricter guard: within AUTOTUNE_TOLERANCE of v = 32 is not enough
+    when another width is faster still."""
+    def fake(n, dtype="float32", widths=(32,), rounds=3, device=None, seed=26):
+        assert set(widths) == set(tcm._sequential_v_candidates(n, None))
+        return {"N": n, "compute_dtype": dtype, "pick": {"v": 32}, "best_s": {},
+                "auto_over_analytic": 1.0, "fastest": "v=16", "auto_over_fastest": 1.3}
+
+    monkeypatch.setattr(tcal, "auto_against_widths", fake)
+    out = tmp_path / "table.json"
+    with pytest.raises(tcal.CalibrationRefused):
+        tcal.calibrate(out_path=str(out), combos=(("cuda", "float32"),),
+                       shapes=((32, 8), (64, 16)), probes=((64, 16),), repeats=1,
+                       device="cpu", guard=((64, "float32"),))
+    assert not out.exists()
+    assert (4096, "float32") in tcal.GUARD and (16384, "float32") in tcal.GUARD
+
+
+def test_the_committed_tables_picks_on_the_card(card_kind):
+    """F7: the card's table picks v = 32 at N = 4096 as at 16384 (f32,
+    bf16), inside its alpha-scale range with room on both sides."""
+    table = tcm.load_calibration(tcm._DEFAULT_TABLE)
+    for n, dtype in ((4096, "float32"), (16384, "float32"), (16384, "bfloat16")):
+        kw = tcal._config_kw(dtype)
+        choice = tcm.autotune_choice(n, SolverConfig(**kw), n_dev=1, calibration=table,
+                                     device=CARD)
+        assert (choice["v"], choice["backend"]) == (32, "cuda"), (n, dtype)
+        rng = tcal.pick_alpha_range(table, n, dtype, CARD)
+        assert rng["v"] == 32 and rng["lo"] < 0.5 * rng["alpha_scale"]
+        assert rng["hi"] is None or rng["hi"] > 2 * rng["alpha_scale"]
