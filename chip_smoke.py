@@ -64,12 +64,25 @@ each kernel against its plain PyTorch version on the card:
   collectives; and, in the eight-rank run, each rank's traced collective
   bytes against the port's executed model beside the schedule's volume and
   the X-partitioning lower bound;
+- engines on the distributed strategies (module item 8): `SolveEngine` on
+  conflux (N), cholesky25d (N, SPD) and baseline2d (4096) on 1x1x1 grids,
+  each `solve` launching what one `plan(...).execute(A)` launches and
+  answering its x bit for bit, then ragged requests through
+  `flush_systems` and `AsyncSolveEngine` on the batched kernels alone;
+  and, on the eight gloo ranks at N = 2048, engines on the default config,
+  conflux, cholesky25d and baseline2d and an async one on conflux, every
+  answer bit-identical across the ranks;
 - the LM serving path at full width and depth, bf16, random weights from a
   seeded `torch.Generator` on the card: `ServeEngine` on qwen3-8b (36
   layers, kernel `flash_attention` once per layer of each prefill) and on
   falcon-mamba-7b (64 layers, kernel `mamba_scan` likewise), 2048-token
   prompts and 32 greedy tokens; and the first four groups of each with
-  `backend="cuda"` against `backend="ref"`.
+  `backend="cuda"` against `backend="ref"`;
+- the MoE archs at full width, depth cut to the card: qwen3-moe-235b-a22b
+  (8 of 94 layers) and jamba-v0.1-52b (8 of 32: one period, whose prefill
+  runs `flash_attention` once and `mamba_scan` seven times) served as
+  above; and each in f32 (qwen3-moe at 4 layers, jamba at 8) on the kernel
+  path against the plain path, logits within 2e-4 of max|logits|.
 
 Before the paths, `lu_panel` and `lu_panel_batched` are held bit for bit at
 the edges of their CUDA bodies, in f64 and on panels with NaN and infinite
@@ -160,6 +173,23 @@ HOTLOOP_REPEATS = 3
 LM_SERVE = (("qwen3-8b", 4), ("falcon-mamba-7b", 2))
 LM_PROMPT, LM_NEW = 2048, 32
 LM_PLAIN_GROUPS, LM_PLAIN_S, LM_PLAIN_B, LM_PLAIN_NEW = 4, 1024, 2, 8
+# The MoE archs (module item 13), full published widths in bf16, depth cut
+# to fit one 80 GB card: (arch, batch, layers, phase suffix).  qwen3-moe's
+# layer holds about 2.49 B parameters (its experts 2.42 B): 8 of its 94
+# layers and the untied embed and head make about 42 GB.  jamba's 8 layers
+# are one whole period of its pattern (1 attention, 7 mamba, 4 MoE layers;
+# about 12.9 B parameters, 26 GB).  llama4 runs on the CPU tests only.
+LM_SERVE_MOE = (("qwen3-moe-235b-a22b", 4, 8, "qwen3_moe"), ("jamba-v0.1-52b", 2, 8, "jamba"))
+# Their kernel path against the plain path runs in f32, one model at a time
+# (qwen3-moe at 4 layers, about 45 GB; jamba at one group, about 53 GB):
+# in bf16 the paths' attention differs by 1.4-1.8% of the largest logit
+# (the dense archs' bf16 lm_plain_check), enough to flip a top-8-of-128
+# routing choice, whose neighbouring router probabilities lie about 0.06
+# apart, and a flip changes a token's output discontinuously.  In f32 the two paths sum the
+# same terms in other orders, so the CPU tests' f32 tolerance, 2e-4 of
+# max|logits|, is the bound: (arch, layers).
+LM_PLAIN_MOE = (("qwen3-moe-235b-a22b", 4), ("jamba-v0.1-52b", 8))
+LM_MOE_LOGIT_REL_TOL = 2e-4
 # flash_attention against its plain version (dense softmax): in f32 the two
 # sum the same terms in other orders, so 2e-4 (rtol and atol), the CPU
 # tests' f32 tolerance.  In bf16 2e-2, the tolerance of
@@ -278,6 +308,25 @@ PORT_KERNELS = ("lu_panel_", "fused_trsm_schur_", "chol_panel_", "trsm_", "schur
                 "flash_fwd_", "mamba_scan_")
 
 
+KERNEL_CLASSES = (  # (class, lower-case name fragments), first match wins
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_", "sm80_")),
+    ("sort", ("sort", "radix", "scan_by_key")),
+    ("gather_scatter_index", ("gather", "scatter", "index", "take")),
+    ("reduce", ("reduce",)),
+    ("copy_fill", ("copy", "memcpy", "memset", "fill", "cat_")),
+)
+
+
+def kernel_class(name: str) -> str:
+    """A device record's class for the profiles' breakdown: "port" for the
+    port's kernels, a library class by its name, else "elementwise"."""
+    if name.startswith(PORT_KERNELS):
+        return "port"
+    low = name.lower()
+    return next((c for c, parts in KERNEL_CLASSES if any(p in low for p in parts)),
+                "elementwise")
+
+
 def profile_once(fn) -> dict:
     """Wall time, device busy time, idle share, top kernels and every kernel
     of the port of one call under torch.profiler."""
@@ -302,9 +351,16 @@ def profile_once(fn) -> dict:
             entry[1] += 1
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    classes: dict[str, list] = {}
+    for k, (ms, n) in by_kernel.items():
+        entry = classes.setdefault(kernel_class(k), [0.0, 0])
+        entry[0] += ms
+        entry[1] += n
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top": [{"kernel": k, "ms": ms, "count": n} for k, (ms, n) in top],
+            "classes": {c: {"ms": ms, "count": n} for c, (ms, n) in
+                        sorted(classes.items(), key=lambda kv: -kv[1][0])},
             "port_kernels": [{"kernel": k, "ms": ms, "count": n}
                              for k, (ms, n) in by_kernel.items() if k.startswith(PORT_KERNELS)]}
 
@@ -1485,6 +1541,14 @@ GRID_CASES = (  # (name, strategy, N, hotloop, backend, compute dtype)
     ("cholesky25d_flat_bf16_plain", "cholesky25d", 2048, "flat", "ref", "bfloat16"),
 )
 GRID_TIMEOUT_S = 420  # all ranks together, from spawn to exit
+# Engines on the 8-rank group (module item 8) at N = 2048: the default
+# config (resolved as `plan()` resolves it here: the calibrated `auto`), and
+# conflux 2x2x2, cholesky25d 2x2x2 and baseline2d on explicit grids;
+# (name, strategy or None for SolverConfig()).
+GRID_ENGINE_N = 2048
+GRID_ENGINE_CASES = (("engine_default", None), ("engine_conflux", "conflux"),
+                     ("engine_cholesky25d", "cholesky25d"), ("engine_baseline2d", "baseline2d"))
+GRID_ENGINE_RHS, GRID_ASYNC_RHS = 4, 8
 
 
 def trsm_left_lower_rows(dev, gen) -> list[dict]:
@@ -1682,6 +1746,159 @@ def conflux_p1_plain_1024(dev) -> None:
         raise AssertionError(f"conflux at N={n}: {check}")
 
 
+# Engines on the distributed strategies (module item 8), one process: a
+# 1x1x1 grid at the full N for conflux (windowed) and cholesky25d (SPD A),
+# and at 4096 for baseline2d, whose partial pivoting makes a step per
+# column.  Ragged requests at n in SERVE_MIN_N..SERVE_N ride each engine's
+# batched sequential sibling (64 systems at N would need 68 GB).
+P1_ENGINE_CASES = (("conflux", N), ("cholesky25d", N), ("baseline2d", 4096))
+# The launches of one 1x1x1 windowed execute of n / v steps, by strategy:
+# conflux factors each panel twice (the tournament, then the pivoted panel),
+# cholesky25d factors its diagonal block once, and baseline2d pivots its
+# panel column by column in plain PyTorch, so it launches no `lu_panel`.
+P1_ENGINE_LAUNCHES = {
+    "conflux": lambda steps: dict(lu_panel=2 * steps, trsm_right_upper=steps,
+                                  fused_trsm_schur=steps),
+    "cholesky25d": lambda steps: dict(chol_panel=steps, trsm_right_upper=steps,
+                                      fused_trsm_schur=steps),
+    "baseline2d": lambda steps: dict(trsm_right_upper=steps, fused_trsm_schur=steps),
+}
+P1_ENGINE_RHS, P1_RAGGED = 4, 64
+LU_BATCHED_KERNELS = ("lu_panel_batched", "fused_trsm_schur_batched")
+
+
+def _only_batched(launches: dict, kernels) -> bool:
+    """Every kernel of `kernels` launched, and no other."""
+    return (all(launches[k] > 0 for k in kernels)
+            and not any(c for k, c in launches.items() if k not in kernels))
+
+
+def serving_distributed_p1(dev) -> dict:
+    """`SolveEngine` and `AsyncSolveEngine` on the distributed strategies,
+    each on a 1x1x1 grid in this process, through the entry points.
+
+    Per engine: `solve(A, b)`, `resolve(2 b)` and P1_ENGINE_RHS RHS through
+    `submit` / `flush`.  The solve's launches must equal those of one
+    `plan(n, same config).execute(A)` and the closed form of
+    P1_ENGINE_LAUNCHES (for conflux `conflux_p1_path`'s: 2 n / v `lu_panel`
+    at Px = 1), its x must equal that
+    plan's `solve(b)` bit for bit, every answer's HPL residual must be
+    under 16, and `stats()` must name the strategy and grid with 1
+    factorization and 2 solves (6 after the flush).  Then P1_RAGGED ragged
+    requests through `submit_system` / `flush_systems`, and an
+    `AsyncSolveEngine` on the same config (`engine.factor(A)`, then the RHS
+    through `submit_rhs` and the requests again as whole systems): only
+    the batched kernels of the engine's kind may launch there.  Returns the
+    solves' launches by strategy.  Draws from a generator of its own."""
+    import numpy as np
+    from repro_torch.api import GridConfig, SolverConfig, plan
+    from repro_torch.serving import AsyncSolveEngine, SolveEngine
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    out = {}
+    for i, (strategy, n) in enumerate(P1_ENGINE_CASES):
+        chol = strategy == "cholesky25d"
+        cfg = SolverConfig(strategy=strategy, grid=GridConfig(1, 1, 1, CONFLUX_V, n))
+        A = spd((n, n), gen, dev) if chol else torch.randn(n, n, generator=gen, device=dev)
+        b = torch.randn(n, generator=gen, device=dev)
+        rhs = torch.randn(P1_ENGINE_RHS, n, generator=gen, device=dev)
+        p = plan(n, cfg)
+        reset_launches()
+        fact = p.execute(A)
+        torch.cuda.synchronize()
+        plan_launches = read_launches()
+        x_plan = fact.solve(b)
+        del fact
+        eng = SolveEngine(n, cfg)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = eng.solve(A, b)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = read_launches()
+        x2 = eng.resolve(2 * b)
+        st = eng.stats()
+        tickets = [eng.submit(r) for r in rhs]
+        flushed = eng.flush()
+        st_flush = eng.stats()
+        resid = {"solve": hpl_residual(A, x, b), "resolve": hpl_residual(A, x2, 2 * b),
+                 "flush": max(hpl_residual(A, flushed[t], r) for t, r in zip(tickets, rhs))}
+        steps = n // CONFLUX_V
+        want = expected_launches(**P1_ENGINE_LAUNCHES[strategy](steps))
+        problems = []
+        if not (launches == plan_launches == want):
+            problems.append(f"launches {launches}, plan's {plan_launches}, want {want}")
+        if not same_bits(x, x_plan):
+            problems.append("x differs from plan(...).execute(A).solve(b)")
+        if not max(resid.values()) < HPL_RESIDUAL_MAX:
+            problems.append(f"HPL residuals {resid}")
+        if (st["strategy"], st["grid"], st["factorizations"], st["solves"]) != (
+                strategy, str(GridConfig(1, 1, 1, CONFLUX_V, n)), 1, 2):
+            problems.append(f"stats after solve + resolve {st}")
+        if (st_flush["solves"], st_flush["batched_rhs"]) != (2 + P1_ENGINE_RHS, P1_ENGINE_RHS):
+            problems.append(f"stats after the flush {st_flush}")
+        emit("serving_distributed_p1", strategy=strategy, N=n, grid=st["grid"],
+             solve_s=solve_s, factor_s=st["factor_s_total"], launches={k: c for k, c in
+                                                                         launches.items() if c},
+             x_bit_identical_plan=same_bits(x, x_plan), hpl_residual=resid,
+             stats={k: st_flush[k] for k in ("strategy", "grid", "factorizations", "solves",
+                                             "batched_solves", "batched_rhs")})
+        del x, x2, x_plan, flushed
+
+        # Ragged whole systems on the batched sibling, sync then async.
+        kernels = CHOL_BATCHED_KERNELS if chol else LU_BATCHED_KERNELS
+        requests = (_spd_requests if chol else _requests)(np.random.default_rng(40 + i),
+                                                          P1_RAGGED)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tickets = [eng.submit_system(Ar, br) for Ar, br in requests]
+        answers = eng.flush_systems()
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        sync_launches = read_launches()
+        sync_resid = _check_answers(requests, [answers[t] for t in tickets],
+                                    f"serving_distributed_p1 {strategy}")
+        a = AsyncSolveEngine(n, cfg, max_batch=ASYNC_MAX_BATCH, max_delay_ms=ASYNC_DELAY_MS)
+        a.engine.factor(A)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rhs_futs = [a.submit_rhs(r) for r in rhs]
+        sys_futs = [a.submit(Ar, br) for Ar, br in requests]
+        rhs_x = [f.result(timeout=300) for f in rhs_futs]
+        sys_x = [f.result(timeout=300) for f in sys_futs]
+        torch.cuda.synchronize()
+        async_s = time.perf_counter() - t0
+        a.close()
+        async_launches = read_launches()
+        ast = a.stats()["async"]
+        async_resid = max(_check_answers(requests, sys_x, f"serving_distributed_p1 async "
+                                                          f"{strategy}"),
+                          max(hpl_residual(A, xr, r) for xr, r in zip(rhs_x, rhs)))
+        emit("serving_distributed_p1_ragged", strategy=strategy, N=n, requests=P1_RAGGED,
+             sync_s=sync_s, sync_launches={k: c for k, c in sync_launches.items() if c},
+             sync_hpl_residual_max=sync_resid, async_s=async_s,
+             async_launches={k: c for k, c in async_launches.items() if c},
+             async_hpl_residual_max=async_resid, async_served=ast["served"],
+             async_flushes=ast["flushes"], async_failed=ast["failed"])
+        if not _only_batched(sync_launches, kernels):
+            problems.append(f"flush_systems launched {sync_launches}, want only {kernels}")
+        if not _only_batched(async_launches, kernels):
+            problems.append(f"the async engine launched {async_launches}, want only {kernels}")
+        if ast["served"] != P1_RAGGED + P1_ENGINE_RHS or ast["failed"] or not (
+                async_resid < HPL_RESIDUAL_MAX):
+            problems.append(f"async served {ast['served']}, failed {ast['failed']}, HPL "
+                            f"{async_resid}")
+        if problems:
+            raise AssertionError(f"serving_distributed_p1 {strategy}: " + "; ".join(problems))
+        out[strategy] = launches
+        del eng, a, A, b, rhs, rhs_x, sys_x, answers
+        torch.cuda.empty_cache()
+    return out
+
+
 def _grid_rank(rank: int, out_dir: str, device: str) -> None:
     """One of GRID_WORLD ranks, all on one device: runs GRID_CASES through the
     entry points and writes what it saw to out_dir/rank<r>.json.  The ranks
@@ -1709,13 +1926,7 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
     try:
         for name, strategy, n, hotloop, backend, compute in GRID_CASES:
             gen = torch.Generator(device=dev).manual_seed(n)  # alike on every rank
-            if strategy == "cholesky25d":
-                A = spd((n, n), gen, dev)
-            elif compute:
-                A = well_conditioned((n, n), gen, dev)
-            else:
-                A = torch.randn(n, n, generator=gen, device=dev)
-            b = torch.randn(n, generator=gen, device=dev)
+            A, b = _grid_inputs(strategy, n, compute, gen, dev)
             grid = (scalapack2d_grid(n, GRID_WORLD, v=CONFLUX_V) if strategy == "baseline2d"
                     else GridConfig(2, 2, 2, CONFLUX_V, n))
             shape = (grid.Px, grid.Py, grid.c)
@@ -1771,12 +1982,96 @@ def _grid_rank(rank: int, out_dir: str, device: str) -> None:
                     "F_max_abs_err": err, "tol": mixed_path_tol(fact.F),
                 }
             del p, fact, x, A
+        out["engines"] = _grid_engines(dev)
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
-def grid_8ranks(device: str = "cuda:0") -> None:
+def _grid_inputs(strategy: str, n: int, compute, gen, dev):
+    """(A, b) of a GRID_CASES case, drawn alike on every rank: SPD for
+    cholesky25d, `well_conditioned` for a 2-byte compute dtype, else
+    standard normal."""
+    if strategy == "cholesky25d":
+        A = spd((n, n), gen, dev)
+    elif compute:
+        A = well_conditioned((n, n), gen, dev)
+    else:
+        A = torch.randn(n, n, generator=gen, device=dev)
+    return A, torch.randn(n, generator=gen, device=dev)
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def _grid_engines(dev) -> dict:
+    """One rank's engine cases (GRID_ENGINE_CASES) on the 8-rank group:
+    `solve` + `resolve(2 b)` + a GRID_ENGINE_RHS-RHS `flush` each, and an
+    `AsyncSolveEngine` on the explicit conflux grid (`engine.factor(A)` on
+    every rank, then GRID_ASYNC_RHS `submit_rhs` futures).  Each case's x
+    is held against `plan(N, config).execute(A).solve(b)` on the same A
+    and b, run here.  Returns digests,
+    HPL residuals and the resolved strategy and grid per case."""
+    import torch.distributed as dist
+    from repro_torch.api import GridConfig, SolverConfig, plan
+    from repro_torch.core.lu.baseline2d import scalapack2d_grid
+    from repro_torch.serving import AsyncSolveEngine, SolveEngine
+
+    n = GRID_ENGINE_N
+    out = {}
+    for name, strategy in GRID_ENGINE_CASES:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        A, b = _grid_inputs(strategy or "conflux", n, None, gen, dev)
+        rhs = torch.randn(GRID_ASYNC_RHS, n, generator=gen, device=dev)
+        if strategy is None:
+            cfg = SolverConfig()
+        else:
+            grid = (scalapack2d_grid(n, GRID_WORLD, v=CONFLUX_V) if strategy == "baseline2d"
+                    else GridConfig(2, 2, 2, CONFLUX_V, n))
+            cfg = SolverConfig(strategy=strategy, grid=grid)
+        eng = SolveEngine(n, cfg, device=dev)
+        dist.barrier()
+        reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        x = eng.solve(A, b)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        solve_s = time.perf_counter() - t0
+        launches = {k: c for k, c in read_launches().items() if c}
+        x2 = eng.resolve(2 * b)
+        tickets = [eng.submit(r) for r in rhs[:GRID_ENGINE_RHS]]
+        flushed = eng.flush()
+        flushed = torch.stack([flushed[t] for t in tickets])
+        x_ref = plan(n, cfg, device=dev).execute(A).solve(b)
+        st = eng.stats()
+        case = {"strategy": st["strategy"], "grid": st["grid"], "solve_s": solve_s,
+                "launches": launches,
+                "x_equals_plan": same_bits(x, x_ref),
+                "digests": {"x": _digest(x), "resolve": _digest(x2), "flush": _digest(flushed)},
+                "hpl_residual": max([hpl_residual(A, x, b), hpl_residual(A, x2, 2 * b)]
+                                    + [hpl_residual(A, xf, r) for xf, r in zip(flushed, rhs)])}
+        if strategy == "conflux":
+            a = AsyncSolveEngine(n, cfg, device=dev, max_batch=GRID_ASYNC_RHS,
+                                 max_delay_ms=ASYNC_DELAY_MS)
+            a.engine.factor(A)
+            futs = [a.submit_rhs(r) for r in rhs]
+            xs = torch.stack([f.result(timeout=120) for f in futs])
+            a.close()
+            case["digests"]["async_rhs"] = _digest(xs)
+            case["hpl_residual"] = max([case["hpl_residual"]]
+                                       + [hpl_residual(A, xf, r) for xf, r in zip(xs, rhs)])
+            case["async_served"] = a.stats()["async"]["served"]
+        out[name] = case
+        del eng, A, b, x, x2, flushed, x_ref
+    return out
+
+
+def grid_8ranks(device: str = "cuda:0") -> dict:
     """GRID_WORLD ranks share cuda:0 through gloo and run GRID_CASES; every
     rank must return the same F and rows with HPL < 16, and the kernel path
     must pick the plain path's pivots at N = 1024 and in bf16, where its F
@@ -1787,7 +2082,14 @@ def grid_8ranks(device: str = "cuda:0") -> None:
     exactly, site by site, and every group's ranks must issue the same
     collectives (`audit.check_mesh_uniformity`); the lines give them beside
     the schedule's volume and the X-partitioning bound.  A rank that fails
-    or outlives GRID_TIMEOUT_S fails the phase."""
+    or outlives GRID_TIMEOUT_S fails the phase.
+
+    Then each rank serves GRID_ENGINE_CASES (module item 8): every answer
+    of an engine (`solve`, `resolve`, the flushed RHS, the async futures)
+    must be bit-identical across the ranks with HPL < 16, its `solve` x
+    bit-identical to that rank's `plan(...).execute(A).solve(b)`, and the
+    default config must resolve alike on every rank.  Returns rank 0's
+    launches of each engine's `solve`."""
     import multiprocessing as mp
     import tempfile
 
@@ -1870,6 +2172,30 @@ def grid_8ranks(device: str = "cuda:0") -> None:
             if any(x["launches"].get("trsm_left_lower") != steps for x in per):
                 problems.append(f"{name}: trsm_left_lower launches per rank "
                                 f"{[x['launches'].get('trsm_left_lower') for x in per]} != {steps}")
+    for name, strategy in GRID_ENGINE_CASES:
+        per = [r["engines"][name] for r in ranks]
+        same = len({json.dumps(x["digests"], sort_keys=True) for x in per}) == 1
+        resolved = {(x["strategy"], x["grid"]) for x in per}
+        hpl = max(x["hpl_residual"] for x in per)
+        emit("grid_8ranks_engine", case=name, N=GRID_ENGINE_N,
+             config="SolverConfig()" if strategy is None else strategy,
+             strategy=per[0]["strategy"], grid=per[0]["grid"], ranks_agree=len(resolved) == 1,
+             answers_bit_identical_across_ranks=same,
+             x_bit_identical_plan=[x["x_equals_plan"] for x in per],
+             hpl_residual_max=hpl,
+             solve_s=max(x["solve_s"] for x in per), launches_rank0=per[0]["launches"],
+             async_served=[x.get("async_served") for x in per] if strategy == "conflux"
+             else None)
+        if not (same and len(resolved) == 1 and all(x["x_equals_plan"] for x in per)
+                and hpl < HPL_RESIDUAL_MAX):
+            problems.append(f"{name}: answers identical {same}, resolved {resolved}, x equal "
+                            f"to the plan's {[x['x_equals_plan'] for x in per]}, HPL {hpl}")
+        if strategy is not None and per[0]["strategy"] != strategy:
+            problems.append(f"{name}: the engine runs {per[0]['strategy']!r}")
+        if not all(x["launches"] for x in per):  # the factorization ran the kernels
+            problems.append(f"{name}: launches per rank {[x['launches'] for x in per]}")
+        if strategy == "conflux" and any(x["async_served"] != GRID_ASYNC_RHS for x in per):
+            problems.append(f"{name}: async served {[x['async_served'] for x in per]}")
     for hotloop in ("windowed", "flat"):
         k = ranks[0][f"conflux_{hotloop}_1024"]["rows_list"]
         p_ = ranks[0][f"conflux_{hotloop}_1024_plain"]["rows_list"]
@@ -1879,6 +2205,8 @@ def grid_8ranks(device: str = "cuda:0") -> None:
     emit("grid_8ranks_total", ranks=GRID_WORLD, seconds=spawn_s)
     if problems:
         raise AssertionError("grid_8ranks: " + "; ".join(problems))
+    return {f"grid_8ranks[{name}]": ranks[0]["engines"][name]["launches"]
+            for name, _ in GRID_ENGINE_CASES}
 
 
 # --------------------------------------------------------------------------
@@ -1939,7 +2267,9 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
     # ragged S, bidirectional, and the attention shapes of four more configs
     # in configs/ at S = 2048: hubert-xlarge (hd = 80, bidirectional),
     # phi3-mini (hd = 96), starcoder2-15b (48 / 4 heads: gq = 12) and
-    # llama4-maverick (40 / 8: gq = 5; neither divides a 128-row tile).
+    # llama4-maverick (40 / 8: gq = 5; neither divides a 128-row tile), and
+    # qwen3-moe-235b-a22b's prefill as lm_serve_qwen3_moe gives it (64 / 4:
+    # gq = 16, B = 4).
     cases = ((4, LM_PROMPT, 32, 8, 128, torch.bfloat16, True, None, None),
              (1, 1024, 32, 8, 128, torch.float32, True, None, None),
              (1, LM_PROMPT, 16, 8, 256, torch.bfloat16, True, 512, 50.0),
@@ -1947,7 +2277,8 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
              (1, LM_PROMPT, 16, 16, 80, torch.bfloat16, False, None, None),
              (1, LM_PROMPT, 32, 32, 96, torch.bfloat16, True, None, None),
              (1, LM_PROMPT, 48, 4, 128, torch.bfloat16, True, None, None),
-             (1, LM_PROMPT, 40, 8, 128, torch.bfloat16, True, None, None))
+             (1, LM_PROMPT, 40, 8, 128, torch.bfloat16, True, None, None),
+             (4, LM_PROMPT, 64, 4, 128, torch.bfloat16, True, None, None))
     for B, S, H, KV, hd, dt, causal, window, softcap in cases:
         q = torch.randn(B, S, H, hd, generator=gen, device=dev, dtype=dt)
         k = torch.randn(B, S, KV, hd, generator=gen, device=dev, dtype=dt)
@@ -2032,19 +2363,25 @@ def _mixer_layers(cfg, kind: str) -> int:
     return cfg.n_groups * sum(1 for s in cfg.pattern if s.mixer.startswith(kind))
 
 
-def lm_serve(arch: str, batch: int) -> dict:
-    """`ServeEngine.generate` on the full model through the entry points:
-    B seeded 2048-token prompts, 32 greedy tokens.  The counted run must
-    launch each mixer's kernel once per layer of the prefill and nothing in
-    the decode steps.  Returns the launches of the counted run."""
+def lm_serve(arch: str, batch: int, layers: int | None = None, short: str | None = None) -> dict:
+    """`ServeEngine.generate` on the full-width model through the entry
+    points: B seeded 2048-token prompts, 32 greedy tokens; all published
+    layers, or the first `layers`.  The counted run must launch each
+    mixer's kernel once per layer of the prefill and nothing in the decode
+    steps, within the card's memory.  Returns the launches of the counted
+    run."""
+    import dataclasses
     import gc
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import SamplerConfig, ServeEngine
 
-    phase = "lm_serve_" + arch.split("-")[0].replace("falcon", "falcon_mamba")
+    phase = "lm_serve_" + (short or arch.split("-")[0].replace("falcon", "falcon_mamba"))
     cfg = get_config(arch)
+    published_layers = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = build_model(cfg, seed=0)
@@ -2069,7 +2406,8 @@ def lm_serve(arch: str, batch: int) -> dict:
     expected = expected_launches(flash_attention=n_attn, mamba_scan=n_mamba)
     tokens_ok = (len(outs) == batch and all(len(o) == LM_NEW for o in outs)
                  and all(0 <= t < cfg.vocab for o in outs for t in o))
-    emit(phase, arch=arch, layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+    emit(phase, arch=arch, layers=cfg.n_layers, published_layers=published_layers,
+         d_model=cfg.d_model, params=n_params,
          param_gib=sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30,
          dtype=str(model.dtype), backend=model.backend, build_s=build_s, batch=batch,
          prompt_len=LM_PROMPT, new_tokens=LM_NEW, prefill_s=stats["prefill_s"],
@@ -2084,6 +2422,8 @@ def lm_serve(arch: str, batch: int) -> dict:
                              f"{stats['decode_steps']} decode steps, got {launches}")
     if not tokens_ok:
         raise AssertionError(f"{arch}: generate returned {[len(o) for o in outs]} tokens")
+    if not peak_gib < torch.cuda.get_device_properties(0).total_memory / 2**30:
+        raise AssertionError(f"{arch}: peak memory {peak_gib} GiB")
 
     # Where the time goes: one more prefill and one decode step after it,
     # each under the profiler; the decode step must launch no kernel.
@@ -2109,11 +2449,13 @@ def lm_serve(arch: str, batch: int) -> dict:
     return launches
 
 
-def lm_plain_check(arch: str) -> None:
-    """The first LM_PLAIN_GROUPS groups of the full-width model, kernel path
+def lm_plain_check(arch: str, layers: int | None = None, dtype=None,
+                   tol: float = LM_LOGIT_REL_TOL) -> None:
+    """The first LM_PLAIN_GROUPS groups (or `layers` layers) of the
+    full-width model in its parameter dtype (or `dtype`), kernel path
     against plain path (backend "ref") on the card, same weights: prefill
-    logits within LM_LOGIT_REL_TOL of max|logits|; the first greedy token
-    at which the two paths part is reported, not held."""
+    logits within `tol` of max|logits|; the first greedy token at which the
+    two paths part is reported, not held."""
     import dataclasses
     import gc
 
@@ -2121,12 +2463,13 @@ def lm_plain_check(arch: str) -> None:
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
-    cfg = dataclasses.replace(cfg, n_layers=LM_PLAIN_GROUPS * len(cfg.pattern))
+    cfg = dataclasses.replace(cfg, n_layers=layers or LM_PLAIN_GROUPS * len(cfg.pattern))
     prompt_gen = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab, (LM_PLAIN_B, LM_PLAIN_S), generator=prompt_gen)
     results = {}
     for backend in ("cuda", "ref"):
-        model = build_model(cfg, backend=backend, seed=3)
+        model = build_model(cfg, backend=backend, seed=3, dtype=dtype)
+        model_dtype = str(model.dtype)
         t = toks.to(model.device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2148,13 +2491,14 @@ def lm_plain_check(arch: str) -> None:
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     diverge = next((i for i, (a, b) in enumerate(zip(sk, sp)) if a != b), None)
-    emit("lm_plain_check", arch=arch, groups=LM_PLAIN_GROUPS, batch=LM_PLAIN_B, S=LM_PLAIN_S,
-         logits_max_abs_err=err, logits_max_abs=scale, tol_rel=LM_LOGIT_REL_TOL,
+    emit("lm_plain_check", arch=arch, groups=cfg.n_groups, layers=cfg.n_layers,
+         dtype=model_dtype, batch=LM_PLAIN_B, S=LM_PLAIN_S,
+         logits_max_abs_err=err, logits_max_abs=scale, tol_rel=tol,
          prefill_s_kernels=tk, prefill_s_plain=tp, first_greedy_divergence=diverge,
          greedy_steps=LM_PLAIN_NEW)
-    if not err <= LM_LOGIT_REL_TOL * scale:
+    if not err <= tol * scale:
         raise AssertionError(f"{arch}: kernel and plain paths' logits differ by {err} "
-                             f"(max |logits| {scale}, tolerance {LM_LOGIT_REL_TOL} of it)")
+                             f"(max |logits| {scale}, tolerance {tol} of it)")
 
 
 # Mixed precision (module item 7).  The LU kernels' bf16 and f16 entry
@@ -3640,7 +3984,12 @@ def main() -> int:
     trsm_rows = trsm_left_lower_rows(dev, gen)
     conflux_flat_launches = conflux_p1_path(dev, gen, execute_s)
     conflux_p1_plain_1024(dev)
-    grid_8ranks()
+    new_paths = grid_8ranks()  # with the engine cases of module item 8
+
+    # 8b. Engines on the distributed strategies (module item 8): conflux,
+    #    cholesky25d and baseline2d on 1x1x1 grids in this process.
+    new_paths.update({f"serving_distributed_p1[{k}]": v
+                      for k, v in serving_distributed_p1(dev).items()})
 
     # 9. Mixed precision (module item 7): the LU kernels' bf16 and f16 entry
     #    points; f64 over f32 factors with refinement beside the f64 kernels;
@@ -3690,6 +4039,14 @@ def main() -> int:
     for arch, _ in LM_SERVE:
         lm_plain_check(arch)
 
+    # 10b. The MoE archs (module item 13): qwen3-moe and jamba served at full
+    #    width, depth cut to the card, then each in f32 on the kernel path
+    #    against the plain path.
+    for arch, batch, layers, short in LM_SERVE_MOE:
+        new_paths[f"lm_serve_{short}"] = lm_serve(arch, batch, layers, short)
+    for arch, layers in LM_PLAIN_MOE:
+        lm_plain_check(arch, layers, torch.float32, LM_MOE_LOGIT_REL_TOL)
+
     # 11. The calibrated `auto` (module item 9): the committed table's picks,
     #    each pick against the analytic one, the hot-loop profile of the LU
     #    and Cholesky plans, and the calibration tool's smoke fit.  Last, so
@@ -3738,6 +4095,12 @@ def main() -> int:
             row["launches"] = counts[sh][base]
     rows = [panel_row, *fused_rows, *batched_rows, *chol_rows, *trsm_rows, *mixed_rows,
             *mixed_chol_rows, *lm_rows]
+    # This slice's paths beside the main path's count: each was driven with
+    # the counts set to 0 just before it and read just after.
+    for row in rows:
+        row["launches_on_new_paths"] = {path: counts[row["name"]]
+                                        for path, counts in new_paths.items()
+                                        if counts.get(row["name"])}
     emit("device_ms_windows", **WINDOWS)
     for row in rows:
         row["kernel_ms"] = row["ms"]

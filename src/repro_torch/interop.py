@@ -100,9 +100,10 @@ def lm_params_from_numpy(cfg, params: dict, *, device, dtype=None) -> dict:
     with every leaf of "blocks" stacked over the cfg.n_groups groups.
 
     Group g's leaf `blocks[pos][sub][name][g]` becomes
-    `groups.{g}.{pos}.{sub}.{name}`.  `dtype` casts every leaf (None keeps
-    each leaf's own); `load_state_dict` casts into the model's parameter
-    dtypes in any case.  `device` None is the CUDA card."""
+    `groups.{g}.{pos}.{sub}.{name}`.  `dtype` casts every leaf but the MoE
+    router, which stays f32 as the JAX tree keeps it (None keeps each
+    leaf's own); `load_state_dict` casts into the model's parameter dtypes
+    in any case.  `device` None is the CUDA card."""
     dev = resolve_device(device)
     state = {"embed": _tensor(params["embed"], dev, dtype),
              "final_norm.scale": _tensor(params["final_norm"]["scale"], dev, dtype)}
@@ -115,6 +116,7 @@ def lm_params_from_numpy(cfg, params: dict, *, device, dtype=None) -> dict:
                 if stacked.shape[0] != cfg.n_groups:
                     raise ValueError(f"blocks.{pos}.{sub}.{name}: leading axis "
                                      f"{stacked.shape[0]} != n_groups {cfg.n_groups}")
+                leaf_dtype = torch.float32 if (sub, name) == ("moe", "router") else dtype
                 for g in range(cfg.n_groups):
-                    state[f"groups.{g}.{pos}.{sub}.{name}"] = _tensor(stacked[g], dev, dtype)
+                    state[f"groups.{g}.{pos}.{sub}.{name}"] = _tensor(stacked[g], dev, leaf_dtype)
     return state

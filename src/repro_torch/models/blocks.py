@@ -15,18 +15,15 @@ from torch import nn
 from repro_torch.models.layers.attention import Attention, attention_forward, decode_attention
 from repro_torch.models.layers.mamba import Mamba, mamba_decode, mamba_forward
 from repro_torch.models.layers.mlp import MLP, mlp_forward
+from repro_torch.models.layers.moe import MoE, moe_forward
 from repro_torch.models.layers.norms import RMSNorm, rms_norm
 
 
 class Layer(nn.Module):
-    """One (mixer, ffn) position: norm_mixer, attn or mamba, norm_ffn, mlp."""
+    """One (mixer, ffn) position: norm_mixer, attn or mamba, norm_ffn, mlp or moe."""
 
     def __init__(self, cfg, spec, *, device, dtype):
         super().__init__()
-        if spec.ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers (qwen3-moe, llama4, jamba) are not ported yet: "
-                f"models/layers/moe.py, ROADMAP.md module item 13")
         kw = dict(device=device, dtype=dtype)
         self.spec = spec
         self.norm_mixer = RMSNorm(cfg.d_model, **kw)
@@ -39,19 +36,24 @@ class Layer(nn.Module):
             raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")
         if spec.ffn == "mlp":
             self.mlp = MLP(cfg, **kw)
+        elif spec.ffn == "moe":
+            self.moe = MoE(cfg, **kw)
 
     def reset_parameters(self, cfg, gen: torch.Generator) -> None:
         self.norm_mixer.reset_parameters()
         self.norm_ffn.reset_parameters()
-        for name in ("attn", "mamba", "mlp"):
+        for name in ("attn", "mamba", "mlp", "moe"):
             if hasattr(self, name):
                 getattr(self, name).reset_parameters(cfg, gen)
 
     def ffn(self, cfg, x: torch.Tensor) -> torch.Tensor:
-        """x + mlp(norm(x)), or x for a mixer-only layer."""
+        """x + mlp(norm(x)) or x + moe(norm(x)), or x for a mixer-only layer."""
         if self.spec.ffn == "none":
             return x
-        return x + mlp_forward(self.mlp, cfg, rms_norm(x, self.norm_ffn.scale, cfg.norm_eps))
+        h = rms_norm(x, self.norm_ffn.scale, cfg.norm_eps)
+        if self.spec.ffn == "moe":
+            return x + moe_forward(self.moe, cfg, h)
+        return x + mlp_forward(self.mlp, cfg, h)
 
 
 class Group(nn.ModuleDict):

@@ -1,4 +1,4 @@
-"""Layers of the LM stack: norms, rope, embeddings, mlp, attention, mamba."""
+"""Layers of the LM stack: norms, rope, embeddings, mlp, moe, attention, mamba."""
 
 # The full-sequence mixers' two implementations: the hand-written kernels
 # ("cuda"; their plain versions on CPU tensors) or the plain versions on any

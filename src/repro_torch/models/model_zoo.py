@@ -21,7 +21,8 @@ def build_model(cfg: ModelConfig, *, device=None, dtype=None, backend: str = "cu
     `backend="cuda"` runs the hand-written attention and scan kernels on the
     card, `"ref"` their plain versions on any device.  Load other parameters
     with `model.load_state_dict` (see `repro_torch.interop.lm_params_from_numpy`).
-    A config with MoE layers raises NotImplementedError (not ported yet).
+    An MoE layer's router stays in f32 whatever `dtype` is, as in the JAX
+    package.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")

@@ -38,6 +38,16 @@ trigger with `pump(now)` — the executor logic runs without threads or real
 timers, so deadline behavior is testable without sleeps (CI stays
 timing-flake-free).
 
+Distributed engines: on "conflux", "baseline2d" or "cholesky25d" the
+underlying `SolveEngine` holds a plan over the default process group, and
+its factorization is a collective, so the caller makes `engine.factor(A)`
+on every rank, in the same order, with the same A.  Everything the executor
+does is rank-local: whole systems flush through the batched plan of the
+strategy's sequential sibling, RHS-only requests through the triangular
+solves against the gathered factors every rank holds, and a spill solves on
+the in-core sequential plan; so each rank's queues, batches and futures are
+its own.
+
 Threads: the executor flushes from its own thread and a spill solves in the
 submitter's thread; both launch on PyTorch's current stream of the engine's
 device.  Per-request refinement (`refine_tol`) rides the request through

@@ -54,8 +54,11 @@ system.  The bucket still factorizes and solves as one batch; then the
 lanes that asked run one batched refinement with per-lane tolerances.
 Lanes that did not ask keep the plain solve, bit for bit.
 
-Not ported yet: engines on the distributed strategies (item 8, serving on
-distributed strategies), which raise at construction.
+Distributed engines: on "conflux", "baseline2d" and "cholesky25d" (or an
+`auto` that resolves to one of them on a process group of several ranks)
+the engine's plan runs on the default `torch.distributed` process group, as
+`plan()` builds it; a 1x1x1 grid needs no group.  The SPMD contract is in
+`SolveEngine`'s docstring.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.api import Factorization, SolverConfig, plan, plan_cache_stats, resolve
+from repro_torch.api import Factorization, SolverConfig, plan, plan_cache_stats
 from repro_torch.api.config import dtype_name, resolve_dtype
 from repro_torch.api.result import _solve_dtype
 from repro_torch.device import resolve_device
@@ -125,23 +128,25 @@ class SolveEngine:
     `device="cpu"` for the plain PyTorch versions on the CPU.  `overrides`
     are SolverConfig fields; a `compute_dtype` plan (bf16 or f16 under f32,
     f32 under f64, LU or Cholesky) is served in that dtype, with per-request
-    refinement on demand.  The plan is resolved here, so a config the port
-    cannot serve yet (a distributed strategy) raises at construction, naming
-    its ROADMAP.md item.
+    refinement on demand.
+
+    On a distributed strategy the plan is built for the default process
+    group, as `plan()` builds it, and the engine follows the SPMD contract:
+
+    - `factor(A)` and `solve(A, b)` run `plan.execute`, a collective: every
+      rank of the grid makes these calls in the same order with the same A.
+    - The triangular solves after it (the second half of `solve`,
+      `resolve`, `submit` / `flush`) are local, since every rank holds the
+      gathered factors; their b may differ between ranks.
+    - `submit_system` / `flush_systems` / `warm_slots` run the batched plan
+      of the strategy's sequential sibling (`_batched_plan`), on this rank
+      alone, so the ranks' queues may differ.
     """
 
     def __init__(self, N: int, config: SolverConfig | None = None, *, device=None,
                  **overrides):
         self.config = (config or SolverConfig()).with_(**overrides)
         self.device = resolve_device(device)
-        resolved = resolve(N, self.config, device=self.device)
-        if resolved.grid is not None:
-            raise ValueError(
-                f"engines on the distributed strategy {resolved.strategy!r} (grid "
-                f"{resolved.grid}) are not ported yet: ROADMAP.md module item 8 "
-                f"(serving on distributed strategies); use 'sequential' or "
-                f"'sequential_chol'"
-            )
         self.plan = plan(N, self.config, device=self.device)
         self.N = N
         self._dtype = resolve_dtype(self.config.dtype)
@@ -366,9 +371,10 @@ class SolveEngine:
     def _batched_plan(self, slot: int, N: int | None = None):
         """The cached batched plan matching this engine's config at size slot.
 
-        Batched plans are sequential-only, so the engine's plan maps to the
-        sequential strategy of its kind ("sequential_chol" for a Cholesky
-        engine).  N overrides the system size for ragged-N buckets (default:
+        Batched plans are sequential-only, so the engine's plan (a
+        distributed one too) maps to the sequential strategy of its kind
+        ("sequential_chol" for a Cholesky engine); the plan runs on this
+        rank alone.  N overrides the system size for ragged-N buckets (default:
         the engine's N).
         """
         return plan(

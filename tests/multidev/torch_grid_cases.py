@@ -8,7 +8,11 @@ under `jax.shard_map` on 8 forced host devices and writes each case's
 gathered F and rows to OUT.npz.  `torch` spawns 8 gloo CPU ranks of the
 port, which run the same cases through `plan(...).execute(A)`; rank 0
 writes F and rows to OUT_DIR/port.npz, and every rank writes the hashes of
-its results and a few resolve/plan facts to OUT_DIR/rank<r>.json.  Both
+its results and a few resolve/plan facts to OUT_DIR/rank<r>.json.  The
+ranks then drive the serving engines on the same grids
+(`jax_engine_cases.drive`, whose JAX side is `jax_engine_cases.py grid8`)
+and an engine on the default config; rank 0 adds their answers to
+port.npz, and every rank the hashes of its own.  Both
 make their inputs from the same numpy seed.  `tests/test_torch_distributed.py`
 runs both and compares them.  Each mode exits non-zero when a rank fails or
 does not finish within its time limit.
@@ -151,11 +155,48 @@ def _rank_main(rank: int, out_dir: str) -> None:
         p1, p2 = plan(N, cfg, device="cpu", mesh=mesh), plan(N, cfg, device="cpu", mesh=mesh)
         facts["explicit_mesh"] = {"distinct": p1 is not p2, "mesh_kept": p1.mesh is mesh,
                                   "same_F": torch.equal(p1.execute(A).F, p2.execute(A).F)}
+        facts["engines"] = _engines(port)
         if rank == 0:
             np.savez(Path(out_dir) / "port.npz", **port)
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(facts))
     finally:
         dist.destroy_process_group()
+
+
+def _engines(port: dict) -> dict:
+    """This rank's engine runs: `jax_engine_cases.drive` on each case of its
+    `grid8` set, and `SolveEngine(N, SolverConfig())` (the default config,
+    resolved as `plan()` resolves it on this group); adds the answers to
+    `port` and returns their hashes with a few facts."""
+    import torch
+
+    import jax_engine_cases as cases
+    from repro_torch.api import GridConfig, SolverConfig, plan, resolve
+    from repro_torch.serving import AsyncSolveEngine, SolveEngine
+
+    n, v, table = cases.CASES["grid8"]
+    out = {}
+    for name, (strategy, shape) in table.items():
+        cfg = SolverConfig(strategy=strategy, grid=GridConfig(*shape, v, n))
+        inp = cases.inputs(n, strategy)
+        got = cases.flatten(f"engine_{name}", cases.drive(SolveEngine, AsyncSolveEngine, n, cfg,
+                                                          inp, device="cpu"))
+        port.update(got)
+        x_plan = plan(n, cfg, device="cpu").execute(inp["A"]).solve(inp["b"]).numpy()
+        out[name] = {"digests": {k: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+                                 for k, a in got.items()},
+                     "x_equals_plan": bool(np.array_equal(got[f"engine_{name}_x"], x_plan))}
+    inp = cases.inputs(n, "conflux")
+    eng = SolveEngine(n, SolverConfig(), device="cpu")
+    x = eng.solve(inp["A"], inp["b"])
+    resolved = resolve(n, SolverConfig())
+    x_plan = plan(n, resolved, device="cpu").execute(inp["A"]).solve(inp["b"])
+    st = eng.stats()
+    out["default"] = {"strategy": st["strategy"], "grid": st["grid"],
+                      "resolved": [resolved.strategy, str(resolved.grid)],
+                      "x_equals_plan": torch.equal(x, x_plan), "x": _digest(x),
+                      "hpl_ok": bool(np.abs(inp["A"] @ x.numpy() - inp["b"]).max() < 1e-3)}
+    return out
 
 
 def run_torch(out_dir: str) -> None:

@@ -57,6 +57,7 @@ from repro_torch.kernels import ops, ref
 
 ROOT = Path(__file__).resolve().parents[1]
 CASES_SCRIPT = ROOT / "tests" / "multidev" / "torch_grid_cases.py"
+ENGINE_SCRIPT = ROOT / "tests" / "multidev" / "jax_engine_cases.py"
 LU_F_TOL_FACTOR = 4.0
 SUBPROCESS_TIMEOUT_S = 240
 # trsm_left_lower against XLA's solve: a v-term sum in another order, f32.
@@ -325,15 +326,19 @@ def _cases_module():
 
 
 @pytest.fixture(scope="module")
-def eight_ranks(tmp_path_factory):
-    """Runs both sides at once; returns (reference npz, port npz, facts of
-    every rank)."""
+def grid_runs(tmp_path_factory):
+    """Runs the three subprocesses at once: the JAX local programs and the
+    JAX engines (`jax_engine_cases.py grid8`, under the `enable_x64` shim)
+    on 8 forced host devices, and the port's 8 gloo ranks.  Returns their
+    output directory."""
     out = tmp_path_factory.mktemp("grid8")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    procs = {mode: subprocess.Popen(
-        [sys.executable, str(CASES_SCRIPT), mode, str(out / "ref.npz" if mode == "jax" else out)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for mode in ("jax", "torch")}
+    commands = {"jax": [str(CASES_SCRIPT), "jax", str(out / "ref.npz")],
+                "torch": [str(CASES_SCRIPT), "torch", str(out)],
+                "jax_engines": [str(ENGINE_SCRIPT), "grid8", str(out / "engines.npz")]}
+    procs = {mode: subprocess.Popen([sys.executable, *cmd], env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for mode, cmd in commands.items()}
     logs = {}
     try:
         for mode, p in procs.items():
@@ -345,8 +350,14 @@ def eight_ranks(tmp_path_factory):
                 p.wait()
     for mode, p in procs.items():
         assert p.returncode == 0, f"{mode} side failed:\n{logs.get(mode, '')[-4000:]}"
-    facts = [json.loads((out / f"rank{r}.json").read_text()) for r in range(8)]
-    return np.load(out / "ref.npz"), np.load(out / "port.npz"), facts
+    return out
+
+
+@pytest.fixture(scope="module")
+def eight_ranks(grid_runs):
+    """(reference npz, port npz, facts of every rank)."""
+    facts = [json.loads((grid_runs / f"rank{r}.json").read_text()) for r in range(8)]
+    return np.load(grid_runs / "ref.npz"), np.load(grid_runs / "port.npz"), facts
 
 
 @pytest.mark.parametrize("case", ["conflux_windowed", "conflux_flat", "baseline2d",
@@ -423,6 +434,56 @@ def test_interop_carries_a_distributed_reference_run(eight_ranks):
     assert jf.grid == GridConfig(2, 2, 2, 16, 128)
     assert jf.comm == conflux.lu_comm_volume(128, jf.grid)
     assert "u01_gather" in jf.comm_report() and "[2x2x2]" in jf.comm_report()
+
+
+def _engine_cases():
+    sys.path.insert(0, str(CASES_SCRIPT.parent))
+    try:
+        import jax_engine_cases
+    finally:
+        sys.path.remove(str(CASES_SCRIPT.parent))
+    return jax_engine_cases
+
+
+@pytest.mark.parametrize("name", ["conflux", "baseline2d", "cholesky25d"])
+def test_eight_rank_engines_match_the_jax_engines(grid_runs, eight_ranks, name):
+    """`SolveEngine` and `AsyncSolveEngine` on conflux 2x2x2, baseline2d
+    2x4x1 and cholesky25d 2x2x2, the port on eight gloo ranks against the
+    JAX engines on 8 host devices: the same stats, pivot rows equal, every
+    answer within 1e-4 of its scale (the f32 tolerance of
+    tests/test_torch_serving.py); every rank returned the same bits, and
+    `solve`'s x equals the rank's `plan(...).execute(A).solve(b)` bit for
+    bit."""
+    cases = _engine_cases()
+    _, port, facts = eight_ranks
+    got = cases.unflatten(port, f"engine_{name}")
+    want = cases.unflatten(np.load(grid_runs / "engines.npz"), name)
+    assert got["stats"] == want["stats"]
+    assert got["async_stats"] == want["async_stats"]
+    np.testing.assert_array_equal(got["rows"], want["rows"])
+    np.testing.assert_array_equal(got["async_rows"], want["async_rows"])
+    for key in ("x", "x2", "flush", "async_rhs", "systems", "async_systems"):
+        pairs = zip(got[key], want[key]) if isinstance(got[key], list) else [(got[key],
+                                                                             want[key])]
+        for g, w in pairs:
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * np.abs(w).max(), err_msg=key)
+    assert len({json.dumps(f["engines"][name]["digests"], sort_keys=True) for f in facts}) == 1
+    assert all(f["engines"][name]["x_equals_plan"] for f in facts)
+
+
+def test_eight_rank_default_engine_resolves_as_plan(eight_ranks):
+    """`SolveEngine(N, SolverConfig())` on the 8-rank group resolves as
+    `plan()` does (conflux on the analytic ranking, with no CPU table; the
+    JAX package's "cpu" table may pick another v), and every rank answers
+    the same bits as its plan."""
+    _, _, facts = eight_ranks
+    best = grid.optimize_grid(128, 8, SolverConfig().M)
+    for f in facts:
+        d = f["engines"]["default"]
+        assert d["strategy"] == "conflux" and d["resolved"] == ["conflux", str(best)]
+        assert d["grid"] == str(best) and d["x_equals_plan"] and d["hpl_ok"]
+    assert len({f["engines"]["default"]["x"] for f in facts}) == 1
 
 
 # --------------------------------------------------------------------------

@@ -44,10 +44,17 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
-PORT_MODULES = sorted(
+# Modules that exist only to raise ImportError on import, naming where their
+# contents live (as the JAX package's `repro.serving.engine` does): module ->
+# a phrase of the message.
+STUB_MODULES = {
+    "repro_torch.serving.engine": "import ServeEngine and SamplerConfig from repro_torch.serving",
+}
+ALL_MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
     for p in (ROOT / "src" / "repro_torch").rglob("*.py")
 )
+PORT_MODULES = [m for m in ALL_MODULES if m not in STUB_MODULES]
 
 
 @pytest.fixture(scope="module")
@@ -65,10 +72,16 @@ def fresh_imports():
         return out.returncode, out.stderr[-2000:]
 
     with ThreadPoolExecutor(4) as pool:
-        return dict(zip(PORT_MODULES, pool.map(run, PORT_MODULES)))
+        return dict(zip(ALL_MODULES, pool.map(run, ALL_MODULES)))
 
 
 @pytest.mark.parametrize("module", PORT_MODULES)
 def test_each_port_module_imports_first_in_a_fresh_interpreter(module, fresh_imports):
     rc, err = fresh_imports[module]
     assert rc == 0, f"import {module} in a fresh interpreter failed:\n{err}"
+
+
+@pytest.mark.parametrize("module", sorted(STUB_MODULES))
+def test_stub_module_raises_import_error_naming_the_new_home(module, fresh_imports):
+    rc, err = fresh_imports[module]
+    assert rc != 0 and "ImportError" in err and STUB_MODULES[module] in err, err

@@ -304,7 +304,7 @@ def test_mamba_decode_matches_jax():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("backend", ["cuda", "ref"])
-@pytest.mark.parametrize("arch", NON_MOE)
+@pytest.mark.parametrize("arch", NON_MOE + MOE)
 def test_forward_matches_jax(arch, backend):
     jcfg, cfg = _cfgs(arch)
     P = np_params(jcfg, 12)
@@ -315,7 +315,7 @@ def test_forward_matches_jax(arch, backend):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("arch", CAUSAL)
+@pytest.mark.parametrize("arch", CAUSAL + MOE)
 def test_prefill_and_decode_match_jax(arch):
     """Prefill logits and caches, then three decode steps fed the JAX
     argmax tokens: logits and every cache after each step."""
@@ -337,7 +337,7 @@ def test_prefill_and_decode_match_jax(arch):
 
 
 def test_init_caches_match_jax_layout():
-    for arch in ("qwen3-8b", "falcon-mamba-7b", "gemma2-9b"):
+    for arch in ("qwen3-8b", "falcon-mamba-7b", "gemma2-9b", "jamba-v0.1-52b"):
         jcfg, cfg = _cfgs(arch)
         jc = JT.init_caches(jcfg, 3, 40)
         tc = build_model(cfg, device="cpu").init_caches(3, 40)
@@ -349,7 +349,18 @@ def test_init_caches_match_jax_layout():
 def test_build_model_draws_the_jax_init_distributions():
     """Own draws from a torch.Generator, same shapes, dtypes and spreads as
     the JAX package's init; deterministic in the seed."""
-    jcfg, cfg = _cfgs("falcon-mamba-7b")
+    _check_init_distributions("falcon-mamba-7b")
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_build_model_draws_the_jax_init_distributions_moe(arch):
+    """The same for the MoE archs: the router (f32), w_in and w_out of each
+    MoE layer beside the attention, mamba and mlp leaves."""
+    _check_init_distributions(arch)
+
+
+def _check_init_distributions(arch: str):
+    jcfg, cfg = _cfgs(arch)
     jp = jbuild(jcfg).init(jax.random.key(0))
     m = build_model(cfg, device="cpu", seed=3)
     state = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
@@ -381,12 +392,6 @@ def test_lm_params_from_numpy_takes_bf16_leaves():
     model = build_model(cfg, device="cpu", dtype=torch.bfloat16)
     model.load_state_dict(state)
     assert torch.equal(model.embed, state["embed"])
-
-
-@pytest.mark.parametrize("arch", MOE)
-def test_moe_arch_raises_naming_its_item(arch):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_model(reduced(get_config(arch)), device="cpu")
 
 
 def test_entry_points_default_to_the_card():
@@ -423,7 +428,7 @@ def _jax_engine_module():
     return sys.modules[name]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b", "gemma2-9b", *MOE])
 def test_serve_engine_greedy_matches_jax_engine(arch):
     JE = _jax_engine_module()
     jcfg, cfg = _cfgs(arch)
@@ -534,3 +539,14 @@ def test_launch_serve_runs_on_the_cpu(capsys):
     assert '"decode_steps": 4' in capsys.readouterr().out
     with pytest.raises(SystemExit, match="encoder-only"):
         serve.main(["--arch", "hubert-xlarge", "--reduced", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_launch_serve_runs_an_moe_arch_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    outs = serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--max-new", "4",
+                       "--prompt-len", "6", "--max-len", "16"])
+    assert len(outs) == 2 and all(len(o) == 4 for o in outs)
+    out = capsys.readouterr().out
+    assert '"decode_steps": 3' in out and f'"arch": "{arch}' in out

@@ -16,7 +16,11 @@ are held to 5e-3 on diagonally dominant f32 systems, as in the JAX tests.
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
 import threading
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,10 +30,13 @@ import torch
 
 import repro.core.cholesky.sequential as jchol
 import repro.core.lu.sequential as jseq
-from repro_torch.api import SolverConfig, clear_plan_cache
+from repro_torch.api import GridConfig, SolverConfig, clear_plan_cache, plan
 from repro_torch.core.cholesky import chol_blocked_sequential_batched
 from repro_torch.serving import AsyncSolveEngine, Overloaded, Ring, SolveEngine, TenantQueues
 
+ROOT = Path(__file__).resolve().parents[1]
+ENGINE_CASES = ROOT / "tests" / "multidev" / "jax_engine_cases.py"
+SUBPROCESS_TIMEOUT_S = 300
 RNG = np.random.default_rng(7)
 CFG = SolverConfig(strategy="sequential", v=8)
 
@@ -347,19 +354,19 @@ class TestUnportedRaise:
         assert a.stats()["async"]["pending"] == 0  # it never reached a batch
 
     @pytest.mark.parametrize("strategy", ["sequential_chol", "cholesky25d"])
-    def test_cholesky_engines_raise_naming_item_6(self, strategy):
-        """"sequential_chol" engines run; "cholesky25d" ones raise naming item 8
-        (serving on distributed strategies)."""
-        if strategy == "sequential_chol":
-            eng = SolveEngine(32, SolverConfig(strategy=strategy), device="cpu")
-            assert eng.plan.kind == "cholesky"
-            a = AsyncSolveEngine(32, strategy=strategy, device="cpu", start=False)
-            assert a.engine.plan.kind == "cholesky"
-            return
-        with pytest.raises(ValueError, match="item 8"):
-            SolveEngine(32, SolverConfig(strategy=strategy), device="cpu")
-        with pytest.raises(ValueError, match="item 8"):
-            AsyncSolveEngine(32, strategy=strategy, device="cpu", start=False)
+    def test_cholesky_engines_serve(self, strategy):
+        """Both Cholesky strategies build engines (module item 8 ported the
+        distributed ones; "cholesky25d" with no process group takes the
+        1x1x1 grid) and answer an SPD system."""
+        eng = SolveEngine(32, SolverConfig(strategy=strategy), device="cpu")
+        assert eng.plan.kind == "cholesky" and eng.stats()["strategy"] == strategy
+        a = AsyncSolveEngine(32, strategy=strategy, device="cpu", start=False)
+        assert a.engine.plan.kind == "cholesky"
+        A, b = _spd_sys(32, np.random.default_rng(5))
+        np.testing.assert_allclose(eng.solve(A, b).numpy(), scipy.linalg.solve(A, b),
+                                   rtol=0, atol=1e-4 * np.abs(scipy.linalg.solve(A, b)).max())
+        if strategy == "cholesky25d":
+            assert eng.stats()["grid"] == "[1x1x1] v=8 (P_used=1)"
 
     def test_engine_without_device_targets_cuda(self):
         if torch.cuda.is_available():
@@ -749,3 +756,87 @@ class TestMetricsRing:
     def test_bad_capacity_rejected(self):
         with pytest.raises(ValueError, match="capacity"):
             Ring(0)
+
+
+# --------------------------------------------------------------------------
+# Engines on the distributed strategies (module item 8), 1x1x1 grids,
+# against the JAX package's engines
+# --------------------------------------------------------------------------
+
+
+def _engine_cases():
+    sys.path.insert(0, str(ENGINE_CASES.parent))
+    try:
+        import jax_engine_cases
+    finally:
+        sys.path.remove(str(ENGINE_CASES.parent))
+    return jax_engine_cases
+
+
+@pytest.fixture(scope="module")
+def jax_engines_p1(tmp_path_factory):
+    """The JAX engines' answers on the 1x1x1 grids, from
+    `tests/multidev/jax_engine_cases.py p1` in a process of its own (the
+    `enable_x64` shim stays there)."""
+    out = tmp_path_factory.mktemp("engines") / "p1.npz"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, str(ENGINE_CASES), "p1", str(out)], env=env,
+                          capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    return np.load(out)
+
+
+def _assert_x_close(got, want, what):
+    """Within 1e-4 of the solution's scale, the file's f32 tolerance."""
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max(), err_msg=what)
+
+
+class TestDistributedEngines:
+    @pytest.mark.parametrize("strategy", ["conflux", "baseline2d", "cholesky25d"])
+    def test_engines_match_the_jax_engines(self, strategy, jax_engines_p1):
+        """`SolveEngine` and `AsyncSolveEngine` on a 1x1x1 grid: the same
+        stats, pivot rows equal, every answer within 1e-4 of its scale."""
+        cases = _engine_cases()
+        N, v, table = cases.CASES["p1"]
+        strat, shape = table[strategy]
+        cfg = SolverConfig(strategy=strat, grid=GridConfig(*shape, v, N))
+        got = cases.drive(SolveEngine, AsyncSolveEngine, N, cfg, cases.inputs(N, strat),
+                          device="cpu")
+        want = cases.unflatten(jax_engines_p1, strategy)
+        assert got["stats"] == want["stats"]
+        assert got["async_stats"] == want["async_stats"]
+        np.testing.assert_array_equal(got["rows"], want["rows"])
+        np.testing.assert_array_equal(got["async_rows"], want["async_rows"])
+        for key in ("x", "x2", "flush", "async_rhs"):
+            _assert_x_close(got[key], want[key], key)
+        for key in ("systems", "async_systems"):
+            for i, (g, w) in enumerate(zip(got[key], want[key])):
+                assert g.shape == w.shape
+                _assert_x_close(g, w, f"{key}[{i}]")
+
+    @pytest.mark.parametrize("strategy", ["conflux", "baseline2d", "cholesky25d"])
+    def test_engine_answers_equal_its_plan_bit_for_bit(self, strategy):
+        """`solve` is the plan's execute and solve; `resolve` and `flush`
+        reuse its factors; the flushed systems run the sequential sibling's
+        batched plan."""
+        cases = _engine_cases()
+        N, v, table = cases.CASES["p1"]
+        cfg = SolverConfig(strategy=strategy, grid=GridConfig(1, 1, 1, v, N))
+        inp = cases.inputs(N, strategy)
+        eng = SolveEngine(N, cfg, device="cpu")
+        x = eng.solve(inp["A"], inp["b"])
+        fact = plan(N, cfg, device="cpu").execute(inp["A"])
+        assert eng.plan is plan(N, cfg, device="cpu")
+        assert torch.equal(x, fact.solve(inp["b"]))
+        assert torch.equal(eng.resolve(2 * inp["b"]), fact.solve(2 * inp["b"]))
+        t = eng.submit(inp["rhs"][0])
+        assert torch.equal(eng.flush()[t], fact.solve(torch.from_numpy(inp["rhs"][:1].T))[:, 0])
+        seq = "sequential_chol" if strategy == "cholesky25d" else "sequential"
+        assert eng._batched_plan(2, 16).config.strategy == seq
+        assert eng._batched_plan(2, 16).config.grid is None
+
+    def test_distributed_engine_warms_its_sequential_slots(self):
+        eng = SolveEngine(64, SolverConfig(strategy="conflux", grid=GridConfig(1, 1, 1, 8, 64)),
+                          device="cpu")
+        assert eng.warm_slots(sizes=(5, 40), max_batch=2) == 4
+        assert eng.stats()["batched_factorizations"] == 0
