@@ -82,7 +82,17 @@ each kernel against its plain PyTorch version on the card:
   (8 of 94 layers) and jamba-v0.1-52b (8 of 32: one period, whose prefill
   runs `flash_attention` once and `mamba_scan` seven times) served as
   above; and each in f32 (qwen3-moe at 4 layers, jamba at 8) on the kernel
-  path against the plain path, logits within 2e-4 of max|logits|.
+  path against the plain path, logits within 2e-4 of max|logits|;
+- training (module item 13's training part): `make_train_step` on
+  qwen3-8b (4 layers, 2.016 B parameters, B = 2) and falcon-mamba-7b
+  (4 layers, B = 1) at full width in bf16, AdamW, remat, S = 2048, six
+  steps each, every loss and gradient norm finite, each mixer's kernel
+  launched twice per layer a step (the forward and the remat recompute);
+  two layers of each in f32, loss and every gradient on the kernel path
+  against the plain path; crash and resume through `run_training` on
+  reduced qwen3-8b and jamba-v0.1-52b, bit-identical to the run without
+  the crash; `python -m repro_torch.launch.train` and `launch.serve
+  --ckpt-dir` in subprocesses.
 
 Before the paths, `lu_panel` and `lu_panel_batched` are held bit for bit at
 the edges of their CUDA bodies, in f64 and on panels with NaN and infinite
@@ -115,7 +125,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -210,6 +222,31 @@ MAMBA_Y_REL_TOL = 1e-5
 # stay within a few percent of the largest logit.  5% of max|logits| is the
 # bound.  The scan path rounds nothing differently before its bf16 output.
 LM_LOGIT_REL_TOL = 5e-2
+# The training phases (module item 13's training part): (arch, layers, batch,
+# phase suffix) at full width in bf16, AdamW with f32 moments, remat, S =
+# 2048 `copy` tokens, six steps (not `run_training`: its saves would write
+# the whole state, about 24 GB for qwen3's four layers).  qwen3-8b's four
+# layers hold 2.016 B parameters (embed and head 1.24 B), falcon-mamba-7b's
+# about 0.95 B.
+LM_TRAIN = (("qwen3-8b", 4, 2, "qwen3"), ("falcon-mamba-7b", 4, 1, "falcon_mamba"))
+LM_TRAIN_S, LM_TRAIN_STEPS = 2048, 6
+# qwen3-8b's loss rises over lm_train_qwen3's six steps at OptConfig's lr
+# (3e-4).  The same steps again from the same seed and batches, in f32 at
+# that lr and in bf16 at a tenth of it, say whether the rise follows the
+# learning rate or the bf16 parameters: (dtype, lr).
+LM_TRAIN_LOSS_STUDY = ((torch.float32, 3e-4), (torch.bfloat16, 3e-5))
+# The kernel path's loss and gradients against the plain path's, two layers
+# of each at full width in f32, B = 1, S = 1024.  Both differentiate the same
+# formulation (blocked attention, the chunked scan) at inputs that differ
+# only by the forwards' f32 rounding (the kernels sum in other orders), so
+# the loss (about ln V = 12) agrees to a few f32 ulps: 1e-5 relative.  Each
+# gradient leaf within 1e-3 of its max |g|.
+LM_TRAIN_PLAIN_LAYERS, LM_TRAIN_PLAIN_S = 2, 1024
+LM_TRAIN_LOSS_REL_TOL, LM_TRAIN_GRAD_REL_TOL = 1e-5, 1e-3
+# Crash and resume on the card: reduced configs (f32, hd = 16), B = 4,
+# S = 16, 12 steps, checkpoints every 4, a failure before step 6.
+LM_RESUME = ("qwen3-8b", "jamba-v0.1-52b")
+LM_RESUME_B, LM_RESUME_S, LM_RESUME_STEPS, LM_RESUME_FAIL_AT = 4, 16, 12, 6
 
 
 def emit(phase: str, **fields) -> None:
@@ -2269,7 +2306,9 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
     # phi3-mini (hd = 96), starcoder2-15b (48 / 4 heads: gq = 12) and
     # llama4-maverick (40 / 8: gq = 5; neither divides a 128-row tile), and
     # qwen3-moe-235b-a22b's prefill as lm_serve_qwen3_moe gives it (64 / 4:
-    # gq = 16, B = 4).
+    # gq = 16, B = 4); then the training phases' shapes: lm_train_qwen3's
+    # (B = 2, bf16), lm_train_plain_check's is the f32 case, and
+    # lm_train_resume's reduced qwen3 and jamba (f32, hd = 16, S = 16).
     cases = ((4, LM_PROMPT, 32, 8, 128, torch.bfloat16, True, None, None),
              (1, 1024, 32, 8, 128, torch.float32, True, None, None),
              (1, LM_PROMPT, 16, 8, 256, torch.bfloat16, True, 512, 50.0),
@@ -2278,7 +2317,9 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
              (1, LM_PROMPT, 32, 32, 96, torch.bfloat16, True, None, None),
              (1, LM_PROMPT, 48, 4, 128, torch.bfloat16, True, None, None),
              (1, LM_PROMPT, 40, 8, 128, torch.bfloat16, True, None, None),
-             (4, LM_PROMPT, 64, 4, 128, torch.bfloat16, True, None, None))
+             (4, LM_PROMPT, 64, 4, 128, torch.bfloat16, True, None, None),
+             (LM_TRAIN[0][2], LM_TRAIN_S, 32, 8, 128, torch.bfloat16, True, None, None),
+             (LM_RESUME_B, LM_RESUME_S, 4, 2, 16, torch.float32, True, None, None))
     for B, S, H, KV, hd, dt, causal, window, softcap in cases:
         q = torch.randn(B, S, H, hd, generator=gen, device=dev, dtype=dt)
         k = torch.randn(B, S, KV, hd, generator=gen, device=dev, dtype=dt)
@@ -2322,27 +2363,35 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
             })
         del q, k, v, out_k, out_p, diff
 
-    # mamba_scan at falcon-mamba-7b's prefill shape.
-    B, S, di, N = 2, LM_PROMPT, 8192, 16
-    a = torch.rand(B, S, di, N, generator=gen, device=dev).mul_(0.399).add_(0.6)
-    bb = torch.randn(B, S, di, N, generator=gen, device=dev)
-    C = torch.randn(B, S, N, generator=gen, device=dev)
-    y_k, h_k = ops.mamba_scan(a, bb, C, return_state=True)
-    y_p, h_p = ref.mamba_scan(a, bb, C, return_state=True)
-    torch.cuda.synchronize()
-    err = float((y_k - y_p).abs().max())
-    scale = float(y_p.abs().max())
-    check = {"y_within_tol": err <= MAMBA_Y_REL_TOL * scale,
-             "state_bit_identical": torch.equal(h_k, h_p),
-             "finite": bool(torch.isfinite(y_k).all() and torch.isfinite(h_k).all())}
-    ms = time_ms(lambda: ops.mamba_scan(a, bb, C, return_state=True))
-    b = bound(4 * (2 * B * S * di * N + B * S * N + B * S * di + B * di * N), 4 * B * S * di * N)
-    emit("kernel_mamba_scan", shape=[B, S, di, N], max_abs_err=err, y_scale=scale,
-         tol_rel=MAMBA_Y_REL_TOL, state_max_abs_err=float((h_k - h_p).abs().max()), ms=ms,
-         **b, **check)
-    if not all(check.values()):
-        raise AssertionError(f"mamba_scan disagrees with its plain version: {check}, "
-                             f"y error {err} (scale {scale})")
+    # mamba_scan at falcon-mamba-7b's prefill shape (the row), then the
+    # training phases' shapes: lm_train_falcon_mamba's (B = 1, S = 2048),
+    # lm_train_plain_check's (S = 1024) and lm_train_resume's reduced jamba.
+    for B, S, di, N in ((2, LM_PROMPT, 8192, 16), (LM_TRAIN[1][2], LM_TRAIN_S, 8192, 16),
+                        (1, LM_TRAIN_PLAIN_S, 8192, 16), (LM_RESUME_B, LM_RESUME_S, 128, 4)):
+        a = torch.rand(B, S, di, N, generator=gen, device=dev).mul_(0.399).add_(0.6)
+        bb = torch.randn(B, S, di, N, generator=gen, device=dev)
+        C = torch.randn(B, S, N, generator=gen, device=dev)
+        y_k, h_k = ops.mamba_scan(a, bb, C, return_state=True)
+        y_p, h_p = ref.mamba_scan(a, bb, C, return_state=True)
+        torch.cuda.synchronize()
+        err = float((y_k - y_p).abs().max())
+        scale = float(y_p.abs().max())
+        check = {"y_within_tol": err <= MAMBA_Y_REL_TOL * scale,
+                 "state_bit_identical": torch.equal(h_k, h_p),
+                 "finite": bool(torch.isfinite(y_k).all() and torch.isfinite(h_k).all())}
+        ms = time_ms(lambda: ops.mamba_scan(a, bb, C, return_state=True))
+        b = bound(4 * (2 * B * S * di * N + B * S * N + B * S * di + B * di * N),
+                  4 * B * S * di * N)
+        emit("kernel_mamba_scan", shape=[B, S, di, N], max_abs_err=err, y_scale=scale,
+             tol_rel=MAMBA_Y_REL_TOL, state_max_abs_err=float((h_k - h_p).abs().max()), ms=ms,
+             **b, **check)
+        if not all(check.values()):
+            raise AssertionError(f"mamba_scan {[B, S, di, N]} disagrees with its plain version: "
+                                 f"{check}, y error {err} (scale {scale})")
+        if B == 2:  # the row's case, timed again below
+            row_case = (a, bb, C, err, ms, b)
+        del a, bb, C, y_k, y_p, h_k, h_p
+    a, bb, C, err, ms, b = row_case
     rows.append({
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -2354,7 +2403,7 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
         **device_fields(lambda: ops.mamba_scan(a, bb, C, return_state=True)),
         "library": "none: no single PyTorch call computes a selective scan",
     })
-    del a, bb, C, y_k, y_p, h_k, h_p
+    del a, bb, C, row_case
     torch.cuda.empty_cache()
     return rows
 
@@ -2499,6 +2548,275 @@ def lm_plain_check(arch: str, layers: int | None = None, dtype=None,
     if not err <= tol * scale:
         raise AssertionError(f"{arch}: kernel and plain paths' logits differ by {err} "
                              f"(max |logits| {scale}, tolerance {tol} of it)")
+
+
+def _train_batch(cfg, B: int, S: int, step: int) -> dict:
+    from repro_torch.data import DataConfig, synthetic_batch
+
+    return synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B), step, cfg)
+
+
+def lm_train(arch: str, layers: int, batch: int, short: str) -> dict:
+    """`make_train_step` on the full-width model, its first `layers` layers,
+    bf16 parameters, AdamW with f32 moments, remat, B x LM_TRAIN_S `copy`
+    tokens: LM_TRAIN_STEPS synchronized steps, each launching each mixer's
+    kernel twice per layer (the forward and the remat recompute), finite
+    losses and gradient norms.  Then one more step under the profiler.
+    Returns the launches of the counted steps."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, init_train_state, make_train_step
+
+    phase = f"lm_train_{short}"
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    opt_cfg = OptConfig(warmup_steps=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    state = init_train_state(model, torch.Generator(device=model.device).manual_seed(0), opt_cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    step_fn = make_train_step(model, opt_cfg)
+    batches = [_train_batch(cfg, batch, LM_TRAIN_S, s) for s in range(LM_TRAIN_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, norms = [], [], []
+    reset_launches()
+    for s in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[s])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_attn, n_mamba = _mixer_layers(cfg, "attn"), _mixer_layers(cfg, "mamba")
+    per_step = {"flash_attention": 2 * n_attn, "mamba_scan": 2 * n_mamba}
+    expected = expected_launches(**{k: LM_TRAIN_STEPS * c for k, c in per_step.items()})
+    timed = sorted(step_s[1:])  # steps 2..6: the first builds cuBLAS plans and caches
+    median_s = timed[len(timed) // 2]
+    finite = all(math.isfinite(x) for x in losses + norms)
+    emit(phase, arch=arch, layers=cfg.n_layers, published_layers=get_config(arch).n_layers,
+         d_model=cfg.d_model, params=n_params, dtype=str(model.dtype),
+         optimizer="adamw", moment_dtype=opt_cfg.moment_dtype, remat=True, batch=batch,
+         seq=LM_TRAIN_S, steps=LM_TRAIN_STEPS, build_s=build_s, step_s=step_s,
+         step_s_median_2_6=median_s, tokens_per_s=batch * LM_TRAIN_S / median_s,
+         peak_gib=peak_gib, losses=losses, grad_norms=norms, finite=finite,
+         launches={k: c for k, c in launches.items() if c}, launches_per_step=per_step)
+    if launches != expected:
+        raise AssertionError(f"{arch}: expected {LM_TRAIN_STEPS} steps' launches {expected}, "
+                             f"got {launches}")
+    if not finite:
+        raise AssertionError(f"{arch}: losses {losses}, gradient norms {norms}")
+    emit(f"profile_{short}_train_step",
+         **profile_once(lambda: step_fn(state, batches[-1])))
+    del state, model, step_fn, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_train_loss_study(arch: str, layers: int, batch: int) -> None:
+    """lm_train's steps for each (dtype, lr) of LM_TRAIN_LOSS_STUDY: the same
+    seed and batches, the losses and gradient norms of each step (finite),
+    beside lm_train's own at bf16 and OptConfig's lr."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    batches = [_train_batch(cfg, batch, LM_TRAIN_S, s) for s in range(LM_TRAIN_STEPS)]
+    for dt, lr in LM_TRAIN_LOSS_STUDY:
+        opt_cfg = OptConfig(lr=lr, warmup_steps=2)
+        model = build_model(cfg, dtype=dt, seed=0)
+        state = init_train_state(model, torch.Generator(device=model.device).manual_seed(0),
+                                 opt_cfg)
+        step_fn = make_train_step(model, opt_cfg)
+        losses, norms = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            state, metrics = step_fn(state, b)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+        finite = all(math.isfinite(x) for x in losses + norms)
+        emit("lm_train_loss_study", arch=arch, layers=layers, batch=batch, seq=LM_TRAIN_S,
+             dtype=str(dt), lr=lr, warmup_steps=opt_cfg.warmup_steps, losses=losses,
+             grad_norms=norms, seconds=time.perf_counter() - t0, finite=finite)
+        if not finite:
+            raise AssertionError(f"{arch} {dt} lr {lr}: losses {losses}, norms {norms}")
+        del state, model, step_fn, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def lm_train_plain_check(arch: str) -> None:
+    """The first LM_TRAIN_PLAIN_LAYERS layers of the full-width model in f32,
+    B = 1, S = LM_TRAIN_PLAIN_S: `loss_fn` and the gradient of every
+    parameter with backend "cuda" (the kernels' forward) against "ref"
+    (blocked attention and the chunked scan), same parameters and batch.
+    Loss within LM_TRAIN_LOSS_REL_TOL, each gradient within
+    LM_TRAIN_GRAD_REL_TOL of its leaf's max |g|."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_TRAIN_PLAIN_LAYERS)
+    batch = _train_batch(cfg, 1, LM_TRAIN_PLAIN_S, 0)
+    results = {}
+    for backend in ("cuda", "ref"):
+        model = build_model(cfg, backend=backend, seed=3, dtype=torch.float32)
+        model.train().requires_grad_(True)
+        params = dict(model.named_parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss_fn({k: v.to(model.device) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        torch.cuda.synchronize()
+        results[backend] = (loss.item(), dict(zip(params, grads)), time.perf_counter() - t0)
+        del model, params, loss, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lk, gk, tk), (lp, gp, tp) = results["cuda"], results["ref"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst_name, worst = None, 0.0
+    for name, g in gp.items():
+        if g is None:
+            if gk[name] is not None:
+                raise AssertionError(f"{arch}: {name} has a gradient on one path only")
+            continue
+        rel = float((gk[name] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        if rel >= worst:
+            worst_name, worst = name, rel
+    emit("lm_train_plain_check", arch=arch, layers=cfg.n_layers, dtype="torch.float32", batch=1,
+         S=LM_TRAIN_PLAIN_S, loss_kernels=lk, loss_plain=lp, loss_rel_err=loss_rel,
+         loss_tol_rel=LM_TRAIN_LOSS_REL_TOL, grad_leaves=len(gp), grad_worst_rel_err=worst,
+         grad_worst_leaf=worst_name, grad_tol_rel=LM_TRAIN_GRAD_REL_TOL,
+         loss_and_grad_s_kernels=tk, loss_and_grad_s_plain=tp)
+    if not (loss_rel <= LM_TRAIN_LOSS_REL_TOL and worst <= LM_TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"{arch}: kernel and plain training paths differ: loss by {loss_rel} "
+                             f"(relative), gradient {worst_name} by {worst} of its max")
+    del results, gk, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _resume_runs(arch: str, root: str, deterministic: bool = True) -> tuple[dict, dict]:
+    """`run_training` of reduced(arch) for LM_RESUME_STEPS steps, once
+    through and once with a failure injected before step LM_RESUME_FAIL_AT;
+    `deterministic` is `RunConfig.deterministic` (on by default, as a user's
+    run has it)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.runtime import RunConfig, run_training
+    from repro_torch.training import OptConfig
+
+    cfg = reduced(get_config(arch))
+    out = {}
+    for run, fail_at in (("clean", None), ("crash", LM_RESUME_FAIL_AT)):
+        fired = []
+
+        def injector(step, fail_at=fail_at, fired=fired):
+            if step == fail_at and not fired:
+                fired.append(step)
+                raise RuntimeError("injected node failure")
+
+        model = build_model(cfg)
+        out[run] = run_training(
+            model, DataConfig(vocab=cfg.vocab, seq_len=LM_RESUME_S, global_batch=LM_RESUME_B),
+            OptConfig(lr=1e-3, warmup_steps=1),
+            RunConfig(total_steps=LM_RESUME_STEPS, ckpt_every=4, log_every=100, metrics=[],
+                      deterministic=deterministic),
+            Checkpointer(os.path.join(root, f"{arch}-{run}-{deterministic}")),
+            fail_injector=injector)
+    return out["clean"], out["crash"]
+
+
+def _resume_row(arch: str, clean: dict, crash: dict) -> dict:
+    """How far the crashed run ended from the uninterrupted one."""
+    cl = {r["step"]: r["loss"] for r in clean["metrics"]}
+    cr = {r["step"]: r["loss"] for r in crash["metrics"]}  # a replayed step: its last run
+    pairs = list(zip(clean["final_state"].params.parameters(),
+                     crash["final_state"].params.parameters()))
+    losses = [cl[s] for s in sorted(cl)]
+    return {"arch": arch, "steps": LM_RESUME_STEPS, "fail_at": LM_RESUME_FAIL_AT,
+            "restarts": [clean["restarts"], crash["restarts"]],
+            "params_bit_identical": all(torch.equal(a, b) for a, b in pairs),
+            "params_max_abs_diff": max(float((a - b).detach().abs().max()) for a, b in pairs),
+            "losses_bit_identical": cl == cr,
+            "losses_max_abs_diff": max(abs(cl[s] - cr[s]) for s in cl),
+            "losses": losses, "loss_falls": losses[-1] < losses[0]}
+
+
+def lm_train_resume() -> dict:
+    """Crash and resume through `run_training` on the card, reduced qwen3-8b
+    and jamba-v0.1-52b (attention, Mamba and MoE): the run with a failure
+    injected restarts once and ends with the uninterrupted run's parameters
+    and per-step losses, bit for bit; the copy task's loss falls.  The loop
+    runs under deterministic algorithms, as a user's run does (the gathers'
+    backward, a scatter-add, takes its sorted form there); the warnings it
+    gives for ops without one are reported.  Then the same pair of runs
+    with `RunConfig.deterministic` off, whose distance is reported and not
+    held (it is what the deterministic mode buys).  Then `launch.train` and
+    `launch.serve --ckpt-dir` in subprocesses, at the runs' B and S, so that
+    every kernel shape they give is a `kernel_flash_attention` case.
+    Returns the launches of the deterministic runs."""
+    import tempfile
+    import warnings
+
+    reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for arch in LM_RESUME:
+                row = _resume_row(arch, *_resume_runs(arch, root))
+                emit("lm_train_resume", **row)
+                if not (row["restarts"] == [0, 1] and row["params_bit_identical"]
+                        and row["losses_bit_identical"] and row["loss_falls"]):
+                    raise AssertionError(f"{arch}: crash and resume: {row}")
+        launches = read_launches()
+        emit("lm_train_resume_deterministic_warnings",
+             messages=sorted({str(w.message)[:200] for w in caught}))
+        for arch in LM_RESUME:
+            row = _resume_row(arch, *_resume_runs(arch, root, deterministic=False))
+            emit("lm_train_resume_nondeterministic", **row)
+            if row["restarts"] != [0, 1]:
+                raise AssertionError(f"{arch}: crash and resume without determinism: {row}")
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        ckpt = os.path.join(root, "launch")
+        reduced_args = ["--arch", "qwen3-8b", "--reduced", "--ckpt-dir", ckpt,
+                        "--batch", str(LM_RESUME_B)]
+        cmds = {"train": [sys.executable, "-m", "repro_torch.launch.train", *reduced_args,
+                          "--seq", str(LM_RESUME_S), "--steps", "8"],
+                "serve": [sys.executable, "-m", "repro_torch.launch.serve", *reduced_args,
+                          "--prompt-len", str(LM_RESUME_S)]}
+        for name, cmd in cmds.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+            if name == "train":  # "done: steps=8 loss=<finite> restarts=0 ..."
+                done = re.search(r"^done: steps=8 loss=(\S+) restarts=0 ", proc.stdout, re.M)
+                ok = done is not None and math.isfinite(float(done.group(1)))
+            else:
+                ok = "restored step 8" in proc.stdout
+            ok = ok and proc.returncode == 0
+            want = "a finite done: line" if name == "train" else "restored step 8"
+            emit(f"lm_launch_{name}", cmd=" ".join(cmd[1:]), returncode=proc.returncode,
+                 seconds=time.perf_counter() - t0, stdout_tail=proc.stdout[-600:], ok=ok)
+            if not ok:
+                raise AssertionError(f"launch.{name}: rc {proc.returncode}, no {want!r}: "
+                                     f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return launches
 
 
 # Mixed precision (module item 7).  The LU kernels' bf16 and f16 entry
@@ -4062,6 +4380,21 @@ def main() -> int:
     #    plans' collectives; the distributed plans' traced bytes were held to
     #    the model in grid_8ranks.
     audit_launches = audit_phase(dev)
+
+    # 13. Training (module item 13's training part), after every phase of
+    #    earlier runs so that their host-clock readings are taken as before:
+    #    qwen3-8b and falcon-mamba-7b at full width, four layers, six train
+    #    steps each (the kernels in every forward and remat recompute); the
+    #    qwen3 steps again in f32 and at a tenth of the lr; two layers of each
+    #    in f32, loss and gradients on the kernel path against
+    #    the plain path; crash and resume through run_training, and
+    #    launch.train then launch.serve --ckpt-dir in subprocesses.
+    for arch, layers, batch, short in LM_TRAIN:
+        new_paths[f"lm_train_{short}"] = lm_train(arch, layers, batch, short)
+    lm_train_loss_study(*LM_TRAIN[0][:3])
+    for arch, *_ in LM_TRAIN:
+        lm_train_plain_check(arch)
+    new_paths["lm_train_resume"] = lm_train_resume()
 
     panel_row["launches"] = launches["lu_panel"]
     for row in fused_rows:

@@ -1,0 +1,192 @@
+"""Checkpointing with atomic commits and asynchronous writes, in the JAX
+package's format (`repro/checkpoint/checkpointer.py`):
+
+    <dir>/step_00000042.tmp/   (staging)
+        leaf_0000.npy ... leaf_NNNN.npy
+        manifest.json          (step, n_leaves, treedef, dtypes, shapes)
+    <dir>/step_00000042/       (atomic rename on commit)
+    <dir>/LATEST               (atomic pointer file)
+
+Leaf i of a checkpoint is leaf i of the JAX `TrainState` of the same config
+and optimizer, in `jax.tree.flatten`'s order: the parameters (sorted keys,
+each per-group leaf stacked over the groups), then the optimizer state
+(its parts and their leaves in sorted key order), then the step (int32).  So
+either package restores what the other wrote.  bf16 leaves are written as
+the JAX package writes them, as 2-byte void ('<V2') arrays whose manifest
+dtype is "bfloat16", and read back through their bits (numpy has no bf16).
+
+A save copies every leaf to the host before it returns (the train step
+updates the tensors in place); the files are written on one worker thread.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import param_leaves
+
+_BF16_DESCR = "<V2"
+
+
+def _sorted_keys(d: dict) -> list[str]:
+    return sorted(d, key=lambda k: tuple(k.split("/")))
+
+
+def state_leaves(state) -> list[tuple[str, list[torch.Tensor]]]:
+    """The JAX leaves of a port `TrainState`, in order: (path, the tensors
+    that hold it: one per group of a stacked parameter, else one)."""
+    named = dict(state.params.named_parameters())
+    out = [(f"params/{key}", [named[n] for n in names])
+           for key, names in param_leaves(named).items()]
+    for part in sorted(state.opt):
+        out += [(f"opt/{part}/{key}", [state.opt[part][key]])
+                for key in _sorted_keys(state.opt[part])]
+    out.append(("step", [state.step]))
+    return out
+
+
+def _host(path: str, tensors: list[torch.Tensor]) -> np.ndarray:
+    """A host copy of the leaf (bf16 as its int16 bits).  Always a copy: a
+    CPU tensor's `.cpu()` is the tensor itself, which the next step updates
+    while the write is pending."""
+    t = torch.stack(tensors) if path.startswith("params/blocks/") else tensors[0]
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.to("cpu", copy=True).numpy()
+
+
+def _save_leaf(path: str, x: np.ndarray, dtype: str) -> None:
+    if dtype != "bfloat16":
+        np.save(path, x)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": _BF16_DESCR, "fortran_order": False, "shape": x.shape})
+        f.write(np.ascontiguousarray(x).tobytes())
+
+
+def _load_leaf(path: str, dtype: str) -> torch.Tensor:
+    x = np.load(path)
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep_last: int = 3, async_writes: bool = True):
+        self.dir = directory
+        self.keep_last = keep_last
+        os.makedirs(directory, exist_ok=True)
+        self._pool = ThreadPoolExecutor(max_workers=1) if async_writes else None
+        self._pending = None
+        self._lock = threading.Lock()
+
+    # -- write ---------------------------------------------------------------
+
+    def save(self, step: int, state) -> None:
+        leaves = state_leaves(state)
+        dtypes = [str(ts[0].dtype).removeprefix("torch.") for _, ts in leaves]
+        host = [_host(path, ts) for path, ts in leaves]
+        treedef = "TrainState leaves: " + ", ".join(path for path, _ in leaves)
+        if self._pool is None:
+            self._write(step, host, dtypes, treedef)
+            return
+        self.wait()
+        with self._lock:
+            self._pending = self._pool.submit(self._write, step, host, dtypes, treedef)
+
+    def wait(self) -> None:
+        with self._lock:
+            if self._pending is not None:
+                self._pending.result()
+                self._pending = None
+
+    def _write(self, step: int, leaves, dtypes, treedef: str) -> None:
+        name = f"step_{step:08d}"
+        tmp = os.path.join(self.dir, name + ".tmp")
+        final = os.path.join(self.dir, name)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        manifest = {"step": step, "n_leaves": len(leaves), "treedef": treedef,
+                    "dtypes": dtypes, "shapes": [list(x.shape) for x in leaves]}
+        for i, (x, dt) in enumerate(zip(leaves, dtypes)):
+            _save_leaf(os.path.join(tmp, f"leaf_{i:04d}.npy"), x, dt)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        self._commit_pointer(name)
+        self._prune()
+
+    def _commit_pointer(self, name: str) -> None:
+        ptr = os.path.join(self.dir, "LATEST")
+        tmp = ptr + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(name)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, ptr)
+
+    def _prune(self) -> None:
+        steps = sorted(self.all_steps())
+        for s in steps[: max(len(steps) - self.keep_last, 0)]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"), ignore_errors=True)
+
+    # -- read ----------------------------------------------------------------
+
+    def all_steps(self) -> list[int]:
+        out = []
+        for n in os.listdir(self.dir):
+            if n.startswith("step_") and not n.endswith(".tmp"):
+                out.append(int(n.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        ptr = os.path.join(self.dir, "LATEST")
+        if not os.path.exists(ptr):
+            return None
+        with open(ptr) as f:
+            name = f.read().strip()
+        step = int(name.split("_")[1])
+        return step if os.path.isdir(os.path.join(self.dir, name)) else None
+
+    @torch.no_grad()
+    def restore(self, example_state, step: int | None = None, shardings=None):
+        """Restore into the tensors of `example_state` (a `TrainState` of the
+        same config and optimizer), in place, and return it.  Each leaf is
+        cast to the tensor's dtype on the tensor's device.  `shardings` (the
+        JAX package's elastic restore onto a mesh) has no counterpart until
+        `parallel/` is ported (ROADMAP.md module item 13)."""
+        if shardings is not None:
+            raise NotImplementedError("restore onto a mesh waits for the port of parallel/ "
+                                      "(ROADMAP.md module item 13)")
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.dir}")
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        leaves = state_leaves(example_state)
+        if manifest["n_leaves"] != len(leaves):
+            raise ValueError(f"{d} holds {manifest['n_leaves']} leaves, the state has "
+                             f"{len(leaves)}")
+        for i, (path, tensors) in enumerate(leaves):
+            x = _load_leaf(os.path.join(d, f"leaf_{i:04d}.npy"), manifest["dtypes"][i])
+            stacked = path.startswith("params/blocks/")
+            want = (len(tensors), *tensors[0].shape) if stacked else tuple(tensors[0].shape)
+            if tuple(x.shape) != want:
+                raise ValueError(f"{d} leaf {i} ({path}): shape {tuple(x.shape)}, the state's "
+                                 f"is {want}")
+            for j, t in enumerate(tensors):
+                t.copy_(x[j] if stacked else x)
+        return example_state

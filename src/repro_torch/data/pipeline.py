@@ -52,3 +52,11 @@ def synthetic_batch(cfg: DataConfig, step: int, model_cfg=None) -> dict:
             batch["patch_embeds"] = torch.randn(B, model_cfg.n_patches, model_cfg.d_model,
                                                 generator=gen)
     return batch
+
+
+def data_iterator(cfg: DataConfig, start_step: int = 0, model_cfg=None):
+    """Yields (step, synthetic_batch(cfg, step, model_cfg)) from `start_step` on."""
+    step = start_step
+    while True:
+        yield step, synthetic_batch(cfg, step, model_cfg)
+        step += 1

@@ -120,3 +120,69 @@ def lm_params_from_numpy(cfg, params: dict, *, device, dtype=None) -> dict:
                 for g in range(cfg.n_groups):
                     state[f"groups.{g}.{pos}.{sub}.{name}"] = _tensor(stacked[g], dev, leaf_dtype)
     return state
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of `t`; bf16 (which numpy lacks) widens exactly to f32."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _nest(flat: dict) -> dict:
+    """{"a/b/c": x} -> {"a": {"b": {"c": x}}}."""
+    out: dict = {}
+    for key, x in flat.items():
+        *parents, last = key.split("/")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = x
+    return out
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    """The inverse of `_nest`: {"a": {"b": x}} -> {"a/b": x}."""
+    out = {}
+    for k, x in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flatten(x, key) if isinstance(x, dict) else {key: x})
+    return out
+
+
+def lm_params_to_numpy(cfg, params) -> dict:
+    """The JAX package's parameter pytree, as numpy arrays, from a port model
+    or from any dict keyed by its parameter names (its gradients, say): the
+    inverse of `lm_params_from_numpy`.  Each per-group leaf is stacked over
+    the cfg.n_groups groups into "blocks"; bf16 leaves come as f32 (exact)."""
+    from repro_torch.models.transformer import param_leaves
+
+    named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else params
+    flat = {}
+    for key, names in param_leaves(named).items():
+        if key.startswith("blocks/"):
+            if len(names) != cfg.n_groups:
+                raise ValueError(f"{key}: {len(names)} groups, the config has {cfg.n_groups}")
+            flat[key] = np.stack([_numpy(named[n]) for n in names])
+        else:
+            flat[key] = _numpy(named[names[0]])
+    return _nest(flat)
+
+
+def train_state_from_numpy(cfg, params: dict, opt: dict, step, *, device):
+    """The port's `TrainState` from a JAX `TrainState`'s fields as numpy
+    arrays: the parameter pytree, the optimizer state ({"m", "v"} or
+    {"vr", "vc"}, each a tree of the parameters' structure) and the step.
+    The model is built on `device` (None = the CUDA card) in cfg.param_dtype
+    and switched to training; the optimizer state keeps the arrays' dtypes
+    (bf16 moments through their bits)."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.training.train_step import TrainState
+
+    dev = resolve_device(device)
+    model = build_model(cfg, device=dev)
+    model.load_state_dict(lm_params_from_numpy(cfg, params, device=dev))
+    model.train().requires_grad_(True)
+    state_opt = {part: {key: _tensor(x, dev, None) for key, x in _flatten(tree).items()}
+                 for part, tree in opt.items()}
+    return TrainState(params=model, opt=state_opt,
+                      step=torch.as_tensor(np.asarray(step), dtype=torch.int32, device=dev))

@@ -134,11 +134,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     them, where the kernel keeps them in f32), scaled by hd^-1/2, softcapped
     as cap * tanh(s / cap), masked with the finite NEG_INF, softmaxed in f32,
     and the probabilities are rounded to v's dtype before the PV product.
+    f64 inputs keep f64 throughout (for gradient checks).
     """
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * hd**-0.5
+    work = torch.promote_types(q.dtype, torch.float32)  # f64 inputs stay f64
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).to(work) * hd**-0.5
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     pos = torch.arange(S, device=q.device)
@@ -163,11 +165,13 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor, *,
     for a and b [B, S, di, N] and C [B, S, N].  Returns y [B, S, di], and with
     `return_state` also the last state h_S [B, di, N].  The product and the
     sum round separately (two operations, no fused multiply-add), as the
-    kernel rounds them, so the two states agree bit for bit.
+    kernel rounds them, so the two states agree bit for bit.  f64 inputs
+    run in f64 (for gradient checks).
     """
     B, S, di, N = a.shape
-    h = torch.zeros((B, di, N), dtype=torch.float32, device=a.device)
-    y = torch.empty((B, S, di), dtype=torch.float32, device=a.device)
+    work = torch.promote_types(a.dtype, torch.float32)  # f64 inputs stay f64
+    h = torch.zeros((B, di, N), dtype=work, device=a.device)
+    y = torch.empty((B, S, di), dtype=work, device=a.device)
     for t in range(S):
         h = a[:, t] * h + b[:, t]
         y[:, t] = (h * C[:, t, None, :]).sum(-1)

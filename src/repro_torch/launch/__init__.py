@@ -1,1 +1,2 @@
-"""Launch entry points of the port: LM serving (`python -m repro_torch.launch.serve`)."""
+"""Launch entry points of the port: LM training (`python -m repro_torch.launch.train`)
+and serving (`python -m repro_torch.launch.serve`)."""

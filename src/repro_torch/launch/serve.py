@@ -1,11 +1,13 @@
-"""Serving entry point: builds a model with random parameters from a seed and
-serves batched generation requests with the static-batch engine.
+"""Serving entry point: loads the latest checkpoint of a training run (or
+draws random parameters from a seed) and serves batched generation requests
+with the static-batch engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b [--reduced] \\
-        [--device cpu] [--max-new 16]
+        [--ckpt-dir /tmp/repro_ckpt] [--device cpu] [--max-new 16]
 
-Without --device it runs on the CUDA card.  Restoring a checkpoint waits for
-the port of `checkpoint/` (ROADMAP.md module item 13).
+Without --device it runs on the CUDA card.  --ckpt-dir restores a
+`TrainState` of the default `OptConfig` (what `launch.train` writes, or the
+JAX package's checkpoint of the same config) into the model.
 """
 
 from __future__ import annotations
@@ -13,10 +15,14 @@ from __future__ import annotations
 import argparse
 import json
 
+import torch
+
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
 from repro_torch.models.model_zoo import build_model
 from repro_torch.serving import SamplerConfig, ServeEngine
+from repro_torch.training import OptConfig, init_train_state
 
 
 def main(argv=None) -> list[list[int]]:
@@ -25,6 +31,7 @@ def main(argv=None) -> list[list[int]]:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--groups", type=int, default=2)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=64)
@@ -38,6 +45,13 @@ def main(argv=None) -> list[list[int]]:
     if not cfg.causal:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode path")
     model = build_model(cfg, device=args.device)
+    if args.ckpt_dir:
+        ckpt = Checkpointer(args.ckpt_dir)
+        if ckpt.latest_step() is not None:
+            gen = torch.Generator(device=model.device).manual_seed(0)
+            ckpt.restore(init_train_state(model, gen, OptConfig()))
+            model.eval().requires_grad_(False)
+            print(f"restored step {ckpt.latest_step()}")
     engine = ServeEngine(
         model, max_len=args.max_len, batch_size=args.batch,
         sampler=SamplerConfig(temperature=args.temperature, max_new_tokens=args.max_new),

@@ -67,17 +67,20 @@ class Group(nn.ModuleDict):
         for layer in self.values():
             layer.reset_parameters(cfg, gen)
 
-    def forward(self, cfg, x, positions, *, backend: str = "cuda", caches=None, g: int = 0):
-        """Full-sequence pass.  With `caches` (the stacked decode caches), the
-        prefill: also writes this group's attention k/v at positions [0, S)
-        and its mamba states into slot `g`."""
+    def forward(self, cfg, x, positions, *, backend: str = "cuda", caches=None, g: int = 0,
+                chunk: int = 1024):
+        """Full-sequence pass (`chunk`: the KV chunk of `blocked_attention`).
+        With `caches` (the stacked decode caches), the prefill: also writes
+        this group's attention k/v at positions [0, S) and its mamba states
+        into slot `g`."""
         S = x.shape[1]
         for key, layer in self.items():
             h = rms_norm(x, layer.norm_mixer.scale, cfg.norm_eps)
             mixer = layer.spec.mixer
             if mixer.startswith("attn"):
                 out, (k, v) = attention_forward(layer.attn, cfg, h, positions,
-                                                local=mixer == "attn_local", backend=backend)
+                                                local=mixer == "attn_local", backend=backend,
+                                                chunk=chunk)
                 if caches is not None:
                     caches[key]["k"][g, :, :S] = k
                     caches[key]["v"][g, :, :S] = v

@@ -6,7 +6,10 @@ The full-sequence forward calls the hand-written kernel
 (`repro_torch.kernels.ops.flash_attention`) where the JAX layer calls its
 jnp analogue, `blocked_attention`, "the oracle and the XLA fallback path" of
 the Pallas kernel: the function is the same.  `blocked_attention` is ported
-too, and runs with `backend="ref"` as the model's plain version.
+too, and runs with `backend="ref"` as the model's plain version.  With grad
+on, the kernel's gradient is `blocked_attention`'s
+(`repro_torch.kernels.autograd.FlashAttentionFn`), as the JAX package
+differentiates its training forward.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.autograd import FlashAttentionFn, needs_grad
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import BACKENDS
 from repro_torch.models.layers.norms import rms_norm
@@ -86,8 +90,8 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None, softc
     """Online-softmax attention over KV chunks, as the JAX layer's jnp path.
 
     q [B, Sq, H, hd]; k, v [B, Skv, KV, hd] (H % KV == 0) -> [B, Sq, H, hd].
-    The scores leave the product in the inputs' dtype and are taken to f32;
-    max and sum statistics are f32.  Unlike the JAX function, the last chunk
+    The scores leave the product in the inputs' dtype and are taken to f32
+    (f64 inputs stay f64); max and sum statistics are f32.  Unlike the JAX function, the last chunk
     may be short (Skv need not be a multiple of `chunk`); where the JAX
     function runs, the two compute the same thing.
     """
@@ -96,13 +100,14 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None, softc
     G = H // KV
     chunk = min(chunk, Skv)
     scale = hd**-0.5
+    work = torch.promote_types(q.dtype, torch.float32)  # f64 inputs stay f64
     qg = q.reshape(B, Sq, KV, G, hd)
-    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Sq, KV, G, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=work, device=q.device)
+    l = torch.zeros((B, Sq, KV, G), dtype=work, device=q.device)
+    acc = torch.zeros((B, Sq, KV, G, hd), dtype=work, device=q.device)
     for c0 in range(0, Skv, chunk):
         kb, vb, pb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], kv_pos[c0:c0 + chunk]
-        s = torch.einsum("bqkgh,bckh->bqkgc", qg, kb).float() * scale
+        s = torch.einsum("bqkgh,bckh->bqkgc", qg, kb).to(work) * scale
         s = _softcap(s, softcap)
         s = s + _mask_bias(q_pos, pb, causal, window)[None, :, None, None, :]
         m_new = torch.maximum(m, s.amax(-1))
@@ -110,7 +115,7 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None, softc
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum(
-            "bqkgc,bckh->bqkgh", p.to(vb.dtype), vb).float()
+            "bqkgc,bckh->bqkgh", p.to(vb.dtype), vb).to(work)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Sq, H, hd).to(q.dtype)
@@ -124,6 +129,8 @@ def attention_forward(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, local
     Returns (out [B, S, d], (k, v)) with k, v [B, S, KV, hd] for the cache.
     `backend="cuda"` runs the kernel (its plain version on CPU tensors),
     `"ref"` the ported jnp path, `blocked_attention`, in chunks of `chunk`.
+    With grad on and an input that requires it, `"cuda"` keeps the kernel in
+    the forward and takes `blocked_attention`'s gradient (chunks of `chunk`).
     """
     if cfg.attn_score_dtype != "float32":
         raise NotImplementedError(
@@ -132,7 +139,9 @@ def attention_forward(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, local
         )
     q, k, v = _qkv(p, cfg, x, positions)
     window = cfg.window if local else None
-    if backend == "cuda":
+    if backend == "cuda" and needs_grad(q, k, v):
+        out = FlashAttentionFn.apply(q, k, v, cfg.causal, window, cfg.attn_softcap, chunk)
+    elif backend == "cuda":
         out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window,
                                   softcap=cfg.attn_softcap)
     elif backend == "ref":

@@ -1,12 +1,16 @@
-"""Mamba-1 block (selective SSM) for falcon-mamba.
+"""Mamba-1 block (selective SSM) for falcon-mamba and jamba.
 
 The full-sequence forward runs the selective scan through the hand-written
 kernel (`repro_torch.kernels.ops.mamba_scan`), which also returns the last
 state for the prefill -> decode handoff; the JAX layer runs the kernel's jnp
 analogue, a chunked associative scan that builds the whole [B, S, di, N]
-state history.  `backend="ref"` runs the kernel's plain version, the
-sequential recurrence.  Decode carries the [B, d_inner, N] state explicitly,
-one token at a time.
+state history.  That scan is ported too (`chunked_scan`): it is what a
+gradient differentiates.  With grad on, `backend="cuda"` scans with the
+kernel and differentiates `chunked_scan` in the backward
+(`repro_torch.kernels.autograd.MambaScanFn`), `backend="ref"` runs
+`chunked_scan` itself; with grad off, `"ref"` runs the kernel's plain
+version, the sequential recurrence.  Decode carries the [B, d_inner, N]
+state explicitly, one token at a time.
 """
 
 from __future__ import annotations
@@ -14,8 +18,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.autograd import MambaScanFn, needs_grad
 from repro_torch.models.layers import BACKENDS
 
 
@@ -70,6 +76,45 @@ def _ssm_inputs(p, cfg, xc: torch.Tensor):
     return a, b, Cc
 
 
+def scan_chunk(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor, h0: torch.Tensor):
+    """One chunk of the JAX layer's chunked scan, from the state h0.
+
+    a, b [B, Q, di, N] and C [B, Q, N] f32, h0 [B, di, N] f32 ->
+    (y [B, Q, di], h_Q [B, di, N]).  Within the chunk the pairs (a_t, b_t)
+    are combined as `jax.lax.associative_scan` combines them, l then r ->
+    (a_l a_r, b_l a_r + b_r), in log2(Q) rounds of the Hillis-Steele form
+    (round d combines every t >= d with t - d); then h_t = a_cum h0 + b_cum
+    and y_t = sum_n h_t[:, n] C_t[n].  Differentiable by autograd."""
+    Q = a.shape[1]
+    d = 1
+    while d < Q:
+        a, b = (torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], 1),
+                torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], 1))
+        d *= 2
+    h = a * h0[:, None] + b
+    return torch.einsum("bqin,bqn->bqi", h, C), h[:, -1]
+
+
+def chunked_scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor, chunk: int):
+    """The JAX layer's chunked associative scan, h_0 = 0: a, b [B, S, di, N]
+    and C [B, S, N] f32 -> (y [B, S, di], h_S [B, di, N]).  `chunk` divides S;
+    the chunks run in order, each from the last one's final state
+    (`scan_chunk`).  With grad on, each chunk runs under non-reentrant
+    `torch.utils.checkpoint`: the graph keeps each chunk's inputs, and the
+    backward recomputes one chunk's rounds at a time.  The chunks are a
+    `split` of the inputs, whose backward is one `cat` of the chunks'
+    gradients (a slice's would add a zero-filled [B, S, di, N] per chunk)."""
+    B, S, di, N = a.shape
+    h = torch.zeros((B, di, N), dtype=a.dtype, device=a.device)
+    remat = needs_grad(a, b, C)
+    ys = []
+    for args in zip(a.split(chunk, 1), b.split(chunk, 1), C.split(chunk, 1)):
+        y, h = (checkpoint(scan_chunk, *args, h, use_reentrant=False, preserve_rng_state=False)
+                if remat else scan_chunk(*args, h))
+        ys.append(y)
+    return torch.cat(ys, 1), h
+
+
 def _causal_conv(p, cfg, x1: torch.Tensor, conv_state: torch.Tensor | None = None):
     """Depthwise causal conv1d.  x1 [B, S, di]; conv_state [B, dconv-1, di] or
     None (zeros).  Returns (out [B, S, di], the new state: the last dconv-1
@@ -99,7 +144,11 @@ def mamba_forward(p, cfg, x: torch.Tensor, return_state: bool = False, *,
     With return_state=True also returns (ssm_state [B, di, N] f32,
     conv_state [B, dconv-1, di]) after the last step, for the prefill ->
     decode handoff.  `backend="cuda"` scans with the kernel (its plain version
-    on CPU tensors), `"ref"` with the plain version on any device."""
+    on CPU tensors), `"ref"` with the plain version on any device.  With grad
+    on and an input that requires it, the scan's gradient is that of the JAX
+    layer's chunked scan (`chunked_scan`, chunk as the JAX layer picks it):
+    `"cuda"` keeps the kernel in the forward (`MambaScanFn`), `"ref"` runs
+    `chunked_scan`."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     S = x.shape[1]
@@ -109,8 +158,18 @@ def mamba_forward(p, cfg, x: torch.Tensor, return_state: bool = False, *,
     xc, _ = _causal_conv(p, cfg, x1)
     xc = F.silu(xc)
     a, b, Cc = _ssm_inputs(p, cfg, xc)
-    scan = ops.mamba_scan if backend == "cuda" else ref.mamba_scan
-    y, h_last = scan(a, b, Cc.float().contiguous(), return_state=True)
+    C32 = Cc.float().contiguous()
+    if needs_grad(a, b, C32):
+        Q = min(cfg.mamba.chunk, S)  # the JAX layer's chunk: halved until it divides S
+        while S % Q:
+            Q //= 2
+        if backend == "cuda":
+            y, h_last = MambaScanFn.apply(a, b, C32, Q)
+        else:
+            y, h_last = chunked_scan(a, b, C32, Q)
+    else:
+        scan = ops.mamba_scan if backend == "cuda" else ref.mamba_scan
+        y, h_last = scan(a, b, C32, return_state=True)
     del a, b
     out = _gate_out(p, y, xc, z, x.dtype)
     if not return_state:

@@ -14,7 +14,8 @@ def build_model(cfg: ModelConfig, *, device=None, dtype=None, backend: str = "cu
                 seed: int = 0) -> Transformer:
     """The model of `cfg` with random parameters drawn from a `torch.Generator`
     seeded with `seed` on the model's device, ready for `forward`, `prefill`
-    and `decode_step`.
+    and `decode_step`: in eval mode, no parameter requiring grad
+    (`repro_torch.training.init_train_state` switches it to training).
 
     `device` None is the CUDA card (a CPU-only host raises; pass "cpu" for the
     plain versions on the CPU).  `dtype` defaults to `cfg.param_dtype`.

@@ -7,19 +7,50 @@ package's:
                      = {"ssm": [G, B, di, N] f32, "conv": [G, B, dc-1, di]}  mamba mixers
 
 The JAX package scans one jitted group body over the stacked parameters; here
-the groups are an `nn.ModuleList` and a Python loop runs them.  Inference
-only: no remat, no loss (training is a later slice).  `decode_step` updates
-the caches in place and returns the same dict.
+the groups are an `nn.ModuleList` and a Python loop runs them.  `forward` and
+`loss_fn` are the training and scoring passes (each group under activation
+checkpointing with `remat`, as `jax.checkpoint` wraps the JAX group body);
+`prefill` and `decode_step` serve without grad.  `decode_step` updates the
+caches in place and returns the same dict.
+
+The JAX parameter tree stacks each per-group leaf over the groups; here
+group g's leaf is the parameter `groups.{g}.{pos}.{sub}.{name}`.
+`param_leaves` maps the port's names onto the JAX tree's leaves, in
+`jax.tree.flatten`'s order (sorted keys), for the optimizer state, the
+checkpoint format and `repro_torch.interop`.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models.blocks import Group
 from repro_torch.models.layers.embeddings import embed_inputs, init_embeddings, logits_out
 from repro_torch.models.layers.norms import RMSNorm, rms_norm
+
+
+def leaf_key(name: str) -> tuple[str, int | None]:
+    """The JAX tree's leaf of port parameter `name`, its keys "/"-joined, and
+    the group index along its stacked axis (None for an unstacked leaf):
+    "groups.3.pos0.attn.wq" -> ("blocks/pos0/attn/wq", 3),
+    "final_norm.scale" -> ("final_norm/scale", None)."""
+    if name.startswith("groups."):
+        _, g, rest = name.split(".", 2)
+        return "blocks/" + rest.replace(".", "/"), int(g)
+    return name.replace(".", "/"), None
+
+
+def param_leaves(names) -> dict[str, list[str]]:
+    """{leaf key: its port names (one per group in group order for a stacked
+    leaf, else one)} in `jax.tree.flatten`'s leaf order."""
+    out: dict[str, list[tuple[int, str]]] = {}
+    for name in names:
+        key, g = leaf_key(name)
+        out.setdefault(key, []).append((-1 if g is None else g, name))
+    return {key: [n for _, n in sorted(out[key])]
+            for key in sorted(out, key=lambda k: tuple(k.split("/")))}
 
 
 def init_caches(cfg, batch_size: int, max_len: int, *, dtype, device) -> dict:
@@ -79,14 +110,40 @@ class Transformer(nn.Module):
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         return logits_out(self, self.cfg, rms_norm(x, self.final_norm.scale, self.cfg.norm_eps))
 
-    @torch.no_grad()
-    def forward(self, batch: dict) -> torch.Tensor:
-        """batch -> logits [B, S, V]."""
+    def forward(self, batch: dict, *, remat: bool = True, chunk: int = 1024) -> torch.Tensor:
+        """batch -> logits [B, S, V], as the JAX `forward`.
+
+        With grad on and `remat`, each group runs under
+        `torch.utils.checkpoint.checkpoint` (non-reentrant): its activations
+        are dropped after the forward and recomputed in the backward, so the
+        attention and scan kernels run twice per layer a step.  `chunk` is
+        `blocked_attention`'s KV chunk (the "ref" forward and the attention
+        gradient)."""
         x = embed_inputs(self, self.cfg, batch)
         positions = torch.arange(x.shape[1], device=x.device)
+        remat = remat and torch.is_grad_enabled()
         for group in self.groups:
-            x = group(self.cfg, x, positions, backend=self.backend)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    group, self.cfg, x, positions, backend=self.backend, chunk=chunk,
+                    use_reentrant=False)
+            else:
+                x = group(self.cfg, x, positions, backend=self.backend, chunk=chunk)
         return self._final(x)
+
+    def loss_fn(self, batch: dict, **kw) -> torch.Tensor:
+        """Mean next-token (or frame-label) cross entropy, as the JAX `loss_fn`:
+        f32 logits, logsumexp less the label's logit, weighted by
+        `batch["loss_mask"]` (ones by default) over max(mask sum, 1).  `kw`
+        goes to `forward`."""
+        logits = self.forward(batch, **kw).float()
+        labels = batch["labels"]
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        return torch.sum((lse - picked) * mask) / torch.clamp(mask.sum(), min=1.0)
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int):

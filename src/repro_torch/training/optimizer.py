@@ -1,0 +1,155 @@
+"""Optimizers: AdamW (configurable moment dtype: bf16 moments halve the
+optimizer's memory) and Adafactor (factored second moment), as the JAX
+package's `repro/training/optimizer.py` computes them.
+
+Parameters and gradients are dicts keyed by the model's parameter names
+(`dict(model.named_parameters())`).  The optimizer state is keyed by the JAX
+parameter tree's leaves (`repro_torch.models.transformer.param_leaves`):
+each state tensor has the JAX leaf's shape, stacked over the groups, so that
+Adafactor factors a stacked leaf as the JAX package does (a per-group [d]
+norm scale is a [G, d] matrix there, with a [G] row and a [d] column
+statistic) and a checkpoint's leaves are the JAX `TrainState`'s.
+
+The updates run in the JAX package's order of operations, in f32, and write
+the results back into the parameters and the state in place, cast to their
+dtypes (the JAX functions return new trees).  The learning rate and the bias
+corrections are f32 tensors computed from the step, as JAX computes them.
+`torch.optim.AdamW` is another function (it decays the weights before the
+step, and keeps its moments in the parameters' dtype), so it is not used.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.models.transformer import param_leaves
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    kind: str = "adamw"  # adamw | adafactor
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"  # bfloat16 halves optimizer memory
+    warmup_steps: int = 100
+
+
+def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup to cfg.lr over cfg.warmup_steps, as an f32 tensor."""
+    warm = torch.clamp(step.float() / max(cfg.warmup_steps, 1), max=1.0)
+    return cfg.lr * warm
+
+
+def _global_norm(grads: dict) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in f32, summed leaf by
+    leaf in the JAX tree's order."""
+    total = None
+    for names in param_leaves(grads).values():
+        s = sum(torch.sum(torch.square(grads[n].float())) for n in names)
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
+    """(grads scaled by min(1, max_norm / norm), each in its dtype; norm)."""
+    norm = _global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, norm
+
+
+def _stacked_shape(params: dict, names: list[str]) -> tuple[int, ...]:
+    """The JAX leaf's shape: a stacked leaf has the groups in front."""
+    shape = tuple(params[names[0]].shape)
+    return (len(names), *shape) if names[0].startswith("groups.") else shape
+
+
+def init_opt_state(params: dict, cfg: OptConfig) -> dict:
+    """Zeroed state in cfg.moment_dtype: AdamW {"m", "v"} in each leaf's
+    shape; Adafactor {"vr", "vc"} with the JAX package's factored shapes
+    (for a leaf of 2 or more axes, vr drops the last axis and vc the one
+    before it; else vr is the leaf's shape and vc a scalar)."""
+    mdt = getattr(torch, cfg.moment_dtype)
+    leaves = param_leaves(params)
+    dev = {key: params[names[0]].device for key, names in leaves.items()}
+    shapes = {key: _stacked_shape(params, names) for key, names in leaves.items()}
+
+    def zeros(key, shape):
+        return torch.zeros(shape, dtype=mdt, device=dev[key])
+
+    if cfg.kind == "adamw":
+        return {"m": {k: zeros(k, s) for k, s in shapes.items()},
+                "v": {k: zeros(k, s) for k, s in shapes.items()}}
+    if cfg.kind == "adafactor":
+        return {"vr": {k: zeros(k, s[:-1] if len(s) >= 2 else s) for k, s in shapes.items()},
+                "vc": {k: zeros(k, s[:-2] + s[-1:] if len(s) >= 2 else ()) for k, s in
+                       shapes.items()}}
+    raise ValueError(cfg.kind)
+
+
+@torch.no_grad()
+def adamw_update(params: dict, grads: dict, opt_state: dict, step: torch.Tensor,
+                 cfg: OptConfig) -> tuple[dict, dict]:
+    """One AdamW step with the weight decay inside it:
+    p - lr (m^ / (sqrt(v^) + eps) + wd p).  Updates `params` and `opt_state`
+    in place and returns them.  Elementwise, so each group's parameter is
+    updated against its slice of the stacked moments."""
+    lr = schedule(cfg, step)
+    t = (step + 1).float()
+    bc1 = 1.0 - torch.pow(cfg.b1, t)
+    bc2 = 1.0 - torch.pow(cfg.b2, t)
+    for key, names in param_leaves(params).items():
+        M, V = opt_state["m"][key], opt_state["v"][key]
+        stacked = names[0].startswith("groups.")
+        for g_idx, name in enumerate(names):
+            p, g = params[name], grads[name]
+            m, v = (M[g_idx], V[g_idx]) if stacked else (M, V)
+            g32 = g.float()
+            m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
+            v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g32 * g32
+            step_ = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+            p32 = p.float()
+            p32 = p32 - lr * (step_ + cfg.weight_decay * p32)
+            p.copy_(p32.to(p.dtype))
+            m.copy_(m32.to(m.dtype))
+            v.copy_(v32.to(v.dtype))
+    return params, opt_state
+
+
+@torch.no_grad()
+def adafactor_update(params: dict, grads: dict, opt_state: dict, step: torch.Tensor,
+                     cfg: OptConfig) -> tuple[dict, dict]:
+    """One Adafactor step (no first moment), on each leaf stacked as the JAX
+    tree holds it.  Updates `params` and `opt_state` in place and returns
+    them."""
+    lr = schedule(cfg, step)
+    d = 1e-30
+    for key, names in param_leaves(params).items():
+        stacked = names[0].startswith("groups.")
+        p = torch.stack([params[n] for n in names]) if stacked else params[names[0]]
+        g = torch.stack([grads[n] for n in names]) if stacked else grads[names[0]]
+        vr, vc = opt_state["vr"][key], opt_state["vc"][key]
+        g32 = g.float()
+        g2 = g32 * g32 + d
+        if p.ndim >= 2:
+            vr32 = cfg.b2 * vr.float() + (1 - cfg.b2) * g2.mean(-1)
+            vc32 = cfg.b2 * vc.float() + (1 - cfg.b2) * g2.mean(-2)
+            denom = torch.sqrt(vr32[..., :, None] * vc32[..., None, :] / torch.clamp(
+                vr32.mean(-1)[..., None, None], min=d))
+        else:
+            vr32 = cfg.b2 * vr.float() + (1 - cfg.b2) * g2
+            vc32 = vc.float()
+            denom = torch.sqrt(vr32)
+        p32 = p.float()
+        p32 = p32 - lr * (g32 / torch.clamp(denom, min=cfg.eps) + cfg.weight_decay * p32)
+        new = p32.to(p.dtype)
+        for g_idx, name in enumerate(names):
+            params[name].copy_(new[g_idx] if stacked else new)
+        vr.copy_(vr32.to(vr.dtype))
+        vc.copy_(vc32.to(vc.dtype))
+    return params, opt_state
