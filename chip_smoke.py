@@ -92,7 +92,20 @@ each kernel against its plain PyTorch version on the card:
   against the plain path; crash and resume through `run_training` on
   reduced qwen3-8b and jamba-v0.1-52b, bit-identical to the run without
   the crash; `python -m repro_torch.launch.train` and `launch.serve
-  --ckpt-dir` in subprocesses.
+  --ckpt-dir` in subprocesses;
+- training across ranks (item 13's rest): qwen3-8b at full width, 2
+  layers, f32, S = 2048, global batch 2, three steps on one rank in this
+  process, then the same steps data-parallel on two gloo ranks sharing the
+  card (one card allows NCCL only at world size 1), every step's loss and
+  gradient norm against the one-rank run and each gradient leaf of step 1
+  against the rank's own one-device gradient; `compressed_psum` on the two
+  ranks against its plain formula; `torchrun --nproc-per-node=1 -m
+  repro_torch.launch.train` (an NCCL group of one);
+- bf16 score buffers: `flash_attention(score_dtype=bf16)` (both bodies)
+  against `ref.flash_attention(score_dtype=bf16)`, and qwen3-8b (4 layers)
+  served and trained with `attn_score_dtype="bfloat16"` against f32 scores;
+- llama4-maverick at full width, one group (a dense and a MoE layer),
+  bf16, served as above.
 
 Before the paths, `lu_panel` and `lu_panel_batched` are held bit for bit at
 the edges of their CUDA bodies, in f64 and on panels with NaN and infinite
@@ -247,6 +260,51 @@ LM_TRAIN_LOSS_REL_TOL, LM_TRAIN_GRAD_REL_TOL = 1e-5, 1e-3
 # S = 16, 12 steps, checkpoints every 4, a failure before step 6.
 LM_RESUME = ("qwen3-8b", "jamba-v0.1-52b")
 LM_RESUME_B, LM_RESUME_S, LM_RESUME_STEPS, LM_RESUME_FAIL_AT = 4, 16, 12, 6
+# Training across ranks (item 13's rest): qwen3-8b at full width, LM_DP's
+# layers, f32, S = 2048, a global batch of 2, LM_DP_STEPS steps on one rank
+# and then on LM_DP_RANKS gloo ranks on cuda:0, each rank one row.  Two
+# layers hold 1.63 B parameters: 6.5 GB each of weights, gradients, m and v,
+# and a gradient's clipped copy, about 33 GB a rank at its peak.  Both runs
+# compute the same function and sum the same terms in other orders (f32:
+# cuBLAS may tile a batch of 1 and of 2 differently; the all-reduce adds the
+# ranks' sums), so each step's loss and gradient norm within 2e-4 relative
+# (the CPU tests' step tolerance), each gradient leaf of step 1 within 1e-4
+# of its max |g| (f32 sums of ~4096-term products: 1e-6 expected).
+LM_DP = ("qwen3-8b", 2, 2)  # (arch, layers, global batch)
+LM_DP_S, LM_DP_STEPS, LM_DP_RANKS = 2048, 3, 2
+LM_DP_STEP_RTOL, LM_DP_GRAD_REL = 2e-4, 1e-4
+LM_DP_TIMEOUT_S = 420  # both ranks together, from spawn to exit
+COMPRESS_N, COMPRESS_BITS = 1 << 24, (8, 4)  # compressed_psum's tensor, its bit widths
+# bf16 score buffers: flash_attention(score_dtype=bf16) against
+# ref.flash_attention(score_dtype=bf16) at qwen3-8b's prefill shape, the
+# bf16-score model's (B = 2), and in f32 (the f32 body) at the DP shape and
+# lm_train_resume's reduced one.  Three bounds, each case:
+# - within FLASH_TOL of bf16 (the scores' dtype's: the kernel rounds s - m
+#   against its running max, the plain version against the row's max, each
+#   within a bf16 ulp, 0.4%, of a score, for f32 inputs too);
+# - the flag is seen: the bf16-score kernel's max and mean error against that
+#   reference at most SCORE_FRAC of the f32-score kernel's against the same
+#   reference, in the same run.  A kernel that ignored the flag would score
+#   1 on both; the kernel read 0.22-0.29 at the 2048-token shapes (the
+#   rounding points agree, the maxima they round against need not) and 0
+#   at the reduced one;
+# - f32 inputs: within SCORE_F32_BODY_TOL (atol and rtol), twice the f32
+#   body's 2.0e-3 at the DP shape (the reduced shape read 0.0), below the
+#   f32-score kernel's 5.3e-3 and 1.8e-2 there.
+# qwen3-8b's first LM_SCORE_LAYERS layers served and trained LM_SCORE_STEPS
+# steps with bf16 scores against f32 scores (same weights): prefill logits
+# within LM_LOGIT_REL_TOL of max|logits| of the f32-score run's and of the
+# plain path's (backend "ref", blocked attention in bf16 scores), the same
+# kernel launches.
+LM_SCORE_CASES = ((4, LM_PROMPT, 32, 8, 128, torch.bfloat16), (2, LM_PROMPT, 32, 8, 128,
+                  torch.bfloat16), (1, LM_PROMPT, 32, 8, 128, torch.float32),
+                  (LM_RESUME_B, LM_RESUME_S, 4, 2, 16, torch.float32))
+SCORE_FRAC, SCORE_F32_BODY_TOL = 0.5, 4e-3
+LM_SCORE_LAYERS, LM_SCORE_B, LM_SCORE_STEPS = 4, 2, 2
+# llama4-maverick at full width in bf16, one group (a dense and a MoE layer,
+# ~37 GB; its 128 experts alone 32.2 GB, all read by every decode step):
+# (arch, batch, layers, phase suffix).
+LM_SERVE_LLAMA4 = ("llama4-maverick-400b-a17b", 1, 2, "llama4")
 
 
 def emit(phase: str, **fields) -> None:
@@ -491,26 +549,32 @@ def right_modes():
             setattr(ops, name, fn)
 
 
-def device_record_names(fn, calls: int = DEVICE_CALLS) -> dict:
+def device_record_names(fn, calls: int = DEVICE_CALLS, tries: int = 5) -> dict:
     """The device records (kernels, copies, fills) of `calls` calls under
     torch.profiler, counted by name; a tail of sleep kernels keeps the
-    profiler from losing the last ones and is left out."""
+    profiler from losing the last ones and is left out.  A window that kept
+    no record of the calls is profiled again, as in `device_ms`, up to
+    `tries` windows (then {})."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        for _ in range(8):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    return dict(Counter(ev.name for ev in prof.events()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = Counter(ev.name for ev in prof.events()
                         if ev.device_type == torch.autograd.DeviceType.CUDA
-                        and TAIL_KERNEL not in ev.name))
+                        and TAIL_KERNEL not in ev.name)
+        if names:
+            return dict(names)
+    return {}
 
 
 def special_panel(case: str, panel: torch.Tensor, weights: torch.Tensor):
@@ -1586,6 +1650,13 @@ GRID_ENGINE_N = 2048
 GRID_ENGINE_CASES = (("engine_default", None), ("engine_conflux", "conflux"),
                      ("engine_cholesky25d", "cholesky25d"), ("engine_baseline2d", "baseline2d"))
 GRID_ENGINE_RHS, GRID_ASYNC_RHS = 4, 8
+# The async engine's batches are each rank's own (`AsyncSolveEngine`'s
+# docstring), and a stacked triangular solve of k RHS need not give a column
+# the bits it gets among k' others: the ranks' async answers are compared bit
+# for bit over one batch of all GRID_ASYNC_RHS requests on every rank, closed
+# by the size trigger (max_batch) and never by a deadline, which eight ranks
+# sharing the host's cores can pass between two submits.
+GRID_ASYNC_DELAY_MS = 60_000.0
 
 
 def trsm_left_lower_rows(dev, gen) -> list[dict]:
@@ -2094,7 +2165,7 @@ def _grid_engines(dev) -> dict:
                                     + [hpl_residual(A, xf, r) for xf, r in zip(flushed, rhs)])}
         if strategy == "conflux":
             a = AsyncSolveEngine(n, cfg, device=dev, max_batch=GRID_ASYNC_RHS,
-                                 max_delay_ms=ASYNC_DELAY_MS)
+                                 max_delay_ms=GRID_ASYNC_DELAY_MS)
             a.engine.factor(A)
             futs = [a.submit_rhs(r) for r in rhs]
             xs = torch.stack([f.result(timeout=120) for f in futs])
@@ -2103,6 +2174,7 @@ def _grid_engines(dev) -> dict:
             case["hpl_residual"] = max([case["hpl_residual"]]
                                        + [hpl_residual(A, xf, r) for xf, r in zip(xs, rhs)])
             case["async_served"] = a.stats()["async"]["served"]
+            case["async_flushes"] = a.stats()["async"]["flushes"]
         out[name] = case
         del eng, A, b, x, x2, flushed, x_ref
     return out
@@ -2218,9 +2290,13 @@ def grid_8ranks(device: str = "cuda:0") -> dict:
              config="SolverConfig()" if strategy is None else strategy,
              strategy=per[0]["strategy"], grid=per[0]["grid"], ranks_agree=len(resolved) == 1,
              answers_bit_identical_across_ranks=same,
+             answers_differing=[k for k in per[0]["digests"]
+                                if len({x["digests"][k] for x in per}) > 1],
              x_bit_identical_plan=[x["x_equals_plan"] for x in per],
              hpl_residual_max=hpl,
              solve_s=max(x["solve_s"] for x in per), launches_rank0=per[0]["launches"],
+             async_flushes=[x.get("async_flushes") for x in per] if strategy == "conflux"
+             else None,
              async_served=[x.get("async_served") for x in per] if strategy == "conflux"
              else None)
         if not (same and len(resolved) == 1 and all(x["x_equals_plan"] for x in per)
@@ -2272,14 +2348,16 @@ def flash_build_report() -> list[dict]:
     report = []
     lines = _build.build_log.get("flash_attention", "").splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '.*flash_fwd_(bf16|f32)_kernelILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*flash_fwd_(bf16|f32)_kernelILi(\d+)ELb([01])E",
+                      line)
         if not m:
             continue
         text = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", text)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
         dtype, width = m.group(1), int(m.group(2))
-        entry = {"kernel": f"{dtype}<{width}>",
+        scores = ", bf16 scores" if m.group(3) == "1" else ""
+        entry = {"kernel": f"{dtype}<{width}{scores}>",
                  "registers": int(regs.group(1)) if regs else None,
                  "spill_stores": int(spill.group(1)) if spill else None,
                  "spill_loads": int(spill.group(2)) if spill else None}
@@ -2308,7 +2386,8 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
     # qwen3-moe-235b-a22b's prefill as lm_serve_qwen3_moe gives it (64 / 4:
     # gq = 16, B = 4); then the training phases' shapes: lm_train_qwen3's
     # (B = 2, bf16), lm_train_plain_check's is the f32 case, and
-    # lm_train_resume's reduced qwen3 and jamba (f32, hd = 16, S = 16).
+    # lm_train_resume's reduced qwen3 and jamba (f32, hd = 16, S = 16); then
+    # lm_train_dp's f32 shapes: the one-rank run's (B = 2) and a rank's (B = 1).
     cases = ((4, LM_PROMPT, 32, 8, 128, torch.bfloat16, True, None, None),
              (1, 1024, 32, 8, 128, torch.float32, True, None, None),
              (1, LM_PROMPT, 16, 8, 256, torch.bfloat16, True, 512, 50.0),
@@ -2319,7 +2398,9 @@ def lm_kernel_rows(dev, gen) -> list[dict]:
              (1, LM_PROMPT, 40, 8, 128, torch.bfloat16, True, None, None),
              (4, LM_PROMPT, 64, 4, 128, torch.bfloat16, True, None, None),
              (LM_TRAIN[0][2], LM_TRAIN_S, 32, 8, 128, torch.bfloat16, True, None, None),
-             (LM_RESUME_B, LM_RESUME_S, 4, 2, 16, torch.float32, True, None, None))
+             (LM_RESUME_B, LM_RESUME_S, 4, 2, 16, torch.float32, True, None, None),
+             (LM_DP[2], LM_DP_S, 32, 8, 128, torch.float32, True, None, None),
+             (LM_DP[2] // LM_DP_RANKS, LM_DP_S, 32, 8, 128, torch.float32, True, None, None))
     for B, S, H, KV, hd, dt, causal, window, softcap in cases:
         q = torch.randn(B, S, H, hd, generator=gen, device=dev, dtype=dt)
         k = torch.randn(B, S, KV, hd, generator=gen, device=dev, dtype=dt)
@@ -2816,6 +2897,434 @@ def lm_train_resume() -> dict:
             if not ok:
                 raise AssertionError(f"launch.{name}: rc {proc.returncode}, no {want!r}: "
                                      f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return launches
+
+
+def _param_checksum(model) -> list[float]:
+    """(sum, sum of squares) of every parameter in f64: equal bits give equal
+    sums, so ranks that hold the same parameters report the same pair."""
+    s = torch.zeros(2, dtype=torch.float64, device=model.device)
+    for p in model.parameters():
+        x = p.detach().double()
+        s[0] += x.sum()
+        s[1] += (x * x).sum()
+    return s.tolist()
+
+
+def _dp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
+    """One of LM_DP_RANKS ranks on cuda:0 in a gloo group: lm_train_dp's
+    model and steps, data-parallel; rank 0 holds step 1's summed gradient
+    against its own one-device gradient of the global batch.  Then
+    `compressed_psum` at each of COMPRESS_BITS.  Writes what it saw to
+    out_dir/rank<r>.json."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel.compression import compressed_psum
+    from repro_torch.training import OptConfig, init_train_state, make_train_step
+    from repro_torch.training import train_step as ts
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: loopback
+    torch.set_num_threads(2)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # NCCL refuses two ranks on one device; gloo stages CUDA tensors through
+    # the host for all_reduce, the only collective of the step.
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=LM_DP_RANKS)
+    group = dist.group.WORLD
+    out = {"rank": rank}
+    try:
+        arch, layers, batch = LM_DP
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        opt_cfg = OptConfig(warmup_steps=2)
+        model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
+        state = init_train_state(model, torch.Generator(device=model.device).manual_seed(0),
+                                 opt_cfg)
+        batches = [_train_batch(cfg, batch, LM_DP_S, s) for s in range(LM_DP_STEPS)]
+        # Rank 0's one-device gradient of step 1 (the global batch), held
+        # against the step's own summed gradient as the all-reduce leaves it.
+        step1 = {"grads": ts.accumulate_grads(model, batches[0])[1] if rank == 0 else None}
+        names = [n for n, _ in model.named_parameters()]
+        reduce_s = []
+        orig = ts._all_reduce_sum
+
+        def timed(tensors, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(tensors, group)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t0)
+            want = step1.pop("grads", None)
+            if want is not None:  # tensors: the loss, then the gradients in parameter order
+                rel = {n: float((g - want[n]).abs().max()) / max(float(want[n].abs().max()),
+                                                                 1e-30)
+                       for n, g in zip(names, tensors[1:])}
+                worst = max(rel, key=rel.get)
+                out["grad_rel_err_per_leaf"] = rel
+                out["grad_leaves"] = len(rel)
+                out["grad_worst_leaf"], out["grad_worst_rel_err"] = worst, rel[worst]
+
+        ts._all_reduce_sum = timed
+        step_fn = make_train_step(model, opt_cfg, group=group)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out.update(losses=[], grad_norms=[], step_s=[], all_reduce_s=[])
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["all_reduce_s"].append(sum(reduce_s))
+            reduce_s.clear()
+            out["losses"].append(metrics["loss"].item())
+            out["grad_norms"].append(metrics["grad_norm"].item())
+        ts._all_reduce_sum = orig
+        out["launches"] = {k: c for k, c in read_launches().items() if c}
+        out["all_reduces_per_step"] = len(ts.buckets(
+            [1] + [p.numel() for p in model.parameters()], ts.BUCKET_BYTES))
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["param_checksum"] = _param_checksum(model)
+        del state, model, step_fn, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # compressed_psum: each rank's tensor from its own seed; rank 0 makes
+        # every rank's and applies the plain formula.
+        def draw(r):
+            return torch.randn(COMPRESS_N, generator=torch.Generator(device=dev).manual_seed(
+                100 + r), device=dev)
+
+        x = draw(rank)
+        out["compressed_psum"] = []
+        for bits in COMPRESS_BITS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = compressed_psum(x, group, bits)
+            torch.cuda.synchronize()
+            row = {"bits": bits, "n": COMPRESS_N, "seconds": time.perf_counter() - t0,
+                   "finite": bool(torch.isfinite(got).all())}
+            if rank == 0:
+                xs = [draw(r) for r in range(LM_DP_RANKS)]
+                qmax = 2 ** (bits - 1) - 1
+                scale = torch.clamp(torch.stack([t.abs().max() for t in xs]).max(),
+                                    min=1e-12) * (1.0 / qmax)  # as XLA divides by qmax
+                q = sum(torch.clamp(torch.round(t / scale), -qmax, qmax).to(torch.int32)
+                        for t in xs)
+                want = q.float() * scale
+                row["equal_to_plain"] = torch.equal(got, want)
+                row["max_abs_err"] = float((got - want).abs().max())
+                row["exact_sum_rel_err"] = float((got - sum(xs)).abs().max() /
+                                                 sum(xs).abs().max())
+                del xs, q, want
+            out["compressed_psum"].append(row)
+            del got
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_train_dp(device: str = "cuda:0") -> dict:
+    """LM_DP's steps on one rank in this process, then on LM_DP_RANKS gloo
+    ranks on cuda:0 (`_dp_rank`): each step's loss and gradient norm within
+    LM_DP_STEP_RTOL of the one-rank run's, every rank's alike and its
+    parameters' checksum alike; step 1's gradient leaves within
+    LM_DP_GRAD_REL of their max against the one-device gradient;
+    `compressed_psum` equal to its plain formula.  Each run launches
+    flash_attention twice per layer a step.  Prints the peak memory per rank
+    and the all-reduce's share of a step.  Returns the one-rank run's
+    launches."""
+    import dataclasses
+    import gc
+    import multiprocessing as mp
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, init_train_state, make_train_step
+
+    arch, layers, batch = LM_DP
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    opt_cfg = OptConfig(warmup_steps=2)
+    model = build_model(cfg, device=device, dtype=torch.float32, seed=0)
+    state = init_train_state(model, torch.Generator(device=model.device).manual_seed(0), opt_cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    step_fn = make_train_step(model, opt_cfg)
+    batches = [_train_batch(cfg, batch, LM_DP_S, s) for s in range(LM_DP_STEPS)]
+    one = {"losses": [], "grad_norms": [], "step_s": []}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        torch.cuda.synchronize()
+        one["step_s"].append(time.perf_counter() - t0)
+        one["losses"].append(metrics["loss"].item())
+        one["grad_norms"].append(metrics["grad_norm"].item())
+    launches = read_launches()
+    one["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    one["param_checksum"] = _param_checksum(model)
+    del state, model, step_fn, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_dp_rank, args=(r, out_dir, device))
+                 for r in range(LM_DP_RANKS)]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + LM_DP_TIMEOUT_S
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.0))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if hung or failed:
+            raise AssertionError(f"lm_train_dp: ranks {failed} failed (of which {hung} "
+                                 f"outlived {LM_DP_TIMEOUT_S} s)")
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(LM_DP_RANKS)]
+    r0 = ranks[0]
+    per_step = {"flash_attention": 2 * _mixer_layers(cfg, "attn")}
+    want = {k: LM_DP_STEPS * c for k, c in per_step.items()}
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    loss_rel, norm_rel = rel(r0["losses"], one["losses"]), rel(r0["grad_norms"], one["grad_norms"])
+    timed = [(s, a) for s, a in zip(r0["step_s"], r0["all_reduce_s"])][1:]
+    check = {
+        "losses_within_tol": max(loss_rel) <= LM_DP_STEP_RTOL,
+        "grad_norms_within_tol": max(norm_rel) <= LM_DP_STEP_RTOL,
+        "grad_leaves_within_tol": r0["grad_worst_rel_err"] <= LM_DP_GRAD_REL,
+        "ranks_alike": all(r["losses"] == r0["losses"] and r["grad_norms"] == r0["grad_norms"]
+                           and r["param_checksum"] == r0["param_checksum"] for r in ranks),
+        "finite": all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+        "launches": (launches == expected_launches(**want)
+                     and all(r["launches"] == want for r in ranks)),
+    }
+    emit("lm_train_dp", arch=arch, layers=layers, params=n_params, dtype="torch.float32",
+         global_batch=batch, seq=LM_DP_S, steps=LM_DP_STEPS, ranks=LM_DP_RANKS,
+         backend="gloo on cuda:0", one_rank=one,
+         dp_losses=r0["losses"], dp_grad_norms=r0["grad_norms"], loss_rel_err=loss_rel,
+         grad_norm_rel_err=norm_rel, step_tol_rel=LM_DP_STEP_RTOL,
+         grad_rel_err_per_leaf=r0["grad_rel_err_per_leaf"],
+         grad_leaves=r0["grad_leaves"], grad_worst_leaf=r0["grad_worst_leaf"],
+         grad_worst_rel_err=r0["grad_worst_rel_err"], grad_tol_rel=LM_DP_GRAD_REL,
+         dp_step_s=[r["step_s"] for r in ranks],
+         all_reduce_s=[r["all_reduce_s"] for r in ranks],
+         all_reduce_share_steps_2_on=[a / s for s, a in timed],
+         all_reduces_per_step=r0["all_reduces_per_step"],
+         peak_gib_per_rank=[r["peak_gib"] for r in ranks],
+         launches_one_rank={k: c for k, c in launches.items() if c},
+         launches_per_rank=[r["launches"] for r in ranks], launches_per_step=per_step,
+         spawn_s=spawn_s, **check)
+    if not all(check.values()):
+        raise AssertionError(f"lm_train_dp: {check}")
+    for i, row in enumerate(r0["compressed_psum"]):
+        row["finite"] = all(r["compressed_psum"][i]["finite"] for r in ranks)
+        emit("compressed_psum", ranks=LM_DP_RANKS, **row)
+        if not (row["equal_to_plain"] and row["finite"]):
+            raise AssertionError(f"compressed_psum bits={row['bits']}: {row}")
+    return launches
+
+
+def lm_launch_train_torchrun() -> None:
+    """`torchrun --standalone --nproc-per-node=1 -m repro_torch.launch.train`
+    (an NCCL group of one rank, the only one a single card allows) at
+    lm_train_resume's reduced shape: a finite `done: steps=8` line."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    with tempfile.TemporaryDirectory() as root:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node=1", "-m", "repro_torch.launch.train", "--arch", "qwen3-8b",
+               "--reduced", "--batch", str(LM_RESUME_B), "--seq", str(LM_RESUME_S), "--steps",
+               "8", "--ckpt-dir", os.path.join(root, "ckpt")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+    done = re.search(r"^done: steps=8 loss=(\S+) restarts=0 ", proc.stdout, re.M)
+    group = re.search(r"data-parallel: rank 0 of 1 \(nccl\)", proc.stdout + proc.stderr)
+    ok = (proc.returncode == 0 and done is not None and math.isfinite(float(done.group(1)))
+          and group is not None)
+    emit("lm_launch_train_torchrun", cmd="torchrun " + " ".join(cmd[3:]),
+         returncode=proc.returncode, seconds=time.perf_counter() - t0,
+         stdout_tail=proc.stdout[-600:], group=(group.group(0) if group else None), ok=ok)
+    if not ok:
+        raise AssertionError(f"torchrun launch.train: rc {proc.returncode}, no finite done: "
+                             f"line: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+
+
+def _device_ms_or_none(fn) -> float | None:
+    """`device_ms`, or None where the profiler kept no device record of the
+    calls in any of its windows (it loses records late in a long run)."""
+    try:
+        return device_ms(fn)
+    except AssertionError:
+        return None
+
+
+def lm_score_bf16_kernels(dev, gen) -> dict:
+    """bf16 score buffers in the kernel: score_dtype=bf16 (the bf16 body at
+    the LM shapes, the f32 body in f32) against
+    ref.flash_attention(score_dtype=bf16), held to the LM_SCORE_CASES bounds
+    beside the f32-score kernel's distance from the same reference, timed
+    beside the f32-score body and (at the prefill shape) SDPA.  Returns the
+    prefill shape's timings (device times None where the profiler kept no
+    record)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    bf16 = torch.bfloat16
+    row = {}
+    for B, S, H, KV, hd, dt in LM_SCORE_CASES:
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev, dtype=dt)
+        k = torch.randn(B, S, KV, hd, generator=gen, device=dev, dtype=dt)
+        v = torch.randn(B, S, KV, hd, generator=gen, device=dev, dtype=dt)
+        out_k = ops.flash_attention(q, k, v, score_dtype=bf16).float()
+        out_p = ref.flash_attention(q, k, v, score_dtype=bf16).float()
+        out_f = ops.flash_attention(q, k, v).float()
+        torch.cuda.synchronize()
+        diff, diff_f = (out_k - out_p).abs(), (out_f - out_p).abs()
+        err = {"max": float(diff.max()), "mean": float(diff.mean())}
+        err_f = {"max": float(diff_f.max()), "mean": float(diff_f.mean())}
+        tol = FLASH_TOL[bf16]  # the scores' dtype's, for f32 inputs too
+        check = {
+            "within_tol": bool((diff <= tol + tol * out_p.abs()).all()),
+            "finite": bool(torch.isfinite(out_k).all()),
+            "max_below_f32_scores": err["max"] <= SCORE_FRAC * err_f["max"],
+            "mean_below_f32_scores": err["mean"] <= SCORE_FRAC * err_f["mean"]}
+        if dt == torch.float32:
+            check["within_f32_body_tol"] = bool(
+                (diff <= SCORE_F32_BODY_TOL + SCORE_F32_BODY_TOL * out_p.abs()).all())
+        elem = q.element_size()
+        b = bound(elem * (2 * B * S * H * hd + 2 * B * S * KV * hd),
+                  4 * B * H * hd * attention_pairs(S, True, None),
+                  BF16_FLOPS if dt == bf16 else FP32_FLOPS)
+        fields = dict(
+            ms=time_ms(lambda: ops.flash_attention(q, k, v, score_dtype=bf16)),
+            ms_f32_scores=time_ms(lambda: ops.flash_attention(q, k, v)),
+            device_ms=_device_ms_or_none(lambda: ops.flash_attention(q, k, v, score_dtype=bf16)),
+            device_ms_f32_scores=_device_ms_or_none(lambda: ops.flash_attention(q, k, v)), **b)
+        if (B, S, dt) == (4, LM_PROMPT, bf16):
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa
+                                                          enable_gqa=True)
+            fields.update(library_ms=time_ms(sdpa), library_device_ms=_device_ms_or_none(sdpa),
+                          plain_ms=time_ms(lambda: ref.flash_attention(
+                              q, k, v, score_dtype=bf16), reps=3))
+            row = fields
+        emit("kernel_flash_attention_bf16_scores", shape=[B, S, H, KV, hd], dtype=str(dt),
+             body="bf16 wgmma" if dt == bf16 else "f32 SIMT", causal=True,
+             max_abs_err=err["max"], mean_abs_err=err["mean"], tol=tol,
+             f32_body_tol=SCORE_F32_BODY_TOL if dt == torch.float32 else None,
+             f32_scores_max_abs_err=err_f["max"], f32_scores_mean_abs_err=err_f["mean"],
+             frac=SCORE_FRAC, **check, **fields)
+        if not all(check.values()):
+            raise AssertionError(f"flash_attention bf16 scores {[B, S, H, KV, hd]} {dt}: "
+                                 f"{check}, error {err} against the f32-score kernel's {err_f}")
+        del q, k, v, out_k, out_p, out_f, diff, diff_f
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_score_bf16() -> dict:
+    """qwen3-8b's first LM_SCORE_LAYERS layers with attn_score_dtype bf16 and
+    f32, same weights: the bf16-score prefill logits within LM_LOGIT_REL_TOL
+    of the f32-score run's and of the plain path's with bf16 scores, and the
+    same ServeEngine and LM_SCORE_STEPS train steps' launches.  Returns the
+    bf16-score run's launches."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import SamplerConfig, ServeEngine
+    from repro_torch.training import OptConfig, init_train_state, make_train_step
+
+    base = get_config("qwen3-8b")
+    prompts = torch.randint(0, base.vocab, (LM_SCORE_B, LM_PROMPT),
+                            generator=torch.Generator().manual_seed(4))
+    runs = {}
+    for sd in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, n_layers=LM_SCORE_LAYERS, attn_score_dtype=sd)
+        model = build_model(cfg, seed=0)
+        toks = prompts.to(model.device)
+        logits, _ = model.prefill({"tokens": toks}, max_len=LM_PROMPT + 8)
+        engine = ServeEngine(model, max_len=LM_PROMPT + 8, batch_size=LM_SCORE_B,
+                             sampler=SamplerConfig(max_new_tokens=8))
+        reset_launches()
+        outs = engine.generate(prompts.tolist())
+        serve = {k: c for k, c in read_launches().items() if c}
+        opt_cfg = OptConfig(warmup_steps=2)
+        state = init_train_state(model, torch.Generator(device=model.device).manual_seed(0),
+                                 opt_cfg)
+        step_fn = make_train_step(model, opt_cfg)
+        reset_launches()
+        losses = []
+        for s in range(LM_SCORE_STEPS):
+            state, metrics = step_fn(state, _train_batch(cfg, LM_SCORE_B, LM_PROMPT, s))
+            losses.append(metrics["loss"].item())
+        train = read_launches()
+        runs[sd] = {"logits": logits.float(), "serve": serve, "train": train, "losses": losses,
+                    "tokens": outs}
+        del model, engine, state, step_fn, metrics, logits, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    # The plain path with bf16 scores, prefill only.
+    cfg = dataclasses.replace(base, n_layers=LM_SCORE_LAYERS, attn_score_dtype="bfloat16")
+    model = build_model(cfg, seed=0, backend="ref")
+    plain, _ = model.prefill({"tokens": prompts.to(model.device)}, max_len=LM_PROMPT + 8)
+    plain = plain.float()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32, low = runs["float32"], runs["bfloat16"]
+    err = float((low["logits"] - f32["logits"]).abs().max())
+    scale = float(f32["logits"].abs().max())
+    err_plain = float((low["logits"] - plain).abs().max())
+    err_plain_f32 = float((f32["logits"] - plain).abs().max())
+    scale_plain = float(plain.abs().max())
+    per_step = 2 * LM_SCORE_LAYERS
+    check = {"logits_within_tol": err <= LM_LOGIT_REL_TOL * scale,
+             "logits_within_tol_of_plain": err_plain <= LM_LOGIT_REL_TOL * scale_plain,
+             "same_serve_launches": low["serve"] == f32["serve"] == {
+                 "flash_attention": LM_SCORE_LAYERS},
+             "same_train_launches": low["train"] == f32["train"] == expected_launches(
+                 flash_attention=LM_SCORE_STEPS * per_step),
+             "finite": all(math.isfinite(x) for x in low["losses"] + f32["losses"])}
+    emit("lm_score_bf16", arch="qwen3-8b", layers=LM_SCORE_LAYERS, batch=LM_SCORE_B,
+         S=LM_PROMPT, dtype="torch.bfloat16", logits_max_abs_err=err, logits_max_abs=scale,
+         plain_logits_max_abs_err=err_plain, plain_logits_max_abs=scale_plain,
+         f32_scores_plain_logits_max_abs_err=err_plain_f32,
+         tol_rel=LM_LOGIT_REL_TOL, serve_launches=low["serve"],
+         train_launches={k: c for k, c in low["train"].items() if c},
+         losses_bf16_scores=low["losses"], losses_f32_scores=f32["losses"],
+         first_tokens_bf16_scores=[o[:8] for o in low["tokens"]],
+         first_tokens_f32_scores=[o[:8] for o in f32["tokens"]], **check)
+    if not all(check.values()):
+        raise AssertionError(f"lm_score_bf16: {check}, logits error {err} (scale {scale}), "
+                             f"{err_plain} from the plain path (scale {scale_plain})")
+    launches = {k: low["serve"].get(k, 0) + low["train"].get(k, 0) for k in low["train"]}
+    del runs, f32, low, plain
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4396,6 +4905,17 @@ def main() -> int:
         lm_train_plain_check(arch)
     new_paths["lm_train_resume"] = lm_train_resume()
 
+    # 14. Item 13's rest: qwen3-8b trained on one rank and then on two gloo
+    #    ranks sharing the card (with compressed_psum on them), launch.train
+    #    under torchrun (NCCL, one rank), the bf16 score buffers (kernel and
+    #    model), and llama4-maverick served at full width (one group).
+    new_paths["lm_train_dp"] = lm_train_dp()
+    lm_launch_train_torchrun()
+    bf16_scores_row = lm_score_bf16_kernels(dev, gen)
+    new_paths["lm_score_bf16"] = lm_score_bf16()
+    arch, batch, layers, short = LM_SERVE_LLAMA4
+    new_paths[f"lm_serve_{short}"] = lm_serve(arch, batch, layers, short)
+
     panel_row["launches"] = launches["lu_panel"]
     for row in fused_rows:
         row["launches"] = launches["fused_trsm_schur"]
@@ -4411,6 +4931,8 @@ def main() -> int:
             row["note"] = "on no path but the auditor's kernel check (audit phase)"
     for row in lm_rows:
         row["launches"] = lm_launches[row["name"]]
+        if row["name"] == "flash_attention":
+            row["bf16_scores"] = bf16_scores_row  # qwen3-8b's prefill shape
     for row in mixed_rows:
         base, sh = row["name"].rstrip("]").split("[")
         counts = mixed_batched_launches if base.endswith("_batched") else mixed_launches

@@ -165,11 +165,14 @@ class Checkpointer:
         """Restore into the tensors of `example_state` (a `TrainState` of the
         same config and optimizer), in place, and return it.  Each leaf is
         cast to the tensor's dtype on the tensor's device.  `shardings` (the
-        JAX package's elastic restore onto a mesh) has no counterpart until
-        `parallel/` is ported (ROADMAP.md module item 13)."""
+        JAX package's elastic restore onto a mesh) has no counterpart: the
+        port's parallel/ replicates the training state on every rank, and
+        its shardings get a user with the dry-run tools (ROADMAP.md, slice
+        21)."""
         if shardings is not None:
-            raise NotImplementedError("restore onto a mesh waits for the port of parallel/ "
-                                      "(ROADMAP.md module item 13)")
+            raise NotImplementedError("restore onto a mesh: the port's parallel/ replicates the "
+                                      "state on every rank; shardings wait for the dry-run "
+                                      "tools (ROADMAP.md, slice 21)")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")

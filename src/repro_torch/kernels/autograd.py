@@ -35,15 +35,18 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """apply(q, k, v, causal, window, softcap, chunk) -> [B, S, H, hd]:
+    """apply(q, k, v, causal, window, softcap, chunk, score_dtype) -> [B, S, H, hd]:
     `ops.flash_attention` forward, `blocked_attention`'s gradient (KV chunks
-    of `chunk`, positions arange(S)) backward."""
+    of `chunk`, positions arange(S), scores in `score_dtype`) backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window, softcap, chunk: int):
+    def forward(ctx, q, k, v, causal: bool, window, softcap, chunk: int,
+                score_dtype: torch.dtype = torch.float32):
         ctx.save_for_backward(q, k, v)
-        ctx.kw = dict(causal=causal, window=window, softcap=softcap, chunk=chunk)
-        return ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap, chunk=chunk,
+                      score_dtype=score_dtype)
+        return ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   score_dtype=score_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -54,7 +57,7 @@ class FlashAttentionFn(torch.autograd.Function):
         with torch.enable_grad():
             out = blocked_attention(q, k, v, pos, pos, **ctx.kw)
             gq, gk, gv = torch.autograd.grad(out, (q, k, v), g)
-        return gq, gk, gv, None, None, None, None
+        return gq, gk, gv, None, None, None, None, None
 
 
 class MambaScanFn(torch.autograd.Function):

@@ -71,6 +71,17 @@
 //   kernel asserted S % bq == 0.
 // - q tiles are issued in reverse order, so under a causal mask the blocks
 //   with the most kv tiles start first.
+// - bf16 scores (the C entries' `bf16_scores`, the template argument BS of
+//   both bodies): the scores are held as the reference's bf16 score buffers
+//   hold them (ref.flash_attention(score_dtype=bf16), after the JAX
+//   package's blocked_attention): the product rounded to bf16, times the
+//   scale (rounded to bf16 by the caller), rounded; softcap's s / cap, tanh
+//   and cap * tanh each rounded; a masked score is -1e30 rounded to bf16;
+//   s - m (m taken to bf16) and p = exp(s - m) rounded; m, l and acc stay
+//   f32, and l sums the rounded p.  The rounding is `__float2bfloat16_rn`
+//   in registers.  The bf16 body folds no scale into exp2 there: the scale
+//   must act before the rounding.  BS = false compiles to the f32-score
+//   bodies as they were.
 
 #include <cstdint>
 
@@ -89,6 +100,29 @@ constexpr int kMaxHd = 256;
 
 // -inf, the score of a key past S only.
 __device__ __forceinline__ float minus_inf() { return __int_as_float(0xff800000); }
+
+// x rounded to bf16 (to nearest, ties to even) and widened back: the bf16
+// score buffers' rounding points.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The masked score where the scores are bf16: the reference adds the mask
+// value taken to bf16, -1e30 rounded to -1.0002556e30 (BS: bf16 scores).
+template <bool BS>
+__device__ __forceinline__ float masked_score() {
+  return BS ? -1.0002555517425873e30f : kNegInf;
+}
+
+// The score s = product * scale, softcapped, in f32 or held in bf16 as the
+// reference's bf16 score buffers hold it: the product rounded, times the
+// scale, rounded; then s / cap, tanh and cap * tanh each rounded (the caller
+// passes the scale and the cap rounded to bf16, as the reference takes them).
+__device__ __forceinline__ float bf16_score(float product, float scale, float softcap) {
+  float x = bf16r(bf16r(product) * scale);
+  if (softcap > 0.f) x = bf16r(softcap * bf16r(tanhf(bf16r(x / softcap))));
+  return x;
+}
 
 // --------------------------------------------------------------------------
 // bf16: wgmma fed by TMA
@@ -177,7 +211,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int HDP>
+template <int HDP, bool BS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
@@ -286,7 +320,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   // registers.
   asm volatile("" : "+r"(pos_a), "+r"(pos_b));
   const int col0 = 2 * (lane & 3);
-  const float to_log2 = softcap > 0.f ? kLog2e : scale * kLog2e;  // score units -> log2
+  // score units -> log2; bf16 scores are scaled where they are rounded.
+  const float to_log2 = BS || softcap > 0.f ? kLog2e : scale * kLog2e;
   const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
   const uint32_t q_desc_base = sq + wg * 64 * 128;
 
@@ -334,8 +369,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   };
 
   // Scores stay in the exponent's units: raw q.k, whose factor
-  // scale * log2(e) goes into exp2, or softcapped (factor log2(e)).  A masked
-  // score is -1e30 in either, as m starts, far below every real score:
+  // scale * log2(e) goes into exp2, or softcapped (factor log2(e)).  bf16
+  // scores (BS) are the reference's bf16 values (`bf16_score`), scaled
+  // before their rounding, so their factor is log2(e): `shape` makes them
+  // in a shaped tile, `softmax` in any other.  A masked score is -1e30 in
+  // either (in bf16, -1e30 rounded), as m starts, far below every real score:
   // exp2((s - m) to_log2) is 1 while a row has seen only masked keys and 0
   // once it has a real one, as in the reference.  Most tiles need neither a
   // softcap nor a mask and leave s as the product wrote it; the others
@@ -349,7 +387,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
   };
   auto shape = [&](int t) {
     const int j0 = j_first + t * kKeys;
-    if (softcap > 0.f) {
+    if constexpr (BS) {
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i) s[i] = bf16_score(s[i], scale, softcap);
+    } else if (softcap > 0.f) {
 #pragma unroll
       for (int i = 0; i < kKeys / 2; ++i) s[i] = softcap * tanhf(s[i] * scale * inv_cap);
     }
@@ -360,13 +401,22 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
         const int j = j0 + col0 + 8 * (i >> 2) + (i & 1);
         const int pos = (i & 2) ? pos_b : pos_a;
         const bool ok = (!causal || j <= pos) && (window <= 0 || j > pos - window);
-        s[i] = j >= S ? minus_inf() : (ok ? s[i] : kNegInf);
+        s[i] = j >= S ? minus_inf() : (ok ? s[i] : masked_score<BS>());
       }
     }
   };
   // The softmax of the scores in s: bf16 P fragments `pt`, m and l
-  // updated, alpha = exp(m_old - m_new) per row.
-  auto softmax = [&](uint32_t(&pt)[kKeys / 16][4], float& alpha_a, float& alpha_b) {
+  // updated, alpha = exp(m_old - m_new) per row.  With bf16 scores, the
+  // scores of a tile that `shape` did not rewrite (`shaped` false) are made
+  // here first; s - m and p are rounded to bf16, and l sums the rounded p.
+  auto softmax = [&](uint32_t(&pt)[kKeys / 16][4], float& alpha_a, float& alpha_b,
+                     bool shaped_tile) {
+    if constexpr (BS) {
+      if (!shaped_tile) {
+#pragma unroll
+        for (int i = 0; i < kKeys / 2; ++i) s[i] = bf16r(bf16r(s[i]) * scale);
+      }
+    }
     float mx_a = m_a, mx_b = m_b;
 #pragma unroll
     for (int i = 0; i < kKeys / 2; i += 4) {
@@ -387,7 +437,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
       float e[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        e[u] = ex2((s[8 * kk + u] - ((u & 2) ? m_b : m_a)) * to_log2);
+        if constexpr (BS) {
+          e[u] = bf16r(ex2(bf16r(s[8 * kk + u] - bf16r((u & 2) ? m_b : m_a)) * kLog2e));
+        } else {
+          e[u] = ex2((s[8 * kk + u] - ((u & 2) ? m_b : m_a)) * to_log2);
+        }
       }
       sum_a += (e[0] + e[1]) + (e[4] + e[5]);
       sum_b += (e[2] + e[3]) + (e[6] + e[7]);
@@ -421,9 +475,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
     named_arrive(other_slot, kThreads);
     wgmma_wait<0>();
     pin(s);
-    if (shaped(0)) shape(0);
+    const bool rewrite = shaped(0);
+    if (rewrite) shape(0);
     float alpha_a, alpha_b;  // O is still 0
-    softmax(pa, alpha_a, alpha_b);
+    softmax(pa, alpha_a, alpha_b, rewrite);
   }
   auto step = [&](int t, const uint32_t(&p_prev)[kKeys / 16][4],
                   uint32_t(&p_next)[kKeys / 16][4]) {
@@ -447,7 +502,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_k,
       shape(t);
     }
     float alpha_a, alpha_b;
-    softmax(p_next, alpha_a, alpha_b);
+    softmax(p_next, alpha_a, alpha_b, rewrite);
     if (!rewrite) {
       wgmma_wait<0>();  // PV of tile t - 1
       pin(o);
@@ -529,7 +584,7 @@ bool kv_map(CUtensorMap* map, const void* ptr, int B, int S, int KV, int hd, int
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HDP>
+template <int HDP, bool BS>
 int launch_bf16_hdp(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                     int KV, int hd, int causal, int window, float softcap, float scale,
                     cudaStream_t stream) {
@@ -540,19 +595,20 @@ int launch_bf16_hdp(const void* q, const void* k, const void* v, void* out, int 
   }
   static OncePerDevice<> limit;
   const cudaError_t err = limit.get([](int, int*) {
-    return cudaFuncSetAttribute(flash_fwd_bf16_kernel<HDP>,
+    return cudaFuncSetAttribute(flash_fwd_bf16_kernel<HDP, BS>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(T::kSmem));
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t rows_total = static_cast<int64_t>(S) * (H / KV);
   const dim3 grid(static_cast<unsigned>((rows_total + kRows - 1) / kRows), B * KV);
-  flash_fwd_bf16_kernel<HDP><<<grid, kThreads, T::kSmem, stream>>>(
+  flash_fwd_bf16_kernel<HDP, BS><<<grid, kThreads, T::kSmem, stream>>>(
       tm_k, tm_v, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), S, H,
       KV, hd, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool BS>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                 int KV, int hd, int causal, int window, float softcap, float scale,
                 cudaStream_t stream) {
@@ -562,14 +618,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   switch ((hd + kBoxCols - 1) / kBoxCols) {
-    case 1: return launch_bf16_hdp<64>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                       scale, stream);
-    case 2: return launch_bf16_hdp<128>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                        scale, stream);
-    case 3: return launch_bf16_hdp<192>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                        scale, stream);
-    default: return launch_bf16_hdp<256>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                         scale, stream);
+    case 1: return launch_bf16_hdp<64, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                           softcap, scale, stream);
+    case 2: return launch_bf16_hdp<128, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                            softcap, scale, stream);
+    case 3: return launch_bf16_hdp<192, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                            softcap, scale, stream);
+    default: return launch_bf16_hdp<256, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                             softcap, scale, stream);
   }
 }
 
@@ -609,8 +665,8 @@ size_t smem_floats(int hd) {
          static_cast<size_t>(kF32Rows) * kF32Keys;
 }
 
-// DPL: dims per lane in the PV product, ceil(hd / 32).
-template <int DPL>
+// DPL: dims per lane in the PV product, ceil(hd / 32); BS: bf16 scores.
+template <int DPL, bool BS>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out, int S, int H, int KV,
@@ -706,18 +762,25 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       float sc[2] = {s0[i] * scale, s1[i] * scale};
+      if constexpr (BS) {
+        sc[0] = bf16_score(s0[i], scale, softcap);
+        sc[1] = bf16_score(s1[i], scale, softcap);
+      }
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int j = j0 + lane + 32 * u;
-        if (softcap > 0.f) sc[u] = softcap * tanhf(sc[u] / softcap);
+        if (!BS && softcap > 0.f) sc[u] = softcap * tanhf(sc[u] / softcap);
         bool ok = true;
         if (causal) ok = ok && j <= qpos[i];
         if (window > 0) ok = ok && j > qpos[i] - window;
-        sc[u] = j >= S ? minus_inf() : (ok ? sc[u] : kNegInf);
+        sc[u] = j >= S ? minus_inf() : (ok ? sc[u] : masked_score<BS>());
       }
       const float m_new = fmaxf(m[i], warp_max(fmaxf(sc[0], sc[1])));
-      const float p0 = expf(sc[0] - m_new);
-      const float p1 = expf(sc[1] - m_new);
+      // With bf16 scores, s - m and p are rounded to bf16 (m taken to bf16
+      // first), and l sums the rounded p.
+      const float mb = BS ? bf16r(m_new) : m_new;
+      const float p0 = BS ? bf16r(expf(bf16r(sc[0] - mb))) : expf(sc[0] - m_new);
+      const float p1 = BS ? bf16r(expf(bf16r(sc[1] - mb))) : expf(sc[1] - m_new);
       alpha[i] = expf(m[i] - m_new);
       l[i] = l[i] * alpha[i] + warp_sum(p0 + p1);
       m[i] = m_new;
@@ -778,7 +841,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DPL>
+template <int DPL, bool BS>
 int launch_f32_dpl(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                    int KV, int hd, int causal, int window, float softcap, float scale,
                    cudaStream_t stream) {
@@ -786,39 +849,40 @@ int launch_f32_dpl(const void* q, const void* k, const void* v, void* out, int B
   // instantiation takes.
   static OncePerDevice<> limit;
   const cudaError_t err = limit.get([](int, int*) {
-    return cudaFuncSetAttribute(flash_fwd_f32_kernel<DPL>,
+    return cudaFuncSetAttribute(flash_fwd_f32_kernel<DPL, BS>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem_floats(32 * DPL) * sizeof(float)));
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t rows_total = static_cast<int64_t>(S) * (H / KV);
   const dim3 grid(static_cast<unsigned>((rows_total + kF32Rows - 1) / kF32Rows), B * KV);
-  flash_fwd_f32_kernel<DPL><<<grid, kF32Threads, smem_floats(hd) * sizeof(float), stream>>>(
+  flash_fwd_f32_kernel<DPL, BS><<<grid, kF32Threads, smem_floats(hd) * sizeof(float), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), S, H, KV, hd, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool BS>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                int KV, int hd, int causal, int window, float softcap, float scale,
                cudaStream_t stream) {
   switch ((hd + 31) / 32) {
-    case 1: return launch_f32_dpl<1>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                     scale, stream);
-    case 2: return launch_f32_dpl<2>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                     scale, stream);
-    case 3: return launch_f32_dpl<3>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                     scale, stream);
-    case 4: return launch_f32_dpl<4>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                     scale, stream);
-    case 5: return launch_f32_dpl<5>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                     scale, stream);
-    case 6: return launch_f32_dpl<6>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                     scale, stream);
-    case 7: return launch_f32_dpl<7>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                     scale, stream);
-    default: return launch_f32_dpl<8>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
-                                      scale, stream);
+    case 1: return launch_f32_dpl<1, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                         softcap, scale, stream);
+    case 2: return launch_f32_dpl<2, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                         softcap, scale, stream);
+    case 3: return launch_f32_dpl<3, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                         softcap, scale, stream);
+    case 4: return launch_f32_dpl<4, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                         softcap, scale, stream);
+    case 5: return launch_f32_dpl<5, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                         softcap, scale, stream);
+    case 6: return launch_f32_dpl<6, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                         softcap, scale, stream);
+    case 7: return launch_f32_dpl<7, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                         softcap, scale, stream);
+    default: return launch_f32_dpl<8, BS>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                          softcap, scale, stream);
   }
 }
 
@@ -829,18 +893,30 @@ bool shape_ok(int B, int S, int H, int KV, int hd) {
 
 // Every instance the launchers above can take (`attributes.cuh`).
 const KernelInstance kInstances[] = {
-    {"flash_fwd_bf16_kernel<64>", "bf16", KI(flash_fwd_bf16_kernel<64>), kThreads, static_cast<long long>(Tiles<64>::kSmem)},
-    {"flash_fwd_bf16_kernel<128>", "bf16", KI(flash_fwd_bf16_kernel<128>), kThreads, static_cast<long long>(Tiles<128>::kSmem)},
-    {"flash_fwd_bf16_kernel<192>", "bf16", KI(flash_fwd_bf16_kernel<192>), kThreads, static_cast<long long>(Tiles<192>::kSmem)},
-    {"flash_fwd_bf16_kernel<256>", "bf16", KI(flash_fwd_bf16_kernel<256>), kThreads, static_cast<long long>(Tiles<256>::kSmem)},
-    {"flash_fwd_f32_kernel<1>", "f32", KI(flash_fwd_f32_kernel<1>), kF32Threads, static_cast<long long>(smem_floats(32 * 1) * sizeof(float))},
-    {"flash_fwd_f32_kernel<2>", "f32", KI(flash_fwd_f32_kernel<2>), kF32Threads, static_cast<long long>(smem_floats(32 * 2) * sizeof(float))},
-    {"flash_fwd_f32_kernel<3>", "f32", KI(flash_fwd_f32_kernel<3>), kF32Threads, static_cast<long long>(smem_floats(32 * 3) * sizeof(float))},
-    {"flash_fwd_f32_kernel<4>", "f32", KI(flash_fwd_f32_kernel<4>), kF32Threads, static_cast<long long>(smem_floats(32 * 4) * sizeof(float))},
-    {"flash_fwd_f32_kernel<5>", "f32", KI(flash_fwd_f32_kernel<5>), kF32Threads, static_cast<long long>(smem_floats(32 * 5) * sizeof(float))},
-    {"flash_fwd_f32_kernel<6>", "f32", KI(flash_fwd_f32_kernel<6>), kF32Threads, static_cast<long long>(smem_floats(32 * 6) * sizeof(float))},
-    {"flash_fwd_f32_kernel<7>", "f32", KI(flash_fwd_f32_kernel<7>), kF32Threads, static_cast<long long>(smem_floats(32 * 7) * sizeof(float))},
-    {"flash_fwd_f32_kernel<8>", "f32", KI(flash_fwd_f32_kernel<8>), kF32Threads, static_cast<long long>(smem_floats(32 * 8) * sizeof(float))},
+    {"flash_fwd_bf16_kernel<64>", "bf16", KI((flash_fwd_bf16_kernel<64, false>)), kThreads, static_cast<long long>(Tiles<64>::kSmem)},
+    {"flash_fwd_bf16_kernel<128>", "bf16", KI((flash_fwd_bf16_kernel<128, false>)), kThreads, static_cast<long long>(Tiles<128>::kSmem)},
+    {"flash_fwd_bf16_kernel<192>", "bf16", KI((flash_fwd_bf16_kernel<192, false>)), kThreads, static_cast<long long>(Tiles<192>::kSmem)},
+    {"flash_fwd_bf16_kernel<256>", "bf16", KI((flash_fwd_bf16_kernel<256, false>)), kThreads, static_cast<long long>(Tiles<256>::kSmem)},
+    {"flash_fwd_bf16_kernel<64, bf16 scores>", "bf16", KI((flash_fwd_bf16_kernel<64, true>)), kThreads, static_cast<long long>(Tiles<64>::kSmem)},
+    {"flash_fwd_bf16_kernel<128, bf16 scores>", "bf16", KI((flash_fwd_bf16_kernel<128, true>)), kThreads, static_cast<long long>(Tiles<128>::kSmem)},
+    {"flash_fwd_bf16_kernel<192, bf16 scores>", "bf16", KI((flash_fwd_bf16_kernel<192, true>)), kThreads, static_cast<long long>(Tiles<192>::kSmem)},
+    {"flash_fwd_bf16_kernel<256, bf16 scores>", "bf16", KI((flash_fwd_bf16_kernel<256, true>)), kThreads, static_cast<long long>(Tiles<256>::kSmem)},
+    {"flash_fwd_f32_kernel<1>", "f32", KI((flash_fwd_f32_kernel<1, false>)), kF32Threads, static_cast<long long>(smem_floats(32 * 1) * sizeof(float))},
+    {"flash_fwd_f32_kernel<2>", "f32", KI((flash_fwd_f32_kernel<2, false>)), kF32Threads, static_cast<long long>(smem_floats(32 * 2) * sizeof(float))},
+    {"flash_fwd_f32_kernel<3>", "f32", KI((flash_fwd_f32_kernel<3, false>)), kF32Threads, static_cast<long long>(smem_floats(32 * 3) * sizeof(float))},
+    {"flash_fwd_f32_kernel<4>", "f32", KI((flash_fwd_f32_kernel<4, false>)), kF32Threads, static_cast<long long>(smem_floats(32 * 4) * sizeof(float))},
+    {"flash_fwd_f32_kernel<5>", "f32", KI((flash_fwd_f32_kernel<5, false>)), kF32Threads, static_cast<long long>(smem_floats(32 * 5) * sizeof(float))},
+    {"flash_fwd_f32_kernel<6>", "f32", KI((flash_fwd_f32_kernel<6, false>)), kF32Threads, static_cast<long long>(smem_floats(32 * 6) * sizeof(float))},
+    {"flash_fwd_f32_kernel<7>", "f32", KI((flash_fwd_f32_kernel<7, false>)), kF32Threads, static_cast<long long>(smem_floats(32 * 7) * sizeof(float))},
+    {"flash_fwd_f32_kernel<8>", "f32", KI((flash_fwd_f32_kernel<8, false>)), kF32Threads, static_cast<long long>(smem_floats(32 * 8) * sizeof(float))},
+    {"flash_fwd_f32_kernel<1, bf16 scores>", "f32", KI((flash_fwd_f32_kernel<1, true>)), kF32Threads, static_cast<long long>(smem_floats(32 * 1) * sizeof(float))},
+    {"flash_fwd_f32_kernel<2, bf16 scores>", "f32", KI((flash_fwd_f32_kernel<2, true>)), kF32Threads, static_cast<long long>(smem_floats(32 * 2) * sizeof(float))},
+    {"flash_fwd_f32_kernel<3, bf16 scores>", "f32", KI((flash_fwd_f32_kernel<3, true>)), kF32Threads, static_cast<long long>(smem_floats(32 * 3) * sizeof(float))},
+    {"flash_fwd_f32_kernel<4, bf16 scores>", "f32", KI((flash_fwd_f32_kernel<4, true>)), kF32Threads, static_cast<long long>(smem_floats(32 * 4) * sizeof(float))},
+    {"flash_fwd_f32_kernel<5, bf16 scores>", "f32", KI((flash_fwd_f32_kernel<5, true>)), kF32Threads, static_cast<long long>(smem_floats(32 * 5) * sizeof(float))},
+    {"flash_fwd_f32_kernel<6, bf16 scores>", "f32", KI((flash_fwd_f32_kernel<6, true>)), kF32Threads, static_cast<long long>(smem_floats(32 * 6) * sizeof(float))},
+    {"flash_fwd_f32_kernel<7, bf16 scores>", "f32", KI((flash_fwd_f32_kernel<7, true>)), kF32Threads, static_cast<long long>(smem_floats(32 * 7) * sizeof(float))},
+    {"flash_fwd_f32_kernel<8, bf16 scores>", "f32", KI((flash_fwd_f32_kernel<8, true>)), kF32Threads, static_cast<long long>(smem_floats(32 * 8) * sizeof(float))},
 };
 
 }  // namespace
@@ -852,21 +928,30 @@ KERNEL_INSTANCE_ENTRIES(flash_attention)
 // B * KV <= 65535; bf16 pointers on 16-byte boundaries.  causal: 0 or 1;
 // window: 0 for none, else the number of keys a query sees (itself
 // included); softcap: 0 for none; scale: the scores' factor, hd^-1/2
-// rounded to f32 by the caller.  Returns the cudaError_t of the launch.
+// rounded to f32 by the caller; bf16_scores: 0 for f32 scores, 1 for the
+// reference's bf16 score buffers (then the caller rounds scale and softcap
+// to bf16, as the reference takes them).  Returns the cudaError_t of the
+// launch.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     int B, int S, int H, int KV, int hd, int causal, int window,
-                                    float softcap, float scale, void* stream) {
+                                    float softcap, float scale, int bf16_scores, void* stream) {
   if (!shape_ok(B, S, H, KV, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16(q, k, v, out, B, S, H, KV, hd, causal, window, softcap, scale,
-                     static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16_scores ? launch_bf16<true>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
+                                         scale, st)
+                     : launch_bf16<false>(q, k, v, out, B, S, H, KV, hd, causal, window,
+                                          softcap, scale, st);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
                                    int B, int S, int H, int KV, int hd, int causal, int window,
-                                   float softcap, float scale, void* stream) {
+                                   float softcap, float scale, int bf16_scores, void* stream) {
   if (!shape_ok(B, S, H, KV, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_f32(q, k, v, out, B, S, H, KV, hd, causal, window, softcap, scale,
-                    static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16_scores ? launch_f32<true>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
+                                        scale, st)
+                     : launch_f32<false>(q, k, v, out, B, S, H, KV, hd, causal, window, softcap,
+                                         scale, st);
 }
 
 // The dynamic shared memory the bf16 kernel asks for at head width hd.

@@ -17,6 +17,11 @@ of 64 packed rows take turns on the tensor cores, and each runs its softmax
 under its previous PV product.  The f32 kernel keeps f32 FMAs on the CUDA
 cores, since a tensor-core f32 product is TF32 (about three digits).  The
 note at the top of `csrc/flash_attention.cu` has the details.
+
+`score_dtype=torch.bfloat16` (the models' `attn_score_dtype="bfloat16"`)
+takes each body's bf16-score instance, which rounds the scores, s - m and
+p to bf16 where the JAX package's `blocked_attention` holds them in bf16;
+the f32-score instances are the bodies as they were.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 )
+SCORE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap) -> None:
@@ -68,24 +74,37 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap) -
                              f"(the kernel reads it through TMA and 16-byte loads)")
 
 
+def _as_score_dtype(x: float, score_dtype: torch.dtype) -> float:
+    """A Python float constant as the scores meet it: rounded to bf16 for
+    bf16 scores, as JAX rounds a Python float against a bf16 array."""
+    return x if score_dtype == torch.float32 else float(torch.tensor(x, dtype=score_dtype))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    window: int | None = None, softcap: float | None = None) -> torch.Tensor:
+                    window: int | None = None, softcap: float | None = None,
+                    score_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """q [B, S, H, hd], k and v [B, S, KV, hd] -> [B, S, H, hd] in q's dtype.
 
     Query and key positions are both arange(S).  `window` keeps the keys j
     with q - window < j; `softcap` maps each score s to cap * tanh(s / cap).
+    `score_dtype` bf16 holds the scores in bf16 as
+    `ref.flash_attention(score_dtype=bf16)` does (both bodies take it).
     """
+    if score_dtype not in SCORE_DTYPES:
+        raise TypeError(f"flash_attention: score_dtype {score_dtype}; known: {SCORE_DTYPES}")
     if q.device.type == "cpu":
         if collectives.RECORDER is not None:
             collectives.record_kernel("flash_attention", "cpu", q, k, v)
-        return ref.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+        return ref.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   score_dtype=score_dtype)
     _check(q, k, v, window, softcap)
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
     fn = _build.function("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}", _ARGTYPES)
     _build.launch("flash_attention", fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), B, S, H, k.shape[2], hd, int(causal), window or 0,
-                  softcap or 0.0, hd**-0.5)
+                  _as_score_dtype(softcap or 0.0, score_dtype),
+                  _as_score_dtype(hd**-0.5, score_dtype), int(score_dtype != torch.float32))
     flash_attention.launches += 1
     if collectives.RECORDER is not None:
         collectives.record_kernel("flash_attention", "kernel", q, k, v)

@@ -125,7 +125,8 @@ NEG_INF = -1e30  # the reference's finite mask value (never -inf: exp(-inf - -in
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    window: int | None = None, softcap: float | None = None) -> torch.Tensor:
+                    window: int | None = None, softcap: float | None = None,
+                    score_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Dense softmax GQA attention: q [B, S, H, hd], k and v [B, S, KV, hd]
     (H % KV == 0) -> [B, S, H, hd] in q's dtype.
 
@@ -135,14 +136,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     as cap * tanh(s / cap), masked with the finite NEG_INF, softmaxed in f32,
     and the probabilities are rounded to v's dtype before the PV product.
     f64 inputs keep f64 throughout (for gradient checks).
+
+    `score_dtype=torch.bfloat16` holds the scores in bf16 where the JAX
+    package's `blocked_attention(score_dtype=bf16)` holds them: the product
+    taken to bf16, then each of `* scale`, `/ cap`, tanh, `cap *`, the mask
+    (NEG_INF rounded to bf16), `s - max` and exp rounds to bf16 (the scale
+    and the cap are bf16 constants, as JAX takes a Python float against a
+    bf16 array); the sum of p is f32, the PV product takes p as it is in f32
+    and divides by the sum after it.
     """
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd)
     work = torch.promote_types(q.dtype, torch.float32)  # f64 inputs stay f64
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).to(work) * hd**-0.5
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k)
+    if score_dtype == torch.float32:
+        s = s.to(work) * hd**-0.5
+    else:
+        s = s.to(score_dtype) * torch.tensor(hd**-0.5, dtype=score_dtype)
     if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
+        cap = softcap if score_dtype == torch.float32 else torch.tensor(softcap, dtype=score_dtype)
+        s = cap * torch.tanh(s / cap)
     pos = torch.arange(S, device=q.device)
     q_pos, k_pos = pos[:, None], pos[None, :]
     ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
@@ -151,6 +165,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if window is not None:
         ok &= k_pos > q_pos - window
     s = s.masked_fill(~ok, NEG_INF)
+    if score_dtype != torch.float32:
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        out = torch.einsum("bkgqs,bskh->bqkgh", p.to(work), v.to(work))
+        out = out / p.to(work).sum(-1).permute(0, 3, 1, 2)[..., None]
+        return out.reshape(B, S, H, hd).to(q.dtype)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
     return out.reshape(B, S, H, hd).to(q.dtype)

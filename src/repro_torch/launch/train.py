@@ -5,10 +5,22 @@ the fault-tolerant loop, checkpointing as it goes.
         --steps 100 --batch 8 --seq 64 --ckpt-dir CKPT_DIR [--device cpu]
 
 Without --device it runs on the CUDA card (a CPU-only host raises).  A run
-resumes from the latest checkpoint in --ckpt-dir.  Training across several
-cards (the JAX package's data-parallel mesh) waits for the port of
-`parallel/` (ROADMAP.md module item 13): on a host with more than one card
-it raises; pick one with CUDA_VISIBLE_DEVICES.
+resumes from the latest checkpoint in --ckpt-dir.
+
+Across cards, data-parallel as the JAX launcher's (n_dev, 1) ("data",
+"model") mesh, under torchrun, one card a rank:
+
+    torchrun --standalone --nproc-per-node=N -m repro_torch.launch.train \
+        --arch qwen3-8b --reduced --steps 100 --batch 8 --seq 64
+
+Under torchrun (WORLD_SIZE in the environment, with RANK, LOCAL_RANK and
+the rendezvous address), each rank joins an "nccl" group on card
+LOCAL_RANK ("gloo" with --device cpu), draws the same parameters from the
+same seed and trains on its share of each global batch
+(`repro_torch.training.make_train_step(group=...)`); rank 0 writes the
+checkpoints and prints the `done:` line.  One card allows NCCL only at
+world size 1 (`--nproc-per-node=1`: a group of one, the same arithmetic as
+one card).  Without torchrun it trains on one card as before.
 """
 
 from __future__ import annotations
@@ -19,6 +31,7 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, reduced
@@ -49,12 +62,26 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, groups=args.groups)
-    dev = resolve_device(args.device)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} CUDA devices: training across them (the JAX "
-            f"package's data-parallel mesh) waits for the port of parallel/ (ROADMAP.md "
-            f"module item 13); pick one card with CUDA_VISIBLE_DEVICES")
+    world = int(os.environ.get("WORLD_SIZE", "0"))  # set by torchrun
+    group = None
+    if world:
+        cpu = args.device == "cpu"
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("gloo" if cpu else "nccl")
+        group = dist.group.WORLD
+        logging.info("data-parallel: rank %d of %d (%s)", dist.get_rank(), world,
+                     dist.get_backend())
+    dev = resolve_device(args.device)  # a rank's card is the current one
+    try:
+        out = _train(args, cfg, dev, group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+    return out
+
+
+def _train(args, cfg, dev, group) -> dict:
     model = build_model(cfg, device=dev)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1))
@@ -62,7 +89,10 @@ def main(argv=None) -> dict:
     ckpt = Checkpointer(args.ckpt_dir)
     out = run_training(model, data_cfg, opt_cfg, run_cfg, ckpt,
                        train_step_kw={"accum": args.accum,
-                                      "compress_bits": args.compress_bits or None})
+                                      "compress_bits": args.compress_bits or None},
+                       group=group)
+    if group is not None and dist.get_rank(group) != 0:
+        return out
     final = out["metrics"][-1] if out["metrics"] else {}
     loss = final.get("loss")
     print(f"done: steps={final.get('step')} loss={'none' if loss is None else f'{loss:.4f}'} "

@@ -12,11 +12,34 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.layers.attention import Attention, attention_forward, decode_attention
-from repro_torch.models.layers.mamba import Mamba, mamba_decode, mamba_forward
-from repro_torch.models.layers.mlp import MLP, mlp_forward
-from repro_torch.models.layers.moe import MoE, moe_forward
-from repro_torch.models.layers.norms import RMSNorm, rms_norm
+from repro_torch.models.layers.attention import (
+    Attention,
+    attention_forward,
+    attn_specs,
+    decode_attention,
+)
+from repro_torch.models.layers.mamba import Mamba, mamba_decode, mamba_forward, mamba_specs
+from repro_torch.models.layers.mlp import MLP, mlp_forward, mlp_specs
+from repro_torch.models.layers.moe import MoE, moe_forward, moe_specs
+from repro_torch.models.layers.norms import RMSNorm, rms_norm, rms_specs
+
+
+def group_specs(cfg) -> dict:
+    """Logical-axis templates of one group's parameters, keyed as the JAX
+    package's per-group tree ("pos{i}" -> layer -> leaf)."""
+    p = {}
+    for i, spec in enumerate(cfg.pattern):
+        lp = {"norm_mixer": rms_specs(), "norm_ffn": rms_specs()}
+        if spec.mixer.startswith("attn"):
+            lp["attn"] = attn_specs(cfg)
+        elif spec.mixer == "mamba":
+            lp["mamba"] = mamba_specs(cfg)
+        if spec.ffn == "mlp":
+            lp["mlp"] = mlp_specs(cfg)
+        elif spec.ffn == "moe":
+            lp["moe"] = moe_specs(cfg)
+        p[f"pos{i}"] = lp
+    return p
 
 
 class Layer(nn.Module):
@@ -46,13 +69,14 @@ class Layer(nn.Module):
             if hasattr(self, name):
                 getattr(self, name).reset_parameters(cfg, gen)
 
-    def ffn(self, cfg, x: torch.Tensor) -> torch.Tensor:
-        """x + mlp(norm(x)) or x + moe(norm(x)), or x for a mixer-only layer."""
+    def ffn(self, cfg, x: torch.Tensor, dispatch_ranks: int = 1) -> torch.Tensor:
+        """x + mlp(norm(x)) or x + moe(norm(x)), or x for a mixer-only layer
+        (`dispatch_ranks`: `moe_forward`'s `ranks`)."""
         if self.spec.ffn == "none":
             return x
         h = rms_norm(x, self.norm_ffn.scale, cfg.norm_eps)
         if self.spec.ffn == "moe":
-            return x + moe_forward(self.moe, cfg, h)
+            return x + moe_forward(self.moe, cfg, h, dispatch_ranks)
         return x + mlp_forward(self.mlp, cfg, h)
 
 
@@ -68,8 +92,9 @@ class Group(nn.ModuleDict):
             layer.reset_parameters(cfg, gen)
 
     def forward(self, cfg, x, positions, *, backend: str = "cuda", caches=None, g: int = 0,
-                chunk: int = 1024):
-        """Full-sequence pass (`chunk`: the KV chunk of `blocked_attention`).
+                chunk: int = 1024, dispatch_ranks: int = 1):
+        """Full-sequence pass (`chunk`: the KV chunk of `blocked_attention`;
+        `dispatch_ranks`: `moe_forward`'s `ranks`).
         With `caches` (the stacked decode caches), the prefill: also writes
         this group's attention k/v at positions [0, S) and its mamba states
         into slot `g`."""
@@ -91,7 +116,7 @@ class Group(nn.ModuleDict):
                                                  backend=backend)
                 caches[key]["ssm"][g] = ssm
                 caches[key]["conv"][g] = conv
-            x = layer.ffn(cfg, x + out)
+            x = layer.ffn(cfg, x + out, dispatch_ranks)
         return x
 
     def decode(self, cfg, x, caches, g: int, position: int):

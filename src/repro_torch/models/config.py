@@ -61,8 +61,11 @@ class ModelConfig:
     window: int | None = None  # sliding window for "attn_local" mixers
     act: str = "silu"  # silu (SwiGLU) | gelu (GeGLU)
     mlp_gated: bool = True  # False: classic 2-matrix MLP (hubert, starcoder2)
-    attn_score_dtype: str = "float32"  # bfloat16 halves score-buffer traffic
-    #   (online-softmax max/sum statistics stay fp32 either way)
+    attn_score_dtype: str = "float32"  # bfloat16: scores, s - m and p rounded to
+    #   bf16 as the JAX blocked attention holds them.  A numerics setting: the
+    #   flash kernel keeps its scores in registers, so there is no buffer
+    #   traffic to save, and the rounding costs time (online-softmax max/sum
+    #   statistics stay fp32 either way)
     moe: MoEConfig | None = None
     mamba: MambaConfig | None = None
     tie_embeddings: bool = False

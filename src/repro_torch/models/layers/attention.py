@@ -52,6 +52,21 @@ class Attention(nn.Module):
                 self.k_norm.zero_()
 
 
+def attn_specs(cfg) -> dict:
+    """Logical-axis templates of the attention parameters (`repro_torch.parallel`):
+    "kv" maps to the model axis only where n_kv divides it."""
+    p = {
+        "wq": ("fsdp", "tp", None),
+        "wk": ("fsdp", "kv", None),
+        "wv": ("fsdp", "kv", None),
+        "wo": ("tp", None, "fsdp"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
+    return p
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B, S, d] @ w [d, n, hd] -> [B, S, n, hd]."""
     d, n, hd = w.shape
@@ -86,34 +101,44 @@ def _softcap(scores: torch.Tensor, cap) -> torch.Tensor:
 
 
 def blocked_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None, softcap=None,
-                      chunk: int = 1024) -> torch.Tensor:
+                      chunk: int = 1024, score_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Online-softmax attention over KV chunks, as the JAX layer's jnp path.
 
     q [B, Sq, H, hd]; k, v [B, Skv, KV, hd] (H % KV == 0) -> [B, Sq, H, hd].
-    The scores leave the product in the inputs' dtype and are taken to f32
-    (f64 inputs stay f64); max and sum statistics are f32.  Unlike the JAX function, the last chunk
-    may be short (Skv need not be a multiple of `chunk`); where the JAX
-    function runs, the two compute the same thing.
+    The scores leave the product in the inputs' dtype and are taken to
+    `score_dtype` (f32: f64 inputs stay f64); max and sum statistics are
+    f32.  With bf16 scores the chunk's score buffers are bf16 as in the JAX
+    function: the scaled, softcapped and masked score (the scale, the cap
+    and the mask value are bf16 constants, as JAX takes a Python float
+    against a bf16 array), s - m_new and p, and each chunk's sum of p (a
+    bf16 sum, as `jnp.sum` of a bf16 array is); m, l and acc stay f32.
+    Unlike the JAX function, the last chunk may be short (Skv need not be a
+    multiple of `chunk`); where the JAX function runs, the two compute the
+    same thing.
     """
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     chunk = min(chunk, Skv)
-    scale = hd**-0.5
     work = torch.promote_types(q.dtype, torch.float32)  # f64 inputs stay f64
+    sd, scale, cap = work, hd**-0.5, softcap
+    if score_dtype != torch.float32:  # JAX's Python-float constants meet a bf16 array
+        sd = score_dtype
+        scale = torch.tensor(scale, dtype=sd, device=q.device)
+        cap = None if softcap is None else torch.tensor(softcap, dtype=sd, device=q.device)
     qg = q.reshape(B, Sq, KV, G, hd)
     m = torch.full((B, Sq, KV, G), NEG_INF, dtype=work, device=q.device)
     l = torch.zeros((B, Sq, KV, G), dtype=work, device=q.device)
     acc = torch.zeros((B, Sq, KV, G, hd), dtype=work, device=q.device)
     for c0 in range(0, Skv, chunk):
         kb, vb, pb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], kv_pos[c0:c0 + chunk]
-        s = torch.einsum("bqkgh,bckh->bqkgc", qg, kb).to(work) * scale
-        s = _softcap(s, softcap)
-        s = s + _mask_bias(q_pos, pb, causal, window)[None, :, None, None, :]
-        m_new = torch.maximum(m, s.amax(-1))
+        s = torch.einsum("bqkgh,bckh->bqkgc", qg, kb).to(sd) * scale
+        s = _softcap(s, cap)
+        s = s + _mask_bias(q_pos, pb, causal, window).to(sd)[None, :, None, None, :]
+        m_new = torch.maximum(m, s.amax(-1).to(work))
         alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(-1)
+        p = torch.exp(s - m_new[..., None].to(sd))
+        l = l * alpha + p.sum(-1).to(work)
         acc = acc * alpha[..., None] + torch.einsum(
             "bqkgc,bckh->bqkgh", p.to(vb.dtype), vb).to(work)
         m = m_new
@@ -132,22 +157,19 @@ def attention_forward(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, local
     With grad on and an input that requires it, `"cuda"` keeps the kernel in
     the forward and takes `blocked_attention`'s gradient (chunks of `chunk`).
     """
-    if cfg.attn_score_dtype != "float32":
-        raise NotImplementedError(
-            f"{cfg.name}: attn_score_dtype={cfg.attn_score_dtype!r}; the port's attention "
-            f"kernel keeps its scores in f32 (bf16 score buffers: ROADMAP.md module item 13)"
-        )
+    score_dtype = getattr(torch, cfg.attn_score_dtype)
     q, k, v = _qkv(p, cfg, x, positions)
     window = cfg.window if local else None
     if backend == "cuda" and needs_grad(q, k, v):
-        out = FlashAttentionFn.apply(q, k, v, cfg.causal, window, cfg.attn_softcap, chunk)
+        out = FlashAttentionFn.apply(q, k, v, cfg.causal, window, cfg.attn_softcap, chunk,
+                                     score_dtype)
     elif backend == "cuda":
         out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window,
-                                  softcap=cfg.attn_softcap)
+                                  softcap=cfg.attn_softcap, score_dtype=score_dtype)
     elif backend == "ref":
         pos1d = positions if positions.ndim == 1 else positions[0]
         out = blocked_attention(q, k, v, pos1d, pos1d, causal=cfg.causal, window=window,
-                                softcap=cfg.attn_softcap, chunk=chunk)
+                                softcap=cfg.attn_softcap, chunk=chunk, score_dtype=score_dtype)
     else:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     H, hd, d = p.wo.shape

@@ -18,6 +18,14 @@ def init_embeddings(model, cfg, gen: torch.Generator) -> None:
             model.head.normal_(generator=gen).mul_(cfg.d_model**-0.5)
 
 
+def embed_specs(cfg) -> dict:
+    """Logical-axis templates of embed and head (`repro_torch.parallel`)."""
+    p = {"embed": ("tp", "fsdp")}
+    if not cfg.tie_embeddings:
+        p["head"] = ("fsdp", "tp")
+    return p
+
+
 def embed_inputs(model, cfg, batch: dict) -> torch.Tensor:
     """batch -> [B, S, d] per cfg.input_mode."""
     if cfg.input_mode == "frames":

@@ -61,6 +61,21 @@ class Mamba(nn.Module):
             self.out_proj.normal_(generator=gen).mul_(di**-0.5)
 
 
+def mamba_specs(cfg) -> dict:
+    """Logical-axis templates of the mamba mixer's parameters (`repro_torch.parallel`)."""
+    return {
+        "in_proj": ("fsdp", None, "tp"),
+        "conv_w": (None, "tp"),
+        "conv_b": ("tp",),
+        "x_proj": ("tp", None),
+        "dt_proj": (None, "tp"),
+        "dt_bias": ("tp",),
+        "A_log": ("tp", None),
+        "D": ("tp",),
+        "out_proj": ("tp", "fsdp"),
+    }
+
+
 def _ssm_inputs(p, cfg, xc: torch.Tensor):
     """The pre-scan computation.  xc [B, S, di] (after the conv and silu).
 

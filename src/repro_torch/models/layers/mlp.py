@@ -34,6 +34,11 @@ class MLP(nn.Module):
             self.w_out.normal_(generator=gen).mul_(cfg.d_ff**-0.5)
 
 
+def mlp_specs(cfg) -> dict:
+    """Logical-axis templates of the MLP's parameters (`repro_torch.parallel`)."""
+    return {"w_in": ("fsdp", None, "tp"), "w_out": ("tp", "fsdp")}
+
+
 def mlp_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]; gate and up projections in one product."""
     d, g, ff = p.w_in.shape

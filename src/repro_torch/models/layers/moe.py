@@ -20,6 +20,12 @@ The group split, the capacity and both rank orders are the JAX package's
 (`repro/models/layers/moe.py`), so a prefill and a decode step drop the same
 choices there and here.  The router's logits, softmax and top-k run in f32
 whatever the model's dtype, and the router parameter is kept in f32.
+
+Under data parallelism a rank holds 1/R of a batch's rows and is told R
+(`moe_forward(ranks=R)`): it dispatches its G / R groups of the whole
+batch's group size T, so that each group, and each drop, is the one-device
+step's.  The train step first checks that the rows make whole groups
+(`check_dispatch_split`).
 """
 
 from __future__ import annotations
@@ -52,6 +58,15 @@ class MoE(nn.Module):
             self.w_out.normal_(generator=gen).mul_(ff**-0.5)
 
 
+def moe_specs(cfg) -> dict:
+    """Logical-axis templates of the MoE layer's parameters (`repro_torch.parallel`)."""
+    return {
+        "router": (None, None),
+        "w_in": ("ep", "fsdp", None, None),
+        "w_out": ("ep", None, "fsdp"),
+    }
+
+
 def dispatch_shape(cfg, B: int, S: int) -> tuple[int, int, int]:
     """(G, T, cap): dispatch groups, tokens per group, slots per expert.
 
@@ -63,6 +78,32 @@ def dispatch_shape(cfg, B: int, S: int) -> tuple[int, int, int]:
         G //= 2
     T = B * S // G
     return G, T, max(int(T * m.top_k / m.n_experts * m.capacity_factor), 1)
+
+
+def check_dispatch_split(cfg, ranks: int, rows: int | None = None, S: int = 1) -> None:
+    """Raise ValueError unless each of `ranks` ranks, holding rows / ranks of
+    a batch of `rows` x S tokens, holds whole dispatch groups of it.  With
+    `rows` None, for every batch of n_dispatch_groups tokens or more (which
+    makes n_dispatch_groups groups): the check a step makes when it is built."""
+    if cfg.moe is None or ranks == 1:
+        return
+    n = cfg.moe.n_dispatch_groups
+    G = n if rows is None else dispatch_shape(cfg, rows, S)[0]
+    if G % ranks == 0:
+        return
+    what = (f"every global batch of {n} tokens or more" if rows is None else
+            f"a global (micro-)batch of {rows} x {S} tokens")
+    if n % ranks:
+        fits = f"no global batch of {n} tokens or more would divide (n_dispatch_groups = {n})"
+    else:
+        # A batch of n tokens or more, a multiple of R rows, makes n groups.
+        first = ranks * (rows // ranks + 1)
+        b = next(b for b in range(first, first + ranks * n, ranks)
+                 if dispatch_shape(cfg, b, S)[0] % ranks == 0)
+        fits = f"a global (micro-)batch of {b} x {S} tokens would divide"
+    raise ValueError(f"{cfg.name}: {what} makes G = {G} MoE dispatch groups, which R = {ranks} "
+                     f"data-parallel ranks cannot split into whole groups (G % R != 0), and "
+                     f"capacity drops depend on the split; {fits}")
 
 
 def _route(p, cfg, xt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -120,12 +161,16 @@ def _dispatch_sort(top_e: torch.Tensor, T: int, E: int, cap: int):
     return token_for_slot, valid, torch.where(keep, rank_tm, cap - 1), keep
 
 
-def moe_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
+def moe_forward(p, cfg, x: torch.Tensor, ranks: int = 1) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d] through the top-k routed experts, dropping
-    the choices past an expert's capacity in each dispatch group."""
+    the choices past an expert's capacity in each dispatch group.  `ranks`:
+    the data-parallel ranks that hold a batch's rows, B each, whose split
+    `check_dispatch_split` has passed; x makes G / ranks of the groups of
+    the whole batch of B * ranks rows."""
     m = cfg.moe
     B, S, d = x.shape
-    G, T, cap = dispatch_shape(cfg, B, S)
+    G, T, cap = dispatch_shape(cfg, B * ranks, S)
+    G //= ranks
     E = m.n_experts
     xt = x.reshape(G, T, d)
     top_p, top_e = _route(p, cfg, xt)

@@ -10,6 +10,11 @@ import torch
 from torch import nn
 
 
+def rms_specs() -> dict:
+    """Logical-axis template of a norm's scale (`repro_torch.parallel`)."""
+    return {"scale": (None,)}
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)

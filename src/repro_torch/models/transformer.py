@@ -26,9 +26,14 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.models.blocks import Group
-from repro_torch.models.layers.embeddings import embed_inputs, init_embeddings, logits_out
-from repro_torch.models.layers.norms import RMSNorm, rms_norm
+from repro_torch.models.blocks import Group, group_specs
+from repro_torch.models.layers.embeddings import (
+    embed_inputs,
+    embed_specs,
+    init_embeddings,
+    logits_out,
+)
+from repro_torch.models.layers.norms import RMSNorm, rms_norm, rms_specs
 
 
 def leaf_key(name: str) -> tuple[str, int | None]:
@@ -51,6 +56,35 @@ def param_leaves(names) -> dict[str, list[str]]:
         out.setdefault(key, []).append((-1 if g is None else g, name))
     return {key: [n for _, n in sorted(out[key])]
             for key in sorted(out, key=lambda k: tuple(k.split("/")))}
+
+
+def _stacked(tree: dict) -> dict:
+    return {k: _stacked(v) if isinstance(v, dict) else (None, *v) for k, v in tree.items()}
+
+
+def param_specs(cfg) -> dict:
+    """Logical-axis templates of the parameters, keyed by the JAX tree's paths
+    (a per-group leaf stacked over the groups gets a leading None), as the
+    JAX package's `param_specs`: leaf "blocks/pos0/attn/wq" is
+    `param_specs(cfg)["blocks"]["pos0"]["attn"]["wq"]`."""
+    return {**embed_specs(cfg), "blocks": _stacked(group_specs(cfg)),
+            "final_norm": rms_specs()}
+
+
+def cache_specs(cfg) -> dict:
+    """Logical-axis templates of the decode caches (the sequence sharded for
+    sequence parallelism), as the JAX package's `cache_specs`."""
+    specs = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.mixer.startswith("attn"):
+            t = (None, "dp", "sp", None, None)
+            specs[f"pos{i}"] = {"k": t, "v": t}
+        elif spec.mixer == "mamba":
+            specs[f"pos{i}"] = {
+                "ssm": (None, "dp", "tp", None),
+                "conv": (None, "dp", None, "tp"),
+            }
+    return specs
 
 
 def init_caches(cfg, batch_size: int, max_len: int, *, dtype, device) -> dict:
@@ -103,6 +137,14 @@ class Transformer(nn.Module):
             group.reset_parameters(self.cfg, gen)
         self.final_norm.reset_parameters()
 
+    def param_specs(self) -> dict:
+        """`param_specs(self.cfg)`, as the JAX `Model.param_specs()`."""
+        return param_specs(self.cfg)
+
+    def cache_specs(self) -> dict:
+        """`cache_specs(self.cfg)`, as the JAX `Model.cache_specs()`."""
+        return cache_specs(self.cfg)
+
     def init_caches(self, batch_size: int, max_len: int, dtype=None) -> dict:
         return init_caches(self.cfg, batch_size, max_len, dtype=dtype or self.dtype,
                            device=self.device)
@@ -110,7 +152,8 @@ class Transformer(nn.Module):
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         return logits_out(self, self.cfg, rms_norm(x, self.final_norm.scale, self.cfg.norm_eps))
 
-    def forward(self, batch: dict, *, remat: bool = True, chunk: int = 1024) -> torch.Tensor:
+    def forward(self, batch: dict, *, remat: bool = True, chunk: int = 1024,
+                dispatch_ranks: int = 1) -> torch.Tensor:
         """batch -> logits [B, S, V], as the JAX `forward`.
 
         With grad on and `remat`, each group runs under
@@ -118,7 +161,8 @@ class Transformer(nn.Module):
         are dropped after the forward and recomputed in the backward, so the
         attention and scan kernels run twice per layer a step.  `chunk` is
         `blocked_attention`'s KV chunk (the "ref" forward and the attention
-        gradient)."""
+        gradient).  `dispatch_ranks`: the data-parallel ranks that share the
+        batch's rows, for the MoE layers' dispatch groups (`moe_forward`)."""
         x = embed_inputs(self, self.cfg, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = remat and torch.is_grad_enabled()
@@ -126,16 +170,18 @@ class Transformer(nn.Module):
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     group, self.cfg, x, positions, backend=self.backend, chunk=chunk,
-                    use_reentrant=False)
+                    dispatch_ranks=dispatch_ranks, use_reentrant=False)
             else:
-                x = group(self.cfg, x, positions, backend=self.backend, chunk=chunk)
+                x = group(self.cfg, x, positions, backend=self.backend, chunk=chunk,
+                          dispatch_ranks=dispatch_ranks)
         return self._final(x)
 
-    def loss_fn(self, batch: dict, **kw) -> torch.Tensor:
+    def loss_fn(self, batch: dict, *, denominator=None, **kw) -> torch.Tensor:
         """Mean next-token (or frame-label) cross entropy, as the JAX `loss_fn`:
         f32 logits, logsumexp less the label's logit, weighted by
         `batch["loss_mask"]` (ones by default) over max(mask sum, 1).  `kw`
-        goes to `forward`."""
+        goes to `forward`.  `denominator` replaces max(mask sum, 1): a
+        data-parallel rank divides its rows' sum by the whole batch's."""
         logits = self.forward(batch, **kw).float()
         labels = batch["labels"]
         lse = torch.logsumexp(logits, dim=-1)
@@ -143,7 +189,9 @@ class Transformer(nn.Module):
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-        return torch.sum((lse - picked) * mask) / torch.clamp(mask.sum(), min=1.0)
+        if denominator is None:
+            denominator = torch.clamp(mask.sum(), min=1.0)
+        return torch.sum((lse - picked) * mask) / denominator
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int):

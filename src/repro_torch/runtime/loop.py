@@ -14,6 +14,18 @@
 
 The step boundary is `loss.item()`, which waits for the step's work on the
 device, as the JAX loop's `float(metrics["loss"])` does.
+
+Data parallelism (`group`: every rank of the process group calls
+`run_training` with the same arguments): each rank builds the same global
+batch from the step and runs the data-parallel step
+(`repro_torch.training.make_train_step(group=...)`).  Rank 0 writes each
+checkpoint and waits for the write to complete; a barrier then holds every
+rank until it has, so every rank restores the same step.  The injected
+failure is keyed by the step, so it fires on every rank at the same step
+and all ranks roll back together.  A real failure of one rank leaves the
+others waiting in a collective: the job ends there (the group's timeout),
+and a restart (torchrun's) resumes every rank from the latest checkpoint.
+The checkpoint directory must be one that every rank reads.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
@@ -90,12 +103,23 @@ def run_training(
     seed: int = 0,
     fail_injector: Callable[[int], None] | None = None,
     train_step_kw: dict | None = None,
+    group=None,
 ) -> dict:
     """Run (or resume) training of `model` to total_steps; survives injected
     failures.  A fresh state draws the parameters from a generator on the
     model's device seeded with `seed`.  Runs under deterministic algorithms
-    unless run_cfg.deterministic is off."""
-    train_step = make_train_step(model, opt_cfg, **(train_step_kw or {}))
+    unless run_cfg.deterministic is off.  With `group`, data-parallel over
+    its ranks (module docstring)."""
+    train_step = make_train_step(model, opt_cfg, group=group, **(train_step_kw or {}))
+    writer = group is None or dist.get_rank(group) == 0
+
+    def save(step: int, state) -> None:
+        if writer:
+            ckpt.save(step, state)
+        if group is not None:
+            if writer:
+                ckpt.wait()
+            dist.barrier(group=group)
     watchdog = StragglerWatchdog(factor=run_cfg.straggler_factor)
     restarts = 0
 
@@ -125,7 +149,7 @@ def run_training(
                 if step % run_cfg.log_every == 0:
                     log.info("step %d loss %.4f", step, loss)
                 if step % run_cfg.ckpt_every == 0 or step == run_cfg.total_steps:
-                    ckpt.save(step, state)
+                    save(step, state)
             except KeyboardInterrupt:
                 raise
             except Exception as e:  # node failure, injected or real

@@ -98,7 +98,9 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, step: torch.Tensor,
     """One AdamW step with the weight decay inside it:
     p - lr (m^ / (sqrt(v^) + eps) + wd p).  Updates `params` and `opt_state`
     in place and returns them.  Elementwise, so each group's parameter is
-    updated against its slice of the stacked moments."""
+    updated against its slice of the stacked moments, and a large leaf in
+    flat slices of ADAMW_SLICE elements (the same arithmetic per element;
+    the f32 temporaries are a slice's, not the leaf's)."""
     lr = schedule(cfg, step)
     t = (step + 1).float()
     bc1 = 1.0 - torch.pow(cfg.b1, t)
@@ -107,18 +109,36 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, step: torch.Tensor,
         M, V = opt_state["m"][key], opt_state["v"][key]
         stacked = names[0].startswith("groups.")
         for g_idx, name in enumerate(names):
-            p, g = params[name], grads[name]
             m, v = (M[g_idx], V[g_idx]) if stacked else (M, V)
-            g32 = g.float()
-            m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
-            v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g32 * g32
-            step_ = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-            p32 = p.float()
-            p32 = p32 - lr * (step_ + cfg.weight_decay * p32)
-            p.copy_(p32.to(p.dtype))
-            m.copy_(m32.to(m.dtype))
-            v.copy_(v32.to(v.dtype))
+            for p, g, m, v in _slices(params[name], grads[name], m, v):
+                _adamw_slice(p, g, m, v, lr, bc1, bc2, cfg)
     return params, opt_state
+
+
+ADAMW_SLICE = 1 << 26  # elements: 256 MB of f32 a temporary
+
+
+def _slices(*tensors: torch.Tensor):
+    """The tensors (of one shape) in matching flat slices of ADAMW_SLICE
+    elements where all are contiguous and larger than that, else whole."""
+    n = tensors[0].numel()
+    if n <= ADAMW_SLICE or not all(x.is_contiguous() for x in tensors):
+        yield tensors
+        return
+    for i in range(0, n, ADAMW_SLICE):
+        yield tuple(x.view(-1)[i:i + ADAMW_SLICE] for x in tensors)
+
+
+def _adamw_slice(p, g, m, v, lr, bc1, bc2, cfg) -> None:
+    g32 = g.float()
+    m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
+    v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g32 * g32
+    step_ = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+    p32 = p.float()
+    p32 = p32 - lr * (step_ + cfg.weight_decay * p32)
+    p.copy_(p32.to(p.dtype))
+    m.copy_(m32.to(m.dtype))
+    v.copy_(v32.to(v.dtype))
 
 
 @torch.no_grad()

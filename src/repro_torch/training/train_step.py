@@ -6,6 +6,33 @@ gradient norm as metrics, as the JAX package's
 The state's parameters are the model's own (`TrainState.params` is the
 model), updated in place by each step; the optimizer state is keyed by the
 JAX tree's leaves (`repro_torch.training.optimizer`).
+
+Data parallelism (`group`: a `torch.distributed` process group of R ranks)
+computes the global program's math, the one-device step on the whole
+global batch, as the JAX launcher's ("data", "model") = (R, 1) mesh does
+under GSPMD:
+- every rank is handed the same global batch; micro-batch i holds the rows
+  it holds in a one-device step, and a rank takes its share of them
+  (`repro_torch.parallel.rank_rows`: contiguous rows where R divides the
+  micro-batch, else every row, as GSPMD replicates);
+- a rank's loss divides its rows' sum by the whole micro-batch's mask count
+  (read from the global batch every rank holds), so the ranks' losses and
+  gradients sum to the one-device ones (a replicated micro-batch divides by
+  R times it);
+- the f32 gradients (and the loss) are summed over the group in a few flat
+  buckets of at most BUCKET_BYTES each, one all-reduce a bucket, once a
+  step after the micro-batches;
+- then compression, clipping and the update run as on one device, on the
+  same gradients on every rank.
+An MoE layer dispatches the G / R groups its rows make of the whole
+micro-batch (`moe_forward(ranks=)`, through `loss_fn(dispatch_ranks=)`); a
+config whose groups the ranks cannot split raises ValueError when the step
+is built (or, for a batch too small to make whole groups, at its first
+step: `check_dispatch_split`, once a call of `accumulate_grads`).
+
+Unlike the JAX mesh, whose rule fsdp -> "data" shards the weights over the
+data axis (ZeRO-3 style; the arithmetic is the same), parameters and
+optimizer state are replicated: each card holds the one-card state.
 """
 
 from __future__ import annotations
@@ -13,8 +40,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.models.layers.moe import check_dispatch_split
 from repro_torch.models.transformer import param_leaves
+from repro_torch.parallel.sharding import Mesh, make_rules, rank_rows
 from repro_torch.training.optimizer import (
     OptConfig,
     adafactor_update,
@@ -62,50 +92,111 @@ def _compress(grads: dict, bits: int) -> dict:
     return out
 
 
-def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True):
+BUCKET_BYTES = 1 << 30  # the data-parallel gradient all-reduce's bucket
+
+
+def buckets(numels: list[int], bucket_bytes: int) -> list[list[int]]:
+    """The indices of f32 tensors of these sizes in each flat all-reduce
+    bucket: in order, a bucket closed before it would pass `bucket_bytes`
+    (a tensor larger than that is a bucket of its own)."""
+    out, size = [], 0
+    for i, n in enumerate(numels):
+        if not out or size + 4 * n > bucket_bytes:
+            out.append([])
+            size = 0
+        out[-1].append(i)
+        size += 4 * n
+    return out
+
+
+def _all_reduce_sum(tensors: list[torch.Tensor], group) -> None:
+    """Sum f32 `tensors` over `group` in place, one all-reduce a bucket."""
+    for idx in buckets([t.numel() for t in tensors], BUCKET_BYTES):
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for i in idx:
+            tensors[i].copy_(flat[off:off + tensors[i].numel()].view_as(tensors[i]))
+            off += tensors[i].numel()
+
+
+def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, group=None):
     """(loss, grads) of `model` on `batch`, as a train step takes them before
     compression: the batch (a dict of tensors, on any device) is split into
     `accum` micro-batches along its first axis, their f32 gradients summed
     and divided by `accum`.  `grads` is keyed by the model's parameter
     names; a parameter the loss does not reach gets a zero gradient, as
-    under `jax.grad`."""
+    under `jax.grad`.  With `group`, `batch` is the global batch and the
+    result is the one-device result on it, the same on every rank (module
+    docstring); a gradient comes in its parameter's dtype where accum is 1,
+    as on one device."""
     params = dict(model.named_parameters())
 
-    def grads_of(mb: dict):
-        loss = model.loss_fn(mb, remat=remat)
+    def grads_of(mb: dict, denominator=None, dispatch_ranks: int = 1):
+        loss = model.loss_fn(mb, remat=remat, denominator=denominator,
+                             dispatch_ranks=dispatch_ranks)
         got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         return loss.detach(), {n: torch.zeros_like(p) if g is None else g
                                for (n, p), g in zip(params.items(), got)}
 
     batch = {k: v.to(model.device) for k, v in batch.items()}
-    if accum == 1:
+    if group is None and accum == 1:
         return grads_of(batch)
+    rows = mb_rows = next(iter(batch.values())).shape[0] // accum
+    copies, shard = 1, slice(None)
+    if group is not None:
+        R = dist.get_world_size(group)
+        mine = rank_rows(mb_rows, Mesh((R, 1), ("data", "model")),
+                         make_rules(Mesh((R, 1), ("data", "model"))), dist.get_rank(group))
+        rows, shard = len(mine), slice(mine.start, mine.stop)
+        copies = R if rows == mb_rows else 1
+    ranks = mb_rows // rows  # the ranks that share micro-batch i's rows
+    check_dispatch_split(model.cfg, ranks, mb_rows, batch["labels"].shape[1])
     loss = torch.zeros((), dtype=torch.float32, device=model.device)
-    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for n, p in params.items()}
+    grads = None  # the f32 sums, in place from the first micro-batch's gradients
     for i in range(accum):
-        mb_loss, mb_grads = grads_of({k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
-                                      for k, v in batch.items()})
+        mb = {k: v.reshape(accum, mb_rows, *v.shape[1:])[i] for k, v in batch.items()}
+        denominator = None
+        if group is not None:
+            mask = mb.get("loss_mask")
+            count = (mask.float().sum() if mask is not None else
+                     torch.tensor(float(mb["labels"].numel()), device=model.device))
+            denominator = copies * torch.clamp(count, min=1.0)
+        mb_loss, mb_grads = grads_of({k: v[shard] for k, v in mb.items()}, denominator, ranks)
         loss = loss + mb_loss
-        for n, g in mb_grads.items():
-            grads[n] = grads[n] + g
+        if grads is None:
+            grads = {n: g.float() for n, g in mb_grads.items()}
+        else:
+            for n, g in mb_grads.items():
+                grads[n].add_(g)
+        del mb_grads
+    if group is not None:
+        loss = loss.reshape(1)
+        _all_reduce_sum([loss, *grads.values()], group)
+        loss = loss[0]
+    if accum == 1:
+        return loss, {n: g.to(params[n].dtype) for n, g in grads.items()}
     return loss / accum, {n: g / accum for n, g in grads.items()}
 
 
 def make_train_step(model, opt_cfg: OptConfig, *, accum: int = 1,
-                    compress_bits: int | None = None, remat: bool = True):
+                    compress_bits: int | None = None, remat: bool = True, group=None):
     """Returns train_step(state, batch) -> (state, {"loss", "grad_norm"}).
 
     The step takes the loss and the f32 gradient over `accum` micro-batches
     (`accumulate_grads`), quantizes the gradient to `compress_bits` (one
     scale per leaf of the JAX tree), clips it to opt_cfg.grad_clip and
     applies it.  `model` is the model the states hold; each step takes it
-    from `state.params`."""
+    from `state.params`.  With `group` (a process group; every rank builds
+    the step and calls it with the same global batch) the step is
+    data-parallel (module docstring)."""
     update = adamw_update if opt_cfg.kind == "adamw" else adafactor_update
+    if group is not None:
+        check_dispatch_split(model.cfg, dist.get_world_size(group))
 
     def train_step(state: TrainState, batch: dict):
         model = state.params
-        loss, grads = accumulate_grads(model, batch, accum=accum, remat=remat)
+        loss, grads = accumulate_grads(model, batch, accum=accum, remat=remat, group=group)
         if compress_bits:
             grads = _compress(grads, compress_bits)
         grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)

@@ -255,13 +255,21 @@ def test_decode_attention_matches_jax(arch, local):
 
 
 def test_score_dtype_other_than_f32_names_its_item():
+    """attn_score_dtype="bfloat16", refused until the bf16 score buffers
+    (ROADMAP.md module item 13), now runs: the reduced model builds, and its
+    logits through either backend are finite and within 2e-2 of max|logits|
+    of JAX's (each score rounds to bf16, 0.4%; 0.44% read on the CPU)."""
     import dataclasses
 
-    jcfg, cfg, port, _ = _attn_case("qwen3-8b")
-    cfg = dataclasses.replace(cfg, attn_score_dtype="bfloat16")
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        attention.attention_forward(port, cfg, x, torch.arange(4))
+    jcfg, cfg = (dataclasses.replace(c, attn_score_dtype="bfloat16")
+                 for c in _cfgs("qwen3-8b"))
+    P = np_params(jcfg, 0)
+    inputs = {"tokens": np_batch(cfg, 1)["tokens"]}
+    want = np.asarray(jbuild(jcfg).forward(to_jax(P), to_jax(inputs)))
+    for backend in ("cuda", "ref"):
+        got = port_model(cfg, P, backend).forward(to_torch(inputs)).numpy()
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
 
 
 def _mamba_case():
@@ -426,65 +434,6 @@ def _jax_engine_module():
         sys.modules[name] = module  # before exec: its dataclasses look themselves up there
         spec.loader.exec_module(module)
     return sys.modules[name]
-
-
-@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b", "gemma2-9b", *MOE])
-def test_serve_engine_greedy_matches_jax_engine(arch):
-    JE = _jax_engine_module()
-    jcfg, cfg = _cfgs(arch)
-    P = np_params(jcfg, 16)
-    prompts = np_batch(cfg, 17)["tokens"].tolist()
-    new = 8
-    jengine = JE.ServeEngine(jbuild(jcfg), to_jax(P), max_len=MAX_LEN, batch_size=B,
-                             sampler=JE.SamplerConfig(max_new_tokens=new))
-    want = jengine.generate(prompts)
-    engine = ServeEngine(port_model(cfg, P), max_len=MAX_LEN, batch_size=B,
-                         sampler=SamplerConfig(max_new_tokens=new), device="cpu")
-    got = engine.generate(prompts)
-    assert engine.stats["decode_steps"] == new - 1
-
-    # Where the JAX logits' top-2 margin is within 10x the tolerance, the two
-    # argmaxes may legitimately differ; compare tokens up to the first such
-    # position of each row (the rows diverge after a differing token).  On
-    # these seeds that excludes no position of qwen3-8b's and falcon-mamba-7b's
-    # 16, and 6 of gemma2-9b's 16 (one row's third token, whose softcapped
-    # logits' top two lie within 2e-3).
-    jm, jP = jbuild(jcfg), to_jax(P)
-    logits, caches = jm.prefill(jP, {"tokens": jnp.asarray(np.array(prompts, np.int32))},
-                                max_len=MAX_LEN)
-    compared, excluded = 0, 0
-    margins = []
-    for t in range(new):
-        top2 = np.sort(np.asarray(logits), -1)[:, -2:]
-        margins.append(top2[:, 1] - top2[:, 0])
-        tok = jnp.asarray([row[t] for row in want], jnp.int32)
-        logits, caches = jm.decode_step(jP, caches, tok, jnp.int32(S + t))
-    margins = np.stack(margins, 1)  # [B, new]
-    for row, (g, w) in enumerate(zip(got, want)):
-        unsure = np.nonzero(margins[row] <= 10 * TOL["atol"])[0]
-        upto = int(unsure[0]) if len(unsure) else new
-        assert g[:upto] == w[:upto], (row, g, w)
-        compared += upto
-        excluded += new - upto
-    assert compared >= new  # at most one row may stop early on a narrow margin
-    assert excluded <= new
-
-
-def test_serve_engine_eos_and_max_len_stop_as_the_jax_engine():
-    JE = _jax_engine_module()
-    jcfg, cfg = _cfgs("qwen3-8b")
-    P = np_params(jcfg, 18)
-    prompts = np_batch(cfg, 19)["tokens"].tolist()
-    first = ServeEngine(port_model(cfg, P), max_len=MAX_LEN, batch_size=B,
-                        sampler=SamplerConfig(max_new_tokens=4), device="cpu").generate(prompts)
-    eos = first[0][1]
-    for max_len, sampler in ((MAX_LEN, dict(max_new_tokens=6, eos_id=eos)),
-                             (S + 3, dict(max_new_tokens=10))):
-        want = JE.ServeEngine(jbuild(jcfg), to_jax(P), max_len=max_len, batch_size=B,
-                              sampler=JE.SamplerConfig(**sampler)).generate(prompts)
-        got = ServeEngine(port_model(cfg, P), max_len=max_len, batch_size=B,
-                          sampler=SamplerConfig(**sampler), device="cpu").generate(prompts)
-        assert got == want
 
 
 def test_serve_engine_temperature_sampling_is_seeded():

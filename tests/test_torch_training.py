@@ -34,12 +34,17 @@ Tolerances, all f32 unless stated:
   bf16 gradient is 2.5-3.3e-2 from its own f32 one), and the new
   parameters within one bf16 ulp per element of JAX's update applied to the
   port's gradient (0 ulp on the CPU).
+
+The cases of the recurrent archs (falcon-mamba-7b and jamba-v0.1-52b, the
+slowest: JAX compiles each of their steps) are in
+`tests/test_torch_training_ssm.py`; both files take their helpers and
+shared case bodies from `tests/multidev/torch_training_common.py`.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import functools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -47,21 +52,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jget
-from repro.configs import reduced as jreduced
-from repro.models.layers import mamba as jmamba
 from repro.models.model_zoo import build_model as jbuild
 from repro.training.optimizer import OptConfig as JOptConfig
 from repro.training.optimizer import adafactor_update as j_adafactor_update
 from repro.training.optimizer import adamw_update as j_adamw_update
-from repro.training.optimizer import clip_by_global_norm as j_clip_by_global_norm
 from repro.training.optimizer import init_opt_state as j_init_opt_state
-from repro.training.train_step import TrainState as JTrainState
-from repro.training.train_step import make_train_step as j_make_train_step
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.data import DataConfig, data_iterator, synthetic_batch
-from repro_torch.interop import lm_params_from_numpy, lm_params_to_numpy, train_state_from_numpy
 from repro_torch.kernels import ref
 from repro_torch.models import build_model
 from repro_torch.models.layers import mamba
@@ -75,120 +73,44 @@ from repro_torch.training import (
     init_train_state,
     make_train_step,
 )
-from repro_torch.training.train_step import _compress, _quantize_dequantize, accumulate_grads
+from repro_torch.training.train_step import _quantize_dequantize
 
-B, S = 4, 16
-LOSS_RTOL = 2e-4
-GRAD_REL, GRAD_ABS = 2e-4, 1e-7
-UPDATE_REL = 1e-6
-STEP_RTOL, PARAM_REL = 2e-4, 1e-4
-FLIP_LEVELS = 254 * GRAD_REL  # x = g / s moves 127 (|dg| + |d max|g||) / max|g| levels
-BF16_LOSS_RTOL, BF16_STEP_RTOL, BF16_GRAD_REL = 1e-3, 5e-3, 5e-2
+sys.path.insert(0, str(Path(__file__).resolve().parent / "multidev"))
+try:
+    from torch_training_common import (
+        LOSS_RTOL,
+        B,
+        S,
+        UPDATE_REL,
+        _cfgs,
+        _lockstep,
+        _params_equal,
+        _run,
+        assert_tree_close,
+        bf16_ulp,
+        crash_resume_case,
+        flat,
+        loss_and_grads_case,
+        np_batch,
+        np_params,
+        port_model,
+        to_jax,
+        to_torch,
+        train_step_case,
+    )
+finally:
+    sys.path.remove(str(Path(__file__).resolve().parent / "multidev"))
 
-
-def _cfgs(arch: str):
-    return jreduced(jget(arch)), reduced(get_config(arch))
-
-
-def np_params(jcfg, seed: int) -> dict:
-    """A parameter tree in the JAX package's shapes, drawn with numpy: each
-    leaf normal with the spread of the JAX init's leaf (0.1 where that leaf
-    is constant, as the norm scales are); A_log, D and dt_bias are the init's
-    values plus small noise, so the SSM stays stable.  Each leaf comes in
-    the init's dtype (cfg.param_dtype, f32 for A_log, D and the router)."""
-    tree = jbuild(jcfg).init(jax.random.key(0))
-    rng = np.random.default_rng(seed)
-
-    def draw(path, leaf):
-        a = np.asarray(leaf, np.float32)
-        if path[-1].key in ("A_log", "D", "dt_bias"):
-            x = (a + 0.05 * rng.standard_normal(a.shape)).astype(np.float32)
-        else:
-            x = (rng.standard_normal(a.shape) * (float(a.std()) or 0.1)).astype(np.float32)
-        return x.astype(np.asarray(leaf).dtype)
-
-    return jax.tree_util.tree_map_with_path(draw, tree)
-
-
-def np_batch(cfg, seed: int, batch: int = B, seq: int = S) -> dict:
-    """Inputs and labels in int32 / f32 numpy, per cfg.input_mode."""
-    rng = np.random.default_rng(seed)
-    out = {"labels": rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)}
-    if cfg.input_mode == "frames":
-        out["frames"] = rng.standard_normal((batch, seq, cfg.d_model)).astype(np.float32)
-        return out
-    out["tokens"] = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
-    if cfg.input_mode == "tokens+patches":
-        out["patch_embeds"] = rng.standard_normal(
-            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
-    return out
-
-
-def to_torch(batch: dict) -> dict:
-    return {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v)
-            for k, v in batch.items()}
-
-
-def to_jax(tree):
-    return jax.tree.map(jnp.asarray, tree)
-
-
-def flat(tree) -> dict:
-    """{"a/b": leaf} of a nested dict, as numpy."""
-    out = {}
-    for k, x in tree.items():
-        if isinstance(x, dict):
-            out.update({f"{k}/{kk}": v for kk, v in flat(x).items()})
-        else:
-            out[k] = np.asarray(x)
-    return out
-
-
-def assert_tree_close(got: dict, want: dict, rel: float, abs_: float = 0.0) -> float:
-    """Each leaf of `got` within rel * max|want leaf| + abs_; returns the
-    largest reading in units of max|want leaf|."""
-    got, want = flat(got), flat(want)
-    assert set(got) == set(want)
-    worst = 0.0
-    for key in want:
-        w = np.asarray(want[key], np.float64)
-        g = np.asarray(got[key], np.float64)
-        assert g.shape == w.shape, key
-        scale = float(np.abs(w).max())
-        err = float(np.abs(g - w).max())
-        assert err <= rel * scale + abs_, (key, err, scale)
-        worst = max(worst, err / scale if scale else 0.0)
-    return worst
-
-
-def port_model(cfg, P):
-    m = build_model(cfg, device="cpu")
-    m.load_state_dict(lm_params_from_numpy(cfg, P, device="cpu"))
-    return m.train().requires_grad_(True)
-
-
-def port_grads(m, batch: dict):
-    named = dict(m.named_parameters())
-    loss = m.loss_fn(to_torch(batch))
-    got = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-    return loss, {n: torch.zeros_like(p) if g is None else g
-                  for (n, p), g in zip(named.items(), got)}
-
+# The recurrent archs' parity cases are in tests/test_torch_training_ssm.py.
+SSM_ARCHS = ("falcon-mamba-7b", "jamba-v0.1-52b")
 
 # --------------------------------------------------------------------------
 # loss_fn and its gradient
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(SSM_ARCHS)))
 def test_loss_and_grads_match_jax(arch):
-    jcfg, cfg = _cfgs(arch)
-    P = np_params(jcfg, 0)
-    batch = np_batch(cfg, 1)
-    jm = jbuild(jcfg)
-    jl, jg = jax.value_and_grad(lambda p: jm.loss_fn(p, to_jax(batch), remat=True))(to_jax(P))
-    loss, grads = port_grads(port_model(cfg, P), batch)
-    np.testing.assert_allclose(float(loss), float(jl), rtol=LOSS_RTOL)
-    assert_tree_close(lm_params_to_numpy(cfg, grads), jg, GRAD_REL, GRAD_ABS)
+    loss_and_grads_case(arch)
 
 
 def test_loss_mask_weights_the_mean():
@@ -201,20 +123,6 @@ def test_loss_mask_weights_the_mean():
     np.testing.assert_allclose(float(m.loss_fn(to_torch(batch))), float(jl), rtol=LOSS_RTOL)
     batch["loss_mask"][:] = 0  # an empty mask divides by one, not by zero
     assert float(m.loss_fn(to_torch(batch))) == 0.0
-
-
-def test_remat_changes_neither_loss_nor_grads():
-    jcfg, cfg = _cfgs("jamba-v0.1-52b")
-    m = port_model(cfg, np_params(jcfg, 5))
-    batch = to_torch(np_batch(cfg, 6))
-    named = dict(m.named_parameters())
-    out = []
-    for remat in (True, False):
-        loss = m.loss_fn(batch, remat=remat)
-        out.append((loss, torch.autograd.grad(loss, list(named.values()), allow_unused=True)))
-    (l1, g1), (l0, g0) = out
-    assert torch.equal(l1, l0)
-    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(g1, g0))
 
 
 def test_eval_model_forward_keeps_no_graph():
@@ -240,35 +148,6 @@ def test_chunked_scan_equals_the_sequential_scan(S_, chunk):
     y_ref, h_ref = ref.mamba_scan(a, b, C, return_state=True)
     torch.testing.assert_close(y, y_ref, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(h, h_ref, rtol=2e-5, atol=2e-5)
-
-
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b"])
-def test_mamba_forward_value_and_grad_match_the_jax_layer(arch):
-    """With grad on, backend="ref" runs `chunked_scan` and "cuda" the kernel's
-    plain version with `MambaScanFn`'s gradient; both against the JAX layer's
-    chunked associative scan, in value and in the gradient of every input."""
-    jcfg, cfg = _cfgs(arch)
-    pos = next(i for i, s in enumerate(cfg.pattern) if s.mixer == "mamba")
-    tree = {k: np.asarray(v)[0] for k, v in np_params(jcfg, 7)["blocks"][f"pos{pos}"]
-            ["mamba"].items()}
-    x = np.random.default_rng(8).standard_normal((2, S, cfg.d_model)).astype(np.float32)
-    w = np.random.default_rng(9).standard_normal((2, S, cfg.d_model)).astype(np.float32)
-
-    def jf(p, xx):
-        return jnp.sum(jmamba.mamba_forward(p, jcfg, xx) * w)
-
-    jval, (jgp, jgx) = jax.value_and_grad(jf, argnums=(0, 1))(to_jax(tree), jnp.asarray(x))
-    for backend in ("ref", "cuda"):
-        layer = mamba.Mamba(cfg, device="cpu", dtype=torch.float32)
-        layer.load_state_dict({k: torch.from_numpy(v) for k, v in tree.items()})
-        xt = torch.from_numpy(x).requires_grad_()
-        val = torch.sum(mamba.mamba_forward(layer, cfg, xt, backend=backend)
-                        * torch.from_numpy(w))
-        named = dict(layer.named_parameters())
-        got = torch.autograd.grad(val, [*named.values(), xt])
-        np.testing.assert_allclose(float(val), float(jval), rtol=LOSS_RTOL)
-        assert_tree_close({n: g.numpy() for n, g in zip(named, got)}, jgp, GRAD_REL, GRAD_ABS)
-        assert_tree_close({"x": got[-1].numpy()}, {"x": jgx}, GRAD_REL, GRAD_ABS)
 
 
 # --------------------------------------------------------------------------
@@ -304,12 +183,6 @@ def named(tree: dict) -> dict:
         else:
             out[key.replace("/", ".")] = torch.from_numpy(x.copy())
     return out
-
-
-def bf16_ulp(x: np.ndarray) -> np.ndarray:
-    """One bf16 ulp at |x| (8 significant bits)."""
-    e = np.floor(np.log2(np.maximum(np.abs(x), np.finfo(np.float32).tiny)))
-    return np.exp2(e - 7)
 
 
 @pytest.mark.parametrize("step", [0, 1, 150])
@@ -385,163 +258,19 @@ def test_quantize_dequantize_matches_jax():
 # make_train_step against the JAX train step
 # --------------------------------------------------------------------------
 
-def _jax_grads(jcfg, accum: int):
-    """JAX's train step up to its compression, jitted: the loss and the f32
-    gradient of the JAX `loss_fn` with remat, summed over `accum`
-    micro-batches by `lax.scan` and divided, as `make_train_step` takes them."""
-    loss_fn = functools.partial(jbuild(jcfg).loss_fn, remat=True)
-
-    def grads(params, batch):
-        if accum == 1:
-            return jax.value_and_grad(loss_fn)(params, batch)
-
-        def micro(carry, mb):
-            loss, g = jax.value_and_grad(loss_fn)(params, mb)
-            return (carry[0] + loss, jax.tree.map(jnp.add, carry[1], g)), None
-
-        mbs = jax.tree.map(lambda x: x.reshape(accum, x.shape[0] // accum, *x.shape[1:]), batch)
-        zero = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params)
-        (loss, g), _ = jax.lax.scan(micro, (0.0, zero), mbs)
-        return loss / accum, jax.tree.map(lambda x: x / accum, g)
-
-    return jax.jit(grads)
-
-
-def _jax_apply(jopt_cfg):
-    """JAX's train step after its compression, jitted: clip, then AdamW."""
-    def apply(params, opt, step, grads):
-        grads, _ = j_clip_by_global_norm(grads, jopt_cfg.grad_clip)
-        return j_adamw_update(params, grads, opt, step, jopt_cfg)
-
-    return jax.jit(apply)
-
-
-def _as_jax_tree(cfg, named_grads: dict, like) -> dict:
-    """The port's gradients (by parameter name) as the JAX tree, each leaf in
-    the dtype of `like`'s (the widened bf16 leaves narrow back exactly)."""
-    return jax.tree.map(lambda x, w: jnp.asarray(x, w.dtype),
-                        lm_params_to_numpy(cfg, named_grads), like)
-
-
-def _level_flips(gp: np.ndarray, gj: np.ndarray, bits: int) -> np.ndarray:
-    """Where the two packages' gradients quantize to different levels (the
-    levels of `_quantize_dequantize`, in f32): a mask, after asserting that
-    each such element moved by exactly one level and that its gradient lies
-    within FLIP_LEVELS of the edge between the two levels on both sides."""
-    top = np.float32(2 ** (bits - 1) - 1)
-    xp = gp / (np.maximum(np.abs(gp).max(), np.float32(1e-12)) / top)
-    xj = gj / (np.maximum(np.abs(gj).max(), np.float32(1e-12)) / top)
-    lp, lj = np.round(xp), np.round(xj)
-    flip = lp != lj
-    if flip.any():
-        edge = np.minimum(lp, lj)[flip] + 0.5
-        assert (np.abs(lp - lj)[flip] == 1).all()
-        assert np.abs(xj[flip] - edge).max() <= FLIP_LEVELS, np.abs(xj[flip] - edge).max()
-        assert np.abs(xp[flip] - edge).max() <= FLIP_LEVELS, np.abs(xp[flip] - edge).max()
-    return flip
-
-
-def _lockstep(arch: str, accum: int, compress, param_dtype: str) -> int:
-    """Three train steps, each from JAX's state: the port's step and JAX's
-    from the same parameters, moments and batch.  Holds, each step, the loss
-    and grad_norm to JAX's train step; the pre-compression gradient to
-    JAX's; with compression, every element whose quantized level differs to
-    a level edge (`_level_flips`); the port's new parameters and moments to
-    JAX's clip and AdamW applied to the port's own (quantized) gradient; in
-    f32, the new parameters to JAX's train step except at the flipped
-    elements.  Returns the number of flipped elements."""
-    jcfg, cfg = (dataclasses.replace(c, param_dtype=param_dtype) for c in _cfgs(arch))
-    bf16 = param_dtype == "bfloat16"
-    step_rtol, grad_rel, loss_rtol = ((BF16_STEP_RTOL, BF16_GRAD_REL, BF16_LOSS_RTOL) if bf16
-                                      else (STEP_RTOL, GRAD_REL, STEP_RTOL))
-    P = np_params(jcfg, 11)
-    jopt_cfg = JOptConfig(lr=1e-3, warmup_steps=2)
-    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2)
-    jstate = JTrainState(params=to_jax(P), opt=j_init_opt_state(to_jax(P), jopt_cfg),
-                         step=jnp.zeros((), jnp.int32))
-    jstep = jax.jit(j_make_train_step(jbuild(jcfg), jopt_cfg, accum=accum,
-                                      compress_bits=compress))
-    jgrads, japply = _jax_grads(jcfg, accum), _jax_apply(jopt_cfg)
-    flips = 0
-    for s in range(3):
-        batch = np_batch(cfg, 20 + s)
-        np_p, np_o = jax.tree.map(np.asarray, (jstate.params, jstate.opt))
-        state = train_state_from_numpy(cfg, np_p, np_o, int(jstate.step), device="cpu")
-        step = make_train_step(state.params, opt_cfg, accum=accum, compress_bits=compress)
-
-        _, gp = accumulate_grads(state.params, to_torch(batch), accum=accum)
-        _, gj = jgrads(jstate.params, to_jax(batch))
-        gp_np, gj_np = flat(lm_params_to_numpy(cfg, gp)), flat(gj)
-        assert_tree_close(gp_np, gj_np, grad_rel, GRAD_ABS)
-        flipped = {}
-        if compress:
-            flipped = {k: _level_flips(gp_np[k], np.asarray(gj_np[k], np.float32), compress)
-                       for k in gj_np}
-            flips += sum(int(f.sum()) for f in flipped.values())
-        sent = _compress(gp, compress) if compress else gp
-        want_p, want_o = japply(jstate.params, jstate.opt, jstate.step,
-                                _as_jax_tree(cfg, sent, jstate.params))
-
-        state, m = step(state, to_torch(batch))
-        jstate, jm = jstep(jstate, to_jax(batch))
-        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=loss_rtol)
-        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=step_rtol)
-        got = flat(lm_params_to_numpy(cfg, state.params))
-        for key, w in flat(want_p).items():
-            w = np.asarray(w, np.float32)
-            if bf16:
-                assert (np.abs(got[key] - w) <= bf16_ulp(w)).all(), key
-            else:
-                assert np.abs(got[key] - w).max() <= UPDATE_REL * np.abs(w).max(), key
-        for part, leaves in state.opt.items():
-            want = flat(want_o[part])
-            for key, t in leaves.items():
-                w = np.asarray(want[key], np.float32)
-                assert np.abs(t.float().numpy() - w).max() <= UPDATE_REL * np.abs(w).max(), (
-                    part, key)
-        if not bf16:
-            for key, w in flat(jstate.params).items():
-                w = np.asarray(w, np.float64)
-                d = np.abs(got[key] - w)
-                if key in flipped:
-                    d = np.where(flipped[key], 0.0, d)
-                assert d.max() <= PARAM_REL * np.abs(w).max(), (key, d.max())
-    assert int(state.step) == int(jstate.step) == 3
-    return flips
-
-
 @pytest.mark.parametrize("accum, compress", [(1, None), (2, None), (1, 8), (2, 8)])
-@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b"])
 def test_train_step_matches_jax(arch, accum, compress):
     """Without compression the port runs its own three steps and ends within
     PARAM_REL of JAX's; 8-bit quantization is discontinuous (an element
     within rounding of a level's edge rounds to the neighbouring level in
-    one package), so the compressed cases run in lockstep (`_lockstep`)."""
-    if compress:
-        _lockstep(arch, accum, compress, "float32")
-        return
-    jcfg, cfg = _cfgs(arch)
-    P = np_params(jcfg, 11)
-    jopt_cfg = JOptConfig(lr=1e-3, warmup_steps=2)
-    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2)
-    jopt = j_init_opt_state(to_jax(P), jopt_cfg)
-    jstate = JTrainState(params=to_jax(P), opt=jopt, step=jnp.zeros((), jnp.int32))
-    jstep = jax.jit(j_make_train_step(jbuild(jcfg), jopt_cfg, accum=accum))
-    state = train_state_from_numpy(cfg, P, jax.tree.map(np.asarray, jopt), 0, device="cpu")
-    step = make_train_step(state.params, opt_cfg, accum=accum)
-    for s in range(3):
-        batch = np_batch(cfg, 20 + s)
-        jstate, jm = jstep(jstate, to_jax(batch))
-        state, m = step(state, to_torch(batch))
-        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=STEP_RTOL)
-        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
-                                   rtol=STEP_RTOL)
-    assert int(state.step) == int(jstate.step) == 3
-    assert_tree_close(flat(lm_params_to_numpy(cfg, state.params)), flat(jstate.params),
-                      PARAM_REL)
+    one package), so the compressed cases run in lockstep (`_lockstep`).
+    The SSM archs' cases are in tests/test_torch_training_ssm.py."""
+    train_step_case(arch, accum, compress)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b"])
+
+@pytest.mark.parametrize("arch", ["qwen3-8b"])
 def test_train_step_with_bf16_params_matches_jax(arch):
     """bf16 parameters, as the card trains these two archs, in lockstep: the
     two packages' bf16 forwards round at different points, so their
@@ -563,10 +292,6 @@ def tiny_model():
 
 def fresh(model, opt_cfg, seed: int = 0):
     return init_train_state(model, torch.Generator().manual_seed(seed), opt_cfg)
-
-
-def _params_equal(a, b) -> bool:
-    return all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
 
 
 @pytest.mark.parametrize("kind", ["adamw", "adafactor"])
@@ -614,34 +339,10 @@ def test_gradient_compression_close_to_exact():
     assert out[1] == pytest.approx(out[0], rel=0.05)
 
 
-def _run(tmp, fail_at=None, arch="qwen3-8b", async_writes=False):
-    m = build_model(reduced(get_config(arch), groups=1), device="cpu")
-    dc = DataConfig(vocab=m.cfg.vocab, seq_len=16, global_batch=4)
-    fired = {"done": False}
-
-    def injector(step):
-        if fail_at is not None and step == fail_at and not fired["done"]:
-            fired["done"] = True
-            raise RuntimeError("injected node failure")
-
-    ck = Checkpointer(tmp, async_writes=async_writes)
-    return run_training(
-        m, dc, OptConfig(lr=1e-3, warmup_steps=1),
-        RunConfig(total_steps=12, ckpt_every=4, log_every=100, metrics=[]),
-        ck, fail_injector=injector if fail_at else None,
-    )
-
-
-@pytest.mark.parametrize("arch", ["qwen3-8b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b"])
 def test_crash_resume_bitwise_identical(tmp_path, arch):
-    clean = _run(str(tmp_path / "clean"), arch=arch)
-    crashed = _run(str(tmp_path / "crash"), fail_at=6, arch=arch)
-    assert clean["restarts"] == 0 and crashed["restarts"] == 1
-    assert _params_equal(clean["final_state"].params, crashed["final_state"].params)
-    by_step = {r["step"]: r["loss"] for r in crashed["metrics"]}  # replayed steps: last run
-    assert by_step == {r["step"]: r["loss"] for r in clean["metrics"]}
-    losses = [r["loss"] for r in clean["metrics"]]
-    assert losses[-1] < losses[0], losses
+    crash_resume_case(tmp_path, arch)
+
 
 
 @pytest.mark.parametrize("deterministic", [True, False])
@@ -708,46 +409,3 @@ def test_train_launcher_refuses_a_missing_card_and_trains_on_the_cpu(tmp_path, c
     assert out["restarts"] == 0 and [r["step"] for r in out["metrics"]] == [1, 2, 3, 4]
     assert "done: steps=4" in capsys.readouterr().out
     assert Checkpointer(str(tmp_path / "c")).latest_step() == 4
-
-
-# --------------------------------------------------------------------------
-# The autograd Functions: their backward is the gradient of their forward
-# --------------------------------------------------------------------------
-
-@pytest.mark.parametrize("H, KV, causal, window, softcap, chunk", [
-    (2, 2, True, None, None, 8),     # causal
-    (2, 1, True, 3, None, 4),        # windowed, GQA 2:1
-    (4, 2, False, None, 5.0, 3),     # bidirectional, softcapped, short last chunk
-    (3, 1, True, 4, 2.0, 8),         # all of them, GQA 3:1
-])
-def test_flash_attention_fn_gradcheck(H, KV, causal, window, softcap, chunk):
-    """In f64 on the CPU the forward is the kernel's plain version (dense
-    softmax) and the backward `blocked_attention`'s gradient: gradcheck holds
-    the one against finite differences of the other."""
-    from repro_torch.kernels.autograd import FlashAttentionFn
-
-    rng = np.random.default_rng(H * 10 + KV)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
-               for shape in ((2, 7, H, 4), (2, 7, KV, 4), (2, 7, KV, 4)))
-    assert torch.autograd.gradcheck(
-        lambda q, k, v: FlashAttentionFn.apply(q, k, v, causal, window, softcap, chunk),
-        (q, k, v))
-
-
-@pytest.mark.parametrize("S_, chunk, outputs", [(8, 4, "both"), (12, 4, "y"), (6, 2, "h"),
-                                                (4, 4, "both")])
-def test_mamba_scan_fn_gradcheck(S_, chunk, outputs):
-    """Forward: the sequential scan (the kernel's plain version); backward: the
-    chunked scan's gradient, chunk by chunk, through y, h_S or both."""
-    from repro_torch.kernels.autograd import MambaScanFn
-
-    rng = np.random.default_rng(S_ + chunk)
-    a = torch.from_numpy(rng.uniform(0.5, 1.0, (2, S_, 3, 2))).requires_grad_()
-    b = torch.from_numpy(rng.standard_normal((2, S_, 3, 2))).requires_grad_()
-    C = torch.from_numpy(rng.standard_normal((2, S_, 2))).requires_grad_()
-
-    def f(a, b, C):
-        y, h = MambaScanFn.apply(a, b, C, chunk)
-        return {"both": (y, h), "y": y, "h": h}[outputs]
-
-    assert torch.autograd.gradcheck(f, (a, b, C))
