@@ -105,7 +105,12 @@ each kernel against its plain PyTorch version on the card:
   against `ref.flash_attention(score_dtype=bf16)`, and qwen3-8b (4 layers)
   served and trained with `attn_score_dtype="bfloat16"` against f32 scores;
 - llama4-maverick at full width, one group (a dense and a MoE layer),
-  bf16, served as above.
+  bf16, served as above;
+- the dry-run tools (`repro_torch.launch.dryrun` on the meta device) for
+  the qwen3-8b training configuration above: the predicted state bytes at
+  most that phase's measured peak, no byte put on the card, the counted
+  FLOPs over its step time; and the dry-run CLI once for qwen3-8b x
+  train_4k on the 16x16 mesh, with no card visible.
 
 Before the paths, `lu_panel` and `lu_panel_batched` are held bit for bit at
 the edges of their CUDA bodies, in f64 and on panels with NaN and infinite
@@ -125,7 +130,8 @@ f64, NaN and inf), batched lanes bit for bit against the single call.
 Phases print JSON lines; any failure raises, so the exit code is not 0.  The
 second-to-last line lists the kernels with their launches, errors and times
 (`ms` of one call between CUDA events, `device_ms` from torch.profiler,
-`host_ms` the difference, each beside its bound and its library call's);
+or from CUDA events where no profiler window came out whole, as the
+`device_ms_windows` line counts, `host_ms` the difference, each beside its bound and its library call's);
 the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -329,50 +335,88 @@ def time_ms(fn, reps: int = 7) -> float:
 DEVICE_CALLS = 20  # calls under the profiler for `device_ms`
 
 
-TAIL_KERNEL = "spin_kernel"  # what torch.cuda._sleep launches
-# Profiler windows of every `device_ms` call: how many were profiled, how many
-# kept no device record of the calls, and the most one call needed.
-WINDOWS = {"calls": 0, "profiled": 0, "empty": 0, "most_in_one_call": 0}
+MARK_KERNEL = "spin_kernel"  # what torch.cuda._sleep launches
+PROFILE_HEAD, PROFILE_TAIL = 512, 8  # sleep kernels before and after a window's calls
+# Profiler windows: how many were profiled, how many were profiled again
+# (their head or tail not whole, or no record of the calls), the most one
+# window lost of its head, the most windows one measurement needed, and the
+# `device_ms` calls timed with CUDA events because no window came out whole.
+WINDOWS = {"calls": 0, "profiled": 0, "rejected": 0, "head_lost_max": 0,
+           "most_in_one_call": 0, "event_timed": 0}
 
 
-def device_ms(fn, calls: int = DEVICE_CALLS, tries: int = 5) -> float:
+def profiled(run, activities=None, tries: int = 5):
+    """The device records (kernels, copies, fills) of one call of `run`
+    under torch.profiler, in the order they started, with `run`'s host
+    seconds and a flag: whether a window came out whole.
+
+    The profiler on the card drops the first records of a window, more of
+    them the longer the card has been busy (so late in a long run all of a
+    short window's records), and now and then its last records or all of
+    them.  So a head of PROFILE_HEAD short sleep
+    kernels comes before `run` and a tail of PROFILE_TAIL after it, both left
+    out of the records, and a window counts as whole only where some of the
+    head and all of the tail were kept, which leaves every record of `run`
+    in it.  A window that is not whole is profiled again, with twice the
+    head where it lost all of it, up to `tries` windows; then the last
+    window's records are returned with the flag false."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = activities or [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    head = PROFILE_HEAD
+    for window in range(1, tries + 1):
+        WINDOWS["profiled"] += 1
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            for _ in range(head):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            for _ in range(PROFILE_TAIL):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+        body = [i for i, ev in enumerate(evs) if MARK_KERNEL not in ev.name]
+        records = [evs[i] for i in body]
+        head_kept = body[0] if body else 0
+        tail_kept = len(evs) - 1 - body[-1] if body else 0
+        WINDOWS["head_lost_max"] = max(WINDOWS["head_lost_max"], head - head_kept)
+        WINDOWS["most_in_one_call"] = max(WINDOWS["most_in_one_call"], window)
+        if body and head_kept > 0 and tail_kept == PROFILE_TAIL:
+            return records, seconds, True
+        WINDOWS["rejected"] += 1
+        if head_kept == 0:
+            head *= 2
+    return records, seconds, False
+
+
+def device_ms(fn, calls: int = DEVICE_CALLS) -> float:
     """Device time of one call: the device's records (kernels, copies,
-    fills) of `calls` calls under torch.profiler, summed by name as the
-    median duration of a record times the records one call makes.  With
-    `time_ms` (one call between CUDA events, so the host's time to reach the
-    launch as well), `ms - device_ms` is the host's share of a call.
-
-    The profiler on the card loses the last records of a window (often one
-    of 20, up to 9 of 20 after long kernels, once all), so a tail of short
-    sleep kernels, left out of the sum, follows the calls; one slow record
-    would move a mean, so each name takes the median of its records; and a
-    window that kept no record of the calls is profiled again."""
+    fills) of `calls` calls in a whole window of `profiled`, summed by name
+    as the median duration of a record times the records one call makes
+    (one slow record would move a mean).  With `time_ms` (one call between
+    CUDA events, so the host's time to reach the launch as well),
+    `ms - device_ms` is the host's share of a call.  Where no window came
+    out whole, the call is timed with CUDA events instead (`time_ms`) and
+    counted in WINDOWS["event_timed"]."""
     from collections import defaultdict
     from statistics import median
 
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
     WINDOWS["calls"] += 1
-    for window in range(1, tries + 1):
-        WINDOWS["profiled"] += 1
-        WINDOWS["most_in_one_call"] = max(WINDOWS["most_in_one_call"], window)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            for _ in range(8):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        us = defaultdict(list)
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA and TAIL_KERNEL not in ev.name:
-                us[ev.name].append(ev.time_range.elapsed_us())
-        if us:
-            return sum(median(t) * max(1, round(len(t) / calls)) for t in us.values()) / 1e3
-        WINDOWS["empty"] += 1
-    raise AssertionError(f"torch.profiler kept no device record of the calls in {tries} windows")
+    records, _, whole = profiled(lambda: [fn() for _ in range(calls)])
+    if not whole:
+        WINDOWS["event_timed"] += 1
+        return time_ms(fn)
+    us = defaultdict(list)
+    for ev in records:
+        us[ev.name].append(ev.time_range.elapsed_us())
+    return sum(median(t) * max(1, round(len(t) / calls)) for t in us.values()) / 1e3
 
 
 def device_fields(kernel, library=None) -> dict:
@@ -424,26 +468,17 @@ def kernel_class(name: str) -> str:
 
 def profile_once(fn) -> dict:
     """Wall time, device busy time, idle share, top kernels and every kernel
-    of the port of one call under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        for _ in range(8):  # the profiler loses a window's last records (device_ms)
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+    of the port of one call under torch.profiler (a window of `profiled`;
+    `window_whole` false where none came out whole in three)."""
+    records, seconds, whole = profiled(fn, tries=3)
+    wall_ms = 1e3 * seconds
     by_kernel: dict[str, list] = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and TAIL_KERNEL not in ev.name:
-            name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "")
-            name = name.split("(")[0][:60]
-            entry = by_kernel.setdefault(name, [0.0, 0])
-            entry[0] += ev.time_range.elapsed_us() / 1e3
-            entry[1] += 1
+    for ev in records:
+        name = ev.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+        name = name.split("(")[0][:60]
+        entry = by_kernel.setdefault(name, [0.0, 0])
+        entry[0] += ev.time_range.elapsed_us() / 1e3
+        entry[1] += 1
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
     classes: dict[str, list] = {}
@@ -452,7 +487,7 @@ def profile_once(fn) -> dict:
         entry[0] += ms
         entry[1] += n
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "window_whole": whole,
             "top": [{"kernel": k, "ms": ms, "count": n} for k, (ms, n) in top],
             "classes": {c: {"ms": ms, "count": n} for c, (ms, n) in
                         sorted(classes.items(), key=lambda kv: -kv[1][0])},
@@ -549,32 +584,18 @@ def right_modes():
             setattr(ops, name, fn)
 
 
-def device_record_names(fn, calls: int = DEVICE_CALLS, tries: int = 5) -> dict:
-    """The device records (kernels, copies, fills) of `calls` calls under
-    torch.profiler, counted by name; a tail of sleep kernels keeps the
-    profiler from losing the last ones and is left out.  A window that kept
-    no record of the calls is profiled again, as in `device_ms`, up to
-    `tries` windows (then {})."""
+def device_record_names(fn, calls: int = DEVICE_CALLS, tries: int = 8) -> dict:
+    """The device records (kernels, copies, fills) of `calls` calls in a
+    whole window of `profiled`, counted by name ({} where no window of
+    `tries` came out whole)."""
     from collections import Counter
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            for _ in range(8):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        names = Counter(ev.name for ev in prof.events()
-                        if ev.device_type == torch.autograd.DeviceType.CUDA
-                        and TAIL_KERNEL not in ev.name)
-        if names:
-            return dict(names)
-    return {}
+    records, _, whole = profiled(lambda: [fn() for _ in range(calls)],
+                                 [ProfilerActivity.CUDA], tries)
+    return dict(Counter(ev.name for ev in records)) if whole else {}
 
 
 def special_panel(case: str, panel: torch.Tensor, weights: torch.Tensor):
@@ -2643,7 +2664,9 @@ def lm_train(arch: str, layers: int, batch: int, short: str) -> dict:
     tokens: LM_TRAIN_STEPS synchronized steps, each launching each mixer's
     kernel twice per layer (the forward and the remat recompute), finite
     losses and gradient norms.  Then one more step under the profiler.
-    Returns the launches of the counted steps."""
+    Returns the launches of the counted steps and the readings that the
+    dryrun phase holds its prediction to (the median step's seconds, the
+    peak bytes)."""
     import dataclasses
     import gc
 
@@ -2675,7 +2698,8 @@ def lm_train(arch: str, layers: int, batch: int, short: str) -> dict:
         losses.append(metrics["loss"].item())
         norms.append(metrics["grad_norm"].item())
     launches = read_launches()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gib = peak_bytes / 2**30
     n_attn, n_mamba = _mixer_layers(cfg, "attn"), _mixer_layers(cfg, "mamba")
     per_step = {"flash_attention": 2 * n_attn, "mamba_scan": 2 * n_mamba}
     expected = expected_launches(**{k: LM_TRAIN_STEPS * c for k, c in per_step.items()})
@@ -2699,7 +2723,77 @@ def lm_train(arch: str, layers: int, batch: int, short: str) -> dict:
     del state, model, step_fn, metrics
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"step_s_median_2_6": median_s, "peak_bytes": peak_bytes}
+
+
+def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> None:
+    """The dry-run tools (`repro_torch.launch.specs`, `launch.dryrun`) on the
+    meta device for lm_train's configuration of `arch` (its first `layers`
+    layers, bf16, AdamW with f32 moments, B = `batch`, LM_TRAIN_S, remat,
+    one rank): the predicted state bytes (parameters, moments, gradients) at
+    most lm_train's measured peak (`train`: its readings), and not a byte
+    put on the card (`memory_allocated` and the peak unchanged).  Prints the
+    counted FLOPs, the predicted bytes and the achieved rate (counted FLOPs
+    over lm_train's median step) against H100_SXM's bf16 peak (reported,
+    not held).  Then `python -m repro_torch.launch.dryrun` for qwen3-8b x
+    train_4k x single into a temporary file, with no card visible."""
+    import dataclasses
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.configs import SHAPES, ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import Mesh
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    shape = ShapeSpec("lm_train", LM_TRAIN_S, batch, "train")
+    with mock.patch.dict(SHAPES, {shape.name: shape}):
+        rec, _ = dryrun.lower_cell(
+            arch, shape.name, Mesh((1, 1), ("data", "model")), accum=1, remat=True,
+            cfg_override=lambda c: dataclasses.replace(c, n_layers=layers))
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    parts = rec["memory"]["port_rank_parts"]
+    predicted = parts["params"] + parts["opt"] + parts["grads"]
+    flops = rec["hlo"]["dot_flops"]
+    rate = flops / train["step_s_median_2_6"]
+    emit("dryrun", arch=arch, layers=layers, batch=batch, seq=LM_TRAIN_S,
+         device=rec["device"], counts_of=rec["counts_of"], n_params=rec["n_params"],
+         counted_flops=flops, counted_bytes=rec["hlo"]["bytes_accessed"],
+         model_flops=rec["roofline"]["model_flops"], count_s=rec["count_s"],
+         predicted_state_bytes=predicted, predicted_parts=parts,
+         measured_peak_bytes=train["peak_bytes"], step_s=train["step_s_median_2_6"],
+         achieved_flops_per_s=rate, peak_flops_per_s=BF16_FLOPS,
+         achieved_share=rate / BF16_FLOPS, card_bytes_before=before, card_bytes_after=after,
+         card_peak_during=peak)
+    if not predicted <= train["peak_bytes"]:
+        raise AssertionError(f"dryrun: predicted state bytes {predicted} over lm_train's "
+                             f"measured peak {train['peak_bytes']}")
+    if after != before or peak != before:
+        raise AssertionError(f"dryrun: the card's allocated bytes went {before} -> {after} "
+                             f"(peak {peak}); a dry run puts nothing on the card")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "dryrun_torch.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-8b",
+               "--shape", "train_4k", "--mesh", "single", "--out", out, "--no-resume"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+        seconds = time.perf_counter() - t0
+        recs = json.loads(Path(out).read_text()) if proc.returncode == 0 else []
+    cell = recs[0] if len(recs) == 1 else {}
+    emit("dryrun_cli", cmd=" ".join(cmd[1:6]) + " ...", returncode=proc.returncode,
+         seconds=seconds, ok=cell.get("ok"), count_s=cell.get("count_s"),
+         fits_one_card=cell.get("memory", {}).get("fits_one_card"),
+         port_rank_bytes=cell.get("memory", {}).get("port_rank_bytes"),
+         dot_flops=cell.get("hlo", {}).get("dot_flops"),
+         bottleneck=cell.get("roofline", {}).get("bottleneck"))
+    if proc.returncode != 0 or not cell.get("ok"):
+        raise AssertionError(f"dryrun CLI: rc {proc.returncode}: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
 
 
 def lm_train_loss_study(arch: str, layers: int, batch: int) -> None:
@@ -3170,23 +3264,13 @@ def lm_launch_train_torchrun() -> None:
                              f"line: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
 
 
-def _device_ms_or_none(fn) -> float | None:
-    """`device_ms`, or None where the profiler kept no device record of the
-    calls in any of its windows (it loses records late in a long run)."""
-    try:
-        return device_ms(fn)
-    except AssertionError:
-        return None
-
-
 def lm_score_bf16_kernels(dev, gen) -> dict:
     """bf16 score buffers in the kernel: score_dtype=bf16 (the bf16 body at
     the LM shapes, the f32 body in f32) against
     ref.flash_attention(score_dtype=bf16), held to the LM_SCORE_CASES bounds
     beside the f32-score kernel's distance from the same reference, timed
     beside the f32-score body and (at the prefill shape) SDPA.  Returns the
-    prefill shape's timings (device times None where the profiler kept no
-    record)."""
+    prefill shape's timings."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -3220,13 +3304,13 @@ def lm_score_bf16_kernels(dev, gen) -> dict:
         fields = dict(
             ms=time_ms(lambda: ops.flash_attention(q, k, v, score_dtype=bf16)),
             ms_f32_scores=time_ms(lambda: ops.flash_attention(q, k, v)),
-            device_ms=_device_ms_or_none(lambda: ops.flash_attention(q, k, v, score_dtype=bf16)),
-            device_ms_f32_scores=_device_ms_or_none(lambda: ops.flash_attention(q, k, v)), **b)
+            device_ms=device_ms(lambda: ops.flash_attention(q, k, v, score_dtype=bf16)),
+            device_ms_f32_scores=device_ms(lambda: ops.flash_attention(q, k, v)), **b)
         if (B, S, dt) == (4, LM_PROMPT, bf16):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa
                                                           enable_gqa=True)
-            fields.update(library_ms=time_ms(sdpa), library_device_ms=_device_ms_or_none(sdpa),
+            fields.update(library_ms=time_ms(sdpa), library_device_ms=device_ms(sdpa),
                           plain_ms=time_ms(lambda: ref.flash_attention(
                               q, k, v, score_dtype=bf16), reps=3))
             row = fields
@@ -4898,8 +4982,14 @@ def main() -> int:
     #    in f32, loss and gradients on the kernel path against
     #    the plain path; crash and resume through run_training, and
     #    launch.train then launch.serve --ckpt-dir in subprocesses.
+    train_readings = {}
     for arch, layers, batch, short in LM_TRAIN:
-        new_paths[f"lm_train_{short}"] = lm_train(arch, layers, batch, short)
+        new_paths[f"lm_train_{short}"], train_readings[short] = lm_train(arch, layers, batch,
+                                                                         short)
+    # 13a. The dry-run tools on the meta device for lm_train_qwen3's
+    #    configuration, held to that phase's measured peak; nothing on the card.
+    arch, layers, batch, short = LM_TRAIN[0]
+    lm_dryrun(arch, layers, batch, train_readings[short])
     lm_train_loss_study(*LM_TRAIN[0][:3])
     for arch, *_ in LM_TRAIN:
         lm_train_plain_check(arch)

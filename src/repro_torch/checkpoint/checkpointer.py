@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import param_leaves
+from repro_torch.training.train_step import TrainState
 
 _BF16_DESCR = "<V2"
 
@@ -50,6 +51,52 @@ def state_leaves(state) -> list[tuple[str, list[torch.Tensor]]]:
                 for key in _sorted_keys(state.opt[part])]
     out.append(("step", [state.step]))
     return out
+
+
+_LEAF = None
+
+
+def _nest(paths: list[str]) -> dict:
+    """The nested dict of "/"-joined paths, a leaf at each path's end."""
+    tree: dict = {}
+    for path in paths:
+        *parents, last = path.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = _LEAF
+    return tree
+
+
+def flatten_up_to(state, tree) -> list:
+    """`tree`'s entries at the JAX leaves of the port `TrainState` `state`, in
+    `state_leaves`' order, matched as JAX's `treedef.flatten_up_to` matches
+    a tree to a `TrainState`'s structure: `tree` is a `TrainState` whose
+    params and opt are nested dicts with the JAX tree's keys (for example
+    `repro_torch.launch.specs.train_state_pspecs`), and anything stands at
+    a leaf.  A mismatch raises ValueError in JAX's words."""
+    paths = [path for path, _ in state_leaves(state)]
+    want = _nest(paths)
+    if not isinstance(tree, TrainState):
+        raise ValueError(f"Custom node type mismatch: expected type: {TrainState!r}, "
+                         f"value: {tree!r}.")
+    out: list = []
+    for field in ("params", "opt", "step"):
+        _match(want[field], getattr(tree, field), out)
+    return out
+
+
+def _match(want, given, out: list) -> None:
+    if want is _LEAF:
+        out.append(given)
+        return
+    if not isinstance(given, dict):
+        raise ValueError(f"Expected dict, got {given!r}.")
+    if sorted(given) != sorted(want):
+        raise ValueError(f"Dict key mismatch; expected keys: {sorted(want)!r}; "
+                         f"present keys: {sorted(given)!r}.")
+    for k in sorted(want):
+        _match(want[k], given[k], out)
 
 
 def _host(path: str, tensors: list[torch.Tensor]) -> np.ndarray:
@@ -164,15 +211,18 @@ class Checkpointer:
     def restore(self, example_state, step: int | None = None, shardings=None):
         """Restore into the tensors of `example_state` (a `TrainState` of the
         same config and optimizer), in place, and return it.  Each leaf is
-        cast to the tensor's dtype on the tensor's device.  `shardings` (the
-        JAX package's elastic restore onto a mesh) has no counterpart: the
-        port's parallel/ replicates the training state on every rank, and
-        its shardings get a user with the dry-run tools (ROADMAP.md, slice
-        21)."""
+        cast to the tensor's dtype on the tensor's device.
+
+        `shardings`, as in the JAX package, is a tree of the state's
+        structure with a partition spec at each leaf (for example
+        `repro_torch.launch.specs.train_state_pspecs(model, rules)`), checked
+        leaf by leaf as JAX's `treedef.flatten_up_to` checks it
+        (`flatten_up_to`: a mismatch raises ValueError).  Unlike JAX, which
+        places each leaf sharded onto the mesh, the port then restores every
+        leaf whole: its data-parallel step replicates the training state on
+        every rank, so a restore onto a mesh is a whole restore on each."""
         if shardings is not None:
-            raise NotImplementedError("restore onto a mesh: the port's parallel/ replicates the "
-                                      "state on every rank; shardings wait for the dry-run "
-                                      "tools (ROADMAP.md, slice 21)")
+            flatten_up_to(example_state, shardings)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")

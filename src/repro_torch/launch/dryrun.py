@@ -1,0 +1,356 @@
+"""Dry run of the port: every (architecture x input shape) cell counted on
+the production meshes, as the JAX package's `repro/launch/dryrun.py` lowers
+and compiles each cell there.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun                  # all cells
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
+        --shape train_4k --mesh single --out results/dryrun_torch.json
+
+PyTorch has no XLA and no compiled program to read.  A dry run of the port
+is its own program on `torch.device("meta")`: the full-width model is built
+there and one rank's step runs eagerly on tensors that have shapes and
+dtypes and no memory.  Nothing runs on the CPU or on the card, and nothing
+is allocated.  The entry points take the meta device and no other.  The
+model runs with `backend="ref"`: the kernel wrappers take no meta tensor,
+so every count is that of the kernels' plain versions.
+
+One rank's program is what the port's data-parallel step runs on the mesh:
+rank 0's `rank_rows` of each micro-batch (`repro_torch.parallel.sharding`),
+through `accumulate_grads` and the optimizer's update
+(`make_train_step(place=(mesh, 0))`), for a train cell; `Transformer.prefill`
+of its rows for prefill; `decode_step` of its rows at position S - 1 (JAX's
+`serve_step`) for decode.  On the production mesh a rank takes B / 16 rows
+(B / 32 with the pod axis), and every rank along "model" repeats them
+(`rank.repetition` in the record).  The record's keys follow the JAX
+record's; where a value has no counterpart it is None and `no_counterpart`
+names it:
+
+- `hlo.dot_flops`: the rank's FLOPs under `torch.utils.flop_counter.
+  FlopCounterMode` (matrix products and convolutions, as JAX's
+  `analyze_hlo` counts dots), the remat recompute included.
+  `hlo.dot_flops_jax_view` is the global count (the rank's times the data
+  shards: the ranks' programs are the same function of disjoint rows)
+  divided by the mesh's size, JAX's per-device view.
+- `hlo.bytes_accessed`: the bytes of every aten op's tensor inputs and
+  outputs (`ByteCounter`); views and metadata-only ops (an allocation
+  without a fill) count 0.  Eager PyTorch reads each op's inputs from
+  device memory and writes its outputs back, so this is the port's
+  traffic.  The all-reduce's bucket copies are not in it.
+- `hlo.collective_wire_bytes`: the port's train step does one f32 ring
+  all-reduce of the loss and every gradient over all R = mesh-size ranks
+  (`training/train_step.py::buckets`, `_all_reduce_sum`), 2(R - 1)/R x 4
+  bytes an element a rank; a decode or prefill cell has 0.
+- `memory.argument_bytes`: the per-rank bytes of the program's arguments
+  (state and batch; parameters, caches and tokens for decode) under the
+  JAX rules on the mesh (`sanitize_pspec` against each leaf's shape), to
+  compare with JAX's.  The port's tokens and labels are int64, JAX's
+  int32: the difference is 4 bytes a token or label a device.
+  `memory.port_rank_bytes`: what one rank of the port's replicated data
+  parallelism holds (parameters, optimizer state and gradients for train,
+  caches for decode and prefill, and its batch), and `fits_one_card`
+  whether that is within one H100's 80 GB.
+- `roofline`: `analysis/roofline.py::roofline` at `H100_SXM` with the
+  rank's FLOPs, bytes and wire bytes and the analytic `model_flops`.
+
+A cell that the port cannot run at all (a data-parallel split that
+`check_dispatch_split` refuses) is a record with `ok: false` and the
+reason.  `count_s` is the host seconds of the count.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+from math import prod
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.analysis.roofline import H100_SXM, roofline
+from repro_torch.checkpoint.checkpointer import flatten_up_to, state_leaves
+from repro_torch.configs import ARCHS, SHAPES, applicable_shapes, get_config
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import make_production_mesh, mesh_label
+from repro_torch.models.layers.moe import check_dispatch_split
+from repro_torch.models.transformer import Transformer, param_leaves
+from repro_torch.parallel.sharding import Mesh, make_rules, rank_rows, sanitize_pspec, tree_pspecs
+from repro_torch.training.optimizer import _stacked_shape
+from repro_torch.training.train_step import BUCKET_BYTES, buckets, make_train_step
+
+META = SP.META
+NO_COUNTERPART = ["memory.output_bytes", "memory.temp_bytes", "memory.generated_code_bytes",
+                  "cost_analysis", "compile_s"]
+COUNTS_OF = ("the port's program on the meta device with backend='ref': the kernels' plain "
+             "versions (the kernel wrappers take no meta tensor)")
+
+_aten = torch.ops.aten
+_METADATA_ONLY = {_aten._unsafe_view, _aten._reshape_alias, _aten.empty, _aten.empty_like,
+                  _aten.empty_strided, _aten.new_empty, _aten.new_empty_strided,
+                  _aten.lift_fresh}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class ByteCounter(TorchDispatchMode):
+    """Sums the bytes of every aten op's tensor inputs (read once) and
+    outputs (written once): an in-place op reads and writes its tensor.
+    Views and metadata-only ops count 0."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not func.is_view and func.overloadpacket not in _METADATA_ONLY:
+            ins = tree_flatten((args, {k: v for k, v in kwargs.items() if k != "out"}))[0]
+            self.total += sum(_nbytes(t) for t in ins + tree_flatten(out)[0]
+                              if isinstance(t, torch.Tensor))
+        return out
+
+
+def count(fn):
+    """(fn(), FLOPs, bytes, host seconds) of `fn` run under FlopCounterMode
+    and ByteCounter."""
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as flops, ByteCounter() as nbytes:
+        out = fn()
+    return out, flops.get_total_flops(), nbytes.total, time.perf_counter() - t0
+
+
+def shard_bytes(shape: tuple, itemsize: int, spec, mesh: Mesh) -> int:
+    """A device's bytes of a leaf under `spec`, sanitized against `shape`."""
+    div = 1
+    for entry in sanitize_pspec(spec, shape, mesh):
+        for ax in () if entry is None else (entry if isinstance(entry, tuple) else (entry,)):
+            div *= mesh.shape[ax]
+    return prod(shape) * itemsize // div
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _tree_bytes(tensors: dict, pspecs: dict, mesh: Mesh) -> int:
+    """Sanitized per-device bytes of a nested dict of tensors under the
+    matching nested dict of specs."""
+    specs = _flat(pspecs)
+    return sum(shard_bytes(tuple(t.shape), t.element_size(), specs[k], mesh)
+               for k, t in _flat(tensors).items())
+
+
+def _param_bytes(model, pspecs: dict, mesh: Mesh) -> int:
+    """Sanitized per-device bytes of the parameters, leaf by leaf of the JAX
+    tree (a per-group leaf stacked over the groups)."""
+    named = dict(model.named_parameters())
+    specs = _flat(pspecs)
+    return sum(shard_bytes(_stacked_shape(named, names), named[names[0]].element_size(),
+                           specs[key], mesh)
+               for key, names in param_leaves(named).items())
+
+
+def _state_bytes(state, state_pspecs, mesh: Mesh) -> int:
+    """Sanitized per-device bytes of a TrainState, its specs matched leaf by
+    leaf as a restore onto the mesh matches them."""
+    total = 0
+    for (path, ts), spec in zip(state_leaves(state), flatten_up_to(state, state_pspecs)):
+        shape = (len(ts), *ts[0].shape) if path.startswith("params/blocks/") else tuple(
+            ts[0].shape)
+        total += shard_bytes(shape, ts[0].element_size(), spec, mesh)
+    return total
+
+
+def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, accum: int = 4,
+               cfg_override=None, extra_metadata: dict | None = None):
+    """Count one cell on the meta device.  Returns (record, None): the port
+    has no compiled program to hand back.
+
+    accum: gradient-accumulation micro-batches for train cells, 4 as in the
+    JAX baseline.  cfg_override: callable(ModelConfig) -> ModelConfig for
+    perf experiments.  `mesh` is an abstract `Mesh`; the program runs on
+    the meta device, no other (module docstring)."""
+    cfg = get_config(arch)
+    if cfg_override is not None:
+        cfg = cfg_override(cfg)
+    sh = SHAPES[shape_name]
+    kind, S = sh.kind, sh.seq_len
+    rules = make_rules(mesh, model_cfg=cfg)
+    n_dev = mesh.size
+    accum_ = accum if kind == "train" else 1
+    mb_rows = sh.global_batch // accum_
+    mine = rank_rows(mb_rows, mesh, rules, 0)
+    shards = mb_rows // len(mine)
+    head = {"arch": arch, "shape": shape_name, "kind": kind, "mesh": mesh_label(mesh),
+            "n_devices": n_dev}
+    if kind == "train":
+        try:
+            check_dispatch_split(cfg, shards, mb_rows, S)
+        except ValueError as e:
+            return {**head, "ok": False, "accum": accum,
+                    "error": f"the port cannot run this cell data-parallel: {e}",
+                    **(extra_metadata or {})}, None
+
+    model = Transformer(cfg, device=META, dtype=getattr(torch, cfg.param_dtype), backend="ref")
+    batch = SP.input_specs(cfg, shape_name)
+    batch_bytes = _tree_bytes(batch, SP.batch_specs_for(cfg, shape_name, rules), mesh)
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(_nbytes(p) for p in model.parameters())
+    parts = {"params": param_bytes}
+    wire, sites = 0.0, 0
+    if kind == "train":
+        opt_cfg = SP.opt_config_for(cfg)
+        state = SP.abstract_train_state(model, opt_cfg)
+        args = _state_bytes(state, SP.train_state_pspecs(model, rules), mesh) + batch_bytes
+        place = (mesh, 0) if n_dev > 1 else None
+        step = make_train_step(model, opt_cfg, accum=accum, remat=remat, place=place)
+        _, flops, nbytes, secs = count(lambda: step(state, batch))
+        f32_grads = accum > 1 or n_dev > 1  # the step's f32 sums, else the params' dtypes
+        parts["opt"] = sum(_nbytes(t) for part in state.opt.values() for t in part.values())
+        parts["grads"] = sum(p.numel() * (4 if f32_grads else p.element_size())
+                             for p in model.parameters())
+        parts["batch"] = sum(_nbytes(t) for t in batch.values())  # every rank holds it all
+        if n_dev > 1:
+            numels = [1] + [p.numel() for p in model.parameters()]  # the loss, then the grads
+            sites = len(buckets(numels, BUCKET_BYTES))
+            wire = 2 * (n_dev - 1) / n_dev * 4 * sum(numels)
+    else:
+        model.eval()
+        params_ps = tree_pspecs(model.param_specs(), rules)
+        caches_ps = SP.cache_pspecs(model, rules)
+        rank_batch = {k: v[mine.start:mine.stop] for k, v in batch.items()}
+        if kind == "prefill":
+            args = _param_bytes(model, params_ps, mesh) + batch_bytes
+            (_, caches), flops, nbytes, secs = count(
+                lambda: model.prefill(rank_batch, max_len=S))
+        else:
+            args = (_param_bytes(model, params_ps, mesh) + batch_bytes
+                    + _tree_bytes(SP.abstract_caches(model, shape_name), caches_ps, mesh))
+            caches = model.init_caches(len(mine), S)
+            _, flops, nbytes, secs = count(
+                lambda: model.decode_step(caches, rank_batch["tokens"], S - 1))
+        parts["caches"] = sum(_nbytes(t) for t in _flat(caches).values())
+        parts["batch"] = sum(_nbytes(t) for t in rank_batch.values())
+    rank_bytes = sum(parts.values())
+    mf = SP.model_flops(cfg, shape_name, n_dev)
+    rl = roofline(arch=arch, shape=shape_name, mesh=mesh_label(mesh), hlo_flops=flops,
+                  hlo_bytes=nbytes, collective_bytes=wire, model_flops=mf, hw=H100_SXM)
+    record = {
+        **head,
+        "ok": True,
+        "accum": accum if kind == "train" else None,
+        "compile_s": None,
+        "count_s": round(secs, 2),
+        "device": "meta",
+        "counts_of": COUNTS_OF,
+        "n_params": n_params,
+        "n_params_analytic": cfg.n_params,
+        "rank": {"rank": 0, "rows": len(mine), "data_shards": shards,
+                 "repetition": n_dev // shards},
+        "memory": {
+            "argument_bytes": args,
+            "output_bytes": None,
+            "temp_bytes": None,
+            "generated_code_bytes": None,
+            "token_dtype": "int64",
+            "port_rank_bytes": rank_bytes,
+            "port_rank_parts": parts,
+            "fits_one_card": rank_bytes <= H100_SXM.hbm_per_chip,
+        },
+        "cost_analysis": None,
+        "hlo": {
+            "dot_flops": flops,
+            "dot_flops_jax_view": flops * shards / n_dev,
+            "bytes_accessed": nbytes,
+            "collective_wire_bytes": wire,
+            "collective_by_kind": {"all-reduce": wire},
+            "n_collective_sites": sites,
+        },
+        "roofline": rl.row(),
+        "no_counterpart": NO_COUNTERPART,
+        **(extra_metadata or {}),
+    }
+    return record, None
+
+
+def run_cells(archs, shapes, meshes, out_path, *, resume=True):
+    results = []
+    if resume and os.path.exists(out_path):
+        with open(out_path) as f:
+            results = json.load(f)
+    done = {(r["arch"], r["shape"], r["mesh"]) for r in results if r.get("ok")}
+    mesh_objs = {m: make_production_mesh(multi_pod=(m == "multi")) for m in meshes}
+
+    for arch in archs:
+        cfg = get_config(arch)
+        for shape_name in shapes:
+            if shape_name not in applicable_shapes(cfg):
+                continue
+            for mesh in mesh_objs.values():
+                key = (arch, shape_name, mesh_label(mesh))
+                if key in done:
+                    print(f"skip {key} (cached)")
+                    continue
+                print(f"=== {arch} x {shape_name} x {mesh_label(mesh)} ===", flush=True)
+                try:
+                    rec, _ = lower_cell(arch, shape_name, mesh)
+                    if rec["ok"]:
+                        rl = rec["roofline"]
+                        print(
+                            f"    ok in {rec['count_s']}s  bottleneck={rl['bottleneck']} "
+                            f"t=({rl['t_compute_s']:.2e},{rl['t_memory_s']:.2e},"
+                            f"{rl['t_collective_s']:.2e})s  frac={rl['roofline_fraction']:.3f}  "
+                            f"fits_one_card={rec['memory']['fits_one_card']}",
+                            flush=True,
+                        )
+                    else:
+                        print(f"    NOT RUN: {rec['error']}", flush=True)
+                except Exception as e:
+                    rec = {
+                        "arch": arch, "shape": shape_name, "mesh": mesh_label(mesh),
+                        "ok": False, "error": f"{type(e).__name__}: {e}",
+                        "traceback": traceback.format_exc()[-2000:],
+                    }
+                    print(f"    FAIL: {rec['error']}", flush=True)
+                results = [r for r in results if (r["arch"], r["shape"], r["mesh"]) != key]
+                results.append(rec)
+                with open(out_path, "w") as f:
+                    json.dump(results, f, indent=1)
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
+    ap.add_argument("--out", default="results/dryrun_torch.json")
+    ap.add_argument("--no-resume", action="store_true")
+    args = ap.parse_args(argv)
+
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    archs = sorted(ARCHS) if args.arch == "all" else args.arch.split(",")
+    shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    results = run_cells(archs, shapes, meshes, args.out, resume=not args.no_resume)
+    n_ok = sum(1 for r in results if r.get("ok"))
+    print(f"\n{n_ok}/{len(results)} cells OK -> {args.out}")
+    if n_ok < len(results):
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -120,7 +120,8 @@ def _all_reduce_sum(tensors: list[torch.Tensor], group) -> None:
             off += tensors[i].numel()
 
 
-def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, group=None):
+def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, group=None,
+                     place=None):
     """(loss, grads) of `model` on `batch`, as a train step takes them before
     compression: the batch (a dict of tensors, on any device) is split into
     `accum` micro-batches along its first axis, their f32 gradients summed
@@ -129,7 +130,15 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
     under `jax.grad`.  With `group`, `batch` is the global batch and the
     result is the one-device result on it, the same on every rank (module
     docstring); a gradient comes in its parameter's dtype where accum is 1,
-    as on one device."""
+    as on one device.
+
+    `place` = (mesh, rank) runs rank's share of a data-parallel step on a
+    `Mesh` without a process group and without the all-reduce: the rank
+    takes `rank_rows` of each micro-batch on that mesh, and the ranks that
+    hold the same rows divide the loss between them.  The result is the
+    rank's part of the sum, before the all-reduce (the one rank that the
+    dry run counts, `repro_torch.launch.dryrun`).  With `group` the place
+    is ((R, 1) ("data", "model"), the group rank)."""
     params = dict(model.named_parameters())
 
     def grads_of(mb: dict, denominator=None, dispatch_ranks: int = 1):
@@ -139,17 +148,20 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
         return loss.detach(), {n: torch.zeros_like(p) if g is None else g
                                for (n, p), g in zip(params.items(), got)}
 
+    if group is not None:
+        if place is not None:
+            raise ValueError("pass a process group or a place, not both")
+        place = (Mesh((dist.get_world_size(group), 1), ("data", "model")), dist.get_rank(group))
     batch = {k: v.to(model.device) for k, v in batch.items()}
-    if group is None and accum == 1:
+    if place is None and accum == 1:
         return grads_of(batch)
     rows = mb_rows = next(iter(batch.values())).shape[0] // accum
     copies, shard = 1, slice(None)
-    if group is not None:
-        R = dist.get_world_size(group)
-        mine = rank_rows(mb_rows, Mesh((R, 1), ("data", "model")),
-                         make_rules(Mesh((R, 1), ("data", "model"))), dist.get_rank(group))
+    if place is not None:
+        mesh, rank = place
+        mine = rank_rows(mb_rows, mesh, make_rules(mesh), rank)
         rows, shard = len(mine), slice(mine.start, mine.stop)
-        copies = R if rows == mb_rows else 1
+        copies = mesh.size * rows // mb_rows  # the ranks that hold these rows
     ranks = mb_rows // rows  # the ranks that share micro-batch i's rows
     check_dispatch_split(model.cfg, ranks, mb_rows, batch["labels"].shape[1])
     loss = torch.zeros((), dtype=torch.float32, device=model.device)
@@ -157,7 +169,7 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
     for i in range(accum):
         mb = {k: v.reshape(accum, mb_rows, *v.shape[1:])[i] for k, v in batch.items()}
         denominator = None
-        if group is not None:
+        if place is not None:
             mask = mb.get("loss_mask")
             count = (mask.float().sum() if mask is not None else
                      torch.tensor(float(mb["labels"].numel()), device=model.device))
@@ -180,7 +192,8 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
 
 
 def make_train_step(model, opt_cfg: OptConfig, *, accum: int = 1,
-                    compress_bits: int | None = None, remat: bool = True, group=None):
+                    compress_bits: int | None = None, remat: bool = True, group=None,
+                    place=None):
     """Returns train_step(state, batch) -> (state, {"loss", "grad_norm"}).
 
     The step takes the loss and the f32 gradient over `accum` micro-batches
@@ -189,14 +202,16 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum: int = 1,
     applies it.  `model` is the model the states hold; each step takes it
     from `state.params`.  With `group` (a process group; every rank builds
     the step and calls it with the same global batch) the step is
-    data-parallel (module docstring)."""
+    data-parallel (module docstring).  `place` goes to `accumulate_grads`:
+    one rank's step on a mesh, without its all-reduce (a dry run's)."""
     update = adamw_update if opt_cfg.kind == "adamw" else adafactor_update
     if group is not None:
         check_dispatch_split(model.cfg, dist.get_world_size(group))
 
     def train_step(state: TrainState, batch: dict):
         model = state.params
-        loss, grads = accumulate_grads(model, batch, accum=accum, remat=remat, group=group)
+        loss, grads = accumulate_grads(model, batch, accum=accum, remat=remat, group=group,
+                                       place=place)
         if compress_bits:
             grads = _compress(grads, compress_bits)
         grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)

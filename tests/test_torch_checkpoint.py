@@ -136,8 +136,8 @@ def test_restore_refuses_another_structure(tmp_path):
         ck.restore(port_state(tiny("falcon-mamba-7b")))
     with pytest.raises(ValueError, match="shape"):
         ck.restore(port_state(tiny(), OptConfig(kind="adafactor")))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        ck.restore(port_state(tiny()), shardings={})
+    with pytest.raises(ValueError, match="Custom node type mismatch"):
+        ck.restore(port_state(tiny()), shardings={})  # shardings: a TrainState of specs
     with pytest.raises(FileNotFoundError):
         Checkpointer(str(tmp_path / "empty")).restore(port_state(tiny()))
 

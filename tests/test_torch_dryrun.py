@@ -1,0 +1,363 @@
+"""The port's dry run (`repro_torch.launch.dryrun`, `repro_torch.launch.perf`)
+against the JAX package's on the smoke cells of `tests/test_dryrun_smoke.py`:
+the reduced qwen3-moe, a 4x4 ("data", "model") mesh, `train_4k` at S = 128,
+B = 16 and `decode_32k` at S = 256, B = 16, accum = 2.
+
+The JAX side (`repro.launch.dryrun.lower_cell`, which forces 512 host
+devices when imported) runs in `tests/multidev/jax_dryrun_cases.py`, a
+subprocess started by the fixture while the port counts its cells here.
+
+What the port counts, and how it stands to JAX's numbers on these cells:
+- `model_flops` is JAX's analytic formula: equal.
+- `memory.argument_bytes` is JAX's `memory.argument_bytes` plus 4 bytes for
+  every token and label a device holds: the port's are int64, JAX's int32
+  (train: 4096 bytes, decode: 16 bytes a device).
+- `hlo.dot_flops`: one rank's program.  It equals, exactly, JAX's
+  per-device `dot_flops` on a data-only 4x1 mesh; the 4x4 mesh adds the
+  work GSPMD replicates along "model" (K/V projections of 2 KV heads that
+  the 4-way model axis cannot split, among others).  So the port's
+  JAX-mesh view (the global count over 16 devices) is a fixed fraction of
+  JAX's 4x4 count, pinned below to the ratio of the two integer counts.
+- The smoke train cell itself (2 MoE dispatch groups) is one the port
+  cannot run data-parallel on 4 data ranks (`check_dispatch_split`); the
+  FLOP comparison runs it with 4 dispatch groups on both sides.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from math import prod
+from pathlib import Path
+from unittest import mock
+
+import jax
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import FlopCounterMode
+
+import repro_torch.configs as C
+from repro.configs import get_config as jget
+from repro.configs import reduced as jreduced
+from repro.models.model_zoo import build_model as jbuild
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch import dryrun as dr
+from repro_torch.launch import perf
+from repro_torch.launch.mesh import make_production_mesh, mesh_label
+from repro_torch.models.transformer import Transformer
+from repro_torch.parallel.sharding import Mesh
+
+ROOT = Path(__file__).resolve().parents[1]
+SMOKE_SHAPES = {"train_4k": (128, 16), "decode_32k": (256, 16), "prefill_32k": (64, 8)}
+SMOKE_ARCH = "qwen3-moe-235b-a22b"
+# name -> (mesh shape, shape, n_dispatch_groups or None, remat), as the JAX script's
+CELLS = {
+    "4x4/train": ((4, 4), "train_4k", None, True),
+    "4x4/train/noremat": ((4, 4), "train_4k", None, False),
+    "4x4/decode": ((4, 4), "decode_32k", None, True),
+    "4x4/train/g4": ((4, 4), "train_4k", 4, True),
+    "4x4/train/g4/noremat": ((4, 4), "train_4k", 4, False),
+    "4x1/train/g4": ((4, 1), "train_4k", 4, True),
+    "4x1/train/g4/noremat": ((4, 1), "train_4k", 4, False),
+}
+# The port's JAX-mesh view of the dot FLOPs over JAX's 4x4 dot_flops, as the
+# ratio of two integer counts of deterministic programs (measured: the port's
+# view 96,993,280 / 74,317,824 / 246,784 against JAX's 117,440,512 /
+# 88,080,384 / 274,432).
+FLOP_RATIO = {"4x4/train/g4": 96_993_280 / 117_440_512,
+              "4x4/train/g4/noremat": 74_317_824 / 88_080_384,
+              "4x4/decode": 246_784 / 274_432}
+
+
+def groups(n):
+    if n is None:
+        return None
+    return lambda c: dataclasses.replace(c, moe=dataclasses.replace(c.moe, n_dispatch_groups=n))
+
+
+def smoke():
+    """The port's configs and shapes patched to the smoke cell's ("smoke")."""
+    shapes = {k: dataclasses.replace(C.SHAPES[k], seq_len=S, global_batch=B)
+              for k, (S, B) in SMOKE_SHAPES.items()}
+    arch = {"smoke": reduced(get_config(SMOKE_ARCH), groups=2)}
+    return mock.patch.dict(C.SHAPES, shapes), mock.patch.dict(C.ARCHS, arch)
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """The JAX script, started at once; `jax_cells` waits for it."""
+    out = tmp_path_factory.mktemp("jax_dryrun") / "cells.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen([sys.executable, "tests/multidev/jax_dryrun_cases.py", str(out)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    yield proc, out
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def port_cells(jax_run):
+    s, a = smoke()
+    with s, a:
+        return {name: dr.lower_cell("smoke", shape, Mesh(ms, ("data", "model")), accum=2,
+                                    remat=remat, cfg_override=groups(n))[0]
+                for name, (ms, shape, n, remat) in CELLS.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_cells(jax_run):
+    proc, out = jax_run
+    log, _ = proc.communicate(timeout=240)
+    assert proc.returncode == 0, log[-4000:]
+    return json.loads(out.read_text())
+
+
+# --------------------------------------------------------------------------
+# The records against JAX's
+# --------------------------------------------------------------------------
+
+def test_the_smoke_train_cell_is_one_the_port_cannot_run(port_cells):
+    """2 dispatch groups over 4 data ranks: the port's step refuses the split,
+    so the record is `ok: false` and says why."""
+    rec = port_cells["4x4/train"]
+    assert rec["ok"] is False and rec["accum"] == 2
+    assert "cannot run this cell data-parallel" in rec["error"]
+    assert "G = 2" in rec["error"] and "R = 4" in rec["error"]
+    assert port_cells["4x4/train/noremat"]["ok"] is False
+
+
+@pytest.mark.parametrize("name", ["4x4/train/g4", "4x4/decode"])
+def test_model_flops_equal_jax(port_cells, jax_cells, name):
+    got = port_cells[name]["roofline"]["model_flops"]
+    assert got == jax_cells["cells"][name]["model_flops"]
+    # the dispatch groups do not enter the analytic count
+    assert jax_cells["cells"]["4x4/train"]["model_flops"] == jax_cells["cells"][
+        "4x4/train/g4"]["model_flops"] == 63_504_384
+
+
+def token_bytes_over_jax(cfg_shape: str, mesh: Mesh) -> int:
+    """4 bytes for each token and label element a device holds: the port's
+    int64 against JAX's int32, rows sharded over "data"."""
+    S, B = SMOKE_SHAPES[cfg_shape]
+    per_dev_rows = B // mesh.shape["data"]
+    if cfg_shape == "decode_32k":
+        return 4 * per_dev_rows
+    return 4 * 2 * per_dev_rows * S  # tokens and labels
+
+
+@pytest.mark.parametrize("name, gap", [("4x4/train/g4", 4096), ("4x4/decode", 16),
+                                       ("4x1/train/g4", 4096)])
+def test_argument_bytes_equal_jax_but_for_the_int64_tokens(port_cells, jax_cells, name, gap):
+    ms, shape, _, _ = CELLS[name]
+    assert token_bytes_over_jax(shape, Mesh(ms, ("data", "model"))) == gap
+    rec, want = port_cells[name], jax_cells["cells"][name]["memory"]["argument_bytes"]
+    assert rec["memory"]["argument_bytes"] - want == gap
+    assert rec["memory"]["token_dtype"] == "int64"
+    if name.startswith("4x4/train"):  # JAX's figure on the cell as it runs it (2 groups)
+        assert jax_cells["cells"]["4x4/train"]["memory"]["argument_bytes"] == want == 100_868
+
+
+@pytest.mark.parametrize("name", sorted(FLOP_RATIO))
+def test_flop_ratio_to_jax_dot_flops_is_pinned(port_cells, jax_cells, name):
+    rec = port_cells[name]
+    view = rec["hlo"]["dot_flops_jax_view"]
+    assert view == rec["hlo"]["dot_flops"] * rec["rank"]["data_shards"] / 16
+    assert rec["rank"]["repetition"] == 4 and rec["rank"]["data_shards"] == 4
+    ratio = view / jax_cells["cells"][name]["hlo"]["dot_flops"]
+    assert ratio == pytest.approx(FLOP_RATIO[name], rel=1e-12)
+
+
+@pytest.mark.parametrize("remat", ["", "/noremat"])
+def test_a_ranks_program_is_jaxs_per_device_program_on_a_data_only_mesh(port_cells, jax_cells,
+                                                                        remat):
+    """Exactly: the rank's dot FLOPs on 4x4 equal JAX's per-device dot FLOPs on
+    4x1 (the same rows, no model axis), and the rank's program on 4x1 is the
+    same program.  The 4x4 gap is GSPMD's work along "model"."""
+    jax41 = jax_cells["cells"][f"4x1/train/g4{remat}"]["hlo"]["dot_flops"]
+    assert port_cells[f"4x4/train/g4{remat}"]["hlo"]["dot_flops"] == jax41
+    assert port_cells[f"4x1/train/g4{remat}"]["hlo"]["dot_flops"] == jax41
+    assert jax_cells["cells"][f"4x4/train/g4{remat}"]["hlo"]["dot_flops"] * 16 > jax41 * 4
+
+
+def test_remat_adds_one_forward_of_every_group(port_cells):
+    """The rank's count with remat is its count without plus one forward of
+    every group on each of its micro-batches (2 rows of 128, 4 ranks share
+    a micro-batch's dispatch groups)."""
+    cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
+    model = Transformer(cfg, device="meta", dtype=torch.float32, backend="ref")
+    x = torch.empty(2, 128, cfg.d_model, device="meta")
+    positions = torch.arange(128, device="meta")
+    with FlopCounterMode(display=False) as fc:
+        for group in model.groups:
+            group(cfg, x, positions, backend="ref", dispatch_ranks=4)
+    accum = 2
+    got = port_cells["4x4/train/g4"]["hlo"]["dot_flops"]
+    assert got == port_cells["4x4/train/g4/noremat"]["hlo"]["dot_flops"] + accum * (
+        fc.get_total_flops()) and fc.get_total_flops() > 0
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (1, 4)])
+def test_the_ranks_shares_sum_to_the_one_device_step(mesh_shape):
+    """`accumulate_grads(place=(mesh, rank))`, the program a dry run counts:
+    summed over the mesh's ranks (the all-reduce the dry run leaves out), the
+    loss and gradients are the one-device step's on the whole batch; ranks
+    along "model" hold the same rows and split their loss."""
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import accumulate_grads
+
+    cfg = reduced(get_config("qwen3-8b"), groups=1)
+    model = build_model(cfg, device="cpu", backend="ref").train().requires_grad_(True)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 8), generator=gen) for k in ("tokens", "labels")}
+    loss1, grads1 = accumulate_grads(model, batch, accum=2)
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    shares = [accumulate_grads(model, batch, accum=2, place=(mesh, r)) for r in range(mesh.size)]
+    torch.testing.assert_close(sum(s[0] for s in shares), loss1, rtol=1e-5, atol=0)
+    for name, g in grads1.items():
+        torch.testing.assert_close(sum(s[1][name] for s in shares), g, rtol=1e-4, atol=1e-6)
+
+
+def test_parameter_count_is_the_jax_trees_not_the_analytic_one(port_cells):
+    """91,008 parameters: the JAX tree's leaf sizes summed; the analytic
+    `n_params` (90,880) leaves out the q/k norm scales and the final norm."""
+    leaves = jax.tree.leaves(jax.eval_shape(
+        jbuild(jreduced(jget(SMOKE_ARCH), groups=2)).init, jax.random.key(0)))
+    rec = port_cells["4x4/decode"]
+    assert rec["n_params"] == sum(prod(x.shape) for x in leaves) == 91_008
+    assert rec["n_params_analytic"] == 90_880
+
+
+def test_collective_bytes_are_the_ports_all_reduce(port_cells):
+    rec = port_cells["4x4/train/g4"]
+    R, n = 16, rec["n_params"] + 1  # the loss rides in the first bucket
+    assert rec["hlo"]["collective_wire_bytes"] == 2 * (R - 1) / R * 4 * n
+    assert rec["hlo"]["collective_by_kind"] == {"all-reduce": rec["hlo"][
+        "collective_wire_bytes"]}
+    assert rec["hlo"]["n_collective_sites"] == 1
+    assert port_cells["4x4/decode"]["hlo"]["collective_wire_bytes"] == 0
+
+
+def test_port_rank_bytes_hold_the_replicated_state(port_cells):
+    rec = port_cells["4x4/train/g4"]
+    parts = rec["memory"]["port_rank_parts"]
+    n = rec["n_params"]
+    assert parts["params"] == 4 * n and parts["opt"] == 2 * 4 * n  # f32 params and moments
+    assert parts["grads"] == 4 * n  # the step's f32 sums
+    assert parts["batch"] == 2 * 16 * 128 * 8  # every rank holds the global batch
+    assert rec["memory"]["port_rank_bytes"] == sum(parts.values())
+    assert rec["memory"]["fits_one_card"] is True
+    dec = port_cells["4x4/decode"]["memory"]["port_rank_parts"]
+    assert dec["batch"] == 4 * 8 and dec["caches"] > 0  # its 4 rows' tokens and caches
+
+
+@pytest.mark.parametrize("name", ["4x4/train/g4", "4x4/decode"])
+def test_roofline_terms_are_positive_at_h100_rates(port_cells, name):
+    rl = port_cells[name]["roofline"]
+    assert rl["t_compute_s"] > 0 and rl["t_memory_s"] > 0
+    assert rl["bottleneck"] in ("compute", "memory", "collective")
+    assert rl["t_compute_s"] == port_cells[name]["hlo"]["dot_flops"] / 989e12
+    assert rl["t_memory_s"] == port_cells[name]["hlo"]["bytes_accessed"] / 3.35e12
+    assert (rl["t_collective_s"] > 0) == name.endswith("g4")
+
+
+def test_records_name_what_has_no_counterpart(port_cells):
+    rec = port_cells["4x4/decode"]
+    for key in rec["no_counterpart"]:
+        part, _, field = key.partition(".")
+        assert (rec[part][field] if field else rec[part]) is None
+    assert rec["device"] == "meta" and "backend='ref'" in rec["counts_of"]
+    assert rec["count_s"] >= 0 and rec["compile_s"] is None
+
+
+def test_the_counters_read_each_input_once_write_each_output_once_and_skip_views():
+    a, b = (torch.empty(4, 8, device="meta") for _ in range(2))
+    w = torch.empty(8, 16, device="meta")
+
+    def program():
+        c = a + b  # reads 2 x 128 bytes, writes 128
+        c.view(8, 4).t()  # views: 0
+        c.add_(b)  # reads c and b, writes c
+        torch.empty(1024, device="meta")  # an allocation without a fill: 0
+        return c @ w  # reads 128 + 512, writes 256; 2 x 4 x 16 x 8 FLOPs
+
+    out, flops, nbytes, secs = dr.count(program)
+    assert out.device.type == "meta" and tuple(out.shape) == (4, 16)
+    assert flops == 2 * 4 * 16 * 8
+    assert nbytes == 3 * 128 + 3 * 128 + (128 + 512 + 256) and secs >= 0
+
+
+class DeviceLog(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.devices = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.devices |= {t.device.type for t in tree_flatten(out)[0]
+                         if isinstance(t, torch.Tensor)}
+        return out
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_no_tensor_of_the_dry_run_is_off_the_meta_device(shape):
+    s, a = smoke()
+    log = DeviceLog()
+    with s, a, log:
+        rec, compiled = dr.lower_cell("smoke", shape, Mesh((2, 2), ("data", "model")), accum=2,
+                                      cfg_override=groups(4))
+    assert rec["ok"] and compiled is None
+    assert log.devices == {"meta"}
+    assert not torch.cuda.is_initialized()
+
+
+# --------------------------------------------------------------------------
+# mesh.py, perf.py and the CLI
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["single", "multi"])
+def test_production_meshes_equal_jaxs(jax_cells, kind):
+    mesh = make_production_mesh(multi_pod=kind == "multi")
+    want = jax_cells["meshes"][kind]
+    assert list(mesh.axis_sizes) == want["shape"] and list(mesh.axis_names) == want["axes"]
+    assert mesh_label(mesh) == want["label"]
+
+
+def test_perf_variants_equal_jaxs(jax_cells):
+    assert {k: d for k, (_, d) in perf.VARIANTS.items()} == jax_cells["variants"]
+    assert list(perf.VARIANTS) == list(jax_cells["variants"])
+
+
+def test_perf_run_tells_the_dispatch_variants_apart(tmp_path):
+    s, a = smoke()
+    out = tmp_path / "perf.json"
+    with s, a, mock.patch.dict(perf.CELLS, {"S": ("smoke", "train_4k")}):
+        base = perf.run("S", "baseline", out=str(out))
+        sort = perf.run("S", "sort_dispatch", out=str(out))
+    assert base["ok"] and sort["ok"]
+    assert base["desc"] == "baseline (scatter MoE, accum=4)"
+    assert base != sort and base["t_memory_s"] != sort["t_memory_s"]
+    assert base["temp_gb"] is None and "temp_gb" in base["no_counterpart"]
+    assert [e["variant"] for e in json.loads(out.read_text())] == ["baseline", "sort_dispatch"]
+
+
+def test_cli_writes_every_cell_of_an_arch(tmp_path, capsys):
+    s, a = smoke()
+    out = tmp_path / "dryrun_torch.json"
+    argv = ["--arch", "smoke", "--shape", "train_4k,decode_32k", "--mesh", "single",
+            "--out", str(out)]
+    with s, a:
+        dr.main(argv)
+        dr.main(argv)  # resumes: every cell is cached
+    recs = json.loads(out.read_text())
+    assert [(r["shape"], r["mesh"], r["ok"]) for r in recs] == [
+        ("train_4k", "16x16", True), ("decode_32k", "16x16", True)]
+    # B = 16 rows over 16 data ranks at accum 4: every rank takes all 4 rows of a micro-batch
+    assert recs[0]["rank"] == {"rank": 0, "rows": 4, "data_shards": 1, "repetition": 256}
+    assert "skip ('smoke', 'train_4k', '16x16') (cached)" in capsys.readouterr().out
