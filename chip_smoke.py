@@ -99,8 +99,13 @@ each kernel against its plain PyTorch version on the card:
   card (one card allows NCCL only at world size 1), every step's loss and
   gradient norm against the one-rank run and each gradient leaf of step 1
   against the rank's own one-device gradient; `compressed_psum` on the two
-  ranks against its plain formula; `torchrun --nproc-per-node=1 -m
-  repro_torch.launch.train` (an NCCL group of one);
+  ranks against its plain formula; the same steps on two gloo ranks with
+  the training state sharded over "data" (fsdp, the JAX rules of the (2, 1)
+  mesh): losses and norms against the one-rank run, step 1's gathered
+  parameters against one device's step 1 and across the ranks, each rank's
+  state bytes and each step's wire bytes against the dry run's count;
+  `torchrun --nproc-per-node=1 -m repro_torch.launch.train` (an NCCL group
+  of one);
 - bf16 score buffers: `flash_attention(score_dtype=bf16)` (both bodies)
   against `ref.flash_attention(score_dtype=bf16)`, and qwen3-8b (4 layers)
   served and trained with `attn_score_dtype="bfloat16"` against f32 scores;
@@ -109,8 +114,10 @@ each kernel against its plain PyTorch version on the card:
 - the dry-run tools (`repro_torch.launch.dryrun` on the meta device) for
   the qwen3-8b training configuration above: the predicted state bytes at
   most that phase's measured peak, no byte put on the card, the counted
-  FLOPs over its step time; and the dry-run CLI once for qwen3-8b x
-  train_4k on the 16x16 mesh, with no card visible.
+  FLOPs over its step time; the sharded configuration on the (2, 1) mesh
+  (the prediction the sharded steps are held to); and the dry-run CLI once
+  for qwen3-8b x train_4k on the 16x16 mesh, sharded 16 ways, with no card
+  visible: the rank must fit one card.
 
 Before the paths, `lu_panel` and `lu_panel_batched` are held bit for bit at
 the edges of their CUDA bodies, in f64 and on panels with NaN and infinite
@@ -280,6 +287,18 @@ LM_DP = ("qwen3-8b", 2, 2)  # (arch, layers, global batch)
 LM_DP_S, LM_DP_STEPS, LM_DP_RANKS = 2048, 3, 2
 LM_DP_STEP_RTOL, LM_DP_GRAD_REL = 2e-4, 1e-4
 LM_DP_TIMEOUT_S = 420  # both ranks together, from spawn to exit
+# The same model, batches and steps on LM_DP_RANKS gloo ranks with the state
+# sharded over "data" (`init_train_state(rules=make_rules(mesh))`: fsdp ->
+# "data" on the (2, 1) mesh).  Each step's loss and gradient norm within
+# LM_DP_STEP_RTOL of the one-rank run's (lm_train_dp's); step 1's gathered
+# parameters within LM_FSDP_PARAM_REL of each leaf's max |p| of rank 0's own
+# one-device step 1 (AdamW's first step moves every element by about lr;
+# the two gradients differ by f32 summation order, so the updates agree to
+# far below that), and bit-alike across the ranks.  Each rank's state bytes
+# (parameters and moments, counted from its tensors) equal the dry run's
+# prediction for the (2, 1) mesh exactly, as do its wire bytes a step.
+LM_FSDP_PARAM_REL = 1e-4
+LM_FSDP_TIMEOUT_S = 600  # both ranks together, from spawn to exit
 COMPRESS_N, COMPRESS_BITS = 1 << 24, (8, 4)  # compressed_psum's tensor, its bit widths
 # bf16 score buffers: flash_attention(score_dtype=bf16) against
 # ref.flash_attention(score_dtype=bf16) at qwen3-8b's prefill shape, the
@@ -313,8 +332,14 @@ LM_SCORE_LAYERS, LM_SCORE_B, LM_SCORE_STEPS = 4, 2, 2
 LM_SERVE_LLAMA4 = ("llama4-maverick-400b-a17b", 1, 2, "llama4")
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase's readings, with the host seconds since the
+    script started (`at_s`: where the run's time goes)."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - _START}),
+          flush=True)
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -466,11 +491,11 @@ def kernel_class(name: str) -> str:
                 "elementwise")
 
 
-def profile_once(fn) -> dict:
+def profile_once(fn, tries: int = 3) -> dict:
     """Wall time, device busy time, idle share, top kernels and every kernel
     of the port of one call under torch.profiler (a window of `profiled`;
-    `window_whole` false where none came out whole in three)."""
-    records, seconds, whole = profiled(fn, tries=3)
+    `window_whole` false where none came out whole in `tries`)."""
+    records, seconds, whole = profiled(fn, tries=tries)
     wall_ms = 1e3 * seconds
     by_kernel: dict[str, list] = {}
     for ev in records:
@@ -2726,7 +2751,7 @@ def lm_train(arch: str, layers: int, batch: int, short: str) -> dict:
     return launches, {"step_s_median_2_6": median_s, "peak_bytes": peak_bytes}
 
 
-def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> None:
+def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> dict:
     """The dry-run tools (`repro_torch.launch.specs`, `launch.dryrun`) on the
     meta device for lm_train's configuration of `arch` (its first `layers`
     layers, bf16, AdamW with f32 moments, B = `batch`, LM_TRAIN_S, remat,
@@ -2735,8 +2760,11 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> None:
     put on the card (`memory_allocated` and the peak unchanged).  Prints the
     counted FLOPs, the predicted bytes and the achieved rate (counted FLOPs
     over lm_train's median step) against H100_SXM's bf16 peak (reported,
-    not held).  Then `python -m repro_torch.launch.dryrun` for qwen3-8b x
-    train_4k x single into a temporary file, with no card visible."""
+    not held).  Also counts lm_train_fsdp's configuration (LM_DP in f32) on
+    the (2, 1) mesh, whose sharded rank's state and wire bytes it returns
+    for that phase to hold.  Then `python -m repro_torch.launch.dryrun` for
+    qwen3-8b x train_4k x single into a temporary file, with no card
+    visible: the 16x16 rank, sharded 16 ways over "data", fits one card."""
     import dataclasses
     import tempfile
     from unittest import mock
@@ -2753,6 +2781,14 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> None:
         rec, _ = dryrun.lower_cell(
             arch, shape.name, Mesh((1, 1), ("data", "model")), accum=1, remat=True,
             cfg_override=lambda c: dataclasses.replace(c, n_layers=layers))
+    # lm_train_fsdp's configuration (f32) on its (2, 1) mesh: the sharded rank
+    dp_arch, dp_layers, dp_batch = LM_DP
+    dp_shape = ShapeSpec("lm_train_fsdp", LM_DP_S, dp_batch, "train")
+    with mock.patch.dict(SHAPES, {dp_shape.name: dp_shape}):
+        fsdp_rec, _ = dryrun.lower_cell(
+            dp_arch, dp_shape.name, Mesh((LM_DP_RANKS, 1), ("data", "model")), accum=1,
+            remat=True, cfg_override=lambda c: dataclasses.replace(
+                c, n_layers=dp_layers, param_dtype="float32"))
     torch.cuda.synchronize()
     after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
     parts = rec["memory"]["port_rank_parts"]
@@ -2768,6 +2804,17 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> None:
          achieved_flops_per_s=rate, peak_flops_per_s=BF16_FLOPS,
          achieved_share=rate / BF16_FLOPS, card_bytes_before=before, card_bytes_after=after,
          card_peak_during=peak)
+    fsdp_parts = fsdp_rec["memory"]["port_rank_parts"]
+    fsdp_predicted = {"state_bytes": fsdp_parts["params"] + fsdp_parts["opt"],
+                      "replicated_state_bytes": 12 * fsdp_rec["n_params"],  # f32 p, m, v
+                      "wire_bytes": fsdp_rec["hlo"]["collective_wire_bytes"]}
+    emit("dryrun_fsdp", arch=dp_arch, layers=dp_layers, dtype="float32", batch=dp_batch,
+         seq=LM_DP_S, mesh=fsdp_rec["mesh"], count_s=fsdp_rec["count_s"],
+         state_layout=fsdp_rec["memory"]["state_layout"], port_rank_parts=fsdp_parts,
+         port_rank_bytes=fsdp_rec["memory"]["port_rank_bytes"], **fsdp_predicted,
+         collective_by_kind=fsdp_rec["hlo"]["collective_by_kind"],
+         n_collective_sites=fsdp_rec["hlo"]["n_collective_sites"],
+         counted_flops=fsdp_rec["hlo"]["dot_flops"])
     if not predicted <= train["peak_bytes"]:
         raise AssertionError(f"dryrun: predicted state bytes {predicted} over lm_train's "
                              f"measured peak {train['peak_bytes']}")
@@ -2785,15 +2832,23 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> None:
         seconds = time.perf_counter() - t0
         recs = json.loads(Path(out).read_text()) if proc.returncode == 0 else []
     cell = recs[0] if len(recs) == 1 else {}
+    memory, hlo = cell.get("memory", {}), cell.get("hlo", {})
     emit("dryrun_cli", cmd=" ".join(cmd[1:6]) + " ...", returncode=proc.returncode,
          seconds=seconds, ok=cell.get("ok"), count_s=cell.get("count_s"),
-         fits_one_card=cell.get("memory", {}).get("fits_one_card"),
-         port_rank_bytes=cell.get("memory", {}).get("port_rank_bytes"),
-         dot_flops=cell.get("hlo", {}).get("dot_flops"),
+         fits_one_card=memory.get("fits_one_card"),
+         port_rank_bytes=memory.get("port_rank_bytes"),
+         port_rank_parts=memory.get("port_rank_parts"), state_layout=memory.get("state_layout"),
+         collective_wire_bytes=hlo.get("collective_wire_bytes"),
+         collective_by_kind=hlo.get("collective_by_kind"),
+         n_collective_sites=hlo.get("n_collective_sites"), dot_flops=hlo.get("dot_flops"),
          bottleneck=cell.get("roofline", {}).get("bottleneck"))
     if proc.returncode != 0 or not cell.get("ok"):
         raise AssertionError(f"dryrun CLI: rc {proc.returncode}: {proc.stdout[-2000:]} "
                              f"{proc.stderr[-2000:]}")
+    if not (memory["fits_one_card"] and memory["state_layout"]["data_parts"] == 16
+            and hlo["collective_wire_bytes"] == sum(hlo["collective_by_kind"].values())):
+        raise AssertionError(f"dryrun CLI: the sharded 16x16 rank: {memory} {hlo}")
+    return fsdp_predicted
 
 
 def lm_train_loss_study(arch: str, layers: int, batch: int) -> None:
@@ -3048,10 +3103,10 @@ def _dp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
         reduce_s = []
         orig = ts._all_reduce_sum
 
-        def timed(tensors, group):
+        def timed(tensors, group, ranks=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            orig(tensors, group)
+            orig(tensors, group, ranks)
             torch.cuda.synchronize()
             reduce_s.append(time.perf_counter() - t0)
             want = step1.pop("grads", None)
@@ -3124,7 +3179,40 @@ def _dp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
         dist.destroy_process_group()
 
 
-def lm_train_dp(device: str = "cuda:0") -> dict:
+def _spawn_ranks(target, device: str, timeout_s: float, phase: str) -> tuple[list, float]:
+    """LM_DP_RANKS processes of `target(rank, out_dir, device)`, spawned at
+    once and killed at `timeout_s`: (each rank's out_dir/rank<r>.json, the
+    seconds from spawn to the last exit).  Fails if a rank fails or hangs."""
+    import multiprocessing as mp
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=target, args=(r, out_dir, device))
+                 for r in range(LM_DP_RANKS)]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.0))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if hung or failed:
+            raise AssertionError(f"{phase}: ranks {failed} failed (of which {hung} "
+                                 f"outlived {timeout_s} s)")
+        spawn_s = time.perf_counter() - t0
+        return ([json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(LM_DP_RANKS)], spawn_s)
+
+
+def lm_train_dp(device: str = "cuda:0") -> tuple[dict, dict]:
     """LM_DP's steps on one rank in this process, then on LM_DP_RANKS gloo
     ranks on cuda:0 (`_dp_rank`): each step's loss and gradient norm within
     LM_DP_STEP_RTOL of the one-rank run's, every rank's alike and its
@@ -3133,11 +3221,9 @@ def lm_train_dp(device: str = "cuda:0") -> dict:
     `compressed_psum` equal to its plain formula.  Each run launches
     flash_attention twice per layer a step.  Prints the peak memory per rank
     and the all-reduce's share of a step.  Returns the one-rank run's
-    launches."""
+    launches and readings (losses, gradient norms, step seconds, peak)."""
     import dataclasses
     import gc
-    import multiprocessing as mp
-    import tempfile
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -3169,30 +3255,7 @@ def lm_train_dp(device: str = "cuda:0") -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as out_dir:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_dp_rank, args=(r, out_dir, device))
-                 for r in range(LM_DP_RANKS)]
-        t0 = time.perf_counter()
-        deadline = time.monotonic() + LM_DP_TIMEOUT_S
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(max(deadline - time.monotonic(), 0.0))
-        finally:
-            hung = [r for r, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
-        if hung or failed:
-            raise AssertionError(f"lm_train_dp: ranks {failed} failed (of which {hung} "
-                                 f"outlived {LM_DP_TIMEOUT_S} s)")
-        spawn_s = time.perf_counter() - t0
-        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
-                 for r in range(LM_DP_RANKS)]
+    ranks, spawn_s = _spawn_ranks(_dp_rank, device, LM_DP_TIMEOUT_S, "lm_train_dp")
     r0 = ranks[0]
     per_step = {"flash_attention": 2 * _mixer_layers(cfg, "attn")}
     want = {k: LM_DP_STEPS * c for k, c in per_step.items()}
@@ -3235,7 +3298,175 @@ def lm_train_dp(device: str = "cuda:0") -> dict:
         emit("compressed_psum", ranks=LM_DP_RANKS, **row)
         if not (row["equal_to_plain"] and row["finite"]):
             raise AssertionError(f"compressed_psum bits={row['bits']}: {row}")
-    return launches
+    return launches, one
+
+
+def _fsdp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
+    """One of LM_DP_RANKS ranks on cuda:0 in a gloo group: lm_train_dp's
+    model, batches and steps on a state sharded over "data" by the JAX
+    rules of the (2, 1) mesh.  Rank 0 first takes its own one-device step 1
+    of the global batch, for the gathered parameters.  Each step runs with
+    the collectives timed (`fsdp.WIRE.sync`: the card waited for before and
+    after each call), rank 0's last one under the profiler.  Writes what it
+    saw to out_dir/rank<r>.json."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import Mesh, fsdp, make_rules
+    from repro_torch.training import OptConfig, init_train_state, make_train_step
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: loopback
+    torch.set_num_threads(2)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=LM_DP_RANKS)
+    group = dist.group.WORLD
+    out = {"rank": rank}
+    try:
+        arch, layers, batch = LM_DP
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        opt_cfg = OptConfig(warmup_steps=2)
+        batches = [_train_batch(cfg, batch, LM_DP_S, s) for s in range(LM_DP_STEPS)]
+        ref = None
+        if rank == 0:  # one device, the global batch: step 1's parameters
+            model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
+            state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg)
+            state, metrics = make_train_step(model, opt_cfg)(state, batches[0])
+            out["one_device_step1_loss"] = metrics["loss"].item()
+            ref = {n: p.detach() for n, p in model.named_parameters()}
+            del state, metrics, model
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier(group=group)
+        model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
+        mesh = Mesh((LM_DP_RANKS, 1), ("data", "model"))
+        state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg,
+                                 rules=make_rules(mesh, model_cfg=cfg), group=group)
+        sharding = model.fsdp
+        out["state_bytes"] = (sum(p.numel() * p.element_size() for p in model.parameters())
+                              + sum(t.numel() * t.element_size()
+                                    for part in state.opt.values() for t in part.values()))
+        out["split_leaves"] = sum(sharding.split(n) for n in sharding.layout)
+        out["whole_leaves"] = len(sharding.layout) - out["split_leaves"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        step_fn = make_train_step(model, opt_cfg, group=group)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out.update(losses=[], grad_norms=[], step_s=[], seconds=[], wire=[], calls=[])
+        fsdp.WIRE.sync = True
+        for s, b in enumerate(batches):
+            fsdp.WIRE.reset()
+            if rank == 0 and s == len(batches) - 1:  # under the profiler: the idle share
+                got = []
+                out["profile"] = profile_once(lambda: got.append(step_fn(state, b)), tries=1)
+                (state, metrics), = got
+                out["step_s"].append(out["profile"]["wall_ms"] / 1e3)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, b)
+                torch.cuda.synchronize()
+                out["step_s"].append(time.perf_counter() - t0)
+            out["losses"].append(metrics["loss"].item())
+            out["grad_norms"].append(metrics["grad_norm"].item())
+            out["seconds"].append(dict(fsdp.WIRE.seconds))
+            out["wire"].append(dict(fsdp.WIRE.bytes))
+            out["calls"].append(dict(fsdp.WIRE.calls))
+            out["largest_gather"] = fsdp.WIRE.largest_gather
+            if s == 0:  # step 1's parameters, gathered leaf by leaf (no kernel runs)
+                sums, rel = torch.zeros(2, dtype=torch.float64, device=dev), {}
+                for n, p in model.named_parameters():  # every rank takes part in the gathers
+                    whole = sharding.whole(p.detach(), sharding.layout[n])
+                    x = whole.double()
+                    sums += torch.stack([x.sum(), (x * x).sum()])
+                    if ref is not None:
+                        rel[n] = float((whole - ref[n]).abs().max() / ref[n].abs().max())
+                    del whole, x
+                out["step1_checksum"] = sums.tolist()
+                if ref is not None:
+                    worst = max(rel, key=rel.get)
+                    out["step1_param_worst_leaf"] = worst
+                    out["step1_param_worst_rel"] = rel[worst]
+                    ref = None
+        fsdp.WIRE.sync = False
+        out["launches"] = {k: c for k, c in read_launches().items() if c}
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        fsdp.WIRE.sync = False
+        dist.destroy_process_group()
+
+
+def lm_train_fsdp(one: dict, predicted: dict, device: str = "cuda:0") -> dict:
+    """lm_train_dp's model, batches and steps on LM_DP_RANKS gloo ranks on
+    cuda:0 with the training state sharded over "data" (`_fsdp_rank`): each
+    step's loss and gradient norm within LM_DP_STEP_RTOL of lm_train_dp's
+    one-rank run (`one`), every rank's alike; step 1's gathered parameters
+    within LM_FSDP_PARAM_REL of each leaf's max of rank 0's one-device step
+    1 and bit-alike across the ranks; each rank's
+    state bytes and each step's wire bytes equal the dry run's (2, 1)
+    prediction (`predicted`, from lm_dryrun) exactly; flash_attention twice
+    per layer a step on each rank.  Prints the state bytes and peak per
+    rank, the gather, reduce-scatter and all-reduce shares of a step and the
+    wire bytes, then `profile_lm_train_fsdp_step`: rank 0's last step, run
+    under the profiler (the device's idle share; its `step_s` is the
+    window's wall).  Returns rank 0's launches."""
+    ranks, spawn_s = _spawn_ranks(_fsdp_rank, device, LM_FSDP_TIMEOUT_S, "lm_train_fsdp")
+    r0 = ranks[0]
+    arch, layers, batch = LM_DP
+    per_step = {"flash_attention": 2 * layers}
+    want = {k: LM_DP_STEPS * c for k, c in per_step.items()}
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    loss_rel, norm_rel = rel(r0["losses"], one["losses"]), rel(r0["grad_norms"], one["grad_norms"])
+    shares = [{k: v / step_s for k, v in secs.items()}
+              for secs, step_s in zip(r0["seconds"], r0["step_s"])][1:]
+    check = {
+        "losses_within_tol": max(loss_rel) <= LM_DP_STEP_RTOL,
+        "grad_norms_within_tol": max(norm_rel) <= LM_DP_STEP_RTOL,
+        "step1_params_within_tol": r0["step1_param_worst_rel"] <= LM_FSDP_PARAM_REL,
+        "ranks_alike": all(r["losses"] == r0["losses"] and r["grad_norms"] == r0["grad_norms"]
+                           and r["step1_checksum"] == r0["step1_checksum"] for r in ranks),
+        "state_bytes_as_predicted": all(r["state_bytes"] == predicted["state_bytes"]
+                                        for r in ranks),
+        "wire_bytes_as_predicted": all(sum(w.values()) == predicted["wire_bytes"]
+                                       for r in ranks for w in r["wire"]),
+        "finite": all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+        "launches": all(r["launches"] == want for r in ranks),
+    }
+    emit("lm_train_fsdp", arch=arch, layers=layers, dtype="torch.float32", global_batch=batch,
+         seq=LM_DP_S, steps=LM_DP_STEPS, ranks=LM_DP_RANKS, backend="gloo on cuda:0",
+         mesh=[LM_DP_RANKS, 1], rules="make_rules(mesh, model_cfg=cfg): fsdp -> data",
+         split_leaves=r0["split_leaves"], whole_leaves=r0["whole_leaves"],
+         state_bytes_per_rank=[r["state_bytes"] for r in ranks],
+         predicted_state_bytes=predicted["state_bytes"],
+         replicated_state_bytes=predicted["replicated_state_bytes"],
+         peak_gib_per_rank=[r["peak_gib"] for r in ranks],
+         one_rank_losses=one["losses"], fsdp_losses=r0["losses"], loss_rel_err=loss_rel,
+         one_rank_grad_norms=one["grad_norms"], fsdp_grad_norms=r0["grad_norms"],
+         grad_norm_rel_err=norm_rel, step_tol_rel=LM_DP_STEP_RTOL,
+         one_device_step1_loss=r0["one_device_step1_loss"],
+         step1_param_worst_leaf=r0["step1_param_worst_leaf"],
+         step1_param_worst_rel=r0["step1_param_worst_rel"], param_tol_rel=LM_FSDP_PARAM_REL,
+         step_s=[r["step_s"] for r in ranks], collective_s=r0["seconds"],
+         collective_share_steps_2_on=shares, wire_bytes_per_step=r0["wire"],
+         predicted_wire_bytes=predicted["wire_bytes"], calls_per_step=r0["calls"],
+         largest_gather_bytes=r0["largest_gather"],
+         launches_per_rank=[r["launches"] for r in ranks], launches_per_step=per_step,
+         spawn_s=spawn_s, **check)
+    if not all(check.values()):
+        raise AssertionError(f"lm_train_fsdp: {check}")
+    emit("profile_lm_train_fsdp_step", rank=0, **r0["profile"])
+    return r0["launches"]
 
 
 def lm_launch_train_torchrun() -> None:
@@ -4987,9 +5218,10 @@ def main() -> int:
         new_paths[f"lm_train_{short}"], train_readings[short] = lm_train(arch, layers, batch,
                                                                          short)
     # 13a. The dry-run tools on the meta device for lm_train_qwen3's
-    #    configuration, held to that phase's measured peak; nothing on the card.
+    #    configuration, held to that phase's measured peak; nothing on the card;
+    #    the sharded prediction that lm_train_fsdp is held to.
     arch, layers, batch, short = LM_TRAIN[0]
-    lm_dryrun(arch, layers, batch, train_readings[short])
+    fsdp_predicted = lm_dryrun(arch, layers, batch, train_readings[short])
     lm_train_loss_study(*LM_TRAIN[0][:3])
     for arch, *_ in LM_TRAIN:
         lm_train_plain_check(arch)
@@ -4999,7 +5231,10 @@ def main() -> int:
     #    ranks sharing the card (with compressed_psum on them), launch.train
     #    under torchrun (NCCL, one rank), the bf16 score buffers (kernel and
     #    model), and llama4-maverick served at full width (one group).
-    new_paths["lm_train_dp"] = lm_train_dp()
+    new_paths["lm_train_dp"], dp_one = lm_train_dp()
+    # 14a. The same steps with the state sharded over "data" (fsdp), on two
+    #    gloo ranks: against the one-rank run and the dry run's prediction.
+    new_paths["lm_train_fsdp"] = lm_train_fsdp(dp_one, fsdp_predicted)
     lm_launch_train_torchrun()
     bf16_scores_row = lm_score_bf16_kernels(dev, gen)
     new_paths["lm_score_bf16"] = lm_score_bf16()

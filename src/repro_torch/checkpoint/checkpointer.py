@@ -17,6 +17,15 @@ dtype is "bfloat16", and read back through their bits (numpy has no bf16).
 
 A save copies every leaf to the host before it returns (the train step
 updates the tensors in place); the files are written on one worker thread.
+
+A sharded state (`repro_torch.parallel.fsdp`: each rank holds its slices)
+is stored logically, as the JAX checkpointer stores a sharded `TrainState`:
+every rank calls `save`, which gathers each sliced leaf whole, one leaf at
+a time, and rank 0 alone keeps the host copies and writes them, in the
+format above.  Every collective finishes before `save` returns, so none
+runs on the writer thread.  `restore` into a sharded state reads each leaf
+whole and places the rank's slice.  So a checkpoint restores on any layout:
+one card, or ranks of any data-axis size.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import param_leaves
+from repro_torch.parallel.fsdp import opt_leaf_shard
+from repro_torch.parallel.sharding import data_dim
 from repro_torch.training.train_step import TrainState
 
 _BF16_DESCR = "<V2"
@@ -50,6 +61,26 @@ def state_leaves(state) -> list[tuple[str, list[torch.Tensor]]]:
         out += [(f"opt/{part}/{key}", [state.opt[part][key]])
                 for key in _sorted_keys(state.opt[part])]
     out.append(("step", [state.step]))
+    return out
+
+
+def leaf_shards(state) -> list[tuple]:
+    """(Shard, lead) of each leaf of `state_leaves(state)` on a sharded
+    state (`state.params.fsdp`): a parameter's tensors are its groups', a
+    moment's one tensor stacked over the groups (lead 1); the step's Shard
+    is None.  None for a whole state."""
+    sharding = getattr(state.params, "fsdp", None)
+    if sharding is None:
+        return None
+    leaves = param_leaves(dict(state.params.named_parameters()))
+    out = []
+    for path, _ in state_leaves(state):
+        if path == "step":
+            out.append((None, 0))
+        elif path.startswith("params/"):
+            out.append((sharding.layout[leaves[path[len("params/"):]][0]], 0))
+        else:
+            out.append(opt_leaf_shard(sharding, leaves[path.split("/", 2)[2]]))
     return out
 
 
@@ -139,9 +170,24 @@ class Checkpointer:
     # -- write ---------------------------------------------------------------
 
     def save(self, step: int, state) -> None:
+        """Write `state` as checkpoint `step` (asynchronously unless the
+        checkpointer was made with async_writes=False).  On a sharded state
+        every rank calls it; rank 0 writes (module docstring)."""
         leaves = state_leaves(state)
         dtypes = [str(ts[0].dtype).removeprefix("torch.") for _, ts in leaves]
-        host = [_host(path, ts) for path, ts in leaves]
+        shards = leaf_shards(state)
+        if shards is None:
+            host = [_host(path, ts) for path, ts in leaves]
+        else:
+            sharding = state.params.fsdp
+            host = []
+            for (path, ts), (shard, lead) in zip(leaves, shards):
+                whole = [t if shard is None else sharding.whole(t, shard, lead) for t in ts]
+                if sharding.rank == 0:
+                    host.append(_host(path, whole))
+                del whole
+            if sharding.rank != 0:
+                return
         treedef = "TrainState leaves: " + ", ".join(path for path, _ in leaves)
         if self._pool is None:
             self._write(step, host, dtypes, treedef)
@@ -217,12 +263,17 @@ class Checkpointer:
         structure with a partition spec at each leaf (for example
         `repro_torch.launch.specs.train_state_pspecs(model, rules)`), checked
         leaf by leaf as JAX's `treedef.flatten_up_to` checks it
-        (`flatten_up_to`: a mismatch raises ValueError).  Unlike JAX, which
-        places each leaf sharded onto the mesh, the port then restores every
-        leaf whole: its data-parallel step replicates the training state on
-        every rank, so a restore onto a mesh is a whole restore on each."""
+        (`flatten_up_to`: a mismatch raises ValueError).  A sharded
+        `example_state` (`repro_torch.parallel.fsdp`) takes only the rank's
+        slice of each leaf; its layout must split each leaf where the spec
+        puts "data" on its mesh (else ValueError).  A whole state takes
+        every leaf whole, whatever the specs: the replicated data-parallel
+        step holds the whole state on every rank."""
+        shards = leaf_shards(example_state)
         if shardings is not None:
-            flatten_up_to(example_state, shardings)
+            specs = flatten_up_to(example_state, shardings)
+            if shards is not None:
+                _check_layout(example_state, specs, shards)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -236,10 +287,33 @@ class Checkpointer:
         for i, (path, tensors) in enumerate(leaves):
             x = _load_leaf(os.path.join(d, f"leaf_{i:04d}.npy"), manifest["dtypes"][i])
             stacked = path.startswith("params/blocks/")
-            want = (len(tensors), *tensors[0].shape) if stacked else tuple(tensors[0].shape)
+            shard, lead = (None, 0) if shards is None else shards[i]
+            want = _whole_shape(tensors, stacked, shard, lead)
             if tuple(x.shape) != want:
                 raise ValueError(f"{d} leaf {i} ({path}): shape {tuple(x.shape)}, the state's "
                                  f"is {want}")
             for j, t in enumerate(tensors):
-                t.copy_(x[j] if stacked else x)
+                src = x[j] if stacked else x
+                t.copy_(src if shard is None else shard.cut(src, lead))
         return example_state
+
+
+def _whole_shape(tensors: list, stacked: bool, shard, lead: int) -> tuple:
+    """The whole leaf's shape (a stacked parameter's groups in front)."""
+    one = tuple(tensors[0].shape) if shard is None else (*tensors[0].shape[:lead], *shard.shape)
+    return (len(tensors), *one) if stacked else one
+
+
+def _check_layout(state, specs: list, shards: list) -> None:
+    """Each sliced leaf of the sharded `state` is split where its spec puts
+    "data" on the state's mesh (the dimension of the whole leaf, a stacked
+    parameter's groups in front), and each whole leaf nowhere."""
+    mesh = state.params.fsdp.mesh
+    for (path, ts), spec, (shard, lead) in zip(state_leaves(state), specs, shards):
+        stacked = path.startswith("params/blocks/")
+        shape = _whole_shape(ts, stacked, shard, lead)
+        have = None if shard is None or shard.dim is None else shard.dim + lead + int(stacked)
+        want = data_dim(spec, shape, mesh) if len(spec) == len(shape) else None
+        if have != want:
+            raise ValueError(f"{path}: the state splits dimension {have} over \"data\", the "
+                             f"shardings {spec} on {mesh} dimension {want}")

@@ -16,12 +16,19 @@ so every count is that of the kernels' plain versions.
 
 One rank's program is what the port's data-parallel step runs on the mesh:
 rank 0's `rank_rows` of each micro-batch (`repro_torch.parallel.sharding`),
-through `accumulate_grads` and the optimizer's update
-(`make_train_step(place=(mesh, 0))`), for a train cell; `Transformer.prefill`
-of its rows for prefill; `decode_step` of its rows at position S - 1 (JAX's
-`serve_step`) for decode.  On the production mesh a rank takes B / 16 rows
-(B / 32 with the pod axis), and every rank along "model" repeats them
-(`rank.repetition` in the record).  The record's keys follow the JAX
+through `accumulate_grads` and the optimizer's update, for a train cell;
+`Transformer.prefill` of its rows for prefill; `decode_step` of its rows at
+position S - 1 (JAX's `serve_step`) for decode.  On the production mesh a
+rank takes B / 16 rows (B / 32 with the pod axis), and every rank along
+"model" repeats them (`rank.repetition` in the record).  A train cell's
+state is sharded by the cell's rules, `make_rules(mesh, model_cfg=cfg)`,
+as the JAX dry run's `in_shardings` shard it: rank 0 holds its slices of
+the parameters and AdamW moments along "data" (`repro_torch.parallel.
+fsdp.shard_train_state`), gathers each group's whole weights where it runs
+and reduce-scatters their gradients; "model" entries are not read, so the
+ranks along "model" hold the same slices.  Prefill and decode cells run on
+the whole parameters (serving on a sharded state is a later slice;
+`memory.state_layout` says which).  The record's keys follow the JAX
 record's; where a value has no counterpart it is None and `no_counterpart`
 names it:
 
@@ -35,20 +42,27 @@ names it:
   outputs (`ByteCounter`); views and metadata-only ops (an allocation
   without a fill) count 0.  Eager PyTorch reads each op's inputs from
   device memory and writes its outputs back, so this is the port's
-  traffic.  The all-reduce's bucket copies are not in it.
-- `hlo.collective_wire_bytes`: the port's train step does one f32 ring
-  all-reduce of the loss and every gradient over all R = mesh-size ranks
-  (`training/train_step.py::buckets`, `_all_reduce_sum`), 2(R - 1)/R x 4
-  bytes an element a rank; a decode or prefill cell has 0.
+  traffic, the collectives' local copies (packing, moving a sliced
+  dimension to the front, buckets) included.
+- `hlo.collective_wire_bytes`: the sum over the train step's collective
+  calls of the bytes a rank puts on the wire (`fsdp.WIRE`, counted by the
+  calls' meta path in the ring model): the all-gathers in the forward and
+  in the remat recompute, the gradients' reduce-scatters, the all-reduces
+  of the whole leaves' f32 gradients with the loss, of the norm's squares
+  and of the compression's maxima; `collective_by_kind` splits it and
+  `n_collective_sites` counts the calls.  A decode or prefill cell has 0.
 - `memory.argument_bytes`: the per-rank bytes of the program's arguments
   (state and batch; parameters, caches and tokens for decode) under the
   JAX rules on the mesh (`sanitize_pspec` against each leaf's shape), to
   compare with JAX's.  The port's tokens and labels are int64, JAX's
   int32: the difference is 4 bytes a token or label a device.
-  `memory.port_rank_bytes`: what one rank of the port's replicated data
-  parallelism holds (parameters, optimizer state and gradients for train,
-  caches for decode and prefill, and its batch), and `fits_one_card`
-  whether that is within one H100's 80 GB.
+  `memory.port_rank_bytes`: what one rank of the port holds, the sum of
+  `port_rank_parts`: for train its slices of the parameters ("params") and
+  of the moments ("opt") with the leaves that stay whole, its gradients'
+  slices and whole gradients ("grads": f32 where the step sums them), the
+  largest set of leaves one gather makes whole ("gathered") and the global
+  batch every rank is handed; caches and its rows' batch for decode and
+  prefill.  `fits_one_card` says whether that is within one H100's 80 GB.
 - `roofline`: `analysis/roofline.py::roofline` at `H100_SXM` with the
   rank's FLOPs, bytes and wire bytes and the analytic `model_flops`.
 
@@ -78,15 +92,20 @@ from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import make_production_mesh, mesh_label
 from repro_torch.models.layers.moe import check_dispatch_split
 from repro_torch.models.transformer import Transformer, param_leaves
+from repro_torch.parallel import fsdp
 from repro_torch.parallel.sharding import Mesh, make_rules, rank_rows, sanitize_pspec, tree_pspecs
 from repro_torch.training.optimizer import _stacked_shape
-from repro_torch.training.train_step import BUCKET_BYTES, buckets, make_train_step
+from repro_torch.training.train_step import make_train_step
 
 META = SP.META
 NO_COUNTERPART = ["memory.output_bytes", "memory.temp_bytes", "memory.generated_code_bytes",
                   "cost_analysis", "compile_s"]
 COUNTS_OF = ("the port's program on the meta device with backend='ref': the kernels' plain "
              "versions (the kernel wrappers take no meta tensor)")
+
+WHOLE = "whole on every rank"
+SERVING_LAYOUT = ("whole on every rank: serving on a sharded state is ROADMAP §1's slice 25, "
+                  "so prefill and decode keep the whole parameters")
 
 _aten = torch.ops.aten
 _METADATA_ONLY = {_aten._unsafe_view, _aten._reshape_alias, _aten.empty, _aten.empty_like,
@@ -210,23 +229,32 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(_nbytes(p) for p in model.parameters())
     parts = {"params": param_bytes}
-    wire, sites = 0.0, 0
+    wire, by_kind, sites = 0.0, {}, 0
+    layout = WHOLE
     if kind == "train":
         opt_cfg = SP.opt_config_for(cfg)
         state = SP.abstract_train_state(model, opt_cfg)
         args = _state_bytes(state, SP.train_state_pspecs(model, rules), mesh) + batch_bytes
-        place = (mesh, 0) if n_dev > 1 else None
+        sharding = fsdp.shard_train_state(state, rules, place=(mesh, 0)).params.fsdp
+        place = (mesh, 0) if n_dev > 1 and sharding is None else None
         step = make_train_step(model, opt_cfg, accum=accum, remat=remat, place=place)
+        fsdp.WIRE.reset()
         _, flops, nbytes, secs = count(lambda: step(state, batch))
         f32_grads = accum > 1 or n_dev > 1  # the step's f32 sums, else the params' dtypes
+        parts["params"] = sum(_nbytes(p) for p in model.parameters())  # the rank's
         parts["opt"] = sum(_nbytes(t) for part in state.opt.values() for t in part.values())
         parts["grads"] = sum(p.numel() * (4 if f32_grads else p.element_size())
                              for p in model.parameters())
+        parts["gathered"] = fsdp.WIRE.largest_gather
         parts["batch"] = sum(_nbytes(t) for t in batch.values())  # every rank holds it all
-        if n_dev > 1:
-            numels = [1] + [p.numel() for p in model.parameters()]  # the loss, then the grads
-            sites = len(buckets(numels, BUCKET_BYTES))
-            wire = 2 * (n_dev - 1) / n_dev * 4 * sum(numels)
+        wire, by_kind = fsdp.WIRE.total, dict(fsdp.WIRE.bytes)
+        sites = sum(fsdp.WIRE.calls.values())
+        if sharding is not None:
+            split = [n for n in sharding.layout if sharding.split(n)]
+            layout = {"fsdp": "data", "data_parts": sharding.parts,
+                      "split_leaves": len(split), "whole_leaves": len(sharding.layout) - len(split),
+                      "whole_param_bytes": sum(_nbytes(p) for n, p in model.named_parameters()
+                                               if not sharding.split(n))}
     else:
         model.eval()
         params_ps = tree_pspecs(model.param_specs(), rules)
@@ -269,6 +297,7 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
             "port_rank_bytes": rank_bytes,
             "port_rank_parts": parts,
             "fits_one_card": rank_bytes <= H100_SXM.hbm_per_chip,
+            "state_layout": layout if kind == "train" else SERVING_LAYOUT,
         },
         "cost_analysis": None,
         "hlo": {
@@ -276,7 +305,7 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
             "dot_flops_jax_view": flops * shards / n_dev,
             "bytes_accessed": nbytes,
             "collective_wire_bytes": wire,
-            "collective_by_kind": {"all-reduce": wire},
+            "collective_by_kind": by_kind,
             "n_collective_sites": sites,
         },
         "roofline": rl.row(),

@@ -8,10 +8,11 @@ dryrun`) without allocating.  Every function here that makes tensors makes
 them on the meta device and takes a model on it, no other.
 
 The partition specs are the JAX package's rules on the port's abstract
-`Mesh` (`repro_torch.parallel.sharding`); the port's data-parallel step
-replicates the state and reads only the batch's rule, so the specs serve
-the dry run's JAX-mesh view of the bytes and `Checkpointer.restore`'s
-structure check.  `model_flops` is the analytic 6*N_active*D (+ attention)
+`Mesh` (`repro_torch.parallel.sharding`).  The port's data-parallel step
+reads the batch's rule and the parameters' "data" entries (its sharded
+state, `repro_torch.parallel.fsdp`); the specs also serve the dry run's
+JAX-mesh view of the bytes and `Checkpointer.restore`'s check of a
+restore onto a mesh.  `model_flops` is the analytic 6*N_active*D (+ attention)
 count the roofline compares against, the JAX formula value for value.
 """
 

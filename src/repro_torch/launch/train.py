@@ -15,12 +15,16 @@ Across cards, data-parallel as the JAX launcher's (n_dev, 1) ("data",
 
 Under torchrun (WORLD_SIZE in the environment, with RANK, LOCAL_RANK and
 the rendezvous address), each rank joins an "nccl" group on card
-LOCAL_RANK ("gloo" with --device cpu), draws the same parameters from the
-same seed and trains on its share of each global batch
-(`repro_torch.training.make_train_step(group=...)`); rank 0 writes the
-checkpoints and prints the `done:` line.  One card allows NCCL only at
-world size 1 (`--nproc-per-node=1`: a group of one, the same arithmetic as
-one card).  Without torchrun it trains on one card as before.
+LOCAL_RANK ("gloo" with --device cpu) and trains on its share of each
+global batch (`repro_torch.training.make_train_step(group=...)`).  The
+state is sharded as the JAX launcher's rules say, `make_rules(mesh,
+model_cfg=cfg)` on the (R, 1) mesh, whose fsdp -> "data" gives each rank
+its slices of the parameters and AdamW moments (`repro_torch.parallel.
+fsdp`): each rank draws the one-card parameters from the seed and keeps
+its slices.  Every rank takes part in a checkpoint's save; rank 0 writes
+it and prints the `done:` line.  One card allows NCCL only at world size 1
+(`--nproc-per-node=1`: a group of one, whose rules split no leaf: the
+one-card step).  Without torchrun it trains on one card as before.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import build_model
+from repro_torch.parallel.sharding import Mesh, make_rules
 from repro_torch.runtime.loop import RunConfig, run_training
 from repro_torch.training.optimizer import OptConfig
 
@@ -70,8 +75,9 @@ def main(argv=None) -> dict:
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
         dist.init_process_group("gloo" if cpu else "nccl")
         group = dist.group.WORLD
-        logging.info("data-parallel: rank %d of %d (%s)", dist.get_rank(), world,
-                     dist.get_backend())
+        logging.info("data-parallel: rank %d of %d (%s), the state laid out by the rules of the "
+                     "(%d, 1) (\"data\", \"model\") mesh", dist.get_rank(), world,
+                     dist.get_backend(), world)
     dev = resolve_device(args.device)  # a rank's card is the current one
     try:
         out = _train(args, cfg, dev, group)
@@ -87,10 +93,13 @@ def _train(args, cfg, dev, group) -> dict:
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1))
     run_cfg = RunConfig(total_steps=args.steps, ckpt_every=args.ckpt_every)
     ckpt = Checkpointer(args.ckpt_dir)
+    rules = None
+    if group is not None:
+        rules = make_rules(Mesh((dist.get_world_size(group), 1), ("data", "model")), model_cfg=cfg)
     out = run_training(model, data_cfg, opt_cfg, run_cfg, ckpt,
                        train_step_kw={"accum": args.accum,
                                       "compress_bits": args.compress_bits or None},
-                       group=group)
+                       group=group, rules=rules)
     if group is not None and dist.get_rank(group) != 0:
         return out
     final = out["metrics"][-1] if out["metrics"] else {}

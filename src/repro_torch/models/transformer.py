@@ -18,9 +18,23 @@ group g's leaf is the parameter `groups.{g}.{pos}.{sub}.{name}`.
 `param_leaves` maps the port's names onto the JAX tree's leaves, in
 `jax.tree.flatten`'s order (sorted keys), for the optimizer state, the
 checkpoint format and `repro_torch.interop`.
+
+A model whose state is sharded over the "data" axis (`model.fsdp`, set by
+`repro_torch.parallel.fsdp.shard_model`) holds its rank's slices.  Its
+forward gathers each group's whole weights inside the group's function,
+which `torch.utils.checkpoint` recomputes in the backward (the recompute
+gathers again, as the JAX group body's all-gathers sit inside its
+rematerialized scan body), and the embedding and the head where they are
+used; a tied head uses the one gathered embedding.  The backward
+reduce-scatters their gradients onto the slices.  `init_params` draws the
+one-card values a module at a time and keeps the slices.  Serving takes a
+whole model: `prefill` and `decode_step` raise on a sharded one.
 """
 
 from __future__ import annotations
+
+import contextlib
+from types import SimpleNamespace
 
 import torch
 import torch.utils.checkpoint
@@ -120,6 +134,7 @@ class Transformer(nn.Module):
             self.head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab, **kw))
         self.groups = nn.ModuleList(Group(cfg, **kw) for _ in range(cfg.n_groups))
         self.final_norm = RMSNorm(cfg.d_model, **kw)
+        self.fsdp = None  # the rank's `Sharding` of a sharded state (module docstring)
 
     @property
     def device(self) -> torch.device:
@@ -131,11 +146,46 @@ class Transformer(nn.Module):
 
     def init_params(self, gen: torch.Generator) -> None:
         """Random parameters with the JAX package's distributions, drawn from
-        `gen` (a generator on the model's device).  The draws are not JAX's."""
-        init_embeddings(self, self.cfg, gen)
-        for group in self.groups:
-            group.reset_parameters(self.cfg, gen)
-        self.final_norm.reset_parameters()
+        `gen` (a generator on the model's device).  The draws are not JAX's.
+        A sharded model draws the same values and keeps its slices."""
+        top = {n: getattr(self, n) for n in ("embed", "head") if hasattr(self, n)}
+        with self._whole(top):
+            init_embeddings(self, self.cfg, gen)
+        for g, group in enumerate(self.groups):
+            with self._whole(dict(group.named_parameters()), f"groups.{g}."):
+                group.reset_parameters(self.cfg, gen)
+        with self._whole(dict(self.final_norm.named_parameters()), "final_norm."):
+            self.final_norm.reset_parameters()
+
+    def _whole(self, named: dict, prefix: str = ""):
+        if self.fsdp is None:
+            return contextlib.nullcontext()
+        return self.fsdp.drawn_whole(named, prefix)
+
+    def _gathered(self, *names) -> SimpleNamespace:
+        """The named top-level parameters, whole (gathered where sharded)."""
+        named = {n: getattr(self, n) for n in names}
+        if self.fsdp is not None:
+            named.update(self.fsdp.gather(named))
+        return SimpleNamespace(**named)
+
+    def _group_fn(self, g: int):
+        """Group g's forward; on a sharded model, one that gathers the
+        group's whole weights and runs the group on them."""
+        group = self.groups[g]
+        if self.fsdp is None:
+            return group
+
+        def run(*args, **kw):
+            whole = self.fsdp.gather(dict(group.named_parameters()), f"groups.{g}.")
+            return torch.func.functional_call(group, whole, args, kw)
+
+        return run
+
+    def _whole_only(self, what: str) -> None:
+        if self.fsdp is not None:
+            raise ValueError(f"{what} takes a whole model; serving on a sharded state is "
+                             f"ROADMAP §1's slice 25")
 
     def param_specs(self) -> dict:
         """`param_specs(self.cfg)`, as the JAX `Model.param_specs()`."""
@@ -163,18 +213,23 @@ class Transformer(nn.Module):
         `blocked_attention`'s KV chunk (the "ref" forward and the attention
         gradient).  `dispatch_ranks`: the data-parallel ranks that share the
         batch's rows, for the MoE layers' dispatch groups (`moe_forward`)."""
-        x = embed_inputs(self, self.cfg, batch)
+        cfg = self.cfg
+        tied = cfg.tie_embeddings
+        w_in = self if cfg.input_mode == "frames" and not tied else self._gathered("embed")
+        x = embed_inputs(w_in, cfg, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = remat and torch.is_grad_enabled()
-        for group in self.groups:
+        for g in range(len(self.groups)):
+            run = self._group_fn(g)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    group, self.cfg, x, positions, backend=self.backend, chunk=chunk,
+                    run, cfg, x, positions, backend=self.backend, chunk=chunk,
                     dispatch_ranks=dispatch_ranks, use_reentrant=False)
             else:
-                x = group(self.cfg, x, positions, backend=self.backend, chunk=chunk,
-                          dispatch_ranks=dispatch_ranks)
-        return self._final(x)
+                x = run(cfg, x, positions, backend=self.backend, chunk=chunk,
+                        dispatch_ranks=dispatch_ranks)
+        w_out = w_in if tied else self._gathered("head")
+        return logits_out(w_out, cfg, rms_norm(x, self.final_norm.scale, cfg.norm_eps))
 
     def loss_fn(self, batch: dict, *, denominator=None, **kw) -> torch.Tensor:
         """Mean next-token (or frame-label) cross entropy, as the JAX `loss_fn`:
@@ -199,6 +254,7 @@ class Transformer(nn.Module):
 
         The attention caches hold positions [0, S); mamba states carry the
         last recurrent state."""
+        self._whole_only("prefill")
         x = embed_inputs(self, self.cfg, batch)
         B, S, _ = x.shape
         if S > max_len:
@@ -212,8 +268,10 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def decode_step(self, caches: dict, tokens: torch.Tensor, position: int):
         """tokens [B] at `position` -> (logits [B, V], caches updated in place)."""
+        self._whole_only("decode_step")
         position = int(position)
         x = self.embed[tokens[:, None]]
         for g, group in enumerate(self.groups):
             x = group.decode(self.cfg, x, caches, g, position)
         return self._final(x)[:, 0, :], caches
+

@@ -1,11 +1,14 @@
-"""Distribution: mesh axes, logical-axis sharding rules, the compressed
-all-reduce."""
+"""Distribution: mesh axes, logical-axis sharding rules, the sharded
+training state (`fsdp`), the compressed all-reduce."""
 
 from repro_torch.parallel.sharding import (
     Mesh,
     PartitionSpec,
+    Shard,
     ShardingRules,
     batch_pspecs,
+    data_dim,
+    leaf_shard,
     make_rules,
     rank_rows,
     sanitize_pspec,
@@ -16,8 +19,11 @@ from repro_torch.parallel.sharding import (
 __all__ = [
     "Mesh",
     "PartitionSpec",
+    "Shard",
     "ShardingRules",
     "batch_pspecs",
+    "data_dim",
+    "leaf_shard",
     "make_rules",
     "rank_rows",
     "sanitize_pspec",

@@ -15,12 +15,22 @@ is `Mesh`, a frozen dataclass of the two, in the part of JAX's
 are None, an axis name or a tuple of names, in the part of
 `jax.sharding.PartitionSpec`.
 
-The port has no GSPMD: its data-parallel trainer
-(`repro_torch.training.make_train_step(group=...)`) replicates parameters
-and optimizer state on every rank and reads only the batch's rule, through
-`rank_rows`.  `activation_sharding_ctx` and `shard_activation`, the JAX
-package's activation constraints, are the identity here, and no model code
-calls them.
+The port has no GSPMD.  Its trainer reads two of the rules:
+- the batch's, through `rank_rows`: the rows of each micro-batch a rank
+  takes;
+- the parameters', through `leaf_shard`: fsdp -> "data" shards the training
+  state over the data axis (`repro_torch.parallel.fsdp`, ZeRO-3 style).  A
+  rank holds, of each parameter and of both AdamW moments, the slice of the
+  leaf along the dimension whose sanitized spec names "data", and gathers
+  the whole leaf where it is used.  A leaf whose "data" entry was dropped
+  (a dimension the axis does not divide, the norm scales, every leaf under
+  `make_rules(fsdp=False)`) stays whole on every rank, as GSPMD replicates
+  it.  "model" entries are not read: the ranks along "model" repeat their
+  data slice.  `make_rules(fsdp=False)` thus gives the replicated data
+  parallelism of `repro_torch.training.make_train_step(group=...)`.
+`activation_sharding_ctx` and `shard_activation`, the JAX package's
+activation constraints, are the identity here, and no model code calls
+them.
 """
 
 from __future__ import annotations
@@ -204,6 +214,59 @@ def rank_rows(batch_size: int, mesh: Mesh, rules: ShardingRules, rank: int) -> r
 
 
 _TOKENS = SimpleNamespace(input_mode="tokens")  # every input mode's batch rule is dp first
+
+
+@dataclass(frozen=True)
+class Shard:
+    """A rank's part of one port parameter: the whole (per-group) leaf has
+    `shape`; the rank holds slice `index` of `parts` equal slices along
+    `dim`, or the whole leaf where `dim` is None (then parts is 1)."""
+    shape: tuple
+    dim: int | None = None
+    parts: int = 1
+    index: int = 0
+
+    def cut(self, whole, lead: int = 0):
+        """The rank's slice (a view) of `whole`, the leaf with `lead` more
+        leading dimensions (1 for a moment stacked over the groups)."""
+        if self.dim is None:
+            return whole
+        n = self.shape[self.dim] // self.parts
+        return whole.narrow(self.dim + lead, self.index * n, n)
+
+
+def data_dim(spec, shape: tuple, mesh: Mesh) -> int | None:
+    """The dimension of a leaf of `shape` that the "data" axis splits under
+    `spec` sanitized against `shape` and `mesh`; None where no dimension
+    keeps "data" or the axis has one rank."""
+    if mesh.shape.get("data", 1) == 1:
+        return None
+    for i, entry in enumerate(sanitize_pspec(spec, shape, mesh)):
+        if entry == "data" or (isinstance(entry, tuple) and "data" in entry):
+            return i
+    return None
+
+
+def leaf_shard(name: str, shape: tuple, specs: dict, mesh: Mesh, rules: ShardingRules,
+               rank: int) -> Shard:
+    """The part of port parameter `name` (whole shape `shape`) that `rank`
+    holds on `mesh` under `rules`.  `specs` is the model's logical-axis
+    template tree (`Transformer.param_specs()`, the JAX tree's paths): a
+    per-group parameter "groups.{g}.{path}" takes the template of leaf
+    "blocks/{path}" without the stacked leading None.  The ranks lie on the
+    mesh row-major, as `rank_rows` lays them."""
+    stacked = name.startswith("groups.")
+    path = ["blocks", *name.split(".")[2:]] if stacked else name.split(".")
+    template = specs
+    for k in path:
+        template = template[k]
+    if stacked:
+        template = template[1:]
+    dim = data_dim(template_to_pspec(template, rules), tuple(shape), mesh)
+    if dim is None:
+        return Shard(tuple(shape))
+    coords = dict(zip(mesh.axis_names, _unravel(rank, mesh.axis_sizes)))
+    return Shard(tuple(shape), dim, mesh.shape["data"], coords["data"])
 
 
 def _unravel(index: int, sizes: tuple) -> tuple:

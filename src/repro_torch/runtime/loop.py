@@ -26,6 +26,13 @@ and all ranks roll back together.  A real failure of one rank leaves the
 others waiting in a collective: the job ends there (the group's timeout),
 and a restart (torchrun's) resumes every rank from the latest checkpoint.
 The checkpoint directory must be one that every rank reads.
+
+With `rules` as well (the JAX rules on the group's (R, 1) ("data",
+"model") mesh: the launcher's), the state is sharded by them
+(`init_train_state(rules=...)`, `repro_torch.parallel.fsdp`): every rank
+then calls the save, which gathers each sliced leaf whole, and rank 0
+writes it; a restore places each rank's slices.  Under
+`make_rules(fsdp=False)` the state stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -104,17 +111,19 @@ def run_training(
     fail_injector: Callable[[int], None] | None = None,
     train_step_kw: dict | None = None,
     group=None,
+    rules=None,
 ) -> dict:
     """Run (or resume) training of `model` to total_steps; survives injected
     failures.  A fresh state draws the parameters from a generator on the
     model's device seeded with `seed`.  Runs under deterministic algorithms
     unless run_cfg.deterministic is off.  With `group`, data-parallel over
-    its ranks (module docstring)."""
+    its ranks, the state sharded by `rules` where they split it (module
+    docstring)."""
     train_step = make_train_step(model, opt_cfg, group=group, **(train_step_kw or {}))
     writer = group is None or dist.get_rank(group) == 0
 
     def save(step: int, state) -> None:
-        if writer:
+        if writer or state.params.fsdp is not None:  # a sharded save gathers on every rank
             ckpt.save(step, state)
         if group is not None:
             if writer:
@@ -125,7 +134,8 @@ def run_training(
 
     def fresh_state():
         return init_train_state(model, torch.Generator(device=model.device).manual_seed(seed),
-                                opt_cfg)
+                                opt_cfg, rules=rules if group is not None else None,
+                                group=group)
 
     with _deterministic(run_cfg.deterministic):
         state = fresh_state()

@@ -3,12 +3,14 @@ optimizer's memory) and Adafactor (factored second moment), as the JAX
 package's `repro/training/optimizer.py` computes them.
 
 Parameters and gradients are dicts keyed by the model's parameter names
-(`dict(model.named_parameters())`).  The optimizer state is keyed by the JAX
-parameter tree's leaves (`repro_torch.models.transformer.param_leaves`):
-each state tensor has the JAX leaf's shape, stacked over the groups, so that
-Adafactor factors a stacked leaf as the JAX package does (a per-group [d]
-norm scale is a [G, d] matrix there, with a [G] row and a [d] column
-statistic) and a checkpoint's leaves are the JAX `TrainState`'s.
+(`dict(model.named_parameters())`): on a sharded state the rank's slices,
+which AdamW updates element by element as it would the whole leaves.  The
+optimizer state is keyed by the JAX parameter tree's leaves
+(`repro_torch.models.transformer.param_leaves`): each state tensor has the
+JAX leaf's shape (on a sharded state, its slice), stacked over the groups,
+so that Adafactor factors a stacked leaf as the JAX package does (a
+per-group [d] norm scale is a [G, d] matrix there, with a [G] row and a [d]
+column statistic) and a checkpoint's leaves are the JAX `TrainState`'s.
 
 The updates run in the JAX package's order of operations, in f32, and write
 the results back into the parameters and the state in place, cast to their
@@ -46,19 +48,35 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def _global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in f32, summed leaf by
-    leaf in the JAX tree's order."""
+def _sum_squares(grads: dict, names_of: dict):
+    """The f32 sum of squares of the gradients, leaf by leaf in the JAX
+    tree's order (None for no leaf)."""
     total = None
-    for names in param_leaves(grads).values():
+    for names in names_of.values():
         s = sum(torch.sum(torch.square(grads[n].float())) for n in names)
         total = s if total is None else total + s
-    return torch.sqrt(total)
+    return total
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
-    """(grads scaled by min(1, max_norm / norm), each in its dtype; norm)."""
-    norm = _global_norm(grads)
+def _global_norm(grads: dict, sharding=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in f32, summed leaf by
+    leaf in the JAX tree's order.  With a `sharding`
+    (`repro_torch.parallel.fsdp.Sharding`) the sliced leaves' squares are
+    summed over the data axis and the whole leaves counted once."""
+    leaves = param_leaves(grads)
+    if sharding is None:
+        return torch.sqrt(_sum_squares(grads, leaves))
+    split = {k: ns for k, ns in leaves.items() if sharding.split(ns[0])}
+    whole = _sum_squares(grads, {k: ns for k, ns in leaves.items() if k not in split})
+    total = sharding.psum(_sum_squares(grads, split))
+    return torch.sqrt(total if whole is None else total + whole)
+
+
+def clip_by_global_norm(grads: dict, max_norm: float,
+                        sharding=None) -> tuple[dict, torch.Tensor]:
+    """(grads scaled by min(1, max_norm / norm), each in its dtype; norm).
+    `sharding`: the gradients are a sharded state's slices (`_global_norm`)."""
+    norm = _global_norm(grads, sharding)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, norm
 

@@ -30,9 +30,22 @@ config whose groups the ranks cannot split raises ValueError when the step
 is built (or, for a batch too small to make whole groups, at its first
 step: `check_dispatch_split`, once a call of `accumulate_grads`).
 
-Unlike the JAX mesh, whose rule fsdp -> "data" shards the weights over the
-data axis (ZeRO-3 style; the arithmetic is the same), parameters and
-optimizer state are replicated: each card holds the one-card state.
+The state stays whole on every rank unless it is sharded:
+`init_train_state(rules=..., group=...)` under the JAX rule fsdp -> "data"
+(`make_rules(mesh)`'s default) gives each rank its slices of every
+parameter and of both AdamW moments (`repro_torch.parallel.fsdp`).  The
+step on a sharded state is the same function of the same rows:
+- the forward gathers each group's whole weights where the group runs, and
+  the backward reduce-scatters their gradients onto the rank's slices, in
+  the parameters' dtype, once a micro-batch;
+- the leaves that stay whole, and the loss, are summed in f32 buckets as
+  above;
+- the global norm sums the slices' squares over the data axis (one scalar
+  all-reduce) and counts each whole leaf once; compression takes each
+  leaf's max |g| as a MAX over the slices (one all-reduce of every leaf's
+  max), so a stacked leaf's groups still share one scale;
+- AdamW runs per element on the slices, its arithmetic unchanged.
+`make_rules(fsdp=False)` splits no leaf and leaves the state whole.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import torch.distributed as dist
 
 from repro_torch.models.layers.moe import check_dispatch_split
 from repro_torch.models.transformer import param_leaves
+from repro_torch.parallel import fsdp
 from repro_torch.parallel.sharding import Mesh, make_rules, rank_rows
 from repro_torch.training.optimizer import (
     OptConfig,
@@ -61,35 +75,48 @@ class TrainState:
     step: torch.Tensor  # 0-d int32 on the model's device
 
 
-def init_train_state(model, gen: torch.Generator, opt_cfg: OptConfig) -> TrainState:
+def init_train_state(model, gen: torch.Generator, opt_cfg: OptConfig, *, rules=None,
+                     group=None, place=None) -> TrainState:
     """Draw the model's parameters from `gen` (a generator on the model's
     device), switch it to training (train mode, every parameter requiring
-    grad) and zero the optimizer state and the step."""
+    grad) and zero the optimizer state and the step.
+
+    With `rules` and a `group` (or `place` = (mesh, rank) on the meta
+    device) the state is sharded by the rules (`fsdp.shard_model`): the rank
+    draws the one-card values, a module whole at a time, and keeps its
+    slices; the moments are zeroed on the slices.  Adafactor on a state that
+    the rules split raises ValueError (`fsdp.check_optimizer`)."""
+    if rules is not None:
+        if fsdp.shard_model(model, rules, group=group, place=place) is not None:
+            fsdp.check_optimizer(opt_cfg.kind)
     model.init_params(gen)
     model.train().requires_grad_(True)
     return TrainState(params=model, opt=init_opt_state(dict(model.named_parameters()), opt_cfg),
                       step=torch.zeros((), dtype=torch.int32, device=model.device))
 
 
-def _quantize_dequantize(g: torch.Tensor, bits: int) -> torch.Tensor:
+def _quantize_dequantize(g: torch.Tensor, bits: int, amax=None) -> torch.Tensor:
     """Symmetric per-tensor fake quantization to `bits` (the gradient
-    compression model): round(g / s) s with s = max|g| / (2^(bits-1) - 1)."""
+    compression model): round(g / s) s with s = max|g| / (2^(bits-1) - 1);
+    `amax` replaces max|g| (a max over more than `g`)."""
     g32 = g.float()
-    scale = torch.clamp(torch.max(torch.abs(g32)), min=1e-12) / (2 ** (bits - 1) - 1)
+    if amax is None:
+        amax = torch.max(torch.abs(g32))
+    scale = torch.clamp(amax, min=1e-12) / (2 ** (bits - 1) - 1)
     return (torch.round(g32 / scale) * scale).to(g.dtype)
 
 
-def _compress(grads: dict, bits: int) -> dict:
+def _compress(grads: dict, bits: int, sharding=None) -> dict:
     """`_quantize_dequantize` of each leaf of the JAX tree: a stacked leaf's
-    groups share one scale, as the JAX package quantizes the stacked leaf."""
-    out = {}
-    for key, names in param_leaves(grads).items():
-        if key.startswith("blocks/"):
-            out.update(zip(names, _quantize_dequantize(
-                torch.stack([grads[n] for n in names]), bits).unbind(0)))
-        else:
-            out[names[0]] = _quantize_dequantize(grads[names[0]], bits)
-    return out
+    groups share one scale, as the JAX package quantizes the stacked leaf.
+    With a `sharding` each leaf's max |g| is the MAX over its slices."""
+    leaves = param_leaves(grads)
+    amax = torch.stack([torch.stack([torch.max(torch.abs(grads[n].float())) for n in names]).max()
+                        for names in leaves.values()])
+    if sharding is not None:
+        amax = sharding.pmax(amax)
+    return {n: _quantize_dequantize(grads[n], bits, amax[i])
+            for i, names in enumerate(leaves.values()) for n in names}
 
 
 BUCKET_BYTES = 1 << 30  # the data-parallel gradient all-reduce's bucket
@@ -109,15 +136,27 @@ def buckets(numels: list[int], bucket_bytes: int) -> list[list[int]]:
     return out
 
 
-def _all_reduce_sum(tensors: list[torch.Tensor], group) -> None:
-    """Sum f32 `tensors` over `group` in place, one all-reduce a bucket."""
+def _all_reduce_sum(tensors: list[torch.Tensor], group, ranks: int | None = None) -> None:
+    """Sum f32 `tensors` over `group` in place, one all-reduce a bucket.
+    Without a group, `ranks` ranks on the meta device (counted, not run:
+    `fsdp.WIRE`)."""
+    ranks = dist.get_world_size(group) if group is not None else ranks
     for idx in buckets([t.numel() for t in tensors], BUCKET_BYTES):
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        dist.all_reduce(flat, group=group)
+        fsdp.all_reduce(flat, group, ranks)
         off = 0
         for i in idx:
             tensors[i].copy_(flat[off:off + tensors[i].numel()].view_as(tensors[i]))
             off += tensors[i].numel()
+
+
+def _sharding(model, group, place):
+    """The model's `Sharding`, checked against the step's group and place
+    (a sharded model brings its own)."""
+    sharding = getattr(model, "fsdp", None)
+    if sharding is not None and (place is not None or group not in (None, sharding.group)):
+        raise ValueError("a sharded model steps on its own group and place (model.fsdp)")
+    return sharding
 
 
 def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, group=None,
@@ -136,10 +175,16 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
     `Mesh` without a process group and without the all-reduce: the rank
     takes `rank_rows` of each micro-batch on that mesh, and the ranks that
     hold the same rows divide the loss between them.  The result is the
-    rank's part of the sum, before the all-reduce (the one rank that the
-    dry run counts, `repro_torch.launch.dryrun`).  With `group` the place
-    is ((R, 1) ("data", "model"), the group rank)."""
+    rank's part of the sum, before the all-reduce.  With `group` the place
+    is ((R, 1) ("data", "model"), the group rank).
+
+    A sharded model (`model.fsdp`) brings its group and place: the gradient
+    of a sliced leaf is the rank's slice of the sum, reduce-scattered in
+    the backward; the whole leaves' gradients and the loss are summed over
+    every rank.  On the meta device (the dry run, no group) those sums are
+    counted and not run, so a whole leaf's gradient is the rank's part."""
     params = dict(model.named_parameters())
+    sharding = _sharding(model, group, place)
 
     def grads_of(mb: dict, denominator=None, dispatch_ranks: int = 1):
         loss = model.loss_fn(mb, remat=remat, denominator=denominator,
@@ -148,7 +193,9 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
         return loss.detach(), {n: torch.zeros_like(p) if g is None else g
                                for (n, p), g in zip(params.items(), got)}
 
-    if group is not None:
+    if sharding is not None:
+        group, place = sharding.group, (sharding.mesh, sharding.rank)
+    elif group is not None:
         if place is not None:
             raise ValueError("pass a process group or a place, not both")
         place = (Mesh((dist.get_world_size(group), 1), ("data", "model")), dist.get_rank(group))
@@ -182,10 +229,20 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
             for n, g in mb_grads.items():
                 grads[n].add_(g)
         del mb_grads
-    if group is not None:
+    if sharding is not None:
+        loss = loss.reshape(1)
+        _all_reduce_sum([loss, *(g for n, g in grads.items() if not sharding.split(n))], group,
+                        sharding.mesh.size)
+        if sharding.copies > 1:  # ranks along "model" / "pod" hold the same slices
+            _all_reduce_sum([g for n, g in grads.items() if sharding.split(n)], None,
+                            sharding.copies)
+        loss = loss[0]
+    elif group is not None:
         loss = loss.reshape(1)
         _all_reduce_sum([loss, *grads.values()], group)
         loss = loss[0]
+    elif place is not None and loss.device.type == "meta":  # a dry run's sum: counted only
+        _all_reduce_sum([loss.reshape(1), *grads.values()], None, place[0].size)
     if accum == 1:
         return loss, {n: g.to(params[n].dtype) for n, g in grads.items()}
     return loss / accum, {n: g / accum for n, g in grads.items()}
@@ -203,18 +260,23 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum: int = 1,
     from `state.params`.  With `group` (a process group; every rank builds
     the step and calls it with the same global batch) the step is
     data-parallel (module docstring).  `place` goes to `accumulate_grads`:
-    one rank's step on a mesh, without its all-reduce (a dry run's)."""
+    one rank's step on a mesh, without its all-reduce (a dry run's).  A
+    sharded state (`init_train_state(rules=...)`) steps on its own group
+    and place, read from the model at each step."""
     update = adamw_update if opt_cfg.kind == "adamw" else adafactor_update
     if group is not None:
         check_dispatch_split(model.cfg, dist.get_world_size(group))
 
     def train_step(state: TrainState, batch: dict):
         model = state.params
+        sharding = _sharding(model, group, place)
+        if sharding is not None:
+            fsdp.check_optimizer(opt_cfg.kind)
         loss, grads = accumulate_grads(model, batch, accum=accum, remat=remat, group=group,
                                        place=place)
         if compress_bits:
-            grads = _compress(grads, compress_bits)
-        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+            grads = _compress(grads, compress_bits, sharding)
+        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip, sharding)
         update(dict(model.named_parameters()), grads, state.opt, state.step, opt_cfg)
         return (TrainState(params=model, opt=state.opt, step=state.step + 1),
                 {"loss": loss, "grad_norm": gnorm})

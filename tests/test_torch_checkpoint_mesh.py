@@ -3,7 +3,8 @@
 The JAX package checks the shardings tree against the state's structure
 (`treedef.flatten_up_to`) and places each leaf sharded; the port checks the
 tree the same way, with JAX's error messages, and restores every leaf
-whole, because its data-parallel step replicates the training state.  The
+whole into a whole state (a sharded one takes its slices:
+`tests/test_torch_fsdp.py`).  The
 shardings are the dry-run specs (`repro_torch.launch.specs.
 train_state_pspecs`) on the production meshes.
 """

@@ -234,27 +234,111 @@ def test_parameter_count_is_the_jax_trees_not_the_analytic_one(port_cells):
     assert rec["n_params_analytic"] == 90_880
 
 
-def test_collective_bytes_are_the_ports_all_reduce(port_cells):
+def _leaf_bytes(cfg, mesh: Mesh):
+    """(whole bytes of the sliced parameters, of the whole ones, numel of the
+    whole ones, the largest gather's whole bytes) of the f32 model of `cfg`
+    on `mesh` under its rules (rank 0's layout)."""
+    from repro_torch.parallel.sharding import leaf_shard, make_rules
+
+    model = Transformer(cfg, device="meta", dtype=torch.float32, backend="ref")
+    rules = make_rules(mesh, model_cfg=cfg)
+    split, whole, n_whole, units = 0, 0, 0, {}
+    for name, p in model.named_parameters():
+        nbytes = p.numel() * 4
+        if leaf_shard(name, tuple(p.shape), model.param_specs(), mesh, rules, 0).dim is None:
+            whole += nbytes
+            n_whole += p.numel()
+        else:
+            split += nbytes
+            unit = name.split(".")[1] if name.startswith("groups.") else name
+            units[unit] = units.get(unit, 0) + nbytes
+    return split, whole, n_whole, max(units.values())
+
+
+def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
+    """The smoke cell on 4x4 (4 data ranks, each slice held by the 4 ranks
+    along "model"), accum 2, two groups, untied head, f32: per micro-batch
+    the embed, the head and each group gathered (each group again in the
+    remat recompute) and their gradients reduce-scattered over the 4 data
+    ranks; then the whole leaves' gradients with the loss all-reduced over
+    all 16 ranks, the slices' gradients over the 4 copies, and the norm's
+    sum of squares over the 4 data ranks: (R - 1) / R of each payload, twice
+    for an all-reduce."""
     rec = port_cells["4x4/train/g4"]
-    R, n = 16, rec["n_params"] + 1  # the loss rides in the first bucket
-    assert rec["hlo"]["collective_wire_bytes"] == 2 * (R - 1) / R * 4 * n
-    assert rec["hlo"]["collective_by_kind"] == {"all-reduce": rec["hlo"][
-        "collective_wire_bytes"]}
-    assert rec["hlo"]["n_collective_sites"] == 1
+    cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
+    split, whole, n_whole, _ = _leaf_bytes(cfg, Mesh((4, 4), ("data", "model")))
+    groups_bytes = split - 4 * cfg.vocab * cfg.d_model * 2  # the groups' sliced leaves
+    accum = 2
+    gather = accum * (split + groups_bytes) * 3 / 4
+    scatter = accum * split * 3 / 4
+    reduce = 2 * 15 / 16 * 4 * (n_whole + 1) + 2 * 3 / 4 * split / 4 + 2 * 3 / 4 * 4
+    by_kind = rec["hlo"]["collective_by_kind"]
+    assert by_kind["all-gather"] == gather and by_kind["reduce-scatter"] == scatter
+    assert by_kind["all-reduce"] == pytest.approx(reduce, rel=1e-12)
+    assert rec["hlo"]["collective_wire_bytes"] == sum(by_kind.values())
+    assert rec["hlo"]["n_collective_sites"] == accum * (2 + 2 * 2) + accum * (2 + 2) + 3
     assert port_cells["4x4/decode"]["hlo"]["collective_wire_bytes"] == 0
 
 
-def test_port_rank_bytes_hold_the_replicated_state(port_cells):
+def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
+    """A rank of the smoke cell on 4x4 holds a quarter of each sliced leaf
+    (the 4 data ranks; "model" is not read) and every whole leaf, as f32
+    parameters, f32 moments and f32 gradient sums; the largest gather (a
+    group: its experts outweigh the [128, 64] embed) and the global batch."""
     rec = port_cells["4x4/train/g4"]
     parts = rec["memory"]["port_rank_parts"]
-    n = rec["n_params"]
-    assert parts["params"] == 4 * n and parts["opt"] == 2 * 4 * n  # f32 params and moments
-    assert parts["grads"] == 4 * n  # the step's f32 sums
+    cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
+    split, whole, _, largest = _leaf_bytes(cfg, Mesh((4, 4), ("data", "model")))
+    held = split // 4 + whole
+    assert parts["params"] == held and parts["opt"] == 2 * held  # f32 params and moments
+    assert parts["grads"] == held  # the step's f32 sums of the slices and whole leaves
+    assert parts["gathered"] == largest > 4 * cfg.vocab * cfg.d_model
     assert parts["batch"] == 2 * 16 * 128 * 8  # every rank holds the global batch
     assert rec["memory"]["port_rank_bytes"] == sum(parts.values())
     assert rec["memory"]["fits_one_card"] is True
-    dec = port_cells["4x4/decode"]["memory"]["port_rank_parts"]
-    assert dec["batch"] == 4 * 8 and dec["caches"] > 0  # its 4 rows' tokens and caches
+    layout = rec["memory"]["state_layout"]
+    assert layout["fsdp"] == "data" and layout["data_parts"] == 4
+    assert layout["whole_param_bytes"] == whole
+    dec = port_cells["4x4/decode"]
+    assert dec["memory"]["port_rank_parts"]["batch"] == 4 * 8  # its 4 rows' tokens
+    assert dec["memory"]["port_rank_parts"]["caches"] > 0
+    assert "slice 25" in dec["memory"]["state_layout"]
+
+
+def test_a_ranks_state_bytes_are_jaxs_argument_bytes_on_a_data_only_mesh(port_cells,
+                                                                         jax_cells):
+    """On 4x1 the rank's parameter and moment slices (the leaves "data" does
+    not divide whole) are exactly JAX's per-device argument bytes less its
+    batch (int32 tokens and labels of 4 rows of 128) and its int32 step."""
+    rec = port_cells["4x1/train/g4"]
+    parts = rec["memory"]["port_rank_parts"]
+    jax_args = jax_cells["cells"]["4x1/train/g4"]["memory"]["argument_bytes"]
+    assert parts["params"] + parts["opt"] == jax_args - 4 * 2 * 4 * 128 - 4
+
+
+def test_wire_bytes_equal_the_sum_of_the_collective_wrappers_calls():
+    """Every collective call of a counted step, read from its arguments as it
+    is made: the ring bytes of its payload over its ranks sum to the
+    record's wire bytes, by kind."""
+    from repro_torch.parallel import fsdp
+
+    seen = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
+    calls = []
+    orig = fsdp._collective
+
+    def spy(kind, nbytes, ranks, group, t, run):
+        if ranks > 1:
+            seen[kind] += (2 if kind == "all-reduce" else 1) * (ranks - 1) / ranks * nbytes
+            calls.append(kind)
+        return orig(kind, nbytes, ranks, group, t, run)
+
+    s, a = smoke()
+    with s, a, mock.patch.object(fsdp, "_collective", spy):
+        rec, _ = dr.lower_cell("smoke", "train_4k", Mesh((2, 2), ("data", "model")), accum=2,
+                               cfg_override=groups(4))
+    assert rec["hlo"]["collective_by_kind"] == seen
+    assert rec["hlo"]["collective_wire_bytes"] == sum(seen.values()) > 0
+    assert rec["hlo"]["n_collective_sites"] == len(calls)
 
 
 @pytest.mark.parametrize("name", ["4x4/train/g4", "4x4/decode"])
