@@ -300,6 +300,27 @@ LM_DP_TIMEOUT_S = 420  # both ranks together, from spawn to exit
 LM_FSDP_PARAM_REL = 1e-4
 LM_FSDP_TIMEOUT_S = 600  # both ranks together, from spawn to exit
 COMPRESS_N, COMPRESS_BITS = 1 << 24, (8, 4)  # compressed_psum's tensor, its bit widths
+# Tensor parallelism (tp, kv -> "model", Megatron) on LM_DP_RANKS gloo ranks
+# on cuda:0, the (1, 2) ("data", "model") mesh: (arch, layers, global batch,
+# steps, phase suffix, held to lm_train_dp's one-rank run), full width, f32,
+# S = LM_DP_S.  qwen3-8b's 32 heads and 8 KV heads both split 2 ways (a
+# rank's flash launch: [2, 2048, 16, 128] against 4 KV heads); falcon-mamba's
+# d_inner splits 2 ways (a rank's scan: [1, 2048, 4096, 16]).  qwen3 is
+# lm_train_dp's configuration and is held to its one-rank run; falcon-mamba
+# to rank 0's own one-device run before the ranks'.  Each step's loss and
+# gradient norm within LM_DP_STEP_RTOL; step 1's gathered parameters within
+# LM_FSDP_PARAM_REL of each leaf's max of the one-device step 1, bit-alike
+# across the ranks; qwen3's state bytes and wire bytes a step as dryrun_tp
+# counts them, exactly.  Step 1 runs at lr 0 (warmup_steps = 2) and leaves
+# every parameter as drawn, so its check holds the layout and the gathers,
+# not the update (ROADMAP §3, F8); the losses and norms of steps 2-3 hold
+# the updates.  The parameters after step 2, the first at a non-zero lr,
+# are compared the same way and reported, not held: a norm scale drawn as
+# zeros is about lr after it, so an f32 summation order moves an element
+# by a large share of the leaf's max.
+LM_TP = (("qwen3-8b", 2, 2, 3, "qwen3", True), ("falcon-mamba-7b", 2, 1, 2, "falcon_mamba", False))
+LM_TP_MESH, LM_TP_PARAM_STEPS = (1, 2), (0, 1)  # step 1 held, step 2 reported
+LM_TP_TIMEOUT_S = 600  # both ranks together, from spawn to exit
 # bf16 score buffers: flash_attention(score_dtype=bf16) against
 # ref.flash_attention(score_dtype=bf16) at qwen3-8b's prefill shape, the
 # bf16-score model's (B = 2), and in f32 (the f32 body) at the DP shape and
@@ -2751,7 +2772,7 @@ def lm_train(arch: str, layers: int, batch: int, short: str) -> dict:
     return launches, {"step_s_median_2_6": median_s, "peak_bytes": peak_bytes}
 
 
-def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> dict:
+def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, dict]:
     """The dry-run tools (`repro_torch.launch.specs`, `launch.dryrun`) on the
     meta device for lm_train's configuration of `arch` (its first `layers`
     layers, bf16, AdamW with f32 moments, B = `batch`, LM_TRAIN_S, remat,
@@ -2761,10 +2782,12 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> dict:
     counted FLOPs, the predicted bytes and the achieved rate (counted FLOPs
     over lm_train's median step) against H100_SXM's bf16 peak (reported,
     not held).  Also counts lm_train_fsdp's configuration (LM_DP in f32) on
-    the (2, 1) mesh, whose sharded rank's state and wire bytes it returns
-    for that phase to hold.  Then `python -m repro_torch.launch.dryrun` for
+    the (2, 1) mesh and lm_train_tp's qwen3 configuration on the (1, 2)
+    mesh (`dryrun_tp`), whose ranks' state and wire bytes it returns for
+    those phases to hold.  Then `python -m repro_torch.launch.dryrun` for
     qwen3-8b x train_4k x single into a temporary file, with no card
-    visible: the 16x16 rank, sharded 16 ways over "data", fits one card."""
+    visible: the 16x16 rank, sharded 16 ways over "data" and 16 over
+    "model", fits one card, its wire bytes listed by axis."""
     import dataclasses
     import tempfile
     from unittest import mock
@@ -2789,6 +2812,14 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> dict:
             dp_arch, dp_shape.name, Mesh((LM_DP_RANKS, 1), ("data", "model")), accum=1,
             remat=True, cfg_override=lambda c: dataclasses.replace(
                 c, n_layers=dp_layers, param_dtype="float32"))
+    # lm_train_tp's qwen3 configuration (f32) on its (1, 2) mesh: the TP rank
+    tp_arch, tp_layers, tp_batch = LM_TP[0][:3]
+    tp_shape = ShapeSpec("lm_train_tp", LM_DP_S, tp_batch, "train")
+    with mock.patch.dict(SHAPES, {tp_shape.name: tp_shape}):
+        tp_rec, _ = dryrun.lower_cell(
+            tp_arch, tp_shape.name, Mesh(LM_TP_MESH, ("data", "model")), accum=1,
+            remat=True, cfg_override=lambda c: dataclasses.replace(
+                c, n_layers=tp_layers, param_dtype="float32"))
     torch.cuda.synchronize()
     after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
     parts = rec["memory"]["port_rank_parts"]
@@ -2815,6 +2846,17 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> dict:
          collective_by_kind=fsdp_rec["hlo"]["collective_by_kind"],
          n_collective_sites=fsdp_rec["hlo"]["n_collective_sites"],
          counted_flops=fsdp_rec["hlo"]["dot_flops"])
+    tp_parts = tp_rec["memory"]["port_rank_parts"]
+    tp_predicted = {"state_bytes": tp_parts["params"] + tp_parts["opt"],
+                    "wire_bytes": tp_rec["hlo"]["collective_wire_bytes"],
+                    "wire_by_axis": tp_rec["hlo"]["collective_by_axis"]}
+    emit("dryrun_tp", arch=tp_arch, layers=tp_layers, dtype="float32", batch=tp_batch,
+         seq=LM_DP_S, mesh=tp_rec["mesh"], count_s=tp_rec["count_s"],
+         state_layout=tp_rec["memory"]["state_layout"], port_rank_parts=tp_parts,
+         port_rank_bytes=tp_rec["memory"]["port_rank_bytes"], **tp_predicted,
+         collective_by_kind=tp_rec["hlo"]["collective_by_kind"],
+         n_collective_sites=tp_rec["hlo"]["n_collective_sites"],
+         counted_flops=tp_rec["hlo"]["dot_flops"], rank=tp_rec["rank"])
     if not predicted <= train["peak_bytes"]:
         raise AssertionError(f"dryrun: predicted state bytes {predicted} over lm_train's "
                              f"measured peak {train['peak_bytes']}")
@@ -2840,15 +2882,20 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> dict:
          port_rank_parts=memory.get("port_rank_parts"), state_layout=memory.get("state_layout"),
          collective_wire_bytes=hlo.get("collective_wire_bytes"),
          collective_by_kind=hlo.get("collective_by_kind"),
+         collective_by_axis=hlo.get("collective_by_axis"),
          n_collective_sites=hlo.get("n_collective_sites"), dot_flops=hlo.get("dot_flops"),
-         bottleneck=cell.get("roofline", {}).get("bottleneck"))
+         rank=cell.get("rank"), bottleneck=cell.get("roofline", {}).get("bottleneck"))
     if proc.returncode != 0 or not cell.get("ok"):
         raise AssertionError(f"dryrun CLI: rc {proc.returncode}: {proc.stdout[-2000:]} "
                              f"{proc.stderr[-2000:]}")
+    by_axis = hlo["collective_by_axis"]
     if not (memory["fits_one_card"] and memory["state_layout"]["data_parts"] == 16
-            and hlo["collective_wire_bytes"] == sum(hlo["collective_by_kind"].values())):
+            and memory["state_layout"]["model_parts"] == 16
+            and sum(by_axis.get("model", {}).values()) > 0
+            and hlo["collective_wire_bytes"] == sum(hlo["collective_by_kind"].values())
+            == sum(sum(v.values()) for v in by_axis.values())):
         raise AssertionError(f"dryrun CLI: the sharded 16x16 rank: {memory} {hlo}")
-    return fsdp_predicted
+    return fsdp_predicted, tp_predicted
 
 
 def lm_train_loss_study(arch: str, layers: int, batch: int) -> None:
@@ -3467,6 +3514,203 @@ def lm_train_fsdp(one: dict, predicted: dict, device: str = "cuda:0") -> dict:
         raise AssertionError(f"lm_train_fsdp: {check}")
     emit("profile_lm_train_fsdp_step", rank=0, **r0["profile"])
     return r0["launches"]
+
+
+def _tp_run(rank: int, group, dev, arch: str, layers: int, batch: int, steps: int,
+            from_dp: bool, profile: bool) -> dict:
+    """One LM_TP configuration on this rank (`_tp_rank`): rank 0's
+    one-device reference first (the parameters after steps 1 and 2; every
+    step's loss and gradient norm unless they come from lm_train_dp), then
+    the steps on the
+    state laid out by the JAX rules of the (1, 2) mesh, with the
+    collectives timed (`fsdp.WIRE.sync`), rank 0's last one under the
+    profiler if `profile`."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import Mesh, fsdp, make_rules, tensor
+    from repro_torch.training import OptConfig, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    opt_cfg = OptConfig(warmup_steps=2)
+    batches = [_train_batch(cfg, batch, LM_DP_S, s) for s in range(steps)]
+    out, refs = {"params": []}, {}
+    if rank == 0:  # one device, the global batch
+        model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
+        state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg)
+        step_fn = make_train_step(model, opt_cfg)
+        one = {"losses": [], "grad_norms": []}
+        for s in range(LM_TP_PARAM_STEPS[-1] + 1 if from_dp else steps):
+            state, metrics = step_fn(state, batches[s])
+            one["losses"].append(metrics["loss"].item())
+            one["grad_norms"].append(metrics["grad_norm"].item())
+            if s in LM_TP_PARAM_STEPS:
+                refs[s] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        out["one_device"] = one
+        del state, metrics, model, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier(group=group)
+    model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
+    mesh = Mesh(LM_TP_MESH, ("data", "model"))
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg,
+                             rules=make_rules(mesh, model_cfg=cfg), group=group, mesh=mesh)
+    sharding = model.fsdp
+    out["state_bytes"] = (sum(p.numel() * p.element_size() for p in model.parameters())
+                          + sum(t.numel() * t.element_size()
+                                for part in state.opt.values() for t in part.values()))
+    out["model_split_leaves"] = sum(sharding.model_split(n) for n in sharding.layout)
+    out["whole_leaves"] = len(sharding.layout) - out["model_split_leaves"]
+    out["summed_over_model"] = len(tensor.summed_over_model(sharding.layout))
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_fn = make_train_step(model, opt_cfg, group=group)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out.update(losses=[], grad_norms=[], step_s=[], wire=[], seconds=[], calls=[])
+    fsdp.WIRE.sync = True
+    try:
+        for s, b in enumerate(batches):
+            fsdp.WIRE.reset()
+            if profile and rank == 0 and s == len(batches) - 1:  # the idle share
+                got = []
+                out["profile"] = profile_once(lambda: got.append(step_fn(state, b)), tries=1)
+                (state, metrics), = got
+                out["step_s"].append(out["profile"]["wall_ms"] / 1e3)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, b)
+                torch.cuda.synchronize()
+                out["step_s"].append(time.perf_counter() - t0)
+            out["losses"].append(metrics["loss"].item())
+            out["grad_norms"].append(metrics["grad_norm"].item())
+            out["wire"].append(fsdp.WIRE.by_axis())
+            out["seconds"].append(fsdp.WIRE.by_axis("seconds"))
+            out["calls"].append(fsdp.WIRE.by_axis("calls"))
+            if s in LM_TP_PARAM_STEPS:  # the parameters, gathered leaf by leaf (no kernel runs)
+                ref = refs.pop(s, None)
+                sums, rel = torch.zeros(2, dtype=torch.float64, device=dev), {}
+                for n, p in model.named_parameters():  # every rank takes part in the gathers
+                    whole = sharding.whole(p.detach(), sharding.layout[n])
+                    x = whole.double()
+                    sums += torch.stack([x.sum(), (x * x).sum()])
+                    if ref is not None:
+                        rel[n] = float((whole - ref[n]).abs().max() / ref[n].abs().max())
+                    del whole, x
+                row = {"after_step": s + 1, "checksum": sums.tolist()}
+                if ref is not None:
+                    worst = max(rel, key=rel.get)
+                    row.update(worst_leaf=worst, worst_rel=rel[worst])
+                out["params"].append(row)
+                del ref
+    finally:
+        fsdp.WIRE.sync = False
+    out["launches"] = {k: c for k, c in read_launches().items() if c}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state, model, step_fn, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
+    """One of LM_DP_RANKS ranks on cuda:0 in a gloo group: each LM_TP
+    configuration tensor-parallel on the (1, 2) mesh (`_tp_run`).  Writes
+    what it saw to out_dir/rank<r>.json."""
+    import torch.distributed as dist
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: loopback
+    torch.set_num_threads(2)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=LM_DP_RANKS)
+    out = {"rank": rank}
+    try:
+        for arch, layers, batch, steps, short, from_dp in LM_TP:
+            out[short] = _tp_run(rank, dist.group.WORLD, dev, arch, layers, batch, steps,
+                                 from_dp, profile=short == LM_TP[0][4])
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_train_tp(one: dict, predicted: dict, device: str = "cuda:0") -> dict:
+    """LM_TP's configurations on LM_DP_RANKS gloo ranks on cuda:0,
+    tensor-parallel on the (1, 2) ("data", "model") mesh (`_tp_rank`): each
+    step's loss and gradient norm within LM_DP_STEP_RTOL of the one-rank
+    run's (qwen3: lm_train_dp's, `one`; falcon-mamba: rank 0's own), every
+    rank's alike; step 1's gathered parameters within LM_FSDP_PARAM_REL of
+    each leaf's max of rank 0's one-device step 1 and bit-alike across the
+    ranks (after step 2 the same readings, reported); qwen3's state bytes on each rank and its wire bytes a step, by
+    axis and kind, equal dryrun_tp's count (`predicted`) exactly;
+    flash_attention (qwen3) and mamba_scan (falcon-mamba) twice per layer a
+    step on each rank.  Prints each rank's state bytes and peak, the model
+    axis' wire bytes and its all-reduces' share of a step, then
+    `profile_lm_train_tp_step`: rank 0's last qwen3 step under the profiler
+    (the device's idle share).  Returns rank 0's launches."""
+    ranks, spawn_s = _spawn_ranks(_tp_rank, device, LM_TP_TIMEOUT_S, "lm_train_tp")
+    launches = {}
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    for arch, layers, batch, steps, short, from_dp in LM_TP:
+        runs = [r[short] for r in ranks]
+        r0 = runs[0]
+        ref = one if from_dp else r0["one_device"]
+        kernel = "flash_attention" if short == "qwen3" else "mamba_scan"
+        want = {kernel: 2 * layers * steps}
+        loss_rel, norm_rel = rel(r0["losses"], ref["losses"]), rel(r0["grad_norms"],
+                                                                   ref["grad_norms"])
+        model_share = [sum(sec.get("model", {}).values()) / step_s
+                       for sec, step_s in zip(r0["seconds"], r0["step_s"])][1:]
+        check = {
+            "losses_within_tol": max(loss_rel) <= LM_DP_STEP_RTOL,
+            "grad_norms_within_tol": max(norm_rel) <= LM_DP_STEP_RTOL,
+            "step1_params_within_tol": r0["params"][0]["worst_rel"] <= LM_FSDP_PARAM_REL,
+            "ranks_alike": all(r["losses"] == r0["losses"] and r["grad_norms"] == r0["grad_norms"]
+                               and [x["checksum"] for x in r["params"]]
+                               == [x["checksum"] for x in r0["params"]] for r in runs),
+            "finite": all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+            "launches": all(r["launches"] == want for r in runs),
+        }
+        if from_dp:
+            check["state_bytes_as_predicted"] = all(r["state_bytes"] == predicted["state_bytes"]
+                                                    for r in runs)
+            check["wire_bytes_as_predicted"] = all(w == predicted["wire_by_axis"]
+                                                   for r in runs for w in r["wire"])
+        emit(f"lm_train_tp_{short}", arch=arch, layers=layers, dtype="torch.float32",
+             global_batch=batch, seq=LM_DP_S, steps=steps, ranks=LM_DP_RANKS,
+             backend="gloo on cuda:0", mesh=list(LM_TP_MESH),
+             rules="make_rules(mesh, model_cfg=cfg): fsdp -> data, tp and kv -> model",
+             model_split_leaves=r0["model_split_leaves"], whole_leaves=r0["whole_leaves"],
+             summed_over_model=r0["summed_over_model"],
+             state_bytes_per_rank=[r["state_bytes"] for r in runs],
+             predicted_state_bytes=predicted["state_bytes"] if from_dp else None,
+             peak_gib_per_rank=[r["peak_gib"] for r in runs],
+             one_rank_of="lm_train_dp" if from_dp else "rank 0's one-device run",
+             one_rank_losses=ref["losses"], tp_losses=r0["losses"], loss_rel_err=loss_rel,
+             one_rank_grad_norms=ref["grad_norms"], tp_grad_norms=r0["grad_norms"],
+             grad_norm_rel_err=norm_rel, step_tol_rel=LM_DP_STEP_RTOL,
+             params=r0["params"], param_tol_rel=LM_FSDP_PARAM_REL,
+             step_s=[r["step_s"] for r in runs], collective_s_by_axis=r0["seconds"],
+             model_axis_share_steps_2_on=model_share, wire_bytes_by_axis=r0["wire"],
+             model_wire_bytes_per_step=[sum(w.get("model", {}).values()) for w in r0["wire"]],
+             predicted_wire_by_axis=predicted["wire_by_axis"] if from_dp else None,
+             calls_by_axis=r0["calls"], launches_per_rank=[r["launches"] for r in runs],
+             launches_want=want, spawn_s=spawn_s, **check)
+        if not all(check.values()):
+            raise AssertionError(f"lm_train_tp_{short}: {check}")
+        launches.update(r0["launches"])
+    emit("profile_lm_train_tp_step", rank=0, arch=LM_TP[0][0], **ranks[0][LM_TP[0][4]]["profile"])
+    return launches
 
 
 def lm_launch_train_torchrun() -> None:
@@ -5219,9 +5463,9 @@ def main() -> int:
                                                                          short)
     # 13a. The dry-run tools on the meta device for lm_train_qwen3's
     #    configuration, held to that phase's measured peak; nothing on the card;
-    #    the sharded prediction that lm_train_fsdp is held to.
+    #    the sharded predictions that lm_train_fsdp and lm_train_tp are held to.
     arch, layers, batch, short = LM_TRAIN[0]
-    fsdp_predicted = lm_dryrun(arch, layers, batch, train_readings[short])
+    fsdp_predicted, tp_predicted = lm_dryrun(arch, layers, batch, train_readings[short])
     lm_train_loss_study(*LM_TRAIN[0][:3])
     for arch, *_ in LM_TRAIN:
         lm_train_plain_check(arch)
@@ -5235,6 +5479,11 @@ def main() -> int:
     # 14a. The same steps with the state sharded over "data" (fsdp), on two
     #    gloo ranks: against the one-rank run and the dry run's prediction.
     new_paths["lm_train_fsdp"] = lm_train_fsdp(dp_one, fsdp_predicted)
+    # 14b. Tensor parallelism (tp, kv -> "model"): qwen3-8b and falcon-mamba-7b
+    #    on two gloo ranks on the (1, 2) mesh, the flash and scan kernels on
+    #    each rank's heads and channels: against the one-rank runs and
+    #    dryrun_tp's count.
+    new_paths["lm_train_tp"] = lm_train_tp(dp_one, tp_predicted)
     lm_launch_train_torchrun()
     bf16_scores_row = lm_score_bf16_kernels(dev, gen)
     new_paths["lm_score_bf16"] = lm_score_bf16()

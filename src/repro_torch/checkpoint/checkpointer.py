@@ -18,14 +18,14 @@ dtype is "bfloat16", and read back through their bits (numpy has no bf16).
 A save copies every leaf to the host before it returns (the train step
 updates the tensors in place); the files are written on one worker thread.
 
-A sharded state (`repro_torch.parallel.fsdp`: each rank holds its slices)
+A sharded state (`repro_torch.parallel.fsdp`: each rank holds its blocks)
 is stored logically, as the JAX checkpointer stores a sharded `TrainState`:
-every rank calls `save`, which gathers each sliced leaf whole, one leaf at
-a time, and rank 0 alone keeps the host copies and writes them, in the
-format above.  Every collective finishes before `save` returns, so none
-runs on the writer thread.  `restore` into a sharded state reads each leaf
-whole and places the rank's slice.  So a checkpoint restores on any layout:
-one card, or ranks of any data-axis size.
+every rank calls `save`, which gathers each cut leaf whole along both
+axes, one leaf at a time, and rank 0 alone keeps the host copies and
+writes them, in the format above.  Every collective finishes before `save`
+returns, so none runs on the writer thread.  `restore` into a sharded
+state reads each leaf whole and places the rank's block.  So a checkpoint
+restores on any layout: one card, or ranks of any ("data", "model") mesh.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.models.transformer import param_leaves
 from repro_torch.parallel.fsdp import opt_leaf_shard
-from repro_torch.parallel.sharding import data_dim
+from repro_torch.parallel.sharding import data_dim, leaf_template, model_dim
 from repro_torch.training.train_step import TrainState
 
 _BF16_DESCR = "<V2"
@@ -265,10 +265,12 @@ class Checkpointer:
         leaf by leaf as JAX's `treedef.flatten_up_to` checks it
         (`flatten_up_to`: a mismatch raises ValueError).  A sharded
         `example_state` (`repro_torch.parallel.fsdp`) takes only the rank's
-        slice of each leaf; its layout must split each leaf where the spec
-        puts "data" on its mesh (else ValueError).  A whole state takes
-        every leaf whole, whatever the specs: the replicated data-parallel
-        step holds the whole state on every rank."""
+        block of each leaf; its layout must split each leaf where the spec
+        puts "data" and "model" on its mesh (else ValueError), but for the
+        MoE experts' "model" ("ep"), which the port keeps whole along
+        "model" until ROADMAP §1's slice 24.  A whole state takes every leaf
+        whole, whatever the specs: the replicated data-parallel step holds
+        the whole state on every rank."""
         shards = leaf_shards(example_state)
         if shardings is not None:
             specs = flatten_up_to(example_state, shardings)
@@ -305,15 +307,26 @@ def _whole_shape(tensors: list, stacked: bool, shard, lead: int) -> tuple:
 
 
 def _check_layout(state, specs: list, shards: list) -> None:
-    """Each sliced leaf of the sharded `state` is split where its spec puts
-    "data" on the state's mesh (the dimension of the whole leaf, a stacked
-    parameter's groups in front), and each whole leaf nowhere."""
+    """Each cut leaf of the sharded `state` is split where its spec puts
+    "data", and "model", on the state's mesh (the dimensions of the whole
+    leaf, a stacked parameter's groups in front), and each whole leaf
+    nowhere; a "model" entry on the MoE experts' "ep" dimension wants none."""
     mesh = state.params.fsdp.mesh
+    templates = state.params.param_specs()
+    names = param_leaves(dict(state.params.named_parameters()))
     for (path, ts), spec, (shard, lead) in zip(state_leaves(state), specs, shards):
         stacked = path.startswith("params/blocks/")
         shape = _whole_shape(ts, stacked, shard, lead)
-        have = None if shard is None or shard.dim is None else shard.dim + lead + int(stacked)
-        want = data_dim(spec, shape, mesh) if len(spec) == len(shape) else None
-        if have != want:
-            raise ValueError(f"{path}: the state splits dimension {have} over \"data\", the "
-                             f"shardings {spec} on {mesh} dimension {want}")
+        fits = len(spec) == len(shape)
+        lead_all = lead + int(stacked)
+        for axis, got, find in (("data", None if shard is None else shard.dim, data_dim),
+                                ("model", None if shard is None else shard.mdim, model_dim)):
+            have = None if got is None else got + lead_all
+            want = find(spec, shape, mesh) if fits else None
+            if want is not None and axis == "model":
+                key = path.split("/", 1)[1] if path.startswith("params/") else path.split("/", 2)[2]
+                if leaf_template(names[key][0], templates)[want - lead_all] == "ep":
+                    want = None  # the experts stay whole along "model" until slice 24
+            if have != want:
+                raise ValueError(f"{path}: the state splits dimension {have} over \"{axis}\", "
+                                 f"the shardings {spec} on {mesh} dimension {want}")

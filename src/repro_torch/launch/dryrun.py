@@ -14,30 +14,35 @@ is allocated.  The entry points take the meta device and no other.  The
 model runs with `backend="ref"`: the kernel wrappers take no meta tensor,
 so every count is that of the kernels' plain versions.
 
-One rank's program is what the port's data-parallel step runs on the mesh:
-rank 0's `rank_rows` of each micro-batch (`repro_torch.parallel.sharding`),
-through `accumulate_grads` and the optimizer's update, for a train cell;
+One rank's program is what the port's step runs on the mesh: rank 0's
+`rank_rows` of each micro-batch (`repro_torch.parallel.sharding`), through
+`accumulate_grads` and the optimizer's update, for a train cell;
 `Transformer.prefill` of its rows for prefill; `decode_step` of its rows at
 position S - 1 (JAX's `serve_step`) for decode.  On the production mesh a
-rank takes B / 16 rows (B / 32 with the pod axis), and every rank along
-"model" repeats them (`rank.repetition` in the record).  A train cell's
-state is sharded by the cell's rules, `make_rules(mesh, model_cfg=cfg)`,
-as the JAX dry run's `in_shardings` shard it: rank 0 holds its slices of
-the parameters and AdamW moments along "data" (`repro_torch.parallel.
-fsdp.shard_train_state`), gathers each group's whole weights where it runs
-and reduce-scatters their gradients; "model" entries are not read, so the
-ranks along "model" hold the same slices.  Prefill and decode cells run on
-the whole parameters (serving on a sharded state is a later slice;
-`memory.state_layout` says which).  The record's keys follow the JAX
-record's; where a value has no counterpart it is None and `no_counterpart`
-names it:
+rank takes B / 16 rows (B / 32 with the pod axis).  A train cell's state is
+sharded by the cell's rules, `make_rules(mesh, model_cfg=cfg)`, as the JAX
+dry run's `in_shardings` shard it (`repro_torch.parallel.fsdp.
+shard_train_state`): rank 0 holds its blocks of the parameters and AdamW
+moments, sliced along "data" (fsdp, gathered where a group runs, the
+gradients reduce-scattered) and along "model" (tp and kv, Megatron tensor
+parallelism: `repro_torch.parallel.tensor`), and the ranks along "model"
+run the layers on their blocks, on the same rows, with the model axis'
+all-reduces.  The MoE experts ("ep") stay whole along "model" until
+ROADMAP §1's slice 24, so every rank of a row repeats their products.
+`rank.repetition` counts the ranks that run the rank's very program (the
+ranks along "model" on a cell that keeps the whole parameters); prefill and
+decode cells run on the whole parameters (serving on a sharded state is a
+later slice; `memory.state_layout` says which).  The record's keys follow
+the JAX record's; where a value has no counterpart it is None and
+`no_counterpart` names it:
 
 - `hlo.dot_flops`: the rank's FLOPs under `torch.utils.flop_counter.
   FlopCounterMode` (matrix products and convolutions, as JAX's
   `analyze_hlo` counts dots), the remat recompute included.
-  `hlo.dot_flops_jax_view` is the global count (the rank's times the data
-  shards: the ranks' programs are the same function of disjoint rows)
-  divided by the mesh's size, JAX's per-device view.
+  `hlo.dot_flops_jax_view` is the rank's count over `rank.repetition`
+  (the ranks that repeat its program do no new work): JAX's per-device
+  view, the global count over the mesh's size where the ranks split the
+  work.
 - `hlo.bytes_accessed`: the bytes of every aten op's tensor inputs and
   outputs (`ByteCounter`); views and metadata-only ops (an allocation
   without a fill) count 0.  Eager PyTorch reads each op's inputs from
@@ -46,10 +51,13 @@ names it:
   dimension to the front, buckets) included.
 - `hlo.collective_wire_bytes`: the sum over the train step's collective
   calls of the bytes a rank puts on the wire (`fsdp.WIRE`, counted by the
-  calls' meta path in the ring model): the all-gathers in the forward and
-  in the remat recompute, the gradients' reduce-scatters, the all-reduces
-  of the whole leaves' f32 gradients with the loss, of the norm's squares
-  and of the compression's maxima; `collective_by_kind` splits it and
+  calls' meta path in the ring model): along "data" the all-gathers in the
+  forward and in the remat recompute, the gradients' reduce-scatters, the
+  all-reduces of the whole leaves' f32 gradients with the loss; along
+  "model" the layers' all-reduces (forward, recompute and backward), the
+  cross entropy's and the leaves a region reads whole; the norm's squares
+  and the compression's maxima along both.  `collective_by_kind` splits it
+  by kind, `collective_by_axis` by mesh axis and kind, and
   `n_collective_sites` counts the calls.  A decode or prefill cell has 0.
 - `memory.argument_bytes`: the per-rank bytes of the program's arguments
   (state and batch; parameters, caches and tokens for decode) under the
@@ -57,10 +65,10 @@ names it:
   compare with JAX's.  The port's tokens and labels are int64, JAX's
   int32: the difference is 4 bytes a token or label a device.
   `memory.port_rank_bytes`: what one rank of the port holds, the sum of
-  `port_rank_parts`: for train its slices of the parameters ("params") and
+  `port_rank_parts`: for train its blocks of the parameters ("params") and
   of the moments ("opt") with the leaves that stay whole, its gradients'
-  slices and whole gradients ("grads": f32 where the step sums them), the
-  largest set of leaves one gather makes whole ("gathered") and the global
+  blocks ("grads": f32 where the step sums them), the largest set of
+  blocks one gather makes whole along "data" ("gathered") and the global
   batch every rank is handed; caches and its rows' batch for decode and
   prefill.  `fits_one_card` says whether that is within one H100's 80 GB.
 - `roofline`: `analysis/roofline.py::roofline` at `H100_SXM` with the
@@ -92,7 +100,7 @@ from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import make_production_mesh, mesh_label
 from repro_torch.models.layers.moe import check_dispatch_split
 from repro_torch.models.transformer import Transformer, param_leaves
-from repro_torch.parallel import fsdp
+from repro_torch.parallel import fsdp, tensor
 from repro_torch.parallel.sharding import Mesh, make_rules, rank_rows, sanitize_pspec, tree_pspecs
 from repro_torch.training.optimizer import _stacked_shape
 from repro_torch.training.train_step import make_train_step
@@ -193,6 +201,24 @@ def _state_bytes(state, state_pspecs, mesh: Mesh) -> int:
     return total
 
 
+def state_layout(sharding, model, rules) -> dict:
+    """How a train cell's state lies on the mesh: the rules' axes for fsdp,
+    tp, kv and ep with their part counts, and the leaves cut along each."""
+    layout = sharding.layout
+    data = [n for n in layout if sharding.split(n)]
+    along_model = [n for n in layout if sharding.model_split(n)]
+    return {"fsdp": "data", "data_parts": sharding.parts,
+            "tp": "model", "kv": rules.axes("kv"), "model_parts": sharding.model_parts,
+            "ep": "whole along \"model\" until ROADMAP §1's slice 24",
+            "split_leaves": len(data), "model_split_leaves": len(along_model),
+            "whole_leaves": sum(not (sharding.split(n) or sharding.model_split(n))
+                                for n in layout),
+            "summed_over_model": len(tensor.summed_over_model(layout)),
+            "whole_param_bytes": sum(_nbytes(p) for n, p in model.named_parameters()
+                                     if not sharding.split(n)
+                                     and not sharding.model_split(n))}
+
+
 def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, accum: int = 4,
                cfg_override=None, extra_metadata: dict | None = None):
     """Count one cell on the meta device.  Returns (record, None): the port
@@ -229,8 +255,9 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(_nbytes(p) for p in model.parameters())
     parts = {"params": param_bytes}
-    wire, by_kind, sites = 0.0, {}, 0
+    wire, by_kind, by_axis, sites = 0.0, {}, {}, 0
     layout = WHOLE
+    split_along_model = 1  # the ranks along "model" that split the rank's work
     if kind == "train":
         opt_cfg = SP.opt_config_for(cfg)
         state = SP.abstract_train_state(model, opt_cfg)
@@ -247,14 +274,12 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
                              for p in model.parameters())
         parts["gathered"] = fsdp.WIRE.largest_gather
         parts["batch"] = sum(_nbytes(t) for t in batch.values())  # every rank holds it all
-        wire, by_kind = fsdp.WIRE.total, dict(fsdp.WIRE.bytes)
+        wire, by_kind, by_axis = fsdp.WIRE.total, dict(fsdp.WIRE.bytes), fsdp.WIRE.by_axis()
         sites = sum(fsdp.WIRE.calls.values())
         if sharding is not None:
-            split = [n for n in sharding.layout if sharding.split(n)]
-            layout = {"fsdp": "data", "data_parts": sharding.parts,
-                      "split_leaves": len(split), "whole_leaves": len(sharding.layout) - len(split),
-                      "whole_param_bytes": sum(_nbytes(p) for n, p in model.named_parameters()
-                                               if not sharding.split(n))}
+            layout = state_layout(sharding, model, rules)
+            if layout["model_split_leaves"]:
+                split_along_model = sharding.model_parts
     else:
         model.eval()
         params_ps = tree_pspecs(model.param_specs(), rules)
@@ -287,7 +312,7 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
         "n_params": n_params,
         "n_params_analytic": cfg.n_params,
         "rank": {"rank": 0, "rows": len(mine), "data_shards": shards,
-                 "repetition": n_dev // shards},
+                 "repetition": n_dev // (shards * split_along_model)},
         "memory": {
             "argument_bytes": args,
             "output_bytes": None,
@@ -302,10 +327,11 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
         "cost_analysis": None,
         "hlo": {
             "dot_flops": flops,
-            "dot_flops_jax_view": flops * shards / n_dev,
+            "dot_flops_jax_view": flops * shards * split_along_model / n_dev,
             "bytes_accessed": nbytes,
             "collective_wire_bytes": wire,
             "collective_by_kind": by_kind,
+            "collective_by_axis": by_axis,
             "n_collective_sites": sites,
         },
         "roofline": rl.row(),

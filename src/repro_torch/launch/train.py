@@ -24,7 +24,12 @@ fsdp`): each rank draws the one-card parameters from the seed and keeps
 its slices.  Every rank takes part in a checkpoint's save; rank 0 writes
 it and prints the `done:` line.  One card allows NCCL only at world size 1
 (`--nproc-per-node=1`: a group of one, whose rules split no leaf: the
-one-card step).  Without torchrun it trains on one card as before.
+one-card step).  Without torchrun it trains on one card as before.  The
+launcher keeps the (R, 1) mesh and has no mesh flag, as the JAX launcher
+(`repro/launch/train.py`) builds a (n_dev, 1) mesh; a ("data", "model")
+mesh of another shape, tensor-parallel along "model", is reached through
+`run_training(rules=..., mesh=...)` or `init_train_state(rules=...,
+group=..., mesh=...)` (`repro_torch.parallel.tensor`).
 """
 
 from __future__ import annotations

@@ -5,6 +5,9 @@ is a ModuleDict keyed "pos{i}" by the position in the pattern, as the JAX
 package keys its per-group parameters.  The group runs its layers for the
 three passes: the full-sequence forward, the prefill (which also fills this
 group's slot of the decode caches) and the one-token decode step.
+The full-sequence forward takes the group's `ModelRegion` under tensor
+parallelism (`tp`, `repro_torch.parallel.tensor`) and hands each layer its
+own.
 """
 
 from __future__ import annotations
@@ -69,15 +72,16 @@ class Layer(nn.Module):
             if hasattr(self, name):
                 getattr(self, name).reset_parameters(cfg, gen)
 
-    def ffn(self, cfg, x: torch.Tensor, dispatch_ranks: int = 1) -> torch.Tensor:
+    def ffn(self, cfg, x: torch.Tensor, dispatch_ranks: int = 1, tp=None) -> torch.Tensor:
         """x + mlp(norm(x)) or x + moe(norm(x)), or x for a mixer-only layer
-        (`dispatch_ranks`: `moe_forward`'s `ranks`)."""
+        (`dispatch_ranks`: `moe_forward`'s `ranks`; `tp`: the layer's
+        `ModelRegion`, the experts whole on every rank along "model")."""
         if self.spec.ffn == "none":
             return x
         h = rms_norm(x, self.norm_ffn.scale, cfg.norm_eps)
         if self.spec.ffn == "moe":
             return x + moe_forward(self.moe, cfg, h, dispatch_ranks)
-        return x + mlp_forward(self.mlp, cfg, h)
+        return x + mlp_forward(self.mlp, cfg, h, None if tp is None else tp.at("mlp."))
 
 
 class Group(nn.ModuleDict):
@@ -92,31 +96,35 @@ class Group(nn.ModuleDict):
             layer.reset_parameters(cfg, gen)
 
     def forward(self, cfg, x, positions, *, backend: str = "cuda", caches=None, g: int = 0,
-                chunk: int = 1024, dispatch_ranks: int = 1):
+                chunk: int = 1024, dispatch_ranks: int = 1, tp=None):
         """Full-sequence pass (`chunk`: the KV chunk of `blocked_attention`;
-        `dispatch_ranks`: `moe_forward`'s `ranks`).
+        `dispatch_ranks`: `moe_forward`'s `ranks`; `tp`: the group's
+        `ModelRegion` under tensor parallelism, for the training forward).
         With `caches` (the stacked decode caches), the prefill: also writes
         this group's attention k/v at positions [0, S) and its mamba states
         into slot `g`."""
         S = x.shape[1]
         for key, layer in self.items():
+            ltp = None if tp is None else tp.at(f"{key}.")
             h = rms_norm(x, layer.norm_mixer.scale, cfg.norm_eps)
             mixer = layer.spec.mixer
             if mixer.startswith("attn"):
                 out, (k, v) = attention_forward(layer.attn, cfg, h, positions,
                                                 local=mixer == "attn_local", backend=backend,
-                                                chunk=chunk)
+                                                chunk=chunk,
+                                                tp=None if ltp is None else ltp.at("attn."))
                 if caches is not None:
                     caches[key]["k"][g, :, :S] = k
                     caches[key]["v"][g, :, :S] = v
             elif caches is None:
-                out = mamba_forward(layer.mamba, cfg, h, backend=backend)
+                out = mamba_forward(layer.mamba, cfg, h, backend=backend,
+                                    tp=None if ltp is None else ltp.at("mamba."))
             else:
                 out, (ssm, conv) = mamba_forward(layer.mamba, cfg, h, return_state=True,
                                                  backend=backend)
                 caches[key]["ssm"][g] = ssm
                 caches[key]["conv"][g] = conv
-            x = layer.ffn(cfg, x + out, dispatch_ranks)
+            x = layer.ffn(cfg, x + out, dispatch_ranks, ltp)
         return x
 
     def decode(self, cfg, x, caches, g: int, position: int):

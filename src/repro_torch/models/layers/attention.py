@@ -10,6 +10,12 @@ too, and runs with `backend="ref"` as the model's plain version.  With grad
 on, the kernel's gradient is `blocked_attention`'s
 (`repro_torch.kernels.autograd.FlashAttentionFn`), as the JAX package
 differentiates its training forward.
+
+Under tensor parallelism (`tp`, a `repro_torch.parallel.tensor.ModelRegion`
+whose "wq" is split along "model") the layer runs on the rank's heads:
+wq column-parallel (and wk, wv where kv -> "model"), the kernel on the
+rank's query heads and the KV heads they read, wo row-parallel, its output
+summed over "model".  Its widths come from the blocks' shapes.
 """
 
 from __future__ import annotations
@@ -73,16 +79,38 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, n * hd)).unflatten(-1, (n, hd))
 
 
-def _qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
-    """x [B, S, d] -> q [B, S, H, hd], k and v [B, S, KV, hd], with RoPE and
-    the optional qk-norm."""
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+def _qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor, kv: slice = slice(None)):
+    """x [B, S, d] -> q [B, S, H, hd], k and v [B, S, KV, hd] (the KV heads
+    `kv` of wk and wv), with RoPE and the optional qk-norm."""
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk[:, kv]), _proj(x, p.wv[:, kv])
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def rank_kv_heads(p, tp) -> slice:
+    """The KV heads the rank's query heads read, of wk and wv as the rank
+    holds them: where kv -> "model" split them, all of its block; where it
+    was dropped (wk, wv whole), query head h reads KV head h // (H / KV), so
+    the rank's H / M heads read a contiguous run of them.  A run the kernel
+    cannot pair with the heads by its own grouping (the heads do not split
+    evenly over it) raises ValueError naming the shapes."""
+    if tp.split("wk"):
+        return slice(None)
+    H_rank, KV = p.wq.shape[1], p.wk.shape[1]
+    H = H_rank * tp.size
+    G = H // KV
+    first = tp.index * H_rank
+    kv0, kv1 = first // G, (first + H_rank - 1) // G + 1
+    n = kv1 - kv0
+    if H_rank % n or any((first + j) // G - kv0 != j // (H_rank // n) for j in range(H_rank)):
+        raise ValueError(f"{H_rank} query heads a rank (wq {tuple(p.wq.shape)} of {H} heads) "
+                         f"against the whole wk {tuple(p.wk.shape)}: rank {tp.index}'s heads "
+                         f"read KV heads {kv0}..{kv1 - 1} unevenly")
+    return slice(kv0, kv1)
 
 
 def _mask_bias(q_pos, kv_pos, causal: bool, window: int | None) -> torch.Tensor:
@@ -147,7 +175,7 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None, softc
 
 
 def attention_forward(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, local: bool = False,
-                      backend: str = "cuda", chunk: int = 1024):
+                      backend: str = "cuda", chunk: int = 1024, tp=None):
     """Full-sequence attention (prefill, scoring).  x [B, S, d], positions
     arange(S) (the kernel assumes query and key positions are both that).
 
@@ -156,9 +184,14 @@ def attention_forward(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, local
     `"ref"` the ported jnp path, `blocked_attention`, in chunks of `chunk`.
     With grad on and an input that requires it, `"cuda"` keeps the kernel in
     the forward and takes `blocked_attention`'s gradient (chunks of `chunk`).
+    `tp`: the layer's `ModelRegion` (module docstring); k and v are then the
+    rank's KV heads.
     """
     score_dtype = getattr(torch, cfg.attn_score_dtype)
-    q, k, v = _qkv(p, cfg, x, positions)
+    heads = tp is not None and tp.split("wq")
+    if heads:
+        x = tp.copy(x)
+    q, k, v = _qkv(p, cfg, x, positions, rank_kv_heads(p, tp) if heads else slice(None))
     window = cfg.window if local else None
     if backend == "cuda" and needs_grad(q, k, v):
         out = FlashAttentionFn.apply(q, k, v, cfg.causal, window, cfg.attn_softcap, chunk,
@@ -173,7 +206,8 @@ def attention_forward(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, local
     else:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     H, hd, d = p.wo.shape
-    return out.reshape(*out.shape[:2], H * hd) @ p.wo.reshape(H * hd, d), (k, v)
+    out = out.reshape(*out.shape[:2], H * hd) @ p.wo.reshape(H * hd, d)
+    return (tp.reduce(out) if heads else out), (k, v)
 
 
 def decode_attention(p, cfg, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,

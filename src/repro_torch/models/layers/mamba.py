@@ -11,6 +11,14 @@ kernel and differentiates `chunked_scan` in the backward
 `chunked_scan` itself; with grad off, `"ref"` runs the kernel's plain
 version, the sequential recurrence.  Decode carries the [B, d_inner, N]
 state explicitly, one token at a time.
+
+Under tensor parallelism (`tp`, a `repro_torch.parallel.tensor.ModelRegion`
+whose "in_proj" is split along "model") every leaf is split over d_inner,
+as the JAX templates say: in_proj column-parallel, the conv, dt_proj,
+dt_bias, A_log, D and the scan per channel on the rank's channels;
+x_proj row-parallel, its [B, S, r + 2N] output summed over "model" and
+copied back into the region for dt_proj and for the B and C every rank's
+channels read; out_proj row-parallel, its output summed over "model".
 """
 
 from __future__ import annotations
@@ -76,13 +84,16 @@ def mamba_specs(cfg) -> dict:
     }
 
 
-def _ssm_inputs(p, cfg, xc: torch.Tensor):
-    """The pre-scan computation.  xc [B, S, di] (after the conv and silu).
+def _ssm_inputs(p, cfg, xc: torch.Tensor, tp=None):
+    """The pre-scan computation.  xc [B, S, di] (after the conv and silu;
+    the rank's channels under `tp`).
 
     Returns the decay a [B, S, di, N] and drive b [B, S, di, N] in f32, and
     C [B, S, N] in xc's dtype."""
     N, r = cfg.mamba.d_state, cfg.dt_rank
     dbl = xc @ p.x_proj
+    if tp is not None:  # the channels' partial sums, whole, read by every rank's channels
+        dbl = tp.copy(tp.reduce(dbl))
     dt, Bc, Cc = torch.split(dbl, [r, N, N], dim=-1)
     dt = F.softplus((dt @ p.dt_proj).float() + p.dt_bias.float())  # [B, S, di]
     A = -torch.exp(p.A_log)  # [di, N]
@@ -153,7 +164,7 @@ def _gate_out(p, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor, dtype) -> t
 
 
 def mamba_forward(p, cfg, x: torch.Tensor, return_state: bool = False, *,
-                  backend: str = "cuda"):
+                  backend: str = "cuda", tp=None):
     """x [B, S, d] -> [B, S, d]: the selective scan from h_0 = 0.
 
     With return_state=True also returns (ssm_state [B, di, N] f32,
@@ -163,16 +174,20 @@ def mamba_forward(p, cfg, x: torch.Tensor, return_state: bool = False, *,
     on and an input that requires it, the scan's gradient is that of the JAX
     layer's chunked scan (`chunked_scan`, chunk as the JAX layer picks it):
     `"cuda"` keeps the kernel in the forward (`MambaScanFn`), `"ref"` runs
-    `chunked_scan`."""
+    `chunked_scan`.  `tp`: the layer's `ModelRegion` (module docstring)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    if tp is not None and not tp.split("in_proj"):
+        tp = None  # d_inner whole: the layer runs whole on every rank
+    if tp is not None:
+        x = tp.copy(x)
     S = x.shape[1]
     d, _, di = p.in_proj.shape
     xz = (x @ p.in_proj.reshape(d, 2 * di)).unflatten(-1, (2, di))
     x1, z = xz[..., 0, :], xz[..., 1, :]
     xc, _ = _causal_conv(p, cfg, x1)
     xc = F.silu(xc)
-    a, b, Cc = _ssm_inputs(p, cfg, xc)
+    a, b, Cc = _ssm_inputs(p, cfg, xc, tp)
     C32 = Cc.float().contiguous()
     if needs_grad(a, b, C32):
         Q = min(cfg.mamba.chunk, S)  # the JAX layer's chunk: halved until it divides S
@@ -187,6 +202,8 @@ def mamba_forward(p, cfg, x: torch.Tensor, return_state: bool = False, *,
         y, h_last = scan(a, b, C32, return_state=True)
     del a, b
     out = _gate_out(p, y, xc, z, x.dtype)
+    if tp is not None:
+        out = tp.reduce(out)
     if not return_state:
         return out
     dconv = cfg.mamba.d_conv

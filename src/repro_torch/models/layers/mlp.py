@@ -2,6 +2,11 @@
 
 `gelu` is the tanh approximation, as `jax.nn.gelu` computes by default
 (PyTorch's default is the erf form).
+
+Under tensor parallelism (`tp`, a `repro_torch.parallel.tensor.ModelRegion`
+whose "w_in" is split along "model") w_in is column-parallel over d_ff,
+gate and up by the same columns, and w_out row-parallel, the output summed
+over "model".
 """
 
 from __future__ import annotations
@@ -39,11 +44,15 @@ def mlp_specs(cfg) -> dict:
     return {"w_in": ("fsdp", None, "tp"), "w_out": ("tp", "fsdp")}
 
 
-def mlp_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]; gate and up projections in one product."""
+def mlp_forward(p, cfg, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]; gate and up projections in one product
+    (`tp`: the layer's `ModelRegion`, module docstring)."""
+    split = tp is not None and tp.split("w_in")
+    if split:
+        x = tp.copy(x)
     d, g, ff = p.w_in.shape
     gu = (x @ p.w_in.reshape(d, g * ff)).unflatten(-1, (g, ff))
     h = _act(cfg.act, gu[..., 0, :])
     if cfg.mlp_gated:
         h = h * gu[..., 1, :]
-    return h @ p.w_out
+    return tp.reduce(h @ p.w_out) if split else h @ p.w_out

@@ -19,16 +19,22 @@ group g's leaf is the parameter `groups.{g}.{pos}.{sub}.{name}`.
 `jax.tree.flatten`'s order (sorted keys), for the optimizer state, the
 checkpoint format and `repro_torch.interop`.
 
-A model whose state is sharded over the "data" axis (`model.fsdp`, set by
-`repro_torch.parallel.fsdp.shard_model`) holds its rank's slices.  Its
-forward gathers each group's whole weights inside the group's function,
-which `torch.utils.checkpoint` recomputes in the backward (the recompute
-gathers again, as the JAX group body's all-gathers sit inside its
+A model whose state is sharded (`model.fsdp`, set by
+`repro_torch.parallel.fsdp.shard_model`) holds its rank's blocks.  Its
+forward gathers each group's weights along "data" inside the group's
+function, which `torch.utils.checkpoint` recomputes in the backward (the
+recompute gathers again, as the JAX group body's all-gathers sit inside its
 rematerialized scan body), and the embedding and the head where they are
 used; a tied head uses the one gathered embedding.  The backward
-reduce-scatters their gradients onto the slices.  `init_params` draws the
-one-card values a module at a time and keeps the slices.  Serving takes a
-whole model: `prefill` and `decode_step` raise on a sharded one.
+reduce-scatters their gradients onto the blocks.  Where the mesh's "model"
+axis has more than one rank, the layers run tensor-parallel on the blocks
+(`repro_torch.parallel.tensor`): the group's function runs its layers in
+their model regions (whose all-reduces the recompute runs again), the
+lookup is vocab-parallel, the head gives the rank's vocab slice of the
+logits, `loss_fn` takes the vocab-parallel cross entropy without gathering
+them, and `forward` gathers them whole.  `init_params` draws the one-card
+values a module at a time and keeps the blocks.  Serving takes a whole
+model: `prefill` and `decode_step` raise on a sharded one.
 """
 
 from __future__ import annotations
@@ -44,10 +50,12 @@ from repro_torch.models.blocks import Group, group_specs
 from repro_torch.models.layers.embeddings import (
     embed_inputs,
     embed_specs,
+    head_split,
     init_embeddings,
     logits_out,
 )
 from repro_torch.models.layers.norms import RMSNorm, rms_norm, rms_specs
+from repro_torch.parallel import tensor
 
 
 def leaf_key(name: str) -> tuple[str, int | None]:
@@ -171,14 +179,16 @@ class Transformer(nn.Module):
 
     def _group_fn(self, g: int):
         """Group g's forward; on a sharded model, one that gathers the
-        group's whole weights and runs the group on them."""
+        group's weights along "data" and runs the group on them, in its
+        model region."""
         group = self.groups[g]
         if self.fsdp is None:
             return group
+        tp = tensor.region(self.fsdp, f"groups.{g}.")
 
         def run(*args, **kw):
             whole = self.fsdp.gather(dict(group.named_parameters()), f"groups.{g}.")
-            return torch.func.functional_call(group, whole, args, kw)
+            return torch.func.functional_call(group, whole, args, {**kw, "tp": tp})
 
         return run
 
@@ -202,21 +212,16 @@ class Transformer(nn.Module):
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         return logits_out(self, self.cfg, rms_norm(x, self.final_norm.scale, self.cfg.norm_eps))
 
-    def forward(self, batch: dict, *, remat: bool = True, chunk: int = 1024,
-                dispatch_ranks: int = 1) -> torch.Tensor:
-        """batch -> logits [B, S, V], as the JAX `forward`.
-
-        With grad on and `remat`, each group runs under
-        `torch.utils.checkpoint.checkpoint` (non-reentrant): its activations
-        are dropped after the forward and recomputed in the backward, so the
-        attention and scan kernels run twice per layer a step.  `chunk` is
-        `blocked_attention`'s KV chunk (the "ref" forward and the attention
-        gradient).  `dispatch_ranks`: the data-parallel ranks that share the
-        batch's rows, for the MoE layers' dispatch groups (`moe_forward`)."""
+    def _logits(self, batch: dict, *, remat: bool = True, chunk: int = 1024,
+                dispatch_ranks: int = 1):
+        """(logits, tp): `forward`'s logits, the rank's vocab slice of them
+        where the head is split along "model" (then `tp` is the model's
+        `ModelRegion`, else None)."""
         cfg = self.cfg
+        tp = tensor.region(self.fsdp)
         tied = cfg.tie_embeddings
         w_in = self if cfg.input_mode == "frames" and not tied else self._gathered("embed")
-        x = embed_inputs(w_in, cfg, batch)
+        x = embed_inputs(w_in, cfg, batch, tp)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = remat and torch.is_grad_enabled()
         for g in range(len(self.groups)):
@@ -229,24 +234,46 @@ class Transformer(nn.Module):
                 x = run(cfg, x, positions, backend=self.backend, chunk=chunk,
                         dispatch_ranks=dispatch_ranks)
         w_out = w_in if tied else self._gathered("head")
-        return logits_out(w_out, cfg, rms_norm(x, self.final_norm.scale, cfg.norm_eps))
+        logits = logits_out(w_out, cfg, rms_norm(x, self.final_norm.scale, cfg.norm_eps), tp)
+        return logits, (tp if head_split(cfg, tp) else None)
+
+    def forward(self, batch: dict, *, remat: bool = True, chunk: int = 1024,
+                dispatch_ranks: int = 1) -> torch.Tensor:
+        """batch -> logits [B, S, V], as the JAX `forward`.
+
+        With grad on and `remat`, each group runs under
+        `torch.utils.checkpoint.checkpoint` (non-reentrant): its activations
+        are dropped after the forward and recomputed in the backward, so the
+        attention and scan kernels run twice per layer a step.  `chunk` is
+        `blocked_attention`'s KV chunk (the "ref" forward and the attention
+        gradient).  `dispatch_ranks`: the data-parallel ranks that share the
+        batch's rows, for the MoE layers' dispatch groups (`moe_forward`).
+        Under tensor parallelism the ranks' vocab slices are gathered whole."""
+        logits, tp = self._logits(batch, remat=remat, chunk=chunk, dispatch_ranks=dispatch_ranks)
+        return logits if tp is None else tp.gather(logits)
 
     def loss_fn(self, batch: dict, *, denominator=None, **kw) -> torch.Tensor:
         """Mean next-token (or frame-label) cross entropy, as the JAX `loss_fn`:
         f32 logits, logsumexp less the label's logit, weighted by
         `batch["loss_mask"]` (ones by default) over max(mask sum, 1).  `kw`
         goes to `forward`.  `denominator` replaces max(mask sum, 1): a
-        data-parallel rank divides its rows' sum by the whole batch's."""
-        logits = self.forward(batch, **kw).float()
+        data-parallel rank divides its rows' sum by the whole batch's.  Under
+        tensor parallelism the cross entropy is vocab-parallel
+        (`ModelRegion.cross_entropy`): the logits are never gathered."""
+        logits, tp = self._logits(batch, **kw)
+        logits = logits.float()
         labels = batch["labels"]
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        if tp is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            nll = lse - torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        else:
+            nll = tp.cross_entropy(logits, labels)
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
         if denominator is None:
             denominator = torch.clamp(mask.sum(), min=1.0)
-        return torch.sum((lse - picked) * mask) / denominator
+        return torch.sum(nll * mask) / denominator
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int):

@@ -1,5 +1,6 @@
 """Distribution: mesh axes, logical-axis sharding rules, the sharded
-training state (`fsdp`), the compressed all-reduce."""
+training state (`fsdp`, over "data"), tensor parallelism (`tensor`, over
+"model"), the compressed all-reduce."""
 
 from repro_torch.parallel.sharding import (
     Mesh,
@@ -10,6 +11,7 @@ from repro_torch.parallel.sharding import (
     data_dim,
     leaf_shard,
     make_rules,
+    model_dim,
     rank_rows,
     sanitize_pspec,
     template_to_pspec,
@@ -25,6 +27,7 @@ __all__ = [
     "data_dim",
     "leaf_shard",
     "make_rules",
+    "model_dim",
     "rank_rows",
     "sanitize_pspec",
     "template_to_pspec",

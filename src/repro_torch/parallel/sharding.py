@@ -17,16 +17,21 @@ are None, an axis name or a tuple of names, in the part of
 
 The port has no GSPMD.  Its trainer reads two of the rules:
 - the batch's, through `rank_rows`: the rows of each micro-batch a rank
-  takes;
-- the parameters', through `leaf_shard`: fsdp -> "data" shards the training
-  state over the data axis (`repro_torch.parallel.fsdp`, ZeRO-3 style).  A
-  rank holds, of each parameter and of both AdamW moments, the slice of the
-  leaf along the dimension whose sanitized spec names "data", and gathers
-  the whole leaf where it is used.  A leaf whose "data" entry was dropped
-  (a dimension the axis does not divide, the norm scales, every leaf under
-  `make_rules(fsdp=False)`) stays whole on every rank, as GSPMD replicates
-  it.  "model" entries are not read: the ranks along "model" repeat their
-  data slice.  `make_rules(fsdp=False)` thus gives the replicated data
+  takes (the ranks along "model" take the same rows);
+- the parameters', through `leaf_shard`: a rank holds, of each parameter
+  and of both AdamW moments, the block that the leaf's sanitized spec
+  gives its coordinates: its slice along the dimension that names "data"
+  (fsdp -> "data", `repro_torch.parallel.fsdp`, gathered where the leaf is
+  used, ZeRO-3 style) and its slice along the dimension that names
+  "model" (tp -> "model", and kv -> "model" where n_kv divides the axis:
+  Megatron tensor parallelism, `repro_torch.parallel.tensor`, the block
+  used where it lies).  The ranks lie on the mesh row-major, as
+  `rank_rows` lays them.  An axis dropped from a leaf (a dimension the
+  axis does not divide, the norm scales, every "data" entry under
+  `make_rules(fsdp=False)`) leaves the leaf whole along that axis, as
+  GSPMD replicates it.  The MoE experts' "ep" -> "model" is not read yet:
+  the experts stay whole along "model" (ROADMAP §1, slice 24).
+  `make_rules(fsdp=False)` on a (R, 1) mesh thus gives the replicated data
   parallelism of `repro_torch.training.make_train_step(group=...)`.
 `activation_sharding_ctx` and `shard_activation`, the JAX package's
 activation constraints, are the identity here, and no model code calls
@@ -218,55 +223,97 @@ _TOKENS = SimpleNamespace(input_mode="tokens")  # every input mode's batch rule 
 
 @dataclass(frozen=True)
 class Shard:
-    """A rank's part of one port parameter: the whole (per-group) leaf has
+    """A rank's block of one port parameter: the whole (per-group) leaf has
     `shape`; the rank holds slice `index` of `parts` equal slices along
-    `dim`, or the whole leaf where `dim` is None (then parts is 1)."""
+    `dim` (the "data" axis's) and slice `mindex` of `mparts` along `mdim`
+    (the "model" axis's).  A dimension of None leaves the leaf whole along
+    that axis (then its parts is 1)."""
     shape: tuple
     dim: int | None = None
     parts: int = 1
     index: int = 0
+    mdim: int | None = None
+    mparts: int = 1
+    mindex: int = 0
+
+    @property
+    def block(self) -> tuple:
+        """The shape of the rank's block."""
+        out = list(self.shape)
+        for d, n in ((self.dim, self.parts), (self.mdim, self.mparts)):
+            if d is not None:
+                out[d] //= n
+        return tuple(out)
 
     def cut(self, whole, lead: int = 0):
-        """The rank's slice (a view) of `whole`, the leaf with `lead` more
+        """The rank's block (a view) of `whole`, the leaf with `lead` more
         leading dimensions (1 for a moment stacked over the groups)."""
-        if self.dim is None:
-            return whole
-        n = self.shape[self.dim] // self.parts
-        return whole.narrow(self.dim + lead, self.index * n, n)
+        for d, n, i in ((self.dim, self.parts, self.index), (self.mdim, self.mparts, self.mindex)):
+            if d is not None:
+                size = self.shape[d] // n
+                whole = whole.narrow(d + lead, i * size, size)
+        return whole
+
+
+def _axis_dim(axis: str, spec, shape: tuple, mesh: Mesh) -> int | None:
+    if mesh.shape.get(axis, 1) == 1:
+        return None
+    for i, entry in enumerate(sanitize_pspec(spec, shape, mesh)):
+        if entry == axis or (isinstance(entry, tuple) and axis in entry):
+            return i
+    return None
 
 
 def data_dim(spec, shape: tuple, mesh: Mesh) -> int | None:
     """The dimension of a leaf of `shape` that the "data" axis splits under
     `spec` sanitized against `shape` and `mesh`; None where no dimension
     keeps "data" or the axis has one rank."""
-    if mesh.shape.get("data", 1) == 1:
-        return None
-    for i, entry in enumerate(sanitize_pspec(spec, shape, mesh)):
-        if entry == "data" or (isinstance(entry, tuple) and "data" in entry):
-            return i
-    return None
+    return _axis_dim("data", spec, shape, mesh)
+
+
+def model_dim(spec, shape: tuple, mesh: Mesh) -> int | None:
+    """`data_dim` of the "model" axis."""
+    return _axis_dim("model", spec, shape, mesh)
+
+
+def leaf_template(name: str, specs: dict) -> tuple:
+    """The logical-axis template of port parameter `name`.  `specs` is the
+    model's template tree (`Transformer.param_specs()`, the JAX tree's
+    paths): a per-group parameter "groups.{g}.{path}" takes the template of
+    leaf "blocks/{path}" without the stacked leading None."""
+    stacked = name.startswith("groups.")
+    template = specs
+    for k in (["blocks", *name.split(".")[2:]] if stacked else name.split(".")):
+        template = template[k]
+    return template[1:] if stacked else template
+
+
+def tp_template(template: tuple) -> tuple:
+    """The template whose "model" entries the port reads: "ep" (the MoE
+    experts, `ep -> "model"`) is dropped until ROADMAP §1's slice 24."""
+    return tuple(None if t == "ep" else t for t in template)
 
 
 def leaf_shard(name: str, shape: tuple, specs: dict, mesh: Mesh, rules: ShardingRules,
                rank: int) -> Shard:
-    """The part of port parameter `name` (whole shape `shape`) that `rank`
-    holds on `mesh` under `rules`.  `specs` is the model's logical-axis
-    template tree (`Transformer.param_specs()`, the JAX tree's paths): a
-    per-group parameter "groups.{g}.{path}" takes the template of leaf
-    "blocks/{path}" without the stacked leading None.  The ranks lie on the
-    mesh row-major, as `rank_rows` lays them."""
-    stacked = name.startswith("groups.")
-    path = ["blocks", *name.split(".")[2:]] if stacked else name.split(".")
-    template = specs
-    for k in path:
-        template = template[k]
-    if stacked:
-        template = template[1:]
-    dim = data_dim(template_to_pspec(template, rules), tuple(shape), mesh)
-    if dim is None:
-        return Shard(tuple(shape))
+    """The block of port parameter `name` (whole shape `shape`) that `rank`
+    holds on `mesh` under `rules` (`leaf_template` reads `specs`).  The
+    ranks lie on the mesh row-major, as `rank_rows` lays them.  A leaf
+    whose "data" and "model" entries would split one dimension raises
+    ValueError."""
+    template, shape = leaf_template(name, specs), tuple(shape)
+    dim = data_dim(template_to_pspec(template, rules), shape, mesh)
+    mdim = model_dim(template_to_pspec(tp_template(template), rules), shape, mesh)
+    if dim is not None and dim == mdim:
+        raise ValueError(f"{name} {shape}: \"data\" and \"model\" both split dimension {dim} "
+                         f"under {template}; the port splits a dimension along one axis")
     coords = dict(zip(mesh.axis_names, _unravel(rank, mesh.axis_sizes)))
-    return Shard(tuple(shape), dim, mesh.shape["data"], coords["data"])
+    out = {}
+    if dim is not None:
+        out.update(dim=dim, parts=mesh.shape["data"], index=coords["data"])
+    if mdim is not None:
+        out.update(mdim=mdim, mparts=mesh.shape["model"], mindex=coords["model"])
+    return Shard(shape, **out)
 
 
 def _unravel(index: int, sizes: tuple) -> tuple:

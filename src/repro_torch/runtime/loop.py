@@ -27,12 +27,13 @@ others waiting in a collective: the job ends there (the group's timeout),
 and a restart (torchrun's) resumes every rank from the latest checkpoint.
 The checkpoint directory must be one that every rank reads.
 
-With `rules` as well (the JAX rules on the group's (R, 1) ("data",
-"model") mesh: the launcher's), the state is sharded by them
-(`init_train_state(rules=...)`, `repro_torch.parallel.fsdp`): every rank
-then calls the save, which gathers each sliced leaf whole, and rank 0
-writes it; a restore places each rank's slices.  Under
-`make_rules(fsdp=False)` the state stays whole on every rank.
+With `rules` as well (the JAX rules on the group's ("data", "model") mesh:
+`mesh`, or (R, 1) by default, the launcher's), the state is sharded by
+them (`init_train_state(rules=..., mesh=...)`, `repro_torch.parallel.
+fsdp` and `.tensor`): every rank then calls the save, which gathers each
+cut leaf whole, and rank 0 writes it; a restore places each rank's
+blocks.  Under `make_rules(fsdp=False)` on (R, 1) the state stays whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -112,14 +113,14 @@ def run_training(
     train_step_kw: dict | None = None,
     group=None,
     rules=None,
+    mesh=None,
 ) -> dict:
     """Run (or resume) training of `model` to total_steps; survives injected
     failures.  A fresh state draws the parameters from a generator on the
     model's device seeded with `seed`.  Runs under deterministic algorithms
     unless run_cfg.deterministic is off.  With `group`, data-parallel over
-    its ranks, the state sharded by `rules` where they split it (module
-    docstring)."""
-    train_step = make_train_step(model, opt_cfg, group=group, **(train_step_kw or {}))
+    its ranks, the state sharded by `rules` on `mesh` where they split it
+    (module docstring)."""
     writer = group is None or dist.get_rank(group) == 0
 
     def save(step: int, state) -> None:
@@ -135,10 +136,12 @@ def run_training(
     def fresh_state():
         return init_train_state(model, torch.Generator(device=model.device).manual_seed(seed),
                                 opt_cfg, rules=rules if group is not None else None,
-                                group=group)
+                                group=group, mesh=mesh if group is not None else None)
 
     with _deterministic(run_cfg.deterministic):
         state = fresh_state()
+        # built on the sharded model: its ranks along "model" share the rows
+        train_step = make_train_step(model, opt_cfg, group=group, **(train_step_kw or {}))
         start = ckpt.latest_step()
         if start is not None:
             state = ckpt.restore(state, step=start)

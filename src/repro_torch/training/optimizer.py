@@ -3,11 +3,11 @@ optimizer's memory) and Adafactor (factored second moment), as the JAX
 package's `repro/training/optimizer.py` computes them.
 
 Parameters and gradients are dicts keyed by the model's parameter names
-(`dict(model.named_parameters())`): on a sharded state the rank's slices,
+(`dict(model.named_parameters())`): on a sharded state the rank's blocks,
 which AdamW updates element by element as it would the whole leaves.  The
 optimizer state is keyed by the JAX parameter tree's leaves
 (`repro_torch.models.transformer.param_leaves`): each state tensor has the
-JAX leaf's shape (on a sharded state, its slice), stacked over the groups,
+JAX leaf's shape (on a sharded state, its block), stacked over the groups,
 so that Adafactor factors a stacked leaf as the JAX package does (a
 per-group [d] norm scale is a [G, d] matrix there, with a [G] row and a [d]
 column statistic) and a checkpoint's leaves are the JAX `TrainState`'s.
@@ -61,21 +61,26 @@ def _sum_squares(grads: dict, names_of: dict):
 def _global_norm(grads: dict, sharding=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in f32, summed leaf by
     leaf in the JAX tree's order.  With a `sharding`
-    (`repro_torch.parallel.fsdp.Sharding`) the sliced leaves' squares are
-    summed over the data axis and the whole leaves counted once."""
+    (`repro_torch.parallel.fsdp.Sharding`) the squares of the leaves cut
+    along either axis are summed over the ranks, each block once (the
+    blocks the rank `owns`), and the whole leaves counted once."""
     leaves = param_leaves(grads)
     if sharding is None:
         return torch.sqrt(_sum_squares(grads, leaves))
-    split = {k: ns for k, ns in leaves.items() if sharding.split(ns[0])}
-    whole = _sum_squares(grads, {k: ns for k, ns in leaves.items() if k not in split})
-    total = sharding.psum(_sum_squares(grads, split))
+    cut = {k: ns for k, ns in leaves.items()
+           if sharding.split(ns[0]) or sharding.model_split(ns[0])}
+    whole = _sum_squares(grads, {k: ns for k, ns in leaves.items() if k not in cut})
+    mine = _sum_squares(grads, {k: ns for k, ns in cut.items() if sharding.owns(ns[0])})
+    if mine is None:  # no block of this rank's counts: a zero of the sums' kind
+        mine = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+    total = sharding.psum(mine)
     return torch.sqrt(total if whole is None else total + whole)
 
 
 def clip_by_global_norm(grads: dict, max_norm: float,
                         sharding=None) -> tuple[dict, torch.Tensor]:
     """(grads scaled by min(1, max_norm / norm), each in its dtype; norm).
-    `sharding`: the gradients are a sharded state's slices (`_global_norm`)."""
+    `sharding`: the gradients are a sharded state's blocks (`_global_norm`)."""
     norm = _global_norm(grads, sharding)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, norm

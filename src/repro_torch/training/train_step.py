@@ -31,21 +31,35 @@ is built (or, for a batch too small to make whole groups, at its first
 step: `check_dispatch_split`, once a call of `accumulate_grads`).
 
 The state stays whole on every rank unless it is sharded:
-`init_train_state(rules=..., group=...)` under the JAX rule fsdp -> "data"
-(`make_rules(mesh)`'s default) gives each rank its slices of every
-parameter and of both AdamW moments (`repro_torch.parallel.fsdp`).  The
-step on a sharded state is the same function of the same rows:
-- the forward gathers each group's whole weights where the group runs, and
-  the backward reduce-scatters their gradients onto the rank's slices, in
-  the parameters' dtype, once a micro-batch;
-- the leaves that stay whole, and the loss, are summed in f32 buckets as
-  above;
-- the global norm sums the slices' squares over the data axis (one scalar
-  all-reduce) and counts each whole leaf once; compression takes each
-  leaf's max |g| as a MAX over the slices (one all-reduce of every leaf's
-  max), so a stacked leaf's groups still share one scale;
-- AdamW runs per element on the slices, its arithmetic unchanged.
-`make_rules(fsdp=False)` splits no leaf and leaves the state whole.
+`init_train_state(rules=..., group=..., mesh=...)` gives each rank its
+blocks of every parameter and of both AdamW moments by the JAX rules on a
+("data", "model") mesh, (R, 1) by default: fsdp -> "data"
+(`repro_torch.parallel.fsdp`) and tp, kv -> "model"
+(`repro_torch.parallel.tensor`).  The step on a sharded state is the same
+function of the same rows:
+- the ranks along "data" take their share of the rows as above; the ranks
+  along "model" take the same rows and compute one loss together (the
+  layers run on their blocks, tensor-parallel), so only the ranks along
+  "data" split the loss;
+- the forward gathers each group's weights along "data" where the group
+  runs, and the backward reduce-scatters their gradients onto the rank's
+  blocks, in the parameters' dtype, once a micro-batch; a block's gradient
+  stays on the block;
+- the leaves whole along "data", and the loss, are summed over "data" in
+  f32 buckets as above (over "pod" as well on the dry run's multi-pod
+  mesh, whose ranks along "pod" also sum the blocks' gradients); then the
+  leaves that a model region reads whole along "model"
+  (`tensor.summed_over_model`: wk and wv where kv was dropped, q_norm and
+  k_norm) are summed over "model"; every other leaf whole along "model" has
+  its whole gradient on every rank of the row;
+- the global norm sums the squares of each block once over both axes
+  (`Sharding.owns`; one scalar all-reduce an axis) and of each whole leaf
+  once; compression takes each leaf's max |g| as a MAX over its blocks
+  (one all-reduce of every leaf's max an axis), so a stacked leaf's groups
+  still share one scale;
+- AdamW runs per element on the blocks, its arithmetic unchanged.
+`make_rules(fsdp=False)` on a (R, 1) mesh splits no leaf and leaves the
+state whole.
 """
 
 from __future__ import annotations
@@ -57,7 +71,7 @@ import torch.distributed as dist
 
 from repro_torch.models.layers.moe import check_dispatch_split
 from repro_torch.models.transformer import param_leaves
-from repro_torch.parallel import fsdp
+from repro_torch.parallel import fsdp, tensor
 from repro_torch.parallel.sharding import Mesh, make_rules, rank_rows
 from repro_torch.training.optimizer import (
     OptConfig,
@@ -76,18 +90,19 @@ class TrainState:
 
 
 def init_train_state(model, gen: torch.Generator, opt_cfg: OptConfig, *, rules=None,
-                     group=None, place=None) -> TrainState:
+                     group=None, place=None, mesh=None) -> TrainState:
     """Draw the model's parameters from `gen` (a generator on the model's
     device), switch it to training (train mode, every parameter requiring
     grad) and zero the optimizer state and the step.
 
-    With `rules` and a `group` (or `place` = (mesh, rank) on the meta
+    With `rules` and a `group` (on `mesh`, a ("data", "model") mesh of the
+    group's ranks, (R, 1) by default; or `place` = (mesh, rank) on the meta
     device) the state is sharded by the rules (`fsdp.shard_model`): the rank
     draws the one-card values, a module whole at a time, and keeps its
-    slices; the moments are zeroed on the slices.  Adafactor on a state that
+    blocks; the moments are zeroed on the blocks.  Adafactor on a state that
     the rules split raises ValueError (`fsdp.check_optimizer`)."""
     if rules is not None:
-        if fsdp.shard_model(model, rules, group=group, place=place) is not None:
+        if fsdp.shard_model(model, rules, group=group, place=place, mesh=mesh) is not None:
             fsdp.check_optimizer(opt_cfg.kind)
     model.init_params(gen)
     model.train().requires_grad_(True)
@@ -109,7 +124,7 @@ def _quantize_dequantize(g: torch.Tensor, bits: int, amax=None) -> torch.Tensor:
 def _compress(grads: dict, bits: int, sharding=None) -> dict:
     """`_quantize_dequantize` of each leaf of the JAX tree: a stacked leaf's
     groups share one scale, as the JAX package quantizes the stacked leaf.
-    With a `sharding` each leaf's max |g| is the MAX over its slices."""
+    With a `sharding` each leaf's max |g| is the MAX over its blocks."""
     leaves = param_leaves(grads)
     amax = torch.stack([torch.stack([torch.max(torch.abs(grads[n].float())) for n in names]).max()
                         for names in leaves.values()])
@@ -136,14 +151,17 @@ def buckets(numels: list[int], bucket_bytes: int) -> list[list[int]]:
     return out
 
 
-def _all_reduce_sum(tensors: list[torch.Tensor], group, ranks: int | None = None) -> None:
+def _all_reduce_sum(tensors: list[torch.Tensor], group, ranks: int | None = None,
+                    axis: str = "data") -> None:
     """Sum f32 `tensors` over `group` in place, one all-reduce a bucket.
     Without a group, `ranks` ranks on the meta device (counted, not run:
-    `fsdp.WIRE`)."""
+    `fsdp.WIRE`); `axis` names the mesh axis the ranks lie along."""
     ranks = dist.get_world_size(group) if group is not None else ranks
+    if ranks == 1 or not tensors:
+        return
     for idx in buckets([t.numel() for t in tensors], BUCKET_BYTES):
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        fsdp.all_reduce(flat, group, ranks)
+        fsdp.all_reduce(flat, group, ranks, axis=axis)
         off = 0
         for i in idx:
             tensors[i].copy_(flat[off:off + tensors[i].numel()].view_as(tensors[i]))
@@ -157,6 +175,20 @@ def _sharding(model, group, place):
     if sharding is not None and (place is not None or group not in (None, sharding.group)):
         raise ValueError("a sharded model steps on its own group and place (model.fsdp)")
     return sharding
+
+
+def _sum_sharded(sharding, loss: torch.Tensor, grads: dict) -> None:
+    """The sums of a sharded step, in place (module docstring): the loss and
+    the leaves whole along "data" over the ranks that take different rows
+    ("data", and "pod"), the blocks' gradients over "pod", then the leaves
+    a model region reads whole over "model"."""
+    pod = sharding.mesh.shape.get("pod", 1)
+    batch_group = sharding.data_group if pod == 1 else None  # "pod" runs on meta only
+    _all_reduce_sum([loss, *(g for n, g in grads.items() if not sharding.split(n))], batch_group,
+                    sharding.batch_ranks)
+    _all_reduce_sum([g for n, g in grads.items() if sharding.split(n)], None, pod, "pod")
+    _all_reduce_sum([grads[n] for n in tensor.summed_over_model(sharding.layout)],
+                    sharding.model_group, sharding.model_parts, "model")
 
 
 def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, group=None,
@@ -174,15 +206,19 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
     `place` = (mesh, rank) runs rank's share of a data-parallel step on a
     `Mesh` without a process group and without the all-reduce: the rank
     takes `rank_rows` of each micro-batch on that mesh, and the ranks that
-    hold the same rows divide the loss between them.  The result is the
-    rank's part of the sum, before the all-reduce.  With `group` the place
-    is ((R, 1) ("data", "model"), the group rank).
+    hold the same rows (along "model" too: the model is whole) divide the
+    loss between them.  The result is the rank's part of the sum, before
+    the all-reduce.  With `group` the place is ((R, 1) ("data", "model"),
+    the group rank).
 
-    A sharded model (`model.fsdp`) brings its group and place: the gradient
-    of a sliced leaf is the rank's slice of the sum, reduce-scattered in
-    the backward; the whole leaves' gradients and the loss are summed over
-    every rank.  On the meta device (the dry run, no group) those sums are
-    counted and not run, so a whole leaf's gradient is the rank's part."""
+    A sharded model (`model.fsdp`) brings its group and place: the ranks
+    along "model" compute one loss on the same rows, and only the ranks
+    along "data" divide it; the gradient of a sliced leaf is the rank's
+    block of the sum, reduce-scattered along "data" in the backward; the
+    leaves whole along "data" and the loss are summed over "data", and the
+    leaves a model region reads whole are summed over "model" (module
+    docstring).  On the meta device (the dry run, no group) those sums are
+    counted and not run, so such a gradient is the rank's part."""
     params = dict(model.named_parameters())
     sharding = _sharding(model, group, place)
 
@@ -208,7 +244,9 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
         mesh, rank = place
         mine = rank_rows(mb_rows, mesh, make_rules(mesh), rank)
         rows, shard = len(mine), slice(mine.start, mine.stop)
-        copies = mesh.size * rows // mb_rows  # the ranks that hold these rows
+        # the ranks that hold these rows and split their loss
+        holders = mesh.size if sharding is None else sharding.batch_ranks
+        copies = holders * rows // mb_rows
     ranks = mb_rows // rows  # the ranks that share micro-batch i's rows
     check_dispatch_split(model.cfg, ranks, mb_rows, batch["labels"].shape[1])
     loss = torch.zeros((), dtype=torch.float32, device=model.device)
@@ -231,11 +269,7 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
         del mb_grads
     if sharding is not None:
         loss = loss.reshape(1)
-        _all_reduce_sum([loss, *(g for n, g in grads.items() if not sharding.split(n))], group,
-                        sharding.mesh.size)
-        if sharding.copies > 1:  # ranks along "model" / "pod" hold the same slices
-            _all_reduce_sum([g for n, g in grads.items() if sharding.split(n)], None,
-                            sharding.copies)
+        _sum_sharded(sharding, loss, grads)
         loss = loss[0]
     elif group is not None:
         loss = loss.reshape(1)
@@ -264,8 +298,10 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum: int = 1,
     sharded state (`init_train_state(rules=...)`) steps on its own group
     and place, read from the model at each step."""
     update = adamw_update if opt_cfg.kind == "adamw" else adafactor_update
-    if group is not None:
-        check_dispatch_split(model.cfg, dist.get_world_size(group))
+    if group is not None:  # the ranks along "model" of a sharded model share the rows
+        sharding = getattr(model, "fsdp", None)
+        check_dispatch_split(model.cfg, dist.get_world_size(group) if sharding is None
+                             else sharding.batch_ranks)
 
     def train_step(state: TrainState, batch: dict):
         model = state.params

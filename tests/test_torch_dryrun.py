@@ -12,12 +12,18 @@ What the port counts, and how it stands to JAX's numbers on these cells:
 - `memory.argument_bytes` is JAX's `memory.argument_bytes` plus 4 bytes for
   every token and label a device holds: the port's are int64, JAX's int32
   (train: 4096 bytes, decode: 16 bytes a device).
-- `hlo.dot_flops`: one rank's program.  It equals, exactly, JAX's
-  per-device `dot_flops` on a data-only 4x1 mesh; the 4x4 mesh adds the
-  work GSPMD replicates along "model" (K/V projections of 2 KV heads that
-  the 4-way model axis cannot split, among others).  So the port's
-  JAX-mesh view (the global count over 16 devices) is a fixed fraction of
-  JAX's 4x4 count, pinned below to the ratio of the two integer counts.
+- `hlo.dot_flops`: one rank's program, tensor-parallel along "model"
+  (`repro_torch.parallel.tensor`).  On the data-only 4x1 mesh it equals,
+  exactly, JAX's per-device `dot_flops`; on 4x4 it equals that count less
+  the share of the products that "model" splits (the query heads, their
+  attention and wo, the head's vocab: 3/4 of each; the K/V projections of
+  the 2 KV heads the 4-way axis cannot split: 1/2, each rank projecting
+  the one KV head its query head reads), derived from the shapes below.
+  What still differs from JAX's 4x4 count is GSPMD's partition: it splits
+  the MoE experts 4 ways along "model" ("ep"), which the port keeps whole
+  on every rank of a row until ROADMAP §1's slice 24.  The port's JAX-mesh
+  view (its count over the ranks that repeat it) is pinned to the ratio of
+  the two integer counts.
 - The smoke train cell itself (2 MoE dispatch groups) is one the port
   cannot run data-parallel on 4 data ranks (`check_dispatch_split`); the
   FLOP comparison runs it with 4 dispatch groups on both sides.
@@ -67,10 +73,12 @@ CELLS = {
 }
 # The port's JAX-mesh view of the dot FLOPs over JAX's 4x4 dot_flops, as the
 # ratio of two integer counts of deterministic programs (measured: the port's
-# view 96,993,280 / 74,317,824 / 246,784 against JAX's 117,440,512 /
-# 88,080,384 / 274,432).
-FLOP_RATIO = {"4x4/train/g4": 96_993_280 / 117_440_512,
-              "4x4/train/g4/noremat": 74_317_824 / 88_080_384,
+# view 201,326,592 / 152,567,808 / 246,784 against JAX's 117,440,512 /
+# 88,080,384 / 274,432).  The train cells' rank runs the tensor-parallel
+# step, whose experts are whole along "model" (slice 24); the decode cell
+# keeps the whole parameters (slice 25).
+FLOP_RATIO = {"4x4/train/g4": 201_326_592 / 117_440_512,
+              "4x4/train/g4/noremat": 152_567_808 / 88_080_384,
               "4x4/decode": 246_784 / 274_432}
 
 
@@ -166,37 +174,73 @@ def test_argument_bytes_equal_jax_but_for_the_int64_tokens(port_cells, jax_cells
 
 @pytest.mark.parametrize("name", sorted(FLOP_RATIO))
 def test_flop_ratio_to_jax_dot_flops_is_pinned(port_cells, jax_cells, name):
+    """The view is the rank's count over the ranks that repeat its program:
+    none on the tensor-parallel train cells (4 data shards, 4 ranks along
+    "model" splitting the work), the 4 ranks along "model" of the decode
+    cell's whole parameters."""
     rec = port_cells[name]
     view = rec["hlo"]["dot_flops_jax_view"]
-    assert view == rec["hlo"]["dot_flops"] * rec["rank"]["data_shards"] / 16
-    assert rec["rank"]["repetition"] == 4 and rec["rank"]["data_shards"] == 4
+    repetition = 4 if name == "4x4/decode" else 1
+    assert rec["rank"]["repetition"] == repetition and rec["rank"]["data_shards"] == 4
+    assert view == rec["hlo"]["dot_flops"] / repetition
     ratio = view / jax_cells["cells"][name]["hlo"]["dot_flops"]
     assert ratio == pytest.approx(FLOP_RATIO[name], rel=1e-12)
+
+
+def tp_split_flops(cfg, rows: int, S: int, accum: int, M: int, remat: bool) -> float:
+    """The dot FLOPs that M ranks along "model" take off one rank's program
+    on `rows` rows of S tokens a micro-batch, from the shapes: each group's
+    query projection, attention (the plain version's QK^T and PV over every
+    key) and wo, and the head, (M - 1) / M of each; the K/V projections,
+    (M - 1) / M where kv -> "model", else 1 - n / KV, n the KV heads that a
+    rank's H / M query heads read.  A group's product runs forward, in the
+    remat recompute and twice in the backward; the head's has no
+    recompute."""
+    T, d, H, KV, hd = rows * S, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = wo = 2 * T * d * H * hd
+    attn = 2 * (2 * rows * S * S * H * hd)
+    kv = 2 * (2 * T * d * KV * hd)
+    kv_split = (M - 1) / M if KV % M == 0 else 1 - max(1, (H // M) // (H // KV)) / KV
+    per_group = (M - 1) / M * (q + attn + wo) + kv_split * kv
+    head = (M - 1) / M * 2 * T * d * cfg.vocab
+    return accum * (cfg.n_groups * (4 if remat else 3) * per_group + 3 * head)
 
 
 @pytest.mark.parametrize("remat", ["", "/noremat"])
 def test_a_ranks_program_is_jaxs_per_device_program_on_a_data_only_mesh(port_cells, jax_cells,
                                                                         remat):
-    """Exactly: the rank's dot FLOPs on 4x4 equal JAX's per-device dot FLOPs on
-    4x1 (the same rows, no model axis), and the rank's program on 4x1 is the
-    same program.  The 4x4 gap is GSPMD's work along "model"."""
+    """Exactly: the rank's program on 4x1 is JAX's per-device program there
+    (the same rows, no model axis), and on 4x4 it is that count less what
+    the 4 ranks along "model" split (`tp_split_flops`: 186,646,528 FLOPs
+    with remat, 144,703,488 without).  The experts, whole along "model"
+    (slice 24), keep the rank above JAX's 4x4 per-device count."""
     jax41 = jax_cells["cells"][f"4x1/train/g4{remat}"]["hlo"]["dot_flops"]
-    assert port_cells[f"4x4/train/g4{remat}"]["hlo"]["dot_flops"] == jax41
+    cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
+    split = tp_split_flops(cfg, rows=2, S=128, accum=2, M=4, remat=not remat)
+    assert split == (144_703_488 if remat else 186_646_528)
     assert port_cells[f"4x1/train/g4{remat}"]["hlo"]["dot_flops"] == jax41
-    assert jax_cells["cells"][f"4x4/train/g4{remat}"]["hlo"]["dot_flops"] * 16 > jax41 * 4
+    assert port_cells[f"4x4/train/g4{remat}"]["hlo"]["dot_flops"] == jax41 - split
+    jax44 = jax_cells["cells"][f"4x4/train/g4{remat}"]["hlo"]["dot_flops"]
+    assert jax41 - split > jax44 and jax44 * 16 > jax41 * 4
 
 
 def test_remat_adds_one_forward_of_every_group(port_cells):
     """The rank's count with remat is its count without plus one forward of
-    every group on each of its micro-batches (2 rows of 128, 4 ranks share
-    a micro-batch's dispatch groups)."""
+    every group, as the rank runs it (its blocks, in its model region), on
+    each of its micro-batches (2 rows of 128, 4 ranks share a micro-batch's
+    dispatch groups)."""
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel.sharding import make_rules
+
     cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
     model = Transformer(cfg, device="meta", dtype=torch.float32, backend="ref")
+    mesh = Mesh((4, 4), ("data", "model"))
+    fsdp.shard_model(model, make_rules(mesh, model_cfg=cfg), place=(mesh, 0))
     x = torch.empty(2, 128, cfg.d_model, device="meta")
     positions = torch.arange(128, device="meta")
     with FlopCounterMode(display=False) as fc:
-        for group in model.groups:
-            group(cfg, x, positions, backend="ref", dispatch_ranks=4)
+        for g in range(len(model.groups)):
+            model._group_fn(g)(cfg, x, positions, backend="ref", dispatch_ranks=4)
     accum = 2
     got = port_cells["4x4/train/g4"]["hlo"]["dot_flops"]
     assert got == port_cells["4x4/train/g4/noremat"]["hlo"]["dot_flops"] + accum * (
@@ -234,71 +278,95 @@ def test_parameter_count_is_the_jax_trees_not_the_analytic_one(port_cells):
     assert rec["n_params_analytic"] == 90_880
 
 
-def _leaf_bytes(cfg, mesh: Mesh):
-    """(whole bytes of the sliced parameters, of the whole ones, numel of the
-    whole ones, the largest gather's whole bytes) of the f32 model of `cfg`
+def _blocks(cfg, mesh: Mesh) -> dict:
+    """{name: (its `Shard`, its f32 bytes whole)} of the f32 model of `cfg`
     on `mesh` under its rules (rank 0's layout)."""
     from repro_torch.parallel.sharding import leaf_shard, make_rules
 
     model = Transformer(cfg, device="meta", dtype=torch.float32, backend="ref")
     rules = make_rules(mesh, model_cfg=cfg)
-    split, whole, n_whole, units = 0, 0, 0, {}
-    for name, p in model.named_parameters():
-        nbytes = p.numel() * 4
-        if leaf_shard(name, tuple(p.shape), model.param_specs(), mesh, rules, 0).dim is None:
-            whole += nbytes
-            n_whole += p.numel()
-        else:
-            split += nbytes
-            unit = name.split(".")[1] if name.startswith("groups.") else name
-            units[unit] = units.get(unit, 0) + nbytes
-    return split, whole, n_whole, max(units.values())
+    return {name: (leaf_shard(name, tuple(p.shape), model.param_specs(), mesh, rules, 0),
+                   4 * p.numel())
+            for name, p in model.named_parameters()}
+
+
+def _block_bytes(shard, nbytes: int) -> int:
+    return nbytes // shard.parts // shard.mparts
 
 
 def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
-    """The smoke cell on 4x4 (4 data ranks, each slice held by the 4 ranks
-    along "model"), accum 2, two groups, untied head, f32: per micro-batch
-    the embed, the head and each group gathered (each group again in the
-    remat recompute) and their gradients reduce-scattered over the 4 data
-    ranks; then the whole leaves' gradients with the loss all-reduced over
-    all 16 ranks, the slices' gradients over the 4 copies, and the norm's
-    sum of squares over the 4 data ranks: (R - 1) / R of each payload, twice
-    for an all-reduce."""
+    """The smoke cell on 4x4 (4 data ranks, 4 model ranks), accum 2, two
+    groups, untied head, f32.  Along "data", per micro-batch: the embed,
+    the head and each group gathered (each group again in the remat
+    recompute) whole along "data" from their blocks (sliced along "model"),
+    and their gradients reduce-scattered; then the gradients of the leaves
+    whole along "data" with the loss all-reduced, and the norm's sum of
+    squares.  Along "model", per micro-batch, all-reduces of the f32
+    [2, 128, 64] activations: the lookup's sum, each group's attention
+    output in the forward and in the recompute and its input's gradient in
+    the backward (the MoE layers add none: the experts are whole), the
+    head's input gradient; the cross entropy's row max, exponential sum and
+    label logit ([2, 128] each); then the leaves a region reads whole (wk,
+    wv, q_norm, k_norm of each group) and the norm's sum of squares.
+    (R - 1) / R of each payload, twice for an all-reduce."""
     rec = port_cells["4x4/train/g4"]
     cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
-    split, whole, n_whole, _ = _leaf_bytes(cfg, Mesh((4, 4), ("data", "model")))
-    groups_bytes = split - 4 * cfg.vocab * cfg.d_model * 2  # the groups' sliced leaves
+    blocks = _blocks(cfg, Mesh((4, 4), ("data", "model")))
+    gathered = {n: nb // sh.mparts for n, (sh, nb) in blocks.items() if sh.dim is not None}
+    top = gathered["embed"] + gathered["head"]
+    group = sum(v for n, v in gathered.items() if n.startswith("groups."))
     accum = 2
-    gather = accum * (split + groups_bytes) * 3 / 4
-    scatter = accum * split * 3 / 4
-    reduce = 2 * 15 / 16 * 4 * (n_whole + 1) + 2 * 3 / 4 * split / 4 + 2 * 3 / 4 * 4
+    whole_along_data = sum(_block_bytes(sh, nb) for sh, nb in blocks.values() if sh.dim is None)
+    data = {"all-gather": accum * (top + 2 * group) * 3 / 4,
+            "reduce-scatter": accum * (top + group) * 3 / 4,
+            "all-reduce": 2 * 3 / 4 * (whole_along_data + 4) + 2 * 3 / 4 * 4}
+    act, row = 2 * 128 * cfg.d_model * 4, 2 * 128 * 4
+    summed = sum(_block_bytes(*blocks[n]) for n in blocks
+                 if n.rsplit(".", 1)[-1] in ("wk", "wv", "q_norm", "k_norm"))
+    assert summed == 2 * 4 * (16 * 2 * 16 * 2 + 2 * 16)  # wk, wv [16, 2, 16]; q/k_norm [16]
+    model = {"all-gather": 0.0, "reduce-scatter": 0.0,
+             "all-reduce": 2 * 3 / 4 * (accum * ((1 + 3 * cfg.n_groups + 1) * act + 3 * row)
+                                        + summed + 4)}
+    assert rec["hlo"]["collective_by_axis"] == {"data": data, "model": model}
     by_kind = rec["hlo"]["collective_by_kind"]
-    assert by_kind["all-gather"] == gather and by_kind["reduce-scatter"] == scatter
-    assert by_kind["all-reduce"] == pytest.approx(reduce, rel=1e-12)
+    assert by_kind == {k: data[k] + model[k] for k in data}
     assert rec["hlo"]["collective_wire_bytes"] == sum(by_kind.values())
-    assert rec["hlo"]["n_collective_sites"] == accum * (2 + 2 * 2) + accum * (2 + 2) + 3
+    data_calls = accum * (2 + 2 * 2) + accum * (2 + 2) + 2
+    model_calls = accum * (1 + 3 * 2 + 1 + 3) + 2
+    assert rec["hlo"]["n_collective_sites"] == data_calls + model_calls
     assert port_cells["4x4/decode"]["hlo"]["collective_wire_bytes"] == 0
 
 
 def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
-    """A rank of the smoke cell on 4x4 holds a quarter of each sliced leaf
-    (the 4 data ranks; "model" is not read) and every whole leaf, as f32
-    parameters, f32 moments and f32 gradient sums; the largest gather (a
-    group: its experts outweigh the [128, 64] embed) and the global batch."""
+    """A rank of the smoke cell on 4x4 holds its block of each leaf: a
+    quarter along "data" where "data" splits it, a quarter along "model"
+    where "model" does (the heads, the vocab; not the experts, slice 24),
+    as f32 parameters, f32 moments and f32 gradient sums; the largest
+    gather (a group's blocks whole along "data": its experts outweigh the
+    embed's [32, 64] block) and the global batch."""
     rec = port_cells["4x4/train/g4"]
     parts = rec["memory"]["port_rank_parts"]
     cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
-    split, whole, _, largest = _leaf_bytes(cfg, Mesh((4, 4), ("data", "model")))
-    held = split // 4 + whole
+    blocks = _blocks(cfg, Mesh((4, 4), ("data", "model")))
+    held = sum(_block_bytes(sh, nb) for sh, nb in blocks.values())
+    assert held == 69_120  # against 93,696 on 4x1
     assert parts["params"] == held and parts["opt"] == 2 * held  # f32 params and moments
-    assert parts["grads"] == held  # the step's f32 sums of the slices and whole leaves
-    assert parts["gathered"] == largest > 4 * cfg.vocab * cfg.d_model
+    assert parts["grads"] == held  # the step's f32 sums of the blocks
+    units = {}
+    for n, (sh, nb) in blocks.items():
+        if sh.dim is not None:
+            unit = n.split(".")[1] if n.startswith("groups.") else n
+            units[unit] = units.get(unit, 0) + nb // sh.mparts
+    assert parts["gathered"] == max(units.values()) > units["embed"] == 4 * 32 * 64
     assert parts["batch"] == 2 * 16 * 128 * 8  # every rank holds the global batch
     assert rec["memory"]["port_rank_bytes"] == sum(parts.values())
     assert rec["memory"]["fits_one_card"] is True
     layout = rec["memory"]["state_layout"]
     assert layout["fsdp"] == "data" and layout["data_parts"] == 4
-    assert layout["whole_param_bytes"] == whole
+    assert layout["tp"] == "model" and layout["model_parts"] == 4 and layout["kv"] is None
+    assert "slice 24" in layout["ep"] and layout["summed_over_model"] == 8
+    assert layout["whole_param_bytes"] == sum(nb for sh, nb in blocks.values()
+                                              if sh.dim is None and sh.mdim is None)
     dec = port_cells["4x4/decode"]
     assert dec["memory"]["port_rank_parts"]["batch"] == 4 * 8  # its 4 rows' tokens
     assert dec["memory"]["port_rank_parts"]["caches"] > 0
@@ -323,20 +391,24 @@ def test_wire_bytes_equal_the_sum_of_the_collective_wrappers_calls():
     from repro_torch.parallel import fsdp
 
     seen = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
+    by_axis: dict = {}
     calls = []
     orig = fsdp._collective
 
-    def spy(kind, nbytes, ranks, group, t, run):
+    def spy(kind, nbytes, ranks, group, t, run, axis="data"):
         if ranks > 1:
-            seen[kind] += (2 if kind == "all-reduce" else 1) * (ranks - 1) / ranks * nbytes
+            wire = (2 if kind == "all-reduce" else 1) * (ranks - 1) / ranks * nbytes
+            seen[kind] += wire
+            by_axis.setdefault(axis, dict.fromkeys(seen, 0.0))[kind] += wire
             calls.append(kind)
-        return orig(kind, nbytes, ranks, group, t, run)
+        return orig(kind, nbytes, ranks, group, t, run, axis)
 
     s, a = smoke()
     with s, a, mock.patch.object(fsdp, "_collective", spy):
         rec, _ = dr.lower_cell("smoke", "train_4k", Mesh((2, 2), ("data", "model")), accum=2,
                                cfg_override=groups(4))
     assert rec["hlo"]["collective_by_kind"] == seen
+    assert rec["hlo"]["collective_by_axis"] == by_axis and set(by_axis) == {"data", "model"}
     assert rec["hlo"]["collective_wire_bytes"] == sum(seen.values()) > 0
     assert rec["hlo"]["n_collective_sites"] == len(calls)
 
@@ -442,6 +514,7 @@ def test_cli_writes_every_cell_of_an_arch(tmp_path, capsys):
     recs = json.loads(out.read_text())
     assert [(r["shape"], r["mesh"], r["ok"]) for r in recs] == [
         ("train_4k", "16x16", True), ("decode_32k", "16x16", True)]
-    # B = 16 rows over 16 data ranks at accum 4: every rank takes all 4 rows of a micro-batch
-    assert recs[0]["rank"] == {"rank": 0, "rows": 4, "data_shards": 1, "repetition": 256}
+    # B = 16 rows over 16 data ranks at accum 4: every rank takes all 4 rows of a micro-batch;
+    # the 16 ranks along "data" repeat the program, the 16 along "model" split its vocab
+    assert recs[0]["rank"] == {"rank": 0, "rows": 4, "data_shards": 1, "repetition": 16}
     assert "skip ('smoke', 'train_4k', '16x16') (cached)" in capsys.readouterr().out

@@ -429,8 +429,11 @@ LAYOUT_ARCHS = ["qwen3-8b", "qwen3-moe-235b-a22b", "falcon-mamba-7b", "jamba-v0.
                                                  ((2, 2), None), ((16, 16), None)])
 def test_leaf_shard_is_the_jax_rules_slice(arch, mesh_shape, d_model):
     """`leaf_shard` of every parameter against JAX's sanitized spec of its
-    stacked leaf: the split dimension (None where "data" was dropped), the
-    slice count and each rank's index along "data" (ranks row-major)."""
+    stacked leaf: along "data" and along "model", the split dimension (None
+    where the axis was dropped or has one rank), the slice count and each
+    rank's index
+    (ranks row-major); "model" on an "ep" dimension (the experts) stays
+    whole until slice 24."""
     cfg, jcfg = reduced(get_config(arch)), jreduced(jget(arch))
     if d_model is not None:
         cfg, jcfg = (dataclasses.replace(c, d_model=d_model) for c in (cfg, jcfg))
@@ -438,21 +441,32 @@ def test_leaf_shard_is_the_jax_rules_slice(arch, mesh_shape, d_model):
     mesh = Mesh(mesh_shape, ("data", "model"))
     jmesh = jax.sharding.AbstractMesh(mesh_shape, ("data", "model"))
     rules, jrules = make_rules(mesh, model_cfg=cfg), J.make_rules(jmesh, model_cfg=jcfg)
-    jspecs = J.tree_pspecs(jbuild(jcfg).param_specs(), jrules)
+    jtemplates = jbuild(jcfg).param_specs()
+    jspecs = J.tree_pspecs(jtemplates, jrules)
     for name, p in model.named_parameters():
         stacked = name.startswith("groups.")
-        spec = jspecs
+        spec, template = jspecs, jtemplates
         for k in (["blocks", *name.split(".")[2:]] if stacked else name.split(".")):
-            spec = spec[k]
+            spec, template = spec[k], template[k]
         shape = (cfg.n_groups, *p.shape) if stacked else tuple(p.shape)
         spec = J.sanitize_pspec(spec, shape, jmesh)
-        want = next((d - stacked for d, e in enumerate(spec)
-                     if e == "data" or (isinstance(e, tuple) and "data" in e)), None)
+
+        def axis_dim(axis):  # an axis of one rank splits nothing
+            if mesh.shape[axis] == 1:
+                return None
+            return next((d - stacked for d, e in enumerate(spec)
+                         if (e == axis or (isinstance(e, tuple) and axis in e))
+                         and not (axis == "model" and template[d] == "ep")), None)
+
+        want, mwant = axis_dim("data"), axis_dim("model")
         for rank in range(mesh.size):
             got = leaf_shard(name, tuple(p.shape), model.param_specs(), mesh, rules, rank)
             assert got.dim == want, (name, spec)
             assert got.parts == (1 if want is None else mesh_shape[0])
             assert got.index == (0 if want is None else rank // mesh_shape[1])
+            assert got.mdim == mwant, (name, spec)
+            assert got.mparts == (1 if mwant is None else mesh_shape[1])
+            assert got.mindex == (0 if mwant is None else rank % mesh_shape[1])
 
 
 def test_a_sharded_model_draws_the_one_card_values():
@@ -479,13 +493,22 @@ def test_a_sharded_model_draws_the_one_card_values():
 
 
 def test_fsdp_false_and_one_data_rank_leave_the_state_whole():
+    """Along "data": `make_rules(fsdp=False)` on (2, 1) splits no leaf (the
+    model stays whole and replicated), and a (1, 4) mesh, one data rank,
+    slices no leaf along "data"; there tp -> "model" cuts the heads, d_ff
+    and the vocab into 4 blocks (`repro_torch.parallel.tensor`)."""
     cfg = reduced(get_config("qwen3-8b"))
-    for mesh, fsdp_on in ((Mesh((2, 1), ("data", "model")), False),
-                          (Mesh((1, 4), ("data", "model")), True)):
-        model = build_model(cfg, device="cpu")
-        rules = make_rules(mesh, fsdp=fsdp_on, model_cfg=cfg)
-        assert fsdp.shard_model(model, rules, place=(mesh, 0)) is None
-        assert model.fsdp is None and model.embed.shape == (cfg.vocab, cfg.d_model)
+    mesh = Mesh((2, 1), ("data", "model"))
+    model = build_model(cfg, device="cpu")
+    assert fsdp.shard_model(model, make_rules(mesh, fsdp=False, model_cfg=cfg),
+                            place=(mesh, 0)) is None
+    assert model.fsdp is None and model.embed.shape == (cfg.vocab, cfg.d_model)
+    mesh = Mesh((1, 4), ("data", "model"))
+    model = build_model(cfg, device="cpu")
+    sharding = fsdp.shard_model(model, make_rules(mesh, model_cfg=cfg), place=(mesh, 0))
+    assert not any(sharding.split(n) for n in sharding.layout)
+    assert model.embed.shape == (cfg.vocab // 4, cfg.d_model)
+    assert model.groups[0].pos0.mlp.w_in.shape == (cfg.d_model, 2, cfg.d_ff // 4)
 
 
 def test_adafactor_on_a_sharded_state_raises():
