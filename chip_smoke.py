@@ -101,9 +101,16 @@ each kernel against its plain PyTorch version on the card:
   against the rank's own one-device gradient; `compressed_psum` on the two
   ranks against its plain formula; the same steps on two gloo ranks with
   the training state sharded over "data" (fsdp, the JAX rules of the (2, 1)
-  mesh): losses and norms against the one-rank run, step 1's gathered
-  parameters against one device's step 1 and across the ranks, each rank's
-  state bytes and each step's wire bytes against the dry run's count;
+  mesh), then tensor-parallel on the (1, 2) mesh (tp, kv: qwen3-8b and
+  falcon-mamba-7b, 2 layers), then expert-parallel on (1, 2) (ep: one
+  full-width qwen3-moe-235b-a22b layer, 64 experts a rank): losses and
+  norms against the one-rank runs; step 2, the first at a non-zero
+  learning rate, held through its update (the gradient the update
+  receives and the moments after step 1 against one device's, the
+  parameters after it against the port's AdamW of the ranks' own inputs;
+  step 1's parameters bit-equal to the draw); the leaves whole along both
+  axes bit-alike across the ranks; each rank's state bytes and each
+  step's wire bytes against the dry run's count;
   `torchrun --nproc-per-node=1 -m repro_torch.launch.train` (an NCCL group
   of one);
 - bf16 score buffers: `flash_attention(score_dtype=bf16)` (both bodies)
@@ -114,10 +121,12 @@ each kernel against its plain PyTorch version on the card:
 - the dry-run tools (`repro_torch.launch.dryrun` on the meta device) for
   the qwen3-8b training configuration above: the predicted state bytes at
   most that phase's measured peak, no byte put on the card, the counted
-  FLOPs over its step time; the sharded configuration on the (2, 1) mesh
-  (the prediction the sharded steps are held to); and the dry-run CLI once
-  for qwen3-8b x train_4k on the 16x16 mesh, sharded 16 ways, with no card
-  visible: the rank must fit one card.
+  FLOPs over its step time; the sharded configurations on the (2, 1) and
+  (1, 2) meshes (the predictions the sharded steps are held to); and the
+  dry-run CLI for qwen3-8b and qwen3-moe-235b-a22b x train_4k on the 16x16
+  mesh, sharded 16 ways along each axis (the experts too), with no card
+  visible, in processes of their own beside the training phases: each
+  rank must fit one card.
 
 Before the paths, `lu_panel` and `lu_panel_batched` are held bit for bit at
 the edges of their CUDA bodies, in f64 and on panels with NaN and infinite
@@ -290,16 +299,38 @@ LM_DP_TIMEOUT_S = 420  # both ranks together, from spawn to exit
 # The same model, batches and steps on LM_DP_RANKS gloo ranks with the state
 # sharded over "data" (`init_train_state(rules=make_rules(mesh))`: fsdp ->
 # "data" on the (2, 1) mesh).  Each step's loss and gradient norm within
-# LM_DP_STEP_RTOL of the one-rank run's (lm_train_dp's); step 1's gathered
-# parameters within LM_FSDP_PARAM_REL of each leaf's max |p| of rank 0's own
-# one-device step 1 (AdamW's first step moves every element by about lr;
-# the two gradients differ by f32 summation order, so the updates agree to
-# far below that), and bit-alike across the ranks.  Each rank's state bytes
-# (parameters and moments, counted from its tensors) equal the dry run's
-# prediction for the (2, 1) mesh exactly, as do its wire bytes a step.
-LM_FSDP_PARAM_REL = 1e-4
-LM_FSDP_TIMEOUT_S = 600  # both ranks together, from spawn to exit
+# LM_DP_STEP_RTOL of the one-rank run's (lm_train_dp's); step 2 held through
+# its update (F8, below); each rank's state bytes (parameters and moments,
+# counted from its tensors) equal the dry run's prediction for the (2, 1)
+# mesh exactly, as do its wire bytes a step.
 COMPRESS_N, COMPRESS_BITS = 1 << 24, (8, 4)  # compressed_psum's tensor, its bit widths
+# F8 (ROADMAP §3): step 1 runs at lr 0 (warmup_steps = 2) and leaves every
+# parameter as drawn, so each phase that trains across ranks holds step 2, the
+# first at a non-zero lr, through the update itself, leaf by leaf of the JAX
+# tree, with the CPU tests' bounds (tests/multidev/torch_training_common.py):
+# - the gradient the update receives at step 2 (after the clip), gathered
+#   whole, within F8_GRAD_REL of the leaf's max |g| + F8_GRAD_ABS of the
+#   one-device run's, read the same way;
+# - the AdamW moments after step 1, gathered whole, within the same bound of
+#   the one-device run's, v at twice the relative bound (a moment block that
+#   does not lie under its parameter's block fails here, and the update
+#   check cannot see it);
+# - the parameters after step 2, gathered whole, within F8_UPDATE_ABS
+#   (absolute: an element moves by about lr) of the port's AdamW applied on
+#   one device to the ranks' gathered parameters, moments and clipped
+#   gradient before it.
+# Step 1's gathered parameters are bit-equal to the drawn ones (sha256 of
+# each leaf against the one-device run's after its step 1):
+# `step1_layout_params_exact`.  Step 2's gathered parameters against the
+# one-device run's step 2 are reported, not held: a norm scale drawn as zeros
+# is about lr after it, so an f32 summation order moves an element by a
+# large share of the leaf's max.  The gradients are read through a stand-in
+# for `train_step.adamw_update` patched in before a step is built
+# (`_UpdateSpy`).  Whole leaves travel to rank 0's host (gloo send / recv of
+# each distinct block), where the copies the checks need live; the AdamW
+# runs on the card in flat chunks of F8_CHUNK elements.
+F8_GRAD_REL, F8_GRAD_ABS, F8_UPDATE_ABS = 2e-4, 1e-7, 1e-6
+F8_CHUNK = 1 << 26
 # Tensor parallelism (tp, kv -> "model", Megatron) on LM_DP_RANKS gloo ranks
 # on cuda:0, the (1, 2) ("data", "model") mesh: (arch, layers, global batch,
 # steps, phase suffix, held to lm_train_dp's one-rank run), full width, f32,
@@ -308,19 +339,28 @@ COMPRESS_N, COMPRESS_BITS = 1 << 24, (8, 4)  # compressed_psum's tensor, its bit
 # d_inner splits 2 ways (a rank's scan: [1, 2048, 4096, 16]).  qwen3 is
 # lm_train_dp's configuration and is held to its one-rank run; falcon-mamba
 # to rank 0's own one-device run before the ranks'.  Each step's loss and
-# gradient norm within LM_DP_STEP_RTOL; step 1's gathered parameters within
-# LM_FSDP_PARAM_REL of each leaf's max of the one-device step 1, bit-alike
-# across the ranks; qwen3's state bytes and wire bytes a step as dryrun_tp
-# counts them, exactly.  Step 1 runs at lr 0 (warmup_steps = 2) and leaves
-# every parameter as drawn, so its check holds the layout and the gathers,
-# not the update (ROADMAP §3, F8); the losses and norms of steps 2-3 hold
-# the updates.  The parameters after step 2, the first at a non-zero lr,
-# are compared the same way and reported, not held: a norm scale drawn as
-# zeros is about lr after it, so an f32 summation order moves an element
-# by a large share of the leaf's max.
+# gradient norm within LM_DP_STEP_RTOL; step 2 held through its update (F8);
+# the leaves and moments whole along both axes bit-alike across the ranks
+# after each step; qwen3's state bytes and wire bytes a step as dryrun_tp
+# counts them, exactly.
 LM_TP = (("qwen3-8b", 2, 2, 3, "qwen3", True), ("falcon-mamba-7b", 2, 1, 2, "falcon_mamba", False))
-LM_TP_MESH, LM_TP_PARAM_STEPS = (1, 2), (0, 1)  # step 1 held, step 2 reported
-LM_TP_TIMEOUT_S = 600  # both ranks together, from spawn to exit
+LM_TP_MESH = (1, 2)
+# Expert parallelism (ep -> "model") on LM_DP_RANKS gloo ranks on cuda:0, the
+# (1, 2) mesh: qwen3-moe-235b-a22b at full width, its first layer (one
+# (attn, moe) group), f32, global batch 1, S = LM_DP_S, 3 steps, held to rank
+# 0's own one-device run before the ranks'.  A rank holds 64 of the 128
+# experts; its flash launch is [1, 2048, 32, 128] against 2 KV heads; its
+# expert products [64, 160, 4096] @ [64, 4096, 3072] and [64, 160, 1536] @
+# [64, 1536, 4096] (G = 16 dispatch groups, cap = 10).  The same checks as
+# LM_TP's, the state and wire bytes against dryrun_ep.  The one-device run
+# holds the whole model's f32 state and gradients (3.73 G parameters) on the
+# card and frees it before the ranks start.
+LM_EP = ("qwen3-moe-235b-a22b", 1, 1, 3, "qwen3_moe")  # arch, layers, batch, steps, suffix
+# lm_train_fsdp's and lm_train_tp's configurations run on one pair of ranks
+# (`lm_train_sharded`), which start and warm up once; lm_train_ep's on a pair
+# of its own, since a process keeps the pinned host blocks it frees and the
+# EP references take most of the host's memory.
+LM_SHARDED_TIMEOUT_S = 900  # both ranks together, from spawn to exit
 # bf16 score buffers: flash_attention(score_dtype=bf16) against
 # ref.flash_attention(score_dtype=bf16) at qwen3-8b's prefill shape, the
 # bf16-score model's (B = 2), and in f32 (the f32 body) at the DP shape and
@@ -936,7 +976,8 @@ def calibrated_auto(dev, kind: str) -> list[dict]:
     16384 in f32 and bf16 and at 4096 in f32 (fault F7), the calibration
     tool's guard, where auto over the analytic pick's wall or over the
     fastest width's (`calibrate.guard_ok`) > 1 + AUTOTUNE_TOLERANCE fails;
-    reported only at 16384 in f64.  Each row also gives the alpha scales
+    reported only at 8192 in f64 (at 16384 its executes took more of the
+    run's time limit than any other row).  Each row also gives the alpha scales
     under which the table keeps its pick there (`calibrate.pick_alpha_range`).
     Returns the picks."""
     from repro_torch.analysis import calibrate, costmodel
@@ -965,7 +1006,7 @@ def calibrated_auto(dev, kind: str) -> list[dict]:
         picks.append(pick)
     limit = 1 + calibrate.AUTOTUNE_TOLERANCE
     guarded = set(calibrate.GUARD)
-    for n, dtype in ((N, "float32"), (N, "bfloat16"), (N // 4, "float32"), (N, "float64")):
+    for n, dtype in ((N, "float32"), (N, "bfloat16"), (N // 4, "float32"), (N // 2, "float64")):
         widths = tuple(costmodel._sequential_v_candidates(n, None))
         row = calibrate.auto_against_widths(n, dtype, widths, rounds=AUTO_ROUNDS, device=dev)
         row.update(guarded=(n, dtype) in guarded, limit=limit if (n, dtype) in guarded else None,
@@ -2772,7 +2813,15 @@ def lm_train(arch: str, layers: int, batch: int, short: str) -> dict:
     return launches, {"step_s_median_2_6": median_s, "peak_bytes": peak_bytes}
 
 
-def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, dict]:
+# The dry-run CLI's cells (`python -m repro_torch.launch.dryrun`, no card
+# visible, each in its own process started at LM_TRAIN's first phase and
+# read after lm_train_ep, within DRYRUN_CLI_TIMEOUT_S of its start): the
+# 16x16 production mesh, train_4k, bf16; (arch, line suffix, ep parts held).
+DRYRUN_CLI = (("qwen3-8b", "", None), ("qwen3-moe-235b-a22b", "_moe", 16))
+DRYRUN_CLI_TIMEOUT_S = 600
+
+
+def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, dict, dict]:
     """The dry-run tools (`repro_torch.launch.specs`, `launch.dryrun`) on the
     meta device for lm_train's configuration of `arch` (its first `layers`
     layers, bf16, AdamW with f32 moments, B = `batch`, LM_TRAIN_S, remat,
@@ -2782,14 +2831,11 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, di
     counted FLOPs, the predicted bytes and the achieved rate (counted FLOPs
     over lm_train's median step) against H100_SXM's bf16 peak (reported,
     not held).  Also counts lm_train_fsdp's configuration (LM_DP in f32) on
-    the (2, 1) mesh and lm_train_tp's qwen3 configuration on the (1, 2)
-    mesh (`dryrun_tp`), whose ranks' state and wire bytes it returns for
-    those phases to hold.  Then `python -m repro_torch.launch.dryrun` for
-    qwen3-8b x train_4k x single into a temporary file, with no card
-    visible: the 16x16 rank, sharded 16 ways over "data" and 16 over
-    "model", fits one card, its wire bytes listed by axis."""
+    the (2, 1) mesh, lm_train_tp's qwen3 configuration on the (1, 2) mesh
+    (`dryrun_tp`) and lm_train_ep's configuration on the (1, 2) mesh
+    (`dryrun_ep`), whose ranks' state and wire bytes it returns for those
+    phases to hold."""
     import dataclasses
-    import tempfile
     from unittest import mock
 
     from repro_torch.configs import SHAPES, ShapeSpec
@@ -2804,22 +2850,23 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, di
         rec, _ = dryrun.lower_cell(
             arch, shape.name, Mesh((1, 1), ("data", "model")), accum=1, remat=True,
             cfg_override=lambda c: dataclasses.replace(c, n_layers=layers))
+
+    def sharded(name, cell_arch, cell_layers, cell_batch, mesh):  # f32, S = LM_DP_S
+        cell = ShapeSpec(name, LM_DP_S, cell_batch, "train")
+        with mock.patch.dict(SHAPES, {cell.name: cell}):
+            return dryrun.lower_cell(
+                cell_arch, cell.name, Mesh(mesh, ("data", "model")), accum=1, remat=True,
+                cfg_override=lambda c: dataclasses.replace(
+                    c, n_layers=cell_layers, param_dtype="float32"))[0]
+
     # lm_train_fsdp's configuration (f32) on its (2, 1) mesh: the sharded rank
     dp_arch, dp_layers, dp_batch = LM_DP
-    dp_shape = ShapeSpec("lm_train_fsdp", LM_DP_S, dp_batch, "train")
-    with mock.patch.dict(SHAPES, {dp_shape.name: dp_shape}):
-        fsdp_rec, _ = dryrun.lower_cell(
-            dp_arch, dp_shape.name, Mesh((LM_DP_RANKS, 1), ("data", "model")), accum=1,
-            remat=True, cfg_override=lambda c: dataclasses.replace(
-                c, n_layers=dp_layers, param_dtype="float32"))
-    # lm_train_tp's qwen3 configuration (f32) on its (1, 2) mesh: the TP rank
+    fsdp_rec = sharded("lm_train_fsdp", dp_arch, dp_layers, dp_batch, (LM_DP_RANKS, 1))
+    # lm_train_tp's qwen3 configuration and lm_train_ep's on the (1, 2) mesh
     tp_arch, tp_layers, tp_batch = LM_TP[0][:3]
-    tp_shape = ShapeSpec("lm_train_tp", LM_DP_S, tp_batch, "train")
-    with mock.patch.dict(SHAPES, {tp_shape.name: tp_shape}):
-        tp_rec, _ = dryrun.lower_cell(
-            tp_arch, tp_shape.name, Mesh(LM_TP_MESH, ("data", "model")), accum=1,
-            remat=True, cfg_override=lambda c: dataclasses.replace(
-                c, n_layers=tp_layers, param_dtype="float32"))
+    tp_rec = sharded("lm_train_tp", tp_arch, tp_layers, tp_batch, LM_TP_MESH)
+    ep_arch, ep_layers, ep_batch = LM_EP[:3]
+    ep_rec = sharded("lm_train_ep", ep_arch, ep_layers, ep_batch, LM_TP_MESH)
     torch.cuda.synchronize()
     after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
     parts = rec["memory"]["port_rank_parts"]
@@ -2846,56 +2893,98 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, di
          collective_by_kind=fsdp_rec["hlo"]["collective_by_kind"],
          n_collective_sites=fsdp_rec["hlo"]["n_collective_sites"],
          counted_flops=fsdp_rec["hlo"]["dot_flops"])
-    tp_parts = tp_rec["memory"]["port_rank_parts"]
-    tp_predicted = {"state_bytes": tp_parts["params"] + tp_parts["opt"],
-                    "wire_bytes": tp_rec["hlo"]["collective_wire_bytes"],
-                    "wire_by_axis": tp_rec["hlo"]["collective_by_axis"]}
-    emit("dryrun_tp", arch=tp_arch, layers=tp_layers, dtype="float32", batch=tp_batch,
-         seq=LM_DP_S, mesh=tp_rec["mesh"], count_s=tp_rec["count_s"],
-         state_layout=tp_rec["memory"]["state_layout"], port_rank_parts=tp_parts,
-         port_rank_bytes=tp_rec["memory"]["port_rank_bytes"], **tp_predicted,
-         collective_by_kind=tp_rec["hlo"]["collective_by_kind"],
-         n_collective_sites=tp_rec["hlo"]["n_collective_sites"],
-         counted_flops=tp_rec["hlo"]["dot_flops"], rank=tp_rec["rank"])
+    out = [fsdp_predicted]
+    for line, (cell_arch, cell_layers, cell_batch), cell in (
+            ("dryrun_tp", (tp_arch, tp_layers, tp_batch), tp_rec),
+            ("dryrun_ep", (ep_arch, ep_layers, ep_batch), ep_rec)):
+        cell_parts = cell["memory"]["port_rank_parts"]
+        cell_predicted = {"state_bytes": cell_parts["params"] + cell_parts["opt"],
+                          "wire_bytes": cell["hlo"]["collective_wire_bytes"],
+                          "wire_by_axis": cell["hlo"]["collective_by_axis"]}
+        emit(line, arch=cell_arch, layers=cell_layers, dtype="float32", batch=cell_batch,
+             seq=LM_DP_S, mesh=cell["mesh"], count_s=cell["count_s"],
+             state_layout=cell["memory"]["state_layout"], port_rank_parts=cell_parts,
+             port_rank_bytes=cell["memory"]["port_rank_bytes"], **cell_predicted,
+             collective_by_kind=cell["hlo"]["collective_by_kind"],
+             n_collective_sites=cell["hlo"]["n_collective_sites"],
+             counted_flops=cell["hlo"]["dot_flops"], rank=cell["rank"])
+        out.append(cell_predicted)
     if not predicted <= train["peak_bytes"]:
         raise AssertionError(f"dryrun: predicted state bytes {predicted} over lm_train's "
                              f"measured peak {train['peak_bytes']}")
     if after != before or peak != before:
         raise AssertionError(f"dryrun: the card's allocated bytes went {before} -> {after} "
                              f"(peak {peak}); a dry run puts nothing on the card")
+    if ep_rec["memory"]["state_layout"]["ep_parts"] != LM_TP_MESH[1]:
+        raise AssertionError(f"dryrun_ep: the experts are not split along \"model\": "
+                             f"{ep_rec['memory']['state_layout']}")
+    return tuple(out)
+
+
+def start_dryrun_clis() -> list:
+    """DRYRUN_CLI's cells, each `python -m repro_torch.launch.dryrun` in a
+    process of its own with no card visible, writing into a temporary
+    directory: [(arch, suffix, ep parts, process, directory, start)].  A
+    process still running when this one exits is killed then."""
+    import atexit
+    import tempfile
+
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
                CUDA_VISIBLE_DEVICES="")
-    with tempfile.TemporaryDirectory() as root:
-        out = os.path.join(root, "dryrun_torch.json")
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-8b",
-               "--shape", "train_4k", "--mesh", "single", "--out", out, "--no-resume"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    out = []
+    for arch, suffix, ep_parts in DRYRUN_CLI:
+        root = tempfile.TemporaryDirectory()
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               "train_4k", "--mesh", "single", "--out",
+               os.path.join(root.name, "dryrun_torch.json"), "--no-resume"]
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        atexit.register(proc.kill)  # a no-op once it has been waited for
+        out.append((arch, suffix, ep_parts, proc, root, time.perf_counter()))
+    return out
+
+
+def dryrun_cli(started: list) -> None:
+    """`start_dryrun_clis`' cells, each within DRYRUN_CLI_TIMEOUT_S of its
+    start: the 16x16 rank, sharded 16 ways over "data" and 16 over
+    "model" (the experts too, where `ep_parts` says so), fits one card, its
+    wire bytes listed by axis and kind (the model axis' all-gathers apart
+    from its all-reduces); prints `dryrun_cli<suffix>`."""
+    for arch, suffix, ep_parts, proc, root, t0 in started:
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(DRYRUN_CLI_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
         seconds = time.perf_counter() - t0
-        recs = json.loads(Path(out).read_text()) if proc.returncode == 0 else []
-    cell = recs[0] if len(recs) == 1 else {}
-    memory, hlo = cell.get("memory", {}), cell.get("hlo", {})
-    emit("dryrun_cli", cmd=" ".join(cmd[1:6]) + " ...", returncode=proc.returncode,
-         seconds=seconds, ok=cell.get("ok"), count_s=cell.get("count_s"),
-         fits_one_card=memory.get("fits_one_card"),
-         port_rank_bytes=memory.get("port_rank_bytes"),
-         port_rank_parts=memory.get("port_rank_parts"), state_layout=memory.get("state_layout"),
-         collective_wire_bytes=hlo.get("collective_wire_bytes"),
-         collective_by_kind=hlo.get("collective_by_kind"),
-         collective_by_axis=hlo.get("collective_by_axis"),
-         n_collective_sites=hlo.get("n_collective_sites"), dot_flops=hlo.get("dot_flops"),
-         rank=cell.get("rank"), bottleneck=cell.get("roofline", {}).get("bottleneck"))
-    if proc.returncode != 0 or not cell.get("ok"):
-        raise AssertionError(f"dryrun CLI: rc {proc.returncode}: {proc.stdout[-2000:]} "
-                             f"{proc.stderr[-2000:]}")
-    by_axis = hlo["collective_by_axis"]
-    if not (memory["fits_one_card"] and memory["state_layout"]["data_parts"] == 16
-            and memory["state_layout"]["model_parts"] == 16
-            and sum(by_axis.get("model", {}).values()) > 0
-            and hlo["collective_wire_bytes"] == sum(hlo["collective_by_kind"].values())
-            == sum(sum(v.values()) for v in by_axis.values())):
-        raise AssertionError(f"dryrun CLI: the sharded 16x16 rank: {memory} {hlo}")
-    return fsdp_predicted, tp_predicted
+        path = Path(root.name) / "dryrun_torch.json"
+        recs = json.loads(path.read_text()) if proc.returncode == 0 and path.exists() else []
+        root.cleanup()
+        cell = recs[0] if len(recs) == 1 else {}
+        memory, hlo = cell.get("memory", {}), cell.get("hlo", {})
+        emit(f"dryrun_cli{suffix}", cmd=" ".join(proc.args[1:7]) + " ...",
+             returncode=proc.returncode, seconds_since_start=seconds, ok=cell.get("ok"),
+             count_s=cell.get("count_s"), fits_one_card=memory.get("fits_one_card"),
+             port_rank_bytes=memory.get("port_rank_bytes"),
+             port_rank_parts=memory.get("port_rank_parts"),
+             state_layout=memory.get("state_layout"),
+             collective_wire_bytes=hlo.get("collective_wire_bytes"),
+             collective_by_kind=hlo.get("collective_by_kind"),
+             collective_by_axis=hlo.get("collective_by_axis"),
+             n_collective_sites=hlo.get("n_collective_sites"), dot_flops=hlo.get("dot_flops"),
+             rank=cell.get("rank"), bottleneck=cell.get("roofline", {}).get("bottleneck"))
+        if proc.returncode != 0 or not cell.get("ok"):
+            raise AssertionError(f"dryrun CLI {arch}: rc {proc.returncode}: {stdout[-2000:]} "
+                                 f"{stderr[-2000:]}")
+        by_axis, layout = hlo["collective_by_axis"], memory["state_layout"]
+        if not (memory["fits_one_card"] and layout["data_parts"] == 16
+                and layout["model_parts"] == 16 and layout["ep_parts"] == ep_parts
+                and (ep_parts is None or layout["ep"] == "model")
+                and sum(by_axis.get("model", {}).values()) > 0
+                and hlo["collective_wire_bytes"] == sum(hlo["collective_by_kind"].values())
+                == sum(sum(v.values()) for v in by_axis.values())):
+            raise AssertionError(f"dryrun CLI {arch}: the sharded 16x16 rank: {memory} {hlo}")
 
 
 def lm_train_loss_study(arch: str, layers: int, batch: int) -> None:
@@ -3123,19 +3212,9 @@ def _dp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
     from repro_torch.training import OptConfig, init_train_state, make_train_step
     from repro_torch.training import train_step as ts
 
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: loopback
-    torch.set_num_threads(2)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # NCCL refuses two ranks on one device; gloo stages CUDA tensors through
-    # the host for all_reduce, the only collective of the step.
-    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
-                            world_size=LM_DP_RANKS)
-    group = dist.group.WORLD
-    out = {"rank": rank}
-    try:
+    with _gloo_rank(rank, out_dir, device) as dev:
+        group = dist.group.WORLD
+        out = {"rank": rank}
         arch, layers, batch = LM_DP
         cfg = dataclasses.replace(get_config(arch), n_layers=layers)
         opt_cfg = OptConfig(warmup_steps=2)
@@ -3222,41 +3301,6 @@ def _dp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
             out["compressed_psum"].append(row)
             del got
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
-    finally:
-        dist.destroy_process_group()
-
-
-def _spawn_ranks(target, device: str, timeout_s: float, phase: str) -> tuple[list, float]:
-    """LM_DP_RANKS processes of `target(rank, out_dir, device)`, spawned at
-    once and killed at `timeout_s`: (each rank's out_dir/rank<r>.json, the
-    seconds from spawn to the last exit).  Fails if a rank fails or hangs."""
-    import multiprocessing as mp
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as out_dir:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=target, args=(r, out_dir, device))
-                 for r in range(LM_DP_RANKS)]
-        t0 = time.perf_counter()
-        deadline = time.monotonic() + timeout_s
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(max(deadline - time.monotonic(), 0.0))
-        finally:
-            hung = [r for r, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
-        if hung or failed:
-            raise AssertionError(f"{phase}: ranks {failed} failed (of which {hung} "
-                                 f"outlived {timeout_s} s)")
-        spawn_s = time.perf_counter() - t0
-        return ([json.loads((Path(out_dir) / f"rank{r}.json").read_text())
-                 for r in range(LM_DP_RANKS)], spawn_s)
 
 
 def lm_train_dp(device: str = "cuda:0") -> tuple[dict, dict]:
@@ -3348,22 +3392,12 @@ def lm_train_dp(device: str = "cuda:0") -> tuple[dict, dict]:
     return launches, one
 
 
-def _fsdp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
-    """One of LM_DP_RANKS ranks on cuda:0 in a gloo group: lm_train_dp's
-    model, batches and steps on a state sharded over "data" by the JAX
-    rules of the (2, 1) mesh.  Rank 0 first takes its own one-device step 1
-    of the global batch, for the gathered parameters.  Each step runs with
-    the collectives timed (`fsdp.WIRE.sync`: the card waited for before and
-    after each call), rank 0's last one under the profiler.  Writes what it
-    saw to out_dir/rank<r>.json."""
-    import dataclasses
-    import gc
-
+@contextlib.contextmanager
+def _gloo_rank(rank: int, out_dir: str, device: str):
+    """This process as rank `rank` of LM_DP_RANKS in a gloo group on
+    `device` (f32 products without TF32); yields the device.  NCCL refuses
+    two ranks on one device; gloo stages CUDA tensors through the host."""
     import torch.distributed as dist
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.parallel import Mesh, fsdp, make_rules
-    from repro_torch.training import OptConfig, init_train_state, make_train_step
 
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: loopback
     torch.set_num_threads(2)
@@ -3373,120 +3407,586 @@ def _fsdp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
                             world_size=LM_DP_RANKS)
-    group = dist.group.WORLD
-    out = {"rank": rank}
     try:
-        arch, layers, batch = LM_DP
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-        opt_cfg = OptConfig(warmup_steps=2)
-        batches = [_train_batch(cfg, batch, LM_DP_S, s) for s in range(LM_DP_STEPS)]
-        ref = None
-        if rank == 0:  # one device, the global batch: step 1's parameters
-            model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
-            state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg)
-            state, metrics = make_train_step(model, opt_cfg)(state, batches[0])
-            out["one_device_step1_loss"] = metrics["loss"].item()
-            ref = {n: p.detach() for n, p in model.named_parameters()}
-            del state, metrics, model
-            gc.collect()
-            torch.cuda.empty_cache()
-        dist.barrier(group=group)
-        model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
-        mesh = Mesh((LM_DP_RANKS, 1), ("data", "model"))
-        state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg,
-                                 rules=make_rules(mesh, model_cfg=cfg), group=group)
-        sharding = model.fsdp
-        out["state_bytes"] = (sum(p.numel() * p.element_size() for p in model.parameters())
-                              + sum(t.numel() * t.element_size()
-                                    for part in state.opt.values() for t in part.values()))
-        out["split_leaves"] = sum(sharding.split(n) for n in sharding.layout)
-        out["whole_leaves"] = len(sharding.layout) - out["split_leaves"]
-        gc.collect()
-        torch.cuda.empty_cache()
-        step_fn = make_train_step(model, opt_cfg, group=group)
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        out.update(losses=[], grad_norms=[], step_s=[], seconds=[], wire=[], calls=[])
-        fsdp.WIRE.sync = True
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def _f8_blocks(cfg, mesh) -> dict:
+    """{parameter name: [(rank, its Shard)]} of the ranks on `mesh` whose
+    blocks of the parameter differ (under make_rules(mesh, model_cfg=cfg));
+    a leaf whole along an axis has one block along it, the first rank's."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel import make_rules
+    from repro_torch.parallel.sharding import leaf_shard
+
+    model = Transformer(cfg, device="meta", dtype=torch.float32, backend="ref")
+    rules, specs, M = make_rules(mesh, model_cfg=cfg), model.param_specs(), mesh.shape["model"]
+    out = {}
+    for n, p in model.named_parameters():
+        shards = [leaf_shard(n, tuple(p.shape), specs, mesh, rules, r) for r in range(mesh.size)]
+        out[n] = [(r, sh) for r, sh in enumerate(shards)
+                  if (sh.dim is not None or r // M == 0) and (sh.mdim is not None or r % M == 0)]
+    return out
+
+
+_FP_WORDS = 1 << 22  # a fingerprint's chunk, in 4-byte words
+
+
+def _fingerprint(t: torch.Tensor) -> list[int]:
+    """An exact fingerprint of the bits of f32 tensor `t`, on its device: the
+    flat words of each chunk of _FP_WORDS times fixed odd pseudo-random int64
+    weights, summed with wrap-around, one sum a chunk.  Equal bits give
+    equal sums; a word that differs changes its chunk's sum (the weight is
+    odd), and several cancel with a chance of about 2^-63."""
+    gen = torch.Generator(device=t.device).manual_seed(8)
+    w = torch.randint(-(1 << 62), 1 << 62, (_FP_WORDS,), generator=gen, device=t.device,
+                      dtype=torch.int64) | 1
+    words = t.detach().contiguous().view(-1).view(torch.int32)
+    return torch.stack([(c.to(torch.int64) * w[:c.numel()]).sum()
+                        for c in words.split(_FP_WORDS)]).tolist()
+
+
+def _pinned_empty(shape, dtype) -> torch.Tensor:
+    """An uninitialized tensor in page-locked host memory."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of card tensor `t` in page-locked host memory."""
+    out = _pinned_empty(t.shape, t.dtype)
+    out.copy_(t)
+    return out
+
+
+def _worst(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, max |want|) of a card tensor and a host tensor of
+    its shape, on the card in flat chunks of F8_CHUNK (NaN where either
+    holds one)."""
+    g, w = got.detach().reshape(-1), want.reshape(-1)
+    errs, scales = [], []
+    for i in range(0, g.numel(), F8_CHUNK):
+        wc = w[i:i + F8_CHUNK].to(got.device)
+        errs.append((g[i:i + F8_CHUNK] - wc).abs().max())
+        scales.append(wc.abs().max())
+    err, scale = torch.stack(errs).max(), torch.stack(scales).max()
+    return err.item(), scale.item()
+
+
+class _UpdateSpy:
+    """A stand-in for `repro_torch.training.train_step.adamw_update`, patched
+    in while a step is built (`build`): while `hook` is set it is called
+    with the update's arguments (the gradient as the update receives it,
+    after the clip), then the real function runs."""
+
+    def __init__(self):
+        from repro_torch.training import train_step
+
+        self.real, self.hook = train_step.adamw_update, None
+
+    def __call__(self, params, grads, opt_state, step, cfg):
+        if self.hook is not None:
+            self.hook(params, grads, opt_state, step, cfg)
+        return self.real(params, grads, opt_state, step, cfg)
+
+    def build(self, model, opt_cfg, **kw):
+        from unittest import mock
+
+        from repro_torch.training import make_train_step, train_step
+
+        with mock.patch.object(train_step, "adamw_update", self):
+            return make_train_step(model, opt_cfg, **kw)
+
+
+def _one_device_reference(cfg, dev, opt_cfg, batches, mesh, keep_p2: bool) -> dict:
+    """Rank 0's one-device run of `batches` (global batches) from the draw
+    the ranks make: each step's loss and gradient norm ("losses",
+    "grad_norms") and F8's references, each cut into the blocks of the
+    ranks on `mesh` (`_f8_blocks`; (name or JAX leaf key, rank) -> block):
+    the fingerprints of the parameters after step 1 ("p1", on the card),
+    the moments after step 1 ("m1", "v1") and the gradient the update
+    receives at step 2 ("g2"), on the host; with `keep_p2`, the parameters
+    after step 2 on the card ("p2", for the reported distance).  Frees the
+    card of the run."""
+    import gc
+
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import param_leaves
+    from repro_torch.training import init_train_state
+
+    blocks = _f8_blocks(cfg, mesh)
+    model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg)
+    spy = _UpdateSpy()
+    step_fn = spy.build(model, opt_cfg)
+    ref = {"losses": [], "grad_norms": [], "reference_s": 0.0}
+
+    def keep_grads(params, grads, *_):
+        t0 = time.perf_counter()
+        ref["g2"] = {(n, r): _pinned(sh.cut(grads[n])) for n in grads for r, sh in blocks[n]}
+        ref["reference_s"] += time.perf_counter() - t0
+
+    for s, b in enumerate(batches):
+        spy.hook = keep_grads if s == 1 else None
+        state, metrics = step_fn(state, b)
+        spy.hook = None
+        ref["losses"].append(metrics["loss"].item())
+        ref["grad_norms"].append(metrics["grad_norm"].item())
+        if s == 0:
+            t0 = time.perf_counter()
+            named = dict(model.named_parameters())
+            ref["p1"] = {(n, r): _fingerprint(sh.cut(p)) for n, p in named.items()
+                         for r, sh in blocks[n]}
+            ref["m1"], ref["v1"] = {}, {}
+            for key, ns in param_leaves(named).items():
+                lead = int(ns[0].startswith("groups."))  # a stacked moment: the groups first
+                for part in ("m", "v"):
+                    ref[f"{part}1"].update({(key, r): _pinned(sh.cut(state.opt[part][key], lead))
+                                            for r, sh in blocks[ns[0]]})
+            ref["reference_s"] += time.perf_counter() - t0
+        if s == 1 and keep_p2:
+            ref["p2"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ref["host_bytes"] = sum(t.numel() * t.element_size() for part in ("m1", "v1", "g2")
+                            for t in ref[part].values())
+    del state, model, step_fn, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+class _UpdateCheck:
+    """F8's checks on the ranks' side (the block at F8_GRAD_REL), read on
+    rank 0 against `_one_device_reference`'s references.  The ranks share
+    one card, so the other ranks hand rank 0 their blocks through CUDA IPC
+    (`queue`, a torch.multiprocessing queue): their parameters and moments
+    once (the steps update them in place), their gradient at step 2.  Rank
+    0 so holds each leaf whole, as its ranks' blocks at their places on the
+    mesh, and reads it piece by piece on the card; the references it holds
+    on the host are cut the same way.  `moments` runs after step 1, `hook`
+    on the step's `_UpdateSpy` at step 2, `params` after step 2;
+    `replicated_alike` after each step."""
+
+    def __init__(self, model, state, ref, mesh, group, queue, opt_cfg, real):
+        import torch.distributed as dist
+
+        from repro_torch.models.transformer import param_leaves
+
+        self.model, self.state, self.ref, self.group, self.queue = model, state, ref, group, queue
+        self.opt_cfg, self.real = opt_cfg, real
+        self.rank, self.dist = dist.get_rank(group), dist
+        self.blocks = _f8_blocks(model.cfg, mesh)
+        self.leaves = param_leaves(dict(model.named_parameters()))
+        whole = {n for n, ((_, sh),) in ((n, bl) for n, bl in self.blocks.items() if len(bl) == 1)
+                 if sh.block == sh.shape}
+        moments = {k for k, ns in self.leaves.items() if ns[0] in whole}
+        self.whole = {"p": whole, "m": moments, "v": moments}  # whole along both axes
+        self.expected: dict = {}
+        self.seconds, self.peak_host = 0.0, 0
+        self.out = {"step1_moments_worst": {}, "step2_grad_worst": None,
+                    "step2_update_worst_abs": None, "step2_params_vs_one_device": None}
+        self.theirs = self._exchange({"p": dict(model.named_parameters()), **state.opt})
+
+    def _exchange(self, tensors: dict) -> dict:
+        """{rank: `tensors` of that rank} on rank 0 (its own, and the other
+        ranks' through CUDA IPC); {} on the other ranks."""
+        mine = {k: {n: t.detach() for n, t in v.items()} for k, v in tensors.items()}
+        if self.rank != 0:
+            torch.cuda.synchronize()
+            self.queue.put((self.rank, mine))
+            return {}
+        got = {0: mine}
+        for _ in range(LM_DP_RANKS - 1):
+            r, theirs = self.queue.get(timeout=LM_DP_TIMEOUT_S)
+            got[r] = theirs
+        return got
+
+    def _barrier(self) -> None:
+        torch.cuda.synchronize()
+        self.dist.barrier(group=self.group)
+
+    def _host_bytes(self) -> int:
+        live = [t for part in ("m1", "v1", "g2") for t in self.ref.get(part, {}).values()]
+        return sum(t.numel() * t.element_size() for t in [*live, *self.expected.values()])
+
+    def replicated_alike(self) -> bool | None:
+        """Whether every rank holds the bits of rank 0 in each parameter and
+        moment whole along both axes (None on the other ranks)."""
+        self._barrier()
+        alike = None
+        if self.rank == 0:
+            mine = self.theirs[0]
+            alike = all(torch.equal(mine[part][k], t[part][k])
+                        for t in self.theirs.values() for part in t for k in self.whole[part])
+        self._barrier()
+        return alike
+
+    def moments(self) -> None:
+        """After step 1: each rank's moment blocks against the one-device
+        run's moments after step 1, cut the same way (m within
+        F8_GRAD_REL, v within twice it, of the leaf's max, plus
+        F8_GRAD_ABS)."""
+        t0 = time.perf_counter()
+        self._barrier()
+        if self.rank == 0:
+            self.peak_host = max(self.peak_host, self._host_bytes())
+            for part, rel in (("m", F8_GRAD_REL), ("v", 2 * F8_GRAD_REL)):
+                worst = None
+                for key, ns in self.leaves.items():
+                    err = scale = 0.0
+                    for r, _ in self.blocks[ns[0]]:
+                        e, s = _worst(self.theirs[r][part][key], self.ref[f"{part}1"].pop((key, r)))
+                        err, scale = max(err, e), max(scale, s)
+                    ratio = err / (rel * scale + F8_GRAD_ABS)
+                    if worst is None or not ratio <= worst["ratio_to_bound"]:
+                        worst = {"leaf": key, "abs_err": err, "leaf_max": scale,
+                                 "ratio_to_bound": ratio}
+                self.out["step1_moments_worst"][part] = worst
+        self._barrier()
+        self.seconds += time.perf_counter() - t0
+
+    def hook(self, params, grads, opt_state, step, cfg) -> None:
+        """At step 2, before the update: the gradient each rank's update
+        receives against the one-device run's, the parameters' fingerprints
+        against the drawn ones', and the port's AdamW of the ranks' blocks at
+        step 2 (step index 1, the phase's OptConfig: not what the update is
+        handed) into `expected` on the host."""
+        t0 = time.perf_counter()
+        gs = self._exchange({"g": grads})
+        if self.rank == 0:
+            exact, worst = True, None
+            dev, idx = next(iter(params.values())).device, torch.ones((), dtype=torch.int32)
+            for key, ns in self.leaves.items():
+                stacked = ns[0].startswith("groups.")
+                err = scale = 0.0
+                for i, n in enumerate(ns):
+                    for r, _ in self.blocks[n]:
+                        p, g = self.theirs[r]["p"][n], gs[r]["g"][n]
+                        exact &= _fingerprint(p) == self.ref["p1"][(n, r)]
+                        e, s = _worst(g, self.ref["g2"].pop((n, r)))
+                        err, scale = max(err, e), max(scale, s)
+                        m, v = (self.theirs[r][part][key] for part in ("m", "v"))
+                        self.expected[(n, r)] = self._adamw(n, key, p, m[i] if stacked else m,
+                                                            v[i] if stacked else v, g,
+                                                            idx.to(dev), stacked)
+                ratio = err / (F8_GRAD_REL * scale + F8_GRAD_ABS)
+                if worst is None or not ratio <= worst["ratio_to_bound"]:
+                    worst = {"leaf": key, "abs_err": err, "leaf_max": scale,
+                             "ratio_to_bound": ratio, "rel_err": err / scale if scale else err}
+            self.out["step1_layout_params_exact"] = exact
+            self.out["step2_grad_worst"] = worst
+            self.peak_host = max(self.peak_host, self._host_bytes())
+        del gs
+        self._barrier()
+        self.seconds += time.perf_counter() - t0
+
+    def _adamw(self, name, key, p, m, v, g, step, stacked) -> torch.Tensor:
+        """The port's AdamW (the function the step was built with) of block
+        p with moments m, v and gradient g, on the card in flat chunks of
+        F8_CHUNK (elementwise: one call's arithmetic); the updated p on the
+        host."""
+        out = _pinned_empty(p.shape, p.dtype)
+        flat = [x.reshape(-1) for x in (p, m, v, g)]
+        for i in range(0, flat[0].numel(), F8_CHUNK):
+            pc, mc, vc = (x[i:i + F8_CHUNK].clone() for x in flat[:3])
+            gc = flat[3][i:i + F8_CHUNK]
+            if stacked:
+                mc, vc = mc[None], vc[None]
+            self.real({name: pc}, {name: gc}, {"m": {key: mc}, "v": {key: vc}}, step,
+                      self.opt_cfg)
+            out.view(-1)[i:i + F8_CHUNK].copy_(pc)
+        return out
+
+    def params(self) -> None:
+        """After step 2: each rank's parameter blocks against `expected`
+        (held: within F8_UPDATE_ABS) and, with the one-device run's "p2",
+        against its parameters after step 2 (reported)."""
+        t0 = time.perf_counter()
+        self._barrier()
+        if self.rank == 0:
+            worst, far = None, None
+            p2 = self.ref.get("p2")
+            for n, bl in self.blocks.items():
+                err = 0.0
+                for r, sh in bl:
+                    got = self.theirs[r]["p"][n]
+                    err = max(err, _worst(got, self.expected.pop((n, r)))[0])
+                    if p2 is not None:
+                        want = sh.cut(p2[n])
+                        rel = ((got - want).abs().max() / want.abs().max()).item()
+                        if far is None or not rel <= far["rel"]:
+                            far = {"leaf": n, "rel": rel}
+                if worst is None or not err <= worst["abs_err"]:
+                    worst = {"leaf": n, "abs_err": err}
+            self.out["step2_update_worst_abs"] = worst
+            self.out["step2_params_vs_one_device"] = far
+            self.ref.pop("p2", None)
+        self._barrier()
+        self.seconds += time.perf_counter() - t0
+
+    def result(self) -> dict:
+        self.theirs = {}
+        return {**self.out, "seconds": self.seconds,
+                "host_bytes": {"one_device_references": self.ref.get("host_bytes"),
+                               "ranks_peak": self.peak_host},
+                "one_device_reference_s": self.ref.get("reference_s")}
+
+
+def f8_checks(f8: dict) -> dict:
+    """The held readings of `_UpdateCheck.result()` (rank 0's)."""
+    return {
+        "step1_layout_params_exact": f8["step1_layout_params_exact"] is True,
+        "step1_moments_within_tol": all(w["ratio_to_bound"] <= 1.0
+                                        for w in f8["step1_moments_worst"].values()),
+        "step2_grads_within_tol": f8["step2_grad_worst"]["ratio_to_bound"] <= 1.0,
+        "step2_update_within_tol": f8["step2_update_worst_abs"]["abs_err"] <= F8_UPDATE_ABS,
+    }
+
+
+def _sharded_run(rank: int, group, queue, dev, cfg, opt_cfg, batches, mesh, ref,
+                 profile: bool) -> dict:
+    """`batches` on this rank's state, laid out by the JAX rules of `mesh`
+    (the draw of `_one_device_reference`), the collectives timed
+    (`fsdp.WIRE.sync`), rank 0's last step under the profiler if `profile`,
+    with F8's checks (`_UpdateCheck`; `ref` on rank 0, None elsewhere).
+    Returns what the rank saw (`clock`: its wall clock at the run's start,
+    once the state is built, once the steps are done and at its end); step
+    2's `step_s` leaves out the check's seconds."""
+    import gc
+
+    from repro_torch.models import build_model
+    from repro_torch.parallel import fsdp, make_rules, tensor
+    from repro_torch.training import init_train_state
+
+    clock = {"run_start": time.time()}
+    model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg,
+                             rules=make_rules(mesh, model_cfg=cfg), group=group, mesh=mesh)
+    clock["state_built"] = time.time()
+    sharding = model.fsdp
+    out = {"clock": clock,
+           "state_bytes": (sum(p.numel() * p.element_size() for p in model.parameters())
+                           + sum(t.numel() * t.element_size()
+                                 for part in state.opt.values() for t in part.values())),
+           "split_leaves": sum(sharding.split(n) for n in sharding.layout),
+           "model_split_leaves": sum(sharding.model_split(n) for n in sharding.layout),
+           "summed_over_model": len(tensor.summed_over_model(sharding.layout))}
+    out["whole_leaves"] = sum(not (sharding.split(n) or sharding.model_split(n))
+                              for n in sharding.layout)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spy = _UpdateSpy()
+    step_fn = spy.build(model, opt_cfg, group=group)
+    check = _UpdateCheck(model, state, ref if ref is not None else {}, mesh, group, queue,
+                         opt_cfg, spy.real)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out.update(losses=[], grad_norms=[], step_s=[], wire=[], seconds=[], calls=[],
+               replicated_alike=[])
+    fsdp.WIRE.sync = True
+    try:
         for s, b in enumerate(batches):
             fsdp.WIRE.reset()
-            if rank == 0 and s == len(batches) - 1:  # under the profiler: the idle share
+            spy.hook = check.hook if s == 1 else None
+            spent = check.seconds
+            if profile and rank == 0 and s == len(batches) - 1:  # the idle share
                 got = []
                 out["profile"] = profile_once(lambda: got.append(step_fn(state, b)), tries=1)
                 (state, metrics), = got
-                out["step_s"].append(out["profile"]["wall_ms"] / 1e3)
+                wall = out["profile"]["wall_ms"] / 1e3
             else:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, b)
                 torch.cuda.synchronize()
-                out["step_s"].append(time.perf_counter() - t0)
+                wall = time.perf_counter() - t0
+            spy.hook = None
+            out["step_s"].append(wall - (check.seconds - spent))
             out["losses"].append(metrics["loss"].item())
             out["grad_norms"].append(metrics["grad_norm"].item())
-            out["seconds"].append(dict(fsdp.WIRE.seconds))
-            out["wire"].append(dict(fsdp.WIRE.bytes))
-            out["calls"].append(dict(fsdp.WIRE.calls))
+            out["wire"].append(fsdp.WIRE.by_axis())
+            out["seconds"].append(fsdp.WIRE.by_axis("seconds"))
+            out["calls"].append(fsdp.WIRE.by_axis("calls"))
             out["largest_gather"] = fsdp.WIRE.largest_gather
-            if s == 0:  # step 1's parameters, gathered leaf by leaf (no kernel runs)
-                sums, rel = torch.zeros(2, dtype=torch.float64, device=dev), {}
-                for n, p in model.named_parameters():  # every rank takes part in the gathers
-                    whole = sharding.whole(p.detach(), sharding.layout[n])
-                    x = whole.double()
-                    sums += torch.stack([x.sum(), (x * x).sum()])
-                    if ref is not None:
-                        rel[n] = float((whole - ref[n]).abs().max() / ref[n].abs().max())
-                    del whole, x
-                out["step1_checksum"] = sums.tolist()
-                if ref is not None:
-                    worst = max(rel, key=rel.get)
-                    out["step1_param_worst_leaf"] = worst
-                    out["step1_param_worst_rel"] = rel[worst]
-                    ref = None
-        fsdp.WIRE.sync = False
-        out["launches"] = {k: c for k, c in read_launches().items() if c}
-        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+            out["replicated_alike"].append(check.replicated_alike())
+            if s == 0:
+                check.moments()
+            if s == 1:
+                check.params()
     finally:
         fsdp.WIRE.sync = False
-        dist.destroy_process_group()
+        spy.hook = None
+    clock["steps_done"] = time.time()
+    out["f8"] = check.result() if rank == 0 else {}
+    out["launches"] = {k: c for k, c in read_launches().items() if c}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state, model, step_fn, metrics, check
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock["end"] = time.time()
+    return out
 
 
-def lm_train_fsdp(one: dict, predicted: dict, device: str = "cuda:0") -> dict:
+def _timeline(clock: dict, start: float) -> dict:
+    """A rank's `clock` marks as seconds since `start` (the parent's wall
+    clock at the spawn)."""
+    return {k: v - start for k, v in clock.items()}
+
+
+def _sharded_configs() -> dict:
+    """{key: (arch, layers, global batch, steps, mesh shape, steps of rank 0's
+    one-device reference, whether it keeps its step-2 parameters, whether
+    rank 0's last step runs under the profiler)} of the sharded phases:
+    lm_train_fsdp's (lm_train_dp's configuration on (2, 1)), LM_TP's (the
+    one-device reference takes the first two steps where the one-rank run's
+    losses come from lm_train_dp, else every step) and lm_train_ep's."""
+    out = {"fsdp": (*LM_DP, LM_DP_STEPS, (LM_DP_RANKS, 1), 2, True, True)}
+    out.update({f"tp_{short}": (arch, layers, batch, steps, LM_TP_MESH,
+                                2 if from_dp else steps, True, short == LM_TP[0][4])
+                for arch, layers, batch, steps, short, from_dp in LM_TP})
+    arch, layers, batch, steps, short = LM_EP
+    out[f"ep_{short}"] = (arch, layers, batch, steps, LM_TP_MESH, steps, False, True)
+    return out
+
+
+def _sharded_rank(rank: int, out_dir: str, device: str = "cuda:0", queue=None,
+                  keys: tuple = ()) -> None:
+    """One of LM_DP_RANKS ranks on cuda:0 in a gloo group: each of the
+    `_sharded_configs()` named by `keys`, in turn, on its mesh
+    (`_sharded_run`), rank 0's one-device reference first
+    (`_one_device_reference`).  Writes what it saw to out_dir/rank<r>.json,
+    by configuration."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import Mesh
+    from repro_torch.training import OptConfig
+
+    with _gloo_rank(rank, out_dir, device) as dev:
+        out = {"rank": rank}
+        configs = _sharded_configs()
+        for key in keys:
+            arch, layers, batch, steps, shape, ref_steps, keep_p2, profile = configs[key]
+            started = time.time()
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            opt_cfg = OptConfig(warmup_steps=2)
+            batches = [_train_batch(cfg, batch, LM_DP_S, s) for s in range(steps)]
+            mesh = Mesh(shape, ("data", "model"))
+            ref = (_one_device_reference(cfg, dev, opt_cfg, batches[:ref_steps], mesh, keep_p2)
+                   if rank == 0 else None)
+            dist.barrier(group=dist.group.WORLD)
+            run = _sharded_run(rank, dist.group.WORLD, queue, dev, cfg, opt_cfg, batches, mesh,
+                               ref, profile)
+            if ref is not None:
+                run["one_device"] = {"losses": ref["losses"], "grad_norms": ref["grad_norms"]}
+            run["clock"].update(config_start=started)
+            out[key] = run
+            del ref
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _spawn_ranks(target, device: str, timeout_s: float, phase: str,
+                 share: bool = False, args: tuple = ()) -> tuple[list, float]:
+    """LM_DP_RANKS processes of `target(rank, out_dir, device)` (then a
+    torch.multiprocessing queue the ranks share, with `share`, then `args`),
+    spawned at once and killed at `timeout_s`: (each rank's
+    out_dir/rank<r>.json, the seconds from spawn to the last exit).  Fails
+    if a rank fails or hangs."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.get_context("spawn")
+        extra = ((ctx.Queue(),) if share else ()) + tuple(args)
+        procs = [ctx.Process(target=target, args=(r, out_dir, device, *extra))
+                 for r in range(LM_DP_RANKS)]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.0))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if hung or failed:
+            raise AssertionError(f"{phase}: ranks {failed} failed (of which {hung} "
+                                 f"outlived {timeout_s} s)")
+        spawn_s = time.perf_counter() - t0
+        return ([json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(LM_DP_RANKS)], spawn_s)
+
+
+def _rel(a, b) -> list[float]:
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def _ranks_alike(runs: list) -> bool:
+    """Every rank's losses and norms are rank 0's, and rank 0 saw every
+    rank's leaves whole along both axes bit-equal to its own after each step."""
+    r0 = runs[0]
+    return (all(r["losses"] == r0["losses"] and r["grad_norms"] == r0["grad_norms"]
+                for r in runs) and all(x is True for x in r0["replicated_alike"]))
+
+
+def _f8_fields(f8: dict) -> dict:
+    return {"f8": f8, "f8_tols": {"grad_rel": F8_GRAD_REL, "grad_abs": F8_GRAD_ABS,
+                                  "moment_v_rel": 2 * F8_GRAD_REL, "update_abs": F8_UPDATE_ABS}}
+
+
+def lm_train_sharded(keys: tuple, device: str = "cuda:0") -> tuple[dict, float, float]:
+    """The `_sharded_configs()` named by `keys` on one pair of gloo ranks on
+    `device` (`_sharded_rank`), whose results lm_train_fsdp, lm_train_tp and
+    lm_train_ep read: ({key: each rank's run}, seconds from spawn to exit,
+    the wall clock at the spawn)."""
+    start = time.time()
+    ranks, spawn_s = _spawn_ranks(_sharded_rank, device, LM_SHARDED_TIMEOUT_S,
+                                  f"lm_train_sharded{list(keys)}", share=True, args=(keys,))
+    return {key: [r[key] for r in ranks] for key in ranks[0] if key != "rank"}, spawn_s, start
+
+
+def lm_train_fsdp(one: dict, predicted: dict, runs: dict, spawn_s: float, start: float) -> dict:
     """lm_train_dp's model, batches and steps on LM_DP_RANKS gloo ranks on
-    cuda:0 with the training state sharded over "data" (`_fsdp_rank`): each
+    cuda:0 with the training state sharded over "data" (`runs`, `spawn_s`
+    and `start`: `lm_train_sharded`'s, key "fsdp"): each
     step's loss and gradient norm within LM_DP_STEP_RTOL of lm_train_dp's
-    one-rank run (`one`), every rank's alike; step 1's gathered parameters
-    within LM_FSDP_PARAM_REL of each leaf's max of rank 0's one-device step
-    1 and bit-alike across the ranks; each rank's
-    state bytes and each step's wire bytes equal the dry run's (2, 1)
-    prediction (`predicted`, from lm_dryrun) exactly; flash_attention twice
-    per layer a step on each rank.  Prints the state bytes and peak per
-    rank, the gather, reduce-scatter and all-reduce shares of a step and the
-    wire bytes, then `profile_lm_train_fsdp_step`: rank 0's last step, run
-    under the profiler (the device's idle share; its `step_s` is the
-    window's wall).  Returns rank 0's launches."""
-    ranks, spawn_s = _spawn_ranks(_fsdp_rank, device, LM_FSDP_TIMEOUT_S, "lm_train_fsdp")
+    one-rank run (`one`), every rank's alike; step 2 held through its
+    update (F8); the leaves whole along "data" bit-alike across the ranks;
+    each rank's state bytes and each step's wire bytes equal the dry run's
+    (2, 1) prediction (`predicted`, from lm_dryrun) exactly; flash_attention
+    twice per layer a step on each rank.  Prints the state bytes and peak
+    per rank, the gather, reduce-scatter and all-reduce shares of a step
+    and the wire bytes, then `profile_lm_train_fsdp_step`: rank 0's last
+    step, run under the profiler (the device's idle share; its `step_s` is
+    the window's wall).  Returns rank 0's launches."""
+    ranks = runs["fsdp"]
     r0 = ranks[0]
     arch, layers, batch = LM_DP
     per_step = {"flash_attention": 2 * layers}
     want = {k: LM_DP_STEPS * c for k, c in per_step.items()}
-
-    def rel(a, b):
-        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
-
-    loss_rel, norm_rel = rel(r0["losses"], one["losses"]), rel(r0["grad_norms"], one["grad_norms"])
-    shares = [{k: v / step_s for k, v in secs.items()}
+    loss_rel, norm_rel = _rel(r0["losses"], one["losses"]), _rel(r0["grad_norms"],
+                                                                 one["grad_norms"])
+    shares = [{k: sum(v[k] for v in secs.values()) / step_s for k in ("all-gather",
+                                                                      "reduce-scatter",
+                                                                      "all-reduce")}
               for secs, step_s in zip(r0["seconds"], r0["step_s"])][1:]
     check = {
         "losses_within_tol": max(loss_rel) <= LM_DP_STEP_RTOL,
         "grad_norms_within_tol": max(norm_rel) <= LM_DP_STEP_RTOL,
-        "step1_params_within_tol": r0["step1_param_worst_rel"] <= LM_FSDP_PARAM_REL,
-        "ranks_alike": all(r["losses"] == r0["losses"] and r["grad_norms"] == r0["grad_norms"]
-                           and r["step1_checksum"] == r0["step1_checksum"] for r in ranks),
+        **f8_checks(r0["f8"]),
+        "ranks_alike": _ranks_alike(ranks),
         "state_bytes_as_predicted": all(r["state_bytes"] == predicted["state_bytes"]
                                         for r in ranks),
-        "wire_bytes_as_predicted": all(sum(w.values()) == predicted["wire_bytes"]
-                                       for r in ranks for w in r["wire"]),
+        "wire_bytes_as_predicted": all(
+            sum(sum(k.values()) for k in w.values()) == predicted["wire_bytes"]
+            for r in ranks for w in r["wire"]),
         "finite": all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
         "launches": all(r["launches"] == want for r in ranks),
     }
@@ -3500,217 +4000,145 @@ def lm_train_fsdp(one: dict, predicted: dict, device: str = "cuda:0") -> dict:
          peak_gib_per_rank=[r["peak_gib"] for r in ranks],
          one_rank_losses=one["losses"], fsdp_losses=r0["losses"], loss_rel_err=loss_rel,
          one_rank_grad_norms=one["grad_norms"], fsdp_grad_norms=r0["grad_norms"],
-         grad_norm_rel_err=norm_rel, step_tol_rel=LM_DP_STEP_RTOL,
-         one_device_step1_loss=r0["one_device_step1_loss"],
-         step1_param_worst_leaf=r0["step1_param_worst_leaf"],
-         step1_param_worst_rel=r0["step1_param_worst_rel"], param_tol_rel=LM_FSDP_PARAM_REL,
-         step_s=[r["step_s"] for r in ranks], collective_s=r0["seconds"],
-         collective_share_steps_2_on=shares, wire_bytes_per_step=r0["wire"],
-         predicted_wire_bytes=predicted["wire_bytes"], calls_per_step=r0["calls"],
+         grad_norm_rel_err=norm_rel, step_tol_rel=LM_DP_STEP_RTOL, **_f8_fields(r0["f8"]),
+         step_s=[r["step_s"] for r in ranks], collective_s_by_axis=r0["seconds"],
+         collective_share_steps_2_on=shares, wire_bytes_by_axis=r0["wire"],
+         predicted_wire_bytes=predicted["wire_bytes"], calls_by_axis=r0["calls"],
          largest_gather_bytes=r0["largest_gather"],
          launches_per_rank=[r["launches"] for r in ranks], launches_per_step=per_step,
-         spawn_s=spawn_s, **check)
+         spawn_s=spawn_s, timeline_s=_timeline(r0["clock"], start), **check)
     if not all(check.values()):
         raise AssertionError(f"lm_train_fsdp: {check}")
     emit("profile_lm_train_fsdp_step", rank=0, **r0["profile"])
     return r0["launches"]
 
 
-def _tp_run(rank: int, group, dev, arch: str, layers: int, batch: int, steps: int,
-            from_dp: bool, profile: bool) -> dict:
-    """One LM_TP configuration on this rank (`_tp_rank`): rank 0's
-    one-device reference first (the parameters after steps 1 and 2; every
-    step's loss and gradient norm unless they come from lm_train_dp), then
-    the steps on the
-    state laid out by the JAX rules of the (1, 2) mesh, with the
-    collectives timed (`fsdp.WIRE.sync`), rank 0's last one under the
-    profiler if `profile`."""
-    import dataclasses
-    import gc
-
-    import torch.distributed as dist
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.parallel import Mesh, fsdp, make_rules, tensor
-    from repro_torch.training import OptConfig, init_train_state, make_train_step
-
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-    opt_cfg = OptConfig(warmup_steps=2)
-    batches = [_train_batch(cfg, batch, LM_DP_S, s) for s in range(steps)]
-    out, refs = {"params": []}, {}
-    if rank == 0:  # one device, the global batch
-        model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
-        state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg)
-        step_fn = make_train_step(model, opt_cfg)
-        one = {"losses": [], "grad_norms": []}
-        for s in range(LM_TP_PARAM_STEPS[-1] + 1 if from_dp else steps):
-            state, metrics = step_fn(state, batches[s])
-            one["losses"].append(metrics["loss"].item())
-            one["grad_norms"].append(metrics["grad_norm"].item())
-            if s in LM_TP_PARAM_STEPS:
-                refs[s] = {n: p.detach().clone() for n, p in model.named_parameters()}
-        out["one_device"] = one
-        del state, metrics, model, step_fn
-        gc.collect()
-        torch.cuda.empty_cache()
-    dist.barrier(group=group)
-    model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
-    mesh = Mesh(LM_TP_MESH, ("data", "model"))
-    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg,
-                             rules=make_rules(mesh, model_cfg=cfg), group=group, mesh=mesh)
-    sharding = model.fsdp
-    out["state_bytes"] = (sum(p.numel() * p.element_size() for p in model.parameters())
-                          + sum(t.numel() * t.element_size()
-                                for part in state.opt.values() for t in part.values()))
-    out["model_split_leaves"] = sum(sharding.model_split(n) for n in sharding.layout)
-    out["whole_leaves"] = len(sharding.layout) - out["model_split_leaves"]
-    out["summed_over_model"] = len(tensor.summed_over_model(sharding.layout))
-    gc.collect()
-    torch.cuda.empty_cache()
-    step_fn = make_train_step(model, opt_cfg, group=group)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    out.update(losses=[], grad_norms=[], step_s=[], wire=[], seconds=[], calls=[])
-    fsdp.WIRE.sync = True
-    try:
-        for s, b in enumerate(batches):
-            fsdp.WIRE.reset()
-            if profile and rank == 0 and s == len(batches) - 1:  # the idle share
-                got = []
-                out["profile"] = profile_once(lambda: got.append(step_fn(state, b)), tries=1)
-                (state, metrics), = got
-                out["step_s"].append(out["profile"]["wall_ms"] / 1e3)
-            else:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, metrics = step_fn(state, b)
-                torch.cuda.synchronize()
-                out["step_s"].append(time.perf_counter() - t0)
-            out["losses"].append(metrics["loss"].item())
-            out["grad_norms"].append(metrics["grad_norm"].item())
-            out["wire"].append(fsdp.WIRE.by_axis())
-            out["seconds"].append(fsdp.WIRE.by_axis("seconds"))
-            out["calls"].append(fsdp.WIRE.by_axis("calls"))
-            if s in LM_TP_PARAM_STEPS:  # the parameters, gathered leaf by leaf (no kernel runs)
-                ref = refs.pop(s, None)
-                sums, rel = torch.zeros(2, dtype=torch.float64, device=dev), {}
-                for n, p in model.named_parameters():  # every rank takes part in the gathers
-                    whole = sharding.whole(p.detach(), sharding.layout[n])
-                    x = whole.double()
-                    sums += torch.stack([x.sum(), (x * x).sum()])
-                    if ref is not None:
-                        rel[n] = float((whole - ref[n]).abs().max() / ref[n].abs().max())
-                    del whole, x
-                row = {"after_step": s + 1, "checksum": sums.tolist()}
-                if ref is not None:
-                    worst = max(rel, key=rel.get)
-                    row.update(worst_leaf=worst, worst_rel=rel[worst])
-                out["params"].append(row)
-                del ref
-    finally:
-        fsdp.WIRE.sync = False
-    out["launches"] = {k: c for k, c in read_launches().items() if c}
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    del state, model, step_fn, metrics
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
-
-
-def _tp_rank(rank: int, out_dir: str, device: str = "cuda:0") -> None:
-    """One of LM_DP_RANKS ranks on cuda:0 in a gloo group: each LM_TP
-    configuration tensor-parallel on the (1, 2) mesh (`_tp_run`).  Writes
-    what it saw to out_dir/rank<r>.json."""
-    import torch.distributed as dist
-
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: loopback
-    torch.set_num_threads(2)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
-                            world_size=LM_DP_RANKS)
-    out = {"rank": rank}
-    try:
-        for arch, layers, batch, steps, short, from_dp in LM_TP:
-            out[short] = _tp_run(rank, dist.group.WORLD, dev, arch, layers, batch, steps,
-                                 from_dp, profile=short == LM_TP[0][4])
-        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
-    finally:
-        dist.destroy_process_group()
-
-
-def lm_train_tp(one: dict, predicted: dict, device: str = "cuda:0") -> dict:
+def lm_train_tp(one: dict, predicted: dict, runs: dict, spawn_s: float, start: float) -> dict:
     """LM_TP's configurations on LM_DP_RANKS gloo ranks on cuda:0,
-    tensor-parallel on the (1, 2) ("data", "model") mesh (`_tp_rank`): each
+    tensor-parallel on the (1, 2) ("data", "model") mesh (`runs`, `spawn_s`
+    and `start`: `lm_train_sharded`'s, keys "tp_<suffix>"): each
     step's loss and gradient norm within LM_DP_STEP_RTOL of the one-rank
     run's (qwen3: lm_train_dp's, `one`; falcon-mamba: rank 0's own), every
-    rank's alike; step 1's gathered parameters within LM_FSDP_PARAM_REL of
-    each leaf's max of rank 0's one-device step 1 and bit-alike across the
-    ranks (after step 2 the same readings, reported); qwen3's state bytes on each rank and its wire bytes a step, by
-    axis and kind, equal dryrun_tp's count (`predicted`) exactly;
-    flash_attention (qwen3) and mamba_scan (falcon-mamba) twice per layer a
-    step on each rank.  Prints each rank's state bytes and peak, the model
-    axis' wire bytes and its all-reduces' share of a step, then
-    `profile_lm_train_tp_step`: rank 0's last qwen3 step under the profiler
-    (the device's idle share).  Returns rank 0's launches."""
-    ranks, spawn_s = _spawn_ranks(_tp_rank, device, LM_TP_TIMEOUT_S, "lm_train_tp")
+    rank's alike; step 2 held through its update (F8); the leaves whole
+    along "model" bit-alike across the ranks; qwen3's state bytes on each
+    rank and its wire bytes a step, by axis and kind, equal dryrun_tp's
+    count (`predicted`) exactly; flash_attention (qwen3) and mamba_scan
+    (falcon-mamba) twice per layer a step on each rank.  Prints each rank's
+    state bytes and peak, the model axis' wire bytes and its all-reduces'
+    share of a step, then `profile_lm_train_tp_step`: rank 0's last qwen3
+    step under the profiler (the device's idle share).  Returns rank 0's
+    launches."""
     launches = {}
-
-    def rel(a, b):
-        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
-
     for arch, layers, batch, steps, short, from_dp in LM_TP:
-        runs = [r[short] for r in ranks]
-        r0 = runs[0]
+        ranks = runs[f"tp_{short}"]
+        r0 = ranks[0]
         ref = one if from_dp else r0["one_device"]
         kernel = "flash_attention" if short == "qwen3" else "mamba_scan"
         want = {kernel: 2 * layers * steps}
-        loss_rel, norm_rel = rel(r0["losses"], ref["losses"]), rel(r0["grad_norms"],
-                                                                   ref["grad_norms"])
+        loss_rel, norm_rel = _rel(r0["losses"], ref["losses"]), _rel(r0["grad_norms"],
+                                                                     ref["grad_norms"])
         model_share = [sum(sec.get("model", {}).values()) / step_s
                        for sec, step_s in zip(r0["seconds"], r0["step_s"])][1:]
         check = {
             "losses_within_tol": max(loss_rel) <= LM_DP_STEP_RTOL,
             "grad_norms_within_tol": max(norm_rel) <= LM_DP_STEP_RTOL,
-            "step1_params_within_tol": r0["params"][0]["worst_rel"] <= LM_FSDP_PARAM_REL,
-            "ranks_alike": all(r["losses"] == r0["losses"] and r["grad_norms"] == r0["grad_norms"]
-                               and [x["checksum"] for x in r["params"]]
-                               == [x["checksum"] for x in r0["params"]] for r in runs),
+            **f8_checks(r0["f8"]),
+            "ranks_alike": _ranks_alike(ranks),
             "finite": all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
-            "launches": all(r["launches"] == want for r in runs),
+            "launches": all(r["launches"] == want for r in ranks),
         }
         if from_dp:
             check["state_bytes_as_predicted"] = all(r["state_bytes"] == predicted["state_bytes"]
-                                                    for r in runs)
+                                                    for r in ranks)
             check["wire_bytes_as_predicted"] = all(w == predicted["wire_by_axis"]
-                                                   for r in runs for w in r["wire"])
+                                                   for r in ranks for w in r["wire"])
         emit(f"lm_train_tp_{short}", arch=arch, layers=layers, dtype="torch.float32",
              global_batch=batch, seq=LM_DP_S, steps=steps, ranks=LM_DP_RANKS,
              backend="gloo on cuda:0", mesh=list(LM_TP_MESH),
              rules="make_rules(mesh, model_cfg=cfg): fsdp -> data, tp and kv -> model",
              model_split_leaves=r0["model_split_leaves"], whole_leaves=r0["whole_leaves"],
              summed_over_model=r0["summed_over_model"],
-             state_bytes_per_rank=[r["state_bytes"] for r in runs],
+             state_bytes_per_rank=[r["state_bytes"] for r in ranks],
              predicted_state_bytes=predicted["state_bytes"] if from_dp else None,
-             peak_gib_per_rank=[r["peak_gib"] for r in runs],
+             peak_gib_per_rank=[r["peak_gib"] for r in ranks],
              one_rank_of="lm_train_dp" if from_dp else "rank 0's one-device run",
              one_rank_losses=ref["losses"], tp_losses=r0["losses"], loss_rel_err=loss_rel,
              one_rank_grad_norms=ref["grad_norms"], tp_grad_norms=r0["grad_norms"],
-             grad_norm_rel_err=norm_rel, step_tol_rel=LM_DP_STEP_RTOL,
-             params=r0["params"], param_tol_rel=LM_FSDP_PARAM_REL,
-             step_s=[r["step_s"] for r in runs], collective_s_by_axis=r0["seconds"],
+             grad_norm_rel_err=norm_rel, step_tol_rel=LM_DP_STEP_RTOL, **_f8_fields(r0["f8"]),
+             step_s=[r["step_s"] for r in ranks], collective_s_by_axis=r0["seconds"],
              model_axis_share_steps_2_on=model_share, wire_bytes_by_axis=r0["wire"],
              model_wire_bytes_per_step=[sum(w.get("model", {}).values()) for w in r0["wire"]],
              predicted_wire_by_axis=predicted["wire_by_axis"] if from_dp else None,
-             calls_by_axis=r0["calls"], launches_per_rank=[r["launches"] for r in runs],
-             launches_want=want, spawn_s=spawn_s, **check)
+             calls_by_axis=r0["calls"], launches_per_rank=[r["launches"] for r in ranks],
+             launches_want=want, spawn_s=spawn_s, timeline_s=_timeline(r0["clock"], start),
+             **check)
         if not all(check.values()):
             raise AssertionError(f"lm_train_tp_{short}: {check}")
         launches.update(r0["launches"])
-    emit("profile_lm_train_tp_step", rank=0, arch=LM_TP[0][0], **ranks[0][LM_TP[0][4]]["profile"])
+    emit("profile_lm_train_tp_step", rank=0, arch=LM_TP[0][0],
+         **runs[f"tp_{LM_TP[0][4]}"][0]["profile"])
     return launches
+
+
+def lm_train_ep(predicted: dict, runs: dict, spawn_s: float, start: float) -> dict:
+    """LM_EP on LM_DP_RANKS gloo ranks on cuda:0, expert-parallel on the
+    (1, 2) mesh (`runs`, `spawn_s` and `start`: `lm_train_sharded`'s, key
+    "ep_<suffix>"): each step's loss and gradient norm within
+    LM_DP_STEP_RTOL of rank 0's one-device run, every rank's alike; step 2
+    held through its update (F8); the leaves whole along "model" (the
+    router, the norms) bit-alike across the ranks; each rank's state bytes
+    and its wire bytes a step, by axis and kind, equal dryrun_ep's count
+    (`predicted`) exactly; flash_attention twice per layer a step on each
+    rank.  Prints each rank's state bytes and peak, the model axis' wire by
+    kind and the all-gathers' share of a step, then
+    `profile_lm_train_ep_step`: rank 0's last step under the profiler (the
+    device's idle share).  Returns rank 0's launches."""
+    arch, layers, batch, steps, short = LM_EP
+    ranks = runs[f"ep_{short}"]
+    r0 = ranks[0]
+    ref = r0["one_device"]
+    want = {"flash_attention": 2 * layers * steps}
+    loss_rel, norm_rel = _rel(r0["losses"], ref["losses"]), _rel(r0["grad_norms"],
+                                                                 ref["grad_norms"])
+    model_secs = [sec.get("model", {}) for sec in r0["seconds"]]
+    check = {
+        "losses_within_tol": max(loss_rel) <= LM_DP_STEP_RTOL,
+        "grad_norms_within_tol": max(norm_rel) <= LM_DP_STEP_RTOL,
+        **f8_checks(r0["f8"]),
+        "ranks_alike": _ranks_alike(ranks),
+        "state_bytes_as_predicted": all(r["state_bytes"] == predicted["state_bytes"]
+                                        for r in ranks),
+        "wire_bytes_as_predicted": all(w == predicted["wire_by_axis"]
+                                       for r in ranks for w in r["wire"]),
+        "finite": all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+        "launches": all(r["launches"] == want for r in ranks),
+    }
+    emit(f"lm_train_ep_{short}", arch=arch, layers=layers, dtype="torch.float32",
+         global_batch=batch, seq=LM_DP_S, steps=steps, ranks=LM_DP_RANKS,
+         backend="gloo on cuda:0", mesh=list(LM_TP_MESH),
+         rules="make_rules(mesh, model_cfg=cfg): fsdp -> data, tp, kv and ep -> model",
+         model_split_leaves=r0["model_split_leaves"], whole_leaves=r0["whole_leaves"],
+         summed_over_model=r0["summed_over_model"],
+         state_bytes_per_rank=[r["state_bytes"] for r in ranks],
+         predicted_state_bytes=predicted["state_bytes"],
+         peak_gib_per_rank=[r["peak_gib"] for r in ranks],
+         one_rank_of="rank 0's one-device run", one_rank_losses=ref["losses"],
+         ep_losses=r0["losses"], loss_rel_err=loss_rel, one_rank_grad_norms=ref["grad_norms"],
+         ep_grad_norms=r0["grad_norms"], grad_norm_rel_err=norm_rel,
+         step_tol_rel=LM_DP_STEP_RTOL, **_f8_fields(r0["f8"]),
+         step_s=[r["step_s"] for r in ranks], collective_s_by_axis=r0["seconds"],
+         model_axis_share_steps_2_on=[sum(s.values()) / t for s, t in
+                                      zip(model_secs, r0["step_s"])][1:],
+         all_gather_share_steps_2_on=[s.get("all-gather", 0.0) / t for s, t in
+                                      zip(model_secs, r0["step_s"])][1:],
+         wire_bytes_by_axis=r0["wire"], predicted_wire_by_axis=predicted["wire_by_axis"],
+         calls_by_axis=r0["calls"], launches_per_rank=[r["launches"] for r in ranks],
+         launches_want=want, spawn_s=spawn_s, timeline_s=_timeline(r0["clock"], start),
+         **check)
+    if not all(check.values()):
+        raise AssertionError(f"lm_train_ep_{short}: {check}")
+    emit("profile_lm_train_ep_step", rank=0, arch=arch, **r0["profile"])
+    return r0["launches"]
 
 
 def lm_launch_train_torchrun() -> None:
@@ -5457,15 +5885,18 @@ def main() -> int:
     #    in f32, loss and gradients on the kernel path against
     #    the plain path; crash and resume through run_training, and
     #    launch.train then launch.serve --ckpt-dir in subprocesses.
+    clis = start_dryrun_clis()  # 13b reads them: they count on the host meanwhile
     train_readings = {}
     for arch, layers, batch, short in LM_TRAIN:
         new_paths[f"lm_train_{short}"], train_readings[short] = lm_train(arch, layers, batch,
                                                                          short)
     # 13a. The dry-run tools on the meta device for lm_train_qwen3's
     #    configuration, held to that phase's measured peak; nothing on the card;
-    #    the sharded predictions that lm_train_fsdp and lm_train_tp are held to.
+    #    the sharded predictions that lm_train_fsdp, lm_train_tp and
+    #    lm_train_ep are held to.
     arch, layers, batch, short = LM_TRAIN[0]
-    fsdp_predicted, tp_predicted = lm_dryrun(arch, layers, batch, train_readings[short])
+    fsdp_predicted, tp_predicted, ep_predicted = lm_dryrun(arch, layers, batch,
+                                                           train_readings[short])
     lm_train_loss_study(*LM_TRAIN[0][:3])
     for arch, *_ in LM_TRAIN:
         lm_train_plain_check(arch)
@@ -5476,14 +5907,22 @@ def main() -> int:
     #    under torchrun (NCCL, one rank), the bf16 score buffers (kernel and
     #    model), and llama4-maverick served at full width (one group).
     new_paths["lm_train_dp"], dp_one = lm_train_dp()
-    # 14a. The same steps with the state sharded over "data" (fsdp), on two
-    #    gloo ranks: against the one-rank run and the dry run's prediction.
-    new_paths["lm_train_fsdp"] = lm_train_fsdp(dp_one, fsdp_predicted)
-    # 14b. Tensor parallelism (tp, kv -> "model"): qwen3-8b and falcon-mamba-7b
-    #    on two gloo ranks on the (1, 2) mesh, the flash and scan kernels on
-    #    each rank's heads and channels: against the one-rank runs and
-    #    dryrun_tp's count.
-    new_paths["lm_train_tp"] = lm_train_tp(dp_one, tp_predicted)
+    # 14a-b. One pair of gloo ranks runs the state sharded over "data" (fsdp:
+    #    lm_train_dp's steps on (2, 1)) and then tensor parallelism (tp, kv ->
+    #    "model": qwen3-8b and falcon-mamba-7b on (1, 2), the flash and scan
+    #    kernels on each rank's heads and channels), each against its
+    #    one-rank run and the dry run's count, each driven with the launch
+    #    counts set to 0 just before it.
+    sharded = lm_train_sharded(("fsdp", *(f"tp_{c[4]}" for c in LM_TP)))
+    new_paths["lm_train_fsdp"] = lm_train_fsdp(dp_one, fsdp_predicted, *sharded)
+    new_paths["lm_train_tp"] = lm_train_tp(dp_one, tp_predicted, *sharded)
+    # 14c. Expert parallelism (ep -> "model"): one full-width qwen3-moe layer on
+    #    the (1, 2) mesh, 64 experts a rank, on a pair of its own: against rank
+    #    0's one-device run and dryrun_ep.
+    new_paths["lm_train_ep"] = lm_train_ep(ep_predicted,
+                                           *lm_train_sharded((f"ep_{LM_EP[4]}",)))
+    # 13b. The dry-run CLI's 16x16 cells, started at 13.
+    dryrun_cli(clis)
     lm_launch_train_torchrun()
     bf16_scores_row = lm_score_bf16_kernels(dev, gen)
     new_paths["lm_score_bf16"] = lm_score_bf16()

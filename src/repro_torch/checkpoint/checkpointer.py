@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.models.transformer import param_leaves
 from repro_torch.parallel.fsdp import opt_leaf_shard
-from repro_torch.parallel.sharding import data_dim, leaf_template, model_dim
+from repro_torch.parallel.sharding import data_dim, model_dim
 from repro_torch.training.train_step import TrainState
 
 _BF16_DESCR = "<V2"
@@ -266,9 +266,8 @@ class Checkpointer:
         (`flatten_up_to`: a mismatch raises ValueError).  A sharded
         `example_state` (`repro_torch.parallel.fsdp`) takes only the rank's
         block of each leaf; its layout must split each leaf where the spec
-        puts "data" and "model" on its mesh (else ValueError), but for the
-        MoE experts' "model" ("ep"), which the port keeps whole along
-        "model" until ROADMAP §1's slice 24.  A whole state takes every leaf
+        puts "data" and "model" on its mesh (else ValueError), the MoE
+        experts' "ep" dimension included.  A whole state takes every leaf
         whole, whatever the specs: the replicated data-parallel step holds
         the whole state on every rank."""
         shards = leaf_shards(example_state)
@@ -310,10 +309,8 @@ def _check_layout(state, specs: list, shards: list) -> None:
     """Each cut leaf of the sharded `state` is split where its spec puts
     "data", and "model", on the state's mesh (the dimensions of the whole
     leaf, a stacked parameter's groups in front), and each whole leaf
-    nowhere; a "model" entry on the MoE experts' "ep" dimension wants none."""
+    nowhere."""
     mesh = state.params.fsdp.mesh
-    templates = state.params.param_specs()
-    names = param_leaves(dict(state.params.named_parameters()))
     for (path, ts), spec, (shard, lead) in zip(state_leaves(state), specs, shards):
         stacked = path.startswith("params/blocks/")
         shape = _whole_shape(ts, stacked, shard, lead)
@@ -323,10 +320,6 @@ def _check_layout(state, specs: list, shards: list) -> None:
                                 ("model", None if shard is None else shard.mdim, model_dim)):
             have = None if got is None else got + lead_all
             want = find(spec, shape, mesh) if fits else None
-            if want is not None and axis == "model":
-                key = path.split("/", 1)[1] if path.startswith("params/") else path.split("/", 2)[2]
-                if leaf_template(names[key][0], templates)[want - lead_all] == "ep":
-                    want = None  # the experts stay whole along "model" until slice 24
             if have != want:
                 raise ValueError(f"{path}: the state splits dimension {have} over \"{axis}\", "
                                  f"the shardings {spec} on {mesh} dimension {want}")

@@ -25,14 +25,14 @@ dry run's `in_shardings` shard it (`repro_torch.parallel.fsdp.
 shard_train_state`): rank 0 holds its blocks of the parameters and AdamW
 moments, sliced along "data" (fsdp, gathered where a group runs, the
 gradients reduce-scattered) and along "model" (tp and kv, Megatron tensor
-parallelism: `repro_torch.parallel.tensor`), and the ranks along "model"
-run the layers on their blocks, on the same rows, with the model axis'
-all-reduces.  The MoE experts ("ep") stay whole along "model" until
-ROADMAP §1's slice 24, so every rank of a row repeats their products.
-`rank.repetition` counts the ranks that run the rank's very program (the
-ranks along "model" on a cell that keeps the whole parameters); prefill and
-decode cells run on the whole parameters (serving on a sharded state is a
-later slice; `memory.state_layout` says which).  The record's keys follow
+parallelism: `repro_torch.parallel.tensor`; and ep, the MoE experts, E / M
+of them a rank), and the ranks along "model" run the layers on their
+blocks, on the same rows, with the model axis' all-reduces and the MoE
+layers' all-gathers of the experts' outputs.  `rank.repetition` counts the
+ranks that run the rank's very program (the ranks along "model" on a cell
+that keeps the whole parameters); prefill and decode cells run on the
+whole parameters (serving on a sharded state is a later slice;
+`memory.state_layout` says which).  The record's keys follow
 the JAX record's; where a value has no counterpart it is None and
 `no_counterpart` names it:
 
@@ -55,7 +55,9 @@ the JAX record's; where a value has no counterpart it is None and
   forward and in the remat recompute, the gradients' reduce-scatters, the
   all-reduces of the whole leaves' f32 gradients with the loss; along
   "model" the layers' all-reduces (forward, recompute and backward), the
-  cross entropy's and the leaves a region reads whole; the norm's squares
+  MoE layers' all-gathers of the experts' outputs (forward and recompute)
+  and all-reduces of the dispatch input's gradient (backward), the cross
+  entropy's and the leaves a region reads whole; the norm's squares
   and the compression's maxima along both.  `collective_by_kind` splits it
   by kind, `collective_by_axis` by mesh axis and kind, and
   `n_collective_sites` counts the calls.  A decode or prefill cell has 0.
@@ -203,13 +205,17 @@ def _state_bytes(state, state_pspecs, mesh: Mesh) -> int:
 
 def state_layout(sharding, model, rules) -> dict:
     """How a train cell's state lies on the mesh: the rules' axes for fsdp,
-    tp, kv and ep with their part counts, and the leaves cut along each."""
+    tp, kv and ep with their part counts (`ep_parts`: the ranks that split
+    the MoE experts, 1 where the model axis does not divide n_experts; ep
+    and ep_parts None without MoE layers), and the leaves cut along each."""
     layout = sharding.layout
     data = [n for n in layout if sharding.split(n)]
     along_model = [n for n in layout if sharding.model_split(n)]
+    experts = [layout[n].mparts for n in layout if n.endswith("moe.w_in")]
     return {"fsdp": "data", "data_parts": sharding.parts,
             "tp": "model", "kv": rules.axes("kv"), "model_parts": sharding.model_parts,
-            "ep": "whole along \"model\" until ROADMAP §1's slice 24",
+            "ep": rules.axes("ep") if experts else None,
+            "ep_parts": max(experts) if experts else None,
             "split_leaves": len(data), "model_split_leaves": len(along_model),
             "whole_leaves": sum(not (sharding.split(n) or sharding.model_split(n))
                                 for n in layout),

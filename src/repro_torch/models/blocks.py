@@ -75,12 +75,14 @@ class Layer(nn.Module):
     def ffn(self, cfg, x: torch.Tensor, dispatch_ranks: int = 1, tp=None) -> torch.Tensor:
         """x + mlp(norm(x)) or x + moe(norm(x)), or x for a mixer-only layer
         (`dispatch_ranks`: `moe_forward`'s `ranks`; `tp`: the layer's
-        `ModelRegion`, the experts whole on every rank along "model")."""
+        `ModelRegion`: the MLP's d_ff, or the MoE experts, split along
+        "model")."""
         if self.spec.ffn == "none":
             return x
         h = rms_norm(x, self.norm_ffn.scale, cfg.norm_eps)
         if self.spec.ffn == "moe":
-            return x + moe_forward(self.moe, cfg, h, dispatch_ranks)
+            return x + moe_forward(self.moe, cfg, h, dispatch_ranks,
+                                   None if tp is None else tp.at("moe."))
         return x + mlp_forward(self.mlp, cfg, h, None if tp is None else tp.at("mlp."))
 
 

@@ -26,6 +26,23 @@ Under data parallelism a rank holds 1/R of a batch's rows and is told R
 batch's group size T, so that each group, and each drop, is the one-device
 step's.  The train step first checks that the rows make whole groups
 (`check_dispatch_split`).
+
+Under expert parallelism (the JAX rule ep -> "model", `moe_forward(tp=)`
+with the layer's `repro_torch.parallel.tensor.ModelRegion`) each of the M
+ranks along "model" holds E / M experts, a contiguous range from
+mindex * E / M, of w_in and w_out; the ranks of a row take the same rows.
+The router reads the tokens outside the region and keeps its whole
+gradient on every rank.  The dispatch reads them through `region.copy`
+(their gradient summed over "model" backward) and builds the one-device
+step's slot buffer [G, E, cap, d]: the same groups, capacity and drops.
+`_expert_mm` narrows it to the rank's experts, runs their products and
+all-gathers the outputs along the expert dimension (the JAX formulation's
+replication of y across the expert axis before the combine), so the
+combine runs on the whole y and sums the top-k terms in the one-device
+order.  A local combine and a `region.reduce` would move fewer bytes (an
+f32 [G, T, d] all-reduce against E * cap * d a group gathered) but sum the
+top-k terms in another order, and depart from the JAX formulation that the
+dry run counts against.
 """
 
 from __future__ import annotations
@@ -121,15 +138,29 @@ def _route(p, cfg, xt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return top_p, top_e
 
 
-def _expert_mm(p, cfg, buf: torch.Tensor) -> torch.Tensor:
+def _expert_mm(p, cfg, buf: torch.Tensor, tp=None) -> torch.Tensor:
     """[G, E, cap, d] -> [G, E, cap, d]: each expert's gated MLP on its slots,
-    as two batched products over the experts."""
+    as two batched products over the experts.  With `tp` (a region whose
+    experts are split along "model") the rank runs its experts, E / M of
+    them as its w_in block holds, on their slots and all-gathers the
+    outputs along the expert dimension.  An expert block that does not
+    hold E / M of the slots' E experts raises ValueError."""
     G, E, cap, d = buf.shape
-    ff = p.w_out.shape[1]
-    x = buf.transpose(0, 1).reshape(E, G * cap, d)
-    gu = torch.bmm(x, p.w_in.reshape(E, d, 2 * ff)).unflatten(-1, (2, ff))
+    n, ff = p.w_out.shape[0], p.w_out.shape[1]
+    M = 1 if tp is None else tp.size
+    if n * M != E or p.w_in.shape[0] != n:
+        raise ValueError(f"MoE experts: blocks w_in {tuple(p.w_in.shape)} and w_out "
+                         f"{tuple(p.w_out.shape)} on {M} rank(s) along \"model\" do not hold "
+                         f"E / M experts of slot buffer {tuple(buf.shape)} (E = {E})")
+    if tp is not None:
+        buf = buf.narrow(1, tp.index * n, n)
+    x = buf.transpose(0, 1).reshape(n, G * cap, d)
+    gu = torch.bmm(x, p.w_in.reshape(n, d, 2 * ff)).unflatten(-1, (2, ff))
     h = _act(cfg.act, gu[..., 0, :]) * gu[..., 1, :]
-    return torch.bmm(h, p.w_out).reshape(E, G, cap, d).transpose(0, 1)
+    y = torch.bmm(h, p.w_out).reshape(n, G, cap, d)
+    if tp is not None:
+        y = tp.gather(y, 0)
+    return y.transpose(0, 1)
 
 
 def _dispatch_sort(top_e: torch.Tensor, T: int, E: int, cap: int):
@@ -161,12 +192,14 @@ def _dispatch_sort(top_e: torch.Tensor, T: int, E: int, cap: int):
     return token_for_slot, valid, torch.where(keep, rank_tm, cap - 1), keep
 
 
-def moe_forward(p, cfg, x: torch.Tensor, ranks: int = 1) -> torch.Tensor:
+def moe_forward(p, cfg, x: torch.Tensor, ranks: int = 1, tp=None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d] through the top-k routed experts, dropping
     the choices past an expert's capacity in each dispatch group.  `ranks`:
     the data-parallel ranks that hold a batch's rows, B each, whose split
     `check_dispatch_split` has passed; x makes G / ranks of the groups of
-    the whole batch of B * ranks rows."""
+    the whole batch of B * ranks rows.  `tp`: the layer's `ModelRegion`
+    under expert parallelism (module docstring); where it does not split
+    the experts the layer runs whole."""
     m = cfg.moe
     B, S, d = x.shape
     G, T, cap = dispatch_shape(cfg, B * ranks, S)
@@ -174,14 +207,17 @@ def moe_forward(p, cfg, x: torch.Tensor, ranks: int = 1) -> torch.Tensor:
     E = m.n_experts
     xt = x.reshape(G, T, d)
     top_p, top_e = _route(p, cfg, xt)
+    if tp is not None and not tp.split("w_in"):
+        tp = None
+    xd = xt if tp is None else tp.copy(xt)  # the dispatch's input
     out = torch.zeros((G, T, d), dtype=torch.float32, device=x.device)
 
     if m.dispatch == "sort":
         token_for_slot, slot_valid, slot, keep = _dispatch_sort(top_e, T, E, cap)
         idx_in = token_for_slot.reshape(G, E * cap, 1).expand(G, E * cap, d)
-        buf = torch.gather(xt, 1, idx_in).reshape(G, E, cap, d)
+        buf = torch.gather(xd, 1, idx_in).reshape(G, E, cap, d)
         buf = buf * slot_valid[..., None].to(buf.dtype)
-        y_flat = _expert_mm(p, cfg, buf).reshape(G, E * cap, d)
+        y_flat = _expert_mm(p, cfg, buf, tp).reshape(G, E * cap, d)
         for k in range(m.top_k):
             idx_out = (top_e[:, :, k] * cap + slot[:, :, k])[..., None].expand(G, T, d)
             gathered = torch.gather(y_flat, 1, idx_out)  # [G, T, d]
@@ -202,12 +238,12 @@ def moe_forward(p, cfg, x: torch.Tensor, ranks: int = 1) -> torch.Tensor:
         slot = torch.gather(ranks, 2, e_k[..., None])[..., 0] + torch.gather(counts, 1, e_k)
         keep = slot < cap
         slot = torch.where(keep, slot, cap - 1)
-        buf.index_put_((g_idx, e_k, slot), torch.where(keep[..., None], xt, 0).to(buf.dtype),
+        buf.index_put_((g_idx, e_k, slot), torch.where(keep[..., None], xd, 0).to(buf.dtype),
                        accumulate=True)
         counts = counts + onehot.sum(dim=1)
         slots.append(slot)
         keeps.append(keep)
-    y = _expert_mm(p, cfg, buf)
+    y = _expert_mm(p, cfg, buf, tp)
     for k in range(m.top_k):
         gathered = y[g_idx, top_e[:, :, k], slots[k]]  # [G, T, d]
         w = (top_p[:, :, k] * keeps[k])[..., None]

@@ -1,7 +1,8 @@
 """The training state sharded over the ("data", "model") mesh by the JAX
 rules: fsdp -> "data" ("weight shards gathered at use", ZeRO-3 style) and
-tp, kv -> "model" (Megatron tensor parallelism, the block used where it
-lies: `repro_torch.parallel.tensor`).
+tp, kv, ep -> "model" (Megatron tensor parallelism and the MoE experts
+split across the ranks of a row, the block used where it lies:
+`repro_torch.parallel.tensor`).
 
 A `Sharding` is one rank's place: its mesh, its rank, its process groups
 (the whole mesh's, its data axis's and its model axis's; None on the meta

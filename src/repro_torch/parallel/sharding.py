@@ -25,12 +25,13 @@ The port has no GSPMD.  Its trainer reads two of the rules:
   used, ZeRO-3 style) and its slice along the dimension that names
   "model" (tp -> "model", and kv -> "model" where n_kv divides the axis:
   Megatron tensor parallelism, `repro_torch.parallel.tensor`, the block
-  used where it lies).  The ranks lie on the mesh row-major, as
-  `rank_rows` lays them.  An axis dropped from a leaf (a dimension the
+  used where it lies; ep -> "model": the MoE experts split over the ranks
+  of a row, each running its own experts' slots,
+  `repro_torch.models.layers.moe`).  The ranks lie on the mesh row-major,
+  as `rank_rows` lays them.  An axis dropped from a leaf (a dimension the
   axis does not divide, the norm scales, every "data" entry under
-  `make_rules(fsdp=False)`) leaves the leaf whole along that axis, as
-  GSPMD replicates it.  The MoE experts' "ep" -> "model" is not read yet:
-  the experts stay whole along "model" (ROADMAP §1, slice 24).
+  `make_rules(fsdp=False)`, n_experts that the model axis does not divide)
+  leaves the leaf whole along that axis, as GSPMD replicates it.
   `make_rules(fsdp=False)` on a (R, 1) mesh thus gives the replicated data
   parallelism of `repro_torch.training.make_train_step(group=...)`.
 `activation_sharding_ctx` and `shard_activation`, the JAX package's
@@ -288,12 +289,6 @@ def leaf_template(name: str, specs: dict) -> tuple:
     return template[1:] if stacked else template
 
 
-def tp_template(template: tuple) -> tuple:
-    """The template whose "model" entries the port reads: "ep" (the MoE
-    experts, `ep -> "model"`) is dropped until ROADMAP §1's slice 24."""
-    return tuple(None if t == "ep" else t for t in template)
-
-
 def leaf_shard(name: str, shape: tuple, specs: dict, mesh: Mesh, rules: ShardingRules,
                rank: int) -> Shard:
     """The block of port parameter `name` (whole shape `shape`) that `rank`
@@ -302,8 +297,8 @@ def leaf_shard(name: str, shape: tuple, specs: dict, mesh: Mesh, rules: Sharding
     whose "data" and "model" entries would split one dimension raises
     ValueError."""
     template, shape = leaf_template(name, specs), tuple(shape)
-    dim = data_dim(template_to_pspec(template, rules), shape, mesh)
-    mdim = model_dim(template_to_pspec(tp_template(template), rules), shape, mesh)
+    spec = template_to_pspec(template, rules)
+    dim, mdim = data_dim(spec, shape, mesh), model_dim(spec, shape, mesh)
     if dim is not None and dim == mdim:
         raise ValueError(f"{name} {shape}: \"data\" and \"model\" both split dimension {dim} "
                          f"under {template}; the port splits a dimension along one axis")

@@ -1,6 +1,7 @@
 """Tensor parallelism over the "model" axis, by the JAX rules tp -> "model"
-("Megatron tensor parallel (heads / ffn / vocab)") and kv -> "model" (where
-n_kv divides the axis), as Megatron-LM splits a layer.
+("Megatron tensor parallel (heads / ffn / vocab)"), kv -> "model" (where
+n_kv divides the axis), as Megatron-LM splits a layer, and ep -> "model"
+("MoE expert parallel").
 
 A model whose state is sharded on a mesh whose "model" axis has M > 1
 ranks (`repro_torch.parallel.fsdp.shard_model`) holds, of each leaf the
@@ -16,18 +17,25 @@ the same rows and compute one loss together.  Each layer reads its region
   channels; x_proj row-parallel, out_proj row-parallel;
 - the embedding: a vocab-parallel lookup; the head (untied, or the tied
   embed) column-parallel over the vocab, and the cross entropy
-  vocab-parallel (`ModelRegion.cross_entropy`).
+  vocab-parallel (`ModelRegion.cross_entropy`);
+- the MoE layer (ep -> "model"): the router reads the replicated tokens
+  outside the region; the dispatch reads them through `copy`, each rank
+  runs its E / M experts on their slots of the one-device slot buffer, and
+  `gather` along the expert dimension makes the experts' outputs whole
+  again for the combine (`repro_torch.models.layers.moe`).
 
 Megatron's two operators carry the activations across a region's edges:
 `copy` (identity forward, all-reduce over "model" backward) where a
 replicated activation enters it, and `reduce` (all-reduce forward,
-identity backward) where its partial sums leave it.  Inside the groups'
-function they sit inside the region that activation checkpointing
-recomputes, so the recompute runs the forward all-reduces again, as the
-JAX body's collectives sit inside its rematerialized scan body.  Each call
-goes through `repro_torch.parallel.fsdp`'s collectives and counts on
-`fsdp.WIRE` under the axis "model"; on the meta device it counts and runs
-nothing.
+identity backward) where its partial sums leave it; `gather` (all-gather
+along a dimension forward, the rank's slice of the gradient backward)
+where the ranks' slices of an activation leave it whole.  Inside the
+groups' function they sit inside the region that activation checkpointing
+recomputes, so the recompute runs the forward all-reduces and all-gathers
+again, as the JAX body's collectives sit inside its rematerialized scan
+body.  Each call goes through `repro_torch.parallel.fsdp`'s collectives
+and counts on `fsdp.WIRE` under the axis "model"; on the meta device it
+counts and runs nothing.
 
 A layer whose dimension the axis does not divide keeps its leaves whole
 and runs whole on every rank of the row, outside any region.  Which
@@ -38,9 +46,10 @@ whole:
   (each rank projects only the KV heads its query heads read) and the
   qk-norm scales q_norm and k_norm, of an attention whose heads are split;
 - not summed (every rank gets the whole gradient): the leaves used outside
-  any region, norm_mixer, norm_ffn, final_norm, the leaves of a layer the
-  axis does not divide, and the MoE router and experts ("ep" stays whole
-  along "model" until ROADMAP §1's slice 24).
+  any region, norm_mixer, norm_ffn, final_norm, the MoE router (which
+  reads the replicated tokens outside the experts' region), and the leaves
+  of a layer the axis does not divide (the experts where the axis does not
+  divide n_experts).
 """
 
 from __future__ import annotations
@@ -100,18 +109,20 @@ class _Reduce(torch.autograd.Function):
 
 
 class _Gather(torch.autograd.Function):
-    """The ranks' slices along the last dimension, whole, forward; the
-    rank's slice of the gradient backward."""
+    """The ranks' slices along dimension `dim`, whole, forward; the rank's
+    slice of the gradient backward.  The narrow is exact where the gathered
+    activation is replicated along "model": every rank then receives the
+    same gradient of it."""
 
     @staticmethod
-    def forward(ctx, x, region):
-        ctx.region, ctx.n = region, x.shape[-1]
-        return fsdp.gather_blocks([x.contiguous()], [x.ndim - 1], region.size, region.group,
+    def forward(ctx, x, region, dim):
+        ctx.region, ctx.dim, ctx.n = region, dim, x.shape[dim]
+        return fsdp.gather_blocks([x.contiguous()], [dim], region.size, region.group,
                                   "model")[0]
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(-1, ctx.region.index * ctx.n, ctx.n), None
+        return g.narrow(ctx.dim, ctx.region.index * ctx.n, ctx.n), None, None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -147,9 +158,10 @@ class ModelRegion:
         "model", its gradient passed through."""
         return _Reduce.apply(x, self)
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' slices of x along its last dimension, whole."""
-        return _Gather.apply(x, self)
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' slices of x along dimension `dim` (the last by
+        default), whole, in rank order."""
+        return _Gather.apply(x, self, dim % x.ndim)
 
     def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """logsumexp(logits) - the label's logit of every row, from the

@@ -34,8 +34,8 @@ The state stays whole on every rank unless it is sharded:
 `init_train_state(rules=..., group=..., mesh=...)` gives each rank its
 blocks of every parameter and of both AdamW moments by the JAX rules on a
 ("data", "model") mesh, (R, 1) by default: fsdp -> "data"
-(`repro_torch.parallel.fsdp`) and tp, kv -> "model"
-(`repro_torch.parallel.tensor`).  The step on a sharded state is the same
+(`repro_torch.parallel.fsdp`) and tp, kv, ep -> "model"
+(`repro_torch.parallel.tensor`; ep: the MoE experts, E / M a rank).  The step on a sharded state is the same
 function of the same rows:
 - the ranks along "data" take their share of the rows as above; the ranks
   along "model" take the same rows and compute one loss together (the
@@ -51,7 +51,8 @@ function of the same rows:
   leaves that a model region reads whole along "model"
   (`tensor.summed_over_model`: wk and wv where kv was dropped, q_norm and
   k_norm) are summed over "model"; every other leaf whole along "model" has
-  its whole gradient on every rank of the row;
+  its whole gradient on every rank of the row (the MoE router among them);
+  a block along "model" (the experts' too) is never summed over "model";
 - the global norm sums the squares of each block once over both axes
   (`Sharding.owns`; one scalar all-reduce an axis) and of each whole leaf
   once; compression takes each leaf's max |g| as a MAX over its blocks

@@ -59,7 +59,7 @@ CASES = {
     "gemma2_tied": ((1, 2), "gemma2-9b", 1, None, 4, None),  # the tied head, vocab-parallel
     "hubert_frames": ((1, 2), "hubert-xlarge", 1, None, 4, None),  # no lookup
     "mamba_plain": ((1, 2), "falcon-mamba-7b", 1, None, 4, None),
-    "moe_plain": ((1, 2), "qwen3-moe-235b-a22b", 1, None, 4, None),  # experts whole
+    "moe_plain": ((1, 2), "qwen3-moe-235b-a22b", 1, None, 4, None),  # experts split
     # 3 heads and d_ff 129 on 2 ranks: attention and MLP run whole on each rank
     "qwen3_undivided": ((1, 2), "qwen3-8b", 1, None, 4, {"n_heads": 3, "n_kv": 1, "d_ff": 129}),
     # 2 KV heads on 4 ranks: kv dropped, pairs of ranks share a KV head
@@ -102,7 +102,10 @@ def _leaf_digests(state) -> dict:
             for k, v in rank_slices(state).items()}
 
 
-def _run_case(name: str, case, in_dir: Path, out_dir: Path, group, rank: int) -> dict:
+def _run_case(name: str, case, in_dir: Path, out_dir: Path, group, rank: int,
+              cfg=None) -> dict:
+    """One case on this rank (module docstring); `cfg`: the port's config,
+    `case_cfg` of the case's by default."""
     import torch
 
     from repro_torch.interop import lm_params_to_numpy, train_state_from_numpy
@@ -111,7 +114,7 @@ def _run_case(name: str, case, in_dir: Path, out_dir: Path, group, rank: int) ->
     from repro_torch.training.train_step import accumulate_grads
 
     mesh, arch, accum, bits, _, overrides = case
-    cfg = case_cfg(arch, overrides)
+    cfg = case_cfg(arch, overrides) if cfg is None else cfg
     P = _nest(dict(np.load(in_dir / f"params_{name}.npz")))
     zeros = {part: _nest({k: np.zeros_like(v) for k, v in _flat(P).items()})
              for part in ("m", "v")}
@@ -215,9 +218,9 @@ def _ops(group, rank: int) -> dict:
     return out
 
 
-def _resume(out_dir: Path, group) -> dict:
+def _resume(out_dir: Path, group, cfg=None) -> dict:
     """Crash and resume on the group's (1, 2) ranks against an uninterrupted
-    run."""
+    run (`cfg`: `layout_cfg()` by default)."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.data import DataConfig
     from repro_torch.models import build_model
@@ -233,7 +236,7 @@ def _resume(out_dir: Path, group) -> dict:
                 fired.append(step)
                 raise RuntimeError("injected node failure")
 
-        m = build_model(layout_cfg(), device="cpu")
+        m = build_model(layout_cfg() if cfg is None else cfg, device="cpu")
         runs[run] = run_training(
             m, DataConfig(vocab=m.cfg.vocab, seq_len=16, global_batch=4),
             OptConfig(lr=1e-3, warmup_steps=1),
@@ -252,17 +255,17 @@ def _resume(out_dir: Path, group) -> dict:
 
 
 def _restore_and_save(src: Path, dst: Path, group, mesh, out_dir: Path, tag: str,
-                      rank: int) -> None:
-    """The checkpoint in `src` restored into a state of the layout config
-    sharded on `mesh` and saved into `dst`; the rank's blocks into
-    OUT_DIR/<tag>_rank<r>.npz."""
+                      rank: int, cfg=None) -> None:
+    """The checkpoint in `src` restored into a state of `cfg` (the layout
+    config by default) sharded on `mesh` and saved into `dst`; the rank's
+    blocks into OUT_DIR/<tag>_rank<r>.npz."""
     import torch
 
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.models import build_model
     from repro_torch.training import OptConfig, init_train_state
 
-    cfg = layout_cfg()
+    cfg = layout_cfg() if cfg is None else cfg
     state = init_train_state(build_model(cfg, device="cpu", seed=3),
                              torch.Generator().manual_seed(3), OptConfig(),
                              rules=_rules(mesh, cfg), group=group, mesh=_mesh(mesh))

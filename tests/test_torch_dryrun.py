@@ -12,18 +12,21 @@ What the port counts, and how it stands to JAX's numbers on these cells:
 - `memory.argument_bytes` is JAX's `memory.argument_bytes` plus 4 bytes for
   every token and label a device holds: the port's are int64, JAX's int32
   (train: 4096 bytes, decode: 16 bytes a device).
-- `hlo.dot_flops`: one rank's program, tensor-parallel along "model"
-  (`repro_torch.parallel.tensor`).  On the data-only 4x1 mesh it equals,
-  exactly, JAX's per-device `dot_flops`; on 4x4 it equals that count less
-  the share of the products that "model" splits (the query heads, their
-  attention and wo, the head's vocab: 3/4 of each; the K/V projections of
-  the 2 KV heads the 4-way axis cannot split: 1/2, each rank projecting
-  the one KV head its query head reads), derived from the shapes below.
-  What still differs from JAX's 4x4 count is GSPMD's partition: it splits
-  the MoE experts 4 ways along "model" ("ep"), which the port keeps whole
-  on every rank of a row until ROADMAP §1's slice 24.  The port's JAX-mesh
-  view (its count over the ranks that repeat it) is pinned to the ratio of
-  the two integer counts.
+- `hlo.dot_flops`: one rank's program, tensor- and expert-parallel along
+  "model" (`repro_torch.parallel.tensor`).  On the data-only 4x1 mesh it
+  equals, exactly, JAX's per-device `dot_flops`; on 4x4 it equals that
+  count less the share of the products that "model" splits (the query
+  heads, their attention and wo, the head's vocab and the MoE experts: 3/4
+  of each; the K/V projections of the 2 KV heads the 4-way axis cannot
+  split: 1/2, each rank projecting the one KV head its query head reads),
+  derived from the shapes below.  That lands below JAX's 4x4 count, and
+  the gap is one site, derived from the shapes too: GSPMD's per-device
+  program projects both KV heads on every rank (forward, remat recompute
+  and the input gradient), while it takes wk's and wv's weight gradient
+  over the rank's quarter of d_model, where the port's rank takes it over
+  the whole d_model of the gathered leaf for its one KV head.  The port's
+  JAX-mesh view (its count over the ranks that repeat it) is pinned to
+  the ratio of the two integer counts.
 - The smoke train cell itself (2 MoE dispatch groups) is one the port
   cannot run data-parallel on 4 data ranks (`check_dispatch_split`); the
   FLOP comparison runs it with 4 dispatch groups on both sides.
@@ -73,12 +76,11 @@ CELLS = {
 }
 # The port's JAX-mesh view of the dot FLOPs over JAX's 4x4 dot_flops, as the
 # ratio of two integer counts of deterministic programs (measured: the port's
-# view 201,326,592 / 152,567,808 / 246,784 against JAX's 117,440,512 /
-# 88,080,384 / 274,432).  The train cells' rank runs the tensor-parallel
-# step, whose experts are whole along "model" (slice 24); the decode cell
-# keeps the whole parameters (slice 25).
-FLOP_RATIO = {"4x4/train/g4": 201_326_592 / 117_440_512,
-              "4x4/train/g4/noremat": 152_567_808 / 88_080_384,
+# view 106,954,752 / 81,788,928 / 246,784 against JAX's 117,440,512 /
+# 88,080,384 / 274,432).  The train cells' rank runs the tensor- and
+# expert-parallel step; the decode cell keeps the whole parameters (slice 25).
+FLOP_RATIO = {"4x4/train/g4": 106_954_752 / 117_440_512,
+              "4x4/train/g4/noremat": 81_788_928 / 88_080_384,
               "4x4/decode": 246_784 / 274_432}
 
 
@@ -175,9 +177,9 @@ def test_argument_bytes_equal_jax_but_for_the_int64_tokens(port_cells, jax_cells
 @pytest.mark.parametrize("name", sorted(FLOP_RATIO))
 def test_flop_ratio_to_jax_dot_flops_is_pinned(port_cells, jax_cells, name):
     """The view is the rank's count over the ranks that repeat its program:
-    none on the tensor-parallel train cells (4 data shards, 4 ranks along
-    "model" splitting the work), the 4 ranks along "model" of the decode
-    cell's whole parameters."""
+    none on the tensor- and expert-parallel train cells (4 data shards, 4
+    ranks along "model" splitting the work), the 4 ranks along "model" of
+    the decode cell's whole parameters."""
     rec = port_cells[name]
     view = rec["hlo"]["dot_flops_jax_view"]
     repetition = 4 if name == "4x4/decode" else 1
@@ -187,23 +189,47 @@ def test_flop_ratio_to_jax_dot_flops_is_pinned(port_cells, jax_cells, name):
     assert ratio == pytest.approx(FLOP_RATIO[name], rel=1e-12)
 
 
-def tp_split_flops(cfg, rows: int, S: int, accum: int, M: int, remat: bool) -> float:
+def tp_split_flops(cfg, rows: int, S: int, accum: int, M: int, remat: bool,
+                   D: int = 4) -> float:
     """The dot FLOPs that M ranks along "model" take off one rank's program
     on `rows` rows of S tokens a micro-batch, from the shapes: each group's
     query projection, attention (the plain version's QK^T and PV over every
-    key) and wo, and the head, (M - 1) / M of each; the K/V projections,
-    (M - 1) / M where kv -> "model", else 1 - n / KV, n the KV heads that a
-    rank's H / M query heads read.  A group's product runs forward, in the
-    remat recompute and twice in the backward; the head's has no
-    recompute."""
+    key), wo and MoE experts, and the head, (M - 1) / M of each; the K/V
+    projections, (M - 1) / M where kv -> "model", else 1 - n / KV, n the KV
+    heads that a rank's H / M query heads read.  The experts run on the
+    rank's dispatch groups' `cap` slots each (`dispatch_shape` of the
+    micro-batch of D ranks' rows, the rank's share of its groups).  A
+    group's product runs forward, in the remat recompute and twice in the
+    backward; the head's has no recompute."""
+    from repro_torch.models.layers.moe import dispatch_shape
+
     T, d, H, KV, hd = rows * S, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = wo = 2 * T * d * H * hd
     attn = 2 * (2 * rows * S * S * H * hd)
     kv = 2 * (2 * T * d * KV * hd)
     kv_split = (M - 1) / M if KV % M == 0 else 1 - max(1, (H // M) // (H // KV)) / KV
-    per_group = (M - 1) / M * (q + attn + wo) + kv_split * kv
+    G, per_group, cap = dispatch_shape(cfg, rows * D, S)  # the micro-batch's groups
+    experts = cfg.moe.n_experts * 2 * (G // D) * cap * d * 3 * cfg.moe.d_ff_expert
+    assert per_group * (G // D) == T
+    per_group_split = (M - 1) / M * (q + attn + wo + experts) + kv_split * kv
     head = (M - 1) / M * 2 * T * d * cfg.vocab
-    return accum * (cfg.n_groups * (4 if remat else 3) * per_group + 3 * head)
+    return accum * (cfg.n_groups * (4 if remat else 3) * per_group_split + 3 * head)
+
+
+def kv_gap_flops(cfg, rows: int, S: int, accum: int, D: int, remat: bool) -> float:
+    """The dot FLOPs by which JAX's 4x4 per-device program exceeds the port's
+    rank, from the shapes: the K/V projections of the KV heads a 4-way
+    model axis cannot split.  GSPMD's program projects all KV heads on every
+    rank in the forward (and the remat recompute) and in the input
+    gradient, where the port's rank projects the one its query head reads;
+    and GSPMD takes wk's and wv's weight gradient over the rank's 1 / D of
+    d_model for every KV head, where the port takes it over the whole
+    d_model of the gathered leaf for its one."""
+    T, d, KV, hd = rows * S, cfg.d_model, cfg.n_kv, cfg.head_dim
+    forward = 2 * (2 * T * d * (KV - 1) * hd)  # k and v
+    input_grad = forward
+    weight_grad = 2 * (2 * T * d * hd) - 2 * (2 * T * (d // D) * KV * hd)  # the port's more
+    return accum * cfg.n_groups * ((2 if remat else 1) * forward + input_grad - weight_grad)
 
 
 @pytest.mark.parametrize("remat", ["", "/noremat"])
@@ -211,17 +237,21 @@ def test_a_ranks_program_is_jaxs_per_device_program_on_a_data_only_mesh(port_cel
                                                                         remat):
     """Exactly: the rank's program on 4x1 is JAX's per-device program there
     (the same rows, no model axis), and on 4x4 it is that count less what
-    the 4 ranks along "model" split (`tp_split_flops`: 186,646,528 FLOPs
-    with remat, 144,703,488 without).  The experts, whole along "model"
-    (slice 24), keep the rank above JAX's 4x4 per-device count."""
+    the 4 ranks along "model" split (`tp_split_flops`: 281,018,368 FLOPs
+    with remat, 215,482,368 without, of which the experts' 94,371,840 and
+    70,778,880).  That lands below JAX's 4x4 per-device count by
+    `kv_gap_flops` (10,485,760 and 6,291,456): the K/V projections of the
+    2 KV heads a 4-way axis cannot split (module docstring)."""
     jax41 = jax_cells["cells"][f"4x1/train/g4{remat}"]["hlo"]["dot_flops"]
     cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
     split = tp_split_flops(cfg, rows=2, S=128, accum=2, M=4, remat=not remat)
-    assert split == (144_703_488 if remat else 186_646_528)
+    assert split == (215_482_368 if remat else 281_018_368)
     assert port_cells[f"4x1/train/g4{remat}"]["hlo"]["dot_flops"] == jax41
     assert port_cells[f"4x4/train/g4{remat}"]["hlo"]["dot_flops"] == jax41 - split
     jax44 = jax_cells["cells"][f"4x4/train/g4{remat}"]["hlo"]["dot_flops"]
-    assert jax41 - split > jax44 and jax44 * 16 > jax41 * 4
+    gap = kv_gap_flops(cfg, rows=2, S=128, accum=2, D=4, remat=not remat)
+    assert gap == (6_291_456 if remat else 10_485_760)
+    assert jax41 - split == jax44 - gap
 
 
 def test_remat_adds_one_forward_of_every_group(port_cells):
@@ -303,12 +333,15 @@ def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
     whole along "data" with the loss all-reduced, and the norm's sum of
     squares.  Along "model", per micro-batch, all-reduces of the f32
     [2, 128, 64] activations: the lookup's sum, each group's attention
-    output in the forward and in the recompute and its input's gradient in
-    the backward (the MoE layers add none: the experts are whole), the
-    head's input gradient; the cross entropy's row max, exponential sum and
-    label logit ([2, 128] each); then the leaves a region reads whole (wk,
-    wv, q_norm, k_norm of each group) and the norm's sum of squares.
-    (R - 1) / R of each payload, twice for an all-reduce."""
+    output in the forward and in the recompute, its input's gradient and
+    the MoE dispatch input's gradient in the backward, the head's input
+    gradient; all-gathers of each MoE layer's expert outputs, the rank's
+    [1, 1, 160, 64] of [1, 4, 160, 64] (its one dispatch group, one of 4
+    experts, cap 160), in the forward and in the recompute; the cross
+    entropy's row max, exponential sum and label logit ([2, 128] each);
+    then the leaves a region reads whole (wk, wv, q_norm, k_norm of each
+    group) and the norm's sum of squares.  (R - 1) / R of each payload,
+    twice for an all-reduce."""
     rec = port_cells["4x4/train/g4"]
     cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
     blocks = _blocks(cfg, Mesh((4, 4), ("data", "model")))
@@ -321,18 +354,19 @@ def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
             "reduce-scatter": accum * (top + group) * 3 / 4,
             "all-reduce": 2 * 3 / 4 * (whole_along_data + 4) + 2 * 3 / 4 * 4}
     act, row = 2 * 128 * cfg.d_model * 4, 2 * 128 * 4
+    y = 1 * cfg.moe.n_experts * 160 * cfg.d_model * 4  # the gathered expert outputs
     summed = sum(_block_bytes(*blocks[n]) for n in blocks
                  if n.rsplit(".", 1)[-1] in ("wk", "wv", "q_norm", "k_norm"))
     assert summed == 2 * 4 * (16 * 2 * 16 * 2 + 2 * 16)  # wk, wv [16, 2, 16]; q/k_norm [16]
-    model = {"all-gather": 0.0, "reduce-scatter": 0.0,
-             "all-reduce": 2 * 3 / 4 * (accum * ((1 + 3 * cfg.n_groups + 1) * act + 3 * row)
+    model = {"all-gather": accum * cfg.n_groups * 2 * 3 / 4 * y, "reduce-scatter": 0.0,
+             "all-reduce": 2 * 3 / 4 * (accum * ((1 + 4 * cfg.n_groups + 1) * act + 3 * row)
                                         + summed + 4)}
     assert rec["hlo"]["collective_by_axis"] == {"data": data, "model": model}
     by_kind = rec["hlo"]["collective_by_kind"]
     assert by_kind == {k: data[k] + model[k] for k in data}
     assert rec["hlo"]["collective_wire_bytes"] == sum(by_kind.values())
     data_calls = accum * (2 + 2 * 2) + accum * (2 + 2) + 2
-    model_calls = accum * (1 + 3 * 2 + 1 + 3) + 2
+    model_calls = accum * (1 + 4 * 2 + 1 + 3 + 2 * 2) + 2
     assert rec["hlo"]["n_collective_sites"] == data_calls + model_calls
     assert port_cells["4x4/decode"]["hlo"]["collective_wire_bytes"] == 0
 
@@ -340,16 +374,16 @@ def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
 def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
     """A rank of the smoke cell on 4x4 holds its block of each leaf: a
     quarter along "data" where "data" splits it, a quarter along "model"
-    where "model" does (the heads, the vocab; not the experts, slice 24),
-    as f32 parameters, f32 moments and f32 gradient sums; the largest
-    gather (a group's blocks whole along "data": its experts outweigh the
-    embed's [32, 64] block) and the global batch."""
+    where "model" does (the heads, the vocab, the experts: one of 4 a
+    rank), as f32 parameters, f32 moments and f32 gradient sums; the
+    largest gather (a group's blocks whole along "data", or the embed's
+    [32, 64] block) and the global batch."""
     rec = port_cells["4x4/train/g4"]
     parts = rec["memory"]["port_rank_parts"]
     cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
     blocks = _blocks(cfg, Mesh((4, 4), ("data", "model")))
     held = sum(_block_bytes(sh, nb) for sh, nb in blocks.values())
-    assert held == 69_120  # against 93,696 on 4x1
+    assert held == 32_256  # against 93,696 on 4x1 (69,120 with the experts whole)
     assert parts["params"] == held and parts["opt"] == 2 * held  # f32 params and moments
     assert parts["grads"] == held  # the step's f32 sums of the blocks
     units = {}
@@ -364,7 +398,8 @@ def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
     layout = rec["memory"]["state_layout"]
     assert layout["fsdp"] == "data" and layout["data_parts"] == 4
     assert layout["tp"] == "model" and layout["model_parts"] == 4 and layout["kv"] is None
-    assert "slice 24" in layout["ep"] and layout["summed_over_model"] == 8
+    assert layout["ep"] == "model" and layout["ep_parts"] == 4
+    assert layout["summed_over_model"] == 8
     assert layout["whole_param_bytes"] == sum(nb for sh, nb in blocks.values()
                                               if sh.dim is None and sh.mdim is None)
     dec = port_cells["4x4/decode"]

@@ -431,9 +431,8 @@ def test_leaf_shard_is_the_jax_rules_slice(arch, mesh_shape, d_model):
     """`leaf_shard` of every parameter against JAX's sanitized spec of its
     stacked leaf: along "data" and along "model", the split dimension (None
     where the axis was dropped or has one rank), the slice count and each
-    rank's index
-    (ranks row-major); "model" on an "ep" dimension (the experts) stays
-    whole until slice 24."""
+    rank's index (ranks row-major); "model" on an "ep" dimension (the
+    experts) splits it as on any other."""
     cfg, jcfg = reduced(get_config(arch)), jreduced(jget(arch))
     if d_model is not None:
         cfg, jcfg = (dataclasses.replace(c, d_model=d_model) for c in (cfg, jcfg))
@@ -445,9 +444,9 @@ def test_leaf_shard_is_the_jax_rules_slice(arch, mesh_shape, d_model):
     jspecs = J.tree_pspecs(jtemplates, jrules)
     for name, p in model.named_parameters():
         stacked = name.startswith("groups.")
-        spec, template = jspecs, jtemplates
+        spec = jspecs
         for k in (["blocks", *name.split(".")[2:]] if stacked else name.split(".")):
-            spec, template = spec[k], template[k]
+            spec = spec[k]
         shape = (cfg.n_groups, *p.shape) if stacked else tuple(p.shape)
         spec = J.sanitize_pspec(spec, shape, jmesh)
 
@@ -455,8 +454,7 @@ def test_leaf_shard_is_the_jax_rules_slice(arch, mesh_shape, d_model):
             if mesh.shape[axis] == 1:
                 return None
             return next((d - stacked for d, e in enumerate(spec)
-                         if (e == axis or (isinstance(e, tuple) and axis in e))
-                         and not (axis == "model" and template[d] == "ep")), None)
+                         if e == axis or (isinstance(e, tuple) and axis in e)), None)
 
         want, mwant = axis_dim("data"), axis_dim("model")
         for rank in range(mesh.size):
