@@ -361,6 +361,30 @@ LM_EP = ("qwen3-moe-235b-a22b", 1, 1, 3, "qwen3_moe")  # arch, layers, batch, st
 # of its own, since a process keeps the pinned host blocks it frees and the
 # EP references take most of the host's memory.
 LM_SHARDED_TIMEOUT_S = 900  # both ranks together, from spawn to exit
+# Serving on a sharded state (`prefill`, `decode_step`, `ServeEngine` on the
+# rank's blocks) on the pair of ranks of lm_train_fsdp and lm_train_tp, after
+# them (the pair's first all-reduce, ~11 s, is paid once): (phase suffix,
+# arch, layers, ("data", "model") mesh, global batch, new tokens), full width,
+# f32, seeded LM_DP_S-token prompts.  qwen3-8b on (1, 2) (16 heads and 4 KV
+# heads a rank) and on (2, 1) (one row a rank, every weight gathered along
+# "data" at each call: ~6.5 GB through the host a call, so 2 new tokens),
+# falcon-mamba-7b on (1, 2) (4096 channels a rank) and qwen3-moe-235b-a22b's
+# first layer on (1, 2) (64 of 128 experts and 32 heads a rank).  Rank 0
+# first serves the same drawn parameters on one device (greedy); the ranks'
+# decode steps are fed its tokens (teacher-forced), so that a near-tie
+# cannot end the comparison, and each rank's own greedy picks are kept.
+# Held: the prefill's and every step's logits within LM_SERVE_SHARDED_REL of
+# max|logit| of the one-device run's (the LM phases' f32 tolerance); every
+# rank's picks and logits bits alike; each rank's parameter and cache bytes
+# and the wire bytes of the prefill and of each decode step, by axis and
+# kind, equal to dryrun_serve's count exactly; flash_attention once per
+# attention layer and mamba_scan once per mamba layer of the prefill, 0 in
+# the decode steps.
+LM_SERVE_SHARDED = (("tp_qwen3", "qwen3-8b", 2, (1, 2), 2, 8),
+                    ("fsdp_qwen3", "qwen3-8b", 2, (2, 1), 2, 2),
+                    ("tp_falcon_mamba", "falcon-mamba-7b", 2, (1, 2), 2, 8),
+                    ("ep_qwen3_moe", "qwen3-moe-235b-a22b", 1, (1, 2), 1, 8))
+LM_SERVE_SHARDED_REL = 2e-4
 # bf16 score buffers: flash_attention(score_dtype=bf16) against
 # ref.flash_attention(score_dtype=bf16) at qwen3-8b's prefill shape, the
 # bf16-score model's (B = 2), and in f32 (the f32 body) at the DP shape and
@@ -2821,7 +2845,7 @@ DRYRUN_CLI = (("qwen3-8b", "", None), ("qwen3-moe-235b-a22b", "_moe", 16))
 DRYRUN_CLI_TIMEOUT_S = 600
 
 
-def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, dict, dict]:
+def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, dict, dict, dict]:
     """The dry-run tools (`repro_torch.launch.specs`, `launch.dryrun`) on the
     meta device for lm_train's configuration of `arch` (its first `layers`
     layers, bf16, AdamW with f32 moments, B = `batch`, LM_TRAIN_S, remat,
@@ -2834,7 +2858,10 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, di
     the (2, 1) mesh, lm_train_tp's qwen3 configuration on the (1, 2) mesh
     (`dryrun_tp`) and lm_train_ep's configuration on the (1, 2) mesh
     (`dryrun_ep`), whose ranks' state and wire bytes it returns for those
-    phases to hold."""
+    phases to hold; and LM_SERVE_SHARDED's prefill and decode cells
+    (`dryrun_serve`, one line a configuration), whose rank's parameter and
+    cache bytes and wire bytes a prefill and a decode step it returns, by
+    suffix, for lm_serve_sharded."""
     import dataclasses
     from unittest import mock
 
@@ -2867,6 +2894,24 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, di
     tp_rec = sharded("lm_train_tp", tp_arch, tp_layers, tp_batch, LM_TP_MESH)
     ep_arch, ep_layers, ep_batch = LM_EP[:3]
     ep_rec = sharded("lm_train_ep", ep_arch, ep_layers, ep_batch, LM_TP_MESH)
+    # LM_SERVE_SHARDED's configurations: the prefill cell at the prompt's
+    # length, the decode cell at max_len (its caches the engine's)
+    serve, serve_recs = {}, {}
+    for short, s_arch, s_layers, s_shape, s_batch, new in LM_SERVE_SHARDED:
+        for kind, S in (("prefill", LM_DP_S), ("decode", LM_DP_S + new)):
+            cell = ShapeSpec(f"lm_serve_{kind}", S, s_batch, kind)
+            with mock.patch.dict(SHAPES, {cell.name: cell}):
+                serve_recs[short, kind] = dryrun.lower_cell(
+                    s_arch, cell.name, Mesh(s_shape, ("data", "model")),
+                    cfg_override=lambda c, n=s_layers: dataclasses.replace(
+                        c, n_layers=n, param_dtype="float32"))[0]
+        pre, dec = serve_recs[short, "prefill"], serve_recs[short, "decode"]
+        if not (pre["ok"] and dec["ok"]):
+            raise AssertionError(f"dryrun_serve {short}: {pre.get('error')} {dec.get('error')}")
+        serve[short] = {"param_bytes": dec["memory"]["port_rank_parts"]["params"],
+                        "cache_bytes": dec["memory"]["port_rank_parts"]["caches"],
+                        "wire_prefill": pre["hlo"]["collective_by_axis"],
+                        "wire_decode_step": dec["hlo"]["collective_by_axis"]}
     torch.cuda.synchronize()
     after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
     parts = rec["memory"]["port_rank_parts"]
@@ -2909,6 +2954,18 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, di
              n_collective_sites=cell["hlo"]["n_collective_sites"],
              counted_flops=cell["hlo"]["dot_flops"], rank=cell["rank"])
         out.append(cell_predicted)
+    for short, s_arch, s_layers, s_shape, s_batch, new in LM_SERVE_SHARDED:
+        pre, dec = serve_recs[short, "prefill"], serve_recs[short, "decode"]
+        emit("dryrun_serve", config=short, arch=s_arch, layers=s_layers, dtype="float32",
+             batch=s_batch, prompt_len=LM_DP_S, max_len=LM_DP_S + new, mesh=dec["mesh"],
+             count_s=[pre["count_s"], dec["count_s"]], rank=dec["rank"],
+             state_layout=dec["memory"]["state_layout"],
+             port_rank_parts={"prefill": pre["memory"]["port_rank_parts"],
+                              "decode": dec["memory"]["port_rank_parts"]},
+             counted_flops={"prefill": pre["hlo"]["dot_flops"], "decode": dec["hlo"]["dot_flops"]},
+             n_collective_sites={"prefill": pre["hlo"]["n_collective_sites"],
+                                 "decode": dec["hlo"]["n_collective_sites"]}, **serve[short])
+    out.append(serve)
     if not predicted <= train["peak_bytes"]:
         raise AssertionError(f"dryrun: predicted state bytes {predicted} over lm_train's "
                              f"measured peak {train['peak_bytes']}")
@@ -3827,6 +3884,125 @@ def _sharded_run(rank: int, group, queue, dev, cfg, opt_cfg, batches, mesh, ref,
     return out
 
 
+def _recording_engine(model, max_len: int, batch: int, new: int, forced=None):
+    """A greedy `ServeEngine` whose sampling keeps each step's f32 logits
+    [B, V] (`logits`), its own greedy picks (`picks`) and the launch counts
+    so far (`launches`) and, given `forced` (the one-device run's picks, a
+    list a step), hands the next step those instead of its own: the decode
+    steps are teacher-forced."""
+    from repro_torch.serving import SamplerConfig, ServeEngine
+
+    class Recording(ServeEngine):
+        def _sample(self, logits, gen):
+            pick = super()._sample(logits, gen)
+            self.logits.append(logits)
+            self.picks.append(pick.tolist())
+            self.launches.append(read_launches())
+            if forced is None:
+                return pick
+            return torch.tensor(forced[len(self.picks) - 1], device=pick.device)
+
+    engine = Recording(model, max_len=max_len, batch_size=batch,
+                       sampler=SamplerConfig(max_new_tokens=new), device=model.device)
+    engine.logits, engine.picks, engine.launches = [], [], []
+    return engine
+
+
+def _serve_run(rank: int, group, dev, arch: str, layers: int, shape: tuple, batch: int,
+               new: int) -> dict:
+    """One LM_SERVE_SHARDED configuration on this rank: rank 0 serves the
+    drawn parameters on one device first (greedy) and hands its picks to
+    every rank; then each rank draws the same parameters, keeps its blocks
+    on `shape` (`shard_model`) and serves the global prompts teacher-forced
+    on those picks (`_recording_engine`), the collectives timed
+    (`fsdp.WIRE.sync`), rank 0's run under the profiler (the idle share).
+    Returns what the rank saw; rank 0's also holds each step's logits
+    error against its one-device run."""
+    import dataclasses
+    import gc
+    import hashlib
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import Mesh, fsdp, make_rules
+
+    clock = {"run_start": time.time()}
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    prompts = torch.randint(0, cfg.vocab, (batch, LM_DP_S),
+                            generator=torch.Generator().manual_seed(7)).tolist()
+    max_len = LM_DP_S + new
+    ref, one = None, {}
+    if rank == 0:
+        model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
+        ref = _recording_engine(model, max_len, batch, new)
+        ref.generate(prompts)
+        steps = max(ref.stats["decode_steps"], 1)
+        one = {"prefill_s": ref.stats["prefill_s"],
+               "ms_per_decode_step": 1e3 * ref.stats["decode_s"] / steps, "picks": ref.picks}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    forced = [ref.picks if ref is not None else None]
+    dist.broadcast_object_list(forced, src=0, group=group)
+    clock["reference_done"] = time.time()
+    model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
+    mesh = Mesh(shape, ("data", "model"))
+    fsdp.shard_model(model, make_rules(mesh, model_cfg=cfg), group=group, mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen = {}
+    prefill = model.prefill
+
+    def counted_prefill(*args, **kw):
+        logits, caches = prefill(*args, **kw)
+        seen["cache_bytes"] = sum(t.numel() * t.element_size()
+                                  for c in caches.values() for t in c.values())
+        return logits, caches
+
+    model.prefill = counted_prefill
+    engine = _recording_engine(model, max_len, batch, new, forced[0])
+    dist.barrier(group=group)
+    clock["sharded_built"] = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    fsdp.WIRE.sync = True
+    out = {"clock": clock}
+    try:
+        if rank == 0:
+            out["profile"] = profile_once(lambda: engine.generate(prompts), tries=1)
+        else:
+            engine.generate(prompts)
+    finally:
+        fsdp.WIRE.sync = False
+    clock["served"] = time.time()
+    stats = engine.stats
+    out.update(
+        param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+        cache_bytes=seen["cache_bytes"], rows=len(engine._rows(batch)),
+        prefill_s=stats["prefill_s"], decode_steps=stats["decode_steps"],
+        ms_per_decode_step=1e3 * stats["decode_s"] / max(stats["decode_steps"], 1),
+        collective_s=stats["collective_s"], wire_prefill=stats["wire_prefill"],
+        wire_decode_steps=stats["wire_decode_steps"], wire_logits=stats["wire_logits"],
+        picks=engine.picks,
+        digests=[hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest() for t in engine.logits],
+        launches_prefill={k: c for k, c in engine.launches[0].items() if c},
+        launches_decode={k: engine.launches[-1][k] - c for k, c in engine.launches[0].items()
+                         if engine.launches[-1][k] - c},
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        finite=all(bool(torch.isfinite(t).all()) for t in engine.logits))
+    if ref is not None:
+        out["logit_rel_err"] = [float((g - w).abs().max() / w.abs().max())
+                                for g, w in zip(engine.logits, ref.logits)]
+        out["one_device"] = one
+    del engine, model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock["end"] = time.time()
+    return out
+
+
 def _timeline(clock: dict, start: float) -> dict:
     """A rank's `clock` marks as seconds since `start` (the parent's wall
     clock at the spawn)."""
@@ -3854,8 +4030,9 @@ def _sharded_rank(rank: int, out_dir: str, device: str = "cuda:0", queue=None,
     """One of LM_DP_RANKS ranks on cuda:0 in a gloo group: each of the
     `_sharded_configs()` named by `keys`, in turn, on its mesh
     (`_sharded_run`), rank 0's one-device reference first
-    (`_one_device_reference`).  Writes what it saw to out_dir/rank<r>.json,
-    by configuration."""
+    (`_one_device_reference`), and each LM_SERVE_SHARDED configuration named
+    "serve_<suffix>" (`_serve_run`).  Writes what it saw to
+    out_dir/rank<r>.json, by configuration."""
     import dataclasses
 
     import torch.distributed as dist
@@ -3866,7 +4043,13 @@ def _sharded_rank(rank: int, out_dir: str, device: str = "cuda:0", queue=None,
     with _gloo_rank(rank, out_dir, device) as dev:
         out = {"rank": rank}
         configs = _sharded_configs()
+        serving = {f"serve_{c[0]}": c[1:] for c in LM_SERVE_SHARDED}
         for key in keys:
+            if key in serving:
+                started = time.time()
+                out[key] = _serve_run(rank, dist.group.WORLD, dev, *serving[key])
+                out[key]["clock"].update(config_start=started)
+                continue
             arch, layers, batch, steps, shape, ref_steps, keep_p2, profile = configs[key]
             started = time.time()
             cfg = dataclasses.replace(get_config(arch), n_layers=layers)
@@ -4139,6 +4322,79 @@ def lm_train_ep(predicted: dict, runs: dict, spawn_s: float, start: float) -> di
         raise AssertionError(f"lm_train_ep_{short}: {check}")
     emit("profile_lm_train_ep_step", rank=0, arch=arch, **r0["profile"])
     return r0["launches"]
+
+
+def lm_serve_sharded(predicted: dict, runs: dict, spawn_s: float, start: float) -> dict:
+    """LM_SERVE_SHARDED's configurations on LM_DP_RANKS gloo ranks on cuda:0
+    (`runs`, `spawn_s` and `start`: `lm_train_sharded`'s, keys
+    "serve_<suffix>"), each held (LM_SERVE_SHARDED's comment) against rank
+    0's one-device run and against dryrun_serve's count (`predicted`, by
+    suffix, from lm_dryrun).  Prints one line a configuration: prefill
+    seconds and ms a decode step (rank 0's under the profiler, beside its
+    one-device run's), each axis' collective seconds and share of the
+    call, the idle share, the peak GiB per rank and the first step whose
+    greedy pick differs from the one-device run's.  Returns {phase: rank
+    0's launches}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    launches = {}
+    for short, arch, layers, shape, batch, new in LM_SERVE_SHARDED:
+        ranks = runs[f"serve_{short}"]
+        r0 = ranks[0]
+        want = predicted[short]
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        kernels = {"flash_attention": _mixer_layers(cfg, "attn"),
+                   "mamba_scan": _mixer_layers(cfg, "mamba")}
+        kernels = {k: c for k, c in kernels.items() if c}
+        ref_picks = r0["one_device"]["picks"]
+        diverged = [next((i for i, (a, b) in enumerate(zip(r["picks"], ref_picks)) if a != b),
+                         None) for r in ranks]
+        wall = r0["profile"]["wall_ms"] / 1e3
+        check = {
+            "logits_within_tol": max(r0["logit_rel_err"]) <= LM_SERVE_SHARDED_REL,
+            "ranks_alike": all(r["picks"] == r0["picks"] and r["digests"] == r0["digests"]
+                               for r in ranks),
+            "param_bytes_as_predicted": all(r["param_bytes"] == want["param_bytes"]
+                                            for r in ranks),
+            "cache_bytes_as_predicted": all(r["cache_bytes"] == want["cache_bytes"]
+                                            for r in ranks),
+            "wire_prefill_as_predicted": all(r["wire_prefill"] == want["wire_prefill"]
+                                             for r in ranks),
+            "wire_decode_step_as_predicted": all(
+                w == want["wire_decode_step"] for r in ranks for w in r["wire_decode_steps"]),
+            "decode_steps": all(r["decode_steps"] == new - 1 for r in ranks),
+            "finite": all(r["finite"] for r in ranks),
+            "launches": all(r["launches_prefill"] == kernels and not r["launches_decode"]
+                            for r in ranks),
+        }
+        emit(f"lm_serve_{short}", arch=arch, layers=layers, dtype="torch.float32",
+             global_batch=batch, prompt_len=LM_DP_S, new_tokens=new, ranks=LM_DP_RANKS,
+             backend="gloo on cuda:0", mesh=list(shape), rows_per_rank=[r["rows"] for r in ranks],
+             rules="make_rules(mesh, model_cfg=cfg): fsdp -> data, tp, kv and ep -> model",
+             prefill_s=[r["prefill_s"] for r in ranks],
+             ms_per_decode_step=[r["ms_per_decode_step"] for r in ranks],
+             under_profiler="rank 0", one_device=r0["one_device"] | {"picks": None},
+             collective_s_by_axis=[r["collective_s"] for r in ranks],
+             collective_share_rank0={a: t / wall for a, t in r0["collective_s"].items()},
+             device_idle_share=r0["profile"]["device_idle_share"],
+             window_whole=r0["profile"]["window_whole"],
+             peak_gib_per_rank=[r["peak_gib"] for r in ranks],
+             logit_rel_err=r0["logit_rel_err"], tol_rel=LM_SERVE_SHARDED_REL,
+             first_greedy_divergence=diverged,
+             param_bytes_per_rank=[r["param_bytes"] for r in ranks],
+             cache_bytes_per_rank=[r["cache_bytes"] for r in ranks],
+             predicted=want, wire_prefill=r0["wire_prefill"],
+             wire_decode_step=r0["wire_decode_steps"][0], wire_logits=r0["wire_logits"],
+             launches_prefill=r0["launches_prefill"], launches_decode=r0["launches_decode"],
+             launches_want=kernels, spawn_s=spawn_s,
+             timeline_s=_timeline(r0["clock"], start), **check)
+        if not all(check.values()):
+            raise AssertionError(f"lm_serve_{short}: {check}")
+        emit(f"profile_lm_serve_{short}", rank=0, **r0["profile"])
+        launches[f"lm_serve_{short}"] = r0["launches_prefill"]
+    return launches
 
 
 def lm_launch_train_torchrun() -> None:
@@ -5895,8 +6151,8 @@ def main() -> int:
     #    the sharded predictions that lm_train_fsdp, lm_train_tp and
     #    lm_train_ep are held to.
     arch, layers, batch, short = LM_TRAIN[0]
-    fsdp_predicted, tp_predicted, ep_predicted = lm_dryrun(arch, layers, batch,
-                                                           train_readings[short])
+    fsdp_predicted, tp_predicted, ep_predicted, serve_predicted = lm_dryrun(
+        arch, layers, batch, train_readings[short])
     lm_train_loss_study(*LM_TRAIN[0][:3])
     for arch, *_ in LM_TRAIN:
         lm_train_plain_check(arch)
@@ -5912,10 +6168,14 @@ def main() -> int:
     #    "model": qwen3-8b and falcon-mamba-7b on (1, 2), the flash and scan
     #    kernels on each rank's heads and channels), each against its
     #    one-rank run and the dry run's count, each driven with the launch
-    #    counts set to 0 just before it.
-    sharded = lm_train_sharded(("fsdp", *(f"tp_{c[4]}" for c in LM_TP)))
+    #    counts set to 0 just before it.  14d. Then serving on a sharded
+    #    state (slice 25) on the same pair: LM_SERVE_SHARDED, each against
+    #    rank 0's one-device run and dryrun_serve.
+    sharded = lm_train_sharded(("fsdp", *(f"tp_{c[4]}" for c in LM_TP),
+                                *(f"serve_{c[0]}" for c in LM_SERVE_SHARDED)))
     new_paths["lm_train_fsdp"] = lm_train_fsdp(dp_one, fsdp_predicted, *sharded)
     new_paths["lm_train_tp"] = lm_train_tp(dp_one, tp_predicted, *sharded)
+    new_paths.update(lm_serve_sharded(serve_predicted, *sharded))
     # 14c. Expert parallelism (ep -> "model"): one full-width qwen3-moe layer on
     #    the (1, 2) mesh, 64 experts a rank, on a pair of its own: against rank
     #    0's one-device run and dryrun_ep.

@@ -19,20 +19,23 @@ One rank's program is what the port's step runs on the mesh: rank 0's
 `accumulate_grads` and the optimizer's update, for a train cell;
 `Transformer.prefill` of its rows for prefill; `decode_step` of its rows at
 position S - 1 (JAX's `serve_step`) for decode.  On the production mesh a
-rank takes B / 16 rows (B / 32 with the pod axis).  A train cell's state is
-sharded by the cell's rules, `make_rules(mesh, model_cfg=cfg)`, as the JAX
-dry run's `in_shardings` shard it (`repro_torch.parallel.fsdp.
-shard_train_state`): rank 0 holds its blocks of the parameters and AdamW
-moments, sliced along "data" (fsdp, gathered where a group runs, the
-gradients reduce-scattered) and along "model" (tp and kv, Megatron tensor
-parallelism: `repro_torch.parallel.tensor`; and ep, the MoE experts, E / M
-of them a rank), and the ranks along "model" run the layers on their
-blocks, on the same rows, with the model axis' all-reduces and the MoE
-layers' all-gathers of the experts' outputs.  `rank.repetition` counts the
-ranks that run the rank's very program (the ranks along "model" on a cell
-that keeps the whole parameters); prefill and decode cells run on the
-whole parameters (serving on a sharded state is a later slice;
-`memory.state_layout` says which).  The record's keys follow
+rank takes B / 16 rows (B / 32 with the pod axis).  The state is sharded by
+the cell's rules, `make_rules(mesh, model_cfg=cfg)`, as the JAX dry run's
+`in_shardings` shard it (`repro_torch.parallel.fsdp.shard_train_state`, and
+`shard_model` for prefill and decode): rank 0 holds its blocks of the
+parameters (and, training, of the AdamW moments), sliced along "data"
+(fsdp, gathered where a group runs, the gradients reduce-scattered) and
+along "model" (tp and kv, Megatron tensor parallelism:
+`repro_torch.parallel.tensor`; and ep, the MoE experts, E / M of them a
+rank), and the ranks along "model" run the layers on their blocks, on the
+same rows, with the model axis' all-reduces and the MoE layers'
+all-gathers of the experts' outputs.  A prefill or decode cell's rank
+holds its block of the decode caches (`Transformer.init_caches`: its rows,
+the attention's KV heads its query heads read and mamba's d_inner
+channels, the sequence whole).  `rank.repetition` counts the ranks that
+run the rank's very program (the ranks along "model" on a cell whose rules
+split no leaf along it).  `memory.state_layout` says how the state lies.
+The record's keys follow
 the JAX record's; where a value has no counterpart it is None and
 `no_counterpart` names it:
 
@@ -58,9 +61,13 @@ the JAX record's; where a value has no counterpart it is None and
   MoE layers' all-gathers of the experts' outputs (forward and recompute)
   and all-reduces of the dispatch input's gradient (backward), the cross
   entropy's and the leaves a region reads whole; the norm's squares
-  and the compression's maxima along both.  `collective_by_kind` splits it
-  by kind, `collective_by_axis` by mesh axis and kind, and
-  `n_collective_sites` counts the calls.  A decode or prefill cell has 0.
+  and the compression's maxima along both.  A prefill or decode cell's:
+  each group's, the embedding's and the head's all-gathers along "data"
+  (once a call, no recompute), the layers' all-reduces and the MoE
+  layers' all-gathers along "model", and the logits' all-gather along
+  "model" where the head is split.  `collective_by_kind` splits it by kind,
+  `collective_by_axis` by mesh axis and kind, and `n_collective_sites`
+  counts the calls.
 - `memory.argument_bytes`: the per-rank bytes of the program's arguments
   (state and batch; parameters, caches and tokens for decode) under the
   JAX rules on the mesh (`sanitize_pspec` against each leaf's shape), to
@@ -71,13 +78,14 @@ the JAX record's; where a value has no counterpart it is None and
   of the moments ("opt") with the leaves that stay whole, its gradients'
   blocks ("grads": f32 where the step sums them), the largest set of
   blocks one gather makes whole along "data" ("gathered") and the global
-  batch every rank is handed; caches and its rows' batch for decode and
-  prefill.  `fits_one_card` says whether that is within one H100's 80 GB.
+  batch every rank is handed; for decode and prefill its blocks of the
+  parameters, the largest gather, its block of the caches and its rows'
+  batch.  `fits_one_card` says whether that is within one H100's 80 GB.
 - `roofline`: `analysis/roofline.py::roofline` at `H100_SXM` with the
   rank's FLOPs, bytes and wire bytes and the analytic `model_flops`.
 
-A cell that the port cannot run at all (a data-parallel split that
-`check_dispatch_split` refuses) is a record with `ok: false` and the
+A cell that the port cannot run at all (a data-parallel split of a train,
+prefill or decode batch that `check_dispatch_split` refuses) is a record with `ok: false` and the
 reason.  `count_s` is the host seconds of the count.
 """
 
@@ -114,8 +122,9 @@ COUNTS_OF = ("the port's program on the meta device with backend='ref': the kern
              "versions (the kernel wrappers take no meta tensor)")
 
 WHOLE = "whole on every rank"
-SERVING_LAYOUT = ("whole on every rank: serving on a sharded state is ROADMAP §1's slice 25, "
-                  "so prefill and decode keep the whole parameters")
+CACHE_SEQUENCE = ("whole on every rank: the port splits the attention caches' heads along "
+                  "\"model\", where JAX's cache_specs shard their sequence (sp -> \"model\", "
+                  "ROADMAP §1's slice 26)")
 
 _aten = torch.ops.aten
 _METADATA_ONLY = {_aten._unsafe_view, _aten._reshape_alias, _aten.empty, _aten.empty_like,
@@ -204,7 +213,7 @@ def _state_bytes(state, state_pspecs, mesh: Mesh) -> int:
 
 
 def state_layout(sharding, model, rules) -> dict:
-    """How a train cell's state lies on the mesh: the rules' axes for fsdp,
+    """How a cell's state lies on the mesh: the rules' axes for fsdp,
     tp, kv and ep with their part counts (`ep_parts`: the ranks that split
     the MoE experts, 1 where the model axis does not divide n_experts; ep
     and ep_parts None without MoE layers), and the leaves cut along each."""
@@ -223,6 +232,14 @@ def state_layout(sharding, model, rules) -> dict:
             "whole_param_bytes": sum(_nbytes(p) for n, p in model.named_parameters()
                                      if not sharding.split(n)
                                      and not sharding.model_split(n))}
+
+
+def cache_layout(model) -> dict:
+    """How a serving cell's decode caches lie on the mesh (the rank's block,
+    `Transformer.init_caches`): the rows along "dp", the KV heads (attention)
+    or d_inner channels (mamba) of the rank's block of each position split
+    along "model" (`Transformer.cache_widths`), the sequence whole."""
+    return {"rows": "dp", "model_split": model.cache_widths(), "sequence": CACHE_SEQUENCE}
 
 
 def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, accum: int = 4,
@@ -247,23 +264,18 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
     shards = mb_rows // len(mine)
     head = {"arch": arch, "shape": shape_name, "kind": kind, "mesh": mesh_label(mesh),
             "n_devices": n_dev}
-    if kind == "train":
-        try:
-            check_dispatch_split(cfg, shards, mb_rows, S)
-        except ValueError as e:
-            return {**head, "ok": False, "accum": accum,
-                    "error": f"the port cannot run this cell data-parallel: {e}",
-                    **(extra_metadata or {})}, None
+    try:
+        check_dispatch_split(cfg, shards, mb_rows, 1 if kind == "decode" else S)
+    except ValueError as e:
+        return {**head, "ok": False, "accum": accum if kind == "train" else None,
+                "error": f"the port cannot run this cell data-parallel: {e}",
+                **(extra_metadata or {})}, None
 
     model = Transformer(cfg, device=META, dtype=getattr(torch, cfg.param_dtype), backend="ref")
     batch = SP.input_specs(cfg, shape_name)
     batch_bytes = _tree_bytes(batch, SP.batch_specs_for(cfg, shape_name, rules), mesh)
     n_params = sum(p.numel() for p in model.parameters())
-    param_bytes = sum(_nbytes(p) for p in model.parameters())
-    parts = {"params": param_bytes}
-    wire, by_kind, by_axis, sites = 0.0, {}, {}, 0
-    layout = WHOLE
-    split_along_model = 1  # the ranks along "model" that split the rank's work
+    parts = {}
     if kind == "train":
         opt_cfg = SP.opt_config_for(cfg)
         state = SP.abstract_train_state(model, opt_cfg)
@@ -274,35 +286,42 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
         fsdp.WIRE.reset()
         _, flops, nbytes, secs = count(lambda: step(state, batch))
         f32_grads = accum > 1 or n_dev > 1  # the step's f32 sums, else the params' dtypes
-        parts["params"] = sum(_nbytes(p) for p in model.parameters())  # the rank's
         parts["opt"] = sum(_nbytes(t) for part in state.opt.values() for t in part.values())
         parts["grads"] = sum(p.numel() * (4 if f32_grads else p.element_size())
                              for p in model.parameters())
         parts["gathered"] = fsdp.WIRE.largest_gather
         parts["batch"] = sum(_nbytes(t) for t in batch.values())  # every rank holds it all
-        wire, by_kind, by_axis = fsdp.WIRE.total, dict(fsdp.WIRE.bytes), fsdp.WIRE.by_axis()
-        sites = sum(fsdp.WIRE.calls.values())
-        if sharding is not None:
-            layout = state_layout(sharding, model, rules)
-            if layout["model_split_leaves"]:
-                split_along_model = sharding.model_parts
     else:
         model.eval()
-        params_ps = tree_pspecs(model.param_specs(), rules)
-        caches_ps = SP.cache_pspecs(model, rules)
+        args = _param_bytes(model, tree_pspecs(model.param_specs(), rules), mesh) + batch_bytes
+        if kind == "decode":
+            args += _tree_bytes(SP.abstract_caches(model, shape_name),
+                                SP.cache_pspecs(model, rules), mesh)
+        sharding = fsdp.shard_model(model, rules, place=(mesh, 0))
         rank_batch = {k: v[mine.start:mine.stop] for k, v in batch.items()}
+        fsdp.WIRE.reset()
         if kind == "prefill":
-            args = _param_bytes(model, params_ps, mesh) + batch_bytes
             (_, caches), flops, nbytes, secs = count(
-                lambda: model.prefill(rank_batch, max_len=S))
+                lambda: model.prefill(rank_batch, max_len=S, dispatch_ranks=shards))
         else:
-            args = (_param_bytes(model, params_ps, mesh) + batch_bytes
-                    + _tree_bytes(SP.abstract_caches(model, shape_name), caches_ps, mesh))
             caches = model.init_caches(len(mine), S)
             _, flops, nbytes, secs = count(
-                lambda: model.decode_step(caches, rank_batch["tokens"], S - 1))
+                lambda: model.decode_step(caches, rank_batch["tokens"], S - 1,
+                                          dispatch_ranks=shards))
+        parts["gathered"] = fsdp.WIRE.largest_gather
         parts["caches"] = sum(_nbytes(t) for t in _flat(caches).values())
         parts["batch"] = sum(_nbytes(t) for t in rank_batch.values())
+    parts = {"params": sum(_nbytes(p) for p in model.parameters()), **parts}  # the rank's
+    wire, by_kind, by_axis = fsdp.WIRE.total, dict(fsdp.WIRE.bytes), fsdp.WIRE.by_axis()
+    sites = sum(fsdp.WIRE.calls.values())
+    layout = WHOLE
+    split_along_model = 1  # the ranks along "model" that split the rank's work
+    if sharding is not None:
+        layout = state_layout(sharding, model, rules)
+        if kind != "train":
+            layout["caches"] = cache_layout(model)
+        if layout["model_split_leaves"]:
+            split_along_model = sharding.model_parts
     rank_bytes = sum(parts.values())
     mf = SP.model_flops(cfg, shape_name, n_dev)
     rl = roofline(arch=arch, shape=shape_name, mesh=mesh_label(mesh), hlo_flops=flops,
@@ -328,7 +347,7 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
             "port_rank_bytes": rank_bytes,
             "port_rank_parts": parts,
             "fits_one_card": rank_bytes <= H100_SXM.hbm_per_chip,
-            "state_layout": layout if kind == "train" else SERVING_LAYOUT,
+            "state_layout": layout,
         },
         "cost_analysis": None,
         "hlo": {

@@ -8,6 +8,16 @@ with the static-batch engine.
 Without --device it runs on the CUDA card.  --ckpt-dir restores a
 `TrainState` of the default `OptConfig` (what `launch.train` writes, or the
 JAX package's checkpoint of the same config) into the model.
+
+The launcher serves on one device and takes no mesh, as the JAX launcher
+(`repro/launch/serve.py`) does.  A model whose state is sharded is served
+through the API, every rank of the group calling the same code:
+`build_model`, then `repro_torch.parallel.fsdp.shard_model(model, rules,
+group=..., mesh=Mesh((D, M), ("data", "model")))` (or
+`init_train_state(..., rules=..., group=..., mesh=...)`), `Checkpointer.
+restore` onto that layout (checkpoints are stored whole), and
+`ServeEngine(model, ...)`, which runs each rank's rows on its blocks and
+returns the same completions on every rank.
 """
 
 from __future__ import annotations

@@ -5,9 +5,8 @@ is a ModuleDict keyed "pos{i}" by the position in the pattern, as the JAX
 package keys its per-group parameters.  The group runs its layers for the
 three passes: the full-sequence forward, the prefill (which also fills this
 group's slot of the decode caches) and the one-token decode step.
-The full-sequence forward takes the group's `ModelRegion` under tensor
-parallelism (`tp`, `repro_torch.parallel.tensor`) and hands each layer its
-own.
+Each pass takes the group's `ModelRegion` under tensor parallelism (`tp`,
+`repro_torch.parallel.tensor`) and hands each layer its own.
 """
 
 from __future__ import annotations
@@ -98,13 +97,16 @@ class Group(nn.ModuleDict):
             layer.reset_parameters(cfg, gen)
 
     def forward(self, cfg, x, positions, *, backend: str = "cuda", caches=None, g: int = 0,
-                chunk: int = 1024, dispatch_ranks: int = 1, tp=None):
+                chunk: int = 1024, dispatch_ranks: int = 1, tp=None, position: int | None = None):
         """Full-sequence pass (`chunk`: the KV chunk of `blocked_attention`;
         `dispatch_ranks`: `moe_forward`'s `ranks`; `tp`: the group's
-        `ModelRegion` under tensor parallelism, for the training forward).
-        With `caches` (the stacked decode caches), the prefill: also writes
+        `ModelRegion` under tensor parallelism).  With `caches` (the stacked
+        decode caches, the rank's block of them), the prefill: also writes
         this group's attention k/v at positions [0, S) and its mamba states
-        into slot `g`."""
+        into slot `g`.  With `position`, the decode step of x [B, 1, d] at
+        that position instead (`decode`; `positions` unused)."""
+        if position is not None:
+            return self.decode(cfg, x, caches, g, position, dispatch_ranks=dispatch_ranks, tp=tp)
         S = x.shape[1]
         for key, layer in self.items():
             ltp = None if tp is None else tp.at(f"{key}.")
@@ -123,24 +125,30 @@ class Group(nn.ModuleDict):
                                     tp=None if ltp is None else ltp.at("mamba."))
             else:
                 out, (ssm, conv) = mamba_forward(layer.mamba, cfg, h, return_state=True,
-                                                 backend=backend)
+                                                 backend=backend,
+                                                 tp=None if ltp is None else ltp.at("mamba."))
                 caches[key]["ssm"][g] = ssm
                 caches[key]["conv"][g] = conv
             x = layer.ffn(cfg, x + out, dispatch_ranks, ltp)
         return x
 
-    def decode(self, cfg, x, caches, g: int, position: int):
-        """One token through the group, updating slot `g` of the caches in place."""
+    def decode(self, cfg, x, caches, g: int, position: int, *, dispatch_ranks: int = 1,
+               tp=None):
+        """One token through the group, updating slot `g` of the caches in
+        place (`dispatch_ranks`, `tp`: as `forward`'s)."""
         for key, layer in self.items():
+            ltp = None if tp is None else tp.at(f"{key}.")
             h = rms_norm(x, layer.norm_mixer.scale, cfg.norm_eps)
             mixer = layer.spec.mixer
             c = caches[key]
             if mixer.startswith("attn"):
                 out, _, _ = decode_attention(layer.attn, cfg, h, c["k"][g], c["v"][g], position,
-                                             local=mixer == "attn_local")
+                                             local=mixer == "attn_local",
+                                             tp=None if ltp is None else ltp.at("attn."))
             else:
-                out, ssm, conv = mamba_decode(layer.mamba, cfg, h, c["ssm"][g], c["conv"][g])
+                out, ssm, conv = mamba_decode(layer.mamba, cfg, h, c["ssm"][g], c["conv"][g],
+                                              tp=None if ltp is None else ltp.at("mamba."))
                 c["ssm"][g] = ssm
                 c["conv"][g] = conv
-            x = layer.ffn(cfg, x + out)
+            x = layer.ffn(cfg, x + out, dispatch_ranks, ltp)
         return x

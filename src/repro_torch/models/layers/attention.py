@@ -15,7 +15,9 @@ Under tensor parallelism (`tp`, a `repro_torch.parallel.tensor.ModelRegion`
 whose "wq" is split along "model") the layer runs on the rank's heads:
 wq column-parallel (and wk, wv where kv -> "model"), the kernel on the
 rank's query heads and the KV heads they read, wo row-parallel, its output
-summed over "model".  Its widths come from the blocks' shapes.
+summed over "model".  Its widths come from the blocks' shapes.  The decode
+step runs the same split against the rank's block of the KV caches: its
+rows and the KV heads its query heads read, the sequence whole.
 """
 
 from __future__ import annotations
@@ -211,20 +213,25 @@ def attention_forward(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, local
 
 
 def decode_attention(p, cfg, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     position: int, *, local: bool = False):
+                     position: int, *, local: bool = False, tp=None):
     """One-token decode against a KV cache.
 
     x [B, 1, d]; cache_k and cache_v [B, S_max, KV, hd]; position: index of
     the new token.  Writes the token's k and v into the caches at `position`
     in place (the JAX function returns updated copies) and returns
-    (out [B, 1, d], cache_k, cache_v).
+    (out [B, 1, d], cache_k, cache_v).  `tp`: the layer's `ModelRegion`
+    (module docstring): q on the rank's heads, the caches the rank's block of
+    the KV heads they read (`rank_kv_heads`), wo row-parallel.
     """
     B = x.shape[0]
     S_max, KV, hd = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
-    H = cfg.n_heads
+    heads = tp is not None and tp.split("wq")
+    if heads:
+        x = tp.copy(x)
+    H = p.wq.shape[1]
     G = H // KV
     pos = torch.full((B, 1), position, dtype=torch.int64, device=x.device)
-    q, k, v = _qkv(p, cfg, x, pos)
+    q, k, v = _qkv(p, cfg, x, pos, rank_kv_heads(p, tp) if heads else slice(None))
     cache_k[:, position] = k[:, 0].to(cache_k.dtype)
     cache_v[:, position] = v[:, 0].to(cache_v.dtype)
 
@@ -238,4 +245,5 @@ def decode_attention(p, cfg, x: torch.Tensor, cache_k: torch.Tensor, cache_v: to
     s = s.masked_fill(~ok, NEG_INF)
     prob = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", prob.to(cache_v.dtype), cache_v)
-    return out.reshape(B, 1, H * hd) @ p.wo.reshape(H * hd, -1), cache_k, cache_v
+    out = out.reshape(B, 1, H * hd) @ p.wo.reshape(H * hd, -1)
+    return (tp.reduce(out) if heads else out), cache_k, cache_v

@@ -18,7 +18,8 @@ as the JAX templates say: in_proj column-parallel, the conv, dt_proj,
 dt_bias, A_log, D and the scan per channel on the rank's channels;
 x_proj row-parallel, its [B, S, r + 2N] output summed over "model" and
 copied back into the region for dt_proj and for the B and C every rank's
-channels read; out_proj row-parallel, its output summed over "model".
+channels read; out_proj row-parallel, its output summed over "model".  The
+prefill's final states and the decode step's states are the rank's channels.
 """
 
 from __future__ import annotations
@@ -214,16 +215,26 @@ def mamba_forward(p, cfg, x: torch.Tensor, return_state: bool = False, *,
     return out, (h_last, conv_state)
 
 
-def mamba_decode(p, cfg, x: torch.Tensor, ssm_state: torch.Tensor, conv_state: torch.Tensor):
+def mamba_decode(p, cfg, x: torch.Tensor, ssm_state: torch.Tensor, conv_state: torch.Tensor,
+                 tp=None):
     """One-token step.  x [B, 1, d]; ssm_state [B, di, N]; conv_state
-    [B, dconv-1, di].  Returns (out [B, 1, d], new ssm_state, new conv_state)."""
+    [B, dconv-1, di].  Returns (out [B, 1, d], new ssm_state, new conv_state).
+    `tp`: the layer's `ModelRegion` (module docstring): the states are the
+    rank's channels, in_proj column-parallel, x_proj and out_proj
+    row-parallel, as in the forward."""
+    if tp is not None and not tp.split("in_proj"):
+        tp = None
+    if tp is not None:
+        x = tp.copy(x)
     d, _, di = p.in_proj.shape
     xz = (x @ p.in_proj.reshape(d, 2 * di)).unflatten(-1, (2, di))
     x1, z = xz[..., 0, :], xz[..., 1, :]
     xc, new_conv = _causal_conv(p, cfg, x1, conv_state)
     xc = F.silu(xc)
-    a, b, Cc = _ssm_inputs(p, cfg, xc)  # S = 1
+    a, b, Cc = _ssm_inputs(p, cfg, xc, tp)  # S = 1
     h = a[:, 0] * ssm_state + b[:, 0]  # [B, di, N]
     y = (h * Cc[:, 0, None, :].float()).sum(-1)
     out = _gate_out(p, y, xc[:, 0], z[:, 0], x.dtype)
+    if tp is not None:
+        out = tp.reduce(out)
     return out[:, None, :], h, new_conv

@@ -33,8 +33,18 @@ their model regions (whose all-reduces the recompute runs again), the
 lookup is vocab-parallel, the head gives the rank's vocab slice of the
 logits, `loss_fn` takes the vocab-parallel cross entropy without gathering
 them, and `forward` gathers them whole.  `init_params` draws the one-card
-values a module at a time and keeps the blocks.  Serving takes a whole
-model: `prefill` and `decode_step` raise on a sharded one.
+values a module at a time and keeps the blocks.
+
+A sharded model serves on its blocks too.  `prefill` and `decode_step`
+take the rank's rows of a batch (`rank_rows`; every row where the data
+axes do not divide the batch) and run without grad: each group's weights
+are gathered along "data" once a call (no graph, no remat), the group runs
+in its model region, the embedding and the head are gathered where they
+are used, and the logits come back whole along "model" for the rank's
+rows.  The caches are the rank's block (`init_caches`): its rows, the
+attention's KV heads its query heads read ([G, B_r, S_max, KV_r, hd]: the
+sequence whole, where the JAX `cache_specs` shard it along "model"), and
+mamba's d_inner channels, as `cache_specs` splits them.
 """
 
 from __future__ import annotations
@@ -47,13 +57,16 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models.blocks import Group, group_specs
+from repro_torch.models.layers.attention import rank_kv_heads
 from repro_torch.models.layers.embeddings import (
     embed_inputs,
     embed_specs,
     head_split,
     init_embeddings,
     logits_out,
+    lookup,
 )
+from repro_torch.models.layers.moe import check_dispatch_split
 from repro_torch.models.layers.norms import RMSNorm, rms_norm, rms_specs
 from repro_torch.parallel import tensor
 
@@ -109,18 +122,23 @@ def cache_specs(cfg) -> dict:
     return specs
 
 
-def init_caches(cfg, batch_size: int, max_len: int, *, dtype, device) -> dict:
-    """Zeroed decode caches for `batch_size` sequences of up to `max_len`."""
+def init_caches(cfg, batch_size: int, max_len: int, *, dtype, device,
+                widths: dict | None = None) -> dict:
+    """Zeroed decode caches for `batch_size` sequences of up to `max_len`.
+    `widths`: {"pos{i}": the KV heads or d_inner channels a rank holds} of
+    the positions whose caches a rank holds a block of (whole otherwise)."""
     G = cfg.n_groups
+    widths = widths or {}
     caches = {}
     for i, spec in enumerate(cfg.pattern):
+        key = f"pos{i}"
         if spec.mixer.startswith("attn"):
-            shape = (G, batch_size, max_len, cfg.n_kv, cfg.head_dim)
-            caches[f"pos{i}"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+            shape = (G, batch_size, max_len, widths.get(key, cfg.n_kv), cfg.head_dim)
+            caches[key] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                           "v": torch.zeros(shape, dtype=dtype, device=device)}
         elif spec.mixer == "mamba":
-            di, N, dc = cfg.d_inner, cfg.mamba.d_state, cfg.mamba.d_conv
-            caches[f"pos{i}"] = {
+            di, N, dc = widths.get(key, cfg.d_inner), cfg.mamba.d_state, cfg.mamba.d_conv
+            caches[key] = {
                 "ssm": torch.zeros((G, batch_size, di, N), dtype=torch.float32, device=device),
                 "conv": torch.zeros((G, batch_size, dc - 1, di), dtype=dtype, device=device),
             }
@@ -192,11 +210,6 @@ class Transformer(nn.Module):
 
         return run
 
-    def _whole_only(self, what: str) -> None:
-        if self.fsdp is not None:
-            raise ValueError(f"{what} takes a whole model; serving on a sharded state is "
-                             f"ROADMAP §1's slice 25")
-
     def param_specs(self) -> dict:
         """`param_specs(self.cfg)`, as the JAX `Model.param_specs()`."""
         return param_specs(self.cfg)
@@ -206,11 +219,49 @@ class Transformer(nn.Module):
         return cache_specs(self.cfg)
 
     def init_caches(self, batch_size: int, max_len: int, dtype=None) -> dict:
+        """Zeroed decode caches; on a sharded model the rank's block of them
+        (module docstring) for its `batch_size` rows."""
         return init_caches(self.cfg, batch_size, max_len, dtype=dtype or self.dtype,
-                           device=self.device)
+                           device=self.device, widths=self.cache_widths())
 
-    def _final(self, x: torch.Tensor) -> torch.Tensor:
-        return logits_out(self, self.cfg, rms_norm(x, self.final_norm.scale, self.cfg.norm_eps))
+    def cache_widths(self) -> dict:
+        """{"pos{i}": the KV heads (attention) or d_inner channels (mamba)
+        of the rank's cache block} of the positions split along "model"."""
+        out = {}
+        for key, layer in self.groups[0].items():
+            tp = tensor.region(self.fsdp, f"groups.0.{key}.")
+            if tp is None:
+                continue
+            if hasattr(layer, "attn") and tp.at("attn.").split("wq"):
+                kv = rank_kv_heads(layer.attn, tp.at("attn."))
+                out[key] = len(range(layer.attn.wk.shape[1])[kv])
+            elif hasattr(layer, "mamba") and tp.at("mamba.").split("in_proj"):
+                out[key] = layer.mamba.in_proj.shape[2]
+        return out
+
+    def _head_logits(self, w_in, x: torch.Tensor, tp) -> torch.Tensor:
+        """The final norm and the head (the tied `w_in.embed`, else the head
+        gathered along "data"): the logits, or the rank's vocab slice of
+        them where the head is split along "model"."""
+        w_out = w_in if self.cfg.tie_embeddings else self._gathered("head")
+        return logits_out(w_out, self.cfg, rms_norm(x, self.final_norm.scale, self.cfg.norm_eps),
+                          tp)
+
+    def _whole_logits(self, w_in, x: torch.Tensor) -> torch.Tensor:
+        tp = tensor.region(self.fsdp)
+        logits = self._head_logits(w_in, x, tp)
+        return tp.gather(logits) if head_split(self.cfg, tp) else logits
+
+    def _embed_in(self):
+        """What `embed_inputs` reads: the embedding gathered along "data"
+        (the model itself for frames with an untied head: no lookup)."""
+        cfg = self.cfg
+        if cfg.input_mode == "frames" and not cfg.tie_embeddings:
+            return self
+        return self._gathered("embed")
+
+    def _check_dispatch(self, rows: int, S: int, dispatch_ranks: int) -> None:
+        check_dispatch_split(self.cfg, dispatch_ranks, rows * dispatch_ranks, S)
 
     def _logits(self, batch: dict, *, remat: bool = True, chunk: int = 1024,
                 dispatch_ranks: int = 1):
@@ -219,8 +270,7 @@ class Transformer(nn.Module):
         `ModelRegion`, else None)."""
         cfg = self.cfg
         tp = tensor.region(self.fsdp)
-        tied = cfg.tie_embeddings
-        w_in = self if cfg.input_mode == "frames" and not tied else self._gathered("embed")
+        w_in = self._embed_in()
         x = embed_inputs(w_in, cfg, batch, tp)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = remat and torch.is_grad_enabled()
@@ -233,8 +283,7 @@ class Transformer(nn.Module):
             else:
                 x = run(cfg, x, positions, backend=self.backend, chunk=chunk,
                         dispatch_ranks=dispatch_ranks)
-        w_out = w_in if tied else self._gathered("head")
-        logits = logits_out(w_out, cfg, rms_norm(x, self.final_norm.scale, cfg.norm_eps), tp)
+        logits = self._head_logits(w_in, x, tp)
         return logits, (tp if head_split(cfg, tp) else None)
 
     def forward(self, batch: dict, *, remat: bool = True, chunk: int = 1024,
@@ -276,29 +325,39 @@ class Transformer(nn.Module):
         return torch.sum(nll * mask) / denominator
 
     @torch.no_grad()
-    def prefill(self, batch: dict, max_len: int):
+    def prefill(self, batch: dict, max_len: int, *, dispatch_ranks: int = 1):
         """Run the prompt: (last-position logits [B, V], filled caches).
 
         The attention caches hold positions [0, S); mamba states carry the
-        last recurrent state."""
-        self._whole_only("prefill")
-        x = embed_inputs(self, self.cfg, batch)
-        B, S, _ = x.shape
+        last recurrent state.  On a sharded model `batch` is the rank's rows
+        and the caches its block (module docstring).  `dispatch_ranks`: the
+        data-parallel ranks that share the batch's rows, for the MoE
+        dispatch groups (`moe_forward`); where they cannot split the groups,
+        ValueError (`check_dispatch_split`)."""
+        cfg = self.cfg
+        B, S = next(iter(batch.values())).shape[:2]
         if S > max_len:
             raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
+        self._check_dispatch(B, S, dispatch_ranks)  # before any collective
+        w_in = self._embed_in()
+        x = embed_inputs(w_in, cfg, batch, tensor.region(self.fsdp))
         positions = torch.arange(S, device=x.device)
         caches = self.init_caches(B, max_len)
-        for g, group in enumerate(self.groups):
-            x = group(self.cfg, x, positions, backend=self.backend, caches=caches, g=g)
-        return self._final(x[:, -1:, :])[:, 0, :], caches
+        for g in range(len(self.groups)):
+            x = self._group_fn(g)(cfg, x, positions, backend=self.backend, caches=caches, g=g,
+                                  dispatch_ranks=dispatch_ranks)
+        return self._whole_logits(w_in, x[:, -1:, :])[:, 0, :], caches
 
     @torch.no_grad()
-    def decode_step(self, caches: dict, tokens: torch.Tensor, position: int):
-        """tokens [B] at `position` -> (logits [B, V], caches updated in place)."""
-        self._whole_only("decode_step")
+    def decode_step(self, caches: dict, tokens: torch.Tensor, position: int, *,
+                    dispatch_ranks: int = 1):
+        """tokens [B] at `position` -> (logits [B, V], caches updated in place).
+        On a sharded model the rank's rows and cache block (`prefill`)."""
         position = int(position)
-        x = self.embed[tokens[:, None]]
-        for g, group in enumerate(self.groups):
-            x = group.decode(self.cfg, x, caches, g, position)
-        return self._final(x)[:, 0, :], caches
-
+        self._check_dispatch(tokens.shape[0], 1, dispatch_ranks)
+        w_in = self._gathered("embed")
+        x = lookup(w_in.embed, tokens[:, None], tensor.region(self.fsdp))
+        for g in range(len(self.groups)):
+            x = self._group_fn(g)(self.cfg, x, None, caches=caches, g=g, position=position,
+                                  dispatch_ranks=dispatch_ranks)
+        return self._whole_logits(w_in, x)[:, 0, :], caches

@@ -13,7 +13,9 @@ objects stay) and attaches the sharding as `model.fsdp`; the model then
 gathers each group's weights along "data" where the group runs, inside
 the region that activation checkpointing recomputes, and the embedding and
 the head where they are used (`repro_torch.models.transformer`): a block
-stays sliced along "model", and the layers run on it.
+stays sliced along "model", and the layers run on it.  The serving passes
+(`prefill`, `decode_step`) gather the same blocks once a call, with grad
+off and no graph.
 `shard_train_state` also cuts the AdamW moments.
 
 The collectives, each a plain `torch.distributed` call that gloo (CPU and
@@ -274,7 +276,8 @@ class Sharding:
         """{name: block whole along "data"} of the tensors of `named` that
         are sliced along "data" (parameter `prefix + name`'s blocks), through
         `_Gather`: one call a dtype, the gradients reduce-scattered in the
-        backward."""
+        backward.  With grad off (serving) the all-gather runs alone and no
+        graph is built."""
         split = [(n, t) for n, t in named.items() if self.split(prefix + n)]
         by_dtype: dict = {}
         for n, t in split:
@@ -282,8 +285,10 @@ class Sharding:
         out = {}
         for items in by_dtype.values():
             shards = [self.layout[prefix + n] for n, _ in items]
-            out.update(zip([n for n, _ in items],
-                           _Gather.apply(self, shards, *[t for _, t in items])))
+            blocks = [t for _, t in items]
+            whole = (_Gather.apply(self, shards, *blocks) if torch.is_grad_enabled()
+                     else self._all_gather(blocks, shards))
+            out.update(zip([n for n, _ in items], whole))
         WIRE.largest_gather = max(WIRE.largest_gather, sum(_nbytes(t) for t in out.values()))
         return out
 

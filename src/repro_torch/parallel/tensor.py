@@ -29,13 +29,14 @@ Megatron's two operators carry the activations across a region's edges:
 replicated activation enters it, and `reduce` (all-reduce forward,
 identity backward) where its partial sums leave it; `gather` (all-gather
 along a dimension forward, the rank's slice of the gradient backward)
-where the ranks' slices of an activation leave it whole.  Inside the
-groups' function they sit inside the region that activation checkpointing
-recomputes, so the recompute runs the forward all-reduces and all-gathers
-again, as the JAX body's collectives sit inside its rematerialized scan
-body.  Each call goes through `repro_torch.parallel.fsdp`'s collectives
-and counts on `fsdp.WIRE` under the axis "model"; on the meta device it
-counts and runs nothing.
+where the ranks' slices of an activation leave it whole.  With grad off
+(the serving passes) each runs its forward alone, without an autograd
+node.  Inside the groups' function they sit inside the region that
+activation checkpointing recomputes, so the recompute runs the forward
+all-reduces and all-gathers again, as the JAX body's collectives sit
+inside its rematerialized scan body.  Each call goes through
+`repro_torch.parallel.fsdp`'s collectives and counts on `fsdp.WIRE` under
+the axis "model"; on the meta device it counts and runs nothing.
 
 A layer whose dimension the axis does not divide keeps its leaves whole
 and runs whole on every rank of the row, outside any region.  Which
@@ -150,18 +151,27 @@ class ModelRegion:
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         """Megatron's "copy to the model region": x, its gradient summed
-        over "model"."""
-        return _Copy.apply(x, self)
+        over "model".  With grad off (serving) x itself."""
+        return _Copy.apply(x, self) if torch.is_grad_enabled() else x
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Megatron's "reduce from the model region": x summed over
-        "model", its gradient passed through."""
-        return _Reduce.apply(x, self)
+        "model", its gradient passed through.  With grad off the all-reduce
+        runs alone."""
+        if torch.is_grad_enabled():
+            return _Reduce.apply(x, self)
+        y = x.clone(memory_format=torch.contiguous_format)
+        self.all_reduce_(y)
+        return y
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The ranks' slices of x along dimension `dim` (the last by
-        default), whole, in rank order."""
-        return _Gather.apply(x, self, dim % x.ndim)
+        default), whole, in rank order.  With grad off the all-gather runs
+        alone."""
+        if torch.is_grad_enabled():
+            return _Gather.apply(x, self, dim % x.ndim)
+        return fsdp.gather_blocks([x.contiguous()], [dim % x.ndim], self.size, self.group,
+                                  "model")[0]
 
     def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """logsumexp(logits) - the label's logit of every row, from the

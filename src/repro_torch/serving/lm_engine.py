@@ -7,6 +7,16 @@ against the caches, which it updates in place.  Temperature sampling draws
 from a `torch.Generator` seeded with `SamplerConfig.seed`: the tokens are
 not the JAX engine's, whose draws come from `jax.random`; greedy tokens are
 the same function of the logits (argmax, lowest index on ties).
+
+A model whose state is sharded (`repro_torch.parallel.fsdp.shard_model` on
+a ("data", "model") mesh) serves on every rank of its group: each rank
+calls `generate` with the same global prompts and runs its rows
+(`rank_rows`; every row where the data axis does not divide the batch),
+the model's prefill and decode steps gathering its weights and running its
+layers on their blocks.  Each step's f32 logits rows are gathered along
+"data" to [B, V], and every rank samples from them with the same
+`torch.Generator`: every rank returns the same completions, which are the
+one-device engine's for the same logits.
 """
 
 from __future__ import annotations
@@ -17,6 +27,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.sharding import make_rules, rank_rows
 
 
 @dataclass(frozen=True)
@@ -34,7 +46,12 @@ class ServeEngine:
 
     After each `generate`, `stats` holds its host-clock times: `prefill_s`
     (prefill and the first token, read back to the host), `decode_s` and
-    `decode_steps` (the later tokens, one step each)."""
+    `decode_steps` (the later tokens, one step each); and the bytes the
+    rank put on the wire (`fsdp.WIRE`, reset at each call), by mesh axis and
+    kind: `wire_prefill` of the model's prefill, `wire_decode_steps` of each
+    decode step, `wire_logits` of the engine's gathers of the logits rows,
+    and `collective_s`, the host seconds of all of them by axis (all empty
+    on a whole model)."""
 
     def __init__(self, model, max_len: int, batch_size: int,
                  sampler: SamplerConfig = SamplerConfig(), *, device=None):
@@ -57,11 +74,18 @@ class ServeEngine:
         if any(len(p) != plen for p in prompts):
             raise ValueError("static engine: equal prompt lengths")
         B = len(prompts)
+        rows = self._rows(B)
+        ranks = B // len(rows)  # the data-parallel ranks that share the rows
         gen = torch.Generator(device=self.device).manual_seed(self.sampler.seed)
+        wire = {"wire_prefill": {}, "wire_decode_steps": [], "wire_logits": 0.0,
+                "collective_s": {}}
         t0 = time.perf_counter()
-        toks = torch.tensor(prompts, dtype=torch.int64, device=self.device)
-        logits, caches = self.model.prefill({"tokens": toks}, max_len=self.max_len)
-        next_tok = self._sample(logits, gen)
+        toks = torch.tensor(prompts, dtype=torch.int64, device=self.device)[rows.start:rows.stop]
+        fsdp.WIRE.reset()
+        logits, caches = self.model.prefill({"tokens": toks}, max_len=self.max_len,
+                                            dispatch_ranks=ranks)
+        wire["wire_prefill"] = self._read_wire(wire)
+        next_tok = self._sample(self._whole_rows(logits, ranks, wire), gen)
         out = [[tok] for tok in next_tok.tolist()]
         t1 = time.perf_counter()
         done = [False] * B
@@ -70,8 +94,11 @@ class ServeEngine:
         for _ in range(1, self.sampler.max_new_tokens):
             if position >= self.max_len or all(done):
                 break
-            logits, caches = self.model.decode_step(caches, next_tok, position)
-            next_tok = self._sample(logits, gen)
+            fsdp.WIRE.reset()
+            logits, caches = self.model.decode_step(caches, next_tok[rows.start:rows.stop],
+                                                    position, dispatch_ranks=ranks)
+            wire["wire_decode_steps"].append(self._read_wire(wire))
+            next_tok = self._sample(self._whole_rows(logits, ranks, wire), gen)
             position += 1
             steps += 1
             for i, tok in enumerate(next_tok.tolist()):
@@ -82,8 +109,37 @@ class ServeEngine:
                 else:
                     out[i].append(tok)
         self.stats = {"prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1,
-                      "decode_steps": steps, "batch": B, "prompt_len": plen}
+                      "decode_steps": steps, "batch": B, "prompt_len": plen, **wire}
         return out
+
+    def _rows(self, B: int) -> range:
+        """The rows of a batch of B that this rank runs (all on a whole model)."""
+        sharding = self.model.fsdp
+        if sharding is None:
+            return range(B)
+        return rank_rows(B, sharding.mesh, make_rules(sharding.mesh), sharding.rank)
+
+    def _whole_rows(self, logits: torch.Tensor, ranks: int, wire: dict) -> torch.Tensor:
+        """The rank's f32 logits rows gathered along "data" to [B, V] (its
+        own where it runs every row), the gather's wire bytes added to
+        `wire`."""
+        logits = logits.float()
+        if ranks == 1:
+            return logits
+        fsdp.WIRE.reset()
+        whole = fsdp.gather_blocks([logits.contiguous()], [0], ranks,
+                                   self.model.fsdp.data_group, "data")[0]
+        wire["wire_logits"] += fsdp.WIRE.total
+        self._read_wire(wire)
+        return whole
+
+    @staticmethod
+    def _read_wire(wire: dict) -> dict:
+        """`fsdp.WIRE`'s bytes by axis and kind since its reset; its host
+        seconds added to wire["collective_s"] by axis."""
+        for axis, kinds in fsdp.WIRE.by_axis("seconds").items():
+            wire["collective_s"][axis] = wire["collective_s"].get(axis, 0.0) + sum(kinds.values())
+        return fsdp.WIRE.by_axis()
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         if self.sampler.temperature <= 0:

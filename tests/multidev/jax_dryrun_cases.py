@@ -6,7 +6,10 @@ Lowers and compiles `repro.launch.dryrun.lower_cell` on the cells of
 `tests/multidev/run_dryrun_smoke.py` (the reduced qwen3-moe, `train_4k` at
 S = 128, B = 16 and `decode_32k` at S = 256, B = 16, accum = 2) on a 4x4
 ("data", "model") mesh, and the train cell with 4 MoE dispatch groups on
-4x4 and on a data-only 4x1 mesh, with and without remat; writes each
+4x4 and on a data-only 4x1 mesh, with and without remat; the decode cell
+and `prefill_32k` at S = 64, B = 8 on 4x4 with 4 dispatch groups (the
+port's sharded serving rank cannot split the config's 2 over 4 data
+ranks); writes each
 record's numbers, the production meshes' shapes and labels and
 `repro.launch.perf.VARIANTS`' descriptions to OUT.json.
 `tests/test_torch_dryrun.py` holds the port's dry run to them.  Importing
@@ -33,12 +36,13 @@ from repro.configs import get_config, reduced  # noqa: E402
 from repro.launch import perf  # noqa: E402
 from repro.launch.mesh import make_production_mesh, mesh_label  # noqa: E402
 
-SMOKE_SHAPES = {"train_4k": (128, 16), "decode_32k": (256, 16)}  # (S, B)
+SMOKE_SHAPES = {"train_4k": (128, 16), "decode_32k": (256, 16), "prefill_32k": (64, 8)}  # (S, B)
 # name -> (mesh shape, shape, n_dispatch_groups or None for the config's, remat)
 CELLS = {
     "4x4/train": ((4, 4), "train_4k", None, True),
     "4x4/train/noremat": ((4, 4), "train_4k", None, False),
-    "4x4/decode": ((4, 4), "decode_32k", None, True),
+    "4x4/decode": ((4, 4), "decode_32k", 4, True),
+    "4x4/prefill": ((4, 4), "prefill_32k", 4, True),
     "4x4/train/g4": ((4, 4), "train_4k", 4, True),
     "4x4/train/g4/noremat": ((4, 4), "train_4k", 4, False),
     "4x1/train/g4": ((4, 1), "train_4k", 4, True),

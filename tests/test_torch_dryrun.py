@@ -1,7 +1,8 @@
 """The port's dry run (`repro_torch.launch.dryrun`, `repro_torch.launch.perf`)
 against the JAX package's on the smoke cells of `tests/test_dryrun_smoke.py`:
 the reduced qwen3-moe, a 4x4 ("data", "model") mesh, `train_4k` at S = 128,
-B = 16 and `decode_32k` at S = 256, B = 16, accum = 2.
+B = 16 and `decode_32k` at S = 256, B = 16, accum = 2; and `prefill_32k` at
+S = 64, B = 8.
 
 The JAX side (`repro.launch.dryrun.lower_cell`, which forces 512 host
 devices when imported) runs in `tests/multidev/jax_dryrun_cases.py`, a
@@ -29,7 +30,13 @@ What the port counts, and how it stands to JAX's numbers on these cells:
   the ratio of the two integer counts.
 - The smoke train cell itself (2 MoE dispatch groups) is one the port
   cannot run data-parallel on 4 data ranks (`check_dispatch_split`); the
-  FLOP comparison runs it with 4 dispatch groups on both sides.
+  FLOP comparison runs it with 4 dispatch groups on both sides.  So do the
+  decode and prefill cells, whose rank serves on the sharded state (4 of
+  the 16 rows, 2 of the 8; the layers on its "model" blocks): on 4x4 their
+  count is the rank's count whole along "model" (the 4x1 mesh's) less the
+  share the 4 ranks along "model" split, derived from the shapes
+  (`serve_split_flops`), and their JAX-mesh view is pinned to JAX's 4x4
+  count as the ratio of the two integer counts.
 """
 
 from __future__ import annotations
@@ -68,7 +75,8 @@ SMOKE_ARCH = "qwen3-moe-235b-a22b"
 CELLS = {
     "4x4/train": ((4, 4), "train_4k", None, True),
     "4x4/train/noremat": ((4, 4), "train_4k", None, False),
-    "4x4/decode": ((4, 4), "decode_32k", None, True),
+    "4x4/decode": ((4, 4), "decode_32k", 4, True),
+    "4x4/prefill": ((4, 4), "prefill_32k", 4, True),
     "4x4/train/g4": ((4, 4), "train_4k", 4, True),
     "4x4/train/g4/noremat": ((4, 4), "train_4k", 4, False),
     "4x1/train/g4": ((4, 1), "train_4k", 4, True),
@@ -76,12 +84,16 @@ CELLS = {
 }
 # The port's JAX-mesh view of the dot FLOPs over JAX's 4x4 dot_flops, as the
 # ratio of two integer counts of deterministic programs (measured: the port's
-# view 106,954,752 / 81,788,928 / 246,784 against JAX's 117,440,512 /
-# 88,080,384 / 274,432).  The train cells' rank runs the tensor- and
-# expert-parallel step; the decode cell keeps the whole parameters (slice 25).
+# view 106,954,752 / 81,788,928 / 266,240 / 5,251,072 against JAX's
+# 117,440,512 / 88,080,384 / 249,856 / 6,299,648).  Every cell's rank runs
+# on its "data" and "model" blocks: the train cells' the tensor- and
+# expert-parallel step, the decode and prefill cells' the sharded serving
+# pass, whose count `test_a_serving_ranks_program_is_the_data_only_rank_less_the_model_split`
+# derives from the shapes.
 FLOP_RATIO = {"4x4/train/g4": 106_954_752 / 117_440_512,
               "4x4/train/g4/noremat": 81_788_928 / 88_080_384,
-              "4x4/decode": 246_784 / 274_432}
+              "4x4/decode": 266_240 / 249_856,
+              "4x4/prefill": 5_251_072 / 6_299_648}
 
 
 def groups(n):
@@ -143,7 +155,7 @@ def test_the_smoke_train_cell_is_one_the_port_cannot_run(port_cells):
     assert port_cells["4x4/train/noremat"]["ok"] is False
 
 
-@pytest.mark.parametrize("name", ["4x4/train/g4", "4x4/decode"])
+@pytest.mark.parametrize("name", ["4x4/train/g4", "4x4/decode", "4x4/prefill"])
 def test_model_flops_equal_jax(port_cells, jax_cells, name):
     got = port_cells[name]["roofline"]["model_flops"]
     assert got == jax_cells["cells"][name]["model_flops"]
@@ -159,11 +171,13 @@ def token_bytes_over_jax(cfg_shape: str, mesh: Mesh) -> int:
     per_dev_rows = B // mesh.shape["data"]
     if cfg_shape == "decode_32k":
         return 4 * per_dev_rows
+    if cfg_shape == "prefill_32k":
+        return 4 * per_dev_rows * S  # tokens
     return 4 * 2 * per_dev_rows * S  # tokens and labels
 
 
 @pytest.mark.parametrize("name, gap", [("4x4/train/g4", 4096), ("4x4/decode", 16),
-                                       ("4x1/train/g4", 4096)])
+                                       ("4x1/train/g4", 4096), ("4x4/prefill", 512)])
 def test_argument_bytes_equal_jax_but_for_the_int64_tokens(port_cells, jax_cells, name, gap):
     ms, shape, _, _ = CELLS[name]
     assert token_bytes_over_jax(shape, Mesh(ms, ("data", "model"))) == gap
@@ -177,12 +191,12 @@ def test_argument_bytes_equal_jax_but_for_the_int64_tokens(port_cells, jax_cells
 @pytest.mark.parametrize("name", sorted(FLOP_RATIO))
 def test_flop_ratio_to_jax_dot_flops_is_pinned(port_cells, jax_cells, name):
     """The view is the rank's count over the ranks that repeat its program:
-    none on the tensor- and expert-parallel train cells (4 data shards, 4
-    ranks along "model" splitting the work), the 4 ranks along "model" of
-    the decode cell's whole parameters."""
+    none on these cells (4 data shards, 4 ranks along "model" splitting the
+    work: the train step's, and since the serving rank runs on its blocks,
+    the decode and prefill passes')."""
     rec = port_cells[name]
     view = rec["hlo"]["dot_flops_jax_view"]
-    repetition = 4 if name == "4x4/decode" else 1
+    repetition = 1
     assert rec["rank"]["repetition"] == repetition and rec["rank"]["data_shards"] == 4
     assert view == rec["hlo"]["dot_flops"] / repetition
     ratio = view / jax_cells["cells"][name]["hlo"]["dot_flops"]
@@ -230,6 +244,89 @@ def kv_gap_flops(cfg, rows: int, S: int, accum: int, D: int, remat: bool) -> flo
     input_grad = forward
     weight_grad = 2 * (2 * T * d * hd) - 2 * (2 * T * (d // D) * KV * hd)  # the port's more
     return accum * cfg.n_groups * ((2 if remat else 1) * forward + input_grad - weight_grad)
+
+
+def serve_split_flops(cfg, kind: str, rows: int, S: int, M: int, D: int = 4) -> float:
+    """The dot FLOPs that M ranks along "model" take off a serving rank's
+    pass on `rows` rows (decode: one token each against a cache of S;
+    prefill: S tokens each), from the shapes: each group's query
+    projection, attention (QK^T and PV over every key: the cache's S, or
+    the prompt's in the plain version), wo and MoE experts, and the head
+    (the last position's logits), (M - 1) / M of each; the K/V projections
+    as `tp_split_flops` splits them.  The experts run on the rank's dispatch
+    groups' `cap` slots each (`dispatch_shape` of the D ranks' rows)."""
+    from repro_torch.models.layers.moe import dispatch_shape
+
+    tokens = 1 if kind == "decode" else S
+    T, d, H, KV, hd = rows * tokens, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = wo = 2 * T * d * H * hd
+    attn = 2 * (2 * T * S * H * hd)
+    kv = 2 * (2 * T * d * KV * hd)
+    kv_split = (M - 1) / M if KV % M == 0 else 1 - max(1, (H // M) // (H // KV)) / KV
+    G, _, cap = dispatch_shape(cfg, rows * D, tokens)
+    experts = cfg.moe.n_experts * 2 * (G // D) * cap * d * 3 * cfg.moe.d_ff_expert
+    head = 2 * rows * d * cfg.vocab
+    return cfg.n_groups * ((M - 1) / M * (q + attn + wo + experts) + kv_split * kv) + (
+        (M - 1) / M * head)
+
+
+@pytest.mark.parametrize("name, whole_along_model, split", [
+    ("4x4/decode", 987_136, 720_896), ("4x4/prefill", 18_513_920, 13_262_848)])
+def test_a_serving_ranks_program_is_the_data_only_rank_less_the_model_split(
+        port_cells, name, whole_along_model, split):
+    """Exactly: the 4x4 serving rank's count is the 4x1 rank's (the same
+    rows, 4 of 16 to decode, 2 of 8 to prefill, whole along "model") less
+    what the 4 ranks along "model" split (`serve_split_flops`)."""
+    ms, shape, n, _ = CELLS[name]
+    cfg = groups(n)(reduced(get_config(SMOKE_ARCH), groups=2))
+    s, a = smoke()
+    with s, a:
+        data_only, _ = dr.lower_cell("smoke", shape, Mesh((4, 1), ("data", "model")),
+                                     cfg_override=groups(n))
+    rows, S = data_only["rank"]["rows"], SMOKE_SHAPES[shape][0]
+    assert rows == port_cells[name]["rank"]["rows"] == SMOKE_SHAPES[shape][1] // 4
+    assert data_only["hlo"]["dot_flops"] == whole_along_model
+    assert serve_split_flops(cfg, name.split("/")[1], rows, S, M=4) == split
+    assert port_cells[name]["hlo"]["dot_flops"] == whole_along_model - split
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_the_smoke_serving_cells_with_two_dispatch_groups_are_refused(shape):
+    """The smoke config's 2 MoE dispatch groups over 4 data ranks: a
+    sharded serving rank keeps the one-device groups, so the cell is
+    `ok: false` with `check_dispatch_split`'s reason, as the train cell."""
+    s, a = smoke()
+    with s, a:
+        rec, _ = dr.lower_cell("smoke", shape, Mesh((4, 4), ("data", "model")))
+    assert rec["ok"] is False and rec["accum"] is None
+    assert "cannot run this cell data-parallel" in rec["error"]
+    assert "G = 2" in rec["error"] and "R = 4" in rec["error"]
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_serving_wire_bytes_equal_the_sum_of_the_collective_wrappers_calls(shape):
+    """A serving cell's record on 2x2: its wire bytes by axis and kind and
+    its sites are those of every collective call of its pass."""
+    from repro_torch.parallel import fsdp
+
+    seen: dict = {}
+    calls = []
+    orig = fsdp._collective
+
+    def spy(kind, nbytes, ranks, group, t, run, axis="data"):
+        if ranks > 1:
+            mine = seen.setdefault(axis, dict.fromkeys(fsdp.KINDS, 0.0))
+            mine[kind] += (2 if kind == "all-reduce" else 1) * (ranks - 1) / ranks * nbytes
+            calls.append(kind)
+        return orig(kind, nbytes, ranks, group, t, run, axis)
+
+    s, a = smoke()
+    with s, a, mock.patch.object(fsdp, "_collective", spy):
+        rec, _ = dr.lower_cell("smoke", shape, Mesh((2, 2), ("data", "model")),
+                               cfg_override=groups(4))
+    assert rec["hlo"]["collective_by_axis"] == seen and set(seen) == {"data", "model"}
+    assert rec["hlo"]["collective_wire_bytes"] == sum(sum(v.values()) for v in seen.values())
+    assert rec["hlo"]["n_collective_sites"] == len(calls) > 0
 
 
 @pytest.mark.parametrize("remat", ["", "/noremat"])
@@ -368,7 +465,22 @@ def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
     data_calls = accum * (2 + 2 * 2) + accum * (2 + 2) + 2
     model_calls = accum * (1 + 4 * 2 + 1 + 3 + 2 * 2) + 2
     assert rec["hlo"]["n_collective_sites"] == data_calls + model_calls
-    assert port_cells["4x4/decode"]["hlo"]["collective_wire_bytes"] == 0
+    # The decode cell (4 rows, 4 dispatch groups): along "data" the embed,
+    # the head and each group gathered once; along "model" all-reduces of
+    # the f32 [4, 1, 64] activations (the lookup's sum and each group's
+    # attention output), all-gathers of each MoE layer's expert outputs
+    # (its one group's [1, 1, 2, 64] of [1, 4, 2, 64]: cap 2) and of the
+    # head's vocab slices of the f32 [4, 1, 128] logits: the sum of its calls.
+    dec = port_cells["4x4/decode"]
+    y, logits = 1 * cfg.moe.n_experts * 2 * cfg.d_model * 4, 4 * cfg.vocab * 4
+    want = {"data": {"all-gather": 3 / 4 * (top + group), "reduce-scatter": 0.0,
+                     "all-reduce": 0.0},
+            "model": {"all-gather": 3 / 4 * (cfg.n_groups * y + logits), "reduce-scatter": 0.0,
+                      "all-reduce": 2 * 3 / 4 * (1 + cfg.n_groups) * 4 * cfg.d_model * 4}}
+    assert dec["hlo"]["collective_by_axis"] == want
+    assert dec["hlo"]["collective_wire_bytes"] == sum(
+        sum(v.values()) for v in want.values()) > 0
+    assert dec["hlo"]["n_collective_sites"] == (2 + 2) + (1 + 2 + 2 + 1)
 
 
 def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
@@ -404,8 +516,15 @@ def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
                                               if sh.dim is None and sh.mdim is None)
     dec = port_cells["4x4/decode"]
     assert dec["memory"]["port_rank_parts"]["batch"] == 4 * 8  # its 4 rows' tokens
-    assert dec["memory"]["port_rank_parts"]["caches"] > 0
-    assert "slice 25" in dec["memory"]["state_layout"]
+    assert dec["memory"]["port_rank_parts"]["params"] == held  # the same blocks
+    assert dec["memory"]["port_rank_parts"]["gathered"] == parts["gathered"]
+    # [G, 4 rows, S = 256, 1 KV head (the one its query head reads), 16] f32, k and v
+    assert dec["memory"]["port_rank_parts"]["caches"] == 2 * 2 * 4 * 256 * 1 * 16 * 4
+    dec_layout = dec["memory"]["state_layout"]
+    assert {k: v for k, v in dec_layout.items() if k != "caches"} == layout
+    assert dec_layout["caches"]["rows"] == "dp"
+    assert dec_layout["caches"]["model_split"] == {"pos0": 1}
+    assert "slice 26" in dec_layout["caches"]["sequence"]
 
 
 def test_a_ranks_state_bytes_are_jaxs_argument_bytes_on_a_data_only_mesh(port_cells,
@@ -448,14 +567,14 @@ def test_wire_bytes_equal_the_sum_of_the_collective_wrappers_calls():
     assert rec["hlo"]["n_collective_sites"] == len(calls)
 
 
-@pytest.mark.parametrize("name", ["4x4/train/g4", "4x4/decode"])
+@pytest.mark.parametrize("name", ["4x4/train/g4", "4x4/decode", "4x4/prefill"])
 def test_roofline_terms_are_positive_at_h100_rates(port_cells, name):
     rl = port_cells[name]["roofline"]
     assert rl["t_compute_s"] > 0 and rl["t_memory_s"] > 0
     assert rl["bottleneck"] in ("compute", "memory", "collective")
     assert rl["t_compute_s"] == port_cells[name]["hlo"]["dot_flops"] / 989e12
     assert rl["t_memory_s"] == port_cells[name]["hlo"]["bytes_accessed"] / 3.35e12
-    assert (rl["t_collective_s"] > 0) == name.endswith("g4")
+    assert rl["t_collective_s"] > 0  # the decode rank gathers its blocks too
 
 
 def test_records_name_what_has_no_counterpart(port_cells):
@@ -544,11 +663,16 @@ def test_cli_writes_every_cell_of_an_arch(tmp_path, capsys):
     argv = ["--arch", "smoke", "--shape", "train_4k,decode_32k", "--mesh", "single",
             "--out", str(out)]
     with s, a:
-        dr.main(argv)
-        dr.main(argv)  # resumes: every cell is cached
+        # the decode cell's 16 rows over 16 data ranks cannot split the smoke config's
+        # 2 MoE dispatch groups (a serving rank keeps the one-device groups): it is
+        # written `ok: false`, and the CLI exits 1 after writing every cell
+        for _ in range(2):  # the second run resumes: the train cell is cached
+            with pytest.raises(SystemExit, match="1"):
+                dr.main(argv)
     recs = json.loads(out.read_text())
     assert [(r["shape"], r["mesh"], r["ok"]) for r in recs] == [
-        ("train_4k", "16x16", True), ("decode_32k", "16x16", True)]
+        ("train_4k", "16x16", True), ("decode_32k", "16x16", False)]
+    assert "G = 2" in recs[1]["error"] and "R = 16" in recs[1]["error"]
     # B = 16 rows over 16 data ranks at accum 4: every rank takes all 4 rows of a micro-batch;
     # the 16 ranks along "data" repeat the program, the 16 along "model" split its vocab
     assert recs[0]["rank"] == {"rank": 0, "rows": 4, "data_shards": 1, "repetition": 16}
