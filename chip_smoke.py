@@ -12,8 +12,9 @@ each kernel against its plain PyTorch version on the card:
 - the calibrated `auto` (module item 9): the committed table is this card's,
   its picks at N = 1024, 4096 and 16384 (f32) and 16384 (bf16), each pick at
   N = 16384 against the analytic pick (sequential, v = 32, "cuda") and every
-  other candidate v in turns, at most 1.25x the analytic wall (the
-  calibration tool's guard, the JAX package's AUTOTUNE_TOLERANCE), with the
+  other candidate v in turns, best of 7 rounds each, at most 1.25x the
+  analytic wall (the calibration tool's guard, the JAX package's
+  AUTOTUNE_TOLERANCE and round count), each plan's spread printed, with the
   predicted and measured walls and their residual; `profile_hotloop()` of the
   N = 16384 LU and Cholesky plans, each of their four kernels launched; and
   `python -m repro_torch.analysis.calibrate --smoke` into a temporary file;
@@ -210,8 +211,10 @@ CHOL_SERVE_REQUESTS, CHOL_ASYNC_PER_TENANT = 256, 32
 # max|L| bounds their difference, as LU_F_TOL_FACTOR does for F.
 CHOL_L_TOL_FACTOR = 4.0
 # The calibrated `auto` (module item 9): its pick's execute against the
-# analytic pick's, best of AUTO_ROUNDS each, in turns; the limit is the
-# calibration tool's guard (`calibrate.AUTOTUNE_TOLERANCE`, the JAX package's).
+# analytic pick's and every other width's, in turns, best of the calibration
+# tool's GUARD_ROUNDS (7, the JAX validation's) on a guarded row and of
+# AUTO_ROUNDS on the reported f64 row; the limit is the tool's guard
+# (`calibrate.AUTOTUNE_TOLERANCE`, the JAX package's).
 AUTO_ROUNDS = 3
 HOTLOOP_REPEATS = 3
 # The LM serving path: qwen3-8b and falcon-mamba-7b at full width and depth
@@ -365,8 +368,9 @@ LM_SHARDED_TIMEOUT_S = 900  # both ranks together, from spawn to exit
 # rank's blocks) on the pair of ranks of lm_train_fsdp and lm_train_tp, after
 # them (the pair's first all-reduce, ~11 s, is paid once): (phase suffix,
 # arch, layers, ("data", "model") mesh, global batch, new tokens), full width,
-# f32, seeded LM_DP_S-token prompts.  qwen3-8b on (1, 2) (16 heads and 4 KV
-# heads a rank) and on (2, 1) (one row a rank, every weight gathered along
+# f32, seeded LM_DP_S-token prompts.  qwen3-8b on (1, 2) (16 heads a rank;
+# of the attention caches every KV head on its half of the sequence, JAX's
+# cache_specs block) and on (2, 1) (one row a rank, every weight gathered along
 # "data" at each call: ~6.5 GB through the host a call, so 2 new tokens),
 # falcon-mamba-7b on (1, 2) (4096 channels a rank) and qwen3-moe-235b-a22b's
 # first layer on (1, 2) (64 of 128 experts and 32 heads a rank).  Rank 0
@@ -377,7 +381,9 @@ LM_SHARDED_TIMEOUT_S = 900  # both ranks together, from spawn to exit
 # max|logit| of the one-device run's (the LM phases' f32 tolerance); every
 # rank's picks and logits bits alike; each rank's parameter and cache bytes
 # and the wire bytes of the prefill and of each decode step, by axis and
-# kind, equal to dryrun_serve's count exactly; flash_attention once per
+# kind, equal to dryrun_serve's count exactly, its cache bytes JAX's
+# per-device share and its block of the sequence dryrun_serve's shifted by
+# its place along "model"; flash_attention once per
 # attention layer and mamba_scan once per mamba layer of the prefill, 0 in
 # the decode steps.
 LM_SERVE_SHARDED = (("tp_qwen3", "qwen3-8b", 2, (1, 2), 2, 8),
@@ -996,14 +1002,16 @@ def calibrated_auto(dev, kind: str) -> list[dict]:
     the picks of `plan(N, SolverConfig())` at N = 1024, 4096 and 16384 in
     f32 and at 16384 in bf16, and `calibrate.auto_against_widths` of each
     pick's execute against the analytic pick (sequential, v = 32, "cuda")
-    and every other candidate v, in turns, best of AUTO_ROUNDS each: at
-    16384 in f32 and bf16 and at 4096 in f32 (fault F7), the calibration
-    tool's guard, where auto over the analytic pick's wall or over the
-    fastest width's (`calibrate.guard_ok`) > 1 + AUTOTUNE_TOLERANCE fails;
-    reported only at 8192 in f64 (at 16384 its executes took more of the
-    run's time limit than any other row).  Each row also gives the alpha scales
-    under which the table keeps its pick there (`calibrate.pick_alpha_range`).
-    Returns the picks."""
+    and every other candidate v, in turns: at 16384 in f32 and bf16 and at
+    4096 in f32 (fault F7), the calibration tool's guard, best of
+    `calibrate.GUARD_ROUNDS` each, where auto over the analytic pick's wall
+    or over the fastest width's (`calibrate.guard_ok`) > 1 +
+    AUTOTUNE_TOLERANCE fails; reported only at 8192 in f64, best of
+    AUTO_ROUNDS (at 16384 its executes took more of the run's time limit
+    than any other row).  Each row gives its rounds, every wall and each
+    plan's spread (worst wall over best), and the alpha scales under which
+    the table keeps its pick there (`calibrate.pick_alpha_range`).  Returns
+    the picks."""
     from repro_torch.analysis import calibrate, costmodel
     from repro_torch.api import SolverConfig, plan
 
@@ -1032,11 +1040,14 @@ def calibrated_auto(dev, kind: str) -> list[dict]:
     guarded = set(calibrate.GUARD)
     for n, dtype in ((N, "float32"), (N, "bfloat16"), (N // 4, "float32"), (N // 2, "float64")):
         widths = tuple(costmodel._sequential_v_candidates(n, None))
-        row = calibrate.auto_against_widths(n, dtype, widths, rounds=AUTO_ROUNDS, device=dev)
+        rounds = calibrate.GUARD_ROUNDS if (n, dtype) in guarded else AUTO_ROUNDS
+        row = calibrate.auto_against_widths(n, dtype, widths, rounds=rounds, device=dev)
         row.update(guarded=(n, dtype) in guarded, limit=limit if (n, dtype) in guarded else None,
+                   rounds=rounds,
                    alpha_scale_range=calibrate.pick_alpha_range(table, n, dtype, dev))
         emit("calibrated_auto", **row)
         if (row["calibration"] != table.version or row["measured_wall_us"] is None
+                or any(len(w) != rounds for w in row["walls_s"].values())
                 or (row["guarded"] and not calibrate.guard_ok(row))):
             raise AssertionError(f"calibrated auto at N = {n}, {dtype}: auto / analytic "
                                  f"= {row['auto_over_analytic']:.4f}, auto / fastest "
@@ -2860,13 +2871,16 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, di
     (`dryrun_ep`), whose ranks' state and wire bytes it returns for those
     phases to hold; and LM_SERVE_SHARDED's prefill and decode cells
     (`dryrun_serve`, one line a configuration), whose rank's parameter and
-    cache bytes and wire bytes a prefill and a decode step it returns, by
-    suffix, for lm_serve_sharded."""
+    cache bytes, JAX's per-device cache share (`dryrun.cache_share_bytes`)
+    and wire bytes a prefill and a decode step it returns, by suffix, for
+    lm_serve_sharded."""
     import dataclasses
     from unittest import mock
 
-    from repro_torch.configs import SHAPES, ShapeSpec
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
     from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel import make_rules
     from repro_torch.parallel import Mesh
 
     torch.cuda.synchronize()
@@ -2895,21 +2909,30 @@ def lm_dryrun(arch: str, layers: int, batch: int, train: dict) -> tuple[dict, di
     ep_arch, ep_layers, ep_batch = LM_EP[:3]
     ep_rec = sharded("lm_train_ep", ep_arch, ep_layers, ep_batch, LM_TP_MESH)
     # LM_SERVE_SHARDED's configurations: the prefill cell at the prompt's
-    # length, the decode cell at max_len (its caches the engine's)
+    # length, the decode cell at max_len (its caches the engine's); and JAX's
+    # per-device share of those caches (sanitized cache_specs on the mesh)
     serve, serve_recs = {}, {}
     for short, s_arch, s_layers, s_shape, s_batch, new in LM_SERVE_SHARDED:
+        s_cfg = dataclasses.replace(get_config(s_arch), n_layers=s_layers, param_dtype="float32")
+        s_mesh = Mesh(s_shape, ("data", "model"))
         for kind, S in (("prefill", LM_DP_S), ("decode", LM_DP_S + new)):
             cell = ShapeSpec(f"lm_serve_{kind}", S, s_batch, kind)
             with mock.patch.dict(SHAPES, {cell.name: cell}):
                 serve_recs[short, kind] = dryrun.lower_cell(
-                    s_arch, cell.name, Mesh(s_shape, ("data", "model")),
+                    s_arch, cell.name, s_mesh,
                     cfg_override=lambda c, n=s_layers: dataclasses.replace(
                         c, n_layers=n, param_dtype="float32"))[0]
+                if kind == "decode":
+                    share = dryrun.cache_share_bytes(
+                        Transformer(s_cfg, device="meta", dtype=torch.float32, backend="ref"),
+                        cell.name, make_rules(s_mesh, model_cfg=s_cfg), s_mesh)
         pre, dec = serve_recs[short, "prefill"], serve_recs[short, "decode"]
         if not (pre["ok"] and dec["ok"]):
             raise AssertionError(f"dryrun_serve {short}: {pre.get('error')} {dec.get('error')}")
         serve[short] = {"param_bytes": dec["memory"]["port_rank_parts"]["params"],
                         "cache_bytes": dec["memory"]["port_rank_parts"]["caches"],
+                        "jax_cache_share": share,
+                        "cache_layout": dec["memory"]["state_layout"]["caches"],
                         "wire_prefill": pre["hlo"]["collective_by_axis"],
                         "wire_decode_step": dec["hlo"]["collective_by_axis"]}
     torch.cuda.synchronize()
@@ -3958,6 +3981,8 @@ def _serve_run(rank: int, group, dev, arch: str, layers: int, shape: tuple, batc
         logits, caches = prefill(*args, **kw)
         seen["cache_bytes"] = sum(t.numel() * t.element_size()
                                   for c in caches.values() for t in c.values())
+        seq = caches.sequence
+        seen["sequence"] = None if seq is None else [seq.start, seq.stop]
         return logits, caches
 
     model.prefill = counted_prefill
@@ -3980,7 +4005,7 @@ def _serve_run(rank: int, group, dev, arch: str, layers: int, shape: tuple, batc
     stats = engine.stats
     out.update(
         param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
-        cache_bytes=seen["cache_bytes"], rows=len(engine._rows(batch)),
+        cache_bytes=seen["cache_bytes"], sequence=seen["sequence"], rows=len(engine._rows(batch)),
         prefill_s=stats["prefill_s"], decode_steps=stats["decode_steps"],
         ms_per_decode_step=1e3 * stats["decode_s"] / max(stats["decode_steps"], 1),
         collective_s=stats["collective_s"], wire_prefill=stats["wire_prefill"],
@@ -4348,6 +4373,12 @@ def lm_serve_sharded(predicted: dict, runs: dict, spawn_s: float, start: float) 
         kernels = {"flash_attention": _mixer_layers(cfg, "attn"),
                    "mamba_scan": _mixer_layers(cfg, "mamba")}
         kernels = {k: c for k, c in kernels.items() if c}
+        # each rank's block of the caches' sequence: rank 0's of the dry run
+        # shifted by its place along "model", or the whole sequence (None)
+        layout = want["cache_layout"]
+        n = layout["positions"][1] - layout["positions"][0]
+        seq_want = [[r % shape[1] * n, (r % shape[1] + 1) * n]
+                    if layout["sequence"] == "model" else None for r in range(len(ranks))]
         ref_picks = r0["one_device"]["picks"]
         diverged = [next((i for i, (a, b) in enumerate(zip(r["picks"], ref_picks)) if a != b),
                          None) for r in ranks]
@@ -4360,6 +4391,9 @@ def lm_serve_sharded(predicted: dict, runs: dict, spawn_s: float, start: float) 
                                             for r in ranks),
             "cache_bytes_as_predicted": all(r["cache_bytes"] == want["cache_bytes"]
                                             for r in ranks),
+            "cache_bytes_equal_jax_share": all(r["cache_bytes"] == want["jax_cache_share"]
+                                               for r in ranks),
+            "sequence_as_predicted": [r["sequence"] for r in ranks] == seq_want,
             "wire_prefill_as_predicted": all(r["wire_prefill"] == want["wire_prefill"]
                                              for r in ranks),
             "wire_decode_step_as_predicted": all(
@@ -4385,6 +4419,8 @@ def lm_serve_sharded(predicted: dict, runs: dict, spawn_s: float, start: float) 
              first_greedy_divergence=diverged,
              param_bytes_per_rank=[r["param_bytes"] for r in ranks],
              cache_bytes_per_rank=[r["cache_bytes"] for r in ranks],
+             jax_cache_share=want["jax_cache_share"],
+             sequence_per_rank=[r["sequence"] for r in ranks],
              predicted=want, wire_prefill=r0["wire_prefill"],
              wire_decode_step=r0["wire_decode_steps"][0], wire_logits=r0["wire_logits"],
              launches_prefill=r0["launches_prefill"], launches_decode=r0["launches_decode"],
@@ -4397,30 +4433,51 @@ def lm_serve_sharded(predicted: dict, runs: dict, spawn_s: float, start: float) 
     return launches
 
 
-def lm_launch_train_torchrun() -> None:
+def start_torchrun() -> tuple:
     """`torchrun --standalone --nproc-per-node=1 -m repro_torch.launch.train`
     (an NCCL group of one rank, the only one a single card allows) at
-    lm_train_resume's reduced shape: a finite `done: steps=8` line."""
+    lm_train_resume's reduced shape, started in a process of its own that
+    `lm_launch_train_torchrun` reads: (process, its command, its temporary
+    directory, the start).  It runs beside grid_8ranks, whose wall is no
+    metric; a process still running when this one exits is killed then."""
+    import atexit
     import tempfile
 
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
-    with tempfile.TemporaryDirectory() as root:
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node=1", "-m", "repro_torch.launch.train", "--arch", "qwen3-8b",
-               "--reduced", "--batch", str(LM_RESUME_B), "--seq", str(LM_RESUME_S), "--steps",
-               "8", "--ckpt-dir", os.path.join(root, "ckpt")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
-    done = re.search(r"^done: steps=8 loss=(\S+) restarts=0 ", proc.stdout, re.M)
-    group = re.search(r"data-parallel: rank 0 of 1 \(nccl\)", proc.stdout + proc.stderr)
+    root = tempfile.TemporaryDirectory()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node=1", "-m", "repro_torch.launch.train", "--arch", "qwen3-8b",
+           "--reduced", "--batch", str(LM_RESUME_B), "--seq", str(LM_RESUME_S), "--steps",
+           "8", "--ckpt-dir", os.path.join(root.name, "ckpt")]
+    # its output goes to files: a pipe nobody reads until later could fill
+    with open(os.path.join(root.name, "out"), "w") as out, \
+            open(os.path.join(root.name, "err"), "w") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True, env=env)
+    atexit.register(proc.kill)  # a no-op once it has been waited for
+    return proc, cmd, root, time.perf_counter()
+
+
+def lm_launch_train_torchrun(started: tuple) -> None:
+    """`start_torchrun`'s launch, within 300 s of its start: a finite `done:
+    steps=8` line from its one NCCL rank."""
+    proc, cmd, root, t0 = started
+    try:
+        proc.wait(timeout=max(300 - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    stdout, stderr = (Path(root.name, name).read_text() for name in ("out", "err"))
+    root.cleanup()
+    done = re.search(r"^done: steps=8 loss=(\S+) restarts=0 ", stdout, re.M)
+    group = re.search(r"data-parallel: rank 0 of 1 \(nccl\)", stdout + stderr)
     ok = (proc.returncode == 0 and done is not None and math.isfinite(float(done.group(1)))
           and group is not None)
     emit("lm_launch_train_torchrun", cmd="torchrun " + " ".join(cmd[3:]),
-         returncode=proc.returncode, seconds=time.perf_counter() - t0,
-         stdout_tail=proc.stdout[-600:], group=(group.group(0) if group else None), ok=ok)
+         returncode=proc.returncode, seconds_since_start=time.perf_counter() - t0,
+         stdout_tail=stdout[-600:], group=(group.group(0) if group else None), ok=ok)
     if not ok:
         raise AssertionError(f"torchrun launch.train: rc {proc.returncode}, no finite done: "
-                             f"line: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+                             f"line: {stdout[-2000:]} {stderr[-2000:]}")
 
 
 def lm_score_bf16_kernels(dev, gen) -> dict:
@@ -6054,6 +6111,7 @@ def main() -> int:
     trsm_rows = trsm_left_lower_rows(dev, gen)
     conflux_flat_launches = conflux_p1_path(dev, gen, execute_s)
     conflux_p1_plain_1024(dev)
+    torchrun = start_torchrun()  # 14 reads it: it runs beside the eight ranks
     new_paths = grid_8ranks()  # with the engine cases of module item 8
 
     # 8b. Engines on the distributed strategies (module item 8): conflux,
@@ -6183,7 +6241,7 @@ def main() -> int:
                                            *lm_train_sharded((f"ep_{LM_EP[4]}",)))
     # 13b. The dry-run CLI's 16x16 cells, started at 13.
     dryrun_cli(clis)
-    lm_launch_train_torchrun()
+    lm_launch_train_torchrun(torchrun)
     bf16_scores_row = lm_score_bf16_kernels(dev, gen)
     new_paths["lm_score_bf16"] = lm_score_bf16()
     arch, batch, layers, short = LM_SERVE_LLAMA4

@@ -30,12 +30,14 @@ along "model" (tp and kv, Megatron tensor parallelism:
 rank), and the ranks along "model" run the layers on their blocks, on the
 same rows, with the model axis' all-reduces and the MoE layers'
 all-gathers of the experts' outputs.  A prefill or decode cell's rank
-holds its block of the decode caches (`Transformer.init_caches`: its rows,
-the attention's KV heads its query heads read and mamba's d_inner
-channels, the sequence whole).  `rank.repetition` counts the ranks that
-run the rank's very program (the ranks along "model" on a cell whose rules
-split no leaf along it).  `memory.state_layout` says how the state lies.
-The record's keys follow
+holds its block of the decode caches (`Transformer.init_caches`), JAX's
+`cache_specs` block: its rows, every KV head on its block of the
+attention caches' sequence along "model" (the whole sequence where the
+axis does not divide it) and mamba's d_inner channels; at S - 1 only the
+last rank of a row writes the new token's k and v.  `rank.repetition`
+counts the ranks that run the rank's very program (the ranks along
+"model" on a cell whose rules split no leaf along it).
+`memory.state_layout` says how the state lies.  The record's keys follow
 the JAX record's; where a value has no counterpart it is None and
 `no_counterpart` names it:
 
@@ -64,10 +66,14 @@ the JAX record's; where a value has no counterpart it is None and
   and the compression's maxima along both.  A prefill or decode cell's:
   each group's, the embedding's and the head's all-gathers along "data"
   (once a call, no recompute), the layers' all-reduces and the MoE
-  layers' all-gathers along "model", and the logits' all-gather along
-  "model" where the head is split.  `collective_by_kind` splits it by kind,
-  `collective_by_axis` by mesh axis and kind, and `n_collective_sites`
-  counts the calls.
+  layers' all-gathers along "model", the logits' all-gather along
+  "model" where the head is split, and the attention caches': a
+  prefill's all-gather of the KV heads where kv -> "model", a decode
+  step's all-gather of q (with the new k and v where kv -> "model"), its
+  all-reduce of the score maxima and its reduce-scatter of the partial
+  softmax sums where the sequence is split.  `collective_by_kind` splits
+  it by kind, `collective_by_axis` by mesh axis and kind, and
+  `n_collective_sites` counts the calls.
 - `memory.argument_bytes`: the per-rank bytes of the program's arguments
   (state and batch; parameters, caches and tokens for decode) under the
   JAX rules on the mesh (`sanitize_pspec` against each leaf's shape), to
@@ -79,8 +85,9 @@ the JAX record's; where a value has no counterpart it is None and
   blocks ("grads": f32 where the step sums them), the largest set of
   blocks one gather makes whole along "data" ("gathered") and the global
   batch every rank is handed; for decode and prefill its blocks of the
-  parameters, the largest gather, its block of the caches and its rows'
-  batch.  `fits_one_card` says whether that is within one H100's 80 GB.
+  parameters, the largest gather, its block of the caches (JAX's
+  per-device cache bytes, `cache_share_bytes`) and its rows' batch.
+  `fits_one_card` says whether that is within one H100's 80 GB.
 - `roofline`: `analysis/roofline.py::roofline` at `H100_SXM` with the
   rank's FLOPs, bytes and wire bytes and the analytic `model_flops`.
 
@@ -109,7 +116,7 @@ from repro_torch.configs import ARCHS, SHAPES, applicable_shapes, get_config
 from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import make_production_mesh, mesh_label
 from repro_torch.models.layers.moe import check_dispatch_split
-from repro_torch.models.transformer import Transformer, param_leaves
+from repro_torch.models.transformer import Transformer, cache_blocks, cache_sequence, param_leaves
 from repro_torch.parallel import fsdp, tensor
 from repro_torch.parallel.sharding import Mesh, make_rules, rank_rows, sanitize_pspec, tree_pspecs
 from repro_torch.training.optimizer import _stacked_shape
@@ -122,9 +129,6 @@ COUNTS_OF = ("the port's program on the meta device with backend='ref': the kern
              "versions (the kernel wrappers take no meta tensor)")
 
 WHOLE = "whole on every rank"
-CACHE_SEQUENCE = ("whole on every rank: the port splits the attention caches' heads along "
-                  "\"model\", where JAX's cache_specs shard their sequence (sp -> \"model\", "
-                  "ROADMAP §1's slice 26)")
 
 _aten = torch.ops.aten
 _METADATA_ONLY = {_aten._unsafe_view, _aten._reshape_alias, _aten.empty, _aten.empty_like,
@@ -234,12 +238,29 @@ def state_layout(sharding, model, rules) -> dict:
                                      and not sharding.model_split(n))}
 
 
-def cache_layout(model) -> dict:
+def cache_share_bytes(model, shape_name: str, rules, mesh: Mesh) -> int:
+    """JAX's per-device bytes of a serving cell's decode caches: each leaf of
+    the whole caches under `sanitize_pspec` of its `cache_specs` spec.
+    `model` is the cell's whole model (not yet sharded)."""
+    return _tree_bytes(SP.abstract_caches(model, shape_name), SP.cache_pspecs(model, rules),
+                       mesh)
+
+
+def cache_layout(model, max_len: int) -> dict:
     """How a serving cell's decode caches lie on the mesh (the rank's block,
-    `Transformer.init_caches`): the rows along "dp", the KV heads (attention)
-    or d_inner channels (mamba) of the rank's block of each position split
-    along "model" (`Transformer.cache_widths`), the sequence whole."""
-    return {"rows": "dp", "model_split": model.cache_widths(), "sequence": CACHE_SEQUENCE}
+    `Transformer.init_caches`): the rows along "dp"; the attention caches'
+    sequence along "model" with rank 0's positions [s0, s1)
+    (`cache_sequence`), or whole on every rank where the axis does not
+    divide it; the dimension of each position's leaves split along "model"
+    ("sequence" of k and v, "d_inner" of mamba's states)."""
+    seq = cache_sequence(model.cfg, max_len, model.fsdp)
+    split = {}
+    for key, leaves in cache_blocks(model.cfg, 1, max_len, model.fsdp).items():
+        if any(sh.mdim is not None for sh in leaves.values()):
+            split[key] = "sequence" if "k" in leaves else "d_inner"
+    return {"rows": "dp", "sequence": WHOLE if seq is None else "model",
+            "positions": [0, max_len] if seq is None else [seq.start, seq.stop],
+            "model_split": split}
 
 
 def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, accum: int = 4,
@@ -295,8 +316,7 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
         model.eval()
         args = _param_bytes(model, tree_pspecs(model.param_specs(), rules), mesh) + batch_bytes
         if kind == "decode":
-            args += _tree_bytes(SP.abstract_caches(model, shape_name),
-                                SP.cache_pspecs(model, rules), mesh)
+            args += cache_share_bytes(model, shape_name, rules, mesh)
         sharding = fsdp.shard_model(model, rules, place=(mesh, 0))
         rank_batch = {k: v[mine.start:mine.stop] for k, v in batch.items()}
         fsdp.WIRE.reset()
@@ -319,7 +339,7 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
     if sharding is not None:
         layout = state_layout(sharding, model, rules)
         if kind != "train":
-            layout["caches"] = cache_layout(model)
+            layout["caches"] = cache_layout(model, S)
         if layout["model_split_leaves"]:
             split_along_model = sharding.model_parts
     rank_bytes = sum(parts.values())

@@ -18,6 +18,7 @@ from repro_torch.models.layers.attention import (
     Attention,
     attention_forward,
     attn_specs,
+    cache_block,
     decode_attention,
 )
 from repro_torch.models.layers.mamba import Mamba, mamba_decode, mamba_forward, mamba_specs
@@ -97,29 +98,33 @@ class Group(nn.ModuleDict):
             layer.reset_parameters(cfg, gen)
 
     def forward(self, cfg, x, positions, *, backend: str = "cuda", caches=None, g: int = 0,
-                chunk: int = 1024, dispatch_ranks: int = 1, tp=None, position: int | None = None):
+                chunk: int = 1024, dispatch_ranks: int = 1, tp=None, position: int | None = None,
+                seq: range | None = None):
         """Full-sequence pass (`chunk`: the KV chunk of `blocked_attention`;
         `dispatch_ranks`: `moe_forward`'s `ranks`; `tp`: the group's
         `ModelRegion` under tensor parallelism).  With `caches` (the stacked
         decode caches, the rank's block of them), the prefill: also writes
-        this group's attention k/v at positions [0, S) and its mamba states
-        into slot `g`.  With `position`, the decode step of x [B, 1, d] at
-        that position instead (`decode`; `positions` unused)."""
+        this group's attention k/v of the prompt's positions in `seq` (the
+        rank's block of the caches' sequence; None: all, [0, S)) and its
+        mamba states into slot `g`.  With `position`, the decode step of x
+        [B, 1, d] at that position instead (`decode`; `positions`
+        unused)."""
         if position is not None:
-            return self.decode(cfg, x, caches, g, position, dispatch_ranks=dispatch_ranks, tp=tp)
-        S = x.shape[1]
+            return self.decode(cfg, x, caches, g, position, dispatch_ranks=dispatch_ranks, tp=tp,
+                               seq=seq)
         for key, layer in self.items():
             ltp = None if tp is None else tp.at(f"{key}.")
             h = rms_norm(x, layer.norm_mixer.scale, cfg.norm_eps)
             mixer = layer.spec.mixer
             if mixer.startswith("attn"):
+                atp = None if ltp is None else ltp.at("attn.")
                 out, (k, v) = attention_forward(layer.attn, cfg, h, positions,
                                                 local=mixer == "attn_local", backend=backend,
-                                                chunk=chunk,
-                                                tp=None if ltp is None else ltp.at("attn."))
+                                                chunk=chunk, tp=atp)
                 if caches is not None:
-                    caches[key]["k"][g, :, :S] = k
-                    caches[key]["v"][g, :, :S] = v
+                    k, v = cache_block(layer.attn, cfg, h, positions, k, v, seq, atp)
+                    caches[key]["k"][g, :, :k.shape[1]] = k
+                    caches[key]["v"][g, :, :v.shape[1]] = v
             elif caches is None:
                 out = mamba_forward(layer.mamba, cfg, h, backend=backend,
                                     tp=None if ltp is None else ltp.at("mamba."))
@@ -133,9 +138,9 @@ class Group(nn.ModuleDict):
         return x
 
     def decode(self, cfg, x, caches, g: int, position: int, *, dispatch_ranks: int = 1,
-               tp=None):
+               tp=None, seq: range | None = None):
         """One token through the group, updating slot `g` of the caches in
-        place (`dispatch_ranks`, `tp`: as `forward`'s)."""
+        place (`dispatch_ranks`, `tp`, `seq`: as `forward`'s)."""
         for key, layer in self.items():
             ltp = None if tp is None else tp.at(f"{key}.")
             h = rms_norm(x, layer.norm_mixer.scale, cfg.norm_eps)
@@ -144,7 +149,7 @@ class Group(nn.ModuleDict):
             if mixer.startswith("attn"):
                 out, _, _ = decode_attention(layer.attn, cfg, h, c["k"][g], c["v"][g], position,
                                              local=mixer == "attn_local",
-                                             tp=None if ltp is None else ltp.at("attn."))
+                                             tp=None if ltp is None else ltp.at("attn."), seq=seq)
             else:
                 out, ssm, conv = mamba_decode(layer.mamba, cfg, h, c["ssm"][g], c["conv"][g],
                                               tp=None if ltp is None else ltp.at("mamba."))

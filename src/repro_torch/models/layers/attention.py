@@ -15,14 +15,20 @@ Under tensor parallelism (`tp`, a `repro_torch.parallel.tensor.ModelRegion`
 whose "wq" is split along "model") the layer runs on the rank's heads:
 wq column-parallel (and wk, wv where kv -> "model"), the kernel on the
 rank's query heads and the KV heads they read, wo row-parallel, its output
-summed over "model".  Its widths come from the blocks' shapes.  The decode
-step runs the same split against the rank's block of the KV caches: its
-rows and the KV heads its query heads read, the sequence whole.
+summed over "model".  Its widths come from the blocks' shapes.  The rank's
+block of the KV caches is JAX's `cache_specs` block: its rows and every KV
+head, on its block of the sequence along "model" (sp -> "model") or the
+whole sequence where the axis does not divide it.  The prefill keeps that
+block of the prompt's k and v (`cache_block`); the decode step writes the
+new token on the rank that holds its position and, over a split sequence,
+scores every query head against the rank's block and combines the ranks'
+partial softmaxes across the row (`decode_attention`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -81,16 +87,27 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, n * hd)).unflatten(-1, (n, hd))
 
 
+def _q(p, cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] -> q [B, S, H, hd], with the optional qk-norm and RoPE."""
+    q = _proj(x, p.wq)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
+def _kv(p, cfg, x: torch.Tensor, positions: torch.Tensor, kv: slice = slice(None)):
+    """x [B, S, d] -> k and v [B, S, KV, hd] (the KV heads `kv` of wk and
+    wv), k with the optional qk-norm and RoPE."""
+    k, v = _proj(x, p.wk[:, kv]), _proj(x, p.wv[:, kv])
+    if cfg.qk_norm:
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return apply_rope(k, positions, cfg.rope_theta), v
+
+
 def _qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor, kv: slice = slice(None)):
     """x [B, S, d] -> q [B, S, H, hd], k and v [B, S, KV, hd] (the KV heads
     `kv` of wk and wv), with RoPE and the optional qk-norm."""
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk[:, kv]), _proj(x, p.wv[:, kv])
-    if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (_q(p, cfg, x, positions), *_kv(p, cfg, x, positions, kv))
 
 
 def rank_kv_heads(p, tp) -> slice:
@@ -212,38 +229,146 @@ def attention_forward(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, local
     return (tp.reduce(out) if heads else out), (k, v)
 
 
+def cache_kv_heads(p, tp) -> slice:
+    """The KV heads of the caches (which hold every KV head) that the rank's
+    query heads read: its block of wk's heads where kv -> "model", else the
+    run `rank_kv_heads` gives (which raises on an uneven run)."""
+    if tp.split("wk"):
+        n = p.wk.shape[1]
+        return slice(tp.index * n, (tp.index + 1) * n)
+    return rank_kv_heads(p, tp)
+
+
+def cache_block(p, cfg, x: torch.Tensor, positions: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, seq: range | None, tp=None):
+    """The prefill's entries of the rank's block of the attention caches: k
+    and v of every KV head at the prompt's positions in `seq` (the rank's
+    block of the caches' sequence along "model"; None: the whole sequence),
+    [B, n, KV, hd], n = 0 for a block beyond the prompt.
+
+    x [B, S, d] and positions: `attention_forward`'s inputs; k and v
+    [B, S, KV_r, hd]: its outputs, the rank's KV heads under `tp`.  Where
+    kv -> "model" the ranks' KV heads are gathered along "model" (one
+    all-gather of k and v, on every rank of the row whatever its block);
+    where kv was dropped (wk and wv whole, k and v the run of KV heads the
+    rank's query heads read) the rank projects every KV head at its block's
+    positions; else k and v hold every KV head already."""
+    S = k.shape[1]
+    lo, hi = (0, S) if seq is None else (min(seq.start, S), min(seq.stop, S))
+    heads = tp is not None and tp.split("wq")
+    if heads and tp.split("wk"):
+        k, v = tp.gathered(k, v, dim=2)
+    elif heads:
+        return _kv(p, cfg, x[:, lo:hi], positions[..., lo:hi])
+    return k[:, lo:hi], v[:, lo:hi]
+
+
 def decode_attention(p, cfg, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     position: int, *, local: bool = False, tp=None):
+                     position: int, *, local: bool = False, tp=None, seq: range | None = None):
     """One-token decode against a KV cache.
 
-    x [B, 1, d]; cache_k and cache_v [B, S_max, KV, hd]; position: index of
-    the new token.  Writes the token's k and v into the caches at `position`
-    in place (the JAX function returns updated copies) and returns
-    (out [B, 1, d], cache_k, cache_v).  `tp`: the layer's `ModelRegion`
-    (module docstring): q on the rank's heads, the caches the rank's block of
-    the KV heads they read (`rank_kv_heads`), wo row-parallel.
+    x [B, 1, d]; cache_k and cache_v [B, S, KV, hd], every KV head: the
+    positions of `seq` (the rank's block of the sequence along "model"), or
+    the whole sequence where `seq` is None; position: index of the new
+    token.  The rank whose caches hold `position` writes the token's k and v
+    of every KV head there in place (the JAX function returns updated
+    copies); returns (out [B, 1, d], cache_k, cache_v).  `tp`: the layer's
+    `ModelRegion` (module docstring): q on the rank's heads, wo
+    row-parallel, its output summed over "model"; where kv -> "model" each
+    rank projects its KV heads and the ranks' are gathered for the write,
+    where kv was dropped (wk, wv whole) the writing rank projects them all.
+
+    The whole sequence: the rank's query heads read their KV heads of the
+    caches (`cache_kv_heads`), as on one device.  A sequence split along
+    "model": every rank scores every query head against its block, with
+    the causal and window masks of the block's absolute positions, and the
+    ranks' partial softmaxes are combined across the row.  The collectives,
+    in order:
+    1. one all-gather along "model" of the rank's q (and k, v where kv ->
+       "model"): every query head on every rank;
+    2. an all-reduce MAX of the rows' score maxima [B, H]: the global max
+       M, taken before any exponential, so that a block the masks cover
+       whole (every score NEG_INF, the finite -1e30) weighs exp(-1e30 - M)
+       = 0 exactly;
+    3. one reduce-scatter of the f32 partial sums [B, H] of exp(s - M) and
+       [B, H, hd] of the weighted values: each rank keeps the sums of its
+       own query heads (an all-reduce of them where wq is whole along
+       "model") and divides.
+    Each is a region operator counted on `fsdp.WIRE`; none builds a graph.
+    The sums run in another order than one device's softmax: equal within
+    rounding, not bit for bit.  The ranks of a row end bit-alike, through
+    the all-reduce after wo (or of the sums, where wq is whole).
     """
-    B = x.shape[0]
-    S_max, KV, hd = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
+    B, hd = x.shape[0], cache_k.shape[3]
     heads = tp is not None and tp.split("wq")
+    kv_split = heads and tp.split("wk")
     if heads:
         x = tp.copy(x)
-    H = p.wq.shape[1]
-    G = H // KV
     pos = torch.full((B, 1), position, dtype=torch.int64, device=x.device)
-    q, k, v = _qkv(p, cfg, x, pos, rank_kv_heads(p, tp) if heads else slice(None))
-    cache_k[:, position] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, position] = v[:, 0].to(cache_v.dtype)
+    first = 0 if seq is None else seq.start
+    mine = first <= position < first + cache_k.shape[1]
+    q = _q(p, cfg, x, pos)
+    k = v = None
+    if kv_split or mine:
+        k, v = _kv(p, cfg, x, pos)
+    if seq is not None and heads:  # every query head on every rank
+        q, *kv = tp.gathered(q, *((k, v) if kv_split else ()), dim=2)
+        k, v = kv if kv_split else (k, v)
+    elif kv_split:
+        k, v = tp.gathered(k, v, dim=2)
+    if mine:
+        cache_k[:, position - first] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, position - first] = v[:, 0].to(cache_v.dtype)
+    if seq is None:
+        kv = cache_kv_heads(p, tp) if heads else slice(None)
+        out = _decode_whole(cfg, q, cache_k[:, :, kv], cache_v[:, :, kv], position, local)
+    else:
+        out = _decode_block(cfg, q, cache_k, cache_v, position, local, seq, tp, heads)
+    H_r = p.wo.shape[0]
+    out = out.reshape(B, 1, H_r * hd) @ p.wo.reshape(H_r * hd, -1)
+    return (tp.reduce(out) if heads else out), cache_k, cache_v
 
-    qg = q.reshape(B, KV, G, hd)
+
+def _scores(cfg, q, cache_k, kv_pos, position: int, local: bool) -> torch.Tensor:
+    """q [B, 1, H, hd] against cache_k [B, S, KV, hd] at positions `kv_pos`
+    [S]: the f32 scaled, softcapped and masked scores [B, KV, G, S]."""
+    B, _, H, hd = q.shape
+    KV = cache_k.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg, cache_k).float() * hd**-0.5
     s = _softcap(s, cfg.attn_softcap)
-    kv_pos = torch.arange(S_max, device=x.device)
     ok = kv_pos <= position
     if local and cfg.window is not None:
         ok &= kv_pos > (position - cfg.window)
-    s = s.masked_fill(~ok, NEG_INF)
-    prob = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskh->bkgh", prob.to(cache_v.dtype), cache_v)
-    out = out.reshape(B, 1, H * hd) @ p.wo.reshape(H * hd, -1)
-    return (tp.reduce(out) if heads else out), cache_k, cache_v
+    return s.masked_fill(~ok, NEG_INF)
+
+
+def _decode_whole(cfg, q, cache_k, cache_v, position: int, local: bool) -> torch.Tensor:
+    """Softmax attention of q [B, 1, H, hd] over the whole caches, as the JAX
+    function: [B, KV, G, hd] in the caches' dtype."""
+    kv_pos = torch.arange(cache_k.shape[1], device=q.device)
+    prob = torch.softmax(_scores(cfg, q, cache_k, kv_pos, position, local), dim=-1)
+    return torch.einsum("bkgs,bskh->bkgh", prob.to(cache_v.dtype), cache_v)
+
+
+def _decode_block(cfg, q, cache_k, cache_v, position: int, local: bool, seq: range, tp,
+                  heads: bool) -> torch.Tensor:
+    """Attention of every query head q [B, 1, H, hd] over the rank's block
+    of the sequence, combined across the row (`decode_attention`'s steps 2
+    and 3): the output of the rank's query heads ([B, H / M, hd]; all H
+    where `heads` is False) in the caches' dtype."""
+    B, _, H, hd = q.shape
+    kv_pos = torch.arange(seq.start, seq.stop, device=q.device)
+    s = _scores(cfg, q, cache_k, kv_pos, position, local)
+    m = s.amax(-1)
+    tp.all_reduce_(m, dist.ReduceOp.MAX)
+    e = torch.exp(s - m[..., None])
+    total = e.sum(-1).reshape(B, H)
+    acc = torch.einsum("bkgs,bskh->bkgh", e.to(cache_v.dtype), cache_v).float().reshape(B, H, hd)
+    if heads:
+        total, acc = tp.scattered_sums(total, acc, dim=1)
+    else:
+        both = torch.cat([total[..., None], acc], dim=-1)
+        tp.all_reduce_(both)
+        total, acc = both[..., 0], both[..., 1:]
+    return (acc / total[..., None]).to(cache_v.dtype)

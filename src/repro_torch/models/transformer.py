@@ -41,10 +41,18 @@ axes do not divide the batch) and run without grad: each group's weights
 are gathered along "data" once a call (no graph, no remat), the group runs
 in its model region, the embedding and the head are gathered where they
 are used, and the logits come back whole along "model" for the rank's
-rows.  The caches are the rank's block (`init_caches`): its rows, the
-attention's KV heads its query heads read ([G, B_r, S_max, KV_r, hd]: the
-sequence whole, where the JAX `cache_specs` shard it along "model"), and
-mamba's d_inner channels, as `cache_specs` splits them.
+rows.  The caches are the rank's block of them (`init_caches`), the block
+that `sanitize_pspec` of the JAX `cache_specs` gives the rank on the mesh
+(`cache_blocks`): its rows; of the attention caches, every KV head on the
+rank's block of the sequence along "model" (sp -> "model":
+[G, B_r, S_max / M, KV, hd], positions [m S_max / M, (m + 1) S_max / M)
+on the rank m of its row, `cache_sequence`), or the whole sequence where
+M does not divide S_max; of mamba's, its d_inner channels.  The prefill
+leaves each rank its block of the prompt's k and v (zeros beyond the
+prompt), and a decode step writes the new token's k and v on the rank
+whose block holds its position and combines the ranks' partial softmaxes
+across the row (`repro_torch.models.layers.attention.decode_attention`).
+The caches carry their block's positions (`Caches.sequence`).
 """
 
 from __future__ import annotations
@@ -57,7 +65,6 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models.blocks import Group, group_specs
-from repro_torch.models.layers.attention import rank_kv_heads
 from repro_torch.models.layers.embeddings import (
     embed_inputs,
     embed_specs,
@@ -69,6 +76,7 @@ from repro_torch.models.layers.embeddings import (
 from repro_torch.models.layers.moe import check_dispatch_split
 from repro_torch.models.layers.norms import RMSNorm, rms_norm, rms_specs
 from repro_torch.parallel import tensor
+from repro_torch.parallel.sharding import Shard, make_rules, model_dim, template_to_pspec
 
 
 def leaf_key(name: str) -> tuple[str, int | None]:
@@ -122,27 +130,76 @@ def cache_specs(cfg) -> dict:
     return specs
 
 
-def init_caches(cfg, batch_size: int, max_len: int, *, dtype, device,
-                widths: dict | None = None) -> dict:
-    """Zeroed decode caches for `batch_size` sequences of up to `max_len`.
-    `widths`: {"pos{i}": the KV heads or d_inner channels a rank holds} of
-    the positions whose caches a rank holds a block of (whole otherwise)."""
-    G = cfg.n_groups
-    widths = widths or {}
-    caches = {}
+class Caches(dict):
+    """The decode caches, {"pos{i}": {leaf: tensor}}, and `sequence`: the
+    positions of the rank's block of the attention caches' sequence where
+    it is split along "model" (`cache_sequence`), None where the caches
+    hold the whole sequence."""
+
+    def __init__(self, leaves: dict, sequence: range | None = None):
+        super().__init__(leaves)
+        self.sequence = sequence
+
+
+def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
+    """{"pos{i}": {leaf: whole shape}} of the decode caches of `batch_size`
+    rows and `max_len` positions (module docstring)."""
+    G, out = cfg.n_groups, {}
     for i, spec in enumerate(cfg.pattern):
-        key = f"pos{i}"
         if spec.mixer.startswith("attn"):
-            shape = (G, batch_size, max_len, widths.get(key, cfg.n_kv), cfg.head_dim)
-            caches[key] = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                           "v": torch.zeros(shape, dtype=dtype, device=device)}
+            shape = (G, batch_size, max_len, cfg.n_kv, cfg.head_dim)
+            out[f"pos{i}"] = {"k": shape, "v": shape}
         elif spec.mixer == "mamba":
-            di, N, dc = widths.get(key, cfg.d_inner), cfg.mamba.d_state, cfg.mamba.d_conv
-            caches[key] = {
-                "ssm": torch.zeros((G, batch_size, di, N), dtype=torch.float32, device=device),
-                "conv": torch.zeros((G, batch_size, dc - 1, di), dtype=dtype, device=device),
-            }
-    return caches
+            di, N, dc = cfg.d_inner, cfg.mamba.d_state, cfg.mamba.d_conv
+            out[f"pos{i}"] = {"ssm": (G, batch_size, di, N), "conv": (G, batch_size, dc - 1, di)}
+    return out
+
+
+def cache_blocks(cfg, batch_size: int, max_len: int, sharding=None) -> dict:
+    """{"pos{i}": {leaf: its `Shard`}}: the rank's block along "model" of
+    each decode cache leaf of `batch_size` rows (the rank's: the rows along
+    "data" are the caller's) and `max_len` positions, as `sanitize_pspec`
+    of `cache_specs` under the mesh's rules places it: the attention
+    caches' sequence (sp) and mamba's d_inner (tp) along "model" where the
+    axis divides them.  Whole without `sharding` (a `Sharding`, the model's
+    `fsdp`) or on one rank along "model"."""
+    shapes = cache_shapes(cfg, batch_size, max_len)
+    if sharding is None:
+        return {k: {n: Shard(s) for n, s in leaves.items()} for k, leaves in shapes.items()}
+    mesh, specs = sharding.mesh, cache_specs(cfg)
+    rules = make_rules(mesh, model_cfg=cfg)
+    out = {}
+    for key, leaves in shapes.items():
+        out[key] = {}
+        for name, shape in leaves.items():
+            mdim = model_dim(template_to_pspec(specs[key][name], rules), shape, mesh)
+            out[key][name] = Shard(shape) if mdim is None else Shard(
+                shape, mdim=mdim, mparts=sharding.model_parts, mindex=sharding.coords["model"])
+    return out
+
+
+def cache_sequence(cfg, max_len: int, sharding=None) -> range | None:
+    """The positions of the rank's block of the attention caches' sequence,
+    [m n, (m + 1) n) with n = max_len / M on the rank m of its row, where
+    the caches' sequence is split along "model" (`cache_blocks`); None
+    where every rank holds the whole sequence."""
+    for leaves in cache_blocks(cfg, 1, max_len, sharding).values():
+        if "k" in leaves and leaves["k"].mdim is not None:
+            n = max_len // leaves["k"].mparts
+            return range(leaves["k"].mindex * n, (leaves["k"].mindex + 1) * n)
+    return None
+
+
+def init_caches(cfg, batch_size: int, max_len: int, *, dtype, device, sharding=None) -> Caches:
+    """Zeroed decode caches for `batch_size` sequences of up to `max_len`:
+    the rank's blocks (`cache_blocks`) of a model sharded by `sharding`,
+    else whole.  Mamba's ssm state is f32."""
+    caches = {}
+    for key, leaves in cache_blocks(cfg, batch_size, max_len, sharding).items():
+        caches[key] = {n: torch.zeros(sh.block, device=device,
+                                      dtype=torch.float32 if n == "ssm" else dtype)
+                       for n, sh in leaves.items()}
+    return Caches(caches, cache_sequence(cfg, max_len, sharding))
 
 
 class Transformer(nn.Module):
@@ -218,26 +275,11 @@ class Transformer(nn.Module):
         """`cache_specs(self.cfg)`, as the JAX `Model.cache_specs()`."""
         return cache_specs(self.cfg)
 
-    def init_caches(self, batch_size: int, max_len: int, dtype=None) -> dict:
+    def init_caches(self, batch_size: int, max_len: int, dtype=None) -> Caches:
         """Zeroed decode caches; on a sharded model the rank's block of them
         (module docstring) for its `batch_size` rows."""
         return init_caches(self.cfg, batch_size, max_len, dtype=dtype or self.dtype,
-                           device=self.device, widths=self.cache_widths())
-
-    def cache_widths(self) -> dict:
-        """{"pos{i}": the KV heads (attention) or d_inner channels (mamba)
-        of the rank's cache block} of the positions split along "model"."""
-        out = {}
-        for key, layer in self.groups[0].items():
-            tp = tensor.region(self.fsdp, f"groups.0.{key}.")
-            if tp is None:
-                continue
-            if hasattr(layer, "attn") and tp.at("attn.").split("wq"):
-                kv = rank_kv_heads(layer.attn, tp.at("attn."))
-                out[key] = len(range(layer.attn.wk.shape[1])[kv])
-            elif hasattr(layer, "mamba") and tp.at("mamba.").split("in_proj"):
-                out[key] = layer.mamba.in_proj.shape[2]
-        return out
+                           device=self.device, sharding=self.fsdp)
 
     def _head_logits(self, w_in, x: torch.Tensor, tp) -> torch.Tensor:
         """The final norm and the head (the tied `w_in.embed`, else the head
@@ -330,7 +372,8 @@ class Transformer(nn.Module):
 
         The attention caches hold positions [0, S); mamba states carry the
         last recurrent state.  On a sharded model `batch` is the rank's rows
-        and the caches its block (module docstring).  `dispatch_ranks`: the
+        and the caches its block (module docstring): of the prompt's
+        positions, those of its block of the sequence.  `dispatch_ranks`: the
         data-parallel ranks that share the batch's rows, for the MoE
         dispatch groups (`moe_forward`); where they cannot split the groups,
         ValueError (`check_dispatch_split`)."""
@@ -345,19 +388,28 @@ class Transformer(nn.Module):
         caches = self.init_caches(B, max_len)
         for g in range(len(self.groups)):
             x = self._group_fn(g)(cfg, x, positions, backend=self.backend, caches=caches, g=g,
-                                  dispatch_ranks=dispatch_ranks)
+                                  dispatch_ranks=dispatch_ranks, seq=caches.sequence)
         return self._whole_logits(w_in, x[:, -1:, :])[:, 0, :], caches
 
     @torch.no_grad()
     def decode_step(self, caches: dict, tokens: torch.Tensor, position: int, *,
                     dispatch_ranks: int = 1):
         """tokens [B] at `position` -> (logits [B, V], caches updated in place).
-        On a sharded model the rank's rows and cache block (`prefill`)."""
+        On a sharded model the rank's rows and cache block (`prefill`):
+        `caches` as `init_caches` or `prefill` made them, which carry the
+        block's positions."""
         position = int(position)
+        if isinstance(caches, Caches):
+            seq = caches.sequence
+        elif tensor.region(self.fsdp) is None:
+            seq = None
+        else:
+            raise ValueError("a model split along \"model\" decodes on the caches of its "
+                             "init_caches or prefill, which carry the rank's sequence block")
         self._check_dispatch(tokens.shape[0], 1, dispatch_ranks)
         w_in = self._gathered("embed")
         x = lookup(w_in.embed, tokens[:, None], tensor.region(self.fsdp))
         for g in range(len(self.groups)):
             x = self._group_fn(g)(self.cfg, x, None, caches=caches, g=g, position=position,
-                                  dispatch_ranks=dispatch_ranks)
+                                  dispatch_ranks=dispatch_ranks, seq=seq)
         return self._whole_logits(w_in, x)[:, 0, :], caches

@@ -180,6 +180,24 @@ def gather_blocks(blocks, dims, R: int, group, axis: str) -> list[torch.Tensor]:
     return whole
 
 
+def scatter_sums(whole, dims, R: int, group, axis: str) -> list[torch.Tensor]:
+    """Each tensor of `whole` summed over the axis' `R` ranks, and of the sum
+    the rank's slice along its `dims` entry (R equal slices in rank order):
+    one reduce-scatter of a flat buffer, the inverse layout of
+    `gather_blocks`."""
+    big = torch.cat([t.movedim(d, 0).reshape(R, -1) for t, d in zip(whole, dims)], dim=1)
+    out = big.new_empty(big.shape[1])
+    reduce_scatter_into(out, big.reshape(-1), group, R, axis)
+    parts, off = [], 0
+    for t, d in zip(whole, dims):
+        front = t.movedim(d, 0).shape
+        front = (front[0] // R, *front[1:])
+        n = prod(front)
+        parts.append(out[off:off + n].view(front).movedim(0, d))
+        off += n
+    return parts
+
+
 class _Gather(torch.autograd.Function):
     """Forward: the rank's blocks whole along "data" (an all-gather).
     Backward: the blocks' gradients, the gathered leaves' gradients summed
@@ -257,20 +275,8 @@ class Sharding:
                              self.data_group, "data")
 
     def _reduce_scatter(self, grads, shards, lead: int = 0) -> list[torch.Tensor]:
-        R = self.parts
-        big = torch.cat([g.movedim(sh.dim + lead, 0).reshape(R, -1)
-                         for g, sh in zip(grads, shards)], dim=1)
-        out = big.new_empty(big.shape[1])
-        reduce_scatter_into(out, big.reshape(-1), self.data_group, R)
-        parts, off = [], 0
-        for g, sh in zip(grads, shards):
-            d = sh.dim + lead
-            front = g.movedim(d, 0).shape
-            front = (front[0] // R, *front[1:])
-            n = prod(front)
-            parts.append(out[off:off + n].view(front).movedim(0, d).contiguous())
-            off += n
-        return parts
+        return [t.contiguous() for t in scatter_sums(grads, [sh.dim + lead for sh in shards],
+                                                     self.parts, self.data_group, "data")]
 
     def gather(self, named: dict, prefix: str = "") -> dict:
         """{name: block whole along "data"} of the tensors of `named` that

@@ -34,7 +34,12 @@ where the ranks' slices of an activation leave it whole.  With grad off
 node.  Inside the groups' function they sit inside the region that
 activation checkpointing recomputes, so the recompute runs the forward
 all-reduces and all-gathers again, as the JAX body's collectives sit
-inside its rematerialized scan body.  Each call goes through
+inside its rematerialized scan body.  The serving passes also use
+`gathered` (several tensors in one all-gather) and `scattered_sums` (a
+sum over "model" of which each rank keeps its slice: one reduce-scatter),
+which have no autograd node: the decode attention over a sequence split
+along "model" and the prefill's cache blocks
+(`repro_torch.models.layers.attention`).  Each call goes through
 `repro_torch.parallel.fsdp`'s collectives and counts on `fsdp.WIRE` under
 the axis "model"; on the meta device it counts and runs nothing.
 
@@ -170,8 +175,22 @@ class ModelRegion:
         alone."""
         if torch.is_grad_enabled():
             return _Gather.apply(x, self, dim % x.ndim)
-        return fsdp.gather_blocks([x.contiguous()], [dim % x.ndim], self.size, self.group,
-                                  "model")[0]
+        return self.gathered(x, dim=dim)[0]
+
+    def gathered(self, *xs: torch.Tensor, dim: int) -> list[torch.Tensor]:
+        """The ranks' slices of each of `xs` along dimension `dim`, whole,
+        in rank order: one all-gather of them all.  No autograd node (the
+        serving passes)."""
+        return fsdp.gather_blocks([x.contiguous() for x in xs], [dim % x.ndim for x in xs],
+                                  self.size, self.group, "model")
+
+    def scattered_sums(self, *xs: torch.Tensor, dim: int) -> list[torch.Tensor]:
+        """Each of `xs` summed over "model", and of the sum the rank's slice
+        along dimension `dim` (`size` equal slices in rank order): one
+        reduce-scatter of them all.  No autograd node (the serving
+        passes)."""
+        return fsdp.scatter_sums(list(xs), [dim % x.ndim for x in xs], self.size, self.group,
+                                 "model")
 
     def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """logsumexp(logits) - the label's logit of every row, from the

@@ -17,6 +17,7 @@ touches it runs under the `restore_calibration` fixture.
 
 from __future__ import annotations
 
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -653,6 +654,39 @@ def test_auto_against_widths_on_the_cpu(restore_calibration):
     assert row["calibration"] == table.version and row["measured_wall_us"] > 0
     assert row["wall_residual"] == pytest.approx(
         (row["measured_wall_us"] - row["predicted_wall_us"]) / row["predicted_wall_us"])
+
+
+@pytest.mark.parametrize("rounds", [1, 3, tcal.GUARD_ROUNDS])
+def test_auto_against_widths_times_exactly_rounds_executes_after_one_warm(
+        rounds, restore_calibration, monkeypatch):
+    """Each plan (the pick and every width) executes once to warm up, then
+    exactly `rounds` times, interleaved (the order reversed every other
+    round); each plan's walls are its `rounds` timed executes, its spread
+    their max over their min.  The guard's default is the JAX validation's
+    7 rounds.  N = 32 on the CPU: the plain path."""
+    from repro_torch.api.plan import FactorizationPlan
+
+    tcm.set_calibration(_synthetic(tcm, tag="rounds"))
+    calls = []
+    execute = FactorizationPlan.execute
+
+    def counted(p, A):
+        calls.append(p)
+        return execute(p, A)
+
+    monkeypatch.setattr(FactorizationPlan, "execute", counted)
+    row = tcal.auto_against_widths(32, "float32", (8, 16, 32), rounds=rounds, device="cpu")
+    keys = ["auto", "v=8", "v=16", "v=32"]
+    plans = calls[:len(keys)]  # the warm executes, one a plan in order
+    assert len({id(p) for p in plans}) == len(keys)
+    timed = [keys[plans.index(p)] for p in calls[len(keys):]]
+    want = [k for r in range(rounds) for k in (keys if r % 2 == 0 else keys[::-1])]
+    assert timed == want
+    assert {k: len(w) for k, w in row["walls_s"].items()} == dict.fromkeys(keys, rounds)
+    assert row["spread"] == {k: max(w) / min(w) for k, w in row["walls_s"].items()}
+    assert all(v >= 1.0 for v in row["spread"].values())
+    assert tcal.GUARD_ROUNDS == 7
+    assert inspect.signature(tcal.check_guard).parameters["rounds"].default == tcal.GUARD_ROUNDS
 
 
 def _alpha_table(scale: float):

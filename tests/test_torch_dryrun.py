@@ -84,7 +84,7 @@ CELLS = {
 }
 # The port's JAX-mesh view of the dot FLOPs over JAX's 4x4 dot_flops, as the
 # ratio of two integer counts of deterministic programs (measured: the port's
-# view 106,954,752 / 81,788,928 / 266,240 / 5,251,072 against JAX's
+# view 106,954,752 / 81,788,928 / 233,472 / 5,775,360 against JAX's
 # 117,440,512 / 88,080,384 / 249,856 / 6,299,648).  Every cell's rank runs
 # on its "data" and "model" blocks: the train cells' the tensor- and
 # expert-parallel step, the decode and prefill cells' the sharded serving
@@ -92,8 +92,8 @@ CELLS = {
 # derives from the shapes.
 FLOP_RATIO = {"4x4/train/g4": 106_954_752 / 117_440_512,
               "4x4/train/g4/noremat": 81_788_928 / 88_080_384,
-              "4x4/decode": 266_240 / 249_856,
-              "4x4/prefill": 5_251_072 / 6_299_648}
+              "4x4/decode": 233_472 / 249_856,
+              "4x4/prefill": 5_775_360 / 6_299_648}
 
 
 def groups(n):
@@ -251,27 +251,43 @@ def serve_split_flops(cfg, kind: str, rows: int, S: int, M: int, D: int = 4) -> 
     pass on `rows` rows (decode: one token each against a cache of S;
     prefill: S tokens each), from the shapes: each group's query
     projection, attention (QK^T and PV over every key: the cache's S, or
-    the prompt's in the plain version), wo and MoE experts, and the head
-    (the last position's logits), (M - 1) / M of each; the K/V projections
-    as `tp_split_flops` splits them.  The experts run on the rank's dispatch
-    groups' `cap` slots each (`dispatch_shape` of the D ranks' rows)."""
+    the prompt's in the plain version; a decode step's rank scores every
+    query head against its S / M keys of the caches' sequence, the same
+    share), wo and MoE experts, and the head (the last position's logits),
+    (M - 1) / M of each; the K/V projections, (M - 1) / M where kv ->
+    "model", and where it was dropped: a prefill's rank projects the KV
+    heads its query heads read over the prompt (`tp_split_flops`' share
+    off) and every KV head at its block of S / M positions for its caches
+    (`cache_block`, a share back on); a decode step's rank projects the
+    token's k and v only where its block of the caches holds the position
+    (rank 0 at S - 1 does not: all of them off).  The experts run on the
+    rank's dispatch groups' `cap` slots each (`dispatch_shape` of the D
+    ranks' rows)."""
     from repro_torch.models.layers.moe import dispatch_shape
 
+    assert S % M == 0  # the caches' sequence split along "model"
     tokens = 1 if kind == "decode" else S
     T, d, H, KV, hd = rows * tokens, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = wo = 2 * T * d * H * hd
     attn = 2 * (2 * T * S * H * hd)
     kv = 2 * (2 * T * d * KV * hd)
-    kv_split = (M - 1) / M if KV % M == 0 else 1 - max(1, (H // M) // (H // KV)) / KV
+    cache_kv = 0
+    if KV % M == 0:
+        kv_split = (M - 1) / M
+    elif kind == "decode":
+        kv_split = 1
+    else:
+        kv_split = 1 - max(1, (H // M) // (H // KV)) / KV
+        cache_kv = 2 * (2 * rows * (S // M) * d * KV * hd)
     G, _, cap = dispatch_shape(cfg, rows * D, tokens)
     experts = cfg.moe.n_experts * 2 * (G // D) * cap * d * 3 * cfg.moe.d_ff_expert
     head = 2 * rows * d * cfg.vocab
-    return cfg.n_groups * ((M - 1) / M * (q + attn + wo + experts) + kv_split * kv) + (
-        (M - 1) / M * head)
+    return cfg.n_groups * ((M - 1) / M * (q + attn + wo + experts) + kv_split * kv
+                           - cache_kv) + (M - 1) / M * head
 
 
 @pytest.mark.parametrize("name, whole_along_model, split", [
-    ("4x4/decode", 987_136, 720_896), ("4x4/prefill", 18_513_920, 13_262_848)])
+    ("4x4/decode", 987_136, 753_664), ("4x4/prefill", 18_513_920, 12_738_560)])
 def test_a_serving_ranks_program_is_the_data_only_rank_less_the_model_split(
         port_cells, name, whole_along_model, split):
     """Exactly: the 4x4 serving rank's count is the 4x1 rank's (the same
@@ -470,17 +486,26 @@ def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
     # the f32 [4, 1, 64] activations (the lookup's sum and each group's
     # attention output), all-gathers of each MoE layer's expert outputs
     # (its one group's [1, 1, 2, 64] of [1, 4, 2, 64]: cap 2) and of the
-    # head's vocab slices of the f32 [4, 1, 128] logits: the sum of its calls.
+    # head's vocab slices of the f32 [4, 1, 128] logits; and each group's
+    # decode attention over its quarter of the caches' sequence: an
+    # all-gather of q (the rank's [4, 1, 1, 16] of [4, 1, 4, 16]: kv is
+    # dropped, so no k or v), an all-reduce MAX of the score maxima [4, 2,
+    # 2] and a reduce-scatter of the partial sums [4, 4] and [4, 4, 16]
+    # (each rank keeps its head's): the sum of its calls.
     dec = port_cells["4x4/decode"]
     y, logits = 1 * cfg.moe.n_experts * 2 * cfg.d_model * 4, 4 * cfg.vocab * 4
+    H, hd = cfg.n_heads, cfg.head_dim
+    q, maxima, sums = 4 * H * hd * 4, 4 * H * 4, 4 * H * (1 + hd) * 4
     want = {"data": {"all-gather": 3 / 4 * (top + group), "reduce-scatter": 0.0,
                      "all-reduce": 0.0},
-            "model": {"all-gather": 3 / 4 * (cfg.n_groups * y + logits), "reduce-scatter": 0.0,
-                      "all-reduce": 2 * 3 / 4 * (1 + cfg.n_groups) * 4 * cfg.d_model * 4}}
+            "model": {"all-gather": 3 / 4 * (cfg.n_groups * (y + q) + logits),
+                      "reduce-scatter": 3 / 4 * cfg.n_groups * sums,
+                      "all-reduce": 2 * 3 / 4 * ((1 + cfg.n_groups) * 4 * cfg.d_model * 4
+                                                 + cfg.n_groups * maxima)}}
     assert dec["hlo"]["collective_by_axis"] == want
     assert dec["hlo"]["collective_wire_bytes"] == sum(
         sum(v.values()) for v in want.values()) > 0
-    assert dec["hlo"]["n_collective_sites"] == (2 + 2) + (1 + 2 + 2 + 1)
+    assert dec["hlo"]["n_collective_sites"] == (2 + 2) + (1 + 2 + 2 + 1) + 3 * cfg.n_groups
 
 
 def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
@@ -489,7 +514,9 @@ def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
     where "model" does (the heads, the vocab, the experts: one of 4 a
     rank), as f32 parameters, f32 moments and f32 gradient sums; the
     largest gather (a group's blocks whole along "data", or the embed's
-    [32, 64] block) and the global batch."""
+    [32, 64] block) and the global batch.  A serving rank holds the same
+    blocks and, of the caches, JAX's `cache_specs` share: its rows and its
+    quarter of the sequence, every KV head."""
     rec = port_cells["4x4/train/g4"]
     parts = rec["memory"]["port_rank_parts"]
     cfg = groups(4)(reduced(get_config(SMOKE_ARCH), groups=2))
@@ -518,13 +545,23 @@ def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
     assert dec["memory"]["port_rank_parts"]["batch"] == 4 * 8  # its 4 rows' tokens
     assert dec["memory"]["port_rank_parts"]["params"] == held  # the same blocks
     assert dec["memory"]["port_rank_parts"]["gathered"] == parts["gathered"]
-    # [G, 4 rows, S = 256, 1 KV head (the one its query head reads), 16] f32, k and v
-    assert dec["memory"]["port_rank_parts"]["caches"] == 2 * 2 * 4 * 256 * 1 * 16 * 4
+    from repro_torch.parallel.sharding import make_rules
+
+    # [G, 4 rows, S / 4 = 64 (its quarter of the sequence), both KV heads, 16]
+    # f32, k and v: JAX's sanitized cache_specs share on 4x4
+    cell = Transformer(cfg, device="meta", dtype=torch.float32, backend="ref")
+    mesh = Mesh((4, 4), ("data", "model"))
+    s, a = smoke()
+    with s, a:
+        share = dr.cache_share_bytes(cell, "decode_32k", make_rules(mesh, model_cfg=cfg), mesh)
+    assert dec["memory"]["port_rank_parts"]["caches"] == share == 2 * 2 * 4 * 64 * 2 * 16 * 4
     dec_layout = dec["memory"]["state_layout"]
     assert {k: v for k, v in dec_layout.items() if k != "caches"} == layout
-    assert dec_layout["caches"]["rows"] == "dp"
-    assert dec_layout["caches"]["model_split"] == {"pos0": 1}
-    assert "slice 26" in dec_layout["caches"]["sequence"]
+    assert dec_layout["caches"] == {"rows": "dp", "sequence": "model", "positions": [0, 64],
+                                    "model_split": {"pos0": "sequence"}}
+    pre = port_cells["4x4/prefill"]  # 2 rows, S = 64: its 16 positions
+    assert pre["memory"]["port_rank_parts"]["caches"] == 2 * 2 * 2 * 16 * 2 * 16 * 4
+    assert pre["memory"]["state_layout"]["caches"]["positions"] == [0, 16]
 
 
 def test_a_ranks_state_bytes_are_jaxs_argument_bytes_on_a_data_only_mesh(port_cells,

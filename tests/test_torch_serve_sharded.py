@@ -16,15 +16,15 @@ ranks cannot split.  Both sides get the same numpy parameters (through
 file runs JAX's `prefill` and three `decode_step`s meanwhile.
 
 Held, f32: each rank's logits rows within 2e-4 of max|logit| of JAX's
-(prefill and every step); its caches its block of JAX's (its rows, the KV
-heads its query heads read, mamba's channels), each leaf within 2e-4 of
+(prefill and every step); its caches its block of JAX's (its rows, its
+block of the attention caches' sequence, mamba's channels), each leaf within 2e-4 of
 its max |value|; `ServeEngine`'s completions, greedy and with a
 temperature, identical on every rank and equal to the one-device port
 engine's; the dry run's serving rank (`lower_cell` on the meta device)
 counts the ranks' parameter, cache and gathered bytes and their wire bytes
-by axis and kind exactly.  The attention caches' layout (heads along
-"model", the sequence whole) is pinned as the stated difference from
-JAX's `cache_specs` (sp -> "model", ROADMAP §1's slice 26).
+by axis and kind exactly.  The attention caches' layout is JAX's
+`cache_specs` block (sp -> "model": every KV head on the rank's block of
+the sequence, the whole sequence where M does not divide it).
 """
 
 from __future__ import annotations
@@ -169,21 +169,21 @@ def _rank_npz(runs, name: str, rank: int):
 
 def _cache_block(whole: np.ndarray, key: str, name: str, rank: int, rows) -> np.ndarray:
     """Rank `rank`'s block of the one-device cache leaf `key` ("pos<i>/k",
-    ...): its rows, and along "model" the KV heads its query heads read
-    (attention) or its d_inner channels (mamba), as the port lays them."""
+    ...), as `sanitize_pspec` of JAX's `cache_specs` places it: its rows,
+    and along "model" its block of the sequence, every KV head (attention;
+    the whole sequence where M does not divide it) or its d_inner channels
+    (mamba)."""
     (D, M), arch, _, _ = cases.CASES[name]
     cfg = reduced(get_config(arch))
     m = rank % M
     block = whole[:, rows[0]:rows[1]]
     leaf = key.split("/")[1]
     if leaf in ("k", "v"):
-        if M == 1 or cfg.n_heads % M:
+        S_max = block.shape[2]
+        if M == 1 or S_max % M:
             return block
-        if cfg.n_kv % M == 0:  # kv -> "model"
-            n = cfg.n_kv // M
-            return block[:, :, :, m * n:(m + 1) * n]
-        H_r, G = cfg.n_heads // M, cfg.n_heads // cfg.n_kv  # kv dropped: the run they read
-        return block[:, :, :, m * H_r // G:((m + 1) * H_r - 1) // G + 1]
+        n = S_max // M
+        return block[:, :, m * n:(m + 1) * n]
     if M == 1 or cfg.d_inner % M:
         return block
     n = cfg.d_inner // M
@@ -320,39 +320,45 @@ def test_sharding_gather_builds_no_graph_under_no_grad():
 
 
 # --------------------------------------------------------------------------
-# The stated difference: the attention caches' heads, not their sequence
+# The attention caches' layout: JAX's `cache_specs` block
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mesh_shape, port_over_jax", [((1, 2), 1), ((2, 2), 1), ((1, 4), 2),
-                                                       ((2, 1), 1)])
-def test_attention_caches_split_their_heads_where_jax_splits_the_sequence(mesh_shape,
-                                                                          port_over_jax):
-    """Reduced qwen3-8b (2 KV heads), B = 4, S_max = 24: a rank's k cache is
-    [G, B / D, S_max, KV_r, hd], whole along the sequence, where JAX's
-    `cache_specs` (None, "dp", "sp", None, None) gives a device
-    [G, B / D, S_max / M, KV, hd].  Where kv -> "model" (KV / M heads a
-    rank) the bytes are JAX's; on (1, 4), kv dropped, a rank holds its
-    query heads' one KV head of 2 against JAX's quarter of the sequence:
-    twice JAX's bytes.  Mamba's caches are JAX's blocks exactly."""
+@pytest.mark.parametrize("mesh_shape, S_max", [((1, 2), 24), ((2, 2), 24), ((1, 4), 24),
+                                               ((2, 1), 24), ((1, 4), 22), ((1, 2), 23)])
+def test_attention_caches_split_their_heads_where_jax_splits_the_sequence(mesh_shape, S_max):
+    """Reduced qwen3-8b (2 KV heads), B = 4: every rank's k cache is the
+    block that `sanitize_pspec` of JAX's `cache_specs` (None, "dp", "sp",
+    None, None) gives its device, [G, B / D, S_max / M, KV, hd] with every
+    KV head (on (1, 4) too, where kv is dropped), its positions the rank's
+    block of the sequence (`cache_sequence`), or the whole sequence where M
+    does not divide S_max (22 on 4 ranks, 23 on 2): 1x JAX's bytes.
+    Mamba's caches are JAX's blocks exactly."""
+    from repro_torch.models.transformer import cache_sequence
+
     cfg, jcfg = reduced(get_config("qwen3-8b")), jreduced(jget("qwen3-8b"))
     assert cache_specs(cfg) == JT.cache_specs(jcfg) == {
         "pos0": {"k": (None, "dp", "sp", None, None), "v": (None, "dp", "sp", None, None)}}
     D, M = mesh_shape
     mesh = Mesh(mesh_shape, ("data", "model"))
     jmesh = jax.sharding.AbstractMesh(mesh_shape, ("data", "model"))
-    B, S_max = 4, 24
+    B = 4
     whole = (cfg.n_groups, B, S_max, cfg.n_kv, cfg.head_dim)
     jspec = J.sanitize_pspec(J.tree_pspecs(JT.cache_specs(jcfg), J.make_rules(
         jmesh, model_cfg=jcfg))["pos0"]["k"], whole, jmesh)
     jax_block = [n // (1 if e is None else jmesh.shape[e]) for n, e in zip(whole, jspec)]
-    assert jax_block == [cfg.n_groups, B // D, S_max // M, cfg.n_kv, cfg.head_dim]
+    split = S_max % M == 0
+    assert jax_block == [cfg.n_groups, B // D, S_max // M if split else S_max, cfg.n_kv,
+                         cfg.head_dim]
     for rank in range(D * M):
         model = Transformer(cfg, device="meta", dtype=torch.float32)
-        fsdp.shard_model(model, make_rules(mesh, model_cfg=cfg), place=(mesh, rank))
-        k = model.init_caches(B // D, S_max)["pos0"]["k"]
-        kv_r = cfg.n_kv if M == 1 else 1  # 2 / 2 a rank, or the one its query head reads
-        assert list(k.shape) == [cfg.n_groups, B // D, S_max, kv_r, cfg.head_dim]
-        assert k.numel() == port_over_jax * np.prod(jax_block)
+        sharding = fsdp.shard_model(model, make_rules(mesh, model_cfg=cfg), place=(mesh, rank))
+        caches = model.init_caches(B // D, S_max)
+        for leaf in ("k", "v"):
+            assert list(caches["pos0"][leaf].shape) == jax_block
+            assert caches["pos0"][leaf].numel() == np.prod(jax_block)
+        m, n = rank % M, S_max // M
+        want = range(m * n, (m + 1) * n) if split and M > 1 else None
+        assert caches.sequence == cache_sequence(cfg, S_max, sharding) == want
     mcfg, mjcfg = reduced(get_config("falcon-mamba-7b")), jreduced(jget("falcon-mamba-7b"))
     model = Transformer(mcfg, device="meta", dtype=torch.float32)
     fsdp.shard_model(model, make_rules(mesh, model_cfg=mcfg), place=(mesh, 0))
