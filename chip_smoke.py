@@ -359,6 +359,22 @@ LM_TP_MESH = (1, 2)
 # holds the whole model's f32 state and gradients (3.73 G parameters) on the
 # card and frees it before the ranks start.
 LM_EP = ("qwen3-moe-235b-a22b", 1, 1, 3, "qwen3_moe")  # arch, layers, batch, steps, suffix
+# Adafactor on a sharded state (slice 27): LM_TP's falcon-mamba configuration
+# (full width, 2 layers, f32, global batch 1, S = LM_DP_S, 2 steps, the (1, 2)
+# mesh: mamba_scan on a rank's 4096 channels) with OptConfig(kind="adafactor")
+# at LM_TP's lr and warmup, on lm_train_tp's pair of ranks, held to rank 0's
+# own one-device Adafactor run.  vr and vc lie on the JAX rules' blocks of the
+# factored shapes (`fsdp.opt_leaf_shard`); every "model" case of the layout
+# occurs (the row and the column dimension cut, the [G, d_inner] vectors).
+# F8 in its Adafactor form: step 1's parameters bit-equal to the draw; vr and
+# vc after step 1 within 2 F8_GRAD_REL of each leaf's max + F8_GRAD_ABS of one
+# device's (v's bound); the parameters after step 2 within F8_UPDATE_ABS of the
+# port's one-device adafactor_update of the ranks' own gathered parameters,
+# statistics and clipped gradient; the blocks whole along "model" bit-alike.
+# Each rank's state bytes equal the meta count of the same layout; its wire
+# bytes a step, by axis and kind, the AdamW TP mamba step's plus the
+# statistics' all-reduces as the meta update counts them.
+LM_ADAFACTOR = ("falcon-mamba-7b", 2, 1, 2, "falcon_mamba")  # arch, layers, batch, steps, suffix
 # lm_train_fsdp's and lm_train_tp's configurations run on one pair of ranks
 # (`lm_train_sharded`), which start and warm up once; lm_train_ep's on a pair
 # of its own, since a process keeps the pinned host blocks it frees and the
@@ -3493,22 +3509,48 @@ def _gloo_rank(rank: int, out_dir: str, device: str):
         dist.destroy_process_group()
 
 
-def _f8_blocks(cfg, mesh) -> dict:
-    """{parameter name: [(rank, its Shard)]} of the ranks on `mesh` whose
-    blocks of the parameter differ (under make_rules(mesh, model_cfg=cfg));
-    a leaf whole along an axis has one block along it, the first rank's."""
+def _rank_shardings(cfg, mesh) -> dict:
+    """{rank: its `fsdp.Sharding` on `mesh` under make_rules(mesh,
+    model_cfg=cfg), the layout alone (no process group)}."""
     from repro_torch.models.transformer import Transformer
-    from repro_torch.parallel import make_rules
+    from repro_torch.parallel import fsdp, make_rules
     from repro_torch.parallel.sharding import leaf_shard
 
     model = Transformer(cfg, device="meta", dtype=torch.float32, backend="ref")
-    rules, specs, M = make_rules(mesh, model_cfg=cfg), model.param_specs(), mesh.shape["model"]
-    out = {}
-    for n, p in model.named_parameters():
-        shards = [leaf_shard(n, tuple(p.shape), specs, mesh, rules, r) for r in range(mesh.size)]
-        out[n] = [(r, sh) for r, sh in enumerate(shards)
-                  if (sh.dim is not None or r // M == 0) and (sh.mdim is not None or r % M == 0)]
-    return out
+    rules, specs = make_rules(mesh, model_cfg=cfg), model.param_specs()
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    return {r: fsdp.Sharding({n: leaf_shard(n, shape, specs, mesh, rules, r)
+                              for n, shape in shapes.items()}, mesh, r)
+            for r in range(mesh.size)}
+
+
+def _distinct(shards: list, M: int) -> list:
+    """The (rank, Shard, ...) entries of ranks whose blocks differ: a leaf
+    whole along an axis has one block along it, the first rank's."""
+    return [e for e in shards if (e[1].dim is not None or e[0] // M == 0)
+            and (e[1].mdim is not None or e[0] % M == 0)]
+
+
+def _f8_blocks(cfg, mesh) -> dict:
+    """{parameter name: [(rank, its Shard)]} of the ranks on `mesh` whose
+    blocks of the parameter differ (under make_rules(mesh, model_cfg=cfg))."""
+    ranks = _rank_shardings(cfg, mesh)
+    return {n: _distinct([(r, sh.layout[n]) for r, sh in ranks.items()], mesh.shape["model"])
+            for n in ranks[0].layout}
+
+
+def _f8_opt_blocks(cfg, mesh, parts) -> dict:
+    """{(part, JAX leaf key): [(rank, Shard, lead)]} of the optimizer state's
+    `parts` ("m", "v" or "vr", "vc"), as `_f8_blocks` (`fsdp.opt_leaf_shard`:
+    Adafactor's statistics on the factored shapes' blocks)."""
+    from repro_torch.models.transformer import param_leaves
+    from repro_torch.parallel import fsdp
+
+    ranks = _rank_shardings(cfg, mesh)
+    leaves = param_leaves(ranks[0].layout)
+    return {(part, key): _distinct([(r, *fsdp.opt_leaf_shard(sh, names, part))
+                                    for r, sh in ranks.items()], mesh.shape["model"])
+            for part in parts for key, names in leaves.items()}
 
 
 _FP_WORDS = 1 << 22  # a fingerprint's chunk, in 4-byte words
@@ -3555,27 +3597,41 @@ def _worst(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 
 class _UpdateSpy:
-    """A stand-in for `repro_torch.training.train_step.adamw_update`, patched
-    in while a step is built (`build`): while `hook` is set it is called
-    with the update's arguments (the gradient as the update receives it,
-    after the clip), then the real function runs."""
+    """A stand-in for the update of optimizer `kind` in
+    `repro_torch.training.train_step` (`adamw_update` or `adafactor_update`),
+    patched in while a step is built (`build`): while `hook` is set it is
+    called with the update's arguments (the gradient as the update receives
+    it, after the clip), then the real function runs.  Keeps the host
+    seconds of the last real call (`update_s`, on a synced card) and of the
+    collectives it made (`collective_s`, `fsdp.WIRE`'s)."""
 
-    def __init__(self):
+    def __init__(self, kind: str):
         from repro_torch.training import train_step
 
-        self.real, self.hook = train_step.adamw_update, None
+        self.name = f"{kind}_update"
+        self.real, self.hook = getattr(train_step, self.name), None
+        self.update_s = self.collective_s = 0.0
 
-    def __call__(self, params, grads, opt_state, step, cfg):
+    def __call__(self, params, grads, opt_state, step, cfg, sharding=None):
+        from repro_torch.parallel import fsdp
+
         if self.hook is not None:
             self.hook(params, grads, opt_state, step, cfg)
-        return self.real(params, grads, opt_state, step, cfg)
+        wire = sum(fsdp.WIRE.seconds.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.real(params, grads, opt_state, step, cfg, sharding=sharding)
+        torch.cuda.synchronize()
+        self.update_s = time.perf_counter() - t0
+        self.collective_s = sum(fsdp.WIRE.seconds.values()) - wire
+        return out
 
     def build(self, model, opt_cfg, **kw):
         from unittest import mock
 
         from repro_torch.training import make_train_step, train_step
 
-        with mock.patch.object(train_step, "adamw_update", self):
+        with mock.patch.object(train_step, self.name, self):
             return make_train_step(model, opt_cfg, **kw)
 
 
@@ -3585,20 +3641,22 @@ def _one_device_reference(cfg, dev, opt_cfg, batches, mesh, keep_p2: bool) -> di
     "grad_norms") and F8's references, each cut into the blocks of the
     ranks on `mesh` (`_f8_blocks`; (name or JAX leaf key, rank) -> block):
     the fingerprints of the parameters after step 1 ("p1", on the card),
-    the moments after step 1 ("m1", "v1") and the gradient the update
-    receives at step 2 ("g2"), on the host; with `keep_p2`, the parameters
-    after step 2 on the card ("p2", for the reported distance).  Frees the
-    card of the run."""
+    the optimizer state after step 1 ("<part>1": AdamW's "m1", "v1",
+    Adafactor's "vr1", "vc1", cut by `_f8_opt_blocks`) and the gradient the
+    update receives at step 2 ("g2"), on the host; with `keep_p2`, the
+    parameters after step 2 on the card ("p2", for the reported distance).
+    Frees the card of the run."""
     import gc
 
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import param_leaves
     from repro_torch.training import init_train_state
 
     blocks = _f8_blocks(cfg, mesh)
     model = build_model(cfg, device=dev, dtype=torch.float32, seed=0)
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(0), opt_cfg)
-    spy = _UpdateSpy()
+    parts = sorted(state.opt)
+    opt_blocks = _f8_opt_blocks(cfg, mesh, parts)
+    spy = _UpdateSpy(opt_cfg.kind)
     step_fn = spy.build(model, opt_cfg)
     ref = {"losses": [], "grad_norms": [], "reference_s": 0.0}
 
@@ -3618,16 +3676,15 @@ def _one_device_reference(cfg, dev, opt_cfg, batches, mesh, keep_p2: bool) -> di
             named = dict(model.named_parameters())
             ref["p1"] = {(n, r): _fingerprint(sh.cut(p)) for n, p in named.items()
                          for r, sh in blocks[n]}
-            ref["m1"], ref["v1"] = {}, {}
-            for key, ns in param_leaves(named).items():
-                lead = int(ns[0].startswith("groups."))  # a stacked moment: the groups first
-                for part in ("m", "v"):
-                    ref[f"{part}1"].update({(key, r): _pinned(sh.cut(state.opt[part][key], lead))
-                                            for r, sh in blocks[ns[0]]})
+            for part in parts:
+                ref[f"{part}1"] = {(key, r): _pinned(sh.cut(state.opt[part][key], lead))
+                                   for (pt, key), bl in opt_blocks.items() if pt == part
+                                   for r, sh, lead in bl}
             ref["reference_s"] += time.perf_counter() - t0
         if s == 1 and keep_p2:
             ref["p2"] = {n: p.detach().clone() for n, p in model.named_parameters()}
-    ref["host_bytes"] = sum(t.numel() * t.element_size() for part in ("m1", "v1", "g2")
+    ref["host_parts"] = [f"{part}1" for part in parts] + ["g2"]
+    ref["host_bytes"] = sum(t.numel() * t.element_size() for part in ref["host_parts"]
                             for t in ref[part].values())
     del state, model, step_fn, metrics
     gc.collect()
@@ -3635,17 +3692,22 @@ def _one_device_reference(cfg, dev, opt_cfg, batches, mesh, keep_p2: bool) -> di
     return ref
 
 
+F8_PART_REL = {"m": 1, "v": 2, "vr": 2, "vc": 2}  # F8_GRAD_REL's multiple, by state part
+
+
 class _UpdateCheck:
     """F8's checks on the ranks' side (the block at F8_GRAD_REL), read on
     rank 0 against `_one_device_reference`'s references.  The ranks share
     one card, so the other ranks hand rank 0 their blocks through CUDA IPC
-    (`queue`, a torch.multiprocessing queue): their parameters and moments
-    once (the steps update them in place), their gradient at step 2.  Rank
-    0 so holds each leaf whole, as its ranks' blocks at their places on the
-    mesh, and reads it piece by piece on the card; the references it holds
-    on the host are cut the same way.  `moments` runs after step 1, `hook`
-    on the step's `_UpdateSpy` at step 2, `params` after step 2;
-    `replicated_alike` after each step."""
+    (`queue`, a torch.multiprocessing queue): their parameters and optimizer
+    state once (the steps update them in place), their gradient at step 2.
+    Rank 0 so holds each leaf whole, as its ranks' blocks at their places on
+    the mesh, and reads it piece by piece on the card; the references it
+    holds on the host are cut the same way.  `moments` runs after step 1,
+    `hook` on the step's `_UpdateSpy` at step 2, `params` after step 2;
+    `replicated_alike` after each step.  AdamW's expected update runs on
+    each block (elementwise); Adafactor's on each leaf made whole from the
+    ranks' blocks (its statistics span the cut dimensions)."""
 
     def __init__(self, model, state, ref, mesh, group, queue, opt_cfg, real):
         import torch.distributed as dist
@@ -3656,11 +3718,14 @@ class _UpdateCheck:
         self.opt_cfg, self.real = opt_cfg, real
         self.rank, self.dist = dist.get_rank(group), dist
         self.blocks = _f8_blocks(model.cfg, mesh)
+        self.opt_blocks = _f8_opt_blocks(model.cfg, mesh, sorted(state.opt))
+        self.shardings = _rank_shardings(model.cfg, mesh)
         self.leaves = param_leaves(dict(model.named_parameters()))
-        whole = {n for n, ((_, sh),) in ((n, bl) for n, bl in self.blocks.items() if len(bl) == 1)
-                 if sh.block == sh.shape}
-        moments = {k for k, ns in self.leaves.items() if ns[0] in whole}
-        self.whole = {"p": whole, "m": moments, "v": moments}  # whole along both axes
+        self.whole = {"p": {n for n, ((_, sh),) in ((n, bl) for n, bl in self.blocks.items()
+                                                     if len(bl) == 1) if sh.block == sh.shape}}
+        for part in state.opt:  # whole along both axes
+            self.whole[part] = {key for (pt, key), bl in self.opt_blocks.items() if pt == part
+                                and len(bl) == 1 and bl[0][1].block == bl[0][1].shape}
         self.expected: dict = {}
         self.seconds, self.peak_host = 0.0, 0
         self.out = {"step1_moments_worst": {}, "step2_grad_worst": None,
@@ -3686,12 +3751,14 @@ class _UpdateCheck:
         self.dist.barrier(group=self.group)
 
     def _host_bytes(self) -> int:
-        live = [t for part in ("m1", "v1", "g2") for t in self.ref.get(part, {}).values()]
+        live = [t for part in self.ref.get("host_parts", ())
+                for t in self.ref.get(part, {}).values()]
         return sum(t.numel() * t.element_size() for t in [*live, *self.expected.values()])
 
     def replicated_alike(self) -> bool | None:
         """Whether every rank holds the bits of rank 0 in each parameter and
-        moment whole along both axes (None on the other ranks)."""
+        optimizer-state leaf whole along both axes (None on the other
+        ranks)."""
         self._barrier()
         alike = None
         if self.rank == 0:
@@ -3702,19 +3769,18 @@ class _UpdateCheck:
         return alike
 
     def moments(self) -> None:
-        """After step 1: each rank's moment blocks against the one-device
-        run's moments after step 1, cut the same way (m within
-        F8_GRAD_REL, v within twice it, of the leaf's max, plus
-        F8_GRAD_ABS)."""
+        """After step 1: each rank's optimizer-state blocks against the
+        one-device run's state after step 1, cut the same way (within
+        F8_PART_REL[part] F8_GRAD_REL of the leaf's max, plus F8_GRAD_ABS)."""
         t0 = time.perf_counter()
         self._barrier()
         if self.rank == 0:
             self.peak_host = max(self.peak_host, self._host_bytes())
-            for part, rel in (("m", F8_GRAD_REL), ("v", 2 * F8_GRAD_REL)):
-                worst = None
-                for key, ns in self.leaves.items():
+            for part in sorted(self.state.opt):
+                rel, worst = F8_PART_REL[part] * F8_GRAD_REL, None
+                for key in self.leaves:
                     err = scale = 0.0
-                    for r, _ in self.blocks[ns[0]]:
+                    for r, *_ in self.opt_blocks[(part, key)]:
                         e, s = _worst(self.theirs[r][part][key], self.ref[f"{part}1"].pop((key, r)))
                         err, scale = max(err, e), max(scale, s)
                     ratio = err / (rel * scale + F8_GRAD_ABS)
@@ -3728,14 +3794,15 @@ class _UpdateCheck:
     def hook(self, params, grads, opt_state, step, cfg) -> None:
         """At step 2, before the update: the gradient each rank's update
         receives against the one-device run's, the parameters' fingerprints
-        against the drawn ones', and the port's AdamW of the ranks' blocks at
-        step 2 (step index 1, the phase's OptConfig: not what the update is
-        handed) into `expected` on the host."""
+        against the drawn ones', and the port's update of the ranks' inputs
+        at step 2 (step index 1, the phase's OptConfig: not what the update
+        is handed) into `expected` on the host."""
         t0 = time.perf_counter()
         gs = self._exchange({"g": grads})
         if self.rank == 0:
             exact, worst = True, None
-            dev, idx = next(iter(params.values())).device, torch.ones((), dtype=torch.int32)
+            dev = next(iter(params.values())).device
+            idx = torch.ones((), dtype=torch.int32, device=dev)
             for key, ns in self.leaves.items():
                 stacked = ns[0].startswith("groups.")
                 err = scale = 0.0
@@ -3745,10 +3812,13 @@ class _UpdateCheck:
                         exact &= _fingerprint(p) == self.ref["p1"][(n, r)]
                         e, s = _worst(g, self.ref["g2"].pop((n, r)))
                         err, scale = max(err, e), max(scale, s)
-                        m, v = (self.theirs[r][part][key] for part in ("m", "v"))
-                        self.expected[(n, r)] = self._adamw(n, key, p, m[i] if stacked else m,
-                                                            v[i] if stacked else v, g,
-                                                            idx.to(dev), stacked)
+                        if self.opt_cfg.kind == "adamw":
+                            m, v = (self.theirs[r][part][key] for part in ("m", "v"))
+                            self.expected[(n, r)] = self._adamw(
+                                n, key, p, m[i] if stacked else m, v[i] if stacked else v, g,
+                                idx, stacked)
+                if self.opt_cfg.kind == "adafactor":
+                    self._adafactor(key, ns, gs, idx)
                 ratio = err / (F8_GRAD_REL * scale + F8_GRAD_ABS)
                 if worst is None or not ratio <= worst["ratio_to_bound"]:
                     worst = {"leaf": key, "abs_err": err, "leaf_max": scale,
@@ -3776,6 +3846,38 @@ class _UpdateCheck:
                       self.opt_cfg)
             out.view(-1)[i:i + F8_CHUNK].copy_(pc)
         return out
+
+    @staticmethod
+    def _whole(blocks: dict, cuts: dict) -> torch.Tensor:
+        """A leaf made whole on the card from every rank's block
+        (`blocks[r]`), each placed at its (Shard, lead) `cuts[r]`."""
+        shard, lead = cuts[0]
+        out = blocks[0].new_empty((*blocks[0].shape[:lead], *shard.shape))
+        for r, (sh, ld) in cuts.items():
+            sh.cut(out, ld).copy_(blocks[r])
+        return out
+
+    def _adafactor(self, key, names, gs, step) -> None:
+        """The port's one-device Adafactor (the function the step was built
+        with, without a sharding) of leaf `key` made whole from the ranks'
+        parameters, vr, vc and clipped gradient; each rank's block of the
+        updated parameters into `expected`, on the host."""
+        from repro_torch.parallel import fsdp
+
+        ranks = self.shardings
+        p, g = {}, {}
+        for n in names:
+            cuts = {r: (sh.layout[n], 0) for r, sh in ranks.items()}
+            p[n] = self._whole({r: self.theirs[r]["p"][n] for r in ranks}, cuts)
+            g[n] = self._whole({r: gs[r]["g"][n] for r in ranks}, cuts)
+        opt = {part: {key: self._whole({r: self.theirs[r][part][key] for r in ranks},
+                                       {r: fsdp.opt_leaf_shard(sh, names, part)
+                                        for r, sh in ranks.items()})}
+               for part in ("vr", "vc")}
+        self.real(p, g, opt, step, self.opt_cfg)
+        for n in names:
+            for r, sh in self.blocks[n]:
+                self.expected[(n, r)] = _pinned(sh.cut(p[n]))
 
     def params(self) -> None:
         """After step 2: each rank's parameter blocks against `expected`
@@ -3855,14 +3957,14 @@ def _sharded_run(rank: int, group, queue, dev, cfg, opt_cfg, batches, mesh, ref,
                               for n in sharding.layout)
     gc.collect()
     torch.cuda.empty_cache()
-    spy = _UpdateSpy()
+    spy = _UpdateSpy(opt_cfg.kind)
     step_fn = spy.build(model, opt_cfg, group=group)
     check = _UpdateCheck(model, state, ref if ref is not None else {}, mesh, group, queue,
                          opt_cfg, spy.real)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     out.update(losses=[], grad_norms=[], step_s=[], wire=[], seconds=[], calls=[],
-               replicated_alike=[])
+               replicated_alike=[], update_s=[], update_collective_s=[])
     fsdp.WIRE.sync = True
     try:
         for s, b in enumerate(batches):
@@ -3887,6 +3989,8 @@ def _sharded_run(rank: int, group, queue, dev, cfg, opt_cfg, batches, mesh, ref,
             out["wire"].append(fsdp.WIRE.by_axis())
             out["seconds"].append(fsdp.WIRE.by_axis("seconds"))
             out["calls"].append(fsdp.WIRE.by_axis("calls"))
+            out["update_s"].append(spy.update_s)
+            out["update_collective_s"].append(spy.collective_s)
             out["largest_gather"] = fsdp.WIRE.largest_gather
             out["replicated_alike"].append(check.replicated_alike())
             if s == 0:
@@ -4037,16 +4141,20 @@ def _timeline(clock: dict, start: float) -> dict:
 def _sharded_configs() -> dict:
     """{key: (arch, layers, global batch, steps, mesh shape, steps of rank 0's
     one-device reference, whether it keeps its step-2 parameters, whether
-    rank 0's last step runs under the profiler)} of the sharded phases:
-    lm_train_fsdp's (lm_train_dp's configuration on (2, 1)), LM_TP's (the
-    one-device reference takes the first two steps where the one-rank run's
-    losses come from lm_train_dp, else every step) and lm_train_ep's."""
-    out = {"fsdp": (*LM_DP, LM_DP_STEPS, (LM_DP_RANKS, 1), 2, True, True)}
+    rank 0's last step runs under the profiler, the optimizer)} of the
+    sharded phases: lm_train_fsdp's (lm_train_dp's configuration on (2, 1)),
+    LM_TP's (the one-device reference takes the first two steps where the
+    one-rank run's losses come from lm_train_dp, else every step),
+    lm_train_ep's and lm_train_adafactor's."""
+    out = {"fsdp": (*LM_DP, LM_DP_STEPS, (LM_DP_RANKS, 1), 2, True, True, "adamw")}
     out.update({f"tp_{short}": (arch, layers, batch, steps, LM_TP_MESH,
-                                2 if from_dp else steps, True, short == LM_TP[0][4])
+                                2 if from_dp else steps, True, short == LM_TP[0][4], "adamw")
                 for arch, layers, batch, steps, short, from_dp in LM_TP})
     arch, layers, batch, steps, short = LM_EP
-    out[f"ep_{short}"] = (arch, layers, batch, steps, LM_TP_MESH, steps, False, True)
+    out[f"ep_{short}"] = (arch, layers, batch, steps, LM_TP_MESH, steps, False, True, "adamw")
+    arch, layers, batch, steps, short = LM_ADAFACTOR
+    out[f"adafactor_tp_{short}"] = (arch, layers, batch, steps, LM_TP_MESH, steps, True, False,
+                                    "adafactor")
     return out
 
 
@@ -4075,10 +4183,10 @@ def _sharded_rank(rank: int, out_dir: str, device: str = "cuda:0", queue=None,
                 out[key] = _serve_run(rank, dist.group.WORLD, dev, *serving[key])
                 out[key]["clock"].update(config_start=started)
                 continue
-            arch, layers, batch, steps, shape, ref_steps, keep_p2, profile = configs[key]
+            arch, layers, batch, steps, shape, ref_steps, keep_p2, profile, kind = configs[key]
             started = time.time()
             cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-            opt_cfg = OptConfig(warmup_steps=2)
+            opt_cfg = OptConfig(kind=kind, warmup_steps=2)
             batches = [_train_batch(cfg, batch, LM_DP_S, s) for s in range(steps)]
             mesh = Mesh(shape, ("data", "model"))
             ref = (_one_device_reference(cfg, dev, opt_cfg, batches[:ref_steps], mesh, keep_p2)
@@ -4286,6 +4394,115 @@ def lm_train_tp(one: dict, predicted: dict, runs: dict, spawn_s: float, start: f
     emit("profile_lm_train_tp_step", rank=0, arch=LM_TP[0][0],
          **runs[f"tp_{LM_TP[0][4]}"][0]["profile"])
     return launches
+
+
+def _meta_adafactor(cfg, mesh, opt_cfg) -> tuple[list, dict, dict]:
+    """Adafactor on `cfg`'s state laid out on `mesh`, counted on the meta
+    device (nothing allocated, no collective run): (each rank's state bytes,
+    from the port's own optimizer state on its blocks; the wire bytes and
+    calls by axis and kind of one `adafactor_update` of rank 0's blocks, its
+    statistics' all-reduces)."""
+    from repro_torch.launch.specs import abstract_train_state
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel import fsdp, make_rules
+    from repro_torch.training.optimizer import adafactor_update
+
+    rules, state_bytes = make_rules(mesh, model_cfg=cfg), []
+    for rank in range(mesh.size):
+        model = Transformer(cfg, device="meta", dtype=torch.float32, backend="ref")
+        state = fsdp.shard_train_state(abstract_train_state(model, opt_cfg), rules,
+                                       place=(mesh, rank))
+        state_bytes.append(sum(p.numel() * p.element_size() for p in model.parameters())
+                           + sum(t.numel() * t.element_size()
+                                 for part in state.opt.values() for t in part.values()))
+        if rank == 0:
+            params = dict(model.named_parameters())
+            fsdp.WIRE.reset()
+            adafactor_update(params, {n: torch.empty_like(p) for n, p in params.items()},
+                             state.opt, state.step, opt_cfg, sharding=model.fsdp)
+            wire, calls = fsdp.WIRE.by_axis(), fsdp.WIRE.by_axis("calls")
+    return state_bytes, wire, calls
+
+
+def _add_by_axis(a: dict, b: dict) -> dict:
+    """{axis: {kind: a's + b's}} of two `WIRE.by_axis` readings."""
+    return {axis: {k: a.get(axis, {}).get(k, 0) + b.get(axis, {}).get(k, 0)
+                   for k in {**a.get(axis, {}), **b.get(axis, {})}}
+            for axis in {**a, **b}}
+
+
+def lm_train_adafactor(runs: dict, spawn_s: float, start: float) -> dict:
+    """LM_ADAFACTOR on LM_DP_RANKS gloo ranks on cuda:0, tensor-parallel on
+    the (1, 2) mesh with Adafactor (`runs`, `spawn_s` and `start`:
+    `lm_train_sharded`'s, key "adafactor_tp_<suffix>", beside the AdamW
+    run of the same configuration, "tp_<suffix>"): each step's loss and
+    gradient norm within LM_DP_STEP_RTOL of rank 0's one-device Adafactor
+    run, every rank's alike; step 2 held through its update (F8: vr and vc
+    after step 1, the update against the port's one-device Adafactor of the
+    ranks' own inputs); the parameters, vr and vc whole along both axes
+    bit-alike across the ranks; each rank's state bytes equal to the meta
+    count of the same layout (`_meta_adafactor`), and its wire bytes and
+    calls a step, by axis and kind, to the AdamW step's plus the meta
+    update's statistics all-reduces; mamba_scan twice per layer a step on
+    each rank.  Prints each rank's state bytes beside AdamW's, the wire
+    against AdamW's, the update's seconds and its all-reduces' seconds and
+    share of a step.  Returns rank 0's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import Mesh
+    from repro_torch.training import OptConfig
+
+    arch, layers, batch, steps, short = LM_ADAFACTOR
+    ranks, adamw = runs[f"adafactor_tp_{short}"], runs[f"tp_{short}"]
+    r0 = ranks[0]
+    ref = r0["one_device"]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    counted_bytes, stats_wire, stats_calls = _meta_adafactor(
+        cfg, Mesh(LM_TP_MESH, ("data", "model")), OptConfig(kind="adafactor", warmup_steps=2))
+    want = {"mamba_scan": 2 * layers * steps}
+    loss_rel, norm_rel = _rel(r0["losses"], ref["losses"]), _rel(r0["grad_norms"],
+                                                                 ref["grad_norms"])
+    stats_share = [c / t for c, t in zip(r0["update_collective_s"], r0["step_s"])]
+    check = {
+        "losses_within_tol": max(loss_rel) <= LM_DP_STEP_RTOL,
+        "grad_norms_within_tol": max(norm_rel) <= LM_DP_STEP_RTOL,
+        **f8_checks(r0["f8"]),
+        "ranks_alike": _ranks_alike(ranks),
+        "state_bytes_as_counted": [r["state_bytes"] for r in ranks] == counted_bytes,
+        "wire_bytes_as_counted": all(
+            w == _add_by_axis(a, stats_wire) and c == _add_by_axis(ac, stats_calls)
+            for r, ra in zip(ranks, adamw)
+            for w, a, c, ac in zip(r["wire"], ra["wire"], r["calls"], ra["calls"])),
+        "finite": all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+        "launches": all(r["launches"] == want for r in ranks),
+    }
+    emit(f"lm_train_adafactor_tp_{short}", arch=arch, layers=layers, dtype="torch.float32",
+         global_batch=batch, seq=LM_DP_S, steps=steps, ranks=LM_DP_RANKS,
+         backend="gloo on cuda:0", mesh=list(LM_TP_MESH), optimizer="adafactor",
+         rules="make_rules(mesh, model_cfg=cfg): fsdp -> data, tp and kv -> model; vr, vc on "
+               "the factored shapes' blocks (fsdp.opt_leaf_shard)",
+         state_bytes_per_rank=[r["state_bytes"] for r in ranks],
+         counted_state_bytes=counted_bytes,
+         adamw_state_bytes_per_rank=[r["state_bytes"] for r in adamw],
+         peak_gib_per_rank=[r["peak_gib"] for r in ranks],
+         adamw_peak_gib_per_rank=[r["peak_gib"] for r in adamw],
+         one_device_losses=ref["losses"], adafactor_losses=r0["losses"], loss_rel_err=loss_rel,
+         one_device_grad_norms=ref["grad_norms"], adafactor_grad_norms=r0["grad_norms"],
+         grad_norm_rel_err=norm_rel, step_tol_rel=LM_DP_STEP_RTOL, **_f8_fields(r0["f8"]),
+         step_s=[r["step_s"] for r in ranks], adamw_step_s=[r["step_s"] for r in adamw],
+         update_s=r0["update_s"], adamw_update_s=adamw[0]["update_s"],
+         statistics_all_reduce_s=r0["update_collective_s"],
+         statistics_all_reduce_share=stats_share,
+         collective_s_by_axis=r0["seconds"], wire_bytes_by_axis=r0["wire"],
+         adamw_wire_bytes_by_axis=adamw[0]["wire"], statistics_wire_by_axis=stats_wire,
+         statistics_calls_by_axis=stats_calls, calls_by_axis=r0["calls"],
+         adamw_calls_by_axis=adamw[0]["calls"],
+         launches_per_rank=[r["launches"] for r in ranks], launches_want=want,
+         spawn_s=spawn_s, timeline_s=_timeline(r0["clock"], start), **check)
+    if not all(check.values()):
+        raise AssertionError(f"lm_train_adafactor_tp_{short}: {check}")
+    return r0["launches"]
 
 
 def lm_train_ep(predicted: dict, runs: dict, spawn_s: float, start: float) -> dict:
@@ -6230,9 +6447,14 @@ def main() -> int:
     #    state (slice 25) on the same pair: LM_SERVE_SHARDED, each against
     #    rank 0's one-device run and dryrun_serve.
     sharded = lm_train_sharded(("fsdp", *(f"tp_{c[4]}" for c in LM_TP),
+                                f"adafactor_tp_{LM_ADAFACTOR[4]}",
                                 *(f"serve_{c[0]}" for c in LM_SERVE_SHARDED)))
     new_paths["lm_train_fsdp"] = lm_train_fsdp(dp_one, fsdp_predicted, *sharded)
     new_paths["lm_train_tp"] = lm_train_tp(dp_one, tp_predicted, *sharded)
+    # 14e. Adafactor on the sharded state (slice 27): LM_TP's falcon-mamba
+    #    configuration with vr and vc on the factored shapes' blocks, on the
+    #    same pair, against rank 0's one-device Adafactor run.
+    new_paths["lm_train_adafactor_tp"] = lm_train_adafactor(*sharded)
     new_paths.update(lm_serve_sharded(serve_predicted, *sharded))
     # 14c. Expert parallelism (ep -> "model"): one full-width qwen3-moe layer on
     #    the (1, 2) mesh, 64 experts a rank, on a pair of its own: against rank

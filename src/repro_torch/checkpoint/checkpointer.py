@@ -66,9 +66,10 @@ def state_leaves(state) -> list[tuple[str, list[torch.Tensor]]]:
 
 def leaf_shards(state) -> list[tuple]:
     """(Shard, lead) of each leaf of `state_leaves(state)` on a sharded
-    state (`state.params.fsdp`): a parameter's tensors are its groups', a
-    moment's one tensor stacked over the groups (lead 1); the step's Shard
-    is None.  None for a whole state."""
+    state (`state.params.fsdp`): a parameter's tensors are its groups', an
+    optimizer-state leaf's one tensor (`fsdp.opt_leaf_shard`: a moment
+    stacked over the groups, lead 1; Adafactor's `vr` and `vc` the factored
+    shapes' blocks); the step's Shard is None.  None for a whole state."""
     sharding = getattr(state.params, "fsdp", None)
     if sharding is None:
         return None
@@ -80,7 +81,8 @@ def leaf_shards(state) -> list[tuple]:
         elif path.startswith("params/"):
             out.append((sharding.layout[leaves[path[len("params/"):]][0]], 0))
         else:
-            out.append(opt_leaf_shard(sharding, leaves[path.split("/", 2)[2]]))
+            _, part, key = path.split("/", 2)
+            out.append(opt_leaf_shard(sharding, leaves[key], part))
     return out
 
 

@@ -82,11 +82,39 @@ def abstract_caches(model, shape_name: str) -> dict:
     return model.init_caches(batch_size=sh.global_batch, max_len=sh.seq_len)
 
 
-def train_state_pspecs(model, rules: ShardingRules) -> TrainState:
+def train_state_pspecs(model, rules: ShardingRules, kind: str = "adamw") -> TrainState:
     """The JAX `TrainState`'s specs: the parameters' tree, the same tree for
-    each of the moments "m" and "v", and a replicated step."""
+    each of the moments "m" and "v", and a replicated step.  With `kind`
+    "adafactor" the optimizer state is {"vr", "vc"}, each leaf's spec the
+    parameter's with the entry of the dimension its factored shape drops
+    removed (`factored_pspec`): the JAX rules applied to the factored
+    shapes, which the JAX package's launcher never lays out."""
     params = tree_pspecs(model.param_specs(), rules)
-    return TrainState(params=params, opt={k: params for k in ("m", "v")}, step=PartitionSpec())
+    if kind == "adamw":
+        opt = {k: params for k in ("m", "v")}
+    elif kind == "adafactor":
+        opt = {k: _tree_map(lambda spec, k=k: factored_pspec(spec, k), params)
+               for k in ("vr", "vc")}
+    else:
+        raise ValueError(kind)
+    return TrainState(params=params, opt=opt, step=PartitionSpec())
+
+
+def factored_pspec(spec: PartitionSpec, part: str) -> PartitionSpec:
+    """The spec of Adafactor's statistic `part` ("vr" or "vc") of a leaf of
+    spec `spec` (one entry a dimension): a leaf of 2 or more dimensions
+    drops the last (vr) or the one before it (vc); a 1-D leaf's vr keeps
+    its spec and its vc is a scalar."""
+    if len(spec) < 2:
+        return spec if part == "vr" else PartitionSpec()
+    drop = len(spec) - (1 if part == "vr" else 2)
+    return PartitionSpec(*spec[:drop], *spec[drop + 1:])
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def cache_pspecs(model, rules: ShardingRules) -> dict:

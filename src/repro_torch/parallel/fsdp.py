@@ -16,7 +16,12 @@ the head where they are used (`repro_torch.models.transformer`): a block
 stays sliced along "model", and the layers run on it.  The serving passes
 (`prefill`, `decode_step`) gather the same blocks once a call, with grad
 off and no graph.
-`shard_train_state` also cuts the AdamW moments.
+`shard_train_state` also cuts the optimizer state: AdamW's moments to
+their parameters' blocks, and Adafactor's factored statistics `vr` and
+`vc` to the blocks of the JAX rules applied to the factored shapes (the
+leaf's spec with the dropped dimension's entry removed, `opt_leaf_shard`);
+`repro_torch.training.optimizer.adafactor_update` sums their means over
+the axis that cuts the leaf.
 
 The collectives, each a plain `torch.distributed` call that gloo (CPU and
 CUDA tensors) and NCCL both take:
@@ -424,43 +429,65 @@ def shard_model(model, rules: ShardingRules, *, group=None, place=None,
     return sharding
 
 
-def opt_leaf_shard(sharding: Sharding, names: list[str]) -> tuple[Shard, int]:
+def opt_leaf_shard(sharding: Sharding, names: list[str], part: str) -> tuple[Shard, int]:
     """(the Shard, its lead) of the optimizer-state leaf of the JAX tree
-    leaf held by parameters `names` (`param_leaves`): a moment of a
-    per-group parameter is stacked over the groups, one leading dimension
-    more."""
-    return sharding.layout[names[0]], int(names[0].startswith("groups."))
+    leaf held by parameters `names` (`param_leaves`); `part` is the state's
+    part ("m", "v", "vr" or "vc").  A moment of a per-group parameter is
+    stacked over the groups, one leading dimension more.  Adafactor's
+    statistics of a leaf of 2 or more dimensions (stacked: the groups
+    count) drop one: `vr` the last, `vc` the one before it.  Their Shard is
+    the parameter's with the dropped dimension removed and every later one
+    shifted down, so the rank holds the JAX rules' block of the factored
+    shape; where `vc` drops the groups of a stacked [G, d] leaf it has no
+    lead, and a stacked `vr` of it is all lead.  A 1-D leaf's `vr` has the
+    leaf's block and its `vc` is a whole scalar."""
+    shard, lead = sharding.layout[names[0]], int(names[0].startswith("groups."))
+    if part in ("m", "v"):
+        return shard, lead
+    if part not in ("vr", "vc"):
+        raise ValueError(f"no optimizer-state part {part!r}")
+    ndim = lead + len(shard.shape)
+    if ndim < 2:
+        return (shard, lead) if part == "vr" else (Shard(()), 0)
+    drop = ndim - (1 if part == "vr" else 2)  # in the stacked leaf
+    new_lead = lead if drop >= lead else 0
+    shape = list(shard.shape)
+    if drop >= lead:
+        del shape[drop - lead]
+
+    def moved(d):
+        if d is None or d + lead == drop:
+            return None
+        return d + lead - (d + lead > drop) - new_lead
+
+    out = {}
+    if moved(shard.dim) is not None:
+        out.update(dim=moved(shard.dim), parts=shard.parts, index=shard.index)
+    if moved(shard.mdim) is not None:
+        out.update(mdim=moved(shard.mdim), mparts=shard.mparts, mindex=shard.mindex)
+    return Shard(tuple(shape), **out), new_lead
 
 
 def shard_train_state(state, rules: ShardingRules, *, group=None, place=None,
                       mesh: Mesh | None = None):
-    """`shard_model` of the state's model, and its AdamW moments cut to the
-    same blocks (each leaf stacked over the groups as the JAX tree holds
-    it).  In place; returns the state.  Adafactor's factored statistics
-    span the sliced dimensions: its state raises ValueError."""
+    """`shard_model` of the state's model, and its optimizer state cut to
+    the matching blocks (`opt_leaf_shard`): AdamW's moments to their
+    parameters' (each leaf stacked over the groups as the JAX tree holds
+    it), Adafactor's `vr` and `vc` to the factored shapes'.  In place;
+    returns the state."""
     from repro_torch.models.transformer import param_leaves  # the models import this module
 
     sharding = shard_model(state.params, rules, group=group, place=place, mesh=mesh)
     if sharding is None:
         return state
-    check_optimizer("adamw" if "m" in state.opt else "adafactor")
     leaves = param_leaves(dict(state.params.named_parameters()))
-    for part in state.opt.values():
+    for name, part in state.opt.items():
         for key, t in part.items():
-            shard, lead = opt_leaf_shard(sharding, leaves[key])
-            # a whole moment is cut; one drawn on the blocks already is not
+            shard, lead = opt_leaf_shard(sharding, leaves[key], name)
+            # a whole leaf is cut; one drawn on the blocks already is not
             if shard.block != shard.shape and tuple(t.shape[lead:]) == shard.shape:
                 part[key] = shard.cut(t, lead).clone(memory_format=torch.contiguous_format)
     return state
-
-
-def check_optimizer(kind: str) -> None:
-    """A sharded state steps with AdamW only: Adafactor's factored
-    statistics span the sliced dimensions, so it raises ValueError."""
-    if kind != "adamw":
-        raise ValueError(f"{kind} on a sharded state is not ported: its factored statistics "
-                         f"span the sliced dimensions (ROADMAP §1, slice 27); use AdamW or "
-                         f"make_rules(fsdp=False)")
 
 
 def whole_named(sharding: Sharding | None, named: dict) -> dict:

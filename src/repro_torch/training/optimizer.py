@@ -4,7 +4,9 @@ package's `repro/training/optimizer.py` computes them.
 
 Parameters and gradients are dicts keyed by the model's parameter names
 (`dict(model.named_parameters())`): on a sharded state the rank's blocks,
-which AdamW updates element by element as it would the whole leaves.  The
+which AdamW updates element by element as it would the whole leaves, and
+Adafactor with its row and column means summed over the axis that cuts
+the leaf (`adafactor_update(sharding=...)`).  The
 optimizer state is keyed by the JAX parameter tree's leaves
 (`repro_torch.models.transformer.param_leaves`): each state tensor has the
 JAX leaf's shape (on a sharded state, its block), stacked over the groups,
@@ -27,6 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models.transformer import param_leaves
+from repro_torch.parallel import fsdp
 
 
 @dataclass(frozen=True)
@@ -117,13 +120,15 @@ def init_opt_state(params: dict, cfg: OptConfig) -> dict:
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict, step: torch.Tensor,
-                 cfg: OptConfig) -> tuple[dict, dict]:
+                 cfg: OptConfig, sharding=None) -> tuple[dict, dict]:
     """One AdamW step with the weight decay inside it:
     p - lr (m^ / (sqrt(v^) + eps) + wd p).  Updates `params` and `opt_state`
     in place and returns them.  Elementwise, so each group's parameter is
     updated against its slice of the stacked moments, and a large leaf in
     flat slices of ADAMW_SLICE elements (the same arithmetic per element;
-    the f32 temporaries are a slice's, not the leaf's)."""
+    the f32 temporaries are a slice's, not the leaf's).  A sharded state's
+    blocks need nothing more: `sharding` is taken, as `adafactor_update`
+    takes it, and not read."""
     lr = schedule(cfg, step)
     t = (step + 1).float()
     bc1 = 1.0 - torch.pow(cfg.b1, t)
@@ -164,35 +169,126 @@ def _adamw_slice(p, g, m, v, lr, bc1, bc2, cfg) -> None:
     v.copy_(v32.to(v.dtype))
 
 
+def _stack(named: dict, names: list[str]) -> torch.Tensor:
+    """The JAX leaf held by parameters `names`: a stacked leaf stacked."""
+    return torch.stack([named[n] for n in names]) if names[0].startswith("groups.") \
+        else named[names[0]]
+
+
+def _leaf_shape(params: dict, names: list[str], sharding=None) -> tuple:
+    """The whole JAX leaf's shape (a stacked leaf's groups in front) of the
+    rank's blocks `params`."""
+    if sharding is None:
+        return _stacked_shape(params, names)
+    shape = sharding.layout[names[0]].shape
+    return (len(names), *shape) if names[0].startswith("groups.") else shape
+
+
+def _cut_axis(sharding, names: list[str], dim: int) -> str | None:
+    """The mesh axis that cuts dimension `dim` of the (stacked) leaf held by
+    parameters `names`, or None where it is whole."""
+    if sharding is None:
+        return None
+    shard, lead = sharding.layout[names[0]], int(names[0].startswith("groups."))
+    for axis, at in (("data", shard.dim), ("model", shard.mdim)):
+        if at is not None and at + lead == dim:
+            return axis
+    return None
+
+
+def _psum(sharding, sums: list[tuple[str, torch.Tensor]]) -> None:
+    """Each (axis, f32 tensor) of `sums` summed over its axis's ranks, in
+    place: one all-reduce of a flat buffer an axis that has one, "data"
+    then "model"."""
+    if not sums:
+        return
+    for axis, group, ranks in (("data", sharding.data_group, sharding.parts),
+                               ("model", sharding.model_group, sharding.model_parts)):
+        mine = [t for ax, t in sums if ax == axis]
+        if not mine:
+            continue
+        flat = torch.cat([t.reshape(-1) for t in mine])
+        fsdp.all_reduce(flat, group, ranks, axis=axis)
+        off = 0
+        for t in mine:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
 @torch.no_grad()
 def adafactor_update(params: dict, grads: dict, opt_state: dict, step: torch.Tensor,
-                     cfg: OptConfig) -> tuple[dict, dict]:
+                     cfg: OptConfig, sharding=None) -> tuple[dict, dict]:
     """One Adafactor step (no first moment), on each leaf stacked as the JAX
     tree holds it.  Updates `params` and `opt_state` in place and returns
-    them."""
+    them.
+
+    With a `sharding` (`repro_torch.parallel.fsdp.Sharding`) the leaves are
+    the rank's blocks and `vr`, `vc` the blocks of the factored shapes
+    (`fsdp.opt_leaf_shard`).  Of a leaf of 2 or more dimensions with whole
+    extents r (dimension -2) and c (-1), a mean over a dimension that an
+    axis cuts is the block's sum, summed over that axis's ranks, over the
+    whole extent: `vr`'s new term where c is cut and `vc`'s where r is (the
+    first round), then the normalizer `vr.mean(-1)` where r is (the second:
+    it reads the new `vr`).  Each round is one all-reduce of a flat f32
+    buffer an axis that needs one, "data" then "model" (`_psum`).  A mean
+    over a whole dimension, a cut leading dimension and every other
+    operation are the one-device code's, so a block of `vr` or `vc` whole
+    along an axis is bit-alike across that axis's ranks."""
     lr = schedule(cfg, step)
     d = 1e-30
-    for key, names in param_leaves(params).items():
-        stacked = names[0].startswith("groups.")
-        p = torch.stack([params[n] for n in names]) if stacked else params[names[0]]
-        g = torch.stack([grads[n] for n in names]) if stacked else grads[names[0]]
-        vr, vc = opt_state["vr"][key], opt_state["vc"][key]
-        g32 = g.float()
+    leaves = param_leaves(params)
+
+    # round 1: g^2 + d's row and column means (sums where an axis cuts)
+    means, sums = {}, []
+    for key, names in leaves.items():
+        g32 = _stack(grads, names).float()
+        if g32.ndim < 2:
+            continue
         g2 = g32 * g32 + d
-        if p.ndim >= 2:
-            vr32 = cfg.b2 * vr.float() + (1 - cfg.b2) * g2.mean(-1)
-            vc32 = cfg.b2 * vc.float() + (1 - cfg.b2) * g2.mean(-2)
-            denom = torch.sqrt(vr32[..., :, None] * vc32[..., None, :] / torch.clamp(
-                vr32.mean(-1)[..., None, None], min=d))
-        else:
-            vr32 = cfg.b2 * vr.float() + (1 - cfg.b2) * g2
-            vc32 = vc.float()
+        means[key] = []
+        for dim in (g32.ndim - 1, g32.ndim - 2):
+            axis = _cut_axis(sharding, names, dim)
+            t = g2.mean(dim) if axis is None else g2.sum(dim)
+            if axis is not None:
+                sums.append((axis, t))
+            means[key].append((t, axis))
+        del g32, g2
+    _psum(sharding, sums)
+
+    # round 2: the new statistics; the normalizer (its sums where r is cut)
+    stats, sums = {}, []
+    for key, names in leaves.items():
+        vr, vc = opt_state["vr"][key], opt_state["vc"][key]
+        if key not in means:
+            g32 = _stack(grads, names).float()
+            stats[key] = (cfg.b2 * vr.float() + (1 - cfg.b2) * (g32 * g32 + d), vc.float(), None)
+            continue
+        (row, c_axis), (col, r_axis) = means.pop(key)
+        r, c = _leaf_shape(params, names, sharding)[-2:]
+        vr32 = cfg.b2 * vr.float() + (1 - cfg.b2) * (row if c_axis is None else row / c)
+        vc32 = cfg.b2 * vc.float() + (1 - cfg.b2) * (col if r_axis is None else col / r)
+        norm = vr32.mean(-1) if r_axis is None else vr32.sum(-1)
+        if r_axis is not None:
+            sums.append((r_axis, norm))
+        stats[key] = (vr32, vc32, (norm, r_axis is None, r))
+    _psum(sharding, sums)
+
+    for key, names in leaves.items():
+        vr32, vc32, normalizer = stats.pop(key)
+        p = _stack(params, names)
+        g32 = _stack(grads, names).float()
+        if normalizer is None:
             denom = torch.sqrt(vr32)
+        else:
+            norm, is_mean, r = normalizer
+            mean = norm if is_mean else norm / r
+            denom = torch.sqrt(vr32[..., :, None] * vc32[..., None, :] / torch.clamp(
+                mean[..., None, None], min=d))
         p32 = p.float()
         p32 = p32 - lr * (g32 / torch.clamp(denom, min=cfg.eps) + cfg.weight_decay * p32)
         new = p32.to(p.dtype)
         for g_idx, name in enumerate(names):
-            params[name].copy_(new[g_idx] if stacked else new)
-        vr.copy_(vr32.to(vr.dtype))
-        vc.copy_(vc32.to(vc.dtype))
+            params[name].copy_(new[g_idx] if names[0].startswith("groups.") else new)
+        opt_state["vr"][key].copy_(vr32.to(opt_state["vr"][key].dtype))
+        opt_state["vc"][key].copy_(vc32.to(opt_state["vc"][key].dtype))
     return params, opt_state

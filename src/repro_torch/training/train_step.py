@@ -32,7 +32,8 @@ step: `check_dispatch_split`, once a call of `accumulate_grads`).
 
 The state stays whole on every rank unless it is sharded:
 `init_train_state(rules=..., group=..., mesh=...)` gives each rank its
-blocks of every parameter and of both AdamW moments by the JAX rules on a
+blocks of every parameter and of the optimizer state (AdamW's moments;
+Adafactor's `vr` and `vc` on the factored shapes) by the JAX rules on a
 ("data", "model") mesh, (R, 1) by default: fsdp -> "data"
 (`repro_torch.parallel.fsdp`) and tp, kv, ep -> "model"
 (`repro_torch.parallel.tensor`; ep: the MoE experts, E / M a rank).  The step on a sharded state is the same
@@ -58,7 +59,10 @@ function of the same rows:
   once; compression takes each leaf's max |g| as a MAX over its blocks
   (one all-reduce of every leaf's max an axis), so a stacked leaf's groups
   still share one scale;
-- AdamW runs per element on the blocks, its arithmetic unchanged.
+- AdamW runs per element on the blocks, its arithmetic unchanged;
+  Adafactor sums its row and column means over the axis that cuts the
+  leaf (`optimizer.adafactor_update(sharding=...)`: at most two rounds of
+  one all-reduce an axis).
 `make_rules(fsdp=False)` on a (R, 1) mesh splits no leaf and leaves the
 state whole.
 """
@@ -100,11 +104,11 @@ def init_train_state(model, gen: torch.Generator, opt_cfg: OptConfig, *, rules=N
     group's ranks, (R, 1) by default; or `place` = (mesh, rank) on the meta
     device) the state is sharded by the rules (`fsdp.shard_model`): the rank
     draws the one-card values, a module whole at a time, and keeps its
-    blocks; the moments are zeroed on the blocks.  Adafactor on a state that
-    the rules split raises ValueError (`fsdp.check_optimizer`)."""
+    blocks; the optimizer state is zeroed on the blocks (AdamW's moments on
+    the parameters' blocks, Adafactor's `vr` and `vc` on the factored
+    shapes' blocks, `fsdp.opt_leaf_shard`)."""
     if rules is not None:
-        if fsdp.shard_model(model, rules, group=group, place=place, mesh=mesh) is not None:
-            fsdp.check_optimizer(opt_cfg.kind)
+        fsdp.shard_model(model, rules, group=group, place=place, mesh=mesh)
     model.init_params(gen)
     model.train().requires_grad_(True)
     return TrainState(params=model, opt=init_opt_state(dict(model.named_parameters()), opt_cfg),
@@ -307,14 +311,13 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum: int = 1,
     def train_step(state: TrainState, batch: dict):
         model = state.params
         sharding = _sharding(model, group, place)
-        if sharding is not None:
-            fsdp.check_optimizer(opt_cfg.kind)
         loss, grads = accumulate_grads(model, batch, accum=accum, remat=remat, group=group,
                                        place=place)
         if compress_bits:
             grads = _compress(grads, compress_bits, sharding)
         grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip, sharding)
-        update(dict(model.named_parameters()), grads, state.opt, state.step, opt_cfg)
+        update(dict(model.named_parameters()), grads, state.opt, state.step, opt_cfg,
+               sharding=sharding)
         return (TrainState(params=model, opt=state.opt, step=state.step + 1),
                 {"loss": loss, "grad_norm": gnorm})
 

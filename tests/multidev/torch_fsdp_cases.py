@@ -133,7 +133,7 @@ def whole_state(state) -> dict:
     for part, leaves in state.opt.items():
         for key, t in leaves.items():
             if sharding is not None:
-                t = sharding.whole(t, *fsdp.opt_leaf_shard(sharding, names[key]))
+                t = sharding.whole(t, *fsdp.opt_leaf_shard(sharding, names[key], part))
             out[f"{part}/{key}"] = t.float().numpy().copy()
     return out
 

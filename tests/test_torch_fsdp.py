@@ -62,12 +62,13 @@ from repro.parallel import sharding as J
 from repro.training.optimizer import OptConfig as JOptConfig
 from repro.training.optimizer import adamw_update as j_adamw_update
 from repro.training.optimizer import clip_by_global_norm as j_clip_by_global_norm
+from repro.training.optimizer import init_opt_state as j_init_opt_state
 from repro.training.train_step import _quantize_dequantize as j_qd
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, reduced
 from repro_torch.interop import train_state_from_numpy
 from repro_torch.models import build_model
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, param_leaves
 from repro_torch.parallel import fsdp
 from repro_torch.parallel.sharding import Mesh, leaf_shard, make_rules
 from repro_torch.training import OptConfig, init_train_state
@@ -509,17 +510,48 @@ def test_fsdp_false_and_one_data_rank_leave_the_state_whole():
     assert model.groups[0].pos0.mlp.w_in.shape == (cfg.d_model, 2, cfg.d_ff // 4)
 
 
-def test_adafactor_on_a_sharded_state_raises():
-    cfg = reduced(get_config("qwen3-8b"))
-    mesh = Mesh((2, 1), ("data", "model"))
-    with pytest.raises(ValueError, match=r"adafactor on a sharded state .* slice 27"):
-        init_train_state(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0),
-                         OptConfig(kind="adafactor"), rules=make_rules(mesh), place=(mesh, 0))
-    P = np_params(jreduced(jget("qwen3-8b")), 1)
-    opt = {part: jax.tree.map(np.zeros_like, P) for part in ("vr", "vc")}
-    state = train_state_from_numpy(cfg, P, opt, 0, device="cpu")
-    with pytest.raises(ValueError, match="slice 27"):
-        fsdp.shard_train_state(state, make_rules(mesh), place=(mesh, 0))
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (1, 2)])
+def test_adafactor_state_is_laid_out_on_the_factored_blocks(mesh_shape):
+    """Adafactor on a state the rules split: `init_train_state(rules=...)`
+    zeroes each rank's vr and vc on the blocks of the factored shapes, and
+    `shard_train_state` cuts a whole JAX Adafactor state to the same blocks
+    (`fsdp.opt_leaf_shard`: the parameter's Shard with the dropped
+    dimension removed).  Reduced falcon-mamba-7b, 2 groups: a per-group
+    vector such as D is a [G, d_inner] leaf, whose vr [G] is whole and whose
+    vc [d_inner] is cut along "model", as is its parameter."""
+    cfg, jcfg = reduced(get_config("falcon-mamba-7b")), jreduced(jget("falcon-mamba-7b"))
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    rules = make_rules(mesh, model_cfg=cfg)
+    P = np_params(jcfg, 1)
+    rng = np.random.default_rng(2)
+    opt = {part: jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32),
+                              tree)
+           for part, tree in j_init_opt_state(to_jax(P), JOptConfig(kind="adafactor")).items()}
+    flat_opt = {part: cases._flat(tree) for part, tree in opt.items()}
+    G, di = cfg.n_groups, cfg.mamba.expand * cfg.d_model
+    M = mesh_shape[1]
+    for rank in range(2):
+        st = init_train_state(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0),
+                              OptConfig(kind="adafactor"), rules=rules, place=(mesh, rank))
+        cut = train_state_from_numpy(cfg, P, opt, 0, device="cpu")
+        fsdp.shard_train_state(cut, rules, place=(mesh, rank))
+        sharding = cut.params.fsdp
+        assert sharding is not None and st.params.fsdp is not None
+        names = param_leaves(dict(cut.params.named_parameters()))
+        cut_leaves = 0
+        for part in ("vr", "vc"):
+            assert sorted(st.opt[part]) == sorted(cut.opt[part]) == sorted(names)
+            for key, t in cut.opt[part].items():
+                shard, lead = fsdp.opt_leaf_shard(sharding, names[key], part)
+                whole = torch.from_numpy(flat_opt[part][key])
+                assert torch.equal(t, shard.cut(whole, lead)) and t.is_contiguous(), key
+                assert st.opt[part][key].shape == t.shape and not st.opt[part][key].any(), key
+                cut_leaves += tuple(t.shape) != tuple(whole.shape)
+        assert cut_leaves
+        D = "blocks/pos0/mamba/D"
+        assert cut.opt["vr"][D].shape == (G,)
+        assert cut.opt["vc"][D].shape == (di // M,)
+        assert cut.opt["vc"]["embed"].shape == (cfg.d_model // mesh_shape[0],)
 
 
 def test_the_meta_gather_returns_shapes_and_counts_the_ring_bytes():
