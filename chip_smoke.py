@@ -375,6 +375,43 @@ LM_EP = ("qwen3-moe-235b-a22b", 1, 1, 3, "qwen3_moe")  # arch, layers, batch, st
 # bytes a step, by axis and kind, the AdamW TP mamba step's plus the
 # statistics' all-reduces as the meta update counts them.
 LM_ADAFACTOR = ("falcon-mamba-7b", 2, 1, 2, "falcon_mamba")  # arch, layers, batch, steps, suffix
+# MoE dispatch groups that span data ranks (slice 28): qwen3-moe-235b-a22b's
+# first layer (one (attn, moe) group) at its published widths (128 experts),
+# f32, with n_dispatch_groups = 1, so that a batch's one group spans both
+# ranks of the (2, 1) mesh, as each of the 16 groups of the multi-pod cells
+# spans 2 of their 32 data ranks.  Each rank routes its row's tokens,
+# all-gathers the choices (int64 [2048, 8] a layer and pass; a decode step's
+# [1, 8]) and dispatches the whole group, the state sharded by the JAX rules
+# (fsdp -> "data").  The training and the serving run on two pairs of gloo
+# ranks on cuda:0, each of its own (gloo stages every gather through the
+# host, whose pinned blocks a process keeps).  Two f32 ranks of the whole
+# layer share the card because the sharded step gathers and reduce-scatters
+# one leaf at a time (`fsdp.Sharding.gather`; a GB-sized gradient in pieces,
+# `fsdp._scatter_pieces`), Adafactor's update works in place, and F8's
+# whole-leaf update runs in pieces (`_UpdateCheck._adafactor`) while the other
+# rank has freed its cache; F8's references stay pageable (`_host_empty`).
+# - training: global B = 2, S = LM_DP_S, LM_SPAN[3] steps, Adafactor (cap
+#   320 for the step's 4096 tokens, 160 for a rank's 2048 alone), held to
+#   rank 0's own one-device Adafactor run: losses and norms within
+#   LM_DP_STEP_RTOL, F8 in its Adafactor form, the leaves whole along both
+#   axes bit-alike; each rank's state bytes equal to the meta count
+#   (`_meta_adafactor`) and its wire a step, by axis and kind, to the dry
+#   run's step plus the meta update's statistics all-reduces, the choices'
+#   site to the dry run's; flash_attention twice a step (forward and
+#   recompute);
+# - serving: B = 2, LM_DP_S-token prompts, LM_SPAN_NEW greedy tokens (each
+#   call gathers the layer along "data" through gloo), held as
+#   LM_SERVE_SHARDED's configurations (`_serve_run`, teacher-forced on rank
+#   0's one-device picks) to rank 0's one-device run and to the dry run's
+#   count, the choices' site included (cap 320 for a prefill's 4096 tokens,
+#   1 for a decode step's 2); flash_attention once a prefill.
+# Both print the choices' all-gather bytes and seconds, the choices the group
+# dropped (`span_drops`) and how many keep/drop decisions a dispatch of a
+# rank's tokens alone would change (`local_would_differ`, which must be
+# above 0 over each phase), counted on every dispatch (`SpanDrops`).
+LM_SPAN = ("qwen3-moe-235b-a22b", 1, 2, 2, "qwen3_moe")  # arch, layers, batch, steps, suffix
+LM_SPAN_MESH = (2, 1)
+LM_SPAN_NEW = 8
 # lm_train_fsdp's and lm_train_tp's configurations run on one pair of ranks
 # (`lm_train_sharded`), which start and warm up once; lm_train_ep's on a pair
 # of its own, since a process keeps the pinned host blocks it frees and the
@@ -1777,14 +1814,15 @@ CHOL_BATCHED_KERNELS = ("chol_panel_batched", "trsm_right_upper_batched", "schur
 # eight ranks share it through gloo to exercise every collective, at sizes
 # that keep the run short (correctness runs, not speed).  The first conflux
 # case took 9.4 s at N = 8192 and runs at 4096, to keep the script near its
-# earlier run time; baseline2d at N = 2048 is the longest case (22 s), since
-# partial pivoting makes one collective per column.
+# earlier run time; baseline2d, whose partial pivoting makes one collective
+# per column, took 24 s at N = 2048 and runs at 1024, which gave slice 28's
+# span phases their time.
 CONFLUX_V = 32
 GRID_WORLD = 8
 GRID_CASES = (  # (name, strategy, N, hotloop, backend, compute dtype)
     ("conflux_windowed", "conflux", 4096, "windowed", "cuda", None),
     ("conflux_flat", "conflux", 2048, "flat", "cuda", None),
-    ("baseline2d", "baseline2d", 2048, "windowed", "cuda", None),
+    ("baseline2d", "baseline2d", 1024, "windowed", "cuda", None),
     ("cholesky25d_windowed", "cholesky25d", 2048, "windowed", "cuda", None),
     ("cholesky25d_flat", "cholesky25d", 2048, "flat", "cuda", None),
     ("conflux_windowed_1024", "conflux", 1024, "windowed", "cuda", None),
@@ -1801,11 +1839,12 @@ GRID_CASES = (  # (name, strategy, N, hotloop, backend, compute dtype)
     ("cholesky25d_flat_bf16_plain", "cholesky25d", 2048, "flat", "ref", "bfloat16"),
 )
 GRID_TIMEOUT_S = 420  # all ranks together, from spawn to exit
-# Engines on the 8-rank group (module item 8) at N = 2048: the default
-# config (resolved as `plan()` resolves it here: the calibrated `auto`), and
-# conflux 2x2x2, cholesky25d 2x2x2 and baseline2d on explicit grids;
-# (name, strategy or None for SolverConfig()).
-GRID_ENGINE_N = 2048
+# Engines on the 8-rank group (module item 8) at N = 1024 (2048 until slice
+# 28's span phases needed the time: baseline2d's engine took 22.5 s there):
+# the default config (resolved as `plan()` resolves it here: the calibrated
+# `auto`), and conflux 2x2x2, cholesky25d 2x2x2 and baseline2d on explicit
+# grids; (name, strategy or None for SolverConfig()).
+GRID_ENGINE_N = 1024
 GRID_ENGINE_CASES = (("engine_default", None), ("engine_conflux", "conflux"),
                      ("engine_cholesky25d", "cholesky25d"), ("engine_baseline2d", "baseline2d"))
 GRID_ENGINE_RHS, GRID_ASYNC_RHS = 4, 8
@@ -3570,16 +3609,31 @@ def _fingerprint(t: torch.Tensor) -> list[int]:
                         for c in words.split(_FP_WORDS)]).tolist()
 
 
-def _pinned_empty(shape, dtype) -> torch.Tensor:
-    """An uninitialized tensor in page-locked host memory."""
-    return torch.empty(shape, dtype=dtype, pin_memory=True)
+def _host_empty(shape, dtype, pinned: bool = True) -> torch.Tensor:
+    """An uninitialized host tensor, page-locked or (`pinned` false)
+    pageable: a process keeps the page-locked blocks it frees, each rounded
+    up to a power of two, and beside gloo's page-locked staging of a
+    full-width layer's gathers (LM_SPAN's) F8's references then pass the
+    host's 96 GiB; pageable blocks cost a first touch on each copy."""
+    return torch.empty(shape, dtype=dtype, pin_memory=pinned)
 
 
-def _pinned(t: torch.Tensor) -> torch.Tensor:
-    """A copy of card tensor `t` in page-locked host memory."""
-    out = _pinned_empty(t.shape, t.dtype)
+def _host(t: torch.Tensor, pinned: bool = True) -> torch.Tensor:
+    """A copy of card tensor `t` in host memory (`_host_empty`)."""
+    out = _host_empty(t.shape, t.dtype, pinned)
     out.copy_(t)
     return out
+
+
+def _host_gib() -> dict:
+    """This process's peak resident GiB and the host's available GiB now
+    (/proc/meminfo), the readings of the host's memory a phase reports."""
+    import resource
+
+    avail = next(int(line.split()[1]) for line in Path("/proc/meminfo").read_text().splitlines()
+                 if line.startswith("MemAvailable:"))
+    return {"peak_rss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+            "available": avail / 2**20}
 
 
 def _worst(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -3635,7 +3689,8 @@ class _UpdateSpy:
             return make_train_step(model, opt_cfg, **kw)
 
 
-def _one_device_reference(cfg, dev, opt_cfg, batches, mesh, keep_p2: bool) -> dict:
+def _one_device_reference(cfg, dev, opt_cfg, batches, mesh, keep_p2: bool,
+                          pinned: bool = True) -> dict:
     """Rank 0's one-device run of `batches` (global batches) from the draw
     the ranks make: each step's loss and gradient norm ("losses",
     "grad_norms") and F8's references, each cut into the blocks of the
@@ -3643,9 +3698,11 @@ def _one_device_reference(cfg, dev, opt_cfg, batches, mesh, keep_p2: bool) -> di
     the fingerprints of the parameters after step 1 ("p1", on the card),
     the optimizer state after step 1 ("<part>1": AdamW's "m1", "v1",
     Adafactor's "vr1", "vc1", cut by `_f8_opt_blocks`) and the gradient the
-    update receives at step 2 ("g2"), on the host; with `keep_p2`, the
-    parameters after step 2 on the card ("p2", for the reported distance).
-    Frees the card of the run."""
+    update receives at step 2 ("g2"), on the host (page-locked unless
+    `pinned` is false, `_host_empty`; "pinned" says which, and F8's
+    expected updates follow it); with `keep_p2`, the parameters after step
+    2 on the card ("p2", for the reported distance).  Frees the card of the
+    run."""
     import gc
 
     from repro_torch.models import build_model
@@ -3662,7 +3719,8 @@ def _one_device_reference(cfg, dev, opt_cfg, batches, mesh, keep_p2: bool) -> di
 
     def keep_grads(params, grads, *_):
         t0 = time.perf_counter()
-        ref["g2"] = {(n, r): _pinned(sh.cut(grads[n])) for n in grads for r, sh in blocks[n]}
+        ref["g2"] = {(n, r): _host(sh.cut(grads[n]), pinned) for n in grads
+                     for r, sh in blocks[n]}
         ref["reference_s"] += time.perf_counter() - t0
 
     for s, b in enumerate(batches):
@@ -3677,13 +3735,14 @@ def _one_device_reference(cfg, dev, opt_cfg, batches, mesh, keep_p2: bool) -> di
             ref["p1"] = {(n, r): _fingerprint(sh.cut(p)) for n, p in named.items()
                          for r, sh in blocks[n]}
             for part in parts:
-                ref[f"{part}1"] = {(key, r): _pinned(sh.cut(state.opt[part][key], lead))
+                ref[f"{part}1"] = {(key, r): _host(sh.cut(state.opt[part][key], lead), pinned)
                                    for (pt, key), bl in opt_blocks.items() if pt == part
                                    for r, sh, lead in bl}
             ref["reference_s"] += time.perf_counter() - t0
         if s == 1 and keep_p2:
             ref["p2"] = {n: p.detach().clone() for n, p in model.named_parameters()}
     ref["host_parts"] = [f"{part}1" for part in parts] + ["g2"]
+    ref["pinned"] = pinned
     ref["host_bytes"] = sum(t.numel() * t.element_size() for part in ref["host_parts"]
                             for t in ref[part].values())
     del state, model, step_fn, metrics
@@ -3823,10 +3882,13 @@ class _UpdateCheck:
                 if worst is None or not ratio <= worst["ratio_to_bound"]:
                     worst = {"leaf": key, "abs_err": err, "leaf_max": scale,
                              "ratio_to_bound": ratio, "rel_err": err / scale if scale else err}
-            self.out["step1_layout_params_exact"] = exact
             self.out["step2_grad_worst"] = worst
+            self.out["step1_layout_params_exact"] = exact
             self.peak_host = max(self.peak_host, self._host_bytes())
         del gs
+        # the card's free memory is rank 0's while it checks (the others
+        # free their caches first), and every rank's again after it
+        torch.cuda.empty_cache()
         self._barrier()
         self.seconds += time.perf_counter() - t0
 
@@ -3835,7 +3897,7 @@ class _UpdateCheck:
         p with moments m, v and gradient g, on the card in flat chunks of
         F8_CHUNK (elementwise: one call's arithmetic); the updated p on the
         host."""
-        out = _pinned_empty(p.shape, p.dtype)
+        out = _host_empty(p.shape, p.dtype, self.ref.get("pinned", True))
         flat = [x.reshape(-1) for x in (p, m, v, g)]
         for i in range(0, flat[0].numel(), F8_CHUNK):
             pc, mc, vc = (x[i:i + F8_CHUNK].clone() for x in flat[:3])
@@ -3874,10 +3936,25 @@ class _UpdateCheck:
                                        {r: fsdp.opt_leaf_shard(sh, names, part)
                                         for r, sh in ranks.items()})}
                for part in ("vr", "vc")}
-        self.real(p, g, opt, step, self.opt_cfg)
+        # Adafactor factors a leaf's last two dimensions, so a leaf of 3 or
+        # more takes the same arithmetic in pieces along its first (of
+        # about F8_CHUNK elements): the temporaries of the largest leaf (the
+        # experts' w_in) stay a piece's.  vr and vc of a stacked leaf lead
+        # with the stack.
+        first = p[names[0]]
+        if first.ndim < 3:
+            self.real(p, g, opt, step, self.opt_cfg)
+        else:
+            rows = max(1, F8_CHUNK * first.shape[0] // first.numel())
+            lead = (slice(None),) if names[0].startswith("groups.") else ()
+            for i in range(0, first.shape[0], rows):
+                cut = slice(i, i + rows)
+                self.real({n: p[n][cut] for n in names}, {n: g[n][cut] for n in names},
+                          {part: {key: v[key][(*lead, cut)]} for part, v in opt.items()},
+                          step, self.opt_cfg)
         for n in names:
             for r, sh in self.blocks[n]:
-                self.expected[(n, r)] = _pinned(sh.cut(p[n]))
+                self.expected[(n, r)] = _host(sh.cut(p[n]), self.ref.get("pinned", True))
 
     def params(self) -> None:
         """After step 2: each rank's parameter blocks against `expected`
@@ -3964,24 +4041,26 @@ def _sharded_run(rank: int, group, queue, dev, cfg, opt_cfg, batches, mesh, ref,
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     out.update(losses=[], grad_norms=[], step_s=[], wire=[], seconds=[], calls=[],
-               replicated_alike=[], update_s=[], update_collective_s=[])
+               replicated_alike=[], update_s=[], update_collective_s=[], sites=[], drops=[])
     fsdp.WIRE.sync = True
     try:
         for s, b in enumerate(batches):
             fsdp.WIRE.reset()
             spy.hook = check.hook if s == 1 else None
             spent = check.seconds
-            if profile and rank == 0 and s == len(batches) - 1:  # the idle share
-                got = []
-                out["profile"] = profile_once(lambda: got.append(step_fn(state, b)), tries=1)
-                (state, metrics), = got
-                wall = out["profile"]["wall_ms"] / 1e3
-            else:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, metrics = step_fn(state, b)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
+            with SpanDrops(cfg) as drops:
+                if profile and rank == 0 and s == len(batches) - 1:  # the idle share
+                    got = []
+                    out["profile"] = profile_once(lambda: got.append(step_fn(state, b)),
+                                                  tries=1)
+                    (state, metrics), = got
+                    wall = out["profile"]["wall_ms"] / 1e3
+                else:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, metrics = step_fn(state, b)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
             spy.hook = None
             out["step_s"].append(wall - (check.seconds - spent))
             out["losses"].append(metrics["loss"].item())
@@ -3989,6 +4068,8 @@ def _sharded_run(rank: int, group, queue, dev, cfg, opt_cfg, batches, mesh, ref,
             out["wire"].append(fsdp.WIRE.by_axis())
             out["seconds"].append(fsdp.WIRE.by_axis("seconds"))
             out["calls"].append(fsdp.WIRE.by_axis("calls"))
+            out["sites"].append(fsdp.WIRE.by_site())
+            out["drops"].append(drops.readings())
             out["update_s"].append(spy.update_s)
             out["update_collective_s"].append(spy.collective_s)
             out["largest_gather"] = fsdp.WIRE.largest_gather
@@ -3997,6 +4078,10 @@ def _sharded_run(rank: int, group, queue, dev, cfg, opt_cfg, batches, mesh, ref,
                 check.moments()
             if s == 1:
                 check.params()
+            out.setdefault("host_gib", []).append(_host_gib())
+            print(json.dumps({"rank": rank, "step": s, "host_gib": out["host_gib"][-1],
+                              "card_peak_gib": torch.cuda.max_memory_allocated() / 2**30}),
+                  file=sys.stderr, flush=True)
     finally:
         fsdp.WIRE.sync = False
         spy.hook = None
@@ -4009,6 +4094,69 @@ def _sharded_run(rank: int, group, queue, dev, cfg, opt_cfg, batches, mesh, ref,
     torch.cuda.empty_cache()
     clock["end"] = time.time()
     return out
+
+
+class SpanDrops:
+    """While entered, counts what this process's MoE span dispatches do,
+    from outside the layer: a stand-in for `moe._span_choices` (the
+    all-gather of a span's routing choices) passes the gathered choices on
+    and recomputes from them, with `moe._keeps`, the group's keep of the
+    rank's own choices (at its place in the span: its rank in the span's
+    group, which orders the ranks by batch shard) and a dispatch's keep of
+    the rank's T / s tokens alone, as a group of their own with that
+    group's capacity.  `readings()`: `choices`, the rank's own choices;
+    `dropped`, those its group drops; `local_would_differ`, those the two
+    keeps decide differently; `dispatches`, the layer calls (the remat
+    recompute's too)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.choices = self.dropped = self.local_would_differ = self.dispatches = 0
+
+    def __enter__(self):
+        from unittest import mock
+
+        import torch.distributed as dist
+        from repro_torch.models.layers import moe
+
+        real = moe._span_choices
+
+        def spy(top_e, span, group):
+            whole = real(top_e, span, group)
+            Tl, T = top_e.shape[1], whole.shape[1]
+            at = dist.get_rank(group) * Tl
+            with torch.no_grad():
+                keep = moe._keeps(self.cfg, whole, T, moe._capacity(self.cfg, T))[:, at:at + Tl]
+                alone = moe._keeps(self.cfg, top_e, Tl, moe._capacity(self.cfg, Tl))
+            self.choices += keep.numel()
+            self.dropped += int((~keep).sum())
+            self.local_would_differ += int((alone != keep).sum())
+            self.dispatches += 1
+            return whole
+
+        self._patch = mock.patch.object(moe, "_span_choices", spy)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._patch.stop()
+
+    def readings(self) -> dict:
+        return {"choices": self.choices, "dropped": self.dropped,
+                "local_would_differ": self.local_would_differ, "dispatches": self.dispatches}
+
+
+def _phase_cfg(arch: str, layers: int, span: bool = False):
+    """`arch`'s config cut to its first `layers` layers; with `span`, one MoE
+    dispatch group (LM_SPAN's setting)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    if span:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_dispatch_groups=1))
+    return cfg
 
 
 def _recording_engine(model, max_len: int, batch: int, new: int, forced=None):
@@ -4036,7 +4184,7 @@ def _recording_engine(model, max_len: int, batch: int, new: int, forced=None):
 
 
 def _serve_run(rank: int, group, dev, arch: str, layers: int, shape: tuple, batch: int,
-               new: int) -> dict:
+               new: int, span: bool = False) -> dict:
     """One LM_SERVE_SHARDED configuration on this rank: rank 0 serves the
     drawn parameters on one device first (greedy) and hands its picks to
     every rank; then each rank draws the same parameters, keeps its blocks
@@ -4044,18 +4192,18 @@ def _serve_run(rank: int, group, dev, arch: str, layers: int, shape: tuple, batc
     on those picks (`_recording_engine`), the collectives timed
     (`fsdp.WIRE.sync`), rank 0's run under the profiler (the idle share).
     Returns what the rank saw; rank 0's also holds each step's logits
-    error against its one-device run."""
-    import dataclasses
+    error against its one-device run.  With `span`, the config's MoE layers
+    make one dispatch group (`_phase_cfg`) and the rank's `SpanDrops`
+    readings of the sharded run are kept."""
     import gc
     import hashlib
 
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.parallel import Mesh, fsdp, make_rules
 
     clock = {"run_start": time.time()}
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    cfg = _phase_cfg(arch, layers, span)
     prompts = torch.randint(0, cfg.vocab, (batch, LM_DP_S),
                             generator=torch.Generator().manual_seed(7)).tolist()
     max_len = LM_DP_S + new
@@ -4099,12 +4247,15 @@ def _serve_run(rank: int, group, dev, arch: str, layers: int, shape: tuple, batc
     fsdp.WIRE.sync = True
     out = {"clock": clock}
     try:
-        if rank == 0:
-            out["profile"] = profile_once(lambda: engine.generate(prompts), tries=1)
-        else:
-            engine.generate(prompts)
+        with SpanDrops(cfg) as drops:
+            if rank == 0:
+                out["profile"] = profile_once(lambda: engine.generate(prompts), tries=1)
+            else:
+                engine.generate(prompts)
     finally:
         fsdp.WIRE.sync = False
+    out["drops"] = drops.readings()
+    out["host_gib"] = _host_gib()
     clock["served"] = time.time()
     stats = engine.stats
     out.update(
@@ -4114,7 +4265,7 @@ def _serve_run(rank: int, group, dev, arch: str, layers: int, shape: tuple, batc
         ms_per_decode_step=1e3 * stats["decode_s"] / max(stats["decode_steps"], 1),
         collective_s=stats["collective_s"], wire_prefill=stats["wire_prefill"],
         wire_decode_steps=stats["wire_decode_steps"], wire_logits=stats["wire_logits"],
-        picks=engine.picks,
+        wire_sites=stats["wire_sites"], picks=engine.picks,
         digests=[hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest() for t in engine.logits],
         launches_prefill={k: c for k, c in engine.launches[0].items() if c},
         launches_decode={k: engine.launches[-1][k] - c for k, c in engine.launches[0].items()
@@ -4145,7 +4296,8 @@ def _sharded_configs() -> dict:
     sharded phases: lm_train_fsdp's (lm_train_dp's configuration on (2, 1)),
     LM_TP's (the one-device reference takes the first two steps where the
     one-rank run's losses come from lm_train_dp, else every step),
-    lm_train_ep's and lm_train_adafactor's."""
+    lm_train_ep's, lm_train_adafactor's and lm_span's training
+    (`_phase_cfg(span=True)`: one MoE dispatch group)."""
     out = {"fsdp": (*LM_DP, LM_DP_STEPS, (LM_DP_RANKS, 1), 2, True, True, "adamw")}
     out.update({f"tp_{short}": (arch, layers, batch, steps, LM_TP_MESH,
                                 2 if from_dp else steps, True, short == LM_TP[0][4], "adamw")
@@ -4155,6 +4307,9 @@ def _sharded_configs() -> dict:
     arch, layers, batch, steps, short = LM_ADAFACTOR
     out[f"adafactor_tp_{short}"] = (arch, layers, batch, steps, LM_TP_MESH, steps, True, False,
                                     "adafactor")
+    arch, layers, batch, steps, short = LM_SPAN
+    out[f"span_{short}"] = (arch, layers, batch, steps, LM_SPAN_MESH, steps, False, False,
+                            "adafactor")
     return out
 
 
@@ -4164,19 +4319,19 @@ def _sharded_rank(rank: int, out_dir: str, device: str = "cuda:0", queue=None,
     `_sharded_configs()` named by `keys`, in turn, on its mesh
     (`_sharded_run`), rank 0's one-device reference first
     (`_one_device_reference`), and each LM_SERVE_SHARDED configuration named
-    "serve_<suffix>" (`_serve_run`).  Writes what it saw to
-    out_dir/rank<r>.json, by configuration."""
-    import dataclasses
-
+    "serve_<suffix>" (`_serve_run`), and LM_SPAN's serving
+    ("serve_span_<suffix>").  Writes what it saw to out_dir/rank<r>.json, by
+    configuration."""
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.parallel import Mesh
     from repro_torch.training import OptConfig
 
     with _gloo_rank(rank, out_dir, device) as dev:
         out = {"rank": rank}
         configs = _sharded_configs()
-        serving = {f"serve_{c[0]}": c[1:] for c in LM_SERVE_SHARDED}
+        serving = {f"serve_{c[0]}": (*c[1:], False) for c in LM_SERVE_SHARDED}
+        arch, layers, batch, _, short = LM_SPAN
+        serving[f"serve_span_{short}"] = (arch, layers, LM_SPAN_MESH, batch, LM_SPAN_NEW, True)
         for key in keys:
             if key in serving:
                 started = time.time()
@@ -4185,13 +4340,17 @@ def _sharded_rank(rank: int, out_dir: str, device: str = "cuda:0", queue=None,
                 continue
             arch, layers, batch, steps, shape, ref_steps, keep_p2, profile, kind = configs[key]
             started = time.time()
-            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            cfg = _phase_cfg(arch, layers, key.startswith("span_"))
             opt_cfg = OptConfig(kind=kind, warmup_steps=2)
             batches = [_train_batch(cfg, batch, LM_DP_S, s) for s in range(steps)]
             mesh = Mesh(shape, ("data", "model"))
-            ref = (_one_device_reference(cfg, dev, opt_cfg, batches[:ref_steps], mesh, keep_p2)
+            # LM_SPAN's full-width references stay pageable (`_host_empty`)
+            ref = (_one_device_reference(cfg, dev, opt_cfg, batches[:ref_steps], mesh, keep_p2,
+                                         pinned=not key.startswith("span_"))
                    if rank == 0 else None)
             dist.barrier(group=dist.group.WORLD)
+            print(json.dumps({"rank": rank, "reference_done": key, "host_gib": _host_gib()}),
+                  file=sys.stderr, flush=True)
             run = _sharded_run(rank, dist.group.WORLD, queue, dev, cfg, opt_cfg, batches, mesh,
                                ref, profile)
             if ref is not None:
@@ -4261,7 +4420,17 @@ def lm_train_sharded(keys: tuple, device: str = "cuda:0") -> tuple[dict, float, 
     """The `_sharded_configs()` named by `keys` on one pair of gloo ranks on
     `device` (`_sharded_rank`), whose results lm_train_fsdp, lm_train_tp and
     lm_train_ep read: ({key: each rank's run}, seconds from spawn to exit,
-    the wall clock at the spawn)."""
+    the wall clock at the spawn).  This process hands the pair its cached
+    card memory first (LM_SPAN's ranks need nearly all of the card) and
+    prints what it still holds on stderr."""
+    import gc
+
+    if device.startswith("cuda"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(json.dumps({"pair": list(keys), "parent_card_gib": {
+            "allocated": torch.cuda.memory_allocated() / 2**30,
+            "reserved": torch.cuda.memory_reserved() / 2**30}}), file=sys.stderr, flush=True)
     start = time.time()
     ranks, spawn_s = _spawn_ranks(_sharded_rank, device, LM_SHARDED_TIMEOUT_S,
                                   f"lm_train_sharded{list(keys)}", share=True, args=(keys,))
@@ -4564,6 +4733,182 @@ def lm_train_ep(predicted: dict, runs: dict, spawn_s: float, start: float) -> di
         raise AssertionError(f"lm_train_ep_{short}: {check}")
     emit("profile_lm_train_ep_step", rank=0, arch=arch, **r0["profile"])
     return r0["launches"]
+
+
+def _meta_span(cfg, opt_cfg) -> dict:
+    """LM_SPAN's configurations on (2, 1) counted on the meta device, rank
+    0's program (`lower_cell`; nothing allocated, no collective run): each
+    training rank's Adafactor state bytes (`_meta_adafactor`), a train step's
+    wire by axis and kind (the dry run's AdamW step plus the Adafactor
+    update's statistics all-reduces) and its sites; the serving rank's
+    parameter and cache bytes, the wire of a prefill and of a decode step by
+    axis and kind, and their sites."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import SHAPES, ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import Mesh
+
+    mesh = Mesh(LM_SPAN_MESH, ("data", "model"))
+    batch = LM_SPAN[2]
+    cells = {}
+    for kind, S in (("train", LM_DP_S), ("prefill", LM_DP_S), ("decode", LM_DP_S + LM_SPAN_NEW)):
+        cell = ShapeSpec(f"lm_span_{kind}", S, batch, kind)
+        with mock.patch.dict(SHAPES, {cell.name: cell}):
+            rec = dryrun.lower_cell(LM_SPAN[0], cell.name, mesh, accum=1, remat=True,
+                                    cfg_override=lambda c: dataclasses.replace(
+                                        cfg, param_dtype="float32"))[0]
+        if not rec["ok"]:
+            raise AssertionError(f"dryrun_span {kind}: {rec.get('error')}")
+        cells[kind] = rec
+    state_bytes, stats_wire, _ = _meta_adafactor(cfg, mesh, opt_cfg)
+    train, pre, dec = cells["train"], cells["prefill"], cells["decode"]
+    return {"state_bytes": state_bytes,
+            "train_wire": _add_by_axis(train["hlo"]["collective_by_axis"], stats_wire),
+            "train_sites": train["hlo"]["collective_by_site"],
+            "param_bytes": dec["memory"]["port_rank_parts"]["params"],
+            "cache_bytes": dec["memory"]["port_rank_parts"]["caches"],
+            "wire_prefill": pre["hlo"]["collective_by_axis"],
+            "wire_decode_step": dec["hlo"]["collective_by_axis"],
+            "sites_prefill": pre["hlo"]["collective_by_site"],
+            "sites_decode_step": dec["hlo"]["collective_by_site"],
+            "count_s": {k: r["count_s"] for k, r in cells.items()},
+            "counted_flops": {k: r["hlo"]["dot_flops"] for k, r in cells.items()}}
+
+
+def _summed_drops(readings) -> dict:
+    return {k: sum(r[k] for r in readings) for k in ("choices", "dropped",
+                                                      "local_would_differ", "dispatches")}
+
+
+def lm_span(training: tuple, serving: tuple) -> tuple[dict, dict]:
+    """LM_SPAN's training and serving, each on a pair of LM_DP_RANKS gloo
+    ranks of its own on cuda:0, one MoE dispatch group spanning both ranks
+    of the (2, 1) mesh (`training` and `serving`: `lm_train_sharded`'s
+    (runs, spawn_s, start) of key "span_<suffix>" and of key
+    "serve_span_<suffix>"), held as LM_SPAN's comment says against rank 0's
+    one-device runs and the meta count (`_meta_span`).  Prints
+    `lm_train_span_<suffix>` and `lm_serve_span_<suffix>` (with the
+    choices' all-gather bytes and seconds, span_drops and
+    local_would_differ, each rank's peak GiB) and `dryrun_span`.  Returns
+    (the training's, the serving's) rank-0 launches."""
+    from repro_torch.training import OptConfig
+
+    arch, layers, batch, steps, short = LM_SPAN
+    cfg = _phase_cfg(arch, layers, True)
+    opt_cfg = OptConfig(kind="adafactor", warmup_steps=2)
+    t0 = time.perf_counter()
+    meta = _meta_span(cfg, opt_cfg)
+    emit("dryrun_span", arch=arch, layers=layers, dtype="float32", batch=batch,
+         mesh=list(LM_SPAN_MESH), n_dispatch_groups=1, n_experts=cfg.moe.n_experts,
+         meta_s=time.perf_counter() - t0, **meta)
+    site = "moe-choices"
+
+    # training
+    runs, spawn_s, start = training
+    ranks = runs[f"span_{short}"]
+    r0 = ranks[0]
+    ref = r0["one_device"]
+    want = {"flash_attention": 2 * layers * steps}
+    loss_rel, norm_rel = _rel(r0["losses"], ref["losses"]), _rel(r0["grad_norms"],
+                                                                 ref["grad_norms"])
+    drops = _summed_drops([d for r in ranks for d in r["drops"]])
+    choices_s = [[seen.get(site, {}).get("seconds", 0.0) for seen in r["sites"]] for r in ranks]
+    check = {
+        "losses_within_tol": max(loss_rel) <= LM_DP_STEP_RTOL,
+        "grad_norms_within_tol": max(norm_rel) <= LM_DP_STEP_RTOL,
+        **f8_checks(r0["f8"]),
+        "ranks_alike": _ranks_alike(ranks),
+        "state_bytes_as_counted": [r["state_bytes"] for r in ranks] == meta["state_bytes"],
+        "wire_bytes_as_counted": all(w == meta["train_wire"] for r in ranks for w in r["wire"]),
+        "choices_as_counted": all(
+            {k: {"bytes": v["bytes"], "calls": v["calls"]} for k, v in seen.items()}
+            == meta["train_sites"] for r in ranks for seen in r["sites"]),
+        "local_would_differ_above_0": drops["local_would_differ"] > 0,
+        "finite": all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+        "launches": all(r["launches"] == want for r in ranks),
+    }
+    emit(f"lm_train_span_{short}", arch=arch, layers=layers, dtype="torch.float32",
+         global_batch=batch, seq=LM_DP_S, steps=steps, ranks=LM_DP_RANKS,
+         backend="gloo on cuda:0", mesh=list(LM_SPAN_MESH), n_dispatch_groups=1,
+         n_experts=cfg.moe.n_experts, optimizer="adafactor",
+         rules="make_rules(mesh, model_cfg=cfg): fsdp -> data",
+         state_bytes_per_rank=[r["state_bytes"] for r in ranks],
+         counted_state_bytes=meta["state_bytes"],
+         peak_gib_per_rank=[r["peak_gib"] for r in ranks],
+         host_gib_per_rank=[r["host_gib"] for r in ranks],
+         one_device_losses=ref["losses"], span_losses=r0["losses"], loss_rel_err=loss_rel,
+         one_device_grad_norms=ref["grad_norms"], span_grad_norms=r0["grad_norms"],
+         grad_norm_rel_err=norm_rel, step_tol_rel=LM_DP_STEP_RTOL, **_f8_fields(r0["f8"]),
+         step_s=[r["step_s"] for r in ranks], collective_s_by_axis=r0["seconds"],
+         wire_bytes_by_axis=r0["wire"], counted_wire_by_axis=meta["train_wire"],
+         choices_by_step=r0["sites"], choices_seconds_per_rank=choices_s,
+         span_drops=drops["dropped"], local_would_differ=drops["local_would_differ"],
+         drops_per_rank=[_summed_drops(r["drops"]) for r in ranks],
+         launches_per_rank=[r["launches"] for r in ranks], launches_want=want,
+         spawn_s=spawn_s, timeline_s=_timeline(r0["clock"], start), **check)
+    if not all(check.values()):
+        raise AssertionError(f"lm_train_span_{short}: {check}")
+    train_launches = r0["launches"]
+
+    # serving
+    runs, spawn_s, start = serving
+    ranks = runs[f"serve_span_{short}"]
+    r0 = ranks[0]
+    want = {"flash_attention": _mixer_layers(cfg, "attn")}
+    ref_picks = r0["one_device"]["picks"]
+    diverged = [next((i for i, (a, b) in enumerate(zip(r["picks"], ref_picks)) if a != b), None)
+                for r in ranks]
+    drops = _summed_drops([r["drops"] for r in ranks])
+    choices = [r["wire_sites"].get(site, {}) for r in ranks]
+    calls = 1 + LM_SPAN_NEW - 1  # the prefill and each decode step
+    check = {
+        "logits_within_tol": max(r0["logit_rel_err"]) <= LM_SERVE_SHARDED_REL,
+        "ranks_alike": all(r["picks"] == r0["picks"] and r["digests"] == r0["digests"]
+                           for r in ranks),
+        "param_bytes_as_counted": all(r["param_bytes"] == meta["param_bytes"] for r in ranks),
+        "cache_bytes_as_counted": all(r["cache_bytes"] == meta["cache_bytes"] for r in ranks),
+        "wire_prefill_as_counted": all(r["wire_prefill"] == meta["wire_prefill"] for r in ranks),
+        "wire_decode_step_as_counted": all(w == meta["wire_decode_step"] for r in ranks
+                                           for w in r["wire_decode_steps"]),
+        "choices_as_counted": all(
+            c.get("bytes") == meta["sites_prefill"][site]["bytes"]
+            + (LM_SPAN_NEW - 1) * meta["sites_decode_step"][site]["bytes"]
+            and c.get("calls") == meta["sites_prefill"][site]["calls"]
+            + (LM_SPAN_NEW - 1) * meta["sites_decode_step"][site]["calls"] for c in choices),
+        "local_would_differ_above_0": drops["local_would_differ"] > 0,
+        "decode_steps": all(r["decode_steps"] == LM_SPAN_NEW - 1 for r in ranks),
+        "finite": all(r["finite"] for r in ranks),
+        "launches": all(r["launches_prefill"] == want and not r["launches_decode"]
+                        for r in ranks),
+    }
+    emit(f"lm_serve_span_{short}", arch=arch, layers=layers, dtype="torch.float32",
+         global_batch=batch, prompt_len=LM_DP_S, new_tokens=LM_SPAN_NEW, ranks=LM_DP_RANKS,
+         backend="gloo on cuda:0", mesh=list(LM_SPAN_MESH), n_dispatch_groups=1,
+         n_experts=cfg.moe.n_experts, rows_per_rank=[r["rows"] for r in ranks], calls=calls,
+         prefill_s=[r["prefill_s"] for r in ranks],
+         ms_per_decode_step=[r["ms_per_decode_step"] for r in ranks],
+         under_profiler="rank 0", one_device=r0["one_device"] | {"picks": None},
+         collective_s_by_axis=[r["collective_s"] for r in ranks],
+         device_idle_share=r0["profile"]["device_idle_share"],
+         window_whole=r0["profile"]["window_whole"],
+         peak_gib_per_rank=[r["peak_gib"] for r in ranks],
+         host_gib_per_rank=[r["host_gib"] for r in ranks],
+         logit_rel_err=r0["logit_rel_err"], tol_rel=LM_SERVE_SHARDED_REL,
+         first_greedy_divergence=diverged,
+         param_bytes_per_rank=[r["param_bytes"] for r in ranks],
+         cache_bytes_per_rank=[r["cache_bytes"] for r in ranks],
+         wire_prefill=r0["wire_prefill"], wire_decode_step=r0["wire_decode_steps"][0],
+         wire_logits=r0["wire_logits"], choices_per_rank=choices,
+         span_drops=drops["dropped"], local_would_differ=drops["local_would_differ"],
+         drops_per_rank=[r["drops"] for r in ranks],
+         launches_prefill=r0["launches_prefill"], launches_decode=r0["launches_decode"],
+         launches_want=want, spawn_s=spawn_s, timeline_s=_timeline(r0["clock"], start), **check)
+    if not all(check.values()):
+        raise AssertionError(f"lm_serve_span_{short}: {check}")
+    emit(f"profile_lm_serve_span_{short}", rank=0, **r0["profile"])
+    return train_launches, r0["launches_prefill"]
 
 
 def lm_serve_sharded(predicted: dict, runs: dict, spawn_s: float, start: float) -> dict:
@@ -6461,6 +6806,12 @@ def main() -> int:
     #    0's one-device run and dryrun_ep.
     new_paths["lm_train_ep"] = lm_train_ep(ep_predicted,
                                            *lm_train_sharded((f"ep_{LM_EP[4]}",)))
+    # 14f. MoE dispatch groups that span data ranks (slice 28): one full-width
+    #    qwen3-moe layer with one dispatch group on the (2, 1) mesh, trained
+    #    with Adafactor on a pair of its own and served on another: against
+    #    rank 0's one-device runs and the meta count.
+    new_paths["lm_train_span"], new_paths["lm_serve_span"] = lm_span(
+        lm_train_sharded((f"span_{LM_SPAN[4]}",)), lm_train_sharded((f"serve_span_{LM_SPAN[4]}",)))
     # 13b. The dry-run CLI's 16x16 cells, started at 13.
     dryrun_cli(clis)
     lm_launch_train_torchrun(torchrun)

@@ -71,9 +71,11 @@ the JAX record's; where a value has no counterpart it is None and
   prefill's all-gather of the KV heads where kv -> "model", a decode
   step's all-gather of q (with the new k and v where kv -> "model"), its
   all-reduce of the score maxima and its reduce-scatter of the partial
-  softmax sums where the sequence is split.  `collective_by_kind` splits
-  it by kind, `collective_by_axis` by mesh axis and kind, and
-  `n_collective_sites` counts the calls.
+  softmax sums where the sequence is split; an MoE layer whose dispatch
+  group spans data ranks all-gathers its routing choices along "data".
+  `collective_by_kind` splits it by kind, `collective_by_axis` by mesh
+  axis and kind, `collective_by_site` gives the named sites' bytes and
+  calls, and `n_collective_sites` counts the calls.
 - `memory.argument_bytes`: the per-rank bytes of the program's arguments
   (state and batch; parameters, caches and tokens for decode) under the
   JAX rules on the mesh (`sanitize_pspec` against each leaf's shape), to
@@ -91,9 +93,21 @@ the JAX record's; where a value has no counterpart it is None and
 - `roofline`: `analysis/roofline.py::roofline` at `H100_SXM` with the
   rank's FLOPs, bytes and wire bytes and the analytic `model_flops`.
 
-A cell that the port cannot run at all (a data-parallel split of a train,
-prefill or decode batch that `check_dispatch_split` refuses) is a record with `ok: false` and the
-reason.  `count_s` is the host seconds of the count.
+An MoE cell whose data ranks outnumber its dispatch groups (every MoE
+arch on the multi-pod mesh: 16 groups on 32 ranks) runs as the port's step
+does: each group's rows lie on a span of R / G ranks, and the rank
+dispatches the whole group with the span's routing choices, all-gathered
+along "data" in the forward and again in the remat recompute
+(`repro_torch.models.layers.moe`); `hlo.collective_by_site` gives their
+bytes and calls ("moe-choices"), which `collective_by_axis` counts with
+the other all-gathers along "data".  Its rank's dot FLOPs are its own
+tokens' projections and attention and its group's whole expert products,
+where JAX's per-device program runs every group that `sanitize_pspec`
+leaves on the device.  A cell that the port cannot run at all (a split
+whose G and R divide neither the other; no production mesh or config
+makes one) raises `moe.data_split`'s ValueError, which the sweep records
+with `ok: false` and the reason.  `count_s` is the host seconds of the
+count.
 """
 
 from __future__ import annotations
@@ -115,7 +129,7 @@ from repro_torch.checkpoint.checkpointer import flatten_up_to, state_leaves
 from repro_torch.configs import ARCHS, SHAPES, applicable_shapes, get_config
 from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import make_production_mesh, mesh_label
-from repro_torch.models.layers.moe import check_dispatch_split
+from repro_torch.models.layers.moe import data_split
 from repro_torch.models.transformer import Transformer, cache_blocks, cache_sequence, param_leaves
 from repro_torch.parallel import fsdp, tensor
 from repro_torch.parallel.sharding import Mesh, make_rules, rank_rows, sanitize_pspec, tree_pspecs
@@ -285,13 +299,6 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
     shards = mb_rows // len(mine)
     head = {"arch": arch, "shape": shape_name, "kind": kind, "mesh": mesh_label(mesh),
             "n_devices": n_dev}
-    try:
-        check_dispatch_split(cfg, shards, mb_rows, 1 if kind == "decode" else S)
-    except ValueError as e:
-        return {**head, "ok": False, "accum": accum if kind == "train" else None,
-                "error": f"the port cannot run this cell data-parallel: {e}",
-                **(extra_metadata or {})}, None
-
     model = Transformer(cfg, device=META, dtype=getattr(torch, cfg.param_dtype), backend="ref")
     batch = SP.input_specs(cfg, shape_name)
     batch_bytes = _tree_bytes(batch, SP.batch_specs_for(cfg, shape_name, rules), mesh)
@@ -320,19 +327,22 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
         sharding = fsdp.shard_model(model, rules, place=(mesh, 0))
         rank_batch = {k: v[mine.start:mine.stop] for k, v in batch.items()}
         fsdp.WIRE.reset()
+        split = data_split(cfg, mb_rows, 1 if kind == "decode" else S, mesh, 0)
         if kind == "prefill":
             (_, caches), flops, nbytes, secs = count(
-                lambda: model.prefill(rank_batch, max_len=S, dispatch_ranks=shards))
+                lambda: model.prefill(rank_batch, max_len=S, data_split=split))
         else:
             caches = model.init_caches(len(mine), S)
             _, flops, nbytes, secs = count(
                 lambda: model.decode_step(caches, rank_batch["tokens"], S - 1,
-                                          dispatch_ranks=shards))
+                                          data_split=split))
         parts["gathered"] = fsdp.WIRE.largest_gather
         parts["caches"] = sum(_nbytes(t) for t in _flat(caches).values())
         parts["batch"] = sum(_nbytes(t) for t in rank_batch.values())
     parts = {"params": sum(_nbytes(p) for p in model.parameters()), **parts}  # the rank's
     wire, by_kind, by_axis = fsdp.WIRE.total, dict(fsdp.WIRE.bytes), fsdp.WIRE.by_axis()
+    by_site = {k: {"bytes": v["bytes"], "calls": v["calls"]}
+               for k, v in fsdp.WIRE.by_site().items()}
     sites = sum(fsdp.WIRE.calls.values())
     layout = WHOLE
     split_along_model = 1  # the ranks along "model" that split the rank's work
@@ -377,6 +387,7 @@ def lower_cell(arch: str, shape_name: str, mesh: Mesh, *, remat: bool = True, ac
             "collective_wire_bytes": wire,
             "collective_by_kind": by_kind,
             "collective_by_axis": by_axis,
+            "collective_by_site": by_site,
             "n_collective_sites": sites,
         },
         "roofline": rl.row(),

@@ -72,16 +72,16 @@ class Layer(nn.Module):
             if hasattr(self, name):
                 getattr(self, name).reset_parameters(cfg, gen)
 
-    def ffn(self, cfg, x: torch.Tensor, dispatch_ranks: int = 1, tp=None) -> torch.Tensor:
+    def ffn(self, cfg, x: torch.Tensor, data_split=None, tp=None) -> torch.Tensor:
         """x + mlp(norm(x)) or x + moe(norm(x)), or x for a mixer-only layer
-        (`dispatch_ranks`: `moe_forward`'s `ranks`; `tp`: the layer's
+        (`data_split`: `moe_forward`'s `split`; `tp`: the layer's
         `ModelRegion`: the MLP's d_ff, or the MoE experts, split along
         "model")."""
         if self.spec.ffn == "none":
             return x
         h = rms_norm(x, self.norm_ffn.scale, cfg.norm_eps)
         if self.spec.ffn == "moe":
-            return x + moe_forward(self.moe, cfg, h, dispatch_ranks,
+            return x + moe_forward(self.moe, cfg, h, data_split,
                                    None if tp is None else tp.at("moe."))
         return x + mlp_forward(self.mlp, cfg, h, None if tp is None else tp.at("mlp."))
 
@@ -98,10 +98,10 @@ class Group(nn.ModuleDict):
             layer.reset_parameters(cfg, gen)
 
     def forward(self, cfg, x, positions, *, backend: str = "cuda", caches=None, g: int = 0,
-                chunk: int = 1024, dispatch_ranks: int = 1, tp=None, position: int | None = None,
+                chunk: int = 1024, data_split=None, tp=None, position: int | None = None,
                 seq: range | None = None):
         """Full-sequence pass (`chunk`: the KV chunk of `blocked_attention`;
-        `dispatch_ranks`: `moe_forward`'s `ranks`; `tp`: the group's
+        `data_split`: `moe_forward`'s `split`; `tp`: the group's
         `ModelRegion` under tensor parallelism).  With `caches` (the stacked
         decode caches, the rank's block of them), the prefill: also writes
         this group's attention k/v of the prompt's positions in `seq` (the
@@ -110,7 +110,7 @@ class Group(nn.ModuleDict):
         [B, 1, d] at that position instead (`decode`; `positions`
         unused)."""
         if position is not None:
-            return self.decode(cfg, x, caches, g, position, dispatch_ranks=dispatch_ranks, tp=tp,
+            return self.decode(cfg, x, caches, g, position, data_split=data_split, tp=tp,
                                seq=seq)
         for key, layer in self.items():
             ltp = None if tp is None else tp.at(f"{key}.")
@@ -134,13 +134,13 @@ class Group(nn.ModuleDict):
                                                  tp=None if ltp is None else ltp.at("mamba."))
                 caches[key]["ssm"][g] = ssm
                 caches[key]["conv"][g] = conv
-            x = layer.ffn(cfg, x + out, dispatch_ranks, ltp)
+            x = layer.ffn(cfg, x + out, data_split, ltp)
         return x
 
-    def decode(self, cfg, x, caches, g: int, position: int, *, dispatch_ranks: int = 1,
+    def decode(self, cfg, x, caches, g: int, position: int, *, data_split=None,
                tp=None, seq: range | None = None):
         """One token through the group, updating slot `g` of the caches in
-        place (`dispatch_ranks`, `tp`, `seq`: as `forward`'s)."""
+        place (`data_split`, `tp`, `seq`: as `forward`'s)."""
         for key, layer in self.items():
             ltp = None if tp is None else tp.at(f"{key}.")
             h = rms_norm(x, layer.norm_mixer.scale, cfg.norm_eps)
@@ -155,5 +155,5 @@ class Group(nn.ModuleDict):
                                               tp=None if ltp is None else ltp.at("mamba."))
                 c["ssm"][g] = ssm
                 c["conv"][g] = conv
-            x = layer.ffn(cfg, x + out, dispatch_ranks, ltp)
+            x = layer.ffn(cfg, x + out, data_split, ltp)
         return x

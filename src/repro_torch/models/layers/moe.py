@@ -21,11 +21,29 @@ The group split, the capacity and both rank orders are the JAX package's
 choices there and here.  The router's logits, softmax and top-k run in f32
 whatever the model's dtype, and the router parameter is kept in f32.
 
-Under data parallelism a rank holds 1/R of a batch's rows and is told R
-(`moe_forward(ranks=R)`): it dispatches its G / R groups of the whole
-batch's group size T, so that each group, and each drop, is the one-device
-step's.  The train step first checks that the rows make whole groups
-(`check_dispatch_split`).
+Under data parallelism a rank holds 1/R of a batch's rows and is told its
+place (`moe_forward(split=DataSplit(R, index, group))`, built by
+`data_split`), so that each group, its capacity and each drop are the
+one-device step's:
+- where R divides G, the rank's rows make G / R whole groups of the whole
+  batch's group size T, which it dispatches alone;
+- where G divides R, each group's rows lie on a span of s = R / G
+  consecutive batch shards (`index // s` is the rank's group, `index % s`
+  its place in it, `group` the span's process group,
+  `repro_torch.parallel.fsdp.span_group`).  The rank routes its T / s
+  tokens, all-gathers the span's choices top_e [T / s, K] (integers, no
+  gradient; `fsdp.WIRE` site "moe-choices", along "data") into the group's
+  [T, K] in (token, k) order, and dispatches the whole group on them: the
+  group's capacity, ranks and drops.  Its slot buffer holds only the slots
+  whose token is its own (the others stay zero, as empty slots do), the
+  expert products run on the whole buffer, and the rank combines its own
+  tokens.  The experts' gradient on a rank comes from its tokens' slots,
+  and the step sums it over "data" with the rest.  Gathering the choices
+  moves T / s x K integers a layer where gathering the tokens would move
+  T / s x d activations.  The remat recompute gathers them again and gets
+  the same bits.
+Where neither divides the other, `check_dispatch_split` raises
+ValueError: no split falls back to gathering the whole batch.
 
 Under expert parallelism (the JAX rule ep -> "model", `moe_forward(tp=)`
 with the layer's `repro_torch.parallel.tensor.ModelRegion`) each of the M
@@ -47,11 +65,17 @@ dry run counts against.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers.mlp import _act
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.sharding import make_rules, rank_rows
+
+CHOICES_SITE = "moe-choices"  # the span's all-gather of the routing choices (`fsdp.WIRE`)
 
 
 class MoE(nn.Module):
@@ -89,38 +113,78 @@ def dispatch_shape(cfg, B: int, S: int) -> tuple[int, int, int]:
 
     G starts at min(n_dispatch_groups, B * S) and halves until it divides
     B * S; cap = max(int(T * top_k / n_experts * capacity_factor), 1)."""
-    m = cfg.moe
-    G = min(m.n_dispatch_groups, B * S)
+    G = min(cfg.moe.n_dispatch_groups, B * S)
     while (B * S) % G:
         G //= 2
     T = B * S // G
-    return G, T, max(int(T * m.top_k / m.n_experts * m.capacity_factor), 1)
+    return G, T, _capacity(cfg, T)
+
+
+def _capacity(cfg, T: int) -> int:
+    """Slots per expert of a group of T tokens."""
+    m = cfg.moe
+    return max(int(T * m.top_k / m.n_experts * m.capacity_factor), 1)
 
 
 def check_dispatch_split(cfg, ranks: int, rows: int | None = None, S: int = 1) -> None:
-    """Raise ValueError unless each of `ranks` ranks, holding rows / ranks of
-    a batch of `rows` x S tokens, holds whole dispatch groups of it.  With
-    `rows` None, for every batch of n_dispatch_groups tokens or more (which
-    makes n_dispatch_groups groups): the check a step makes when it is built."""
+    """Raise ValueError unless `ranks` data-parallel ranks, each holding
+    rows / ranks of a batch of `rows` x S tokens, can dispatch its G groups:
+    R divides G (whole groups a rank) or G divides R (each group on a span
+    of R / G ranks).  With `rows` None, for every batch of n_dispatch_groups
+    tokens or more (which makes n_dispatch_groups groups): the check a step
+    makes when it is built."""
     if cfg.moe is None or ranks == 1:
         return
     n = cfg.moe.n_dispatch_groups
     G = n if rows is None else dispatch_shape(cfg, rows, S)[0]
-    if G % ranks == 0:
+    if _splits(G, ranks):
         return
     what = (f"every global batch of {n} tokens or more" if rows is None else
             f"a global (micro-)batch of {rows} x {S} tokens")
-    if n % ranks:
-        fits = f"no global batch of {n} tokens or more would divide (n_dispatch_groups = {n})"
-    else:
-        # A batch of n tokens or more, a multiple of R rows, makes n groups.
+    fits = f"no global batch of {n} tokens or more would split (n_dispatch_groups = {n})"
+    if rows is not None:
         first = ranks * (rows // ranks + 1)
-        b = next(b for b in range(first, first + ranks * n, ranks)
-                 if dispatch_shape(cfg, b, S)[0] % ranks == 0)
-        fits = f"a global (micro-)batch of {b} x {S} tokens would divide"
-    raise ValueError(f"{cfg.name}: {what} makes G = {G} MoE dispatch groups, which R = {ranks} "
-                     f"data-parallel ranks cannot split into whole groups (G % R != 0), and "
-                     f"capacity drops depend on the split; {fits}")
+        b = next((b for b in range(first, first + ranks * n, ranks)
+                  if _splits(dispatch_shape(cfg, b, S)[0], ranks)), None)
+        if b is not None:
+            fits = f"a global (micro-)batch of {b} x {S} tokens would split"
+    raise ValueError(f"{cfg.name}: {what} makes G = {G} MoE dispatch groups on R = {ranks} "
+                     f"data-parallel ranks, and neither divides the other: the ranks can "
+                     f"neither hold whole groups (R | G) nor share each group over a span of "
+                     f"R / G ranks (G | R), and capacity drops depend on the split; {fits}")
+
+
+def _splits(G: int, R: int) -> bool:
+    return G % R == 0 or R % G == 0
+
+
+@dataclass(frozen=True)
+class DataSplit:
+    """A data-parallel rank's place in a batch (module docstring): `ranks`
+    (R) ranks take rows / R each, this rank batch shard `index` of them
+    (`rank_rows`' order), and `group` is the process group of the ranks
+    whose rows share its dispatch group, in batch-shard order (None where
+    no group spans ranks, and on the meta device, where the gather is
+    counted and not run)."""
+    ranks: int = 1
+    index: int = 0
+    group: object = None
+
+
+def data_split(cfg, rows: int, S: int, mesh, rank: int, group=None) -> DataSplit:
+    """The `DataSplit` of `rank` on `mesh` for a global (micro-)batch of
+    `rows` x S tokens, the rank taking its `rank_rows` (every row where the
+    data axes do not divide the batch: R = 1).  Raises ValueError where the
+    ranks cannot split the dispatch groups (`check_dispatch_split`).  Where
+    a group spans ranks, `group` (the process group of `mesh`'s ranks, None
+    on the meta device) gives the span's (`fsdp.span_group`, which every
+    rank of the default group makes together)."""
+    mine = rank_rows(rows, mesh, make_rules(mesh), rank)
+    R = rows // len(mine)
+    check_dispatch_split(cfg, R, rows, S)
+    span = 1 if cfg.moe is None else max(R // dispatch_shape(cfg, rows, S)[0], 1)
+    return DataSplit(R, mine.start // len(mine),
+                     None if span == 1 or group is None else fsdp.span_group(group, mesh, span))
 
 
 def _route(p, cfg, xt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -192,60 +256,98 @@ def _dispatch_sort(top_e: torch.Tensor, T: int, E: int, cap: int):
     return token_for_slot, valid, torch.where(keep, rank_tm, cap - 1), keep
 
 
-def moe_forward(p, cfg, x: torch.Tensor, ranks: int = 1, tp=None) -> torch.Tensor:
+def _scatter_slots(top_e: torch.Tensor, E: int, cap: int):
+    """The scatter formulation's slots: per k, (slot [G, T], keep [G, T]) of
+    choice k of every token, counting choice k of every token before choice
+    k + 1 (one-hot prefix counts)."""
+    counts = torch.zeros(top_e.shape[0], E, dtype=torch.int64, device=top_e.device)
+    out = []
+    for k in range(top_e.shape[2]):
+        e_k = top_e[:, :, k]  # [G, T]
+        onehot = F.one_hot(e_k, E)  # [G, T, E]
+        before = torch.cumsum(onehot, dim=1) - onehot  # exclusive prefix count
+        slot = torch.gather(before, 2, e_k[..., None])[..., 0] + torch.gather(counts, 1, e_k)
+        keep = slot < cap
+        out.append((torch.where(keep, slot, cap - 1), keep))
+        counts = counts + onehot.sum(dim=1)
+    return out
+
+
+def _keeps(cfg, top_e: torch.Tensor, T: int, cap: int) -> torch.Tensor:
+    """keep [G, T, K]: which choices of groups of T tokens the config's
+    dispatch keeps at capacity `cap`."""
+    if cfg.moe.dispatch == "sort":
+        return _dispatch_sort(top_e, T, cfg.moe.n_experts, cap)[3]
+    return torch.stack([keep for _, keep in _scatter_slots(top_e, cfg.moe.n_experts, cap)], -1)
+
+
+def _span_choices(top_e: torch.Tensor, span: int, group) -> torch.Tensor:
+    """The span's choices [1, T, K], every rank's [1, T / s, K] in
+    batch-shard order: one all-gather along "data" (site "moe-choices")."""
+    _, Tl, K = top_e.shape
+    out = top_e.new_empty(span * Tl * K)
+    with fsdp.WIRE.at(CHOICES_SITE):
+        fsdp.all_gather_into(out, top_e.contiguous().view(-1), group, span, "data")
+    return out.view(1, span * Tl, K)
+
+
+def moe_forward(p, cfg, x: torch.Tensor, split: DataSplit | None = None,
+                tp=None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d] through the top-k routed experts, dropping
-    the choices past an expert's capacity in each dispatch group.  `ranks`:
-    the data-parallel ranks that hold a batch's rows, B each, whose split
-    `check_dispatch_split` has passed; x makes G / ranks of the groups of
-    the whole batch of B * ranks rows.  `tp`: the layer's `ModelRegion`
+    the choices past an expert's capacity in each dispatch group.  `split`:
+    the rank's place among the data-parallel ranks that hold a batch's
+    rows, B each (None: one rank holds them all); x makes G / R of the
+    groups of the whole batch of B * R rows, or its share of one group that
+    spans R / G ranks (module docstring).  `tp`: the layer's `ModelRegion`
     under expert parallelism (module docstring); where it does not split
     the experts the layer runs whole."""
     m = cfg.moe
+    split = split or DataSplit()
     B, S, d = x.shape
-    G, T, cap = dispatch_shape(cfg, B * ranks, S)
-    G //= ranks
+    G, T, cap = dispatch_shape(cfg, B * split.ranks, S)
+    span = max(split.ranks // G, 1)  # the ranks that share one group
+    G = max(G // split.ranks, 1)
+    Tl = T // span  # the rank's tokens of each of its groups
+    off = split.index % span * Tl  # where they start in the group
     E = m.n_experts
-    xt = x.reshape(G, T, d)
+    xt = x.reshape(G, Tl, d)
     top_p, top_e = _route(p, cfg, xt)
+    whole_e = top_e if span == 1 else _span_choices(top_e, span, split.group)
     if tp is not None and not tp.split("w_in"):
         tp = None
     xd = xt if tp is None else tp.copy(xt)  # the dispatch's input
-    out = torch.zeros((G, T, d), dtype=torch.float32, device=x.device)
+    out = torch.zeros((G, Tl, d), dtype=torch.float32, device=x.device)
 
     if m.dispatch == "sort":
-        token_for_slot, slot_valid, slot, keep = _dispatch_sort(top_e, T, E, cap)
+        token_for_slot, slot_valid, slot, keep = _dispatch_sort(whole_e, T, E, cap)
+        if span > 1:  # the slots of the rank's own tokens, its choices' slots
+            slot_valid = slot_valid & (token_for_slot >= off) & (token_for_slot < off + Tl)
+            token_for_slot = torch.where(slot_valid, token_for_slot - off, 0)
+            slot, keep = slot[:, off:off + Tl], keep[:, off:off + Tl]
         idx_in = token_for_slot.reshape(G, E * cap, 1).expand(G, E * cap, d)
         buf = torch.gather(xd, 1, idx_in).reshape(G, E, cap, d)
         buf = buf * slot_valid[..., None].to(buf.dtype)
         y_flat = _expert_mm(p, cfg, buf, tp).reshape(G, E * cap, d)
         for k in range(m.top_k):
-            idx_out = (top_e[:, :, k] * cap + slot[:, :, k])[..., None].expand(G, T, d)
-            gathered = torch.gather(y_flat, 1, idx_out)  # [G, T, d]
+            idx_out = (top_e[:, :, k] * cap + slot[:, :, k])[..., None].expand(G, Tl, d)
+            gathered = torch.gather(y_flat, 1, idx_out)  # [G, Tl, d]
             w = (top_p[:, :, k] * keep[:, :, k])[..., None]
             out = out + w * gathered.float()
         return out.reshape(B, S, d).to(x.dtype)
     if m.dispatch != "scatter":
         raise ValueError(f"unknown MoE dispatch {m.dispatch!r}; known: sort, scatter")
 
-    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, T)
-    counts = torch.zeros((G, E), dtype=torch.int64, device=x.device)
+    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, Tl)
     buf = torch.zeros((G, E, cap, d), dtype=x.dtype, device=x.device)
-    slots, keeps = [], []
-    for k in range(m.top_k):
-        e_k = top_e[:, :, k]  # [G, T]
-        onehot = F.one_hot(e_k, E)  # [G, T, E]
-        ranks = torch.cumsum(onehot, dim=1) - onehot  # exclusive prefix count
-        slot = torch.gather(ranks, 2, e_k[..., None])[..., 0] + torch.gather(counts, 1, e_k)
-        keep = slot < cap
-        slot = torch.where(keep, slot, cap - 1)
-        buf.index_put_((g_idx, e_k, slot), torch.where(keep[..., None], xd, 0).to(buf.dtype),
-                       accumulate=True)
-        counts = counts + onehot.sum(dim=1)
-        slots.append(slot)
-        keeps.append(keep)
+    # the group's slots, of the rank's own choices
+    slots = [(slot[:, off:off + Tl], keep[:, off:off + Tl])
+             for slot, keep in _scatter_slots(whole_e, E, cap)]
+    for k, (slot, keep) in enumerate(slots):
+        buf.index_put_((g_idx, top_e[:, :, k], slot),
+                       torch.where(keep[..., None], xd, 0).to(buf.dtype), accumulate=True)
     y = _expert_mm(p, cfg, buf, tp)
-    for k in range(m.top_k):
-        gathered = y[g_idx, top_e[:, :, k], slots[k]]  # [G, T, d]
-        w = (top_p[:, :, k] * keeps[k])[..., None]
+    for k, (slot, keep) in enumerate(slots):
+        gathered = y[g_idx, top_e[:, :, k], slot]  # [G, Tl, d]
+        w = (top_p[:, :, k] * keep)[..., None]
         out = out + w * gathered.float()
     return out.reshape(B, S, d).to(x.dtype)

@@ -73,7 +73,7 @@ from repro_torch.models.layers.embeddings import (
     logits_out,
     lookup,
 )
-from repro_torch.models.layers.moe import check_dispatch_split
+from repro_torch.models.layers.moe import DataSplit, data_split
 from repro_torch.models.layers.norms import RMSNorm, rms_norm, rms_specs
 from repro_torch.parallel import tensor
 from repro_torch.parallel.sharding import Shard, make_rules, model_dim, template_to_pspec
@@ -302,11 +302,18 @@ class Transformer(nn.Module):
             return self
         return self._gathered("embed")
 
-    def _check_dispatch(self, rows: int, S: int, dispatch_ranks: int) -> None:
-        check_dispatch_split(self.cfg, dispatch_ranks, rows * dispatch_ranks, S)
+    def data_split(self, rows: int, S: int) -> DataSplit:
+        """The rank's `DataSplit` of a global batch of `rows` x S tokens on
+        a sharded model (`moe.data_split` on its mesh, rank and group; a
+        whole model runs every row); what `prefill` and `decode_step` take
+        for the rank's `rank_rows` of that batch."""
+        sh = self.fsdp
+        if sh is None:
+            return DataSplit()
+        return data_split(self.cfg, rows, S, sh.mesh, sh.rank, sh.group)
 
     def _logits(self, batch: dict, *, remat: bool = True, chunk: int = 1024,
-                dispatch_ranks: int = 1):
+                data_split: DataSplit | None = None):
         """(logits, tp): `forward`'s logits, the rank's vocab slice of them
         where the head is split along "model" (then `tp` is the model's
         `ModelRegion`, else None)."""
@@ -321,15 +328,15 @@ class Transformer(nn.Module):
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     run, cfg, x, positions, backend=self.backend, chunk=chunk,
-                    dispatch_ranks=dispatch_ranks, use_reentrant=False)
+                    data_split=data_split, use_reentrant=False)
             else:
                 x = run(cfg, x, positions, backend=self.backend, chunk=chunk,
-                        dispatch_ranks=dispatch_ranks)
+                        data_split=data_split)
         logits = self._head_logits(w_in, x, tp)
         return logits, (tp if head_split(cfg, tp) else None)
 
     def forward(self, batch: dict, *, remat: bool = True, chunk: int = 1024,
-                dispatch_ranks: int = 1) -> torch.Tensor:
+                data_split: DataSplit | None = None) -> torch.Tensor:
         """batch -> logits [B, S, V], as the JAX `forward`.
 
         With grad on and `remat`, each group runs under
@@ -337,10 +344,11 @@ class Transformer(nn.Module):
         are dropped after the forward and recomputed in the backward, so the
         attention and scan kernels run twice per layer a step.  `chunk` is
         `blocked_attention`'s KV chunk (the "ref" forward and the attention
-        gradient).  `dispatch_ranks`: the data-parallel ranks that share the
-        batch's rows, for the MoE layers' dispatch groups (`moe_forward`).
-        Under tensor parallelism the ranks' vocab slices are gathered whole."""
-        logits, tp = self._logits(batch, remat=remat, chunk=chunk, dispatch_ranks=dispatch_ranks)
+        gradient).  `data_split`: the rank's place among the data-parallel
+        ranks that share the batch's rows, for the MoE layers' dispatch
+        groups (`moe_forward`).  Under tensor parallelism the ranks' vocab
+        slices are gathered whole."""
+        logits, tp = self._logits(batch, remat=remat, chunk=chunk, data_split=data_split)
         return logits if tp is None else tp.gather(logits)
 
     def loss_fn(self, batch: dict, *, denominator=None, **kw) -> torch.Tensor:
@@ -367,37 +375,37 @@ class Transformer(nn.Module):
         return torch.sum(nll * mask) / denominator
 
     @torch.no_grad()
-    def prefill(self, batch: dict, max_len: int, *, dispatch_ranks: int = 1):
+    def prefill(self, batch: dict, max_len: int, *, data_split: DataSplit | None = None):
         """Run the prompt: (last-position logits [B, V], filled caches).
 
         The attention caches hold positions [0, S); mamba states carry the
         last recurrent state.  On a sharded model `batch` is the rank's rows
         and the caches its block (module docstring): of the prompt's
-        positions, those of its block of the sequence.  `dispatch_ranks`: the
-        data-parallel ranks that share the batch's rows, for the MoE
-        dispatch groups (`moe_forward`); where they cannot split the groups,
-        ValueError (`check_dispatch_split`)."""
+        positions, those of its block of the sequence.  `data_split`: the
+        rank's place among the data-parallel ranks that share the batch's
+        rows, for the MoE dispatch groups (`moe_forward`; `data_split`
+        gives it, and raises ValueError where the ranks cannot split the
+        groups)."""
         cfg = self.cfg
         B, S = next(iter(batch.values())).shape[:2]
         if S > max_len:
             raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
-        self._check_dispatch(B, S, dispatch_ranks)  # before any collective
         w_in = self._embed_in()
         x = embed_inputs(w_in, cfg, batch, tensor.region(self.fsdp))
         positions = torch.arange(S, device=x.device)
         caches = self.init_caches(B, max_len)
         for g in range(len(self.groups)):
             x = self._group_fn(g)(cfg, x, positions, backend=self.backend, caches=caches, g=g,
-                                  dispatch_ranks=dispatch_ranks, seq=caches.sequence)
+                                  data_split=data_split, seq=caches.sequence)
         return self._whole_logits(w_in, x[:, -1:, :])[:, 0, :], caches
 
     @torch.no_grad()
     def decode_step(self, caches: dict, tokens: torch.Tensor, position: int, *,
-                    dispatch_ranks: int = 1):
+                    data_split: DataSplit | None = None):
         """tokens [B] at `position` -> (logits [B, V], caches updated in place).
         On a sharded model the rank's rows and cache block (`prefill`):
         `caches` as `init_caches` or `prefill` made them, which carry the
-        block's positions."""
+        block's positions; `data_split` as `prefill`'s, of a batch of S = 1."""
         position = int(position)
         if isinstance(caches, Caches):
             seq = caches.sequence
@@ -406,10 +414,9 @@ class Transformer(nn.Module):
         else:
             raise ValueError("a model split along \"model\" decodes on the caches of its "
                              "init_caches or prefill, which carry the rank's sequence block")
-        self._check_dispatch(tokens.shape[0], 1, dispatch_ranks)
         w_in = self._gathered("embed")
         x = lookup(w_in.embed, tokens[:, None], tensor.region(self.fsdp))
         for g in range(len(self.groups)):
             x = self._group_fn(g)(self.cfg, x, None, caches=caches, g=g, position=position,
-                                  dispatch_ranks=dispatch_ranks, seq=seq)
+                                  data_split=data_split, seq=seq)
         return self._whole_logits(w_in, x)[:, 0, :], caches

@@ -25,13 +25,14 @@ the axis that cuts the leaf.
 
 The collectives, each a plain `torch.distributed` call that gloo (CPU and
 CUDA tensors) and NCCL both take:
-- `Sharding.gather`: a `torch.autograd.Function` whose forward all-gathers
-  the rank's blocks along "data" (one `all_gather_into_tensor` of a flat
-  buffer a call and dtype, over the data axis's group) and whose backward
-  reduce-scatters, summing, the gradients back onto the blocks (one
-  `reduce_scatter_tensor`).  Both take dimension 0; a slice along another
-  dimension is moved to the front first (a copy) and the gathered leaf
-  moved back (another).
+- `Sharding.gather`: a `torch.autograd.Function` a leaf, whose forward
+  all-gathers the rank's block along "data" (one `all_gather_into_tensor`
+  over the data axis's group) and whose backward reduce-scatters, summing,
+  the leaf's gradient back onto the block (one `reduce_scatter_tensor`;
+  one a piece for a gradient over `SCATTER_PIECE_BYTES` sliced along a
+  later dimension) once it is whole.  Both take dimension 0; a slice
+  along another dimension is moved to the front first (a copy) and the
+  gathered leaf moved back (another).
 - `all_reduce`: the f32 gradients of the leaves whole along "data" and the
   loss, the global norm's squares (`Sharding.psum`), the compression's
   maxima (`Sharding.pmax`), and the model axis's sums
@@ -39,14 +40,20 @@ CUDA tensors) and NCCL both take:
 - `Sharding.whole`: a leaf made whole along both axes, outside autograd
   (checkpoints, tests).
 
+- `span_group`: the ranks of a data column whose rows share one MoE
+  dispatch group (a span of consecutive batch shards,
+  `repro_torch.models.layers.moe`), whose routing choices are all-gathered
+  over it (site "moe-choices").
+
 Without a process group the calls take meta tensors only (the dry run,
 `repro_torch.launch.dryrun`): they run every local copy of the real call
 and return empty tensors of the results' shapes.  Every call, real or
 meta, adds the bytes a rank puts on the wire to `WIRE`, by kind and by
 mesh axis, in the ring model: (R - 1) / R of the whole payload for an
 all-gather (its output) and a reduce-scatter (its input), 2 (R - 1) / R
-for an all-reduce, over the call's R ranks.  A call over one rank moves
-nothing and is not made.
+for an all-reduce, over the call's R ranks; a call made inside
+`WIRE.at(site)` also adds them to that site's tally.  A call over one
+rank moves nothing and is not made.
 """
 
 from __future__ import annotations
@@ -59,7 +66,14 @@ from math import prod
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.sharding import Mesh, Shard, ShardingRules, leaf_shard
+from repro_torch.parallel.sharding import (
+    Mesh,
+    Shard,
+    ShardingRules,
+    leaf_shard,
+    make_rules,
+    rank_rows,
+)
 
 KINDS = ("all-gather", "reduce-scatter", "all-reduce")
 AXES = ("data", "model", "pod")
@@ -69,18 +83,22 @@ class WireCount:
     """What the collectives of this module did since `reset`, by mesh axis
     and kind (`axes[axis]["bytes" | "calls" | "seconds"][kind]`): bytes a
     rank put on the wire, calls and host seconds; `bytes`, `calls` and
-    `seconds` sum them over the axes by kind.  Also the bytes of the
-    largest set of leaves one `Sharding.gather` made whole.  With `sync`
+    `seconds` sum them over the axes by kind; `sites[site]` holds the same
+    three of the calls made inside `at(site)` (counted in their axis and
+    kind too).  Also the bytes of the largest set of leaves one `Sharding.gather`
+    made whole.  With `sync`
     on, each call waits for the card before and after itself, so that its
     seconds are its own (a measurement's setting: it costs the overlap)."""
 
     def __init__(self):
         self.sync = False
+        self.site = None
         self.reset()
 
     def reset(self) -> None:
         self.axes = {a: {"bytes": dict.fromkeys(KINDS, 0.0), "calls": dict.fromkeys(KINDS, 0),
                          "seconds": dict.fromkeys(KINDS, 0.0)} for a in AXES}
+        self.sites: dict = {}
         self.largest_gather = 0
 
     def _summed(self, field: str) -> dict:
@@ -106,12 +124,32 @@ class WireCount:
         """{axis: {kind: `field`}} of the axes that made a call."""
         return {a: dict(v[field]) for a, v in self.axes.items() if any(v["calls"].values())}
 
+    def by_site(self) -> dict:
+        """{site: {"bytes", "calls", "seconds"}} of the named sites that made
+        a call."""
+        return {k: dict(v) for k, v in self.sites.items()}
+
+    @contextlib.contextmanager
+    def at(self, site: str):
+        """The calls made in the block also count at `site`."""
+        outer, self.site = self.site, site
+        try:
+            yield
+        finally:
+            self.site = outer
+
     @contextlib.contextmanager
     def call(self, kind: str, nbytes: int, ranks: int, device: torch.device,
              axis: str = "data"):
         mine = self.axes[axis]
-        mine["bytes"][kind] += (2 if kind == "all-reduce" else 1) * (ranks - 1) / ranks * nbytes
+        wire = (2 if kind == "all-reduce" else 1) * (ranks - 1) / ranks * nbytes
+        mine["bytes"][kind] += wire
         mine["calls"][kind] += 1
+        tally = (None if self.site is None else
+                 self.sites.setdefault(self.site, {"bytes": 0.0, "calls": 0, "seconds": 0.0}))
+        if tally is not None:
+            tally["bytes"] += wire
+            tally["calls"] += 1
         synced = self.sync and device.type == "cuda"
         if synced:
             torch.cuda.synchronize(device)
@@ -120,6 +158,8 @@ class WireCount:
         if synced:
             torch.cuda.synchronize(device)
         mine["seconds"][kind] += time.perf_counter() - t0
+        if tally is not None:
+            tally["seconds"] += time.perf_counter() - t0
 
 
 WIRE = WireCount()
@@ -167,10 +207,14 @@ def all_reduce(x: torch.Tensor, group, ranks: int, op=dist.ReduceOp.SUM,
 def gather_blocks(blocks, dims, R: int, group, axis: str) -> list[torch.Tensor]:
     """Every rank's `blocks` (each sliced along its `dims` entry), whole
     along those dimensions, in rank order: one all-gather of a flat buffer
-    over the axis' `R` ranks."""
-    flat = torch.cat([b.movedim(d, 0).reshape(-1) for b, d in zip(blocks, dims)])
+    over the axis' `R` ranks (a block's own storage where it is the only
+    one and sliced along dimension 0)."""
+    fronts = [b.movedim(d, 0).reshape(-1) for b, d in zip(blocks, dims)]
+    flat = fronts[0] if len(fronts) == 1 else torch.cat(fronts)
+    del fronts
     out = flat.new_empty(R * flat.numel())
     all_gather_into(out, flat, group, R, axis)
+    del flat  # before the gathered leaves are laid out
     out = out.view(R, -1)
     whole, off = [], 0
     for b, d in zip(blocks, dims):
@@ -185,14 +229,28 @@ def gather_blocks(blocks, dims, R: int, group, axis: str) -> list[torch.Tensor]:
     return whole
 
 
+SCATTER_PIECE_BYTES = 1 << 30
+
+
 def scatter_sums(whole, dims, R: int, group, axis: str) -> list[torch.Tensor]:
     """Each tensor of `whole` summed over the axis' `R` ranks, and of the sum
     the rank's slice along its `dims` entry (R equal slices in rank order):
     one reduce-scatter of a flat buffer, the inverse layout of
-    `gather_blocks`."""
-    big = torch.cat([t.movedim(d, 0).reshape(R, -1) for t, d in zip(whole, dims)], dim=1)
+    `gather_blocks`.  One tensor of more than SCATTER_PIECE_BYTES sliced
+    along a dimension but the first is reduce-scattered in pieces along its
+    first (`_scatter_pieces`)."""
+    if len(whole) == 1 and dims[0] != 0 and _nbytes(whole[0]) > SCATTER_PIECE_BYTES:
+        return [_scatter_pieces(whole[0], dims[0], R, group, axis)]
+    return _scatter_flat(whole, dims, R, group, axis)
+
+
+def _scatter_flat(whole, dims, R: int, group, axis: str) -> list[torch.Tensor]:
+    fronts = [t.movedim(d, 0).reshape(R, -1) for t, d in zip(whole, dims)]
+    big = fronts[0] if len(fronts) == 1 else torch.cat(fronts, dim=1)
+    del fronts
     out = big.new_empty(big.shape[1])
     reduce_scatter_into(out, big.reshape(-1), group, R, axis)
+    del big  # before the rank's slices are laid out
     parts, off = [], 0
     for t, d in zip(whole, dims):
         front = t.movedim(d, 0).shape
@@ -201,6 +259,21 @@ def scatter_sums(whole, dims, R: int, group, axis: str) -> list[torch.Tensor]:
         parts.append(out[off:off + n].view(front).movedim(0, d))
         off += n
     return parts
+
+
+def _scatter_pieces(t: torch.Tensor, d: int, R: int, group, axis: str) -> torch.Tensor:
+    """`scatter_sums` of one tensor `t` sliced along dimension d > 0, one
+    reduce-scatter a piece of at most SCATTER_PIECE_BYTES along its first
+    dimension: the same sums in more calls, whose staging copy (the slice
+    moved to the front) is a piece's where it would be a copy of the whole
+    tensor beside it (an expert layer's gradient is GBs)."""
+    shape = list(t.shape)
+    shape[d] //= R
+    out = t.new_empty(shape)
+    rows = max(1, SCATTER_PIECE_BYTES * t.shape[0] // _nbytes(t))
+    for i in range(0, t.shape[0], rows):
+        out[i:i + rows] = _scatter_flat([t[i:i + rows]], [d], R, group, axis)[0]
+    return out
 
 
 class _Gather(torch.autograd.Function):
@@ -285,21 +358,19 @@ class Sharding:
 
     def gather(self, named: dict, prefix: str = "") -> dict:
         """{name: block whole along "data"} of the tensors of `named` that
-        are sliced along "data" (parameter `prefix + name`'s blocks), through
-        `_Gather`: one call a dtype, the gradients reduce-scattered in the
-        backward.  With grad off (serving) the all-gather runs alone and no
-        graph is built."""
-        split = [(n, t) for n, t in named.items() if self.split(prefix + n)]
-        by_dtype: dict = {}
-        for n, t in split:
-            by_dtype.setdefault(t.dtype, []).append((n, t))
+        are sliced along "data" (parameter `prefix + name`'s blocks), each
+        through a `_Gather` of its own: one all-gather a leaf, and in the
+        backward one reduce-scatter a leaf as soon as its gradient is whole,
+        so that a rank stages one leaf's gathered copy or whole gradient at
+        a time, never the group's.  With grad off (serving) the all-gathers
+        run alone and no graph is built."""
         out = {}
-        for items in by_dtype.values():
-            shards = [self.layout[prefix + n] for n, _ in items]
-            blocks = [t for _, t in items]
-            whole = (_Gather.apply(self, shards, *blocks) if torch.is_grad_enabled()
-                     else self._all_gather(blocks, shards))
-            out.update(zip([n for n, _ in items], whole))
+        for n, t in named.items():
+            if not self.split(prefix + n):
+                continue
+            shards = [self.layout[prefix + n]]
+            (out[n],) = (_Gather.apply(self, shards, t) if torch.is_grad_enabled()
+                         else self._all_gather([t], shards))
         WIRE.largest_gather = max(WIRE.largest_gather, sum(_nbytes(t) for t in out.values()))
         return out
 
@@ -374,6 +445,51 @@ def axis_groups(group, mesh: Mesh) -> tuple:
         rows = [dist.new_group([world[i * M + j] for j in range(M)]) for i in range(D)]
         _AXIS_GROUPS[key] = (cols[m], rows[d])
     return _AXIS_GROUPS[key]
+
+
+def span_ranks(mesh: Mesh, span: int) -> list[list[int]]:
+    """The spans of `span` consecutive batch shards on `mesh`: each a list
+    of the mesh ranks (row-major) that take those shards' rows at one place
+    along "model", in batch-shard order (`rank_rows`: pod-major on a
+    ("pod", "data", "model") mesh).  Spans are ordered by the place along
+    "model", then by their first shard.  `span` must divide the batch
+    ranks."""
+    rules = make_rules(mesh)
+    M = mesh.shape.get("model", 1)
+    R = mesh.size // M
+    if R % span:
+        raise ValueError(f"a span of {span} batch shards does not divide the {R} batch ranks")
+    by_place: dict = {}
+    for r in range(mesh.size):
+        by_place.setdefault(r % M, {})[rank_rows(R, mesh, rules, r).start] = r
+    return [[shards[b] for b in range(j * span, (j + 1) * span)]
+            for _, shards in sorted(by_place.items()) for j in range(R // span)]
+
+
+_SPAN_GROUPS: dict = {}
+
+
+def span_group(group, mesh: Mesh, span: int):
+    """The process group of the calling rank's span (`span_ranks`): the
+    `span` ranks of its data column whose rows make one MoE dispatch group,
+    in batch-shard order, on the ("data", "model") `mesh` of `group`'s
+    ranks.  The whole column where the span is the column (its axis group);
+    else every rank makes every span's group, in `span_ranks`' order
+    (`dist.new_group`, which every rank of the default group calls), once a
+    (group, mesh, span)."""
+    if span == mesh.shape["data"]:
+        return axis_groups(group, mesh)[0]
+    key = (group, mesh.axis_sizes, span)
+    if key not in _SPAN_GROUPS:
+        world = [dist.get_global_rank(group, r) for r in range(mesh.size)]
+        me = dist.get_rank(group)
+        mine = None
+        for ranks in span_ranks(mesh, span):
+            made = dist.new_group([world[r] for r in ranks])
+            if me in ranks:
+                mine = made
+        _SPAN_GROUPS[key] = mine
+    return _SPAN_GROUPS[key]
 
 
 def _placement(group=None, place=None, mesh=None) -> tuple[Mesh, int]:

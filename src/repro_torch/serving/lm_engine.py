@@ -13,7 +13,9 @@ a ("data", "model") mesh) serves on every rank of its group: each rank
 calls `generate` with the same global prompts and runs its rows
 (`rank_rows`; every row where the data axis does not divide the batch),
 the model's prefill and decode steps gathering its weights and running its
-layers on their blocks.  Each step's f32 logits rows are gathered along
+layers on their blocks, and its MoE layers dispatching the groups of the
+whole batch (`Transformer.data_split`: a group whose rows lie on several
+ranks is dispatched with its choices gathered over them).  Each step's f32 logits rows are gathered along
 "data" to [B, V], and every rank samples from them with the same
 `torch.Generator`: every rank returns the same completions, which are the
 one-device engine's for the same logits.
@@ -50,8 +52,10 @@ class ServeEngine:
     rank put on the wire (`fsdp.WIRE`, reset at each call), by mesh axis and
     kind: `wire_prefill` of the model's prefill, `wire_decode_steps` of each
     decode step, `wire_logits` of the engine's gathers of the logits rows,
-    and `collective_s`, the host seconds of all of them by axis (all empty
-    on a whole model)."""
+    `collective_s`, the host seconds of all of them by axis, and
+    `wire_sites`, the bytes, calls and host seconds of the named sites
+    summed over the call (the MoE choices' all-gathers of a dispatch group
+    that spans ranks; all empty on a whole model)."""
 
     def __init__(self, model, max_len: int, batch_size: int,
                  sampler: SamplerConfig = SamplerConfig(), *, device=None):
@@ -76,14 +80,16 @@ class ServeEngine:
         B = len(prompts)
         rows = self._rows(B)
         ranks = B // len(rows)  # the data-parallel ranks that share the rows
+        # the rank's place in the prompts' and in a step's MoE dispatch groups
+        prefill_split, step_split = self.model.data_split(B, plen), self.model.data_split(B, 1)
         gen = torch.Generator(device=self.device).manual_seed(self.sampler.seed)
         wire = {"wire_prefill": {}, "wire_decode_steps": [], "wire_logits": 0.0,
-                "collective_s": {}}
+                "collective_s": {}, "wire_sites": {}}
         t0 = time.perf_counter()
         toks = torch.tensor(prompts, dtype=torch.int64, device=self.device)[rows.start:rows.stop]
         fsdp.WIRE.reset()
         logits, caches = self.model.prefill({"tokens": toks}, max_len=self.max_len,
-                                            dispatch_ranks=ranks)
+                                            data_split=prefill_split)
         wire["wire_prefill"] = self._read_wire(wire)
         next_tok = self._sample(self._whole_rows(logits, ranks, wire), gen)
         out = [[tok] for tok in next_tok.tolist()]
@@ -96,7 +102,7 @@ class ServeEngine:
                 break
             fsdp.WIRE.reset()
             logits, caches = self.model.decode_step(caches, next_tok[rows.start:rows.stop],
-                                                    position, dispatch_ranks=ranks)
+                                                    position, data_split=step_split)
             wire["wire_decode_steps"].append(self._read_wire(wire))
             next_tok = self._sample(self._whole_rows(logits, ranks, wire), gen)
             position += 1
@@ -136,9 +142,14 @@ class ServeEngine:
     @staticmethod
     def _read_wire(wire: dict) -> dict:
         """`fsdp.WIRE`'s bytes by axis and kind since its reset; its host
-        seconds added to wire["collective_s"] by axis."""
+        seconds added to wire["collective_s"] by axis, and its sites'
+        readings to wire["wire_sites"]."""
         for axis, kinds in fsdp.WIRE.by_axis("seconds").items():
             wire["collective_s"][axis] = wire["collective_s"].get(axis, 0.0) + sum(kinds.values())
+        for site, seen in fsdp.WIRE.by_site().items():
+            mine = wire["wire_sites"].setdefault(site, dict.fromkeys(seen, 0))
+            for k, v in seen.items():
+                mine[k] += v
         return fsdp.WIRE.by_axis()
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:

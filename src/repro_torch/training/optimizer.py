@@ -244,7 +244,8 @@ def adafactor_update(params: dict, grads: dict, opt_state: dict, step: torch.Ten
         g32 = _stack(grads, names).float()
         if g32.ndim < 2:
             continue
-        g2 = g32 * g32 + d
+        g2 = g32 * g32
+        g2.add_(d)
         means[key] = []
         for dim in (g32.ndim - 1, g32.ndim - 2):
             axis = _cut_axis(sharding, names, dim)
@@ -273,6 +274,10 @@ def adafactor_update(params: dict, grads: dict, opt_state: dict, step: torch.Ten
         stats[key] = (vr32, vc32, (norm, r_axis is None, r))
     _psum(sharding, sums)
 
+    # the update p - lr (g / max(denom, eps) + wd p), each operation in
+    # place on a tensor of the update's own where one is free (not on the
+    # caller's gradient), so that a leaf holds three leaf-sized tensors at
+    # most: the experts' leaves are GBs
     for key, names in leaves.items():
         vr32, vc32, normalizer = stats.pop(key)
         p = _stack(params, names)
@@ -282,10 +287,15 @@ def adafactor_update(params: dict, grads: dict, opt_state: dict, step: torch.Ten
         else:
             norm, is_mean, r = normalizer
             mean = norm if is_mean else norm / r
-            denom = torch.sqrt(vr32[..., :, None] * vc32[..., None, :] / torch.clamp(
-                mean[..., None, None], min=d))
+            denom = vr32[..., :, None] * vc32[..., None, :]
+            denom.div_(torch.clamp(mean[..., None, None], min=d)).sqrt_()
+        denom.clamp_(min=cfg.eps)
+        u = g32 / denom if g32 is grads[names[0]] else g32.div_(denom)
+        del g32, denom
         p32 = p.float()
-        p32 = p32 - lr * (g32 / torch.clamp(denom, min=cfg.eps) + cfg.weight_decay * p32)
+        u.add_(cfg.weight_decay * p32).mul_(lr)
+        p32 = p32 - u
+        del u
         new = p32.to(p.dtype)
         for g_idx, name in enumerate(names):
             params[name].copy_(new[g_idx] if names[0].startswith("groups.") else new)

@@ -24,11 +24,15 @@ under GSPMD:
   step after the micro-batches;
 - then compression, clipping and the update run as on one device, on the
   same gradients on every rank.
-An MoE layer dispatches the G / R groups its rows make of the whole
-micro-batch (`moe_forward(ranks=)`, through `loss_fn(dispatch_ranks=)`); a
-config whose groups the ranks cannot split raises ValueError when the step
-is built (or, for a batch too small to make whole groups, at its first
-step: `check_dispatch_split`, once a call of `accumulate_grads`).
+An MoE layer dispatches the groups of the whole micro-batch as one device
+does (`moe_forward(split=)`, through `loss_fn(data_split=)`, the rank's
+`moe.data_split` of each micro-batch): the G / R groups its rows make where
+R divides G, or, where G divides R, its share of a group whose rows lie on
+a span of R / G ranks, dispatched with the whole group's choices, gathered
+over the span.  A config whose groups the ranks cannot split (neither
+divides the other) raises ValueError when the step is built (or, for a
+batch whose token count halves G to such a split, at its first step:
+`check_dispatch_split`, once a call of `accumulate_grads`).
 
 The state stays whole on every rank unless it is sharded:
 `init_train_state(rules=..., group=..., mesh=...)` gives each rank its
@@ -74,7 +78,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.layers.moe import check_dispatch_split
+from repro_torch.models.layers.moe import DataSplit, check_dispatch_split, data_split
 from repro_torch.models.transformer import param_leaves
 from repro_torch.parallel import fsdp, tensor
 from repro_torch.parallel.sharding import Mesh, make_rules, rank_rows
@@ -227,9 +231,8 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
     params = dict(model.named_parameters())
     sharding = _sharding(model, group, place)
 
-    def grads_of(mb: dict, denominator=None, dispatch_ranks: int = 1):
-        loss = model.loss_fn(mb, remat=remat, denominator=denominator,
-                             dispatch_ranks=dispatch_ranks)
+    def grads_of(mb: dict, denominator=None, split: DataSplit | None = None):
+        loss = model.loss_fn(mb, remat=remat, denominator=denominator, data_split=split)
         got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         return loss.detach(), {n: torch.zeros_like(p) if g is None else g
                                for (n, p), g in zip(params.items(), got)}
@@ -243,17 +246,17 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
     batch = {k: v.to(model.device) for k, v in batch.items()}
     if place is None and accum == 1:
         return grads_of(batch)
-    rows = mb_rows = next(iter(batch.values())).shape[0] // accum
-    copies, shard = 1, slice(None)
+    mb_rows = next(iter(batch.values())).shape[0] // accum
+    copies, shard, split = 1, slice(None), DataSplit()
     if place is not None:
         mesh, rank = place
         mine = rank_rows(mb_rows, mesh, make_rules(mesh), rank)
-        rows, shard = len(mine), slice(mine.start, mine.stop)
+        shard = slice(mine.start, mine.stop)
         # the ranks that hold these rows and split their loss
         holders = mesh.size if sharding is None else sharding.batch_ranks
-        copies = holders * rows // mb_rows
-    ranks = mb_rows // rows  # the ranks that share micro-batch i's rows
-    check_dispatch_split(model.cfg, ranks, mb_rows, batch["labels"].shape[1])
+        copies = holders * len(mine) // mb_rows
+        # the rank's place among the ranks that share micro-batch i's rows
+        split = data_split(model.cfg, mb_rows, batch["labels"].shape[1], mesh, rank, group)
     loss = torch.zeros((), dtype=torch.float32, device=model.device)
     grads = None  # the f32 sums, in place from the first micro-batch's gradients
     for i in range(accum):
@@ -264,7 +267,7 @@ def accumulate_grads(model, batch: dict, *, accum: int = 1, remat: bool = True, 
             count = (mask.float().sum() if mask is not None else
                      torch.tensor(float(mb["labels"].numel()), device=model.device))
             denominator = copies * torch.clamp(count, min=1.0)
-        mb_loss, mb_grads = grads_of({k: v[shard] for k, v in mb.items()}, denominator, ranks)
+        mb_loss, mb_grads = grads_of({k: v[shard] for k, v in mb.items()}, denominator, split)
         loss = loss + mb_loss
         if grads is None:
             grads = {n: g.float() for n, g in mb_grads.items()}

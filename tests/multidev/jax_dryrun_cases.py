@@ -7,9 +7,8 @@ Lowers and compiles `repro.launch.dryrun.lower_cell` on the cells of
 S = 128, B = 16 and `decode_32k` at S = 256, B = 16, accum = 2) on a 4x4
 ("data", "model") mesh, and the train cell with 4 MoE dispatch groups on
 4x4 and on a data-only 4x1 mesh, with and without remat; the decode cell
-and `prefill_32k` at S = 64, B = 8 on 4x4 with 4 dispatch groups (the
-port's sharded serving rank cannot split the config's 2 over 4 data
-ranks); writes each
+and `prefill_32k` at S = 64, B = 8 on 4x4 with 4 dispatch groups and with
+the config's 2 (each of which spans 2 of the port's data ranks); writes each
 record's numbers, the production meshes' shapes and labels and
 `repro.launch.perf.VARIANTS`' descriptions to OUT.json.
 `tests/test_torch_dryrun.py` holds the port's dry run to them.  Importing
@@ -43,6 +42,8 @@ CELLS = {
     "4x4/train/noremat": ((4, 4), "train_4k", None, False),
     "4x4/decode": ((4, 4), "decode_32k", 4, True),
     "4x4/prefill": ((4, 4), "prefill_32k", 4, True),
+    "4x4/decode/g2": ((4, 4), "decode_32k", None, True),
+    "4x4/prefill/g2": ((4, 4), "prefill_32k", None, True),
     "4x4/train/g4": ((4, 4), "train_4k", 4, True),
     "4x4/train/g4/noremat": ((4, 4), "train_4k", 4, False),
     "4x1/train/g4": ((4, 1), "train_4k", 4, True),

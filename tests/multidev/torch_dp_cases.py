@@ -18,8 +18,8 @@ case's final parameters and, per R, the extra checks (`extras`):
 - R = 2: `run_training` with a failure injected before step 6 against an
   uninterrupted run, both on the two ranks (reduced qwen3-8b, one group,
   12 steps, checkpoints every 4, rank 0 writing them);
-- R = 4: `make_train_step` of reduced qwen3-moe-235b-a22b, whose two
-  dispatch groups four ranks cannot split: its ValueError.
+- R = 4: none; its MoE case ("moe_span_4ranks": reduced qwen3-moe-235b-a22b,
+  one row a rank) makes two dispatch groups, each on a span of two ranks.
 
 Exits non-zero when a rank fails or does not finish within its time limit.
 """
@@ -50,6 +50,7 @@ CASES = {
     "moe_replicated": (2, "qwen3-moe-235b-a22b", 1, None, 3, None),
     "qwen3_plain_4ranks": (4, "qwen3-8b", 1, None, 4, None),
     "qwen3_accum2_4ranks": (4, "qwen3-8b", 2, None, 4, None),  # 2-row micro-batches: replicated
+    "moe_span_4ranks": (4, "qwen3-moe-235b-a22b", 1, None, 4, None),  # 2 groups, 2 ranks each
 }
 LR, WARMUP = 1e-3, 2
 
@@ -164,19 +165,6 @@ def _resume(out_dir: Path, group) -> dict:
             "digest": _digest(crash["final_state"].params)}
 
 
-def _moe_refusal(group) -> str | None:
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.models import build_model
-    from repro_torch.training import OptConfig, make_train_step
-
-    m = build_model(reduced(get_config("qwen3-moe-235b-a22b")), device="cpu")
-    try:
-        make_train_step(m, OptConfig(), group=group)
-    except ValueError as e:
-        return str(e)
-    return None
-
-
 def _rank_main(rank: int, world: int, in_dir: str, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
@@ -191,8 +179,6 @@ def _rank_main(rank: int, world: int, in_dir: str, out_dir: str) -> None:
                              for name, case in _cases(world).items()}}
         if world == 2:
             facts["resume"] = _resume(Path(out_dir), group)
-        if world == 4:
-            facts["moe_refusal"] = _moe_refusal(group)
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(facts))
     finally:
         dist.destroy_process_group()

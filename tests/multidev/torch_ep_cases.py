@@ -98,7 +98,7 @@ def _moe_layer_ops(group, rank: int) -> dict:
 
     def run(p, region):
         xx = x.clone().requires_grad_(True)
-        out = moe_forward(p, cfg, xx, 1, region)
+        out = moe_forward(p, cfg, xx, None, region)
         got = torch.autograd.grad((out * w).sum(), [xx, p.router, p.w_in, p.w_out])
         return out.detach(), got
 

@@ -15,8 +15,7 @@ OUT_DIR/<case>_rank<r>.npz: its rows ("rows"), the f32 logits of the
 prefill ("l0") and of each step ("l<i>"), whole along "model", and its
 block of the caches after the prefill ("c0/pos<i>/<name>") and after the
 last step ("c<STEPS>/..."); then `ServeEngine` greedy and at
-TEMPERATURE on the global prompts.  A case that the ranks cannot run
-writes the error instead.  Every rank writes OUT_DIR/rank<r>.json: per
+TEMPERATURE on the global prompts.  Every rank writes OUT_DIR/rank<r>.json: per
 case its rows, the bytes of its parameter blocks and cache block, the
 largest gather, the wire bytes by axis and kind of the prefill and of each
 decode step (`fsdp.WIRE`, reset just before each), the engine's
@@ -57,7 +56,7 @@ CASES = {
     "moe_1x2": ((1, 2), "qwen3-moe-235b-a22b", 2, None),
     "moe_2x2": ((2, 2), "qwen3-moe-235b-a22b", 2, None),
     "moe_1x4": ((1, 4), "qwen3-moe-235b-a22b", 2, None),
-    # one dispatch group on two data ranks: the split refused
+    # one dispatch group on two data ranks: each rank's row is half of it
     "moe_one_group_2x1": ((2, 1), "qwen3-moe-235b-a22b", 2, {"n_dispatch_groups": 1}),
 }
 MESHES = ("2x1", "1x2", "2x2", "1x4")
@@ -106,29 +105,26 @@ def _run_case(name: str, case, in_dir: Path, out_dir: Path, group, rank: int) ->
     fsdp.shard_model(model, make_rules(mesh, model_cfg=cfg), group=group, mesh=mesh)
     toks = np.load(in_dir / tokens_file(arch, B))
     rows = rank_rows(B, mesh, make_rules(mesh), rank)
-    ranks = B // len(rows)
     facts = {"rows": [rows.start, rows.stop], "param_bytes": _nbytes(model.parameters())}
     out = {"rows": np.array([rows.start, rows.stop])}
     prompts = torch.from_numpy(toks["prompts"]).long()
+    S = prompts.shape[1]
+    split, step_split = model.data_split(B, S), model.data_split(B, 1)
     fsdp.WIRE.reset()
-    try:
-        logits, caches = model.prefill({"tokens": prompts[rows.start:rows.stop]}, MAX_LEN,
-                                       dispatch_ranks=ranks)
-    except ValueError as e:
-        facts["error"] = str(e)
-        return facts
+    logits, caches = model.prefill({"tokens": prompts[rows.start:rows.stop]}, MAX_LEN,
+                                   data_split=split)
     facts["wire_prefill"] = fsdp.WIRE.by_axis()
+    facts["choices_prefill"] = fsdp.WIRE.by_site()
     facts["largest_gather"] = fsdp.WIRE.largest_gather
     facts["cache_bytes"] = _nbytes(_flat_t(caches).values())
     facts["cache_shapes"] = {k: list(t.shape) for k, t in _flat_t(caches).items()}
     out["l0"] = logits.float().numpy()
     out.update({f"c0/{k}": t.numpy().copy() for k, t in _flat_t(caches).items()})
     facts["wire_steps"] = []
-    S = prompts.shape[1]
     for s in range(STEPS):
         tok = torch.from_numpy(toks["steps"][s]).long()[rows.start:rows.stop]
         fsdp.WIRE.reset()
-        logits, caches = model.decode_step(caches, tok, S + s, dispatch_ranks=ranks)
+        logits, caches = model.decode_step(caches, tok, S + s, data_split=step_split)
         facts["wire_steps"].append(fsdp.WIRE.by_axis())
         out[f"l{s + 1}"] = logits.float().numpy()
     out.update({f"c{STEPS}/{k}": t.numpy() for k, t in _flat_t(caches).items()})

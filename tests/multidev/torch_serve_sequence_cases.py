@@ -61,7 +61,7 @@ def label(mesh) -> str:
     return f"{mesh[0]}x{mesh[1]}"
 
 
-def _masked_step(model, caches, tok, position: int, ranks: int) -> bool:
+def _masked_step(model, caches, tok, position: int, split) -> bool:
     """Whether a decode step at `position` gives the same logits bits with
     the local layers' k and v at positions [0, 6) overwritten (module
     docstring)."""
@@ -77,8 +77,8 @@ def _masked_step(model, caches, tok, position: int, ranks: int) -> bool:
         if spec.mixer == "attn_local" and seq.start < 6:
             for t in changed[f"pos{i}"].values():
                 t[:, :, :6 - seq.start] = 1e3 * torch.randn_like(t[:, :, :6 - seq.start])
-    a, _ = model.decode_step(plain, tok, position, dispatch_ranks=ranks)
-    b, _ = model.decode_step(changed, tok, position, dispatch_ranks=ranks)
+    a, _ = model.decode_step(plain, tok, position, data_split=split)
+    b, _ = model.decode_step(changed, tok, position, data_split=split)
     return bool(torch.equal(a, b))
 
 
@@ -101,12 +101,12 @@ def _run_case(name: str, case, in_dir: Path, out_dir: Path, group, rank: int) ->
     fsdp.shard_model(model, make_rules(mesh, model_cfg=cfg), group=group, mesh=mesh)
     toks = np.load(in_dir / tokens_file(arch, B))
     rows = rank_rows(B, mesh, make_rules(mesh), rank)
-    ranks = B // len(rows)
     out = {"rows": np.array([rows.start, rows.stop])}
     prompts = torch.from_numpy(toks["prompts"]).long()
+    split, step_split = model.data_split(B, prompts.shape[1]), model.data_split(B, 1)
     fsdp.WIRE.reset()
     logits, caches = model.prefill({"tokens": prompts[rows.start:rows.stop]}, max_len,
-                                   dispatch_ranks=ranks)
+                                   data_split=split)
     seq = caches.sequence
     facts = {"rows": [rows.start, rows.stop],
              "sequence": None if seq is None else [seq.start, seq.stop],
@@ -120,13 +120,13 @@ def _run_case(name: str, case, in_dir: Path, out_dir: Path, group, rank: int) ->
     for s in range(STEPS):
         tok = torch.from_numpy(toks["steps"][s]).long()[rows.start:rows.stop]
         fsdp.WIRE.reset()
-        logits, caches = model.decode_step(caches, tok, S + s, dispatch_ranks=ranks)
+        logits, caches = model.decode_step(caches, tok, S + s, data_split=step_split)
         facts["wire_steps"].append(fsdp.WIRE.by_axis())
         out[f"l{s + 1}"] = logits.float().numpy()
     out.update({f"c{STEPS}/{k}": t.numpy() for k, t in _flat_t(caches).items()})
     if name == MASKED:
         tok = torch.from_numpy(toks["steps"][-1]).long()[rows.start:rows.stop]
-        facts["masked_equal"] = _masked_step(model, caches, tok, S + STEPS, ranks)
+        facts["masked_equal"] = _masked_step(model, caches, tok, S + STEPS, step_split)
     np.savez(out_dir / f"{name}_rank{rank}.npz", **out)
     facts["engine"] = {}
     for mode, temperature in (("greedy", 0.0), ("temperature", TEMPERATURE)):

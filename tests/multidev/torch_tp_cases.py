@@ -21,8 +21,9 @@ blocks it holds, stacked over the groups as the JAX tree stacks them
 ("p/...", "m/...", "v/...").  Every rank writes OUT_DIR/rank<r>.json:
 per case the sha256 of the final whole parameters, of each leaf's block
 after each step ("blocks", by step and leaf key), the bytes of the state
-it holds, the wire bytes of each step by axis and kind (`fsdp.WIRE`,
-reset just before the step) and the layout's leaves summed over "model";
+it holds, the wire bytes of each step by axis and kind and by named site
+(`fsdp.WIRE`, reset just before the step) and the layout's leaves summed
+over "model";
 and on 1x2 also `ops` (the operators against the whole computation),
 `resume` (`run_training(rules=..., mesh=...)` with a failure injected
 before step 6 against an uninterrupted run: reduced qwen3-8b, one group,
@@ -123,7 +124,7 @@ def _run_case(name: str, case, in_dir: Path, out_dir: Path, group, rank: int,
     sharding = state.params.fsdp
     step = make_train_step(state.params, OptConfig(lr=LR, warmup_steps=WARMUP), accum=accum,
                            compress_bits=bits, group=group)
-    out, facts = {}, {"blocks": [], "wire": []}
+    out, facts = {}, {"blocks": [], "wire": [], "sites": []}
     facts["state_bytes"] = (sum(p.numel() * p.element_size() for p in state.params.parameters())
                             + sum(t.numel() * t.element_size()
                                   for part in state.opt.values() for t in part.values()))
@@ -140,6 +141,7 @@ def _run_case(name: str, case, in_dir: Path, out_dir: Path, group, rank: int,
         fsdp.WIRE.reset()
         state, m = step(state, batch)
         facts["wire"].append(fsdp.WIRE.by_axis())
+        facts["sites"].append(fsdp.WIRE.by_site())
         facts["blocks"].append(_leaf_digests(state))
         out[f"s{s}/loss"] = np.float32(m["loss"].item())
         out[f"s{s}/grad_norm"] = np.float32(m["grad_norm"].item())

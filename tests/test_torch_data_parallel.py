@@ -25,7 +25,9 @@ clipping and its AdamW.  Tolerances, f32, as the one-device tests':
   elements.
 Every rank ends with the same parameters, bit for bit.  Crash and resume
 on two ranks ends bit-identical to the uninterrupted two-rank run; four
-ranks refuse reduced qwen3-moe (two dispatch groups) with a ValueError;
+ranks step reduced qwen3-moe (two dispatch groups, each on a span of two
+ranks) as one rank does, within the step tolerances; a split whose groups
+and ranks divide neither the other raises ValueError;
 `launch.train.main` on two gloo ranks prints one `done:` line.
 """
 
@@ -253,21 +255,50 @@ def test_crash_and_resume_on_two_ranks_is_bit_identical(runs):
     assert losses[1] < losses[0]
 
 
-def test_moe_groups_that_the_ranks_cannot_split_raise(runs):
-    """Reduced qwen3-moe makes two dispatch groups: four ranks cannot each
-    hold whole groups, so building the step raises, naming G, R and that no
-    global batch would divide."""
+def test_moe_groups_shared_by_two_ranks_step_as_one_rank(runs):
+    """Reduced qwen3-moe makes two dispatch groups of a 4-row batch: on four
+    ranks each group's rows lie on two, which dispatch it from their
+    gathered choices.  Rank 0's losses, gradient norms, gradients and
+    parameters after each step match the port's one-rank step on the same
+    batches (STEP_RTOL, GRAD_REL, PARAM_REL)."""
+    import torch
+
+    from repro_torch.interop import lm_params_to_numpy, train_state_from_numpy
+    from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training.train_step import accumulate_grads
+
     _, root, _, _ = runs
-    for r in range(4):
-        msg = json.loads((root / "r4" / f"rank{r}.json").read_text())["moe_refusal"]
-        assert msg is not None
-        assert "G = 2" in msg and "R = 4" in msg and "no global batch" in msg
+    name = "moe_span_4ranks"
+    _, arch, *_ = cases.CASES[name]
+    cfg = _cfgs(arch)[1]
+    npz = np.load(root / "r4" / f"{name}.npz")
+    P = cases._nest(dict(np.load(root / "in" / f"params_{arch}.npz")))
+    zeros = {part: cases._nest({k: np.zeros_like(v) for k, v in cases._flat(P).items()})
+             for part in ("m", "v")}
+    state = train_state_from_numpy(cfg, P, zeros, 0, device="cpu")
+    step = make_train_step(state.params, OptConfig(lr=cases.LR, warmup_steps=cases.WARMUP))
+    for s in range(cases.STEPS):
+        batch = {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v)
+                 for k, v in _batch(name, s).items()}
+        _, g = accumulate_grads(state.params, batch)
+        gp = {k[len(f"s{s}/g/"):]: npz[k] for k in npz.files if k.startswith(f"s{s}/g/")}
+        assert_tree_close(gp, flat(lm_params_to_numpy(cfg, g)), GRAD_REL, GRAD_ABS)
+        state, m = step(state, batch)
+        np.testing.assert_allclose(float(npz[f"s{s}/loss"]), m["loss"].item(), rtol=STEP_RTOL)
+        np.testing.assert_allclose(float(npz[f"s{s}/grad_norm"]), m["grad_norm"].item(),
+                                   rtol=STEP_RTOL)
+        nxt = f"s{s + 1}/p/" if s + 1 < cases.STEPS else "final/p/"
+        got = {k[len(nxt):]: npz[k] for k in npz.files if k.startswith(nxt)}
+        assert_tree_close(got, flat(lm_params_to_numpy(cfg, state.params)), PARAM_REL)
 
 
-def test_moe_dispatch_split_error_names_a_batch_that_divides():
-    """Where R divides the configured groups but a batch's token count makes
-    G halve past them (12 groups, 4 x 5 tokens: G = 12, 6, 3, then 1): the
-    error names a global batch that would divide (12 x 5: G = 12)."""
+def test_moe_dispatch_split_error_says_neither_divides():
+    """12 groups on 8 ranks: neither divides the other, so no rank can hold
+    whole groups and no group lies on whole spans.  The error names G, R
+    and why, and that no batch would split (8 x 3 tokens: G is 12 for
+    every multiple of 8 rows).  A split that either divides passes, also
+    where a batch's token count halves G (8 x 5: 40 tokens make one group,
+    on all 8 ranks)."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -275,11 +306,17 @@ def test_moe_dispatch_split_error_names_a_batch_that_divides():
 
     cfg = reduced(get_config("qwen3-moe-235b-a22b"))
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_dispatch_groups=12))
-    check_dispatch_split(cfg, 4)  # 12 groups: whole groups for 4 ranks
-    check_dispatch_split(cfg, 4, rows=4, S=3)  # G = 12
-    assert dispatch_shape(cfg, 4, 5)[0] == 1 and dispatch_shape(cfg, 12, 5)[0] == 12
-    with pytest.raises(ValueError, match=r"G = 1 .* R = 4 .* a global \(micro-\)batch of 12 x 5"):
-        check_dispatch_split(cfg, 4, rows=4, S=5)
+    check_dispatch_split(cfg, 4)  # R | G: 3 whole groups a rank
+    check_dispatch_split(cfg, 24)  # G | R: each group on a span of 2
+    assert dispatch_shape(cfg, 8, 5)[0] == 1
+    check_dispatch_split(cfg, 8, rows=8, S=5)
+    with pytest.raises(ValueError, match=r"G = 12 .* R = 8 .* neither divides the other"
+                                         r".* no global batch of 12 tokens or more"):
+        check_dispatch_split(cfg, 8)
+    assert dispatch_shape(cfg, 8, 3)[0] == 12
+    with pytest.raises(ValueError, match=r"8 x 3 tokens makes G = 12 .* R = 8 .* neither "
+                                         r"divides .* no global batch"):
+        check_dispatch_split(cfg, 8, rows=8, S=3)
 
 
 def test_the_launcher_trains_on_two_gloo_ranks(runs):

@@ -28,15 +28,21 @@ What the port counts, and how it stands to JAX's numbers on these cells:
   the whole d_model of the gathered leaf for its one KV head.  The port's
   JAX-mesh view (its count over the ranks that repeat it) is pinned to
   the ratio of the two integer counts.
-- The smoke train cell itself (2 MoE dispatch groups) is one the port
-  cannot run data-parallel on 4 data ranks (`check_dispatch_split`); the
-  FLOP comparison runs it with 4 dispatch groups on both sides.  So do the
-  decode and prefill cells, whose rank serves on the sharded state (4 of
-  the 16 rows, 2 of the 8; the layers on its "model" blocks): on 4x4 their
-  count is the rank's count whole along "model" (the 4x1 mesh's) less the
-  share the 4 ranks along "model" split, derived from the shapes
-  (`serve_split_flops`), and their JAX-mesh view is pinned to JAX's 4x4
-  count as the ratio of the two integer counts.
+- The FLOP comparison runs the train cell with 4 dispatch groups on both
+  sides.  So do the decode and prefill cells, whose rank serves on the
+  sharded state (4 of the 16 rows, 2 of the 8; the layers on its "model"
+  blocks): on 4x4 their count is the rank's count whole along "model" (the
+  4x1 mesh's) less the share the 4 ranks along "model" split, derived from
+  the shapes (`serve_split_flops`), and their JAX-mesh view is pinned to
+  JAX's 4x4 count as the ratio of the two integer counts.
+- The smoke config's own 2 MoE dispatch groups on 4 data ranks (the train
+  cell, and the serving cells "g2"): each group's rows lie on a span of 2
+  ranks, and the port's rank dispatches its whole group from the span's
+  gathered choices (`repro_torch.models.layers.moe`).  Its count is the
+  4-group cell's plus the experts' products on the group's larger capacity
+  (`span_expert_flops`, from the shapes); JAX's per-device program runs
+  both groups on every data rank (`sanitize_pspec` drops "data" from G),
+  and the ratio of the two counts is pinned.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.launch import dryrun as dr
 from repro_torch.launch import perf
 from repro_torch.launch.mesh import make_production_mesh, mesh_label
+from repro_torch.models.layers.moe import DataSplit
 from repro_torch.models.transformer import Transformer
 from repro_torch.parallel.sharding import Mesh
 
@@ -77,6 +84,8 @@ CELLS = {
     "4x4/train/noremat": ((4, 4), "train_4k", None, False),
     "4x4/decode": ((4, 4), "decode_32k", 4, True),
     "4x4/prefill": ((4, 4), "prefill_32k", 4, True),
+    "4x4/decode/g2": ((4, 4), "decode_32k", None, True),
+    "4x4/prefill/g2": ((4, 4), "prefill_32k", None, True),
     "4x4/train/g4": ((4, 4), "train_4k", 4, True),
     "4x4/train/g4/noremat": ((4, 4), "train_4k", 4, False),
     "4x1/train/g4": ((4, 1), "train_4k", 4, True),
@@ -85,15 +94,23 @@ CELLS = {
 # The port's JAX-mesh view of the dot FLOPs over JAX's 4x4 dot_flops, as the
 # ratio of two integer counts of deterministic programs (measured: the port's
 # view 106,954,752 / 81,788,928 / 233,472 / 5,775,360 against JAX's
-# 117,440,512 / 88,080,384 / 249,856 / 6,299,648).  Every cell's rank runs
-# on its "data" and "model" blocks: the train cells' the tensor- and
-# expert-parallel step, the decode and prefill cells' the sharded serving
-# pass, whose count `test_a_serving_ranks_program_is_the_data_only_rank_less_the_model_split`
-# derives from the shapes.
+# 117,440,512 / 88,080,384 / 249,856 / 6,299,648; with the config's 2
+# dispatch groups, each on a span of 2 data ranks, SPAN_PORT_FLOPS against
+# JAX's SPAN_JAX_FLOPS).  Every cell's rank runs on its "data" and "model"
+# blocks: the train cells' the tensor- and expert-parallel step, the decode
+# and prefill cells' the sharded serving pass, whose count
+# `test_a_serving_ranks_program_is_the_data_only_rank_less_the_model_split`
+# derives from the shapes; a span cell's is its 4-group cell's plus
+# `span_expert_flops`.
+SPAN_PORT_FLOPS = {"4x4/train": 138_412_032, "4x4/train/noremat": 105_381_888,
+                   "4x4/decode/g2": 307_200, "4x4/prefill/g2": 7_741_440}
+SPAN_JAX_FLOPS = {"4x4/train": 155_189_248, "4x4/train/noremat": 108_527_616,
+                  "4x4/decode/g2": 274_432, "4x4/prefill/g2": 10_625_024}
 FLOP_RATIO = {"4x4/train/g4": 106_954_752 / 117_440_512,
               "4x4/train/g4/noremat": 81_788_928 / 88_080_384,
               "4x4/decode": 233_472 / 249_856,
-              "4x4/prefill": 5_775_360 / 6_299_648}
+              "4x4/prefill": 5_775_360 / 6_299_648,
+              **{k: SPAN_PORT_FLOPS[k] / SPAN_JAX_FLOPS[k] for k in SPAN_PORT_FLOPS}}
 
 
 def groups(n):
@@ -145,17 +162,63 @@ def jax_cells(jax_run):
 # The records against JAX's
 # --------------------------------------------------------------------------
 
-def test_the_smoke_train_cell_is_one_the_port_cannot_run(port_cells):
-    """2 dispatch groups over 4 data ranks: the port's step refuses the split,
-    so the record is `ok: false` and says why."""
-    rec = port_cells["4x4/train"]
-    assert rec["ok"] is False and rec["accum"] == 2
-    assert "cannot run this cell data-parallel" in rec["error"]
-    assert "G = 2" in rec["error"] and "R = 4" in rec["error"]
-    assert port_cells["4x4/train/noremat"]["ok"] is False
+def span_expert_flops(cfg, kind: str, rows: int, S: int, accum: int, M: int, remat: bool,
+                      D: int = 4) -> int:
+    """The dot FLOPs by which a rank's program with the config's dispatch
+    groups, each on a span of D / G ranks, exceeds the same program with
+    D groups (one a rank), from the shapes: the rank's E / M experts run on
+    its group's whole capacity instead of its own group's, forward (and
+    the remat recompute) and twice in the backward for a train step.  The
+    routing and the combine run on the rank's own tokens either way."""
+    from repro_torch.models.layers.moe import dispatch_shape
+
+    tokens = 1 if kind == "decode" else S
+    G, _, cap = dispatch_shape(cfg, rows * D, tokens)
+    G4, _, cap4 = dispatch_shape(dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, n_dispatch_groups=D)), rows * D, tokens)
+    assert D % G == 0 and G < D and G4 == D  # a span of D / G ranks against one group a rank
+    per_slot = 2 * cfg.d_model * 3 * cfg.moe.d_ff_expert * (cfg.moe.n_experts // M)
+    passes = (4 if remat else 3) * accum if kind == "train" else 1
+    return cfg.n_groups * passes * per_slot * (cap - cap4)
 
 
-@pytest.mark.parametrize("name", ["4x4/train/g4", "4x4/decode", "4x4/prefill"])
+@pytest.mark.parametrize("name, base", [("4x4/train", "4x4/train/g4"),
+                                        ("4x4/train/noremat", "4x4/train/g4/noremat"),
+                                        ("4x4/decode/g2", "4x4/decode"),
+                                        ("4x4/prefill/g2", "4x4/prefill")])
+def test_the_smoke_cells_run_their_two_dispatch_groups_on_spans_of_two_ranks(
+        port_cells, jax_cells, name, base):
+    """The smoke config's 2 dispatch groups over 4 data ranks: each group's
+    rows lie on a span of 2 ranks, whose choices the rank all-gathers along
+    "data" (once a layer a pass: forward and remat recompute), so the record
+    is `ok`.  Its dot FLOPs are the 4-group cell's plus the experts on the
+    group's whole capacity (`span_expert_flops`); its model FLOPs are
+    JAX's, and its argument bytes JAX's but for the int64 tokens."""
+    rec, ms = port_cells[name], CELLS[name][0]
+    kind, shape = CELLS[name][1].split("_")[0], CELLS[name][1]
+    assert rec["ok"] is True and rec["rank"]["data_shards"] == 4
+    cfg = reduced(get_config(SMOKE_ARCH), groups=2)
+    S, B = SMOKE_SHAPES[shape]
+    accum = 2 if kind == "train" else 1
+    rows = B // accum // 4
+    remat = not name.endswith("noremat")
+    extra = span_expert_flops(cfg, kind, rows, S, accum, M=4, remat=remat)
+    assert rec["hlo"]["dot_flops"] == port_cells[base]["hlo"]["dot_flops"] + extra
+    assert rec["hlo"]["dot_flops"] == SPAN_PORT_FLOPS[name]
+    assert rec["roofline"]["model_flops"] == jax_cells["cells"][name]["model_flops"]
+    gap = token_bytes_over_jax(shape, Mesh(ms, ("data", "model")))
+    assert rec["memory"]["argument_bytes"] - jax_cells["cells"][name]["memory"][
+        "argument_bytes"] == gap
+    # the choices: the other rank's int64 [tokens, K], once a MoE layer a pass
+    tokens = rows * (1 if kind == "decode" else S)
+    passes = accum * (2 if kind == "train" and remat else 1) * cfg.n_groups
+    site = rec["hlo"]["collective_by_site"]["moe-choices"]
+    assert site == {"bytes": passes * tokens * cfg.moe.top_k * 8 * (2 - 1), "calls": passes}
+    assert jax_cells["cells"][name]["hlo"]["dot_flops"] == SPAN_JAX_FLOPS[name]
+
+
+@pytest.mark.parametrize("name", ["4x4/train/g4", "4x4/decode", "4x4/prefill", "4x4/train",
+                                  "4x4/decode/g2", "4x4/prefill/g2"])
 def test_model_flops_equal_jax(port_cells, jax_cells, name):
     got = port_cells[name]["roofline"]["model_flops"]
     assert got == jax_cells["cells"][name]["model_flops"]
@@ -177,7 +240,9 @@ def token_bytes_over_jax(cfg_shape: str, mesh: Mesh) -> int:
 
 
 @pytest.mark.parametrize("name, gap", [("4x4/train/g4", 4096), ("4x4/decode", 16),
-                                       ("4x1/train/g4", 4096), ("4x4/prefill", 512)])
+                                       ("4x1/train/g4", 4096), ("4x4/prefill", 512),
+                                       ("4x4/train", 4096), ("4x4/decode/g2", 16),
+                                       ("4x4/prefill/g2", 512)])
 def test_argument_bytes_equal_jax_but_for_the_int64_tokens(port_cells, jax_cells, name, gap):
     ms, shape, _, _ = CELLS[name]
     assert token_bytes_over_jax(shape, Mesh(ms, ("data", "model"))) == gap
@@ -307,16 +372,37 @@ def test_a_serving_ranks_program_is_the_data_only_rank_less_the_model_split(
 
 
 @pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
-def test_the_smoke_serving_cells_with_two_dispatch_groups_are_refused(shape):
+def test_the_smoke_serving_cells_with_two_dispatch_groups_run_on_spans(port_cells, shape):
     """The smoke config's 2 MoE dispatch groups over 4 data ranks: a
-    sharded serving rank keeps the one-device groups, so the cell is
-    `ok: false` with `check_dispatch_split`'s reason, as the train cell."""
-    s, a = smoke()
-    with s, a:
-        rec, _ = dr.lower_cell("smoke", shape, Mesh((4, 4), ("data", "model")))
-    assert rec["ok"] is False and rec["accum"] is None
-    assert "cannot run this cell data-parallel" in rec["error"]
-    assert "G = 2" in rec["error"] and "R = 4" in rec["error"]
+    sharded serving rank dispatches its group's whole capacity from the
+    choices of the 2 ranks its group spans, so the cell is `ok`, its
+    choices' all-gathers counted along "data" (one a MoE layer).  Its wire
+    differs from the 4-group cell's by those gathers and by the all-gather
+    of the experts' outputs along "model" over the group's larger capacity;
+    its rank holds the same bytes."""
+    from repro_torch.models.layers.moe import dispatch_shape
+
+    name = f"4x4/{shape.split('_')[0]}/g2"
+    rec, base = port_cells[name], port_cells[name[:-3]]
+    assert rec["ok"] is True and rec["accum"] is None
+    cfg = reduced(get_config(SMOKE_ARCH), groups=2)
+    site = rec["hlo"]["collective_by_site"]["moe-choices"]
+    assert site["calls"] == cfg.n_groups
+    assert base["hlo"]["collective_by_site"] == {}
+
+    def gathers(r, axis):
+        return r["hlo"]["collective_by_axis"][axis]["all-gather"]
+
+    S, B = SMOKE_SHAPES[shape]
+    tokens = 1 if shape == "decode_32k" else S
+    cap = dispatch_shape(cfg, B, tokens)[2]
+    cap4 = dispatch_shape(groups(4)(cfg), B, tokens)[2]
+    y = cfg.n_groups * cfg.moe.n_experts * (cap - cap4) * cfg.d_model * 4 * 3 / 4
+    assert gathers(rec, "data") == gathers(base, "data") + site["bytes"]
+    assert gathers(rec, "model") == gathers(base, "model") + y
+    assert rec["hlo"]["collective_wire_bytes"] == (base["hlo"]["collective_wire_bytes"]
+                                                   + site["bytes"] + y)
+    assert rec["memory"]["port_rank_bytes"] == base["memory"]["port_rank_bytes"]
 
 
 @pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
@@ -383,7 +469,7 @@ def test_remat_adds_one_forward_of_every_group(port_cells):
     positions = torch.arange(128, device="meta")
     with FlopCounterMode(display=False) as fc:
         for g in range(len(model.groups)):
-            model._group_fn(g)(cfg, x, positions, backend="ref", dispatch_ranks=4)
+            model._group_fn(g)(cfg, x, positions, backend="ref", data_split=DataSplit(4))
     accum = 2
     got = port_cells["4x4/train/g4"]["hlo"]["dot_flops"]
     assert got == port_cells["4x4/train/g4/noremat"]["hlo"]["dot_flops"] + accum * (
@@ -442,7 +528,7 @@ def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
     groups, untied head, f32.  Along "data", per micro-batch: the embed,
     the head and each group gathered (each group again in the remat
     recompute) whole along "data" from their blocks (sliced along "model"),
-    and their gradients reduce-scattered; then the gradients of the leaves
+    one call a leaf, and their gradients reduce-scattered; then the gradients of the leaves
     whole along "data" with the loss all-reduced, and the norm's sum of
     squares.  Along "model", per micro-batch, all-reduces of the f32
     [2, 128, 64] activations: the lookup's sum, each group's attention
@@ -478,7 +564,8 @@ def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
     by_kind = rec["hlo"]["collective_by_kind"]
     assert by_kind == {k: data[k] + model[k] for k in data}
     assert rec["hlo"]["collective_wire_bytes"] == sum(by_kind.values())
-    data_calls = accum * (2 + 2 * 2) + accum * (2 + 2) + 2
+    leaves = sum(n.startswith("groups.") for n in gathered)  # one gather a leaf
+    data_calls = accum * (2 + 2 * leaves) + accum * (2 + leaves) + 2
     model_calls = accum * (1 + 4 * 2 + 1 + 3 + 2 * 2) + 2
     assert rec["hlo"]["n_collective_sites"] == data_calls + model_calls
     # The decode cell (4 rows, 4 dispatch groups): along "data" the embed,
@@ -505,7 +592,7 @@ def test_collective_bytes_are_the_sharded_steps_collectives(port_cells):
     assert dec["hlo"]["collective_by_axis"] == want
     assert dec["hlo"]["collective_wire_bytes"] == sum(
         sum(v.values()) for v in want.values()) > 0
-    assert dec["hlo"]["n_collective_sites"] == (2 + 2) + (1 + 2 + 2 + 1) + 3 * cfg.n_groups
+    assert dec["hlo"]["n_collective_sites"] == (2 + leaves) + (1 + 2 + 2 + 1) + 3 * cfg.n_groups
 
 
 def test_port_rank_bytes_hold_the_ranks_slices(port_cells):
@@ -700,16 +787,15 @@ def test_cli_writes_every_cell_of_an_arch(tmp_path, capsys):
     argv = ["--arch", "smoke", "--shape", "train_4k,decode_32k", "--mesh", "single",
             "--out", str(out)]
     with s, a:
-        # the decode cell's 16 rows over 16 data ranks cannot split the smoke config's
-        # 2 MoE dispatch groups (a serving rank keeps the one-device groups): it is
-        # written `ok: false`, and the CLI exits 1 after writing every cell
-        for _ in range(2):  # the second run resumes: the train cell is cached
-            with pytest.raises(SystemExit, match="1"):
-                dr.main(argv)
+        # the decode cell's 16 rows over 16 data ranks make the smoke config's 2 MoE
+        # dispatch groups, each on a span of 8 ranks that gather their choices
+        dr.main(argv)
+        dr.main(argv)  # the second run resumes: both cells are cached
     recs = json.loads(out.read_text())
     assert [(r["shape"], r["mesh"], r["ok"]) for r in recs] == [
-        ("train_4k", "16x16", True), ("decode_32k", "16x16", False)]
-    assert "G = 2" in recs[1]["error"] and "R = 16" in recs[1]["error"]
+        ("train_4k", "16x16", True), ("decode_32k", "16x16", True)]
+    assert recs[1]["rank"]["data_shards"] == 16 and recs[1]["rank"]["rows"] == 1
+    assert recs[1]["hlo"]["collective_by_site"]["moe-choices"]["calls"] == 2
     # B = 16 rows over 16 data ranks at accum 4: every rank takes all 4 rows of a micro-batch;
     # the 16 ranks along "data" repeat the program, the 16 along "model" split its vocab
     assert recs[0]["rank"] == {"rank": 0, "rows": 4, "data_shards": 1, "repetition": 16}

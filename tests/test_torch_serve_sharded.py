@@ -10,8 +10,9 @@ ranks, kv dropped) and with 3 rows on (2, 1) (every rank runs every row),
 falcon-mamba-7b, gemma2-9b (tied head, softcap, local window) on (1, 2)
 and (2, 2), jamba-v0.1-52b (attention, mamba and MoE) on (2, 2), and
 qwen3-moe-235b-a22b (the experts split along "model") on (1, 2), (2, 2)
-and (1, 4); and qwen3-moe with one dispatch group on (2, 1), which the
-ranks cannot split.  Both sides get the same numpy parameters (through
+and (1, 4); and qwen3-moe with one dispatch group on (2, 1), whose rows
+lie on both ranks (a span: each dispatches the whole group from the
+choices gathered over both).  Both sides get the same numpy parameters (through
 `repro_torch.interop`), prompts and teacher-forced decode tokens; this
 file runs JAX's `prefill` and three `decode_step`s meanwhile.
 
@@ -273,20 +274,52 @@ def test_a_batch_the_data_axis_does_not_divide_runs_every_row_on_every_rank(runs
         assert set(f["wire_prefill"]) == {"data"} and f["wire_prefill"]["data"]["all-gather"] > 0
 
 
-def test_an_moe_split_the_ranks_cannot_dispatch_raises(runs):
-    """One dispatch group on two data ranks: every rank's prefill raises
-    `check_dispatch_split`'s ValueError (the training step's message)
-    before any collective; so does a whole model's call told of 2 ranks."""
-    for f in _facts(runs, "moe_one_group_2x1"):
-        assert "G = 1 MoE dispatch groups" in f["error"] and "R = 2" in f["error"]
-        assert "wire_prefill" not in f
-    cfg = cases.case_cfg("qwen3-moe-235b-a22b", {"n_dispatch_groups": 1})
+def test_an_moe_group_on_two_data_ranks_serves_as_one_device(runs):
+    """One dispatch group on two data ranks: each rank's row is half of the
+    group, and both dispatch it whole from their gathered choices.  Each
+    rank's prefill and decode logits are its rows of JAX's one-device
+    `prefill` and `decode_step` on the same config, within LOGIT_REL of
+    max|logit|; the prefill all-gathers the choices along "data" once a MoE
+    layer (site "moe-choices": the other rank's 16 tokens x top-2 int64);
+    `ServeEngine`'s completions are the one-device port engine's.  Without a
+    process group a span raises rather than dispatch the rows alone, and
+    `data_split`, which a serving rank calls before any collective, refuses
+    a split whose G and R divide neither the other."""
+    from repro_torch.models.layers.moe import DataSplit, data_split
+
+    name = "moe_one_group_2x1"
+    _, _, root, _ = runs
+    (D, _), arch, B, overrides = cases.CASES[name]
+    jcfg = jreduced(jget(arch))
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, **overrides))
+    cfg = cases.case_cfg(arch, overrides)
+    P = fcases._nest(dict(np.load(root / "in" / f"params_{arch}.npz")))
+    t = np.load(root / "in" / cases.tokens_file(arch, B))
+    jm, jP = jbuild(jcfg), jax.tree.map(jnp.asarray, P)
+    logits, jc = jm.prefill(jP, {"tokens": jnp.asarray(t["prompts"])}, max_len=cases.MAX_LEN)
+    want = [np.asarray(logits, np.float32)]
+    for s in range(cases.STEPS):
+        logits, jc = jm.decode_step(jP, jc, jnp.asarray(t["steps"][s]), jnp.int32(PROMPT + s))
+        want.append(np.asarray(logits, np.float32))
+    for rank, f in enumerate(_facts(runs, name)):
+        assert f["rows"] == [rank, rank + 1]
+        got = _rank_npz(runs, name, rank)
+        for i, w in enumerate(want):
+            w = w[rank:rank + 1]
+            assert np.abs(got[f"l{i}"] - w).max() <= LOGIT_REL * np.abs(w).max(), (rank, i)
+        assert f["choices_prefill"]["moe-choices"]["calls"] == cfg.n_groups
+        assert f["choices_prefill"]["moe-choices"]["bytes"] == (
+            cfg.n_groups * PROMPT * cfg.moe.top_k * 8)
+        for mode, temp in (("greedy", 0.0), ("temperature", cases.TEMPERATURE)):
+            assert f["engine"][mode]["completions"] == _one_device_engine(
+                cfg, P, t["prompts"].tolist(), temp), mode
     model = build_model(cfg, device="cpu")
-    with pytest.raises(ValueError, match="cannot split into whole groups"):
-        model.prefill({"tokens": torch.zeros(1, 4, dtype=torch.int64)}, 8, dispatch_ranks=2)
-    caches = model.init_caches(1, 8)
-    with pytest.raises(ValueError, match="cannot split into whole groups"):
-        model.decode_step(caches, torch.zeros(1, dtype=torch.int64), 0, dispatch_ranks=2)
+    with pytest.raises(ValueError, match="needs a process group"):
+        model.prefill({"tokens": torch.zeros(1, 4, dtype=torch.int64)}, 8,
+                      data_split=DataSplit(2))
+    # a decode step of 6 rows on 3 data ranks: 2 groups of 3 tokens
+    with pytest.raises(ValueError, match="G = 2 .* R = 3 .* neither divides"):
+        data_split(reduced(get_config(arch)), 6, 1, Mesh((3, 1), ("data", "model")), 0)
 
 
 @pytest.mark.parametrize("mode", ["1x2", "1x4"])
